@@ -24,7 +24,8 @@ from pathlib import Path
 
 import torch
 
-SOURCES = ("prefill_attention", "decode_attention")
+SOURCES = ("prefill_attention", "decode_attention", "layer_norm",
+           "attention_bwd")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "apex_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -110,3 +111,14 @@ def check(lib, prefix, rc):
         fn = getattr(lib, f"{prefix}_error_string")
         raise RuntimeError(f"{prefix}: CUDA error {rc}: "
                            f"{fn(rc).decode(errors='replace')}")
+
+
+def launch(name, signatures, fn_name, device, *args):
+    """Call entry point ``fn_name`` of source ``name`` with ``args``, then
+    ``device``'s index and PyTorch's current stream on it; raises on the
+    CUDA error code it returns."""
+    lib = load(name, signatures)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, fn_name)(*args, device.index, stream)
+    check(lib, name, rc)

@@ -1,0 +1,105 @@
+"""Wrappers of the hand-written CUDA attention backward
+(``csrc/attention_bwd.cu``; it replaces
+``apex_tpu/ops/attention_pallas.py:850 _bwd_split``): K5
+:func:`attention_bwd_dq` (the dq pass, ``:869``) and K6
+:func:`attention_bwd_dkv` (the dk/dv pass, ``:899``). The source's
+header says what bounds them and how the design answers that.
+
+Each wrapper checks its inputs, allocates its outputs, launches on
+PyTorch's current stream without synchronising, raises on a refused
+launch, and counts the launch in ``<wrapper>.launches`` (a plain int; a
+caller resets it to 0 before the run it wants to read).
+:func:`attention_bwd` runs both. The plain version is
+:func:`apex_tpu_torch.ops.attention._attention_bwd_split`.
+"""
+
+import ctypes
+
+import torch
+
+from apex_tpu_torch.ops import _build
+from apex_tpu_torch.ops.attention_cuda import _check
+
+_NAME = "attention_bwd"
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "attention_bwd_dq": ([_P] * 11 + [_I] * 5 + [ctypes.c_float, _I, _I, _I,
+                                                 _P], _I),
+    "attention_bwd_dkv": ([_P] * 11 + [_I] * 5 + [ctypes.c_float, _I, _I,
+                                                  _I, _P], _I),
+    "attention_bwd_error_string": ([_I], ctypes.c_char_p),
+}
+
+
+def _seg_ptrs(segment_ids):
+    if segment_ids is None:
+        return None, None
+    return segment_ids[0].data_ptr(), segment_ids[1].data_ptr()
+
+
+def _check_like(name, t, ref):
+    if (t.device != ref.device or t.dtype != ref.dtype
+            or t.shape != ref.shape or not t.is_contiguous()):
+        raise ValueError(f"attention_bwd: {name} must be a contiguous "
+                         f"{ref.dtype} {tuple(ref.shape)} tensor on "
+                         f"{ref.device}")
+
+
+def attention_bwd_dq(q, k, v, o, do, *, causal, sm_scale, segment_ids=None):
+    """K5: ``(dq, m, l, d)`` — dq in q's dtype and the fp32 ``[b, h, sq]``
+    row statistics (max, sum of exponentials, rowsum(dO * O)) K6 reads."""
+    _check(q, k, v, segment_ids)
+    _check_like("o", o, q)
+    _check_like("do", do, q)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    dq = torch.empty_like(q)
+    m, l, dcol = (torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
+                  for _ in range(3))
+    _build.launch(_NAME, _SIGNATURES, "attention_bwd_dq", q.device,
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                  do.data_ptr(), *_seg_ptrs(segment_ids), dq.data_ptr(),
+                  m.data_ptr(), l.data_ptr(), dcol.data_ptr(), b, h, sq, sk,
+                  d, float(sm_scale), int(bool(causal)),
+                  _build.DTYPE_CODES[q.dtype])
+    attention_bwd_dq.launches += 1
+    return dq, m, l, dcol
+
+
+def attention_bwd_dkv(q, k, v, do, m, l, dcol, *, causal, sm_scale,
+                      segment_ids=None):
+    """K6: ``(dk, dv)`` in k's dtype, from K5's row statistics."""
+    _check(q, k, v, segment_ids)
+    _check_like("do", do, q)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    for name, t in (("m", m), ("l", l), ("dcol", dcol)):
+        if (t.device != q.device or t.dtype != torch.float32
+                or tuple(t.shape) != (b, h, sq) or not t.is_contiguous()):
+            raise ValueError(f"attention_bwd: {name} must be a contiguous "
+                             f"fp32 [{b}, {h}, {sq}] tensor on {q.device}")
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _build.launch(_NAME, _SIGNATURES, "attention_bwd_dkv", q.device,
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                  *_seg_ptrs(segment_ids), m.data_ptr(), l.data_ptr(),
+                  dcol.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq, sk,
+                  d, float(sm_scale), int(bool(causal)),
+                  _build.DTYPE_CODES[q.dtype])
+    attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def attention_bwd(q, k, v, o, do, *, causal, sm_scale, segment_ids=None):
+    """K5 then K6: ``(dq, dk, dv)``."""
+    dq, m, l, dcol = attention_bwd_dq(q, k, v, o, do, causal=causal,
+                                      sm_scale=sm_scale,
+                                      segment_ids=segment_ids)
+    dk, dv = attention_bwd_dkv(q, k, v, do, m, l, dcol, causal=causal,
+                               sm_scale=sm_scale, segment_ids=segment_ids)
+    return dq, dk, dv
+
+
+attention_bwd_dq.launches = 0
+attention_bwd_dkv.launches = 0

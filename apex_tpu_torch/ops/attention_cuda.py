@@ -66,19 +66,14 @@ def prefill_attention(q, k, v, *, causal, sm_scale, segment_ids=None):
     """The kernel on ``[b, h, s, d]`` CUDA tensors (see the module
     docstring); returns a new ``[b, h, sq, d]`` tensor."""
     _check(q, k, v, segment_ids)
-    lib = _build.load(_NAME, _SIGNATURES)
     b, h, sq, d = q.shape
     out = torch.empty_like(q)
     seg_q, seg_kv = (segment_ids[0].data_ptr(), segment_ids[1].data_ptr()) \
         if segment_ids is not None else (None, None)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.prefill_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_q, seg_kv,
-            out.data_ptr(), b, h, sq, k.shape[2], d, float(sm_scale),
-            int(bool(causal)), _build.DTYPE_CODES[q.dtype],
-            q.device.index, stream)
-    _build.check(lib, _NAME, rc)
+    _build.launch(_NAME, _SIGNATURES, "prefill_attention_fwd", q.device,
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_q, seg_kv,
+                  out.data_ptr(), b, h, sq, k.shape[2], d, float(sm_scale),
+                  int(bool(causal)), _build.DTYPE_CODES[q.dtype])
     prefill_attention.launches += 1
     return out
 

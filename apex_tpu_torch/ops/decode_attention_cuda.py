@@ -64,18 +64,14 @@ def decode_attention(q, k_pages, v_pages, page_table, lengths, *, sm_scale):
     """The kernel on CUDA tensors (see the module docstring); returns a
     new ``[b, h, d]`` tensor."""
     _check(q, k_pages, v_pages, page_table, lengths)
-    lib = _build.load(_NAME, _SIGNATURES)
     b, h, d = q.shape
     n_pages, ps = k_pages.shape[1], k_pages.shape[2]
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.decode_attention_fwd(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            b, h, n_pages, ps, page_table.shape[1], d, float(sm_scale),
-            _build.DTYPE_CODES[q.dtype], q.device.index, stream)
-    _build.check(lib, _NAME, rc)
+    _build.launch(_NAME, _SIGNATURES, "decode_attention_fwd", q.device,
+                  q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                  page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                  b, h, n_pages, ps, page_table.shape[1], d, float(sm_scale),
+                  _build.DTYPE_CODES[q.dtype])
     decode_attention.launches += 1
     return out
 

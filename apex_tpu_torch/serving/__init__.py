@@ -29,5 +29,7 @@ from apex_tpu_torch.serving.scheduler import (  # noqa: F401
 from apex_tpu_torch.serving.weights import (  # noqa: F401
     from_jax_params,
     init_gpt_params,
+    load_param_tree,
+    param_tree,
     to_numpy_tree,
 )

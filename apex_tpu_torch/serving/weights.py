@@ -22,6 +22,12 @@ the compute dtype themselves.
   weights of a JAX run, after ``jax.tree_util.tree_map(np.asarray, ...)``)
   and checks every shape against the config; :func:`to_numpy_tree` is its
   exact inverse.
+* :func:`load_param_tree` copies such a tree (torch or numpy leaves)
+  into a :class:`~apex_tpu_torch.transformer.testing.GPTModel`, whose
+  ``state_dict`` keys are the tree paths with ``/`` → ``.``;
+  :func:`param_tree` reads the model's parameters back as the tree. The
+  round trip is bit-exact, so one converted tree serves the serving and
+  the training slice.
 * :func:`init_gpt_params` draws the same tree shapes from a
   ``torch.Generator`` — normal(0, ``init_method_std``), the two output
   projections scaled by ``1/sqrt(2 * num_layers)`` as GPTModel does,
@@ -35,6 +41,7 @@ import numpy as np
 import torch
 
 from apex_tpu_torch import default_device
+from apex_tpu_torch._tree import flatten_tree
 
 
 def param_shapes(cfg):
@@ -128,3 +135,40 @@ def init_gpt_params(cfg, seed=0, device=None):
         return torch.randn(shape, generator=gen, device=device) * scale
 
     return _build(param_shapes(cfg), init)
+
+
+def load_param_tree(model, tree):
+    """Copy the nested-dict parameter tree (torch or numpy leaves) into
+    ``model``'s parameters in place, bit for bit; raises on a missing or
+    extra key or a shape or dtype that differs."""
+    flat = flatten_tree(tree)
+    params = dict(model.named_parameters())
+    missing = sorted(set(params) - set(flat))
+    extra = sorted(set(flat) - set(params))
+    if missing or extra:
+        raise KeyError(f"parameter tree and model disagree: missing "
+                       f"{missing[:5]}, extra {extra[:5]}")
+    with torch.no_grad():
+        for name, p in params.items():
+            leaf = flat[name]
+            src = leaf if isinstance(leaf, torch.Tensor) else \
+                torch.from_numpy(np.array(leaf))
+            if tuple(src.shape) != tuple(p.shape) or src.dtype != p.dtype:
+                raise ValueError(f"{name}: {src.dtype} {tuple(src.shape)} "
+                                 f"!= the model's {p.dtype} "
+                                 f"{tuple(p.shape)}")
+            p.copy_(src)
+    return model
+
+
+def param_tree(model):
+    """The model's parameters as the nested-dict tree (detached tensors
+    sharing the parameters' storage)."""
+    tree = {}
+    for name, p in model.named_parameters():
+        node = tree
+        *path, leaf = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = p.detach()
+    return tree

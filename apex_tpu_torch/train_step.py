@@ -1,0 +1,55 @@
+"""The amp-O2 training step (counterpart of ``bench.py:209
+make_one_step``): compute-dtype forward and backward of a
+:class:`~apex_tpu_torch.transformer.testing.GPTModel`, dynamic loss
+scaling, fused Adam, and the skip-step selects of ``bench.py:240-245``.
+
+    step = make_one_step(model, LossScaler(), fused_adam(1e-4))
+    opt_state, scaler_state, loss = step(opt_state, scaler_state,
+                                         ids, pos, labels)
+
+The step never waits on the host: the overflow decision is a device bool
+and the skip is ``torch.where``, so nothing calls ``.item()`` or
+``bool()`` on a device tensor and a caller can queue steps back to back.
+
+The JAX step is a pure function of (params, state); this one updates in
+place to save memory: the model's parameters and the Adam state's
+``count``, ``m`` and ``v`` tensors are overwritten (with their old values
+where the step is skipped), and the returned ``opt_state`` is the same
+object. Gradients are dropped (``grad = None``) at the start of a step.
+"""
+
+import torch
+
+
+def make_one_step(model, scaler, opt):
+    """``one_step(opt_state, scaler_state, ids, pos, labels) ->
+    (opt_state, scaler_state, loss)``; ``loss`` is the unscaled mean
+    per-token loss, a 0-d fp32 device tensor."""
+    params = dict(model.named_parameters())
+
+    def one_step(opt_state, scaler_state, ids, pos, labels):
+        for p in params.values():
+            p.grad = None
+        per_tok = model(ids, pos, None, labels)
+        loss = torch.mean(per_tok) * scaler_state.loss_scale
+        loss.backward()
+        with torch.no_grad():
+            grads = {n: p.grad for n, p in params.items()}
+            grads, found_inf = scaler.unscale(grads, scaler_state)
+            new_scaler_state = scaler.update(scaler_state, found_inf)
+            updates, new_opt_state = opt.update(grads, opt_state, params)
+            for n, p in params.items():
+                p.copy_(torch.where(found_inf, p,
+                                    p + updates[n].to(p.dtype)))
+            opt_state.count.copy_(torch.where(found_inf, opt_state.count,
+                                              new_opt_state.count))
+            for old, new in ((opt_state.m, new_opt_state.m),
+                             (opt_state.v, new_opt_state.v)):
+                for n, t in old.items():
+                    t.copy_(torch.where(found_inf, t, new[n]))
+        for p in params.values():
+            p.grad = None
+        return (opt_state, new_scaler_state,
+                loss.detach() / scaler_state.loss_scale)
+
+    return one_step

@@ -1,21 +1,69 @@
-"""Model configuration of the standalone GPT (counterpart of
+"""The standalone GPT (counterpart of
 ``apex_tpu/transformer/testing/standalone_transformer_lm.py``).
 
-Only :class:`TransformerConfig` is ported so far: the serving path reads
-its shape and numerics fields. The fields keep the JAX package's names
-and defaults, so one set of keyword arguments builds the same
-configuration on either side. ``GPTModel`` itself comes with the
-training step.
+:class:`TransformerConfig` keeps the JAX package's field names and
+defaults, so one set of keyword arguments builds the same configuration
+on either side. The modules port the training path at tp=1, in the JAX
+package's ``[s, b, h]`` hidden layout and numerics:
+
+* :class:`Embedding` (``:663``) — word and position rows summed in the
+  parameter dtype (fp32), transposed to ``[s, b, h]``, cast to the
+  compute dtype;
+* :class:`ParallelAttention` (``:315``) — only the causal, no-mask,
+  no-dropout branch (``:402-406``, ``:471-482``): the fused qkv
+  projection split per head ``[q|k|v]`` (``:352-355``), the ``[b, h, s,
+  d]`` attention of :func:`apex_tpu_torch.ops.attention.fused_attention`
+  (K1 forward, K5/K6 backward on the card) at scale ``1/sqrt(hd)`` —
+  query-key layer scaling is ignored, as the JAX flash branch ignores
+  it — and the output projection (``_via_bhsd :387-396``);
+* :class:`ParallelMLP` (``:282``) — h→4h, bias + tanh GELU, 4h→h;
+* :class:`ParallelTransformerLayer` (``:534``) — pre-LN block with
+  ``residual + (x + bias)`` adds in the compute dtype;
+* :class:`ParallelTransformer` (``:609``) — the layer stack and the
+  final layer norm;
+* :func:`parallel_lm_logits` (``:217``) and :class:`GPTModel`
+  (``:744``) — logits against the tied word table, and the per-token
+  vocab-parallel cross entropy ``[b, s]`` when labels are given.
+
+Layer norms are :class:`FusedLayerNorm` (K3/K4 on the card). Parameter
+names give ``state_dict`` keys equal to the JAX tree paths with ``/``
+→ ``.`` (``transformer.layer_0.self_attention.query_key_value.weight``,
+``word_embeddings``), so :func:`apex_tpu_torch.serving.weights.
+load_param_tree` carries one tree into either slice. What the slice does
+not model raises: dropout in training, the fused LM head, recompute,
+MoE, sequence/context parallelism, tp > 1.
 """
 
 import dataclasses
-from typing import Optional
+import math
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from apex_tpu_torch import default_device
+from apex_tpu_torch.normalization import FusedLayerNorm
+from apex_tpu_torch.ops.attention import fused_attention
+from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
+    vocab_parallel_cross_entropy,
+)
+from apex_tpu_torch.transformer.tensor_parallel.layers import (
+    ColumnParallelLinear,
+    RowParallelLinear,
+    _mm,
+    check_single_rank,
+    scaled_init_std,
+    vocab_parallel_embed,
+)
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """Shape and numerics options of the GPT model (the serving subset of
-    the JAX package's ``TransformerConfig``, same defaults)."""
+    """Shape and numerics options of the GPT model: the JAX package's
+    ``TransformerConfig`` fields that the serving and training paths
+    read, same names and defaults (``params_dtype`` is a torch dtype
+    here)."""
 
     hidden_size: int = 256
     num_layers: int = 2
@@ -28,9 +76,12 @@ class TransformerConfig:
     hidden_dropout: float = 0.1
     attention_dropout: float = 0.1
     apply_query_key_layer_scaling: bool = True
+    fused_lm_head: Optional[bool] = None
     sequence_parallel: bool = False
     context_parallel_axis: Optional[str] = None
     num_moe_experts: Optional[int] = None
+    recompute_granularity: Optional[str] = None
+    params_dtype: Any = torch.float32
     fp16: bool = False
     bf16: bool = False
     init_method_std: float = 0.02
@@ -48,3 +99,195 @@ class TransformerConfig:
                 f"{self.hidden_size} is not divisible by "
                 f"{self.num_attention_heads}")
         return self.hidden_size // self.num_attention_heads
+
+    @property
+    def compute_in_float16(self):
+        return self.fp16 or self.bf16
+
+    @property
+    def compute_dtype(self):
+        return (torch.bfloat16 if self.bf16
+                else torch.float16 if self.fp16 else torch.float32)
+
+
+def check_training_config(cfg):
+    """Raise on TransformerConfig options the training slice does not
+    model (dropout is checked per call: it only matters in training)."""
+    problems = []
+    if cfg.fused_lm_head:
+        problems.append("fused_lm_head=True (the fused LM head is a later "
+                        "slice; False or None runs the materialized head)")
+    if cfg.recompute_granularity not in (None, "none"):
+        problems.append(f"recompute_granularity="
+                        f"{cfg.recompute_granularity!r}")
+    if cfg.num_moe_experts:
+        problems.append("MoE")
+    if cfg.sequence_parallel or cfg.context_parallel_axis:
+        problems.append("sequence/context parallelism")
+    if problems:
+        raise ValueError("GPTModel does not support: " + "; ".join(problems))
+
+
+def parallel_lm_logits(hidden, word_embeddings_weight, bias=None):
+    """Logits against the tied word table: the table cast to the hidden
+    dtype, fp32 accumulation, rounded to the hidden dtype."""
+    logits = _mm(hidden, word_embeddings_weight)
+    if bias is not None:
+        logits = logits + bias.to(logits.dtype)
+    return logits
+
+
+class ParallelMLP(nn.Module):
+    """h → 4h (column) → tanh GELU → h (row)."""
+
+    def __init__(self, cfg, device, generator):
+        super().__init__()
+        std = cfg.init_method_std
+        kw = dict(skip_bias_add=True, params_dtype=cfg.params_dtype,
+                  device=device, generator=generator)
+        self.dense_h_to_4h = ColumnParallelLinear(
+            cfg.hidden_size, cfg.ffn_size, init_std=std, **kw)
+        self.dense_4h_to_h = RowParallelLinear(
+            cfg.ffn_size, cfg.hidden_size,
+            init_std=scaled_init_std(std, cfg.num_layers), **kw)
+
+    def forward(self, hidden):
+        inter, bias = self.dense_h_to_4h(hidden)
+        inter = F.gelu(inter + bias.to(inter.dtype), approximate="tanh")
+        return self.dense_4h_to_h(inter)
+
+
+class ParallelAttention(nn.Module):
+    """Causal self-attention (no mask, no dropout) through
+    :func:`fused_attention`; returns ``(out, bias)``."""
+
+    def __init__(self, cfg, device, generator):
+        super().__init__()
+        self.cfg = cfg
+        proj = cfg.num_attention_heads * cfg.head_dim
+        kw = dict(params_dtype=cfg.params_dtype, device=device,
+                  generator=generator)
+        self.query_key_value = ColumnParallelLinear(
+            cfg.hidden_size, 3 * proj, init_std=cfg.init_method_std, **kw)
+        self.dense = RowParallelLinear(
+            proj, cfg.hidden_size, skip_bias_add=True,
+            init_std=scaled_init_std(cfg.init_method_std, cfg.num_layers),
+            **kw)
+
+    def forward(self, hidden, attention_mask=None):
+        if attention_mask is not None:
+            raise ValueError("ParallelAttention: only the causal branch with "
+                             "no explicit mask is ported")
+        cfg = self.cfg
+        np_, hd = cfg.num_attention_heads, cfg.head_dim
+        s, b = hidden.shape[0], hidden.shape[1]
+        qkv = self.query_key_value(hidden).reshape(s, b, np_, 3 * hd)
+        q, k, v = (t.permute(1, 2, 0, 3).contiguous()
+                   for t in torch.split(qkv, hd, dim=-1))
+        ctx = fused_attention(q, k, v, causal=True,
+                              sm_scale=1.0 / math.sqrt(hd))
+        ctx = ctx.permute(2, 0, 1, 3).reshape(s, b, np_ * hd)
+        return self.dense(ctx)
+
+
+class ParallelTransformerLayer(nn.Module):
+    """Pre-LN block: LN → attention → residual → LN → MLP → residual."""
+
+    def __init__(self, cfg, device, generator):
+        super().__init__()
+        ln = dict(eps=cfg.layernorm_epsilon, device=device)
+        self.input_layernorm = FusedLayerNorm(cfg.hidden_size, **ln)
+        self.self_attention = ParallelAttention(cfg, device, generator)
+        self.post_attention_layernorm = FusedLayerNorm(cfg.hidden_size, **ln)
+        self.mlp = ParallelMLP(cfg, device, generator)
+
+    def forward(self, hidden, attention_mask=None):
+        out, bias = self.self_attention(self.input_layernorm(hidden),
+                                        attention_mask)
+        hidden = hidden + (out + bias.to(out.dtype))
+        out, bias = self.mlp(self.post_attention_layernorm(hidden))
+        return hidden + (out + bias.to(out.dtype))
+
+
+class ParallelTransformer(nn.Module):
+    """``layer_0 .. layer_{n-1}`` and ``final_layernorm``."""
+
+    def __init__(self, cfg, device, generator):
+        super().__init__()
+        self.num_layers = cfg.num_layers
+        for i in range(cfg.num_layers):
+            self.add_module(f"layer_{i}",
+                            ParallelTransformerLayer(cfg, device, generator))
+        self.final_layernorm = FusedLayerNorm(
+            cfg.hidden_size, eps=cfg.layernorm_epsilon, device=device)
+
+    def forward(self, hidden, attention_mask=None):
+        for i in range(self.num_layers):
+            hidden = getattr(self, f"layer_{i}")(hidden, attention_mask)
+        return self.final_layernorm(hidden)
+
+
+class Embedding(nn.Module):
+    """Position table and the word + position sum (the word table is
+    owned by the model and passed in, as in the JAX package)."""
+
+    def __init__(self, cfg, device, generator):
+        super().__init__()
+        self.cfg = cfg
+        self.position_embeddings = nn.Parameter(torch.empty(
+            cfg.max_position_embeddings, cfg.hidden_size,
+            dtype=cfg.params_dtype, device=device).normal_(
+                0.0, cfg.init_method_std, generator=generator))
+
+    def forward(self, word_embeddings, input_ids, position_ids):
+        emb = (vocab_parallel_embed(word_embeddings, input_ids)
+               + self.position_embeddings[position_ids])
+        emb = emb.transpose(0, 1)                     # [b, s, h] → [s, b, h]
+        if self.cfg.compute_in_float16:
+            emb = emb.to(self.cfg.compute_dtype)
+        return emb.contiguous()
+
+
+class GPTModel(nn.Module):
+    """GPT language model at tp=1.
+
+    ``forward(input_ids, position_ids, attention_mask=None, labels=None,
+    deterministic=True)``: ids and positions ``[b, s]``; returns the fp32
+    per-token loss ``[b, s]`` when labels are given, else the logits
+    ``[b, s, vocab]`` in the compute dtype. Parameters are drawn from a
+    ``torch.Generator`` seeded with ``seed`` on ``device`` (``None``
+    means ``cuda``): normal(0, ``init_method_std``), the two output
+    projections scaled by ``1/sqrt(2 num_layers)``, zero biases, unit
+    layer-norm scales. Parity runs load a JAX tree instead
+    (:func:`apex_tpu_torch.serving.weights.load_param_tree`).
+    """
+
+    def __init__(self, cfg, device=None, seed=0, tp_size=1):
+        super().__init__()
+        check_training_config(cfg)
+        check_single_rank(tp_size, cfg.sequence_parallel)
+        device = default_device(device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(seed))
+        self.cfg = cfg
+        self.word_embeddings = nn.Parameter(torch.empty(
+            cfg.vocab_size, cfg.hidden_size, dtype=cfg.params_dtype,
+            device=device).normal_(0.0, cfg.init_method_std, generator=gen))
+        self.embedding = Embedding(cfg, device, gen)
+        self.transformer = ParallelTransformer(cfg, device, gen)
+
+    def forward(self, input_ids, position_ids, attention_mask=None,
+                labels=None, deterministic=True):
+        cfg = self.cfg
+        if not deterministic and (cfg.hidden_dropout > 0
+                                  or cfg.attention_dropout > 0):
+            raise ValueError("GPTModel: dropout in training is not ported "
+                             "(set hidden_dropout = attention_dropout = 0, "
+                             "or run deterministic)")
+        hidden = self.embedding(self.word_embeddings, input_ids, position_ids)
+        hidden = self.transformer(hidden, attention_mask)
+        logits = parallel_lm_logits(hidden, self.word_embeddings)
+        logits = logits.transpose(0, 1)               # [s, b, v] → [b, s, v]
+        if labels is None:
+            return logits
+        return vocab_parallel_cross_entropy(logits, labels)

@@ -9,43 +9,84 @@ exits non-zero before the last line):
 
 1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
    TF32 is switched off for fp32 matmuls and convolutions.
-2. build: both CUDA kernels compile from ``apex_tpu_torch/csrc`` (one
-   ``nvcc`` each, in parallel) into ``build/apex_tpu_torch/``.
-3. one phase per kernel at the serving path's shapes: the kernel against
-   its plain PyTorch version on the card (bf16, stated tolerance); its
-   time, the plain version's and one PyTorch call's (``library_ms``,
-   timed here, never used by the port), each over launches that find the
-   50 MB L2 cache flushed; and the least time an H100 SXM could take for
-   the same work (``bound_ms``: bytes each input read and output written
-   once over 3.35 TB/s, or the work this run's masks leave over 989
-   TFLOP/s bf16, whichever is larger — NVIDIA's data-sheet rates).
-4. end to end: ``ServingEngine`` at GPT-2-small width (12 x 768, 12
-   heads, vocab 50304, 1024 positions, bf16; 8 slots, page size 128, 72
-   pages, 512-token packed prefill) with random weights from seed 0
-   serves a seeded synthetic trace to completion. The launch counts of
-   both kernels are read around that run alone and must equal
+2. build: the four CUDA sources compile from ``apex_tpu_torch/csrc`` (one
+   ``nvcc`` each, all in parallel) into ``build/apex_tpu_torch/``.
+3. one phase per kernel at its main path's shapes: K1 and K2 at the
+   serving shapes, K3/K4 (layer norm, x ``[8192, 768]`` bf16) and K5/K6
+   (attention backward, ``[8, 12, 1024, 64]`` bf16, causal) at the
+   training shapes. Each kernel is held against its plain PyTorch version
+   on the card with a stated tolerance (the training-shape bf16 outputs
+   also by relative L2, ``BF16_L2_TOL``; K1 is held at the training
+   shape too, within ``K1_L2_TOL``, before its output feeds the
+   backward); its time, the plain version's and one PyTorch call's
+   (``library_ms``: SDPA, ``F.layer_norm`` or their backward through
+   ``torch.autograd.grad`` on a graph built outside the timed region —
+   timed here, never used by the port), each over launches
+   that find the 50 MB L2 cache flushed (the kernel's own launches also
+   give their [min, median, max], ``ms_spread``); and the least time an
+   H100 SXM could take for the same work (``bound_ms``: bytes each input
+   read and output written once over 3.35 TB/s, or the work this run's
+   masks leave over 989 TFLOP/s bf16 — 67 TFLOP/s fp32 for layer norm's
+   elementwise math — whichever is larger; NVIDIA's data-sheet rates).
+4. serving end to end: ``ServingEngine`` at GPT-2-small width (12 x 768,
+   12 heads, vocab 50304, 1024 positions, bf16; 8 slots, page size 128,
+   72 pages, 512-token packed prefill) with random weights from seed 0
+   serves a seeded synthetic trace to completion. The launch counts of K1
+   and K2 are read around that run alone and must equal
    ``prefill_batches x 12`` and ``decode_steps x 12``. Then one packed
    prefill batch and 4 decode steps run through the kernel path and the
    plain path on the card, and their logits must agree within 0.35 (the
-   bf16 band of the JAX package's serving tests).
-5. a second short trace replays under ``torch.profiler``: the device's
-   busy share of that window and its kernel time by kind.
+   bf16 band of the JAX package's serving tests); a second short trace
+   replays under ``torch.profiler`` (busy share, kernel time by kind).
+5. training end to end: ``make_one_step`` over ``GPTModel`` at GPT-2-small
+   width, b=8, s=1024, bf16, ``LossScaler()`` and
+   ``fused_adam(learning_rate=1e-4)``, ids and labels from
+   ``np.random.RandomState(0)`` (as ``bench.py`` makes them), the same
+   batch every step. 2 warm-up steps, then the timed steps (host clock
+   ending in ``synchronize``): step ms, tokens/s, MFU = 6 N b s / step /
+   989e12, peak memory. The loss must be finite and lower after the
+   window than at step 1, and the launches per step must be K1 = K5 = K6
+   = 12 and K3 = K4 = 25. One step at b=2 through the kernel path and the
+   plain path on the card: the loss and every gradient within the stated
+   bf16 band. A forced overflow (loss scale 3e38, one gradient made
+   non-finite) must leave every parameter and the Adam state bitwise
+   unchanged, halve the scale and reset ``unskipped``. A profiled window
+   gives the device's busy share and time by kind.
 6. one JSON line per kernel, the ``{"kernels": [...]}`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
 import json
+import statistics
 import subprocess
 import sys
 import time
 from unittest import mock
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12     # H100 SXM data sheet, dense
+FP32_FLOPS_PER_S = 67e12      # H100 SXM data sheet, fp32 off the tensor cores
 L2_FLUSH_BYTES = 128 << 20    # > the 50 MB L2 cache
 LOGITS_BAND = 0.35
+# a bf16 kernel output against its plain version, ||out - ref|| / ||ref||.
+# K3-K6 and their plain versions round at the same points, so most
+# elements round to the same value (on an H100: 1e-5 for layer norm,
+# 5e-5 to 8e-5 for the attention gradients at the training shape).
+# K1's plain version rounds P to bf16 before the value product and K1
+# does not, which costs ~2.5e-3 on the same card.
+BF16_L2_TOL = 1e-3
+K1_L2_TOL = 1e-2
+# kernel path vs plain path of one training step (bf16): |loss diff| and
+# each gradient's relative L2 difference. The two paths share every bf16
+# rounding point (P and dS rounded before the products, layer-norm output
+# in bf16); they differ in fp32 summation order and exp, and a one-ulp
+# flip of a bf16 intermediate moves a gradient by ~2^-8 of its scale.
+TRAIN_LOSS_BAND = 2e-2
+TRAIN_GRAD_BAND = 5e-2
+TRAIN = dict(batch=8, seq=1024, warmup=2, timed=5, lr=1e-4)
 
 # the serving configuration the repo benchmarks (GPT-2 small)
 MODEL = dict(hidden_size=768, num_layers=12, num_attention_heads=12,
@@ -62,15 +103,16 @@ def _log(msg):
     print(msg, flush=True)
 
 
-def _time_ms(fn, flush, reps=20):
+def _time_ms(fn, flush, reps=20, spread=None):
     """Mean device time of ``fn`` over ``reps`` launches, each after an
     L2 flush, timed with CUDA events. A spin of ~0.5 ms on the stream
     before each timed launch lets the host queue all of ``fn``'s work
-    first, so host overhead does not land inside the events."""
+    first, so host overhead does not land inside the events. A list
+    passed as ``spread`` receives the launches' [min, median, max]."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    total = 0.0
+    times = []
     for _ in range(reps):
         flush.zero_()
         torch.cuda._sleep(1_000_000)
@@ -80,15 +122,25 @@ def _time_ms(fn, flush, reps=20):
         fn()
         end.record()
         end.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
+        times.append(start.elapsed_time(end))
+    if spread is not None:
+        spread[:] = [min(times), statistics.median(times), max(times)]
+    return sum(times) / reps
 
 
-def _bound(nbytes, flops):
+def _bound(nbytes, flops, flops_per_s=BF16_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+def _rel_err(out, ref):
+    """max |out - ref| over ref's largest magnitude (at least 1)."""
+    out, ref = out.float(), ref.float()
+    if not torch.isfinite(out).all():
+        raise AssertionError("kernel output is not finite")
+    return ((out - ref).abs().max() / ref.abs().max().clamp(min=1.0)).item()
 
 
 def _max_err(out, ref):
@@ -96,6 +148,15 @@ def _max_err(out, ref):
     if not torch.isfinite(out).all():
         raise AssertionError("kernel output is not finite")
     return (out - ref).abs().max().item()
+
+
+def _rel_l2(out, ref):
+    """||out - ref|| / ||ref||: an error the size of the typical element
+    shows here even where a few elements are much larger."""
+    out, ref = out.float(), ref.float()
+    if not torch.isfinite(out).all():
+        raise AssertionError("kernel output is not finite")
+    return ((out - ref).norm() / ref.norm().clamp(min=1e-30)).item()
 
 
 def phase_prefill_kernel(dev, flush):
@@ -130,9 +191,10 @@ def phase_prefill_kernel(dev, flush):
     pos = torch.arange(S, device=dev)
     allowed = (pos[None, :] <= pos[:, None]) & (seg[0][None, :]
                                                 == seg[0][:, None])
+    spread = []
     ms = _time_ms(lambda: attention_cuda.prefill_attention(
         q, k, v, causal=True, sm_scale=scale, segment_ids=(seg, seg)),
-        flush)
+        flush, spread=spread)
     plain_ms = _time_ms(lambda: attention._dense_attention(
         q, k, v, True, scale, (seg, seg)), flush)
     mask = allowed[None, None]
@@ -147,7 +209,7 @@ def phase_prefill_kernel(dev, flush):
         "replaces": "apex_tpu/ops/attention_pallas.py:230",
         "shape": f"q,k,v [1,{H},{S},{D}] bf16, 3 segments + padding",
         "max_abs_err": err, "tol": tol, "ms": ms, "kernel_ms": ms,
-        "plain_ms": plain_ms, "library_ms": lib_ms,
+        "ms_spread": spread, "plain_ms": plain_ms, "library_ms": lib_ms,
         "library": "F.scaled_dot_product_attention, boolean mask",
         "bound_ms": bound_ms, "bound_by": bound_by,
         "bytes": nbytes, "flops": flops}
@@ -192,8 +254,9 @@ def phase_decode_kernel(dev, flush):
     if out[0].abs().max().item() != 0.0:
         raise AssertionError("an inactive slot (length 0) must give 0")
 
+    spread = []
     ms = _time_ms(lambda: decode_attention_cuda.decode_attention(
-        q, kp, vp, pt, lengths, sm_scale=scale), flush)
+        q, kp, vp, pt, lengths, sm_scale=scale), flush, spread=spread)
     plain_ms = _time_ms(lambda: decode_attention.decode_attention_reference(
         q, kp, vp, pt, lengths, scale), flush)
     # the yardstick attends over K/V gathered beforehand (gather excluded)
@@ -217,7 +280,7 @@ def phase_decode_kernel(dev, flush):
         "shape": (f"q [{B},{H},{D}] bf16, pages [{H},{P},{PS},{D}], "
                   f"lengths {lengths_l}"),
         "max_abs_err": err, "tol": tol, "ms": ms, "kernel_ms": ms,
-        "plain_ms": plain_ms, "library_ms": lib_ms,
+        "ms_spread": spread, "plain_ms": plain_ms, "library_ms": lib_ms,
         "library": ("F.scaled_dot_product_attention over pre-gathered "
                     "contiguous K/V (gather excluded)"),
         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -304,8 +367,6 @@ def phase_device_share(engine):
     """Replay a second, short trace under torch.profiler: the device's
     busy share of that window and its kernel time by kind (the profiler
     adds host cost, so this window's wall is not a throughput number)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from apex_tpu_torch.serving import synthetic_trace
 
     reqs, _ = synthetic_trace(seed=1, n_requests=8, vocab=MODEL["vocab_size"],
@@ -313,41 +374,9 @@ def phase_device_share(engine):
                               new_hi=32, mean_interarrival=0.0)
     for r in reqs:
         r.rid += 2000     # rids stay unique in the engine's event log
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.run_trace(reqs)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kinds = {"prefill_attention": 0.0, "decode_attention": 0.0,
-             "matmul": 0.0, "other": 0.0}
-    by_name = []
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA \
-                or evt.is_user_annotation:
-            continue
-        name = evt.key
-        kind = ("prefill_attention" if "prefill_attention_kernel" in name
-                else "decode_attention" if "decode_attention_kernel" in name
-                else "matmul" if any(w in name.lower() for w in
-                                     ("gemm", "gemv", "cutlass", "xmma",
-                                      "nvjet", "sm90_"))
-                else "other")
-        kinds[kind] += evt.self_device_time_total
-        by_name.append((evt.self_device_time_total, evt.count, name[:60]))
-    busy = sum(kinds.values())
-    if busy == 0:
-        _log("device busy share: not measured (the profiler saw no "
-             "device time)")
-        return None
-    share = {"window_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-             "device_busy_share": busy / wall_us}
-    share.update({f"{k}_ms": v / 1e3 for k, v in kinds.items()})
-    _log("profiled window: " + json.dumps(share))
-    for us, count, name in sorted(by_name, reverse=True)[:8]:
-        _log(f"  {us / 1e3:8.3f} ms  {count:6d} x  {name}")
-    return share
+    return _profile(lambda: engine.run_trace(reqs),
+                    ("attention_fwd", "decode_attention", "layer_norm",
+                     "matmul", "other"))
 
 
 def phase_paths_agree(engine, dev):
@@ -423,6 +452,463 @@ def phase_paths_agree(engine, dev):
     return worst, agree / total
 
 
+def phase_layer_norm_kernels(dev, flush):
+    """K3 and K4 at the training shape: x, dy [8192, 768] bf16, fp32
+    affine (every layer norm of the GPT-2-small step at b=8, s=1024)."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import layer_norm, layer_norm_cuda
+
+    rows, hidden = TRAIN["batch"] * TRAIN["seq"], 768
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = (torch.randn(rows, hidden, generator=gen, device=dev) * 2 + 1).to(
+        torch.bfloat16)
+    dy = torch.randn(rows, hidden, generator=gen, device=dev).to(
+        torch.bfloat16)
+    w = torch.rand(hidden, generator=gen, device=dev) + 0.5
+    b = torch.randn(hidden, generator=gen, device=dev)
+    # bf16 outputs: one ulp is 2^-8 of the value, each side may round the
+    # other way (so 2^-7 of the largest magnitude); the fp32 statistics
+    # and affine-gradient sums differ only in summation order (1e-4)
+    tol_out, tol_f32 = 2.0 ** -7, 1e-4
+    y, mean, rstd = layer_norm_cuda.layer_norm_fwd(x, w, b, 1e-5)
+    dx, dw_part, db_part = layer_norm_cuda.layer_norm_bwd(x, w, mean, rstd,
+                                                          dy)
+    ry, rmean, rrstd = layer_norm.layer_norm_fwd(x, w, b, 1e-5)
+    rdx, rdw, rdb = layer_norm.layer_norm_bwd(x, w, rmean, rrstd, dy)
+    torch.cuda.synchronize()
+    fwd_err = max(_rel_err(y, ry) / tol_out, _rel_err(mean, rmean) / tol_f32,
+                  _rel_err(rstd, rrstd) / tol_f32)
+    bwd_err = max(_rel_err(dx, rdx) / tol_out,
+                  _rel_err(dw_part.sum(0), rdw) / tol_f32,
+                  _rel_err(db_part.sum(0), rdb) / tol_f32)
+    y_abs = _max_err(y, ry)
+    dx_abs = _max_err(dx, rdx)
+    y_l2, dx_l2 = _rel_l2(y, ry), _rel_l2(dx, rdx)
+    _log(f"layer_norm_fwd: max_abs_err {y_abs:.3e}; worst error / its "
+         f"tolerance {fwd_err:.3f}; y relative L2 {y_l2:.3e} (tol "
+         f"{BF16_L2_TOL})")
+    _log(f"layer_norm_bwd: max_abs_err {dx_abs:.3e}; worst error / its "
+         f"tolerance {bwd_err:.3f}; dx relative L2 {dx_l2:.3e} (tol "
+         f"{BF16_L2_TOL})")
+    if fwd_err > 1 or bwd_err > 1 or max(y_l2, dx_l2) > BF16_L2_TOL:
+        raise AssertionError(f"layer-norm kernels disagree with the plain "
+                             f"versions: {fwd_err}, {bwd_err} x tolerance; "
+                             f"relative L2 {y_l2}, {dx_l2}")
+
+    fwd_spread, bwd_spread = [], []
+    fwd_ms = _time_ms(lambda: layer_norm_cuda.layer_norm_fwd(x, w, b, 1e-5),
+                      flush, spread=fwd_spread)
+    fwd_plain = _time_ms(lambda: layer_norm.layer_norm_fwd(x, w, b, 1e-5),
+                         flush)
+    wl, bl = w.to(torch.bfloat16), b.to(torch.bfloat16)
+    fwd_lib = _time_ms(lambda: F.layer_norm(x, (hidden,), wl, bl, 1e-5),
+                       flush)
+    bwd_ms = _time_ms(lambda: layer_norm_cuda.layer_norm_bwd(
+        x, w, mean, rstd, dy), flush, spread=bwd_spread)
+    bwd_plain = _time_ms(lambda: layer_norm.layer_norm_bwd(
+        x, w, rmean, rrstd, dy), flush)
+    xg = x.detach().requires_grad_()
+    wg, bg = wl.detach().requires_grad_(), bl.detach().requires_grad_()
+    yg = F.layer_norm(xg, (hidden,), wg, bg, 1e-5)   # graph built untimed
+    bwd_lib = _time_ms(lambda: torch.autograd.grad(
+        yg, (xg, wg, bg), dy, retain_graph=True), flush)
+    elems = rows * hidden
+    fwd_bytes = 2 * elems * 2 + 2 * hidden * 4 + 2 * rows * 4
+    bwd_bytes = 3 * elems * 2 + hidden * 4 + 2 * rows * 4 + 2 * hidden * 4
+    fwd_bound = _bound(fwd_bytes, 8 * elems, FP32_FLOPS_PER_S)
+    bwd_bound = _bound(bwd_bytes, 14 * elems, FP32_FLOPS_PER_S)
+    shape = f"x [{rows},{hidden}] bf16, w/b fp32"
+    common = {"route": "cuda", "source": "apex_tpu_torch/csrc/layer_norm.cu",
+              "shape": shape,
+              "library": ("F.layer_norm with bf16 weight and bias (it "
+                          "takes one dtype)")}
+    return [
+        dict(common, name="layer_norm_fwd",
+             replaces="apex_tpu/ops/layer_norm_pallas.py:185",
+             max_abs_err=y_abs, err_over_tol=fwd_err, tol=tol_out,
+             rel_l2=y_l2, rel_l2_tol=BF16_L2_TOL,
+             ms=fwd_ms, kernel_ms=fwd_ms, ms_spread=fwd_spread,
+             plain_ms=fwd_plain,
+             library_ms=fwd_lib, bound_ms=fwd_bound[0],
+             bound_by=fwd_bound[1], bytes=fwd_bytes, flops=8 * elems),
+        dict(common, name="layer_norm_bwd",
+             replaces="apex_tpu/ops/layer_norm_pallas.py:222",
+             max_abs_err=dx_abs, err_over_tol=bwd_err, tol=tol_out,
+             rel_l2=dx_l2, rel_l2_tol=BF16_L2_TOL,
+             ms=bwd_ms, kernel_ms=bwd_ms, ms_spread=bwd_spread,
+             plain_ms=bwd_plain,
+             library_ms=bwd_lib, bound_ms=bwd_bound[0],
+             bound_by=bwd_bound[1], bytes=bwd_bytes, flops=14 * elems,
+             library=("backward of F.layer_norm via torch.autograd.grad "
+                      "(graph built outside the timed region)"))]
+
+
+def phase_attention_bwd_kernels(dev, flush):
+    """K5 and K6 at the training shape: q, k, v, dO [8, 12, 1024, 64]
+    bf16, causal, o from K1; also K1's own numbers at that shape."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import attention, attention_bwd_cuda
+    from apex_tpu_torch.ops import attention_cuda
+
+    B, H, S, D = TRAIN["batch"], 12, TRAIN["seq"], 64
+    gen = torch.Generator(device=dev).manual_seed(6)
+    q, k, v, do = (torch.randn(B, H, S, D, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = D ** -0.5
+    # K1 at this shape against the plain forward before its o feeds the
+    # backward on both sides: max |o diff| within the serving check's 5e-2
+    # and the relative L2 within K1_L2_TOL
+    k1_tol = 5e-2
+    o = attention_cuda.prefill_attention(q, k, v, causal=True,
+                                         sm_scale=scale)
+    ro = attention._dense_attention(q, k, v, True, scale, None)
+    torch.cuda.synchronize()
+    k1_err = {"max_abs_err": _max_err(o, ro), "rel_l2": _rel_l2(o, ro)}
+    del ro
+    _log(f"prefill_attention at the training shape: {k1_err} (tol "
+         f"{k1_tol}, {K1_L2_TOL})")
+    if k1_err["max_abs_err"] > k1_tol or k1_err["rel_l2"] > K1_L2_TOL:
+        raise AssertionError(f"prefill kernel disagrees at the training "
+                             f"shape: {k1_err}")
+
+    # each gradient by its relative L2 against the plain split backward
+    # (BF16_L2_TOL), and the largest element error within 5e-2 of the
+    # largest gradient magnitude (the card tests' outlier band)
+    tol = 5e-2
+    dq, m, l, dcol = attention_bwd_cuda.attention_bwd_dq(
+        q, k, v, o, do, causal=True, sm_scale=scale)
+    dk, dv = attention_bwd_cuda.attention_bwd_dkv(
+        q, k, v, do, m, l, dcol, causal=True, sm_scale=scale)
+    rdq, rdk, rdv = attention._attention_bwd_split(q, k, v, o, do, True,
+                                                   scale, None)
+    torch.cuda.synchronize()
+    pairs = {"dq": (dq, rdq), "dk": (dk, rdk), "dv": (dv, rdv)}
+    l2 = {n: _rel_l2(a, b) for n, (a, b) in pairs.items()}
+    errs = {n: _rel_err(a, b) for n, (a, b) in pairs.items()}
+    abs_errs = {"dq": _max_err(dq, rdq),
+                "dkv": max(_max_err(dk, rdk), _max_err(dv, rdv))}
+    ref_rms = {n: b.float().square().mean().sqrt().item()
+               for n, (_, b) in pairs.items()}
+    del pairs, rdq, rdk, rdv
+    _log(f"attention_bwd: relative L2 {l2} (tol {BF16_L2_TOL}); max error "
+         f"over the largest magnitude {errs} (tol {tol}); max_abs_err "
+         f"{abs_errs}; reference rms {ref_rms}")
+    if max(l2.values()) > BF16_L2_TOL or max(errs.values()) > tol:
+        raise AssertionError(f"attention backward kernels disagree: "
+                             f"relative L2 {l2}, max {errs}")
+
+    # K1 at the training shape (its row's own numbers are the serving
+    # shape's): time, plain and SDPA forward, bound
+    k1_spread, dq_spread, dkv_spread = [], [], []
+    k1_ms = _time_ms(lambda: attention_cuda.prefill_attention(
+        q, k, v, causal=True, sm_scale=scale), flush, spread=k1_spread)
+    k1_plain = _time_ms(lambda: attention._dense_attention(
+        q, k, v, True, scale, None), flush, reps=5)
+    k1_lib = _time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=scale), flush)
+    dq_ms = _time_ms(lambda: attention_bwd_cuda.attention_bwd_dq(
+        q, k, v, o, do, causal=True, sm_scale=scale), flush,
+        spread=dq_spread)
+    dkv_ms = _time_ms(lambda: attention_bwd_cuda.attention_bwd_dkv(
+        q, k, v, do, m, l, dcol, causal=True, sm_scale=scale), flush,
+        spread=dkv_spread)
+    plain_ms = _time_ms(lambda: attention._attention_bwd_split(
+        q, k, v, o, do, True, scale, None), flush, reps=5)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    og = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                        scale=scale)   # graph built untimed
+    lib_ms = _time_ms(lambda: torch.autograd.grad(
+        og, (qg, kg, vg), do, retain_graph=True), flush)
+    live = B * H * S * (S + 1) // 2          # causal (query, key) pairs
+    t_bytes = q.numel() * q.element_size()
+    stats = 3 * B * H * S * 4
+    dq_bytes = 6 * t_bytes + stats           # q k v o dO in, dq out
+    dkv_bytes = 6 * t_bytes + stats          # q k v dO + stats in, dk dv out
+    dq_flops, dkv_flops = 3 * 2 * D * live, 4 * 2 * D * live
+    dq_bound, dkv_bound = _bound(dq_bytes, dq_flops), _bound(dkv_bytes,
+                                                             dkv_flops)
+    k1_bound = _bound(4 * t_bytes, 2 * 2 * D * live)
+    k1_train = {"shape": f"q,k,v [{B},{H},{S},{D}] bf16, causal",
+                **k1_err, "tol": k1_tol, "rel_l2_tol": K1_L2_TOL,
+                "ms": k1_ms, "ms_spread": k1_spread, "plain_ms": k1_plain,
+                "library_ms": k1_lib,
+                "library": "F.scaled_dot_product_attention(is_causal=True)",
+                "bound_ms": k1_bound[0], "bound_by": k1_bound[1]}
+    _log("prefill_attention at the training shape: " + json.dumps(k1_train))
+    common = {"route": "cuda",
+              "source": "apex_tpu_torch/csrc/attention_bwd.cu",
+              "shape": f"q,k,v,dO [{B},{H},{S},{D}] bf16, causal",
+              "plain": ("_attention_bwd_split computes dq, dk and dv "
+                        "together; its time is the pair's"),
+              "plain_ms": plain_ms, "library_ms": lib_ms,
+              "library": ("backward of F.scaled_dot_product_attention("
+                          "is_causal=True) via torch.autograd.grad (graph "
+                          "built outside the timed region), dq, dk and dv "
+                          "together"), "tol": tol,
+              "rel_l2_tol": BF16_L2_TOL}
+    return [
+        dict(common, name="attention_bwd_dq",
+             replaces="apex_tpu/ops/attention_pallas.py:869",
+             max_abs_err=abs_errs["dq"], rel_err=errs["dq"],
+             rel_l2=l2["dq"], ms=dq_ms,
+             kernel_ms=dq_ms, ms_spread=dq_spread, bound_ms=dq_bound[0],
+             bound_by=dq_bound[1],
+             bytes=dq_bytes, flops=dq_flops),
+        dict(common, name="attention_bwd_dkv",
+             replaces="apex_tpu/ops/attention_pallas.py:899",
+             max_abs_err=abs_errs["dkv"],
+             rel_err=max(errs["dk"], errs["dv"]),
+             rel_l2=max(l2["dk"], l2["dv"]), ms=dkv_ms,
+             kernel_ms=dkv_ms, ms_spread=dkv_spread, bound_ms=dkv_bound[0],
+             bound_by=dkv_bound[1], bytes=dkv_bytes,
+             flops=dkv_flops)], k1_train
+
+
+def _training_counts():
+    from apex_tpu_torch.ops import (attention_bwd_cuda, attention_cuda,
+                                    layer_norm_cuda)
+
+    return {"prefill_attention": attention_cuda.prefill_attention,
+            "attention_bwd_dq": attention_bwd_cuda.attention_bwd_dq,
+            "attention_bwd_dkv": attention_bwd_cuda.attention_bwd_dkv,
+            "layer_norm_fwd": layer_norm_cuda.layer_norm_fwd,
+            "layer_norm_bwd": layer_norm_cuda.layer_norm_bwd}
+
+
+def _train_setup(dev, batch, seed=0):
+    from apex_tpu_torch.amp import LossScaler
+    from apex_tpu_torch.optimizers import fused_adam
+    from apex_tpu_torch.train_step import make_one_step
+    from apex_tpu_torch.transformer.testing import (GPTModel,
+                                                    TransformerConfig)
+
+    cfg = TransformerConfig(**MODEL, fused_lm_head=False,
+                            recompute_granularity="none")
+    model = GPTModel(cfg, device=dev, seed=seed)
+    scaler, opt = LossScaler(), fused_adam(learning_rate=TRAIN["lr"])
+    rs = np.random.RandomState(0)                 # as bench.py:433-435
+    s = TRAIN["seq"]
+    ids = torch.from_numpy(rs.randint(0, cfg.vocab_size, (batch, s))).to(dev)
+    labels = torch.from_numpy(rs.randint(0, cfg.vocab_size,
+                                         (batch, s))).to(dev)
+    pos = torch.arange(s, device=dev)[None].expand(batch, s)
+    step = make_one_step(model, scaler, opt)
+    return (model, scaler, opt, step, opt.init(dict(model.named_parameters())),
+            scaler.init(dev), ids, pos, labels)
+
+
+def phase_training(dev, card):
+    """The training main path: warm-up, the timed window with the launch
+    counts read around it alone, the loss check after the window."""
+    b, s = TRAIN["batch"], TRAIN["seq"]
+    t0 = time.perf_counter()
+    (model, scaler, opt, step, opt_state, ss, ids, pos,
+     labels) = _train_setup(dev, b)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    _log(f"GPTModel built in {time.perf_counter() - t0:.2f} s: "
+         f"{n_params} parameters")
+    losses = []
+    for _ in range(TRAIN["warmup"]):
+        opt_state, ss, loss = step(opt_state, ss, ids, pos, labels)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    counts = _training_counts()
+    for fn in counts.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN["timed"]):
+        opt_state, ss, loss = step(opt_state, ss, ids, pos, labels)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counts.items()}
+    peak = torch.cuda.max_memory_allocated()
+    vals = [x.item() for x in losses]             # read after the window
+    step_ms = wall / TRAIN["timed"] * 1e3
+    stats = {"card": card, "batch": b, "seq": s,
+             "steps_timed": TRAIN["timed"],
+             "step_ms": step_ms, "tokens_per_s": b * s / (step_ms / 1e3),
+             "mfu": 6 * n_params * b * s / (step_ms / 1e3) / BF16_FLOPS_PER_S,
+             "n_params": n_params, "peak_mem_gb": peak / 1e9,
+             "loss_step1": vals[0], "loss_last": vals[-1], "losses": vals,
+             "launches_per_step": {k: v / TRAIN["timed"]
+                                   for k, v in launches.items()}}
+    _log("training: " + json.dumps(stats))
+    if not all(np.isfinite(vals)) or not vals[-1] < vals[0]:
+        raise AssertionError(f"training loss not finite and falling: {vals}")
+    want = {"prefill_attention": 12, "attention_bwd_dq": 12,
+            "attention_bwd_dkv": 12, "layer_norm_fwd": 25,
+            "layer_norm_bwd": 25}
+    for k, per_step in want.items():
+        if launches[k] != per_step * TRAIN["timed"]:
+            raise AssertionError(f"{k}: {launches[k]} launches in "
+                                 f"{TRAIN['timed']} steps, want {per_step} "
+                                 f"per step")
+    return (model, scaler, step, opt_state, ss, ids, pos, labels), launches
+
+
+def phase_training_overflow(state):
+    """A forced overflow: every parameter and the Adam state bitwise
+    unchanged, the scale halved, ``unskipped`` reset. At a loss scale of
+    3e38 the port's gradients stay finite (the largest is ~0.1 at init,
+    and 0.1 x 3e38 < the fp32 maximum), so a hook makes the word-table
+    gradient non-finite, as an overflow would."""
+    model, scaler, step, opt_state, ss, ids, pos, labels = state
+    ss = scaler.load_state_dict(ss, {"loss_scale": 3e38, "unskipped": 7})
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    before_m = {n: t.clone() for n, t in opt_state.m.items()}
+    before_v = {n: t.clone() for n, t in opt_state.v.items()}
+    count = opt_state.count.item()
+    hook = model.word_embeddings.register_hook(
+        lambda g: g * float("inf"))
+    opt_state, ss, _ = step(opt_state, ss, ids, pos, labels)
+    hook.remove()
+    torch.cuda.synchronize()
+    same = all(torch.equal(p.detach(), before[n])
+               for n, p in model.named_parameters())
+    same_state = (all(torch.equal(t, before_m[n])
+                      for n, t in opt_state.m.items())
+                  and all(torch.equal(t, before_v[n])
+                          for n, t in opt_state.v.items())
+                  and opt_state.count.item() == count)
+    result = {"overflow": ss.overflow.item(),
+              "loss_scale": ss.loss_scale.item(),
+              "unskipped": ss.unskipped.item(),
+              "params_unchanged": same, "adam_state_unchanged": same_state}
+    _log("forced overflow: " + json.dumps(result))
+    if not (result["overflow"] and same and same_state
+            and result["loss_scale"] == np.float32(1.5e38)
+            and result["unskipped"] == 0):
+        raise AssertionError(f"the forced overflow was not skipped: {result}")
+    return result
+
+
+def phase_training_paths_agree(dev):
+    """One step's loss and every gradient at b=2 through the kernel path
+    and the plain path on the card."""
+    from apex_tpu_torch.ops import (attention, attention_bwd_cuda,
+                                    attention_cuda, layer_norm,
+                                    layer_norm_cuda)
+
+    def plain_fwd(q, k, v, *, causal, sm_scale, segment_ids=None):
+        return attention._dense_attention(q, k, v, causal, sm_scale,
+                                          segment_ids)
+
+    def plain_bwd(q, k, v, o, do, *, causal, sm_scale, segment_ids=None):
+        return attention._attention_bwd_split(q, k, v, o, do, causal,
+                                              sm_scale, segment_ids)
+
+    def plain_ln_bwd(x, w, mean, rstd, dy):
+        dx, dw, db = layer_norm.layer_norm_bwd(x, w, mean, rstd, dy)
+        return dx, dw[None], db[None]
+
+    model, _, _, _, _, _, ids, pos, labels = _train_setup(dev, 2, seed=1)
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        loss = model(ids, pos, None, labels).mean()
+        loss.backward()
+        return loss.item(), {n: p.grad.float().clone()
+                             for n, p in model.named_parameters()}
+
+    kernel_loss, kernel_grads = grads()
+    with mock.patch.object(attention_cuda, "prefill_attention", plain_fwd), \
+            mock.patch.object(attention_bwd_cuda, "attention_bwd",
+                              plain_bwd), \
+            mock.patch.object(layer_norm_cuda, "layer_norm_fwd",
+                              layer_norm.layer_norm_fwd), \
+            mock.patch.object(layer_norm_cuda, "layer_norm_bwd",
+                              plain_ln_bwd):
+        plain_loss, plain_grads = grads()
+    worst, worst_name = 0.0, ""
+    for n, g in kernel_grads.items():
+        ref = plain_grads[n]
+        err = ((g - ref).norm() / ref.norm().clamp(min=1e-30)).item()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{n}: kernel-path gradient not finite")
+        if err > worst:
+            worst, worst_name = err, n
+    dloss = abs(kernel_loss - plain_loss)
+    _log(f"training kernel vs plain path on the card (b=2): loss "
+         f"{kernel_loss:.6f} vs {plain_loss:.6f} (band {TRAIN_LOSS_BAND}), "
+         f"worst gradient relative L2 {worst:.3e} at {worst_name} (band "
+         f"{TRAIN_GRAD_BAND})")
+    if dloss > TRAIN_LOSS_BAND or worst > TRAIN_GRAD_BAND:
+        raise AssertionError("training kernel path disagrees with the "
+                             "plain path")
+    return dloss, worst
+
+
+def _kind(name):
+    low = name.lower()
+    if "prefill_attention_kernel" in name:
+        return "attention_fwd"
+    if "attention_bwd_" in name:
+        return "attention_bwd"
+    if "decode_attention_kernel" in name:
+        return "decode_attention"
+    if "layer_norm_" in name:
+        return "layer_norm"
+    if any(w in low for w in ("gemm", "gemv", "cutlass", "xmma", "nvjet",
+                              "sm90_")):
+        return "matmul"
+    return "other"
+
+
+def _profile(fn, kinds):
+    """Run ``fn`` under torch.profiler; the window's busy share and its
+    device time by kind (None when the profiler saw no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_kind = dict.fromkeys(kinds, 0.0)
+    by_name = []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA \
+                or evt.is_user_annotation:
+            continue
+        kind = _kind(evt.key)
+        by_kind[kind] = by_kind.get(kind, 0.0) + evt.self_device_time_total
+        by_name.append((evt.self_device_time_total, evt.count, evt.key[:60]))
+    busy = sum(by_kind.values())
+    if busy == 0:
+        _log("device busy share: not measured (the profiler saw no "
+             "device time)")
+        return None
+    share = {"window_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+             "device_busy_share": busy / wall_us}
+    share.update({f"{k}_ms": v / 1e3 for k, v in by_kind.items()})
+    _log("profiled window: " + json.dumps(share))
+    for us, count, name in sorted(by_name, reverse=True)[:8]:
+        _log(f"  {us / 1e3:8.3f} ms  {count:6d} x  {name}")
+    return share
+
+
+def phase_training_profile(state):
+    """Two training steps under torch.profiler (the profiler adds host
+    cost, so this window's wall is not a step time)."""
+    model, scaler, step, opt_state, ss, ids, pos, labels = state
+    ss = scaler.init(ids.device)
+
+    def two_steps():
+        nonlocal opt_state, ss
+        for _ in range(2):
+            opt_state, ss, _ = step(opt_state, ss, ids, pos, labels)
+
+    return _profile(two_steps, ("attention_fwd", "attention_bwd",
+                                "layer_norm", "matmul", "other"))
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false — this "
@@ -450,13 +936,34 @@ def main():
 
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     rows = [phase_prefill_kernel(dev, flush), phase_decode_kernel(dev, flush)]
+    rows += phase_layer_norm_kernels(dev, flush)
+    bwd_rows, k1_train = phase_attention_bwd_kernels(dev, flush)
+    rows += bwd_rows
+    rows[0]["training_shape"] = k1_train
     del flush
+    torch.cuda.empty_cache()
+
     engine, launches = phase_end_to_end(dev)
     phase_paths_agree(engine, dev)
     phase_device_share(engine)
+    del engine
+    torch.cuda.empty_cache()
+
+    state, train_launches = phase_training(dev, smi)
+    phase_training_overflow(state)
+    phase_training_profile(state)
+    del state
+    torch.cuda.empty_cache()
+    phase_training_paths_agree(dev)
 
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        name = row["name"]
+        by_path = {path: counts[name] for path, counts in
+                   (("serving", launches), ("training", train_launches))
+                   if name in counts}
+        # the slice's own path: training where the kernel runs there
+        row["launches"] = by_path.get("training", by_path.get("serving", 0))
+        row["launches_by_path"] = by_path
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} never ran on the main path")
         row["card"] = smi

@@ -59,6 +59,7 @@ def test_importing_the_port_loads_no_jax_and_no_apex_tpu():
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
     assert "apex_tpu_torch.serving.engine" in mods and "chip_smoke" in mods
+    assert "apex_tpu_torch.train_step" in mods
 
 
 def test_no_source_imports_jax_or_apex_tpu():
@@ -79,8 +80,11 @@ def test_no_source_imports_jax_or_apex_tpu():
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from apex_tpu_torch import default_device
+    from apex_tpu_torch.amp import LossScaler
+    from apex_tpu_torch.normalization import FusedLayerNorm
     from apex_tpu_torch.serving import ServingEngine, init_gpt_params
-    from apex_tpu_torch.transformer.testing import TransformerConfig
+    from apex_tpu_torch.transformer.testing import (GPTModel,
+                                                    TransformerConfig)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = TransformerConfig(hidden_size=64, num_layers=1,
@@ -92,8 +96,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         ServingEngine(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_gpt_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GPTModel(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FusedLayerNorm(64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LossScaler().init()
     assert default_device("cpu") == torch.device("cpu")
     ServingEngine(cfg, device="cpu")   # the CPU only when asked
+    model = GPTModel(cfg, device="cpu")
+    ids = torch.zeros(1, 4, dtype=torch.long)
+    assert model(ids, torch.arange(4)[None], None, ids).shape == (1, 4)
+    assert FusedLayerNorm(64, device="cpu")(torch.ones(2, 64)).shape == (2, 64)
 
 
 def test_chip_smoke_refuses_to_run_without_cuda(monkeypatch):

@@ -1,7 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card, at edge shapes the chip smoke does not reach: ragged tiles, head
 dims 64 and 128, bf16/fp16/fp32, fully masked rows, lengths 0 / 1 /
-ps-1 / ps / ps+1 / full, and unowned pages poisoned with NaN.
+ps-1 / ps / ps+1 / full, unowned pages poisoned with NaN; layer norm at
+ragged row counts, hidden 64 / 768 / 1024 / 4096 / 8192, with and
+without affine; the split attention backward (K5, K6) on causal,
+segmented, fully masked and cross-length inputs.
 
 Marked ``cuda``: each test needs a card and skips without one. This
 file imports neither JAX nor the JAX package, so it runs on a GPU
@@ -13,19 +16,31 @@ machine that has only PyTorch:
 Tolerances: fp32 1e-4 (same math, fp32 sums in another order); fp16
 5e-3 and bf16 5e-2 (outputs round to the half type; the plain prefill
 version also rounds its probabilities to the half type before the value
-product).
+product; the backward rounds dS and P to the half type on both sides,
+and a one-ulp flip there moves a gradient by under 1e-2 of its scale).
+Layer-norm statistics and the fp32 affine gradients: 1e-4 relative to
+their scale (fp32 sums over the row or over the rows, another order).
+The layer-norm outputs and the attention gradients are also held by
+their relative L2 error (``L2_TOL``), so an error the size of a typical
+element fails even where one large element widens the band above.
 """
 
 import pytest
 import torch
 
-from apex_tpu_torch.ops import attention, attention_cuda
+from apex_tpu_torch.ops import attention, attention_bwd_cuda, attention_cuda
 from apex_tpu_torch.ops import decode_attention, decode_attention_cuda
+from apex_tpu_torch.ops import layer_norm, layer_norm_cuda
 
 pytestmark = pytest.mark.cuda
 
 DTYPES = {"bfloat16": (torch.bfloat16, 5e-2), "float16": (torch.float16, 5e-3),
           "float32": (torch.float32, 1e-4)}
+# relative L2 of a layer-norm or attention-backward output against the
+# plain version. Both sides round at the same points, so most elements
+# round to the same value; on an H100 these cases measured at most
+# 1.2e-4 (bf16), 3.3e-5 (fp16) and 4.5e-7 (fp32)
+L2_TOL = {"bfloat16": 1e-3, "float16": 3e-4, "float32": 5e-6}
 
 
 @pytest.fixture
@@ -134,3 +149,162 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
             torch.zeros(1, 2, 64, device=dev, dtype=torch.bfloat16), pages,
             pages, torch.zeros(1, 4, dtype=torch.int64, device=dev),
             torch.ones(1, dtype=torch.int32, device=dev), sm_scale=1.0)
+
+
+def _close_scaled(out, ref, rel):
+    """max |out - ref| within ``rel`` of ref's largest magnitude."""
+    scale = max(ref.float().abs().max().item(), 1.0)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= rel * scale, (err, rel * scale)
+
+
+def _close_l2(out, ref, dtype):
+    """||out - ref|| / ||ref|| within ``L2_TOL[dtype]``: an error the size
+    of the typical element fails here even where the largest element
+    sets a wide outlier band."""
+    out, ref = out.float(), ref.float()
+    err = ((out - ref).norm() / ref.norm().clamp(min=1e-30)).item()
+    assert err <= L2_TOL[dtype], (err, L2_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("hidden", [64, 768, 1024, 4096, 8192])
+@pytest.mark.parametrize("rows", [1, 37, 1000])
+@pytest.mark.parametrize("affine", [True, False])
+def test_layer_norm_kernels_match_plain(dev, dtype, hidden, rows, affine):
+    torch_dtype, tol = DTYPES[dtype]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = (torch.randn(rows, hidden, generator=gen, device=dev) * 3 + 1).to(
+        torch_dtype)
+    dy = _randn(gen, rows, hidden, dtype=torch_dtype, dev=dev)
+    w = b = None
+    if affine:
+        w = torch.randn(hidden, generator=gen, device=dev)
+        b = torch.randn(hidden, generator=gen, device=dev)
+    before = (layer_norm_cuda.layer_norm_fwd.launches,
+              layer_norm_cuda.layer_norm_bwd.launches)
+    y, mean, rstd = layer_norm_cuda.layer_norm_fwd(x, w, b, 1e-5)
+    dx, dw_part, db_part = layer_norm_cuda.layer_norm_bwd(x, w, mean, rstd,
+                                                          dy)
+    assert (layer_norm_cuda.layer_norm_fwd.launches,
+            layer_norm_cuda.layer_norm_bwd.launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    ry, rmean, rrstd = layer_norm.layer_norm_fwd(x, w, b, 1e-5)
+    rdx, rdw, rdb = layer_norm.layer_norm_bwd(x, w, rmean, rrstd, dy)
+    torch.cuda.synchronize()
+    for t in (y, dx, mean, rstd, dw_part, db_part):
+        assert torch.isfinite(t.float()).all()
+    assert dw_part.shape[0] == db_part.shape[0] <= 256
+    _close_scaled(y, ry, tol)
+    _close_scaled(dx, rdx, tol)
+    _close_l2(y, ry, dtype)
+    _close_l2(dx, rdx, dtype)
+    _close_scaled(mean, rmean, 1e-4)
+    _close_scaled(rstd, rrstd, 1e-4)
+    _close_scaled(dw_part.sum(0), rdw, 1e-4)
+    _close_scaled(db_part.sum(0), rdb, 1e-4)
+
+
+def test_layer_norm_backward_is_deterministic(dev):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = _randn(gen, 8192, 768, dtype=torch.bfloat16, dev=dev)
+    dy = _randn(gen, 8192, 768, dtype=torch.bfloat16, dev=dev)
+    w = torch.randn(768, generator=gen, device=dev)
+    _, mean, rstd = layer_norm_cuda.layer_norm_fwd(x, w, None, 1e-5)
+    first = layer_norm_cuda.layer_norm_bwd(x, w, mean, rstd, dy)
+    again = layer_norm_cuda.layer_norm_bwd(x, w, mean, rstd, dy)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_layer_norm_autograd_runs_the_kernels(dev):
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = _randn(gen, 64, 768, dtype=torch.bfloat16, dev=dev).requires_grad_()
+    w = torch.ones(768, device=dev, requires_grad=True)
+    b = torch.zeros(768, device=dev, requires_grad=True)
+    before = (layer_norm_cuda.layer_norm_fwd.launches,
+              layer_norm_cuda.layer_norm_bwd.launches)
+    y = layer_norm.layer_norm(x, w, b)
+    y.float().square().sum().backward()
+    assert (layer_norm_cuda.layer_norm_fwd.launches,
+            layer_norm_cuda.layer_norm_bwd.launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    assert x.grad.dtype == torch.bfloat16 and w.grad.dtype == torch.float32
+
+
+def _attn_case(dev, dtype, d, case, seed=5):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, h = 2, 3
+    sq, sk = (100, 100) if case != "cross" else (70, 133)
+    q = _randn(gen, b, h, sq, d, dtype=dtype, dev=dev)
+    k, v = (_randn(gen, b, h, sk, d, dtype=dtype, dev=dev) for _ in range(2))
+    do = _randn(gen, b, h, sq, d, dtype=dtype, dev=dev)
+    causal = case in ("causal", "segments")
+    seg = None
+    if case == "segments":
+        s = torch.zeros(b, sq, dtype=torch.int32)
+        s[:, :37], s[:, 37:81] = 1, 2
+        seg = (s.to(dev), s.to(dev))
+    elif case in ("masked_row", "cross"):
+        sq_ids = torch.ones(b, sq, dtype=torch.int32)
+        sq_ids[:, sq // 2:] = 2
+        sq_ids[:, 5] = 9
+        kv_ids = torch.ones(b, sk, dtype=torch.int32)
+        kv_ids[:, sk // 2:] = 2
+        seg = (sq_ids.to(dev), kv_ids.to(dev))
+    return q, k, v, do, causal, seg
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", ["causal", "segments", "masked_row",
+                                  "cross"])
+def test_attention_bwd_kernels_match_plain(dev, dtype, d, case):
+    torch_dtype, tol = DTYPES[dtype]
+    q, k, v, do, causal, seg = _attn_case(dev, torch_dtype, d, case)
+    scale = d ** -0.5
+    o = attention_cuda.prefill_attention(q, k, v, causal=causal,
+                                         sm_scale=scale, segment_ids=seg)
+    before = (attention_bwd_cuda.attention_bwd_dq.launches,
+              attention_bwd_cuda.attention_bwd_dkv.launches)
+    dq, dk, dv = attention_bwd_cuda.attention_bwd(
+        q, k, v, o, do, causal=causal, sm_scale=scale, segment_ids=seg)
+    assert (attention_bwd_cuda.attention_bwd_dq.launches,
+            attention_bwd_cuda.attention_bwd_dkv.launches) == (
+                before[0] + 1, before[1] + 1)
+    rdq, rdk, rdv = attention._attention_bwd_split(q, k, v, o, do, causal,
+                                                   scale, seg)
+    torch.cuda.synchronize()
+    for out, ref in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        assert out.dtype == ref.dtype == torch_dtype
+        assert torch.isfinite(out.float()).all()
+        _close_scaled(out, ref, tol)
+        _close_l2(out, ref, dtype)
+    if case in ("masked_row", "cross"):
+        assert (dq[:, :, 5] == 0).all(), "a fully masked row has no dq"
+
+
+def test_attention_autograd_runs_k1_k5_k6(dev):
+    q, k, v, do, causal, seg = _attn_case(dev, torch.bfloat16, 64, "causal")
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    counts = lambda: (attention_cuda.prefill_attention.launches,  # noqa: E731
+                      attention_bwd_cuda.attention_bwd_dq.launches,
+                      attention_bwd_cuda.attention_bwd_dkv.launches)
+    before = counts()
+    o = attention.fused_attention(q, k, v, causal=True)
+    o.backward(do)
+    assert counts() == tuple(c + 1 for c in before)
+    assert q.grad.shape == q.shape and k.grad.dtype == torch.bfloat16
+
+
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x = torch.zeros(4, 12, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="hidden"):
+        layer_norm_cuda.layer_norm_fwd(x, None, None, 1e-5)
+    x = torch.zeros(4, 8200, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="hidden"):
+        layer_norm_cuda.layer_norm_fwd(x, None, None, 1e-5)
+    q = torch.zeros(1, 2, 8, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="do"):
+        attention_bwd_cuda.attention_bwd(q, q, q, q, q[:, :1], causal=True,
+                                         sm_scale=1.0)

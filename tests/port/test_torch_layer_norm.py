@@ -1,0 +1,177 @@
+"""Port parity of the layer norm: the plain versions of K3/K4
+(``apex_tpu_torch.ops.layer_norm``), their autograd Function and the
+``FusedLayerNorm`` module against the JAX package's Pallas kernel
+(``layer_norm_pallas.layer_norm`` in interpret mode, and its
+``jax.vjp``) and its ``FusedLayerNorm`` module, on the same numpy inputs.
+
+Tolerances: fp32 1e-5 (the same fp32 ops, sums in another order); the
+fp32 affine gradients 1e-5 relative to their scale (sums over all rows);
+bf16 outputs 2e-2 (one bf16 ulp of values up to ~4, the band of
+tests/test_layer_norm_pallas.py).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from apex_tpu.normalization.fused_layer_norm import (
+    FusedLayerNorm as JFusedLayerNorm,
+    fused_layer_norm as jfused_layer_norm,
+)
+from apex_tpu.ops import layer_norm_pallas as lnp
+from apex_tpu_torch.normalization import FusedLayerNorm, fused_layer_norm
+from apex_tpu_torch.ops import layer_norm as tln
+
+DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def _inputs(seed, rows, hidden, affine):
+    rs = np.random.RandomState(seed)
+    x = (rs.randn(rows, hidden) * 2 + 1).astype(np.float32)
+    w = (rs.rand(hidden) + 0.5).astype(np.float32) if affine else None
+    b = rs.randn(hidden).astype(np.float32) if affine else None
+    dy = rs.randn(rows, hidden).astype(np.float32)
+    return x, w, b, dy
+
+
+def _j(a, dtype=jnp.float32):
+    return None if a is None else jnp.asarray(a, dtype)
+
+
+def _t(a, dtype=torch.float32):
+    return None if a is None else torch.from_numpy(a).to(dtype)
+
+
+def _close(got, want, tol, scale=False):
+    if isinstance(got, torch.Tensor):
+        got = got.detach().float().numpy()
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    atol = tol * max(1.0, np.abs(want).max()) if scale else tol
+    np.testing.assert_allclose(got, want, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("rows,hidden", [(64, 128), (32, 768)])
+def test_plain_fwd_bwd_match_the_pallas_kernel(dtype, affine, rows, hidden):
+    jdt, tdt, tol = DTYPES[dtype]
+    x, w, b, dy = _inputs(0, rows, hidden, affine)
+    assert lnp.supported(rows, hidden)
+    jy, res = lnp._fwd(_j(x, jdt), _j(w), _j(b), 1e-5, True)
+    _, vjp = jax.vjp(lambda x_, w_, b_: lnp.layer_norm(x_, w_, b_, 1e-5,
+                                                        True),
+                     _j(x, jdt), _j(w), _j(b))
+    jdx, jdw, jdb = vjp(_j(dy, jdt))
+    jmean, jrstd = res[2][:, 0], res[3][:, 0]
+
+    ty, tmean, trstd = tln.layer_norm_fwd(_t(x, tdt), _t(w), _t(b), 1e-5)
+    tdx, tdw, tdb = tln.layer_norm_bwd(_t(x, tdt), _t(w), tmean, trstd,
+                                       _t(dy, tdt))
+    assert ty.dtype == tdx.dtype == tdt
+    assert tmean.dtype == trstd.dtype == tdw.dtype == torch.float32
+    _close(ty, jy, tol)
+    _close(tmean, jmean, 1e-5, scale=True)
+    _close(trstd, jrstd, 1e-5, scale=True)
+    _close(tdx.float(), jdx, tol, scale=True)
+    if affine:
+        _close(tdw, jdw, 1e-5, scale=True)
+        _close(tdb, jdb, 1e-5, scale=True)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_autograd_function_matches_jax_vjp(dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    x, w, b, dy = _inputs(1, 48, 256, True)
+    _, vjp = jax.vjp(lambda x_, w_, b_: lnp.layer_norm(x_, w_, b_, 1e-5,
+                                                        True),
+                     _j(x, jdt), _j(w), _j(b))
+    jgrads = vjp(_j(dy, jdt))
+    tx = _t(x, tdt).requires_grad_()
+    tw, tb = _t(w).requires_grad_(), _t(b).requires_grad_()
+    ty = tln.layer_norm(tx, tw, tb, 1e-5)
+    ty.backward(_t(dy, tdt))
+    for got, want in zip((tx.grad, tw.grad, tb.grad), jgrads):
+        _close(got.float(), want, tol if got is tx.grad else 1e-5,
+               scale=True)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", [(4, 6, 64), (3, 5, 768)])
+def test_fused_layer_norm_module_matches_jax_module(dtype, shape):
+    jdt, tdt, tol = DTYPES[dtype]
+    hidden = shape[-1]
+    rs = np.random.RandomState(2)
+    x = (rs.randn(*shape) * 2 + 1).astype(np.float32)
+    dy = rs.randn(*shape).astype(np.float32)
+    w = (rs.rand(hidden) + 0.5).astype(np.float32)
+    b = rs.randn(hidden).astype(np.float32)
+    jmod = JFusedLayerNorm(normalized_shape=hidden, eps=1e-5)
+    params = {"params": {"weight": jnp.asarray(w), "bias": jnp.asarray(b)}}
+    jy, vjp = jax.vjp(lambda p, x_: jmod.apply(p, x_), params,
+                      _j(x, jdt))
+    jp, jdx = vjp(_j(dy, jdt))
+
+    tmod = FusedLayerNorm(hidden, eps=1e-5, device="cpu")
+    assert tmod.weight.dtype == torch.float32
+    assert [n for n, _ in tmod.named_parameters()] == ["weight", "bias"]
+    with torch.no_grad():
+        tmod.weight.copy_(_t(w))
+        tmod.bias.copy_(_t(b))
+    tx = _t(x, tdt).requires_grad_()
+    ty = tmod(tx)
+    ty.backward(_t(dy, tdt))
+    assert ty.dtype == tdt and ty.shape == tx.shape
+    _close(ty, jy, tol)
+    _close(tx.grad.float(), jdx, tol, scale=True)
+    _close(tmod.weight.grad, jp["params"]["weight"], 1e-5, scale=True)
+    _close(tmod.bias.grad, jp["params"]["bias"], 1e-5, scale=True)
+
+
+def test_no_affine_and_multi_axis_match_the_jnp_path():
+    rs = np.random.RandomState(3)
+    x = rs.randn(4, 6, 32).astype(np.float32)
+    for shape in ((32,), (6, 32)):
+        want = jfused_layer_norm(jnp.asarray(x), shape, None, None, 1e-5)
+        got = fused_layer_norm(torch.from_numpy(x), shape, None, None, 1e-5)
+        _close(got, want, 1e-5)
+    mod = FusedLayerNorm(32, elementwise_affine=False, device="cpu")
+    assert list(mod.parameters()) == []
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_multi_axis_affine_matches_the_jnp_path_with_gradients(dtype):
+    """Two normalized axes run as rows of width 6 * 32 (weight and bias
+    flattened alike) and match the JAX jnp path and its gradients."""
+    jdt, tdt, tol = DTYPES[dtype]
+    rs = np.random.RandomState(4)
+    x = (rs.randn(4, 6, 32) * 2 + 1).astype(np.float32)
+    dy = rs.randn(4, 6, 32).astype(np.float32)
+    w = (rs.rand(6, 32) + 0.5).astype(np.float32)
+    b = rs.randn(6, 32).astype(np.float32)
+    jy, vjp = jax.vjp(
+        lambda x_, w_, b_: jfused_layer_norm(x_, (6, 32), w_, b_, 1e-5),
+        _j(x, jdt), _j(w), _j(b))
+    jdx, jdw, jdb = vjp(_j(dy, jdt))
+
+    tx = _t(x, tdt).requires_grad_()
+    tw, tb = _t(w).requires_grad_(), _t(b).requires_grad_()
+    ty = fused_layer_norm(tx, (6, 32), tw, tb, 1e-5)
+    ty.backward(_t(dy, tdt))
+    assert ty.dtype == tdt and ty.shape == tx.shape
+    assert tw.grad.shape == tb.grad.shape == (6, 32)
+    _close(ty, jy, tol)
+    _close(tx.grad.float(), jdx, tol, scale=True)
+    _close(tw.grad, jdw, 1e-5, scale=True)
+    _close(tb.grad, jdb, 1e-5, scale=True)
+
+
+def test_module_defaults_to_cuda_and_refuses_a_wrong_tail(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FusedLayerNorm(64)
+    with pytest.raises(ValueError, match="normalized_shape"):
+        fused_layer_norm(torch.zeros(2, 8), (16,))
