@@ -1,8 +1,9 @@
 """Kernels of the port and their plain PyTorch versions (counterpart of
 ``apex_tpu.ops``): ``attention`` (attention forward and its split
-backward, differentiable), ``decode_attention`` (paged decode attention)
-and ``layer_norm`` (row layer norm, differentiable), each dispatching on
-the tensor's device to its CUDA wrappers (``*_cuda``) or its plain
-version. Importing this package builds nothing: a CUDA source compiles
-the first time its wrapper launches (``_build.load``) or when a caller
-asks for it (``_build.build``)."""
+backward, differentiable), ``decode_attention`` (paged decode attention),
+``layer_norm`` (row layer norm, differentiable) and ``xent`` (the fused
+LM head, linear + cross entropy without logits, differentiable), each
+dispatching on the tensor's device to its CUDA wrappers (``*_cuda``) or
+its plain version. Importing this package builds nothing: a CUDA source
+compiles the first time its wrapper launches (``_build.load``) or when a
+caller asks for it (``_build.build``)."""

@@ -1,0 +1,126 @@
+"""Wrappers of the hand-written CUDA fused LM head (``csrc/xent.cu``): K7
+:func:`xent_fwd` replaces ``apex_tpu/ops/xent_pallas.py:417 _fwd`` (its
+``pallas_call`` at ``:429``), K8 :func:`xent_bwd_dx` and K9
+:func:`xent_bwd_de` replace the two calls of ``:449 _bwd_kernels`` (dX at
+``:467``, dE at ``:482``). The source's header says what bounds them (the
+tensor-core rate) and how the design answers that.
+
+Each wrapper checks its inputs, allocates its outputs, launches on
+PyTorch's current stream without synchronising, raises on a refused
+launch, and counts the launch in ``<wrapper>.launches`` (a plain int; a
+caller resets it to 0 before the run it wants to read). They take x
+``[n, h]`` and E ``[V, h]`` of one dtype (bf16, fp16 or fp32), int32
+labels ``[n]``, any ``n >= 1``, ``V`` a multiple of 128 and ``h`` a
+multiple of 32: every shape :func:`apex_tpu_torch.ops.xent.supported`
+admits. The plain versions are in :mod:`apex_tpu_torch.ops.xent`.
+"""
+
+import ctypes
+import functools
+
+import torch
+
+from apex_tpu_torch.ops import _build
+
+_NAME = "xent"
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "xent_fwd": ([_P] * 6 + [_I] * 4 + [_F, _I, _I, _P], _I),
+    "xent_bwd_dx": ([_P] * 6 + [_I] * 3 + [_F, _I, _I, _P], _I),
+    "xent_bwd_de": ([_P] * 6 + [_I] * 3 + [_F, _I, _I, _P], _I),
+    "xent_error_string": ([_I], ctypes.c_char_p),
+}
+VOCAB_TILE = 128   # V must be a multiple of it
+DEPTH_TILE = 32    # h must be a multiple of it
+FWD_ROWS = 128     # rows of one K7 block
+
+
+def _check(name, x, e, labels, rows=()):
+    if x.dim() != 2 or not x.is_cuda:
+        raise ValueError(f"{name}: x must be a 2-D CUDA tensor")
+    n, h = x.shape
+    if x.dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"{name}: dtype {x.dtype} (want bf16/fp16/fp32)")
+    if e.dim() != 2 or e.shape[1] != h:
+        raise ValueError(f"{name}: embedding must be [V, {h}], got "
+                         f"{tuple(e.shape)}")
+    V = e.shape[0]
+    if n < 1 or V < VOCAB_TILE or V % VOCAB_TILE or h < DEPTH_TILE \
+            or h % DEPTH_TILE:
+        raise ValueError(f"{name}: shape [{n},{h}]x[{V},{h}] (the kernels "
+                         f"take n >= 1, V a multiple of {VOCAB_TILE} and h "
+                         f"a multiple of {DEPTH_TILE})")
+    for tname, t in (("x", x), ("embedding", e)):
+        if (t.device != x.device or t.dtype != x.dtype
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{name}: {tname} must be a contiguous, "
+                             f"16-byte aligned {x.dtype} tensor on "
+                             f"{x.device}")
+    for tname, t, dtype in (("labels", labels, torch.int32), *rows):
+        if (t.device != x.device or t.dtype != dtype
+                or tuple(t.shape) != (n,) or not t.is_contiguous()):
+            raise ValueError(f"{name}: {tname} must be a contiguous {dtype} "
+                             f"[{n}] tensor on {x.device}")
+    return n, V, h
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _vocab_splits(n, V, device):
+    """K7's number of vocabulary shares: enough blocks for two per SM,
+    at most one share per 128-wide vocabulary tile."""
+    row_tiles = -(-n // FWD_ROWS)
+    return max(1, min(V // VOCAB_TILE,
+                      2 * _sm_count(device.index) // row_tiles))
+
+
+def xent_fwd(x, e, labels, smoothing=0.0):
+    """K7: ``(loss, lse)``, each fp32 ``[n]``."""
+    n, V, h = _check("xent_fwd", x, e, labels)
+    nsplit = _vocab_splits(n, V, x.device)
+    part = torch.empty(4, nsplit, n, dtype=torch.float32, device=x.device)
+    loss = torch.empty(n, dtype=torch.float32, device=x.device)
+    lse = torch.empty_like(loss)
+    _build.launch(_NAME, _SIGNATURES, "xent_fwd", x.device, x.data_ptr(),
+                  e.data_ptr(), labels.data_ptr(), part.data_ptr(),
+                  loss.data_ptr(), lse.data_ptr(), n, V, h, nsplit,
+                  float(smoothing), _build.DTYPE_CODES[x.dtype])
+    xent_fwd.launches += 1
+    return loss, lse
+
+
+def _bwd(fn_name, x, e, labels, lse, dl, smoothing, like):
+    n, V, h = _check(fn_name, x, e, labels,
+                     (("lse", lse, torch.float32), ("dl", dl, torch.float32)))
+    out = torch.empty_like(like)
+    _build.launch(_NAME, _SIGNATURES, fn_name, x.device, x.data_ptr(),
+                  e.data_ptr(), labels.data_ptr(), lse.data_ptr(),
+                  dl.data_ptr(), out.data_ptr(), n, V, h, float(smoothing),
+                  _build.DTYPE_CODES[x.dtype])
+    return out
+
+
+def xent_bwd_dx(x, e, labels, lse, dl, smoothing=0.0):
+    """K8: dX ``[n, h]`` in x's dtype, from K7's lse and the fp32
+    cotangent ``dl [n]``."""
+    out = _bwd("xent_bwd_dx", x, e, labels, lse, dl, smoothing, x)
+    xent_bwd_dx.launches += 1
+    return out
+
+
+def xent_bwd_de(x, e, labels, lse, dl, smoothing=0.0):
+    """K9: dE ``[V, h]`` in E's dtype. Each block owns its rows of dE, so
+    two runs on the same inputs give the same bits."""
+    out = _bwd("xent_bwd_de", x, e, labels, lse, dl, smoothing, e)
+    xent_bwd_de.launches += 1
+    return out
+
+
+xent_fwd.launches = 0
+xent_bwd_dx.launches = 0
+xent_bwd_de.launches = 0

@@ -23,15 +23,18 @@ package's ``[s, b, h]`` hidden layout and numerics:
   final layer norm;
 * :func:`parallel_lm_logits` (``:217``) and :class:`GPTModel`
   (``:744``) — logits against the tied word table, and the per-token
-  vocab-parallel cross entropy ``[b, s]`` when labels are given.
+  vocab-parallel cross entropy ``[b, s]`` when labels are given; or, with
+  ``fused_lm_head=True`` and a shape :func:`apex_tpu_torch.ops.xent.
+  supported` admits, the fused LM head (``:846-872``, tp=1) that never
+  materializes the logits (K7-K9 on the card).
 
 Layer norms are :class:`FusedLayerNorm` (K3/K4 on the card). Parameter
 names give ``state_dict`` keys equal to the JAX tree paths with ``/``
 → ``.`` (``transformer.layer_0.self_attention.query_key_value.weight``,
 ``word_embeddings``), so :func:`apex_tpu_torch.serving.weights.
 load_param_tree` carries one tree into either slice. What the slice does
-not model raises: dropout in training, the fused LM head, recompute,
-MoE, sequence/context parallelism, tp > 1.
+not model raises: dropout in training, recompute, MoE, sequence/context
+parallelism, tp > 1.
 """
 
 import dataclasses
@@ -44,6 +47,7 @@ from torch import nn
 
 from apex_tpu_torch import default_device
 from apex_tpu_torch.normalization import FusedLayerNorm
+from apex_tpu_torch.ops import xent
 from apex_tpu_torch.ops.attention import fused_attention
 from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
@@ -114,9 +118,6 @@ def check_training_config(cfg):
     """Raise on TransformerConfig options the training slice does not
     model (dropout is checked per call: it only matters in training)."""
     problems = []
-    if cfg.fused_lm_head:
-        problems.append("fused_lm_head=True (the fused LM head is a later "
-                        "slice; False or None runs the materialized head)")
     if cfg.recompute_granularity not in (None, "none"):
         problems.append(f"recompute_granularity="
                         f"{cfg.recompute_granularity!r}")
@@ -254,7 +255,14 @@ class GPTModel(nn.Module):
     ``forward(input_ids, position_ids, attention_mask=None, labels=None,
     deterministic=True)``: ids and positions ``[b, s]``; returns the fp32
     per-token loss ``[b, s]`` when labels are given, else the logits
-    ``[b, s, vocab]`` in the compute dtype. Parameters are drawn from a
+    ``[b, s, vocab]`` in the compute dtype. With labels,
+    ``cfg.fused_lm_head`` True and a shape :func:`xent.supported` admits,
+    the loss comes from :func:`xent.linear_cross_entropy` over the
+    ``[b*s, h]`` hidden in ``[b, s]`` row order (the JAX ``:866``);
+    otherwise, and always without labels, from the materialized logits,
+    as the JAX model runs with ``APEX_DISPATCH=off`` (the port has no
+    dispatch table, so ``None`` means the materialized head). Parameters
+    are drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device`` (``None``
     means ``cuda``): normal(0, ``init_method_std``), the two output
     projections scaled by ``1/sqrt(2 num_layers)``, zero biases, unit
@@ -286,6 +294,13 @@ class GPTModel(nn.Module):
                              "or run deterministic)")
         hidden = self.embedding(self.word_embeddings, input_ids, position_ids)
         hidden = self.transformer(hidden, attention_mask)
+        s, b, h = hidden.shape
+        if (labels is not None and cfg.fused_lm_head
+                and xent.supported(b * s, cfg.vocab_size, h)):
+            x2d = hidden.transpose(0, 1).reshape(b * s, h)
+            loss = xent.linear_cross_entropy(
+                x2d, self.word_embeddings.to(x2d.dtype), labels.reshape(-1))
+            return loss.reshape(b, s)
         logits = parallel_lm_logits(hidden, self.word_embeddings)
         logits = logits.transpose(0, 1)               # [s, b, v] → [b, s, v]
         if labels is None:

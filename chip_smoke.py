@@ -9,25 +9,29 @@ exits non-zero before the last line):
 
 1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
    TF32 is switched off for fp32 matmuls and convolutions.
-2. build: the four CUDA sources compile from ``apex_tpu_torch/csrc`` (one
+2. build: the five CUDA sources compile from ``apex_tpu_torch/csrc`` (one
    ``nvcc`` each, all in parallel) into ``build/apex_tpu_torch/``.
 3. one phase per kernel at its main path's shapes: K1 and K2 at the
-   serving shapes, K3/K4 (layer norm, x ``[8192, 768]`` bf16) and K5/K6
-   (attention backward, ``[8, 12, 1024, 64]`` bf16, causal) at the
-   training shapes. Each kernel is held against its plain PyTorch version
-   on the card with a stated tolerance (the training-shape bf16 outputs
-   also by relative L2, ``BF16_L2_TOL``; K1 is held at the training
-   shape too, within ``K1_L2_TOL``, before its output feeds the
-   backward); its time, the plain version's and one PyTorch call's
-   (``library_ms``: SDPA, ``F.layer_norm`` or their backward through
-   ``torch.autograd.grad`` on a graph built outside the timed region —
-   timed here, never used by the port), each over launches
-   that find the 50 MB L2 cache flushed (the kernel's own launches also
-   give their [min, median, max], ``ms_spread``); and the least time an
-   H100 SXM could take for the same work (``bound_ms``: bytes each input
-   read and output written once over 3.35 TB/s, or the work this run's
-   masks leave over 989 TFLOP/s bf16 — 67 TFLOP/s fp32 for layer norm's
-   elementwise math — whichever is larger; NVIDIA's data-sheet rates).
+   serving shapes, K3/K4 (layer norm, x ``[8192, 768]`` bf16), K5/K6
+   (attention backward, ``[8, 12, 1024, 64]`` bf16, causal) and K7-K9
+   (the fused LM head, x ``[8192, 768]`` x E ``[50304, 768]`` bf16) at
+   the training shapes. Each kernel is held against its plain PyTorch
+   version on the card with a stated tolerance (the training-shape bf16
+   outputs also by relative L2, ``BF16_L2_TOL``; K1 is held at the
+   training shape too, within ``K1_L2_TOL``, before its output feeds the
+   backward; K7's fp32 loss and lse within ``XENT_LOSS_TOL`` and
+   ``XENT_LOSS_L2_TOL``; two K9 runs must give the same bits); its
+   time, the plain version's and one PyTorch call's (``library_ms``:
+   SDPA, ``F.layer_norm``, the materialized head ``x @ E.T`` then
+   ``F.cross_entropy``, or their backward through ``torch.autograd.grad``
+   on a graph built outside the timed region — timed here, never used by
+   the port), each over launches that find the 50 MB L2 cache flushed
+   (the kernel's own launches also give their [min, median, max],
+   ``ms_spread``); and the least time an H100 SXM could take for the
+   same work (``bound_ms``: bytes each input read and output written
+   once over 3.35 TB/s, or the work this run's masks leave over 989
+   TFLOP/s bf16 — 67 TFLOP/s fp32 for layer norm's elementwise math —
+   whichever is larger; NVIDIA's data-sheet rates).
 4. serving end to end: ``ServingEngine`` at GPT-2-small width (12 x 768,
    12 heads, vocab 50304, 1024 positions, bf16; 8 slots, page size 128,
    72 pages, 512-token packed prefill) with random weights from seed 0
@@ -42,16 +46,23 @@ exits non-zero before the last line):
    width, b=8, s=1024, bf16, ``LossScaler()`` and
    ``fused_adam(learning_rate=1e-4)``, ids and labels from
    ``np.random.RandomState(0)`` (as ``bench.py`` makes them), the same
-   batch every step. 2 warm-up steps, then the timed steps (host clock
+   batch every step; first with the materialized LM head, then with
+   ``fused_lm_head=True`` (this slice's main path), each model built and
+   freed on its own. 2 warm-up steps, then the timed steps (host clock
    ending in ``synchronize``): step ms, tokens/s, MFU = 6 N b s / step /
-   989e12, peak memory. The loss must be finite and lower after the
-   window than at step 1, and the launches per step must be K1 = K5 = K6
-   = 12 and K3 = K4 = 25. One step at b=2 through the kernel path and the
-   plain path on the card: the loss and every gradient within the stated
-   bf16 band. A forced overflow (loss scale 3e38, one gradient made
-   non-finite) must leave every parameter and the Adam state bitwise
-   unchanged, halve the scale and reset ``unskipped``. A profiled window
-   gives the device's busy share and time by kind.
+   989e12, peak memory, side by side for the two heads; the fused
+   step's peak must be the lower. The loss must be finite and lower
+   after the window than at step 1, and the launches per step must be
+   K1 = K5 = K6 = 12, K3 = K4 = 25 and K7 = K8 = K9 = 1 with the fused
+   head (0 with the materialized one, whose cross entropy must then run
+   once per step and never with the fused head). For each head a forced
+   overflow (loss scale 3e38, one gradient made non-finite) must leave
+   every parameter and the Adam state bitwise unchanged, halve the scale
+   and reset ``unskipped``, and a profiled window gives the device's
+   busy share and time by kind. At b=2 on the card, within the stated
+   bf16 bands in the loss and every gradient: each head's kernel path
+   against its plain path, and the fused model against the materialized
+   one on the same weights.
 6. one JSON line per kernel, the ``{"kernels": [...]}`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -79,6 +90,13 @@ LOGITS_BAND = 0.35
 # does not, which costs ~2.5e-3 on the same card.
 BF16_L2_TOL = 1e-3
 K1_L2_TOL = 1e-2
+# K7 against its plain version: fp32 loss and lse (~11 at init) from
+# logits summed in another order; an H100 measured 3.8e-6 max |diff| (four
+# ulps) and 7.4e-8 relative L2. K8 and K9 are held to BF16_L2_TOL: their
+# coefficients round to bf16 on both sides, and at the training shape dX
+# measured 5.4e-4 and dE 1.9e-4
+XENT_LOSS_TOL = 3e-5
+XENT_LOSS_L2_TOL = 1e-6
 # kernel path vs plain path of one training step (bf16): |loss diff| and
 # each gradient's relative L2 difference. The two paths share every bf16
 # rounding point (P and dS rounded before the products, layer-norm output
@@ -666,25 +684,145 @@ def phase_attention_bwd_kernels(dev, flush):
              flops=dkv_flops)], k1_train
 
 
+def phase_xent_kernels(dev, flush):
+    """K7, K8 and K9 at the training shape: x [8192, 768] bf16 drawn like
+    a layer-normed hidden (unit variance), E [50304, 768] from N(0, 0.02)
+    as the model initialises it, seeded labels, and a non-uniform fp32
+    cotangent of the training step's size (loss scale 2^16 over n)."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import xent, xent_cuda
+
+    n = TRAIN["batch"] * TRAIN["seq"]
+    V, h = MODEL["vocab_size"], MODEL["hidden_size"]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(n, h, generator=gen, device=dev).to(torch.bfloat16)
+    e = (torch.randn(V, h, generator=gen, device=dev) * 0.02).to(
+        torch.bfloat16)
+    labels = torch.randint(0, V, (n,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    dl = (torch.rand(n, generator=gen, device=dev) + 0.5) * (2.0 ** 16 / n)
+    loss, lse = xent_cuda.xent_fwd(x, e, labels)
+    dx = xent_cuda.xent_bwd_dx(x, e, labels, lse, dl)
+    de = xent_cuda.xent_bwd_de(x, e, labels, lse, dl)
+    de_again = xent_cuda.xent_bwd_de(x, e, labels, lse, dl)
+    rloss, rlse = xent.linear_cross_entropy_fwd(x, e, labels)
+    rdx = xent.linear_cross_entropy_dx(x, e, labels, rlse, dl)
+    rde = xent.linear_cross_entropy_de(x, e, labels, rlse, dl)
+    torch.cuda.synchronize()
+    repeatable = torch.equal(de, de_again)
+    del de_again
+    fwd_err = {"loss_max_abs_err": _max_err(loss, rloss),
+               "lse_max_abs_err": _max_err(lse, rlse),
+               "loss_rel_l2": _rel_l2(loss, rloss),
+               "lse_rel_l2": _rel_l2(lse, rlse)}
+    bwd_err = {k: {"max_abs_err": _max_err(a, b), "rel_err": _rel_err(a, b),
+                   "rel_l2": _rel_l2(a, b)}
+               for k, (a, b) in (("dx", (dx, rdx)), ("de", (de, rde)))}
+    del rloss, rlse, rdx, rde
+    _log(f"xent_fwd: {fwd_err} (tol max abs {XENT_LOSS_TOL}, relative L2 "
+         f"{XENT_LOSS_L2_TOL})")
+    _log(f"xent_bwd: {bwd_err} (tol relative L2 {BF16_L2_TOL}, max error "
+         f"over the largest magnitude 5e-2); dE bitwise repeatable: "
+         f"{repeatable}")
+    if (max(fwd_err["loss_max_abs_err"], fwd_err["lse_max_abs_err"])
+            > XENT_LOSS_TOL
+            or max(fwd_err["loss_rel_l2"], fwd_err["lse_rel_l2"])
+            > XENT_LOSS_L2_TOL):
+        raise AssertionError(f"K7 disagrees with its plain version: "
+                             f"{fwd_err}")
+    for k, err in bwd_err.items():
+        if err["rel_l2"] > BF16_L2_TOL or err["rel_err"] > 5e-2:
+            raise AssertionError(f"{k} kernel disagrees with its plain "
+                                 f"version: {err}")
+    if not repeatable:
+        raise AssertionError("two K9 runs on the same inputs differ")
+
+    spreads = [[], [], []]
+    fwd_ms = _time_ms(lambda: xent_cuda.xent_fwd(x, e, labels), flush,
+                      spread=spreads[0])
+    dx_ms = _time_ms(lambda: xent_cuda.xent_bwd_dx(x, e, labels, lse, dl),
+                     flush, spread=spreads[1])
+    de_ms = _time_ms(lambda: xent_cuda.xent_bwd_de(x, e, labels, lse, dl),
+                     flush, spread=spreads[2])
+    fwd_plain = _time_ms(lambda: xent.linear_cross_entropy_fwd(x, e, labels),
+                         flush, reps=3)
+    dx_plain = _time_ms(lambda: xent.linear_cross_entropy_dx(
+        x, e, labels, lse, dl), flush, reps=3)
+    de_plain = _time_ms(lambda: xent.linear_cross_entropy_de(
+        x, e, labels, lse, dl), flush, reps=3)
+    lab64 = labels.long()
+    fwd_lib = _time_ms(lambda: F.cross_entropy(x @ e.t(), lab64,
+                                               reduction="none"), flush)
+    xg, eg = x.detach().requires_grad_(), e.detach().requires_grad_()
+    lg = F.cross_entropy(xg @ eg.t(), lab64,
+                         reduction="none")       # graph built untimed
+    bwd_lib = _time_ms(lambda: torch.autograd.grad(
+        lg, (xg, eg), dl, retain_graph=True), flush)
+    del lg, xg, eg
+    xb, eb = n * h * 2, V * h * 2
+    rows_b = n * 4                               # one fp32/int32 row vector
+    fwd_bytes = xb + eb + 3 * rows_b             # labels in, loss, lse out
+    dx_bytes = 2 * xb + eb + 3 * rows_b          # labels, lse, dl in
+    de_bytes = xb + 2 * eb + 3 * rows_b
+    fwd_flops, bwd_flops = 2 * n * V * h, 4 * n * V * h
+    fwd_bound = _bound(fwd_bytes, fwd_flops)
+    dx_bound, de_bound = _bound(dx_bytes, bwd_flops), _bound(de_bytes,
+                                                            bwd_flops)
+    common = {"route": "cuda", "source": "apex_tpu_torch/csrc/xent.cu",
+              "shape": f"x [{n},{h}] bf16, E [{V},{h}] bf16, int32 labels"}
+    bwd_common = dict(common, library_ms=bwd_lib, library=(
+        "backward of x @ E.T then F.cross_entropy(reduction='none') via "
+        "torch.autograd.grad (graph built outside the timed region): the "
+        "materialized head's two calls, dX and dE together"),
+        rel_l2_tol=BF16_L2_TOL, tol=5e-2)
+    return [
+        dict(common, name="xent_fwd",
+             replaces="apex_tpu/ops/xent_pallas.py:429",
+             max_abs_err=fwd_err["loss_max_abs_err"], **fwd_err,
+             tol=XENT_LOSS_TOL, rel_l2_tol=XENT_LOSS_L2_TOL, ms=fwd_ms,
+             kernel_ms=fwd_ms, ms_spread=spreads[0], plain_ms=fwd_plain,
+             library_ms=fwd_lib,
+             library=("x @ E.T then F.cross_entropy(reduction='none'): the "
+                      "materialized head, two calls"),
+             bound_ms=fwd_bound[0], bound_by=fwd_bound[1], bytes=fwd_bytes,
+             flops=fwd_flops),
+        dict(bwd_common, name="xent_bwd_dx",
+             replaces="apex_tpu/ops/xent_pallas.py:467",
+             **bwd_err["dx"], ms=dx_ms, kernel_ms=dx_ms,
+             ms_spread=spreads[1], plain_ms=dx_plain,
+             bound_ms=dx_bound[0], bound_by=dx_bound[1], bytes=dx_bytes,
+             flops=bwd_flops),
+        dict(bwd_common, name="xent_bwd_de",
+             replaces="apex_tpu/ops/xent_pallas.py:482",
+             **bwd_err["de"], bitwise_repeatable=repeatable, ms=de_ms,
+             kernel_ms=de_ms, ms_spread=spreads[2], plain_ms=de_plain,
+             bound_ms=de_bound[0], bound_by=de_bound[1], bytes=de_bytes,
+             flops=bwd_flops)]
+
+
 def _training_counts():
     from apex_tpu_torch.ops import (attention_bwd_cuda, attention_cuda,
-                                    layer_norm_cuda)
+                                    layer_norm_cuda, xent_cuda)
 
     return {"prefill_attention": attention_cuda.prefill_attention,
             "attention_bwd_dq": attention_bwd_cuda.attention_bwd_dq,
             "attention_bwd_dkv": attention_bwd_cuda.attention_bwd_dkv,
             "layer_norm_fwd": layer_norm_cuda.layer_norm_fwd,
-            "layer_norm_bwd": layer_norm_cuda.layer_norm_bwd}
+            "layer_norm_bwd": layer_norm_cuda.layer_norm_bwd,
+            "xent_fwd": xent_cuda.xent_fwd,
+            "xent_bwd_dx": xent_cuda.xent_bwd_dx,
+            "xent_bwd_de": xent_cuda.xent_bwd_de}
 
 
-def _train_setup(dev, batch, seed=0):
+def _train_setup(dev, batch, seed=0, fused=False):
     from apex_tpu_torch.amp import LossScaler
     from apex_tpu_torch.optimizers import fused_adam
     from apex_tpu_torch.train_step import make_one_step
     from apex_tpu_torch.transformer.testing import (GPTModel,
                                                     TransformerConfig)
 
-    cfg = TransformerConfig(**MODEL, fused_lm_head=False,
+    cfg = TransformerConfig(**MODEL, fused_lm_head=fused,
                             recompute_granularity="none")
     model = GPTModel(cfg, device=dev, seed=seed)
     scaler, opt = LossScaler(), fused_adam(learning_rate=TRAIN["lr"])
@@ -699,17 +837,21 @@ def _train_setup(dev, batch, seed=0):
             scaler.init(dev), ids, pos, labels)
 
 
-def phase_training(dev, card):
-    """The training main path: warm-up, the timed window with the launch
-    counts read around it alone, the loss check after the window."""
+def phase_training(dev, card, fused):
+    """The training main path with the materialized (``fused=False``) or
+    the fused LM head: warm-up, the timed window with the launch counts
+    and the materialized cross entropy's calls read around it alone, the
+    loss check after the window."""
+    from apex_tpu_torch.transformer.testing import standalone_transformer_lm
+
     b, s = TRAIN["batch"], TRAIN["seq"]
     t0 = time.perf_counter()
     (model, scaler, opt, step, opt_state, ss, ids, pos,
-     labels) = _train_setup(dev, b)
+     labels) = _train_setup(dev, b, fused=fused)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    _log(f"GPTModel built in {time.perf_counter() - t0:.2f} s: "
-         f"{n_params} parameters")
+    _log(f"GPTModel (fused_lm_head={fused}) built in "
+         f"{time.perf_counter() - t0:.2f} s: {n_params} parameters")
     losses = []
     for _ in range(TRAIN["warmup"]):
         opt_state, ss, loss = step(opt_state, ss, ids, pos, labels)
@@ -718,37 +860,54 @@ def phase_training(dev, card):
     counts = _training_counts()
     for fn in counts.values():
         fn.launches = 0
+    ce = standalone_transformer_lm.vocab_parallel_cross_entropy
+    ce_calls = []
+
+    def counted_ce(*args, **kwargs):
+        ce_calls.append(1)
+        return ce(*args, **kwargs)
+
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    for _ in range(TRAIN["timed"]):
-        opt_state, ss, loss = step(opt_state, ss, ids, pos, labels)
-        losses.append(loss)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with mock.patch.object(standalone_transformer_lm,
+                           "vocab_parallel_cross_entropy", counted_ce):
+        t0 = time.perf_counter()
+        for _ in range(TRAIN["timed"]):
+            opt_state, ss, loss = step(opt_state, ss, ids, pos, labels)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counts.items()}
     peak = torch.cuda.max_memory_allocated()
     vals = [x.item() for x in losses]             # read after the window
     step_ms = wall / TRAIN["timed"] * 1e3
-    stats = {"card": card, "batch": b, "seq": s,
+    stats = {"card": card, "fused_lm_head": fused, "batch": b, "seq": s,
              "steps_timed": TRAIN["timed"],
              "step_ms": step_ms, "tokens_per_s": b * s / (step_ms / 1e3),
              "mfu": 6 * n_params * b * s / (step_ms / 1e3) / BF16_FLOPS_PER_S,
              "n_params": n_params, "peak_mem_gb": peak / 1e9,
              "loss_step1": vals[0], "loss_last": vals[-1], "losses": vals,
              "launches_per_step": {k: v / TRAIN["timed"]
-                                   for k, v in launches.items()}}
+                                   for k, v in launches.items()},
+             "materialized_ce_calls": len(ce_calls)}
     _log("training: " + json.dumps(stats))
     if not all(np.isfinite(vals)) or not vals[-1] < vals[0]:
         raise AssertionError(f"training loss not finite and falling: {vals}")
+    head = int(fused)
     want = {"prefill_attention": 12, "attention_bwd_dq": 12,
             "attention_bwd_dkv": 12, "layer_norm_fwd": 25,
-            "layer_norm_bwd": 25}
+            "layer_norm_bwd": 25, "xent_fwd": head, "xent_bwd_dx": head,
+            "xent_bwd_de": head}
     for k, per_step in want.items():
         if launches[k] != per_step * TRAIN["timed"]:
             raise AssertionError(f"{k}: {launches[k]} launches in "
                                  f"{TRAIN['timed']} steps, want {per_step} "
                                  f"per step")
-    return (model, scaler, step, opt_state, ss, ids, pos, labels), launches
+    if len(ce_calls) != (1 - head) * TRAIN["timed"]:
+        raise AssertionError(f"the materialized cross entropy ran "
+                             f"{len(ce_calls)} times in {TRAIN['timed']} "
+                             f"steps (fused_lm_head={fused})")
+    return ((model, scaler, step, opt_state, ss, ids, pos, labels), launches,
+            stats)
 
 
 def phase_training_overflow(state):
@@ -787,12 +946,42 @@ def phase_training_overflow(state):
     return result
 
 
-def phase_training_paths_agree(dev):
+def _step_grads(model, ids, pos, labels):
+    model.zero_grad(set_to_none=True)
+    loss = model(ids, pos, None, labels).mean()
+    loss.backward()
+    return loss.item(), {n: p.grad.float().clone()
+                         for n, p in model.named_parameters()}
+
+
+def _compare_steps(what, a, b):
+    """Loss difference and worst gradient relative L2 of two (loss,
+    grads) results, held to the training bands."""
+    (a_loss, a_grads), (b_loss, b_grads) = a, b
+    worst, worst_name = 0.0, ""
+    for n, g in a_grads.items():
+        ref = b_grads[n]
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{what}: {n} gradient not finite")
+        err = ((g - ref).norm() / ref.norm().clamp(min=1e-30)).item()
+        if err > worst:
+            worst, worst_name = err, n
+    dloss = abs(a_loss - b_loss)
+    _log(f"{what} (b=2): loss {a_loss:.6f} vs {b_loss:.6f} (band "
+         f"{TRAIN_LOSS_BAND}), worst gradient relative L2 {worst:.3e} at "
+         f"{worst_name} (band {TRAIN_GRAD_BAND})")
+    if dloss > TRAIN_LOSS_BAND or worst > TRAIN_GRAD_BAND:
+        raise AssertionError(f"{what}: the two steps disagree")
+    return dloss, worst
+
+
+def phase_training_paths_agree(dev, fused):
     """One step's loss and every gradient at b=2 through the kernel path
-    and the plain path on the card."""
+    and the plain path on the card (K1, K3-K6 and, with the fused head,
+    K7-K9 patched to their plain versions)."""
     from apex_tpu_torch.ops import (attention, attention_bwd_cuda,
                                     attention_cuda, layer_norm,
-                                    layer_norm_cuda)
+                                    layer_norm_cuda, xent, xent_cuda)
 
     def plain_fwd(q, k, v, *, causal, sm_scale, segment_ids=None):
         return attention._dense_attention(q, k, v, causal, sm_scale,
@@ -806,45 +995,44 @@ def phase_training_paths_agree(dev):
         dx, dw, db = layer_norm.layer_norm_bwd(x, w, mean, rstd, dy)
         return dx, dw[None], db[None]
 
-    model, _, _, _, _, _, ids, pos, labels = _train_setup(dev, 2, seed=1)
-
-    def grads():
-        model.zero_grad(set_to_none=True)
-        loss = model(ids, pos, None, labels).mean()
-        loss.backward()
-        return loss.item(), {n: p.grad.float().clone()
-                             for n, p in model.named_parameters()}
-
-    kernel_loss, kernel_grads = grads()
+    model, _, _, _, _, _, ids, pos, labels = _train_setup(dev, 2, seed=1,
+                                                          fused=fused)
+    kernel = _step_grads(model, ids, pos, labels)
     with mock.patch.object(attention_cuda, "prefill_attention", plain_fwd), \
             mock.patch.object(attention_bwd_cuda, "attention_bwd",
                               plain_bwd), \
             mock.patch.object(layer_norm_cuda, "layer_norm_fwd",
                               layer_norm.layer_norm_fwd), \
             mock.patch.object(layer_norm_cuda, "layer_norm_bwd",
-                              plain_ln_bwd):
-        plain_loss, plain_grads = grads()
-    worst, worst_name = 0.0, ""
-    for n, g in kernel_grads.items():
-        ref = plain_grads[n]
-        err = ((g - ref).norm() / ref.norm().clamp(min=1e-30)).item()
-        if not torch.isfinite(g).all():
-            raise AssertionError(f"{n}: kernel-path gradient not finite")
-        if err > worst:
-            worst, worst_name = err, n
-    dloss = abs(kernel_loss - plain_loss)
-    _log(f"training kernel vs plain path on the card (b=2): loss "
-         f"{kernel_loss:.6f} vs {plain_loss:.6f} (band {TRAIN_LOSS_BAND}), "
-         f"worst gradient relative L2 {worst:.3e} at {worst_name} (band "
-         f"{TRAIN_GRAD_BAND})")
-    if dloss > TRAIN_LOSS_BAND or worst > TRAIN_GRAD_BAND:
-        raise AssertionError("training kernel path disagrees with the "
-                             "plain path")
-    return dloss, worst
+                              plain_ln_bwd), \
+            mock.patch.object(xent_cuda, "xent_fwd",
+                              xent.linear_cross_entropy_fwd), \
+            mock.patch.object(xent_cuda, "xent_bwd_dx",
+                              xent.linear_cross_entropy_dx), \
+            mock.patch.object(xent_cuda, "xent_bwd_de",
+                              xent.linear_cross_entropy_de):
+        plain = _step_grads(model, ids, pos, labels)
+    head = "fused" if fused else "materialized"
+    return _compare_steps(f"training kernel vs plain path on the card, "
+                          f"{head} head", kernel, plain)
+
+
+def phase_fused_vs_materialized(dev):
+    """One b=2 step of the fused-head model against the materialized-head
+    model on the same weights (seed 1), both on the kernel path."""
+    fused_model, _, _, _, _, _, ids, pos, labels = _train_setup(
+        dev, 2, seed=1, fused=True)
+    fused = _step_grads(fused_model, ids, pos, labels)
+    del fused_model
+    model = _train_setup(dev, 2, seed=1)[0]
+    return _compare_steps("fused vs materialized LM head on the card",
+                          fused, _step_grads(model, ids, pos, labels))
 
 
 def _kind(name):
     low = name.lower()
+    if "xent_" in name:
+        return "lm_head"
     if "prefill_attention_kernel" in name:
         return "attention_fwd"
     if "attention_bwd_" in name:
@@ -906,7 +1094,7 @@ def phase_training_profile(state):
             opt_state, ss, _ = step(opt_state, ss, ids, pos, labels)
 
     return _profile(two_steps, ("attention_fwd", "attention_bwd",
-                                "layer_norm", "matmul", "other"))
+                                "layer_norm", "lm_head", "matmul", "other"))
 
 
 def main():
@@ -928,7 +1116,7 @@ def main():
     dev = torch.device("cuda")
 
     build_s = _build.build()
-    _log(f"build: {build_s:.1f} s for {len(_build.SOURCES)} kernels")
+    _log(f"build: {build_s:.1f} s for {len(_build.SOURCES)} sources")
     for name in _build.SOURCES:
         for line in _build.build_log.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
@@ -940,6 +1128,7 @@ def main():
     bwd_rows, k1_train = phase_attention_bwd_kernels(dev, flush)
     rows += bwd_rows
     rows[0]["training_shape"] = k1_train
+    rows += phase_xent_kernels(dev, flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -949,20 +1138,35 @@ def main():
     del engine
     torch.cuda.empty_cache()
 
-    state, train_launches = phase_training(dev, smi)
-    phase_training_overflow(state)
-    phase_training_profile(state)
-    del state
-    torch.cuda.empty_cache()
-    phase_training_paths_agree(dev)
+    # the materialized head, then the fused one (this slice's main path),
+    # each window on its own so that its peak memory is its own
+    windows, launches_by = {}, {"serving": launches}
+    for fused in (False, True):
+        state, counts, windows[fused] = phase_training(dev, smi, fused)
+        launches_by["training_fused" if fused else "training"] = counts
+        phase_training_overflow(state)
+        windows[fused]["profile"] = phase_training_profile(state)
+        del state
+        torch.cuda.empty_cache()
+    side = {k: {head: windows[fused][k] for head, fused in
+                (("materialized", False), ("fused", True))}
+            for k in ("step_ms", "tokens_per_s", "mfu", "peak_mem_gb")}
+    _log("training, materialized vs fused LM head: " + json.dumps(side))
+    if not side["peak_mem_gb"]["fused"] < side["peak_mem_gb"]["materialized"]:
+        raise AssertionError(f"the fused head's step does not use less "
+                             f"memory: {side['peak_mem_gb']}")
+    phase_training_paths_agree(dev, fused=False)
+    phase_training_paths_agree(dev, fused=True)
+    phase_fused_vs_materialized(dev)
 
     for row in rows:
         name = row["name"]
-        by_path = {path: counts[name] for path, counts in
-                   (("serving", launches), ("training", train_launches))
+        by_path = {path: counts[name] for path, counts in launches_by.items()
                    if name in counts}
-        # the slice's own path: training where the kernel runs there
-        row["launches"] = by_path.get("training", by_path.get("serving", 0))
+        # the slice's own path: the fused training window, where the
+        # kernel runs there; K2 runs only in serving
+        row["launches"] = by_path.get("training_fused",
+                                      by_path.get("serving", 0))
         row["launches_by_path"] = by_path
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} never ran on the main path")

@@ -1,8 +1,10 @@
 """Relative L2 error, ||kernel - plain|| / ||plain||, of every case the
-card tests run for K1 (forward), K3/K4 (layer norm) and K5/K6 (attention
-backward), per dtype. It prints one line per attention case and the
-worst value per kernel and dtype: the numbers ``L2_TOL`` in
-``test_torch_kernels_cuda.py`` is set from. Needs a CUDA card:
+card tests run for K1 (forward), K3/K4 (layer norm), K5/K6 (attention
+backward) and K7-K9 (the fused LM head: loss and lse, dX, dE), per
+dtype. It prints one line per attention and LM-head case and the worst
+value per kernel and dtype: the numbers ``L2_TOL``, ``XENT_L2_TOL`` and
+``XENT_LOSS_TOL`` in ``test_torch_kernels_cuda.py`` are set from (for K7
+the largest |loss diff| over max(1, |loss|)). Needs a CUDA card:
 
     python3 tests/port/kernel_l2_errors.py
 """
@@ -19,7 +21,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
 import test_torch_kernels_cuda as cases  # noqa: E402
 from apex_tpu_torch.ops import attention, attention_bwd_cuda  # noqa: E402
 from apex_tpu_torch.ops import attention_cuda, layer_norm  # noqa: E402
-from apex_tpu_torch.ops import layer_norm_cuda  # noqa: E402
+from apex_tpu_torch.ops import layer_norm_cuda, xent, xent_cuda  # noqa: E402
 
 
 def _l2(out, ref):
@@ -74,6 +76,24 @@ def main():
                     ry, rm, rr = layer_norm.layer_norm_fwd(x, w, b, 1e-5)
                     rdx, _, _ = layer_norm.layer_norm_bwd(x, w, rm, rr, dy)
                     note("K3/K4", dtype, max(_l2(y, ry), _l2(dx, rdx)))
+        for n, V, h in cases.XENT_SHAPES:
+            for eps in (0.0, 0.1):
+                x, e, labels, dl = cases._xent_case(dev, tdt, n, V, h)
+                loss, lse = xent_cuda.xent_fwd(x, e, labels, eps)
+                dx = xent_cuda.xent_bwd_dx(x, e, labels, lse, dl, eps)
+                de = xent_cuda.xent_bwd_de(x, e, labels, lse, dl, eps)
+                rloss, rlse = xent.linear_cross_entropy_fwd(x, e, labels, eps)
+                rdx = xent.linear_cross_entropy_dx(x, e, labels, rlse, dl, eps)
+                rde = xent.linear_cross_entropy_de(x, e, labels, rlse, dl, eps)
+                scale = max(rloss.abs().max().item(), 1.0)
+                fwd = max((loss - rloss).abs().max().item(),
+                          (lse - rlse).abs().max().item()) / scale
+                bwd = [_l2(dx, rdx), _l2(de, rde)]
+                print(f"xent {dtype} {n}x{V}x{h} eps={eps}: K7 loss/lse "
+                      f"{fwd:.3e} (max diff over max(1, |loss|)), K8 dx "
+                      f"{bwd[0]:.3e}, K9 de {bwd[1]:.3e}")
+                note("K7", dtype, fwd)
+                note("K8/K9", dtype, max(bwd))
     for (kernel, dtype), value in sorted(worst.items()):
         print(f"worst {kernel} {dtype}: {value:.3e}")
 

@@ -6,6 +6,7 @@ absent. The module-name check matches ``apex_tpu`` and ``apex_tpu.*``,
 never the bare prefix, which ``apex_tpu_torch`` itself shares."""
 
 import ast
+import dataclasses
 import json
 import os
 import subprocess
@@ -98,6 +99,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         init_gpt_params(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         GPTModel(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GPTModel(dataclasses.replace(cfg, fused_lm_head=True))
     with pytest.raises(RuntimeError, match="CUDA"):
         FusedLayerNorm(64)
     with pytest.raises(RuntimeError, match="CUDA"):

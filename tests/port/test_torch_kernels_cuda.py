@@ -4,7 +4,10 @@ dims 64 and 128, bf16/fp16/fp32, fully masked rows, lengths 0 / 1 /
 ps-1 / ps / ps+1 / full, unowned pages poisoned with NaN; layer norm at
 ragged row counts, hidden 64 / 768 / 1024 / 4096 / 8192, with and
 without affine; the split attention backward (K5, K6) on causal,
-segmented, fully masked and cross-length inputs.
+segmented, fully masked and cross-length inputs; the fused LM head (K7,
+K8, K9) at vocabularies 384, 1280 and 50304, row counts that leave
+partial row tiles, widths that leave a partial column tile, with and
+without label smoothing.
 
 Marked ``cuda``: each test needs a card and skips without one. This
 file imports neither JAX nor the JAX package, so it runs on a GPU
@@ -22,7 +25,13 @@ Layer-norm statistics and the fp32 affine gradients: 1e-4 relative to
 their scale (fp32 sums over the row or over the rows, another order).
 The layer-norm outputs and the attention gradients are also held by
 their relative L2 error (``L2_TOL``), so an error the size of a typical
-element fails even where one large element widens the band above.
+element fails even where one large element widens the band above. The
+LM head's loss and lse are fp32 on both sides from logits summed in
+another order: within ``XENT_LOSS_TOL`` of max(1, |loss|). Its dX and dE
+have their own relative-L2 band, ``XENT_L2_TOL``: both sides round the
+softmax coefficients to the half type from fp32 logits summed in another
+order, and at V = 50304 a row has tens of thousands of them, so more
+roundings flip than in the attention backward.
 """
 
 import pytest
@@ -31,6 +40,7 @@ import torch
 from apex_tpu_torch.ops import attention, attention_bwd_cuda, attention_cuda
 from apex_tpu_torch.ops import decode_attention, decode_attention_cuda
 from apex_tpu_torch.ops import layer_norm, layer_norm_cuda
+from apex_tpu_torch.ops import xent, xent_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -41,6 +51,15 @@ DTYPES = {"bfloat16": (torch.bfloat16, 5e-2), "float16": (torch.float16, 5e-3),
 # round to the same value; on an H100 these cases measured at most
 # 1.2e-4 (bf16), 3.3e-5 (fp16) and 4.5e-7 (fp32)
 L2_TOL = {"bfloat16": 1e-3, "float16": 3e-4, "float32": 5e-6}
+# on an H100 (tests/port/kernel_l2_errors.py) these cases measured at most
+# 3.1e-7 for the loss and lse of every dtype, and 5.8e-4 (bf16), 2.1e-4
+# (fp16) and 4.2e-6 (fp32) for dX and dE
+XENT_LOSS_TOL = 2e-6
+XENT_L2_TOL = {"bfloat16": 2e-3, "float16": 6e-4, "float32": 1.5e-5}
+# (n, V, h) of the LM-head cases: n leaves partial 32-, 64- and 128-row
+# tiles; h = 1024 leaves a partial 768-column tile
+XENT_SHAPES = [(200, 384, 128), (1032, 1280, 256), (136, 1280, 1024),
+               (200, 50304, 768)]
 
 
 @pytest.fixture
@@ -158,13 +177,13 @@ def _close_scaled(out, ref, rel):
     assert err <= rel * scale, (err, rel * scale)
 
 
-def _close_l2(out, ref, dtype):
-    """||out - ref|| / ||ref|| within ``L2_TOL[dtype]``: an error the size
+def _close_l2(out, ref, dtype, tol=L2_TOL):
+    """||out - ref|| / ||ref|| within ``tol[dtype]``: an error the size
     of the typical element fails here even where the largest element
     sets a wide outlier band."""
     out, ref = out.float(), ref.float()
     err = ((out - ref).norm() / ref.norm().clamp(min=1e-30)).item()
-    assert err <= L2_TOL[dtype], (err, L2_TOL[dtype])
+    assert err <= tol[dtype], (err, tol[dtype])
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -308,3 +327,87 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="do"):
         attention_bwd_cuda.attention_bwd(q, q, q, q, q[:, :1], causal=True,
                                          sm_scale=1.0)
+
+
+def _xent_case(dev, dtype, n, V, h, seed=7):
+    """x like a layer-normed hidden, E like the model's init, seeded
+    labels (one outside the vocabulary) and a non-uniform cotangent."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = _randn(gen, n, h, dtype=dtype, dev=dev)
+    e = (torch.randn(V, h, generator=gen, device=dev) * 0.02).to(dtype)
+    labels = torch.randint(0, V, (n,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    labels[3] = V + 5                       # no target: contributes nothing
+    dl = (torch.rand(n, generator=gen, device=dev) + 0.5) / n
+    return x, e, labels, dl
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", XENT_SHAPES,
+                         ids=[f"{n}x{V}x{h}" for n, V, h in XENT_SHAPES])
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_xent_kernels_match_plain(dev, dtype, shape, smoothing):
+    torch_dtype, tol = DTYPES[dtype]
+    x, e, labels, dl = _xent_case(dev, torch_dtype, *shape)
+    counts = lambda: (xent_cuda.xent_fwd.launches,  # noqa: E731
+                      xent_cuda.xent_bwd_dx.launches,
+                      xent_cuda.xent_bwd_de.launches)
+    before = counts()
+    loss, lse = xent_cuda.xent_fwd(x, e, labels, smoothing)
+    dx = xent_cuda.xent_bwd_dx(x, e, labels, lse, dl, smoothing)
+    de = xent_cuda.xent_bwd_de(x, e, labels, lse, dl, smoothing)
+    assert counts() == tuple(c + 1 for c in before)
+    rloss, rlse = xent.linear_cross_entropy_fwd(x, e, labels, smoothing)
+    rdx = xent.linear_cross_entropy_dx(x, e, labels, rlse, dl, smoothing)
+    rde = xent.linear_cross_entropy_de(x, e, labels, rlse, dl, smoothing)
+    torch.cuda.synchronize()
+    assert loss.dtype == lse.dtype == torch.float32
+    assert dx.dtype == de.dtype == torch_dtype
+    for out, ref in ((loss, rloss), (lse, rlse)):
+        _close_scaled(out, ref, XENT_LOSS_TOL)
+    for out, ref in ((dx, rdx), (de, rde)):
+        assert torch.isfinite(out.float()).all()
+        _close_scaled(out, ref, tol)
+        _close_l2(out, ref, dtype, XENT_L2_TOL)
+
+
+def test_xent_de_is_deterministic(dev):
+    x, e, labels, dl = _xent_case(dev, torch.bfloat16, 2048, 50304, 768)
+    _, lse = xent_cuda.xent_fwd(x, e, labels)
+    first = xent_cuda.xent_bwd_de(x, e, labels, lse, dl)
+    again = xent_cuda.xent_bwd_de(x, e, labels, lse, dl)
+    assert torch.equal(first, again)
+
+
+def test_xent_autograd_runs_k7_k8_k9(dev):
+    x, e, labels, dl = _xent_case(dev, torch.bfloat16, 200, 1280, 256)
+    x, e = x.requires_grad_(), e.requires_grad_()
+    counts = lambda: (xent_cuda.xent_fwd.launches,  # noqa: E731
+                      xent_cuda.xent_bwd_dx.launches,
+                      xent_cuda.xent_bwd_de.launches)
+    before = counts()
+    loss = xent.linear_cross_entropy(x, e, labels.long())
+    loss.backward(dl)
+    assert counts() == tuple(c + 1 for c in before)
+    assert x.grad.dtype == e.grad.dtype == torch.bfloat16
+    assert loss.shape == (200,) and loss.dtype == torch.float32
+
+
+def test_xent_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x, e, labels, _ = _xent_case(dev, torch.bfloat16, 16, 384, 128)
+    with pytest.raises(ValueError, match="CUDA"):
+        xent_cuda.xent_fwd(x.cpu(), e.cpu(), labels.cpu())
+    with pytest.raises(ValueError, match="dtype"):
+        xent_cuda.xent_fwd(x.double(), e.double(), labels)
+    with pytest.raises(ValueError, match="shape"):
+        xent_cuda.xent_fwd(x, e[:300], labels)      # V not a multiple of 128
+    with pytest.raises(ValueError, match="shape"):
+        xent_cuda.xent_fwd(x[:, :48].contiguous(), e[:, :48].contiguous(),
+                           labels)                   # h not a multiple of 32
+    with pytest.raises(ValueError, match="labels"):
+        xent_cuda.xent_fwd(x, e, labels.long())
+    with pytest.raises(ValueError, match="embedding"):
+        xent_cuda.xent_fwd(x, e.float(), labels)
+    _, lse = xent_cuda.xent_fwd(x, e, labels)
+    with pytest.raises(ValueError, match="dl"):
+        xent_cuda.xent_bwd_de(x, e, labels, lse, lse[:8].contiguous())

@@ -83,16 +83,23 @@ def _shmap(f, n):
                                  out_specs=P(), check_vma=False))
 
 
-def _batch(seed=0):
+def _batch(seed=0, kw=KW):
     rs = np.random.RandomState(seed)
-    ids = rs.randint(0, KW["vocab_size"], (B, S)).astype(np.int32)
-    labels = rs.randint(0, KW["vocab_size"], (B, S)).astype(np.int32)
+    ids = rs.randint(0, kw["vocab_size"], (B, S)).astype(np.int32)
+    labels = rs.randint(0, kw["vocab_size"], (B, S)).astype(np.int32)
     pos = np.broadcast_to(np.arange(S, dtype=np.int32)[None], (B, S))
     return ids, pos, labels
 
 
-def _torch_model(tree, bf16=False):
-    cfg = TConfig(**KW, bf16=bf16)
+def _jax_config(kw=KW, bf16=False):
+    """The JAX configuration of ``kw``; a fused head runs its Pallas
+    kernel in interpret mode on the CPU."""
+    return JConfig(**kw, bf16=bf16,
+                   fused_lm_head_interpret=bool(kw.get("fused_lm_head")))
+
+
+def _torch_model(tree, bf16=False, kw=KW):
+    cfg = TConfig(**kw, bf16=bf16)
     model = GPTModel(cfg, device="cpu")
     tweights.load_param_tree(model, tweights.from_jax_params(tree, cfg,
                                                              "cpu"))
@@ -266,18 +273,18 @@ def test_fused_adam_matches_jax(kw):
         assert np.array_equal(back.v[name].numpy(), want)
 
 
-def _run_trajectory(jax_tree, bf16, steps, forced=None, lr=1e-3):
-    """Both steps side by side from the same weights and batch; returns
-    the per-step losses, the final states and the forced step's checks."""
-    jcfg = JConfig(**KW, bf16=bf16)
-    jm = JGPT(jcfg)
+def _run_trajectory(jax_tree, bf16, steps, forced=None, lr=1e-3, kw=KW):
+    """Both steps side by side from the same weights and batch, for the
+    configuration ``kw``; returns the per-step losses, the final states
+    and the forced step's checks."""
+    jm = JGPT(_jax_config(kw, bf16))
     js, jtx = JScaler(), jfused_adam(learning_rate=lr)
     jstep = _shmap(lambda *a: bench.make_one_step(jm, js, jtx)(*a)[:4], 6)
-    ids, pos, labels = _batch()
+    ids, pos, labels = _batch(kw=kw)
     jparams = jax.tree_util.tree_map(jnp.asarray, jax_tree)
     jopt, jss = jtx.init(jparams), js.init()
 
-    model = _torch_model(jax_tree, bf16)
+    model = _torch_model(jax_tree, bf16, kw)
     ts, ttx = LossScaler(), fused_adam(learning_rate=lr)
     tstep = make_one_step(model, ts, ttx)
     topt = ttx.init(dict(model.named_parameters()))
@@ -374,7 +381,6 @@ def test_step_never_reads_a_device_value_on_the_host(jax_tree, monkeypatch):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(fused_lm_head=True), "fused_lm_head"),
     (dict(recompute_granularity="full"), "recompute"),
     (dict(num_moe_experts=4), "MoE"),
     (dict(sequence_parallel=True), "sequence"),
