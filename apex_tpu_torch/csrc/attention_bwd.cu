@@ -17,10 +17,26 @@
 // output, where the TPU kernel forms rowsum(P * dP) from its whole score
 // row. The two agree in exact arithmetic, and this saves a third sweep.
 //
+// The DROPOUT instantiations (K5d, K6d) compute the function of the
+// monolithic backward's dropout replay (_bwd_kernel :303, :331-346, under
+// pallas_call :834) in this split structure: the mask M (mscale = 1/(1-p)
+// where kept, 0 where dropped) is regenerated from the seed, never read:
+// _dropout_mscale :198's chained fmix32 hash of the seed and the score's
+// global (b*H + h, row, column), the same bits the forward K1d drew. K5d
+// uses dP * mscale in dS = P (dP mscale - D) scale; K6d uses P * mscale,
+// rounded to the input dtype, for dv and the same dS for dk. Because the
+// mask is a function of global coordinates, K6's k-major walk regenerates
+// exactly the bits of the q-major forward. D = rowsum(dO * O) is unchanged:
+// O = (P M) V, so it equals the TPU kernel's rowsum(P M * dP). The hash
+// costs ~11 integer operations per live pair against ~384-512 fp32 ones
+// here; a tensor-core version would be bound by it unless the mask were
+// stored.
+//
 // Layout: q, o, dO, dq [B, H, Sq, D]; k, v, dk, dv [B, H, Sk, D]; all
 // contiguous, one dtype (bf16, fp16 or fp32); segment ids [B, Sq] and
 // [B, Sk] int32 or null; m, l, D [B, H, Sq] fp32, written by K5 and read by
-// K6. D (head dim) is 64 or 128.
+// K6; the dropout seed one int32, or null for no dropout. D (head dim) is 64
+// or 128.
 //
 // What bounds it on H100: at the training shape (B 8, H 12, S 1024, D 64,
 // bf16, causal) the two passes move ~102 MB (q, k, v, o, dO read; dq, dk,
@@ -77,6 +93,23 @@ template <> __device__ __forceinline__ __half from_f<__half>(float x) {
   return __float2half(x);
 }
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+
+// murmur3's 32-bit finalizer (attention_pallas.py:188 _fmix32). Each source
+// keeps its own copy: the build hashes one source alone.
+__device__ __forceinline__ unsigned fmix32(unsigned x) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x;
+}
+
+// the per-(batch, head) key of _dropout_mscale: fmix32(fmix32(0x9E3779B9 ^
+// seed) ^ (b * H + h))
+__device__ __forceinline__ unsigned head_key(const int* seed, int bh) {
+  return fmix32(fmix32(0x9E3779B9u ^ (unsigned)__ldg(seed)) ^ (unsigned)bh);
+}
 
 // x rounded to T and back: the TPU kernel's .astype(q.dtype) on dS and P
 template <typename T> __device__ __forceinline__ float round_to(float x) {
@@ -146,15 +179,17 @@ __device__ __forceinline__ void partial_dots(const float (&own)[D / TPR],
 }
 
 // K5: dq plus the row statistics (m, l, D)
-template <typename T, int D>
+template <typename T, int D, bool DROPOUT>
 __global__ void __launch_bounds__(THREADS)
 attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ o,
                         const T* __restrict__ dout, const int* __restrict__ seg_q,
-                        const int* __restrict__ seg_kv, T* __restrict__ dq,
+                        const int* __restrict__ seg_kv,
+                        const int* __restrict__ seed, T* __restrict__ dq,
                         float* __restrict__ m_out, float* __restrict__ l_out,
                         float* __restrict__ d_out, int H, int Sq, int Sk,
-                        float scale, int causal) {
+                        float scale, int causal, unsigned thresh,
+                        float mscale) {
   constexpr int DC = D / TPR;
   __shared__ float ks[TILE][D + 1];   // +1: row stride off the bank period
   __shared__ float vs[TILE][D + 1];
@@ -186,6 +221,8 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float drow = row_sum4(dsum);
   const int seg_row = (has_seg && row_ok) ? seg_q[(size_t)b * Sq + qi] : 0;
   const int k_end = causal ? min(Sk, q0 + ROWS) : Sk;
+  unsigned rowkey = 0;
+  if constexpr (DROPOUT) rowkey = fmix32(head_key(seed, bh) ^ (unsigned)qi);
 
   // sweep 1: online row max and sum
   float m = -INFINITY, l = 0.f;
@@ -242,7 +279,11 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           (has_seg && segk[j] != seg_row);
       const float e = masked ? 0.f : expf(fminf(s[i] * scale - m, 0.f));
       const float p = l > 0.f ? e / l : 0.f;
-      ps[r][j] = round_to<T>(p * (dp[i] - drow) * scale);
+      float dpm = dp[i];
+      if constexpr (DROPOUT)   // the replayed mask on dP; masked pairs draw nothing
+        dpm = (!masked && fmix32(rowkey ^ (unsigned)kj) >= thresh)
+                  ? dpm * mscale : dpm * 0.f;
+      ps[r][j] = round_to<T>(p * (dpm - drow) * scale);
     }
     __syncwarp();                        // the row's dS values are all written
 #pragma unroll
@@ -268,7 +309,7 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // K6: dk and dv of one 64-row k tile
-template <typename T, int D>
+template <typename T, int D, bool DROPOUT>
 __global__ void __launch_bounds__(THREADS)
 attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
@@ -276,15 +317,17 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const int* __restrict__ seg_kv,
                          const float* __restrict__ m_in,
                          const float* __restrict__ l_in,
-                         const float* __restrict__ d_in, T* __restrict__ dk,
+                         const float* __restrict__ d_in,
+                         const int* __restrict__ seed, T* __restrict__ dk,
                          T* __restrict__ dv, int H, int Sq, int Sk, float scale,
-                         int causal) {
+                         int causal, unsigned thresh, float mscale) {
   constexpr int DC = D / TPR;
   __shared__ float qs[TILE][D + 1];
   __shared__ float dos[TILE][D + 1];
   __shared__ float pt[ROWS][TILE + 1];   // P, then dS, of this block's keys
   __shared__ float ms[TILE], ls[TILE], dsm[TILE];
   __shared__ int segq[TILE];
+  __shared__ unsigned rks[TILE];          // dropout row keys of the q tile
 
   const int bh = blockIdx.y;
   const int b = bh / H;
@@ -308,6 +351,8 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     dk_acc[i] = dv_acc[i] = 0.f;
   }
   const int seg_key = (has_seg && key_ok) ? seg_kv[(size_t)b * Sk + kj] : 0;
+  unsigned hkey = 0;
+  if constexpr (DROPOUT) hkey = head_key(seed, bh);
   // causal: query rows below k0 see none of this block's keys
   const int q_begin = causal ? (k0 / TILE) * TILE : 0;
 
@@ -322,6 +367,7 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       ls[threadIdx.x] = ok ? l_in[sbase + qi] : 0.f;
       dsm[threadIdx.x] = ok ? d_in[sbase + qi] : 0.f;
       segq[threadIdx.x] = (has_seg && ok) ? seg_q[(size_t)b * Sq + qi] : 0;
+      if constexpr (DROPOUT) rks[threadIdx.x] = fmix32(hkey ^ (unsigned)qi);
     }
     __syncthreads();
     float a[TILE], s[OWN], dp[OWN], ds[OWN];
@@ -337,8 +383,15 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           (has_seg && segq[ii] != seg_key);
       const float e = masked ? 0.f : expf(fminf(s[i] * scale - ms[ii], 0.f));
       const float p = ls[ii] > 0.f ? e / ls[ii] : 0.f;
-      ds[i] = round_to<T>(p * (dp[i] - dsm[ii]) * scale);
-      pt[r][ii] = round_to<T>(p);
+      float dpm = dp[i], pd = p;
+      if constexpr (DROPOUT) {  // the replayed mask; masked pairs draw nothing
+        const float msc =
+            (!masked && fmix32(rks[ii] ^ (unsigned)kj) >= thresh) ? mscale : 0.f;
+        dpm *= msc;
+        pd = p * msc;
+      }
+      ds[i] = round_to<T>(p * (dpm - dsm[ii]) * scale);
+      pt[r][ii] = round_to<T>(pd);
     }
     __syncwarp();
 #pragma unroll
@@ -375,26 +428,37 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 void launch_dq(dim3 grid, cudaStream_t st, const void* q, const void* k,
                const void* v, const void* o, const void* dout,
-               const void* seg_q, const void* seg_kv, void* dq, void* m,
-               void* l, void* d, int H, int Sq, int Sk, float scale,
-               int causal) {
-  attention_bwd_dq_kernel<T, D><<<grid, THREADS, 0, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout,
-      (const int*)seg_q, (const int*)seg_kv, (T*)dq, (float*)m, (float*)l,
-      (float*)d, H, Sq, Sk, scale, causal);
+               const void* seg_q, const void* seg_kv, const void* seed,
+               void* dq, void* m, void* l, void* d, int H, int Sq, int Sk,
+               float scale, int causal, unsigned thresh, float mscale) {
+#define DQ_KERNEL_ARGS                                                        \
+  (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout,         \
+      (const int*)seg_q, (const int*)seg_kv, (const int*)seed, (T*)dq,        \
+      (float*)m, (float*)l, (float*)d, H, Sq, Sk, scale, causal, thresh, mscale
+  if (seed == nullptr)
+    attention_bwd_dq_kernel<T, D, false><<<grid, THREADS, 0, st>>>(DQ_KERNEL_ARGS);
+  else
+    attention_bwd_dq_kernel<T, D, true><<<grid, THREADS, 0, st>>>(DQ_KERNEL_ARGS);
+#undef DQ_KERNEL_ARGS
 }
 
 template <typename T, int D>
 void launch_dkv(dim3 grid, cudaStream_t st, const void* q, const void* k,
                 const void* v, const void* dout, const void* seg_q,
                 const void* seg_kv, const void* m, const void* l,
-                const void* d, void* dk, void* dv, int H, int Sq, int Sk,
-                float scale, int causal) {
-  attention_bwd_dkv_kernel<T, D><<<grid, THREADS, 0, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const int*)seg_q, (const int*)seg_kv, (const float*)m,
-      (const float*)l, (const float*)d, (T*)dk, (T*)dv, H, Sq, Sk, scale,
-      causal);
+                const void* d, const void* seed, void* dk, void* dv, int H,
+                int Sq, int Sk, float scale, int causal, unsigned thresh,
+                float mscale) {
+#define DKV_KERNEL_ARGS                                                       \
+  (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const int*)seg_q,   \
+      (const int*)seg_kv, (const float*)m, (const float*)l, (const float*)d,  \
+      (const int*)seed, (T*)dk, (T*)dv, H, Sq, Sk, scale, causal, thresh,     \
+      mscale
+  if (seed == nullptr)
+    attention_bwd_dkv_kernel<T, D, false><<<grid, THREADS, 0, st>>>(DKV_KERNEL_ARGS);
+  else
+    attention_bwd_dkv_kernel<T, D, true><<<grid, THREADS, 0, st>>>(DKV_KERNEL_ARGS);
+#undef DKV_KERNEL_ARGS
 }
 
 bool bad_args(int B, int H, int Sq, int Sk, int D, int dtype,
@@ -406,12 +470,14 @@ bool bad_args(int B, int H, int Sq, int Sk, int D, int dtype,
 
 }  // namespace
 
+// seed == nullptr: no dropout (thresh and mscale unread)
 extern "C" int attention_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* o, const void* dout,
                                 const void* seg_q, const void* seg_kv,
-                                void* dq, void* m, void* l, void* d, int B,
-                                int H, int Sq, int Sk, int D, float scale,
-                                int causal, int dtype, int device,
+                                const void* seed, void* dq, void* m, void* l,
+                                void* d, int B, int H, int Sq, int Sk, int D,
+                                float scale, int causal, unsigned thresh,
+                                float mscale, int dtype, int device,
                                 void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -419,7 +485,7 @@ extern "C" int attention_bwd_dq(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   const dim3 grid((Sq + ROWS - 1) / ROWS, B * H);
   cudaStream_t st = (cudaStream_t)stream;
-#define DQ_ARGS grid, st, q, k, v, o, dout, seg_q, seg_kv, dq, m, l, d, H, Sq, Sk, scale, causal
+#define DQ_ARGS grid, st, q, k, v, o, dout, seg_q, seg_kv, seed, dq, m, l, d, H, Sq, Sk, scale, causal, thresh, mscale
   if (dtype == 0) {
     if (D == 64) launch_dq<__nv_bfloat16, 64>(DQ_ARGS);
     else launch_dq<__nv_bfloat16, 128>(DQ_ARGS);
@@ -434,20 +500,22 @@ extern "C" int attention_bwd_dq(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// seed == nullptr: no dropout (thresh and mscale unread)
 extern "C" int attention_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* seg_q,
                                  const void* seg_kv, const void* m,
-                                 const void* l, const void* d, void* dk,
-                                 void* dv, int B, int H, int Sq, int Sk,
-                                 int D, float scale, int causal, int dtype,
-                                 int device, void* stream) {
+                                 const void* l, const void* d,
+                                 const void* seed, void* dk, void* dv, int B,
+                                 int H, int Sq, int Sk, int D, float scale,
+                                 int causal, unsigned thresh, float mscale,
+                                 int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (bad_args(B, H, Sq, Sk, D, dtype, seg_q, seg_kv))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((Sk + ROWS - 1) / ROWS, B * H);
   cudaStream_t st = (cudaStream_t)stream;
-#define DKV_ARGS grid, st, q, k, v, dout, seg_q, seg_kv, m, l, d, dk, dv, H, Sq, Sk, scale, causal
+#define DKV_ARGS grid, st, q, k, v, dout, seg_q, seg_kv, m, l, d, seed, dk, dv, H, Sq, Sk, scale, causal, thresh, mscale
   if (dtype == 0) {
     if (D == 64) launch_dkv<__nv_bfloat16, 64>(DKV_ARGS);
     else launch_dkv<__nv_bfloat16, 128>(DKV_ARGS);

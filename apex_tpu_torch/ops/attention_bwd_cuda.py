@@ -2,14 +2,19 @@
 (``csrc/attention_bwd.cu``; it replaces
 ``apex_tpu/ops/attention_pallas.py:850 _bwd_split``): K5
 :func:`attention_bwd_dq` (the dq pass, ``:869``) and K6
-:func:`attention_bwd_dkv` (the dk/dv pass, ``:899``). The source's
-header says what bounds them and how the design answers that.
+:func:`attention_bwd_dkv` (the dk/dv pass, ``:899``); and their dropout
+instantiations K5d :func:`attention_bwd_dq_dropout` and K6d
+:func:`attention_bwd_dkv_dropout`, which compute the dropout replay of
+the monolithic backward (``_bwd_kernel :303``, ``:331-346``, under
+``pallas_call :834``) in the split structure. The source's header says
+what bounds them and how the design answers that.
 
 Each wrapper checks its inputs, allocates its outputs, launches on
 PyTorch's current stream without synchronising, raises on a refused
 launch, and counts the launch in ``<wrapper>.launches`` (a plain int; a
 caller resets it to 0 before the run it wants to read).
-:func:`attention_bwd` runs both. The plain version is
+:func:`attention_bwd` runs K5 then K6, :func:`attention_bwd_dropout` K5d
+then K6d. The plain version is
 :func:`apex_tpu_torch.ops.attention._attention_bwd_split`.
 """
 
@@ -18,16 +23,16 @@ import ctypes
 import torch
 
 from apex_tpu_torch.ops import _build
-from apex_tpu_torch.ops.attention_cuda import _check
+from apex_tpu_torch.ops.attention_cuda import NO_DROPOUT, _check, dropout_args
 
 _NAME = "attention_bwd"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+_TAIL = [_I] * 5 + [_F, _I, ctypes.c_uint, _F, _I, _I, _P]
 _SIGNATURES = {
-    "attention_bwd_dq": ([_P] * 11 + [_I] * 5 + [ctypes.c_float, _I, _I, _I,
-                                                 _P], _I),
-    "attention_bwd_dkv": ([_P] * 11 + [_I] * 5 + [ctypes.c_float, _I, _I,
-                                                  _I, _P], _I),
+    "attention_bwd_dq": ([_P] * 12 + _TAIL, _I),
+    "attention_bwd_dkv": ([_P] * 12 + _TAIL, _I),
     "attention_bwd_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -46,9 +51,7 @@ def _check_like(name, t, ref):
                          f"{ref.device}")
 
 
-def attention_bwd_dq(q, k, v, o, do, *, causal, sm_scale, segment_ids=None):
-    """K5: ``(dq, m, l, d)`` — dq in q's dtype and the fp32 ``[b, h, sq]``
-    row statistics (max, sum of exponentials, rowsum(dO * O)) K6 reads."""
+def _dq(q, k, v, o, do, causal, sm_scale, segment_ids, drop):
     _check(q, k, v, segment_ids)
     _check_like("o", o, q)
     _check_like("do", do, q)
@@ -57,19 +60,17 @@ def attention_bwd_dq(q, k, v, o, do, *, causal, sm_scale, segment_ids=None):
     dq = torch.empty_like(q)
     m, l, dcol = (torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
                   for _ in range(3))
+    seed, thresh, mscale = drop
     _build.launch(_NAME, _SIGNATURES, "attention_bwd_dq", q.device,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                  do.data_ptr(), *_seg_ptrs(segment_ids), dq.data_ptr(),
+                  do.data_ptr(), *_seg_ptrs(segment_ids), seed, dq.data_ptr(),
                   m.data_ptr(), l.data_ptr(), dcol.data_ptr(), b, h, sq, sk,
-                  d, float(sm_scale), int(bool(causal)),
+                  d, float(sm_scale), int(bool(causal)), thresh, mscale,
                   _build.DTYPE_CODES[q.dtype])
-    attention_bwd_dq.launches += 1
     return dq, m, l, dcol
 
 
-def attention_bwd_dkv(q, k, v, do, m, l, dcol, *, causal, sm_scale,
-                      segment_ids=None):
-    """K6: ``(dk, dv)`` in k's dtype, from K5's row statistics."""
+def _dkv(q, k, v, do, m, l, dcol, causal, sm_scale, segment_ids, drop):
     _check(q, k, v, segment_ids)
     _check_like("do", do, q)
     b, h, sq, d = q.shape
@@ -81,14 +82,31 @@ def attention_bwd_dkv(q, k, v, do, m, l, dcol, *, causal, sm_scale,
                              f"fp32 [{b}, {h}, {sq}] tensor on {q.device}")
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    seed, thresh, mscale = drop
     _build.launch(_NAME, _SIGNATURES, "attention_bwd_dkv", q.device,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                   *_seg_ptrs(segment_ids), m.data_ptr(), l.data_ptr(),
-                  dcol.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq, sk,
-                  d, float(sm_scale), int(bool(causal)),
-                  _build.DTYPE_CODES[q.dtype])
-    attention_bwd_dkv.launches += 1
+                  dcol.data_ptr(), seed, dk.data_ptr(), dv.data_ptr(), b, h,
+                  sq, sk, d, float(sm_scale), int(bool(causal)), thresh,
+                  mscale, _build.DTYPE_CODES[q.dtype])
     return dk, dv
+
+
+def attention_bwd_dq(q, k, v, o, do, *, causal, sm_scale, segment_ids=None):
+    """K5: ``(dq, m, l, d)`` — dq in q's dtype and the fp32 ``[b, h, sq]``
+    row statistics (max, sum of exponentials, rowsum(dO * O)) K6 reads."""
+    out = _dq(q, k, v, o, do, causal, sm_scale, segment_ids, NO_DROPOUT)
+    attention_bwd_dq.launches += 1
+    return out
+
+
+def attention_bwd_dkv(q, k, v, do, m, l, dcol, *, causal, sm_scale,
+                      segment_ids=None):
+    """K6: ``(dk, dv)`` in k's dtype, from K5's row statistics."""
+    out = _dkv(q, k, v, do, m, l, dcol, causal, sm_scale, segment_ids,
+               NO_DROPOUT)
+    attention_bwd_dkv.launches += 1
+    return out
 
 
 def attention_bwd(q, k, v, o, do, *, causal, sm_scale, segment_ids=None):
@@ -101,5 +119,36 @@ def attention_bwd(q, k, v, o, do, *, causal, sm_scale, segment_ids=None):
     return dq, dk, dv
 
 
+def attention_bwd_dq_dropout(q, k, v, o, do, *, causal, sm_scale, dropout_p,
+                             dropout_seed, segment_ids=None):
+    """K5d: K5 with the forward's dropout mask replayed on dP."""
+    drop = dropout_args(dropout_p, dropout_seed, q.device)
+    out = _dq(q, k, v, o, do, causal, sm_scale, segment_ids, drop)
+    attention_bwd_dq_dropout.launches += 1
+    return out
+
+
+def attention_bwd_dkv_dropout(q, k, v, do, m, l, dcol, *, causal, sm_scale,
+                              dropout_p, dropout_seed, segment_ids=None):
+    """K6d: K6 with the forward's dropout mask replayed on P (for dv) and
+    on dP (for dk)."""
+    drop = dropout_args(dropout_p, dropout_seed, q.device)
+    out = _dkv(q, k, v, do, m, l, dcol, causal, sm_scale, segment_ids, drop)
+    attention_bwd_dkv_dropout.launches += 1
+    return out
+
+
+def attention_bwd_dropout(q, k, v, o, do, *, causal, sm_scale, dropout_p,
+                          dropout_seed, segment_ids=None):
+    """K5d then K6d: ``(dq, dk, dv)`` of attention with dropout."""
+    kw = dict(causal=causal, sm_scale=sm_scale, dropout_p=dropout_p,
+              dropout_seed=dropout_seed, segment_ids=segment_ids)
+    dq, m, l, dcol = attention_bwd_dq_dropout(q, k, v, o, do, **kw)
+    dk, dv = attention_bwd_dkv_dropout(q, k, v, do, m, l, dcol, **kw)
+    return dq, dk, dv
+
+
 attention_bwd_dq.launches = 0
 attention_bwd_dkv.launches = 0
+attention_bwd_dq_dropout.launches = 0
+attention_bwd_dkv_dropout.launches = 0

@@ -1,14 +1,18 @@
-"""Wrapper of the hand-written CUDA prefill attention kernel
+"""Wrappers of the hand-written CUDA prefill attention kernel
 (``csrc/prefill_attention.cu``; it replaces
 ``apex_tpu/ops/attention_pallas.py:230 _fwd_kernel`` and ``:262
-_fwd_kernel_chunked``). The source's header says what bounds the kernel
-and how its design answers that.
+_fwd_kernel_chunked``): :func:`prefill_attention` (K1) and
+:func:`prefill_attention_dropout` (K1d, the kernel's dropout
+instantiation, ``_fwd_kernel``'s dropout branch ``:252-256``). The
+source's header says what bounds the kernel and how its design answers
+that.
 
-:func:`prefill_attention` checks its inputs, allocates the output,
-launches on PyTorch's current stream without synchronising, raises on a
-refused launch, and counts the launch in ``prefill_attention.launches``
-(a plain int; a caller resets it to 0 before the run it wants to read).
-The plain version is :func:`apex_tpu_torch.ops.attention._dense_attention`.
+Each wrapper checks its inputs, allocates the output, launches on
+PyTorch's current stream without synchronising, raises on a refused
+launch, and counts the launch in ``<wrapper>.launches`` (a plain int; a
+caller resets it to 0 before the run it wants to read), so K1 and K1d
+launches are told apart. The plain version is
+:func:`apex_tpu_torch.ops.attention._dense_attention`.
 """
 
 import ctypes
@@ -16,15 +20,17 @@ import ctypes
 import torch
 
 from apex_tpu_torch.ops import _build
+from apex_tpu_torch.ops.attention import dropout_scale, dropout_threshold
 
 _NAME = "prefill_attention"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 
 _SIGNATURES = {
-    "prefill_attention_fwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               ctypes.c_float, _I, _I, _I, _P], _I),
+    "prefill_attention_fwd": ([_P] * 7 + [_I] * 5 + [_F, _I, ctypes.c_uint,
+                                                     _F, _I, _I, _P], _I),
     "prefill_attention_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -62,20 +68,58 @@ def _check(q, k, v, segment_ids):
                                  f"{q.device}")
 
 
-def prefill_attention(q, k, v, *, causal, sm_scale, segment_ids=None):
-    """The kernel on ``[b, h, s, d]`` CUDA tensors (see the module
-    docstring); returns a new ``[b, h, sq, d]`` tensor."""
+# the launch arguments (seed pointer, threshold, scale) of no dropout
+NO_DROPOUT = (None, 0, 0.0)
+
+
+def dropout_args(dropout_p, dropout_seed, device):
+    """``(seed pointer, threshold, scale)`` of a dropout launch: the seed
+    checked to be an int32 ``[1]`` tensor on ``device`` (the kernels read
+    it there), the threshold and scale of
+    :func:`apex_tpu_torch.ops.attention.dropout_mscale`."""
+    if not 0.0 < dropout_p < 1.0:
+        raise ValueError(f"dropout_p={dropout_p} outside (0, 1)")
+    t = dropout_seed
+    if (not torch.is_tensor(t) or t.device != device or t.dtype != torch.int32
+            or tuple(t.shape) != (1,) or not t.is_contiguous()):
+        raise ValueError(f"dropout_seed must be a contiguous int32 [1] tensor "
+                         f"on {device}")
+    return t.data_ptr(), dropout_threshold(dropout_p), dropout_scale(dropout_p)
+
+
+def _launch(q, k, v, causal, sm_scale, segment_ids, drop):
     _check(q, k, v, segment_ids)
     b, h, sq, d = q.shape
     out = torch.empty_like(q)
     seg_q, seg_kv = (segment_ids[0].data_ptr(), segment_ids[1].data_ptr()) \
         if segment_ids is not None else (None, None)
+    seed, thresh, mscale = drop
     _build.launch(_NAME, _SIGNATURES, "prefill_attention_fwd", q.device,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_q, seg_kv,
-                  out.data_ptr(), b, h, sq, k.shape[2], d, float(sm_scale),
-                  int(bool(causal)), _build.DTYPE_CODES[q.dtype])
+                  seed, out.data_ptr(), b, h, sq, k.shape[2], d,
+                  float(sm_scale), int(bool(causal)), thresh, mscale,
+                  _build.DTYPE_CODES[q.dtype])
+    return out
+
+
+def prefill_attention(q, k, v, *, causal, sm_scale, segment_ids=None):
+    """K1 on ``[b, h, s, d]`` CUDA tensors (see the module docstring);
+    returns a new ``[b, h, sq, d]`` tensor."""
+    out = _launch(q, k, v, causal, sm_scale, segment_ids, NO_DROPOUT)
     prefill_attention.launches += 1
     return out
 
 
+def prefill_attention_dropout(q, k, v, *, causal, sm_scale, dropout_p,
+                              dropout_seed, segment_ids=None):
+    """K1d: K1 with inverted dropout on the probabilities, its mask drawn
+    in the kernel from ``dropout_seed`` (an int32 ``[1]`` tensor on q's
+    device) and the scores' global coordinates."""
+    drop = dropout_args(dropout_p, dropout_seed, q.device)
+    out = _launch(q, k, v, causal, sm_scale, segment_ids, drop)
+    prefill_attention_dropout.launches += 1
+    return out
+
+
 prefill_attention.launches = 0
+prefill_attention_dropout.launches = 0

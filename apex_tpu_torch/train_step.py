@@ -7,6 +7,12 @@ scaling, fused Adam, and the skip-step selects of ``bench.py:240-245``.
     opt_state, scaler_state, loss = step(opt_state, scaler_state,
                                          ids, pos, labels)
 
+With ``dropout_generator`` (a ``torch.Generator`` on the model's device)
+the step trains with the configuration's hidden and attention dropout,
+the counterpart of ``benchmarks/profile_gpt.py:181-207
+make_train_step(model, rng_of)``: each step draws its masks and seeds
+from the generator where the JAX step folds the step index into its key.
+
 The step never waits on the host: the overflow decision is a device bool
 and the skip is ``torch.where``, so nothing calls ``.item()`` or
 ``bool()`` on a device tensor and a caller can queue steps back to back.
@@ -21,16 +27,21 @@ object. Gradients are dropped (``grad = None``) at the start of a step.
 import torch
 
 
-def make_one_step(model, scaler, opt):
+def make_one_step(model, scaler, opt, dropout_generator=None):
     """``one_step(opt_state, scaler_state, ids, pos, labels) ->
     (opt_state, scaler_state, loss)``; ``loss`` is the unscaled mean
-    per-token loss, a 0-d fp32 device tensor."""
+    per-token loss, a 0-d fp32 device tensor. With ``dropout_generator``
+    the model runs with ``deterministic=False``; without it the step is
+    deterministic."""
     params = dict(model.named_parameters())
+    drop = {}
+    if dropout_generator is not None:
+        drop = dict(deterministic=False, dropout_generator=dropout_generator)
 
     def one_step(opt_state, scaler_state, ids, pos, labels):
         for p in params.values():
             p.grad = None
-        per_tok = model(ids, pos, None, labels)
+        per_tok = model(ids, pos, None, labels, **drop)
         loss = torch.mean(per_tok) * scaler_state.loss_scale
         loss.backward()
         with torch.no_grad():

@@ -8,19 +8,26 @@ package's ``[s, b, h]`` hidden layout and numerics:
 
 * :class:`Embedding` (``:663``) — word and position rows summed in the
   parameter dtype (fp32), transposed to ``[s, b, h]``, cast to the
-  compute dtype;
-* :class:`ParallelAttention` (``:315``) — only the causal, no-mask,
-  no-dropout branch (``:402-406``, ``:471-482``): the fused qkv
-  projection split per head ``[q|k|v]`` (``:352-355``), the ``[b, h, s,
-  d]`` attention of :func:`apex_tpu_torch.ops.attention.fused_attention`
-  (K1 forward, K5/K6 backward on the card) at scale ``1/sqrt(hd)`` —
-  query-key layer scaling is ignored, as the JAX flash branch ignores
-  it — and the output projection (``_via_bhsd :387-396``);
+  compute dtype, then hidden dropout in training (``:709``);
+* :class:`ParallelAttention` (``:315``) — the causal, no-mask branches:
+  without dropout the flash branch (``:402-406``, ``:471-482``), in
+  training with attention dropout the in-kernel dropout route
+  (``:421-470``) with a seed from :func:`derive_attention_dropout_seed`;
+  the fused qkv projection split per head ``[q|k|v]`` (``:352-355``), the
+  ``[b, h, s, d]`` attention of
+  :func:`apex_tpu_torch.ops.attention.fused_attention` (K1 or K1d
+  forward, K5/K6 or K5d/K6d backward on the card) at scale ``1/sqrt(hd)``
+  — query-key layer scaling is ignored, as the JAX flash and rows
+  branches ignore it — and the output projection (``_via_bhsd
+  :387-396``);
 * :class:`ParallelMLP` (``:282``) — h→4h, bias + tanh GELU, 4h→h;
 * :class:`ParallelTransformerLayer` (``:534``) — pre-LN block with
-  ``residual + (x + bias)`` adds in the compute dtype;
+  ``residual + dropout(x + bias)`` in the compute dtype (``:570-605``);
+  with ``recompute_granularity="selective"`` its attention is recomputed
+  in the backward (``:553-556``);
 * :class:`ParallelTransformer` (``:609``) — the layer stack and the
-  final layer norm;
+  final layer norm; with ``"full"`` each layer is recomputed in the
+  backward (``:626-630``);
 * :func:`parallel_lm_logits` (``:217``) and :class:`GPTModel`
   (``:744``) — logits against the tied word table, and the per-token
   vocab-parallel cross entropy ``[b, s]`` when labels are given; or, with
@@ -32,11 +39,23 @@ Layer norms are :class:`FusedLayerNorm` (K3/K4 on the card). Parameter
 names give ``state_dict`` keys equal to the JAX tree paths with ``/``
 → ``.`` (``transformer.layer_0.self_attention.query_key_value.weight``,
 ``word_embeddings``), so :func:`apex_tpu_torch.serving.weights.
-load_param_tree` carries one tree into either slice. What the slice does
-not model raises: dropout in training, recompute, MoE, sequence/context
-parallelism, tp > 1.
+load_param_tree` carries one tree into either slice.
+
+Dropout in training draws from one ``torch.Generator`` that the caller
+passes to :meth:`GPTModel.forward` (the counterpart of flax's "dropout"
+rng): hidden masks through :func:`apex_tpu_torch.utils.train_dropout`,
+and one attention seed per layer, a device tensor, whose mask the kernels
+draw from the scores' coordinates. Recompute runs through
+``torch.utils.checkpoint`` (non-reentrant). It restores only the default
+generators, so the recomputed region restores the explicit generator's
+state from before its first forward and puts back the later state after
+it: the recompute draws the same masks and seed, and later steps draw
+new ones. What the slice does not model raises: MoE, sequence/context
+parallelism, tp > 1, and attention dropout on the scores path
+(``fused_attention_dropout=False``).
 """
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Optional
@@ -44,6 +63,7 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint
 
 from apex_tpu_torch import default_device
 from apex_tpu_torch.normalization import FusedLayerNorm
@@ -60,6 +80,7 @@ from apex_tpu_torch.transformer.tensor_parallel.layers import (
     scaled_init_std,
     vocab_parallel_embed,
 )
+from apex_tpu_torch.utils import bias_dropout_add, train_dropout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +100,10 @@ class TransformerConfig:
     layernorm_epsilon: float = 1e-5
     hidden_dropout: float = 0.1
     attention_dropout: float = 0.1
+    # training with attention dropout takes the in-kernel dropout route
+    # (K1d, K5d/K6d on the card); False would be the scores path, which
+    # the port does not have yet
+    fused_attention_dropout: bool = True
     apply_query_key_layer_scaling: bool = True
     fused_lm_head: Optional[bool] = None
     sequence_parallel: bool = False
@@ -116,9 +141,12 @@ class TransformerConfig:
 
 def check_training_config(cfg):
     """Raise on TransformerConfig options the training slice does not
-    model (dropout is checked per call: it only matters in training)."""
+    model (dropout is checked per call: it only matters in training).
+    ``recompute_granularity`` takes None or "none" (no recompute: the port
+    has no dispatch table to consult, ``resolve_recompute_granularity
+    :713``), "selective" or "full"."""
     problems = []
-    if cfg.recompute_granularity not in (None, "none"):
+    if cfg.recompute_granularity not in (None, "none", "selective", "full"):
         problems.append(f"recompute_granularity="
                         f"{cfg.recompute_granularity!r}")
     if cfg.num_moe_experts:
@@ -127,6 +155,49 @@ def check_training_config(cfg):
         problems.append("sequence/context parallelism")
     if problems:
         raise ValueError("GPTModel does not support: " + "; ".join(problems))
+
+
+def derive_attention_dropout_seed(generator, rank=0):
+    """The int32 seed of one layer's in-kernel attention dropout
+    (counterpart of ``:1035``): one draw in ``[-2**31, 2**31 - 1)`` from
+    ``generator``, as a ``[1]`` tensor on the generator's device, so that
+    no step waits on the host for it. ``rank`` is the tensor-parallel rank
+    the JAX function folds in; the port runs tp=1, so it takes rank 0
+    only."""
+    if rank != 0:
+        raise ValueError("derive_attention_dropout_seed: tensor-parallel "
+                         "ranks other than 0 are not ported")
+    return torch.randint(-2 ** 31, 2 ** 31 - 1, (1,), generator=generator,
+                         device=generator.device, dtype=torch.int32)
+
+
+@contextlib.contextmanager
+def _generator_at(generator, state):
+    """Run the block with ``generator`` at ``state``, then put back the
+    state it had on entry."""
+    outer = generator.get_state()
+    generator.set_state(state)
+    try:
+        yield
+    finally:
+        generator.set_state(outer)
+
+
+def _recomputed(fn, generator, *args):
+    """``fn(*args)``, its activations recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant). The recompute starts from
+    the generator state of the first forward, so it draws the same
+    dropout masks and seeds, and leaves the generator where it found it."""
+    if generator is None:
+        context_fn = checkpoint.noop_context_fn
+    else:
+        state = generator.get_state()
+
+        def context_fn():
+            return contextlib.nullcontext(), _generator_at(generator, state)
+    return checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                 preserve_rng_state=False,
+                                 context_fn=context_fn)
 
 
 def parallel_lm_logits(hidden, word_embeddings_weight, bias=None):
@@ -159,8 +230,14 @@ class ParallelMLP(nn.Module):
 
 
 class ParallelAttention(nn.Module):
-    """Causal self-attention (no mask, no dropout) through
-    :func:`fused_attention`; returns ``(out, bias)``."""
+    """Causal self-attention (no mask) through :func:`fused_attention`;
+    returns ``(out, bias)``. With a generator and ``attention_dropout >
+    0`` it takes the in-kernel dropout route (``:421-470``): one seed per
+    call from :func:`derive_attention_dropout_seed`. The port's kernels
+    tile any key length, so there is no fallback to dropout on
+    materialized probabilities where the JAX ``supported(...,
+    dropout=True)`` fails (``:456-458``); that fallback computes the same
+    dropout distribution."""
 
     def __init__(self, cfg, device, generator):
         super().__init__()
@@ -175,7 +252,7 @@ class ParallelAttention(nn.Module):
             init_std=scaled_init_std(cfg.init_method_std, cfg.num_layers),
             **kw)
 
-    def forward(self, hidden, attention_mask=None):
+    def forward(self, hidden, attention_mask=None, generator=None):
         if attention_mask is not None:
             raise ValueError("ParallelAttention: only the causal branch with "
                              "no explicit mask is ported")
@@ -185,29 +262,45 @@ class ParallelAttention(nn.Module):
         qkv = self.query_key_value(hidden).reshape(s, b, np_, 3 * hd)
         q, k, v = (t.permute(1, 2, 0, 3).contiguous()
                    for t in torch.split(qkv, hd, dim=-1))
+        drop = {}
+        if generator is not None and cfg.attention_dropout > 0.0:
+            drop = dict(dropout_p=float(cfg.attention_dropout),
+                        dropout_seed=derive_attention_dropout_seed(generator))
         ctx = fused_attention(q, k, v, causal=True,
-                              sm_scale=1.0 / math.sqrt(hd))
+                              sm_scale=1.0 / math.sqrt(hd), **drop)
         ctx = ctx.permute(2, 0, 1, 3).reshape(s, b, np_ * hd)
         return self.dense(ctx)
 
 
 class ParallelTransformerLayer(nn.Module):
-    """Pre-LN block: LN → attention → residual → LN → MLP → residual."""
+    """Pre-LN block: LN → attention → residual + dropout → LN → MLP →
+    residual + dropout. ``generator`` (None outside training) draws the
+    dropout masks and the attention seed."""
 
     def __init__(self, cfg, device, generator):
         super().__init__()
+        self.cfg = cfg
         ln = dict(eps=cfg.layernorm_epsilon, device=device)
         self.input_layernorm = FusedLayerNorm(cfg.hidden_size, **ln)
         self.self_attention = ParallelAttention(cfg, device, generator)
         self.post_attention_layernorm = FusedLayerNorm(cfg.hidden_size, **ln)
         self.mlp = ParallelMLP(cfg, device, generator)
 
-    def forward(self, hidden, attention_mask=None):
-        out, bias = self.self_attention(self.input_layernorm(hidden),
-                                        attention_mask)
-        hidden = hidden + (out + bias.to(out.dtype))
+    def forward(self, hidden, attention_mask=None, generator=None):
+        cfg = self.cfg
+        p, training = cfg.hidden_dropout, generator is not None
+        ln_out = self.input_layernorm(hidden)
+        if cfg.recompute_granularity == "selective":
+            out, bias = _recomputed(
+                lambda x: self.self_attention(x, attention_mask, generator),
+                generator, ln_out)
+        else:
+            out, bias = self.self_attention(ln_out, attention_mask, generator)
+        hidden = bias_dropout_add(out, bias.to(out.dtype), hidden, p,
+                                  training, generator)
         out, bias = self.mlp(self.post_attention_layernorm(hidden))
-        return hidden + (out + bias.to(out.dtype))
+        return bias_dropout_add(out, bias.to(out.dtype), hidden, p, training,
+                                generator)
 
 
 class ParallelTransformer(nn.Module):
@@ -216,15 +309,23 @@ class ParallelTransformer(nn.Module):
     def __init__(self, cfg, device, generator):
         super().__init__()
         self.num_layers = cfg.num_layers
+        self.recompute = cfg.recompute_granularity == "full"
         for i in range(cfg.num_layers):
             self.add_module(f"layer_{i}",
                             ParallelTransformerLayer(cfg, device, generator))
         self.final_layernorm = FusedLayerNorm(
             cfg.hidden_size, eps=cfg.layernorm_epsilon, device=device)
 
-    def forward(self, hidden, attention_mask=None):
+    def forward(self, hidden, attention_mask=None, generator=None):
         for i in range(self.num_layers):
-            hidden = getattr(self, f"layer_{i}")(hidden, attention_mask)
+            layer = getattr(self, f"layer_{i}")
+            if self.recompute:
+                hidden = _recomputed(
+                    lambda x, layer=layer: layer(x, attention_mask,
+                                                 generator),
+                    generator, hidden)
+            else:
+                hidden = layer(hidden, attention_mask, generator)
         return self.final_layernorm(hidden)
 
 
@@ -240,20 +341,30 @@ class Embedding(nn.Module):
             dtype=cfg.params_dtype, device=device).normal_(
                 0.0, cfg.init_method_std, generator=generator))
 
-    def forward(self, word_embeddings, input_ids, position_ids):
+    def forward(self, word_embeddings, input_ids, position_ids,
+                generator=None):
+        cfg = self.cfg
         emb = (vocab_parallel_embed(word_embeddings, input_ids)
                + self.position_embeddings[position_ids])
         emb = emb.transpose(0, 1)                     # [b, s, h] → [s, b, h]
-        if self.cfg.compute_in_float16:
-            emb = emb.to(self.cfg.compute_dtype)
-        return emb.contiguous()
+        if cfg.compute_in_float16:
+            emb = emb.to(cfg.compute_dtype)
+        emb = emb.contiguous()
+        if generator is not None and cfg.hidden_dropout > 0.0:
+            emb = train_dropout(generator, emb, cfg.hidden_dropout)
+        return emb
 
 
 class GPTModel(nn.Module):
     """GPT language model at tp=1.
 
     ``forward(input_ids, position_ids, attention_mask=None, labels=None,
-    deterministic=True)``: ids and positions ``[b, s]``; returns the fp32
+    deterministic=True, dropout_generator=None)``: ids and positions ``[b,
+    s]``; ``deterministic=False`` trains with the configuration's hidden
+    and attention dropout, drawn from ``dropout_generator`` (a
+    ``torch.Generator`` on the model's device; required when either rate
+    is above 0), as the JAX model draws from its "dropout" rng; returns
+    the fp32
     per-token loss ``[b, s]`` when labels are given, else the logits
     ``[b, s, vocab]`` in the compute dtype. With labels,
     ``cfg.fused_lm_head`` True and a shape :func:`xent.supported` admits,
@@ -285,15 +396,23 @@ class GPTModel(nn.Module):
         self.transformer = ParallelTransformer(cfg, device, gen)
 
     def forward(self, input_ids, position_ids, attention_mask=None,
-                labels=None, deterministic=True):
+                labels=None, deterministic=True, dropout_generator=None):
         cfg = self.cfg
+        gen = None
         if not deterministic and (cfg.hidden_dropout > 0
                                   or cfg.attention_dropout > 0):
-            raise ValueError("GPTModel: dropout in training is not ported "
-                             "(set hidden_dropout = attention_dropout = 0, "
-                             "or run deterministic)")
-        hidden = self.embedding(self.word_embeddings, input_ids, position_ids)
-        hidden = self.transformer(hidden, attention_mask)
+            if dropout_generator is None:
+                raise ValueError("GPTModel: training with dropout "
+                                 "(deterministic=False) needs a "
+                                 "dropout_generator")
+            if cfg.attention_dropout > 0 and not cfg.fused_attention_dropout:
+                raise ValueError("GPTModel: attention dropout on the scores "
+                                 "path (fused_attention_dropout=False) is "
+                                 "not ported")
+            gen = dropout_generator
+        hidden = self.embedding(self.word_embeddings, input_ids, position_ids,
+                                gen)
+        hidden = self.transformer(hidden, attention_mask, gen)
         s, b, h = hidden.shape
         if (labels is not None and cfg.fused_lm_head
                 and xent.supported(b * s, cfg.vocab_size, h)):

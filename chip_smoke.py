@@ -7,15 +7,20 @@ exits non-zero before printing any result. It imports nothing of JAX
 and nothing of ``apex_tpu``. Phases, in order (any failure raises and
 exits non-zero before the last line):
 
-1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-   TF32 is switched off for fp32 matmuls and convolutions.
+1. device: ``nvidia-smi`` name and power limit, the SM clock's maximum
+   (the INT32 rate assumes it), torch and CUDA versions; TF32 is
+   switched off for fp32 matmuls and convolutions.
 2. build: the five CUDA sources compile from ``apex_tpu_torch/csrc`` (one
    ``nvcc`` each, all in parallel) into ``build/apex_tpu_torch/``.
 3. one phase per kernel at its main path's shapes: K1 and K2 at the
    serving shapes, K3/K4 (layer norm, x ``[8192, 768]`` bf16), K5/K6
-   (attention backward, ``[8, 12, 1024, 64]`` bf16, causal) and K7-K9
-   (the fused LM head, x ``[8192, 768]`` x E ``[50304, 768]`` bf16) at
-   the training shapes. Each kernel is held against its plain PyTorch
+   (attention backward, ``[8, 12, 1024, 64]`` bf16, causal), K1d, K5d
+   and K6d (attention with dropout 0.1, same shape; two K5d/K6d runs
+   must give the same bits) and K7-K9 (the fused LM head, x ``[8192,
+   768]`` x E ``[50304, 768]`` bf16) at the training shapes. K1d's mask
+   is also recovered exactly from its output (q = k = 0, V the identity,
+   fp32: O = mscale / 128) and must equal the plain mask in every
+   element. Each kernel is held against its plain PyTorch
    version on the card with a stated tolerance (the training-shape bf16
    outputs also by relative L2, ``BF16_L2_TOL``; K1 is held at the
    training shape too, within ``K1_L2_TOL``, before its output feeds the
@@ -31,7 +36,9 @@ exits non-zero before the last line):
    same work (``bound_ms``: bytes each input read and output written
    once over 3.35 TB/s, or the work this run's masks leave over 989
    TFLOP/s bf16 — 67 TFLOP/s fp32 for layer norm's elementwise math —
-   whichever is larger; NVIDIA's data-sheet rates).
+   or, for the dropout variants, the hash's 11 integer operations per
+   live pair over 132 x 64 INT32 lanes at 1.98 GHz, whichever is
+   largest; NVIDIA's data-sheet rates).
 4. serving end to end: ``ServingEngine`` at GPT-2-small width (12 x 768,
    12 heads, vocab 50304, 1024 positions, bf16; 8 slots, page size 128,
    72 pages, 512-token packed prefill) with random weights from seed 0
@@ -59,10 +66,19 @@ exits non-zero before the last line):
    overflow (loss scale 3e38, one gradient made non-finite) must leave
    every parameter and the Adam state bitwise unchanged, halve the scale
    and reset ``unskipped``, and a profiled window gives the device's
-   busy share and time by kind. At b=2 on the card, within the stated
-   bf16 bands in the loss and every gradient: each head's kernel path
-   against its plain path, and the fused model against the materialized
-   one on the same weights.
+   busy share and time by kind. Then GPT-2's published dropout (hidden
+   and attention 0.1, ``benchmarks/profile_gpt.py:401-425``) with the
+   materialized head and a seeded ``dropout_generator``: the same
+   window, forced overflow and profile, with K1d = K5d = K6d = 12 and K1
+   = K5 = K6 = 0 launches per step; and the same window and profile with
+   ``recompute_granularity="full"`` (K1d = 24, K3 = 49: the backward
+   recomputes each layer's forward), whose peak memory must be the
+   lower. At b=2 on the card, within the stated bf16 bands in the loss
+   and every gradient: each head's kernel path against its plain path
+   (with dropout too, the same masks on both paths), the fused model
+   against the materialized one on the same weights, and
+   ``"selective"`` and ``"full"`` recompute against none with dropout on
+   the kernel path (and whether bit for bit).
 6. one JSON line per kernel, the ``{"kernels": [...]}`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -80,6 +96,14 @@ import torch
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12     # H100 SXM data sheet, dense
 FP32_FLOPS_PER_S = 67e12      # H100 SXM data sheet, fp32 off the tensor cores
+# 32-bit integer operations on the CUDA cores: 132 SMs x 64 INT32 lanes
+# (Hopper white paper) at the 1980 MHz boost clock (the card's
+# clocks.max.sm, printed in phase 1)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# the dropout hash per live (query, key) pair: an xor, fmix32's 8
+# operations, the compare and the select or multiply
+HASH_OPS_PER_PAIR = 11
+DROPOUT_P = 0.1               # GPT-2's attn_pdrop and resid_pdrop
 L2_FLUSH_BYTES = 128 << 20    # > the 50 MB L2 cache
 LOGITS_BAND = 0.35
 # a bf16 kernel output against its plain version, ||out - ref|| / ||ref||.
@@ -146,11 +170,16 @@ def _time_ms(fn, flush, reps=20, spread=None):
     return sum(times) / reps
 
 
-def _bound(nbytes, flops, flops_per_s=BF16_FLOPS_PER_S):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / flops_per_s * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+def _bound(nbytes, flops, flops_per_s=BF16_FLOPS_PER_S, int_ops=0):
+    """The least time (ms) for the work and what sets it: the bytes over
+    the memory rate, the floating-point operations over their peak rate,
+    or (the dropout kernels) the hash's integer operations over the INT32
+    rate, whichever is largest."""
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": flops / flops_per_s * 1e3,
+             "hash": int_ops / INT32_OPS_PER_S * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by
 
 
 def _rel_err(out, ref):
@@ -684,6 +713,171 @@ def phase_attention_bwd_kernels(dev, flush):
              flops=dkv_flops)], k1_train
 
 
+def phase_dropout_mask_exact(dev):
+    """K1d's mask on the card equals the plain mask bit for bit: with q = k
+    = 0 (non-causal), d = sk = 128 and V the identity, every score is 0, P
+    = 1/128, and O[i, j] = mscale[i, j] / 128 exactly, over 2 x 12 (b, h)
+    and 1024 rows, for seeds 0, -1, -2^31 and 2^31 - 1."""
+    from apex_tpu_torch.ops import attention, attention_cuda
+
+    b, h, s, d = 2, 12, 1024, 128
+    q = torch.zeros(b, h, s, d, device=dev)
+    k = torch.zeros(b, h, d, d, device=dev)
+    v = torch.eye(d, device=dev).expand(b, h, d, d).contiguous()
+    checked = 0
+    for value in (0, -1, -2 ** 31, 2 ** 31 - 1):
+        seed = torch.tensor([value], dtype=torch.int32, device=dev)
+        o = attention_cuda.prefill_attention_dropout(
+            q, k, v, causal=False, sm_scale=0.125, dropout_p=DROPOUT_P,
+            dropout_seed=seed)
+        want = attention.dropout_mscale(seed, b, h, s, d, DROPOUT_P)
+        if not torch.equal(o * d, want):
+            bad = int((o * d != want).sum())
+            raise AssertionError(f"K1d's mask differs from the plain mask in "
+                                 f"{bad} elements (seed {value})")
+        checked += want.numel()
+    kept = float((want > 0).float().mean())
+    _log(f"dropout mask from K1d's output equals the plain mask in all "
+         f"{checked} elements (4 seeds, {b}x{h} heads x {s} rows x {d} "
+         f"keys); kept fraction {kept:.5f} (p = {DROPOUT_P})")
+    return {"elements": checked, "kept_fraction": kept}
+
+
+def phase_dropout_kernels(dev, flush):
+    """K1d, K5d and K6d at the training shape: q, k, v, dO [8, 12, 1024,
+    64] bf16, causal, p = 0.1, seed -123456789. K1d against the plain
+    forward (``K1_L2_TOL``), K5d/K6d against the plain backward with the
+    same mask (``BF16_L2_TOL``), two K5d/K6d runs bit for bit."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import attention, attention_bwd_cuda
+    from apex_tpu_torch.ops import attention_cuda
+
+    B, H, S, D = TRAIN["batch"], 12, TRAIN["seq"], 64
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q, k, v, do = (torch.randn(B, H, S, D, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    seed = torch.tensor([-123456789], dtype=torch.int32, device=dev)
+    scale = D ** -0.5
+    kw = dict(causal=True, sm_scale=scale, dropout_p=DROPOUT_P,
+              dropout_seed=seed)
+    o = attention_cuda.prefill_attention_dropout(q, k, v, **kw)
+    ro = attention._dense_attention(q, k, v, True, scale, None, DROPOUT_P,
+                                    seed)
+    torch.cuda.synchronize()
+    k1_tol = 5e-2
+    fwd_err = {"max_abs_err": _max_err(o, ro), "rel_l2": _rel_l2(o, ro)}
+    del ro
+    _log(f"prefill_attention_dropout: {fwd_err} (tol {k1_tol}, "
+         f"{K1_L2_TOL})")
+    if fwd_err["max_abs_err"] > k1_tol or fwd_err["rel_l2"] > K1_L2_TOL:
+        raise AssertionError(f"K1d disagrees with its plain version: "
+                             f"{fwd_err}")
+
+    tol = 5e-2
+    dq, m, l, dcol = attention_bwd_cuda.attention_bwd_dq_dropout(
+        q, k, v, o, do, **kw)
+    dk, dv = attention_bwd_cuda.attention_bwd_dkv_dropout(
+        q, k, v, do, m, l, dcol, **kw)
+    dq2, m2, l2_, dcol2 = attention_bwd_cuda.attention_bwd_dq_dropout(
+        q, k, v, o, do, **kw)
+    dk2, dv2 = attention_bwd_cuda.attention_bwd_dkv_dropout(
+        q, k, v, do, m2, l2_, dcol2, **kw)
+    rdq, rdk, rdv = attention._attention_bwd_split(q, k, v, o, do, True,
+                                                   scale, None, DROPOUT_P,
+                                                   seed)
+    torch.cuda.synchronize()
+    repeatable = all(torch.equal(a, b) for a, b in ((dq, dq2), (dk, dk2),
+                                                    (dv, dv2)))
+    del dq2, dk2, dv2, m2, l2_, dcol2
+    pairs = {"dq": (dq, rdq), "dk": (dk, rdk), "dv": (dv, rdv)}
+    l2 = {n: _rel_l2(a, b) for n, (a, b) in pairs.items()}
+    errs = {n: _rel_err(a, b) for n, (a, b) in pairs.items()}
+    abs_errs = {"dq": _max_err(dq, rdq),
+                "dkv": max(_max_err(dk, rdk), _max_err(dv, rdv))}
+    del pairs, rdq, rdk, rdv
+    _log(f"attention_bwd_dropout: relative L2 {l2} (tol {BF16_L2_TOL}); max "
+         f"error over the largest magnitude {errs} (tol {tol}); max_abs_err "
+         f"{abs_errs}; two runs bit for bit: {repeatable}")
+    if max(l2.values()) > BF16_L2_TOL or max(errs.values()) > tol:
+        raise AssertionError(f"K5d/K6d disagree with the plain backward: "
+                             f"relative L2 {l2}, max {errs}")
+    if not repeatable:
+        raise AssertionError("two K5d/K6d runs on the same inputs differ")
+
+    spreads = [[], [], []]
+    fwd_ms = _time_ms(lambda: attention_cuda.prefill_attention_dropout(
+        q, k, v, **kw), flush, spread=spreads[0])
+    fwd_plain = _time_ms(lambda: attention._dense_attention(
+        q, k, v, True, scale, None, DROPOUT_P, seed), flush, reps=5)
+    fwd_lib = _time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, dropout_p=DROPOUT_P, is_causal=True, scale=scale), flush)
+    dq_ms = _time_ms(lambda: attention_bwd_cuda.attention_bwd_dq_dropout(
+        q, k, v, o, do, **kw), flush, spread=spreads[1])
+    dkv_ms = _time_ms(lambda: attention_bwd_cuda.attention_bwd_dkv_dropout(
+        q, k, v, do, m, l, dcol, **kw), flush, spread=spreads[2])
+    bwd_plain = _time_ms(lambda: attention._attention_bwd_split(
+        q, k, v, o, do, True, scale, None, DROPOUT_P, seed), flush, reps=5)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    og = F.scaled_dot_product_attention(
+        qg, kg, vg, dropout_p=DROPOUT_P, is_causal=True,
+        scale=scale)                                # graph built untimed
+    bwd_lib = _time_ms(lambda: torch.autograd.grad(
+        og, (qg, kg, vg), do, retain_graph=True), flush)
+    del og, qg, kg, vg
+    live = B * H * S * (S + 1) // 2          # causal (query, key) pairs
+    hash_ops = HASH_OPS_PER_PAIR * live      # one hash per live pair a pass
+    t_bytes = q.numel() * q.element_size()
+    stats = 3 * B * H * S * 4
+    fwd_bytes = 4 * t_bytes + 4                  # q k v seed in, o out
+    dq_bytes = 6 * t_bytes + stats + 4           # q k v o dO seed in, dq out
+    dkv_bytes = 6 * t_bytes + stats + 4          # q k v dO stats seed, dk dv
+    fwd_flops, dq_flops, dkv_flops = (2 * 2 * D * live, 3 * 2 * D * live,
+                                      4 * 2 * D * live)
+    fwd_bound = _bound(fwd_bytes, fwd_flops, int_ops=hash_ops)
+    dq_bound = _bound(dq_bytes, dq_flops, int_ops=hash_ops)
+    dkv_bound = _bound(dkv_bytes, dkv_flops, int_ops=hash_ops)
+    shape = f"q,k,v,dO [{B},{H},{S},{D}] bf16, causal, p = {DROPOUT_P}"
+    common = {"route": "cuda", "shape": shape, "hash_ops": hash_ops,
+              "live_pairs": live}
+    bwd_common = dict(
+        common, source="apex_tpu_torch/csrc/attention_bwd.cu",
+        plain=("_attention_bwd_split with dropout computes dq, dk and dv "
+               "together; its time is the pair's"),
+        plain_ms=bwd_plain, library_ms=bwd_lib,
+        library=("backward of F.scaled_dot_product_attention(dropout_p="
+                 f"{DROPOUT_P}, is_causal=True) via torch.autograd.grad "
+                 "(graph built outside the timed region), dq, dk and dv "
+                 "together; it draws another mask, so a time yardstick "
+                 "only"), tol=tol, rel_l2_tol=BF16_L2_TOL,
+        bitwise_repeatable=repeatable)
+    return [
+        dict(common, name="prefill_attention_dropout",
+             source="apex_tpu_torch/csrc/prefill_attention.cu",
+             replaces="apex_tpu/ops/attention_pallas.py:252",
+             max_abs_err=fwd_err["max_abs_err"], rel_l2=fwd_err["rel_l2"],
+             tol=k1_tol, rel_l2_tol=K1_L2_TOL, ms=fwd_ms, kernel_ms=fwd_ms,
+             ms_spread=spreads[0], plain_ms=fwd_plain, library_ms=fwd_lib,
+             library=(f"F.scaled_dot_product_attention(dropout_p="
+                      f"{DROPOUT_P}, is_causal=True); it draws another "
+                      f"mask, so a time yardstick only"),
+             bound_ms=fwd_bound[0], bound_by=fwd_bound[1], bytes=fwd_bytes,
+             flops=fwd_flops),
+        dict(bwd_common, name="attention_bwd_dq_dropout",
+             replaces="apex_tpu/ops/attention_pallas.py:331",
+             max_abs_err=abs_errs["dq"], rel_err=errs["dq"], rel_l2=l2["dq"],
+             ms=dq_ms, kernel_ms=dq_ms, ms_spread=spreads[1],
+             bound_ms=dq_bound[0], bound_by=dq_bound[1], bytes=dq_bytes,
+             flops=dq_flops),
+        dict(bwd_common, name="attention_bwd_dkv_dropout",
+             replaces="apex_tpu/ops/attention_pallas.py:331",
+             max_abs_err=abs_errs["dkv"],
+             rel_err=max(errs["dk"], errs["dv"]),
+             rel_l2=max(l2["dk"], l2["dv"]), ms=dkv_ms, kernel_ms=dkv_ms,
+             ms_spread=spreads[2], bound_ms=dkv_bound[0],
+             bound_by=dkv_bound[1], bytes=dkv_bytes, flops=dkv_flops)]
+
+
 def phase_xent_kernels(dev, flush):
     """K7, K8 and K9 at the training shape: x [8192, 768] bf16 drawn like
     a layer-normed hidden (unit variance), E [50304, 768] from N(0, 0.02)
@@ -808,6 +1002,12 @@ def _training_counts():
     return {"prefill_attention": attention_cuda.prefill_attention,
             "attention_bwd_dq": attention_bwd_cuda.attention_bwd_dq,
             "attention_bwd_dkv": attention_bwd_cuda.attention_bwd_dkv,
+            "prefill_attention_dropout":
+                attention_cuda.prefill_attention_dropout,
+            "attention_bwd_dq_dropout":
+                attention_bwd_cuda.attention_bwd_dq_dropout,
+            "attention_bwd_dkv_dropout":
+                attention_bwd_cuda.attention_bwd_dkv_dropout,
             "layer_norm_fwd": layer_norm_cuda.layer_norm_fwd,
             "layer_norm_bwd": layer_norm_cuda.layer_norm_bwd,
             "xent_fwd": xent_cuda.xent_fwd,
@@ -815,15 +1015,26 @@ def _training_counts():
             "xent_bwd_de": xent_cuda.xent_bwd_de}
 
 
-def _train_setup(dev, batch, seed=0, fused=False):
+def _train_cfg(fused=False, dropout=False, recompute="none"):
+    """GPT-2-small for training; ``dropout`` sets GPT-2's published hidden
+    and attention dropout (``benchmarks/profile_gpt.py:401-425``)."""
+    from apex_tpu_torch.transformer.testing import TransformerConfig
+
+    drop = DROPOUT_P if dropout else 0.0
+    return TransformerConfig(**dict(MODEL, hidden_dropout=drop,
+                                    attention_dropout=drop),
+                             fused_lm_head=fused,
+                             recompute_granularity=recompute)
+
+
+def _train_setup(dev, batch, seed=0, fused=False, dropout=False,
+                 recompute="none"):
     from apex_tpu_torch.amp import LossScaler
     from apex_tpu_torch.optimizers import fused_adam
     from apex_tpu_torch.train_step import make_one_step
-    from apex_tpu_torch.transformer.testing import (GPTModel,
-                                                    TransformerConfig)
+    from apex_tpu_torch.transformer.testing import GPTModel
 
-    cfg = TransformerConfig(**MODEL, fused_lm_head=fused,
-                            recompute_granularity="none")
+    cfg = _train_cfg(fused, dropout, recompute)
     model = GPTModel(cfg, device=dev, seed=seed)
     scaler, opt = LossScaler(), fused_adam(learning_rate=TRAIN["lr"])
     rs = np.random.RandomState(0)                 # as bench.py:433-435
@@ -832,25 +1043,50 @@ def _train_setup(dev, batch, seed=0, fused=False):
     labels = torch.from_numpy(rs.randint(0, cfg.vocab_size,
                                          (batch, s))).to(dev)
     pos = torch.arange(s, device=dev)[None].expand(batch, s)
-    step = make_one_step(model, scaler, opt)
+    gen = None
+    if dropout:
+        gen = torch.Generator(device=dev).manual_seed(11)
+    step = make_one_step(model, scaler, opt, dropout_generator=gen)
     return (model, scaler, opt, step, opt.init(dict(model.named_parameters())),
             scaler.init(dev), ids, pos, labels)
 
 
-def phase_training(dev, card, fused):
+def _want_launches(fused, dropout, recompute):
+    """Launches per step of each counted kernel: the forward's attention
+    and layer norms once more for what the backward recomputes."""
+    layers = MODEL["num_layers"]
+    again = {"full": 1, "selective": 1}.get(recompute, 0)
+    ln_again = 2 * layers if recompute == "full" else 0
+    fwd, bwd = (("prefill_attention_dropout", ("attention_bwd_dq_dropout",
+                 "attention_bwd_dkv_dropout")) if dropout else
+                ("prefill_attention", ("attention_bwd_dq",
+                                       "attention_bwd_dkv")))
+    want = dict.fromkeys(_training_counts(), 0)
+    want.update({fwd: layers * (1 + again), bwd[0]: layers, bwd[1]: layers,
+                 "layer_norm_fwd": 2 * layers + 1 + ln_again,
+                 "layer_norm_bwd": 2 * layers + 1})
+    head = int(fused)
+    want.update(xent_fwd=head, xent_bwd_dx=head, xent_bwd_de=head)
+    return want
+
+
+def phase_training(dev, card, fused, dropout=False, recompute="none"):
     """The training main path with the materialized (``fused=False``) or
-    the fused LM head: warm-up, the timed window with the launch counts
-    and the materialized cross entropy's calls read around it alone, the
-    loss check after the window."""
+    the fused LM head, with or without dropout (0.1, drawn from a seeded
+    generator) and recompute: warm-up, the timed window with the launch
+    counts and the materialized cross entropy's calls read around it
+    alone, the loss check after the window."""
     from apex_tpu_torch.transformer.testing import standalone_transformer_lm
 
     b, s = TRAIN["batch"], TRAIN["seq"]
     t0 = time.perf_counter()
     (model, scaler, opt, step, opt_state, ss, ids, pos,
-     labels) = _train_setup(dev, b, fused=fused)
+     labels) = _train_setup(dev, b, fused=fused, dropout=dropout,
+                            recompute=recompute)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    _log(f"GPTModel (fused_lm_head={fused}) built in "
+    _log(f"GPTModel (fused_lm_head={fused}, dropout="
+         f"{DROPOUT_P if dropout else 0.0}, recompute={recompute}) built in "
          f"{time.perf_counter() - t0:.2f} s: {n_params} parameters")
     losses = []
     for _ in range(TRAIN["warmup"]):
@@ -880,7 +1116,9 @@ def phase_training(dev, card, fused):
     peak = torch.cuda.max_memory_allocated()
     vals = [x.item() for x in losses]             # read after the window
     step_ms = wall / TRAIN["timed"] * 1e3
-    stats = {"card": card, "fused_lm_head": fused, "batch": b, "seq": s,
+    stats = {"card": card, "fused_lm_head": fused,
+             "dropout": DROPOUT_P if dropout else 0.0,
+             "recompute_granularity": recompute, "batch": b, "seq": s,
              "steps_timed": TRAIN["timed"],
              "step_ms": step_ms, "tokens_per_s": b * s / (step_ms / 1e3),
              "mfu": 6 * n_params * b * s / (step_ms / 1e3) / BF16_FLOPS_PER_S,
@@ -893,10 +1131,7 @@ def phase_training(dev, card, fused):
     if not all(np.isfinite(vals)) or not vals[-1] < vals[0]:
         raise AssertionError(f"training loss not finite and falling: {vals}")
     head = int(fused)
-    want = {"prefill_attention": 12, "attention_bwd_dq": 12,
-            "attention_bwd_dkv": 12, "layer_norm_fwd": 25,
-            "layer_norm_bwd": 25, "xent_fwd": head, "xent_bwd_dx": head,
-            "xent_bwd_de": head}
+    want = _want_launches(fused, dropout, recompute)
     for k, per_step in want.items():
         if launches[k] != per_step * TRAIN["timed"]:
             raise AssertionError(f"{k}: {launches[k]} launches in "
@@ -946,9 +1181,16 @@ def phase_training_overflow(state):
     return result
 
 
-def _step_grads(model, ids, pos, labels):
+def _step_grads(model, ids, pos, labels, dropout_seed=None):
+    """Loss and every gradient of one step; with ``dropout_seed``, trained
+    with dropout from a generator seeded with it (the same masks and
+    attention seeds on every call)."""
     model.zero_grad(set_to_none=True)
-    loss = model(ids, pos, None, labels).mean()
+    drop = {}
+    if dropout_seed is not None:
+        drop = dict(deterministic=False, dropout_generator=torch.Generator(
+            device=ids.device).manual_seed(dropout_seed))
+    loss = model(ids, pos, None, labels, **drop).mean()
     loss.backward()
     return loss.item(), {n: p.grad.float().clone()
                          for n, p in model.named_parameters()}
@@ -975,10 +1217,11 @@ def _compare_steps(what, a, b):
     return dloss, worst
 
 
-def phase_training_paths_agree(dev, fused):
+def phase_training_paths_agree(dev, fused, dropout=False):
     """One step's loss and every gradient at b=2 through the kernel path
     and the plain path on the card (K1, K3-K6 and, with the fused head,
-    K7-K9 patched to their plain versions)."""
+    K7-K9, with dropout K1d, K5d and K6d, patched to their plain
+    versions); with dropout both paths draw the same masks and seeds."""
     from apex_tpu_torch.ops import (attention, attention_bwd_cuda,
                                     attention_cuda, layer_norm,
                                     layer_norm_cuda, xent, xent_cuda)
@@ -991,16 +1234,37 @@ def phase_training_paths_agree(dev, fused):
         return attention._attention_bwd_split(q, k, v, o, do, causal,
                                               sm_scale, segment_ids)
 
+    def plain_fwd_dropout(q, k, v, *, causal, sm_scale, dropout_p,
+                          dropout_seed, segment_ids=None):
+        return attention._dense_attention(q, k, v, causal, sm_scale,
+                                          segment_ids, dropout_p,
+                                          dropout_seed)
+
+    def plain_bwd_dropout(q, k, v, o, do, *, causal, sm_scale, dropout_p,
+                          dropout_seed, segment_ids=None):
+        return attention._attention_bwd_split(q, k, v, o, do, causal,
+                                              sm_scale, segment_ids,
+                                              dropout_p, dropout_seed)
+
     def plain_ln_bwd(x, w, mean, rstd, dy):
         dx, dw, db = layer_norm.layer_norm_bwd(x, w, mean, rstd, dy)
         return dx, dw[None], db[None]
 
-    model, _, _, _, _, _, ids, pos, labels = _train_setup(dev, 2, seed=1,
-                                                          fused=fused)
-    kernel = _step_grads(model, ids, pos, labels)
+    model, _, _, _, _, _, ids, pos, labels = _train_setup(
+        dev, 2, seed=1, fused=fused, dropout=dropout)
+    seed = 21 if dropout else None
+    counts = _training_counts()
+    for fn in counts.values():
+        fn.launches = 0
+    kernel = _step_grads(model, ids, pos, labels, seed)
+    kernel_launches = {k: fn.launches for k, fn in counts.items()}
     with mock.patch.object(attention_cuda, "prefill_attention", plain_fwd), \
             mock.patch.object(attention_bwd_cuda, "attention_bwd",
                               plain_bwd), \
+            mock.patch.object(attention_cuda, "prefill_attention_dropout",
+                              plain_fwd_dropout), \
+            mock.patch.object(attention_bwd_cuda, "attention_bwd_dropout",
+                              plain_bwd_dropout), \
             mock.patch.object(layer_norm_cuda, "layer_norm_fwd",
                               layer_norm.layer_norm_fwd), \
             mock.patch.object(layer_norm_cuda, "layer_norm_bwd",
@@ -1011,10 +1275,41 @@ def phase_training_paths_agree(dev, fused):
                               xent.linear_cross_entropy_dx), \
             mock.patch.object(xent_cuda, "xent_bwd_de",
                               xent.linear_cross_entropy_de):
-        plain = _step_grads(model, ids, pos, labels)
-    head = "fused" if fused else "materialized"
+        plain = _step_grads(model, ids, pos, labels, seed)
+    want = _want_launches(fused, dropout, "none")
+    if kernel_launches != want:
+        raise AssertionError(f"the kernel path's step launched "
+                             f"{kernel_launches}, want {want}")
+    what = ("fused" if fused else "materialized") + " head" + (
+        f", dropout {DROPOUT_P}" if dropout else "")
     return _compare_steps(f"training kernel vs plain path on the card, "
-                          f"{head} head", kernel, plain)
+                          f"{what}", kernel, plain)
+
+
+def phase_recompute_agree(dev):
+    """``"selective"`` and ``"full"`` recompute against ``"none"`` at b=2
+    with dropout on the kernel path: one weight seed, one generator seed,
+    so the same masks and attention seeds; within the training bands, and
+    whether they were bit for bit equal."""
+    out = {}
+    ref = None
+    for granularity in ("none", "selective", "full"):
+        model, _, _, _, _, _, ids, pos, labels = _train_setup(
+            dev, 2, seed=1, dropout=True, recompute=granularity)
+        got = _step_grads(model, ids, pos, labels, dropout_seed=21)
+        del model
+        if ref is None:
+            ref = got
+            continue
+        bitwise = got[0] == ref[0] and all(
+            torch.equal(g, ref[1][n]) for n, g in got[1].items())
+        dloss, worst = _compare_steps(
+            f"recompute {granularity} vs none, dropout {DROPOUT_P}, kernel "
+            f"path", got, ref)
+        _log(f"recompute {granularity} vs none: bit for bit {bitwise}")
+        out[granularity] = {"loss_diff": dloss, "worst_grad_rel_l2": worst,
+                            "bitwise": bitwise}
+    return out
 
 
 def phase_fused_vs_materialized(dev):
@@ -1108,6 +1403,12 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     _log(smi)
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    _log(f"SM clock, maximum and now: {clocks} (INT32_OPS_PER_S assumes "
+         f"{INT32_OPS_PER_S / (132 * 64) / 1e6:.0f} MHz)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1128,6 +1429,8 @@ def main():
     bwd_rows, k1_train = phase_attention_bwd_kernels(dev, flush)
     rows += bwd_rows
     rows[0]["training_shape"] = k1_train
+    rows += phase_dropout_kernels(dev, flush)
+    mask_check = phase_dropout_mask_exact(dev)
     rows += phase_xent_kernels(dev, flush)
     del flush
     torch.cuda.empty_cache()
@@ -1155,18 +1458,50 @@ def main():
     if not side["peak_mem_gb"]["fused"] < side["peak_mem_gb"]["materialized"]:
         raise AssertionError(f"the fused head's step does not use less "
                              f"memory: {side['peak_mem_gb']}")
+
+    # GPT-2's published dropout (0.1) with the materialized head, then the
+    # same with full recompute: each window on its own
+    drop_windows = {}
+    for recompute in ("none", "full"):
+        key = "training_dropout" + ("_recompute" if recompute != "none"
+                                    else "")
+        state, counts, drop_windows[recompute] = phase_training(
+            dev, smi, False, dropout=True, recompute=recompute)
+        launches_by[key] = counts
+        if recompute == "none":
+            phase_training_overflow(state)
+        drop_windows[recompute]["profile"] = phase_training_profile(state)
+        del state
+        torch.cuda.empty_cache()
+    side = {k: {"no dropout": windows[False][k],
+                "dropout": drop_windows["none"][k],
+                "dropout + full recompute": drop_windows["full"][k]}
+            for k in ("step_ms", "tokens_per_s", "mfu", "peak_mem_gb")}
+    _log("training, materialized head, without and with dropout, and with "
+         "full recompute: " + json.dumps(side))
+    if not (side["peak_mem_gb"]["dropout + full recompute"]
+            < side["peak_mem_gb"]["dropout"]):
+        raise AssertionError(f"full recompute does not lower the peak "
+                             f"memory: {side['peak_mem_gb']}")
+
     phase_training_paths_agree(dev, fused=False)
     phase_training_paths_agree(dev, fused=True)
+    phase_training_paths_agree(dev, fused=False, dropout=True)
     phase_fused_vs_materialized(dev)
+    recompute_agree = phase_recompute_agree(dev)
+    _log("dropout checks: " + json.dumps({"mask": mask_check,
+                                          "recompute": recompute_agree}))
 
     for row in rows:
         name = row["name"]
         by_path = {path: counts[name] for path, counts in launches_by.items()
                    if name in counts}
-        # the slice's own path: the fused training window, where the
-        # kernel runs there; K2 runs only in serving
-        row["launches"] = by_path.get("training_fused",
-                                      by_path.get("serving", 0))
+        # the slice's own path: the dropout training window for the
+        # dropout variants, the fused training window for the other
+        # training kernels; K2 runs only in serving
+        main = ("training_dropout" if name.endswith("_dropout")
+                else "training_fused")
+        row["launches"] = by_path.get(main, by_path.get("serving", 0))
         row["launches_by_path"] = by_path
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} never ran on the main path")

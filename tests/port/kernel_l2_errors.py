@@ -1,8 +1,9 @@
 """Relative L2 error, ||kernel - plain|| / ||plain||, of every case the
 card tests run for K1 (forward), K3/K4 (layer norm), K5/K6 (attention
-backward) and K7-K9 (the fused LM head: loss and lse, dX, dE), per
-dtype. It prints one line per attention and LM-head case and the worst
-value per kernel and dtype: the numbers ``L2_TOL``, ``XENT_L2_TOL`` and
+backward), K1d and K5d/K6d (the same with dropout) and K7-K9 (the fused
+LM head: loss and lse, dX, dE), per dtype. It prints one line per
+attention and LM-head case and the worst value per kernel and dtype: the
+numbers ``L2_TOL``, ``DROPOUT_L2_TOL``, ``XENT_L2_TOL`` and
 ``XENT_LOSS_TOL`` in ``test_torch_kernels_cuda.py`` are set from (for K7
 the largest |loss diff| over max(1, |loss|)). Needs a CUDA card:
 
@@ -58,6 +59,26 @@ def main():
                       f"dq/dk/dv {bwd[0]:.3e} {bwd[1]:.3e} {bwd[2]:.3e}")
                 note("K1", dtype, fwd)
                 note("K5/K6", dtype, max(bwd))
+            for case in ("causal", "segments"):
+                for seed in cases.DROPOUT_SEEDS:
+                    q, k, v, do, seg, sd = cases._drop_case(dev, tdt, d, case,
+                                                            seed)
+                    s, p = d ** -0.5, 0.1
+                    kw = dict(causal=True, sm_scale=s, dropout_p=p,
+                              dropout_seed=sd, segment_ids=seg)
+                    o = attention_cuda.prefill_attention_dropout(q, k, v, **kw)
+                    fwd = _l2(o, attention._dense_attention(q, k, v, True, s,
+                                                            seg, p, sd))
+                    got = attention_bwd_cuda.attention_bwd_dropout(q, k, v, o,
+                                                                   do, **kw)
+                    ref = attention._attention_bwd_split(q, k, v, o, do, True,
+                                                         s, seg, p, sd)
+                    bwd = [_l2(a, b) for a, b in zip(got, ref)]
+                    print(f"attention dropout {dtype} d={d} {case} seed "
+                          f"{seed}: K1d {fwd:.3e}, dq/dk/dv {bwd[0]:.3e} "
+                          f"{bwd[1]:.3e} {bwd[2]:.3e}")
+                    note("K1d", dtype, fwd)
+                    note("K5d/K6d", dtype, max(bwd))
         for hidden in (64, 768, 1024, 4096, 8192):
             for rows in (1, 37, 1000):
                 for affine in (True, False):

@@ -61,6 +61,7 @@ def test_importing_the_port_loads_no_jax_and_no_apex_tpu():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
     assert "apex_tpu_torch.serving.engine" in mods and "chip_smoke" in mods
     assert "apex_tpu_torch.train_step" in mods
+    assert "apex_tpu_torch.utils" in mods
 
 
 def test_no_source_imports_jax_or_apex_tpu():
@@ -111,6 +112,38 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     ids = torch.zeros(1, 4, dtype=torch.long)
     assert model(ids, torch.arange(4)[None], None, ids).shape == (1, 4)
     assert FusedLayerNorm(64, device="cpu")(torch.ones(2, 64)).shape == (2, 64)
+
+
+def test_dropout_training_defaults_to_cuda_and_runs_on_the_cpu_if_asked(
+        monkeypatch):
+    """A model that trains with dropout and recompute is built on ``cuda``
+    unless ``device="cpu"`` is asked for; its dropout generator lives on
+    the model's device, and the step with it runs there."""
+    from apex_tpu_torch.amp import LossScaler
+    from apex_tpu_torch.optimizers import fused_adam
+    from apex_tpu_torch.train_step import make_one_step
+    from apex_tpu_torch.transformer.testing import (GPTModel,
+                                                    TransformerConfig)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TransformerConfig(hidden_size=64, num_layers=1,
+                            num_attention_heads=2, vocab_size=16,
+                            max_position_embeddings=16,
+                            recompute_granularity="full")
+    assert cfg.hidden_dropout == cfg.attention_dropout == 0.1
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GPTModel(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LossScaler().init()
+    model = GPTModel(cfg, device="cpu")
+    opt = fused_adam(1e-3)
+    step = make_one_step(model, LossScaler(), opt,
+                         dropout_generator=torch.Generator().manual_seed(0))
+    ids = torch.zeros(2, 8, dtype=torch.long)
+    pos = torch.arange(8)[None].expand(2, 8)
+    state, ss, loss = step(opt.init(dict(model.named_parameters())),
+                           LossScaler().init("cpu"), ids, pos, ids)
+    assert loss.device.type == "cpu" and torch.isfinite(loss).item()
 
 
 def test_chip_smoke_refuses_to_run_without_cuda(monkeypatch):

@@ -7,7 +7,10 @@ without affine; the split attention backward (K5, K6) on causal,
 segmented, fully masked and cross-length inputs; the fused LM head (K7,
 K8, K9) at vocabularies 384, 1280 and 50304, row counts that leave
 partial row tiles, widths that leave a partial column tile, with and
-without label smoothing.
+without label smoothing; the dropout variants K1d, K5d and K6d at
+lengths that leave partial tiles (200), causal and segmented, with
+negative and extreme seeds, the mask recovered exactly from K1d's output
+with V the identity, and K5d/K6d repeatable bit for bit.
 
 Marked ``cuda``: each test needs a card and skips without one. This
 file imports neither JAX nor the JAX package, so it runs on a GPU
@@ -56,6 +59,12 @@ L2_TOL = {"bfloat16": 1e-3, "float16": 3e-4, "float32": 5e-6}
 # (fp16) and 4.2e-6 (fp32) for dX and dE
 XENT_LOSS_TOL = 2e-6
 XENT_L2_TOL = {"bfloat16": 2e-3, "float16": 6e-4, "float32": 1.5e-5}
+# relative L2 of a dropout-backward output (K5d, K6d) against the plain
+# version: both sides apply the same mask and round at the same points as
+# K5/K6 do; on an H100 (tests/port/kernel_l2_errors.py) these cases
+# measured at most 1.0e-4 (bf16), 3.1e-5 (fp16) and 4.7e-7 (fp32)
+DROPOUT_L2_TOL = L2_TOL
+DROPOUT_SEEDS = [-123456789, 2 ** 31 - 1]
 # (n, V, h) of the LM-head cases: n leaves partial 32-, 64- and 128-row
 # tiles; h = 1024 leaves a partial 768-column tile
 XENT_SHAPES = [(200, 384, 128), (1032, 1280, 256), (136, 1280, 1024),
@@ -411,3 +420,121 @@ def test_xent_wrappers_refuse_what_the_kernels_do_not_take(dev):
     _, lse = xent_cuda.xent_fwd(x, e, labels)
     with pytest.raises(ValueError, match="dl"):
         xent_cuda.xent_bwd_de(x, e, labels, lse, lse[:8].contiguous())
+
+
+def _drop_case(dev, dtype, d, case, seed):
+    gen = torch.Generator(device=dev).manual_seed(11)
+    b, h, s = 2, 3, 200
+    q, k, v, do = (_randn(gen, b, h, s, d, dtype=dtype, dev=dev)
+                   for _ in range(4))
+    seg = None
+    if case == "segments":
+        ids = torch.zeros(b, s, dtype=torch.int32)
+        ids[:, :70], ids[:, 70:161] = 1, 2          # 161.. is padding (0)
+        seg = (ids.to(dev), ids.to(dev))
+    return q, k, v, do, seg, torch.tensor([seed], dtype=torch.int32,
+                                          device=dev)
+
+
+def _drop_counts():
+    return (attention_cuda.prefill_attention_dropout.launches,
+            attention_bwd_cuda.attention_bwd_dq_dropout.launches,
+            attention_bwd_cuda.attention_bwd_dkv_dropout.launches)
+
+
+@pytest.mark.parametrize("seed", DROPOUT_SEEDS)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", ["causal", "segments"])
+def test_dropout_kernels_match_plain(dev, dtype, d, case, seed):
+    torch_dtype, tol = DTYPES[dtype]
+    q, k, v, do, seg, sd = _drop_case(dev, torch_dtype, d, case, seed)
+    scale, p = d ** -0.5, 0.1
+    kw = dict(causal=True, sm_scale=scale, dropout_p=p, dropout_seed=sd,
+              segment_ids=seg)
+    before = _drop_counts()
+    o = attention_cuda.prefill_attention_dropout(q, k, v, **kw)
+    dq, dk, dv = attention_bwd_cuda.attention_bwd_dropout(q, k, v, o, do,
+                                                          **kw)
+    assert _drop_counts() == tuple(c + 1 for c in before)
+    ro = attention._dense_attention(q, k, v, True, scale, seg, p, sd)
+    ref = attention._attention_bwd_split(q, k, v, o, do, True, scale, seg, p,
+                                         sd)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o.float()).all()
+    torch.testing.assert_close(o.float(), ro.float(), atol=tol, rtol=0)
+    for out, r in zip((dq, dk, dv), ref):
+        assert out.dtype == r.dtype == torch_dtype
+        assert torch.isfinite(out.float()).all()
+        _close_scaled(out, r, tol)
+        _close_l2(out, r, dtype, DROPOUT_L2_TOL)
+    # dropout changed the function
+    assert not torch.allclose(o.float(), attention._dense_attention(
+        q, k, v, True, scale, seg).float(), atol=tol)
+
+
+def test_dropout_mask_is_recovered_exactly_from_k1d(dev):
+    """q = k = 0 and V the identity: every score is 0, P = 1/128 on each
+    row, and O[i, j] = mscale[i, j] / 128 exactly, so K1d's output gives
+    back its mask, which must equal the plain mask in every element."""
+    b, h, s, d = 2, 3, 1024, 128
+    q = torch.zeros(b, h, s, d, device=dev)
+    k = torch.zeros(b, h, d, d, device=dev)
+    v = torch.eye(d, device=dev).expand(b, h, d, d).contiguous()
+    for seed in (0, -1, -2 ** 31, 2 ** 31 - 1, 987654321):
+        sd = torch.tensor([seed], dtype=torch.int32, device=dev)
+        o = attention_cuda.prefill_attention_dropout(
+            q, k, v, causal=False, sm_scale=0.125, dropout_p=0.1,
+            dropout_seed=sd)
+        want = attention.dropout_mscale(sd, b, h, s, d, 0.1)
+        torch.cuda.synchronize()
+        assert torch.equal(o * d, want), seed
+
+
+def test_dropout_backward_is_repeatable(dev):
+    q, k, v, do, _, sd = _drop_case(dev, torch.bfloat16, 64, "causal", -5)
+    kw = dict(causal=True, sm_scale=0.125, dropout_p=0.1, dropout_seed=sd)
+    o = attention_cuda.prefill_attention_dropout(q, k, v, **kw)
+    dq, m, l, dcol = attention_bwd_cuda.attention_bwd_dq_dropout(q, k, v, o,
+                                                                 do, **kw)
+    first = attention_bwd_cuda.attention_bwd_dkv_dropout(q, k, v, do, m, l,
+                                                         dcol, **kw)
+    again = attention_bwd_cuda.attention_bwd_dkv_dropout(q, k, v, do, m, l,
+                                                         dcol, **kw)
+    dq2 = attention_bwd_cuda.attention_bwd_dq_dropout(q, k, v, o, do, **kw)[0]
+    for a, b in zip(first + (dq,), again + (dq2,)):
+        assert torch.equal(a, b)
+
+
+def test_dropout_autograd_runs_k1d_k5d_k6d(dev):
+    q, k, v, do, _, sd = _drop_case(dev, torch.bfloat16, 64, "causal", 7)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    plain = (attention_cuda.prefill_attention.launches,
+             attention_bwd_cuda.attention_bwd_dq.launches,
+             attention_bwd_cuda.attention_bwd_dkv.launches)
+    before = _drop_counts()
+    o = attention.fused_attention(q, k, v, causal=True, dropout_p=0.1,
+                                  dropout_seed=sd)
+    o.backward(do)
+    assert _drop_counts() == tuple(c + 1 for c in before)
+    assert (attention_cuda.prefill_attention.launches,
+            attention_bwd_cuda.attention_bwd_dq.launches,
+            attention_bwd_cuda.attention_bwd_dkv.launches) == plain
+    assert q.grad.dtype == torch.bfloat16
+
+
+def test_dropout_wrappers_refuse_bad_seeds_and_rates(dev):
+    q = torch.zeros(1, 2, 8, 64, device=dev, dtype=torch.bfloat16)
+    kw = dict(causal=True, sm_scale=1.0)
+    good = torch.zeros(1, dtype=torch.int32, device=dev)
+    for bad in (good.cpu(), good.long(), torch.zeros(1, 1, dtype=torch.int32,
+                                                     device=dev)):
+        with pytest.raises(ValueError, match="dropout_seed"):
+            attention_cuda.prefill_attention_dropout(
+                q, q, q, dropout_p=0.1, dropout_seed=bad, **kw)
+    with pytest.raises(ValueError, match="dropout_p"):
+        attention_cuda.prefill_attention_dropout(q, q, q, dropout_p=0.0,
+                                                 dropout_seed=good, **kw)
+    with pytest.raises(ValueError, match="dropout_p"):
+        attention_bwd_cuda.attention_bwd_dropout(q, q, q, q, q, dropout_p=1.0,
+                                                 dropout_seed=good, **kw)

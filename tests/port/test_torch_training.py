@@ -381,7 +381,7 @@ def test_step_never_reads_a_device_value_on_the_host(jax_tree, monkeypatch):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(recompute_granularity="full"), "recompute"),
+    (dict(recompute_granularity="layer"), "recompute"),
     (dict(num_moe_experts=4), "MoE"),
     (dict(sequence_parallel=True), "sequence"),
 ])
