@@ -2,8 +2,9 @@
 ``apex_tpu/ops/decode_attention_pallas.py``).
 
 :func:`decode_attention` is the one call: for CUDA tensors it launches
-the hand-written kernel (``csrc/decode_attention.cu`` through
-:mod:`apex_tpu_torch.ops.decode_attention_cuda`); for CPU tensors it runs
+a hand-written kernel (``csrc/decode_attention.cu`` through
+:mod:`apex_tpu_torch.ops.decode_attention_cuda`: K2 over pages in q's
+dtype, K2q over int8 pages with their scales); for CPU tensors it runs
 :func:`decode_attention_reference`, the plain version, op for op with the
 JAX package's. The JAX family's impl/tile dispatch (``set_decode_impl``,
 ``block_h``, the dispatch table) has no counterpart here.
@@ -13,9 +14,13 @@ Layouts:
   k_pages/v_pages  [h, pages, page_size, d]
   page_table       [b, max_pages]     int32 (padding -> null page 0)
   lengths          [b]                int32 (0 = inactive slot -> 0 out)
+  k_scale/v_scale  [h, pages]         bf16 per-(page, head) scales of the
+                                      int8 KV tier, or None
 
-The int8 KV tier (pages of int8 codes with per-(page, head) scales) is
-not ported yet: int8 pages raise.
+The int8 KV tier (``apex_tpu_torch.serving.kv_tier``): int8 pages come
+with their scales, and both versions dequantize at read (each page's
+rows times that page's fp32-widened scale); int8 pages without scales
+raise, as in the JAX package.
 """
 
 import math
@@ -26,15 +31,27 @@ NEG_INF = -1e30
 
 
 def decode_attention_reference(q, k_pages, v_pages, page_table, lengths,
-                               sm_scale):
+                               sm_scale, k_scale=None, v_scale=None):
     """Gather each slot's pages, mask positions at or past the length,
-    exact fp32 softmax; inactive slots (length 0) give 0."""
+    exact fp32 softmax; inactive slots (length 0) give 0. ``k_scale``/
+    ``v_scale`` (the int8 tier) gather through the same page table and
+    dequantize at read."""
     b, h, d = q.shape
+    ps = k_pages.shape[2]
     # [h, b, max_pages, ps, d] -> [b, h, S, d]
     k = k_pages[:, page_table].permute(1, 0, 2, 3, 4).reshape(
         b, h, -1, d).float()
     v = v_pages[:, page_table].permute(1, 0, 2, 3, 4).reshape(
         b, h, -1, d).float()
+    if k_scale is not None:
+        # [h, b, max_pages] -> [b, h, S]: one scale per page, repeated
+        # over the page's positions
+        ks = torch.repeat_interleave(
+            k_scale[:, page_table].permute(1, 0, 2).float(), ps, dim=-1)
+        vs = torch.repeat_interleave(
+            v_scale[:, page_table].permute(1, 0, 2).float(), ps, dim=-1)
+        k = k * ks[..., None]
+        v = v * vs[..., None]
     s = ((q.float() * sm_scale)[:, :, None, :] * k).sum(dim=-1)  # [b, h, S]
     col = torch.arange(s.shape[-1], dtype=torch.int32, device=q.device)
     masked = col[None, None, :] >= lengths.to(torch.int32)[:, None, None]
@@ -48,19 +65,29 @@ def decode_attention_reference(q, k_pages, v_pages, page_table, lengths,
 
 
 def decode_attention(q, k_pages, v_pages, page_table, lengths, *,
-                     sm_scale=None):
-    """Paged decode attention (layouts in the module docstring)."""
+                     sm_scale=None, k_scale=None, v_scale=None):
+    """Paged decode attention (layouts in the module docstring); with
+    ``k_scale``/``v_scale`` the pages are the int8 tier's codes."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if k_pages.dtype == torch.int8 or v_pages.dtype == torch.int8:
-        raise ValueError("decode_attention: int8 KV pages (the int8 KV "
-                         "tier) are not ported yet")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("decode_attention: k_scale and v_scale come as a "
+                         "pair (one of them is missing)")
+    if k_scale is None and (k_pages.dtype == torch.int8
+                            or v_pages.dtype == torch.int8):
+        raise ValueError("decode_attention: int8 pages without k_scale/"
+                         "v_scale — quantized codes are meaningless "
+                         "without their scales")
     if q.is_cuda:
         from apex_tpu_torch.ops import decode_attention_cuda
 
+        if k_scale is not None:
+            return decode_attention_cuda.decode_attention_quant(
+                q, k_pages, v_pages, k_scale, v_scale, page_table, lengths,
+                sm_scale=sm_scale)
         return decode_attention_cuda.decode_attention(
             q, k_pages, v_pages, page_table, lengths, sm_scale=sm_scale)
     if q.device.type != "cpu":
         raise ValueError(f"decode_attention: no kernel for device {q.device}")
     return decode_attention_reference(q, k_pages, v_pages, page_table,
-                                      lengths, sm_scale)
+                                      lengths, sm_scale, k_scale, v_scale)

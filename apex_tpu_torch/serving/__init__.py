@@ -1,6 +1,8 @@
 """Serving stack of the port (counterpart of ``apex_tpu.serving``).
 
 * ``kv_cache``  — paged K/V tensors + the host page allocator (null page 0)
+* ``kv_tier``   — the int8 KV tier's codec (quantize at write, per-(page,
+                  head) bf16 scales)
 * ``scheduler`` — continuous batching (fifo / priority) and the seeded
                   synthetic trace
 * ``lifecycle`` — request event log, TTFT/TPOT derivation
@@ -12,7 +14,7 @@
                   one serial greedy loop
 """
 
-from apex_tpu_torch.serving import lifecycle  # noqa: F401
+from apex_tpu_torch.serving import kv_tier, lifecycle  # noqa: F401
 from apex_tpu_torch.serving.engine import ServingEngine  # noqa: F401
 from apex_tpu_torch.serving.kv_cache import (  # noqa: F401
     PageAllocator,

@@ -10,12 +10,17 @@ decode attention kernel). The cache and operand shapes are fixed at
 construction; scheduler events change values only.
 
 Greedy decoding only: a request whose ``sampling`` is not greedy raises
-at :meth:`submit`, as on the JAX engine built without sampling. The
-JAX engine's other layers — sampling, speculative decode, the prefix
-cache, the overlapped round, admission control, shedding, preemption,
-round recovery, the int8 KV tier and swap, tensor parallelism and
-multi-token decode blocks — are later slices (ROADMAP.md); this engine
-runs the JAX engine's default configuration, token for token.
+at :meth:`submit`, as on the JAX engine built without sampling.
+``kv_quant=True`` (or ``APEX_SERVE_KV_QUANT=1`` when the argument is
+None) serves over the int8 KV tier (:mod:`~apex_tpu_torch.serving.
+kv_tier`): int8 codes with per-(page, head) bf16 scales, quantized at
+write, read by K2q. The JAX engine's other layers — sampling,
+speculative decode, the prefix cache, the overlapped round, admission
+control, shedding, preemption, round recovery, the host swap tier,
+tensor parallelism and multi-token decode blocks — are later slices
+(ROADMAP.md); ``kv_swap=True`` and ``kv_restore="swap"`` raise, as the
+JAX engine raises on them without preemption. This engine runs the JAX
+engine's configuration with those layers off, token for token.
 
 ``device_dispatch_s`` accumulates the wall time of device round trips
 (prefill + decode, each ending in the fetch of its tokens), so run wall
@@ -29,7 +34,7 @@ import numpy as np
 import torch
 
 from apex_tpu_torch import default_device
-from apex_tpu_torch.serving import lifecycle
+from apex_tpu_torch.serving import kv_tier, lifecycle
 from apex_tpu_torch.serving import model as smodel
 from apex_tpu_torch.serving.kv_cache import PageAllocator, init_cache
 from apex_tpu_torch.serving.scheduler import ContinuousBatchingScheduler
@@ -45,8 +50,30 @@ def _to_device(tree, device):
 class ServingEngine:
     def __init__(self, cfg, params=None, *, num_slots=4, page_size=16,
                  num_pages=64, max_seq=None, prefill_len=64,
-                 prefill_requests=None, policy=None, seed=0, device=None):
+                 prefill_requests=None, policy=None, seed=0, device=None,
+                 kv_quant=None, kv_swap=None, kv_restore=None):
         smodel.check_serving_config(cfg)
+        # the int8 KV tier: a per-call demand, else the env preference,
+        # else off. kv_swap and kv_restore exist only to be refused: the
+        # host swap tier banks pages at KV-pressure preemption, which this
+        # engine does not have (the JAX engine raises on kv_swap=True
+        # without preemption); with no preemption nothing is restored, so
+        # "recompute" is accepted and changes nothing
+        self.kv_quant = kv_tier.resolve_kv_quant(kv_quant)
+        if kv_swap:
+            raise ValueError(
+                "kv_swap=True cannot be honored: the host swap tier banks "
+                "pages at KV-pressure preemption, which this engine does "
+                "not have")
+        if kv_restore is not None:
+            if kv_restore not in kv_tier.RESTORE_CHOICES:
+                raise ValueError(f"unknown kv_restore {kv_restore!r} "
+                                 f"(vocabulary: {kv_tier.RESTORE_CHOICES})")
+            if kv_restore == "swap":
+                raise ValueError(
+                    "kv_restore='swap' demanded but the host swap tier is "
+                    "off — no honorable way to restore from pages that "
+                    "were never banked")
         self.device = default_device(device)
         self.cfg = cfg
         self.num_slots = int(num_slots)
@@ -63,10 +90,8 @@ class ServingEngine:
         # weights pre-cast once to the compute dtype (same numbers as a
         # cast per call; embeddings and norms stay fp32)
         self.params = smodel.cast_params(params, cfg)
-        self.cache = init_cache(
-            cfg.num_layers, cfg.num_attention_heads, self.num_pages,
-            self.page_size, cfg.head_dim, smodel.compute_dtype(cfg),
-            device=self.device)
+        self._cache_dtype = smodel.compute_dtype(cfg)
+        self.cache = self._fresh_cache()
         self.allocator = PageAllocator(self.num_pages)
         self.scheduler = ContinuousBatchingScheduler(
             self.num_slots, self.max_pages, self.page_size, self.allocator,
@@ -80,6 +105,21 @@ class ServingEngine:
 
     def _tensor(self, array):
         return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
+
+    def _fresh_cache(self):
+        """A zeroed cache: the one construction home, so a rebuild can
+        never drop the int8 tier's scale leaves or change the dtype."""
+        return init_cache(
+            self.cfg.num_layers, self.cfg.num_attention_heads,
+            self.num_pages, self.page_size, self.cfg.head_dim,
+            self._cache_dtype, kv_quant=self.kv_quant, device=self.device)
+
+    def kv_tier_rates(self):
+        """The KV-tier account: ``kv_quant`` (True with the int8 tier on,
+        None off); ``swap_rate`` and ``swapped_pages_high_water`` are None,
+        as the host swap tier is off."""
+        return {"kv_quant": True if self.kv_quant else None,
+                "swap_rate": None, "swapped_pages_high_water": None}
 
     # -------------------------------------------------------- front door
 
@@ -147,12 +187,26 @@ class ServingEngine:
             token_rows[cursor:cursor + n] = si
             gather_idx[r] = cursor + n - 1
             cursor += n
+        keep = None
+        if self.kv_quant:
+            # keep_scale row (kv_tier.prefill_scatter_quant): 0 for every
+            # page a prefilling row writes (each is freshly granted: with
+            # no prefix cache and no verify replay a row writes from
+            # position 0, so stale codes there must not pin the scale), 1
+            # for every other page, whose content must survive
+            keep = np.ones((self.num_pages,), np.float32)
+            for si, fed in rows:
+                pages = self.scheduler.slots[si].pages
+                for j in range((len(fed) - 1) // self.page_size + 1):
+                    if j < len(pages):
+                        keep[pages[j]] = 0.0
+            keep = self._tensor(keep)
         t0 = time.perf_counter()
         self.cache, logits = smodel.prefill(
             self.params, self.cache, self._tensor(ids),
             self._tensor(positions), self._tensor(seg),
             self._tensor(token_rows), self._tensor(pt),
-            self._tensor(gather_idx), cfg=self.cfg)
+            self._tensor(gather_idx), keep, cfg=self.cfg)
         return logits, t0
 
     def _run_prefill(self, slot_indices):

@@ -5,9 +5,12 @@ Device side: K and V each live as one ``[layers, h, num_pages, page_size,
 head_dim]`` tensor. Allocating a page to a sequence is writing its index
 into that sequence's page-table row; freeing it is forgetting the index.
 The tensors never change shape for the life of an engine. The head axis
-leads the page axis, the layout the decode kernel
-(``csrc/decode_attention.cu``) reads a ``[page_size, head_dim]`` page
-block from.
+leads the page axis, the layout the decode kernels
+(``csrc/decode_attention.cu``) read a ``[page_size, head_dim]`` page
+block from. On the int8 KV tier (``kv_quant=True``) the K and V tensors
+hold int8 codes and two more leaves, ``k_scale``/``v_scale`` ``[layers,
+h, num_pages]`` bf16, hold the per-(page, head) scales
+(:mod:`apex_tpu_torch.serving.kv_tier`).
 
 Host side: :class:`PageAllocator`, an explicit free list over pages
 ``1..num_pages-1``. Page 0 is reserved as the null page: padded page-table
@@ -17,15 +20,28 @@ aliases a live sequence's data.
 
 import torch
 
+from apex_tpu_torch.serving import kv_tier
+
 
 def init_cache(num_layers, num_heads, num_pages, page_size, head_dim,
-               dtype=torch.bfloat16, device=None):
+               dtype=torch.bfloat16, kv_quant=False, device=None):
     """Zeroed cache dict ``{"k", "v"}`` of
-    ``[layers, h, num_pages, page_size, head_dim]`` tensors (bf16 or fp32;
-    the int8 tier is not ported yet)."""
+    ``[layers, h, num_pages, page_size, head_dim]`` tensors (bf16, fp16 or
+    fp32). ``kv_quant=True`` (the int8 KV tier) stores int8 codes and adds
+    zeroed bf16 scale leaves ``{"k_scale", "v_scale"}`` of ``[layers, h,
+    num_pages]``: a zero scale dequantizes and quantizes to exact zeros,
+    which also keeps null page 0 dead through the codec."""
+    shape = (num_layers, num_heads, num_pages, page_size, head_dim)
+    if kv_quant:
+        cache = {"k": torch.zeros(shape, dtype=kv_tier.CODE_DTYPE,
+                                  device=device),
+                 "v": torch.zeros(shape, dtype=kv_tier.CODE_DTYPE,
+                                  device=device)}
+        cache.update(kv_tier.init_scales(num_layers, num_heads, num_pages,
+                                         device))
+        return cache
     if dtype not in (torch.bfloat16, torch.float16, torch.float32):
         raise ValueError(f"init_cache: unsupported cache dtype {dtype}")
-    shape = (num_layers, num_heads, num_pages, page_size, head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 

@@ -20,7 +20,12 @@ only then cast.
   decode kernel on CUDA), greedy next token.
 
 The cache tensors are updated in place (the JAX functions return a new
-cache; here the same dict is returned, already updated).
+cache; here the same dict is returned, already updated). On the int8 KV
+tier (a cache with scale leaves, :func:`kv_tier.is_quantized`) both
+scatters go through the quantize-at-write codec
+(:mod:`apex_tpu_torch.serving.kv_tier`); prefill attention still runs on
+the fresh K/V in the compute dtype, and decode attention reads the int8
+pages with their scales (K2q on the card).
 
 Serving constraints (:func:`check_serving_config`): no dropout, no
 query-key layer scaling, no MoE, no sequence or context parallelism.
@@ -38,6 +43,7 @@ import torch.nn.functional as F
 
 from apex_tpu_torch.ops.attention import fused_attention
 from apex_tpu_torch.ops.decode_attention import decode_attention
+from apex_tpu_torch.serving import kv_tier
 
 
 def check_serving_config(cfg):
@@ -155,7 +161,7 @@ def _logits(params, x, dtype):
 # --------------------------------------------------------------- prefill
 
 def prefill(params, cache, ids, positions, seg, token_rows, page_table,
-            last_idx, *, cfg):
+            last_idx, keep_scale=None, *, cfg):
     """One packed prompt batch through the trunk, filling the cache.
 
     ids/positions/seg/token_rows: ``[S_pack]`` int tensors — token values,
@@ -164,6 +170,10 @@ def prefill(params, cache, ids, positions, seg, token_rows, page_table,
     all-null spare row). page_table: ``[R_rows, max_pages]`` int32.
     last_idx: ``[G]`` flat pack indices to gather logits at. Returns
     ``(cache, logits [G, vocab])``; ``cache`` is updated in place.
+
+    keep_scale: ``[num_pages]`` fp32 (1 = the page already holds live rows
+    whose scale must survive, 0 = fresh or null), required by and only
+    read on the int8 KV tier.
     """
     dtype = compute_dtype(cfg)
     hd, n_heads = cfg.head_dim, cfg.num_attention_heads
@@ -176,6 +186,12 @@ def prefill(params, cache, ids, positions, seg, token_rows, page_table,
     dest_page = torch.gather(rows, 1, (positions // ps)[:, None])[:, 0].long()
     dest_off = positions % ps
 
+    quant = kv_tier.is_quantized(cache)
+    if quant and keep_scale is None:
+        raise ValueError(
+            "prefill on a quantized cache needs the keep_scale row — "
+            "requantizing without it would zero surviving pages")
+
     seg2 = seg.to(torch.int32)[None, :].contiguous()
     for i in range(cfg.num_layers):
         def attn(q, k, v, i=i):
@@ -183,11 +199,18 @@ def prefill(params, cache, ids, positions, seg, token_rows, page_table,
             # the [S, H, d] values lands on the page/offset pair, heads
             # stay on the head axis (JAX's mixed basic/advanced indexing
             # puts the token axis first; torch's puts it at the index
-            # position, hence the [H, S, d] view here)
-            cache["k"][i][:, dest_page, dest_off] = \
-                k.to(cache["k"].dtype).transpose(0, 1)
-            cache["v"][i][:, dest_page, dest_off] = \
-                v.to(cache["v"].dtype).transpose(0, 1)
+            # position, hence the [H, S, d] view here); the int8 tier
+            # routes the same scatter through the quantize-at-write codec
+            if quant:
+                for part, val in (("k", k), ("v", v)):
+                    kv_tier.prefill_scatter_quant(cache, i, part, val,
+                                                  dest_page, dest_off,
+                                                  keep_scale)
+            else:
+                cache["k"][i][:, dest_page, dest_off] = \
+                    k.to(cache["k"].dtype).transpose(0, 1)
+                cache["v"][i][:, dest_page, dest_off] = \
+                    v.to(cache["v"].dtype).transpose(0, 1)
             ctx = fused_attention(
                 q.transpose(0, 1)[None].contiguous(),
                 k.transpose(0, 1)[None].contiguous(),
@@ -235,17 +258,28 @@ def decode_step(params, cache, tokens, lengths, page_table, *, cfg):
 
     x = _embed(params, tokens.long(), positions, dtype)
     lengths32 = lengths.to(torch.int32).contiguous()
+    quant = kv_tier.is_quantized(cache)
     for i in range(cfg.num_layers):
         def attn(q, k, v, i=i):
             # append this step's k/v at (page, offset): [B, H, d] values
-            # as an [H, B, d] view for torch's index placement
-            cache["k"][i][:, write_page, write_off] = \
-                k.to(cache["k"].dtype).transpose(0, 1)
-            cache["v"][i][:, write_page, write_off] = \
-                v.to(cache["v"].dtype).transpose(0, 1)
+            # as an [H, B, d] view for torch's index placement; the int8
+            # tier rewrites the touched pages through the per-page
+            # read-modify-write codec, and its pages reach the attention
+            # with their per-(page, head) scales
+            if quant:
+                for part, val in (("k", k), ("v", v)):
+                    kv_tier.decode_scatter_quant(cache, i, part, val,
+                                                 write_page, write_off)
+            else:
+                cache["k"][i][:, write_page, write_off] = \
+                    k.to(cache["k"].dtype).transpose(0, 1)
+                cache["v"][i][:, write_page, write_off] = \
+                    v.to(cache["v"].dtype).transpose(0, 1)
             ctx = decode_attention(
                 q.to(dtype).contiguous(), cache["k"][i], cache["v"][i],
-                page_table, lengths32, sm_scale=1.0 / math.sqrt(hd))
+                page_table, lengths32, sm_scale=1.0 / math.sqrt(hd),
+                k_scale=cache["k_scale"][i] if quant else None,
+                v_scale=cache["v_scale"][i] if quant else None)
             return ctx.reshape(B, n_heads * hd).to(dtype)
 
         x = _trunk_layer(x, params["transformer"][f"layer_{i}"], cfg, attn)

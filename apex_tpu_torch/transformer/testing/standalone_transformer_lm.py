@@ -19,7 +19,16 @@ package's ``[s, b, h]`` hidden layout and numerics:
   forward, K5/K6 or K5d/K6d backward on the card) at scale ``1/sqrt(hd)``
   — query-key layer scaling is ignored, as the JAX flash and rows
   branches ignore it — and the output projection (``_via_bhsd
-  :387-396``);
+  :387-396``). In training with attention dropout and
+  ``fused_attention_dropout=False`` it takes the scores path
+  (``:491-524``), the classic Megatron attention: ``q / norm_factor``
+  rounded in the compute dtype, the scores ``bmm`` accumulated in fp32
+  and rounded to the compute dtype,
+  :class:`~apex_tpu_torch.transformer.functional.FusedScaleMaskSoftmax`
+  (K10 forward and K11 backward on the card) with ``coeff = layer_number``
+  under ``apply_query_key_layer_scaling`` (which forces the softmax into
+  fp32, ``:337-342``), dropout on the probabilities through
+  :func:`apex_tpu_torch.utils.train_dropout`, and the context ``bmm``;
 * :class:`ParallelMLP` (``:282``) — h→4h, bias + tanh GELU, 4h→h;
 * :class:`ParallelTransformerLayer` (``:534``) — pre-LN block with
   ``residual + dropout(x + bias)`` in the compute dtype (``:570-605``);
@@ -51,8 +60,7 @@ generators, so the recomputed region restores the explicit generator's
 state from before its first forward and puts back the later state after
 it: the recompute draws the same masks and seed, and later steps draw
 new ones. What the slice does not model raises: MoE, sequence/context
-parallelism, tp > 1, and attention dropout on the scores path
-(``fused_attention_dropout=False``).
+parallelism, tp > 1, and an explicit ``attention_mask``.
 """
 
 import contextlib
@@ -69,6 +77,8 @@ from apex_tpu_torch import default_device
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops import xent
 from apex_tpu_torch.ops.attention import fused_attention
+from apex_tpu_torch.transformer.enums import AttnMaskType
+from apex_tpu_torch.transformer.functional import FusedScaleMaskSoftmax
 from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
 )
@@ -101,10 +111,14 @@ class TransformerConfig:
     hidden_dropout: float = 0.1
     attention_dropout: float = 0.1
     # training with attention dropout takes the in-kernel dropout route
-    # (K1d, K5d/K6d on the card); False would be the scores path, which
-    # the port does not have yet
+    # (K1d, K5d/K6d on the card); False takes the scores path (K10, K11)
     fused_attention_dropout: bool = True
     apply_query_key_layer_scaling: bool = True
+    attention_softmax_in_fp32: bool = False
+    masked_softmax_fusion: bool = True
+    # the scores path's softmax: True the fused kernel (K10/K11) where its
+    # predicate holds, False the plain function
+    softmax_use_pallas: bool = True
     fused_lm_head: Optional[bool] = None
     sequence_parallel: bool = False
     context_parallel_axis: Optional[str] = None
@@ -230,16 +244,18 @@ class ParallelMLP(nn.Module):
 
 
 class ParallelAttention(nn.Module):
-    """Causal self-attention (no mask) through :func:`fused_attention`;
-    returns ``(out, bias)``. With a generator and ``attention_dropout >
-    0`` it takes the in-kernel dropout route (``:421-470``): one seed per
-    call from :func:`derive_attention_dropout_seed`. The port's kernels
-    tile any key length, so there is no fallback to dropout on
-    materialized probabilities where the JAX ``supported(...,
-    dropout=True)`` fails (``:456-458``); that fallback computes the same
-    dropout distribution."""
+    """Causal self-attention (no mask); returns ``(out, bias)``. Without
+    a generator or attention dropout, :func:`fused_attention`. With a
+    generator and ``attention_dropout > 0``, the in-kernel dropout route
+    (``:421-470``, one seed per call from
+    :func:`derive_attention_dropout_seed`), or with
+    ``fused_attention_dropout=False`` the scores path (``:491-524``). The
+    port's kernels tile any key length, so there is no fallback to the
+    scores path where the JAX ``supported(..., dropout=True)`` fails
+    (``:456-458``); that fallback computes the same dropout
+    distribution."""
 
-    def __init__(self, cfg, device, generator):
+    def __init__(self, cfg, device, generator, layer_number=1):
         super().__init__()
         self.cfg = cfg
         proj = cfg.num_attention_heads * cfg.head_dim
@@ -251,6 +267,21 @@ class ParallelAttention(nn.Module):
             proj, cfg.hidden_size, skip_bias_add=True,
             init_std=scaled_init_std(cfg.init_method_std, cfg.num_layers),
             **kw)
+        # the scores path's scaling (:331-343): query-key layer scaling
+        # divides q by layer_number more and multiplies the scores back
+        # inside the fp32 softmax
+        layer_number = max(1, int(layer_number))
+        self.norm_factor = math.sqrt(cfg.head_dim)
+        coeff = None
+        softmax_in_fp32 = cfg.attention_softmax_in_fp32
+        if cfg.apply_query_key_layer_scaling:
+            coeff = float(layer_number)
+            self.norm_factor *= coeff
+            softmax_in_fp32 = True
+        self.scale_mask_softmax = FusedScaleMaskSoftmax(
+            cfg.fp16, cfg.bf16, AttnMaskType.causal,
+            cfg.masked_softmax_fusion, attention_mask_func, softmax_in_fp32,
+            coeff, use_pallas=cfg.softmax_use_pallas)
 
     def forward(self, hidden, attention_mask=None, generator=None):
         if attention_mask is not None:
@@ -260,10 +291,14 @@ class ParallelAttention(nn.Module):
         np_, hd = cfg.num_attention_heads, cfg.head_dim
         s, b = hidden.shape[0], hidden.shape[1]
         qkv = self.query_key_value(hidden).reshape(s, b, np_, 3 * hd)
-        q, k, v = (t.permute(1, 2, 0, 3).contiguous()
-                   for t in torch.split(qkv, hd, dim=-1))
+        q, k, v = torch.split(qkv, hd, dim=-1)          # [s, b, np, hd]
+        dropout = generator is not None and cfg.attention_dropout > 0.0
+        if dropout and not cfg.fused_attention_dropout:
+            ctx = self._scores_path(q, k, v, generator)
+            return self.dense(ctx)
+        q, k, v = (t.permute(1, 2, 0, 3).contiguous() for t in (q, k, v))
         drop = {}
-        if generator is not None and cfg.attention_dropout > 0.0:
+        if dropout:
             drop = dict(dropout_p=float(cfg.attention_dropout),
                         dropout_seed=derive_attention_dropout_seed(generator))
         ctx = fused_attention(q, k, v, causal=True,
@@ -271,18 +306,48 @@ class ParallelAttention(nn.Module):
         ctx = ctx.permute(2, 0, 1, 3).reshape(s, b, np_ * hd)
         return self.dense(ctx)
 
+    def _scores_path(self, q, k, v, generator):
+        """Scores → fused scale-mask softmax → dropout → context, on
+        ``[s, b, np, hd]`` q/k/v; returns the ``[s, b, np*hd]`` context."""
+        s, b, np_, hd = q.shape
+        dtype = q.dtype
+
+        def to_bns(x):
+            # [s, b, np, hd] → [b*np, s, hd] for the batched matmuls
+            return x.permute(1, 2, 0, 3).reshape(b * np_, s, hd)
+
+        qb, kb, vb = to_bns(q), to_bns(k), to_bns(v)
+        # q / norm_factor in the compute dtype, divided by a tensor on the
+        # device (a Python float divisor becomes a reciprocal multiply on
+        # the card); the products accumulate in fp32 and round to dtype
+        norm = torch.full((), self.norm_factor, dtype=dtype, device=q.device)
+        scores = torch.bmm(qb / norm, kb.transpose(1, 2))
+        probs = self.scale_mask_softmax(scores.reshape(b, np_, s, s), None)
+        probs = train_dropout(generator, probs, self.cfg.attention_dropout)
+        ctx = torch.bmm(probs.reshape(b * np_, s, s).to(vb.dtype), vb)
+        return ctx.reshape(b, np_, s, hd).permute(2, 0, 1, 3).reshape(
+            s, b, np_ * hd)
+
+
+def attention_mask_func(attention_scores, attention_mask):
+    """Masked positions → -10000 (the unfused softmax's mask)."""
+    fill = torch.full((), -10000.0, dtype=attention_scores.dtype,
+                      device=attention_scores.device)
+    return torch.where(attention_mask, fill, attention_scores)
+
 
 class ParallelTransformerLayer(nn.Module):
     """Pre-LN block: LN → attention → residual + dropout → LN → MLP →
     residual + dropout. ``generator`` (None outside training) draws the
     dropout masks and the attention seed."""
 
-    def __init__(self, cfg, device, generator):
+    def __init__(self, cfg, device, generator, layer_number=1):
         super().__init__()
         self.cfg = cfg
         ln = dict(eps=cfg.layernorm_epsilon, device=device)
         self.input_layernorm = FusedLayerNorm(cfg.hidden_size, **ln)
-        self.self_attention = ParallelAttention(cfg, device, generator)
+        self.self_attention = ParallelAttention(cfg, device, generator,
+                                                layer_number)
         self.post_attention_layernorm = FusedLayerNorm(cfg.hidden_size, **ln)
         self.mlp = ParallelMLP(cfg, device, generator)
 
@@ -312,7 +377,8 @@ class ParallelTransformer(nn.Module):
         self.recompute = cfg.recompute_granularity == "full"
         for i in range(cfg.num_layers):
             self.add_module(f"layer_{i}",
-                            ParallelTransformerLayer(cfg, device, generator))
+                            ParallelTransformerLayer(cfg, device, generator,
+                                                     layer_number=i + 1))
         self.final_layernorm = FusedLayerNorm(
             cfg.hidden_size, eps=cfg.layernorm_epsilon, device=device)
 
@@ -405,10 +471,6 @@ class GPTModel(nn.Module):
                 raise ValueError("GPTModel: training with dropout "
                                  "(deterministic=False) needs a "
                                  "dropout_generator")
-            if cfg.attention_dropout > 0 and not cfg.fused_attention_dropout:
-                raise ValueError("GPTModel: attention dropout on the scores "
-                                 "path (fused_attention_dropout=False) is "
-                                 "not ported")
             gen = dropout_generator
         hidden = self.embedding(self.word_embeddings, input_ids, position_ids,
                                 gen)

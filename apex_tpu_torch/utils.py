@@ -26,9 +26,11 @@ def train_dropout(generator, x, p, zero=0.0):
     """Inverted dropout: keep with probability ``1 - p`` and rescale the
     survivors, ``where(keep, x / (1 - p), zero)``. The survivors are
     divided, not multiplied by a reciprocal, by ``1 - p`` rounded to x's
-    dtype, as JAX divides an array by a Python float."""
+    dtype, as JAX divides an array by a Python float. The divisor is a
+    tensor on x's device: on the card PyTorch turns a division by a host
+    scalar into a multiplication by its reciprocal."""
     keep = keep_mask(generator, x.shape, p, x.device)
-    keep_prob = torch.tensor(1.0 - p, dtype=x.dtype)   # a host scalar
+    keep_prob = torch.full((), 1.0 - p, dtype=x.dtype, device=x.device)
     return torch.where(keep, x / keep_prob, zero)
 
 

@@ -10,14 +10,18 @@ exits non-zero before the last line):
 1. device: ``nvidia-smi`` name and power limit, the SM clock's maximum
    (the INT32 rate assumes it), torch and CUDA versions; TF32 is
    switched off for fp32 matmuls and convolutions.
-2. build: the five CUDA sources compile from ``apex_tpu_torch/csrc`` (one
+2. build: the six CUDA sources compile from ``apex_tpu_torch/csrc`` (one
    ``nvcc`` each, all in parallel) into ``build/apex_tpu_torch/``.
 3. one phase per kernel at its main path's shapes: K1 and K2 at the
    serving shapes, K3/K4 (layer norm, x ``[8192, 768]`` bf16), K5/K6
    (attention backward, ``[8, 12, 1024, 64]`` bf16, causal), K1d, K5d
    and K6d (attention with dropout 0.1, same shape; two K5d/K6d runs
    must give the same bits) and K7-K9 (the fused LM head, x ``[8192,
-   768]`` x E ``[50304, 768]`` bf16) at the training shapes. K1d's mask
+   768]`` x E ``[50304, 768]`` bf16) at the training shapes; K2q (decode
+   over the int8 KV tier's pages, the serving shape; also against K2
+   over the unquantized pages within the int8 band, 0.12) and K10/K11
+   (the scores path's softmax, ``[8, 12, 1024, 1024]`` bf16, K10 causal
+   and with an explicit ``[8, 1, 1024, 1024]`` mask). K1d's mask
    is also recovered exactly from its output (q = k = 0, V the identity,
    fp32: O = mscale / 128) and must equal the plain mask in every
    element. Each kernel is held against its plain PyTorch
@@ -29,8 +33,11 @@ exits non-zero before the last line):
    time, the plain version's and one PyTorch call's (``library_ms``:
    SDPA, ``F.layer_norm``, the materialized head ``x @ E.T`` then
    ``F.cross_entropy``, or their backward through ``torch.autograd.grad``
-   on a graph built outside the timed region — timed here, never used by
-   the port), each over launches that find the 50 MB L2 cache flushed
+   on a graph built outside the timed region; SDPA over pre-gathered,
+   pre-dequantized K/V for K2q; ``torch.softmax`` over the fp32-upcast,
+   pre-masked scores for K10 and ``torch._softmax_backward_data`` for
+   K11 — timed here, never used by the port), each over launches that
+   find the 50 MB L2 cache flushed
    (the kernel's own launches also give their [min, median, max],
    ``ms_spread``); and the least time an H100 SXM could take for the
    same work (``bound_ms``: bytes each input read and output written
@@ -49,6 +56,12 @@ exits non-zero before the last line):
    plain path on the card, and their logits must agree within 0.35 (the
    bf16 band of the JAX package's serving tests); a second short trace
    replays under ``torch.profiler`` (busy share, kernel time by kind).
+   Then the same trace, checks and profile with ``kv_quant=True`` (the
+   int8 KV tier, the same 72 pages): K2q must launch ``decode_steps x
+   12`` times and K2 never, null page 0 must stay zero, and the int8
+   codec's launches and device time for one decode step's and one
+   prefill batch's cache writes are read by replaying them alone; the
+   two engines' numbers and cache bytes side by side.
 5. training end to end: ``make_one_step`` over ``GPTModel`` at GPT-2-small
    width, b=8, s=1024, bf16, ``LossScaler()`` and
    ``fused_adam(learning_rate=1e-4)``, ids and labels from
@@ -78,7 +91,13 @@ exits non-zero before the last line):
    (with dropout too, the same masks on both paths), the fused model
    against the materialized one on the same weights, and
    ``"selective"`` and ``"full"`` recompute against none with dropout on
-   the kernel path (and whether bit for bit).
+   the kernel path (and whether bit for bit). Then the scores path
+   (``benchmarks/profile_gpt.py:401-425`` row 10: dropout 0.1,
+   ``fused_attention_dropout=False``, ``softmax_use_pallas=True``, the
+   materialized head): the same window and profile with K10 = K11 = 12,
+   K3 = K4 = 25 and no attention kernel launched per step, side by side
+   with the in-kernel dropout window, and its kernel path against its
+   plain path at b=2 on the same masks.
 6. one JSON line per kernel, the ``{"kernels": [...]}`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -128,6 +147,16 @@ XENT_LOSS_L2_TOL = 1e-6
 # flip of a bf16 intermediate moves a gradient by ~2^-8 of its scale.
 TRAIN_LOSS_BAND = 2e-2
 TRAIN_GRAD_BAND = 5e-2
+# K10 and K11 against their plain versions (fp32 inside both; the outputs
+# round to bf16 from values a few fp32 ulps apart): relative L2 (the card
+# tests' bf16 band; an H100 measured at most 7.9e-5 there) and, for K10's
+# probabilities (at most 1), one bf16 ulp at 1
+SOFTMAX_L2_TOL = 5e-4
+SOFTMAX_Y_TOL = 2.0 ** -8
+# K2q against its plain version (fp32 inside both, the same dequantized
+# products in another order): relative L2 (the card tests' bf16 band; an
+# H100 measured at most 1.8e-5 there, in fp16)
+K2Q_L2_TOL = 1e-4
 TRAIN = dict(batch=8, seq=1024, warmup=2, timed=5, lr=1e-4)
 
 # the serving configuration the repo benchmarks (GPT-2 small)
@@ -334,9 +363,249 @@ def phase_decode_kernel(dev, flush):
         "bytes": nbytes, "flops": flops}
 
 
-def phase_end_to_end(dev):
-    """Serve the synthetic trace through ServingEngine; returns the
-    kernels' launch counts over that run and the run's numbers."""
+def phase_int8_decode_kernel(dev, flush):
+    """K2q at the serving shape over the int8 KV tier: the K2 phase's
+    lengths and fragmented page tables, the pages quantized by the tier's
+    own codec under per-(page, head) bf16 scales. Held against its plain
+    version, against K2 over the same pages before quantization (within
+    the int8 tier's band), and a length-0 slot must give exact zeros."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import decode_attention, decode_attention_cuda
+    from apex_tpu_torch.serving import kv_tier
+
+    B, H, D, PS, P, MAXP = 8, 12, 64, 128, 72, 8
+    lengths_l = [0, 1, 127, 128, 129, 1024, 513, 300]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q = torch.randn(B, H, D, generator=gen, device=dev).to(torch.bfloat16)
+    kp, vp = (torch.randn(H, P, PS, D, generator=gen, device=dev)
+              .to(torch.bfloat16) for _ in range(2))
+    scales = [(t.float().abs().amax(dim=(-2, -1)) / kv_tier.QMAX).to(
+        torch.bfloat16) for t in (kp, vp)]
+    k8, v8 = (kv_tier.quantize(t, sc) for t, sc in zip((kp, vp), scales))
+    ks, vs = scales
+    perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(3))
+    pt = torch.zeros(B, MAXP, dtype=torch.int32)
+    nxt = 0
+    for i, n in enumerate(lengths_l):
+        for j in range(-(-n // PS)):
+            pt[i, j] = int(perm[nxt]) + 1
+            nxt += 1
+    pt = pt.to(dev)
+    lengths = torch.tensor(lengths_l, dtype=torch.int32, device=dev)
+    scale = D ** -0.5
+    tol = 2e-2  # fp32 inside both; bf16 output, one ulp at |o| < 4
+    # the int8 tier against the unquantized pages: the JAX package's band
+    # for this comparison (tests/test_kv_tier.py:197, d = 64, unit-normal
+    # pages)
+    tier_band = 0.12
+    before = (decode_attention_cuda.decode_attention_quant.launches,
+              decode_attention_cuda.decode_attention.launches)
+    out = decode_attention_cuda.decode_attention_quant(
+        q, k8, v8, ks, vs, pt, lengths, sm_scale=scale)
+    if (decode_attention_cuda.decode_attention_quant.launches,
+            decode_attention_cuda.decode_attention.launches) \
+            != (before[0] + 1, before[1]):
+        raise AssertionError("int8 decode kernel launch was not counted")
+    ref = decode_attention.decode_attention_reference(q, k8, v8, pt, lengths,
+                                                      scale, ks, vs)
+    unq = decode_attention_cuda.decode_attention(q, kp, vp, pt, lengths,
+                                                 sm_scale=scale)
+    torch.cuda.synchronize()
+    err = _max_err(out, ref)
+    l2 = _rel_l2(out, ref)
+    tier_err = _max_err(out, unq)
+    _log(f"decode_attention_quant: max_abs_err {err:.3e} (tol {tol}), "
+         f"relative L2 {l2:.3e} (tol {K2Q_L2_TOL}); against K2 over the "
+         f"unquantized pages {tier_err:.3e} (band {tier_band})")
+    if err > tol or l2 > K2Q_L2_TOL or tier_err > tier_band:
+        raise AssertionError(f"int8 decode kernel disagrees: {err} > {tol}, "
+                             f"{l2} > {K2Q_L2_TOL} or {tier_err} > "
+                             f"{tier_band}")
+    if out[0].abs().max().item() != 0.0:
+        raise AssertionError("an inactive slot (length 0) must give 0")
+
+    spread = []
+    ms = _time_ms(lambda: decode_attention_cuda.decode_attention_quant(
+        q, k8, v8, ks, vs, pt, lengths, sm_scale=scale), flush,
+        spread=spread)
+    k2_ms = _time_ms(lambda: decode_attention_cuda.decode_attention(
+        q, kp, vp, pt, lengths, sm_scale=scale), flush)
+    plain_ms = _time_ms(lambda: decode_attention.decode_attention_reference(
+        q, k8, v8, pt, lengths, scale, ks, vs), flush)
+    # the yardstick attends over K/V gathered and dequantized beforehand
+    # (gather and dequantization excluded)
+    kd, vd = (kv_tier.dequantize(c, sc, torch.bfloat16)
+              for c, sc in ((k8, ks), (v8, vs)))
+    kg = kd[:, pt].permute(1, 0, 2, 3, 4).reshape(B, H, MAXP * PS, D)
+    vg = vd[:, pt].permute(1, 0, 2, 3, 4).reshape(B, H, MAXP * PS, D)
+    live = (torch.arange(MAXP * PS, device=dev)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+    lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+        q4, kg, vg, attn_mask=live, scale=scale), flush)
+    tokens = sum(lengths_l)
+    live_pages = sum(-(-n // PS) for n in lengths_l)
+    nbytes = (2 * tokens * H * D * 1 + 2 * live_pages * H * 2
+              + 2 * q.numel() * q.element_size()
+              + pt.numel() * 4 + lengths.numel() * 4)
+    flops = 6 * H * D * tokens          # QK^T, PV and the two dequantizations
+    bound_ms, bound_by = _bound(nbytes, flops)
+    return {
+        "name": "decode_attention_quant", "route": "cuda",
+        "source": "apex_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "apex_tpu/ops/decode_attention_pallas.py:163",
+        "shape": (f"q [{B},{H},{D}] bf16, int8 pages [{H},{P},{PS},{D}] "
+                  f"with bf16 scales [{H},{P}], lengths {lengths_l}"),
+        "max_abs_err": err, "tol": tol, "rel_l2": l2,
+        "rel_l2_tol": K2Q_L2_TOL, "vs_unquantized_max_abs_err": tier_err,
+        "vs_unquantized_band": tier_band, "ms": ms, "kernel_ms": ms,
+        "ms_spread": spread, "k2_ms_same_call": k2_ms, "plain_ms": plain_ms,
+        "library_ms": lib_ms,
+        "library": ("F.scaled_dot_product_attention over pre-gathered, "
+                    "pre-dequantized contiguous K/V (gather and "
+                    "dequantization excluded)"),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bytes": nbytes, "flops": flops}
+
+
+def phase_softmax_kernels(dev, flush):
+    """K10 and K11 at the scores path's training shape: x, g [8, 12, 1024,
+    1024] bf16 (scores of unit-normal q, k at head_dim 64 have a standard
+    deviation near 1; x is drawn at 3 to reach the far tail of exp), scale
+    2.0 (layer 2's query-key layer scaling). K10 causal (the main path),
+    with an explicit [8, 1, 1024, 1024] mask and with a key-padding [8, 1,
+    1, 1024] mask, K11 on K10's causal y; each against its plain version
+    by relative L2 (``SOFTMAX_L2_TOL``) and by the largest element error.
+    ``FusedScaleMaskSoftmax`` with the key-padding mask must launch K10
+    (it has no plain fallback on the card)."""
+    from apex_tpu_torch.ops import softmax, softmax_cuda
+    from apex_tpu_torch.transformer.enums import AttnMaskType
+    from apex_tpu_torch.transformer.functional import FusedScaleMaskSoftmax
+
+    B, H, S = TRAIN["batch"], 12, TRAIN["seq"]
+    gen = torch.Generator(device=dev).manual_seed(10)
+    x = (torch.randn(B, H, S, S, generator=gen, device=dev) * 3).to(
+        torch.bfloat16)
+    g = torch.randn(B, H, S, S, generator=gen, device=dev).to(torch.bfloat16)
+    mask = torch.rand(B, 1, S, S, generator=gen, device=dev) < 0.3
+    pad = torch.arange(S, device=dev)[None, None, None, :] >= torch.tensor(
+        [S - 97 * i for i in range(B)], device=dev)[:, None, None, None]
+    scale = 2.0
+    y = softmax_cuda.softmax_fwd(x, None, scale, True)
+    ym = softmax_cuda.softmax_fwd(x, mask, scale, False)
+    fused = FusedScaleMaskSoftmax(False, True, AttnMaskType.padding, True,
+                                  None, True, scale)
+    before = softmax_cuda.softmax_fwd.launches
+    yp = fused(x, pad)
+    if softmax_cuda.softmax_fwd.launches != before + 1:
+        raise AssertionError("FusedScaleMaskSoftmax with a key-padding mask "
+                             "did not launch K10")
+    dx = softmax_cuda.softmax_bwd(y, g, scale)
+    errs = {}
+    for name, out, ref_fn in (
+            ("causal", y, lambda: softmax.scaled_masked_softmax_reference(
+                x, None, scale, True)),
+            ("mask", ym, lambda: softmax.scaled_masked_softmax_reference(
+                x, mask, scale, False)),
+            ("key_padding", yp,
+             lambda: softmax.scaled_masked_softmax_reference(
+                 x, pad, scale, False)),
+            ("bwd", dx, lambda: softmax.scaled_masked_softmax_backward_reference(
+                y, g, scale))):
+        ref = ref_fn()
+        torch.cuda.synchronize()
+        # masked positions are exact zeros in y, and dx is zero wherever
+        # y is (elsewhere a tiny dx may round to 0 on one side only)
+        zero = (ref == 0) if name != "bwd" else (y == 0)
+        errs[name] = {"max_abs_err": _max_err(out, ref),
+                      "rel_l2": _rel_l2(out, ref),
+                      "zeros_agree": bool(torch.equal(out == 0, zero)
+                                          if name != "bwd"
+                                          else (out[zero] == 0).all())}
+        del ref, zero
+    _log(f"softmax kernels: {errs} (tol relative L2 {SOFTMAX_L2_TOL}, max "
+         f"|y diff| {SOFTMAX_Y_TOL})")
+    for name, e in errs.items():
+        if e["rel_l2"] > SOFTMAX_L2_TOL or not e["zeros_agree"] or (
+                name != "bwd" and e["max_abs_err"] > SOFTMAX_Y_TOL):
+            raise AssertionError(f"softmax kernel ({name}) disagrees with its "
+                                 f"plain version: {e}")
+    above = torch.arange(S, device=dev)[None, :] > torch.arange(
+        S, device=dev)[:, None]
+    if (y[..., above] != 0).any():
+        raise AssertionError("K10 left a nonzero above the diagonal")
+
+    spreads = [[], [], []]
+    fwd_ms = _time_ms(lambda: softmax_cuda.softmax_fwd(x, None, scale, True),
+                      flush, spread=spreads[0])
+    mask_ms = _time_ms(lambda: softmax_cuda.softmax_fwd(x, mask, scale,
+                                                        False), flush,
+                       spread=spreads[1])
+    bwd_ms = _time_ms(lambda: softmax_cuda.softmax_bwd(y, g, scale), flush,
+                      spread=spreads[2])
+    fwd_plain = _time_ms(lambda: softmax.scaled_masked_softmax_reference(
+        x, None, scale, True), flush, reps=5)
+    mask_plain = _time_ms(lambda: softmax.scaled_masked_softmax_reference(
+        x, mask, scale, False), flush, reps=5)
+    bwd_plain = _time_ms(
+        lambda: softmax.scaled_masked_softmax_backward_reference(y, g, scale),
+        flush, reps=5)
+    # yardsticks: torch.softmax over the fp32-upcast input with the causal
+    # mask already applied (masking excluded), and the softmax backward
+    # on the same y and g
+    xm = torch.where(above, float("-inf"), x.float() * scale)
+    fwd_lib = _time_ms(lambda: torch.softmax(xm, dim=-1), flush)
+    del xm
+    bwd_lib = _time_ms(lambda: torch._softmax_backward_data(
+        g, y, -1, torch.bfloat16), flush)
+    elems = B * H * S * S
+    live = B * H * S * (S + 1) // 2
+    # K10 causal reads only the live triangle of x (what this run's mask
+    # needs) and writes every y; K11 reads y and g and writes dx
+    fwd_bytes, mask_bytes = 2 * live + 2 * elems, 2 * elems + B * S * S + 2 * elems
+    bwd_bytes = 3 * 2 * elems
+    fwd_bound = _bound(fwd_bytes, 5 * live, FP32_FLOPS_PER_S)
+    mask_bound = _bound(mask_bytes, 5 * elems, FP32_FLOPS_PER_S)
+    bwd_bound = _bound(bwd_bytes, 4 * elems, FP32_FLOPS_PER_S)
+    common = {"route": "cuda", "source": "apex_tpu_torch/csrc/softmax.cu",
+              "shape": f"x, g [{B},{H},{S},{S}] bf16, scale {scale}",
+              "rel_l2_tol": SOFTMAX_L2_TOL}
+    return [
+        dict(common, name="softmax_fwd",
+             replaces="apex_tpu/ops/softmax_pallas.py:185",
+             mode="causal (the scores path's)", **errs["causal"],
+             tol=SOFTMAX_Y_TOL, ms=fwd_ms, kernel_ms=fwd_ms,
+             ms_spread=spreads[0], plain_ms=fwd_plain, library_ms=fwd_lib,
+             library=("torch.softmax over the fp32-upcast, pre-masked "
+                      "scores (masking excluded)"),
+             bound_ms=fwd_bound[0], bound_by=fwd_bound[1], bytes=fwd_bytes,
+             flops=5 * live,
+             mask_mode={"mask": f"[{B},1,{S},{S}] bool, 30% masked",
+                        **errs["mask"], "ms": mask_ms,
+                        "ms_spread": spreads[1], "plain_ms": mask_plain,
+                        "bound_ms": mask_bound[0],
+                        "bound_by": mask_bound[1], "bytes": mask_bytes},
+             key_padding_mode={"mask": f"[{B},1,1,{S}] bool, rows of "
+                               f"{S} to {S - 97 * (B - 1)} live keys",
+                               **errs["key_padding"]}),
+        dict(common, name="softmax_bwd",
+             replaces="apex_tpu/ops/softmax_pallas.py:212", **errs["bwd"],
+             ms=bwd_ms, kernel_ms=bwd_ms, ms_spread=spreads[2],
+             plain_ms=bwd_plain, library_ms=bwd_lib,
+             library="torch._softmax_backward_data on the same y and g",
+             bound_ms=bwd_bound[0], bound_by=bwd_bound[1], bytes=bwd_bytes,
+             flops=4 * elems)]
+
+
+def _cache_bytes(cache):
+    return sum(t.numel() * t.element_size() for t in cache.values())
+
+
+def phase_end_to_end(dev, kv_quant=False):
+    """Serve the synthetic trace through ServingEngine (over the int8 KV
+    tier with ``kv_quant``); returns the engine, the kernels' launch
+    counts over that run and the run's numbers."""
     from apex_tpu_torch.ops import attention_cuda, decode_attention_cuda
     from apex_tpu_torch.serving import (Request, ServingEngine,
                                         lifecycle, synthetic_trace)
@@ -344,9 +613,11 @@ def phase_end_to_end(dev):
 
     cfg = TransformerConfig(**MODEL)
     t0 = time.perf_counter()
-    engine = ServingEngine(cfg, seed=0, device=dev, **ENGINE)
+    engine = ServingEngine(cfg, seed=0, device=dev, kv_quant=kv_quant,
+                           **ENGINE)
     torch.cuda.synchronize()
-    _log(f"engine built in {time.perf_counter() - t0:.2f} s")
+    _log(f"engine (kv_quant={kv_quant}) built in "
+         f"{time.perf_counter() - t0:.2f} s")
     # warm-up (cuBLAS handles, allocator) on requests outside the trace
     engine.run_trace([Request(rid=10**6, prompt=[7] * 300, max_new_tokens=3),
                       Request(rid=10**6 + 1, prompt=[9] * 40,
@@ -356,8 +627,12 @@ def phase_end_to_end(dev):
     pending = sorted(reqs, key=lambda r: (r.arrival, r.rid))
     base = (engine.prefill_batches, engine.decode_steps,
             engine.tokens_generated, engine.tick)
-    attention_cuda.prefill_attention.launches = 0
-    decode_attention_cuda.decode_attention.launches = 0
+    counted = {"prefill_attention": attention_cuda.prefill_attention,
+               "decode_attention": decode_attention_cuda.decode_attention,
+               "decode_attention_quant":
+                   decode_attention_cuda.decode_attention_quant}
+    for fn in counted.values():
+        fn.launches = 0
     decode_round_s = []
     settled = len(engine.scheduler.completed)
     t0 = time.perf_counter()
@@ -372,8 +647,7 @@ def phase_end_to_end(dev):
             decode_round_s.append(time.perf_counter() - r0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1 = attention_cuda.prefill_attention.launches
-    k2 = decode_attention_cuda.decode_attention.launches
+    launches = {k: fn.launches for k, fn in counted.items()}
     prefills = engine.prefill_batches - base[0]
     decodes = engine.decode_steps - base[1]
     tokens = engine.tokens_generated - base[2]
@@ -387,17 +661,24 @@ def phase_end_to_end(dev):
     problems = engine.events.validate_order()
     if problems:
         raise AssertionError(f"lifecycle order: {problems[:5]}")
-    if k1 != prefills * cfg.num_layers or k2 != decodes * cfg.num_layers:
+    # int8 pages never reach K2, and bf16 pages never reach K2q
+    decode, idle = (("decode_attention_quant", "decode_attention")
+                    if kv_quant else
+                    ("decode_attention", "decode_attention_quant"))
+    want = {"prefill_attention": prefills * cfg.num_layers,
+            decode: decodes * cfg.num_layers, idle: 0}
+    if launches != want:
         raise AssertionError(
-            f"launch counts {k1}/{k2} != prefill_batches {prefills} x "
-            f"{cfg.num_layers} / decode_steps {decodes} x "
-            f"{cfg.num_layers}")
+            f"launch counts {launches} != {want} (prefill_batches "
+            f"{prefills}, decode_steps {decodes}, {cfg.num_layers} layers)")
+    if kv_quant and (engine.cache["k"][:, :, 0] != 0).any():
+        raise AssertionError("null page 0 of the int8 cache is not zero")
     lat = lifecycle.request_latencies(reqs)
     ttft = [x["ttft_s"] * 1e3 for x in lat if x["ttft_s"] is not None]
     tpot = [x["tpot_s"] * 1e3 for x in lat if x["tpot_s"] is not None]
     stats = {
-        "trace_id": trace_id, "requests": len(reqs), "tokens": tokens,
-        "wall_s": wall, "tokens_per_s": tokens / wall,
+        "kv_quant": kv_quant, "trace_id": trace_id, "requests": len(reqs),
+        "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
         "prefill_batches": prefills, "decode_steps": decodes,
         "decode_round_ms_mean": (1e3 * sum(decode_round_s)
                                  / max(len(decode_round_s), 1)),
@@ -405,9 +686,75 @@ def phase_end_to_end(dev):
         "ttft_p99_ms": lifecycle.percentile(ttft, 99),
         "tpot_p50_ms": lifecycle.percentile(tpot, 50),
         "device_dispatch_s": engine.device_dispatch_s,
+        "cache_bytes": _cache_bytes(engine.cache),
+        "kv_tier_rates": engine.kv_tier_rates(),
     }
     _log("end to end: " + json.dumps(stats))
-    return engine, {"prefill_attention": k1, "decode_attention": k2}
+    return engine, launches, stats
+
+
+def _device_launches(fn):
+    """Device kernels (and copies) that one call of ``fn`` launches, and
+    their device time (ms), from torch.profiler; None where the profiler
+    saw no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n, us = 0, 0.0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA \
+                and not evt.is_user_annotation:
+            n += evt.count
+            us += evt.self_device_time_total
+    return (n, us / 1e3) if n else (None, None)
+
+
+def phase_codec_cost(engine, flush):
+    """The int8 codec's device cost per serving round: the cache writes of
+    one decode step (8 lanes, every layer, K and V) and of one 512-token
+    prefill batch, replayed alone on the engine's cache (each wrapped
+    call is the model's own), counted and timed."""
+    from apex_tpu_torch.serving import kv_tier
+
+    cfg, dev = engine.cfg, engine.device
+    L, H, D = cfg.num_layers, cfg.num_attention_heads, cfg.head_dim
+    B, S, ps = ENGINE["num_slots"], ENGINE["prefill_len"], ENGINE["page_size"]
+    gen = torch.Generator(device=dev).manual_seed(12)
+    cache = engine.cache
+    val = torch.randn(B, H, D, generator=gen, device=dev).to(torch.bfloat16)
+    write_page = torch.arange(1, B + 1, device=dev)
+    write_page[-2:] = 0                            # two inactive lanes
+    write_off = torch.tensor([5, 0, 127, 64, 1, 9, 0, 0], device=dev)
+    rows = torch.randn(S, H, D, generator=gen, device=dev).to(torch.bfloat16)
+    dest_page = (torch.arange(S, device=dev) // ps) + 10
+    dest_off = torch.arange(S, device=dev) % ps
+    keep = torch.ones(engine.num_pages, device=dev)
+    keep[10:10 + S // ps] = 0.0
+
+    def decode_writes():
+        for i in range(L):
+            for part in ("k", "v"):
+                kv_tier.decode_scatter_quant(cache, i, part, val, write_page,
+                                             write_off)
+
+    def prefill_writes():
+        for i in range(L):
+            for part in ("k", "v"):
+                kv_tier.prefill_scatter_quant(cache, i, part, rows, dest_page,
+                                              dest_off, keep)
+
+    out = {}
+    for name, fn in (("decode_step", decode_writes),
+                     ("prefill_batch", prefill_writes)):
+        launches, prof_ms = _device_launches(fn)
+        out[name] = {"launches": launches, "profiler_device_ms": prof_ms,
+                     "ms": _time_ms(fn, flush, reps=10)}
+    _log("int8 codec per round (replayed alone): " + json.dumps(out))
+    return out
 
 
 def phase_device_share(engine):
@@ -428,7 +775,10 @@ def phase_device_share(engine):
 
 def phase_paths_agree(engine, dev):
     """One packed prefill batch + 4 decode steps through the kernel path
-    and the plain path on the card; logits within the bf16 band."""
+    and the plain path on the card; logits within the bf16 band (over the
+    int8 KV tier when the engine serves it: the codec is the same plain
+    PyTorch on both paths, the decode attention K2q or its plain
+    version). Returns the kernel path's logits."""
     from apex_tpu_torch.ops import attention, decode_attention
     from apex_tpu_torch.serving import init_cache
     from apex_tpu_torch.serving import model as smodel
@@ -459,14 +809,21 @@ def phase_paths_agree(engine, dev):
         return attention._dense_attention(q, k, v, causal, sm_scale,
                                           segment_ids)
 
-    def plain_decode(q, kp, vp, page_table, lengths, *, sm_scale):
+    def plain_decode(q, kp, vp, page_table, lengths, *, sm_scale,
+                     k_scale=None, v_scale=None):
         return decode_attention.decode_attention_reference(
-            q, kp, vp, page_table, lengths, sm_scale)
+            q, kp, vp, page_table, lengths, sm_scale, k_scale, v_scale)
+
+    quant = engine.kv_quant
+    # every page of this fresh cache is fresh: no scale survives
+    keep = torch.zeros(72, device=dev) if quant else None
 
     def run(tokens_fed):
         cache = init_cache(cfg.num_layers, cfg.num_attention_heads, 72, ps,
-                           cfg.head_dim, torch.bfloat16, device=dev)
-        cache, logits = smodel.prefill(engine.params, cache, *args, cfg=cfg)
+                           cfg.head_dim, torch.bfloat16, kv_quant=quant,
+                           device=dev)
+        cache, logits = smodel.prefill(engine.params, cache, *args, keep,
+                                       cfg=cfg)
         out = [logits.float()]
         lengths = torch.tensor(list(lens) + [0] * (slots - len(lens)),
                                device=dev)
@@ -492,11 +849,12 @@ def phase_paths_agree(engine, dev):
         worst = max(worst, (a[live] - b[live]).abs().max().item())
         agree += int((a[live].argmax(-1) == b[live].argmax(-1)).sum())
         total += len(lens)
-    _log(f"kernel vs plain path on the card: max |logit diff| {worst:.4f} "
-         f"(band {LOGITS_BAND}), argmax agreement {agree}/{total}")
+    _log(f"kernel vs plain path on the card (kv_quant={quant}): max |logit "
+         f"diff| {worst:.4f} (band {LOGITS_BAND}), argmax agreement "
+         f"{agree}/{total}")
     if not worst <= LOGITS_BAND:
         raise AssertionError(f"kernel path logits off by {worst}")
-    return worst, agree / total
+    return kernel_logits
 
 
 def phase_layer_norm_kernels(dev, flush):
@@ -997,7 +1355,7 @@ def phase_xent_kernels(dev, flush):
 
 def _training_counts():
     from apex_tpu_torch.ops import (attention_bwd_cuda, attention_cuda,
-                                    layer_norm_cuda, xent_cuda)
+                                    layer_norm_cuda, softmax_cuda, xent_cuda)
 
     return {"prefill_attention": attention_cuda.prefill_attention,
             "attention_bwd_dq": attention_bwd_cuda.attention_bwd_dq,
@@ -1012,29 +1370,36 @@ def _training_counts():
             "layer_norm_bwd": layer_norm_cuda.layer_norm_bwd,
             "xent_fwd": xent_cuda.xent_fwd,
             "xent_bwd_dx": xent_cuda.xent_bwd_dx,
-            "xent_bwd_de": xent_cuda.xent_bwd_de}
+            "xent_bwd_de": xent_cuda.xent_bwd_de,
+            "softmax_fwd": softmax_cuda.softmax_fwd,
+            "softmax_bwd": softmax_cuda.softmax_bwd}
 
 
-def _train_cfg(fused=False, dropout=False, recompute="none"):
+def _train_cfg(fused=False, dropout=False, recompute="none", scores=False):
     """GPT-2-small for training; ``dropout`` sets GPT-2's published hidden
-    and attention dropout (``benchmarks/profile_gpt.py:401-425``)."""
+    and attention dropout (``benchmarks/profile_gpt.py:401-425``), on the
+    in-kernel route or, with ``scores``, on the scores path (the profile's
+    row 10: ``fused_attention_dropout=False``, ``softmax_use_pallas=True``,
+    the materialized head)."""
     from apex_tpu_torch.transformer.testing import TransformerConfig
 
     drop = DROPOUT_P if dropout else 0.0
     return TransformerConfig(**dict(MODEL, hidden_dropout=drop,
                                     attention_dropout=drop),
                              fused_lm_head=fused,
-                             recompute_granularity=recompute)
+                             recompute_granularity=recompute,
+                             fused_attention_dropout=not scores,
+                             softmax_use_pallas=True)
 
 
 def _train_setup(dev, batch, seed=0, fused=False, dropout=False,
-                 recompute="none"):
+                 recompute="none", scores=False):
     from apex_tpu_torch.amp import LossScaler
     from apex_tpu_torch.optimizers import fused_adam
     from apex_tpu_torch.train_step import make_one_step
     from apex_tpu_torch.transformer.testing import GPTModel
 
-    cfg = _train_cfg(fused, dropout, recompute)
+    cfg = _train_cfg(fused, dropout, recompute, scores)
     model = GPTModel(cfg, device=dev, seed=seed)
     scaler, opt = LossScaler(), fused_adam(learning_rate=TRAIN["lr"])
     rs = np.random.RandomState(0)                 # as bench.py:433-435
@@ -1051,9 +1416,10 @@ def _train_setup(dev, batch, seed=0, fused=False, dropout=False,
             scaler.init(dev), ids, pos, labels)
 
 
-def _want_launches(fused, dropout, recompute):
+def _want_launches(fused, dropout, recompute, scores=False):
     """Launches per step of each counted kernel: the forward's attention
-    and layer norms once more for what the backward recomputes."""
+    (or, on the scores path, softmax) and layer norms once more for what
+    the backward recomputes."""
     layers = MODEL["num_layers"]
     again = {"full": 1, "selective": 1}.get(recompute, 0)
     ln_again = 2 * layers if recompute == "full" else 0
@@ -1061,33 +1427,39 @@ def _want_launches(fused, dropout, recompute):
                  "attention_bwd_dkv_dropout")) if dropout else
                 ("prefill_attention", ("attention_bwd_dq",
                                        "attention_bwd_dkv")))
+    if scores:
+        fwd, bwd = "softmax_fwd", ("softmax_bwd",)
     want = dict.fromkeys(_training_counts(), 0)
-    want.update({fwd: layers * (1 + again), bwd[0]: layers, bwd[1]: layers,
+    want.update({fwd: layers * (1 + again),
                  "layer_norm_fwd": 2 * layers + 1 + ln_again,
                  "layer_norm_bwd": 2 * layers + 1})
+    want.update(dict.fromkeys(bwd, layers))
     head = int(fused)
     want.update(xent_fwd=head, xent_bwd_dx=head, xent_bwd_de=head)
     return want
 
 
-def phase_training(dev, card, fused, dropout=False, recompute="none"):
+def phase_training(dev, card, fused, dropout=False, recompute="none",
+                   scores=False):
     """The training main path with the materialized (``fused=False``) or
     the fused LM head, with or without dropout (0.1, drawn from a seeded
-    generator) and recompute: warm-up, the timed window with the launch
-    counts and the materialized cross entropy's calls read around it
-    alone, the loss check after the window."""
+    generator; in-kernel or, with ``scores``, on the scores path) and
+    recompute: warm-up, the timed window with the launch counts and the
+    materialized cross entropy's calls read around it alone, the loss
+    check after the window."""
     from apex_tpu_torch.transformer.testing import standalone_transformer_lm
 
     b, s = TRAIN["batch"], TRAIN["seq"]
     t0 = time.perf_counter()
     (model, scaler, opt, step, opt_state, ss, ids, pos,
      labels) = _train_setup(dev, b, fused=fused, dropout=dropout,
-                            recompute=recompute)
+                            recompute=recompute, scores=scores)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     _log(f"GPTModel (fused_lm_head={fused}, dropout="
-         f"{DROPOUT_P if dropout else 0.0}, recompute={recompute}) built in "
-         f"{time.perf_counter() - t0:.2f} s: {n_params} parameters")
+         f"{DROPOUT_P if dropout else 0.0}, recompute={recompute}, scores "
+         f"path={scores}) built in {time.perf_counter() - t0:.2f} s: "
+         f"{n_params} parameters")
     losses = []
     for _ in range(TRAIN["warmup"]):
         opt_state, ss, loss = step(opt_state, ss, ids, pos, labels)
@@ -1118,7 +1490,8 @@ def phase_training(dev, card, fused, dropout=False, recompute="none"):
     step_ms = wall / TRAIN["timed"] * 1e3
     stats = {"card": card, "fused_lm_head": fused,
              "dropout": DROPOUT_P if dropout else 0.0,
-             "recompute_granularity": recompute, "batch": b, "seq": s,
+             "recompute_granularity": recompute, "scores_path": scores,
+             "batch": b, "seq": s,
              "steps_timed": TRAIN["timed"],
              "step_ms": step_ms, "tokens_per_s": b * s / (step_ms / 1e3),
              "mfu": 6 * n_params * b * s / (step_ms / 1e3) / BF16_FLOPS_PER_S,
@@ -1131,7 +1504,7 @@ def phase_training(dev, card, fused, dropout=False, recompute="none"):
     if not all(np.isfinite(vals)) or not vals[-1] < vals[0]:
         raise AssertionError(f"training loss not finite and falling: {vals}")
     head = int(fused)
-    want = _want_launches(fused, dropout, recompute)
+    want = _want_launches(fused, dropout, recompute, scores)
     for k, per_step in want.items():
         if launches[k] != per_step * TRAIN["timed"]:
             raise AssertionError(f"{k}: {launches[k]} launches in "
@@ -1217,14 +1590,16 @@ def _compare_steps(what, a, b):
     return dloss, worst
 
 
-def phase_training_paths_agree(dev, fused, dropout=False):
+def phase_training_paths_agree(dev, fused, dropout=False, scores=False):
     """One step's loss and every gradient at b=2 through the kernel path
     and the plain path on the card (K1, K3-K6 and, with the fused head,
-    K7-K9, with dropout K1d, K5d and K6d, patched to their plain
-    versions); with dropout both paths draw the same masks and seeds."""
+    K7-K9, with dropout K1d, K5d and K6d, on the scores path K10 and K11,
+    patched to their plain versions); with dropout both paths draw the
+    same masks and seeds."""
     from apex_tpu_torch.ops import (attention, attention_bwd_cuda,
                                     attention_cuda, layer_norm,
-                                    layer_norm_cuda, xent, xent_cuda)
+                                    layer_norm_cuda, softmax, softmax_cuda,
+                                    xent, xent_cuda)
 
     def plain_fwd(q, k, v, *, causal, sm_scale, segment_ids=None):
         return attention._dense_attention(q, k, v, causal, sm_scale,
@@ -1251,7 +1626,7 @@ def phase_training_paths_agree(dev, fused, dropout=False):
         return dx, dw[None], db[None]
 
     model, _, _, _, _, _, ids, pos, labels = _train_setup(
-        dev, 2, seed=1, fused=fused, dropout=dropout)
+        dev, 2, seed=1, fused=fused, dropout=dropout, scores=scores)
     seed = 21 if dropout else None
     counts = _training_counts()
     for fn in counts.values():
@@ -1274,14 +1649,19 @@ def phase_training_paths_agree(dev, fused, dropout=False):
             mock.patch.object(xent_cuda, "xent_bwd_dx",
                               xent.linear_cross_entropy_dx), \
             mock.patch.object(xent_cuda, "xent_bwd_de",
-                              xent.linear_cross_entropy_de):
+                              xent.linear_cross_entropy_de), \
+            mock.patch.object(softmax_cuda, "softmax_fwd",
+                              softmax.scaled_masked_softmax_reference), \
+            mock.patch.object(softmax_cuda, "softmax_bwd",
+                              softmax.scaled_masked_softmax_backward_reference):
         plain = _step_grads(model, ids, pos, labels, seed)
-    want = _want_launches(fused, dropout, "none")
+    want = _want_launches(fused, dropout, "none", scores)
     if kernel_launches != want:
         raise AssertionError(f"the kernel path's step launched "
                              f"{kernel_launches}, want {want}")
     what = ("fused" if fused else "materialized") + " head" + (
-        f", dropout {DROPOUT_P}" if dropout else "")
+        f", dropout {DROPOUT_P}" if dropout else "") + (
+        ", scores path" if scores else "")
     return _compare_steps(f"training kernel vs plain path on the card, "
                           f"{what}", kernel, plain)
 
@@ -1336,6 +1716,8 @@ def _kind(name):
         return "decode_attention"
     if "layer_norm_" in name:
         return "layer_norm"
+    if "softmax_fwd_kernel" in name or "softmax_bwd_kernel" in name:
+        return "softmax"
     if any(w in low for w in ("gemm", "gemv", "cutlass", "xmma", "nvjet",
                               "sm90_")):
         return "matmul"
@@ -1389,7 +1771,8 @@ def phase_training_profile(state):
             opt_state, ss, _ = step(opt_state, ss, ids, pos, labels)
 
     return _profile(two_steps, ("attention_fwd", "attention_bwd",
-                                "layer_norm", "lm_head", "matmul", "other"))
+                                "softmax", "layer_norm", "lm_head", "matmul",
+                                "other"))
 
 
 def main():
@@ -1432,18 +1815,37 @@ def main():
     rows += phase_dropout_kernels(dev, flush)
     mask_check = phase_dropout_mask_exact(dev)
     rows += phase_xent_kernels(dev, flush)
-    del flush
+    rows.append(phase_int8_decode_kernel(dev, flush))
+    rows += phase_softmax_kernels(dev, flush)
     torch.cuda.empty_cache()
 
-    engine, launches = phase_end_to_end(dev)
-    phase_paths_agree(engine, dev)
-    phase_device_share(engine)
-    del engine
+    # serving over bf16 pages, then over the int8 KV tier (this slice's
+    # serving path) with the same 72 pages, each engine on its own
+    launches_by, serving, logits = {}, {}, {}
+    for quant in (False, True):
+        engine, counts, serving[quant] = phase_end_to_end(dev, kv_quant=quant)
+        launches_by["serving_int8" if quant else "serving"] = counts
+        logits[quant] = phase_paths_agree(engine, dev)
+        serving[quant]["profile"] = phase_device_share(engine)
+        if quant:
+            serving[quant]["codec"] = phase_codec_cost(engine, flush)
+        del engine
+        torch.cuda.empty_cache()
+    tier = max((a - b).abs().max().item()
+               for a, b in zip(logits[True], logits[False]))
+    side = {k: {"bf16": serving[False][k], "int8": serving[True][k]}
+            for k in ("tokens_per_s", "decode_round_ms_mean", "ttft_p50_ms",
+                      "ttft_p99_ms", "tpot_p50_ms", "cache_bytes")}
+    side["int8_vs_bf16_max_logit_diff"] = tier
+    _log("serving, bf16 vs int8 KV cache: " + json.dumps(side))
+    if not serving[True]["cache_bytes"] < serving[False]["cache_bytes"]:
+        raise AssertionError("the int8 cache is not smaller")
+    del flush, logits
     torch.cuda.empty_cache()
 
     # the materialized head, then the fused one (this slice's main path),
     # each window on its own so that its peak memory is its own
-    windows, launches_by = {}, {"serving": launches}
+    windows = {}
     for fused in (False, True):
         state, counts, windows[fused] = phase_training(dev, smi, fused)
         launches_by["training_fused" if fused else "training"] = counts
@@ -1484,9 +1886,24 @@ def main():
         raise AssertionError(f"full recompute does not lower the peak "
                              f"memory: {side['peak_mem_gb']}")
 
+    # the scores path (profile_gpt.py row 10): the same recipe with
+    # fused_attention_dropout=False, K10/K11 between cuBLAS batched matmuls
+    state, counts, scores_window = phase_training(
+        dev, smi, False, dropout=True, scores=True)
+    launches_by["training_scores"] = counts
+    scores_window["profile"] = phase_training_profile(state)
+    del state
+    torch.cuda.empty_cache()
+    side = {k: {"in-kernel dropout": drop_windows["none"][k],
+                "scores path": scores_window[k]}
+            for k in ("step_ms", "tokens_per_s", "mfu", "peak_mem_gb")}
+    _log("training with dropout 0.1, in-kernel route vs scores path: "
+         + json.dumps(side))
+
     phase_training_paths_agree(dev, fused=False)
     phase_training_paths_agree(dev, fused=True)
     phase_training_paths_agree(dev, fused=False, dropout=True)
+    phase_training_paths_agree(dev, fused=False, dropout=True, scores=True)
     phase_fused_vs_materialized(dev)
     recompute_agree = phase_recompute_agree(dev)
     _log("dropout checks: " + json.dumps({"mask": mask_check,
@@ -1496,11 +1913,15 @@ def main():
         name = row["name"]
         by_path = {path: counts[name] for path, counts in launches_by.items()
                    if name in counts}
-        # the slice's own path: the dropout training window for the
-        # dropout variants, the fused training window for the other
-        # training kernels; K2 runs only in serving
-        main = ("training_dropout" if name.endswith("_dropout")
-                else "training_fused")
+        # the kernel's own path: the int8 serving run for K2q, the scores
+        # window for K10/K11, the dropout training window for the dropout
+        # variants, the fused training window for the other training
+        # kernels; K2 runs only in serving
+        main = {"decode_attention_quant": "serving_int8",
+                "softmax_fwd": "training_scores",
+                "softmax_bwd": "training_scores"}.get(
+            name, "training_dropout" if name.endswith("_dropout")
+            else "training_fused")
         row["launches"] = by_path.get(main, by_path.get("serving", 0))
         row["launches_by_path"] = by_path
         if row["launches"] <= 0:

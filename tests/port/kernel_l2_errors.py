@@ -1,11 +1,14 @@
 """Relative L2 error, ||kernel - plain|| / ||plain||, of every case the
 card tests run for K1 (forward), K3/K4 (layer norm), K5/K6 (attention
-backward), K1d and K5d/K6d (the same with dropout) and K7-K9 (the fused
-LM head: loss and lse, dX, dE), per dtype. It prints one line per
-attention and LM-head case and the worst value per kernel and dtype: the
-numbers ``L2_TOL``, ``DROPOUT_L2_TOL``, ``XENT_L2_TOL`` and
-``XENT_LOSS_TOL`` in ``test_torch_kernels_cuda.py`` are set from (for K7
-the largest |loss diff| over max(1, |loss|)). Needs a CUDA card:
+backward), K1d and K5d/K6d (the same with dropout), K7-K9 (the fused
+LM head: loss and lse, dX, dE), K2q (decode over int8 pages) and K10/K11
+(the fused softmax, forward and backward), per dtype. It prints one line
+per attention, LM-head, int8-decode and softmax case and the worst value
+per kernel and dtype: the numbers ``L2_TOL``, ``DROPOUT_L2_TOL``,
+``XENT_L2_TOL``, ``XENT_LOSS_TOL`` and ``SOFTMAX_L2_TOL`` in
+``test_torch_kernels_cuda.py`` are set from (for K7 the largest |loss
+diff| over max(1, |loss|); for K10 also the largest |y diff|, which
+``SOFTMAX_TOL`` bounds). Needs a CUDA card:
 
     python3 tests/port/kernel_l2_errors.py
 """
@@ -23,6 +26,9 @@ import test_torch_kernels_cuda as cases  # noqa: E402
 from apex_tpu_torch.ops import attention, attention_bwd_cuda  # noqa: E402
 from apex_tpu_torch.ops import attention_cuda, layer_norm  # noqa: E402
 from apex_tpu_torch.ops import layer_norm_cuda, xent, xent_cuda  # noqa: E402
+from apex_tpu_torch.ops import decode_attention  # noqa: E402
+from apex_tpu_torch.ops import decode_attention_cuda  # noqa: E402
+from apex_tpu_torch.ops import softmax, softmax_cuda  # noqa: E402
 
 
 def _l2(out, ref):
@@ -115,6 +121,43 @@ def main():
                       f"{bwd[0]:.3e}, K9 de {bwd[1]:.3e}")
                 note("K7", dtype, fwd)
                 note("K8/K9", dtype, max(bwd))
+        for d in (64, 128):
+            for ps in (16, 128):
+                gen = torch.Generator(device=dev).manual_seed(3)
+                h, pages, b = 4, 26, 6
+                q = cases._randn(gen, b, h, d, dtype=tdt, dev=dev)
+                (k8, ks, _), (v8, vs, _) = (
+                    cases._quant_pages(gen, h, pages, ps, d, dev)
+                    for _ in range(2))
+                pt = torch.arange(1, 1 + b * 4, dtype=torch.int32,
+                                  device=dev).reshape(b, 4)
+                lengths = torch.tensor([1, ps - 1, ps + 1, 2 * ps, 3 * ps + 2,
+                                        4 * ps], dtype=torch.int32,
+                                       device=dev)
+                out = decode_attention_cuda.decode_attention_quant(
+                    q, k8, v8, ks, vs, pt, lengths, sm_scale=d ** -0.5)
+                ref = decode_attention.decode_attention_reference(
+                    q, k8, v8, pt, lengths, d ** -0.5, ks, vs)
+                err = _l2(out, ref)
+                print(f"int8 decode {dtype} d={d} ps={ps}: K2q {err:.3e}")
+                note("K2q", dtype, err)
+        for shape in cases.SOFTMAX_SHAPES:
+            for case in cases.SOFTMAX_CASES:
+                x, g, mask, causal = cases._softmax_case(dev, tdt, shape,
+                                                         case)
+                y = softmax_cuda.softmax_fwd(x, mask, 0.37, causal)
+                dx = softmax_cuda.softmax_bwd(y, g, 0.37)
+                ry = softmax.scaled_masked_softmax_reference(x, mask, 0.37,
+                                                             causal)
+                rdx = softmax.scaled_masked_softmax_backward_reference(
+                    y, g, 0.37)
+                ymax = (y.float() - ry.float()).abs().max().item()
+                fwd, bwd = _l2(y, ry), _l2(dx, rdx)
+                print(f"softmax {dtype} {shape} {case}: K10 {fwd:.3e} (max "
+                      f"|y diff| {ymax:.3e}), K11 {bwd:.3e}")
+                note("K10", dtype, fwd)
+                note("K10 max |y diff|", dtype, ymax)
+                note("K11", dtype, bwd)
     for (kernel, dtype), value in sorted(worst.items()):
         print(f"worst {kernel} {dtype}: {value:.3e}")
 

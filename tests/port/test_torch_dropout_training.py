@@ -390,11 +390,18 @@ def test_model_refuses_dropout_it_cannot_draw_or_route(jax_tree):
     model = training._torch_model(jax_tree, kw=KW)
     with pytest.raises(ValueError, match="dropout_generator"):
         model(ids, pos, None, labels, deterministic=False)
+    # fused_attention_dropout=False routes to the scores path (its parity
+    # is in test_torch_scores_path_training.py); an explicit mask is the
+    # route still refused
     scores = GPTModel(TConfig(**dict(KW, fused_attention_dropout=False)),
                       device="cpu")
-    with pytest.raises(ValueError, match="scores path"):
-        scores(ids, pos, None, labels, deterministic=False,
-               dropout_generator=torch.Generator())
+    loss = scores(ids, pos, None, labels, deterministic=False,
+                  dropout_generator=torch.Generator().manual_seed(0))
+    assert torch.isfinite(loss).all()
+    with pytest.raises(ValueError, match="mask"):
+        scores(ids, pos, torch.zeros(B, 1, S, S, dtype=torch.bool), labels,
+               deterministic=False,
+               dropout_generator=torch.Generator().manual_seed(0))
     # deterministic: no dropout, no generator needed, none drawn
     gen = torch.Generator().manual_seed(0)
     state = gen.get_state()

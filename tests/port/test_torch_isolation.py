@@ -62,6 +62,11 @@ def test_importing_the_port_loads_no_jax_and_no_apex_tpu():
     assert "apex_tpu_torch.serving.engine" in mods and "chip_smoke" in mods
     assert "apex_tpu_torch.train_step" in mods
     assert "apex_tpu_torch.utils" in mods
+    for mod in ("apex_tpu_torch.serving.kv_tier", "apex_tpu_torch.ops.softmax",
+                "apex_tpu_torch.ops.softmax_cuda",
+                "apex_tpu_torch.transformer.enums",
+                "apex_tpu_torch.transformer.functional.fused_softmax"):
+        assert mod in mods, mod
 
 
 def test_no_source_imports_jax_or_apex_tpu():
@@ -144,6 +149,39 @@ def test_dropout_training_defaults_to_cuda_and_runs_on_the_cpu_if_asked(
     state, ss, loss = step(opt.init(dict(model.named_parameters())),
                            LossScaler().init("cpu"), ids, pos, ids)
     assert loss.device.type == "cpu" and torch.isfinite(loss).item()
+
+
+def test_int8_serving_and_scores_path_default_to_cuda(monkeypatch):
+    """``ServingEngine(kv_quant=True)`` and the scores-path model are built
+    on ``cuda`` unless ``device="cpu"`` is asked for, and run there."""
+    from apex_tpu_torch.serving import Request, ServingEngine
+    from apex_tpu_torch.transformer.testing import (GPTModel,
+                                                    TransformerConfig)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TransformerConfig(hidden_size=64, num_layers=1,
+                            num_attention_heads=2, vocab_size=16,
+                            max_position_embeddings=32,
+                            fused_attention_dropout=False)
+    serve = dataclasses.replace(cfg, hidden_dropout=0.0,
+                                attention_dropout=0.0,
+                                apply_query_key_layer_scaling=False)
+    kw = dict(num_slots=2, page_size=8, num_pages=8, prefill_len=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(serve, kv_quant=True, **kw)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GPTModel(cfg)
+    engine = ServingEngine(serve, device="cpu", kv_quant=True, **kw)
+    assert engine.cache["k"].device.type == "cpu"
+    done = engine.run_trace([Request(rid=0, prompt=[1, 2, 3],
+                                     max_new_tokens=3)])
+    assert len(done[0].out_tokens) == 3
+    model = GPTModel(cfg, device="cpu")
+    ids = torch.zeros(2, 8, dtype=torch.long)
+    loss = model(ids, torch.arange(8)[None].expand(2, 8), None, ids,
+                 deterministic=False,
+                 dropout_generator=torch.Generator().manual_seed(0))
+    assert loss.device.type == "cpu" and torch.isfinite(loss).all()
 
 
 def test_chip_smoke_refuses_to_run_without_cuda(monkeypatch):

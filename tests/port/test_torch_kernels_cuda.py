@@ -10,7 +10,14 @@ partial row tiles, widths that leave a partial column tile, with and
 without label smoothing; the dropout variants K1d, K5d and K6d at
 lengths that leave partial tiles (200), causal and segmented, with
 negative and extreme seeds, the mask recovered exactly from K1d's output
-with V the identity, and K5d/K6d repeatable bit for bit.
+with V the identity, and K5d/K6d repeatable bit for bit; K2q (decode over
+the int8 KV tier's pages) at K2's edge lengths with the scales of unowned
+pages poisoned with NaN, and against K2 over the dequantized pages; the
+fused softmax K10 (causal, a ``[b, 1, sq, sk]`` and a ``[b, np, sq, sk]``
+mask with a fully masked row, a key-padding ``[b, 1, 1, sk]`` mask, none)
+and K11 at row lengths that take the vector loads (128, 1024, 4096) and
+the element loads (200, 3000), and ``FusedScaleMaskSoftmax`` on the card
+launching K10 for a key-padding mask and raising for rows it cannot take.
 
 Marked ``cuda``: each test needs a card and skips without one. This
 file imports neither JAX nor the JAX package, so it runs on a GPU
@@ -43,7 +50,9 @@ import torch
 from apex_tpu_torch.ops import attention, attention_bwd_cuda, attention_cuda
 from apex_tpu_torch.ops import decode_attention, decode_attention_cuda
 from apex_tpu_torch.ops import layer_norm, layer_norm_cuda
+from apex_tpu_torch.ops import softmax, softmax_cuda
 from apex_tpu_torch.ops import xent, xent_cuda
+from apex_tpu_torch.serving import kv_tier
 
 pytestmark = pytest.mark.cuda
 
@@ -65,6 +74,26 @@ XENT_L2_TOL = {"bfloat16": 2e-3, "float16": 6e-4, "float32": 1.5e-5}
 # measured at most 1.0e-4 (bf16), 3.1e-5 (fp16) and 4.7e-7 (fp32)
 DROPOUT_L2_TOL = L2_TOL
 DROPOUT_SEEDS = [-123456789, 2 ** 31 - 1]
+# K10's probabilities (at most 1) against the plain version: fp32 inside
+# both, so the outputs round from values a few fp32 ulps apart: one ulp of
+# the output type at 1 (bf16 2^-8, fp16 2^-11), fp32 1e-6
+SOFTMAX_TOL = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -11,
+               "float32": 1e-6}
+# relative L2 of K10's y and K11's dx against the plain versions; on an
+# H100 (tests/port/kernel_l2_errors.py) these cases measured at most
+# 7.9e-5 (bf16), 1.9e-5 (fp16) and 7.4e-8 (fp32), and the largest |y
+# diff| 1.2e-4 (bf16), 3.1e-5 (fp16), 3.0e-8 (fp32)
+SOFTMAX_L2_TOL = {"bfloat16": 5e-4, "float16": 1.5e-4, "float32": 5e-7}
+# relative L2 of K2q's output against the plain version (fp32 inside both,
+# the same dequantized products in another order); on an H100
+# (tests/port/kernel_l2_errors.py) these cases measured at most 8.8e-9
+# (bf16), 1.8e-5 (fp16) and 1.7e-7 (fp32)
+K2Q_L2_TOL = {"bfloat16": 1e-4, "float16": 1e-4, "float32": 1e-6}
+# (b, np, sq, sk): sk 128, 1024 and 4096 take 16-byte vectors (the three
+# register buckets), 200 and 3000 element loads
+SOFTMAX_SHAPES = [(2, 3, 64, 128), (2, 2, 37, 200), (1, 3, 48, 1024),
+                  (1, 1, 24, 3000), (1, 2, 8, 4096)]
+SOFTMAX_CASES = ["causal", "mask_b1", "mask_bnp", "mask_pad", "none"]
 # (n, V, h) of the LM-head cases: n leaves partial 32-, 64- and 128-row
 # tiles; h = 1024 leaves a partial 768-column tile
 XENT_SHAPES = [(200, 384, 128), (1032, 1280, 256), (136, 1280, 1024),
@@ -538,3 +567,208 @@ def test_dropout_wrappers_refuse_bad_seeds_and_rates(dev):
     with pytest.raises(ValueError, match="dropout_p"):
         attention_bwd_cuda.attention_bwd_dropout(q, q, q, q, q, dropout_p=1.0,
                                                  dropout_seed=good, **kw)
+
+
+def _quant_pages(gen, h, pages, ps, d, dev):
+    """int8 codes and [h, pages] bf16 scales of random pages, quantized by
+    the tier's own codec, and the fp32 pages they dequantize to."""
+    raw = torch.randn(h, pages, ps, d, generator=gen, device=dev) * 2
+    scale = (raw.abs().amax(dim=(-2, -1)) / kv_tier.QMAX).to(torch.bfloat16)
+    codes = kv_tier.quantize(raw, scale)
+    return codes, scale, kv_tier.dequantize(codes, scale)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("ps", [16, 128])
+def test_int8_decode_kernel_matches_plain_and_reads_only_live_pages(
+        dev, dtype, d, ps):
+    torch_dtype, tol = DTYPES[dtype]
+    tol = min(tol, 2e-2)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    max_pages, h = 5, 4
+    lengths_l = [0, 1, ps - 1, ps, ps + 1, max_pages * ps, 3 * ps + 2]
+    b = len(lengths_l)
+    pages = 2 + sum(-(-n // ps) for n in lengths_l)
+    q = _randn(gen, b, h, d, dtype=torch_dtype, dev=dev)
+    (k8, ks, kf), (v8, vs, vf) = (_quant_pages(gen, h, pages, ps, d, dev)
+                                  for _ in range(2))
+    pt = torch.zeros(b, max_pages, dtype=torch.int32)
+    live = set()
+    nxt = pages - 1
+    for i, n in enumerate(lengths_l):
+        for j in range(-(-n // ps)):
+            pt[i, j] = nxt
+            live.add(nxt)
+            nxt -= 1
+    pt = pt.to(dev)
+    lengths = torch.tensor(lengths_l, dtype=torch.int32, device=dev)
+    ref = decode_attention.decode_attention_reference(
+        q, k8, v8, pt, lengths, d ** -0.5, ks, vs)
+    # K2q over int8 pages equals K2 over the pages they dequantize to
+    # (fp32 on both sides: the same products in another order)
+    same = decode_attention_cuda.decode_attention(
+        q.float(), kf, vf, pt, lengths, sm_scale=d ** -0.5)
+    # poison the scales of every page no slot holds live rows in (null
+    # page 0 too): the kernel must never read them
+    for p in set(range(pages)) - live:
+        ks[:, p] = float("nan")
+        vs[:, p] = float("nan")
+    before = (decode_attention_cuda.decode_attention_quant.launches,
+              decode_attention_cuda.decode_attention.launches)
+    out = decode_attention.decode_attention(q, k8, v8, pt, lengths,
+                                            sm_scale=d ** -0.5, k_scale=ks,
+                                            v_scale=vs)
+    assert (decode_attention_cuda.decode_attention_quant.launches,
+            decode_attention_cuda.decode_attention.launches) \
+        == (before[0] + 1, before[1])
+    torch.cuda.synchronize()
+    assert out.dtype == torch_dtype
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+    _close_l2(out, ref, dtype, K2Q_L2_TOL)
+    out32 = decode_attention_cuda.decode_attention_quant(
+        q.float(), k8, v8, ks, vs, pt, lengths, sm_scale=d ** -0.5)
+    torch.testing.assert_close(out32, same, atol=1e-5, rtol=0)
+    assert (out[0] == 0).all(), "an inactive slot gives 0"
+
+
+def test_int8_decode_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    q = torch.zeros(1, 2, 64, device=dev, dtype=torch.bfloat16)
+    pages = torch.zeros(2, 4, 16, 64, device=dev, dtype=torch.int8)
+    sc = torch.zeros(2, 4, device=dev, dtype=torch.bfloat16)
+    pt = torch.zeros(1, 4, dtype=torch.int32, device=dev)
+    ln = torch.ones(1, dtype=torch.int32, device=dev)
+    call = decode_attention_cuda.decode_attention_quant
+    with pytest.raises(ValueError, match="k_scale"):
+        call(q, pages, pages, sc.float(), sc, pt, ln, sm_scale=1.0)
+    with pytest.raises(ValueError, match="v_scale"):
+        call(q, pages, pages, sc, sc[:, :3].contiguous(), pt, ln,
+             sm_scale=1.0)
+    with pytest.raises(ValueError, match="dtypes"):
+        call(q, pages.to(torch.bfloat16), pages, sc, sc, pt, ln,
+             sm_scale=1.0)
+    with pytest.raises(ValueError, match="int8 pages without"):
+        decode_attention.decode_attention(q, pages, pages, pt, ln)
+    with pytest.raises(ValueError, match="pair"):
+        decode_attention.decode_attention(q, pages, pages, pt, ln,
+                                          k_scale=sc)
+
+
+def _softmax_case(dev, dtype, shape, case, seed=13):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, np_, sq, sk = shape
+    x = (torch.randn(b, np_, sq, sk, generator=gen, device=dev) * 3).to(
+        dtype)
+    g = _randn(gen, b, np_, sq, sk, dtype=dtype, dev=dev)
+    mask = None
+    if case == "mask_b1":
+        mask = torch.rand(b, 1, sq, sk, generator=gen, device=dev) < 0.3
+    elif case == "mask_bnp":
+        mask = torch.rand(b, np_, sq, sk, generator=gen, device=dev) < 0.3
+        mask[0, 0, 1] = True                      # a fully masked row
+    elif case == "mask_pad":                      # key padding [b, 1, 1, sk]
+        live = torch.tensor([max(1, sk - 37 * (i + 1)) for i in range(b)],
+                            device=dev)
+        mask = (torch.arange(sk, device=dev)[None, None, None, :]
+                >= live[:, None, None, None])
+    return x, g, mask, case == "causal"
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", SOFTMAX_SHAPES,
+                         ids=["x".join(map(str, s)) for s in SOFTMAX_SHAPES])
+@pytest.mark.parametrize("case", SOFTMAX_CASES)
+def test_softmax_kernels_match_plain(dev, dtype, shape, case):
+    torch_dtype, _ = DTYPES[dtype]
+    x, g, mask, causal = _softmax_case(dev, torch_dtype, shape, case)
+    scale = 0.37
+    before = (softmax_cuda.softmax_fwd.launches,
+              softmax_cuda.softmax_bwd.launches)
+    y = softmax_cuda.softmax_fwd(x, mask, scale, causal)
+    dx = softmax_cuda.softmax_bwd(y, g, scale)
+    assert (softmax_cuda.softmax_fwd.launches,
+            softmax_cuda.softmax_bwd.launches) \
+        == (before[0] + 1, before[1] + 1)
+    ry = softmax.scaled_masked_softmax_reference(x, mask, scale, causal)
+    rdx = softmax.scaled_masked_softmax_backward_reference(y, g, scale)
+    torch.cuda.synchronize()
+    assert y.dtype == dx.dtype == torch_dtype
+    assert torch.isfinite(y.float()).all() and torch.isfinite(dx.float()).all()
+    torch.testing.assert_close(y.float(), ry.float(),
+                               atol=SOFTMAX_TOL[dtype], rtol=0)
+    _close_l2(y, ry, dtype, SOFTMAX_L2_TOL)
+    _close_scaled(dx, rdx, 10 * SOFTMAX_TOL[dtype])
+    _close_l2(dx, rdx, dtype, SOFTMAX_L2_TOL)
+    # masked positions are exactly 0, on both sides
+    assert torch.equal(y == 0, ry == 0)
+    if case == "mask_bnp":
+        assert (y[0, 0, 1] == 0).all(), "a fully masked row gives 0"
+    if causal:
+        b, np_, sq, sk = shape
+        above = (torch.arange(sk, device=dev)[None, :]
+                 > torch.arange(sq, device=dev)[:, None])
+        assert (y[..., above] == 0).all()
+
+
+def test_softmax_autograd_runs_k10_k11_and_refuses_bad_input(dev):
+    x, g, mask, _ = _softmax_case(dev, torch.bfloat16, (2, 4, 64, 128),
+                                  "mask_b1")
+    x.requires_grad_()
+    before = (softmax_cuda.softmax_fwd.launches,
+              softmax_cuda.softmax_bwd.launches)
+    y = softmax.scaled_masked_softmax(x, mask, 2.0)
+    y.backward(g)
+    assert (softmax_cuda.softmax_fwd.launches,
+            softmax_cuda.softmax_bwd.launches) \
+        == (before[0] + 1, before[1] + 1)
+    assert x.grad.dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="sk"):
+        softmax_cuda.softmax_fwd(torch.zeros(1, 1, 2, 4097, device=dev),
+                                 None, 1.0, False)
+    with pytest.raises(ValueError, match="mask"):
+        softmax_cuda.softmax_fwd(x.detach(), mask.float(), 1.0, False)
+    with pytest.raises(ValueError, match="g must"):
+        softmax_cuda.softmax_bwd(y.detach(), g.float(), 1.0)
+
+
+def test_fused_scale_mask_softmax_launches_k10_or_raises_on_the_card(dev):
+    """With the kernel chosen, the module never takes the plain function
+    on a CUDA tensor: a key-padding mask launches K10 (and K11 in the
+    backward); rows over 4096 keys and a mask that does not broadcast
+    raise; ``use_pallas=False`` takes the plain function."""
+    from apex_tpu_torch.transformer.enums import AttnMaskType
+    from apex_tpu_torch.transformer.functional import (
+        FusedScaleMaskSoftmax, GenericFusedScaleMaskSoftmax)
+
+    x, g, mask, _ = _softmax_case(dev, torch.bfloat16, (2, 4, 64, 128),
+                                  "mask_pad")
+    fused = FusedScaleMaskSoftmax(False, True, AttnMaskType.padding, True,
+                                  None, True, 2.0)
+    assert fused.is_kernel_available(mask, *x.shape)
+    x.requires_grad_()
+    before = (softmax_cuda.softmax_fwd.launches,
+              softmax_cuda.softmax_bwd.launches)
+    y = fused(x, mask)
+    y.backward(g)
+    assert (softmax_cuda.softmax_fwd.launches,
+            softmax_cuda.softmax_bwd.launches) \
+        == (before[0] + 1, before[1] + 1)
+    ref = softmax.scaled_masked_softmax_reference(x.detach(), mask, 2.0,
+                                                  False)
+    torch.testing.assert_close(y.detach().float(), ref.float(),
+                               atol=SOFTMAX_TOL["bfloat16"], rtol=0)
+    with pytest.raises(ValueError, match="broadcast"):
+        fused(x.detach(), mask[:, :, :, :64].contiguous())
+    generic = GenericFusedScaleMaskSoftmax(False, True, None, True, None)
+    long = torch.zeros(1, 1, 4, 4097, device=dev, dtype=torch.bfloat16)
+    assert generic.is_kernel_available(None, *long.shape)
+    with pytest.raises(ValueError, match="4096"):
+        generic(long, None)
+    before = softmax_cuda.softmax_fwd.launches
+    plain = GenericFusedScaleMaskSoftmax(False, True, None, True, None,
+                                         use_pallas=False)(long, None)
+    assert softmax_cuda.softmax_fwd.launches == before
+    torch.testing.assert_close(plain.float(),
+                               torch.full_like(plain, 1 / 4097).float(),
+                               atol=2.0 ** -16, rtol=0)
