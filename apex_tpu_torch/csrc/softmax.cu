@@ -36,6 +36,19 @@
 // instead (the SCALAR instantiations). A block of four warps takes four
 // rows; each kernel is instantiated for up to 8, 32 and 128 elements a
 // lane (sk <= 256, 1024, 4096).
+//
+// Longer rows (K10L and K11L, sk > 4096) do not fit one warp's registers.
+// There one block of LONG_THREADS threads owns a row and walks it in
+// 16-byte vectors, neighbouring threads on neighbouring vectors: K10L
+// reads x three times (the row max, the sum of exponentials, then y
+// written), K11L reads y and g twice (the dot, then dx written), each
+// block-wide max and sum reduced through shared memory. A row of 8192
+// bf16 keys is 16 KB, so the later passes find it in L1/L2; the bytes from
+// device memory are those of the one-pass kernels. Masks, the causal skip
+// (vectors wholly above the diagonal are not read and are written as
+// zeros), the s > 0 guard of a fully masked row and the stride-0 mask
+// axes are K10's; the fixed thread-to-element map and the fixed reduction
+// order give the same bits on every run.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -260,6 +273,143 @@ softmax_bwd_kernel(const T* __restrict__ y, const T* __restrict__ g,
   }
 }
 
+// ---- K10L / K11L: one block per row, any length ---------------------------
+constexpr int LONG_THREADS = 256;
+constexpr int LONG_WARPS = LONG_THREADS / 32;
+
+// the block's max (IS_MAX) or sum of v, the same value in every thread
+template <bool IS_MAX>
+__device__ __forceinline__ float block_reduce(float v, float* red) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  v = IS_MAX ? warp_max(v) : warp_sum(v);
+  __syncthreads();                             // red is free again
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  v = lane < LONG_WARPS ? red[lane] : (IS_MAX ? -INFINITY : 0.f);
+  return IS_MAX ? warp_max(v) : warp_sum(v);
+}
+
+// the EPV elements of x at c0 as scaled fp32 values, with bit e of the
+// result set where element e is masked (or past the row)
+template <typename T, int EPV, bool VEC>
+__device__ __forceinline__ unsigned load_scaled(const T* __restrict__ xr,
+                                                const uint8_t* __restrict__ mr,
+                                                int c0, int sk, int i, int causal,
+                                                float scale, float (&val)[EPV]) {
+  float xv[EPV];
+  load_row<T, EPV, VEC>(xr, c0, sk, xv);
+  uint8_t mk[EPV];
+#pragma unroll
+  for (int e = 0; e < EPV; ++e) mk[e] = 0;
+  if (mr) {
+    if constexpr (VEC) {
+      const Pack<uint8_t, EPV> pk = *reinterpret_cast<const Pack<uint8_t, EPV>*>(mr + c0);
+#pragma unroll
+      for (int e = 0; e < EPV; ++e) mk[e] = pk.v[e];
+    } else {
+#pragma unroll
+      for (int e = 0; e < EPV; ++e) mk[e] = c0 + e < sk ? mr[c0 + e] : 0;
+    }
+  }
+  unsigned bits = 0;
+#pragma unroll
+  for (int e = 0; e < EPV; ++e) {
+    const int col = c0 + e;
+    if (col >= sk || mk[e] != 0 || (causal && col > i)) {
+      bits |= 1u << e;
+      val[e] = -FLT_MAX;
+    } else {
+      val[e] = xv[e] * scale;
+    }
+  }
+  return bits;
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(LONG_THREADS)
+softmax_fwd_long_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
+                        T* __restrict__ y, int sq, int sk, int np, long long mask_sb,
+                        long long mask_sh, long long mask_sq, float scale, int causal) {
+  constexpr int EPV = 16 / sizeof(T);
+  __shared__ float red[LONG_WARPS];
+  const long long row = blockIdx.x;
+  const int i = (int)(row % sq);
+  const long long bh = row / sq;
+  const long long b = bh / np;
+  const int h = (int)(bh % np);
+  const T* xr = x + row * sk;
+  T* yr = y + row * sk;
+  const uint8_t* mr =
+      mask ? mask + b * mask_sb + (long long)h * mask_sh + (long long)i * mask_sq
+           : nullptr;
+  // vectors at or past `live` hold no unmasked element: past the row, or
+  // (causal) wholly above the diagonal
+  const int live = causal ? min(sk, i + 1) : sk;
+  const int stride = LONG_THREADS * EPV;
+  const bool skipped = live < sk;              // a skipped vector is masked
+  float mx = -INFINITY;
+  for (int c0 = threadIdx.x * EPV; c0 < live; c0 += stride) {
+    float v[EPV];
+    load_scaled<T, EPV, VEC>(xr, mr, c0, sk, i, causal, scale, v);
+#pragma unroll
+    for (int e = 0; e < EPV; ++e)
+      if (c0 + e < sk) mx = fmaxf(mx, v[e]);   // a masked element: -FLT_MAX
+  }
+  if (skipped) mx = fmaxf(mx, -FLT_MAX);
+  mx = block_reduce<true>(mx, red);
+  float sum = 0.f;
+  for (int c0 = threadIdx.x * EPV; c0 < live; c0 += stride) {
+    float v[EPV];
+    const unsigned bits = load_scaled<T, EPV, VEC>(xr, mr, c0, sk, i, causal, scale, v);
+#pragma unroll
+    for (int e = 0; e < EPV; ++e) sum += (bits >> e) & 1u ? 0.f : expf(v[e] - mx);
+  }
+  sum = block_reduce<false>(sum, red);
+  for (int c0 = threadIdx.x * EPV; c0 < sk; c0 += stride) {
+    float v[EPV];
+    if (c0 < live) {
+      const unsigned bits = load_scaled<T, EPV, VEC>(xr, mr, c0, sk, i, causal, scale, v);
+#pragma unroll
+      for (int e = 0; e < EPV; ++e)
+        v[e] = (bits >> e) & 1u || !(sum > 0.f) ? 0.f : expf(v[e] - mx) / sum;
+    } else {
+#pragma unroll
+      for (int e = 0; e < EPV; ++e) v[e] = 0.f;
+    }
+    store_row<T, EPV, VEC>(yr, c0, sk, v);
+  }
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(LONG_THREADS)
+softmax_bwd_long_kernel(const T* __restrict__ y, const T* __restrict__ g,
+                        T* __restrict__ dx, int sk, float scale) {
+  constexpr int EPV = 16 / sizeof(T);
+  __shared__ float red[LONG_WARPS];
+  const long long row = blockIdx.x;
+  const T* yr = y + row * sk;
+  const T* gr = g + row * sk;
+  T* dr = dx + row * sk;
+  const int stride = LONG_THREADS * EPV;
+  float dot = 0.f;
+  for (int c0 = threadIdx.x * EPV; c0 < sk; c0 += stride) {
+    float a[EPV], c[EPV];
+    load_row<T, EPV, VEC>(yr, c0, sk, a);
+    load_row<T, EPV, VEC>(gr, c0, sk, c);
+#pragma unroll
+    for (int e = 0; e < EPV; ++e) dot = fmaf(a[e], c[e], dot);
+  }
+  dot = block_reduce<false>(dot, red);
+  for (int c0 = threadIdx.x * EPV; c0 < sk; c0 += stride) {
+    float a[EPV], c[EPV], out[EPV];
+    load_row<T, EPV, VEC>(yr, c0, sk, a);
+    load_row<T, EPV, VEC>(gr, c0, sk, c);
+#pragma unroll
+    for (int e = 0; e < EPV; ++e) out[e] = scale * a[e] * (c[e] - dot);
+    store_row<T, EPV, VEC>(dr, c0, sk, out);
+  }
+}
+
 // elements a lane holds: up to 8, 32 or 128 (sk <= 256, 1024, 4096)
 int lane_bucket(int sk) { return sk <= 256 ? 8 : (sk <= 1024 ? 32 : 128); }
 
@@ -330,6 +480,32 @@ bool vec_ok(int sk, int itemsize, const void* a, const void* b, const void* c,
   return ok;
 }
 
+template <typename T>
+void fwd_long_dispatch(bool vec, unsigned blocks, cudaStream_t st, const void* x,
+                       const void* mask, void* y, int sq, int sk, int np,
+                       long long msb, long long msh, long long msq, float scale,
+                       int causal) {
+  if (vec)
+    softmax_fwd_long_kernel<T, true><<<blocks, LONG_THREADS, 0, st>>>(
+        (const T*)x, (const uint8_t*)mask, (T*)y, sq, sk, np, msb, msh, msq, scale,
+        causal);
+  else
+    softmax_fwd_long_kernel<T, false><<<blocks, LONG_THREADS, 0, st>>>(
+        (const T*)x, (const uint8_t*)mask, (T*)y, sq, sk, np, msb, msh, msq, scale,
+        causal);
+}
+
+template <typename T>
+void bwd_long_dispatch(bool vec, unsigned blocks, cudaStream_t st, const void* y,
+                       const void* g, void* dx, int sk, float scale) {
+  if (vec)
+    softmax_bwd_long_kernel<T, true><<<blocks, LONG_THREADS, 0, st>>>(
+        (const T*)y, (const T*)g, (T*)dx, sk, scale);
+  else
+    softmax_bwd_long_kernel<T, false><<<blocks, LONG_THREADS, 0, st>>>(
+        (const T*)y, (const T*)g, (T*)dx, sk, scale);
+}
+
 }  // namespace
 
 extern "C" int softmax_fwd(const void* x, const void* mask, void* y, long long rows,
@@ -375,6 +551,54 @@ extern "C" int softmax_bwd(const void* y, const void* g, void* dx, long long row
     bwd_dispatch<__half>(vec, blocks, st, y, g, dx, rows, sk, scale);
   else
     bwd_dispatch<float>(vec, blocks, st, y, g, dx, rows, sk, scale);
+  return (int)cudaGetLastError();
+}
+
+// K10L: one block per row, any sk >= 1
+extern "C" int softmax_fwd_long(const void* x, const void* mask, void* y,
+                                long long rows, int sq, int sk, int np,
+                                long long mask_sb, long long mask_sh,
+                                long long mask_sq, float scale, int causal, int dtype,
+                                int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (rows < 1 || rows > 0x7fffffffLL || sq < 1 || sk < 1 || np < 1 || dtype < 0 ||
+      dtype > 2)
+    return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)rows;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int itemsize = dtype == 2 ? 4 : 2;
+  const bool vec = vec_ok(sk, itemsize, x, y, x, mask);
+  if (dtype == 0)
+    fwd_long_dispatch<__nv_bfloat16>(vec, blocks, st, x, mask, y, sq, sk, np, mask_sb,
+                                     mask_sh, mask_sq, scale, causal);
+  else if (dtype == 1)
+    fwd_long_dispatch<__half>(vec, blocks, st, x, mask, y, sq, sk, np, mask_sb, mask_sh,
+                              mask_sq, scale, causal);
+  else
+    fwd_long_dispatch<float>(vec, blocks, st, x, mask, y, sq, sk, np, mask_sb, mask_sh,
+                             mask_sq, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+// K11L: one block per row, any sk >= 1
+extern "C" int softmax_bwd_long(const void* y, const void* g, void* dx, long long rows,
+                                int sk, float scale, int dtype, int device,
+                                void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (rows < 1 || rows > 0x7fffffffLL || sk < 1 || dtype < 0 || dtype > 2)
+    return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)rows;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int itemsize = dtype == 2 ? 4 : 2;
+  const bool vec = vec_ok(sk, itemsize, y, g, dx, nullptr);
+  if (dtype == 0)
+    bwd_long_dispatch<__nv_bfloat16>(vec, blocks, st, y, g, dx, sk, scale);
+  else if (dtype == 1)
+    bwd_long_dispatch<__half>(vec, blocks, st, y, g, dx, sk, scale);
+  else
+    bwd_long_dispatch<float>(vec, blocks, st, y, g, dx, sk, scale);
   return (int)cudaGetLastError();
 }
 

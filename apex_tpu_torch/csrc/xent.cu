@@ -1,9 +1,13 @@
 // Fused linear + cross entropy, the LM head without logits: the forward (K7),
-// the dX pass (K8) and the dE pass (K9).
+// the vocabulary-shard forward of tensor parallelism (K7p), the dX pass (K8)
+// and the dE pass (K9).
 //
 // Replaces apex_tpu/ops/xent_pallas.py: _fwd :417 (pallas_call :429; kernel
-// _fwd_kernel :184 over _accumulate_chunk :149), and _bwd_kernels :449, its
-// dX call (:467, _dx_kernel :222) and its dE call (:482, _de_kernel :246).
+// _fwd_kernel :184 over _accumulate_chunk :149), _fwd_sharded :321 (pallas_call
+// :339; kernel _fwd_partial_kernel :203 over the same _accumulate_chunk), and
+// _bwd_kernels :449, its dX call (:467, _dx_kernel :222) and its dE call (:482,
+// _de_kernel :246), which the sharded backward _bwd_sharded_rule :373 reuses on
+// a shard with the whole vocabulary's v_total.
 // Semantics and rounding points are theirs, for x [n, h] and E [V, h] of one
 // dtype (bf16, fp16 or fp32), int32 labels [n] (a label outside [0, V) hits
 // no column):
@@ -13,7 +17,7 @@
 //    the row's logits sum u: lse = m + log s, loss = lse - t, or
 //    lse - (1 - eps) t - eps u / V (contrib-xentropy semantics);
 //  - dX = dl * sum_v coeff E with coeff = exp(logits - lse) - (1 - eps) hit -
-//    eps / V rounded to E's dtype, fp32 accumulation, the result rounded to
+//    eps / v_total rounded to E's dtype, fp32 accumulation, the result rounded to
 //    x's dtype;
 //  - dE = sum_rows coeff^T wx with coeff rounded to x's dtype and wx = dl * x
 //    rounded to x's dtype, fp32 accumulation, the result in E's dtype.
@@ -45,6 +49,15 @@
 //    fixed order, the cross-shard combine _fwd_sharded :350-361 does for
 //    tp > 1. The blocks of one share start their walk at eight points of it
 //    and share E through L2.
+//  - K7p is K7 on one rank's shard of E: the same first stage, then a second
+//    small kernel that folds the shares in the same order into the rank's
+//    four row partials and forms no lse; the cross-rank combine is PyTorch
+//    and torch.distributed (apex_tpu_torch/ops/xent.py), as the JAX package
+//    does it in jnp outside Pallas. At the tp = 2 training shape (x [8192,
+//    768], a shard of 25216 rows) it is bound by operations as K7 is: 2 n Vs h
+//    = 317 GFLOP, 0.32 ms at 989 TFLOP/s.
+//  - K8 and K9 take v_total, the vocabulary the uniform smoothing term
+//    divides by: V for the whole table, Vs * tp for a shard.
 //  - The TPU backward accumulates each output block while its inner grid index
 //    walks (xent_pallas.py:14-18, :248-249). Hopper runs blocks in no order,
 //    so the inner grid axis becomes a loop inside the block and each block
@@ -430,13 +443,38 @@ __global__ void xent_fwd_combine_kernel(const float* __restrict__ part,
   loss[r] = eps != 0.0f ? l - (1.0f - eps) * t - eps * u / vocab : l - t;
 }
 
+// K7p's second stage: the per-share partials folded, in the same fixed order,
+// into the row's (max, sum of exponentials at that max, target, logits sum),
+// the four fp32 partials of one vocabulary shard that the cross-rank combine
+// of _fwd_sharded :350-361 takes. It forms no lse.
+__global__ void xent_fwd_partials_combine_kernel(const float* __restrict__ part,
+                                                 float* __restrict__ out, int n,
+                                                 int nsplit) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  const long plane = (long)nsplit * n;
+  float m = -INFINITY;
+  for (int s = 0; s < nsplit; ++s) m = fmaxf(m, part[(long)s * n + r]);
+  float sum = 0.0f, t = 0.0f, u = 0.0f;
+  for (int s = 0; s < nsplit; ++s) {
+    const long i = (long)s * n + r;
+    sum += part[plane + i] * expf(part[i] - m);
+    t += part[2 * plane + i];
+    u += part[3 * plane + i];
+  }
+  out[r] = m;
+  out[n + r] = sum;
+  out[2 * n + r] = t;
+  out[3 * n + r] = u;
+}
+
 // ---- K8: dX ----------------------------------------------------------------
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 xent_dx_kernel(const T* __restrict__ x, const T* __restrict__ e,
                const int* __restrict__ labels, const float* __restrict__ lse,
                const float* __restrict__ dl, T* __restrict__ dx, int n, int V,
-               int h, float eps) {
+               int h, float eps, int v_total) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int LDS = DX_VOCAB + 4, LDC = DX_VOCAB + PAD, K2 = bk2<T>();
   Carve c{smem};
@@ -465,7 +503,7 @@ xent_dx_kernel(const T* __restrict__ x, const T* __restrict__ e,
   for (int i = 0; i < FR; ++i)
 #pragma unroll
     for (int j = 0; j < CG; ++j) acc[i][j].zero();
-  const float uniform = eps / (float)V;
+  const float uniform = eps / (float)v_total;
   for (int v0 = 0; v0 < V; v0 += DX_VOCAB) {
     // the product's first two slices of E load with the logits
 #pragma unroll
@@ -538,7 +576,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 xent_de_kernel(const T* __restrict__ x, const T* __restrict__ e,
                const int* __restrict__ labels, const float* __restrict__ lse,
                const float* __restrict__ dl, T* __restrict__ de, int n, int V,
-               int h, float eps) {
+               int h, float eps, int v_total) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int LDS = DE_VOCAB + 4, LDC = DE_VOCAB + PAD, K2 = bk2<T>();
   constexpr int VEC = 16 / sizeof(T);
@@ -561,7 +599,7 @@ xent_de_kernel(const T* __restrict__ x, const T* __restrict__ e,
   for (int i = 0; i < FV; ++i)
 #pragma unroll
     for (int j = 0; j < CG; ++j) acc[i][j].zero();
-  const float uniform = eps / (float)V;
+  const float uniform = eps / (float)v_total;
   for (int r0 = 0; r0 < n; r0 += DE_ROWS) {
     for (int i = threadIdx.x; i < DE_ROWS; i += THREADS) {
       const bool live = r0 + i < n;
@@ -682,7 +720,7 @@ xent_bwd_resident_kernel(const T* __restrict__ x, const T* __restrict__ e,
                          const int* __restrict__ labels,
                          const float* __restrict__ lse,
                          const float* __restrict__ dl, T* __restrict__ out, int n,
-                         int V, int h, float eps) {
+                         int V, int h, float eps, int v_total) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int VEC = 16 / sizeof(T);
   Carve c{smem};
@@ -709,7 +747,7 @@ xent_bwd_resident_kernel(const T* __restrict__ x, const T* __restrict__ e,
   for (int i = 0; i < FR; ++i)
 #pragma unroll
     for (int j = 0; j < RES_CG; ++j) acc[i][j].zero();
-  const float uniform = eps / (float)V;
+  const float uniform = eps / (float)v_total;
   // this warp's logits fragment row and share of the depth (16-deep steps)
   const int fr = warp & 1, part = warp >> 1;
   const int k_lo = part * (h / 16) / RES_PARTS * 16;
@@ -818,10 +856,11 @@ bool bad_args(int n, int V, int h, int dtype) {
          dtype > 2;
 }
 
+// the first stage of K7 and K7p: per-share partials into part [4, nsplit, n]
 template <typename T>
-cudaError_t launch_fwd(cudaStream_t st, const void* x, const void* e,
-                       const void* labels, void* part, void* loss, void* lse,
-                       int n, int V, int h, int nsplit, float eps) {
+cudaError_t launch_fwd_partial(cudaStream_t st, const void* x, const void* e,
+                               const void* labels, void* part, int n, int V, int h,
+                               int nsplit, float eps) {
   const size_t smem = fwd_smem<T>();
   cudaError_t err = cudaFuncSetAttribute(
       xent_fwd_partial_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -830,17 +869,35 @@ cudaError_t launch_fwd(cudaStream_t st, const void* x, const void* e,
   xent_fwd_partial_kernel<T><<<grid, THREADS, smem, st>>>(
       (const T*)x, (const T*)e, (const int*)labels, (float*)part, n, V, h, nsplit,
       eps != 0.0f);
-  err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_fwd(cudaStream_t st, const void* x, const void* e,
+                       const void* labels, void* part, void* loss, void* lse,
+                       int n, int V, int h, int nsplit, float eps) {
+  cudaError_t err = launch_fwd_partial<T>(st, x, e, labels, part, n, V, h, nsplit, eps);
   if (err != cudaSuccess) return err;
   xent_fwd_combine_kernel<<<(n + 255) / 256, 256, 0, st>>>(
       (const float*)part, (float*)loss, (float*)lse, n, nsplit, eps, (float)V);
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_fwd_partials(cudaStream_t st, const void* x, const void* e,
+                                const void* labels, void* part, void* out, int n,
+                                int V, int h, int nsplit, float eps) {
+  cudaError_t err = launch_fwd_partial<T>(st, x, e, labels, part, n, V, h, nsplit, eps);
+  if (err != cudaSuccess) return err;
+  xent_fwd_partials_combine_kernel<<<(n + 255) / 256, 256, 0, st>>>(
+      (const float*)part, (float*)out, n, nsplit);
+  return cudaGetLastError();
+}
+
 template <typename T, bool DE>
 cudaError_t launch_resident(cudaStream_t st, const void* x, const void* e,
                             const void* labels, const void* lse, const void* dl,
-                            void* out, int n, int V, int h, float eps) {
+                            void* out, int n, int V, int h, float eps, int v_total) {
   const size_t smem = resident_smem<T>();
   cudaError_t err = cudaFuncSetAttribute(xent_bwd_resident_kernel<T, DE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -850,16 +907,18 @@ cudaError_t launch_resident(cudaStream_t st, const void* x, const void* e,
   xent_bwd_resident_kernel<T, DE><<<(owners + RES_ROWS - 1) / RES_ROWS, RES_THREADS, smem,
                                     st>>>(
       (const T*)x, (const T*)e, (const int*)labels, (const float*)lse,
-      (const float*)dl, (T*)out, n, V, h, eps);
+      (const float*)dl, (T*)out, n, V, h, eps, v_total);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_dx(cudaStream_t st, const void* x, const void* e,
                       const void* labels, const void* lse, const void* dl, void* dx,
-                      int n, int V, int h, float eps) {
+                      int n, int V, int h, float eps, int v_total) {
   if constexpr (sizeof(T) == 2) {
-    if (h <= COLS) return launch_resident<T, false>(st, x, e, labels, lse, dl, dx, n, V, h, eps);
+    if (h <= COLS)
+      return launch_resident<T, false>(st, x, e, labels, lse, dl, dx, n, V, h, eps,
+                                           v_total);
   }
   const size_t smem = dx_smem<T>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -868,16 +927,18 @@ cudaError_t launch_dx(cudaStream_t st, const void* x, const void* e,
   const dim3 grid((n + DX_ROWS - 1) / DX_ROWS, (h + COLS - 1) / COLS);
   xent_dx_kernel<T><<<grid, THREADS, smem, st>>>(
       (const T*)x, (const T*)e, (const int*)labels, (const float*)lse,
-      (const float*)dl, (T*)dx, n, V, h, eps);
+      (const float*)dl, (T*)dx, n, V, h, eps, v_total);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_de(cudaStream_t st, const void* x, const void* e,
                       const void* labels, const void* lse, const void* dl, void* de,
-                      int n, int V, int h, float eps) {
+                      int n, int V, int h, float eps, int v_total) {
   if constexpr (sizeof(T) == 2) {
-    if (h <= COLS) return launch_resident<T, true>(st, x, e, labels, lse, dl, de, n, V, h, eps);
+    if (h <= COLS)
+      return launch_resident<T, true>(st, x, e, labels, lse, dl, de, n, V, h, eps,
+                                           v_total);
   }
   const size_t smem = de_smem<T>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -886,7 +947,7 @@ cudaError_t launch_de(cudaStream_t st, const void* x, const void* e,
   const dim3 grid(V / DE_VOCAB, (h + COLS - 1) / COLS);
   xent_de_kernel<T><<<grid, THREADS, smem, st>>>(
       (const T*)x, (const T*)e, (const int*)labels, (const float*)lse,
-      (const float*)dl, (T*)de, n, V, h, eps);
+      (const float*)dl, (T*)de, n, V, h, eps, v_total);
   return cudaGetLastError();
 }
 
@@ -910,37 +971,72 @@ extern "C" int xent_fwd(const void* x, const void* e, const void* labels, void* 
   return (int)err;
 }
 
-extern "C" int xent_bwd_dx(const void* x, const void* e, const void* labels,
-                           const void* lse, const void* dl, void* dx, int n, int V,
-                           int h, float smoothing, int dtype, int device,
-                           void* stream) {
+// K7p: the four fp32 row partials [4, n] (max, sum of exponentials, target,
+// logits sum; the last 0 without smoothing) of E, one rank's vocabulary shard,
+// with labels already shifted to the shard (a label outside [0, V) hits
+// nothing); part: fp32 [4, nsplit, n] scratch
+extern "C" int xent_fwd_partials(const void* x, const void* e, const void* labels,
+                                 void* part, void* out, int n, int V, int h,
+                                 int nsplit, float smoothing, int dtype, int device,
+                                 void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (bad_args(n, V, h, dtype)) return (int)cudaErrorInvalidValue;
+  if (bad_args(n, V, h, dtype) || nsplit < 1 || nsplit > V / FWD_VOCAB)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    err = launch_dx<__nv_bfloat16>(st, x, e, labels, lse, dl, dx, n, V, h, smoothing);
+    err = launch_fwd_partials<__nv_bfloat16>(st, x, e, labels, part, out, n, V, h, nsplit,
+                                             smoothing);
   else if (dtype == 1)
-    err = launch_dx<__half>(st, x, e, labels, lse, dl, dx, n, V, h, smoothing);
+    err = launch_fwd_partials<__half>(st, x, e, labels, part, out, n, V, h, nsplit,
+                                      smoothing);
   else
-    err = launch_dx<float>(st, x, e, labels, lse, dl, dx, n, V, h, smoothing);
+    err = launch_fwd_partials<float>(st, x, e, labels, part, out, n, V, h, nsplit,
+                                     smoothing);
   return (int)err;
 }
 
-extern "C" int xent_bwd_de(const void* x, const void* e, const void* labels,
-                           const void* lse, const void* dl, void* de, int n, int V,
-                           int h, float smoothing, int dtype, int device,
+// v_total: the vocabulary the uniform smoothing term divides by (V, or at
+// tensor-parallel size tp > 1 the whole vocabulary V * tp of which E is a shard)
+extern "C" int xent_bwd_dx(const void* x, const void* e, const void* labels,
+                           const void* lse, const void* dl, void* dx, int n, int V,
+                           int h, int v_total, float smoothing, int dtype, int device,
                            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (bad_args(n, V, h, dtype)) return (int)cudaErrorInvalidValue;
+  if (bad_args(n, V, h, dtype) || v_total < V) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    err = launch_de<__nv_bfloat16>(st, x, e, labels, lse, dl, de, n, V, h, smoothing);
+    err = launch_dx<__nv_bfloat16>(st, x, e, labels, lse, dl, dx, n, V, h, smoothing,
+                                        v_total);
   else if (dtype == 1)
-    err = launch_de<__half>(st, x, e, labels, lse, dl, de, n, V, h, smoothing);
+    err = launch_dx<__half>(st, x, e, labels, lse, dl, dx, n, V, h, smoothing,
+                                        v_total);
   else
-    err = launch_de<float>(st, x, e, labels, lse, dl, de, n, V, h, smoothing);
+    err = launch_dx<float>(st, x, e, labels, lse, dl, dx, n, V, h, smoothing,
+                                        v_total);
+  return (int)err;
+}
+
+// v_total: the vocabulary the uniform smoothing term divides by (V, or at
+// tensor-parallel size tp > 1 the whole vocabulary V * tp of which E is a shard)
+extern "C" int xent_bwd_de(const void* x, const void* e, const void* labels,
+                           const void* lse, const void* dl, void* de, int n, int V,
+                           int h, int v_total, float smoothing, int dtype, int device,
+                           void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (bad_args(n, V, h, dtype) || v_total < V) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    err = launch_de<__nv_bfloat16>(st, x, e, labels, lse, dl, de, n, V, h, smoothing,
+                                        v_total);
+  else if (dtype == 1)
+    err = launch_de<__half>(st, x, e, labels, lse, dl, de, n, V, h, smoothing,
+                                        v_total);
+  else
+    err = launch_de<float>(st, x, e, labels, lse, dl, de, n, V, h, smoothing,
+                                        v_total);
   return (int)err;
 }
 

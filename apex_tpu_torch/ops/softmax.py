@@ -3,7 +3,8 @@
 
 :func:`scaled_masked_softmax` is the one call, a ``torch.autograd.Function``:
 for CUDA tensors the forward launches K10 and the backward K11
-(``csrc/softmax.cu`` through :mod:`apex_tpu_torch.ops.softmax_cuda`); for
+(``csrc/softmax.cu`` through :mod:`apex_tpu_torch.ops.softmax_cuda`), or
+above 4096 keys their long-row forms K10L and K11L; for
 CPU tensors both run the plain versions beside them,
 :func:`scaled_masked_softmax_reference` (op for op with the TPU forward
 kernel ``_fwd_kernel :106``) and
@@ -21,16 +22,13 @@ column > row. K10 broadcasts by index; it never expands the mask.
 
 import torch
 
-# the kernels' row length: one warp holds a row in registers (up to 128
-# values a lane)
-MAX_SK = 4096
-
 
 def supported(sq, sk):
     """Whether the CUDA kernels take ``[.., sq, sk]`` rows: any row count
-    and 1 to 4096 keys (rows of a length that is not a multiple of the
-    16-byte vector take element loads)."""
-    return sq >= 1 and 1 <= sk <= MAX_SK
+    and any number of keys, K10/K11 up to 4096 and K10L/K11L above (rows
+    of a length that is not a multiple of the 16-byte vector take element
+    loads)."""
+    return sq >= 1 and sk >= 1
 
 
 def mask_supported(mask, x_shape):
@@ -79,6 +77,8 @@ def _fwd(x, mask, scale, causal):
     if x.is_cuda:
         from apex_tpu_torch.ops import softmax_cuda
 
+        if x.shape[-1] > softmax_cuda.MAX_SK:
+            return softmax_cuda.softmax_fwd_long(x, mask, scale, causal)
         return softmax_cuda.softmax_fwd(x, mask, scale, causal)
     if x.device.type != "cpu":
         raise ValueError(f"scaled_masked_softmax: no kernel for device "
@@ -90,6 +90,8 @@ def _bwd(y, g, scale):
     if y.is_cuda:
         from apex_tpu_torch.ops import softmax_cuda
 
+        if y.shape[-1] > softmax_cuda.MAX_SK:
+            return softmax_cuda.softmax_bwd_long(y, g.contiguous(), scale)
         return softmax_cuda.softmax_bwd(y, g.contiguous(), scale)
     return scaled_masked_softmax_backward_reference(y, g, scale)
 
@@ -112,12 +114,12 @@ def scaled_masked_softmax(x, mask=None, scale=1.0, causal=False):
     """``softmax(scale * x)`` over the last axis with the causal triangle
     and/or ``mask`` masked out (layouts in the module docstring);
     differentiable in ``x``. On CUDA tensors K10 (and K11 in the
-    backward) run, or the call raises; on CPU tensors the plain
-    versions. Shapes the kernels do not take (:func:`supported`,
-    :func:`mask_supported`) raise on either device."""
+    backward) run, or K10L and K11L above 4096 keys, or the call raises;
+    on CPU tensors the plain versions. Shapes the kernels do not take
+    (:func:`supported`, :func:`mask_supported`) raise on either device."""
     if x.dim() != 4 or not supported(x.shape[-2], x.shape[-1]):
         raise ValueError(f"scaled_masked_softmax: x must be [b, np, sq, sk] "
-                         f"with 1 to {MAX_SK} keys, got {tuple(x.shape)}")
+                         f"with at least one key, got {tuple(x.shape)}")
     if mask is not None:
         if not mask_supported(mask, x.shape):
             raise ValueError(f"scaled_masked_softmax: mask {tuple(mask.shape)}"

@@ -2,8 +2,11 @@
 (``csrc/softmax.cu``): K10 :func:`softmax_fwd` replaces
 ``apex_tpu/ops/softmax_pallas.py:185`` (``_fwd :159``, kernel
 ``_fwd_kernel :106``) and K11 :func:`softmax_bwd` replaces ``:212``
-(``_bwd_rule :204``, kernel ``_bwd_kernel :130``). The source's header
-says what bounds them (bytes) and how the design answers that.
+(``_bwd_rule :204``, kernel ``_bwd_kernel :130``), for rows of up to
+4096 keys; K10L :func:`softmax_fwd_long` and K11L :func:`softmax_bwd_long`
+compute the same functions for rows of any length (the generic softmax's
+``sk > 4096``), one block per row. The source's header says what bounds
+them (bytes) and how the design answers that.
 
 Each wrapper checks its inputs, allocates its output, launches on
 PyTorch's current stream without synchronising, raises on a refused
@@ -27,20 +30,30 @@ _SIGNATURES = {
     "softmax_fwd": ([_P, _P, _P, _L, _I, _I, _I, _L, _L, _L, _F, _I, _I,
                      _I, _P], _I),
     "softmax_bwd": ([_P, _P, _P, _L, _I, _F, _I, _I, _P], _I),
+    "softmax_fwd_long": ([_P, _P, _P, _L, _I, _I, _I, _L, _L, _L, _F, _I,
+                          _I, _I, _P], _I),
+    "softmax_bwd_long": ([_P, _P, _P, _L, _I, _F, _I, _I, _P], _I),
     "softmax_error_string": ([_I], ctypes.c_char_p),
 }
+# the longest row K10/K11 take (one warp holds it in registers); K10L and
+# K11L take any length, at most 2**31 - 1 rows (one block per row)
 MAX_SK = 4096
+_MAX_LONG_ROWS = 2 ** 31 - 1
 
 
-def _check_x(name, x):
+def _check_x(name, x, long):
     if x.dim() != 4 or not x.is_cuda or not x.is_contiguous():
         raise ValueError(f"{name}: want a contiguous 4-D [b, np, sq, sk] "
                          f"CUDA tensor, got {tuple(x.shape)} on {x.device}")
     if x.dtype not in _build.DTYPE_CODES:
         raise ValueError(f"{name}: dtype {x.dtype} (want bf16/fp16/fp32)")
-    if not 1 <= x.shape[-1] <= MAX_SK or x.numel() == 0:
-        raise ValueError(f"{name}: sk {x.shape[-1]} (the kernels take 1 to "
-                         f"{MAX_SK} keys)")
+    if x.numel() == 0 or (not long and x.shape[-1] > MAX_SK):
+        raise ValueError(f"{name}: sk {x.shape[-1]} (the kernel takes 1 to "
+                         f"{MAX_SK} keys; the long-row kernels any)")
+    rows = x.numel() // x.shape[-1]
+    if long and rows > _MAX_LONG_ROWS:
+        raise ValueError(f"{name}: {rows} rows (at most {_MAX_LONG_ROWS})")
+    return rows
 
 
 def softmax_fwd(x, mask, scale, causal):
@@ -48,7 +61,20 @@ def softmax_fwd(x, mask, scale, causal):
     the causal triangle and/or ``mask`` (None, or a contiguous bool/int8
     ``[b|1, np|1, sq|1, sk]`` tensor, nonzero = masked, broadcast by index
     along its axes of size 1) forced to 0; returns y in x's dtype."""
-    _check_x("softmax_fwd", x)
+    y = _fwd("softmax_fwd", x, mask, scale, causal, False)
+    softmax_fwd.launches += 1
+    return y
+
+
+def softmax_fwd_long(x, mask, scale, causal):
+    """K10L: :func:`softmax_fwd`'s function for rows of any length."""
+    y = _fwd("softmax_fwd_long", x, mask, scale, causal, True)
+    softmax_fwd_long.launches += 1
+    return y
+
+
+def _fwd(name, x, mask, scale, causal, long):
+    rows = _check_x(name, x, long)
     b, np_, sq, sk = x.shape
     msb = msh = msq = 0
     mptr = None
@@ -57,7 +83,7 @@ def softmax_fwd(x, mask, scale, causal):
                 or mask.device != x.device or not mask.is_contiguous() \
                 or mask.dim() != 4 or mask.shape[-1] != sk \
                 or any(m not in (1, n) for m, n in zip(mask.shape, x.shape)):
-            raise ValueError(f"softmax_fwd: mask must be a contiguous bool or "
+            raise ValueError(f"{name}: mask must be a contiguous bool or "
                              f"int8 [{b}|1, {np_}|1, {sq}|1, {sk}] tensor on "
                              f"{x.device}, got {mask.dtype} "
                              f"{tuple(mask.shape)}")
@@ -66,11 +92,10 @@ def softmax_fwd(x, mask, scale, causal):
         msb, msh, msq, _ = mask.expand(b, np_, sq, sk).stride()
         mptr = mask.data_ptr()
     y = torch.empty_like(x)
-    _build.launch(_NAME, _SIGNATURES, "softmax_fwd", x.device, x.data_ptr(),
-                  mptr, y.data_ptr(), b * np_ * sq, sq, sk, np_, msb, msh, msq,
+    _build.launch(_NAME, _SIGNATURES, name, x.device, x.data_ptr(), mptr,
+                  y.data_ptr(), rows, sq, sk, np_, msb, msh, msq,
                   float(scale), int(bool(causal)),
                   _build.DTYPE_CODES[x.dtype])
-    softmax_fwd.launches += 1
     return y
 
 
@@ -78,19 +103,33 @@ def softmax_bwd(y, g, scale):
     """K11: ``scale * y * (g - sum(g * y))`` over the last axis of ``[b, np,
     sq, sk]`` CUDA tensors ``y`` (the forward's output) and ``g`` (its
     cotangent, same dtype and shape); returns dx in y's dtype."""
-    _check_x("softmax_bwd", y)
+    dx = _bwd("softmax_bwd", y, g, scale, False)
+    softmax_bwd.launches += 1
+    return dx
+
+
+def softmax_bwd_long(y, g, scale):
+    """K11L: :func:`softmax_bwd`'s function for rows of any length."""
+    dx = _bwd("softmax_bwd_long", y, g, scale, True)
+    softmax_bwd_long.launches += 1
+    return dx
+
+
+def _bwd(name, y, g, scale, long):
+    rows = _check_x(name, y, long)
     if g.dtype != y.dtype or g.shape != y.shape or g.device != y.device \
             or not g.is_contiguous():
-        raise ValueError(f"softmax_bwd: g must be a contiguous {y.dtype} "
+        raise ValueError(f"{name}: g must be a contiguous {y.dtype} "
                          f"{tuple(y.shape)} tensor on {y.device}")
-    b, np_, sq, sk = y.shape
+    sk = y.shape[-1]
     dx = torch.empty_like(y)
-    _build.launch(_NAME, _SIGNATURES, "softmax_bwd", y.device, y.data_ptr(),
-                  g.data_ptr(), dx.data_ptr(), b * np_ * sq, sk, float(scale),
+    _build.launch(_NAME, _SIGNATURES, name, y.device, y.data_ptr(),
+                  g.data_ptr(), dx.data_ptr(), rows, sk, float(scale),
                   _build.DTYPE_CODES[y.dtype])
-    softmax_bwd.launches += 1
     return dx
 
 
 softmax_fwd.launches = 0
 softmax_bwd.launches = 0
+softmax_fwd_long.launches = 0
+softmax_bwd_long.launches = 0

@@ -1,9 +1,11 @@
 """Wrappers of the hand-written CUDA fused LM head (``csrc/xent.cu``): K7
 :func:`xent_fwd` replaces ``apex_tpu/ops/xent_pallas.py:417 _fwd`` (its
-``pallas_call`` at ``:429``), K8 :func:`xent_bwd_dx` and K9
-:func:`xent_bwd_de` replace the two calls of ``:449 _bwd_kernels`` (dX at
-``:467``, dE at ``:482``). The source's header says what bounds them (the
-tensor-core rate) and how the design answers that.
+``pallas_call`` at ``:429``), K7p :func:`xent_fwd_partials` replaces the
+vocabulary-shard forward ``:321 _fwd_sharded`` (its ``pallas_call`` at
+``:339``), K8 :func:`xent_bwd_dx` and K9 :func:`xent_bwd_de` replace the
+two calls of ``:449 _bwd_kernels`` (dX at ``:467``, dE at ``:482``), on a
+whole table or, with ``v_total``, on a shard. The source's header says
+what bounds them (the tensor-core rate) and how the design answers that.
 
 Each wrapper checks its inputs, allocates its outputs, launches on
 PyTorch's current stream without synchronising, raises on a refused
@@ -28,8 +30,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "xent_fwd": ([_P] * 6 + [_I] * 4 + [_F, _I, _I, _P], _I),
-    "xent_bwd_dx": ([_P] * 6 + [_I] * 3 + [_F, _I, _I, _P], _I),
-    "xent_bwd_de": ([_P] * 6 + [_I] * 3 + [_F, _I, _I, _P], _I),
+    "xent_fwd_partials": ([_P] * 5 + [_I] * 4 + [_F, _I, _I, _P], _I),
+    "xent_bwd_dx": ([_P] * 6 + [_I] * 4 + [_F, _I, _I, _P], _I),
+    "xent_bwd_de": ([_P] * 6 + [_I] * 4 + [_F, _I, _I, _P], _I),
     "xent_error_string": ([_I], ctypes.c_char_p),
 }
 VOCAB_TILE = 128   # V must be a multiple of it
@@ -94,33 +97,59 @@ def xent_fwd(x, e, labels, smoothing=0.0):
     return loss, lse
 
 
-def _bwd(fn_name, x, e, labels, lse, dl, smoothing, like):
-    n, V, h = _check(fn_name, x, e, labels,
-                     (("lse", lse, torch.float32), ("dl", dl, torch.float32)))
-    out = torch.empty_like(like)
-    _build.launch(_NAME, _SIGNATURES, fn_name, x.device, x.data_ptr(),
-                  e.data_ptr(), labels.data_ptr(), lse.data_ptr(),
-                  dl.data_ptr(), out.data_ptr(), n, V, h, float(smoothing),
-                  _build.DTYPE_CODES[x.dtype])
+def xent_fwd_partials(x, e_shard, labels_local, smoothing=0.0):
+    """K7p: fp32 ``[4, n]``, the rows' (max, sum of exponentials at that
+    max, target logit, logits sum) over one vocabulary shard ``e_shard
+    [Vs, h]``; ``labels_local`` are shard-local int32 ids (one outside
+    ``[0, Vs)`` has no target on this shard); the logits sum is 0 without
+    smoothing."""
+    n, V, h = _check("xent_fwd_partials", x, e_shard, labels_local)
+    nsplit = _vocab_splits(n, V, x.device)
+    part = torch.empty(4, nsplit, n, dtype=torch.float32, device=x.device)
+    out = torch.empty(4, n, dtype=torch.float32, device=x.device)
+    _build.launch(_NAME, _SIGNATURES, "xent_fwd_partials", x.device,
+                  x.data_ptr(), e_shard.data_ptr(), labels_local.data_ptr(),
+                  part.data_ptr(), out.data_ptr(), n, V, h, nsplit,
+                  float(smoothing), _build.DTYPE_CODES[x.dtype])
+    xent_fwd_partials.launches += 1
     return out
 
 
-def xent_bwd_dx(x, e, labels, lse, dl, smoothing=0.0):
+def _bwd(fn_name, x, e, labels, lse, dl, smoothing, v_total, like):
+    n, V, h = _check(fn_name, x, e, labels,
+                     (("lse", lse, torch.float32), ("dl", dl, torch.float32)))
+    v_total = V if v_total is None else int(v_total)
+    if v_total < V:
+        raise ValueError(f"{fn_name}: v_total {v_total} < the table's {V} "
+                         f"rows")
+    out = torch.empty_like(like)
+    _build.launch(_NAME, _SIGNATURES, fn_name, x.device, x.data_ptr(),
+                  e.data_ptr(), labels.data_ptr(), lse.data_ptr(),
+                  dl.data_ptr(), out.data_ptr(), n, V, h, v_total,
+                  float(smoothing), _build.DTYPE_CODES[x.dtype])
+    return out
+
+
+def xent_bwd_dx(x, e, labels, lse, dl, smoothing=0.0, v_total=None):
     """K8: dX ``[n, h]`` in x's dtype, from K7's lse and the fp32
-    cotangent ``dl [n]``."""
-    out = _bwd("xent_bwd_dx", x, e, labels, lse, dl, smoothing, x)
+    cotangent ``dl [n]``; the uniform smoothing term divides by
+    ``v_total`` (None: E's rows; a shard's caller passes the whole
+    vocabulary)."""
+    out = _bwd("xent_bwd_dx", x, e, labels, lse, dl, smoothing, v_total, x)
     xent_bwd_dx.launches += 1
     return out
 
 
-def xent_bwd_de(x, e, labels, lse, dl, smoothing=0.0):
-    """K9: dE ``[V, h]`` in E's dtype. Each block owns its rows of dE, so
-    two runs on the same inputs give the same bits."""
-    out = _bwd("xent_bwd_de", x, e, labels, lse, dl, smoothing, e)
+def xent_bwd_de(x, e, labels, lse, dl, smoothing=0.0, v_total=None):
+    """K9: dE ``[V, h]`` in E's dtype (``v_total`` as for K8). Each block
+    owns its rows of dE, so two runs on the same inputs give the same
+    bits."""
+    out = _bwd("xent_bwd_de", x, e, labels, lse, dl, smoothing, v_total, e)
     xent_bwd_de.launches += 1
     return out
 
 
 xent_fwd.launches = 0
+xent_fwd_partials.launches = 0
 xent_bwd_dx.launches = 0
 xent_bwd_de.launches = 0

@@ -7,7 +7,9 @@
                   synthetic trace
 * ``lifecycle`` — request event log, TTFT/TPOT derivation
 * ``weights``   — the GPTModel parameter tree: carried over from JAX
-                  (``from_jax_params``) or drawn from a torch seed
+                  (``from_jax_params``) or drawn from a torch seed, and
+                  one tensor-parallel rank's slices of it
+                  (``shard_param_tree``)
 * ``model``     — packed prefill and greedy decode step over the tree,
                   through the prefill and decode attention kernels
 * ``engine``    — ``ServingEngine``: cache, parameters and scheduler in
@@ -33,5 +35,6 @@ from apex_tpu_torch.serving.weights import (  # noqa: F401
     init_gpt_params,
     load_param_tree,
     param_tree,
+    shard_param_tree,
     to_numpy_tree,
 )

@@ -28,6 +28,12 @@ the compute dtype themselves.
   :func:`param_tree` reads the model's parameters back as the tree. The
   round trip is bit-exact, so one converted tree serves the serving and
   the training slice.
+* :func:`shard_param_tree` is the converter's tensor-parallel form: one
+  rank's slices of a full tree, by the rule with which
+  :func:`apex_tpu_torch.transformer.tensor_parallel.layers._sharded_init`
+  draws a rank's parameters, so that ``load_param_tree(model,
+  shard_param_tree(from_jax_params(tree, cfg), cfg, rank, tp))`` feeds
+  rank ``rank`` of a ``GPTModel(cfg, tp_size=tp)``.
 * :func:`init_gpt_params` draws the same tree shapes from a
   ``torch.Generator`` — normal(0, ``init_method_std``), the two output
   projections scaled by ``1/sqrt(2 * num_layers)`` as GPTModel does,
@@ -105,6 +111,54 @@ def from_jax_params(tree, cfg, device=None):
         return torch.from_numpy(np.array(arr)).to(device)
 
     return _build(param_shapes(cfg), convert)
+
+
+# the axis along which each sharded leaf is split over the tp group:
+# column-parallel weights and biases and the word table along their rows,
+# row-parallel weights along their columns; every other leaf (row-parallel
+# biases, layer norms, position embeddings) is whole on every rank
+_SHARD_AXES = (("word_embeddings", 0),
+               ("query_key_value/weight", 0), ("query_key_value/bias", 0),
+               ("dense_h_to_4h/weight", 0), ("dense_h_to_4h/bias", 0),
+               ("self_attention/dense/weight", 1),
+               ("dense_4h_to_h/weight", 1))
+
+
+def shard_axis(name):
+    """The axis leaf ``name`` (slash-joined) is split along at tp > 1, or
+    None where every rank holds it whole."""
+    for suffix, axis in _SHARD_AXES:
+        if name.endswith(suffix):
+            return axis
+    return None
+
+
+def shard_param_tree(tree, cfg, rank, tp):
+    """Rank ``rank``'s slices of the full parameter tree ``tree`` (torch
+    or numpy leaves, the shapes ``cfg`` implies) at tensor-parallel size
+    ``tp``; whole leaves are passed through."""
+    if not 0 <= rank < tp:
+        raise ValueError(f"rank {rank} outside a tp group of {tp}")
+
+    def shard(shape, name):
+        node = tree
+        for key in name.split("/"):
+            node = node[key]
+        if tuple(node.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(node.shape)} != {shape} "
+                             f"implied by the config")
+        axis = shard_axis(name)
+        if axis is None or tp == 1:
+            return node
+        if shape[axis] % tp:
+            raise ValueError(f"{name}: {shape[axis]} rows along axis {axis} "
+                             f"do not split over {tp} ranks")
+        chunk = shape[axis] // tp
+        index = [slice(None)] * len(shape)
+        index[axis] = slice(rank * chunk, (rank + 1) * chunk)
+        return node[tuple(index)]
+
+    return _build(param_shapes(cfg), shard)
 
 
 def to_numpy_tree(params):

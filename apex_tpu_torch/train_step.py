@@ -13,6 +13,14 @@ the counterpart of ``benchmarks/profile_gpt.py:181-207
 make_train_step(model, rng_of)``: each step draws its masks and seeds
 from the generator where the JAX step folds the step index into its key.
 
+At tensor-parallel size above 1 (a ``GPTModel(cfg, tp_size=tp)`` in each
+rank of the group) the scaler is a
+:class:`apex_tpu_torch.transformer.amp.GradScaler`, whose overflow flag is
+the MAX over the group, so that every rank skips the same steps. Without
+sequence parallelism the replicated parameters (layer norms, the position
+table, row-parallel biases) get the same gradient on every rank, and each
+rank's Adam keeps them equal.
+
 The step never waits on the host: the overflow decision is a device bool
 and the skip is ``torch.where``, so nothing calls ``.item()`` or
 ``bool()`` on a device tensor and a caller can queue steps back to back.
@@ -26,6 +34,8 @@ object. Gradients are dropped (``grad = None``) at the start of a step.
 
 import torch
 
+from apex_tpu_torch.transformer.amp import GradScaler
+
 
 def make_one_step(model, scaler, opt, dropout_generator=None):
     """``one_step(opt_state, scaler_state, ids, pos, labels) ->
@@ -33,6 +43,12 @@ def make_one_step(model, scaler, opt, dropout_generator=None):
     per-token loss, a 0-d fp32 device tensor. With ``dropout_generator``
     the model runs with ``deterministic=False``; without it the step is
     deterministic."""
+    if getattr(model, "tp_size", 1) > 1 and not isinstance(scaler,
+                                                          GradScaler):
+        raise ValueError("make_one_step: at tensor-parallel size "
+                         f"{model.tp_size} the scaler must be a "
+                         "transformer.amp.GradScaler (its overflow flag is "
+                         "shared by the ranks)")
     params = dict(model.named_parameters())
     drop = {}
     if dropout_generator is not None:

@@ -1,1 +1,7 @@
-"""Transformer runtime (counterpart of ``apex_tpu.transformer``)."""
+"""Transformer runtime (counterpart of ``apex_tpu.transformer``):
+``parallel_state`` (the tensor-parallel groups on torch.distributed),
+``tensor_parallel``, ``amp`` (the model-parallel ``GradScaler``),
+``functional`` (the fused softmax), ``utils`` and ``testing`` (the
+standalone GPT)."""
+
+from apex_tpu_torch.transformer import parallel_state  # noqa: F401

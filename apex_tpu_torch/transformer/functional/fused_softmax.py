@@ -17,11 +17,12 @@ What it keeps from the JAX module:
 
 The port has no dispatch table. ``use_pallas=True`` (the default) takes
 the kernel, :func:`apex_tpu_torch.ops.softmax.scaled_masked_softmax` (K10
-forward and K11 backward on a CUDA tensor, their plain versions on a CPU
-tensor), wherever ``is_kernel_available`` holds; a shape the kernel does
-not take (over 4096 keys through the generic variant, a mask that does
-not broadcast to the scores along their leading axes) raises there rather
-than quietly taking the plain function. ``False`` pins the plain
+forward and K11 backward on a CUDA tensor, or K10L/K11L above 4096 keys
+through the generic variant; their plain versions on a CPU tensor),
+wherever ``is_kernel_available`` holds; a mask the kernel does not take
+(one that does not broadcast to the scores along their leading axes)
+raises there rather than quietly taking the plain function. ``False``
+pins the plain
 function, :func:`apex_tpu_torch.ops.softmax.scaled_masked_softmax_reference`,
 the kernel's own plain version. It is the same function either way: the
 fused causal path ignores an explicit mask, as the JAX module's does, so
@@ -166,8 +167,8 @@ class FusedScaleMaskSoftmax:
 
 class GenericFusedScaleMaskSoftmax(FusedScaleMaskSoftmax):
     """The generic variant: the kernel branch needs only the fusion flag
-    and a half dtype. It keeps the kernel's limit of 4096 keys (longer
-    rows raise); ``use_pallas=False`` takes any length."""
+    and a half dtype, and takes any length (K10/K11 up to 4096 keys,
+    K10L/K11L above), as the JAX variant serves any length."""
 
     def __init__(self, input_in_fp16, input_in_bf16, mask_func,
                  softmax_in_fp32, scale, use_pallas=True):

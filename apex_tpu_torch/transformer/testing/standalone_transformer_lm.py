@@ -3,13 +3,19 @@
 
 :class:`TransformerConfig` keeps the JAX package's field names and
 defaults, so one set of keyword arguments builds the same configuration
-on either side. The modules port the training path at tp=1, in the JAX
-package's ``[s, b, h]`` hidden layout and numerics:
+on either side. The modules port the training path, in the JAX
+package's ``[s, b, h]`` hidden layout and numerics, at tensor-parallel
+size 1 or, after :func:`apex_tpu_torch.transformer.parallel_state.
+initialize_model_parallel`, above it: each rank holds its shard of the
+heads, of the MLP's inner width and of the vocabulary (the word table's
+rows), and the layers of :mod:`..tensor_parallel` sum over the tp group.
 
 * :class:`Embedding` (``:663``) — word and position rows summed in the
   parameter dtype (fp32), transposed to ``[s, b, h]``, cast to the
   compute dtype, then hidden dropout in training (``:709``);
-* :class:`ParallelAttention` (``:315``) — the causal, no-mask branches:
+* :class:`ParallelAttention` (``:315``) over this rank's ``np / tp``
+  heads (the fused qkv is interleaved per head, so a contiguous shard of
+  its output rows is a shard of the heads) — the causal, no-mask branches:
   without dropout the flash branch (``:402-406``, ``:471-482``), in
   training with attention dropout the in-kernel dropout route
   (``:421-470``) with a seed from :func:`derive_attention_dropout_seed`;
@@ -29,7 +35,7 @@ package's ``[s, b, h]`` hidden layout and numerics:
   under ``apply_query_key_layer_scaling`` (which forces the softmax into
   fp32, ``:337-342``), dropout on the probabilities through
   :func:`apex_tpu_torch.utils.train_dropout`, and the context ``bmm``;
-* :class:`ParallelMLP` (``:282``) — h→4h, bias + tanh GELU, 4h→h;
+* :class:`ParallelMLP` (``:282``) — h→4h/tp, bias + tanh GELU, 4h/tp→h;
 * :class:`ParallelTransformerLayer` (``:534``) — pre-LN block with
   ``residual + dropout(x + bias)`` in the compute dtype (``:570-605``);
   with ``recompute_granularity="selective"`` its attention is recomputed
@@ -38,11 +44,15 @@ package's ``[s, b, h]`` hidden layout and numerics:
   final layer norm; with ``"full"`` each layer is recomputed in the
   backward (``:626-630``);
 * :func:`parallel_lm_logits` (``:217``) and :class:`GPTModel`
-  (``:744``) — logits against the tied word table, and the per-token
-  vocab-parallel cross entropy ``[b, s]`` when labels are given; or, with
-  ``fused_lm_head=True`` and a shape :func:`apex_tpu_torch.ops.xent.
-  supported` admits, the fused LM head (``:846-872``, tp=1) that never
-  materializes the logits (K7-K9 on the card).
+  (``:744``) — logits against this rank's shard of the tied word table,
+  and the per-token vocab-parallel cross entropy ``[b, s]`` when labels
+  are given; or, with ``fused_lm_head=True`` and a shard shape
+  :func:`apex_tpu_torch.ops.xent.supported` admits (``_fused_head_applies
+  :767``), the fused LM head (``:846-893``) that never materializes the
+  logits: at tp = 1 :func:`~apex_tpu_torch.ops.xent.linear_cross_entropy`
+  (K7-K9 on the card), above it
+  :func:`~apex_tpu_torch.ops.xent.linear_cross_entropy_sharded` (K7p, K8
+  and K9 on the shard, the partials combined over the group).
 
 Layer norms are :class:`FusedLayerNorm` (K3/K4 on the card). Parameter
 names give ``state_dict`` keys equal to the JAX tree paths with ``/``
@@ -59,8 +69,10 @@ draw from the scores' coordinates. Recompute runs through
 generators, so the recomputed region restores the explicit generator's
 state from before its first forward and puts back the later state after
 it: the recompute draws the same masks and seed, and later steps draw
-new ones. What the slice does not model raises: MoE, sequence/context
-parallelism, tp > 1, and an explicit ``attention_mask``.
+new ones. At tp > 1 every rank draws the same values from its generator
+(the hidden masks are equal across ranks), and the attention seed mixes
+the rank in. What the slice does not model raises: MoE,
+sequence/context parallelism, and an explicit ``attention_mask``.
 """
 
 import contextlib
@@ -76,7 +88,8 @@ from torch.utils import checkpoint
 from apex_tpu_torch import default_device
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops import xent
-from apex_tpu_torch.ops.attention import fused_attention
+from apex_tpu_torch.ops.attention import _fmix32, _mul32, fused_attention
+from apex_tpu_torch.transformer import parallel_state
 from apex_tpu_torch.transformer.enums import AttnMaskType
 from apex_tpu_torch.transformer.functional import FusedScaleMaskSoftmax
 from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
@@ -86,10 +99,14 @@ from apex_tpu_torch.transformer.tensor_parallel.layers import (
     ColumnParallelLinear,
     RowParallelLinear,
     _mm,
-    check_single_rank,
+    _sharded_init,
     scaled_init_std,
     vocab_parallel_embed,
 )
+from apex_tpu_torch.transformer.tensor_parallel.mappings import (
+    copy_to_tensor_model_parallel_region,
+)
+from apex_tpu_torch.transformer.utils import divide
 from apex_tpu_torch.utils import bias_dropout_add, train_dropout
 
 
@@ -171,18 +188,28 @@ def check_training_config(cfg):
         raise ValueError("GPTModel does not support: " + "; ".join(problems))
 
 
+# the golden-ratio constant that spreads the ranks before the hash
+_RANK_MIX = 0x9E3779B9
+
+
 def derive_attention_dropout_seed(generator, rank=0):
-    """The int32 seed of one layer's in-kernel attention dropout
-    (counterpart of ``:1035``): one draw in ``[-2**31, 2**31 - 1)`` from
-    ``generator``, as a ``[1]`` tensor on the generator's device, so that
-    no step waits on the host for it. ``rank`` is the tensor-parallel rank
-    the JAX function folds in; the port runs tp=1, so it takes rank 0
-    only."""
-    if rank != 0:
-        raise ValueError("derive_attention_dropout_seed: tensor-parallel "
-                         "ranks other than 0 are not ported")
-    return torch.randint(-2 ** 31, 2 ** 31 - 1, (1,), generator=generator,
+    """The int32 seed of one layer's in-kernel attention dropout on
+    tensor-parallel rank ``rank`` (counterpart of ``:1035``, which folds the
+    rank into the key), as a ``[1]`` tensor on the generator's device, so
+    that no step waits on the host for it. Every rank draws the same value
+    in ``[-2**31, 2**31 - 1)`` from ``generator`` (so the ranks' generators
+    stay in step); rank 0 keeps it as it is, and rank r > 0 takes murmur3's
+    fmix32 of ``draw ^ (r * 0x9E3779B9 mod 2**32)`` as uint32, read back as
+    int32, so that the ranks' head shards draw different masks."""
+    seed = torch.randint(-2 ** 31, 2 ** 31 - 1, (1,), generator=generator,
                          device=generator.device, dtype=torch.int32)
+    if rank == 0:
+        return seed
+    mixed = _fmix32((seed.long() & 0xFFFFFFFF)
+                    ^ _mul32(torch.tensor(int(rank), device=seed.device),
+                             _RANK_MIX))
+    return torch.where(mixed >= 2 ** 31, mixed - 2 ** 32, mixed).to(
+        torch.int32)
 
 
 @contextlib.contextmanager
@@ -215,8 +242,11 @@ def _recomputed(fn, generator, *args):
 
 
 def parallel_lm_logits(hidden, word_embeddings_weight, bias=None):
-    """Logits against the tied word table: the table cast to the hidden
-    dtype, fp32 accumulation, rounded to the hidden dtype."""
+    """Logits against this rank's shard of the tied word table (the
+    hidden through copy-to, so its gradient sums over the tp group): the
+    table cast to the hidden dtype, fp32 accumulation, rounded to the
+    hidden dtype; ``[..., vocab / tp]``, not gathered."""
+    hidden = copy_to_tensor_model_parallel_region(hidden)
     logits = _mm(hidden, word_embeddings_weight)
     if bias is not None:
         logits = logits + bias.to(logits.dtype)
@@ -224,7 +254,7 @@ def parallel_lm_logits(hidden, word_embeddings_weight, bias=None):
 
 
 class ParallelMLP(nn.Module):
-    """h → 4h (column) → tanh GELU → h (row)."""
+    """h → 4h (column, this rank's 4h / tp) → tanh GELU → h (row)."""
 
     def __init__(self, cfg, device, generator):
         super().__init__()
@@ -232,9 +262,10 @@ class ParallelMLP(nn.Module):
         kw = dict(skip_bias_add=True, params_dtype=cfg.params_dtype,
                   device=device, generator=generator)
         self.dense_h_to_4h = ColumnParallelLinear(
-            cfg.hidden_size, cfg.ffn_size, init_std=std, **kw)
+            cfg.hidden_size, cfg.ffn_size, gather_output=False, init_std=std,
+            **kw)
         self.dense_4h_to_h = RowParallelLinear(
-            cfg.ffn_size, cfg.hidden_size,
+            cfg.ffn_size, cfg.hidden_size, input_is_parallel=True,
             init_std=scaled_init_std(std, cfg.num_layers), **kw)
 
     def forward(self, hidden):
@@ -261,10 +292,14 @@ class ParallelAttention(nn.Module):
         proj = cfg.num_attention_heads * cfg.head_dim
         kw = dict(params_dtype=cfg.params_dtype, device=device,
                   generator=generator)
+        self.num_local_heads = divide(
+            cfg.num_attention_heads,
+            parallel_state.get_tensor_model_parallel_world_size())
         self.query_key_value = ColumnParallelLinear(
-            cfg.hidden_size, 3 * proj, init_std=cfg.init_method_std, **kw)
+            cfg.hidden_size, 3 * proj, gather_output=False,
+            init_std=cfg.init_method_std, **kw)
         self.dense = RowParallelLinear(
-            proj, cfg.hidden_size, skip_bias_add=True,
+            proj, cfg.hidden_size, input_is_parallel=True, skip_bias_add=True,
             init_std=scaled_init_std(cfg.init_method_std, cfg.num_layers),
             **kw)
         # the scores path's scaling (:331-343): query-key layer scaling
@@ -288,7 +323,7 @@ class ParallelAttention(nn.Module):
             raise ValueError("ParallelAttention: only the causal branch with "
                              "no explicit mask is ported")
         cfg = self.cfg
-        np_, hd = cfg.num_attention_heads, cfg.head_dim
+        np_, hd = self.num_local_heads, cfg.head_dim
         s, b = hidden.shape[0], hidden.shape[1]
         qkv = self.query_key_value(hidden).reshape(s, b, np_, 3 * hd)
         q, k, v = torch.split(qkv, hd, dim=-1)          # [s, b, np, hd]
@@ -300,7 +335,9 @@ class ParallelAttention(nn.Module):
         drop = {}
         if dropout:
             drop = dict(dropout_p=float(cfg.attention_dropout),
-                        dropout_seed=derive_attention_dropout_seed(generator))
+                        dropout_seed=derive_attention_dropout_seed(
+                            generator,
+                            parallel_state.get_tensor_model_parallel_rank()))
         ctx = fused_attention(q, k, v, causal=True,
                               sm_scale=1.0 / math.sqrt(hd), **drop)
         ctx = ctx.permute(2, 0, 1, 3).reshape(s, b, np_ * hd)
@@ -422,7 +459,8 @@ class Embedding(nn.Module):
 
 
 class GPTModel(nn.Module):
-    """GPT language model at tp=1.
+    """GPT language model, at tensor-parallel size ``tp_size`` (which must
+    be the size :mod:`..parallel_state` was initialized with; 1 without).
 
     ``forward(input_ids, position_ids, attention_mask=None, labels=None,
     deterministic=True, dropout_generator=None)``: ids and positions ``[b,
@@ -431,33 +469,45 @@ class GPTModel(nn.Module):
     ``torch.Generator`` on the model's device; required when either rate
     is above 0), as the JAX model draws from its "dropout" rng; returns
     the fp32
-    per-token loss ``[b, s]`` when labels are given, else the logits
-    ``[b, s, vocab]`` in the compute dtype. With labels,
-    ``cfg.fused_lm_head`` True and a shape :func:`xent.supported` admits,
-    the loss comes from :func:`xent.linear_cross_entropy` over the
-    ``[b*s, h]`` hidden in ``[b, s]`` row order (the JAX ``:866``);
-    otherwise, and always without labels, from the materialized logits,
+    per-token loss ``[b, s]`` when labels are given, else this rank's
+    logits ``[b, s, vocab / tp]`` in the compute dtype. With labels,
+    ``cfg.fused_lm_head`` True and a shard shape :func:`xent.supported`
+    admits (``b*s, vocab / tp, h``), the loss comes from
+    :func:`xent.linear_cross_entropy` (tp = 1) or
+    :func:`xent.linear_cross_entropy_sharded` (tp > 1, dX summed over the
+    group) over the ``[b*s, h]`` hidden in ``[b, s]`` row order (the JAX
+    ``:866-879``); otherwise, and always without labels, from the
+    materialized logits and the vocab-parallel cross entropy,
     as the JAX model runs with ``APEX_DISPATCH=off`` (the port has no
     dispatch table, so ``None`` means the materialized head). Parameters
     are drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device`` (``None``
     means ``cuda``): normal(0, ``init_method_std``), the two output
     projections scaled by ``1/sqrt(2 num_layers)``, zero biases, unit
-    layer-norm scales. Parity runs load a JAX tree instead
-    (:func:`apex_tpu_torch.serving.weights.load_param_tree`).
+    layer-norm scales; each sharded weight is drawn at full shape and
+    sliced, so every rank holds its shard of the model tp = 1 builds from
+    the same seed. Parity runs load a JAX tree instead
+    (:func:`apex_tpu_torch.serving.weights.load_param_tree`, after
+    :func:`~apex_tpu_torch.serving.weights.shard_param_tree` at tp > 1).
     """
 
     def __init__(self, cfg, device=None, seed=0, tp_size=1):
         super().__init__()
         check_training_config(cfg)
-        check_single_rank(tp_size, cfg.sequence_parallel)
+        self.tp_size = parallel_state.get_tensor_model_parallel_world_size()
+        if tp_size != self.tp_size:
+            raise ValueError(
+                f"GPTModel: tensor-parallel size {tp_size}, but the "
+                f"tensor-parallel group has {self.tp_size} rank(s); call "
+                f"parallel_state.initialize_model_parallel({tp_size}, "
+                f"backend=...) first")
         device = default_device(device)
         gen = torch.Generator(device=device)
         gen.manual_seed(int(seed))
         self.cfg = cfg
-        self.word_embeddings = nn.Parameter(torch.empty(
-            cfg.vocab_size, cfg.hidden_size, dtype=cfg.params_dtype,
-            device=device).normal_(0.0, cfg.init_method_std, generator=gen))
+        self.word_embeddings = nn.Parameter(_sharded_init(
+            (cfg.vocab_size, cfg.hidden_size), 0, cfg.init_method_std,
+            cfg.params_dtype, device, gen))
         self.embedding = Embedding(cfg, device, gen)
         self.transformer = ParallelTransformer(cfg, device, gen)
 
@@ -477,10 +527,17 @@ class GPTModel(nn.Module):
         hidden = self.transformer(hidden, attention_mask, gen)
         s, b, h = hidden.shape
         if (labels is not None and cfg.fused_lm_head
-                and xent.supported(b * s, cfg.vocab_size, h)):
+                and xent.supported(b * s, cfg.vocab_size // self.tp_size,
+                                   h)):
             x2d = hidden.transpose(0, 1).reshape(b * s, h)
-            loss = xent.linear_cross_entropy(
-                x2d, self.word_embeddings.to(x2d.dtype), labels.reshape(-1))
+            table = self.word_embeddings.to(x2d.dtype)
+            if self.tp_size == 1:
+                loss = xent.linear_cross_entropy(x2d, table,
+                                                 labels.reshape(-1))
+            else:
+                loss = xent.linear_cross_entropy_sharded(
+                    x2d, table, labels.reshape(-1),
+                    parallel_state.get_tensor_model_parallel_group())
             return loss.reshape(b, s)
         logits = parallel_lm_logits(hidden, self.word_embeddings)
         logits = logits.transpose(0, 1)               # [s, b, v] → [b, s, v]

@@ -2,6 +2,9 @@
 
     python3 chip_smoke.py
 
+runs every phase below on one card; on a machine with two or more, the
+tp = 2 phase gives each rank a card of its own over NCCL.
+
 Needs one CUDA card and the CUDA toolkit (``nvcc``); without a card it
 exits non-zero before printing any result. It imports nothing of JAX
 and nothing of ``apex_tpu``. Phases, in order (any failure raises and
@@ -21,7 +24,17 @@ exits non-zero before the last line):
    over the int8 KV tier's pages, the serving shape; also against K2
    over the unquantized pages within the int8 band, 0.12) and K10/K11
    (the scores path's softmax, ``[8, 12, 1024, 1024]`` bf16, K10 causal
-   and with an explicit ``[8, 1, 1024, 1024]`` mask). K1d's mask
+   and with an explicit ``[8, 1, 1024, 1024]`` mask); K10L/K11L (the
+   generic softmax's rows over 4096 keys, ``[1, 12, 1024, 8192]`` and the
+   ragged 5000 keys, bf16); K7p with K8 and K9 on the two vocabulary
+   shards of the tp = 2 head (x ``[8192, 768]``, E ``[50432, 768]``
+   split into 25216-row shards, bf16): each kernel against its plain
+   version, and the shards' partials combined in torch, their dX summed
+   and their dE stacked against K7-K9 on the whole table, at label
+   smoothing 0 and 0.1 (``XENT_PARTIAL_TOL``, ``XENT_SHARD_DX_L2_TOL``).
+   Then the long-row kernels' path: ``GenericFusedScaleMaskSoftmax`` on
+   ``[1, 12, 1024, 8192]`` bf16 scores, forward and backward, must launch
+   K10L and K11L once each and nothing else. K1d's mask
    is also recovered exactly from its output (q = k = 0, V the identity,
    fp32: O = mscale / 128) and must equal the plain mask in every
    element. Each kernel is held against its plain PyTorch
@@ -35,8 +48,10 @@ exits non-zero before the last line):
    ``F.cross_entropy``, or their backward through ``torch.autograd.grad``
    on a graph built outside the timed region; SDPA over pre-gathered,
    pre-dequantized K/V for K2q; ``torch.softmax`` over the fp32-upcast,
-   pre-masked scores for K10 and ``torch._softmax_backward_data`` for
-   K11 — timed here, never used by the port), each over launches that
+   pre-masked scores for K10 and K10L and ``torch._softmax_backward_data``
+   for K11 and K11L; for K7p ``x @ E_shard.T`` then the row max,
+   ``torch.logsumexp`` and the gathered target — timed here, never used
+   by the port), each over launches that
    find the 50 MB L2 cache flushed
    (the kernel's own launches also give their [min, median, max],
    ``ms_spread``); and the least time an H100 SXM could take for the
@@ -97,7 +112,20 @@ exits non-zero before the last line):
    materialized head): the same window and profile with K10 = K11 = 12,
    K3 = K4 = 25 and no attention kernel launched per step, side by side
    with the in-kernel dropout window, and its kernel path against its
-   plain path at b=2 on the same masks.
+   plain path at b=2 on the same masks. Last, this slice's main path:
+   GPT-2-small at tensor-parallel size 2 (the vocabulary padded to 50432
+   = ``pad_vocab_size(50257, 2)``, the fused head, no dropout) trained by
+   ``make_one_step`` with the ``GradScaler`` in two ranks started with
+   ``spawn`` through a ``file://`` store: over NCCL, a card each, where
+   the machine has two or more cards, else both on the one card over
+   gloo (which stages the all-reduces of CUDA tensors through the host).
+   One step at b=2 must agree with a tp = 1 step on the same seed within
+   the training bands (the loss; each gradient, the shards'); then the
+   window at b=8, s=1024 per rank: step ms, tokens/s, MFU, peak memory,
+   launches per step (K7p = K8 = K9 = 1 and no K7; K1 = K5 = K6 = 12; K3 =
+   K4 = 25), the losses of steps 1-7 equal on the two ranks and falling,
+   rank 0's profiled window, and the all-reduces a step makes (count,
+   bytes) with the time of one of a ``[1024, 8, 768]`` bf16 activation.
 6. one JSON line per kernel, the ``{"kernels": [...]}`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -158,6 +186,24 @@ SOFTMAX_Y_TOL = 2.0 ** -8
 # H100 measured at most 1.8e-5 there, in fp16)
 K2Q_L2_TOL = 1e-4
 TRAIN = dict(batch=8, seq=1024, warmup=2, timed=5, lr=1e-4)
+# K7p's row partials against its plain version: the largest |diff| over
+# max(1, the largest |value|) of each partial; the shards' dX (each
+# rounded to bf16, then summed in bf16 as the ranks' all-reduce does)
+# against K8's one rounding on the whole table, relative L2. An H100
+# measured 3.2e-6 and 2.9e-3 at this phase's shape (the card tests' cases
+# at most 3.6e-6 and 3.4e-3 in bf16)
+XENT_PARTIAL_TOL = 1e-5
+XENT_SHARD_DX_L2_TOL = 8e-3
+# the long-row softmax kernels' key lengths (K10L/K11L; a ragged one and
+# the longest the phase times)
+LONG_SOFTMAX_KEYS = (5000, 8192)
+# tensor-parallel training: the size, GPT-2's vocabulary padded to a
+# multiple of 128 x tp (pad_vocab_size(50257, 2)), so that each shard is
+# whole 128-row tiles and the sharded fused head applies; the ranks' time
+# limit
+TP_SIZE = 2
+TP_VOCAB = 50432
+TP_TIMEOUT_S = 600
 
 # the serving configuration the repo benchmarks (GPT-2 small)
 MODEL = dict(hidden_size=768, num_layers=12, num_attention_heads=12,
@@ -596,6 +642,242 @@ def phase_softmax_kernels(dev, flush):
              library="torch._softmax_backward_data on the same y and g",
              bound_ms=bwd_bound[0], bound_by=bwd_bound[1], bytes=bwd_bytes,
              flops=4 * elems)]
+
+
+def phase_long_softmax_kernels(dev, flush):
+    """K10L and K11L, the generic softmax's rows over 4096 keys: x, g [1,
+    12, 1024, 8192] bf16 (16-byte vectors) and the ragged [1, 12, 1024,
+    5000] (5000 keys take 16-byte vectors too; K10L and K11L tile any
+    length), no mask, scale 2.0, each against its plain version by
+    relative L2 (``SOFTMAX_L2_TOL``) and by the largest element error;
+    times against ``torch.softmax`` and ``torch._softmax_backward_data``
+    on the fp32-upcast scores."""
+    from apex_tpu_torch.ops import softmax, softmax_cuda
+
+    H, S = 12, TRAIN["seq"]
+    scale = 2.0
+    rows = []
+    for sk in LONG_SOFTMAX_KEYS:
+        gen = torch.Generator(device=dev).manual_seed(sk)
+        x = (torch.randn(1, H, S, sk, generator=gen, device=dev) * 3).to(
+            torch.bfloat16)
+        g = torch.randn(1, H, S, sk, generator=gen, device=dev).to(
+            torch.bfloat16)
+        y = softmax_cuda.softmax_fwd_long(x, None, scale, False)
+        dx = softmax_cuda.softmax_bwd_long(y, g, scale)
+        ry = softmax.scaled_masked_softmax_reference(x, None, scale, False)
+        rdx = softmax.scaled_masked_softmax_backward_reference(y, g, scale)
+        torch.cuda.synchronize()
+        errs = {"fwd": {"max_abs_err": _max_err(y, ry),
+                        "rel_l2": _rel_l2(y, ry)},
+                "bwd": {"max_abs_err": _max_err(dx, rdx),
+                        "rel_l2": _rel_l2(dx, rdx)}}
+        del ry, rdx
+        _log(f"long-row softmax kernels, sk={sk}: {errs} (tol relative L2 "
+             f"{SOFTMAX_L2_TOL}, max |y diff| {SOFTMAX_Y_TOL})")
+        if (errs["fwd"]["rel_l2"] > SOFTMAX_L2_TOL
+                or errs["bwd"]["rel_l2"] > SOFTMAX_L2_TOL
+                or errs["fwd"]["max_abs_err"] > SOFTMAX_Y_TOL):
+            raise AssertionError(f"K10L/K11L disagree with their plain "
+                                 f"versions at sk={sk}: {errs}")
+        spreads = [[], []]
+        fwd_ms = _time_ms(lambda: softmax_cuda.softmax_fwd_long(
+            x, None, scale, False), flush, spread=spreads[0])
+        bwd_ms = _time_ms(lambda: softmax_cuda.softmax_bwd_long(
+            y, g, scale), flush, spread=spreads[1])
+        fwd_plain = _time_ms(lambda: softmax.scaled_masked_softmax_reference(
+            x, None, scale, False), flush, reps=5)
+        bwd_plain = _time_ms(
+            lambda: softmax.scaled_masked_softmax_backward_reference(
+                y, g, scale), flush, reps=5)
+        xs = x.float() * scale
+        fwd_lib = _time_ms(lambda: torch.softmax(xs, dim=-1), flush)
+        del xs
+        bwd_lib = _time_ms(lambda: torch._softmax_backward_data(
+            g, y, -1, torch.bfloat16), flush)
+        elems = H * S * sk
+        fwd_bound = _bound(2 * 2 * elems, 5 * elems, FP32_FLOPS_PER_S)
+        bwd_bound = _bound(3 * 2 * elems, 4 * elems, FP32_FLOPS_PER_S)
+        common = {"route": "cuda", "source": "apex_tpu_torch/csrc/softmax.cu",
+                  "shape": f"x, g [1,{H},{S},{sk}] bf16, no mask, scale "
+                           f"{scale}", "rel_l2_tol": SOFTMAX_L2_TOL}
+        rows.append([
+            dict(common, name="softmax_fwd_long",
+                 replaces="apex_tpu/ops/softmax_pallas.py:185",
+                 **errs["fwd"], tol=SOFTMAX_Y_TOL, ms=fwd_ms,
+                 kernel_ms=fwd_ms, ms_spread=spreads[0], plain_ms=fwd_plain,
+                 library_ms=fwd_lib,
+                 library="torch.softmax over the fp32-upcast scores",
+                 bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
+                 bytes=4 * elems, flops=5 * elems),
+            dict(common, name="softmax_bwd_long",
+                 replaces="apex_tpu/ops/softmax_pallas.py:212",
+                 **errs["bwd"], ms=bwd_ms, kernel_ms=bwd_ms,
+                 ms_spread=spreads[1], plain_ms=bwd_plain,
+                 library_ms=bwd_lib,
+                 library="torch._softmax_backward_data on the same y and g",
+                 bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+                 bytes=6 * elems, flops=4 * elems)])
+        del x, g, y, dx
+        torch.cuda.empty_cache()
+    # the main row is the longest; the ragged length rides along in it
+    main, ragged = rows[-1], rows[0]
+    for row, other in zip(main, ragged):
+        row["ragged_5000"] = {k: other[k] for k in (
+            "max_abs_err", "rel_l2", "ms", "ms_spread", "plain_ms",
+            "library_ms", "bound_ms", "bound_by")}
+    return main
+
+
+def phase_generic_softmax_path(dev):
+    """The path the long-row kernels serve: ``GenericFusedScaleMaskSoftmax``
+    (bf16 input, fp32 softmax, scale 2.0) forward and backward on scores
+    ``[1, 12, 1024, 8192]``, a user's call at its default
+    ``use_pallas=True``. It must launch K10L and K11L once each and no
+    other counted kernel; the counts are read around this call alone."""
+    from apex_tpu_torch.transformer.functional import (
+        GenericFusedScaleMaskSoftmax)
+
+    sk = LONG_SOFTMAX_KEYS[-1]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    x = (torch.randn(1, 12, TRAIN["seq"], sk, generator=gen, device=dev)
+         * 3).to(torch.bfloat16).requires_grad_()
+    g = torch.randn(x.shape, generator=gen, device=dev).to(torch.bfloat16)
+    module = GenericFusedScaleMaskSoftmax(False, True, None, True, 2.0)
+    counts = _training_counts()
+    for fn in counts.values():
+        fn.launches = 0
+    y = module(x, None)
+    y.backward(g)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counts.items()}
+    want = dict.fromkeys(counts, 0)
+    want.update(softmax_fwd_long=1, softmax_bwd_long=1)
+    _log(f"generic softmax over {sk} keys: launches {launches}")
+    if launches != want or not torch.isfinite(x.grad.float()).all():
+        raise AssertionError(f"the generic softmax over {sk} keys launched "
+                             f"{launches}, want {want}")
+    return launches
+
+
+def _xent_combine(parts, eps, v_total):
+    """The shards' row partials combined in rank order, as the
+    cross-rank combine of ``linear_cross_entropy_sharded`` does it:
+    ``(loss, lse)``."""
+    m = torch.stack([p[0] for p in parts]).amax(dim=0)
+    total = sum(p[1] * torch.exp(p[0] - m) for p in parts)
+    t = sum(p[2] for p in parts)
+    lse = m + torch.log(total)
+    if eps:
+        u = sum(p[3] for p in parts)
+        return lse - (1.0 - eps) * t - eps * u / v_total, lse
+    return lse - t, lse
+
+
+def phase_xent_shard_kernels(dev, flush):
+    """K7p with K8 and K9 on the two vocabulary shards of the tp = 2
+    training shape: x [8192, 768] bf16, E [50432, 768] (GPT-2's
+    vocabulary padded for tp = 2) split into shards of 25216 rows,
+    shard-local labels. K7p on each shard against its plain version
+    (``XENT_PARTIAL_TOL``); the shards' partials combined in rank order in
+    torch against K7 on the whole table (``XENT_LOSS_TOL``,
+    ``XENT_LOSS_L2_TOL``); K8 and K9 on each shard with ``v_total`` =
+    50432, at label smoothing 0 and 0.1, the shards' dX summed against K8
+    and their dE stacked against K9 on the whole table
+    (``XENT_SHARD_DX_L2_TOL``, ``BF16_L2_TOL``). K7p is timed on one
+    shard, as a rank launches it."""
+    from apex_tpu_torch.ops import xent, xent_cuda
+
+    n = TRAIN["batch"] * TRAIN["seq"]
+    V, h, tp = TP_VOCAB, MODEL["hidden_size"], 2
+    vs = V // tp
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn(n, h, generator=gen, device=dev).to(torch.bfloat16)
+    e = (torch.randn(V, h, generator=gen, device=dev) * 0.02).to(
+        torch.bfloat16)
+    labels = torch.randint(0, V, (n,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    dl = (torch.rand(n, generator=gen, device=dev) + 0.5) * (2.0 ** 16 / n)
+    shards = [(e[r * vs:(r + 1) * vs], labels - r * vs) for r in range(tp)]
+    errs = {"partials": 0.0}
+    for eps in (0.0, 0.1):
+        loss, lse = xent_cuda.xent_fwd(x, e, labels, eps)
+        parts = []
+        for es, local in shards:
+            p = xent_cuda.xent_fwd_partials(x, es, local, eps)
+            ref = torch.stack(xent.linear_cross_entropy_partials(
+                x, es, local, eps))
+            torch.cuda.synchronize()
+            if not torch.isfinite(p).all():
+                raise AssertionError("K7p partials are not finite")
+            errs["partials"] = max(errs["partials"], (
+                (p - ref).abs().amax(dim=1)
+                / ref.abs().amax(dim=1).clamp(min=1.0)).max().item())
+            parts.append(p)
+        sloss, slse = _xent_combine(parts, eps, V)
+        dx = xent_cuda.xent_bwd_dx(x, e, labels, lse, dl, eps)
+        de = xent_cuda.xent_bwd_de(x, e, labels, lse, dl, eps)
+        dx_sum, de_parts = None, []
+        for es, local in shards:
+            d = xent_cuda.xent_bwd_dx(x, es, local, slse, dl, eps, v_total=V)
+            dx_sum = d if dx_sum is None else dx_sum + d
+            de_parts.append(xent_cuda.xent_bwd_de(x, es, local, slse, dl, eps,
+                                                  v_total=V))
+        torch.cuda.synchronize()
+        errs[f"eps_{eps}"] = {
+            "loss_max_abs_err": max(_max_err(sloss, loss),
+                                    _max_err(slse, lse)),
+            "loss_rel_l2": max(_rel_l2(sloss, loss), _rel_l2(slse, lse)),
+            "dx_sum_rel_l2": _rel_l2(dx_sum, dx),
+            "de_cat_rel_l2": _rel_l2(torch.cat(de_parts), de)}
+        del dx, de, dx_sum, de_parts
+    _log(f"xent shards (tp=2, V={V}): {errs} (tol partials "
+         f"{XENT_PARTIAL_TOL}, loss {XENT_LOSS_TOL} / {XENT_LOSS_L2_TOL}, "
+         f"dX summed {XENT_SHARD_DX_L2_TOL}, dE {BF16_L2_TOL})")
+    if errs["partials"] > XENT_PARTIAL_TOL:
+        raise AssertionError(f"K7p disagrees with its plain version: {errs}")
+    for eps in (0.0, 0.1):
+        err = errs[f"eps_{eps}"]
+        if (err["loss_max_abs_err"] > XENT_LOSS_TOL
+                or err["loss_rel_l2"] > XENT_LOSS_L2_TOL
+                or err["dx_sum_rel_l2"] > XENT_SHARD_DX_L2_TOL
+                or err["de_cat_rel_l2"] > BF16_L2_TOL):
+            raise AssertionError(f"the shards combined disagree with K7-K9 "
+                                 f"on the whole table (eps {eps}): {err}")
+
+    es, local = shards[0]
+    spread = []
+    ms = _time_ms(lambda: xent_cuda.xent_fwd_partials(x, es, local), flush,
+                  spread=spread)
+    plain_ms = _time_ms(lambda: xent.linear_cross_entropy_partials(
+        x, es, local), flush, reps=3)
+    hit = (local >= 0) & (local < vs)
+    idx = local.clamp(0, vs - 1).long()[:, None]
+
+    def library():
+        logits = x @ es.t()
+        return (logits.amax(dim=1), torch.logsumexp(logits.float(), dim=1),
+                torch.where(hit, logits.gather(1, idx)[:, 0].float(), 0.0))
+
+    lib_ms = _time_ms(library, flush)
+    nbytes = n * h * 2 + vs * h * 2 + n * 4 + 4 * n * 4
+    flops = 2 * n * vs * h
+    bound_ms, bound_by = _bound(nbytes, flops)
+    err0 = errs["eps_0.0"]
+    return {"name": "xent_fwd_partials", "route": "cuda",
+            "source": "apex_tpu_torch/csrc/xent.cu",
+            "replaces": "apex_tpu/ops/xent_pallas.py:339",
+            "shape": f"x [{n},{h}] bf16, E shard [{vs},{h}] bf16 (tp={tp} "
+                     f"of V={V}), shard-local int32 labels",
+            "max_abs_err": err0["loss_max_abs_err"],
+            "partials_max_err": errs["partials"], **errs,
+            "tol": XENT_LOSS_TOL, "rel_l2_tol": XENT_LOSS_L2_TOL,
+            "ms": ms, "kernel_ms": ms, "ms_spread": spread,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library": ("x @ E_shard.T, then the row max, "
+                        "torch.logsumexp and the gathered target"),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "flops": flops}
 
 
 def _cache_bytes(cache):
@@ -1372,20 +1654,26 @@ def _training_counts():
             "xent_bwd_dx": xent_cuda.xent_bwd_dx,
             "xent_bwd_de": xent_cuda.xent_bwd_de,
             "softmax_fwd": softmax_cuda.softmax_fwd,
-            "softmax_bwd": softmax_cuda.softmax_bwd}
+            "softmax_bwd": softmax_cuda.softmax_bwd,
+            "xent_fwd_partials": xent_cuda.xent_fwd_partials,
+            "softmax_fwd_long": softmax_cuda.softmax_fwd_long,
+            "softmax_bwd_long": softmax_cuda.softmax_bwd_long}
 
 
-def _train_cfg(fused=False, dropout=False, recompute="none", scores=False):
+def _train_cfg(fused=False, dropout=False, recompute="none", scores=False,
+               vocab=None):
     """GPT-2-small for training; ``dropout`` sets GPT-2's published hidden
     and attention dropout (``benchmarks/profile_gpt.py:401-425``), on the
     in-kernel route or, with ``scores``, on the scores path (the profile's
     row 10: ``fused_attention_dropout=False``, ``softmax_use_pallas=True``,
-    the materialized head)."""
+    the materialized head); ``vocab`` replaces the vocabulary size (the
+    tensor-parallel windows pad it)."""
     from apex_tpu_torch.transformer.testing import TransformerConfig
 
     drop = DROPOUT_P if dropout else 0.0
     return TransformerConfig(**dict(MODEL, hidden_dropout=drop,
-                                    attention_dropout=drop),
+                                    attention_dropout=drop,
+                                    vocab_size=vocab or MODEL["vocab_size"]),
                              fused_lm_head=fused,
                              recompute_granularity=recompute,
                              fused_attention_dropout=not scores,
@@ -1393,15 +1681,23 @@ def _train_cfg(fused=False, dropout=False, recompute="none", scores=False):
 
 
 def _train_setup(dev, batch, seed=0, fused=False, dropout=False,
-                 recompute="none", scores=False):
+                 recompute="none", scores=False, tp=1, padded=False):
+    """The model, scaler, optimizer, step, states and seeded batch of one
+    training configuration; at ``tp`` > 1 (inside an initialized tp group)
+    this rank's ``GPTModel(tp_size=tp)`` over the padded vocabulary
+    (``TP_VOCAB``) and the ``GradScaler``; ``padded`` gives tp = 1 the
+    padded vocabulary, the tp windows' reference."""
     from apex_tpu_torch.amp import LossScaler
     from apex_tpu_torch.optimizers import fused_adam
     from apex_tpu_torch.train_step import make_one_step
+    from apex_tpu_torch.transformer.amp import GradScaler
     from apex_tpu_torch.transformer.testing import GPTModel
 
-    cfg = _train_cfg(fused, dropout, recompute, scores)
-    model = GPTModel(cfg, device=dev, seed=seed)
-    scaler, opt = LossScaler(), fused_adam(learning_rate=TRAIN["lr"])
+    cfg = _train_cfg(fused, dropout, recompute, scores,
+                     vocab=TP_VOCAB if tp > 1 or padded else None)
+    model = GPTModel(cfg, device=dev, seed=seed, tp_size=tp)
+    scaler = GradScaler() if tp > 1 else LossScaler()
+    opt = fused_adam(learning_rate=TRAIN["lr"])
     rs = np.random.RandomState(0)                 # as bench.py:433-435
     s = TRAIN["seq"]
     ids = torch.from_numpy(rs.randint(0, cfg.vocab_size, (batch, s))).to(dev)
@@ -1704,6 +2000,272 @@ def phase_fused_vs_materialized(dev):
                           fused, _step_grads(model, ids, pos, labels))
 
 
+def _tp_device(rank, backend):
+    """A rank's card: its own over NCCL, the shared first card over gloo."""
+    return torch.device("cuda", rank if backend == "nccl" else 0)
+
+
+def _tp_rank(rank, world, tmp, backend, card):
+    """One rank of the tp = 2 training phase (started with ``spawn``):
+    the parity step at b=2 against the tp = 1 reference the parent saved,
+    then the timed window at b=8, s=1024; the results go to
+    ``tmp/rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.transformer import parallel_state
+
+    dev = _tp_device(rank, backend)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(backend, init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=world)
+    try:
+        parallel_state.initialize_model_parallel(world, backend=backend)
+        out = {"rank": rank, "device": str(dev), "backend": backend,
+               "parity": _tp_parity(dev, rank, world, tmp),
+               "window": _tp_window(dev, rank, card)}
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+        parallel_state.destroy_model_parallel()
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_parity(dev, rank, world, tmp):
+    """This rank's loss and, for each of its parameters, the squared
+    difference of its gradient from the reference's slice and the slice's
+    squared norm (the parent sums them over the ranks)."""
+    from apex_tpu_torch.serving import weights
+
+    model, _, _, _, _, _, ids, pos, labels = _train_setup(
+        dev, 2, seed=1, fused=True, tp=world)
+    loss, grads = _step_grads(model, ids, pos, labels)
+    del model
+    ref = torch.load(f"{tmp}/ref.pt", weights_only=False)
+    tree = {}
+    for name, g in ref["grads"].items():
+        node = tree
+        *path, leaf = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = g
+    mine = weights.shard_param_tree(tree, _train_cfg(fused=True,
+                                                     vocab=TP_VOCAB),
+                                    rank, world)
+    out = {}
+    for name, g in grads.items():
+        node = mine
+        for key in name.split("."):
+            node = node[key]
+        r = node.to(dev).float()
+        out[name] = (((g - r) ** 2).sum().item(), (r ** 2).sum().item(),
+                     weights.shard_axis(name.replace(".", "/")) is not None)
+    return {"loss": loss, "grads": out}
+
+
+def _tp_window(dev, rank, card):
+    """The timed tp = 2 window, as :func:`phase_training` runs a tp = 1
+    one: warm-up, the counts zeroed, the timed steps, the counts, peak
+    memory and losses read after; then two profiled steps (rank 0's
+    profile; rank 1 runs them unprofiled)."""
+    import torch.distributed as dist
+
+    b, s = TRAIN["batch"], TRAIN["seq"]
+    t0 = time.perf_counter()
+    (model, scaler, opt, step, opt_state, ss, ids, pos,
+     labels) = _train_setup(dev, b, fused=True, tp=TP_SIZE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    losses = []
+    for _ in range(TRAIN["warmup"]):
+        opt_state, ss, loss = step(opt_state, ss, ids, pos, labels)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    dist.barrier()
+    counts = _training_counts()
+    for fn in counts.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    for _ in range(TRAIN["timed"]):
+        opt_state, ss, loss = step(opt_state, ss, ids, pos, labels)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counts.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    vals = [x.item() for x in losses]
+    step_ms = wall / TRAIN["timed"] * 1e3
+    dist.barrier()
+
+    def two_steps():
+        nonlocal opt_state, ss
+        for _ in range(2):
+            opt_state, ss, _ = step(opt_state, ss, ids, pos, labels)
+
+    kinds = ("attention_fwd", "attention_bwd", "layer_norm", "lm_head",
+             "matmul", "other")
+    profile = _profile(two_steps, kinds) if rank == 0 else two_steps()
+    comm = _tp_collectives(dev, two_steps)
+    return {"card": card, "build_s": build_s,
+            "rank_params": sum(p.numel() for p in model.parameters()),
+            "step_ms": step_ms, "tokens_per_s": b * s / (step_ms / 1e3),
+            "peak_mem_gb": peak / 1e9, "losses": vals,
+            "launches": launches, "profile": profile, "collectives": comm}
+
+
+def _tp_collectives(dev, two_steps):
+    """What the tp group's collectives cost this rank: the all-reduces two
+    steps make (count and bytes, per step), and the mean time of 10
+    all-reduces of one ``[s, b, h]`` bf16 activation through the port's
+    mapping, host clock ending in ``synchronize``."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.transformer.tensor_parallel import mappings
+
+    calls = []
+    all_reduce = dist.all_reduce
+
+    def counted(t, *args, **kwargs):
+        calls.append(t.numel() * t.element_size())
+        return all_reduce(t, *args, **kwargs)
+
+    with mock.patch.object(dist, "all_reduce", counted):
+        two_steps()
+    act = torch.randn(TRAIN["seq"] * TRAIN["batch"], MODEL["hidden_size"],
+                      device=dev).to(torch.bfloat16)
+    mappings.all_reduce_(act)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        mappings.all_reduce_(act)
+    torch.cuda.synchronize()
+    return {"all_reduces_per_step": len(calls) / 2,
+            "all_reduce_mb_per_step": sum(calls) / 2 / 1e6,
+            "activation_all_reduce_ms":
+                (time.perf_counter() - t0) / 10 * 1e3,
+            "activation_mb": act.numel() * act.element_size() / 1e6}
+
+
+def phase_training_tp2(dev, card):
+    """This slice's main path: GPT-2-small (vocabulary padded to 50432 for
+    tp = 2, the fused head) trained at tensor-parallel size 2 by
+    ``make_one_step`` with the ``GradScaler``, in two ranks started with
+    ``spawn`` (the kernels already built by this process). With two or
+    more cards each rank takes its own over NCCL; with one, both ranks
+    share it over gloo, which runs the all-reduces of CUDA tensors
+    through the host. The parent first runs one step at b=2 at tp = 1 on
+    the same seed; each rank's step on the same batch must agree with it
+    within the training bands (loss; each gradient, the shards'
+    differences summed over the ranks). Then the window: per rank step
+    ms, tokens/s, peak memory, the launches per step (K7p, K8, K9 once,
+    K1, K5, K6 12 times, K3, K4 25 times, nothing else), the losses of
+    steps 1-7, equal on the two ranks, rank 0's profiled window, and the
+    all-reduces a step makes and what one of an activation costs."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    backend = "nccl" if torch.cuda.device_count() >= TP_SIZE else "gloo"
+    _log(f"tp={TP_SIZE} training: {torch.cuda.device_count()} card(s), "
+         f"backend {backend}" + (" (both ranks share cuda:0; the "
+                                 "all-reduces go through the host)"
+                                 if backend == "gloo" else ""))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        model, _, _, _, _, _, ids, pos, labels = _train_setup(
+            dev, 2, seed=1, fused=True, padded=True)
+        n_params = sum(p.numel() for p in model.parameters())
+        ref_loss, ref_grads = _step_grads(model, ids, pos, labels)
+        del model
+        torch.save({"loss": ref_loss,
+                    "grads": {n: g.cpu() for n, g in ref_grads.items()}},
+                   f"{tmp}/ref.pt")
+        del ref_grads
+        torch.cuda.empty_cache()
+        ctx = mp.start_processes(_tp_rank, args=(TP_SIZE, tmp, backend, card),
+                                 nprocs=TP_SIZE, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + TP_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5.0):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"tp={TP_SIZE} ranks still running "
+                                       f"after {TP_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+                 for r in range(TP_SIZE)]
+    wall_s = time.perf_counter() - t0
+
+    # parity: the loss on every rank, each gradient over the shards
+    worst, worst_name = 0.0, ""
+    names = ranks[0]["parity"]["grads"]
+    for name in names:
+        per_rank = [r["parity"]["grads"][name] for r in ranks]
+        if per_rank[0][2]:               # sharded: the shards concatenated
+            err = (sum(d for d, _, _ in per_rank)
+                   / max(sum(q for _, q, _ in per_rank), 1e-60)) ** 0.5
+        else:                            # whole on each rank
+            err = max((d / max(q, 1e-60)) ** 0.5 for d, q, _ in per_rank)
+        if not np.isfinite(err):
+            raise AssertionError(f"tp={TP_SIZE}: {name} gradient not finite")
+        if err > worst:
+            worst, worst_name = err, name
+    dloss = max(abs(r["parity"]["loss"] - ref_loss) for r in ranks)
+    _log(f"tp={TP_SIZE} vs tp=1 on the card (b=2, fused head, vocab "
+         f"{TP_VOCAB}): loss {ranks[0]['parity']['loss']:.6f} vs "
+         f"{ref_loss:.6f} (band {TRAIN_LOSS_BAND}), worst gradient relative "
+         f"L2 {worst:.3e} at {worst_name} (band {TRAIN_GRAD_BAND})")
+    if dloss > TRAIN_LOSS_BAND or worst > TRAIN_GRAD_BAND:
+        raise AssertionError(f"tp={TP_SIZE} disagrees with tp=1")
+
+    want = _want_launches(True, False, "none")
+    want.update(xent_fwd=0, xent_fwd_partials=1)
+    b, s = TRAIN["batch"], TRAIN["seq"]
+    # the cards the ranks' work is spread over: MFU is per card
+    cards = TP_SIZE if backend == "nccl" else 1
+    windows = []
+    for r in ranks:
+        w = r["window"]
+        per_step = {k: v / TRAIN["timed"] for k, v in w["launches"].items()}
+        windows.append(dict(
+            {k: w[k] for k in ("card", "step_ms", "tokens_per_s",
+                               "peak_mem_gb", "rank_params", "build_s")},
+            rank=r["rank"], device=r["device"], backend=r["backend"],
+            mfu=6 * n_params * b * s / (w["step_ms"] / 1e3)
+            / (cards * BF16_FLOPS_PER_S),
+            loss_step1=w["losses"][0], loss_last=w["losses"][-1],
+            losses=w["losses"], launches_per_step=per_step,
+            collectives=w["collectives"], profile=w["profile"]))
+        vals = w["losses"]
+        if not all(np.isfinite(vals)) or not vals[-1] < vals[0]:
+            raise AssertionError(f"tp={TP_SIZE} rank {r['rank']}: loss not "
+                                 f"finite and falling: {vals}")
+        for k, n in want.items():
+            if w["launches"][k] != n * TRAIN["timed"]:
+                raise AssertionError(
+                    f"tp={TP_SIZE} rank {r['rank']}: {k} launched "
+                    f"{w['launches'][k]} times in {TRAIN['timed']} steps, "
+                    f"want {n} per step")
+    if any(r["window"]["losses"] != ranks[0]["window"]["losses"]
+           for r in ranks):
+        raise AssertionError(f"tp={TP_SIZE}: the ranks' losses differ: "
+                             f"{[r['window']['losses'] for r in ranks]}")
+    stats = {"tp": TP_SIZE, "backend": backend, "cards": cards,
+             "vocab_size": TP_VOCAB,
+             "n_params": n_params, "batch": b, "seq": s,
+             "steps_timed": TRAIN["timed"], "phase_wall_s": wall_s,
+             "parity": {"loss_diff": dloss, "worst_grad_rel_l2": worst,
+                        "worst_grad": worst_name},
+             "ranks": windows}
+    _log("training tp=2: " + json.dumps(stats))
+    return ranks[0]["window"]["launches"], stats
+
+
 def _kind(name):
     low = name.lower()
     if "xent_" in name:
@@ -1817,11 +2379,16 @@ def main():
     rows += phase_xent_kernels(dev, flush)
     rows.append(phase_int8_decode_kernel(dev, flush))
     rows += phase_softmax_kernels(dev, flush)
+    rows += phase_long_softmax_kernels(dev, flush)
+    rows.append(phase_xent_shard_kernels(dev, flush))
+    torch.cuda.empty_cache()
+    # the generic softmax over 8192 keys, the path of K10L/K11L
+    launches_by = {"generic_softmax_long": phase_generic_softmax_path(dev)}
     torch.cuda.empty_cache()
 
-    # serving over bf16 pages, then over the int8 KV tier (this slice's
-    # serving path) with the same 72 pages, each engine on its own
-    launches_by, serving, logits = {}, {}, {}
+    # serving over bf16 pages, then over the int8 KV tier with the same 72
+    # pages, each engine on its own
+    serving, logits = {}, {}
     for quant in (False, True):
         engine, counts, serving[quant] = phase_end_to_end(dev, kv_quant=quant)
         launches_by["serving_int8" if quant else "serving"] = counts
@@ -1909,17 +2476,30 @@ def main():
     _log("dropout checks: " + json.dumps({"mask": mask_check,
                                           "recompute": recompute_agree}))
 
+    # this slice's main path: GPT-2-small at tensor-parallel size 2 on the
+    # vocab-sharded fused head, in two ranks
+    torch.cuda.empty_cache()
+    launches_by["training_tp2"], tp2 = phase_training_tp2(dev, smi)
+    side = {k: {"tp=1 fused head": windows[True][k],
+                **{f"tp=2 rank {w['rank']}": w[k] for w in tp2["ranks"]}}
+            for k in ("step_ms", "tokens_per_s", "mfu", "peak_mem_gb")}
+    _log(f"training, tp=1 vs tp=2 ({tp2['backend']}): " + json.dumps(side))
+
     for row in rows:
         name = row["name"]
         by_path = {path: counts[name] for path, counts in launches_by.items()
                    if name in counts}
         # the kernel's own path: the int8 serving run for K2q, the scores
-        # window for K10/K11, the dropout training window for the dropout
-        # variants, the fused training window for the other training
-        # kernels; K2 runs only in serving
+        # window for K10/K11, the generic softmax over 8192 keys for
+        # K10L/K11L, the tp = 2 window for K7p, the dropout training window
+        # for the dropout variants, the fused training window for the other
+        # training kernels; K2 runs only in serving
         main = {"decode_attention_quant": "serving_int8",
                 "softmax_fwd": "training_scores",
-                "softmax_bwd": "training_scores"}.get(
+                "softmax_bwd": "training_scores",
+                "softmax_fwd_long": "generic_softmax_long",
+                "softmax_bwd_long": "generic_softmax_long",
+                "xent_fwd_partials": "training_tp2"}.get(
             name, "training_dropout" if name.endswith("_dropout")
             else "training_fused")
         row["launches"] = by_path.get(main, by_path.get("serving", 0))

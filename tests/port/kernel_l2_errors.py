@@ -1,14 +1,17 @@
 """Relative L2 error, ||kernel - plain|| / ||plain||, of every case the
 card tests run for K1 (forward), K3/K4 (layer norm), K5/K6 (attention
 backward), K1d and K5d/K6d (the same with dropout), K7-K9 (the fused
-LM head: loss and lse, dX, dE), K2q (decode over int8 pages) and K10/K11
-(the fused softmax, forward and backward), per dtype. It prints one line
-per attention, LM-head, int8-decode and softmax case and the worst value
-per kernel and dtype: the numbers ``L2_TOL``, ``DROPOUT_L2_TOL``,
-``XENT_L2_TOL``, ``XENT_LOSS_TOL`` and ``SOFTMAX_L2_TOL`` in
-``test_torch_kernels_cuda.py`` are set from (for K7 the largest |loss
-diff| over max(1, |loss|); for K10 also the largest |y diff|, which
-``SOFTMAX_TOL`` bounds). Needs a CUDA card:
+LM head: loss and lse, dX, dE), K7p with K8/K9 on vocabulary shards
+(each against its plain version, and the shards combined against K7-K9
+on the whole table), K2q (decode over int8 pages) and K10/K11 and
+K10L/K11L (the fused softmax, forward and backward, up to 4096 keys and
+above), per dtype. It prints one line per attention, LM-head,
+int8-decode and softmax case and the worst value per kernel and dtype:
+the numbers ``L2_TOL``, ``DROPOUT_L2_TOL``, ``XENT_L2_TOL``,
+``XENT_LOSS_TOL``, ``XENT_PARTIAL_TOL``, ``XENT_SHARD_DX_L2_TOL`` and
+``SOFTMAX_L2_TOL`` in ``test_torch_kernels_cuda.py`` are set from (for K7
+the largest |loss diff| over max(1, |loss|); for K10 also the largest |y
+diff|, which ``SOFTMAX_TOL`` bounds). Needs a CUDA card:
 
     python3 tests/port/kernel_l2_errors.py
 """
@@ -121,6 +124,17 @@ def main():
                       f"{bwd[0]:.3e}, K9 de {bwd[1]:.3e}")
                 note("K7", dtype, fwd)
                 note("K8/K9", dtype, max(bwd))
+        for n, V, h, tp in cases.XENT_SHARD_SHAPES:
+            for eps in (0.0, 0.1):
+                err = cases._xent_shard_errors(dev, tdt, n, V, h, tp, eps)
+                print(f"xent shards {dtype} {n}x{V}x{h} tp={tp} eps={eps}: "
+                      + ", ".join(f"{k} {v:.3e}" for k, v in err.items()))
+                note("K7p partials", dtype, err["partials"])
+                note("K7p combined loss/lse", dtype, err["combined_loss"])
+                note("K8/K9 shard (v_total)", dtype,
+                     max(err["dx_shard_l2"], err["de_shard_l2"],
+                         err["de_cat_l2"]))
+                note("K8 dX summed over shards", dtype, err["dx_sum_l2"])
         for d in (64, 128):
             for ps in (16, 128):
                 gen = torch.Generator(device=dev).manual_seed(3)
@@ -158,6 +172,23 @@ def main():
                 note("K10", dtype, fwd)
                 note("K10 max |y diff|", dtype, ymax)
                 note("K11", dtype, bwd)
+        for shape in cases.SOFTMAX_LONG_SHAPES:
+            for case in cases.SOFTMAX_CASES:
+                x, g, mask, causal = cases._softmax_case(dev, tdt, shape,
+                                                         case)
+                y = softmax_cuda.softmax_fwd_long(x, mask, 0.37, causal)
+                dx = softmax_cuda.softmax_bwd_long(y, g, 0.37)
+                ry = softmax.scaled_masked_softmax_reference(x, mask, 0.37,
+                                                             causal)
+                rdx = softmax.scaled_masked_softmax_backward_reference(
+                    y, g, 0.37)
+                ymax = (y.float() - ry.float()).abs().max().item()
+                fwd, bwd = _l2(y, ry), _l2(dx, rdx)
+                print(f"softmax long {dtype} {shape} {case}: K10L {fwd:.3e} "
+                      f"(max |y diff| {ymax:.3e}), K11L {bwd:.3e}")
+                note("K10L", dtype, fwd)
+                note("K10L max |y diff|", dtype, ymax)
+                note("K11L", dtype, bwd)
     for (kernel, dtype), value in sorted(worst.items()):
         print(f"worst {kernel} {dtype}: {value:.3e}")
 

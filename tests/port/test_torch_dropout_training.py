@@ -381,8 +381,13 @@ def test_attention_seed_draw():
     draws = torch.cat([tlm.derive_attention_dropout_seed(gen)
                        for _ in range(200)]).long()
     assert draws.min() < -2 ** 29 and draws.max() > 2 ** 29
-    with pytest.raises(ValueError, match="rank"):
-        tlm.derive_attention_dropout_seed(gen, rank=1)
+    # another tensor-parallel rank mixes its rank into the same draw (the
+    # rank-0 draw above is unchanged); test_torch_tensor_parallel.py holds
+    # four ranks distinct
+    gen.set_state(state)
+    b = tlm.derive_attention_dropout_seed(gen, rank=1)
+    assert b.dtype == torch.int32 and b.shape == (1,)
+    assert not torch.equal(a, b)
 
 
 def test_model_refuses_dropout_it_cannot_draw_or_route(jax_tree):

@@ -1,5 +1,7 @@
-"""The port stands alone: no module of apex_tpu_torch, and not
-chip_smoke.py, imports JAX or the JAX package — neither at import time
+"""The port stands alone: no module of apex_tpu_torch, not chip_smoke.py
+and not the tensor-parallel tests' rank workers (tests/port/tp_workers.py,
+which spawned ranks import by name), imports JAX or the JAX package —
+neither at import time
 (checked in a fresh interpreter) nor anywhere in the source (an AST
 scan) — and its entry points refuse to fall back to the CPU when CUDA is
 absent. The module-name check matches ``apex_tpu`` and ``apex_tpu.*``,
@@ -26,7 +28,8 @@ def _forbidden(name):
 
 
 def _port_sources():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, "chip_smoke.py"),
+           os.path.join(REPO, "tests", "port", "tp_workers.py")]
     for dirpath, _dirs, files in os.walk(PORT):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -65,7 +68,14 @@ def test_importing_the_port_loads_no_jax_and_no_apex_tpu():
     for mod in ("apex_tpu_torch.serving.kv_tier", "apex_tpu_torch.ops.softmax",
                 "apex_tpu_torch.ops.softmax_cuda",
                 "apex_tpu_torch.transformer.enums",
-                "apex_tpu_torch.transformer.functional.fused_softmax"):
+                "apex_tpu_torch.transformer.functional.fused_softmax",
+                "apex_tpu_torch.transformer.parallel_state",
+                "apex_tpu_torch.transformer.utils",
+                "apex_tpu_torch.transformer.tensor_parallel.mappings",
+                "apex_tpu_torch.transformer.amp",
+                "apex_tpu_torch.transformer.amp.grad_scaler",
+                "apex_tpu_torch.transformer.testing.arguments",
+                "tests.port.tp_workers"):
         assert mod in mods, mod
 
 

@@ -17,7 +17,14 @@ fused softmax K10 (causal, a ``[b, 1, sq, sk]`` and a ``[b, np, sq, sk]``
 mask with a fully masked row, a key-padding ``[b, 1, 1, sk]`` mask, none)
 and K11 at row lengths that take the vector loads (128, 1024, 4096) and
 the element loads (200, 3000), and ``FusedScaleMaskSoftmax`` on the card
-launching K10 for a key-padding mask and raising for rows it cannot take.
+launching K10 for a key-padding mask and raising for a mask it cannot
+take; the long-row K10L and K11L at 4097 (element loads), 5000 and 8192
+keys, and the generic softmax launching them; the vocabulary-shard head
+K7p on every shard of a table split over 2 or 4 ranks, its partials
+against their plain version and, combined in a fixed order, against K7
+on the whole table, with K8 and K9 on each shard (``v_total`` the whole
+vocabulary) against their plain versions, the shards' dX summed and
+their dE stacked against K8 and K9 on the whole table.
 
 Marked ``cuda``: each test needs a card and skips without one. This
 file imports neither JAX nor the JAX package, so it runs on a GPU
@@ -98,6 +105,27 @@ SOFTMAX_CASES = ["causal", "mask_b1", "mask_bnp", "mask_pad", "none"]
 # tiles; h = 1024 leaves a partial 768-column tile
 XENT_SHAPES = [(200, 384, 128), (1032, 1280, 256), (136, 1280, 1024),
                (200, 50304, 768)]
+# (n, V, h, tp) of the vocabulary-shard cases: V = 50432 is GPT-2's
+# vocabulary padded for tp = 2 (shards of 25216 = 128 x 197 rows)
+XENT_SHARD_SHAPES = [(200, 768, 128, 2), (1032, 2560, 256, 4),
+                     (200, 50432, 768, 2)]
+# K7p's partials (max, sum of exponentials, target, logits sum) against
+# the plain version, the largest |diff| over max(1, the largest |value|)
+# of each, and the shards' losses and lse combined in torch against K7 on
+# the whole table, as XENT_LOSS_TOL. The shards' dX, each rounded to the
+# half type and then summed, against K8's one rounding on the whole table:
+# a second rounding of every element, so its relative L2 band is wider
+# than XENT_L2_TOL. On an H100 (tests/port/kernel_l2_errors.py) these
+# cases measured at most 3.6e-6 for the partials, 2.1e-7 for the combined
+# loss and lse, 3.9e-4 (bf16), 1.4e-4 (fp16) and 2.8e-6 (fp32) for K8 and
+# K9 on a shard, and 3.4e-3 (bf16), 2.1e-3 (fp16) and 2.8e-6 (fp32) for
+# the summed dX
+XENT_PARTIAL_TOL = 1e-5
+XENT_SHARD_DX_L2_TOL = {"bfloat16": 8e-3, "float16": 5e-3, "float32": 1e-5}
+# (b, np, sq, sk) of K10L/K11L: 4097 takes element loads, 5000 and 8192
+# 16-byte vectors. They are held to K10/K11's bands; on an H100 these
+# cases measured at most 6.8e-6 (K10L) and 1.1e-6 (K11L) relative L2
+SOFTMAX_LONG_SHAPES = [(1, 2, 8, 4097), (2, 1, 12, 5000), (1, 2, 8, 8192)]
 
 
 @pytest.fixture
@@ -451,6 +479,88 @@ def test_xent_wrappers_refuse_what_the_kernels_do_not_take(dev):
         xent_cuda.xent_bwd_de(x, e, labels, lse, lse[:8].contiguous())
 
 
+def _xent_shard_errors(dev, dtype, n, V, h, tp, eps):
+    """K7p, K8 and K9 on each of ``tp`` vocabulary shards of one case:
+    the errors of each kernel against its plain version, and of the
+    shards combined against K7-K9 on the whole table. Returns a dict of
+    the largest errors; also used by ``kernel_l2_errors.py``."""
+    x, e, labels, dl = _xent_case(dev, dtype, n, V, h)
+    vs = V // tp
+    loss, lse = xent_cuda.xent_fwd(x, e, labels, eps)
+    dx = xent_cuda.xent_bwd_dx(x, e, labels, lse, dl, eps)
+    de = xent_cuda.xent_bwd_de(x, e, labels, lse, dl, eps)
+    shards = [(e[r * vs:(r + 1) * vs], (labels - r * vs).to(torch.int32))
+              for r in range(tp)]
+    err = {"partials": 0.0, "dx_shard_l2": 0.0, "de_shard_l2": 0.0}
+    parts = []
+    for es, local in shards:
+        p = xent_cuda.xent_fwd_partials(x, es, local, eps)
+        ref = torch.stack(xent.linear_cross_entropy_partials(x, es, local,
+                                                             eps))
+        assert torch.isfinite(p).all()
+        err["partials"] = max(err["partials"], (
+            (p - ref).abs().amax(dim=1)
+            / ref.abs().amax(dim=1).clamp(min=1.0)).max().item())
+        parts.append(p)
+    # the cross-rank combine, in rank order
+    m = torch.stack([p[0] for p in parts]).amax(dim=0)
+    total = sum(p[1] * torch.exp(p[0] - m) for p in parts)
+    t = sum(p[2] for p in parts)
+    slse = m + torch.log(total)
+    sloss = slse - t
+    if eps:
+        sloss = slse - (1.0 - eps) * t - eps * sum(p[3] for p in parts) / V
+    scale = max(loss.abs().max().item(), 1.0)
+    err["combined_loss"] = max((sloss - loss).abs().max().item(),
+                               (slse - lse).abs().max().item()) / scale
+    dx_sum, de_parts = None, []
+    for es, local in shards:
+        dxs = xent_cuda.xent_bwd_dx(x, es, local, slse, dl, eps, v_total=V)
+        des = xent_cuda.xent_bwd_de(x, es, local, slse, dl, eps, v_total=V)
+        rdx = xent.linear_cross_entropy_dx(x, es, local, slse, dl, eps, V)
+        rde = xent.linear_cross_entropy_de(x, es, local, slse, dl, eps, V)
+        err["dx_shard_l2"] = max(err["dx_shard_l2"], _l2(dxs, rdx))
+        err["de_shard_l2"] = max(err["de_shard_l2"], _l2(des, rde))
+        dx_sum = dxs if dx_sum is None else dx_sum + dxs   # in x's dtype
+        de_parts.append(des)
+    err["dx_sum_l2"] = _l2(dx_sum, dx)
+    err["de_cat_l2"] = _l2(torch.cat(de_parts), de)
+    return err
+
+
+def _l2(out, ref):
+    out, ref = out.float(), ref.float()
+    assert torch.isfinite(out).all()
+    return ((out - ref).norm() / ref.norm().clamp(min=1e-30)).item()
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", XENT_SHARD_SHAPES,
+                         ids=[f"{n}x{V}x{h}_tp{tp}"
+                              for n, V, h, tp in XENT_SHARD_SHAPES])
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_xent_shard_kernels_match_plain_and_the_whole_table(dev, dtype,
+                                                            shape,
+                                                            smoothing):
+    before = xent_cuda.xent_fwd_partials.launches
+    err = _xent_shard_errors(dev, DTYPES[dtype][0], *shape, smoothing)
+    assert xent_cuda.xent_fwd_partials.launches == before + shape[3]
+    assert err["partials"] <= XENT_PARTIAL_TOL, err
+    assert err["combined_loss"] <= XENT_LOSS_TOL, err
+    for k in ("dx_shard_l2", "de_shard_l2", "de_cat_l2"):
+        assert err[k] <= XENT_L2_TOL[dtype], (k, err)
+    assert err["dx_sum_l2"] <= XENT_SHARD_DX_L2_TOL[dtype], err
+
+
+def test_xent_bwd_refuses_a_v_total_below_the_table(dev):
+    x, e, labels, dl = _xent_case(dev, torch.bfloat16, 16, 384, 128)
+    _, lse = xent_cuda.xent_fwd(x, e, labels)
+    with pytest.raises(ValueError, match="v_total"):
+        xent_cuda.xent_bwd_dx(x, e, labels, lse, dl, 0.1, v_total=256)
+    with pytest.raises(ValueError, match="labels"):
+        xent_cuda.xent_fwd_partials(x, e, labels.long())
+
+
 def _drop_case(dev, dtype, d, case, seed):
     gen = torch.Generator(device=dev).manual_seed(11)
     b, h, s = 2, 3, 200
@@ -723,7 +833,7 @@ def test_softmax_autograd_runs_k10_k11_and_refuses_bad_input(dev):
             softmax_cuda.softmax_bwd.launches) \
         == (before[0] + 1, before[1] + 1)
     assert x.grad.dtype == torch.bfloat16
-    with pytest.raises(ValueError, match="sk"):
+    with pytest.raises(ValueError, match="sk"):   # K10L takes these
         softmax_cuda.softmax_fwd(torch.zeros(1, 1, 2, 4097, device=dev),
                                  None, 1.0, False)
     with pytest.raises(ValueError, match="mask"):
@@ -735,8 +845,9 @@ def test_softmax_autograd_runs_k10_k11_and_refuses_bad_input(dev):
 def test_fused_scale_mask_softmax_launches_k10_or_raises_on_the_card(dev):
     """With the kernel chosen, the module never takes the plain function
     on a CUDA tensor: a key-padding mask launches K10 (and K11 in the
-    backward); rows over 4096 keys and a mask that does not broadcast
-    raise; ``use_pallas=False`` takes the plain function."""
+    backward); rows over 4096 keys through the generic variant launch
+    K10L; a mask that does not broadcast raises; ``use_pallas=False``
+    takes the plain function."""
     from apex_tpu_torch.transformer.enums import AttnMaskType
     from apex_tpu_torch.transformer.functional import (
         FusedScaleMaskSoftmax, GenericFusedScaleMaskSoftmax)
@@ -763,8 +874,14 @@ def test_fused_scale_mask_softmax_launches_k10_or_raises_on_the_card(dev):
     generic = GenericFusedScaleMaskSoftmax(False, True, None, True, None)
     long = torch.zeros(1, 1, 4, 4097, device=dev, dtype=torch.bfloat16)
     assert generic.is_kernel_available(None, *long.shape)
-    with pytest.raises(ValueError, match="4096"):
-        generic(long, None)
+    before = (softmax_cuda.softmax_fwd.launches,
+              softmax_cuda.softmax_fwd_long.launches)
+    y = generic(long, None)
+    assert (softmax_cuda.softmax_fwd.launches,
+            softmax_cuda.softmax_fwd_long.launches) \
+        == (before[0], before[1] + 1)
+    torch.testing.assert_close(y.float(), torch.full_like(y, 1 / 4097).float(),
+                               atol=2.0 ** -16, rtol=0)
     before = softmax_cuda.softmax_fwd.launches
     plain = GenericFusedScaleMaskSoftmax(False, True, None, True, None,
                                          use_pallas=False)(long, None)
@@ -772,3 +889,55 @@ def test_fused_scale_mask_softmax_launches_k10_or_raises_on_the_card(dev):
     torch.testing.assert_close(plain.float(),
                                torch.full_like(plain, 1 / 4097).float(),
                                atol=2.0 ** -16, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", SOFTMAX_LONG_SHAPES,
+                         ids=["x".join(map(str, s))
+                              for s in SOFTMAX_LONG_SHAPES])
+@pytest.mark.parametrize("case", SOFTMAX_CASES)
+def test_long_softmax_kernels_match_plain(dev, dtype, shape, case):
+    """K10L and K11L against the plain versions, held as K10 and K11 are
+    (the same bands: fp32 inside both, the outputs rounded once)."""
+    torch_dtype, _ = DTYPES[dtype]
+    x, g, mask, causal = _softmax_case(dev, torch_dtype, shape, case)
+    scale = 0.37
+    before = (softmax_cuda.softmax_fwd_long.launches,
+              softmax_cuda.softmax_bwd_long.launches)
+    y = softmax_cuda.softmax_fwd_long(x, mask, scale, causal)
+    dx = softmax_cuda.softmax_bwd_long(y, g, scale)
+    assert (softmax_cuda.softmax_fwd_long.launches,
+            softmax_cuda.softmax_bwd_long.launches) \
+        == (before[0] + 1, before[1] + 1)
+    ry = softmax.scaled_masked_softmax_reference(x, mask, scale, causal)
+    rdx = softmax.scaled_masked_softmax_backward_reference(y, g, scale)
+    torch.cuda.synchronize()
+    assert y.dtype == dx.dtype == torch_dtype
+    assert torch.isfinite(y.float()).all() and torch.isfinite(dx.float()).all()
+    torch.testing.assert_close(y.float(), ry.float(),
+                               atol=SOFTMAX_TOL[dtype], rtol=0)
+    _close_l2(y, ry, dtype, SOFTMAX_L2_TOL)
+    _close_scaled(dx, rdx, 10 * SOFTMAX_TOL[dtype])
+    _close_l2(dx, rdx, dtype, SOFTMAX_L2_TOL)
+    assert torch.equal(y == 0, ry == 0)
+    if case == "mask_bnp":
+        assert (y[0, 0, 1] == 0).all(), "a fully masked row gives 0"
+
+
+def test_long_softmax_autograd_runs_k10l_k11l(dev):
+    """Over 4096 keys the autograd call launches K10L and K11L and
+    neither K10 nor K11; the two runs of K11L give the same bits."""
+    x, g, mask, _ = _softmax_case(dev, torch.bfloat16, (2, 2, 8, 5000),
+                                  "mask_b1")
+    x.requires_grad_()
+    counts = lambda: (softmax_cuda.softmax_fwd.launches,  # noqa: E731
+                      softmax_cuda.softmax_bwd.launches,
+                      softmax_cuda.softmax_fwd_long.launches,
+                      softmax_cuda.softmax_bwd_long.launches)
+    before = counts()
+    y = softmax.scaled_masked_softmax(x, mask, 2.0)
+    y.backward(g)
+    assert counts() == (before[0], before[1], before[2] + 1, before[3] + 1)
+    again = softmax_cuda.softmax_bwd_long(y.detach(), g, 2.0)
+    assert torch.equal(softmax_cuda.softmax_bwd_long(y.detach(), g, 2.0),
+                       again)

@@ -7,7 +7,9 @@ JAX's on both of its branches.
 
 Cases: causal, an explicit ``[b, 1, sq, sk]`` mask (broadcast over heads),
 a ``[b, np, sq, sk]`` mask, a fully masked row, with a non-unit scale; a
-key-padding ``[b, 1, 1, sk]`` mask through ``FusedScaleMaskSoftmax``.
+key-padding ``[b, 1, 1, sk]`` mask through ``FusedScaleMaskSoftmax``; the
+generic variant at 5000 and 8192 keys (K10L/K11L's rows on the card)
+against JAX's, which takes its jnp function there.
 Bands: fp32 within 1e-6 of the largest magnitude, at least 1 (the same
 fp32 operations; the row sums run in another order); bf16 within one
 bf16 ulp of the output (both round the same fp32 value, which can sit
@@ -144,17 +146,21 @@ def test_shape_predicates_and_refusals():
                   (1, B, 1, SQ, SK)):
         assert not tsm.mask_supported(torch.zeros(shape, dtype=torch.bool),
                                       x.shape), shape
-    # the CUDA kernels' own limits: any row count, 1..4096 keys
+    # the CUDA kernels' own limits: any row count, any number of keys
+    # (K10/K11 up to 4096, K10L/K11L above)
     assert tsm.supported(1, 100) and tsm.supported(4, 4096)
-    assert not tsm.supported(4, 4097) and not tsm.supported(0, 128)
+    assert tsm.supported(4, 4097) and tsm.supported(1, 1 << 20)
+    assert not tsm.supported(0, 128) and not tsm.supported(4, 0)
     with pytest.raises(ValueError, match="broadcast"):
         tsm.scaled_masked_softmax(x, torch.zeros(B, 2, SQ, SK,
                                                  dtype=torch.bool))
     with pytest.raises(ValueError, match="sk"):
         tsm.scaled_masked_softmax(x[0])
-    # rows the kernels do not take raise on the CPU as on the card
-    with pytest.raises(ValueError, match="4096"):
-        tsm.scaled_masked_softmax(torch.zeros(1, 1, 2, 4097))
+    with pytest.raises(ValueError, match="sk"):
+        tsm.scaled_masked_softmax(torch.zeros(1, 1, 2, 0))
+    # rows over 4096 keys take the same call on the CPU as on the card
+    assert torch.equal(tsm.scaled_masked_softmax(torch.zeros(1, 1, 2, 4097)),
+                       torch.full((1, 1, 2, 4097), 1 / 4097))
 
 
 def test_key_padding_mask_takes_the_kernel_call_and_matches_jax(
@@ -228,11 +234,12 @@ def test_dispatch_predicate_is_the_jax_one():
                 == j.get_batch_per_block(sq, sk, b, np_)
     g = tfs.GenericFusedScaleMaskSoftmax(True, False, None, True, None)
     assert g.is_kernel_available(None, 1, 1, 3, 5000)
-    # rows over the kernel's 4096 keys raise rather than quietly taking
-    # the plain function; use_pallas=False takes any length
+    # rows over 4096 keys take the kernel call (K10L on the card) and give
+    # what JAX's generic variant gives; use_pallas=False the same numbers
     x = torch.zeros(1, 1, 4, 5000, dtype=torch.float16)
-    with pytest.raises(ValueError, match="4096"):
-        g(x, None)
+    jg = jfs.GenericFusedScaleMaskSoftmax(True, False, None, True, None)
+    want = np.asarray(jg(jnp.zeros((1, 1, 4, 5000), jnp.float16), None))
+    np.testing.assert_array_equal(g(x, None).numpy(), want)
     plain = tfs.GenericFusedScaleMaskSoftmax(True, False, None, True, None,
                                              use_pallas=False)(x, None)
     assert torch.equal(plain, torch.full_like(x, 1 / 5000))
@@ -241,6 +248,30 @@ def test_dispatch_predicate_is_the_jax_one():
             tfs.FusedScaleMaskSoftmax(False, True,
                                       tenums.AttnMaskType.causal, True, None,
                                       True, None, use_pallas=bad)
+
+
+@pytest.mark.parametrize("sk", [5000, 8192])
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+@pytest.mark.parametrize("masked", [False, True], ids=["no_mask", "mask_b1"])
+def test_generic_softmax_serves_long_rows_as_jax_does(sk, dtype, masked):
+    """Rows over the kernels' old 4096-key limit: the port's generic
+    variant at its default ``use_pallas=True`` takes the kernel call (its
+    plain version on the CPU, K10L on the card) and equals JAX's generic
+    variant, which takes its jnp function there, in fp32 within 1e-6."""
+    rs = np.random.RandomState(sk)
+    x = (rs.randn(2, 2, 8, sk) * 3).astype(np.float32)
+    mask = rs.rand(2, 1, 8, sk) < 0.3 if masked else None
+    fp16 = dtype == "float16"
+    j = jfs.GenericFusedScaleMaskSoftmax(fp16, not fp16, None, True, 2.0)
+    t = tfs.GenericFusedScaleMaskSoftmax(fp16, not fp16, None, True, 2.0)
+    assert t.use_pallas and t.is_kernel_available(mask, 2, 2, 8, sk)
+    jy = j(_jx(x, dtype), None if mask is None else jnp.asarray(mask))
+    ty = t(_to(x, dtype), None if mask is None else torch.from_numpy(mask))
+    assert ty.dtype == getattr(torch, dtype)
+    _close(ty.float().numpy(), np.asarray(jy, np.float32), "float32")
+    if masked:
+        assert (ty.float().numpy()[np.broadcast_to(mask, ty.shape)]
+                == 0).all()
 
 
 def _mask_func(module):
