@@ -6,15 +6,20 @@
 instantiations K5d :func:`attention_bwd_dq_dropout` and K6d
 :func:`attention_bwd_dkv_dropout`, which compute the dropout replay of
 the monolithic backward (``_bwd_kernel :303``, ``:331-346``, under
-``pallas_call :834``) in the split structure. The source's header says
-what bounds them and how the design answers that.
+``pallas_call :834``) in the split structure.
 
-Each wrapper checks its inputs, allocates its outputs, launches on
-PyTorch's current stream without synchronising, raises on a refused
-launch, and counts the launch in ``<wrapper>.launches`` (a plain int; a
-caller resets it to 0 before the run it wants to read).
-:func:`attention_bwd` runs K5 then K6, :func:`attention_bwd_dropout` K5d
-then K6d. The plain version is
+For bf16 and fp16 every product of K5/K6 (and K5d/K6d) runs on the
+tensor cores (``mma.sync`` with fp32 accumulators, operands brought in
+by ``cp.async`` into a two-stage ring of swizzled shared tiles); fp32
+runs on the CUDA cores, where TF32 would not hold fp32's band. The
+source's header says what bounds them and how the design answers that.
+
+Each wrapper checks its inputs (one device and dtype, contiguous,
+16-byte aligned), allocates its outputs, launches on PyTorch's current
+stream without synchronising, raises on a refused launch, and counts the
+launch in ``<wrapper>.launches`` (a plain int; a caller resets it to 0
+before the run it wants to read). :func:`attention_bwd` runs K5 then K6,
+:func:`attention_bwd_dropout` K5d then K6d. The plain version is
 :func:`apex_tpu_torch.ops.attention._attention_bwd_split`.
 """
 
@@ -51,10 +56,19 @@ def _check_like(name, t, ref):
                          f"{ref.device}")
 
 
+def _check_aligned(**tensors):
+    """The kernels move rows in 16-byte pieces."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"attention_bwd: {name} must start on a "
+                             f"16-byte boundary")
+
+
 def _dq(q, k, v, o, do, causal, sm_scale, segment_ids, drop):
     _check(q, k, v, segment_ids)
     _check_like("o", o, q)
     _check_like("do", do, q)
+    _check_aligned(q=q, k=k, v=v, o=o, do=do)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     dq = torch.empty_like(q)
@@ -73,6 +87,7 @@ def _dq(q, k, v, o, do, causal, sm_scale, segment_ids, drop):
 def _dkv(q, k, v, do, m, l, dcol, causal, sm_scale, segment_ids, drop):
     _check(q, k, v, segment_ids)
     _check_like("do", do, q)
+    _check_aligned(q=q, k=k, v=v, do=do)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     for name, t in (("m", m), ("l", l), ("dcol", dcol)):

@@ -1,6 +1,7 @@
 """Relative L2 error, ||kernel - plain|| / ||plain||, of every case the
 card tests run for K1 (forward), K3/K4 (layer norm), K5/K6 (attention
-backward), K1d and K5d/K6d (the same with dropout), K7-K9 (the fused
+backward, also the tensor-core cases over several tiles), K1d and
+K5d/K6d (the same with dropout), K7-K9 (the fused
 LM head: loss and lse, dX, dE), K7p with K8/K9 on vocabulary shards
 (each against its plain version, and the shards combined against K7-K9
 on the whole table), K2q (decode over int8 pages) and K10/K11 and
@@ -88,6 +89,29 @@ def main():
                           f"{bwd[1]:.3e} {bwd[2]:.3e}")
                     note("K1d", dtype, fwd)
                     note("K5d/K6d", dtype, max(bwd))
+            if tdt == torch.float32:
+                continue
+            for sq, sk in cases.TC_SHAPES:
+                for case in ("causal", "segments", "dropout"):
+                    q, k, v, do, seg, sd = cases._tc_case(dev, tdt, d, sq,
+                                                          sk, case)
+                    s, p = d ** -0.5, (0.1 if case == "dropout" else 0.0)
+                    o = attention._dense_attention(q, k, v, True, s, seg, p,
+                                                   sd)
+                    kw = dict(causal=True, sm_scale=s, segment_ids=seg)
+                    if p:
+                        got = attention_bwd_cuda.attention_bwd_dropout(
+                            q, k, v, o, do, dropout_p=p, dropout_seed=sd,
+                            **kw)
+                    else:
+                        got = attention_bwd_cuda.attention_bwd(q, k, v, o, do,
+                                                               **kw)
+                    ref = attention._attention_bwd_split(q, k, v, o, do, True,
+                                                         s, seg, p, sd)
+                    bwd = [_l2(a, b) for a, b in zip(got, ref)]
+                    print(f"attention tiles {dtype} d={d} {sq}x{sk} {case}: "
+                          f"dq/dk/dv {bwd[0]:.3e} {bwd[1]:.3e} {bwd[2]:.3e}")
+                    note("K5d/K6d" if p else "K5/K6", dtype, max(bwd))
         for hidden in (64, 768, 1024, 4096, 8192):
             for rows in (1, 37, 1000):
                 for affine in (True, False):

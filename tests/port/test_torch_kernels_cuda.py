@@ -4,7 +4,11 @@ dims 64 and 128, bf16/fp16/fp32, fully masked rows, lengths 0 / 1 /
 ps-1 / ps / ps+1 / full, unowned pages poisoned with NaN; layer norm at
 ragged row counts, hidden 64 / 768 / 1024 / 4096 / 8192, with and
 without affine; the split attention backward (K5, K6) on causal,
-segmented, fully masked and cross-length inputs; the fused LM head (K7,
+segmented, fully masked and cross-length inputs, and in bf16 and fp16
+(the tensor-core kernels) over several ragged and exact tiles (300 x
+300, 200 x 333, 256 x 256) causal, segmented and with dropout, two runs
+equal bit for bit, and fp32 on its own CUDA-core kernels (the names the
+profiler records); the fused LM head (K7,
 K8, K9) at vocabularies 384, 1280 and 50304, row counts that leave
 partial row tiles, widths that leave a partial column tile, with and
 without label smoothing; the dropout variants K1d, K5d and K6d at
@@ -67,8 +71,10 @@ DTYPES = {"bfloat16": (torch.bfloat16, 5e-2), "float16": (torch.float16, 5e-3),
           "float32": (torch.float32, 1e-4)}
 # relative L2 of a layer-norm or attention-backward output against the
 # plain version. Both sides round at the same points, so most elements
-# round to the same value; on an H100 these cases measured at most
-# 1.2e-4 (bf16), 3.3e-5 (fp16) and 4.5e-7 (fp32)
+# round to the same value; on an H100 (tests/port/kernel_l2_errors.py)
+# these cases measured at most 1.2e-4 (bf16), 3.3e-5 (fp16) and 4.5e-7
+# (fp32) with K5/K6 on the CUDA cores, and 1.1e-4 (bf16) and 6.6e-5
+# (fp16) with K5/K6 on the tensor cores, the multi-tile cases included
 L2_TOL = {"bfloat16": 1e-3, "float16": 3e-4, "float32": 5e-6}
 # on an H100 (tests/port/kernel_l2_errors.py) these cases measured at most
 # 3.1e-7 for the loss and lse of every dtype, and 5.8e-4 (bf16), 2.1e-4
@@ -78,7 +84,8 @@ XENT_L2_TOL = {"bfloat16": 2e-3, "float16": 6e-4, "float32": 1.5e-5}
 # relative L2 of a dropout-backward output (K5d, K6d) against the plain
 # version: both sides apply the same mask and round at the same points as
 # K5/K6 do; on an H100 (tests/port/kernel_l2_errors.py) these cases
-# measured at most 1.0e-4 (bf16), 3.1e-5 (fp16) and 4.7e-7 (fp32)
+# measured at most 1.0e-4 (bf16), 3.1e-5 (fp16) and 4.7e-7 (fp32) on the
+# CUDA cores, and 1.1e-4 (bf16) and 6.0e-5 (fp16) on the tensor cores
 DROPOUT_L2_TOL = L2_TOL
 DROPOUT_SEEDS = [-123456789, 2 ** 31 - 1]
 # K10's probabilities (at most 1) against the plain version: fp32 inside
@@ -367,6 +374,117 @@ def test_attention_bwd_kernels_match_plain(dev, dtype, d, case):
         _close_l2(out, ref, dtype)
     if case in ("masked_row", "cross"):
         assert (dq[:, :, 5] == 0).all(), "a fully masked row has no dq"
+
+
+# (sq, sk) of the tensor-core cases: several 64-row tiles with ragged ends,
+# a cross shape whose ragged edges differ, and exact tiles
+TC_SHAPES = [(300, 300), (200, 333), (256, 256)]
+
+
+def _tc_case(dev, dtype, d, sq, sk, case, seed=17):
+    """Causal inputs over several tiles; "segments" adds three segments
+    in proportion to each length and a padded tail (id 0) on the query
+    side, "dropout" a dropout seed."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, h = 2, 2
+    q, do = (_randn(gen, b, h, sq, d, dtype=dtype, dev=dev) for _ in range(2))
+    k, v = (_randn(gen, b, h, sk, d, dtype=dtype, dev=dev) for _ in range(2))
+    seg = sd = None
+    if case == "segments":
+        ids = [(torch.arange(n) * 3 // n + 1).to(torch.int32)
+               .expand(b, n).contiguous() for n in (sq, sk)]
+        ids[0][:, sq - 9:] = 0
+        seg = (ids[0].to(dev), ids[1].to(dev))
+    if case == "dropout":
+        sd = torch.tensor([-987654321], dtype=torch.int32, device=dev)
+    return q, k, v, do, seg, sd
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("shape", TC_SHAPES,
+                         ids=[f"{a}x{b}" for a, b in TC_SHAPES])
+@pytest.mark.parametrize("case", ["causal", "segments", "dropout"])
+def test_attention_bwd_tensor_core_tiles_match_plain(dev, dtype, d, shape,
+                                                     case):
+    """K5/K6 (K5d/K6d for "dropout") over several tiles, ragged and
+    exact, against the plain split backward."""
+    torch_dtype, tol = DTYPES[dtype]
+    sq, sk = shape
+    q, k, v, do, seg, sd = _tc_case(dev, torch_dtype, d, sq, sk, case)
+    scale, p = d ** -0.5, (0.1 if case == "dropout" else 0.0)
+    o = attention._dense_attention(q, k, v, True, scale, seg, p, sd)
+    if p:
+        got = attention_bwd_cuda.attention_bwd_dropout(
+            q, k, v, o, do, causal=True, sm_scale=scale, dropout_p=p,
+            dropout_seed=sd, segment_ids=seg)
+    else:
+        got = attention_bwd_cuda.attention_bwd(
+            q, k, v, o, do, causal=True, sm_scale=scale, segment_ids=seg)
+    ref = attention._attention_bwd_split(q, k, v, o, do, True, scale, seg, p,
+                                         sd)
+    torch.cuda.synchronize()
+    for out, r in zip(got, ref):
+        assert out.dtype == torch_dtype
+        assert torch.isfinite(out.float()).all()
+        _close_scaled(out, r, tol)
+        _close_l2(out, r, dtype)
+    if case == "segments":
+        assert (got[0][:, :, sq - 9:] == 0).all(), "padded rows have no dq"
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("dropout", [False, True])
+def test_attention_bwd_is_bitwise_repeatable(dev, dtype, dropout):
+    """Each block owns its output rows (no atomics): two runs of K5/K6, or
+    of K5d/K6d, on the same inputs give the same bits."""
+    q, k, v, do, _, sd = _tc_case(dev, DTYPES[dtype][0], 64, 300, 300,
+                                  "dropout")
+    kw = dict(causal=True, sm_scale=0.125)
+    if dropout:
+        kw.update(dropout_p=0.1, dropout_seed=sd)
+        run = attention_bwd_cuda.attention_bwd_dropout
+    else:
+        run = attention_bwd_cuda.attention_bwd
+    o = attention._dense_attention(q, k, v, True, 0.125, None)
+    first, again = run(q, k, v, o, do, **kw), run(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_attention_bwd_runs_tensor_cores_for_half_types_only(dev):
+    """bf16 and fp16 launch the tensor-core kernels (``*_tc``), fp32 the
+    CUDA-core ones (``*_simt``): the kernel names the profiler records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = {}
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        q, k, v, do, _, _ = _tc_case(dev, dtype, 64, 128, 128, "causal")
+        o = attention._dense_attention(q, k, v, True, 0.125, None)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            attention_bwd_cuda.attention_bwd(q, k, v, o, do, causal=True,
+                                             sm_scale=0.125)
+            torch.cuda.synchronize()
+        names[dtype] = " ".join(e.key for e in prof.key_averages()
+                                if "attention_bwd_" in e.key)
+    for dtype in (torch.bfloat16, torch.float16):
+        assert "attention_bwd_dq_tc" in names[dtype], names[dtype]
+        assert "attention_bwd_dkv_tc" in names[dtype], names[dtype]
+        assert "simt" not in names[dtype], names[dtype]
+    assert "attention_bwd_dq_simt" in names[torch.float32]
+    assert "attention_bwd_dkv_simt" in names[torch.float32]
+    assert "_tc" not in names[torch.float32], names[torch.float32]
+
+
+def test_attention_bwd_refuses_unaligned_rows(dev):
+    flat = torch.zeros(1 * 2 * 8 * 64 + 1, device=dev, dtype=torch.bfloat16)
+    q = flat[1:].view(1, 2, 8, 64)
+    good = torch.zeros(1, 2, 8, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        attention_bwd_cuda.attention_bwd(q, good, good, good, good,
+                                         causal=True, sm_scale=1.0)
 
 
 def test_attention_autograd_runs_k1_k5_k6(dev):
