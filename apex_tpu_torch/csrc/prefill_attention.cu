@@ -4,10 +4,10 @@
 // _fwd_kernel_chunked (the VMEM-row kernel under fused_attention_rows), and
 // the library flash kernel that apex_tpu/ops/attention.py:203 dispatches to
 // on the TPU. Semantics are those of apex_tpu/ops/attention.py:25
-// _dense_attention: fp32 scores; a key is masked where it lies above the
-// causal diagonal (key index > query index) or where its segment id differs
-// from the query's; masked keys are excluded from the softmax; a fully
-// masked row gives 0.
+// _dense_attention: fp32 scores from input-dtype operands; a key is masked
+// where it lies above the causal diagonal (key index > query index) or
+// where its segment id differs from the query's; masked keys are excluded
+// from the softmax; a fully masked row gives 0.
 //
 // The DROPOUT instantiation (K1d) is the dropout branch of _fwd_kernel
 // (:252-256): inverted dropout on the normalized probabilities, P * mscale
@@ -17,68 +17,87 @@
 // (an int32 read through a pointer, so that the caller never syncs to pass
 // it) gives s = fmix32(0x9E3779B9 ^ seed), the block s_bh = fmix32(s ^ bh),
 // each row rowkey = fmix32(s_bh ^ row) once, and each live (row, column)
-// one more fmix32 compared with the threshold p * 2^32. Tiles the causal
-// mask skips draw nothing. The mask scales the normalized P, so the
-// running sum l takes the unmasked exp(s - m) and only the numerator sum
-// of exp(s - m) * mscale * v takes the mask; a row whose keys are all
-// dropped gives 0 * (1/l) = 0. Serving runs the no-dropout instantiation,
-// which compiles to the kernel without the hash.
+// one more fmix32 compared with the threshold p * 2^32. It is drawn in
+// registers and never stored; tiles the causal mask skips draw nothing.
+// The mask scales the normalized P, so the running sum l takes the
+// unmasked exp(s - m) and only the value numerator takes the mask; a row
+// whose keys are all dropped gives 0. Serving runs the no-dropout
+// instantiation, which compiles to the kernel without the hash.
 //
 // Layout: q [B, H, Sq, D], k and v [B, H, Sk, D], out [B, H, Sq, D], all
-// contiguous, one dtype (bf16, fp16 or fp32); segment ids [B, Sq] and
-// [B, Sk] int32, or null for none; the dropout seed one int32, or null for
-// no dropout. D is 64 or 128.
+// contiguous (and 16-byte aligned for bf16/fp16), one dtype (bf16, fp16 or
+// fp32); segment ids [B, Sq] and [B, Sk] int32, or null for none; the
+// dropout seed one int32, or null for no dropout. D is 64 or 128.
 //
-// What bounds it on H100: at the serving shape (B=1, H=12, S=512, D=64)
-// the function moves ~3.1 MB and does ~0.4 GFLOP of causal work, so the
-// memory side bounds it (~0.94 us at 3.35 TB/s). The TPU kernel keeps a
-// whole [bq, sk] score row in VMEM; 227 KB of shared memory cannot, so
-// this kernel streams K/V tiles of BK keys through shared memory and keeps
-// an online max and sum per query row in fp32 registers (flash style).
-// Tiles wholly above the causal diagonal of the block are never loaded
-// (the idea of _fwd_kernel_chunked). One block owns one (batch*head,
-// 64-row q tile); blocks share nothing, so there is no ordering hazard.
+// What bounds it on H100: at the training shape (B 8, H 12, S 1024, D 64,
+// bf16, causal) the function moves 50.3 MB (q, k, v read, o written),
+// 15 us at 3.35 TB/s, and its two products over the 50.4 M live pairs are
+// 12.9 GFLOP, 13 us at 989 TFLOP/s: the bytes bound it, closely followed
+// by the products. With dropout the hash bounds it: ~11 integer operations
+// a live pair, 33 us on 132 x 64 INT32 lanes. At the serving shape (B 1,
+// H 12, S 512, D 64, three segments) it moves ~3.1 MB, ~0.94 us; there a
+// block has at most 8 key tiles, so latency, not a rate, sets its time.
+// The TPU kernel keeps a whole [bq, sk] score row in VMEM; 227 KB of
+// shared memory cannot, so this kernel streams K/V tiles through shared
+// memory and keeps an online max and sum per query row in fp32 registers
+// (flash style). Tiles wholly above the causal diagonal of the block are
+// never loaded (the idea of _fwd_kernel_chunked).
 //
-// This first version computes with fp32 FMAs on the CUDA cores: four
-// threads per query row, each scoring BK/4 keys of a tile and owning D/4
-// output columns. Tensor-core products (wgmma), TMA loads and a split of
-// long rows across blocks are later work; at S=512 the grid is
-// 8 x 12 = 96 blocks, under one wave of the card's 132 SMs.
+// bf16 and fp16 run on the tensor cores (prefill_attention_tc), by
+// Hopper's wgmma (sm_90a). A block is one warpgroup (four warps, each
+// holding 16 of the block's 64 query rows) that owns a 64-row Q tile:
+//  - Q comes in once by cp.async; K and V come in as 64-key tiles through
+//    a two-stage cp.async ring (the next tile loads while this one
+//    computes; zero-filled past the ragged edge), in wgmma's 128-byte
+//    swizzle (a D = 64 row is exactly 128 bytes). One barrier a tile.
+//  - S = Q K^T is wgmma m64n64k16 with both operands K-major in shared
+//    memory and fp32 accumulators; its first k step overwrites them.
+//  - The online softmax runs on the accumulator fragment: a thread holds
+//    two rows' slices, and a row's max takes two quad shuffles a tile;
+//    its sum stays a per-thread partial until the end. exp is ex2 (the
+//    SFU) of scores already scaled by scale * log2 e; O's accumulators
+//    are rescaled only where m moved. Only the diagonal, ragged or
+//    segmented tiles evaluate the mask.
+//  - With dropout each accumulator element draws its hash in registers
+//    from a rowkey computed once per row, as K5d/K6d draw it.
+//  - O += P V is wgmma RS: P, packed from the accumulators to bf16/fp16,
+//    is the register A fragment (the packing is the one rounding of P),
+//    and V (keys x D, row-major) is read MN-major through the transpose
+//    bit.
+//  - The epilogue multiplies by 1/l (0 where l = 0), and by 1/(1-p) with
+//    dropout (the mask enters the value product as 0/1), and stores the
+//    input dtype.
+// P is rounded as exp(s - m_running) in one pass, where the TPU kernel
+// rounds the normalized P * mscale of a whole row: each is one rounding of
+// P to the input dtype, at another scale. Each block owns its output rows
+// (no atomics: two runs give the same bits). The grid puts the q tiles
+// with the most keys under the causal mask first, so the causal tail does
+// not idle the card. At D = 64 four blocks share an SM (three with
+// dropout), so one block's products overlap another's exponentials and
+// hash; at D = 128, two. Issuing the next tile's S before this tile's
+// softmax, so that the softmax overlaps P V inside the warpgroup
+// (FlashAttention-3's intra-warpgroup overlap), measured slower than these
+// independent blocks: it needs ~30 more registers, which cost a block an
+// SM. Not yet done (later work): a TMA producer warp, two warpgroups in
+// ping-pong, and emitting (m, l) for the backward.
 //
-// With dropout the hash is integer work on the CUDA cores: about 11
-// operations per live pair (an xor, fmix32's 8, a compare and a select)
-// against about 4 * D = 256 fp32 operations of the scores and the value
-// product, so K1d costs a few percent over K1 here. A tensor-core version
-// would be bound by the hash instead (50.4 M live pairs at the training
-// shape, ~0.55 G integer operations, ~33 us on 132 x 64 INT32 lanes),
-// unless the mask were stored.
+// fp32 stays on the CUDA cores (prefill_attention_simt): four threads per
+// query row over 32-key tiles, fp32 FMAs. On the tensor cores fp32 would
+// run as TF32, which keeps 10 mantissa bits and cannot hold fp32's 1e-4
+// band against the plain version.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
-constexpr int BQ = 64;              // query rows per block
-constexpr int BK = 32;              // keys per shared-memory tile
-constexpr int TPR = 4;              // threads per query row
-constexpr int THREADS = BQ * TPR;   // 256
-constexpr int KPT = BK / TPR;       // keys scored per thread per tile
-
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
-__device__ __forceinline__ float to_f(float x) { return x; }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half(x);
-}
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+constexpr unsigned FULL = 0xffffffffu;
 
 // murmur3's 32-bit finalizer (attention_pallas.py:188 _fmix32). Each source
 // keeps its own copy: the build hashes one source alone.
@@ -91,14 +110,30 @@ __device__ __forceinline__ unsigned fmix32(unsigned x) {
   return x;
 }
 
+// the per-(batch, head) key of _dropout_mscale: fmix32(fmix32(0x9E3779B9 ^
+// seed) ^ (b * H + h))
+__device__ __forceinline__ unsigned head_key(const int* seed, int bh) {
+  return fmix32(fmix32(0x9E3779B9u ^ (unsigned)__ldg(seed)) ^ (unsigned)bh);
+}
+
+
+// ---------------------------------------------------------------------------
+// fp32: the CUDA cores
+
+constexpr int BQ = 64;              // query rows per block
+constexpr int BK = 32;              // keys per shared-memory tile
+constexpr int TPR = 4;              // threads per query row
+constexpr int THREADS = BQ * TPR;   // 256
+constexpr int KPT = BK / TPR;       // keys scored per thread per tile
+
 template <typename T, int D, bool DROPOUT>
 __global__ void __launch_bounds__(THREADS)
-prefill_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const int* __restrict__ seg_q,
-                         const int* __restrict__ seg_kv,
-                         const int* __restrict__ seed, T* __restrict__ out,
-                         int H, int Sq, int Sk, float scale, int causal,
-                         unsigned thresh, float mscale) {
+prefill_attention_simt(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const int* __restrict__ seg_q,
+                       const int* __restrict__ seg_kv,
+                       const int* __restrict__ seed, T* __restrict__ out,
+                       int H, int Sq, int Sk, float scale, int causal,
+                       unsigned thresh, float mscale) {
   static_assert(D % TPR == 0, "D must split over the threads of a row");
   __shared__ float ks[BK][D + 1];   // +1: row stride off the bank period
   __shared__ float vs[BK][D + 1];
@@ -120,14 +155,10 @@ prefill_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   float qr[D];
 #pragma unroll
-  for (int c = 0; c < D; ++c)
-    qr[c] = row_ok ? to_f(q[qbase + (size_t)qi * D + c]) : 0.f;
+  for (int c = 0; c < D; ++c) qr[c] = row_ok ? q[qbase + (size_t)qi * D + c] : 0.f;
   const int seg_row = (has_seg && row_ok) ? seg_q[(size_t)b * Sq + qi] : 0;
   unsigned rowkey = 0;
-  if constexpr (DROPOUT) {
-    const unsigned s = fmix32(0x9E3779B9u ^ (unsigned)__ldg(seed));
-    rowkey = fmix32(fmix32(s ^ (unsigned)bh) ^ (unsigned)qi);
-  }
+  if constexpr (DROPOUT) rowkey = fmix32(head_key(seed, bh) ^ (unsigned)qi);
 
   float m = -INFINITY;              // running max of the row's live scores
   float l = 0.f;                    // running sum of exp(score - m)
@@ -145,8 +176,8 @@ prefill_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int kj = k0 + j;
       float kv = 0.f, vv = 0.f;
       if (kj < Sk) {
-        kv = to_f(k[kbase + (size_t)kj * D + c]);
-        vv = to_f(v[kbase + (size_t)kj * D + c]);
+        kv = k[kbase + (size_t)kj * D + c];
+        vv = v[kbase + (size_t)kj * D + c];
       }
       ks[j][c] = kv;
       vs[j][c] = vv;
@@ -208,34 +239,470 @@ prefill_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = l > 0.f ? 1.f / l : 0.f;
 #pragma unroll
     for (int i = 0; i < D / TPR; ++i)
-      out[qbase + (size_t)qi * D + sub + TPR * i] = from_f<T>(acc[i] * inv);
+      out[qbase + (size_t)qi * D + sub + TPR * i] = acc[i] * inv;
+  }
+}
+
+
+
+// ---------------------------------------------------------------------------
+// bf16 and fp16: the tensor cores (wgmma, fp32 accumulators)
+
+constexpr int TC_THREADS = 128;   // four warps; warp w owns rows 16w..16w+15
+constexpr int TC_ROWS = 64;       // query rows of a block
+constexpr int TC_KEYS = 64;       // keys per K/V tile
+static_assert(TC_ROWS == BQ, "both bodies tile 64 rows");
+
+// wgmma.mma_async m64nNk16 with fp32 accumulators: d (64 x N) += a b. The
+// four warps of the warpgroup each hold 16 rows of d in the m16n8 C layout:
+// thread (g = lane / 4, t = lane % 4) of warp w has rows 16w + g and
+// 16w + g + 8, columns 8j + 2t and 8j + 2t + 1, as d[j][0..1] and
+// d[j][2..3]. SS: a and b from shared memory, both K-major. RS: a from
+// registers (the A fragment of the warp's 16 rows, the layout of mma.sync
+// m16n8k16), b from shared memory MN-major (the transpose bit). acc = 0
+// writes d = a b, ignoring d's old contents; acc = 1 adds.
+#define WGMMA_SS_N64(TY)                                                                \
+  asm volatile(                                                                         \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                      \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"                      \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "          \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 " \
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                                                \
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),                     \
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),                     \
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),                     \
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),                     \
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),                     \
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),                     \
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),                     \
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])                      \
+      : "l"(da), "l"(db), "r"(acc))
+
+#define WGMMA_RS_N64(TY)                                                                \
+  asm volatile(                                                                         \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                      \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"                      \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "          \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 " \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                                  \
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),                     \
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),                     \
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),                     \
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),                     \
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),                     \
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),                     \
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),                     \
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])                      \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc))
+
+#define WGMMA_RS_N128(TY)                                                                \
+  asm volatile(                                                                          \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                                       \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"                      \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "           \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "  \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                                   \
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),                      \
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),                      \
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),                      \
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),                      \
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),                      \
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),                      \
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),                      \
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),                      \
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),                      \
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),                      \
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),                  \
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),                  \
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),                  \
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),                  \
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),                  \
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])                   \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc))
+
+// the products and the packing of one 16-bit input type (bf16 or fp16)
+template <typename T> struct Tc {
+  static constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
+  static __device__ __forceinline__ void ss64(float (&d)[8][4], uint64_t da,
+                                              uint64_t db, int acc) {
+    if constexpr (BF16) WGMMA_SS_N64("bf16");
+    else WGMMA_SS_N64("f16");
+  }
+  template <int N>
+  static __device__ __forceinline__ void rs(float (&d)[N / 8][4],
+                                            const uint32_t (&a)[4], uint64_t db,
+                                            int acc) {
+    static_assert(N == 64 || N == 128, "wgmma RS width");
+    if constexpr (N == 64 && BF16) WGMMA_RS_N64("bf16");
+    else if constexpr (N == 64) WGMMA_RS_N64("f16");
+    else if constexpr (BF16) WGMMA_RS_N128("bf16");
+    else WGMMA_RS_N128("f16");
+  }
+  // lo in the low half: the lower column index
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    uint32_t r;
+    if constexpr (BF16) {
+      __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+      r = *reinterpret_cast<uint32_t*>(&h);
+    } else {
+      __half2 h = __floats2half2_rn(lo, hi);
+      r = *reinterpret_cast<uint32_t*>(&h);
+    }
+    return r;
+  }
+};
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// the generic proxy's shared-memory writes (cp.async, stores) made visible
+// to the async proxy that wgmma reads through
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// pins the compiler's reads and writes of an accumulator to this point: the
+// asm of an asynchronous product does not finish where it stands
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&acc)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(acc[j][e]) :: "memory");
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x on the SFU (MUFU.EX2); ex2(-inf) = 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float row_max4(float x) {
+  x = fmaxf(x, __shfl_xor_sync(FULL, x, 1));
+  return fmaxf(x, __shfl_xor_sync(FULL, x, 2));
+}
+__device__ __forceinline__ float row_sum4(float x) {
+  x += __shfl_xor_sync(FULL, x, 1);
+  return x + __shfl_xor_sync(FULL, x, 2);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, asynchronously; zeros where !ok
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Shared tiles of R rows x D 16-bit columns are D/64 panels of R rows x 128
+// bytes; in each row the 16-byte chunk c sits at c ^ (row & 7): wgmma's
+// canonical 128-byte-swizzled layout (eight-row groups of 1024 bytes), with
+// no bank conflicts. Byte offset of chunk c (columns 8c..8c+7) of row r:
+template <int R>
+__device__ __forceinline__ uint32_t sw(int r, int c) {
+  return (uint32_t)((c >> 3) * (R * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4));
+}
+
+// rows [r0, r0 + R) of a [S, D] slab into a swizzled tile, zeros past S
+template <int R, int D, typename T>
+__device__ __forceinline__ void tile_async(uint32_t dst, const T* slab, int r0,
+                                           int S) {
+  constexpr int C = D / 8;
+  static_assert(R * C % TC_THREADS == 0, "tile split");
+#pragma unroll
+  for (int i = 0; i < R * C / TC_THREADS; ++i) {
+    const int e = threadIdx.x + i * TC_THREADS;
+    const int r = e / C, c = e % C;
+    const bool ok = r0 + r < S;
+    cp_async16(dst + sw<R>(r, c), slab + (size_t)(ok ? r0 + r : 0) * D + 8 * c,
+               ok);
+  }
+}
+
+// a wgmma shared-memory matrix descriptor of a 128-byte-swizzled tile:
+// start address, leading byte offset (LBO), stride byte offset (SBO, 1024:
+// from one eight-row group to the next), layout 1 (128-byte swizzle), each
+// offset in 16-byte units. Tiles start on 1024-byte boundaries.
+__device__ __forceinline__ uint64_t desc128(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// issue s (64 x 64) = Q K^T over k = D: Q a [64, D] tile, K a [64, D]
+// tile, both K-major (k step kk is 32 bytes into panel kk / 4; LBO unused).
+// The first k step overwrites s, so it needs no zeroing.
+template <typename T, int D>
+__device__ __forceinline__ void wg_qkt(float (&s)[TC_KEYS / 8][4], uint32_t a,
+                                       uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    Tc<T>::ss64(s, desc128(a + (kk >> 2) * (TC_ROWS * 128) + (kk & 3) * 32, 16),
+                desc128(b + (kk >> 2) * (TC_KEYS * 128) + (kk & 3) * 32, 16),
+                kk > 0);
+}
+
+// issue acc (64 x D) += P V over the tile's keys: P register fragments (the
+// warp's 16 rows x 64 keys), V a [64, D] tile read MN-major (k step kk is
+// 16 rows, 2048 bytes, on; LBO the panel stride, from columns 0-63 to
+// 64-127)
+template <typename T, int D>
+__device__ __forceinline__ void wg_pv(float (&acc)[D / 8][4],
+                                      const uint32_t (&f)[TC_KEYS / 16][4],
+                                      uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < TC_KEYS / 16; ++kk)
+    Tc<T>::template rs<D>(acc, f[kk], desc128(b + kk * 2048, TC_KEYS * 128), 1);
+}
+
+// an accumulator (16 x 64, fp32) rounded to T as the A fragments of the next
+// product: the C layout of n8 blocks 2kk and 2kk+1 is the A layout of k step kk
+template <typename T>
+__device__ __forceinline__ void to_frags(const float (&x)[TC_KEYS / 8][4],
+                                         uint32_t (&f)[TC_KEYS / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < TC_KEYS / 16; ++kk) {
+    f[kk][0] = Tc<T>::pack(x[2 * kk][0], x[2 * kk][1]);
+    f[kk][1] = Tc<T>::pack(x[2 * kk][2], x[2 * kk][3]);
+    f[kk][2] = Tc<T>::pack(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+    f[kk][3] = Tc<T>::pack(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+  }
+}
+
+// blocks an SM holds: at D = 64 four (at most 128 registers a thread;
+// K1 needs 123) or, with dropout, three (168: the hash spills under 128);
+// at D = 128 two (the shared tiles of a third would not fit)
+template <int D, bool DROPOUT> __host__ __device__ constexpr int tc_blocks() {
+  return D == 64 ? (DROPOUT ? 3 : 4) : 2;
+}
+
+template <int D> constexpr int tc_smem() {
+  // Q, K x 2, V x 2; key segment ids x 2; 1 KB of alignment
+  return 5 * TC_ROWS * D * 2 + 2 * TC_KEYS * 4 + 1024;
+}
+
+__device__ __forceinline__ unsigned char* align1k(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+template <typename T, int D, bool DROPOUT>
+__global__ void __launch_bounds__(TC_THREADS, tc_blocks<D, DROPOUT>())
+prefill_attention_tc(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const int* __restrict__ seg_q,
+                     const int* __restrict__ seg_kv,
+                     const int* __restrict__ seed, T* __restrict__ out, int H,
+                     int Sq, int Sk, float scale, int causal, unsigned thresh,
+                     float mscale) {
+  constexpr int NK = TC_KEYS;
+  constexpr uint32_t TB = TC_ROWS * D * 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1k(smem_raw);
+  const uint32_t sQ = smem_u32(smem), sK = sQ + TB, sV = sK + 2 * TB;
+  int* segk = reinterpret_cast<int*>(smem + 5 * TB);          // [2][NK]
+
+  const int bh = blockIdx.x, b = bh / H;
+  // the q tiles with the most keys under the causal mask go first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_ROWS;
+  const int tid = threadIdx.x, lane = tid & 31, r0 = (tid >> 5) * 16;
+  const size_t qoff = (size_t)bh * Sq * D, koff = (size_t)bh * Sk * D;
+  const bool has_seg = seg_kv != nullptr;
+  // causal: keys past the block's last query row are masked for every row
+  const int n_kt = ((causal ? min(Sk, q0 + TC_ROWS) : Sk) + NK - 1) / NK;
+
+  auto stage_kv = [&](int it, int st) {
+    const int k0 = it * NK;
+    tile_async<NK, D>(sK + st * TB, k + koff, k0, Sk);
+    tile_async<NK, D>(sV + st * TB, v + koff, k0, Sk);
+    if (tid < NK)
+      segk[st * NK + tid] = (has_seg && k0 + tid < Sk)
+                                ? seg_kv[(size_t)b * Sk + k0 + tid] : 0;
+    cp_async_commit();
+  };
+  tile_async<TC_ROWS, D>(sQ, q + qoff, q0, Sq);
+  stage_kv(0, 0);
+
+  int qi[2];
+  int seg_row[2] = {0, 0};
+  unsigned rowkey[2] = {0u, 0u};
+  // m: the running max of the row's live scores, in log2 units (scale *
+  // log2 e folded in); l: this thread's share of the running sum of
+  // exp(s - m), summed over the row's four threads at the end
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    qi[i] = q0 + r0 + (lane >> 2) + 8 * i;
+    if (has_seg && qi[i] < Sq) seg_row[i] = seg_q[(size_t)b * Sq + qi[i]];
+    if constexpr (DROPOUT) rowkey[i] = fmix32(head_key(seed, bh) ^ (unsigned)qi[i]);
+  }
+  const float c2 = scale * LOG2E;
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int it = 0; it < n_kt; ++it) {
+    const int st = it & 1;
+    // this tile has landed, and every warp is done with the other stage
+    cp_async_wait_all();
+    fence_async_smem();
+    __syncthreads();
+    if (it + 1 < n_kt) stage_kv(it + 1, st ^ 1);
+    const int k0 = it * NK;
+    const int* sg = segk + st * NK;
+
+    float s[NK / 8][4];
+    wg_fence();
+    wg_qkt<T, D>(s, sQ, sK + st * TB);
+    wg_commit();
+    wg_wait();
+    fence_acc(s);
+
+    // only the diagonal, ragged or segmented tiles have masked pairs
+    const bool edge = has_seg || k0 + NK > Sk || q0 + TC_ROWS > Sq ||
+                      (causal && k0 + NK - 1 > q0);
+    float alpha[2];
+    auto softmax = [&](auto edge_tag) {
+      constexpr bool EDGE = decltype(edge_tag)::value;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float tmax = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int e = 2 * i + h;
+            float x = s[j][e] * c2;
+            if constexpr (EDGE) {
+              const int c = 8 * j + 2 * (lane & 3) + h, kj = k0 + c;
+              if (qi[i] >= Sq || kj >= Sk || (causal && kj > qi[i]) ||
+                  (has_seg && sg[c] != seg_row[i]))
+                x = -INFINITY;
+            }
+            s[j][e] = x;
+            tmax = fmaxf(tmax, x);
+          }
+        const float m_new = fmaxf(m[i], row_max4(tmax));
+        // m_new == -inf: every key so far is masked for this row, and every
+        // p below is ex2(-inf) = 0
+        const float mref = m_new == -INFINITY ? 0.f : m_new;
+        alpha[i] = m_new == m[i] ? 1.f : ex2(m[i] - mref);
+        float psum = 0.f;
+#pragma unroll
+        for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int e = 2 * i + h;
+            const float p = ex2(s[j][e] - mref);
+            psum += p;   // l takes the unmasked p
+            if constexpr (DROPOUT) {
+              const unsigned kj = (unsigned)(k0 + 8 * j + 2 * (lane & 3) + h);
+              s[j][e] = fmix32(rowkey[i] ^ kj) >= thresh ? p : 0.f;
+            } else {
+              s[j][e] = p;
+            }
+          }
+        l[i] = l[i] * alpha[i] + psum;
+        m[i] = m_new;
+      }
+    };
+    if (edge) softmax(std::true_type());
+    else softmax(std::false_type());
+
+    // O's rows rescaled where their max moved
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (alpha[i] != 1.f) {
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          acc[j][2 * i] *= alpha[i];
+          acc[j][2 * i + 1] *= alpha[i];
+        }
+      }
+    uint32_t f[NK / 16][4];
+    to_frags<T>(s, f);                 // P rounded to T
+    wg_fence();
+    wg_pv<T, D>(acc, f, sV + st * TB);
+    wg_commit();
+    wg_wait();
+    fence_acc(acc);
+  }
+
+  // the epilogue: 1/l (0 for a fully masked row), times 1/(1-p) with
+  // dropout, and the rows to the [Sq, D] slab
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float lt = row_sum4(l[i]);
+    const float inv = lt > 0.f ? (DROPOUT ? mscale : 1.f) / lt : 0.f;
+    if (qi[i] >= Sq) continue;
+    uint32_t* dst = reinterpret_cast<uint32_t*>(out + qoff + (size_t)qi[i] * D +
+                                                2 * (lane & 3));
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      dst[4 * j] = Tc<T>::pack(acc[j][2 * i] * inv, acc[j][2 * i + 1] * inv);
   }
 }
 
 template <typename T, int D, bool DROPOUT>
-void launch_one(dim3 grid, cudaStream_t st, const void* q, const void* k,
-                const void* v, const void* seg_q, const void* seg_kv,
-                const void* seed, void* out, int H, int Sq, int Sk,
-                float scale, int causal, unsigned thresh, float mscale) {
-  prefill_attention_kernel<T, D, DROPOUT><<<grid, THREADS, 0, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int*)seg_q,
-      (const int*)seg_kv, (const int*)seed, (T*)out, H, Sq, Sk, scale,
-      causal, thresh, mscale);
+cudaError_t launch_one(int BH, cudaStream_t st, const void* q, const void* k,
+                       const void* v, const void* seg_q, const void* seg_kv,
+                       const void* seed, void* out, int H, int Sq, int Sk,
+                       float scale, int causal, unsigned thresh,
+                       float mscale) {
+#define K1_KERNEL_ARGS                                                     \
+  (const T*)q, (const T*)k, (const T*)v, (const int*)seg_q,                \
+      (const int*)seg_kv, (const int*)seed, (T*)out, H, Sq, Sk, scale,     \
+      causal, thresh, mscale
+  const int tiles = (Sq + BQ - 1) / BQ;
+  if constexpr (sizeof(T) == 4) {
+    prefill_attention_simt<T, D, DROPOUT>
+        <<<dim3(tiles, BH), THREADS, 0, st>>>(K1_KERNEL_ARGS);
+  } else {
+    // the dynamic shared memory is granted first (over the 48 KB default
+    // at D = 128)
+    auto kernel = prefill_attention_tc<T, D, DROPOUT>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tc_smem<D>());
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(BH, tiles), TC_THREADS, tc_smem<D>(), st>>>(K1_KERNEL_ARGS);
+  }
+#undef K1_KERNEL_ARGS
+  return cudaGetLastError();
 }
 
+// seed == nullptr: no dropout. bf16/fp16 on the tensor cores, the grid (B *
+// H, 64-row q tiles); fp32 on the CUDA cores, the grid (q tiles, B * H)
 template <typename T>
-void launch(int D, dim3 grid, cudaStream_t st, const void* q, const void* k,
-            const void* v, const void* seg_q, const void* seg_kv,
-            const void* seed, void* out, int H, int Sq, int Sk, float scale,
-            int causal, unsigned thresh, float mscale) {
-#define K1_ARGS grid, st, q, k, v, seg_q, seg_kv, seed, out, H, Sq, Sk, scale, causal, thresh, mscale
-  if (seed == nullptr) {
-    if (D == 64) launch_one<T, 64, false>(K1_ARGS);
-    else launch_one<T, 128, false>(K1_ARGS);
-  } else {
-    if (D == 64) launch_one<T, 64, true>(K1_ARGS);
-    else launch_one<T, 128, true>(K1_ARGS);
-  }
+cudaError_t launch(int D, int BH, cudaStream_t st, const void* q,
+                   const void* k, const void* v, const void* seg_q,
+                   const void* seg_kv, const void* seed, void* out, int H,
+                   int Sq, int Sk, float scale, int causal, unsigned thresh,
+                   float mscale) {
+#define K1_ARGS BH, st, q, k, v, seg_q, seg_kv, seed, out, H, Sq, Sk, scale, causal, thresh, mscale
+  if (seed == nullptr)
+    return D == 64 ? launch_one<T, 64, false>(K1_ARGS)
+                   : launch_one<T, 128, false>(K1_ARGS);
+  return D == 64 ? launch_one<T, 64, true>(K1_ARGS)
+                 : launch_one<T, 128, true>(K1_ARGS);
 #undef K1_ARGS
 }
 
@@ -251,19 +718,19 @@ extern "C" int prefill_attention_fwd(const void* q, const void* k, const void* v
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if ((D != 64 && D != 128) || dtype < 0 || dtype > 2 || B < 1 || H < 1 ||
-      Sq < 1 || Sk < 1 || (seg_q == nullptr) != (seg_kv == nullptr))
+      Sq < 1 || Sk < 1 || B * H > 65535 ||
+      (seg_q == nullptr) != (seg_kv == nullptr))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
   cudaStream_t st = (cudaStream_t)stream;
-#define FWD_ARGS D, grid, st, q, k, v, seg_q, seg_kv, seed, out, H, Sq, Sk, scale, causal, thresh, mscale
+#define FWD_ARGS D, B * H, st, q, k, v, seg_q, seg_kv, seed, out, H, Sq, Sk, scale, causal, thresh, mscale
   if (dtype == 0)
-    launch<__nv_bfloat16>(FWD_ARGS);
+    err = launch<__nv_bfloat16>(FWD_ARGS);
   else if (dtype == 1)
-    launch<__half>(FWD_ARGS);
+    err = launch<__half>(FWD_ARGS);
   else
-    launch<float>(FWD_ARGS);
+    err = launch<float>(FWD_ARGS);
 #undef FWD_ARGS
-  return (int)cudaGetLastError();
+  return (int)err;
 }
 
 extern "C" const char* prefill_attention_error_string(int err) {

@@ -9,7 +9,7 @@ the monolithic backward (``_bwd_kernel :303``, ``:331-346``, under
 ``pallas_call :834``) in the split structure.
 
 For bf16 and fp16 every product of K5/K6 (and K5d/K6d) runs on the
-tensor cores (``mma.sync`` with fp32 accumulators, operands brought in
+tensor cores (``wgmma`` with fp32 accumulators, operands brought in
 by ``cp.async`` into a two-stage ring of swizzled shared tiles); fp32
 runs on the CUDA cores, where TF32 would not hold fp32's band. The
 source's header says what bounds them and how the design answers that.
@@ -28,7 +28,8 @@ import ctypes
 import torch
 
 from apex_tpu_torch.ops import _build
-from apex_tpu_torch.ops.attention_cuda import NO_DROPOUT, _check, dropout_args
+from apex_tpu_torch.ops.attention_cuda import (NO_DROPOUT, _check,
+                                               check_aligned, dropout_args)
 
 _NAME = "attention_bwd"
 _P = ctypes.c_void_p
@@ -56,19 +57,11 @@ def _check_like(name, t, ref):
                          f"{ref.device}")
 
 
-def _check_aligned(**tensors):
-    """The kernels move rows in 16-byte pieces."""
-    for name, t in tensors.items():
-        if t.data_ptr() % 16:
-            raise ValueError(f"attention_bwd: {name} must start on a "
-                             f"16-byte boundary")
-
-
 def _dq(q, k, v, o, do, causal, sm_scale, segment_ids, drop):
     _check(q, k, v, segment_ids)
     _check_like("o", o, q)
     _check_like("do", do, q)
-    _check_aligned(q=q, k=k, v=v, o=o, do=do)
+    check_aligned("attention_bwd", q=q, k=k, v=v, o=o, do=do)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     dq = torch.empty_like(q)
@@ -87,7 +80,7 @@ def _dq(q, k, v, o, do, causal, sm_scale, segment_ids, drop):
 def _dkv(q, k, v, do, m, l, dcol, causal, sm_scale, segment_ids, drop):
     _check(q, k, v, segment_ids)
     _check_like("do", do, q)
-    _check_aligned(q=q, k=k, v=v, do=do)
+    check_aligned("attention_bwd", q=q, k=k, v=v, do=do)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     for name, t in (("m", m), ("l", l), ("dcol", dcol)):

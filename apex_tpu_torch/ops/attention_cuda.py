@@ -3,15 +3,22 @@
 ``apex_tpu/ops/attention_pallas.py:230 _fwd_kernel`` and ``:262
 _fwd_kernel_chunked``): :func:`prefill_attention` (K1) and
 :func:`prefill_attention_dropout` (K1d, the kernel's dropout
-instantiation, ``_fwd_kernel``'s dropout branch ``:252-256``). The
-source's header says what bounds the kernel and how its design answers
-that.
+instantiation, ``_fwd_kernel``'s dropout branch ``:252-256``).
 
-Each wrapper checks its inputs, allocates the output, launches on
-PyTorch's current stream without synchronising, raises on a refused
-launch, and counts the launch in ``<wrapper>.launches`` (a plain int; a
-caller resets it to 0 before the run it wants to read), so K1 and K1d
-launches are told apart. The plain version is
+For bf16 and fp16 both products run on the tensor cores
+(``prefill_attention_tc``: Hopper's ``wgmma`` with fp32 accumulators,
+K/V tiles brought in by ``cp.async`` into a two-stage ring of swizzled
+shared tiles, P fed from the accumulators as the register operand of the
+value product); fp32 runs on the CUDA cores (``prefill_attention_simt``),
+where TF32 would not hold fp32's band. The source's header says what
+bounds the kernel and how its design answers that.
+
+Each wrapper checks its inputs (one device and dtype, contiguous; bf16
+and fp16 16-byte aligned), allocates the output, launches on PyTorch's
+current stream without synchronising, raises on a refused launch, and
+counts the launch in ``<wrapper>.launches`` (a plain int; a caller
+resets it to 0 before the run it wants to read), so K1 and K1d launches
+are told apart. The plain version is
 :func:`apex_tpu_torch.ops.attention._dense_attention`.
 """
 
@@ -68,6 +75,14 @@ def _check(q, k, v, segment_ids):
                                  f"{q.device}")
 
 
+def check_aligned(kernel, **tensors):
+    """The tensor-core kernels move rows in 16-byte pieces."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{kernel}: {name} must start on a 16-byte "
+                             f"boundary")
+
+
 # the launch arguments (seed pointer, threshold, scale) of no dropout
 NO_DROPOUT = (None, 0, 0.0)
 
@@ -89,6 +104,8 @@ def dropout_args(dropout_p, dropout_seed, device):
 
 def _launch(q, k, v, causal, sm_scale, segment_ids, drop):
     _check(q, k, v, segment_ids)
+    if q.dtype != torch.float32:
+        check_aligned("prefill_attention", q=q, k=k, v=v)
     b, h, sq, d = q.shape
     out = torch.empty_like(q)
     seg_q, seg_kv = (segment_ids[0].data_ptr(), segment_ids[1].data_ptr()) \

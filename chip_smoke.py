@@ -17,8 +17,8 @@ exits non-zero before the last line):
    ``nvcc`` each, all in parallel) into ``build/apex_tpu_torch/``; ptxas's
    registers and spills are printed, and, where the toolkit has
    ``cuobjdump``, the tensor-core instructions (``HGMMA``: wgmma;
-   ``HMMA``: mma.sync) of each bf16 instantiation of K5/K6, which must
-   have some.
+   ``HMMA``: mma.sync) of each bf16 instantiation of K5/K6 and K1/K1d
+   (d 64 and 128, with and without dropout), which must hold ``HGMMA``.
 3. one phase per kernel at its main path's shapes: K1 and K2 at the
    serving shapes, K3/K4 (layer norm, x ``[8192, 768]`` bf16), K5/K6
    (attention backward, ``[8, 12, 1024, 64]`` bf16, causal), K1d, K5d
@@ -41,7 +41,9 @@ exits non-zero before the last line):
    K10L and K11L once each and nothing else. K1d's mask
    is also recovered exactly from its output (q = k = 0, V the identity,
    fp32: O = mscale / 128) and must equal the plain mask in every
-   element. Each kernel is held against its plain PyTorch
+   element; in bf16 (the tensor-core body, whose O is a rounding of
+   mscale / 128) O must be non-zero exactly where the plain mask keeps.
+   Each kernel is held against its plain PyTorch
    version on the card with a stated tolerance (the training-shape bf16
    outputs also by relative L2, ``BF16_L2_TOL``; K1 is held at the
    training shape too, within ``K1_L2_TOL``, before its output feeds the
@@ -58,9 +60,9 @@ exits non-zero before the last line):
    by the port), each over launches that
    find the 50 MB L2 cache flushed
    (the kernel's own launches also give their [min, median, max],
-   ``ms_spread``; K5/K6 and K5d/K6d are timed in turns with their
-   library call, kernel, library, kernel, ``ms`` the mean of the two
-   turns, ``ms_turns`` each); and the least time an H100 SXM could take
+   ``ms_spread``; K1, K1d, K5/K6 and K5d/K6d are timed in turns with
+   their library call, kernel, library, kernel, ``ms`` the mean of the
+   two turns, ``ms_turns`` each); and the least time an H100 SXM could take
    for the same work (``bound_ms``: bytes each input read and output written
    once over 3.35 TB/s, or the work this run's masks leave over 989
    TFLOP/s bf16 — 67 TFLOP/s fp32 for layer norm's elementwise math —
@@ -165,8 +167,9 @@ LOGITS_BAND = 0.35
 # K3-K6 and their plain versions round at the same points, so most
 # elements round to the same value (on an H100: 1e-5 for layer norm,
 # 5e-5 to 8e-5 for the attention gradients at the training shape).
-# K1's plain version rounds P to bf16 before the value product and K1
-# does not, which costs ~2.5e-3 on the same card.
+# K1 rounds P to bf16 as exp(s - m_running) in one pass and its plain
+# version rounds the normalized P: one rounding each, at different scales,
+# which costs ~2.9e-3 at the training shape on the same card.
 BF16_L2_TOL = 1e-3
 K1_L2_TOL = 1e-2
 # K7 against its plain version: fp32 loss and lse (~11 at init) from
@@ -253,6 +256,16 @@ def _time_ms(fn, flush, reps=20, spread=None):
     return sum(times) / reps
 
 
+def _time_in_turns(fn, lib_fn, flush, spread=None):
+    """``fn`` and one library call timed in turns, kernel, library,
+    kernel (the library's time moves from call to call): the kernel's mean
+    over its two turns, each turn's time, and the library's time."""
+    turns = [_time_ms(fn, flush, spread=spread)]
+    lib_ms = _time_ms(lib_fn, flush)
+    turns.append(_time_ms(fn, flush))
+    return statistics.mean(turns), turns, lib_ms
+
+
 def _bound(nbytes, flops, flops_per_s=BF16_FLOPS_PER_S, int_ops=0):
     """The least time (ms) for the work and what sets it: the bytes over
     the memory rate, the floating-point operations over their peak rate,
@@ -304,8 +317,9 @@ def phase_prefill_kernel(dev, flush):
         seg[0, lo:hi] = sid           # 471..511 is padding on segment 0
     scale = D ** -0.5
     tol = 5e-2  # bf16 outputs (half ulp 7.8e-3 at |o| < 4, each side) and
-    #             the plain version rounds its probabilities to bf16 before
-    #             the value product (up to 2^-8 relative of sum p|v|)
+    #             both sides round the probabilities to bf16 before the
+    #             value product, at different scales (up to 2^-8 relative
+    #             of sum p|v| each)
     before = attention_cuda.prefill_attention.launches
     out = attention_cuda.prefill_attention(
         q, k, v, causal=True, sm_scale=scale, segment_ids=(seg, seg))
@@ -322,14 +336,15 @@ def phase_prefill_kernel(dev, flush):
     allowed = (pos[None, :] <= pos[:, None]) & (seg[0][None, :]
                                                 == seg[0][:, None])
     spread = []
-    ms = _time_ms(lambda: attention_cuda.prefill_attention(
-        q, k, v, causal=True, sm_scale=scale, segment_ids=(seg, seg)),
+    mask = allowed[None, None]
+    ms, turns, lib_ms = _time_in_turns(
+        lambda: attention_cuda.prefill_attention(
+            q, k, v, causal=True, sm_scale=scale, segment_ids=(seg, seg)),
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                               scale=scale),
         flush, spread=spread)
     plain_ms = _time_ms(lambda: attention._dense_attention(
         q, k, v, True, scale, (seg, seg)), flush)
-    mask = allowed[None, None]
-    lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask, scale=scale), flush)
     nbytes = 4 * q.numel() * q.element_size() + 2 * seg.numel() * 4
     flops = 4 * H * D * int(allowed.sum().item())   # QK^T and PV, live pairs
     bound_ms, bound_by = _bound(nbytes, flops)
@@ -338,8 +353,9 @@ def phase_prefill_kernel(dev, flush):
         "source": "apex_tpu_torch/csrc/prefill_attention.cu",
         "replaces": "apex_tpu/ops/attention_pallas.py:230",
         "shape": f"q,k,v [1,{H},{S},{D}] bf16, 3 segments + padding",
-        "max_abs_err": err, "tol": tol, "ms": ms, "kernel_ms": ms,
-        "ms_spread": spread, "plain_ms": plain_ms, "library_ms": lib_ms,
+        "max_abs_err": err, "tol": tol, "ms": ms, "ms_turns": turns,
+        "kernel_ms": ms, "ms_spread": spread, "plain_ms": plain_ms,
+        "library_ms": lib_ms,
         "library": "F.scaled_dot_product_attention, boolean mask",
         "bound_ms": bound_ms, "bound_by": bound_by,
         "bytes": nbytes, "flops": flops}
@@ -1297,12 +1313,14 @@ def phase_attention_bwd_kernels(dev, flush):
     # K1 at the training shape (its row's own numbers are the serving
     # shape's): time, plain and SDPA forward, bound
     k1_spread, dq_spread, dkv_spread = [], [], []
-    k1_ms = _time_ms(lambda: attention_cuda.prefill_attention(
-        q, k, v, causal=True, sm_scale=scale), flush, spread=k1_spread)
+    k1_ms, k1_turns, k1_lib = _time_in_turns(
+        lambda: attention_cuda.prefill_attention(q, k, v, causal=True,
+                                                 sm_scale=scale),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               scale=scale),
+        flush, spread=k1_spread)
     k1_plain = _time_ms(lambda: attention._dense_attention(
         q, k, v, True, scale, None), flush, reps=5)
-    k1_lib = _time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, scale=scale), flush)
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
     og = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
                                         scale=scale)   # graph built untimed
@@ -1334,7 +1352,8 @@ def phase_attention_bwd_kernels(dev, flush):
     k1_bound = _bound(4 * t_bytes, 2 * 2 * D * live)
     k1_train = {"shape": f"q,k,v [{B},{H},{S},{D}] bf16, causal",
                 **k1_err, "tol": k1_tol, "rel_l2_tol": K1_L2_TOL,
-                "ms": k1_ms, "ms_spread": k1_spread, "plain_ms": k1_plain,
+                "ms": k1_ms, "ms_turns": k1_turns, "ms_spread": k1_spread,
+                "plain_ms": k1_plain,
                 "library_ms": k1_lib,
                 "library": "F.scaled_dot_product_attention(is_causal=True)",
                 "bound_ms": k1_bound[0], "bound_by": k1_bound[1]}
@@ -1371,30 +1390,41 @@ def phase_attention_bwd_kernels(dev, flush):
 def phase_dropout_mask_exact(dev):
     """K1d's mask on the card equals the plain mask bit for bit: with q = k
     = 0 (non-causal), d = sk = 128 and V the identity, every score is 0, P
-    = 1/128, and O[i, j] = mscale[i, j] / 128 exactly, over 2 x 12 (b, h)
-    and 1024 rows, for seeds 0, -1, -2^31 and 2^31 - 1."""
+    = 1/128, and O[i, j] = mscale[i, j] / 128, over 2 x 12 (b, h) and 1024
+    rows, for seeds 0, -1, -2^31 and 2^31 - 1. In fp32 (the CUDA-core
+    body) O * 128 must equal the mask exactly; in bf16 (the tensor-core
+    body) O is a bf16 rounding of mscale / 128, so O != 0 must hold
+    exactly where the mask keeps."""
     from apex_tpu_torch.ops import attention, attention_cuda
 
     b, h, s, d = 2, 12, 1024, 128
-    q = torch.zeros(b, h, s, d, device=dev)
-    k = torch.zeros(b, h, d, d, device=dev)
-    v = torch.eye(d, device=dev).expand(b, h, d, d).contiguous()
-    checked = 0
-    for value in (0, -1, -2 ** 31, 2 ** 31 - 1):
-        seed = torch.tensor([value], dtype=torch.int32, device=dev)
-        o = attention_cuda.prefill_attention_dropout(
-            q, k, v, causal=False, sm_scale=0.125, dropout_p=DROPOUT_P,
-            dropout_seed=seed)
-        want = attention.dropout_mscale(seed, b, h, s, d, DROPOUT_P)
-        if not torch.equal(o * d, want):
-            bad = int((o * d != want).sum())
-            raise AssertionError(f"K1d's mask differs from the plain mask in "
-                                 f"{bad} elements (seed {value})")
-        checked += want.numel()
+    checked = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros(b, h, s, d, device=dev, dtype=dtype)
+        k = torch.zeros(b, h, d, d, device=dev, dtype=dtype)
+        v = torch.eye(d, device=dev, dtype=dtype).expand(
+            b, h, d, d).contiguous()
+        checked[str(dtype)] = 0
+        for value in (0, -1, -2 ** 31, 2 ** 31 - 1):
+            seed = torch.tensor([value], dtype=torch.int32, device=dev)
+            o = attention_cuda.prefill_attention_dropout(
+                q, k, v, causal=False, sm_scale=0.125, dropout_p=DROPOUT_P,
+                dropout_seed=seed)
+            want = attention.dropout_mscale(seed, b, h, s, d, DROPOUT_P)
+            if dtype == torch.float32:
+                bad = int((o * d != want).sum())
+            else:
+                bad = int(((o != 0) != (want != 0)).sum())
+            if bad:
+                raise AssertionError(f"K1d's mask differs from the plain "
+                                     f"mask in {bad} elements ({dtype}, "
+                                     f"seed {value})")
+            checked[str(dtype)] += want.numel()
     kept = float((want > 0).float().mean())
     _log(f"dropout mask from K1d's output equals the plain mask in all "
-         f"{checked} elements (4 seeds, {b}x{h} heads x {s} rows x {d} "
-         f"keys); kept fraction {kept:.5f} (p = {DROPOUT_P})")
+         f"elements, fp32 (exactly) and bf16 (where kept): {checked} (4 "
+         f"seeds each, {b}x{h} heads x {s} rows x {d} keys); kept fraction "
+         f"{kept:.5f} (p = {DROPOUT_P})")
     return {"elements": checked, "kept_fraction": kept}
 
 
@@ -1461,12 +1491,13 @@ def phase_dropout_kernels(dev, flush):
         raise AssertionError("two K5d/K6d runs on the same inputs differ")
 
     spreads = [[], [], []]
-    fwd_ms = _time_ms(lambda: attention_cuda.prefill_attention_dropout(
-        q, k, v, **kw), flush, spread=spreads[0])
+    fwd_ms, fwd_turns, fwd_lib = _time_in_turns(
+        lambda: attention_cuda.prefill_attention_dropout(q, k, v, **kw),
+        lambda: F.scaled_dot_product_attention(
+            q, k, v, dropout_p=DROPOUT_P, is_causal=True, scale=scale),
+        flush, spread=spreads[0])
     fwd_plain = _time_ms(lambda: attention._dense_attention(
         q, k, v, True, scale, None, DROPOUT_P, seed), flush, reps=5)
-    fwd_lib = _time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, dropout_p=DROPOUT_P, is_causal=True, scale=scale), flush)
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
     og = F.scaled_dot_product_attention(
         qg, kg, vg, dropout_p=DROPOUT_P, is_causal=True,
@@ -1520,8 +1551,9 @@ def phase_dropout_kernels(dev, flush):
              source="apex_tpu_torch/csrc/prefill_attention.cu",
              replaces="apex_tpu/ops/attention_pallas.py:252",
              max_abs_err=fwd_err["max_abs_err"], rel_l2=fwd_err["rel_l2"],
-             tol=k1_tol, rel_l2_tol=K1_L2_TOL, ms=fwd_ms, kernel_ms=fwd_ms,
-             ms_spread=spreads[0], plain_ms=fwd_plain, library_ms=fwd_lib,
+             tol=k1_tol, rel_l2_tol=K1_L2_TOL, ms=fwd_ms,
+             ms_turns=fwd_turns, kernel_ms=fwd_ms, ms_spread=spreads[0],
+             plain_ms=fwd_plain, library_ms=fwd_lib,
              library=(f"F.scaled_dot_product_attention(dropout_p="
                       f"{DROPOUT_P}, is_causal=True); it draws another "
                       f"mask, so a time yardstick only"),
@@ -2295,7 +2327,7 @@ def _kind(name):
     low = name.lower()
     if "xent_" in name:
         return "lm_head"
-    if "prefill_attention_kernel" in name:
+    if "prefill_attention_" in name:
         return "attention_fwd"
     if "attention_bwd_" in name:
         return "attention_bwd"
@@ -2364,15 +2396,16 @@ def phase_training_profile(state):
 
 def _log_ptxas(name, log):
     """ptxas's registers and spills in one source's build log (the
-    attention-backward kernels named), and how many warpgroup arrive/wait
-    points it injected around wgmma (C7517/C7519: register hazards it
-    resolved by waiting)."""
+    attention kernels named), and how many warpgroup arrive/wait points it
+    injected around wgmma (C7517/C7519: register hazards it resolved by
+    waiting)."""
     dtypes = {"13__nv_bfloat16": "bf16", "6__half": "fp16", "f": "fp32"}
     kernel = ""
     for line in log:
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            inst = re.search(r"(attention_bwd_(?:dq|dkv)_(?:tc|simt))I"
+            inst = re.search(r"(attention_bwd_(?:dq|dkv)_(?:tc|simt)|"
+                             r"prefill_attention_(?:tc|simt))I"
                              r"(13__nv_bfloat16|6__half|f)Li(\d+)ELb([01])",
                              entry.group(1))
             kernel = "" if inst is None else (
@@ -2386,8 +2419,7 @@ def _log_ptxas(name, log):
              f"points around wgmma")
 
 
-def _tensor_core_sass(lib, kernels=("attention_bwd_dq_tc",
-                                     "attention_bwd_dkv_tc")):
+def _tensor_core_sass(lib, kernels):
     """The tensor-core instructions in each bf16 instantiation of
     ``kernels`` in a built library, from ``cuobjdump -sass`` (beside the
     ``nvcc`` that built it): ``{"<kernel> d=<head dim> [dropout]":
@@ -2442,18 +2474,27 @@ def main():
     _log(f"build: {build_s:.1f} s for {len(_build.SOURCES)} sources")
     for name in _build.SOURCES:
         _log_ptxas(name, _build.build_log.get(name, "").splitlines())
-    sass = _tensor_core_sass(_build.lib_path("attention_bwd"))
-    if sass is None:
-        _log("cuobjdump is not in the toolkit: the tensor-core instructions "
-             "of K5/K6 are not counted")
-    else:
-        for key, n in sorted(sass.items()):
-            _log(f"  attention_bwd {key} (bf16): {n['HGMMA']} HGMMA, "
+    # the bf16 instantiations (d 64 and 128, with and without dropout) of
+    # K5/K6 (eight) and K1 (four) must hold wgmma (HGMMA) instructions
+    sass = {}
+    for source, kernels, want in (
+            ("attention_bwd", ("attention_bwd_dq_tc", "attention_bwd_dkv_tc"),
+             8),
+            ("prefill_attention", ("prefill_attention_tc",), 4)):
+        counts = _tensor_core_sass(_build.lib_path(source), kernels)
+        if counts is None:
+            _log("cuobjdump is not in the toolkit: the tensor-core "
+                 "instructions of K1, K5 and K6 are not counted")
+            sass = None
+            break
+        for key, n in sorted(counts.items()):
+            _log(f"  {source} {key} (bf16): {n['HGMMA']} HGMMA, "
                  f"{n['HMMA']} HMMA")
-        if len(sass) != 8 or any(n["HGMMA"] + n["HMMA"] == 0
-                                 for n in sass.values()):
-            raise AssertionError(f"a bf16 attention-backward kernel has no "
-                                 f"tensor-core instructions: {sass}")
+        if len(counts) != want or any(n["HGMMA"] == 0
+                                      for n in counts.values()):
+            raise AssertionError(f"a bf16 {source} kernel has no wgmma "
+                                 f"instructions: {counts}")
+        sass.update(counts)
 
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     rows = [phase_prefill_kernel(dev, flush), phase_decode_kernel(dev, flush)]
@@ -2594,7 +2635,7 @@ def main():
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} never ran on the main path")
         row["card"] = smi
-        if sass and name.startswith("attention_bwd_"):
+        if sass and name.startswith(("attention_bwd_", "prefill_attention")):
             kernel = name.replace("_dropout", "") + "_tc d=64"
             row["tensor_core_sass"] = sass[
                 kernel + (" dropout" if name.endswith("_dropout") else "")]

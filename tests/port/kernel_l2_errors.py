@@ -1,6 +1,7 @@
 """Relative L2 error, ||kernel - plain|| / ||plain||, of every case the
-card tests run for K1 (forward), K3/K4 (layer norm), K5/K6 (attention
-backward, also the tensor-core cases over several tiles), K1d and
+card tests run for K1 (forward; in bf16/fp16 also the tensor-core cases
+over several tiles), K3/K4 (layer norm), K5/K6 (attention backward, also
+the tensor-core cases over several tiles), K1d and
 K5d/K6d (the same with dropout), K7-K9 (the fused
 LM head: loss and lse, dX, dE), K7p with K8/K9 on vocabulary shards
 (each against its plain version, and the shards combined against K7-K9
@@ -8,7 +9,7 @@ on the whole table), K2q (decode over int8 pages) and K10/K11 and
 K10L/K11L (the fused softmax, forward and backward, up to 4096 keys and
 above), per dtype. It prints one line per attention, LM-head,
 int8-decode and softmax case and the worst value per kernel and dtype:
-the numbers ``L2_TOL``, ``DROPOUT_L2_TOL``, ``XENT_L2_TOL``,
+the numbers ``L2_TOL``, ``DROPOUT_L2_TOL``, ``K1_L2_TOL``, ``XENT_L2_TOL``,
 ``XENT_LOSS_TOL``, ``XENT_PARTIAL_TOL``, ``XENT_SHARD_DX_L2_TOL`` and
 ``SOFTMAX_L2_TOL`` in ``test_torch_kernels_cuda.py`` are set from (for K7
 the largest |loss diff| over max(1, |loss|); for K10 also the largest |y
@@ -92,6 +93,18 @@ def main():
             if tdt == torch.float32:
                 continue
             for sq, sk in cases.TC_SHAPES:
+                for case in ("causal", "segments", "dropout", "cross"):
+                    q, k, v, causal, seg, sd = cases._k1_tc_case(
+                        dev, tdt, d, sq, sk, case)
+                    s = d ** -0.5
+                    o = cases._k1(q, k, v, causal, s, seg, sd)
+                    fwd = _l2(o, attention._dense_attention(
+                        q, k, v, causal, s, seg, 0.1 if sd is not None
+                        else 0.0, sd))
+                    name = "K1d" if sd is not None else "K1"
+                    print(f"prefill tiles {dtype} d={d} {sq}x{sk} {case}: "
+                          f"{name} {fwd:.3e}")
+                    note(name, dtype, fwd)
                 for case in ("causal", "segments", "dropout"):
                     q, k, v, do, seg, sd = cases._tc_case(dev, tdt, d, sq,
                                                           sk, case)

@@ -3,7 +3,12 @@ card, at edge shapes the chip smoke does not reach: ragged tiles, head
 dims 64 and 128, bf16/fp16/fp32, fully masked rows, lengths 0 / 1 /
 ps-1 / ps / ps+1 / full, unowned pages poisoned with NaN; layer norm at
 ragged row counts, hidden 64 / 768 / 1024 / 4096 / 8192, with and
-without affine; the split attention backward (K5, K6) on causal,
+without affine; the prefill forward K1 and K1d in bf16 and fp16 (the
+tensor-core body) over several ragged and exact tiles (300 x 300, 200 x
+333, 256 x 256) causal, segmented with a padded tail, with dropout and
+non-causal, two runs equal bit for bit, fp32 on its CUDA-core body (the
+names the profiler records), the half-type K1d's mask recovered where it
+keeps; the split attention backward (K5, K6) on causal,
 segmented, fully masked and cross-length inputs, and in bf16 and fp16
 (the tensor-core kernels) over several ragged and exact tiles (300 x
 300, 200 x 333, 256 x 256) causal, segmented and with dropout, two runs
@@ -45,8 +50,9 @@ and a one-ulp flip there moves a gradient by under 1e-2 of its scale).
 Layer-norm statistics and the fp32 affine gradients: 1e-4 relative to
 their scale (fp32 sums over the row or over the rows, another order).
 The layer-norm outputs and the attention gradients are also held by
-their relative L2 error (``L2_TOL``), so an error the size of a typical
-element fails even where one large element widens the band above. The
+their relative L2 error (``L2_TOL``), and K1/K1d's outputs by
+``K1_L2_TOL``, so an error the size of a typical element fails even
+where one large element widens the band above. The
 LM head's loss and lse are fp32 on both sides from logits summed in
 another order: within ``XENT_LOSS_TOL`` of max(1, |loss|). Its dX and dE
 have their own relative-L2 band, ``XENT_L2_TOL``: both sides round the
@@ -88,6 +94,14 @@ XENT_L2_TOL = {"bfloat16": 2e-3, "float16": 6e-4, "float32": 1.5e-5}
 # CUDA cores, and 1.1e-4 (bf16) and 6.0e-5 (fp16) on the tensor cores
 DROPOUT_L2_TOL = L2_TOL
 DROPOUT_SEEDS = [-123456789, 2 ** 31 - 1]
+# relative L2 of K1's and K1d's output against the plain version. For bf16
+# and fp16 K1 rounds P to the input type as exp(s - m_running) in one pass,
+# where the plain version rounds the normalized P, so the two round at
+# different scales; in fp32 K1 rounds P nowhere and the plain version
+# rounds it to fp32. On an H100 (tests/port/kernel_l2_errors.py) the
+# K1/K1d cases, the tensor-core multi-tile ones included, measured at most
+# 3.0e-3 (bf16), 3.8e-4 (fp16) and 2.3e-7 (fp32)
+K1_L2_TOL = {"bfloat16": 6e-3, "float16": 8e-4, "float32": 1e-6}
 # K10's probabilities (at most 1) against the plain version: fp32 inside
 # both, so the outputs round from values a few fp32 ulps apart: one ulp of
 # the output type at 1 (bf16 2^-8, fp16 2^-11), fp32 1e-6
@@ -181,6 +195,7 @@ def test_prefill_kernel_matches_plain(dev, dtype, d, case):
     torch.cuda.synchronize()
     assert torch.isfinite(out.float()).all()
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+    _close_l2(out, ref, dtype, K1_L2_TOL)
     if seg is not None and case != "segments":
         assert (out[:, :, 5] == 0).all(), "a fully masked row gives 0"
 
@@ -431,6 +446,100 @@ def test_attention_bwd_tensor_core_tiles_match_plain(dev, dtype, d, shape,
         _close_l2(out, r, dtype)
     if case == "segments":
         assert (got[0][:, :, sq - 9:] == 0).all(), "padded rows have no dq"
+
+
+def _k1_tc_case(dev, dtype, d, sq, sk, case):
+    """``_tc_case``'s inputs for K1: "cross" takes the causal case's
+    inputs without the causal mask."""
+    q, k, v, _, seg, sd = _tc_case(dev, dtype, d, sq, sk,
+                                   "causal" if case == "cross" else case)
+    return q, k, v, case != "cross", seg, sd
+
+
+def _k1(q, k, v, causal, scale, seg, sd, p=0.1):
+    """K1, or K1d where a dropout seed is given."""
+    if sd is None:
+        return attention_cuda.prefill_attention(q, k, v, causal=causal,
+                                                sm_scale=scale,
+                                                segment_ids=seg)
+    return attention_cuda.prefill_attention_dropout(
+        q, k, v, causal=causal, sm_scale=scale, dropout_p=p,
+        dropout_seed=sd, segment_ids=seg)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("shape", TC_SHAPES,
+                         ids=[f"{a}x{b}" for a, b in TC_SHAPES])
+@pytest.mark.parametrize("case", ["causal", "segments", "dropout", "cross"])
+def test_prefill_tensor_core_tiles_match_plain(dev, dtype, d, shape, case):
+    """K1 (K1d for "dropout") over several tiles, ragged and exact, causal
+    or not ("cross"), against the plain forward; the padded query rows of
+    "segments" see no key of theirs and give exact zeros."""
+    torch_dtype, tol = DTYPES[dtype]
+    sq, sk = shape
+    q, k, v, causal, seg, sd = _k1_tc_case(dev, torch_dtype, d, sq, sk, case)
+    scale = d ** -0.5
+    o = _k1(q, k, v, causal, scale, seg, sd)
+    ref = attention._dense_attention(q, k, v, causal, scale, seg,
+                                     0.1 if sd is not None else 0.0, sd)
+    torch.cuda.synchronize()
+    assert o.dtype == torch_dtype
+    assert torch.isfinite(o.float()).all()
+    torch.testing.assert_close(o.float(), ref.float(), atol=tol, rtol=0)
+    _close_l2(o, ref, dtype, K1_L2_TOL)
+    if case == "segments":
+        assert (o[:, :, sq - 9:] == 0).all(), "a fully masked row gives 0"
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("dropout", [False, True])
+def test_prefill_is_bitwise_repeatable(dev, dtype, dropout):
+    """Each block owns its output rows (no atomics): two runs of K1, or of
+    K1d, on the same inputs give the same bits."""
+    q, k, v, _, _, sd = _k1_tc_case(dev, DTYPES[dtype][0], 64, 300, 300,
+                                    "dropout")
+    sd = sd if dropout else None
+    first = _k1(q, k, v, True, 0.125, None, sd)
+    again = _k1(q, k, v, True, 0.125, None, sd)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+def test_prefill_runs_tensor_cores_for_half_types_only(dev):
+    """bf16 and fp16 launch the tensor-core body (``prefill_attention_tc``),
+    fp32 the CUDA-core one (``prefill_attention_simt``): the kernel names
+    the profiler records, with and without dropout."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = {}
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        q, k, v, _, _, sd = _k1_tc_case(dev, dtype, 64, 128, 128, "dropout")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _k1(q, k, v, True, 0.125, None, None)
+            _k1(q, k, v, True, 0.125, None, sd)
+            torch.cuda.synchronize()
+        names[dtype] = [e.key for e in prof.key_averages()
+                        if "prefill_attention_" in e.key]
+    for dtype in (torch.bfloat16, torch.float16):
+        assert len(names[dtype]) == 2, names[dtype]
+        assert all("prefill_attention_tc" in n for n in names[dtype])
+    assert len(names[torch.float32]) == 2, names[torch.float32]
+    assert all("prefill_attention_simt" in n for n in names[torch.float32])
+
+
+def test_prefill_refuses_unaligned_rows(dev):
+    flat = torch.zeros(1 * 2 * 8 * 64 + 1, device=dev, dtype=torch.bfloat16)
+    q = flat[1:].view(1, 2, 8, 64)
+    good = torch.zeros(1, 2, 8, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        attention_cuda.prefill_attention(q, good, good, causal=True,
+                                         sm_scale=1.0)
+    with pytest.raises(ValueError, match="16-byte"):
+        attention_cuda.prefill_attention_dropout(
+            good, good, q, causal=True, sm_scale=1.0, dropout_p=0.1,
+            dropout_seed=torch.zeros(1, dtype=torch.int32, device=dev))
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
@@ -720,6 +829,7 @@ def test_dropout_kernels_match_plain(dev, dtype, d, case, seed):
     torch.cuda.synchronize()
     assert torch.isfinite(o.float()).all()
     torch.testing.assert_close(o.float(), ro.float(), atol=tol, rtol=0)
+    _close_l2(o, ro, dtype, K1_L2_TOL)
     for out, r in zip((dq, dk, dv), ref):
         assert out.dtype == r.dtype == torch_dtype
         assert torch.isfinite(out.float()).all()
@@ -746,6 +856,27 @@ def test_dropout_mask_is_recovered_exactly_from_k1d(dev):
         want = attention.dropout_mscale(sd, b, h, s, d, 0.1)
         torch.cuda.synchronize()
         assert torch.equal(o * d, want), seed
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_dropout_mask_is_kept_exactly_where_half_k1d_keeps(dev, dtype):
+    """The tensor-core K1d on the inputs above: O is a rounding of mscale /
+    128 to the half type, so it is non-zero exactly where the plain mask
+    keeps."""
+    torch_dtype = DTYPES[dtype][0]
+    b, h, s, d = 2, 3, 1024, 128
+    q = torch.zeros(b, h, s, d, device=dev, dtype=torch_dtype)
+    k = torch.zeros(b, h, d, d, device=dev, dtype=torch_dtype)
+    v = torch.eye(d, device=dev, dtype=torch_dtype).expand(
+        b, h, d, d).contiguous()
+    for seed in (0, -1, -2 ** 31, 2 ** 31 - 1, 987654321):
+        sd = torch.tensor([seed], dtype=torch.int32, device=dev)
+        o = attention_cuda.prefill_attention_dropout(
+            q, k, v, causal=False, sm_scale=0.125, dropout_p=0.1,
+            dropout_seed=sd)
+        want = attention.dropout_mscale(sd, b, h, s, d, 0.1)
+        torch.cuda.synchronize()
+        assert torch.equal(o != 0, want != 0), seed
 
 
 def test_dropout_backward_is_repeatable(dev):
