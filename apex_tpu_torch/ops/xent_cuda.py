@@ -6,6 +6,12 @@ vocabulary-shard forward ``:321 _fwd_sharded`` (its ``pallas_call`` at
 two calls of ``:449 _bwd_kernels`` (dX at ``:467``, dE at ``:482``), on a
 whole table or, with ``v_total``, on a shard. The source's header says
 what bounds them (the tensor-core rate) and how the design answers that.
+For bf16 and fp16 at widths ``h % 64 == 0`` up to 1024, K8 and K9 run on
+Hopper's ``wgmma`` with TMA loads (``xent_bwd_tc``, one body built for
+``h = 768`` and one for the other widths); fp32 takes the CUDA-core form
+(``xent_dx_simt``/``xent_de_simt``) and the other half-type widths the
+``wmma`` form (``xent_dx_wmma``/``xent_de_wmma``). The choice goes by
+dtype and shape alone.
 
 Each wrapper checks its inputs, allocates its outputs, launches on
 PyTorch's current stream without synchronising, raises on a refused

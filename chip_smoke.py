@@ -18,7 +18,8 @@ exits non-zero before the last line):
    registers and spills are printed, and, where the toolkit has
    ``cuobjdump``, the tensor-core instructions (``HGMMA``: wgmma;
    ``HMMA``: mma.sync) of each bf16 instantiation of K5/K6 and K1/K1d
-   (d 64 and 128, with and without dropout), which must hold ``HGMMA``.
+   (d 64 and 128, with and without dropout) and of the tensor-core K8/K9
+   (32- and 16-row streamed tiles), which must hold ``HGMMA``.
 3. one phase per kernel at its main path's shapes: K1 and K2 at the
    serving shapes, K3/K4 (layer norm, x ``[8192, 768]`` bf16), K5/K6
    (attention backward, ``[8, 12, 1024, 64]`` bf16, causal), K1d, K5d
@@ -48,7 +49,8 @@ exits non-zero before the last line):
    outputs also by relative L2, ``BF16_L2_TOL``; K1 is held at the
    training shape too, within ``K1_L2_TOL``, before its output feeds the
    backward; K7's fp32 loss and lse within ``XENT_LOSS_TOL`` and
-   ``XENT_LOSS_L2_TOL``; two K9 runs must give the same bits); its
+   ``XENT_LOSS_L2_TOL``; two K8 runs and two K9 runs must each give
+   the same bits); its
    time, the plain version's and one PyTorch call's (``library_ms``:
    SDPA, ``F.layer_norm``, the materialized head ``x @ E.T`` then
    ``F.cross_entropy``, or their backward through ``torch.autograd.grad``
@@ -60,7 +62,7 @@ exits non-zero before the last line):
    by the port), each over launches that
    find the 50 MB L2 cache flushed
    (the kernel's own launches also give their [min, median, max],
-   ``ms_spread``; K1, K1d, K5/K6 and K5d/K6d are timed in turns with
+   ``ms_spread``; K1, K1d, K5/K6, K5d/K6d and K8/K9 are timed in turns with
    their library call, kernel, library, kernel, ``ms`` the mean of the
    two turns, ``ms_turns`` each); and the least time an H100 SXM could take
    for the same work (``bound_ms``: bytes each input read and output written
@@ -176,7 +178,7 @@ K1_L2_TOL = 1e-2
 # logits summed in another order; an H100 measured 3.8e-6 max |diff| (four
 # ulps) and 7.4e-8 relative L2. K8 and K9 are held to BF16_L2_TOL: their
 # coefficients round to bf16 on both sides, and at the training shape dX
-# measured 5.4e-4 and dE 1.9e-4
+# measured 5.4e-4 and dE 1.9e-4, on wmma and again on wgmma
 XENT_LOSS_TOL = 3e-5
 XENT_LOSS_L2_TOL = 1e-6
 # kernel path vs plain path of one training step (bf16): |loss diff| and
@@ -1596,13 +1598,15 @@ def phase_xent_kernels(dev, flush):
     loss, lse = xent_cuda.xent_fwd(x, e, labels)
     dx = xent_cuda.xent_bwd_dx(x, e, labels, lse, dl)
     de = xent_cuda.xent_bwd_de(x, e, labels, lse, dl)
+    dx_again = xent_cuda.xent_bwd_dx(x, e, labels, lse, dl)
     de_again = xent_cuda.xent_bwd_de(x, e, labels, lse, dl)
     rloss, rlse = xent.linear_cross_entropy_fwd(x, e, labels)
     rdx = xent.linear_cross_entropy_dx(x, e, labels, rlse, dl)
     rde = xent.linear_cross_entropy_de(x, e, labels, rlse, dl)
     torch.cuda.synchronize()
-    repeatable = torch.equal(de, de_again)
-    del de_again
+    repeatable = {"dx": torch.equal(dx, dx_again),
+                  "de": torch.equal(de, de_again)}
+    del dx_again, de_again
     fwd_err = {"loss_max_abs_err": _max_err(loss, rloss),
                "lse_max_abs_err": _max_err(lse, rlse),
                "loss_rel_l2": _rel_l2(loss, rloss),
@@ -1614,7 +1618,7 @@ def phase_xent_kernels(dev, flush):
     _log(f"xent_fwd: {fwd_err} (tol max abs {XENT_LOSS_TOL}, relative L2 "
          f"{XENT_LOSS_L2_TOL})")
     _log(f"xent_bwd: {bwd_err} (tol relative L2 {BF16_L2_TOL}, max error "
-         f"over the largest magnitude 5e-2); dE bitwise repeatable: "
+         f"over the largest magnitude 5e-2); bitwise repeatable: "
          f"{repeatable}")
     if (max(fwd_err["loss_max_abs_err"], fwd_err["lse_max_abs_err"])
             > XENT_LOSS_TOL
@@ -1626,16 +1630,14 @@ def phase_xent_kernels(dev, flush):
         if err["rel_l2"] > BF16_L2_TOL or err["rel_err"] > 5e-2:
             raise AssertionError(f"{k} kernel disagrees with its plain "
                                  f"version: {err}")
-    if not repeatable:
-        raise AssertionError("two K9 runs on the same inputs differ")
+    for k, same in repeatable.items():
+        if not same:
+            raise AssertionError(f"two {k} kernel runs on the same inputs "
+                                 f"differ")
 
     spreads = [[], [], []]
     fwd_ms = _time_ms(lambda: xent_cuda.xent_fwd(x, e, labels), flush,
                       spread=spreads[0])
-    dx_ms = _time_ms(lambda: xent_cuda.xent_bwd_dx(x, e, labels, lse, dl),
-                     flush, spread=spreads[1])
-    de_ms = _time_ms(lambda: xent_cuda.xent_bwd_de(x, e, labels, lse, dl),
-                     flush, spread=spreads[2])
     fwd_plain = _time_ms(lambda: xent.linear_cross_entropy_fwd(x, e, labels),
                          flush, reps=3)
     dx_plain = _time_ms(lambda: xent.linear_cross_entropy_dx(
@@ -1648,9 +1650,20 @@ def phase_xent_kernels(dev, flush):
     xg, eg = x.detach().requires_grad_(), e.detach().requires_grad_()
     lg = F.cross_entropy(xg @ eg.t(), lab64,
                          reduction="none")       # graph built untimed
-    bwd_lib = _time_ms(lambda: torch.autograd.grad(
-        lg, (xg, eg), dl, retain_graph=True), flush)
+    # in turns: K8 and K9, the library backward, K8 and K9
+    dx_turns, de_turns = [], []
+    for turn in range(2):
+        dx_turns.append(_time_ms(
+            lambda: xent_cuda.xent_bwd_dx(x, e, labels, lse, dl), flush,
+            spread=spreads[1] if turn == 0 else None))
+        de_turns.append(_time_ms(
+            lambda: xent_cuda.xent_bwd_de(x, e, labels, lse, dl), flush,
+            spread=spreads[2] if turn == 0 else None))
+        if turn == 0:
+            bwd_lib = _time_ms(lambda: torch.autograd.grad(
+                lg, (xg, eg), dl, retain_graph=True), flush)
     del lg, xg, eg
+    dx_ms, de_ms = statistics.mean(dx_turns), statistics.mean(de_turns)
     xb, eb = n * h * 2, V * h * 2
     rows_b = n * 4                               # one fp32/int32 row vector
     fwd_bytes = xb + eb + 3 * rows_b             # labels in, loss, lse out
@@ -1680,14 +1693,16 @@ def phase_xent_kernels(dev, flush):
              flops=fwd_flops),
         dict(bwd_common, name="xent_bwd_dx",
              replaces="apex_tpu/ops/xent_pallas.py:467",
-             **bwd_err["dx"], ms=dx_ms, kernel_ms=dx_ms,
+             **bwd_err["dx"], bitwise_repeatable=repeatable["dx"],
+             ms=dx_ms, ms_turns=dx_turns, kernel_ms=dx_ms,
              ms_spread=spreads[1], plain_ms=dx_plain,
              bound_ms=dx_bound[0], bound_by=dx_bound[1], bytes=dx_bytes,
              flops=bwd_flops),
         dict(bwd_common, name="xent_bwd_de",
              replaces="apex_tpu/ops/xent_pallas.py:482",
-             **bwd_err["de"], bitwise_repeatable=repeatable, ms=de_ms,
-             kernel_ms=de_ms, ms_spread=spreads[2], plain_ms=de_plain,
+             **bwd_err["de"], bitwise_repeatable=repeatable["de"],
+             ms=de_ms, ms_turns=de_turns, kernel_ms=de_ms,
+             ms_spread=spreads[2], plain_ms=de_plain,
              bound_ms=de_bound[0], bound_by=de_bound[1], bytes=de_bytes,
              flops=bwd_flops)]
 
@@ -2394,37 +2409,61 @@ def phase_training_profile(state):
                                 "other"))
 
 
+def _kernel_label(fn):
+    """A mangled kernel name as "<kernel> <dtype> <instance>" for the
+    attention kernels and the LM head's backward; "" for the others."""
+    dtypes = {"13__nv_bfloat16": "bf16", "6__half": "fp16", "f": "fp32"}
+    att = re.search(r"(attention_bwd_(?:dq|dkv)_(?:tc|simt)|"
+                    r"prefill_attention_(?:tc|simt))I"
+                    r"(13__nv_bfloat16|6__half|f)Li(\d+)ELb([01])", fn)
+    tc = re.search(r"xent_bwd_tcI(13__nv_bfloat16|6__half)Lb([01])ELi(\d+)E",
+                   fn)
+    general = re.search(r"(xent_(?:dx|de)_(?:simt|wmma))I"
+                        r"(13__nv_bfloat16|6__half|f)E", fn)
+    if att:
+        return (f"{att.group(1)} {dtypes[att.group(2)]} d={att.group(3)}"
+                f"{' dropout' if att.group(4) == '1' else ''}")
+    if tc:
+        return (f"xent_bwd_tc {dtypes[tc.group(1)]} "
+                f"{'dE' if tc.group(2) == '1' else 'dX'} b={tc.group(3)}")
+    if general:
+        return f"{general.group(1)} {dtypes[general.group(2)]}"
+    return ""
+
+
 def _log_ptxas(name, log):
     """ptxas's registers and spills in one source's build log (the
-    attention kernels named), and how many warpgroup arrive/wait points it
-    injected around wgmma (C7517/C7519: register hazards it resolved by
-    waiting)."""
-    dtypes = {"13__nv_bfloat16": "bf16", "6__half": "fp16", "f": "fp32"}
+    attention kernels and the LM head's backward named), how many
+    warpgroup arrive/wait points it injected around wgmma (C7517/C7519:
+    register hazards it resolved by waiting), and which kernels it
+    serialized every wgmma of (C7510-C7520)."""
     kernel = ""
     for line in log:
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            inst = re.search(r"(attention_bwd_(?:dq|dkv)_(?:tc|simt)|"
-                             r"prefill_attention_(?:tc|simt))I"
-                             r"(13__nv_bfloat16|6__half|f)Li(\d+)ELb([01])",
-                             entry.group(1))
-            kernel = "" if inst is None else (
-                f"{inst.group(1)} {dtypes[inst.group(2)]} d={inst.group(3)}"
-                f"{' dropout' if inst.group(4) == '1' else ''}: ")
+            label = _kernel_label(entry.group(1))
+            kernel = f"{label}: " if label else ""
         elif "Used" in line and "registers" in line or "spill" in line:
             _log(f"  {name}: {kernel}{line.strip()}")
     injected = sum("is injected" in line for line in log)
     if injected:
         _log(f"  {name}: ptxas injected {injected} warpgroup arrive/wait "
              f"points around wgmma")
+    for line in log:
+        if "instructions are serialized" in line:
+            fn = re.search(r"function '(\S+)'", line)
+            _log(f"  {name}: wgmma serialized in "
+                 f"{_kernel_label(fn.group(1)) if fn else line.strip()}")
 
 
 def _tensor_core_sass(lib, kernels):
     """The tensor-core instructions in each bf16 instantiation of
     ``kernels`` in a built library, from ``cuobjdump -sass`` (beside the
-    ``nvcc`` that built it): ``{"<kernel> d=<head dim> [dropout]":
-    {"HGMMA": n, "HMMA": n}}`` (HGMMA is wgmma, HMMA mma.sync); None
-    where the toolkit has no cuobjdump."""
+    ``nvcc`` that built it): ``{"<kernel> <instance>": {"HGMMA": n,
+    "HMMA": n}}`` (HGMMA is wgmma, HMMA mma.sync), the instance "d=<head
+    dim> [dropout]" of an attention kernel (``<T, int D, bool
+    DROPOUT>``) or "dX|dE b=<streamed rows>" of ``xent_bwd_tc`` (``<T,
+    bool DE, int B>``); None where the toolkit has no cuobjdump."""
     from apex_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -2436,11 +2475,14 @@ def _tensor_core_sass(lib, kernels):
     for chunk in sass.split("Function : ")[1:]:
         fn = chunk.split("\n", 1)[0]
         kernel = next((k for k in kernels if k in fn), None)
-        inst = re.search(r"nv_bfloat16Li(\d+)ELb([01])E", fn)
-        if kernel is None or inst is None:
+        att = re.search(r"nv_bfloat16Li(\d+)ELb([01])E", fn)
+        tc = re.search(r"nv_bfloat16Lb([01])ELi(\d+)E", fn)
+        if kernel is None or (att or tc) is None:
             continue
-        key = (f"{kernel} d={inst.group(1)}"
-               + (" dropout" if inst.group(2) == "1" else ""))
+        key = (f"{kernel} d={att.group(1)}"
+               + (" dropout" if att.group(2) == "1" else "") if att else
+               f"{kernel} {'dE' if tc.group(1) == '1' else 'dX'} "
+               f"b={tc.group(2)}")
         counts[key] = {"HGMMA": chunk.count("HGMMA"),
                        "HMMA": chunk.count("HMMA")}
     return counts
@@ -2475,16 +2517,18 @@ def main():
     for name in _build.SOURCES:
         _log_ptxas(name, _build.build_log.get(name, "").splitlines())
     # the bf16 instantiations (d 64 and 128, with and without dropout) of
-    # K5/K6 (eight) and K1 (four) must hold wgmma (HGMMA) instructions
+    # K5/K6 (eight) and K1 (four), and those of the tensor-core K8/K9 (32-
+    # and 16-row streamed tiles, four), must hold wgmma (HGMMA) instructions
     sass = {}
     for source, kernels, want in (
             ("attention_bwd", ("attention_bwd_dq_tc", "attention_bwd_dkv_tc"),
              8),
-            ("prefill_attention", ("prefill_attention_tc",), 4)):
+            ("prefill_attention", ("prefill_attention_tc",), 4),
+            ("xent", ("xent_bwd_tc",), 4)):
         counts = _tensor_core_sass(_build.lib_path(source), kernels)
         if counts is None:
             _log("cuobjdump is not in the toolkit: the tensor-core "
-                 "instructions of K1, K5 and K6 are not counted")
+                 "instructions of K1, K5, K6, K8 and K9 are not counted")
             sass = None
             break
         for key, n in sorted(counts.items()):
@@ -2639,6 +2683,9 @@ def main():
             kernel = name.replace("_dropout", "") + "_tc d=64"
             row["tensor_core_sass"] = sass[
                 kernel + (" dropout" if name.endswith("_dropout") else "")]
+        elif sass and name in ("xent_bwd_dx", "xent_bwd_de"):
+            row["tensor_core_sass"] = sass[
+                f"xent_bwd_tc {'dX' if name.endswith('dx') else 'dE'} b=32"]
         _log(json.dumps(row))
     _log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -14,9 +14,11 @@ segmented, fully masked and cross-length inputs, and in bf16 and fp16
 300, 200 x 333, 256 x 256) causal, segmented and with dropout, two runs
 equal bit for bit, and fp32 on its own CUDA-core kernels (the names the
 profiler records); the fused LM head (K7,
-K8, K9) at vocabularies 384, 1280 and 50304, row counts that leave
-partial row tiles, widths that leave a partial column tile, with and
-without label smoothing; the dropout variants K1d, K5d and K6d at
+K8, K9) at vocabularies 384, 640, 1280 and 50304, row counts that leave
+partial row tiles, widths that leave a partial column tile or narrower
+warpgroup windows, a width the tensor-core K8/K9 do not take (their
+general form), with and without label smoothing, two K8 runs and two K9
+runs equal bit for bit; the dropout variants K1d, K5d and K6d at
 lengths that leave partial tiles (200), causal and segmented, with
 negative and extreme seeds, the mask recovered exactly from K1d's output
 with V the identity, and K5d/K6d repeatable bit for bit; K2q (decode over
@@ -84,7 +86,8 @@ DTYPES = {"bfloat16": (torch.bfloat16, 5e-2), "float16": (torch.float16, 5e-3),
 L2_TOL = {"bfloat16": 1e-3, "float16": 3e-4, "float32": 5e-6}
 # on an H100 (tests/port/kernel_l2_errors.py) these cases measured at most
 # 3.1e-7 for the loss and lse of every dtype, and 5.8e-4 (bf16), 2.1e-4
-# (fp16) and 4.2e-6 (fp32) for dX and dE
+# (fp16) and 4.2e-6 (fp32) for dX and dE, both with K8/K9 on wmma and on
+# wgmma (bf16/fp16; fp32 keeps its CUDA-core form)
 XENT_LOSS_TOL = 2e-6
 XENT_L2_TOL = {"bfloat16": 2e-3, "float16": 6e-4, "float32": 1.5e-5}
 # relative L2 of a dropout-backward output (K5d, K6d) against the plain
@@ -123,9 +126,12 @@ SOFTMAX_SHAPES = [(2, 3, 64, 128), (2, 2, 37, 200), (1, 3, 48, 1024),
                   (1, 1, 24, 3000), (1, 2, 8, 4096)]
 SOFTMAX_CASES = ["causal", "mask_b1", "mask_bnp", "mask_pad", "none"]
 # (n, V, h) of the LM-head cases: n leaves partial 32-, 64- and 128-row
-# tiles; h = 1024 leaves a partial 768-column tile
+# tiles; in bf16/fp16 the tensor-core K8/K9 take h % 64 == 0 up to 1024:
+# h = 1024 leaves a partial 768-column tile (16-row streamed tiles), h =
+# 128 and 448 leave warpgroups 64-column products, and h = 160 takes the
+# general (wmma) form
 XENT_SHAPES = [(200, 384, 128), (1032, 1280, 256), (136, 1280, 1024),
-               (200, 50304, 768)]
+               (200, 50304, 768), (72, 640, 448), (136, 384, 160)]
 # (n, V, h, tp) of the vocabulary-shard cases: V = 50432 is GPT-2's
 # vocabulary padded for tp = 2 (shards of 25216 = 128 x 197 rows)
 XENT_SHARD_SHAPES = [(200, 768, 128, 2), (1032, 2560, 256, 4),
@@ -140,7 +146,7 @@ XENT_SHARD_SHAPES = [(200, 768, 128, 2), (1032, 2560, 256, 4),
 # cases measured at most 3.6e-6 for the partials, 2.1e-7 for the combined
 # loss and lse, 3.9e-4 (bf16), 1.4e-4 (fp16) and 2.8e-6 (fp32) for K8 and
 # K9 on a shard, and 3.4e-3 (bf16), 2.1e-3 (fp16) and 2.8e-6 (fp32) for
-# the summed dX
+# the summed dX, with K8/K9 on wmma and again on wgmma
 XENT_PARTIAL_TOL = 1e-5
 XENT_SHARD_DX_L2_TOL = {"bfloat16": 8e-3, "float16": 5e-3, "float32": 1e-5}
 # (b, np, sq, sk) of K10L/K11L: 4097 takes element loads, 5000 and 8192
@@ -669,6 +675,14 @@ def test_xent_de_is_deterministic(dev):
     _, lse = xent_cuda.xent_fwd(x, e, labels)
     first = xent_cuda.xent_bwd_de(x, e, labels, lse, dl)
     again = xent_cuda.xent_bwd_de(x, e, labels, lse, dl)
+    assert torch.equal(first, again)
+
+
+def test_xent_dx_is_deterministic(dev):
+    x, e, labels, dl = _xent_case(dev, torch.bfloat16, 2048, 50304, 768)
+    _, lse = xent_cuda.xent_fwd(x, e, labels)
+    first = xent_cuda.xent_bwd_dx(x, e, labels, lse, dl)
+    again = xent_cuda.xent_bwd_dx(x, e, labels, lse, dl)
     assert torch.equal(first, again)
 
 
