@@ -31,11 +31,19 @@
 // bf16 that is four 16-byte loads and 32 fp32 values a lane (K11 keeps y
 // and g so up to 32 values a lane and reads longer rows twice). Under the
 // causal mask K10 does not read x in vectors that lie wholly above the
-// diagonal and writes zeros there. Rows whose length is not a multiple of
-// the vector (or whose start is not 16-byte aligned) take element loads
-// instead (the SCALAR instantiations). A block of four warps takes four
-// rows; each kernel is instantiated for up to 8, 32 and 128 elements a
-// lane (sk <= 256, 1024, 4096).
+// diagonal and writes zeros there. In bf16 and fp16 K10 takes the
+// exponential as ex2 of (v - max) log2 e and scales the row by one
+// reciprocal of its sum (fp32 keeps expf and the division: its band is a
+// few fp32 ulps). The per-element expf and IEEE division had held K10 at
+// 0.36 of its byte bound at the scores path's shape, where K11, with the
+// same layout, reads 0.89; without them it reads ~0.7 (PERF.md, §6).
+// Issuing all of a lane's loads before using any was slower there (it
+// holds more registers a lane), and 32-bit row-index arithmetic gained
+// nothing. Rows whose length is not a multiple of the vector (or whose
+// start is not 16-byte aligned) take element loads instead (the SCALAR
+// instantiations). A block of four warps takes four rows; each kernel is
+// instantiated for up to 8, 32 and 128 elements a lane (sk <= 256, 1024,
+// 4096).
 //
 // Longer rows (K10L and K11L, sk > 4096) do not fit one warp's registers.
 // There one block of LONG_THREADS threads owns a row and walks it in
@@ -124,8 +132,18 @@ __device__ __forceinline__ void store_row(T* __restrict__ p, int c0, int sk,
   }
 }
 
+// 2^x on the SFU (MUFU.EX2), subnormal results kept as expf keeps them
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+constexpr float LOG2E = 1.4426950408889634f;
+
 // NV vectors of EPV elements a lane; lane l's vector v starts at column
-// (v * 32 + l) * EPV
+// (v * 32 + l) * EPV. For bf16 and fp16 the exponential is ex2 of (v - max)
+// log2 e and the row is scaled by one reciprocal of its sum; fp32 keeps
+// expf and the division, since its band is a few fp32 ulps.
 template <typename T, int NV, bool VEC>
 __global__ void __launch_bounds__(THREADS)
 softmax_fwd_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
@@ -133,6 +151,7 @@ softmax_fwd_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
                    long long mask_sb, long long mask_sh, long long mask_sq,
                    float scale, int causal) {
   constexpr int EPV = 16 / sizeof(T);
+  constexpr bool HALF = sizeof(T) == 2;
   const long long row = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
   if (row >= rows) return;                     // warp-uniform
   const int lane = threadIdx.x % 32;
@@ -200,17 +219,21 @@ softmax_fwd_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
   for (int v = 0; v < NV; ++v)
 #pragma unroll
     for (int e = 0; e < EPV; ++e) {
-      val[v][e] = (masked[v] >> e) & 1u ? 0.f : expf(val[v][e] - mx);
+      const float d = val[v][e] - mx;
+      val[v][e] = (masked[v] >> e) & 1u ? 0.f : (HALF ? ex2(d * LOG2E) : expf(d));
       sum += val[v][e];
     }
   sum = warp_sum(sum);
+  // a row with every position masked has sum 0 and gives 0
+  const float inv = sum > 0.f ? 1.f / sum : 0.f;
 
 #pragma unroll
   for (int v = 0; v < NV; ++v) {
     const int c0 = (v * 32 + lane) * EPV;
     if (c0 >= sk) continue;
 #pragma unroll
-    for (int e = 0; e < EPV; ++e) val[v][e] = sum > 0.f ? val[v][e] / sum : 0.f;
+    for (int e = 0; e < EPV; ++e)
+      val[v][e] = HALF ? val[v][e] * inv : (sum > 0.f ? val[v][e] / sum : 0.f);
     store_row<T, EPV, VEC>(yr, c0, sk, val[v]);
   }
 }

@@ -32,19 +32,36 @@
 // FMAs (the *_simt kernels), since TF32 would break fp32 parity.
 //
 // Design, and what it does about the TPU kernel's shape:
-//  - K7 and K7p (and K8/K9 in their general form) compute a logits tile in
-//    logits_tile with nvcuda::wmma 16x16x16 fragments (mma.sync, fp32
-//    accumulators) into fp32 shared memory, where the softmax arithmetic
-//    reads it by row; the depth h streams through shared memory in 32-deep
-//    slices of x and E with cp.async, one loading while one is computed.
 //  - K7: a block owns 128 rows and a contiguous share of the vocabulary
 //    (nsplit shares, chosen by the caller so that the grid fills the card:
-//    row tiles alone give 64 blocks for 132 SMs). It walks its share in
-//    128-wide tiles and writes per-row partials (max, sum of exponentials,
-//    target, logits sum); a second small kernel combines the shares in a
-//    fixed order, the cross-shard combine _fwd_sharded :350-361 does for
-//    tp > 1. The blocks of one share start their walk at eight points of it
-//    and share E through L2.
+//    row tiles alone give 64 blocks for 132 SMs). It walks its share tile by
+//    tile and writes per-row partials (max, sum of exponentials, target,
+//    logits sum); a second small kernel combines the shares in a fixed
+//    order, the cross-shard combine _fwd_sharded :350-361 does for tp > 1.
+//    Its first stage has three forms, chosen by dtype and width alone:
+//     - bf16 and fp16 where h % 64 == 0 (xent_fwd_tc, Hopper's wgmma): two
+//       consumer warpgroups of 64 rows each hold one 64 x 256 tile of
+//       logits in fp32 registers (m64n256k16, both operands K-major from
+//       128-byte-swizzled shared memory), summed over the depth in
+//       64-column panels. One producer warp fills a ring of four stages,
+//       each a 128 x 64 panel of x and a 256 x 64 panel of E (48 KB), by
+//       TMA; the consumers hand a stage back on its mbarrier once their
+//       products have read it, so the next tile's panels load while a
+//       warpgroup folds its fragment into the row state: the tile's max by
+//       two quad shuffles, exponentials as ex2 of one FMA with log2 e
+//       folded in, per-thread partial sums (combined in a fixed order at
+//       the end), and the target by one compare of the label's column. V
+//       is a multiple of 128, so the last 256-wide tile is whole or half:
+//       its columns past V (zero-filled E rows) are never read. The grid is
+//       whole waves of one block an SM where the shape allows (64 row
+//       blocks x 33 shares at the training shape).
+//     - fp32: logits_tile with CUDA-core FMAs (TF32 would break fp32
+//       parity), 128-wide tiles;
+//     - bf16/fp16 at other widths: logits_tile on nvcuda::wmma 16x16x16
+//       fragments (mma.sync) into fp32 shared memory, where the softmax
+//       arithmetic reads it by row; the depth streams in 32-deep cp.async
+//       slices. The blocks of one share start their walk at eight points
+//       of it and share E through L2.
 //  - K7p is K7 on one rank's shard of E: the same first stage, then a second
 //    small kernel that folds the shares in the same order into the rank's
 //    four row partials and forms no lse; the cross-rank combine is PyTorch
@@ -94,16 +111,16 @@
 //    instantiation takes the other widths with 16-row streamed tiles (so
 //    that two stages fit beside a 1024-wide owned tile), 768-column windows
 //    on blockIdx.y that each recompute S, and 64-column products.
-//  - The general form (fp32, and bf16/fp16 where h % 64 == 32 or h > 1024):
-//    K8 a block owns 32 rows x 768 columns of dX and loops over 128-wide
-//    vocabulary tiles (logits in logits_tile, coeff, then coeff . E
+//  - The general form of K8/K9 (fp32, and bf16/fp16 where h % 64 == 32 or
+//    h > 1024): K8 a block owns 32 rows x 768 columns of dX and loops over
+//    128-wide vocabulary tiles (logits in logits_tile, coeff, then coeff . E
 //    streamed in slices); K9 a block owns 32 vocabulary rows x 768 columns
 //    of dE and loops over the rows in 64-row tiles, with wx = dl * x formed
 //    in shared memory. A width above 768 takes more column tiles, each
 //    recomputing the logits.
 //  - How far from the bound, on an H100 SXM at 700 W (chip_smoke.py phase
-//    3): K7 4.0 ms (6.3x its bound); K8 and K9 were 12.2 and 17.1 ms on
-//    wmma and now take the times PERF.md records.
+//    3): K7 was 4.0 ms on wmma (6.3x its bound), K8 and K9 12.2 and 17.1
+//    ms; on wgmma they take the times PERF.md records.
 //  - Ragged edges: rows past n load as zeros and are masked on the way out;
 //    V is a multiple of 128 and h of 32, so vocabulary and depth tiles are
 //    whole.
@@ -825,7 +842,8 @@ template <int B> size_t tc_smem(int h) {
         "+f"(d[D0 + 15][0]), "+f"(d[D0 + 15][1]), "+f"(d[D0 + 15][2]), "+f"(d[D0 + 15][3])  \
       : "l"(da), "l"(db), "r"(acc))
 
-#define WGMMA_SS_N256_TB(TY, D0)                                                            \
+// TB: "1" reads b MN-major (the transpose bit), "0" K-major
+#define WGMMA_SS_N256(TY, D0, TB)                                                           \
   asm volatile(                                                                             \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"                                         \
       "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " {"                         \
@@ -839,7 +857,7 @@ template <int B> size_t tc_smem(int h) {
       "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "            \
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "            \
       "%124, %125, %126, %127 "                                                             \
-      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"                                                  \
+      "}, %128, %129, p, 1, 1, 0, " TB ";\n}\n"                                        \
       : "+f"(d[D0 + 0][0]), "+f"(d[D0 + 0][1]), "+f"(d[D0 + 0][2]), "+f"(d[D0 + 0][3]),     \
         "+f"(d[D0 + 1][0]), "+f"(d[D0 + 1][1]), "+f"(d[D0 + 1][2]), "+f"(d[D0 + 1][3]),     \
         "+f"(d[D0 + 2][0]), "+f"(d[D0 + 2][1]), "+f"(d[D0 + 2][2]), "+f"(d[D0 + 2][3]),     \
@@ -873,6 +891,8 @@ template <int B> size_t tc_smem(int h) {
         "+f"(d[D0 + 30][0]), "+f"(d[D0 + 30][1]), "+f"(d[D0 + 30][2]), "+f"(d[D0 + 30][3]), \
         "+f"(d[D0 + 31][0]), "+f"(d[D0 + 31][1]), "+f"(d[D0 + 31][2]), "+f"(d[D0 + 31][3])  \
       : "l"(da), "l"(db), "r"(acc))
+
+#define WGMMA_SS_N256_TB(TY, D0) WGMMA_SS_N256(TY, D0, "1")
 
 #define WGMMA_RS_N64(TY, D0)                                                            \
   asm volatile(                                                                         \
@@ -930,6 +950,12 @@ template <typename T> struct Tc {
                                               const uint32_t (&a)[4], uint64_t db, int acc) {
     if constexpr (BF16) WGMMA_RS_N64("bf16", D0);
     else WGMMA_RS_N64("f16", D0);
+  }
+  // K7's logits tile, m64n256k16 into all of d: a and b K-major
+  static __device__ __forceinline__ void logits(float (&d)[32][4], uint64_t da, uint64_t db,
+                                                int acc) {
+    if constexpr (BF16) WGMMA_SS_N256("bf16", 0, "0");
+    else WGMMA_SS_N256("f16", 0, "0");
   }
   // lo in the low half: the lower column index
   static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
@@ -1018,11 +1044,15 @@ __device__ __forceinline__ uint64_t desc128(uint32_t addr, uint32_t lbo) {
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
-// An mbarrier of one arrival, with the bytes of the tensor-memory-accelerator
-// (TMA) copies that complete on it: thread 0 arrives and states the bytes,
-// the copies land, and the phase flips for the threads waiting on its parity.
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar));
+// An mbarrier of `count` arrivals (one by default), with the bytes of the
+// tensor-memory-accelerator (TMA) copies that complete on it: thread 0
+// arrives and states the bytes, the copies land, and the phase flips for
+// the threads waiting on its parity.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 __device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
@@ -1354,47 +1384,187 @@ xent_bwd_tc(const __grid_constant__ CUtensorMap own_map,
   }
 }
 
+// ---- K7 and K7p's first stage on the tensor cores: bf16 and fp16, h % 64 == 0
+
+// A block takes 128 rows of x, two consumer warpgroups of 64, and walks its
+// vocabulary share in 256-wide tiles: each tile's logits are one m64n256
+// accumulator a warpgroup (128 fp32 registers a thread) summed over the
+// depth in 64-column panels. A producer warp fills a ring of F_STAGES
+// stages by TMA, each the x panel (128 x 64) and the E panel (256 x 64) of
+// one depth step, and the consumers hand each stage back on its `empty`
+// mbarrier once their products have read it; so the next tile's panels
+// load while a warpgroup runs the row-state update on its fragment.
+constexpr int F_ROWS = 128;                        // x rows of a block
+constexpr int F_VOCAB = 256;                       // vocabulary columns of a tile
+constexpr int F_STAGES = 4;
+constexpr int F_XBYTES = F_ROWS * 128;             // a stage's x panel, 16 KB
+constexpr int F_STAGE = F_XBYTES + F_VOCAB * 128;  // and its E panel: 48 KB
+constexpr int F_THREADS = 2 * 128 + 32;            // two consumer warpgroups, a producer warp
+
+// the widths the tensor-core forward takes (bf16 and fp16)
+bool fwd_tc_takes(int h) { return h % 64 == 0; }
+
+size_t fwd_tc_smem() { return (size_t)F_STAGES * F_STAGE + 2 * F_STAGES * 8 + 1024; }
+
+// the max and the sum over the four threads of a quad, which hold one row
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(FULL, v, 1));
+  return fmaxf(v, __shfl_xor_sync(FULL, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(FULL, v, 1);
+  return v + __shfl_xor_sync(FULL, v, 2);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(F_THREADS, 1)
+xent_fwd_tc(const __grid_constant__ CUtensorMap x_map,
+            const __grid_constant__ CUtensorMap e_map, const int* __restrict__ labels,
+            float* __restrict__ part, int n, int V, int h, int nsplit, int smoothing) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sBuf = smem_u32(align1k(smem));
+  const uint32_t full = sBuf + F_STAGES * F_STAGE, empty = full + 8 * F_STAGES;
+  const int tid = threadIdx.x, r0 = blockIdx.x * F_ROWS, split = blockIdx.y;
+  const int tiles = (V + F_VOCAB - 1) / F_VOCAB;
+  const int t0 = (int)((long)split * tiles / nsplit);
+  const int t1 = (int)((long)(split + 1) * tiles / nsplit);
+  const int panels = h >> 6;
+  if (tid == 0) {
+    for (int st = 0; st < F_STAGES; ++st) {
+      mbar_init(full + 8 * st);
+      mbar_init(empty + 8 * st, 2);   // one arrival a consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 256) {
+    // the producer: step `it` is panel p of tile vt, into stage it % F_STAGES
+    // once both warpgroups have handed back its previous contents. Rows of x
+    // past n and of E past V arrive as zeros.
+    if (tid == 256) {
+      const int steps = (t1 - t0) * panels;
+      for (int it = 0, vt = t0, p = 0; it < steps; ++it) {
+        const int st = it % F_STAGES;
+        mbar_wait(empty + 8 * st, ((it / F_STAGES) & 1) ^ 1);
+        const uint32_t dst = sBuf + st * F_STAGE, bar = full + 8 * st;
+        mbar_expect(bar, F_STAGE);
+        tma_load(dst, &x_map, 64 * p, r0, bar);
+        tma_load(dst + F_XBYTES, &e_map, 64 * p, vt * F_VOCAB, bar);
+        if (++p == panels) {
+          p = 0;
+          ++vt;
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers. Thread (warp w, g = lane / 4, q = lane % 4) of warpgroup
+  // wg holds rows 64 wg + 16 w + g and + 8 of the block, columns 8j + 2q and
+  // 8j + 2q + 1 of the tile in acc[j][0..1] and acc[j][2..3]. A row's state:
+  // the running max m (the same in the quad's four threads), and this
+  // thread's partial sum of exponentials at m, target and logits sum.
+  const int wg = tid >> 7, wt = tid & 127, lane = tid & 31, q = lane & 3;
+  const int row = r0 + 64 * wg + ((wt >> 5) << 4) + (lane >> 2);
+  int lab[2];
+  float m[2], s[2], tg[2], u[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lab[i] = row + 8 * i < n ? labels[row + 8 * i] : -1;
+    m[i] = -INFINITY;
+    s[i] = tg[i] = u[i] = 0.f;
+  }
+  float acc[F_VOCAB / 8][4];
+  int it = 0;
+  for (int vt = t0; vt < t1; ++vt) {
+    for (int p = 0; p < panels; ++p, ++it) {
+      const int st = it % F_STAGES;
+      mbar_wait(full + 8 * st, (it / F_STAGES) & 1);
+      const uint64_t da = desc128(sBuf + st * F_STAGE + wg * (64 * 128), 16);
+      const uint64_t db = desc128(sBuf + st * F_STAGE + F_XBYTES, 16);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)   // 16 columns, 32 bytes, a step
+        Tc<T>::logits(acc, da + 2 * kk, db + 2 * kk, p > 0 || kk > 0);
+      wg_commit();
+      // the previous panel's products are done: its stage may refill
+      wg_wait_n<1>();
+      if (p > 0 && wt == 0) mbar_arrive(empty + 8 * ((it - 1) % F_STAGES));
+    }
+    wg_wait();
+    fence_acc(acc);
+    if (wt == 0) mbar_arrive(empty + 8 * ((it - 1) % F_STAGES));
+
+    // the row state takes the tile: a new max from the fragment and two quad
+    // shuffles, the old sum rescaled, exponentials as ex2 of one FMA. V is a
+    // multiple of 128, so the last tile is whole or holds 128 columns (NJ =
+    // 16); the zero-filled columns past V are never read.
+    const int v0 = vt * F_VOCAB;
+    auto update = [&](auto nj) {
+      constexpr int NJ = decltype(nj)::value;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) mx = fmaxf(mx, fmaxf(acc[j][2 * i], acc[j][2 * i + 1]));
+        const float m_new = fmaxf(m[i], quad_max(mx));
+        // m[i] == -inf before the first tile: ex2(-inf) = 0 and s[i] is 0
+        s[i] *= ex2((m[i] - m_new) * LOG2E);
+        m[i] = m_new;
+        const float ml = m_new * LOG2E;
+        float p0 = 0.f, p1 = 0.f;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          p0 += ex2(fmaf(acc[j][2 * i], LOG2E, -ml));
+          p1 += ex2(fmaf(acc[j][2 * i + 1], LOG2E, -ml));
+        }
+        s[i] += p0 + p1;
+        // the label's column, in one thread of the quad; a label outside
+        // [v0, v0 + 8 NJ), past V or outside [0, V) included, hits nothing
+        const int lc = lab[i] - v0;
+        if ((unsigned)lc < (unsigned)(8 * NJ)) {
+          const int want = lc - 2 * q;
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            if (8 * j == want) tg[i] += acc[j][2 * i];
+            if (8 * j + 1 == want) tg[i] += acc[j][2 * i + 1];
+          }
+        }
+        if (smoothing) {
+          float u0 = 0.f, u1 = 0.f;
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            u0 += acc[j][2 * i];
+            u1 += acc[j][2 * i + 1];
+          }
+          u[i] += u0 + u1;
+        }
+      }
+    };
+    if (v0 + F_VOCAB <= V)
+      update(std::integral_constant<int, F_VOCAB / 8>());
+    else
+      update(std::integral_constant<int, F_VOCAB / 16>());
+  }
+
+  // the quad's partials summed in a fixed order; its first thread writes
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float si = quad_sum(s[i]), ti = quad_sum(tg[i]), ui = quad_sum(u[i]);
+    const int r = row + 8 * i;
+    if (q == 0 && r < n) {
+      part[(long)split * n + r] = m[i];
+      part[((long)nsplit + split) * n + r] = si;
+      part[((long)2 * nsplit + split) * n + r] = ti;
+      part[((long)3 * nsplit + split) * n + r] = ui;
+    }
+  }
+}
+
 bool bad_args(int n, int V, int h, int dtype) {
   return n < 1 || V < FWD_VOCAB || V % FWD_VOCAB || h < BK || h % BK || dtype < 0 ||
          dtype > 2;
-}
-
-// the first stage of K7 and K7p: per-share partials into part [4, nsplit, n]
-template <typename T>
-cudaError_t launch_fwd_partial(cudaStream_t st, const void* x, const void* e,
-                               const void* labels, void* part, int n, int V, int h,
-                               int nsplit, float eps) {
-  const size_t smem = fwd_smem<T>();
-  cudaError_t err = cudaFuncSetAttribute(
-      xent_fwd_partial_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((n + FWD_ROWS - 1) / FWD_ROWS, nsplit);
-  xent_fwd_partial_kernel<T><<<grid, THREADS, smem, st>>>(
-      (const T*)x, (const T*)e, (const int*)labels, (float*)part, n, V, h, nsplit,
-      eps != 0.0f);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_fwd(cudaStream_t st, const void* x, const void* e,
-                       const void* labels, void* part, void* loss, void* lse,
-                       int n, int V, int h, int nsplit, float eps) {
-  cudaError_t err = launch_fwd_partial<T>(st, x, e, labels, part, n, V, h, nsplit, eps);
-  if (err != cudaSuccess) return err;
-  xent_fwd_combine_kernel<<<(n + 255) / 256, 256, 0, st>>>(
-      (const float*)part, (float*)loss, (float*)lse, n, nsplit, eps, (float)V);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_fwd_partials(cudaStream_t st, const void* x, const void* e,
-                                const void* labels, void* part, void* out, int n,
-                                int V, int h, int nsplit, float eps) {
-  cudaError_t err = launch_fwd_partial<T>(st, x, e, labels, part, n, V, h, nsplit, eps);
-  if (err != cudaSuccess) return err;
-  xent_fwd_partials_combine_kernel<<<(n + 255) / 256, 256, 0, st>>>(
-      (const float*)part, (float*)out, n, nsplit);
-  return cudaGetLastError();
 }
 
 // cuTensorMapEncodeTiled (libcuda), reached through the runtime's entry-point
@@ -1441,6 +1611,54 @@ cudaError_t launch_smem(Kernel kernel, size_t smem, dim3 grid, int threads, cuda
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, threads, smem, st>>>(args...);
+  return cudaGetLastError();
+}
+
+// the first stage of K7 and K7p: per-share partials into part [4, nsplit, n]
+template <typename T>
+cudaError_t launch_fwd_partial(cudaStream_t st, const void* x, const void* e,
+                               const void* labels, void* part, int n, int V, int h,
+                               int nsplit, float eps) {
+  if constexpr (sizeof(T) == 2) {
+    if (fwd_tc_takes(h)) {
+      CUtensorMap x_map, e_map;
+      if (!tensor_map<T>(&x_map, x, n, h, F_ROWS) || !tensor_map<T>(&e_map, e, V, h, F_VOCAB))
+        return cudaErrorInvalidValue;
+      return launch_smem(xent_fwd_tc<T>, fwd_tc_smem(), dim3((n + F_ROWS - 1) / F_ROWS, nsplit),
+                         F_THREADS, st, x_map, e_map, (const int*)labels, (float*)part, n, V,
+                         h, nsplit, (int)(eps != 0.0f));
+    }
+  }
+  const size_t smem = fwd_smem<T>();
+  cudaError_t err = cudaFuncSetAttribute(
+      xent_fwd_partial_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + FWD_ROWS - 1) / FWD_ROWS, nsplit);
+  xent_fwd_partial_kernel<T><<<grid, THREADS, smem, st>>>(
+      (const T*)x, (const T*)e, (const int*)labels, (float*)part, n, V, h, nsplit,
+      eps != 0.0f);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_fwd(cudaStream_t st, const void* x, const void* e,
+                       const void* labels, void* part, void* loss, void* lse,
+                       int n, int V, int h, int nsplit, float eps) {
+  cudaError_t err = launch_fwd_partial<T>(st, x, e, labels, part, n, V, h, nsplit, eps);
+  if (err != cudaSuccess) return err;
+  xent_fwd_combine_kernel<<<(n + 255) / 256, 256, 0, st>>>(
+      (const float*)part, (float*)loss, (float*)lse, n, nsplit, eps, (float)V);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_fwd_partials(cudaStream_t st, const void* x, const void* e,
+                                const void* labels, void* part, void* out, int n,
+                                int V, int h, int nsplit, float eps) {
+  cudaError_t err = launch_fwd_partial<T>(st, x, e, labels, part, n, V, h, nsplit, eps);
+  if (err != cudaSuccess) return err;
+  xent_fwd_partials_combine_kernel<<<(n + 255) / 256, 256, 0, st>>>(
+      (const float*)part, (float*)out, n, nsplit);
   return cudaGetLastError();
 }
 

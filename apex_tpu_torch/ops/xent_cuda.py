@@ -8,10 +8,13 @@ whole table or, with ``v_total``, on a shard. The source's header says
 what bounds them (the tensor-core rate) and how the design answers that.
 For bf16 and fp16 at widths ``h % 64 == 0`` up to 1024, K8 and K9 run on
 Hopper's ``wgmma`` with TMA loads (``xent_bwd_tc``, one body built for
-``h = 768`` and one for the other widths); fp32 takes the CUDA-core form
-(``xent_dx_simt``/``xent_de_simt``) and the other half-type widths the
-``wmma`` form (``xent_dx_wmma``/``xent_de_wmma``). The choice goes by
-dtype and shape alone.
+``h = 768`` and one for the other widths), and so does the first stage of
+K7 and K7p at any width ``h % 64 == 0`` (``xent_fwd_tc``, see
+:func:`fwd_tc_takes`); fp32 takes the CUDA-core form
+(``xent_dx_simt``/``xent_de_simt``, ``xent_fwd_partial_kernel<float>``)
+and the other half-type widths the ``wmma`` form
+(``xent_dx_wmma``/``xent_de_wmma``, ``xent_fwd_partial_kernel``). The
+choice goes by dtype and shape alone.
 
 Each wrapper checks its inputs, allocates its outputs, launches on
 PyTorch's current stream without synchronising, raises on a refused
@@ -44,6 +47,7 @@ _SIGNATURES = {
 VOCAB_TILE = 128   # V must be a multiple of it
 DEPTH_TILE = 32    # h must be a multiple of it
 FWD_ROWS = 128     # rows of one K7 block
+FWD_TC_VOCAB = 256  # vocabulary columns of a tensor-core K7 tile
 
 
 def _check(name, x, e, labels, rows=()):
@@ -80,18 +84,32 @@ def _sm_count(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _vocab_splits(n, V, device):
-    """K7's number of vocabulary shares: enough blocks for two per SM,
-    at most one share per 128-wide vocabulary tile."""
+def fwd_tc_takes(dtype, h):
+    """Whether K7 and K7p run on the tensor-core body (``xent_fwd_tc``):
+    bf16 and fp16 at widths ``h % 64 == 0``, as ``csrc/xent.cu``'s
+    ``fwd_tc_takes`` decides."""
+    return dtype in (torch.bfloat16, torch.float16) and h % 64 == 0
+
+
+def _vocab_splits(n, V, h, dtype, device):
+    """K7's number of vocabulary shares. The tensor-core body runs one
+    block an SM over 256-wide tiles: the count whose grid takes the fewest
+    waves times tiles a block, the least such. The other forms run two
+    blocks an SM over 128-wide tiles: enough blocks for two an SM, at most
+    one share a tile."""
     row_tiles = -(-n // FWD_ROWS)
-    return max(1, min(V // VOCAB_TILE,
-                      2 * _sm_count(device.index) // row_tiles))
+    sms = _sm_count(device.index)
+    if fwd_tc_takes(dtype, h):
+        tiles = -(-V // FWD_TC_VOCAB)
+        return min(range(1, tiles + 1), key=lambda s: (
+            -(-row_tiles * s // sms) * -(-tiles // s), s))
+    return max(1, min(V // VOCAB_TILE, 2 * sms // row_tiles))
 
 
 def xent_fwd(x, e, labels, smoothing=0.0):
     """K7: ``(loss, lse)``, each fp32 ``[n]``."""
     n, V, h = _check("xent_fwd", x, e, labels)
-    nsplit = _vocab_splits(n, V, x.device)
+    nsplit = _vocab_splits(n, V, h, x.dtype, x.device)
     part = torch.empty(4, nsplit, n, dtype=torch.float32, device=x.device)
     loss = torch.empty(n, dtype=torch.float32, device=x.device)
     lse = torch.empty_like(loss)
@@ -110,7 +128,7 @@ def xent_fwd_partials(x, e_shard, labels_local, smoothing=0.0):
     ``[0, Vs)`` has no target on this shard); the logits sum is 0 without
     smoothing."""
     n, V, h = _check("xent_fwd_partials", x, e_shard, labels_local)
-    nsplit = _vocab_splits(n, V, x.device)
+    nsplit = _vocab_splits(n, V, h, x.dtype, x.device)
     part = torch.empty(4, nsplit, n, dtype=torch.float32, device=x.device)
     out = torch.empty(4, n, dtype=torch.float32, device=x.device)
     _build.launch(_NAME, _SIGNATURES, "xent_fwd_partials", x.device,

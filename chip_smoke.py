@@ -1,9 +1,13 @@
 """Chip smoke of the PyTorch + CUDA port (``apex_tpu_torch``).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent CHECKOUT]
 
 runs every phase below on one card; on a machine with two or more, the
-tp = 2 phase gives each rank a card of its own over NCCL.
+tp = 2 phase gives each rank a card of its own over NCCL. With
+``--parent``, the sources of CHECKOUT (another commit's tree) whose
+kernels this slice redesigned (``xent.cu``, ``softmax.cu``) are built
+too, and their K7, K7p and K10 are timed in turns beside this tree's
+(``parent_ms``, ``parent_ms_turns``).
 
 Needs one CUDA card and the CUDA toolkit (``nvcc``); without a card it
 exits non-zero before printing any result. It imports nothing of JAX
@@ -18,8 +22,9 @@ exits non-zero before the last line):
    registers and spills are printed, and, where the toolkit has
    ``cuobjdump``, the tensor-core instructions (``HGMMA``: wgmma;
    ``HMMA``: mma.sync) of each bf16 instantiation of K5/K6 and K1/K1d
-   (d 64 and 128, with and without dropout) and of the tensor-core K8/K9
-   (32- and 16-row streamed tiles), which must hold ``HGMMA``.
+   (d 64 and 128, with and without dropout), of the tensor-core K8/K9
+   (32- and 16-row streamed tiles) and of the tensor-core first stage of
+   K7/K7p (``xent_fwd_tc``), which must hold ``HGMMA``.
 3. one phase per kernel at its main path's shapes: K1 and K2 at the
    serving shapes, K3/K4 (layer norm, x ``[8192, 768]`` bf16), K5/K6
    (attention backward, ``[8, 12, 1024, 64]`` bf16, causal), K1d, K5d
@@ -62,11 +67,13 @@ exits non-zero before the last line):
    by the port), each over launches that
    find the 50 MB L2 cache flushed
    (the kernel's own launches also give their [min, median, max],
-   ``ms_spread``; K1, K1d, K5/K6, K5d/K6d and K8/K9 are timed in turns with
-   their library call, kernel, library, kernel, ``ms`` the mean of the
-   two turns, ``ms_turns`` each); and the least time an H100 SXM could take
-   for the same work (``bound_ms``: bytes each input read and output written
-   once over 3.35 TB/s, or the work this run's masks leave over 989
+   ``ms_spread``; K1, K1d, K5/K6, K5d/K6d, K7, K7p, K8/K9 and K10 in
+   both modes are timed in turns with their library call, kernel,
+   library, kernel, ``ms`` the mean of the two turns, ``ms_turns``
+   each; two K10 runs in each mode must give the same bits); and the
+   least time an H100 SXM could take for the same work (``bound_ms``:
+   bytes each input read and output written once over 3.35 TB/s, or
+   the work this run's masks leave over 989
    TFLOP/s bf16 — 67 TFLOP/s fp32 for layer norm's elementwise math —
    or, for the dropout variants, the hash's 11 integer operations per
    live pair over 132 x 64 INT32 lanes at 1.98 GHz, whichever is
@@ -176,9 +183,10 @@ BF16_L2_TOL = 1e-3
 K1_L2_TOL = 1e-2
 # K7 against its plain version: fp32 loss and lse (~11 at init) from
 # logits summed in another order; an H100 measured 3.8e-6 max |diff| (four
-# ulps) and 7.4e-8 relative L2. K8 and K9 are held to BF16_L2_TOL: their
-# coefficients round to bf16 on both sides, and at the training shape dX
-# measured 5.4e-4 and dE 1.9e-4, on wmma and again on wgmma
+# ulps) and 7.4e-8 relative L2, on wmma and again on wgmma. K8 and K9 are
+# held to BF16_L2_TOL: their coefficients round to bf16 on both sides, and
+# at the training shape dX measured 5.4e-4 and dE 1.9e-4, on wmma and again
+# on wgmma
 XENT_LOSS_TOL = 3e-5
 XENT_LOSS_L2_TOL = 1e-6
 # kernel path vs plain path of one training step (bf16): |loss diff| and
@@ -266,6 +274,87 @@ def _time_in_turns(fn, lib_fn, flush, spread=None):
     lib_ms = _time_ms(lib_fn, flush)
     turns.append(_time_ms(fn, flush))
     return statistics.mean(turns), turns, lib_ms
+
+
+# with --parent DIR: the parent checkout's libraries of the sources whose
+# kernels this slice redesigned, built with this build's flags, and its
+# rule for K7's vocabulary shares (the grid is the wrapper's choice)
+PARENT_SOURCES = ("xent", "softmax")
+PARENT = {}
+
+
+def _parent_vocab_splits(n, V, h, dtype, device):
+    from apex_tpu_torch.ops import xent_cuda
+
+    return max(1, min(V // 128, 2 * xent_cuda._sm_count(device.index)
+                      // -(-n // 128)))
+
+
+def _start_parent_build(root):
+    """Start one ``nvcc`` per redesigned source of the parent checkout at
+    ``root`` into ``build/apex_tpu_torch/parent/``."""
+    from apex_tpu_torch.ops import _build
+
+    out = _build.BUILD_DIR / "parent"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name in PARENT_SOURCES:
+        src = os.path.join(root, "apex_tpu_torch", "csrc", f"{name}.cu")
+        lib = out / f"{name}.so"
+        procs.append((name, lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    return procs
+
+
+def _finish_parent_build(procs):
+    """Wait for the parent's builds and load each library with its
+    wrapper's signatures (the C entries did not change)."""
+    import ctypes
+
+    from apex_tpu_torch.ops import softmax_cuda, xent_cuda
+
+    sigs = {"xent": xent_cuda._SIGNATURES, "softmax": softmax_cuda._SIGNATURES}
+    for name, lib, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"the parent's {name}.cu did not build:\n{log}")
+        cdll = ctypes.CDLL(str(lib))
+        for fn_name, (argtypes, restype) in sigs[name].items():
+            fn = getattr(cdll, fn_name)
+            fn.argtypes, fn.restype = argtypes, restype
+        PARENT[name] = cdll
+    _log(f"parent build: {', '.join(PARENT)}")
+
+
+def _as_parent(fn, name):
+    """``fn`` run on the parent's library of source ``name`` (and, for the
+    LM head, the parent's grid), through the same wrappers."""
+    from apex_tpu_torch.ops import _build, xent_cuda
+
+    def run():
+        with mock.patch.dict(_build._libs, {name: PARENT[name]}), \
+                mock.patch.object(xent_cuda, "_vocab_splits",
+                                  _parent_vocab_splits):
+            return fn()
+    return run
+
+
+def _turns(fn, lib_fn, flush, source, spread=None):
+    """``fn`` timed in turns around one library call, kernel, library,
+    kernel, and, with ``--parent``, the parent's kernel before and after
+    them: ``{"ms": the kernel's mean, "ms_turns", "library_ms",
+    "parent_ms", "parent_ms_turns"}``."""
+    parent = _as_parent(fn, source) if source in PARENT else None
+    out = {}
+    if parent:
+        out["parent_ms_turns"] = [_time_ms(parent, flush)]
+    out["ms"], out["ms_turns"], out["library_ms"] = _time_in_turns(
+        fn, lib_fn, flush, spread=spread)
+    if parent:
+        out["parent_ms_turns"].append(_time_ms(parent, flush))
+        out["parent_ms"] = statistics.mean(out["parent_ms_turns"])
+    return out
 
 
 def _bound(nbytes, flops, flops_per_s=BF16_FLOPS_PER_S, int_ops=0):
@@ -608,12 +697,17 @@ def phase_softmax_kernels(dev, flush):
     if (y[..., above] != 0).any():
         raise AssertionError("K10 left a nonzero above the diagonal")
 
+    # two runs of K10 in each mode give the same bits
+    repeatable = {
+        "causal": torch.equal(y, softmax_cuda.softmax_fwd(x, None, scale,
+                                                          True)),
+        "mask": torch.equal(ym, softmax_cuda.softmax_fwd(x, mask, scale,
+                                                         False))}
+    if not all(repeatable.values()):
+        raise AssertionError(f"two K10 runs on the same inputs differ: "
+                             f"{repeatable}")
+
     spreads = [[], [], []]
-    fwd_ms = _time_ms(lambda: softmax_cuda.softmax_fwd(x, None, scale, True),
-                      flush, spread=spreads[0])
-    mask_ms = _time_ms(lambda: softmax_cuda.softmax_fwd(x, mask, scale,
-                                                        False), flush,
-                       spread=spreads[1])
     bwd_ms = _time_ms(lambda: softmax_cuda.softmax_bwd(y, g, scale), flush,
                       spread=spreads[2])
     fwd_plain = _time_ms(lambda: softmax.scaled_masked_softmax_reference(
@@ -624,11 +718,19 @@ def phase_softmax_kernels(dev, flush):
         lambda: softmax.scaled_masked_softmax_backward_reference(y, g, scale),
         flush, reps=5)
     # yardsticks: torch.softmax over the fp32-upcast input with the causal
-    # mask already applied (masking excluded), and the softmax backward
-    # on the same y and g
+    # or the explicit mask already applied (masking excluded), timed in
+    # turns with K10 in that mode (and the parent's K10, with --parent),
+    # and the softmax backward on the same y and g
     xm = torch.where(above, float("-inf"), x.float() * scale)
-    fwd_lib = _time_ms(lambda: torch.softmax(xm, dim=-1), flush)
+    fwd = _turns(lambda: softmax_cuda.softmax_fwd(x, None, scale, True),
+                 lambda: torch.softmax(xm, dim=-1), flush, "softmax",
+                 spread=spreads[0])
+    xm = torch.where(mask, float("-inf"), x.float() * scale)
+    masked = _turns(lambda: softmax_cuda.softmax_fwd(x, mask, scale, False),
+                    lambda: torch.softmax(xm, dim=-1), flush, "softmax",
+                    spread=spreads[1])
     del xm
+    _log(f"softmax_fwd turns: causal {fwd}, mask {masked}")
     bwd_lib = _time_ms(lambda: torch._softmax_backward_data(
         g, y, -1, torch.bfloat16), flush)
     elems = B * H * S * S
@@ -647,17 +749,19 @@ def phase_softmax_kernels(dev, flush):
         dict(common, name="softmax_fwd",
              replaces="apex_tpu/ops/softmax_pallas.py:185",
              mode="causal (the scores path's)", **errs["causal"],
-             tol=SOFTMAX_Y_TOL, ms=fwd_ms, kernel_ms=fwd_ms,
-             ms_spread=spreads[0], plain_ms=fwd_plain, library_ms=fwd_lib,
+             tol=SOFTMAX_Y_TOL, **fwd, kernel_ms=fwd["ms"],
+             ms_spread=spreads[0], plain_ms=fwd_plain,
              library=("torch.softmax over the fp32-upcast, pre-masked "
                       "scores (masking excluded)"),
              bound_ms=fwd_bound[0], bound_by=fwd_bound[1], bytes=fwd_bytes,
-             flops=5 * live,
+             bound_fraction=fwd_bound[0] / fwd["ms"], flops=5 * live,
+             bitwise_repeatable=repeatable,
              mask_mode={"mask": f"[{B},1,{S},{S}] bool, 30% masked",
-                        **errs["mask"], "ms": mask_ms,
+                        **errs["mask"], **masked,
                         "ms_spread": spreads[1], "plain_ms": mask_plain,
                         "bound_ms": mask_bound[0],
-                        "bound_by": mask_bound[1], "bytes": mask_bytes},
+                        "bound_by": mask_bound[1], "bytes": mask_bytes,
+                        "bound_fraction": mask_bound[0] / masked["ms"]},
              key_padding_mode={"mask": f"[{B},1,1,{S}] bool, rows of "
                                f"{S} to {S - 97 * (B - 1)} live keys",
                                **errs["key_padding"]}),
@@ -811,7 +915,7 @@ def phase_xent_shard_kernels(dev, flush):
     50432, at label smoothing 0 and 0.1, the shards' dX summed against K8
     and their dE stacked against K9 on the whole table
     (``XENT_SHARD_DX_L2_TOL``, ``BF16_L2_TOL``). K7p is timed on one
-    shard, as a rank launches it."""
+    shard, as a rank launches it, in turns around its library calls."""
     from apex_tpu_torch.ops import xent, xent_cuda
 
     n = TRAIN["batch"] * TRAIN["seq"]
@@ -873,8 +977,6 @@ def phase_xent_shard_kernels(dev, flush):
 
     es, local = shards[0]
     spread = []
-    ms = _time_ms(lambda: xent_cuda.xent_fwd_partials(x, es, local), flush,
-                  spread=spread)
     plain_ms = _time_ms(lambda: xent.linear_cross_entropy_partials(
         x, es, local), flush, reps=3)
     hit = (local >= 0) & (local < vs)
@@ -885,7 +987,10 @@ def phase_xent_shard_kernels(dev, flush):
         return (logits.amax(dim=1), torch.logsumexp(logits.float(), dim=1),
                 torch.where(hit, logits.gather(1, idx)[:, 0].float(), 0.0))
 
-    lib_ms = _time_ms(library, flush)
+    # in turns: K7p, the library's calls, K7p (and the parent's K7p)
+    turns = _turns(lambda: xent_cuda.xent_fwd_partials(x, es, local),
+                   library, flush, "xent", spread=spread)
+    _log(f"xent_fwd_partials turns: {turns}")
     nbytes = n * h * 2 + vs * h * 2 + n * 4 + 4 * n * 4
     flops = 2 * n * vs * h
     bound_ms, bound_by = _bound(nbytes, flops)
@@ -898,8 +1003,8 @@ def phase_xent_shard_kernels(dev, flush):
             "max_abs_err": err0["loss_max_abs_err"],
             "partials_max_err": errs["partials"], **errs,
             "tol": XENT_LOSS_TOL, "rel_l2_tol": XENT_LOSS_L2_TOL,
-            "ms": ms, "kernel_ms": ms, "ms_spread": spread,
-            "plain_ms": plain_ms, "library_ms": lib_ms,
+            **turns, "kernel_ms": turns["ms"], "ms_spread": spread,
+            "plain_ms": plain_ms,
             "library": ("x @ E_shard.T, then the row max, "
                         "torch.logsumexp and the gathered target"),
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
@@ -1636,8 +1741,6 @@ def phase_xent_kernels(dev, flush):
                                  f"differ")
 
     spreads = [[], [], []]
-    fwd_ms = _time_ms(lambda: xent_cuda.xent_fwd(x, e, labels), flush,
-                      spread=spreads[0])
     fwd_plain = _time_ms(lambda: xent.linear_cross_entropy_fwd(x, e, labels),
                          flush, reps=3)
     dx_plain = _time_ms(lambda: xent.linear_cross_entropy_dx(
@@ -1645,8 +1748,12 @@ def phase_xent_kernels(dev, flush):
     de_plain = _time_ms(lambda: xent.linear_cross_entropy_de(
         x, e, labels, lse, dl), flush, reps=3)
     lab64 = labels.long()
-    fwd_lib = _time_ms(lambda: F.cross_entropy(x @ e.t(), lab64,
-                                               reduction="none"), flush)
+    # in turns: K7, the materialized head's two calls, K7 (and the
+    # parent's K7 before and after, with --parent)
+    fwd = _turns(lambda: xent_cuda.xent_fwd(x, e, labels),
+                 lambda: F.cross_entropy(x @ e.t(), lab64, reduction="none"),
+                 flush, "xent", spread=spreads[0])
+    _log(f"xent_fwd turns: {fwd}")
     xg, eg = x.detach().requires_grad_(), e.detach().requires_grad_()
     lg = F.cross_entropy(xg @ eg.t(), lab64,
                          reduction="none")       # graph built untimed
@@ -1684,9 +1791,8 @@ def phase_xent_kernels(dev, flush):
         dict(common, name="xent_fwd",
              replaces="apex_tpu/ops/xent_pallas.py:429",
              max_abs_err=fwd_err["loss_max_abs_err"], **fwd_err,
-             tol=XENT_LOSS_TOL, rel_l2_tol=XENT_LOSS_L2_TOL, ms=fwd_ms,
-             kernel_ms=fwd_ms, ms_spread=spreads[0], plain_ms=fwd_plain,
-             library_ms=fwd_lib,
+             tol=XENT_LOSS_TOL, rel_l2_tol=XENT_LOSS_L2_TOL, **fwd,
+             kernel_ms=fwd["ms"], ms_spread=spreads[0], plain_ms=fwd_plain,
              library=("x @ E.T then F.cross_entropy(reduction='none'): the "
                       "materialized head, two calls"),
              bound_ms=fwd_bound[0], bound_by=fwd_bound[1], bytes=fwd_bytes,
@@ -2411,7 +2517,7 @@ def phase_training_profile(state):
 
 def _kernel_label(fn):
     """A mangled kernel name as "<kernel> <dtype> <instance>" for the
-    attention kernels and the LM head's backward; "" for the others."""
+    attention kernels and the LM head's kernels; "" for the others."""
     dtypes = {"13__nv_bfloat16": "bf16", "6__half": "fp16", "f": "fp32"}
     att = re.search(r"(attention_bwd_(?:dq|dkv)_(?:tc|simt)|"
                     r"prefill_attention_(?:tc|simt))I"
@@ -2420,6 +2526,8 @@ def _kernel_label(fn):
                    fn)
     general = re.search(r"(xent_(?:dx|de)_(?:simt|wmma))I"
                         r"(13__nv_bfloat16|6__half|f)E", fn)
+    fwd = re.search(r"(xent_fwd_tc|xent_fwd_partial_kernel)I"
+                    r"(13__nv_bfloat16|6__half|f)E", fn)
     if att:
         return (f"{att.group(1)} {dtypes[att.group(2)]} d={att.group(3)}"
                 f"{' dropout' if att.group(4) == '1' else ''}")
@@ -2428,12 +2536,16 @@ def _kernel_label(fn):
                 f"{'dE' if tc.group(2) == '1' else 'dX'} b={tc.group(3)}")
     if general:
         return f"{general.group(1)} {dtypes[general.group(2)]}"
+    if fwd:
+        form = ("" if fwd.group(1) == "xent_fwd_tc" else
+                " (simt)" if fwd.group(2) == "f" else " (wmma)")
+        return f"{fwd.group(1)} {dtypes[fwd.group(2)]}{form}"
     return ""
 
 
 def _log_ptxas(name, log):
     """ptxas's registers and spills in one source's build log (the
-    attention kernels and the LM head's backward named), how many
+    attention kernels and the LM head's kernels named), how many
     warpgroup arrive/wait points it injected around wgmma (C7517/C7519:
     register hazards it resolved by waiting), and which kernels it
     serialized every wgmma of (C7510-C7520)."""
@@ -2462,8 +2574,9 @@ def _tensor_core_sass(lib, kernels):
     ``nvcc`` that built it): ``{"<kernel> <instance>": {"HGMMA": n,
     "HMMA": n}}`` (HGMMA is wgmma, HMMA mma.sync), the instance "d=<head
     dim> [dropout]" of an attention kernel (``<T, int D, bool
-    DROPOUT>``) or "dX|dE b=<streamed rows>" of ``xent_bwd_tc`` (``<T,
-    bool DE, int B>``); None where the toolkit has no cuobjdump."""
+    DROPOUT>``), "dX|dE b=<streamed rows>" of ``xent_bwd_tc`` (``<T,
+    bool DE, int B>``), none for ``xent_fwd_tc`` (``<T>``); None where
+    the toolkit has no cuobjdump."""
     from apex_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -2477,12 +2590,13 @@ def _tensor_core_sass(lib, kernels):
         kernel = next((k for k in kernels if k in fn), None)
         att = re.search(r"nv_bfloat16Li(\d+)ELb([01])E", fn)
         tc = re.search(r"nv_bfloat16Lb([01])ELi(\d+)E", fn)
-        if kernel is None or (att or tc) is None:
+        fwd = re.search(r"xent_fwd_tcI13__nv_bfloat16E", fn)
+        if kernel is None or (att or tc or fwd) is None:
             continue
         key = (f"{kernel} d={att.group(1)}"
                + (" dropout" if att.group(2) == "1" else "") if att else
                f"{kernel} {'dE' if tc.group(1) == '1' else 'dX'} "
-               f"b={tc.group(2)}")
+               f"b={tc.group(2)}" if tc else kernel)
         counts[key] = {"HGMMA": chunk.count("HGMMA"),
                        "HMMA": chunk.count("HMMA")}
     return counts
@@ -2492,6 +2606,9 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false — this "
                  "smoke needs a CUDA card")
+    args = sys.argv[1:]
+    if args and (len(args) != 2 or args[0] != "--parent"):
+        sys.exit("usage: python3 chip_smoke.py [--parent CHECKOUT]")
     from apex_tpu_torch.ops import _build
 
     smi = subprocess.run(
@@ -2512,23 +2629,27 @@ def main():
          f"False/False")
     dev = torch.device("cuda")
 
+    parent = _start_parent_build(args[1]) if args else None
     build_s = _build.build()
     _log(f"build: {build_s:.1f} s for {len(_build.SOURCES)} sources")
+    if parent:
+        _finish_parent_build(parent)
     for name in _build.SOURCES:
         _log_ptxas(name, _build.build_log.get(name, "").splitlines())
     # the bf16 instantiations (d 64 and 128, with and without dropout) of
-    # K5/K6 (eight) and K1 (four), and those of the tensor-core K8/K9 (32-
-    # and 16-row streamed tiles, four), must hold wgmma (HGMMA) instructions
+    # K5/K6 (eight) and K1 (four), those of the tensor-core K8/K9 (32- and
+    # 16-row streamed tiles, four) and that of the tensor-core K7/K7p first
+    # stage (one) must hold wgmma (HGMMA) instructions
     sass = {}
     for source, kernels, want in (
             ("attention_bwd", ("attention_bwd_dq_tc", "attention_bwd_dkv_tc"),
              8),
             ("prefill_attention", ("prefill_attention_tc",), 4),
-            ("xent", ("xent_bwd_tc",), 4)):
+            ("xent", ("xent_bwd_tc", "xent_fwd_tc"), 5)):
         counts = _tensor_core_sass(_build.lib_path(source), kernels)
         if counts is None:
             _log("cuobjdump is not in the toolkit: the tensor-core "
-                 "instructions of K1, K5, K6, K8 and K9 are not counted")
+                 "instructions of K1, K5-K9 are not counted")
             sass = None
             break
         for key, n in sorted(counts.items()):
@@ -2683,6 +2804,8 @@ def main():
             kernel = name.replace("_dropout", "") + "_tc d=64"
             row["tensor_core_sass"] = sass[
                 kernel + (" dropout" if name.endswith("_dropout") else "")]
+        elif sass and name in ("xent_fwd", "xent_fwd_partials"):
+            row["tensor_core_sass"] = sass["xent_fwd_tc"]
         elif sass and name in ("xent_bwd_dx", "xent_bwd_de"):
             row["tensor_core_sass"] = sass[
                 f"xent_bwd_tc {'dX' if name.endswith('dx') else 'dE'} b=32"]

@@ -3,7 +3,8 @@ card tests run for K1 (forward; in bf16/fp16 also the tensor-core cases
 over several tiles), K3/K4 (layer norm), K5/K6 (attention backward, also
 the tensor-core cases over several tiles), K1d and
 K5d/K6d (the same with dropout), K7-K9 (the fused
-LM head: loss and lse, dX, dE), K7p with K8/K9 on vocabulary shards
+LM head: loss and lse, dX, dE; K7 and K7p also with labels at the
+vocabulary's edges), K7p with K8/K9 on vocabulary shards
 (each against its plain version, and the shards combined against K7-K9
 on the whole table), K2q (decode over int8 pages) and K10/K11 and
 K10L/K11L (the fused softmax, forward and backward, up to 4096 keys and
@@ -161,6 +162,24 @@ def main():
                       f"{bwd[0]:.3e}, K9 de {bwd[1]:.3e}")
                 note("K7", dtype, fwd)
                 note("K8/K9", dtype, max(bwd))
+        for n, V, h in cases.XENT_EDGE_SHAPES:
+            for eps in (0.0, 0.1):
+                x, e, labels, _ = cases._xent_case(dev, tdt, n, V, h)
+                labels = cases._edge_labels(labels, V)
+                loss, lse = xent_cuda.xent_fwd(x, e, labels, eps)
+                part = xent_cuda.xent_fwd_partials(x, e, labels, eps)
+                rloss, rlse = xent.linear_cross_entropy_fwd(x, e, labels, eps)
+                rpart = torch.stack(xent.linear_cross_entropy_partials(
+                    x, e, labels, eps))
+                scale = max(rloss.abs().max().item(), 1.0)
+                fwd = max((loss - rloss).abs().max().item(),
+                          (lse - rlse).abs().max().item()) / scale
+                parts = ((part - rpart).abs().amax(dim=1)
+                         / rpart.abs().amax(dim=1).clamp(min=1.0)).max()
+                print(f"xent edge labels {dtype} {n}x{V}x{h} eps={eps}: K7 "
+                      f"loss/lse {fwd:.3e}, K7p partials {parts.item():.3e}")
+                note("K7", dtype, fwd)
+                note("K7p partials", dtype, parts.item())
         for n, V, h, tp in cases.XENT_SHARD_SHAPES:
             for eps in (0.0, 0.1):
                 err = cases._xent_shard_errors(dev, tdt, n, V, h, tp, eps)

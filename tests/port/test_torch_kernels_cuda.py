@@ -18,16 +18,20 @@ K8, K9) at vocabularies 384, 640, 1280 and 50304, row counts that leave
 partial row tiles, widths that leave a partial column tile or narrower
 warpgroup windows, a width the tensor-core K8/K9 do not take (their
 general form), with and without label smoothing, two K8 runs and two K9
-runs equal bit for bit; the dropout variants K1d, K5d and K6d at
+runs equal bit for bit; K7 and K7p on each of their forms (the
+tensor-core body, wmma, fp32) with labels at 0, at V - 1, in the range
+of the zero-filled columns past V, past them and negative, two runs of
+each equal bit for bit; the dropout variants K1d, K5d and K6d at
 lengths that leave partial tiles (200), causal and segmented, with
 negative and extreme seeds, the mask recovered exactly from K1d's output
 with V the identity, and K5d/K6d repeatable bit for bit; K2q (decode over
 the int8 KV tier's pages) at K2's edge lengths with the scales of unowned
 pages poisoned with NaN, and against K2 over the dequantized pages; the
 fused softmax K10 (causal, a ``[b, 1, sq, sk]`` and a ``[b, np, sq, sk]``
-mask with a fully masked row, a key-padding ``[b, 1, 1, sk]`` mask, none)
-and K11 at row lengths that take the vector loads (128, 1024, 4096) and
-the element loads (200, 3000), and ``FusedScaleMaskSoftmax`` on the card
+mask with a fully masked row, a key-padding ``[b, 1, 1, sk]`` mask, none;
+two runs equal bit for bit, causal and masked) and K11 at row lengths
+that take the vector loads (128, 1024, 4096) and the element loads (200,
+3000), and ``FusedScaleMaskSoftmax`` on the card
 launching K10 for a key-padding mask and raising for a mask it cannot
 take; the long-row K10L and K11L at 4097 (element loads), 5000 and 8192
 keys, and the generic softmax launching them; the vocabulary-shard head
@@ -85,9 +89,10 @@ DTYPES = {"bfloat16": (torch.bfloat16, 5e-2), "float16": (torch.float16, 5e-3),
 # (fp16) with K5/K6 on the tensor cores, the multi-tile cases included
 L2_TOL = {"bfloat16": 1e-3, "float16": 3e-4, "float32": 5e-6}
 # on an H100 (tests/port/kernel_l2_errors.py) these cases measured at most
-# 3.1e-7 for the loss and lse of every dtype, and 5.8e-4 (bf16), 2.1e-4
-# (fp16) and 4.2e-6 (fp32) for dX and dE, both with K8/K9 on wmma and on
-# wgmma (bf16/fp16; fp32 keeps its CUDA-core form)
+# 3.1e-7 for the loss and lse of every dtype (with K7 on wmma, and 3.1e-7
+# with K7 on wgmma, the edge-label cases included), and 5.8e-4 (bf16),
+# 2.1e-4 (fp16) and 4.2e-6 (fp32) for dX and dE, both with K8/K9 on wmma
+# and on wgmma (bf16/fp16; fp32 keeps its CUDA-core form)
 XENT_LOSS_TOL = 2e-6
 XENT_L2_TOL = {"bfloat16": 2e-3, "float16": 6e-4, "float32": 1.5e-5}
 # relative L2 of a dropout-backward output (K5d, K6d) against the plain
@@ -129,7 +134,8 @@ SOFTMAX_CASES = ["causal", "mask_b1", "mask_bnp", "mask_pad", "none"]
 # tiles; in bf16/fp16 the tensor-core K8/K9 take h % 64 == 0 up to 1024:
 # h = 1024 leaves a partial 768-column tile (16-row streamed tiles), h =
 # 128 and 448 leave warpgroups 64-column products, and h = 160 takes the
-# general (wmma) form
+# general (wmma) form, of K7 too; V = 384, 640 and 50304 leave the last
+# 256-wide tile of the tensor-core K7 half empty, V = 1280 whole
 XENT_SHAPES = [(200, 384, 128), (1032, 1280, 256), (136, 1280, 1024),
                (200, 50304, 768), (72, 640, 448), (136, 384, 160)]
 # (n, V, h, tp) of the vocabulary-shard cases: V = 50432 is GPT-2's
@@ -143,7 +149,8 @@ XENT_SHARD_SHAPES = [(200, 768, 128, 2), (1032, 2560, 256, 4),
 # half type and then summed, against K8's one rounding on the whole table:
 # a second rounding of every element, so its relative L2 band is wider
 # than XENT_L2_TOL. On an H100 (tests/port/kernel_l2_errors.py) these
-# cases measured at most 3.6e-6 for the partials, 2.1e-7 for the combined
+# cases measured at most 3.6e-6 for the partials (4.1e-6 with K7p on
+# wgmma, the edge-label cases included), 2.1e-7 for the combined
 # loss and lse, 3.9e-4 (bf16), 1.4e-4 (fp16) and 2.8e-6 (fp32) for K8 and
 # K9 on a shard, and 3.4e-3 (bf16), 2.1e-3 (fp16) and 2.8e-6 (fp32) for
 # the summed dX, with K8/K9 on wmma and again on wgmma
@@ -670,6 +677,50 @@ def test_xent_kernels_match_plain(dev, dtype, shape, smoothing):
         _close_l2(out, ref, dtype, XENT_L2_TOL)
 
 
+# (n, V, h) of the label-edge cases: V = 384 and 50304 leave the last
+# 256-wide tile of the tensor-core K7 half empty (its E rows past V load as
+# zeros); n = 200 leaves a partial 128-row block; h = 160 takes the wmma
+# form in bf16/fp16, and every fp32 case the CUDA-core form
+XENT_EDGE_SHAPES = [(200, 384, 128), (200, 50304, 768), (200, 384, 160)]
+
+
+def _edge_labels(labels, V):
+    """Labels at 0 and V - 1, in the range of the zero-filled columns past
+    V, past them, and negative (the last three hit no column)."""
+    labels = labels.clone()
+    labels[:5] = torch.tensor([0, V - 1, V + 5, V + 300, -3],
+                              dtype=torch.int32)
+    return labels
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", XENT_EDGE_SHAPES,
+                         ids=[f"{n}x{V}x{h}" for n, V, h in XENT_EDGE_SHAPES])
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_xent_fwd_labels_at_the_edges(dev, dtype, shape, smoothing):
+    """K7 and K7p (the whole table as one shard) against their plain
+    versions with labels at the vocabulary's edges, and two runs of each
+    equal bit for bit."""
+    x, e, labels, _ = _xent_case(dev, DTYPES[dtype][0], *shape)
+    labels = _edge_labels(labels, shape[1])
+    loss, lse = xent_cuda.xent_fwd(x, e, labels, smoothing)
+    part = xent_cuda.xent_fwd_partials(x, e, labels, smoothing)
+    rloss, rlse = xent.linear_cross_entropy_fwd(x, e, labels, smoothing)
+    rpart = torch.stack(xent.linear_cross_entropy_partials(x, e, labels,
+                                                           smoothing))
+    for out, ref in ((loss, rloss), (lse, rlse)):
+        _close_scaled(out, ref, XENT_LOSS_TOL)
+    # no target for the last three rows: loss = lse (- eps u / V)
+    assert (part[2, 2:5] == 0).all() and (rpart[2, 2:5] == 0).all()
+    err = ((part - rpart).abs().amax(dim=1)
+           / rpart.abs().amax(dim=1).clamp(min=1.0)).max().item()
+    assert err <= XENT_PARTIAL_TOL, err
+    again = xent_cuda.xent_fwd(x, e, labels, smoothing)
+    assert torch.equal(loss, again[0]) and torch.equal(lse, again[1])
+    assert torch.equal(part, xent_cuda.xent_fwd_partials(x, e, labels,
+                                                         smoothing))
+
+
 def test_xent_de_is_deterministic(dev):
     x, e, labels, dl = _xent_case(dev, torch.bfloat16, 2048, 50304, 768)
     _, lse = xent_cuda.xent_fwd(x, e, labels)
@@ -1082,6 +1133,16 @@ def test_softmax_kernels_match_plain(dev, dtype, shape, case):
         above = (torch.arange(sk, device=dev)[None, :]
                  > torch.arange(sq, device=dev)[:, None])
         assert (y[..., above] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", ["causal", "mask_b1"])
+def test_softmax_fwd_is_deterministic(dev, dtype, case):
+    x, _, mask, causal = _softmax_case(dev, DTYPES[dtype][0],
+                                       (2, 3, 64, 1024), case)
+    first = softmax_cuda.softmax_fwd(x, mask, 0.37, causal)
+    assert torch.equal(first, softmax_cuda.softmax_fwd(x, mask, 0.37,
+                                                       causal))
 
 
 def test_softmax_autograd_runs_k10_k11_and_refuses_bad_input(dev):

@@ -123,6 +123,29 @@ def test_supported_matches_xent_pallas():
     assert any(got) and not all(got)
 
 
+def test_k7_form_and_grid_follow_dtype_and_shape(monkeypatch):
+    """K7's tensor-core body takes bf16/fp16 at h % 64 == 0, the other
+    forms the rest; its grid is whole waves of one block an SM (on 132
+    SMs: 64 row blocks x 33 shares of the 197 or 99 256-wide tiles of the
+    training shapes), the other forms' two blocks an SM."""
+    from apex_tpu_torch.ops import xent_cuda
+
+    assert xent_cuda.fwd_tc_takes(torch.bfloat16, 768)
+    assert xent_cuda.fwd_tc_takes(torch.float16, 128)
+    assert not xent_cuda.fwd_tc_takes(torch.bfloat16, 160)
+    assert not xent_cuda.fwd_tc_takes(torch.float32, 768)
+    monkeypatch.setattr(xent_cuda, "_sm_count", lambda index: 132)
+    card = torch.device("cuda", 0)
+    for V in (50304, 25216):
+        assert xent_cuda._vocab_splits(8192, V, 768, torch.bfloat16,
+                                       card) == 33
+    assert xent_cuda._vocab_splits(200, 384, 128, torch.float16, card) == 2
+    assert xent_cuda._vocab_splits(8192, 50304, 768, torch.float32,
+                                   card) == 4
+    assert xent_cuda._vocab_splits(8192, 50304, 160, torch.bfloat16,
+                                   card) == 4
+
+
 def test_linear_cross_entropy_refuses_other_devices():
     x = torch.zeros(8, 128, device="meta")
     with pytest.raises(ValueError, match="device"):
