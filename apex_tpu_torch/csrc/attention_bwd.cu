@@ -35,7 +35,10 @@
 // contiguous and 16-byte aligned, one dtype (bf16, fp16 or fp32); segment
 // ids [B, Sq] and [B, Sk] int32 or null; m, l, D [B, H, Sq] fp32, written
 // by K5 and read by K6; the dropout seed one int32, or null for no
-// dropout. D (head dim) is 64 or 128.
+// dropout. D (head dim) is 64, 128 or 256; the wrapper zero-pads a head
+// dim between two of them up to the next (exact: the padded columns of
+// dq, dk and dv are zero and sliced away, and the scale comes from the
+// true head dim).
 //
 // What bounds it on H100: at the training shape (B 8, H 12, S 1024, D 64,
 // bf16, causal) the two passes move ~102 MB (q, k, v, o, dO read; dq, dk,
@@ -78,9 +81,15 @@
 // ahead of the element-wise work of the tile before.
 //
 // fp32 stays on the CUDA cores (the *_simt kernels below, 64-row blocks,
-// four threads a row, fp32 FMAs). On the tensor cores fp32 would run as
-// TF32, which keeps 10 mantissa bits and cannot hold fp32's 5e-6 relative
-// L2 against the plain version; no training window runs attention in fp32.
+// four threads a row, fp32 FMAs, tiles in dynamic shared memory). On the
+// tensor cores fp32 would run as TF32, which keeps 10 mantissa bits and
+// cannot hold fp32's 5e-6 relative L2 against the plain version; no
+// training window runs attention in fp32. At D = 256 every dtype runs the
+// *_simt kernels: one warpgroup's dk and dv accumulators would need 256
+// registers a thread. There a block keeps its own 64 rows (Q and dO for
+// K5, K and V for K6) in shared memory rather than registers, and for bf16
+// and fp16 dS and P are rounded to the input dtype before their products,
+// as the tensor-core kernels round them.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -97,6 +106,20 @@ namespace {
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f(float x) { return x; }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half(x);
+}
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+
+// x rounded to T and back (the identity for fp32)
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<T>(x));
+}
 
 
 // murmur3's 32-bit finalizer (attention_pallas.py:188 _fmix32). Each source
@@ -189,6 +212,34 @@ __device__ __forceinline__ void partial_dots(const float (&own)[D / TPR],
   }
 }
 
+// the same, with this thread's row in shared memory (its columns c = sub +
+// TPR * i of `own`)
+template <int D>
+__device__ __forceinline__ void partial_dots(const float* own,
+                                             const float (*tile)[D + 1],
+                                             int sub, float (&a)[TILE]) {
+#pragma unroll
+  for (int j = 0; j < TILE; ++j) {
+    float s = 0.f;
+#pragma unroll 16
+    for (int i = 0; i < D / TPR; ++i)
+      s = fmaf(own[sub + TPR * i], tile[j][sub + TPR * i], s);
+    a[j] = s;
+  }
+}
+
+// a block keeps its own rows in shared memory where a thread's registers
+// cannot hold them
+template <int D> __host__ __device__ constexpr bool own_smem() { return D > 128; }
+
+// dynamic shared memory of K5 and K6 on the CUDA cores, in bytes: two
+// [TILE][D + 1] tiles, a [ROWS][TILE + 1] score tile, K6's five per-row
+// vectors (K5 uses one), and the own rows
+template <int D> constexpr int simt_smem() {
+  return 4 * (2 * TILE * (D + 1) + ROWS * (TILE + 1) + 5 * TILE +
+              (own_smem<D>() ? 2 * ROWS * (D + 1) : 0));
+}
+
 // K5 on the CUDA cores (fp32, so dS and P need no rounding): dq plus the
 // row statistics (m, l, D)
 template <typename T, int D, bool DROPOUT>
@@ -203,10 +254,16 @@ attention_bwd_dq_simt(const T* __restrict__ q, const T* __restrict__ k,
                         float scale, int causal, unsigned thresh,
                         float mscale) {
   constexpr int DC = D / TPR;
-  __shared__ float ks[TILE][D + 1];   // +1: row stride off the bank period
-  __shared__ float vs[TILE][D + 1];
-  __shared__ float ps[ROWS][TILE + 1];
-  __shared__ int segk[TILE];
+  constexpr bool OS = own_smem<D>();
+  extern __shared__ float simt_smem_f[];
+  // +1: row stride off the bank period
+  float (*ks)[D + 1] = reinterpret_cast<float (*)[D + 1]>(simt_smem_f);
+  float (*vs)[D + 1] = ks + TILE;
+  float (*ps)[TILE + 1] = reinterpret_cast<float (*)[TILE + 1]>(vs + TILE);
+  int* segk = reinterpret_cast<int*>(ps + ROWS);
+  // the own Q and dO rows (OS), after K6's five per-row vectors
+  float (*qsm)[D + 1] = reinterpret_cast<float (*)[D + 1]>(segk + 5 * TILE);
+  float (*dosm)[D + 1] = qsm + ROWS;
 
   const int bh = blockIdx.y;
   const int b = bh / H;
@@ -220,14 +277,21 @@ attention_bwd_dq_simt(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + (size_t)bh * Sk * D;
   const T* vb = v + (size_t)bh * Sk * D;
 
-  float qr[DC], dor[DC], acc[DC];
+  float qr[OS ? 1 : DC], dor[OS ? 1 : DC], acc[DC];
   float dsum = 0.f;
 #pragma unroll
   for (int i = 0; i < DC; ++i) {
     const int c = sub + TPR * i;
-    qr[i] = row_ok ? to_f(q[qrow + c]) : 0.f;
-    dor[i] = row_ok ? to_f(dout[qrow + c]) : 0.f;
-    dsum = fmaf(dor[i], row_ok ? to_f(o[qrow + c]) : 0.f, dsum);
+    const float qv = row_ok ? to_f(q[qrow + c]) : 0.f;
+    const float dv = row_ok ? to_f(dout[qrow + c]) : 0.f;
+    if constexpr (OS) {   // each thread reads back only its own columns
+      qsm[r][c] = qv;
+      dosm[r][c] = dv;
+    } else {
+      qr[i] = qv;
+      dor[i] = dv;
+    }
+    dsum = fmaf(dv, row_ok ? to_f(o[qrow + c]) : 0.f, dsum);
     acc[i] = 0.f;
   }
   const float drow = row_sum4(dsum);
@@ -246,7 +310,8 @@ attention_bwd_dq_simt(const T* __restrict__ q, const T* __restrict__ k,
                               ? seg_kv[(size_t)b * Sk + k0 + threadIdx.x] : 0;
     __syncthreads();
     float a[TILE], s[OWN];
-    partial_dots<D>(qr, ks, sub, a);
+    if constexpr (OS) partial_dots<D>(&qsm[r][0], ks, sub, a);
+    else partial_dots<D>(qr, ks, sub, a);
     butterfly(a, s, sub);
     float tmax = -INFINITY;
 #pragma unroll
@@ -279,9 +344,11 @@ attention_bwd_dq_simt(const T* __restrict__ q, const T* __restrict__ k,
                               ? seg_kv[(size_t)b * Sk + k0 + threadIdx.x] : 0;
     __syncthreads();
     float a[TILE], s[OWN], dp[OWN];
-    partial_dots<D>(qr, ks, sub, a);
+    if constexpr (OS) partial_dots<D>(&qsm[r][0], ks, sub, a);
+    else partial_dots<D>(qr, ks, sub, a);
     butterfly(a, s, sub);
-    partial_dots<D>(dor, vs, sub, a);
+    if constexpr (OS) partial_dots<D>(&dosm[r][0], vs, sub, a);
+    else partial_dots<D>(dor, vs, sub, a);
     butterfly(a, dp, sub);
 #pragma unroll
     for (int i = 0; i < OWN; ++i) {
@@ -295,7 +362,7 @@ attention_bwd_dq_simt(const T* __restrict__ q, const T* __restrict__ k,
       if constexpr (DROPOUT)   // the replayed mask on dP; masked pairs draw nothing
         dpm = (!masked && fmix32(rowkey ^ (unsigned)kj) >= thresh)
                   ? dpm * mscale : dpm * 0.f;
-      ps[r][j] = p * (dpm - drow) * scale;
+      ps[r][j] = round_to<T>(p * (dpm - drow) * scale);   // dS in T
     }
     __syncwarp();                        // the row's dS values are all written
 #pragma unroll
@@ -310,7 +377,7 @@ attention_bwd_dq_simt(const T* __restrict__ q, const T* __restrict__ k,
 
   if (row_ok) {
 #pragma unroll
-    for (int i = 0; i < DC; ++i) dq[qrow + sub + TPR * i] = acc[i];
+    for (int i = 0; i < DC; ++i) dq[qrow + sub + TPR * i] = from_f<T>(acc[i]);
     if (sub == 0) {
       const size_t si = (size_t)bh * Sq + qi;
       m_out[si] = m;
@@ -334,12 +401,20 @@ attention_bwd_dkv_simt(const T* __restrict__ q, const T* __restrict__ k,
                          T* __restrict__ dv, int H, int Sq, int Sk, float scale,
                          int causal, unsigned thresh, float mscale) {
   constexpr int DC = D / TPR;
-  __shared__ float qs[TILE][D + 1];
-  __shared__ float dos[TILE][D + 1];
-  __shared__ float pt[ROWS][TILE + 1];   // P, then dS, of this block's keys
-  __shared__ float ms[TILE], ls[TILE], dsm[TILE];
-  __shared__ int segq[TILE];
-  __shared__ unsigned rks[TILE];          // dropout row keys of the q tile
+  constexpr bool OS = own_smem<D>();
+  extern __shared__ float simt_smem_f[];
+  float (*qs)[D + 1] = reinterpret_cast<float (*)[D + 1]>(simt_smem_f);
+  float (*dos)[D + 1] = qs + TILE;
+  // P, then dS, of this block's keys
+  float (*pt)[TILE + 1] = reinterpret_cast<float (*)[TILE + 1]>(dos + TILE);
+  float* ms = reinterpret_cast<float*>(pt + ROWS);
+  float* ls = ms + TILE;
+  float* dsm = ls + TILE;
+  int* segq = reinterpret_cast<int*>(dsm + TILE);
+  unsigned* rks = reinterpret_cast<unsigned*>(segq + TILE);   // dropout row keys
+  // the own K and V rows (OS)
+  float (*ksm)[D + 1] = reinterpret_cast<float (*)[D + 1]>(rks + TILE);
+  float (*vsm)[D + 1] = ksm + ROWS;
 
   const int bh = blockIdx.y;
   const int b = bh / H;
@@ -354,12 +429,19 @@ attention_bwd_dkv_simt(const T* __restrict__ q, const T* __restrict__ k,
   const T* db = dout + (size_t)bh * Sq * D;
   const size_t sbase = (size_t)bh * Sq;
 
-  float kr[DC], vr[DC], dk_acc[DC], dv_acc[DC];
+  float kr[OS ? 1 : DC], vr[OS ? 1 : DC], dk_acc[DC], dv_acc[DC];
 #pragma unroll
   for (int i = 0; i < DC; ++i) {
     const int c = sub + TPR * i;
-    kr[i] = key_ok ? to_f(k[krow + c]) : 0.f;
-    vr[i] = key_ok ? to_f(v[krow + c]) : 0.f;
+    const float kv = key_ok ? to_f(k[krow + c]) : 0.f;
+    const float vv = key_ok ? to_f(v[krow + c]) : 0.f;
+    if constexpr (OS) {   // each thread reads back only its own columns
+      ksm[r][c] = kv;
+      vsm[r][c] = vv;
+    } else {
+      kr[i] = kv;
+      vr[i] = vv;
+    }
     dk_acc[i] = dv_acc[i] = 0.f;
   }
   const int seg_key = (has_seg && key_ok) ? seg_kv[(size_t)b * Sk + kj] : 0;
@@ -383,9 +465,11 @@ attention_bwd_dkv_simt(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
     float a[TILE], s[OWN], dp[OWN], ds[OWN];
-    partial_dots<D>(kr, qs, sub, a);
+    if constexpr (OS) partial_dots<D>(&ksm[r][0], qs, sub, a);
+    else partial_dots<D>(kr, qs, sub, a);
     butterfly(a, s, sub);
-    partial_dots<D>(vr, dos, sub, a);
+    if constexpr (OS) partial_dots<D>(&vsm[r][0], dos, sub, a);
+    else partial_dots<D>(vr, dos, sub, a);
     butterfly(a, dp, sub);
 #pragma unroll
     for (int i = 0; i < OWN; ++i) {
@@ -402,8 +486,8 @@ attention_bwd_dkv_simt(const T* __restrict__ q, const T* __restrict__ k,
         dpm *= msc;
         pd = p * msc;
       }
-      ds[i] = p * (dpm - dsm[ii]) * scale;
-      pt[r][ii] = pd;
+      ds[i] = round_to<T>(p * (dpm - dsm[ii]) * scale);   // dS and P in T
+      pt[r][ii] = round_to<T>(pd);
     }
     __syncwarp();
 #pragma unroll
@@ -431,8 +515,8 @@ attention_bwd_dkv_simt(const T* __restrict__ q, const T* __restrict__ k,
   if (key_ok) {
 #pragma unroll
     for (int i = 0; i < DC; ++i) {
-      dk[krow + sub + TPR * i] = dk_acc[i];
-      dv[krow + sub + TPR * i] = dv_acc[i];
+      dk[krow + sub + TPR * i] = from_f<T>(dk_acc[i]);
+      dv[krow + sub + TPR * i] = from_f<T>(dv_acc[i]);
     }
   }
 }
@@ -1091,8 +1175,23 @@ cudaError_t launch_tc(Kernel kernel, int smem, dim3 grid, cudaStream_t st,
   return cudaGetLastError();
 }
 
-// seed == nullptr: no dropout. bf16/fp16 on the tensor cores, the grid (B *
-// H, 64-row q tiles); fp32 on the CUDA cores, the grid (q tiles, B * H)
+// a CUDA-core kernel with its dynamic shared memory (granted first where
+// it is over the 48 KB default, at D = 256; below it no host call)
+template <typename Kernel, typename... Args>
+cudaError_t launch_simt(Kernel kernel, int smem, dim3 grid, cudaStream_t st,
+                        Args... args) {
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, THREADS, smem, st>>>(args...);
+  return cudaGetLastError();
+}
+
+// seed == nullptr: no dropout. bf16/fp16 on the tensor cores at D 64 and
+// 128, the grid (B * H, 64-row q tiles); fp32, and every dtype at D = 256,
+// on the CUDA cores, the grid (q tiles, B * H)
 template <typename T, int D>
 cudaError_t launch_dq(int BH, cudaStream_t st, const void* q, const void* k,
                       const void* v, const void* o, const void* dout,
@@ -1106,13 +1205,13 @@ cudaError_t launch_dq(int BH, cudaStream_t st, const void* q, const void* k,
       (float*)m, (float*)l, (float*)d, H, Sq, Sk, scale, causal, thresh, mscale
   const int tiles = (Sq + TC_ROWS - 1) / TC_ROWS;
   cudaError_t err;
-  if constexpr (sizeof(T) == 4) {
+  if constexpr (sizeof(T) == 4 || D == 256) {
     const dim3 grid(tiles, BH);
-    if (seed == nullptr)
-      attention_bwd_dq_simt<T, D, false><<<grid, THREADS, 0, st>>>(DQ_KERNEL_ARGS);
-    else
-      attention_bwd_dq_simt<T, D, true><<<grid, THREADS, 0, st>>>(DQ_KERNEL_ARGS);
-    err = cudaGetLastError();
+    err = seed == nullptr
+              ? launch_simt(attention_bwd_dq_simt<T, D, false>, simt_smem<D>(),
+                            grid, st, DQ_KERNEL_ARGS)
+              : launch_simt(attention_bwd_dq_simt<T, D, true>, simt_smem<D>(),
+                            grid, st, DQ_KERNEL_ARGS);
   } else {
     const dim3 grid(BH, tiles);
     err = seed == nullptr
@@ -1140,13 +1239,13 @@ cudaError_t launch_dkv(int BH, cudaStream_t st, const void* q, const void* k,
       mscale
   const int tiles = (Sk + TC_ROWS - 1) / TC_ROWS;
   cudaError_t err;
-  if constexpr (sizeof(T) == 4) {
+  if constexpr (sizeof(T) == 4 || D == 256) {
     const dim3 grid(tiles, BH);
-    if (seed == nullptr)
-      attention_bwd_dkv_simt<T, D, false><<<grid, THREADS, 0, st>>>(DKV_KERNEL_ARGS);
-    else
-      attention_bwd_dkv_simt<T, D, true><<<grid, THREADS, 0, st>>>(DKV_KERNEL_ARGS);
-    err = cudaGetLastError();
+    err = seed == nullptr
+              ? launch_simt(attention_bwd_dkv_simt<T, D, false>, simt_smem<D>(),
+                            grid, st, DKV_KERNEL_ARGS)
+              : launch_simt(attention_bwd_dkv_simt<T, D, true>, simt_smem<D>(),
+                            grid, st, DKV_KERNEL_ARGS);
   } else {
     const dim3 grid(BH, tiles);
     err = seed == nullptr
@@ -1161,7 +1260,7 @@ cudaError_t launch_dkv(int BH, cudaStream_t st, const void* q, const void* k,
 
 bool bad_args(int B, int H, int Sq, int Sk, int D, int dtype,
               const void* seg_q, const void* seg_kv) {
-  return (D != 64 && D != 128) || dtype < 0 || dtype > 2 || B < 1 || H < 1 ||
+  return (D != 64 && D != 128 && D != 256) || dtype < 0 || dtype > 2 || B < 1 || H < 1 ||
          Sq < 1 || Sk < 1 || B * H > 65535 ||
          (seg_q == nullptr) != (seg_kv == nullptr);
 }
@@ -1183,13 +1282,16 @@ extern "C" int attention_bwd_dq(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
 #define DQ_ARGS B * H, st, q, k, v, o, dout, seg_q, seg_kv, seed, dq, m, l, d, H, Sq, Sk, scale, causal, thresh, mscale
+#define DQ_D(T) \
+  (D == 64 ? launch_dq<T, 64>(DQ_ARGS) \
+           : D == 128 ? launch_dq<T, 128>(DQ_ARGS) : launch_dq<T, 256>(DQ_ARGS))
   if (dtype == 0)
-    err = D == 64 ? launch_dq<__nv_bfloat16, 64>(DQ_ARGS)
-                  : launch_dq<__nv_bfloat16, 128>(DQ_ARGS);
+    err = DQ_D(__nv_bfloat16);
   else if (dtype == 1)
-    err = D == 64 ? launch_dq<__half, 64>(DQ_ARGS) : launch_dq<__half, 128>(DQ_ARGS);
+    err = DQ_D(__half);
   else
-    err = D == 64 ? launch_dq<float, 64>(DQ_ARGS) : launch_dq<float, 128>(DQ_ARGS);
+    err = DQ_D(float);
+#undef DQ_D
 #undef DQ_ARGS
   return (int)err;
 }
@@ -1209,13 +1311,16 @@ extern "C" int attention_bwd_dkv(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
 #define DKV_ARGS B * H, st, q, k, v, dout, seg_q, seg_kv, m, l, d, seed, dk, dv, H, Sq, Sk, scale, causal, thresh, mscale
+#define DKV_D(T) \
+  (D == 64 ? launch_dkv<T, 64>(DKV_ARGS) \
+           : D == 128 ? launch_dkv<T, 128>(DKV_ARGS) : launch_dkv<T, 256>(DKV_ARGS))
   if (dtype == 0)
-    err = D == 64 ? launch_dkv<__nv_bfloat16, 64>(DKV_ARGS)
-                  : launch_dkv<__nv_bfloat16, 128>(DKV_ARGS);
+    err = DKV_D(__nv_bfloat16);
   else if (dtype == 1)
-    err = D == 64 ? launch_dkv<__half, 64>(DKV_ARGS) : launch_dkv<__half, 128>(DKV_ARGS);
+    err = DKV_D(__half);
   else
-    err = D == 64 ? launch_dkv<float, 64>(DKV_ARGS) : launch_dkv<float, 128>(DKV_ARGS);
+    err = DKV_D(float);
+#undef DKV_D
 #undef DKV_ARGS
   return (int)err;
 }

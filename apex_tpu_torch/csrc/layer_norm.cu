@@ -13,8 +13,10 @@
 //
 // Layout: x, y, dy, dx [rows, hidden] contiguous, one dtype (bf16, fp16 or
 // fp32); w, b [hidden] fp32 or null (no affine); mean, rstd [rows] fp32.
-// hidden is a multiple of 8 and at most 8192; every row pointer is 16-byte
-// aligned (the wrapper checks).
+// Any hidden >= 1. Where hidden is a multiple of 8 every row pointer is
+// 16-byte aligned (the wrapper checks) and the rows move in 16-byte
+// vectors; other widths (a bf16 row of 100 has a 200-byte stride) take
+// scalar loads.
 //
 // What bounds it on H100: both kernels are bandwidth-bound. At the
 // training shape (rows 8192 = b*s, hidden 768, bf16) the forward moves
@@ -31,6 +33,20 @@
 // rows' dw/db in registers; the teams of a block add their sums into
 // shared memory one team after another (a fixed order) and the block
 // writes one partial row. The same inputs give the same bits every run.
+//
+// That body takes hidden % 8 == 0 up to 8192 (the main path, 768). Other
+// widths take the row-per-block body (layer_norm_{fwd,bwd}_wide): one
+// team of TW threads (a whole block, 512 for wide rows, 128 for narrow
+// unaligned ones) per row, each thread owning the groups t, t + TW, ... of
+// every row. The forward keeps its first G groups of x in registers and
+// reads the rest again for the later passes (the mean first, then the
+// mean of (x - mean)^2, then y, as the team body computes them). The
+// backward's threads own their columns across all of the block's rows, so
+// the dW/dB partials of the first G groups are summed in registers and
+// written straight to the block's partial row in global memory (no shared
+// accumulator, no atomics), and those of later groups are added to that
+// row in place by their owning thread, one row after another; dx's pass
+// reads x and dy again. Unaligned widths load element by element.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -41,7 +57,7 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int MAX_HIDDEN = 8192;
+constexpr int MAX_HIDDEN = 8192;   // the team body's widest row
 
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
@@ -297,6 +313,303 @@ layer_norm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
                         team, t, groups, hidden);
 }
 
+// ---------------------------------------------------------------------------
+// The row-per-block body: widths past 8192 and widths that are not a
+// multiple of 8.
+
+constexpr int WIDE_G = 3;          // groups of 8 a thread keeps in registers
+
+// group g (columns 8g .. 8g + 7) of a row: one vector where VEC, else
+// element by element with the columns past hidden read as 0
+template <typename T, bool VEC>
+__device__ __forceinline__ void load_group(const T* row, int g, int hidden,
+                                           float (&out)[8]) {
+  if constexpr (VEC) {
+    load8(row + 8 * g, out);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int c = 8 * g + i;
+      out[i] = c < hidden ? to_f(row[c]) : 0.f;
+    }
+  }
+}
+
+template <typename T, bool VEC>
+__device__ __forceinline__ void store_group(T* row, int g, int hidden,
+                                            const float (&v)[8]) {
+  if constexpr (VEC) {
+    store8(row + 8 * g, v);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (8 * g + i < hidden) row[8 * g + i] = from_f<T>(v[i]);
+  }
+}
+
+// sum of (a, b) over the block's TW threads in a fixed order; every thread
+// gets it
+template <int TW>
+__device__ __forceinline__ float2 block_sum(float a, float b, float2* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, off);
+    b += __shfl_xor_sync(0xffffffffu, b, off);
+  }
+  __syncthreads();                       // red's previous use is over
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x / 32] = make_float2(a, b);
+  __syncthreads();
+  float2 s = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int i = 0; i < TW / 32; ++i) {
+    s.x += red[i].x;
+    s.y += red[i].y;
+  }
+  return s;
+}
+
+// y of group g from x's values v
+template <typename T, bool VEC>
+__device__ __forceinline__ void norm_group(const float (&v)[8], const float* w,
+                                           const float* b, T* yr, int g,
+                                           int hidden, float mean,
+                                           float rstd) {
+  float o[8], wv[8], bv[8];
+  if (w != nullptr) load_group<float, VEC>(w, g, hidden, wv);
+  if (b != nullptr) load_group<float, VEC>(b, g, hidden, bv);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float r = (v[i] - mean) * rstd;
+    if (w != nullptr) r = r * wv[i];
+    if (b != nullptr) r = r + bv[i];
+    o[i] = r;
+  }
+  store_group<T, VEC>(yr, g, hidden, o);
+}
+
+// K3, a row per block: the first WIDE_G groups of a thread stay in
+// registers, later ones are read again for each pass
+template <typename T, int TW, bool VEC>
+__global__ void __launch_bounds__(TW)
+layer_norm_fwd_wide(const T* __restrict__ x, const float* __restrict__ w,
+                    const float* __restrict__ b, T* __restrict__ y,
+                    float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                    int hidden, float eps) {
+  constexpr int G = WIDE_G;
+  __shared__ float2 red[TW / 32];
+  const int t = threadIdx.x;
+  const int groups = (hidden + 7) / 8;
+  const size_t base = (size_t)blockIdx.x * hidden;
+  const T* xr = x + base;
+
+  float v[G][8];
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    const int g = t + TW * j;
+    if (g < groups) {
+      load_group<T, VEC>(xr, g, hidden, v[j]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[j][i] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sum += v[j][i];
+  }
+  for (int g = t + TW * G; g < groups; g += TW) {
+    float u[8];
+    load_group<T, VEC>(xr, g, hidden, u);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sum += u[i];
+  }
+  const float inv_n = 1.f / (float)hidden;
+  const float mean = block_sum<TW>(sum, 0.f, red).x * inv_n;
+  // (x - mean)^2 over the row's columns only: the zeros past hidden of
+  // an unaligned row are not elements
+  float sq = 0.f;
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    const int g = t + TW * j;
+    if (g < groups) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float c = v[j][i] - mean;
+        if (VEC || 8 * g + i < hidden) sq += c * c;
+      }
+    }
+  }
+  for (int g = t + TW * G; g < groups; g += TW) {
+    float u[8];
+    load_group<T, VEC>(xr, g, hidden, u);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float c = u[i] - mean;
+      if (VEC || 8 * g + i < hidden) sq += c * c;
+    }
+  }
+  const float var = block_sum<TW>(sq, 0.f, red).x * inv_n;
+  const float rstd = 1.f / sqrtf(var + eps);
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    const int g = t + TW * j;
+    if (g < groups) norm_group<T, VEC>(v[j], w, b, y + base, g, hidden, mean, rstd);
+  }
+  for (int g = t + TW * G; g < groups; g += TW) {
+    float u[8];
+    load_group<T, VEC>(xr, g, hidden, u);
+    norm_group<T, VEC>(u, w, b, y + base, g, hidden, mean, rstd);
+  }
+  if (t == 0) {
+    mean_out[blockIdx.x] = mean;
+    rstd_out[blockIdx.x] = rstd;
+  }
+}
+
+// xhat and the weighted gradient of group g of one row (zeros past hidden)
+template <typename T, bool VEC>
+__device__ __forceinline__ void bwd_group(const T* xr, const T* dyr,
+                                          const float* w, int g, int hidden,
+                                          float mean, float rstd,
+                                          float (&xh)[8], float (&dv)[8],
+                                          float (&wg)[8]) {
+  float xv[8], wv[8];
+  load_group<T, VEC>(xr, g, hidden, xv);
+  load_group<T, VEC>(dyr, g, hidden, dv);
+  if (w != nullptr) load_group<float, VEC>(w, g, hidden, wv);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    xh[i] = (xv[i] - mean) * rstd;
+    wg[i] = (w != nullptr) ? dv[i] * wv[i] : dv[i];
+  }
+}
+
+// K4, a block of TW threads walks its rows one at a time; dx per row, the
+// dW/dB partials of a thread's columns over all of the block's rows
+template <typename T, int TW, bool VEC>
+__global__ void __launch_bounds__(TW)
+layer_norm_bwd_wide(const T* __restrict__ x, const float* __restrict__ w,
+                    const float* __restrict__ mean_in,
+                    const float* __restrict__ rstd_in, const T* __restrict__ dy,
+                    T* __restrict__ dx, float* __restrict__ dw_part,
+                    float* __restrict__ db_part, int rows, int hidden,
+                    int rows_per_block) {
+  constexpr int G = WIDE_G;
+  __shared__ float2 red[TW / 32];
+  const int t = threadIdx.x;
+  const int groups = (hidden + 7) / 8;
+  const int r0 = blockIdx.x * rows_per_block;
+  const int r1 = min(rows, r0 + rows_per_block);
+  const float inv_n = 1.f / (float)hidden;
+  float* dwp = dw_part + (size_t)blockIdx.x * hidden;
+  float* dbp = db_part + (size_t)blockIdx.x * hidden;
+
+  float dw_acc[G][8], db_acc[G][8];
+#pragma unroll
+  for (int j = 0; j < G; ++j)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dw_acc[j][i] = db_acc[j][i] = 0.f;
+
+  for (int row = r0; row < r1; ++row) {
+    const size_t base = (size_t)row * hidden;
+    const float mean = mean_in[row], rstd = rstd_in[row];
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const int g = t + TW * j;
+      if (g >= groups) continue;
+      float xh[8], dv[8], wg[8];
+      bwd_group<T, VEC>(x + base, dy + base, w, g, hidden, mean, rstd, xh, dv, wg);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        s1 += wg[i];
+        s2 += wg[i] * xh[i];
+        dw_acc[j][i] += dv[i] * xh[i];
+        db_acc[j][i] += dv[i];
+      }
+    }
+    // groups past the registers: this thread's columns of the block's
+    // partial rows, added to in place (the first row writes them)
+    for (int g = t + TW * G; g < groups; g += TW) {
+      float xh[8], dv[8], wg[8];
+      bwd_group<T, VEC>(x + base, dy + base, w, g, hidden, mean, rstd, xh, dv, wg);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        s1 += wg[i];
+        s2 += wg[i] * xh[i];
+        const int c = 8 * g + i;
+        if (VEC || c < hidden) {
+          dwp[c] = (row == r0 ? 0.f : dwp[c]) + dv[i] * xh[i];
+          dbp[c] = (row == r0 ? 0.f : dbp[c]) + dv[i];
+        }
+      }
+    }
+    const float2 s = block_sum<TW>(s1, s2, red);
+    const float m1 = s.x * inv_n;
+    const float m2 = s.y * inv_n;
+    for (int g = t; g < groups; g += TW) {
+      float xh[8], dv[8], wg[8], o[8];
+      bwd_group<T, VEC>(x + base, dy + base, w, g, hidden, mean, rstd, xh, dv, wg);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) o[i] = (wg[i] - m1 - xh[i] * m2) * rstd;
+      store_group<T, VEC>(dx + base, g, hidden, o);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    const int g = t + TW * j;
+    if (g >= groups) continue;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int c = 8 * g + i;
+      if (VEC || c < hidden) {
+        dwp[c] = dw_acc[j][i];
+        dbp[c] = db_acc[j][i];
+      }
+    }
+  }
+}
+
+// the team body takes the row (the main path)
+bool team_row(int hidden) { return hidden % 8 == 0 && hidden <= MAX_HIDDEN; }
+
+// threads of the row-per-block body: 128 for unaligned rows whose groups
+// fit 128 threads' registers, else 512
+int wide_threads(int hidden) {
+  return (hidden % 8 != 0 && (hidden + 7) / 8 <= 128 * WIDE_G) ? 128 : 512;
+}
+
+template <typename T>
+cudaError_t launch_fwd_wide(int rows, const void* x, const void* w, const void* b,
+                            void* y, void* mean, void* rstd, int hidden, float eps,
+                            cudaStream_t st) {
+#define LN_FWD_WIDE(TW, VEC)                                                  \
+  layer_norm_fwd_wide<T, TW, VEC><<<rows, TW, 0, st>>>(                       \
+      (const T*)x, (const float*)w, (const float*)b, (T*)y, (float*)mean,     \
+      (float*)rstd, hidden, eps)
+  if (hidden % 8 == 0) LN_FWD_WIDE(512, true);
+  else if (wide_threads(hidden) == 128) LN_FWD_WIDE(128, false);
+  else LN_FWD_WIDE(512, false);
+#undef LN_FWD_WIDE
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd_wide(int nblocks, const void* x, const void* w,
+                            const void* mean, const void* rstd, const void* dy,
+                            void* dx, void* dw, void* db, int rows, int hidden,
+                            int rows_per_block, cudaStream_t st) {
+#define LN_BWD_WIDE(TW, VEC)                                                  \
+  layer_norm_bwd_wide<T, TW, VEC><<<nblocks, TW, 0, st>>>(                    \
+      (const T*)x, (const float*)w, (const float*)mean, (const float*)rstd,  \
+      (const T*)dy, (T*)dx, (float*)dw, (float*)db, rows, hidden,            \
+      rows_per_block)
+  if (hidden % 8 == 0) LN_BWD_WIDE(512, true);
+  else if (wide_threads(hidden) == 128) LN_BWD_WIDE(128, false);
+  else LN_BWD_WIDE(512, false);
+#undef LN_BWD_WIDE
+  return cudaGetLastError();
+}
+
 // threads per row: the smallest team whose G <= 4 groups cover the row
 int pick_tpr(int hidden) {
   const int groups = hidden / 8;
@@ -354,9 +667,15 @@ cudaError_t launch_bwd(int nblocks, const void* x, const void* w,
   }
 
 bool bad_shape(int rows, int hidden, int dtype) {
-  return rows < 1 || hidden < 8 || hidden % 8 != 0 || hidden > MAX_HIDDEN ||
-         dtype < 0 || dtype > 2;
+  return rows < 1 || hidden < 1 || dtype < 0 || dtype > 2;
 }
+
+#define LN_DISPATCH_DTYPE(DTYPE, CALL)                     \
+  switch (DTYPE) {                                         \
+    case 0: return CALL(__nv_bfloat16);                    \
+    case 1: return CALL(__half);                           \
+    default: return CALL(float);                           \
+  }
 
 }  // namespace
 
@@ -367,9 +686,15 @@ extern "C" int layer_norm_fwd(const void* x, const void* w, const void* b,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (bad_shape(rows, hidden, dtype)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!team_row(hidden)) {
+#define LN_FWD_WIDE_CALL(T) \
+  (int)launch_fwd_wide<T>(rows, x, w, b, y, mean, rstd, hidden, eps, st)
+    LN_DISPATCH_DTYPE(dtype, LN_FWD_WIDE_CALL)
+#undef LN_FWD_WIDE_CALL
+  }
   const int tpr = pick_tpr(hidden);
   const int g = (hidden / 8 + tpr - 1) / tpr;
-  cudaStream_t st = (cudaStream_t)stream;
 #define LN_FWD_CALL(T, TPR_, G_) \
   (int)launch_fwd<T, TPR_, G_>(rows, x, w, b, y, mean, rstd, hidden, eps, st)
   LN_DISPATCH(dtype, tpr, g, LN_FWD_CALL)
@@ -387,9 +712,16 @@ extern "C" int layer_norm_bwd(const void* x, const void* w, const void* mean,
       (long long)rows_per_block * nblocks < rows ||
       (long long)rows_per_block * (nblocks - 1) >= rows)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!team_row(hidden)) {
+#define LN_BWD_WIDE_CALL(T)                                                   \
+  (int)launch_bwd_wide<T>(nblocks, x, w, mean, rstd, dy, dx, dw_part, db_part, \
+                          rows, hidden, rows_per_block, st)
+    LN_DISPATCH_DTYPE(dtype, LN_BWD_WIDE_CALL)
+#undef LN_BWD_WIDE_CALL
+  }
   const int tpr = pick_tpr(hidden);
   const int g = (hidden / 8 + tpr - 1) / tpr;
-  cudaStream_t st = (cudaStream_t)stream;
 #define LN_BWD_CALL(T, TPR_, G_)                                             \
   (int)launch_bwd<T, TPR_, G_>(nblocks, x, w, mean, rstd, dy, dx, dw_part, \
                                db_part, rows, hidden, rows_per_block, st)

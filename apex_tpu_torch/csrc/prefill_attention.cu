@@ -27,7 +27,11 @@
 // Layout: q [B, H, Sq, D], k and v [B, H, Sk, D], out [B, H, Sq, D], all
 // contiguous (and 16-byte aligned for bf16/fp16), one dtype (bf16, fp16 or
 // fp32); segment ids [B, Sq] and [B, Sk] int32, or null for none; the
-// dropout seed one int32, or null for no dropout. D is 64 or 128.
+// dropout seed one int32, or null for no dropout. D is 64, 128 or 256:
+// the wrapper zero-pads a head dim between two of them up to the next,
+// which is exact (zero columns of q and k add nothing to a score, zero
+// columns of v give zero output columns, sliced away) because the scale
+// is passed in from the true head dim.
 //
 // What bounds it on H100: at the training shape (B 8, H 12, S 1024, D 64,
 // bf16, causal) the function moves 50.3 MB (q, k, v read, o written),
@@ -81,10 +85,16 @@
 // SM. Not yet done (later work): a TMA producer warp, two warpgroups in
 // ping-pong, and emitting (m, l) for the backward.
 //
+// At D = 256 the same body runs one block an SM: O's accumulator is 64 x
+// 256 fp32 (128 registers a thread), the value product two m64n128k16
+// halves, and the shared tiles 160 KB.
+//
 // fp32 stays on the CUDA cores (prefill_attention_simt): four threads per
-// query row over 32-key tiles, fp32 FMAs. On the tensor cores fp32 would
-// run as TF32, which keeps 10 mantissa bits and cannot hold fp32's 1e-4
-// band against the plain version.
+// query row over 32-key tiles, fp32 FMAs, its tiles in dynamic shared
+// memory (and at D = 256 the block's Q rows too, which would not fit a
+// thread's registers). On the tensor cores fp32 would run as TF32, which
+// keeps 10 mantissa bits and cannot hold fp32's 1e-4 band against the
+// plain version.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -126,6 +136,16 @@ constexpr int TPR = 4;              // threads per query row
 constexpr int THREADS = BQ * TPR;   // 256
 constexpr int KPT = BK / TPR;       // keys scored per thread per tile
 
+// the block's Q rows sit in shared memory where a thread's registers
+// cannot hold its row
+template <int D> __host__ __device__ constexpr bool simt_q_smem() { return D > 128; }
+
+// K and V tiles, P, the key segment ids and (simt_q_smem) Q, in bytes
+template <int D> constexpr int simt_smem() {
+  return 4 * (2 * BK * (D + 1) + BQ * (BK + 1) + BK +
+              (simt_q_smem<D>() ? BQ * (D + 1) : 0));
+}
+
 template <typename T, int D, bool DROPOUT>
 __global__ void __launch_bounds__(THREADS)
 prefill_attention_simt(const T* __restrict__ q, const T* __restrict__ k,
@@ -135,10 +155,14 @@ prefill_attention_simt(const T* __restrict__ q, const T* __restrict__ k,
                        int H, int Sq, int Sk, float scale, int causal,
                        unsigned thresh, float mscale) {
   static_assert(D % TPR == 0, "D must split over the threads of a row");
-  __shared__ float ks[BK][D + 1];   // +1: row stride off the bank period
-  __shared__ float vs[BK][D + 1];
-  __shared__ float ps[BQ][BK + 1];
-  __shared__ int segk[BK];
+  constexpr bool QS = simt_q_smem<D>();
+  extern __shared__ float simt_smem_f[];
+  // +1: row stride off the bank period
+  float (*ks)[D + 1] = reinterpret_cast<float (*)[D + 1]>(simt_smem_f);
+  float (*vs)[D + 1] = ks + BK;
+  float (*ps)[BK + 1] = reinterpret_cast<float (*)[BK + 1]>(vs + BK);
+  int* segk = reinterpret_cast<int*>(ps + BQ);
+  float (*qs)[D + 1] = reinterpret_cast<float (*)[D + 1]>(segk + BK);
 
   const int bh = blockIdx.y;        // b * H + h
   const int b = bh / H;
@@ -153,9 +177,16 @@ prefill_attention_simt(const T* __restrict__ q, const T* __restrict__ k,
   const size_t qbase = (size_t)bh * Sq * D;
   const size_t kbase = (size_t)bh * Sk * D;
 
-  float qr[D];
+  float qr[QS ? 1 : D];
+  if constexpr (QS) {
+    // each thread its quarter of the row; the first tile's barrier
+    // publishes them
+    for (int c = sub; c < D; c += TPR)
+      qs[r][c] = row_ok ? (float)q[qbase + (size_t)qi * D + c] : 0.f;
+  } else {
 #pragma unroll
-  for (int c = 0; c < D; ++c) qr[c] = row_ok ? q[qbase + (size_t)qi * D + c] : 0.f;
+    for (int c = 0; c < D; ++c) qr[c] = row_ok ? q[qbase + (size_t)qi * D + c] : 0.f;
+  }
   const int seg_row = (has_seg && row_ok) ? seg_q[(size_t)b * Sq + qi] : 0;
   unsigned rowkey = 0;
   if constexpr (DROPOUT) rowkey = fmix32(head_key(seed, bh) ^ (unsigned)qi);
@@ -193,8 +224,13 @@ prefill_attention_simt(const T* __restrict__ q, const T* __restrict__ k,
       const int j = sub + TPR * t;
       const int kj = k0 + j;
       float dot = 0.f;
+      if constexpr (QS) {
+#pragma unroll 16
+        for (int c = 0; c < D; ++c) dot = fmaf(qs[r][c], ks[j][c], dot);
+      } else {
 #pragma unroll
-      for (int c = 0; c < D; ++c) dot = fmaf(qr[c], ks[j][c], dot);
+        for (int c = 0; c < D; ++c) dot = fmaf(qr[c], ks[j][c], dot);
+      }
       const bool masked = !row_ok || kj >= Sk || (causal && kj > qi) ||
                           (has_seg && segk[j] != seg_row);
       s[t] = masked ? -INFINITY : dot * scale;
@@ -469,9 +505,21 @@ template <typename T, int D>
 __device__ __forceinline__ void wg_pv(float (&acc)[D / 8][4],
                                       const uint32_t (&f)[TC_KEYS / 16][4],
                                       uint32_t b) {
+  if constexpr (D == 256) {
+    // two m64n128 halves: columns 0-127 from panels 0-1, 128-255 from 2-3
+    auto& lo = *reinterpret_cast<float (*)[16][4]>(&acc[0][0]);
+    auto& hi = *reinterpret_cast<float (*)[16][4]>(&acc[16][0]);
 #pragma unroll
-  for (int kk = 0; kk < TC_KEYS / 16; ++kk)
-    Tc<T>::template rs<D>(acc, f[kk], desc128(b + kk * 2048, TC_KEYS * 128), 1);
+    for (int kk = 0; kk < TC_KEYS / 16; ++kk) {
+      Tc<T>::template rs<128>(lo, f[kk], desc128(b + kk * 2048, TC_KEYS * 128), 1);
+      Tc<T>::template rs<128>(
+          hi, f[kk], desc128(b + 2 * TC_KEYS * 128 + kk * 2048, TC_KEYS * 128), 1);
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < TC_KEYS / 16; ++kk)
+      Tc<T>::template rs<D>(acc, f[kk], desc128(b + kk * 2048, TC_KEYS * 128), 1);
+  }
 }
 
 // an accumulator (16 x 64, fp32) rounded to T as the A fragments of the next
@@ -490,9 +538,10 @@ __device__ __forceinline__ void to_frags(const float (&x)[TC_KEYS / 8][4],
 
 // blocks an SM holds: at D = 64 four (at most 128 registers a thread;
 // K1 needs 123) or, with dropout, three (168: the hash spills under 128);
-// at D = 128 two (the shared tiles of a third would not fit)
+// at D = 128 two (the shared tiles of a third would not fit); at D = 256
+// one (160 KB of tiles)
 template <int D, bool DROPOUT> __host__ __device__ constexpr int tc_blocks() {
-  return D == 64 ? (DROPOUT ? 3 : 4) : 2;
+  return D == 64 ? (DROPOUT ? 3 : 4) : D == 128 ? 2 : 1;
 }
 
 template <int D> constexpr int tc_smem() {
@@ -674,11 +723,18 @@ cudaError_t launch_one(int BH, cudaStream_t st, const void* q, const void* k,
       causal, thresh, mscale
   const int tiles = (Sq + BQ - 1) / BQ;
   if constexpr (sizeof(T) == 4) {
-    prefill_attention_simt<T, D, DROPOUT>
-        <<<dim3(tiles, BH), THREADS, 0, st>>>(K1_KERNEL_ARGS);
+    // the dynamic shared memory is granted first where it is over the 48
+    // KB default (at D = 256; below it no host call)
+    auto kernel = prefill_attention_simt<T, D, DROPOUT>;
+    if (simt_smem<D>() > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, simt_smem<D>());
+      if (err != cudaSuccess) return err;
+    }
+    kernel<<<dim3(tiles, BH), THREADS, simt_smem<D>(), st>>>(K1_KERNEL_ARGS);
   } else {
     // the dynamic shared memory is granted first (over the 48 KB default
-    // at D = 128)
+    // at D = 128 and 256)
     auto kernel = prefill_attention_tc<T, D, DROPOUT>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tc_smem<D>());
@@ -699,10 +755,12 @@ cudaError_t launch(int D, int BH, cudaStream_t st, const void* q,
                    float mscale) {
 #define K1_ARGS BH, st, q, k, v, seg_q, seg_kv, seed, out, H, Sq, Sk, scale, causal, thresh, mscale
   if (seed == nullptr)
-    return D == 64 ? launch_one<T, 64, false>(K1_ARGS)
-                   : launch_one<T, 128, false>(K1_ARGS);
-  return D == 64 ? launch_one<T, 64, true>(K1_ARGS)
-                 : launch_one<T, 128, true>(K1_ARGS);
+    return D == 64    ? launch_one<T, 64, false>(K1_ARGS)
+           : D == 128 ? launch_one<T, 128, false>(K1_ARGS)
+                      : launch_one<T, 256, false>(K1_ARGS);
+  return D == 64    ? launch_one<T, 64, true>(K1_ARGS)
+         : D == 128 ? launch_one<T, 128, true>(K1_ARGS)
+                    : launch_one<T, 256, true>(K1_ARGS);
 #undef K1_ARGS
 }
 
@@ -717,7 +775,7 @@ extern "C" int prefill_attention_fwd(const void* q, const void* k, const void* v
                                      int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if ((D != 64 && D != 128) || dtype < 0 || dtype > 2 || B < 1 || H < 1 ||
+  if ((D != 64 && D != 128 && D != 256) || dtype < 0 || dtype > 2 || B < 1 || H < 1 ||
       Sq < 1 || Sk < 1 || B * H > 65535 ||
       (seg_q == nullptr) != (seg_kv == nullptr))
     return (int)cudaErrorInvalidValue;

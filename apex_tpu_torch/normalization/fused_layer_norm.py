@@ -8,8 +8,9 @@ rows of width ``prod(normalized_shape)`` (several normalized axes are
 one flattened row, weight and bias flattened alike): K3/K4 on a CUDA
 tensor (the JAX package's ``use_pallas=True`` route, ``_resolve_pallas
 :67``), the plain versions on a CPU tensor, which equal the jnp path
-``:170-178``. There is no per-shape fallback on the card: a width the
-kernels do not take raises.
+``:170-178``. There is no per-shape fallback on the card: the kernels
+take rows of every width (JAX falls back to jnp where its kernel refuses
+a shape, ``:73-74``, ``:114-115``).
 """
 
 import math

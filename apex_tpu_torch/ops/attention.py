@@ -31,6 +31,16 @@ gradient (serving) runs the forward alone and saves nothing. The TPU
 dispatch machinery (impl tables, ``set_default_impl``, the rows/flash
 choice, the monolithic backward) has no counterpart here.
 
+The kernels are built for head dims 64, 128 and 256 (``KERNEL_HEAD_DIMS``).
+On the card any other head dim up to 256 (the JAX rows kernel's limit,
+``attention_pallas.py:109``) is zero-padded to the next of them by
+:func:`_pad_head_dim`, and the results are sliced back. The pad is exact:
+zero columns of q and k add nothing to a score, zero columns of v give
+zero output columns, the padded columns of dq, dk and dv are zero, and
+the scale is always passed in from the true head dim. The autograd path
+pads once in the forward and saves the padded q, k, v and o, so that
+the backward pads only dO.
+
 Layout: ``[batch, heads, seq, head_dim]``, as in the JAX package.
 """
 
@@ -38,8 +48,37 @@ import math
 import struct
 
 import torch
+import torch.nn.functional as F
 
 _U32 = 0xFFFFFFFF
+
+# the head dims the attention kernels are built for; the largest is the
+# limit of the rows kernel the JAX package runs (d <= 256)
+KERNEL_HEAD_DIMS = (64, 128, 256)
+MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
+
+
+def _kernel_head_dim(d):
+    """The kernel head dim a head dim of ``d`` runs at: the smallest of
+    ``KERNEL_HEAD_DIMS`` at least ``d``. Raises past ``MAX_HEAD_DIM``."""
+    for width in KERNEL_HEAD_DIMS:
+        if d <= width:
+            return width
+    raise ValueError(f"fused_attention: head_dim {d} (the kernels take up "
+                     f"to {MAX_HEAD_DIM})")
+
+
+def _pad_head_dim(t, width):
+    """``t [..., d]`` zero-padded on its last axis to ``width`` (``t``
+    itself where ``d == width``)."""
+    d = t.shape[-1]
+    return t if d == width else F.pad(t, (0, width - d))
+
+
+def _slice_head_dim(t, d):
+    """The first ``d`` columns of a padded result, contiguous (``t``
+    itself where nothing was padded)."""
+    return t if t.shape[-1] == d else t[..., :d].contiguous()
 
 
 def _mul32(x, c):
@@ -214,16 +253,21 @@ class _FusedAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, sm_scale, seg_q, seg_kv, dropout_p,
                 seed):
         segs = None if seg_q is None else (seg_q, seg_kv)
+        d = q.shape[-1]
+        if q.is_cuda:       # padded once here; the backward reuses it
+            width = _kernel_head_dim(d)
+            q, k, v = (_pad_head_dim(t, width) for t in (q, k, v))
         o = _attention_fwd(q, k, v, causal, sm_scale, segs, dropout_p, seed)
         ctx.save_for_backward(q, k, v, o, seg_q, seg_kv, seed)
         ctx.causal, ctx.sm_scale, ctx.dropout_p = causal, sm_scale, dropout_p
-        return o
+        ctx.head_dim = d
+        return _slice_head_dim(o, d)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, seg_q, seg_kv, seed = ctx.saved_tensors
         segs = None if seg_q is None else (seg_q, seg_kv)
-        do = do.contiguous()
+        do = _pad_head_dim(do.contiguous(), q.shape[-1])
         kw = dict(causal=ctx.causal, sm_scale=ctx.sm_scale, segment_ids=segs)
         if q.is_cuda:
             from apex_tpu_torch.ops import attention_bwd_cuda
@@ -239,7 +283,9 @@ class _FusedAttention(torch.autograd.Function):
             dq, dk, dv = _attention_bwd_split(q, k, v, o, do, ctx.causal,
                                               ctx.sm_scale, segs,
                                               ctx.dropout_p, seed)
-        return dq, dk, dv, None, None, None, None, None, None
+        d = ctx.head_dim
+        return (dq[..., :d], dk[..., :d], dv[..., :d], None, None, None,
+                None, None, None)
 
 
 def fused_attention(q, k, v, *, causal=False, sm_scale=None,
@@ -250,7 +296,8 @@ def fused_attention(q, k, v, *, causal=False, sm_scale=None,
       q, k, v: ``[b, h, sq|sk, d]``, one device and dtype.
       causal: apply the lower-triangular mask (key index > query index
         is masked).
-      sm_scale: softmax scale; default ``1/sqrt(d)``.
+      sm_scale: softmax scale; default ``1/sqrt(d)`` of the true head
+        dim (never of a padded one).
       segment_ids: optional ``(seg_q [b, sq], seg_kv [b, sk])`` int
         tensors — tokens attend only within equal ids (packed batches).
       dropout_p: inverted dropout on the probabilities, in ``[0, 1)``;

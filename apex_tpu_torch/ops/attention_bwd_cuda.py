@@ -14,11 +14,18 @@ by ``cp.async`` into a two-stage ring of swizzled shared tiles); fp32
 runs on the CUDA cores, where TF32 would not hold fp32's band. The
 source's header says what bounds them and how the design answers that.
 
+At head dim 256 every dtype runs the CUDA-core kernels (the tensor-core
+bodies' accumulators would not fit a warpgroup's registers).
+
 Each wrapper checks its inputs (one device and dtype, contiguous,
-16-byte aligned), allocates its outputs, launches on PyTorch's current
-stream without synchronising, raises on a refused launch, and counts the
-launch in ``<wrapper>.launches`` (a plain int; a caller resets it to 0
-before the run it wants to read). :func:`attention_bwd` runs K5 then K6,
+16-byte aligned; head dim at most 256), zero-pads a head dim the kernels
+are not built for up to the next one they are (exact; the autograd path
+of :func:`apex_tpu_torch.ops.attention.fused_attention` hands them
+tensors it padded once in the forward), slices the gradients back,
+allocates its outputs, launches on PyTorch's current stream without
+synchronising, raises on a refused launch, and counts the launch in
+``<wrapper>.launches`` (a plain int; a caller resets it to 0 before the
+run it wants to read). :func:`attention_bwd` runs K5 then K6,
 :func:`attention_bwd_dropout` K5d then K6d. The plain version is
 :func:`apex_tpu_torch.ops.attention._attention_bwd_split`.
 """
@@ -28,6 +35,8 @@ import ctypes
 import torch
 
 from apex_tpu_torch.ops import _build
+from apex_tpu_torch.ops.attention import (_kernel_head_dim, _pad_head_dim,
+                                          _slice_head_dim)
 from apex_tpu_torch.ops.attention_cuda import (NO_DROPOUT, _check,
                                                check_aligned, dropout_args)
 
@@ -62,6 +71,9 @@ def _dq(q, k, v, o, do, causal, sm_scale, segment_ids, drop):
     _check_like("o", o, q)
     _check_like("do", do, q)
     check_aligned("attention_bwd", q=q, k=k, v=v, o=o, do=do)
+    d_true = q.shape[-1]
+    width = _kernel_head_dim(d_true)
+    q, k, v, o, do = (_pad_head_dim(t, width) for t in (q, k, v, o, do))
     b, h, sq, d = q.shape
     sk = k.shape[2]
     dq = torch.empty_like(q)
@@ -74,13 +86,16 @@ def _dq(q, k, v, o, do, causal, sm_scale, segment_ids, drop):
                   m.data_ptr(), l.data_ptr(), dcol.data_ptr(), b, h, sq, sk,
                   d, float(sm_scale), int(bool(causal)), thresh, mscale,
                   _build.DTYPE_CODES[q.dtype])
-    return dq, m, l, dcol
+    return _slice_head_dim(dq, d_true), m, l, dcol
 
 
 def _dkv(q, k, v, do, m, l, dcol, causal, sm_scale, segment_ids, drop):
     _check(q, k, v, segment_ids)
     _check_like("do", do, q)
     check_aligned("attention_bwd", q=q, k=k, v=v, do=do)
+    d_true = q.shape[-1]
+    width = _kernel_head_dim(d_true)
+    q, k, v, do = (_pad_head_dim(t, width) for t in (q, k, v, do))
     b, h, sq, d = q.shape
     sk = k.shape[2]
     for name, t in (("m", m), ("l", l), ("dcol", dcol)):
@@ -97,7 +112,7 @@ def _dkv(q, k, v, do, m, l, dcol, causal, sm_scale, segment_ids, drop):
                   dcol.data_ptr(), seed, dk.data_ptr(), dv.data_ptr(), b, h,
                   sq, sk, d, float(sm_scale), int(bool(causal)), thresh,
                   mscale, _build.DTYPE_CODES[q.dtype])
-    return dk, dv
+    return _slice_head_dim(dk, d_true), _slice_head_dim(dv, d_true)
 
 
 def attention_bwd_dq(q, k, v, o, do, *, causal, sm_scale, segment_ids=None):

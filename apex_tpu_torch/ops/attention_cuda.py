@@ -14,12 +14,15 @@ where TF32 would not hold fp32's band. The source's header says what
 bounds the kernel and how its design answers that.
 
 Each wrapper checks its inputs (one device and dtype, contiguous; bf16
-and fp16 16-byte aligned), allocates the output, launches on PyTorch's
-current stream without synchronising, raises on a refused launch, and
-counts the launch in ``<wrapper>.launches`` (a plain int; a caller
-resets it to 0 before the run it wants to read), so K1 and K1d launches
-are told apart. The plain version is
-:func:`apex_tpu_torch.ops.attention._dense_attention`.
+and fp16 16-byte aligned; head dim at most 256), zero-pads a head dim the
+kernel is not built for up to the next one it is
+(:func:`apex_tpu_torch.ops.attention._pad_head_dim`; exact, the scale
+comes from the caller) and slices the result back, allocates the
+output, launches on PyTorch's current stream without synchronising,
+raises on a refused launch, and counts the launch in
+``<wrapper>.launches`` (a plain int; a caller resets it to 0 before the
+run it wants to read), so K1 and K1d launches are told apart. The plain
+version is :func:`apex_tpu_torch.ops.attention._dense_attention`.
 """
 
 import ctypes
@@ -27,7 +30,9 @@ import ctypes
 import torch
 
 from apex_tpu_torch.ops import _build
-from apex_tpu_torch.ops.attention import dropout_scale, dropout_threshold
+from apex_tpu_torch.ops.attention import (MAX_HEAD_DIM, _kernel_head_dim,
+                                          _pad_head_dim, _slice_head_dim,
+                                          dropout_scale, dropout_threshold)
 
 _NAME = "prefill_attention"
 _P = ctypes.c_void_p
@@ -60,9 +65,9 @@ def _check(q, k, v, segment_ids):
     if k.shape != (b, h, sk, d) or v.shape != k.shape:
         raise ValueError(f"prefill_attention: shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)} disagree")
-    if d not in (64, 128):
-        raise ValueError(f"prefill_attention: head_dim {d} (the kernel "
-                         f"takes 64 or 128)")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"prefill_attention: head_dim {d} (the kernels "
+                         f"take up to {MAX_HEAD_DIM})")
     if b * h > 65535:
         raise ValueError("prefill_attention: b * h exceeds the grid limit")
     if segment_ids is not None:
@@ -106,6 +111,9 @@ def _launch(q, k, v, causal, sm_scale, segment_ids, drop):
     _check(q, k, v, segment_ids)
     if q.dtype != torch.float32:
         check_aligned("prefill_attention", q=q, k=k, v=v)
+    d_true = q.shape[-1]
+    width = _kernel_head_dim(d_true)
+    q, k, v = (_pad_head_dim(t, width) for t in (q, k, v))
     b, h, sq, d = q.shape
     out = torch.empty_like(q)
     seg_q, seg_kv = (segment_ids[0].data_ptr(), segment_ids[1].data_ptr()) \
@@ -116,7 +124,7 @@ def _launch(q, k, v, causal, sm_scale, segment_ids, drop):
                   seed, out.data_ptr(), b, h, sq, k.shape[2], d,
                   float(sm_scale), int(bool(causal)), thresh, mscale,
                   _build.DTYPE_CODES[q.dtype])
-    return out
+    return _slice_head_dim(out, d_true)
 
 
 def prefill_attention(q, k, v, *, causal, sm_scale, segment_ids=None):

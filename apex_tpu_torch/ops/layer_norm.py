@@ -12,8 +12,8 @@
   tensor it runs K3 and K4 (:mod:`apex_tpu_torch.ops.layer_norm_cuda`;
   the affine-gradient partials are summed here with ``torch.sum``, as
   JAX sums them outside its kernel at ``:244-245``); for a CPU tensor it
-  runs the plain versions. There is no fallback from one to the other:
-  a width the kernels do not take raises on the card.
+  runs the plain versions. There is no fallback from one to the other;
+  the kernels take every width.
 """
 
 import torch

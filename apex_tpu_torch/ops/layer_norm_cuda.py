@@ -2,7 +2,10 @@
 (``csrc/layer_norm.cu``): K3 :func:`layer_norm_fwd` replaces
 ``apex_tpu/ops/layer_norm_pallas.py:171 _fwd`` and K4
 :func:`layer_norm_bwd` replaces ``:215 _bwd_rule``. The source's header
-says what bounds them (bandwidth) and how the design answers that.
+says what bounds them (bandwidth) and how the design answers that. They
+take rows of any width: a multiple of 8 up to 8192 on the team-per-row
+body, wider rows and widths that are not a multiple of 8 on the
+row-per-block body.
 
 Each wrapper checks its inputs, allocates its outputs, launches on
 PyTorch's current stream without synchronising, raises on a refused
@@ -28,13 +31,20 @@ _SIGNATURES = {
                         _I, _P], _I),
     "layer_norm_error_string": ([_I], ctypes.c_char_p),
 }
-MAX_HIDDEN = 8192
 MAX_BWD_BLOCKS = 256   # dw/db partial rows of one backward launch
 
 
 def supported(hidden):
-    """Whether the kernels take rows of width ``hidden``."""
-    return 8 <= hidden <= MAX_HIDDEN and hidden % 8 == 0
+    """Whether the kernels take rows of width ``hidden``: any width of at
+    least one column."""
+    return hidden >= 1
+
+
+def vector_rows(hidden):
+    """Whether rows of width ``hidden`` move in 16-byte vectors (and so
+    must start on 16-byte boundaries); other widths load element by
+    element."""
+    return hidden % 8 == 0
 
 
 def _check(name, x2d, vectors, row_tensors):
@@ -44,26 +54,28 @@ def _check(name, x2d, vectors, row_tensors):
     if x2d.dtype not in _build.DTYPE_CODES:
         raise ValueError(f"{name}: dtype {x2d.dtype} (want bf16/fp16/fp32)")
     if not supported(hidden):
-        raise ValueError(f"{name}: hidden {hidden} (the kernels take a "
-                         f"multiple of 8 up to {MAX_HIDDEN})")
+        raise ValueError(f"{name}: hidden {hidden} (the kernels take at "
+                         f"least one column)")
     if rows < 1:
         raise ValueError(f"{name}: no rows")
+    align = 16 if vector_rows(hidden) else 1
     for tname, t in row_tensors:
         if (t.device != x2d.device or t.dtype != x2d.dtype
                 or t.shape != x2d.shape or not t.is_contiguous()
-                or t.data_ptr() % 16):
-            raise ValueError(f"{name}: {tname} must be a contiguous, "
-                             f"16-byte aligned {x2d.dtype} "
-                             f"{tuple(x2d.shape)} tensor on {x2d.device}")
+                or t.data_ptr() % align):
+            raise ValueError(f"{name}: {tname} must be a contiguous "
+                             f"{x2d.dtype} {tuple(x2d.shape)} tensor on "
+                             f"{x2d.device}, 16-byte aligned where hidden "
+                             f"is a multiple of 8")
     for tname, t, shape in vectors:
         if t is None:
             continue
         if (t.device != x2d.device or t.dtype != torch.float32
                 or tuple(t.shape) != shape or not t.is_contiguous()
-                or t.data_ptr() % 16):
-            raise ValueError(f"{name}: {tname} must be a contiguous, "
-                             f"16-byte aligned fp32 {shape} tensor on "
-                             f"{x2d.device}")
+                or t.data_ptr() % align):
+            raise ValueError(f"{name}: {tname} must be a contiguous fp32 "
+                             f"{shape} tensor on {x2d.device}, 16-byte "
+                             f"aligned where hidden is a multiple of 8")
 
 
 def layer_norm_fwd(x2d, weight, bias, eps):

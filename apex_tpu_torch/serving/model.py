@@ -28,7 +28,9 @@ the fresh K/V in the compute dtype, and decode attention reads the int8
 pages with their scales (K2q on the card).
 
 Serving constraints (:func:`check_serving_config`): no dropout, no
-query-key layer scaling, no MoE, no sequence or context parallelism.
+query-key layer scaling, no MoE, no sequence or context parallelism, and
+a head dim of at most 256 (the prefill kernels' limit, the JAX rows
+kernel's; the decode kernels take up to 512).
 Weight quantization and the multi-token decode block are later slices.
 
 Matmul precision: an fp32 run on the card needs
@@ -41,7 +43,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from apex_tpu_torch.ops.attention import fused_attention
+from apex_tpu_torch.ops.attention import MAX_HEAD_DIM, fused_attention
 from apex_tpu_torch.ops.decode_attention import decode_attention
 from apex_tpu_torch.serving import kv_tier
 
@@ -60,6 +62,9 @@ def check_serving_config(cfg):
     if cfg.sequence_parallel or cfg.context_parallel_axis:
         problems.append("sequence/context parallelism (single-chip "
                         "serving engine)")
+    if cfg.head_dim > MAX_HEAD_DIM:
+        problems.append(f"head_dim {cfg.head_dim} (the prefill attention "
+                        f"kernels take up to {MAX_HEAD_DIM})")
     if problems:
         raise ValueError("serving does not support: "
                          + "; ".join(problems))

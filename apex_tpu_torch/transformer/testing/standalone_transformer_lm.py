@@ -88,7 +88,8 @@ from torch.utils import checkpoint
 from apex_tpu_torch import default_device
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops import xent
-from apex_tpu_torch.ops.attention import _fmix32, _mul32, fused_attention
+from apex_tpu_torch.ops.attention import (MAX_HEAD_DIM, _fmix32, _mul32,
+                                          fused_attention)
 from apex_tpu_torch.transformer import parallel_state
 from apex_tpu_torch.transformer.enums import AttnMaskType
 from apex_tpu_torch.transformer.functional import FusedScaleMaskSoftmax
@@ -172,7 +173,8 @@ class TransformerConfig:
 
 def check_training_config(cfg):
     """Raise on TransformerConfig options the training slice does not
-    model (dropout is checked per call: it only matters in training).
+    model (dropout is checked per call: it only matters in training), and
+    on a head dim past the attention kernels' 256.
     ``recompute_granularity`` takes None or "none" (no recompute: the port
     has no dispatch table to consult, ``resolve_recompute_granularity
     :713``), "selective" or "full"."""
@@ -184,6 +186,10 @@ def check_training_config(cfg):
         problems.append("MoE")
     if cfg.sequence_parallel or cfg.context_parallel_axis:
         problems.append("sequence/context parallelism")
+    if cfg.head_dim > MAX_HEAD_DIM:
+        problems.append(f"head_dim {cfg.head_dim} (the attention kernels "
+                        f"take up to {MAX_HEAD_DIM}, the JAX rows kernel's "
+                        f"limit)")
     if problems:
         raise ValueError("GPTModel does not support: " + "; ".join(problems))
 

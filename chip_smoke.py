@@ -5,9 +5,12 @@
 runs every phase below on one card; on a machine with two or more, the
 tp = 2 phase gives each rank a card of its own over NCCL. With
 ``--parent``, the sources of CHECKOUT (another commit's tree) whose
-kernels this slice redesigned (``xent.cu``, ``softmax.cu``) are built
-too, and their K7, K7p and K10 are timed in turns beside this tree's
-(``parent_ms``, ``parent_ms_turns``).
+kernels the recent slices redesigned (``xent.cu``, ``softmax.cu``,
+``decode_attention.cu``, ``layer_norm.cu``) are built too, their K7,
+K7p, K10, K2 and K2q are timed in turns beside this tree's
+(``parent_ms``, ``parent_ms_turns``; the parent's decode kernels
+through their own C entries, one block a slot-head), and K3/K4 at the
+main path's width must give the parent's bits.
 
 Needs one CUDA card and the CUDA toolkit (``nvcc``); without a card it
 exits non-zero before printing any result. It imports nothing of JAX
@@ -77,7 +80,18 @@ exits non-zero before the last line):
    TFLOP/s bf16 — 67 TFLOP/s fp32 for layer norm's elementwise math —
    or, for the dropout variants, the hash's 11 integer operations per
    live pair over 132 x 64 INT32 lanes at 1.98 GHz, whichever is
-   largest; NVIDIA's data-sheet rates).
+   largest; NVIDIA's data-sheet rates). K2 and K2q (split-KV, the last
+   block of a slot-head combining) must give the same bits twice, with
+   ptxas's registers and spills; both also run at head dims 80 and 256 at
+   the serving lengths (``by_head_dim``). Then the other widths: K1, K1d,
+   K5/K6 and K5d/K6d at
+   head dim 80 (``[2, 32, 1024, 80]``, GPT-3 2.7B's heads, zero-padded to
+   128) and 256 (``[2, 16, 1024, 256]``, K5/K6 on the CUDA cores), bf16,
+   causal, with and without dropout, and K3/K4 at widths 100, 12288 and a
+   ``(64, 200)`` normalized shape through ``fused_layer_norm`` (rows of
+   12800), rows = 8192: each against its plain version, timed with its
+   bound and library call (``by_head_dim``, ``by_width`` in the kernel's
+   row).
 4. serving end to end: ``ServingEngine`` at GPT-2-small width (12 x 768,
    12 heads, vocab 50304, 1024 positions, bf16; 8 slots, page size 128,
    72 pages, 512-token packed prefill) with random weights from seed 0
@@ -143,6 +157,13 @@ exits non-zero before the last line):
    K4 = 25), the losses of steps 1-7 equal on the two ranks and falling,
    rank 0's profiled window, and the all-reduces a step makes (count,
    bytes) with the time of one of a ``[1024, 8, 768]`` bf16 activation.
+   Before it, GPT-3 2.7B's widths (``GPT3_2P7B``: hidden 2560, 32 heads
+   of 80, ffn 10240, vocab 50304; depth cut from 32 layers to 2 for the
+   smoke's time; random weights from torch seed 0): ``ServingEngine``
+   serves 6 seeded greedy requests (K1 and K2 launches counted), the
+   kernel and plain paths' logits agree within 0.35, and one training step
+   at b = 2, s = 1024 agrees with the plain path within the training
+   bands; K1, K2, K3, K4, K5 and K6 must each have launched.
 6. one JSON line per kernel, the ``{"kernels": [...]}`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -207,6 +228,34 @@ SOFTMAX_Y_TOL = 2.0 ** -8
 # H100 measured at most 1.8e-5 there, in fp16)
 K2Q_L2_TOL = 1e-4
 TRAIN = dict(batch=8, seq=1024, warmup=2, timed=5, lr=1e-4)
+# the head dims the attention kernels run at besides the main path's 64,
+# each at a training shape of a model that has it, (batch, heads, seq),
+# bf16, causal: 80 (GPT-3 2.7B: 32 heads; zero-padded to the kernels' 128)
+# and 256 (GPT-J-6B's 16 heads; K1 on the tensor cores, K5/K6 on the CUDA
+# cores)
+ATTN_HEAD_DIM_SHAPES = {80: (2, 32, 1024), 256: (2, 16, 1024)}
+# decode's other head dims at the serving lengths (the kernels' buckets
+# 128 and 256 run them unpadded)
+DECODE_HEAD_DIMS = (80, 256)
+# layer-norm widths past the team-per-row body, at rows = 8192: 100 (not a
+# multiple of 8: element loads), 12288 (GPT-3 175B's d_model) and 12800,
+# the row of a (64, 200) normalized shape (past the registers of the
+# row-per-block body)
+LN_WIDTHS = (100, 12288, (64, 200))
+# GPT-3 2.7B's widths (Brown et al. 2020, "Language Models are Few-Shot
+# Learners", Table 2.1, "GPT-3 2.7B": n_layers 32, d_model 2560, n_heads 32,
+# d_head 80, d_ff = 4 d_model, context 2048) over GPT-2's vocabulary padded
+# to 50304, random weights from a torch seed; depth cut from 32 layers to 2
+# to stay within the smoke's time
+GPT3_2P7B = dict(hidden_size=2560, num_layers=2, num_attention_heads=32,
+                 ffn_hidden_size=10240, vocab_size=50304,
+                 max_position_embeddings=2048, hidden_dropout=0.0,
+                 attention_dropout=0.0, apply_query_key_layer_scaling=False,
+                 bf16=True)
+GPT3_ENGINE = dict(num_slots=4, page_size=128, num_pages=72, max_seq=2048,
+                   prefill_len=512)
+GPT3_TRACE = dict(seed=1, n_requests=6, prompt_lo=16, prompt_hi=300,
+                  new_lo=8, new_hi=24, mean_interarrival=0.5)
 # K7p's row partials against its plain version: the largest |diff| over
 # max(1, the largest |value|) of each partial; the shards' dX (each
 # rounded to bf16, then summed in bf16 as the ranks' all-reduce does)
@@ -277,10 +326,42 @@ def _time_in_turns(fn, lib_fn, flush, spread=None):
 
 
 # with --parent DIR: the parent checkout's libraries of the sources whose
-# kernels this slice redesigned, built with this build's flags, and its
-# rule for K7's vocabulary shares (the grid is the wrapper's choice)
-PARENT_SOURCES = ("xent", "softmax")
+# kernels a slice redesigned, built with this build's flags, and its rule
+# for K7's vocabulary shares (the grid is the wrapper's choice)
+PARENT_SOURCES = ("xent", "softmax", "decode_attention", "layer_norm")
 PARENT = {}
+
+
+def _parent_decode_signatures():
+    """The C entries of the parent's ``decode_attention.cu`` (one block a
+    slot-head: no scratch, tickets, split or copy arguments)."""
+    import ctypes
+
+    P_, I_, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return {"decode_attention_fwd": ([P_] * 6 + [I_] * 6 + [F_, I_, I_, P_],
+                                     I_),
+            "decode_attention_quant_fwd": ([P_] * 8 + [I_] * 6
+                                           + [F_, I_, I_, P_], I_),
+            "decode_attention_error_string": ([I_], ctypes.c_char_p)}
+
+
+def _parent_decode(q, kp, vp, pt, lengths, scale, scales=()):
+    """The parent's K2 (or, with ``scales``, K2q) through its own C entry
+    on this tree's inputs; a new ``[b, h, d]`` tensor."""
+    from apex_tpu_torch.ops import _build
+
+    lib = PARENT["decode_attention"]
+    b, h, d = q.shape
+    out = torch.empty_like(q)
+    fn = "decode_attention_quant_fwd" if scales else "decode_attention_fwd"
+    rc = getattr(lib, fn)(
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+        *(t.data_ptr() for t in scales), pt.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), b, h, kp.shape[1], kp.shape[2], pt.shape[1], d,
+        float(scale), _build.DTYPE_CODES[q.dtype], q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, "decode_attention", rc)
+    return out
 
 
 def _parent_vocab_splits(n, V, h, dtype, device):
@@ -312,9 +393,11 @@ def _finish_parent_build(procs):
     wrapper's signatures (the C entries did not change)."""
     import ctypes
 
-    from apex_tpu_torch.ops import softmax_cuda, xent_cuda
+    from apex_tpu_torch.ops import layer_norm_cuda, softmax_cuda, xent_cuda
 
-    sigs = {"xent": xent_cuda._SIGNATURES, "softmax": softmax_cuda._SIGNATURES}
+    sigs = {"xent": xent_cuda._SIGNATURES, "softmax": softmax_cuda._SIGNATURES,
+            "decode_attention": _parent_decode_signatures(),
+            "layer_norm": layer_norm_cuda._SIGNATURES}
     for name, lib, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode:
@@ -340,12 +423,15 @@ def _as_parent(fn, name):
     return run
 
 
-def _turns(fn, lib_fn, flush, source, spread=None):
+def _turns(fn, lib_fn, flush, source, spread=None, parent_fn=None):
     """``fn`` timed in turns around one library call, kernel, library,
     kernel, and, with ``--parent``, the parent's kernel before and after
-    them: ``{"ms": the kernel's mean, "ms_turns", "library_ms",
-    "parent_ms", "parent_ms_turns"}``."""
-    parent = _as_parent(fn, source) if source in PARENT else None
+    them (``fn`` on the parent's library, or ``parent_fn`` where the
+    parent's C entry differs): ``{"ms": the kernel's mean, "ms_turns",
+    "library_ms", "parent_ms", "parent_ms_turns"}``."""
+    parent = None
+    if source in PARENT:
+        parent = parent_fn or _as_parent(fn, source)
     out = {}
     if parent:
         out["parent_ms_turns"] = [_time_ms(parent, flush)]
@@ -452,28 +538,156 @@ def phase_prefill_kernel(dev, flush):
         "bytes": nbytes, "flops": flops}
 
 
-def phase_decode_kernel(dev, flush):
-    """K2 at B=8, H=12, ps=128, 72 pages, mixed lengths incl. 0/1/127/
-    128/129/1024."""
-    import torch.nn.functional as F
+# the serving shape of the decode phases: 8 slots at these lengths, 12
+# heads, page size 128, 72 pages, 8 pages a slot
+DECODE_LENGTHS = [0, 1, 127, 128, 129, 1024, 513, 300]
 
-    from apex_tpu_torch.ops import decode_attention, decode_attention_cuda
 
-    B, H, D, PS, P, MAXP = 8, 12, 64, 128, 72, 8
-    lengths_l = [0, 1, 127, 128, 129, 1024, 513, 300]
-    gen = torch.Generator(device=dev).manual_seed(2)
-    q = torch.randn(B, H, D, generator=gen, device=dev).to(torch.bfloat16)
-    kp, vp = (torch.randn(H, P, PS, D, generator=gen, device=dev)
+def _decode_inputs(dev, d, seed):
+    """q [8, 12, d] and bf16 pages [12, 72, 128, d] drawn from ``seed``,
+    and a fragmented page table (never page 0) for ``DECODE_LENGTHS``."""
+    B, H, PS, P, MAXP = len(DECODE_LENGTHS), 12, 128, 72, 8
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, H, d, generator=gen, device=dev).to(torch.bfloat16)
+    kp, vp = (torch.randn(H, P, PS, d, generator=gen, device=dev)
               .to(torch.bfloat16) for _ in range(2))
     perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(3))
     pt = torch.zeros(B, MAXP, dtype=torch.int32)
     nxt = 0
-    for i, n in enumerate(lengths_l):
+    for i, n in enumerate(DECODE_LENGTHS):
         for j in range(-(-n // PS)):
             pt[i, j] = int(perm[nxt]) + 1     # fragmented, never page 0
             nxt += 1
-    pt = pt.to(dev)
-    lengths = torch.tensor(lengths_l, dtype=torch.int32, device=dev)
+    lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=dev)
+    return q, kp, vp, pt.to(dev), lengths
+
+
+def _quantized(kp, vp):
+    """The int8 tier's codes and bf16 [h, pages] scales of bf16 pages, by
+    the tier's own codec."""
+    from apex_tpu_torch.serving import kv_tier
+
+    scales = [(t.float().abs().amax(dim=(-2, -1)) / kv_tier.QMAX).to(
+        torch.bfloat16) for t in (kp, vp)]
+    k8, v8 = (kv_tier.quantize(t, sc) for t, sc in zip((kp, vp), scales))
+    return k8, v8, scales[0], scales[1]
+
+
+def _decode_bound(q, pt, lengths, page_bytes, scale_bytes=0):
+    """The bytes bound of one decode call: the live K and V rows (and, for
+    K2q, the live pages' scales), q read, out written, the table and the
+    lengths; the operations two products (and two dequantizations) a
+    live element."""
+    H, d = q.shape[1], q.shape[2]
+    tokens = int(lengths.sum().item())
+    live_pages = sum(-(-int(n) // 128) for n in lengths.tolist())
+    nbytes = (2 * tokens * H * d * page_bytes
+              + 2 * live_pages * H * scale_bytes
+              + 2 * q.numel() * q.element_size()
+              + 4 * (pt.numel() + lengths.numel()))
+    flops = (6 if scale_bytes else 4) * H * d * tokens
+    return nbytes, flops, _bound(nbytes, flops)
+
+
+def _repeatable(fn, name):
+    """Two runs of one decode kernel give the same bits (the fixed-order
+    combine, no floating-point atomics; the tickets reset by the run
+    before)."""
+    outs = [fn(), fn()]
+    torch.cuda.synchronize()
+    if not torch.equal(outs[0], outs[1]):
+        raise AssertionError(f"{name}: two runs do not give the same bits")
+
+
+def _decode_head_dims(dev, flush, quant):
+    """K2 (or K2q over the tier's codes) at ``DECODE_HEAD_DIMS`` on the
+    serving lengths against the plain version (the K2 phase's bands):
+    errors, the kernel's time, its bound and SDPA's over pre-gathered
+    (and pre-dequantized) K/V."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import decode_attention, decode_attention_cuda
+    from apex_tpu_torch.serving import kv_tier
+
+    out_rows = {}
+    for d in DECODE_HEAD_DIMS:
+        q, kp, vp, pt, lengths = _decode_inputs(dev, d, 40 + d)
+        scale = d ** -0.5
+        if quant:
+            k8, v8, ks, vs = _quantized(kp, vp)
+            run = lambda: decode_attention_cuda.decode_attention_quant(  # noqa
+                q, k8, v8, ks, vs, pt, lengths, sm_scale=scale)
+            ref = decode_attention.decode_attention_reference(
+                q, k8, v8, pt, lengths, scale, ks, vs)
+            kd, vd = (kv_tier.dequantize(c, sc, torch.bfloat16)
+                      for c, sc in ((k8, ks), (v8, vs)))
+        else:
+            run = lambda: decode_attention_cuda.decode_attention(  # noqa
+                q, kp, vp, pt, lengths, sm_scale=scale)
+            ref = decode_attention.decode_attention_reference(
+                q, kp, vp, pt, lengths, scale)
+            kd, vd = kp, vp
+        out = run()
+        torch.cuda.synchronize()
+        err, l2 = _max_err(out, ref), _rel_l2(out, ref)
+        if err > 2e-2 or l2 > K2Q_L2_TOL:
+            raise AssertionError(f"decode kernel (int8 {quant}) at head dim "
+                                 f"{d} disagrees: {err}, relative L2 {l2}")
+        B, H, MAXP = q.shape[0], q.shape[1], pt.shape[1]
+        kg = kd[:, pt].permute(1, 0, 2, 3, 4).reshape(B, H, MAXP * 128, d)
+        vg = vd[:, pt].permute(1, 0, 2, 3, 4).reshape(B, H, MAXP * 128, d)
+        live = (torch.arange(MAXP * 128, device=dev)[None, :]
+                < lengths[:, None])[:, None, None, :]
+        ms = _time_ms(run, flush)
+        lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None, :], kg, vg, attn_mask=live, scale=scale), flush)
+        _, _, (bound_ms, bound_by) = _decode_bound(
+            q, pt, lengths, 1 if quant else 2, 2 if quant else 0)
+        out_rows[d] = {"max_abs_err": err, "rel_l2": l2, "tol": 2e-2,
+                       "rel_l2_tol": K2Q_L2_TOL, "ms": ms,
+                       "library_ms": lib_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by}
+        _log(f"decode (int8 {quant}) at head dim {d}: "
+             + json.dumps(out_rows[d]))
+    return out_rows
+
+
+def _ptxas(source, *needles):
+    """Registers and spill bytes ptxas reported for the kernels of one
+    source's build whose mangled names hold every needle."""
+    from apex_tpu_torch.ops import _build
+
+    found, fn = {}, ""
+    for line in _build.build_log.get(source, "").splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        used = re.search(r"Used (\d+) registers", line)
+        if entry:
+            fn = entry.group(1)
+        elif fn and all(n in fn for n in needles):
+            if spill:
+                found.setdefault(fn, {}).update(
+                    spill_stores=int(spill.group(1)),
+                    spill_loads=int(spill.group(2)))
+            if used:
+                found.setdefault(fn, {})["registers"] = int(used.group(1))
+    return found
+
+
+def phase_decode_kernel(dev, flush):
+    """K2 at B=8, H=12, ps=128, 72 pages, mixed lengths incl. 0/1/127/
+    128/129/1024: against the plain version, two runs bit for bit, timed
+    in turns around SDPA over pre-gathered K/V (and, with ``--parent``,
+    around the parent's kernel); then at the other head dims."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import decode_attention, decode_attention_cuda
+
+    D, PS, MAXP = 64, 128, 8
+    lengths_l = DECODE_LENGTHS
+    q, kp, vp, pt, lengths = _decode_inputs(dev, D, 2)
+    B, H = q.shape[:2]
     scale = D ** -0.5
     tol = 2e-2  # fp32 inside both; bf16 output, one ulp at |o| < 4
     before = decode_attention_cuda.decode_attention.launches
@@ -491,37 +705,44 @@ def phase_decode_kernel(dev, flush):
     if out[0].abs().max().item() != 0.0:
         raise AssertionError("an inactive slot (length 0) must give 0")
 
+    l2 = _rel_l2(out, ref)
+    if l2 > K2Q_L2_TOL:
+        raise AssertionError(f"decode kernel disagrees: relative L2 {l2}")
+
+    def run():
+        return decode_attention_cuda.decode_attention(q, kp, vp, pt, lengths,
+                                                      sm_scale=scale)
+
+    _repeatable(run, "decode_attention")
     spread = []
-    ms = _time_ms(lambda: decode_attention_cuda.decode_attention(
-        q, kp, vp, pt, lengths, sm_scale=scale), flush, spread=spread)
-    plain_ms = _time_ms(lambda: decode_attention.decode_attention_reference(
-        q, kp, vp, pt, lengths, scale), flush)
     # the yardstick attends over K/V gathered beforehand (gather excluded)
     kg = kp[:, pt].permute(1, 0, 2, 3, 4).reshape(B, H, MAXP * PS, D)
     vg = vp[:, pt].permute(1, 0, 2, 3, 4).reshape(B, H, MAXP * PS, D)
     live = (torch.arange(MAXP * PS, device=dev)[None, :]
             < lengths[:, None])[:, None, None, :]
     q4 = q[:, :, None, :]
-    lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-        q4, kg, vg, attn_mask=live, scale=scale), flush)
-    tokens = sum(lengths_l)
-    nbytes = (2 * tokens * H * D * kp.element_size()
-              + 2 * q.numel() * q.element_size()
-              + pt.numel() * 4 + lengths.numel() * 4)
-    flops = 4 * H * D * tokens
-    bound_ms, bound_by = _bound(nbytes, flops)
+    timed = _turns(run, lambda: F.scaled_dot_product_attention(
+        q4, kg, vg, attn_mask=live, scale=scale), flush, "decode_attention",
+        spread=spread, parent_fn=lambda: _parent_decode(q, kp, vp, pt,
+                                                        lengths, scale))
+    plain_ms = _time_ms(lambda: decode_attention.decode_attention_reference(
+        q, kp, vp, pt, lengths, scale), flush)
+    nbytes, flops, (bound_ms, bound_by) = _decode_bound(q, pt, lengths, 2)
     return {
         "name": "decode_attention", "route": "cuda",
         "source": "apex_tpu_torch/csrc/decode_attention.cu",
         "replaces": "apex_tpu/ops/decode_attention_pallas.py:142",
-        "shape": (f"q [{B},{H},{D}] bf16, pages [{H},{P},{PS},{D}], "
-                  f"lengths {lengths_l}"),
-        "max_abs_err": err, "tol": tol, "ms": ms, "kernel_ms": ms,
-        "ms_spread": spread, "plain_ms": plain_ms, "library_ms": lib_ms,
+        "shape": (f"q [{B},{H},{D}] bf16, pages [{H},{kp.shape[1]},{PS},"
+                  f"{D}], lengths {lengths_l}"),
+        "max_abs_err": err, "tol": tol, "rel_l2": l2,
+        "rel_l2_tol": K2Q_L2_TOL, **timed, "kernel_ms": timed["ms"],
+        "ms_spread": spread, "plain_ms": plain_ms,
         "library": ("F.scaled_dot_product_attention over pre-gathered "
                     "contiguous K/V (gather excluded)"),
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "bytes": nbytes, "flops": flops}
+        "bytes": nbytes, "flops": flops,
+        "ptxas": _ptxas("decode_attention", "13__nv_bfloat16", "Li64E"),
+        "by_head_dim": _decode_head_dims(dev, flush, quant=False)}
 
 
 def phase_int8_decode_kernel(dev, flush):
@@ -535,25 +756,11 @@ def phase_int8_decode_kernel(dev, flush):
     from apex_tpu_torch.ops import decode_attention, decode_attention_cuda
     from apex_tpu_torch.serving import kv_tier
 
-    B, H, D, PS, P, MAXP = 8, 12, 64, 128, 72, 8
-    lengths_l = [0, 1, 127, 128, 129, 1024, 513, 300]
-    gen = torch.Generator(device=dev).manual_seed(9)
-    q = torch.randn(B, H, D, generator=gen, device=dev).to(torch.bfloat16)
-    kp, vp = (torch.randn(H, P, PS, D, generator=gen, device=dev)
-              .to(torch.bfloat16) for _ in range(2))
-    scales = [(t.float().abs().amax(dim=(-2, -1)) / kv_tier.QMAX).to(
-        torch.bfloat16) for t in (kp, vp)]
-    k8, v8 = (kv_tier.quantize(t, sc) for t, sc in zip((kp, vp), scales))
-    ks, vs = scales
-    perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(3))
-    pt = torch.zeros(B, MAXP, dtype=torch.int32)
-    nxt = 0
-    for i, n in enumerate(lengths_l):
-        for j in range(-(-n // PS)):
-            pt[i, j] = int(perm[nxt]) + 1
-            nxt += 1
-    pt = pt.to(dev)
-    lengths = torch.tensor(lengths_l, dtype=torch.int32, device=dev)
+    D, PS, MAXP = 64, 128, 8
+    lengths_l = DECODE_LENGTHS
+    q, kp, vp, pt, lengths = _decode_inputs(dev, D, 9)
+    B, H, P = q.shape[0], q.shape[1], kp.shape[1]
+    k8, v8, ks, vs = _quantized(kp, vp)
     scale = D ** -0.5
     tol = 2e-2  # fp32 inside both; bf16 output, one ulp at |o| < 4
     # the int8 tier against the unquantized pages: the JAX package's band
@@ -586,14 +793,12 @@ def phase_int8_decode_kernel(dev, flush):
     if out[0].abs().max().item() != 0.0:
         raise AssertionError("an inactive slot (length 0) must give 0")
 
+    def run():
+        return decode_attention_cuda.decode_attention_quant(
+            q, k8, v8, ks, vs, pt, lengths, sm_scale=scale)
+
+    _repeatable(run, "decode_attention_quant")
     spread = []
-    ms = _time_ms(lambda: decode_attention_cuda.decode_attention_quant(
-        q, k8, v8, ks, vs, pt, lengths, sm_scale=scale), flush,
-        spread=spread)
-    k2_ms = _time_ms(lambda: decode_attention_cuda.decode_attention(
-        q, kp, vp, pt, lengths, sm_scale=scale), flush)
-    plain_ms = _time_ms(lambda: decode_attention.decode_attention_reference(
-        q, k8, v8, pt, lengths, scale, ks, vs), flush)
     # the yardstick attends over K/V gathered and dequantized beforehand
     # (gather and dequantization excluded)
     kd, vd = (kv_tier.dequantize(c, sc, torch.bfloat16)
@@ -603,15 +808,17 @@ def phase_int8_decode_kernel(dev, flush):
     live = (torch.arange(MAXP * PS, device=dev)[None, :]
             < lengths[:, None])[:, None, None, :]
     q4 = q[:, :, None, :]
-    lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-        q4, kg, vg, attn_mask=live, scale=scale), flush)
-    tokens = sum(lengths_l)
-    live_pages = sum(-(-n // PS) for n in lengths_l)
-    nbytes = (2 * tokens * H * D * 1 + 2 * live_pages * H * 2
-              + 2 * q.numel() * q.element_size()
-              + pt.numel() * 4 + lengths.numel() * 4)
-    flops = 6 * H * D * tokens          # QK^T, PV and the two dequantizations
-    bound_ms, bound_by = _bound(nbytes, flops)
+    timed = _turns(run, lambda: F.scaled_dot_product_attention(
+        q4, kg, vg, attn_mask=live, scale=scale), flush, "decode_attention",
+        spread=spread, parent_fn=lambda: _parent_decode(
+            q, k8, v8, pt, lengths, scale, (ks, vs)))
+    k2_ms = _time_ms(lambda: decode_attention_cuda.decode_attention(
+        q, kp, vp, pt, lengths, sm_scale=scale), flush)
+    plain_ms = _time_ms(lambda: decode_attention.decode_attention_reference(
+        q, k8, v8, pt, lengths, scale, ks, vs), flush)
+    # QK^T, PV and the two dequantizations
+    nbytes, flops, (bound_ms, bound_by) = _decode_bound(q, pt, lengths, 1,
+                                                        2)
     return {
         "name": "decode_attention_quant", "route": "cuda",
         "source": "apex_tpu_torch/csrc/decode_attention.cu",
@@ -620,14 +827,16 @@ def phase_int8_decode_kernel(dev, flush):
                   f"with bf16 scales [{H},{P}], lengths {lengths_l}"),
         "max_abs_err": err, "tol": tol, "rel_l2": l2,
         "rel_l2_tol": K2Q_L2_TOL, "vs_unquantized_max_abs_err": tier_err,
-        "vs_unquantized_band": tier_band, "ms": ms, "kernel_ms": ms,
+        "vs_unquantized_band": tier_band, **timed,
+        "kernel_ms": timed["ms"],
         "ms_spread": spread, "k2_ms_same_call": k2_ms, "plain_ms": plain_ms,
-        "library_ms": lib_ms,
         "library": ("F.scaled_dot_product_attention over pre-gathered, "
                     "pre-dequantized contiguous K/V (gather and "
                     "dequantization excluded)"),
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "bytes": nbytes, "flops": flops}
+        "bytes": nbytes, "flops": flops,
+        "ptxas": _ptxas("decode_attention", "13__nv_bfloat16a", "Li64E"),
+        "by_head_dim": _decode_head_dims(dev, flush, quant=True)}
 
 
 def phase_softmax_kernels(dev, flush):
@@ -1313,6 +1522,22 @@ def phase_layer_norm_kernels(dev, flush):
         raise AssertionError(f"layer-norm kernels disagree with the plain "
                              f"versions: {fwd_err}, {bwd_err} x tolerance; "
                              f"relative L2 {y_l2}, {dx_l2}")
+    # with --parent: the team-per-row body at this width gives the
+    # parent's bits (a later slice's layer-norm work must not move them)
+    same_bits = None
+    if "layer_norm" in PARENT:
+        p_fwd = _as_parent(lambda: layer_norm_cuda.layer_norm_fwd(
+            x, w, b, 1e-5), "layer_norm")()
+        p_bwd = _as_parent(lambda: layer_norm_cuda.layer_norm_bwd(
+            x, w, mean, rstd, dy), "layer_norm")()
+        torch.cuda.synchronize()
+        same_bits = all(torch.equal(a, c) for a, c in zip(
+            (y, mean, rstd, dx, dw_part, db_part), (*p_fwd, *p_bwd)))
+        _log(f"layer norm at the main path's width, bits against the "
+             f"parent's: {'the same' if same_bits else 'DIFFERENT'}")
+        if not same_bits:
+            raise AssertionError("K3/K4 at the main path's width moved "
+                                 "their bits against the parent's")
 
     fwd_spread, bwd_spread = [], []
     fwd_ms = _time_ms(lambda: layer_norm_cuda.layer_norm_fwd(x, w, b, 1e-5),
@@ -1342,7 +1567,7 @@ def phase_layer_norm_kernels(dev, flush):
               "library": ("F.layer_norm with bf16 weight and bias (it "
                           "takes one dtype)")}
     return [
-        dict(common, name="layer_norm_fwd",
+        dict(common, name="layer_norm_fwd", bits_as_parent=same_bits,
              replaces="apex_tpu/ops/layer_norm_pallas.py:185",
              max_abs_err=y_abs, err_over_tol=fwd_err, tol=tol_out,
              rel_l2=y_l2, rel_l2_tol=BF16_L2_TOL,
@@ -1350,7 +1575,7 @@ def phase_layer_norm_kernels(dev, flush):
              plain_ms=fwd_plain,
              library_ms=fwd_lib, bound_ms=fwd_bound[0],
              bound_by=fwd_bound[1], bytes=fwd_bytes, flops=8 * elems),
-        dict(common, name="layer_norm_bwd",
+        dict(common, name="layer_norm_bwd", bits_as_parent=same_bits,
              replaces="apex_tpu/ops/layer_norm_pallas.py:222",
              max_abs_err=dx_abs, err_over_tol=bwd_err, tol=tol_out,
              rel_l2=dx_l2, rel_l2_tol=BF16_L2_TOL,
@@ -1492,6 +1717,225 @@ def phase_attention_bwd_kernels(dev, flush):
              kernel_ms=dkv_ms, ms_spread=dkv_spread, bound_ms=dkv_bound[0],
              bound_by=dkv_bound[1], bytes=dkv_bytes,
              flops=dkv_flops)], k1_train
+
+
+def phase_attention_head_dims(dev, flush):
+    """K1, K1d, K5/K6 and K5d/K6d at ``ATTN_HEAD_DIM_SHAPES`` (bf16,
+    causal; dropout 0.1, seed -123456789): each against its plain version
+    (``K1_L2_TOL`` and 5e-2 for the outputs, ``BF16_L2_TOL`` and 5e-2 of
+    the largest magnitude for the gradients), timed after an L2 flush
+    beside SDPA (forward, and backward through ``torch.autograd.grad``,
+    with and without dropout), with its bound. The wrappers zero-pad d =
+    80 to 128; the backward kernels are timed on tensors padded once
+    beforehand (as the autograd path pads once a forward), and the pad's
+    own time is given beside them. Returns ``{kernel name: {d: numbers}}``
+    for the rows of K1, K1d, K5, K6, K5d and K6d."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import attention, attention_bwd_cuda
+    from apex_tpu_torch.ops import attention_cuda
+
+    out = {}
+    for d, (B, H, S) in ATTN_HEAD_DIM_SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(30 + d)
+        q, k, v, do = (torch.randn(B, H, S, d, generator=gen, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+        seed = torch.tensor([-123456789], dtype=torch.int32, device=dev)
+        scale = d ** -0.5
+        width = attention._kernel_head_dim(d)
+        padded = [attention._pad_head_dim(t, width) for t in (q, k, v, do)]
+        pad_ms = _time_ms(lambda: [attention._pad_head_dim(t, width)
+                                   for t in (q, k, v)], flush)
+        live = B * H * S * (S + 1) // 2
+        t_bytes = q.numel() * q.element_size()
+        stats = 3 * B * H * S * 4
+        hash_ops = HASH_OPS_PER_PAIR * live
+        for drop in (False, True):
+            p = DROPOUT_P if drop else 0.0
+            kw = dict(causal=True, sm_scale=scale)
+            dkw = dict(kw, dropout_p=p, dropout_seed=seed) if drop else kw
+            fwd = (attention_cuda.prefill_attention_dropout if drop
+                   else attention_cuda.prefill_attention)
+            o = fwd(q, k, v, **dkw)
+            ro = attention._dense_attention(q, k, v, True, scale, None, p,
+                                            seed if drop else None)
+            torch.cuda.synchronize()
+            f_err, f_l2 = _max_err(o, ro), _rel_l2(o, ro)
+            del ro
+            pq, pk, pv, pdo = padded
+            po = attention._pad_head_dim(o, width)
+            dq_fn = (attention_bwd_cuda.attention_bwd_dq_dropout if drop
+                     else attention_bwd_cuda.attention_bwd_dq)
+            dkv_fn = (attention_bwd_cuda.attention_bwd_dkv_dropout if drop
+                      else attention_bwd_cuda.attention_bwd_dkv)
+            dq, m, l, dcol = dq_fn(pq, pk, pv, po, pdo, **dkw)
+            dk, dv = dkv_fn(pq, pk, pv, pdo, m, l, dcol, **dkw)
+            ref = attention._attention_bwd_split(q, k, v, o, do, True, scale,
+                                                 None, p,
+                                                 seed if drop else None)
+            torch.cuda.synchronize()
+            got = [t[..., :d] for t in (dq, dk, dv)]
+            b_l2 = [_rel_l2(a, r) for a, r in zip(got, ref)]
+            b_err = [_rel_err(a, r) for a, r in zip(got, ref)]
+            del ref, got
+            what = f"attention{' dropout' if drop else ''} at head dim {d}"
+            _log(f"{what}: forward max_abs_err {f_err:.3e}, relative L2 "
+                 f"{f_l2:.3e}; dq/dk/dv relative L2 {b_l2}, max over the "
+                 f"largest magnitude {b_err}")
+            if (f_err > 5e-2 or f_l2 > K1_L2_TOL or max(b_l2) > BF16_L2_TOL
+                    or max(b_err) > 5e-2):
+                raise AssertionError(f"{what} disagrees with the plain "
+                                     f"versions")
+            sdpa = dict(is_causal=True, scale=scale, dropout_p=p)
+            f_ms, f_turns, f_lib = _time_in_turns(
+                lambda: fwd(q, k, v, **dkw),
+                lambda: F.scaled_dot_product_attention(q, k, v, **sdpa),
+                flush)
+            f_plain = _time_ms(lambda: attention._dense_attention(
+                q, k, v, True, scale, None, p, seed if drop else None),
+                flush, reps=3)
+            dq_ms = _time_ms(lambda: dq_fn(pq, pk, pv, po, pdo, **dkw), flush)
+            dkv_ms = _time_ms(lambda: dkv_fn(pq, pk, pv, pdo, m, l, dcol,
+                                             **dkw), flush)
+            b_plain = _time_ms(lambda: attention._attention_bwd_split(
+                q, k, v, o, do, True, scale, None, p,
+                seed if drop else None), flush, reps=3)
+            qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+            og = F.scaled_dot_product_attention(qg, kg, vg, **sdpa)
+            b_lib = _time_ms(lambda: torch.autograd.grad(
+                og, (qg, kg, vg), do, retain_graph=True), flush)
+            del og, qg, kg, vg
+            ints = hash_ops if drop else 0
+            f_bound = _bound(4 * t_bytes, 2 * 2 * d * live, int_ops=ints)
+            dq_bound = _bound(6 * t_bytes + stats, 3 * 2 * d * live,
+                              int_ops=ints)
+            dkv_bound = _bound(6 * t_bytes + stats, 4 * 2 * d * live,
+                               int_ops=ints)
+            shape = f"[{B},{H},{S},{d}] bf16, causal"
+            common = {"shape": shape, "kernel_head_dim": width,
+                      "pad_ms": pad_ms if width != d else 0.0}
+            suffix = "_dropout" if drop else ""
+            out.setdefault("prefill_attention" + suffix, {})[d] = dict(
+                common, max_abs_err=f_err, rel_l2=f_l2, ms=f_ms,
+                ms_turns=f_turns, plain_ms=f_plain, library_ms=f_lib,
+                bound_ms=f_bound[0], bound_by=f_bound[1])
+            for name, ms, bound, i in (("attention_bwd_dq", dq_ms, dq_bound,
+                                        [0]),
+                                       ("attention_bwd_dkv", dkv_ms,
+                                        dkv_bound, [1, 2])):
+                out.setdefault(name + suffix, {})[d] = dict(
+                    common, rel_l2=max(b_l2[j] for j in i),
+                    rel_err=max(b_err[j] for j in i), ms=ms,
+                    plain_ms=b_plain, library_ms=b_lib,
+                    bound_ms=bound[0], bound_by=bound[1],
+                    plain=("dq, dk and dv together"),
+                    library=("backward of F.scaled_dot_product_attention "
+                             "via torch.autograd.grad, dq, dk and dv "
+                             "together"))
+            del dq, dk, dv, m, l, dcol, o, po
+        torch.cuda.empty_cache()
+    _log("attention at other head dims: " + json.dumps(out))
+    return out
+
+
+def phase_layer_norm_widths(dev, flush):
+    """K3/K4 at ``LN_WIDTHS``, rows = 8192, bf16 with fp32 affine: each
+    width against the plain versions within the K3/K4 phase's bands (the
+    (64, 200) shape through ``fused_layer_norm`` and autograd, which must
+    launch K3 and K4 once each); K3's and K4's times at every width, with
+    the bound and ``F.layer_norm``'s (forward, and backward through
+    ``torch.autograd.grad``). Returns ``{kernel name: {width: numbers}}``
+    for the rows of K3 and K4."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.normalization import fused_layer_norm
+    from apex_tpu_torch.ops import layer_norm, layer_norm_cuda
+
+    rows = TRAIN["batch"] * TRAIN["seq"]
+    tol_out, tol_f32 = 2.0 ** -7, 1e-4
+    out = {"layer_norm_fwd": {}, "layer_norm_bwd": {}}
+    for shape in LN_WIDTHS:
+        norm = shape if isinstance(shape, tuple) else (shape,)
+        hidden = int(np.prod(norm))
+        gen = torch.Generator(device=dev).manual_seed(hidden)
+        x = (torch.randn(rows, hidden, generator=gen, device=dev) * 2 + 1).to(
+            torch.bfloat16)
+        dy = torch.randn(rows, hidden, generator=gen, device=dev).to(
+            torch.bfloat16)
+        w = torch.rand(hidden, generator=gen, device=dev) + 0.5
+        b = torch.randn(hidden, generator=gen, device=dev)
+        if len(norm) > 1:
+            # the module's path: one row of prod(norm) a leading index
+            before = (layer_norm_cuda.layer_norm_fwd.launches,
+                      layer_norm_cuda.layer_norm_bwd.launches)
+            xg = x.reshape(rows, *norm).detach().requires_grad_()
+            wg, bg = (t.reshape(norm).detach().requires_grad_()
+                      for t in (w, b))
+            y = fused_layer_norm(xg, norm, wg, bg, 1e-5)
+            y.backward(dy.reshape(rows, *norm))
+            if (layer_norm_cuda.layer_norm_fwd.launches,
+                    layer_norm_cuda.layer_norm_bwd.launches) != (
+                        before[0] + 1, before[1] + 1):
+                raise AssertionError("fused_layer_norm over two axes did "
+                                     "not launch K3 and K4 once each")
+            y, dx = y.reshape(rows, hidden), xg.grad.reshape(rows, hidden)
+            dw, db = wg.grad.reshape(-1), bg.grad.reshape(-1)
+            del xg, wg, bg
+        else:
+            y, mean, rstd = layer_norm_cuda.layer_norm_fwd(x, w, b, 1e-5)
+            dx, dw_part, db_part = layer_norm_cuda.layer_norm_bwd(
+                x, w, mean, rstd, dy)
+            dw, db = dw_part.sum(0), db_part.sum(0)
+        ry, rmean, rrstd = layer_norm.layer_norm_fwd(x, w, b, 1e-5)
+        rdx, rdw, rdb = layer_norm.layer_norm_bwd(x, w, rmean, rrstd, dy)
+        torch.cuda.synchronize()
+        errs = {"y": _rel_err(y, ry) / tol_out, "dx": _rel_err(dx, rdx)
+                / tol_out, "dw": _rel_err(dw, rdw) / tol_f32,
+                "db": _rel_err(db, rdb) / tol_f32}
+        l2 = {"y": _rel_l2(y, ry), "dx": _rel_l2(dx, rdx)}
+        _log(f"layer norm at width {shape}: error over its tolerance {errs}, "
+             f"relative L2 {l2} (tol {BF16_L2_TOL})")
+        if max(errs.values()) > 1 or max(l2.values()) > BF16_L2_TOL:
+            raise AssertionError(f"layer-norm kernels at width {shape} "
+                                 f"disagree with the plain versions")
+        del y, dx, ry, rdx
+        _, mean, rstd = layer_norm_cuda.layer_norm_fwd(x, w, b, 1e-5)
+        wl, bl = w.to(torch.bfloat16), b.to(torch.bfloat16)
+        fwd_ms = _time_ms(lambda: layer_norm_cuda.layer_norm_fwd(
+            x, w, b, 1e-5), flush)
+        fwd_lib = _time_ms(lambda: F.layer_norm(x, (hidden,), wl, bl, 1e-5),
+                           flush)
+        bwd_ms = _time_ms(lambda: layer_norm_cuda.layer_norm_bwd(
+            x, w, mean, rstd, dy), flush)
+        xg = x.detach().requires_grad_()
+        wg, bg = wl.detach().requires_grad_(), bl.detach().requires_grad_()
+        yg = F.layer_norm(xg, (hidden,), wg, bg, 1e-5)
+        bwd_lib = _time_ms(lambda: torch.autograd.grad(
+            yg, (xg, wg, bg), dy, retain_graph=True), flush)
+        fwd_plain = _time_ms(lambda: layer_norm.layer_norm_fwd(
+            x, w, b, 1e-5), flush, reps=5)
+        bwd_plain = _time_ms(lambda: layer_norm.layer_norm_bwd(
+            x, w, rmean, rrstd, dy), flush, reps=5)
+        del xg, wg, bg, yg
+        elems = rows * hidden
+        fwd_bound = _bound(2 * elems * 2 + 2 * hidden * 4 + 2 * rows * 4,
+                           8 * elems, FP32_FLOPS_PER_S)
+        bwd_bound = _bound(3 * elems * 2 + 3 * hidden * 4 + 2 * rows * 4,
+                           14 * elems, FP32_FLOPS_PER_S)
+        key = "x".join(map(str, norm))
+        common = {"shape": f"x [{rows},{hidden}] bf16, w/b fp32",
+                  "max_err_over_tol": max(errs.values())}
+        out["layer_norm_fwd"][key] = dict(
+            common, rel_l2=l2["y"], ms=fwd_ms, plain_ms=fwd_plain,
+            library_ms=fwd_lib, bound_ms=fwd_bound[0],
+            bound_by=fwd_bound[1])
+        out["layer_norm_bwd"][key] = dict(
+            common, rel_l2=l2["dx"], ms=bwd_ms, plain_ms=bwd_plain,
+            library_ms=bwd_lib, bound_ms=bwd_bound[0],
+            bound_by=bwd_bound[1])
+        torch.cuda.empty_cache()
+    _log("layer norm at other widths: " + json.dumps(out))
+    return out
 
 
 def phase_dropout_mask_exact(dev):
@@ -1839,19 +2283,20 @@ def _training_counts():
 
 
 def _train_cfg(fused=False, dropout=False, recompute="none", scores=False,
-               vocab=None):
-    """GPT-2-small for training; ``dropout`` sets GPT-2's published hidden
-    and attention dropout (``benchmarks/profile_gpt.py:401-425``), on the
-    in-kernel route or, with ``scores``, on the scores path (the profile's
-    row 10: ``fused_attention_dropout=False``, ``softmax_use_pallas=True``,
-    the materialized head); ``vocab`` replaces the vocabulary size (the
+               vocab=None, model=MODEL):
+    """GPT-2-small (or ``model``) for training; ``dropout`` sets GPT-2's
+    published hidden and attention dropout
+    (``benchmarks/profile_gpt.py:401-425``), on the in-kernel route or,
+    with ``scores``, on the scores path (the profile's row 10:
+    ``fused_attention_dropout=False``, ``softmax_use_pallas=True``, the
+    materialized head); ``vocab`` replaces the vocabulary size (the
     tensor-parallel windows pad it)."""
     from apex_tpu_torch.transformer.testing import TransformerConfig
 
     drop = DROPOUT_P if dropout else 0.0
-    return TransformerConfig(**dict(MODEL, hidden_dropout=drop,
+    return TransformerConfig(**dict(model, hidden_dropout=drop,
                                     attention_dropout=drop,
-                                    vocab_size=vocab or MODEL["vocab_size"]),
+                                    vocab_size=vocab or model["vocab_size"]),
                              fused_lm_head=fused,
                              recompute_granularity=recompute,
                              fused_attention_dropout=not scores,
@@ -1859,7 +2304,8 @@ def _train_cfg(fused=False, dropout=False, recompute="none", scores=False,
 
 
 def _train_setup(dev, batch, seed=0, fused=False, dropout=False,
-                 recompute="none", scores=False, tp=1, padded=False):
+                 recompute="none", scores=False, tp=1, padded=False,
+                 model=MODEL):
     """The model, scaler, optimizer, step, states and seeded batch of one
     training configuration; at ``tp`` > 1 (inside an initialized tp group)
     this rank's ``GPTModel(tp_size=tp)`` over the padded vocabulary
@@ -1872,7 +2318,8 @@ def _train_setup(dev, batch, seed=0, fused=False, dropout=False,
     from apex_tpu_torch.transformer.testing import GPTModel
 
     cfg = _train_cfg(fused, dropout, recompute, scores,
-                     vocab=TP_VOCAB if tp > 1 or padded else None)
+                     vocab=TP_VOCAB if tp > 1 or padded else None,
+                     model=model)
     model = GPTModel(cfg, device=dev, seed=seed, tp_size=tp)
     scaler = GradScaler() if tp > 1 else LossScaler()
     opt = fused_adam(learning_rate=TRAIN["lr"])
@@ -1890,11 +2337,11 @@ def _train_setup(dev, batch, seed=0, fused=False, dropout=False,
             scaler.init(dev), ids, pos, labels)
 
 
-def _want_launches(fused, dropout, recompute, scores=False):
+def _want_launches(fused, dropout, recompute, scores=False, model=MODEL):
     """Launches per step of each counted kernel: the forward's attention
     (or, on the scores path, softmax) and layer norms once more for what
     the backward recomputes."""
-    layers = MODEL["num_layers"]
+    layers = model["num_layers"]
     again = {"full": 1, "selective": 1}.get(recompute, 0)
     ln_again = 2 * layers if recompute == "full" else 0
     fwd, bwd = (("prefill_attention_dropout", ("attention_bwd_dq_dropout",
@@ -2064,12 +2511,15 @@ def _compare_steps(what, a, b):
     return dloss, worst
 
 
-def phase_training_paths_agree(dev, fused, dropout=False, scores=False):
+def phase_training_paths_agree(dev, fused, dropout=False, scores=False,
+                               model=MODEL):
     """One step's loss and every gradient at b=2 through the kernel path
     and the plain path on the card (K1, K3-K6 and, with the fused head,
     K7-K9, with dropout K1d, K5d and K6d, on the scores path K10 and K11,
-    patched to their plain versions); with dropout both paths draw the
-    same masks and seeds."""
+    patched to their plain versions) of GPT-2-small or ``model``; with
+    dropout both paths draw the same masks and seeds. Returns the loss
+    difference, the worst gradient's relative L2 and the kernel path's
+    launch counts."""
     from apex_tpu_torch.ops import (attention, attention_bwd_cuda,
                                     attention_cuda, layer_norm,
                                     layer_norm_cuda, softmax, softmax_cuda,
@@ -2099,13 +2549,14 @@ def phase_training_paths_agree(dev, fused, dropout=False, scores=False):
         dx, dw, db = layer_norm.layer_norm_bwd(x, w, mean, rstd, dy)
         return dx, dw[None], db[None]
 
-    model, _, _, _, _, _, ids, pos, labels = _train_setup(
-        dev, 2, seed=1, fused=fused, dropout=dropout, scores=scores)
+    net, _, _, _, _, _, ids, pos, labels = _train_setup(
+        dev, 2, seed=1, fused=fused, dropout=dropout, scores=scores,
+        model=model)
     seed = 21 if dropout else None
     counts = _training_counts()
     for fn in counts.values():
         fn.launches = 0
-    kernel = _step_grads(model, ids, pos, labels, seed)
+    kernel = _step_grads(net, ids, pos, labels, seed)
     kernel_launches = {k: fn.launches for k, fn in counts.items()}
     with mock.patch.object(attention_cuda, "prefill_attention", plain_fwd), \
             mock.patch.object(attention_bwd_cuda, "attention_bwd",
@@ -2128,16 +2579,86 @@ def phase_training_paths_agree(dev, fused, dropout=False, scores=False):
                               softmax.scaled_masked_softmax_reference), \
             mock.patch.object(softmax_cuda, "softmax_bwd",
                               softmax.scaled_masked_softmax_backward_reference):
-        plain = _step_grads(model, ids, pos, labels, seed)
-    want = _want_launches(fused, dropout, "none", scores)
+        plain = _step_grads(net, ids, pos, labels, seed)
+    want = _want_launches(fused, dropout, "none", scores, model)
     if kernel_launches != want:
         raise AssertionError(f"the kernel path's step launched "
                              f"{kernel_launches}, want {want}")
     what = ("fused" if fused else "materialized") + " head" + (
         f", dropout {DROPOUT_P}" if dropout else "") + (
         ", scores path" if scores else "")
-    return _compare_steps(f"training kernel vs plain path on the card, "
-                          f"{what}", kernel, plain)
+    if model is not MODEL:
+        what += f", {model['hidden_size']} wide, {model['num_layers']} layers"
+    dloss, worst = _compare_steps(f"training kernel vs plain path on the "
+                                  f"card, {what}", kernel, plain)
+    return dloss, worst, kernel_launches
+
+
+def phase_gpt3_2p7b(dev):
+    """GPT-3 2.7B's widths (``GPT3_2P7B``: hidden 2560, 32 heads of 80, ffn
+    10240, vocab 50304; depth cut to 2 layers), random weights from torch
+    seed 0, end to end. Serving: ``ServingEngine`` (4 slots, page size
+    128, 72 pages, 512-token packed prefill) serves a seeded trace of 6
+    greedy requests to completion, K1 and K2 launching once a layer a
+    prefill batch and a decode step; then one packed prefill batch and 4
+    decode steps through the kernel path and the plain path, logits within
+    ``LOGITS_BAND``. Training: one step at b = 2, s = 1024 through the
+    kernel path and the plain path, within the training bands. K1, K2, K3,
+    K4, K5 and K6 must each have launched. Returns the launch counts of the
+    two runs and their numbers."""
+    from apex_tpu_torch.ops import attention_cuda, decode_attention_cuda
+    from apex_tpu_torch.serving import ServingEngine, synthetic_trace
+    from apex_tpu_torch.transformer.testing import TransformerConfig
+
+    cfg = TransformerConfig(**GPT3_2P7B)
+    if cfg.head_dim != 80:
+        raise AssertionError(f"GPT-3 2.7B's head dim is 80, got "
+                             f"{cfg.head_dim}")
+    engine = ServingEngine(cfg, seed=0, device=dev, **GPT3_ENGINE)
+    reqs, trace_id = synthetic_trace(vocab=cfg.vocab_size, **GPT3_TRACE)
+    counted = {"prefill_attention": attention_cuda.prefill_attention,
+               "decode_attention": decode_attention_cuda.decode_attention}
+    for fn in counted.values():
+        fn.launches = 0
+    base = (engine.prefill_batches, engine.decode_steps,
+            engine.tokens_generated)
+    t0 = time.perf_counter()
+    engine.run_trace(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    serving_launches = {k: fn.launches for k, fn in counted.items()}
+    prefills = engine.prefill_batches - base[0]
+    decodes = engine.decode_steps - base[1]
+    tokens = engine.tokens_generated - base[2]
+    want = {"prefill_attention": prefills * cfg.num_layers,
+            "decode_attention": decodes * cfg.num_layers}
+    if serving_launches != want:
+        raise AssertionError(f"GPT-3 2.7B serving launched "
+                             f"{serving_launches}, want {want}")
+    for r in reqs:
+        if len(r.out_tokens) != r.max_new_tokens:
+            raise AssertionError(f"request {r.rid} did not complete")
+    logits = phase_paths_agree(engine, dev)
+    worst_logit = None if logits is None else max(
+        float(t.abs().max()) for t in logits)
+    del engine, logits
+    torch.cuda.empty_cache()
+    dloss, worst_grad, train_launches = phase_training_paths_agree(
+        dev, fused=False, model=GPT3_2P7B)
+    torch.cuda.empty_cache()
+    launched = {**serving_launches, **train_launches}
+    for name in ("prefill_attention", "decode_attention", "layer_norm_fwd",
+                 "layer_norm_bwd", "attention_bwd_dq", "attention_bwd_dkv"):
+        if not launched.get(name):
+            raise AssertionError(f"GPT-3 2.7B: {name} never launched")
+    stats = {"config": "GPT-3 2.7B widths, 2 of 32 layers", "head_dim": 80,
+             "trace_id": trace_id, "requests": len(reqs), "tokens": tokens,
+             "prefill_batches": prefills, "decode_steps": decodes,
+             "serving_wall_s": wall, "tokens_per_s": tokens / wall,
+             "largest_logit": worst_logit, "train_loss_diff": dloss,
+             "train_worst_grad_rel_l2": worst_grad}
+    _log("GPT-3 2.7B widths: " + json.dumps(stats))
+    return serving_launches, train_launches, stats
 
 
 def phase_recompute_agree(dev):
@@ -2637,14 +3158,15 @@ def main():
     for name in _build.SOURCES:
         _log_ptxas(name, _build.build_log.get(name, "").splitlines())
     # the bf16 instantiations (d 64 and 128, with and without dropout) of
-    # K5/K6 (eight) and K1 (four), those of the tensor-core K8/K9 (32- and
-    # 16-row streamed tiles, four) and that of the tensor-core K7/K7p first
-    # stage (one) must hold wgmma (HGMMA) instructions
+    # K5/K6 (eight; d = 256 runs on the CUDA cores) and K1 (d 64, 128 and
+    # 256: six), those of the tensor-core K8/K9 (32- and 16-row streamed
+    # tiles, four) and that of the tensor-core K7/K7p first stage (one) must
+    # hold wgmma (HGMMA) instructions
     sass = {}
     for source, kernels, want in (
             ("attention_bwd", ("attention_bwd_dq_tc", "attention_bwd_dkv_tc"),
              8),
-            ("prefill_attention", ("prefill_attention_tc",), 4),
+            ("prefill_attention", ("prefill_attention_tc",), 6),
             ("xent", ("xent_bwd_tc", "xent_fwd_tc"), 5)):
         counts = _tensor_core_sass(_build.lib_path(source), kernels)
         if counts is None:
@@ -2674,6 +3196,16 @@ def main():
     rows += phase_softmax_kernels(dev, flush)
     rows += phase_long_softmax_kernels(dev, flush)
     rows.append(phase_xent_shard_kernels(dev, flush))
+    torch.cuda.empty_cache()
+    # the attention kernels at head dims 80 and 256, layer norm at widths
+    # past its team-per-row body: numbers beside each kernel's row
+    wider = {**phase_attention_head_dims(dev, flush),
+             **phase_layer_norm_widths(dev, flush)}
+    for row in rows:
+        if row["name"] in wider:
+            key = "by_width" if row["name"].startswith("layer_norm") \
+                else "by_head_dim"
+            row[key] = wider[row["name"]]
     torch.cuda.empty_cache()
     # the generic softmax over 8192 keys, the path of K10L/K11L
     launches_by = {"generic_softmax_long": phase_generic_softmax_path(dev)}
@@ -2769,8 +3301,14 @@ def main():
     _log("dropout checks: " + json.dumps({"mask": mask_check,
                                           "recompute": recompute_agree}))
 
-    # this slice's main path: GPT-2-small at tensor-parallel size 2 on the
-    # vocab-sharded fused head, in two ranks
+    # GPT-3 2.7B's widths (head dim 80: the attention kernels zero-pad it
+    # to 128), serving and a training step, kernel vs plain
+    torch.cuda.empty_cache()
+    (launches_by["gpt3_2p7b_serving"], launches_by["gpt3_2p7b_training"],
+     _) = phase_gpt3_2p7b(dev)
+
+    # GPT-2-small at tensor-parallel size 2 on the vocab-sharded fused
+    # head, in two ranks
     torch.cuda.empty_cache()
     launches_by["training_tp2"], tp2 = phase_training_tp2(dev, smi)
     side = {k: {"tp=1 fused head": windows[True][k],

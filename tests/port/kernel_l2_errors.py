@@ -6,13 +6,16 @@ K5d/K6d (the same with dropout), K7-K9 (the fused
 LM head: loss and lse, dX, dE; K7 and K7p also with labels at the
 vocabulary's edges), K7p with K8/K9 on vocabulary shards
 (each against its plain version, and the shards combined against K7-K9
-on the whole table), K2q (decode over int8 pages) and K10/K11 and
-K10L/K11L (the fused softmax, forward and backward, up to 4096 keys and
-above), per dtype. It prints one line per attention, LM-head,
+on the whole table), K2q (decode over int8 pages), K2 and K2q at their
+split boundaries, and K10/K11 and K10L/K11L (the fused softmax, forward
+and backward, up to 4096 keys and above), per dtype, at the attention
+head dims 32-256, the decode head dims 32-512 and the layer-norm widths
+64-12800 the card tests take. It prints one line per attention, LM-head,
 int8-decode and softmax case and the worst value per kernel and dtype:
 the numbers ``L2_TOL``, ``DROPOUT_L2_TOL``, ``K1_L2_TOL``, ``XENT_L2_TOL``,
 ``XENT_LOSS_TOL``, ``XENT_PARTIAL_TOL``, ``XENT_SHARD_DX_L2_TOL`` and
-``SOFTMAX_L2_TOL`` in ``test_torch_kernels_cuda.py`` are set from (for K7
+``SOFTMAX_L2_TOL`` and ``K2Q_L2_TOL`` in ``test_torch_kernels_cuda.py``
+are set from (for K7
 the largest |loss diff| over max(1, |loss|); for K10 also the largest |y
 diff|, which ``SOFTMAX_TOL`` bounds). Needs a CUDA card:
 
@@ -53,7 +56,7 @@ def main():
         worst[(kernel, dtype)] = max(worst.get((kernel, dtype), 0.0), value)
 
     for dtype, (tdt, _) in sorted(cases.DTYPES.items()):
-        for d in (64, 128):
+        for d in cases.ATTN_DIMS:
             for case in ("causal", "segments", "masked_row", "cross"):
                 q, k, v, do, causal, seg = cases._attn_case(dev, tdt, d, case)
                 s = d ** -0.5
@@ -126,7 +129,7 @@ def main():
                     print(f"attention tiles {dtype} d={d} {sq}x{sk} {case}: "
                           f"dq/dk/dv {bwd[0]:.3e} {bwd[1]:.3e} {bwd[2]:.3e}")
                     note("K5d/K6d" if p else "K5/K6", dtype, max(bwd))
-        for hidden in (64, 768, 1024, 4096, 8192):
+        for hidden in (64, 768, 1024, 4096, 8192, 100, 12288, 12800):
             for rows in (1, 37, 1000):
                 for affine in (True, False):
                     gen = torch.Generator(device=dev).manual_seed(2)
@@ -191,7 +194,7 @@ def main():
                      max(err["dx_shard_l2"], err["de_shard_l2"],
                          err["de_cat_l2"]))
                 note("K8 dX summed over shards", dtype, err["dx_sum_l2"])
-        for d in (64, 128):
+        for d in cases.DECODE_DIMS:
             for ps in (16, 128):
                 gen = torch.Generator(device=dev).manual_seed(3)
                 h, pages, b = 4, 26, 6
@@ -211,6 +214,21 @@ def main():
                 err = _l2(out, ref)
                 print(f"int8 decode {dtype} d={d} ps={ps}: K2q {err:.3e}")
                 note("K2q", dtype, err)
+        for _, d, ps in cases.SPLIT_CASES:
+            for quant in (False, True):
+                q, kp, vp, (ks, vs), pt, lengths, sk = cases._split_case(
+                    dev, tdt, d, ps, quant)
+                out = decode_attention.decode_attention(
+                    q, kp, vp, pt, lengths, sm_scale=d ** -0.5, k_scale=ks,
+                    v_scale=vs)
+                ref = decode_attention.decode_attention_reference(
+                    q, kp, vp, pt.clamp(0, kp.shape[1] - 1), lengths,
+                    d ** -0.5, ks, vs)
+                err = _l2(out, ref)
+                name = "K2q" if quant else "K2"
+                print(f"decode splits {dtype} d={d} ps={ps} sk={sk}: {name} "
+                      f"{err:.3e}")
+                note(name, dtype, err)
         for shape in cases.SOFTMAX_SHAPES:
             for case in cases.SOFTMAX_CASES:
                 x, g, mask, causal = cases._softmax_case(dev, tdt, shape,

@@ -7,7 +7,10 @@ tests/test_attention_pallas.py runs it) and against ``jax.vjp`` of its
 ``_dense_attention``, on the same numpy inputs and cotangent.
 
 Cases: causal, causal with packed segment ids, segment ids with fully
-masked query rows (a query segment no key carries), and sq != sk.
+masked query rows (a query segment no key carries), and sq != sk; and
+``fused_attention``'s forward and backward at head dims 32, 80, 96 and
+256 (the kernels' widths and the ones they zero-pad) against the rows
+kernel, fp32 within 1e-4.
 Tolerances: fp32 2e-4 and bf16 4e-2, the bands of
 tests/test_attention_pallas.py's split-backward tests (the plain version
 takes D = rowsum(dO * O) from the forward output where the TPU kernel
@@ -124,6 +127,39 @@ def test_autograd_path_runs_the_split_backward(dtype):
         q, k, v, g, jdt)
     for leaf, w in zip(leaves, dense):
         _close(leaf.grad, w, tol)
+
+
+@pytest.mark.parametrize("d", [32, 80, 96, 256])
+def test_fused_attention_matches_the_rows_kernel_at_head_dims(d):
+    """The port's ``fused_attention`` (forward, and the backward through
+    autograd) against the JAX rows kernel in interpret mode with the split
+    backward (its dense path where ``supported`` refuses the shape), fp32
+    within 1e-4, on packed causal segments."""
+    b, h, s = 1, 2, 128
+    rs = np.random.RandomState(d)
+    q, k, v, g = (rs.randn(b, h, s, d).astype(np.float32) for _ in range(4))
+    ids = np.sort(rs.randint(0, 3, (b, s)), axis=1).astype(np.int32)
+    scale = 1.0 / np.sqrt(d)
+    jseg = (jnp.asarray(ids), jnp.asarray(ids))
+    if ap.supported(s, s, d):
+        def jfn(q_, k_, v_):
+            return ap.fused_attention_rows(q_, k_, v_, True, scale, jseg,
+                                           True, None, "split")
+    else:
+        def jfn(q_, k_, v_):
+            return jdense(q_, k_, v_, True, scale, jseg)
+    jo, vjp = jax.vjp(jfn, *(jnp.asarray(a) for a in (q, k, v)))
+    jgrads = vjp(jnp.asarray(g))
+
+    tseg = (torch.from_numpy(ids), torch.from_numpy(ids))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = tattn.fused_attention(*leaves, causal=True, segment_ids=tseg)
+    out.backward(torch.from_numpy(g))
+    assert out.shape == (b, h, s, d)
+    _close(out, jo, 1e-4)
+    for leaf, want in zip(leaves, jgrads):
+        assert leaf.grad.shape == (b, h, s, d)
+        _close(leaf.grad, want, 1e-4)
 
 
 def test_inputs_without_gradients_save_nothing():

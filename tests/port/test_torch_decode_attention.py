@@ -2,9 +2,10 @@
 behind the paged decode kernel) against the JAX package's
 decode_attention_reference and its Pallas kernel in interpret mode, on
 the same numpy inputs: lengths 0 / 1 / ps / ps+1 / a multi-page tail and
-a page table padded with null page 0. fp32 atol 1e-5 (same algorithm,
-summation order differs); bf16 atol 2e-2 (outputs are bf16: one ulp at
-|x| < 4 is 1.6e-2)."""
+a page table padded with null page 0, at head dims 16 to 512 (the
+kernels' buckets are 64, 128, 256 and 512; the plain version takes any).
+fp32 atol 1e-5 (same algorithm, summation order differs); bf16 atol 2e-2
+(outputs are bf16: one ulp at |x| < 4 is 1.6e-2)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,12 +23,12 @@ PS, H, D, PAGES, MAX_PAGES = 8, 2, 16, 12, 4
 LENGTHS = np.array([0, 1, PS, PS + 1, 2 * PS + 3], np.int32)
 
 
-def _inputs(seed):
+def _inputs(seed, d=D):
     rs = np.random.RandomState(seed)
     b = len(LENGTHS)
-    q = rs.randn(b, H, D).astype(np.float32)
-    kp = rs.randn(H, PAGES, PS, D).astype(np.float32)
-    vp = rs.randn(H, PAGES, PS, D).astype(np.float32)
+    q = rs.randn(b, H, d).astype(np.float32)
+    kp = rs.randn(H, PAGES, PS, d).astype(np.float32)
+    vp = rs.randn(H, PAGES, PS, d).astype(np.float32)
     # distinct live pages per slot, tails padded with the null page 0
     pt = np.zeros((b, MAX_PAGES), np.int32)
     nxt = 1
@@ -43,22 +44,24 @@ def _port(q, kp, vp, pt, dtype):
     out = tdap.decode_attention(
         torch.from_numpy(q).to(td), torch.from_numpy(kp).to(td),
         torch.from_numpy(vp).to(td), torch.from_numpy(pt),
-        torch.from_numpy(LENGTHS), sm_scale=D ** -0.5)
+        torch.from_numpy(LENGTHS), sm_scale=q.shape[-1] ** -0.5)
     assert out.dtype == td and tuple(out.shape) == q.shape
     return out.float().numpy()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("oracle", ["reference", "pallas_interpret"])
-def test_matches_jax(dtype, oracle):
-    q, kp, vp, pt = _inputs(0)
+@pytest.mark.parametrize("d", [D, 32, 80, 256, 512])
+def test_matches_jax(dtype, oracle, d):
+    q, kp, vp, pt = _inputs(0, d)
     jd = getattr(jnp, dtype)
     args = [jnp.asarray(x).astype(jd) for x in (q, kp, vp)] + [
         jnp.asarray(pt), jnp.asarray(LENGTHS)]
     if oracle == "reference":
-        ref = jdap.decode_attention_reference(*args, D ** -0.5)
+        ref = jdap.decode_attention_reference(*args, d ** -0.5)
     else:
-        ref = jdap.decode_attention_pallas(*args, D ** -0.5,
+        assert jdap.supported(H, PAGES, PS, d, jd)
+        ref = jdap.decode_attention_pallas(*args, d ** -0.5,
                                            interpret=True)
     ref = np.asarray(ref.astype(jnp.float32))
     out = _port(q, kp, vp, pt, dtype)

@@ -1,9 +1,17 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card, at edge shapes the chip smoke does not reach: ragged tiles, head
-dims 64 and 128, bf16/fp16/fp32, fully masked rows, lengths 0 / 1 /
-ps-1 / ps / ps+1 / full, unowned pages poisoned with NaN; layer norm at
-ragged row counts, hidden 64 / 768 / 1024 / 4096 / 8192, with and
-without affine; the prefill forward K1 and K1d in bf16 and fp16 (the
+dims 32 / 64 / 80 / 96 / 128 / 256 for the attention kernels (the
+widths between the kernels' 64, 128 and 256 zero-padded) and 32 / 64 /
+80 / 128 / 256 / 512 for decode, bf16/fp16/fp32, fully masked rows,
+lengths 0 / 1 / ps-1 / ps / ps+1 / full, unowned pages poisoned with
+NaN; the split-KV decode kernels K2/K2q at their split boundaries (sk -
+1, sk, sk + 1 keys, several splits a page), over fragmented page tables
+with out-of-range entries, element-by-element page copies, three runs
+equal bit for bit, and launches on two streams at once; layer norm at ragged row
+counts, hidden 64 / 768 / 1024 / 4096 / 8192 (the team body), 100 (not a
+multiple of 8), 12288 and 12800 (the row-per-block body, 12800 past its
+registers), with and without affine, and ``FusedLayerNorm((64, 200))``;
+the prefill forward K1 and K1d in bf16 and fp16 (the
 tensor-core body) over several ragged and exact tiles (300 x 300, 200 x
 333, 256 x 256) causal, segmented with a padded tail, with dropout and
 non-causal, two runs equal bit for bit, fp32 on its CUDA-core body (the
@@ -123,8 +131,15 @@ SOFTMAX_L2_TOL = {"bfloat16": 5e-4, "float16": 1.5e-4, "float32": 5e-7}
 # relative L2 of K2q's output against the plain version (fp32 inside both,
 # the same dequantized products in another order); on an H100
 # (tests/port/kernel_l2_errors.py) these cases measured at most 8.8e-9
-# (bf16), 1.8e-5 (fp16) and 1.7e-7 (fp32)
+# (bf16), 1.8e-5 (fp16) and 1.7e-7 (fp32) with the one-block-a-slot-head
+# kernel; K2 (bf16/fp16/fp32 pages) is held to the same band
 K2Q_L2_TOL = {"bfloat16": 1e-4, "float16": 1e-4, "float32": 1e-6}
+# the attention kernels' head dims: 64 and 128 native, 32 / 80 / 96
+# zero-padded to the next, 256 (K1 on the tensor cores, K5/K6 on the CUDA
+# cores for every dtype)
+ATTN_DIMS = [32, 64, 80, 96, 128, 256]
+# decode's: the buckets 64 / 128 / 256 / 512 and the widths between
+DECODE_DIMS = [32, 64, 80, 128, 256, 512]
 # (b, np, sq, sk): sk 128, 1024 and 4096 take 16-byte vectors (the three
 # register buckets), 200 and 3000 element loads
 SOFTMAX_SHAPES = [(2, 3, 64, 128), (2, 2, 37, 200), (1, 3, 48, 1024),
@@ -175,7 +190,7 @@ def _randn(gen, *shape, dtype, dev):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", ATTN_DIMS)
 @pytest.mark.parametrize("case", ["causal", "segments", "masked_row",
                                   "cross"])
 def test_prefill_kernel_matches_plain(dev, dtype, d, case):
@@ -214,7 +229,7 @@ def test_prefill_kernel_matches_plain(dev, dtype, d, case):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", DECODE_DIMS)
 @pytest.mark.parametrize("ps", [16, 128])
 def test_decode_kernel_matches_plain_and_reads_only_live_pages(dev, dtype,
                                                                d, ps):
@@ -256,9 +271,29 @@ def test_decode_kernel_matches_plain_and_reads_only_live_pages(dev, dtype,
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
-    q = torch.zeros(1, 2, 8, 32, device=dev, dtype=torch.bfloat16)
+    # head_dim 32 launches (zero-padded to 64) and agrees; past 256 (the
+    # prefill kernels) and 512 (decode) the wrappers refuse
+    gen = torch.Generator(device=dev).manual_seed(6)
+    q = _randn(gen, 1, 2, 8, 32, dtype=torch.bfloat16, dev=dev)
+    before = attention_cuda.prefill_attention.launches
+    out = attention_cuda.prefill_attention(q, q, q, causal=True,
+                                           sm_scale=32 ** -0.5)
+    assert attention_cuda.prefill_attention.launches == before + 1
+    assert out.shape == q.shape
+    ref = attention._dense_attention(q, q, q, True, 32 ** -0.5, None)
+    torch.cuda.synchronize()
+    _close_l2(out, ref, "bfloat16", K1_L2_TOL)
+    wide = torch.zeros(1, 2, 8, 264, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
-        attention_cuda.prefill_attention(q, q, q, causal=True, sm_scale=1.0)
+        attention_cuda.prefill_attention(wide, wide, wide, causal=True,
+                                          sm_scale=1.0)
+    wide_pages = torch.zeros(2, 4, 16, 520, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        decode_attention_cuda.decode_attention(
+            torch.zeros(1, 2, 520, device=dev, dtype=torch.bfloat16),
+            wide_pages, wide_pages,
+            torch.zeros(1, 4, dtype=torch.int32, device=dev),
+            torch.ones(1, dtype=torch.int32, device=dev), sm_scale=1.0)
     q64 = torch.zeros(1, 2, 8, 64, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="contiguous"):
         attention_cuda.prefill_attention(q64.transpose(1, 2), q64, q64,
@@ -288,7 +323,8 @@ def _close_l2(out, ref, dtype, tol=L2_TOL):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("hidden", [64, 768, 1024, 4096, 8192])
+@pytest.mark.parametrize("hidden", [64, 768, 1024, 4096, 8192, 100, 12288,
+                                    12800])
 @pytest.mark.parametrize("rows", [1, 37, 1000])
 @pytest.mark.parametrize("affine", [True, False])
 def test_layer_norm_kernels_match_plain(dev, dtype, hidden, rows, affine):
@@ -325,11 +361,12 @@ def test_layer_norm_kernels_match_plain(dev, dtype, hidden, rows, affine):
     _close_scaled(db_part.sum(0), rdb, 1e-4)
 
 
-def test_layer_norm_backward_is_deterministic(dev):
+@pytest.mark.parametrize("hidden", [768, 100, 12800])
+def test_layer_norm_backward_is_deterministic(dev, hidden):
     gen = torch.Generator(device=dev).manual_seed(3)
-    x = _randn(gen, 8192, 768, dtype=torch.bfloat16, dev=dev)
-    dy = _randn(gen, 8192, 768, dtype=torch.bfloat16, dev=dev)
-    w = torch.randn(768, generator=gen, device=dev)
+    x = _randn(gen, 8192, hidden, dtype=torch.bfloat16, dev=dev)
+    dy = _randn(gen, 8192, hidden, dtype=torch.bfloat16, dev=dev)
+    w = torch.randn(hidden, generator=gen, device=dev)
     _, mean, rstd = layer_norm_cuda.layer_norm_fwd(x, w, None, 1e-5)
     first = layer_norm_cuda.layer_norm_bwd(x, w, mean, rstd, dy)
     again = layer_norm_cuda.layer_norm_bwd(x, w, mean, rstd, dy)
@@ -350,6 +387,40 @@ def test_layer_norm_autograd_runs_the_kernels(dev):
             layer_norm_cuda.layer_norm_bwd.launches) == (before[0] + 1,
                                                          before[1] + 1)
     assert x.grad.dtype == torch.bfloat16 and w.grad.dtype == torch.float32
+
+
+def test_fused_layer_norm_over_two_axes_runs_the_kernels(dev):
+    """``FusedLayerNorm((64, 200))`` normalizes rows of 12800 (the
+    row-per-block body past its registers) through K3/K4 and agrees with
+    the plain versions, gradients included."""
+    from apex_tpu_torch.normalization import FusedLayerNorm
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = (torch.randn(6, 64, 200, generator=gen, device=dev) * 2 + 1).to(
+        torch.bfloat16)
+    dy = _randn(gen, 6, 64, 200, dtype=torch.bfloat16, dev=dev)
+    mod = FusedLayerNorm((64, 200), device=dev)
+    with torch.no_grad():
+        mod.weight.copy_(torch.randn(64, 200, generator=gen, device=dev))
+        mod.bias.copy_(torch.randn(64, 200, generator=gen, device=dev))
+    xg = x.clone().requires_grad_()
+    before = (layer_norm_cuda.layer_norm_fwd.launches,
+              layer_norm_cuda.layer_norm_bwd.launches)
+    y = mod(xg)
+    y.backward(dy)
+    assert (layer_norm_cuda.layer_norm_fwd.launches,
+            layer_norm_cuda.layer_norm_bwd.launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    w, b = mod.weight.reshape(-1), mod.bias.reshape(-1)
+    ry, rmean, rrstd = layer_norm.layer_norm_fwd(x.reshape(6, -1), w, b,
+                                                 1e-5)
+    rdx, rdw, rdb = layer_norm.layer_norm_bwd(x.reshape(6, -1), w, rmean,
+                                              rrstd, dy.reshape(6, -1))
+    torch.cuda.synchronize()
+    _close_l2(y.reshape(6, -1), ry, "bfloat16")
+    _close_l2(xg.grad.reshape(6, -1), rdx, "bfloat16")
+    _close_scaled(mod.weight.grad.reshape(-1), rdw, 1e-4)
+    _close_scaled(mod.bias.grad.reshape(-1), rdb, 1e-4)
 
 
 def _attn_case(dev, dtype, d, case, seed=5):
@@ -376,7 +447,7 @@ def _attn_case(dev, dtype, d, case, seed=5):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", ATTN_DIMS)
 @pytest.mark.parametrize("case", ["causal", "segments", "masked_row",
                                   "cross"])
 def test_attention_bwd_kernels_match_plain(dev, dtype, d, case):
@@ -429,7 +500,7 @@ def _tc_case(dev, dtype, d, sq, sk, case, seed=17):
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
 @pytest.mark.parametrize("shape", TC_SHAPES,
                          ids=[f"{a}x{b}" for a, b in TC_SHAPES])
 @pytest.mark.parametrize("case", ["causal", "segments", "dropout"])
@@ -481,7 +552,7 @@ def _k1(q, k, v, causal, scale, seg, sd, p=0.1):
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
 @pytest.mark.parametrize("shape", TC_SHAPES,
                          ids=[f"{a}x{b}" for a, b in TC_SHAPES])
 @pytest.mark.parametrize("case", ["causal", "segments", "dropout", "cross"])
@@ -609,26 +680,50 @@ def test_attention_bwd_refuses_unaligned_rows(dev):
                                          causal=True, sm_scale=1.0)
 
 
-def test_attention_autograd_runs_k1_k5_k6(dev):
-    q, k, v, do, causal, seg = _attn_case(dev, torch.bfloat16, 64, "causal")
-    q, k, v = (t.requires_grad_() for t in (q, k, v))
+@pytest.mark.parametrize("d", [64, 80, 256])
+def test_attention_autograd_runs_k1_k5_k6(dev, d):
+    """fused_attention with gradients: one K1, K5 and K6 launch each, and
+    at a padded head dim (80) or the CUDA-core backward's (256) the
+    gradients of the true head dim, within band of the plain backward."""
+    q, k, v, do, causal, seg = _attn_case(dev, torch.bfloat16, d, "causal")
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     counts = lambda: (attention_cuda.prefill_attention.launches,  # noqa: E731
                       attention_bwd_cuda.attention_bwd_dq.launches,
                       attention_bwd_cuda.attention_bwd_dkv.launches)
     before = counts()
-    o = attention.fused_attention(q, k, v, causal=True)
+    o = attention.fused_attention(*leaves, causal=True)
     o.backward(do)
     assert counts() == tuple(c + 1 for c in before)
-    assert q.grad.shape == q.shape and k.grad.dtype == torch.bfloat16
+    assert o.shape == q.shape
+    assert leaves[0].grad.shape == q.shape
+    assert leaves[1].grad.dtype == torch.bfloat16
+    ro = attention._dense_attention(q, k, v, True, d ** -0.5, None)
+    # the backward reads the forward's own o, as the plain one does here
+    ref = attention._attention_bwd_split(q, k, v, o.detach(), do, True,
+                                         d ** -0.5, None)
+    torch.cuda.synchronize()
+    _close_l2(o, ro, "bfloat16", K1_L2_TOL)
+    for leaf, r in zip(leaves, ref):
+        _close_scaled(leaf.grad, r, DTYPES["bfloat16"][1])
+        _close_l2(leaf.grad, r, "bfloat16")
 
 
 def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
-    x = torch.zeros(4, 12, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="hidden"):
-        layer_norm_cuda.layer_norm_fwd(x, None, None, 1e-5)
-    x = torch.zeros(4, 8200, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="hidden"):
-        layer_norm_cuda.layer_norm_fwd(x, None, None, 1e-5)
+    # widths 12 (not a multiple of 8) and 8200 (past the team body) launch
+    # and agree; a row of vectors off its 16-byte boundary is refused
+    gen = torch.Generator(device=dev).manual_seed(8)
+    for hidden in (12, 8200):
+        x = _randn(gen, 4, hidden, dtype=torch.bfloat16, dev=dev)
+        before = layer_norm_cuda.layer_norm_fwd.launches
+        y, _, _ = layer_norm_cuda.layer_norm_fwd(x, None, None, 1e-5)
+        assert layer_norm_cuda.layer_norm_fwd.launches == before + 1
+        ry, _, _ = layer_norm.layer_norm_fwd(x, None, None, 1e-5)
+        torch.cuda.synchronize()
+        _close_l2(y, ry, "bfloat16")
+    flat = torch.zeros(4 * 64 + 1, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        layer_norm_cuda.layer_norm_fwd(flat[1:].view(4, 64), None, None,
+                                       1e-5)
     q = torch.zeros(1, 2, 8, 64, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="do"):
         attention_bwd_cuda.attention_bwd(q, q, q, q, q[:, :1], causal=True,
@@ -875,7 +970,7 @@ def _drop_counts():
 
 @pytest.mark.parametrize("seed", DROPOUT_SEEDS)
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
 @pytest.mark.parametrize("case", ["causal", "segments"])
 def test_dropout_kernels_match_plain(dev, dtype, d, case, seed):
     torch_dtype, tol = DTYPES[dtype]
@@ -1003,7 +1098,7 @@ def _quant_pages(gen, h, pages, ps, d, dev):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", DECODE_DIMS)
 @pytest.mark.parametrize("ps", [16, 128])
 def test_int8_decode_kernel_matches_plain_and_reads_only_live_pages(
         dev, dtype, d, ps):
@@ -1055,6 +1150,119 @@ def test_int8_decode_kernel_matches_plain_and_reads_only_live_pages(
         q.float(), k8, v8, ks, vs, pt, lengths, sm_scale=d ** -0.5)
     torch.testing.assert_close(out32, same, atol=1e-5, rtol=0)
     assert (out[0] == 0).all(), "an inactive slot gives 0"
+
+
+# (dtype, d, ps) of the split cases: bf16 at the serving page (one split
+# a page), fp32 at d = 512 (16 keys a split: eight splits a page; K2q's
+# int8 pages take 64), bf16 at d = 80 in 48-key pages, and fp16 at d = 20
+# in 7-key pages, whose 280-byte (int8: 140) pages the threads copy
+# element by element
+SPLIT_CASES = [("bfloat16", 64, 128), ("float32", 512, 128),
+               ("bfloat16", 80, 48), ("float16", 20, 7)]
+
+
+def _split_case(dev, dtype, d, ps, quant, seed=21):
+    """Lengths at every split boundary of the plan (sk - 1, sk, sk + 1,
+    a page and a page's edges, the table's reach, past it), pages handed
+    out in a random order, and out-of-range entries in the longest slot's
+    table (one past P, one negative: both clamp)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    max_pages, h = 4, 3
+    elem = 1 if quant else torch.empty((), dtype=dtype).element_size()
+    _, sk, _ = decode_attention_cuda.plan(d, ps, max_pages, elem)
+    lengths_l = sorted({0, 1, max(1, sk - 1), sk, sk + 1, ps - 1, ps, ps + 1,
+                        2 * ps + sk, max_pages * ps, max_pages * ps + 50})
+    b = len(lengths_l)
+    pages = 4 + sum(min(max_pages, -(-n // ps)) for n in lengths_l)
+    q = _randn(gen, b, h, d, dtype=dtype, dev=dev)
+    if quant:
+        (kp, ks, _), (vp, vs, _) = (_quant_pages(gen, h, pages, ps, d, dev)
+                                    for _ in range(2))
+        scales = (ks, vs)
+    else:
+        kp, vp = (_randn(gen, h, pages, ps, d, dtype=dtype, dev=dev)
+                  for _ in range(2))
+        scales = (None, None)
+    perm = torch.randperm(pages - 1, generator=torch.Generator().manual_seed(
+        seed)) + 1
+    pt = torch.zeros(b, max_pages, dtype=torch.int32)
+    nxt = 0
+    for i, n in enumerate(lengths_l):
+        for j in range(min(max_pages, -(-n // ps))):
+            pt[i, j] = int(perm[nxt])
+            nxt += 1
+    pt[-1, 1], pt[-1, 2] = pages + 7, -4
+    lengths = torch.tensor(lengths_l, dtype=torch.int32, device=dev)
+    return q, kp, vp, scales, pt.to(dev), lengths, sk
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["k2", "k2q"])
+@pytest.mark.parametrize("case", SPLIT_CASES,
+                         ids=[f"{t}-d{d}-ps{p}" for t, d, p in SPLIT_CASES])
+def test_decode_splits_at_their_boundaries(dev, case, quant):
+    """K2/K2q against the plain version on the clamped table; three runs
+    (the tickets reset by each) give the same bits."""
+    dtype, d, ps = case
+    torch_dtype, tol = DTYPES[dtype]
+    tol = min(tol, 2e-2)
+    q, kp, vp, (ks, vs), pt, lengths, sk = _split_case(dev, torch_dtype, d,
+                                                       ps, quant)
+    scale = d ** -0.5
+    n_pages = kp.shape[1]
+    ref = decode_attention.decode_attention_reference(
+        q, kp, vp, pt.clamp(0, n_pages - 1), lengths, scale, ks, vs)
+
+    def run():
+        return decode_attention.decode_attention(q, kp, vp, pt, lengths,
+                                                 sm_scale=scale, k_scale=ks,
+                                                 v_scale=vs)
+
+    counter = (decode_attention_cuda.decode_attention_quant if quant
+               else decode_attention_cuda.decode_attention)
+    before = counter.launches
+    out, again, third = run(), run(), run()
+    assert counter.launches == before + 3
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+    _close_l2(out, ref, dtype, K2Q_L2_TOL)
+    assert (out[0] == 0).all(), "an inactive slot gives 0"
+    for other in (again, third):
+        assert torch.equal(out, other)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["k2", "k2q"])
+def test_decode_on_two_streams_at_once(dev, quant):
+    """K2/K2q launched in turns on two streams that run side by side, each
+    stream over its own inputs: every output equals the one a launch on
+    the default stream gives, so the launches of one stream never take
+    the other's tickets."""
+    cases = [_split_case(dev, torch.bfloat16, 64, 128, quant, seed=s)
+             for s in (31, 32)]
+
+    def run(case):
+        q, kp, vp, (ks, vs), pt, lengths, _ = case
+        return decode_attention.decode_attention(q, kp, vp, pt, lengths,
+                                                 sm_scale=0.125, k_scale=ks,
+                                                 v_scale=vs)
+
+    want = [run(c) for c in cases]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(device=dev) for _ in cases]
+    outs = [[], []]
+    for _ in range(20):
+        for i, (c, st) in enumerate(zip(cases, streams)):
+            with torch.cuda.stream(st):
+                outs[i].append(run(c))
+    torch.cuda.synchronize()
+    for i, c in enumerate(cases):
+        q, kp, vp, (ks, vs), pt, lengths, _ = c
+        ref = decode_attention.decode_attention_reference(
+            q, kp, vp, pt.clamp(0, kp.shape[1] - 1), lengths, 0.125, ks, vs)
+        torch.testing.assert_close(want[i].float(), ref.float(), atol=2e-2,
+                                   rtol=0)
+        for o in outs[i]:
+            assert torch.equal(o, want[i])
 
 
 def test_int8_decode_wrapper_refuses_what_the_kernel_does_not_take(dev):

@@ -261,8 +261,8 @@ def test_scatters_with_duplicate_page0_rows_are_order_free():
     assert (a["k"][:, :, 0] == 0).all()
 
 
-def _attn_data(seed=3, dtype=np.float32):
-    B, H, P, PS, D, MAXP = 4, 4, 16, 32, 64, 4
+def _attn_data(seed=3, dtype=np.float32, D=64):
+    B, H, P, PS, MAXP = 4, 4, 16, 32, 4
     rs = np.random.RandomState(seed)
     q = rs.randn(B, H, D).astype(dtype)
     kf = rs.randn(H, P, PS, D).astype(np.float32)
@@ -285,8 +285,9 @@ def _t(x):
     return torch.from_numpy(x.copy())
 
 
-def test_decode_attention_over_int8_pages_matches_jax():
-    q, k8, v8, ks, vs, pt, lens, sm = _attn_data()
+@pytest.mark.parametrize("d", [64, 32, 80, 256, 512])
+def test_decode_attention_over_int8_pages_matches_jax(d):
+    q, k8, v8, ks, vs, pt, lens, sm = _attn_data(D=d)
     args = [jnp.asarray(x) for x in (q, k8, v8, pt, lens)]
     jref = dap.decode_attention_reference(*args, sm, k_scale=jnp.asarray(ks),
                                           v_scale=jnp.asarray(vs))

@@ -100,7 +100,8 @@ def test_autograd_function_matches_jax_vjp(dtype):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("shape", [(4, 6, 64), (3, 5, 768)])
+@pytest.mark.parametrize("shape", [(4, 6, 64), (3, 5, 768), (2, 3, 100),
+                                   (2, 12288)])
 def test_fused_layer_norm_module_matches_jax_module(dtype, shape):
     jdt, tdt, tol = DTYPES[dtype]
     hidden = shape[-1]
@@ -143,26 +144,28 @@ def test_no_affine_and_multi_axis_match_the_jnp_path():
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-def test_multi_axis_affine_matches_the_jnp_path_with_gradients(dtype):
-    """Two normalized axes run as rows of width 6 * 32 (weight and bias
-    flattened alike) and match the JAX jnp path and its gradients."""
+@pytest.mark.parametrize("norm", [(6, 32), (64, 200)])
+def test_multi_axis_affine_matches_the_jnp_path_with_gradients(dtype, norm):
+    """Two normalized axes run as rows of width 6 * 32, or 64 * 200 =
+    12800 (weight and bias flattened alike) and match the JAX jnp path
+    and its gradients."""
     jdt, tdt, tol = DTYPES[dtype]
     rs = np.random.RandomState(4)
-    x = (rs.randn(4, 6, 32) * 2 + 1).astype(np.float32)
-    dy = rs.randn(4, 6, 32).astype(np.float32)
-    w = (rs.rand(6, 32) + 0.5).astype(np.float32)
-    b = rs.randn(6, 32).astype(np.float32)
+    x = (rs.randn(4, *norm) * 2 + 1).astype(np.float32)
+    dy = rs.randn(4, *norm).astype(np.float32)
+    w = (rs.rand(*norm) + 0.5).astype(np.float32)
+    b = rs.randn(*norm).astype(np.float32)
     jy, vjp = jax.vjp(
-        lambda x_, w_, b_: jfused_layer_norm(x_, (6, 32), w_, b_, 1e-5),
+        lambda x_, w_, b_: jfused_layer_norm(x_, norm, w_, b_, 1e-5),
         _j(x, jdt), _j(w), _j(b))
     jdx, jdw, jdb = vjp(_j(dy, jdt))
 
     tx = _t(x, tdt).requires_grad_()
     tw, tb = _t(w).requires_grad_(), _t(b).requires_grad_()
-    ty = fused_layer_norm(tx, (6, 32), tw, tb, 1e-5)
+    ty = fused_layer_norm(tx, norm, tw, tb, 1e-5)
     ty.backward(_t(dy, tdt))
     assert ty.dtype == tdt and ty.shape == tx.shape
-    assert tw.grad.shape == tb.grad.shape == (6, 32)
+    assert tw.grad.shape == tb.grad.shape == norm
     _close(ty, jy, tol)
     _close(tx.grad.float(), jdx, tol, scale=True)
     _close(tw.grad, jdw, 1e-5, scale=True)

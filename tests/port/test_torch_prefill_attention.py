@@ -3,6 +3,9 @@ prefill kernel) against the JAX package's fused_attention on the same
 numpy inputs — causal, packed segments with padding, and a fully masked
 row. fp32 atol 1e-5 (same algorithm, summation order differs); bf16 atol
 2e-2 (outputs are bf16: half an ulp at |x| < 4 is 7.8e-3, on each side).
+And the head-dim pad the card path takes (``_kernel_head_dim``,
+``_pad_head_dim``): the plain attention of zero-padded q, k, v, sliced
+back, is the unpadded one.
 """
 
 import jax.numpy as jnp
@@ -69,6 +72,55 @@ def test_fully_masked_row_gives_zero(dtype):
     ref, out = _run_both(q, k, v, dtype, False, (seg_q, seg_kv))
     np.testing.assert_allclose(out, ref, atol=TOL[dtype])
     assert (out[:, :, 4] == 0).all() and (ref[:, :, 4] == 0).all()
+
+
+@pytest.mark.parametrize("d,width", [(1, 64), (32, 64), (64, 64),
+                                     (80, 128), (96, 128), (128, 128),
+                                     (200, 256), (256, 256)])
+def test_kernel_head_dim_is_the_next_kernel_width(d, width):
+    assert tattn._kernel_head_dim(d) == width
+    t = torch.ones(2, 3, d)
+    padded = tattn._pad_head_dim(t, width)
+    assert padded.shape == (2, 3, width) and padded.is_contiguous()
+    assert torch.equal(padded[..., :d], t) and (padded[..., d:] == 0).all()
+    assert tattn._pad_head_dim(t, d) is t
+    assert torch.equal(tattn._slice_head_dim(padded, d), t)
+
+
+def test_kernel_head_dim_refuses_past_256():
+    with pytest.raises(ValueError, match="head_dim 257"):
+        tattn._kernel_head_dim(257)
+
+
+@pytest.mark.parametrize("d", [32, 80, 96, 200])
+def test_head_dim_pad_is_exact(d):
+    """Zero-padded to the kernel's width with the scale of the true head
+    dim, the plain forward, sliced back, equals the unpadded one bit for
+    bit, and so does dv; the padded columns of the output and of every
+    gradient are exact zeros. dq and dk agree within 4 fp32 ulps of their
+    scale: both sides form D = rowsum(dO * O) over the row, and the CPU
+    sums 80 terms and 128 (80 and 48 zeros) in another vector order."""
+    rs = np.random.RandomState(d)
+    q, k, v, g = (torch.from_numpy(rs.randn(2, 3, 40, d).astype(np.float32))
+                  for _ in range(4))
+    seg_ids = torch.from_numpy(np.sort(rs.randint(0, 3, (2, 40)), axis=1)
+                               .astype(np.int32))
+    seg = (seg_ids, seg_ids)
+    width = tattn._kernel_head_dim(d)
+    scale = d ** -0.5
+    pq, pk, pv, pg = (tattn._pad_head_dim(t, width) for t in (q, k, v, g))
+    o = tattn._dense_attention(q, k, v, True, scale, seg)
+    po = tattn._dense_attention(pq, pk, pv, True, scale, seg)
+    assert torch.equal(po[..., :d], o) and (po[..., d:] == 0).all()
+    grads = tattn._attention_bwd_split(q, k, v, o, g, True, scale, seg)
+    pgrads = tattn._attention_bwd_split(pq, pk, pv, po, pg, True, scale, seg)
+    for name, got, want in zip("qkv", pgrads, grads):
+        assert (got[..., d:] == 0).all(), f"d{name} padded columns"
+        if name == "v":
+            assert torch.equal(got[..., :d], want)
+        else:
+            atol = 4 * 2.0 ** -23 * want.abs().max().item()
+            torch.testing.assert_close(got[..., :d], want, atol=atol, rtol=0)
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():

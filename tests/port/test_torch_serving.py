@@ -30,6 +30,7 @@ from apex_tpu.serving import model as jmodel
 from apex_tpu.serving import scheduler as jsched
 from apex_tpu.transformer.testing import TransformerConfig as JConfig
 from apex_tpu_torch import _env
+from apex_tpu_torch.ops import decode_attention_cuda
 from apex_tpu_torch.serving import ServingEngine as TEngine
 from apex_tpu_torch.serving import kv_cache as tkv
 from apex_tpu_torch.serving import lifecycle as tlife
@@ -314,6 +315,20 @@ def test_engine_matches_jax_token_for_token_fp32(jax_tree):
         == (je.prefill_batches, je.decode_steps, je.tokens_generated)
     assert te.events.validate_order() == []
     assert te.allocator.free_count == ENGINE["num_pages"] - 1
+
+
+def test_serving_config_takes_head_dim_80_and_refuses_past_256():
+    """head_dim 80 (GPT-3 2.7B's) serves; past 256, the prefill kernels'
+    limit, the config is refused before any forward (decode's own limit,
+    512, is its wrapper's)."""
+    base = dict(hidden_size=160, num_layers=1, num_attention_heads=2,
+                vocab_size=64, max_position_embeddings=32, hidden_dropout=0.0,
+                attention_dropout=0.0, apply_query_key_layer_scaling=False)
+    tmodel.check_serving_config(TConfig(**base))
+    assert TConfig(**base).head_dim == 80
+    with pytest.raises(ValueError, match="head_dim 264"):
+        tmodel.check_serving_config(TConfig(**dict(base, kv_channels=264)))
+    assert decode_attention_cuda.MAX_HEAD_DIM == 512
 
 
 def test_engine_front_door_matches_jax():

@@ -168,6 +168,30 @@ def test_loss_logits_and_every_gradient_match_jax_fp32(jax_tree):
         _close_scaled(p.grad, flat[name], 1e-4, name)
 
 
+def test_head_dim_80_matches_jax_fp32():
+    """GPT-3 2.7B's head dim (80, hidden 160 over two heads here): the
+    port's loss and every gradient against the JAX model, fp32 within
+    1e-4. On the card its attention runs zero-padded to 128."""
+    kw = dict(KW, hidden_size=160, num_attention_heads=2)
+    assert TConfig(**kw).head_dim == 80
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("APEX_DISPATCH", "off")
+        tree = jax.tree_util.tree_map(
+            np.asarray, jserving.init_gpt_params(JConfig(**kw)))
+    ids, pos, labels = _batch(kw=kw)
+    jm = JGPT(JConfig(**kw))
+    loss_j, grads_j = _shmap(lambda p, i, q, lab: jax.value_and_grad(
+        lambda p_: jnp.mean(jm.apply({"params": p_}, i, q, None, lab)))(p),
+        4)(tree, ids, pos, labels)
+    model = _torch_model(tree, kw=kw)
+    loss = model(*_tt(ids, pos), None, _tt(labels)[0]).mean()
+    loss.backward()
+    _close_scaled(loss, loss_j, 1e-5, "loss")
+    flat = _flat_jax(grads_j)
+    for name, p in model.named_parameters():
+        _close_scaled(p.grad, flat[name], 1e-4, name)
+
+
 @pytest.mark.parametrize("smoothing", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cross_entropy_matches_jax(dtype, smoothing):
@@ -384,6 +408,7 @@ def test_step_never_reads_a_device_value_on_the_host(jax_tree, monkeypatch):
     (dict(recompute_granularity="layer"), "recompute"),
     (dict(num_moe_experts=4), "MoE"),
     (dict(sequence_parallel=True), "sequence"),
+    (dict(kv_channels=264), "head_dim 264"),
 ])
 def test_gpt_model_refuses_what_the_slice_does_not_model(change, match):
     with pytest.raises(ValueError, match=match):
