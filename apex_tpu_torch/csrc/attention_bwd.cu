@@ -62,6 +62,14 @@
 //    (P^T mscale) dO and dk += dS^T Q. Its q tiles are 64 rows at D = 64
 //    and 32 at D = 128, so the four accumulators stay in registers. The
 //    next q tile's row statistics are read into registers a tile ahead.
+//  - At D = 256 a 64 x 256 fp32 accumulator takes 128 registers a thread
+//    of a warpgroup, so one warpgroup holds one, and a block takes ~190
+//    KB of shared memory: one block an SM, of two warpgroups. K5 gives
+//    each warpgroup 64 q rows over shared 32-key tiles (S and dP 16
+//    registers each beside dq) and adds dS K as two m64n128 halves; K6
+//    (attention_bwd_dkv_tc2) walks 64-row q tiles, warpgroup 0 forming
+//    S^T, P and dv, warpgroup 1 S^T, dP^T, dS and dk (244-252 registers,
+//    no spills; 12% faster than 32-row tiles, PERF.md section 6).
 // The score products read both operands from shared memory, K-major. P and
 // dS go from the accumulators straight into the A registers of the next
 // product: wgmma's accumulator layout is, element for element, its register
@@ -81,15 +89,12 @@
 // ahead of the element-wise work of the tile before.
 //
 // fp32 stays on the CUDA cores (the *_simt kernels below, 64-row blocks,
-// four threads a row, fp32 FMAs, tiles in dynamic shared memory). On the
-// tensor cores fp32 would run as TF32, which keeps 10 mantissa bits and
-// cannot hold fp32's 5e-6 relative L2 against the plain version; no
-// training window runs attention in fp32. At D = 256 every dtype runs the
-// *_simt kernels: one warpgroup's dk and dv accumulators would need 256
-// registers a thread. There a block keeps its own 64 rows (Q and dO for
-// K5, K and V for K6) in shared memory rather than registers, and for bf16
-// and fp16 dS and P are rounded to the input dtype before their products,
-// as the tensor-core kernels round them.
+// four threads a row, fp32 FMAs, tiles in dynamic shared memory), at every
+// head dim; they are instantiated for fp32 only. On the tensor cores fp32
+// would run as TF32, which keeps 10 mantissa bits and cannot hold fp32's
+// 5e-6 relative L2 against the plain version; no training window runs
+// attention in fp32. At D = 256 a block keeps its own 64 rows (Q and dO
+// for K5, K and V for K6) in shared memory rather than registers.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -527,11 +532,19 @@ attention_bwd_dkv_simt(const T* __restrict__ q, const T* __restrict__ k,
 constexpr int TC_THREADS = 128;   // four warps; warp w owns rows 16w..16w+15
 constexpr int TC_ROWS = 64;       // q rows of a K5 block, k rows of a K6 block
 static_assert(TC_ROWS == ROWS, "both bodies tile 64 rows: one grid size");
-constexpr int K5_KEYS = 64;       // keys per K5 tile
+// keys per K5 tile: 32 at D = 256 keeps S and dP at 16 registers a thread
+// beside dq's 128
+template <int D> __host__ __device__ constexpr int k5_keys() {
+  return D == 256 ? 32 : 64;
+}
 // queries per K6 tile: 32 at D = 128 keeps dk, dv, S^T and dP^T in registers
 template <int D> __host__ __device__ constexpr int k6_queries() {
   return D == 64 ? 64 : 32;
 }
+// K6 at D = 256: two warpgroups, dv in one and dk in the other (each 128
+// registers a thread), over 64-row q tiles
+constexpr int K6W_THREADS = 2 * TC_THREADS;
+constexpr int K6W_QUERIES = 64;
 
 // wgmma.mma_async m64nNk16 with fp32 accumulators: d (64 x N) += a b. The
 // four warps of the warpgroup each hold 16 rows of d in the m16n8 C layout:
@@ -710,15 +723,16 @@ __device__ __forceinline__ uint32_t sw(int r, int c) {
   return (uint32_t)((c >> 3) * (R * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4));
 }
 
-// rows [r0, r0 + R) of a [S, D] slab into a swizzled tile, zeros past S
-template <int R, int D, typename T>
+// rows [r0, r0 + R) of a [S, D] slab into a swizzled tile, zeros past S,
+// by the NT threads of the block
+template <int R, int D, int NT = TC_THREADS, typename T>
 __device__ __forceinline__ void tile_async(uint32_t dst, const T* slab, int r0,
                                            int S) {
   constexpr int C = D / 8;
-  static_assert(R * C % TC_THREADS == 0, "tile split");
+  static_assert(R * C % NT == 0, "tile split");
 #pragma unroll
-  for (int i = 0; i < R * C / TC_THREADS; ++i) {
-    const int e = threadIdx.x + i * TC_THREADS;
+  for (int i = 0; i < R * C / NT; ++i) {
+    const int e = threadIdx.x + i * NT;
     const int r = e / C, c = e % C;
     const bool ok = r0 + r < S;
     cp_async16(dst + sw<R>(r, c), slab + (size_t)(ok ? r0 + r : 0) * D + 8 * c,
@@ -750,14 +764,26 @@ __device__ __forceinline__ void wg_abt(float (&out)[N / 8][4], uint32_t a,
 
 // issue acc (64 x D) += F B over k = K: F register fragments (the warp's 16
 // rows x K), B a [K, D] tile read MN-major (k step kk is 16 rows, 2048
-// bytes, on; LBO the panel stride, from columns 0-63 to 64-127)
+// bytes, on; LBO the panel stride, from columns 0-63 to 64-127). At D = 256
+// two m64n128 halves: columns 0-127 from panels 0-1, 128-255 from 2-3.
 template <typename T, int K, int D>
 __device__ __forceinline__ void wg_fb(float (&acc)[D / 8][4],
                                       const uint32_t (&f)[K / 16][4],
                                       uint32_t b) {
+  if constexpr (D == 256) {
+    auto& lo = *reinterpret_cast<float (*)[16][4]>(&acc[0][0]);
+    auto& hi = *reinterpret_cast<float (*)[16][4]>(&acc[16][0]);
 #pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk)
-    Tc<T>::template rs<D>(acc, f[kk], desc128(b + kk * 2048, K * 128), 1);
+    for (int kk = 0; kk < K / 16; ++kk) {
+      Tc<T>::template rs<128>(lo, f[kk], desc128(b + kk * 2048, K * 128), 1);
+      Tc<T>::template rs<128>(
+          hi, f[kk], desc128(b + 2 * K * 128 + kk * 2048, K * 128), 1);
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < K / 16; ++kk)
+      Tc<T>::template rs<D>(acc, f[kk], desc128(b + kk * 2048, K * 128), 1);
+  }
 }
 
 // an accumulator (16 x N, fp32) rounded to T as the A fragments of the next
@@ -791,14 +817,24 @@ __device__ __forceinline__ void store_rows(T* slab, const float (&acc)[D / 8][4]
 }
 
 // blocks an SM holds: three at D = 64 (at most 168 registers a thread), two
-// at D = 128, whose accumulators would spill under that cap
+// at D = 128, whose accumulators would spill under that cap, one at D = 256
+// (~190 KB of tiles)
 template <int D> __host__ __device__ constexpr int tc_blocks() {
-  return D == 64 ? 3 : 2;
+  return D == 64 ? 3 : D == 128 ? 2 : 1;
+}
+
+// warpgroups of a K5 block, each owning 64 q rows: two at D = 256, where
+// one block fills an SM, so that one's exponentials overlap the other's
+// products on the K and V tiles they share
+template <int D> __host__ __device__ constexpr int k5_warpgroups() {
+  return D == 256 ? 2 : 1;
 }
 
 template <int D> constexpr int k5_smem() {
-  // Q, dO, K x 2, V x 2; key segment ids x 2; D per row; 1 KB of alignment
-  return 6 * TC_ROWS * D * 2 + 2 * K5_KEYS * 4 + TC_ROWS * 4 + 1024;
+  // Q and dO a warpgroup, K x 2, V x 2; key segment ids x 2; D per row; 1
+  // KB of alignment
+  return k5_warpgroups<D>() * (2 * TC_ROWS * D * 2 + TC_ROWS * 4) +
+         4 * k5_keys<D>() * D * 2 + 2 * k5_keys<D>() * 4 + 1024;
 }
 template <int D> constexpr int k6_smem() {
   // K, V, Q x 2, dO x 2; per query m, 1/l, D, segment id, dropout key x 2
@@ -810,9 +846,11 @@ __device__ __forceinline__ unsigned char* align1k(unsigned char* p) {
   return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
-// K5: dq plus the row statistics (m, l, D) of one 64-row q tile
+// K5: dq plus the row statistics (m, l, D) of one 64-row q tile a
+// warpgroup
 template <typename T, int D, bool DROPOUT>
-__global__ void __launch_bounds__(TC_THREADS, tc_blocks<D>())
+__global__ void __launch_bounds__(TC_THREADS * k5_warpgroups<D>(),
+                                  tc_blocks<D>())
 attention_bwd_dq_tc(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ o,
                     const T* __restrict__ dout, const int* __restrict__ seg_q,
@@ -821,27 +859,37 @@ attention_bwd_dq_tc(const T* __restrict__ q, const T* __restrict__ k,
                     float* __restrict__ m_out, float* __restrict__ l_out,
                     float* __restrict__ d_out, int H, int Sq, int Sk,
                     float scale, int causal, unsigned thresh, float mscale) {
-  constexpr int BK = K5_KEYS;
-  constexpr uint32_t TB = TC_ROWS * D * 2;
+  constexpr int BK = k5_keys<D>(), WGS = k5_warpgroups<D>();
+  constexpr int NT = TC_THREADS * WGS, ROWS_B = TC_ROWS * WGS;
+  constexpr uint32_t TB = TC_ROWS * D * 2, KB = BK * D * 2;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1k(smem_raw);
-  const uint32_t sQ = smem_u32(smem), sDO = sQ + TB, sK = sDO + TB,
-                 sV = sK + 2 * TB;
-  int* segk = reinterpret_cast<int*>(smem + 6 * TB);          // [2][BK]
-  float* drow_s = reinterpret_cast<float*>(segk + 2 * BK);    // [TC_ROWS]
+  // Q and dO: one 64-row tile a warpgroup
+  const uint32_t sQ = smem_u32(smem), sDO = sQ + WGS * TB,
+                 sK = sDO + WGS * TB, sV = sK + 2 * KB;
+  int* segk = reinterpret_cast<int*>(smem + 2 * WGS * TB + 4 * KB);  // [2][BK]
+  float* drow_s = reinterpret_cast<float*>(segk + 2 * BK);  // [ROWS_B]
 
   const int bh = blockIdx.x, b = bh / H;
   // the q tiles with the most keys under the causal mask go first
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_ROWS;
-  const int tid = threadIdx.x, lane = tid & 31, r0 = (tid >> 5) * 16;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * ROWS_B;
+  const int tid = threadIdx.x, lane = tid & 31;
+  // the warpgroup, made warp-uniform for the compiler, and its rows
+  const int wg = WGS == 1 ? 0 : __shfl_sync(FULL, tid / TC_THREADS, 0);
+  const int r0 = ((tid % TC_THREADS) >> 5) * 16, q0w = q0 + wg * TC_ROWS;
   const size_t qoff = (size_t)bh * Sq * D, koff = (size_t)bh * Sk * D;
   const bool has_seg = seg_kv != nullptr;
-  const int n_kt = ((causal ? min(Sk, q0 + TC_ROWS) : Sk) + BK - 1) / BK;
+  const int n_kt = ((causal ? min(Sk, q0 + ROWS_B) : Sk) + BK - 1) / BK;
   const int n_it = 2 * n_kt;   // sweep 1 (m, l), then sweep 2 (dq)
+  const uint32_t sq = sQ + wg * TB, sdo = sDO + wg * TB;
 
-  tile_async<TC_ROWS, D>(sQ, q + qoff, q0, Sq);
-  tile_async<TC_ROWS, D>(sDO, dout + qoff, q0, Sq);
-  tile_async<BK, D>(sK, k + koff, 0, Sk);
+#pragma unroll
+  for (int w = 0; w < WGS; ++w) {
+    tile_async<TC_ROWS, D, NT>(sQ + w * TB, q + qoff, q0 + w * TC_ROWS, Sq);
+    tile_async<TC_ROWS, D, NT>(sDO + w * TB, dout + qoff, q0 + w * TC_ROWS,
+                               Sq);
+  }
+  tile_async<BK, D, NT>(sK, k + koff, 0, Sk);
   if (tid < BK)
     segk[tid] = (has_seg && tid < Sk) ? seg_kv[(size_t)b * Sk + tid] : 0;
   cp_async_commit();
@@ -869,10 +917,14 @@ attention_bwd_dq_tc(const T* __restrict__ q, const T* __restrict__ k,
   int seg_row[2] = {0, 0};
   unsigned rowkey[2] = {0u, 0u};
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float linv[2] = {0.f, 0.f}, drow[2] = {0.f, 0.f}, mlog2[2] = {0.f, 0.f};
+  float drow[2] = {0.f, 0.f};
+  // after sweep 1, m and l are written out and their registers hold m log2 e
+  // and 1 / l (or 0): the D = 256 body has no registers to spare
+  float (&mlog2)[2] = m;
+  float (&linv)[2] = l;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    qi[i] = q0 + r0 + (lane >> 2) + 8 * i;
+    qi[i] = q0w + r0 + (lane >> 2) + 8 * i;
     if (has_seg && qi[i] < Sq) seg_row[i] = seg_q[(size_t)b * Sq + qi[i]];
     if constexpr (DROPOUT) rowkey[i] = fmix32(head_key(seed, bh) ^ (unsigned)qi[i]);
   }
@@ -887,8 +939,8 @@ attention_bwd_dq_tc(const T* __restrict__ q, const T* __restrict__ k,
     if (it + 1 < n_it) {   // the next tile into the other stage
       const bool nx2 = it + 1 >= n_kt;
       const int nk0 = (nx2 ? it + 1 - n_kt : it + 1) * BK;
-      tile_async<BK, D>(sK + (st ^ 1) * TB, k + koff, nk0, Sk);
-      if (nx2) tile_async<BK, D>(sV + (st ^ 1) * TB, v + koff, nk0, Sk);
+      tile_async<BK, D, NT>(sK + (st ^ 1) * KB, k + koff, nk0, Sk);
+      if (nx2) tile_async<BK, D, NT>(sV + (st ^ 1) * KB, v + koff, nk0, Sk);
       if (tid < BK)
         segk[(st ^ 1) * BK + tid] = (has_seg && nk0 + tid < Sk)
                                         ? seg_kv[(size_t)b * Sk + nk0 + tid] : 0;
@@ -900,113 +952,114 @@ attention_bwd_dq_tc(const T* __restrict__ q, const T* __restrict__ k,
     const bool sweep2 = it >= n_kt;
     const int k0 = (sweep2 ? it - n_kt : it) * BK;
     const int* sg = segk + st * BK;
-
-    // S = Q K^T; in sweep 2 also dP = dO V^T
-    float s[BK / 8][4], dp[BK / 8][4];
-    wg_fence();
-    wg_abt<T, BK, D>(s, sQ, sK + st * TB);
-    if (sweep2) wg_abt<T, BK, D>(dp, sDO, sV + st * TB);
-    wg_commit();
-    wg_wait();
-    fence_acc(s);
-    fence_acc(dp);
-    // only the diagonal, ragged or segmented tiles have masked pairs
-    const bool edge = has_seg || k0 + BK > Sk || q0 + TC_ROWS > Sq ||
-                      (causal && k0 + BK - 1 > q0);
-    auto elementwise = [&](auto edge_tag) {
-      constexpr bool EDGE = decltype(edge_tag)::value;
-      auto masked = [&](int i, int j, int e) {
-        if constexpr (!EDGE) {
-          return false;
-        } else {
-          const int c = 8 * j + 2 * (lane & 3) + (e & 1), kj = k0 + c;
-          return qi[i] >= Sq || kj >= Sk || (causal && kj > qi[i]) ||
-                 (has_seg && sg[c] != seg_row[i]);
-        }
-      };
-      if (!sweep2) {   // online row max and sum
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          float tmax = -INFINITY;
-#pragma unroll
-          for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int e = 2 * i + h;
-              s[j][e] = masked(i, j, e) ? -INFINITY : s[j][e] * scale;
-              tmax = fmaxf(tmax, s[j][e]);
-            }
-          const float m_new = fmaxf(m[i], row_max4(tmax));
-          const float alpha =
-              (m_new == -INFINITY) ? 1.f : ex2((m[i] - m_new) * LOG2E);
-          const float mlog = m_new * LOG2E;
-          float psum = 0.f;
-#pragma unroll
-          for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const float x = s[j][2 * i + h];
-              if (EDGE && x == -INFINITY) continue;
-              psum += ex2(fmaf(x, LOG2E, -mlog));
-            }
-          l[i] = l[i] * alpha + row_sum4(psum);
-          m[i] = m_new;
-        }
-      } else {   // P, dS
-        const float c2 = scale * LOG2E;
-#pragma unroll
-        for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int i = e >> 1;
-            const bool mk = masked(i, j, e);
-            const float p =
-                mk ? 0.f : ex2(fminf(fmaf(s[j][e], c2, -mlog2[i]), 0.f)) * linv[i];
-            float dpm = dp[j][e];
-            if constexpr (DROPOUT) {   // the replayed mask; masked pairs draw nothing
-              const unsigned kj = (unsigned)(k0 + 8 * j + 2 * (lane & 3) + (e & 1));
-              dpm *= (!mk && fmix32(rowkey[i] ^ kj) >= thresh) ? mscale : 0.f;
-            }
-            dp[j][e] = p * (dpm - drow[i]) * scale;
-          }
-      }
-    };
-    if (edge) elementwise(std::true_type());
-    else elementwise(std::false_type());
-
-    if (!sweep2) {
-      if (it == n_kt - 1) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          if (l[i] == 0.f) m[i] = -FLT_MAX;    // fully masked row: finfo.min
-          linv[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;
-          mlog2[i] = m[i] * LOG2E;
-          drow[i] = drow_s[r0 + (lane >> 2) + 8 * i];
-        }
-      }
-    } else {   // dq += dS K
-      uint32_t f[BK / 16][4];
-      to_frags<T, BK>(dp, f);            // dS rounded to T
+    // a key tile wholly above a warpgroup's diagonal holds no live pair of
+    // its rows (the lower warpgroup's last tiles): it skips it, and its
+    // rows take the tiles the one-warpgroup body would, in the same order
+    const bool live = WGS == 1 || !causal || k0 < q0w + TC_ROWS;
+    if (live) {
+      // S = Q K^T; in sweep 2 also dP = dO V^T
+      float s[BK / 8][4], dp[BK / 8][4];
       wg_fence();
-      wg_fb<T, BK, D>(acc, f, sK + st * TB);
+      wg_abt<T, BK, D>(s, sq, sK + st * KB);
+      if (sweep2) wg_abt<T, BK, D>(dp, sdo, sV + st * KB);
       wg_commit();
       wg_wait();
-      fence_acc(acc);
+      fence_acc(s);
+      fence_acc(dp);
+      // only the diagonal, ragged or segmented tiles have masked pairs
+      const bool edge = has_seg || k0 + BK > Sk || q0w + TC_ROWS > Sq ||
+                        (causal && k0 + BK - 1 > q0w);
+      auto elementwise = [&](auto edge_tag) {
+        constexpr bool EDGE = decltype(edge_tag)::value;
+        auto masked = [&](int i, int j, int e) {
+          if constexpr (!EDGE) {
+            return false;
+          } else {
+            const int c = 8 * j + 2 * (lane & 3) + (e & 1), kj = k0 + c;
+            return qi[i] >= Sq || kj >= Sk || (causal && kj > qi[i]) ||
+                   (has_seg && sg[c] != seg_row[i]);
+          }
+        };
+        if (!sweep2) {   // online row max and sum
+  #pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            float tmax = -INFINITY;
+  #pragma unroll
+            for (int j = 0; j < BK / 8; ++j)
+  #pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int e = 2 * i + h;
+                s[j][e] = masked(i, j, e) ? -INFINITY : s[j][e] * scale;
+                tmax = fmaxf(tmax, s[j][e]);
+              }
+            const float m_new = fmaxf(m[i], row_max4(tmax));
+            const float alpha =
+                (m_new == -INFINITY) ? 1.f : ex2((m[i] - m_new) * LOG2E);
+            const float mlog = m_new * LOG2E;
+            float psum = 0.f;
+  #pragma unroll
+            for (int j = 0; j < BK / 8; ++j)
+  #pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const float x = s[j][2 * i + h];
+                if (EDGE && x == -INFINITY) continue;
+                psum += ex2(fmaf(x, LOG2E, -mlog));
+              }
+            l[i] = l[i] * alpha + row_sum4(psum);
+            m[i] = m_new;
+          }
+        } else {   // P, dS
+          const float c2 = scale * LOG2E;
+  #pragma unroll
+          for (int j = 0; j < BK / 8; ++j)
+  #pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = e >> 1;
+              const bool mk = masked(i, j, e);
+              const float p =
+                  mk ? 0.f : ex2(fminf(fmaf(s[j][e], c2, -mlog2[i]), 0.f)) * linv[i];
+              float dpm = dp[j][e];
+              if constexpr (DROPOUT) {   // the replayed mask; masked pairs draw nothing
+                const unsigned kj = (unsigned)(k0 + 8 * j + 2 * (lane & 3) + (e & 1));
+                dpm *= (!mk && fmix32(rowkey[i] ^ kj) >= thresh) ? mscale : 0.f;
+              }
+              dp[j][e] = p * (dpm - drow[i]) * scale;
+            }
+        }
+      };
+      if (edge) elementwise(std::true_type());
+      else elementwise(std::false_type());
+
+      if (sweep2) {   // dq += dS K
+        uint32_t f[BK / 16][4];
+        to_frags<T, BK>(dp, f);            // dS rounded to T
+        wg_fence();
+        wg_fb<T, BK, D>(acc, f, sK + st * KB);
+        wg_commit();
+        wg_wait();
+        fence_acc(acc);
+      }
+    }
+
+    if (it == n_kt - 1) {   // the end of sweep 1
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (l[i] == 0.f) m[i] = -FLT_MAX;    // fully masked row: finfo.min
+        drow[i] = drow_s[wg * TC_ROWS + r0 + (lane >> 2) + 8 * i];
+        if ((lane & 3) == 0 && qi[i] < Sq) {
+          const size_t si = (size_t)bh * Sq + qi[i];
+          m_out[si] = m[i];
+          l_out[si] = l[i];
+          d_out[si] = drow[i];
+        }
+        linv[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;
+        mlog2[i] = m[i] * LOG2E;
+      }
     }
     __syncthreads();   // this stage is free for the tile after next
   }
 
   store_rows<T, D>(dq + qoff, acc, qi, Sq, lane);
-  if ((lane & 3) == 0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      if (qi[i] >= Sq) continue;
-      const size_t si = (size_t)bh * Sq + qi[i];
-      m_out[si] = m[i];
-      l_out[si] = l[i];
-      d_out[si] = drow[i];
-    }
-  }
 }
 
 // K6: dk and dv of one 64-row k tile
@@ -1163,35 +1216,203 @@ attention_bwd_dkv_tc(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<T, D>(dv + koff, dv_acc, kj, Sk, lane);
 }
 
-// a tensor-core kernel with its dynamic shared memory (over the 48 KB
-// default, so it is granted first)
-template <typename Kernel, typename... Args>
-cudaError_t launch_tc(Kernel kernel, int smem, dim3 grid, cudaStream_t st,
-                      Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, TC_THREADS, smem, st>>>(args...);
-  return cudaGetLastError();
+template <int D> constexpr int k6w_smem() {
+  // K, V, Q x 2, dO x 2; per query m, 1/l, D, segment id, dropout key x 2;
+  // 1 KB of alignment
+  return 2 * TC_ROWS * D * 2 + 4 * K6W_QUERIES * D * 2 +
+         2 * 5 * K6W_QUERIES * 4 + 1024;
 }
 
-// a CUDA-core kernel with its dynamic shared memory (granted first where
-// it is over the 48 KB default, at D = 256; below it no host call)
-template <typename Kernel, typename... Args>
-cudaError_t launch_simt(Kernel kernel, int smem, dim3 grid, cudaStream_t st,
-                        Args... args) {
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
+// K6 at D = 256: dk and dv of one 64-row k tile by two warpgroups, since
+// one warpgroup cannot hold both 64 x 256 fp32 accumulators (128 registers
+// a thread each). A q tile is 64 rows. Both warpgroups form S^T = K Q^T
+// and P; warpgroup 0 adds dv += (P^T mscale) dO, warpgroup 1 forms dP^T =
+// V dO^T and dS^T and adds dk += dS^T Q. Warpgroup 0 recomputes S^T rather
+// than take P from warpgroup 1 through shared memory: five products a q
+// tile instead of four, but neither warpgroup waits on the other's
+// exponentials (the hand-off form was 7% slower, PERF.md section 6).
+template <typename T, int D, bool DROPOUT>
+__global__ void __launch_bounds__(K6W_THREADS, 1)
+attention_bwd_dkv_tc2(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const int* __restrict__ seg_q,
+                      const int* __restrict__ seg_kv,
+                      const float* __restrict__ m_in,
+                      const float* __restrict__ l_in,
+                      const float* __restrict__ d_in,
+                      const int* __restrict__ seed, T* __restrict__ dk,
+                      T* __restrict__ dv, int H, int Sq, int Sk, float scale,
+                      int causal, unsigned thresh, float mscale) {
+  static_assert(D == 256, "the two-warpgroup K6 is the D = 256 body");
+  constexpr int BQ = K6W_QUERIES, NT = K6W_THREADS;
+  constexpr uint32_t KB = TC_ROWS * D * 2, QB = BQ * D * 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1k(smem_raw);
+  const uint32_t sK = smem_u32(smem), sV = sK + KB, sQ = sV + KB,
+                 sDO = sQ + 2 * QB;
+  float* ms = reinterpret_cast<float*>(smem + 2 * KB + 4 * QB);  // [2][BQ]
+  float* lis = ms + 2 * BQ;                                      // 1/l or 0
+  float* dcs = lis + 2 * BQ;
+  int* sgq = reinterpret_cast<int*>(dcs + 2 * BQ);
+  unsigned* rks = reinterpret_cast<unsigned*>(sgq + 2 * BQ);
+
+  const int bh = blockIdx.x, b = bh / H;
+  const int k0 = blockIdx.y * TC_ROWS;
+  const int tid = threadIdx.x, lane = tid & 31;
+  // the warpgroup (0: dv, 1: dk), made warp-uniform for the compiler
+  const int wg = __shfl_sync(FULL, tid / TC_THREADS, 0);
+  const int wt = tid % TC_THREADS, r0 = (wt >> 5) * 16;
+  const size_t qoff = (size_t)bh * Sq * D, koff = (size_t)bh * Sk * D;
+  const bool has_seg = seg_kv != nullptr;
+  const int q_begin = causal ? k0 : 0;
+  const int n_qt = q_begin < Sq ? (Sq - q_begin + BQ - 1) / BQ : 0;
+  unsigned hkey = 0;
+  if constexpr (DROPOUT) hkey = head_key(seed, bh);
+
+  // as in attention_bwd_dkv_tc: a q tile's row statistics a tile ahead
+  float m_nx = 0.f, l_nx = 0.f, d_nx = 0.f;
+  int seg_nx = 0;
+  auto fetch_stats = [&](int it) {
+    const int qi = q_begin + it * BQ + tid;
+    const bool ok = tid < BQ && it < n_qt && qi < Sq;
+    const size_t si = (size_t)bh * Sq + (ok ? qi : 0);
+    m_nx = ok ? m_in[si] : 0.f;
+    l_nx = ok ? l_in[si] : 0.f;
+    d_nx = ok ? d_in[si] : 0.f;
+    seg_nx = (ok && has_seg) ? seg_q[(size_t)b * Sq + qi] : 0;
+  };
+  auto stage_q = [&](int it, int st) {
+    const int q0 = q_begin + it * BQ;
+    tile_async<BQ, D, NT>(sQ + st * QB, q + qoff, q0, Sq);
+    tile_async<BQ, D, NT>(sDO + st * QB, dout + qoff, q0, Sq);
+    if (tid < BQ) {
+      ms[st * BQ + tid] = m_nx * LOG2E;   // m log2 e
+      lis[st * BQ + tid] = l_nx > 0.f ? 1.f / l_nx : 0.f;
+      dcs[st * BQ + tid] = d_nx;
+      sgq[st * BQ + tid] = seg_nx;
+      rks[st * BQ + tid] = DROPOUT ? fmix32(hkey ^ (unsigned)(q0 + tid)) : 0u;
+    }
+    fetch_stats(it + 1);
+  };
+
+  if (n_qt > 0) {   // else dk = dv = 0
+    tile_async<TC_ROWS, D, NT>(sK, k + koff, k0, Sk);
+    tile_async<TC_ROWS, D, NT>(sV, v + koff, k0, Sk);
+    fetch_stats(0);
+    stage_q(0, 0);
   }
-  kernel<<<grid, THREADS, smem, st>>>(args...);
+  cp_async_commit();
+
+  int kj[2];
+  int seg_key[2] = {0, 0};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    kj[i] = k0 + r0 + (lane >> 2) + 8 * i;
+    if (has_seg && kj[i] < Sk) seg_key[i] = seg_kv[(size_t)b * Sk + kj[i]];
+  }
+  // dv (warpgroup 0) or dk (warpgroup 1)
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int it = 0; it < n_qt; ++it) {
+    const int st = it & 1;
+    if (it + 1 < n_qt) stage_q(it + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_async_smem();
+    __syncthreads();
+    const int q0 = q_begin + it * BQ;
+    const uint32_t sq = sQ + st * QB, sdo = sDO + st * QB;
+
+    // S^T = K Q^T in both warpgroups, dP^T = V dO^T in warpgroup 1: rows
+    // are keys, columns queries
+    float x[BQ / 8][4], dp[BQ / 8][4];
+    wg_fence();
+    wg_abt<T, BQ, D>(x, sK, sq);
+    if (wg == 1) wg_abt<T, BQ, D>(dp, sV, sdo);
+    wg_commit();
+    wg_wait();
+    fence_acc(x);
+    fence_acc(dp);
+    {
+      // only the diagonal, ragged or segmented tiles have masked pairs
+      const bool edge = has_seg || k0 + TC_ROWS > Sk || q0 + BQ > Sq ||
+                        (causal && k0 + TC_ROWS - 1 > q0);
+      // P (P mscale for dv) in warpgroup 0, dS in warpgroup 1
+      auto probs = [&](auto edge_tag) {
+        constexpr bool EDGE = decltype(edge_tag)::value;
+        const float c2 = scale * LOG2E;
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1, c = 8 * j + 2 * (lane & 3) + (e & 1);
+            const int y = st * BQ + c, qi = q0 + c;
+            bool mk = false;
+            if constexpr (EDGE)
+              mk = kj[i] >= Sk || qi >= Sq || (causal && kj[i] > qi) ||
+                   (has_seg && sgq[y] != seg_key[i]);
+            const float p =
+                mk ? 0.f : ex2(fminf(fmaf(x[j][e], c2, -ms[y]), 0.f)) * lis[y];
+            float msc = 1.f;
+            if constexpr (DROPOUT)   // the replayed mask; masked pairs draw nothing
+              msc = (!mk && fmix32(rks[y] ^ (unsigned)kj[i]) >= thresh)
+                        ? mscale : 0.f;
+            if (wg == 0) {
+              x[j][e] = DROPOUT ? p * msc : p;
+            } else {
+              float dpm = dp[j][e];
+              if constexpr (DROPOUT) dpm *= msc;
+              x[j][e] = p * (dpm - dcs[y]) * scale;
+            }
+          }
+      };
+      if (edge) probs(std::true_type());
+      else probs(std::false_type());
+    }
+    // dv += (P^T mscale) dO or dk += dS^T Q, the fragments rounded to T
+    uint32_t f[BQ / 16][4];
+    to_frags<T, BQ>(x, f);
+    wg_fence();
+    wg_fb<T, BQ, D>(acc, f, wg == 0 ? sdo : sq);
+    wg_commit();
+    wg_wait();
+    fence_acc(acc);
+    __syncthreads();   // this stage is free for the tile after next
+  }
+
+  store_rows<T, D>((wg == 0 ? dv : dk) + koff, acc, kj, Sk, lane);
+}
+
+// the dynamic shared memory granted to each kernel on each device
+constexpr int MAX_DEVICES = 64;
+
+// a kernel with its dynamic shared memory: a size over the 48 KB default
+// is granted once a device (granted[device] records it), not every launch
+template <typename Kernel, typename... Args>
+cudaError_t launch_kernel(Kernel kernel, int smem, int (&granted)[MAX_DEVICES],
+                          dim3 grid, int threads, cudaStream_t st,
+                          Args... args) {
+  if (smem > 48 * 1024) {
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return err;
+    if (device >= MAX_DEVICES || granted[device] < smem) {
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+      if (device < MAX_DEVICES) granted[device] = smem;
+    }
+  }
+  kernel<<<grid, threads, smem, st>>>(args...);
   return cudaGetLastError();
 }
 
-// seed == nullptr: no dropout. bf16/fp16 on the tensor cores at D 64 and
-// 128, the grid (B * H, 64-row q tiles); fp32, and every dtype at D = 256,
-// on the CUDA cores, the grid (q tiles, B * H)
+// seed == nullptr: no dropout. bf16/fp16 on the tensor cores, the grid (B *
+// H, 64-row q tiles); fp32 on the CUDA cores, the grid (q tiles, B * H)
 template <typename T, int D>
 cudaError_t launch_dq(int BH, cudaStream_t st, const void* q, const void* k,
                       const void* v, const void* o, const void* dout,
@@ -1203,22 +1424,25 @@ cudaError_t launch_dq(int BH, cudaStream_t st, const void* q, const void* k,
   (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout,         \
       (const int*)seg_q, (const int*)seg_kv, (const int*)seed, (T*)dq,        \
       (float*)m, (float*)l, (float*)d, H, Sq, Sk, scale, causal, thresh, mscale
-  const int tiles = (Sq + TC_ROWS - 1) / TC_ROWS;
+  static int granted[2][MAX_DEVICES];   // without, with dropout
   cudaError_t err;
-  if constexpr (sizeof(T) == 4 || D == 256) {
-    const dim3 grid(tiles, BH);
+  if constexpr (sizeof(T) == 4) {
+    const dim3 grid((Sq + ROWS - 1) / ROWS, BH);
     err = seed == nullptr
-              ? launch_simt(attention_bwd_dq_simt<T, D, false>, simt_smem<D>(),
-                            grid, st, DQ_KERNEL_ARGS)
-              : launch_simt(attention_bwd_dq_simt<T, D, true>, simt_smem<D>(),
-                            grid, st, DQ_KERNEL_ARGS);
+              ? launch_kernel(attention_bwd_dq_simt<T, D, false>, simt_smem<D>(),
+                              granted[0], grid, THREADS, st, DQ_KERNEL_ARGS)
+              : launch_kernel(attention_bwd_dq_simt<T, D, true>, simt_smem<D>(),
+                              granted[1], grid, THREADS, st, DQ_KERNEL_ARGS);
   } else {
-    const dim3 grid(BH, tiles);
+    constexpr int WGS = k5_warpgroups<D>(), rows = TC_ROWS * WGS;
+    const dim3 grid(BH, (Sq + rows - 1) / rows);
     err = seed == nullptr
-              ? launch_tc(attention_bwd_dq_tc<T, D, false>, k5_smem<D>(), grid,
-                          st, DQ_KERNEL_ARGS)
-              : launch_tc(attention_bwd_dq_tc<T, D, true>, k5_smem<D>(), grid,
-                          st, DQ_KERNEL_ARGS);
+              ? launch_kernel(attention_bwd_dq_tc<T, D, false>, k5_smem<D>(),
+                              granted[0], grid, TC_THREADS * WGS, st,
+                              DQ_KERNEL_ARGS)
+              : launch_kernel(attention_bwd_dq_tc<T, D, true>, k5_smem<D>(),
+                              granted[1], grid, TC_THREADS * WGS, st,
+                              DQ_KERNEL_ARGS);
   }
 #undef DQ_KERNEL_ARGS
   return err;
@@ -1238,21 +1462,35 @@ cudaError_t launch_dkv(int BH, cudaStream_t st, const void* q, const void* k,
       (const int*)seed, (T*)dk, (T*)dv, H, Sq, Sk, scale, causal, thresh,     \
       mscale
   const int tiles = (Sk + TC_ROWS - 1) / TC_ROWS;
+  static int granted[2][MAX_DEVICES];   // without, with dropout
   cudaError_t err;
-  if constexpr (sizeof(T) == 4 || D == 256) {
+  if constexpr (sizeof(T) == 4) {
     const dim3 grid(tiles, BH);
     err = seed == nullptr
-              ? launch_simt(attention_bwd_dkv_simt<T, D, false>, simt_smem<D>(),
-                            grid, st, DKV_KERNEL_ARGS)
-              : launch_simt(attention_bwd_dkv_simt<T, D, true>, simt_smem<D>(),
-                            grid, st, DKV_KERNEL_ARGS);
+              ? launch_kernel(attention_bwd_dkv_simt<T, D, false>,
+                              simt_smem<D>(), granted[0], grid, THREADS, st,
+                              DKV_KERNEL_ARGS)
+              : launch_kernel(attention_bwd_dkv_simt<T, D, true>,
+                              simt_smem<D>(), granted[1], grid, THREADS, st,
+                              DKV_KERNEL_ARGS);
+  } else if constexpr (D == 256) {
+    const dim3 grid(BH, tiles);
+    err = seed == nullptr
+              ? launch_kernel(attention_bwd_dkv_tc2<T, D, false>, k6w_smem<D>(),
+                              granted[0], grid, K6W_THREADS, st,
+                              DKV_KERNEL_ARGS)
+              : launch_kernel(attention_bwd_dkv_tc2<T, D, true>, k6w_smem<D>(),
+                              granted[1], grid, K6W_THREADS, st,
+                              DKV_KERNEL_ARGS);
   } else {
     const dim3 grid(BH, tiles);
     err = seed == nullptr
-              ? launch_tc(attention_bwd_dkv_tc<T, D, false>, k6_smem<D>(), grid,
-                          st, DKV_KERNEL_ARGS)
-              : launch_tc(attention_bwd_dkv_tc<T, D, true>, k6_smem<D>(), grid,
-                          st, DKV_KERNEL_ARGS);
+              ? launch_kernel(attention_bwd_dkv_tc<T, D, false>, k6_smem<D>(),
+                              granted[0], grid, TC_THREADS, st,
+                              DKV_KERNEL_ARGS)
+              : launch_kernel(attention_bwd_dkv_tc<T, D, true>, k6_smem<D>(),
+                              granted[1], grid, TC_THREADS, st,
+                              DKV_KERNEL_ARGS);
   }
 #undef DKV_KERNEL_ARGS
   return err;

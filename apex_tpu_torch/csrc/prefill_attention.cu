@@ -711,6 +711,30 @@ prefill_attention_tc(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// the dynamic shared memory granted to each kernel on each device
+constexpr int MAX_DEVICES = 64;
+
+// a kernel with its dynamic shared memory: a size over the 48 KB default
+// is granted once a device (granted[device] records it), not every launch
+template <typename Kernel, typename... Args>
+cudaError_t launch_kernel(Kernel kernel, int smem, int (&granted)[MAX_DEVICES],
+                          dim3 grid, int threads, cudaStream_t st,
+                          Args... args) {
+  if (smem > 48 * 1024) {
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return err;
+    if (device >= MAX_DEVICES || granted[device] < smem) {
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+      if (device < MAX_DEVICES) granted[device] = smem;
+    }
+  }
+  kernel<<<grid, threads, smem, st>>>(args...);
+  return cudaGetLastError();
+}
+
 template <typename T, int D, bool DROPOUT>
 cudaError_t launch_one(int BH, cudaStream_t st, const void* q, const void* k,
                        const void* v, const void* seg_q, const void* seg_kv,
@@ -722,27 +746,17 @@ cudaError_t launch_one(int BH, cudaStream_t st, const void* q, const void* k,
       (const int*)seg_kv, (const int*)seed, (T*)out, H, Sq, Sk, scale,     \
       causal, thresh, mscale
   const int tiles = (Sq + BQ - 1) / BQ;
-  if constexpr (sizeof(T) == 4) {
-    // the dynamic shared memory is granted first where it is over the 48
-    // KB default (at D = 256; below it no host call)
-    auto kernel = prefill_attention_simt<T, D, DROPOUT>;
-    if (simt_smem<D>() > 48 * 1024) {
-      cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, simt_smem<D>());
-      if (err != cudaSuccess) return err;
-    }
-    kernel<<<dim3(tiles, BH), THREADS, simt_smem<D>(), st>>>(K1_KERNEL_ARGS);
-  } else {
-    // the dynamic shared memory is granted first (over the 48 KB default
-    // at D = 128 and 256)
-    auto kernel = prefill_attention_tc<T, D, DROPOUT>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tc_smem<D>());
-    if (err != cudaSuccess) return err;
-    kernel<<<dim3(BH, tiles), TC_THREADS, tc_smem<D>(), st>>>(K1_KERNEL_ARGS);
-  }
+  static int granted[MAX_DEVICES];
+  cudaError_t err;
+  if constexpr (sizeof(T) == 4)
+    err = launch_kernel(prefill_attention_simt<T, D, DROPOUT>, simt_smem<D>(),
+                        granted, dim3(tiles, BH), THREADS, st, K1_KERNEL_ARGS);
+  else
+    err = launch_kernel(prefill_attention_tc<T, D, DROPOUT>, tc_smem<D>(),
+                        granted, dim3(BH, tiles), TC_THREADS, st,
+                        K1_KERNEL_ARGS);
 #undef K1_KERNEL_ARGS
-  return cudaGetLastError();
+  return err;
 }
 
 // seed == nullptr: no dropout. bf16/fp16 on the tensor cores, the grid (B *

@@ -31,15 +31,28 @@ gradient (serving) runs the forward alone and saves nothing. The TPU
 dispatch machinery (impl tables, ``set_default_impl``, the rows/flash
 choice, the monolithic backward) has no counterpart here.
 
-The kernels are built for head dims 64, 128 and 256 (``KERNEL_HEAD_DIMS``).
-On the card any other head dim up to 256 (the JAX rows kernel's limit,
-``attention_pallas.py:109``) is zero-padded to the next of them by
-:func:`_pad_head_dim`, and the results are sliced back. The pad is exact:
-zero columns of q and k add nothing to a score, zero columns of v give
-zero output columns, the padded columns of dq, dk and dv are zero, and
-the scale is always passed in from the true head dim. The autograd path
-pads once in the forward and saves the padded q, k, v and o, so that
-the backward pads only dO.
+The route is chosen by head dim alone, in :func:`kernel_route`, where
+the JAX package chooses it (``apex_tpu/ops/attention.py:186-201``: the
+rows kernel only where ``attention_pallas.supported`` holds, d <= 256):
+
+* up to 256, the kernels above. They are built for head dims 64, 128 and
+  256 (``KERNEL_HEAD_DIMS``); on the card any other head dim is
+  zero-padded to the next of them by :func:`_pad_head_dim`, and the
+  results are sliced back. The pad is exact: zero columns of q and k add
+  nothing to a score, zero columns of v give zero output columns, the
+  padded columns of dq, dk and dv are zero, and the scale is always
+  passed in from the true head dim. The autograd path pads once in the
+  forward and saves the padded q, k, v and o, so that the backward pads
+  only dO;
+* past 256, the scores route :func:`_scores_attention`, what JAX's
+  ``_dense_attention :25`` computes: fp32 scores from ``torch.matmul``,
+  the softmax by the fused softmax kernel (K10, and K11 in the
+  backward, through :func:`apex_tpu_torch.ops.softmax.
+  scaled_masked_softmax`), the probabilities in v's dtype, the context
+  by ``torch.matmul``; autograd differentiates it. JAX computes those
+  products outside any Pallas kernel too. In-kernel dropout stops at
+  256, as JAX's does (``supported(..., dropout=True)``); the training
+  model takes the scores path there.
 
 Layout: ``[batch, heads, seq, head_dim]``, as in the JAX package.
 """
@@ -50,12 +63,22 @@ import struct
 import torch
 import torch.nn.functional as F
 
+from apex_tpu_torch.ops.softmax import scaled_masked_softmax
+
 _U32 = 0xFFFFFFFF
 
 # the head dims the attention kernels are built for; the largest is the
 # limit of the rows kernel the JAX package runs (d <= 256)
 KERNEL_HEAD_DIMS = (64, 128, 256)
 MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
+
+
+def kernel_route(d):
+    """The route of attention at head dim ``d``: ``"kernels"`` (K1/K1d
+    forward, K5/K6 or K5d/K6d backward) up to ``MAX_HEAD_DIM``, else
+    ``"scores"`` (:func:`_scores_attention`), as the JAX package routes
+    past its rows kernel's limit."""
+    return "kernels" if d <= MAX_HEAD_DIM else "scores"
 
 
 def _kernel_head_dim(d):
@@ -229,6 +252,23 @@ def _attention_bwd_split(q, k, v, o, do, causal, sm_scale, segment_ids,
     return dq, dk, dv.to(v.dtype)
 
 
+def _scores_attention(q, k, v, causal, sm_scale, segment_ids):
+    """The scores route: JAX's ``_dense_attention :25`` with the softmax
+    on the fused softmax kernel. fp32 scores ``q k^T``; the softmax of
+    ``sm_scale`` times them with the causal triangle and, with segment
+    ids, the ``[b, 1, sq, sk]`` mask ``seg_q != seg_kv`` (K10 broadcasts
+    it over heads and never expands it) masked out, a fully masked row
+    giving 0; the probabilities cast to v's dtype; the context in fp32,
+    cast to q's dtype. Differentiable by autograd (K11 for the softmax)."""
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    mask = None
+    if segment_ids is not None:
+        seg_q, seg_kv = segment_ids
+        mask = seg_q[:, None, :, None] != seg_kv[:, None, None, :]
+    probs = scaled_masked_softmax(scores, mask, sm_scale, causal)
+    return torch.matmul(probs.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
 def _attention_fwd(q, k, v, causal, sm_scale, segment_ids, dropout_p,
                    dropout_seed):
     if q.is_cuda:
@@ -290,7 +330,8 @@ class _FusedAttention(torch.autograd.Function):
 
 def fused_attention(q, k, v, *, causal=False, sm_scale=None,
                     segment_ids=None, dropout_p=0.0, dropout_seed=None):
-    """Attention over ``[b, h, s, d]`` tensors.
+    """Attention over ``[b, h, s, d]`` tensors, on the route
+    :func:`kernel_route` gives its head dim.
 
     Args:
       q, k, v: ``[b, h, sq|sk, d]``, one device and dtype.
@@ -301,7 +342,8 @@ def fused_attention(q, k, v, *, causal=False, sm_scale=None,
       segment_ids: optional ``(seg_q [b, sq], seg_kv [b, sk])`` int
         tensors — tokens attend only within equal ids (packed batches).
       dropout_p: inverted dropout on the probabilities, in ``[0, 1)``;
-        the counterpart of ``fused_attention_rows``'s in-kernel dropout.
+        the counterpart of ``fused_attention_rows``'s in-kernel dropout,
+        up to head dim 256 (past it the call raises).
       dropout_seed: an int32 ``[1]`` tensor on q's device, required when
         ``dropout_p > 0``. It stays on the device (the kernels read it
         through a pointer), so a step that draws it never waits on the
@@ -316,6 +358,13 @@ def fused_attention(q, k, v, *, causal=False, sm_scale=None,
         dropout_seed = None
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if kernel_route(q.shape[-1]) == "scores":
+        if dropout_p > 0.0:
+            raise ValueError(f"fused_attention: in-kernel dropout takes head "
+                             f"dims up to {MAX_HEAD_DIM}, got "
+                             f"{q.shape[-1]} (the scores path applies "
+                             f"dropout past it)")
+        return _scores_attention(q, k, v, causal, sm_scale, segment_ids)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         seg_q, seg_kv = (None, None) if segment_ids is None else segment_ids

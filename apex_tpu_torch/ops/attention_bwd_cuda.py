@@ -10,12 +10,11 @@ the monolithic backward (``_bwd_kernel :303``, ``:331-346``, under
 
 For bf16 and fp16 every product of K5/K6 (and K5d/K6d) runs on the
 tensor cores (``wgmma`` with fp32 accumulators, operands brought in
-by ``cp.async`` into a two-stage ring of swizzled shared tiles); fp32
-runs on the CUDA cores, where TF32 would not hold fp32's band. The
-source's header says what bounds them and how the design answers that.
-
-At head dim 256 every dtype runs the CUDA-core kernels (the tensor-core
-bodies' accumulators would not fit a warpgroup's registers).
+by ``cp.async`` into a two-stage ring of swizzled shared tiles), at
+every head dim; at 256 a block has two warpgroups (K5: 64 q rows each;
+K6: one holding dv, the other dk). fp32 runs on the CUDA cores, where
+TF32 would not hold fp32's band. The source's header says what bounds
+them and how the design answers that.
 
 Each wrapper checks its inputs (one device and dtype, contiguous,
 16-byte aligned; head dim at most 256), zero-pads a head dim the kernels

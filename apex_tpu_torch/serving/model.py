@@ -29,8 +29,10 @@ pages with their scales (K2q on the card).
 
 Serving constraints (:func:`check_serving_config`): no dropout, no
 query-key layer scaling, no MoE, no sequence or context parallelism, and
-a head dim of at most 256 (the prefill kernels' limit, the JAX rows
-kernel's; the decode kernels take up to 512).
+a head dim of at most 512, the decode kernels' limit (the JAX decode
+kernel's, ``decode_attention_pallas.supported``). Prefill past head dim
+256 takes :func:`fused_attention`'s scores route (K10 on the card), as
+the JAX prefill falls back to its dense attention there.
 Weight quantization and the multi-token decode block are later slices.
 
 Matmul precision: an fp32 run on the card needs
@@ -43,8 +45,10 @@ import math
 import torch
 import torch.nn.functional as F
 
-from apex_tpu_torch.ops.attention import MAX_HEAD_DIM, fused_attention
+from apex_tpu_torch.ops.attention import fused_attention
 from apex_tpu_torch.ops.decode_attention import decode_attention
+from apex_tpu_torch.ops.decode_attention_cuda import (
+    MAX_HEAD_DIM as DECODE_MAX_HEAD_DIM)
 from apex_tpu_torch.serving import kv_tier
 
 
@@ -62,9 +66,9 @@ def check_serving_config(cfg):
     if cfg.sequence_parallel or cfg.context_parallel_axis:
         problems.append("sequence/context parallelism (single-chip "
                         "serving engine)")
-    if cfg.head_dim > MAX_HEAD_DIM:
-        problems.append(f"head_dim {cfg.head_dim} (the prefill attention "
-                        f"kernels take up to {MAX_HEAD_DIM})")
+    if cfg.head_dim > DECODE_MAX_HEAD_DIM:
+        problems.append(f"head_dim {cfg.head_dim} (the decode attention "
+                        f"kernels take up to {DECODE_MAX_HEAD_DIM})")
     if problems:
         raise ValueError("serving does not support: "
                          + "; ".join(problems))

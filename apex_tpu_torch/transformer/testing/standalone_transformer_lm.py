@@ -22,7 +22,9 @@ rows), and the layers of :mod:`..tensor_parallel` sum over the tp group.
   the fused qkv projection split per head ``[q|k|v]`` (``:352-355``), the
   ``[b, h, s, d]`` attention of
   :func:`apex_tpu_torch.ops.attention.fused_attention` (K1 or K1d
-  forward, K5/K6 or K5d/K6d backward on the card) at scale ``1/sqrt(hd)``
+  forward, K5/K6 or K5d/K6d backward on the card; past head dim 256 its
+  scores route, K10/K11, and with attention dropout the scores path
+  below) at scale ``1/sqrt(hd)``
   — query-key layer scaling is ignored, as the JAX flash and rows
   branches ignore it — and the output projection (``_via_bhsd
   :387-396``). In training with attention dropout and
@@ -88,8 +90,8 @@ from torch.utils import checkpoint
 from apex_tpu_torch import default_device
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops import xent
-from apex_tpu_torch.ops.attention import (MAX_HEAD_DIM, _fmix32, _mul32,
-                                          fused_attention)
+from apex_tpu_torch.ops.attention import (_fmix32, _mul32, fused_attention,
+                                          kernel_route)
 from apex_tpu_torch.transformer import parallel_state
 from apex_tpu_torch.transformer.enums import AttnMaskType
 from apex_tpu_torch.transformer.functional import FusedScaleMaskSoftmax
@@ -173,8 +175,9 @@ class TransformerConfig:
 
 def check_training_config(cfg):
     """Raise on TransformerConfig options the training slice does not
-    model (dropout is checked per call: it only matters in training), and
-    on a head dim past the attention kernels' 256.
+    model (dropout is checked per call: it only matters in training).
+    Any head dim trains: past the attention kernels' 256 attention takes
+    the scores route (:func:`apex_tpu_torch.ops.attention.kernel_route`).
     ``recompute_granularity`` takes None or "none" (no recompute: the port
     has no dispatch table to consult, ``resolve_recompute_granularity
     :713``), "selective" or "full"."""
@@ -186,10 +189,6 @@ def check_training_config(cfg):
         problems.append("MoE")
     if cfg.sequence_parallel or cfg.context_parallel_axis:
         problems.append("sequence/context parallelism")
-    if cfg.head_dim > MAX_HEAD_DIM:
-        problems.append(f"head_dim {cfg.head_dim} (the attention kernels "
-                        f"take up to {MAX_HEAD_DIM}, the JAX rows kernel's "
-                        f"limit)")
     if problems:
         raise ValueError("GPTModel does not support: " + "; ".join(problems))
 
@@ -288,9 +287,10 @@ class ParallelAttention(nn.Module):
     :func:`derive_attention_dropout_seed`), or with
     ``fused_attention_dropout=False`` the scores path (``:491-524``). The
     port's kernels tile any key length, so there is no fallback to the
-    scores path where the JAX ``supported(..., dropout=True)`` fails
-    (``:456-458``); that fallback computes the same dropout
-    distribution."""
+    scores path where the JAX ``supported(..., dropout=True)`` fails on
+    the key length (``:456-458``); that fallback computes the same
+    dropout distribution. Where it fails on the head dim (past 256,
+    :func:`kernel_route`), both packages take the scores path."""
 
     def __init__(self, cfg, device, generator, layer_number=1):
         super().__init__()
@@ -334,7 +334,10 @@ class ParallelAttention(nn.Module):
         qkv = self.query_key_value(hidden).reshape(s, b, np_, 3 * hd)
         q, k, v = torch.split(qkv, hd, dim=-1)          # [s, b, np, hd]
         dropout = generator is not None and cfg.attention_dropout > 0.0
-        if dropout and not cfg.fused_attention_dropout:
+        # past the in-kernel route's head dims the JAX model falls through
+        # to the scores path (:456-458)
+        if dropout and (not cfg.fused_attention_dropout
+                        or kernel_route(hd) == "scores"):
             ctx = self._scores_path(q, k, v, generator)
             return self.dense(ctx)
         q, k, v = (t.permute(1, 2, 0, 3).contiguous() for t in (q, k, v))

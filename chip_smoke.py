@@ -6,11 +6,16 @@ runs every phase below on one card; on a machine with two or more, the
 tp = 2 phase gives each rank a card of its own over NCCL. With
 ``--parent``, the sources of CHECKOUT (another commit's tree) whose
 kernels the recent slices redesigned (``xent.cu``, ``softmax.cu``,
-``decode_attention.cu``, ``layer_norm.cu``) are built too, their K7,
-K7p, K10, K2 and K2q are timed in turns beside this tree's
-(``parent_ms``, ``parent_ms_turns``; the parent's decode kernels
-through their own C entries, one block a slot-head), and K3/K4 at the
-main path's width must give the parent's bits.
+``decode_attention.cu``, ``layer_norm.cu``, ``attention_bwd.cu``) are
+built too, their K7, K7p, K10, K2 and K2q, and K5/K6 and K5d/K6d at
+head dims 80 and 256, are timed in turns beside this tree's
+(``parent_ms``, ``parent_ms_turns``; through this tree's wrappers, so
+the parent's C entries must be this tree's), and K3/K4 at the
+main path's width must give the parent's bits. For example, from the
+root of this checkout::
+
+    git archive <parent commit> apex_tpu_torch | tar -x -C build/parent
+    python3 chip_smoke.py --parent build/parent
 
 Needs one CUDA card and the CUDA toolkit (``nvcc``); without a card it
 exits non-zero before printing any result. It imports nothing of JAX
@@ -24,10 +29,12 @@ exits non-zero before the last line):
    ``nvcc`` each, all in parallel) into ``build/apex_tpu_torch/``; ptxas's
    registers and spills are printed, and, where the toolkit has
    ``cuobjdump``, the tensor-core instructions (``HGMMA``: wgmma;
-   ``HMMA``: mma.sync) of each bf16 instantiation of K5/K6 and K1/K1d
-   (d 64 and 128, with and without dropout), of the tensor-core K8/K9
-   (32- and 16-row streamed tiles) and of the tensor-core first stage of
-   K7/K7p (``xent_fwd_tc``), which must hold ``HGMMA``.
+   ``HMMA``: mma.sync) of each bf16 instantiation of K5/K6 (d 64, 128
+   and 256, with and without dropout: twelve) and K1/K1d (d 64, 128 and
+   256), of the tensor-core K8/K9 (32- and 16-row streamed tiles) and of
+   the tensor-core first stage of K7/K7p (``xent_fwd_tc``), which must
+   hold ``HGMMA``; ptxas must report no spill in a tensor-core K5/K6
+   instantiation at d = 256 and no serialized wgmma in any.
 3. one phase per kernel at its main path's shapes: K1 and K2 at the
    serving shapes, K3/K4 (layer norm, x ``[8192, 768]`` bf16), K5/K6
    (attention backward, ``[8, 12, 1024, 64]`` bf16, causal), K1d, K5d
@@ -86,8 +93,13 @@ exits non-zero before the last line):
    the serving lengths (``by_head_dim``). Then the other widths: K1, K1d,
    K5/K6 and K5d/K6d at
    head dim 80 (``[2, 32, 1024, 80]``, GPT-3 2.7B's heads, zero-padded to
-   128) and 256 (``[2, 16, 1024, 256]``, K5/K6 on the CUDA cores), bf16,
-   causal, with and without dropout, and K3/K4 at widths 100, 12288 and a
+   128) and 256 (``[2, 16, 1024, 256]``, GPT-J-6B's heads; K5 with two
+   warpgroups a block, K6 with one for dk and one for dv), bf16, causal,
+   with and without dropout, two runs of K5/K6 (K5d/K6d) giving the same
+   bits, the backward kernels timed in turns around SDPA's backward
+   (and the parent's, with ``--parent``), fp32 K5/K6 at 256 (the CUDA
+   cores) against their plain version within ``FP32_L2_TOL`` and timed,
+   and K3/K4 at widths 100, 12288 and a
    ``(64, 200)`` normalized shape through ``fused_layer_norm`` (rows of
    12800), rows = 8192: each against its plain version, timed with its
    bound and library call (``by_head_dim``, ``by_width`` in the kernel's
@@ -163,7 +175,20 @@ exits non-zero before the last line):
    serves 6 seeded greedy requests (K1 and K2 launches counted), the
    kernel and plain paths' logits agree within 0.35, and one training step
    at b = 2, s = 1024 agrees with the plain path within the training
-   bands; K1, K2, K3, K4, K5 and K6 must each have launched.
+   bands; K1, K2, K3, K4, K5 and K6 must each have launched. Then GPT-J-6B's
+   attention widths (``GPTJ_6B``: hidden 4096, 16 heads of 256, ffn
+   16384, vocab 50400, the port's GPT-2-style blocks; depth cut from 28
+   layers to 2) at b = 2, s = 1024, bf16, the materialized head, without
+   and with dropout 0.1: ``WIDE_WINDOW``'s timed steps (step ms, peak
+   memory, the launches a step: K1 = K5 = K6 = 2, or K1d = K5d = K6d = 2)
+   and one step through the kernel path against the plain path within
+   the training bands. Last before tp = 2, heads past the attention
+   kernels (``HD320``: 2 layers of hidden 1280 over 4 heads of 320): the
+   same windows and comparisons, K10 = K11 = 2 a step and no attention
+   kernel (the scores route; with dropout the scores path), then
+   ``ServingEngine`` serves ``GPT3_TRACE``'s requests, K10 once a layer a
+   prefill batch, K2 at its 512 bucket once a layer a decode step and K1
+   never, the kernel and plain paths' logits within 0.35.
 6. one JSON line per kernel, the ``{"kernels": [...]}`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -231,9 +256,12 @@ TRAIN = dict(batch=8, seq=1024, warmup=2, timed=5, lr=1e-4)
 # the head dims the attention kernels run at besides the main path's 64,
 # each at a training shape of a model that has it, (batch, heads, seq),
 # bf16, causal: 80 (GPT-3 2.7B: 32 heads; zero-padded to the kernels' 128)
-# and 256 (GPT-J-6B's 16 heads; K1 on the tensor cores, K5/K6 on the CUDA
-# cores)
+# and 256 (GPT-J-6B's 16 heads; K1 and, since PR 12, K5/K6 on the tensor
+# cores; fp32 K5/K6 there are timed too, on the CUDA cores)
 ATTN_HEAD_DIM_SHAPES = {80: (2, 32, 1024), 256: (2, 16, 1024)}
+# K5/K6 in fp32 against their plain version (the card tests' fp32 band,
+# tests/port/test_torch_kernels_cuda.py L2_TOL)
+FP32_L2_TOL = 5e-6
 # decode's other head dims at the serving lengths (the kernels' buckets
 # 128 and 256 run them unpadded)
 DECODE_HEAD_DIMS = (80, 256)
@@ -256,6 +284,28 @@ GPT3_ENGINE = dict(num_slots=4, page_size=128, num_pages=72, max_seq=2048,
                    prefill_len=512)
 GPT3_TRACE = dict(seed=1, n_requests=6, prompt_lo=16, prompt_hi=300,
                   new_lo=8, new_hi=24, mean_interarrival=0.5)
+# GPT-J-6B's attention widths (EleutherAI's GPT-J-6B config: n_embd 4096,
+# n_head 16, n_layer 28, rotary_dim 64, n_inner 4 x n_embd, vocab 50400)
+# over the port's GPT-2-style blocks: learned positions instead of GPT-J's
+# rotary embedding, the sequential block instead of its parallel one;
+# random weights from a torch seed; depth cut from 28 layers to 2 for the
+# smoke's time. Heads of 256: K1, K5/K6 (K1d, K5d/K6d with dropout) at
+# their D = 256 bodies
+GPTJ_6B = dict(hidden_size=4096, num_layers=2, num_attention_heads=16,
+               ffn_hidden_size=16384, vocab_size=50400,
+               max_position_embeddings=2048, hidden_dropout=0.0,
+               attention_dropout=0.0, apply_query_key_layer_scaling=False,
+               bf16=True)
+# a model past the attention kernels' head dims: 2 layers of hidden 1280
+# over 4 heads of 320, GPT-2's vocabulary padded to 50304; attention takes
+# the scores route (K10/K11) in training and serving prefill, decode K2 at
+# its 512 bucket
+HD320 = dict(hidden_size=1280, num_layers=2, num_attention_heads=4,
+             vocab_size=50304, max_position_embeddings=1024,
+             hidden_dropout=0.0, attention_dropout=0.0,
+             apply_query_key_layer_scaling=False, bf16=True)
+# the timed window of these two models: one warm-up step, then three
+WIDE_WINDOW = dict(batch=2, warmup=1, timed=3)
 # K7p's row partials against its plain version: the largest |diff| over
 # max(1, the largest |value|) of each partial; the shards' dX (each
 # rounded to bf16, then summed in bf16 as the ranks' all-reduce does)
@@ -326,49 +376,10 @@ def _time_in_turns(fn, lib_fn, flush, spread=None):
 
 
 # with --parent DIR: the parent checkout's libraries of the sources whose
-# kernels a slice redesigned, built with this build's flags, and its rule
-# for K7's vocabulary shares (the grid is the wrapper's choice)
-PARENT_SOURCES = ("xent", "softmax", "decode_attention", "layer_norm")
+# kernels a slice redesigned, built with this build's flags
+PARENT_SOURCES = ("xent", "softmax", "decode_attention", "layer_norm",
+                  "attention_bwd")
 PARENT = {}
-
-
-def _parent_decode_signatures():
-    """The C entries of the parent's ``decode_attention.cu`` (one block a
-    slot-head: no scratch, tickets, split or copy arguments)."""
-    import ctypes
-
-    P_, I_, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    return {"decode_attention_fwd": ([P_] * 6 + [I_] * 6 + [F_, I_, I_, P_],
-                                     I_),
-            "decode_attention_quant_fwd": ([P_] * 8 + [I_] * 6
-                                           + [F_, I_, I_, P_], I_),
-            "decode_attention_error_string": ([I_], ctypes.c_char_p)}
-
-
-def _parent_decode(q, kp, vp, pt, lengths, scale, scales=()):
-    """The parent's K2 (or, with ``scales``, K2q) through its own C entry
-    on this tree's inputs; a new ``[b, h, d]`` tensor."""
-    from apex_tpu_torch.ops import _build
-
-    lib = PARENT["decode_attention"]
-    b, h, d = q.shape
-    out = torch.empty_like(q)
-    fn = "decode_attention_quant_fwd" if scales else "decode_attention_fwd"
-    rc = getattr(lib, fn)(
-        q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-        *(t.data_ptr() for t in scales), pt.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), b, h, kp.shape[1], kp.shape[2], pt.shape[1], d,
-        float(scale), _build.DTYPE_CODES[q.dtype], q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, "decode_attention", rc)
-    return out
-
-
-def _parent_vocab_splits(n, V, h, dtype, device):
-    from apex_tpu_torch.ops import xent_cuda
-
-    return max(1, min(V // 128, 2 * xent_cuda._sm_count(device.index)
-                      // -(-n // 128)))
 
 
 def _start_parent_build(root):
@@ -393,11 +404,14 @@ def _finish_parent_build(procs):
     wrapper's signatures (the C entries did not change)."""
     import ctypes
 
-    from apex_tpu_torch.ops import layer_norm_cuda, softmax_cuda, xent_cuda
+    from apex_tpu_torch.ops import (attention_bwd_cuda,
+                                    decode_attention_cuda, layer_norm_cuda,
+                                    softmax_cuda, xent_cuda)
 
     sigs = {"xent": xent_cuda._SIGNATURES, "softmax": softmax_cuda._SIGNATURES,
-            "decode_attention": _parent_decode_signatures(),
-            "layer_norm": layer_norm_cuda._SIGNATURES}
+            "decode_attention": decode_attention_cuda._SIGNATURES,
+            "layer_norm": layer_norm_cuda._SIGNATURES,
+            "attention_bwd": attention_bwd_cuda._SIGNATURES}
     for name, lib, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode:
@@ -411,27 +425,25 @@ def _finish_parent_build(procs):
 
 
 def _as_parent(fn, name):
-    """``fn`` run on the parent's library of source ``name`` (and, for the
-    LM head, the parent's grid), through the same wrappers."""
-    from apex_tpu_torch.ops import _build, xent_cuda
+    """``fn`` run on the parent's library of source ``name``, through the
+    same wrappers (the parent's wrappers, its grid rules included, are
+    this tree's)."""
+    from apex_tpu_torch.ops import _build
 
     def run():
-        with mock.patch.dict(_build._libs, {name: PARENT[name]}), \
-                mock.patch.object(xent_cuda, "_vocab_splits",
-                                  _parent_vocab_splits):
+        with mock.patch.dict(_build._libs, {name: PARENT[name]}):
             return fn()
     return run
 
 
-def _turns(fn, lib_fn, flush, source, spread=None, parent_fn=None):
+def _turns(fn, lib_fn, flush, source, spread=None):
     """``fn`` timed in turns around one library call, kernel, library,
-    kernel, and, with ``--parent``, the parent's kernel before and after
-    them (``fn`` on the parent's library, or ``parent_fn`` where the
-    parent's C entry differs): ``{"ms": the kernel's mean, "ms_turns",
-    "library_ms", "parent_ms", "parent_ms_turns"}``."""
+    kernel, and, with ``--parent``, the parent's kernel (``fn`` on the
+    parent's library) before and after them: ``{"ms": the kernel's mean,
+    "ms_turns", "library_ms", "parent_ms", "parent_ms_turns"}``."""
     parent = None
     if source in PARENT:
-        parent = parent_fn or _as_parent(fn, source)
+        parent = _as_parent(fn, source)
     out = {}
     if parent:
         out["parent_ms_turns"] = [_time_ms(parent, flush)]
@@ -723,8 +735,7 @@ def phase_decode_kernel(dev, flush):
     q4 = q[:, :, None, :]
     timed = _turns(run, lambda: F.scaled_dot_product_attention(
         q4, kg, vg, attn_mask=live, scale=scale), flush, "decode_attention",
-        spread=spread, parent_fn=lambda: _parent_decode(q, kp, vp, pt,
-                                                        lengths, scale))
+        spread=spread)
     plain_ms = _time_ms(lambda: decode_attention.decode_attention_reference(
         q, kp, vp, pt, lengths, scale), flush)
     nbytes, flops, (bound_ms, bound_by) = _decode_bound(q, pt, lengths, 2)
@@ -810,8 +821,7 @@ def phase_int8_decode_kernel(dev, flush):
     q4 = q[:, :, None, :]
     timed = _turns(run, lambda: F.scaled_dot_product_attention(
         q4, kg, vg, attn_mask=live, scale=scale), flush, "decode_attention",
-        spread=spread, parent_fn=lambda: _parent_decode(
-            q, k8, v8, pt, lengths, scale, (ks, vs)))
+        spread=spread)
     k2_ms = _time_ms(lambda: decode_attention_cuda.decode_attention(
         q, kp, vp, pt, lengths, sm_scale=scale), flush)
     plain_ms = _time_ms(lambda: decode_attention.decode_attention_reference(
@@ -1723,13 +1733,18 @@ def phase_attention_head_dims(dev, flush):
     """K1, K1d, K5/K6 and K5d/K6d at ``ATTN_HEAD_DIM_SHAPES`` (bf16,
     causal; dropout 0.1, seed -123456789): each against its plain version
     (``K1_L2_TOL`` and 5e-2 for the outputs, ``BF16_L2_TOL`` and 5e-2 of
-    the largest magnitude for the gradients), timed after an L2 flush
-    beside SDPA (forward, and backward through ``torch.autograd.grad``,
-    with and without dropout), with its bound. The wrappers zero-pad d =
-    80 to 128; the backward kernels are timed on tensors padded once
-    beforehand (as the autograd path pads once a forward), and the pad's
-    own time is given beside them. Returns ``{kernel name: {d: numbers}}``
-    for the rows of K1, K1d, K5, K6, K5d and K6d."""
+    the largest magnitude for the gradients), two runs of K5/K6 (K5d/K6d)
+    giving the same bits, timed after an L2 flush beside SDPA (forward,
+    and backward through ``torch.autograd.grad``, with and without
+    dropout), with its bound. The backward kernels are timed in turns,
+    this tree's, SDPA's backward, this tree's, and with ``--parent`` the
+    parent's before and after them. The wrappers zero-pad d = 80 to 128;
+    the backward kernels are timed on tensors padded once beforehand (as
+    the autograd path pads once a forward), and the pad's own time is
+    given beside them. At d = 256 fp32 K5/K6, which stay on the CUDA
+    cores, are held to ``FP32_L2_TOL`` and timed too. Returns ``{kernel
+    name: {d: numbers}}`` for the rows of K1, K1d, K5, K6, K5d and
+    K6d."""
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops import attention, attention_bwd_cuda
@@ -1770,10 +1785,15 @@ def phase_attention_head_dims(dev, flush):
                       else attention_bwd_cuda.attention_bwd_dkv)
             dq, m, l, dcol = dq_fn(pq, pk, pv, po, pdo, **dkw)
             dk, dv = dkv_fn(pq, pk, pv, pdo, m, l, dcol, **dkw)
+            again = (dq_fn(pq, pk, pv, po, pdo, **dkw)[0],
+                     *dkv_fn(pq, pk, pv, pdo, m, l, dcol, **dkw))
             ref = attention._attention_bwd_split(q, k, v, o, do, True, scale,
                                                  None, p,
                                                  seed if drop else None)
             torch.cuda.synchronize()
+            same_bits = all(torch.equal(a, b)
+                            for a, b in zip((dq, dk, dv), again))
+            del again
             got = [t[..., :d] for t in (dq, dk, dv)]
             b_l2 = [_rel_l2(a, r) for a, r in zip(got, ref)]
             b_err = [_rel_err(a, r) for a, r in zip(got, ref)]
@@ -1781,11 +1801,15 @@ def phase_attention_head_dims(dev, flush):
             what = f"attention{' dropout' if drop else ''} at head dim {d}"
             _log(f"{what}: forward max_abs_err {f_err:.3e}, relative L2 "
                  f"{f_l2:.3e}; dq/dk/dv relative L2 {b_l2}, max over the "
-                 f"largest magnitude {b_err}")
+                 f"largest magnitude {b_err}; two runs the same bits "
+                 f"{same_bits}")
             if (f_err > 5e-2 or f_l2 > K1_L2_TOL or max(b_l2) > BF16_L2_TOL
                     or max(b_err) > 5e-2):
                 raise AssertionError(f"{what} disagrees with the plain "
                                      f"versions")
+            if not same_bits:
+                raise AssertionError(f"{what}: two runs of the backward "
+                                     f"kernels differ")
             sdpa = dict(is_causal=True, scale=scale, dropout_p=p)
             f_ms, f_turns, f_lib = _time_in_turns(
                 lambda: fwd(q, k, v, **dkw),
@@ -1794,17 +1818,31 @@ def phase_attention_head_dims(dev, flush):
             f_plain = _time_ms(lambda: attention._dense_attention(
                 q, k, v, True, scale, None, p, seed if drop else None),
                 flush, reps=3)
-            dq_ms = _time_ms(lambda: dq_fn(pq, pk, pv, po, pdo, **dkw), flush)
-            dkv_ms = _time_ms(lambda: dkv_fn(pq, pk, pv, pdo, m, l, dcol,
-                                             **dkw), flush)
-            b_plain = _time_ms(lambda: attention._attention_bwd_split(
-                q, k, v, o, do, True, scale, None, p,
-                seed if drop else None), flush, reps=3)
+            calls = {"dq": lambda: dq_fn(pq, pk, pv, po, pdo, **dkw),
+                     "dkv": lambda: dkv_fn(pq, pk, pv, pdo, m, l, dcol,
+                                           **dkw)}
+            turns = {"dq": [], "dkv": [], "parent_dq": [], "parent_dkv": []}
+
+            def turn(parent):
+                for n, fn in calls.items():
+                    if not parent:
+                        turns[n].append(_time_ms(fn, flush))
+                    elif "attention_bwd" in PARENT:
+                        turns["parent_" + n].append(_time_ms(
+                            _as_parent(fn, "attention_bwd"), flush))
+
+            turn(parent=True)
+            turn(parent=False)
             qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
             og = F.scaled_dot_product_attention(qg, kg, vg, **sdpa)
             b_lib = _time_ms(lambda: torch.autograd.grad(
                 og, (qg, kg, vg), do, retain_graph=True), flush)
             del og, qg, kg, vg
+            turn(parent=False)
+            turn(parent=True)
+            b_plain = _time_ms(lambda: attention._attention_bwd_split(
+                q, k, v, o, do, True, scale, None, p,
+                seed if drop else None), flush, reps=3)
             ints = hash_ops if drop else 0
             f_bound = _bound(4 * t_bytes, 2 * 2 * d * live, int_ops=ints)
             dq_bound = _bound(6 * t_bytes + stats, 3 * 2 * d * live,
@@ -1819,23 +1857,68 @@ def phase_attention_head_dims(dev, flush):
                 common, max_abs_err=f_err, rel_l2=f_l2, ms=f_ms,
                 ms_turns=f_turns, plain_ms=f_plain, library_ms=f_lib,
                 bound_ms=f_bound[0], bound_by=f_bound[1])
-            for name, ms, bound, i in (("attention_bwd_dq", dq_ms, dq_bound,
-                                        [0]),
-                                       ("attention_bwd_dkv", dkv_ms,
-                                        dkv_bound, [1, 2])):
-                out.setdefault(name + suffix, {})[d] = dict(
+            for name, key, bound, i in (("attention_bwd_dq", "dq", dq_bound,
+                                         [0]),
+                                        ("attention_bwd_dkv", "dkv",
+                                         dkv_bound, [1, 2])):
+                row = dict(
                     common, rel_l2=max(b_l2[j] for j in i),
-                    rel_err=max(b_err[j] for j in i), ms=ms,
+                    rel_err=max(b_err[j] for j in i),
+                    same_bits_two_runs=same_bits,
+                    ms=statistics.mean(turns[key]), ms_turns=turns[key],
                     plain_ms=b_plain, library_ms=b_lib,
                     bound_ms=bound[0], bound_by=bound[1],
                     plain=("dq, dk and dv together"),
                     library=("backward of F.scaled_dot_product_attention "
                              "via torch.autograd.grad, dq, dk and dv "
                              "together"))
+                if turns["parent_" + key]:
+                    row["parent_ms_turns"] = turns["parent_" + key]
+                    row["parent_ms"] = statistics.mean(turns["parent_" + key])
+                out.setdefault(name + suffix, {})[d] = row
+            _log(f"{what}: K5 {turns['dq']} ms, K6 {turns['dkv']} ms in "
+                 f"turns (parent {turns['parent_dq']}, "
+                 f"{turns['parent_dkv']}); SDPA backward {b_lib:.4f} ms")
             del dq, dk, dv, m, l, dcol, o, po
+        if d == 256:
+            fp32 = _fp32_backward(q, k, v, do, scale, flush)
+            for name in ("attention_bwd_dq", "attention_bwd_dkv"):
+                out[name][d]["fp32"] = fp32[name]
         torch.cuda.empty_cache()
     _log("attention at other head dims: " + json.dumps(out))
     return out
+
+
+def _fp32_backward(q, k, v, do, scale, flush):
+    """K5 and K6 in fp32 (the CUDA-core bodies) on the bf16 inputs
+    upcast, causal: each gradient within ``FP32_L2_TOL`` of the plain
+    version by relative L2, and their times."""
+    from apex_tpu_torch.ops import attention, attention_bwd_cuda
+
+    q, k, v, do = (t.float() for t in (q, k, v, do))
+    kw = dict(causal=True, sm_scale=scale)
+    o = attention._dense_attention(q, k, v, True, scale, None)
+    dq, m, l, dcol = attention_bwd_cuda.attention_bwd_dq(q, k, v, o, do, **kw)
+    dk, dv = attention_bwd_cuda.attention_bwd_dkv(q, k, v, do, m, l, dcol,
+                                                  **kw)
+    ref = attention._attention_bwd_split(q, k, v, o, do, True, scale, None)
+    torch.cuda.synchronize()
+    l2 = [_rel_l2(a, r) for a, r in zip((dq, dk, dv), ref)]
+    del ref, dk, dv
+    _log(f"fp32 attention backward at head dim {q.shape[-1]}: dq/dk/dv "
+         f"relative L2 {l2} (tol {FP32_L2_TOL})")
+    if max(l2) > FP32_L2_TOL:
+        raise AssertionError(f"fp32 K5/K6 disagree with the plain version: "
+                             f"{l2}")
+    shape = f"[{','.join(map(str, q.shape))}] fp32, causal"
+    return {"attention_bwd_dq": {
+                "shape": shape, "rel_l2": l2[0],
+                "ms": _time_ms(lambda: attention_bwd_cuda.attention_bwd_dq(
+                    q, k, v, o, do, **kw), flush, reps=5)},
+            "attention_bwd_dkv": {
+                "shape": shape, "rel_l2": max(l2[1:]),
+                "ms": _time_ms(lambda: attention_bwd_cuda.attention_bwd_dkv(
+                    q, k, v, do, m, l, dcol, **kw), flush, reps=5)}}
 
 
 def phase_layer_norm_widths(dev, flush):
@@ -2340,8 +2423,14 @@ def _train_setup(dev, batch, seed=0, fused=False, dropout=False,
 def _want_launches(fused, dropout, recompute, scores=False, model=MODEL):
     """Launches per step of each counted kernel: the forward's attention
     (or, on the scores path, softmax) and layer norms once more for what
-    the backward recomputes."""
+    the backward recomputes. Heads past the attention kernels' head dims
+    take the softmax too (the scores route, or with dropout the scores
+    path)."""
+    from apex_tpu_torch.ops import attention
+
     layers = model["num_layers"]
+    head_dim = model["hidden_size"] // model["num_attention_heads"]
+    scores = scores or attention.kernel_route(head_dim) == "scores"
     again = {"full": 1, "selective": 1}.get(recompute, 0)
     ln_again = 2 * layers if recompute == "full" else 0
     fwd, bwd = (("prefill_attention_dropout", ("attention_bwd_dq_dropout",
@@ -2659,6 +2748,151 @@ def phase_gpt3_2p7b(dev):
              "train_worst_grad_rel_l2": worst_grad}
     _log("GPT-3 2.7B widths: " + json.dumps(stats))
     return serving_launches, train_launches, stats
+
+
+def _wide_window(dev, model, dropout):
+    """``WIDE_WINDOW``'s training steps of ``model`` (materialized head;
+    dropout 0.1 from a seeded generator if ``dropout``): step ms, peak
+    memory, the losses and the launches per step, which must be
+    ``_want_launches``'s."""
+    b, w = WIDE_WINDOW["batch"], WIDE_WINDOW
+    (net, _, opt, step, opt_state, ss, ids, pos, labels) = _train_setup(
+        dev, b, dropout=dropout, model=model)
+    losses = []
+    for _ in range(w["warmup"]):
+        opt_state, ss, loss = step(opt_state, ss, ids, pos, labels)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    counts = _training_counts()
+    for fn in counts.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(w["timed"]):
+        opt_state, ss, loss = step(opt_state, ss, ids, pos, labels)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / w["timed"] * 1e3
+    launches = {k: fn.launches for k, fn in counts.items()}
+    vals = [x.item() for x in losses]
+    n_params = sum(p.numel() for p in net.parameters())
+    del net, opt, step, opt_state, ss
+    torch.cuda.empty_cache()
+    want = {k: n * w["timed"] for k, n in
+            _want_launches(False, dropout, "none", model=model).items()}
+    if launches != want:
+        raise AssertionError(f"{model['hidden_size']} wide, dropout "
+                             f"{dropout}: launched {launches}, want {want}")
+    if not all(np.isfinite(vals)):
+        raise AssertionError(f"training loss not finite: {vals}")
+    return {"dropout": DROPOUT_P if dropout else 0.0, "batch": b,
+            "seq": TRAIN["seq"], "steps_timed": w["timed"],
+            "step_ms": step_ms, "tokens_per_s": b * TRAIN["seq"] / step_ms
+            * 1e3, "n_params": n_params,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "losses": vals,
+            "launches_per_step": {k: v / w["timed"]
+                                  for k, v in launches.items() if v}}
+
+
+def phase_gptj_6b(dev):
+    """GPT-J-6B's attention widths (``GPTJ_6B``: hidden 4096, 16 heads of
+    256, ffn 16384, vocab 50400; 2 of 28 layers; random weights from torch
+    seed 0), bf16, the materialized head, b = 2, s = 1024: without and
+    with dropout 0.1, ``WIDE_WINDOW``'s steps (K1, K5, K6 or K1d, K5d,
+    K6d once a layer a step, at their D = 256 bodies) and one step through
+    the kernel path against the plain path within the training bands.
+    Returns the launch counts of each window and its numbers."""
+    launches, stats = {}, {}
+    for dropout in (False, True):
+        key = "dropout" if dropout else "no_dropout"
+        stats[key] = _wide_window(dev, GPTJ_6B, dropout)
+        dloss, worst, launches[key] = phase_training_paths_agree(
+            dev, fused=False, dropout=dropout, model=GPTJ_6B)
+        stats[key].update(train_loss_diff=dloss,
+                          train_worst_grad_rel_l2=worst)
+        torch.cuda.empty_cache()
+    for key, names in (("no_dropout", ("prefill_attention",
+                                       "attention_bwd_dq",
+                                       "attention_bwd_dkv")),
+                       ("dropout", ("prefill_attention_dropout",
+                                    "attention_bwd_dq_dropout",
+                                    "attention_bwd_dkv_dropout"))):
+        for name in names:
+            if not launches[key].get(name):
+                raise AssertionError(f"GPT-J-6B widths ({key}): {name} "
+                                     f"never launched")
+    _log("GPT-J-6B widths (2 of 28 layers): " + json.dumps(stats))
+    return launches, stats
+
+
+def phase_head_dim_320(dev):
+    """``HD320`` (4 heads of 320, past the attention kernels' 256), bf16:
+    one training step without and one with dropout 0.1 through the kernel
+    path against the plain path within the training bands, K10 and K11
+    once a layer (the scores route; with dropout the scores path) and no
+    attention kernel; the timed window of each; then ``ServingEngine``
+    (``ENGINE``'s 8 slots and 72 pages of 128) serves ``GPT3_TRACE``'s
+    seeded greedy requests, K10 once a layer a prefill batch and K2 (its
+    512 bucket) once a layer a decode step, K1 never; the kernel and
+    plain paths' logits within ``LOGITS_BAND``. Returns the launch counts
+    of the runs and their numbers."""
+    from apex_tpu_torch.ops import (attention_cuda, decode_attention_cuda,
+                                    softmax_cuda)
+    from apex_tpu_torch.serving import ServingEngine, synthetic_trace
+    from apex_tpu_torch.transformer.testing import TransformerConfig
+
+    cfg = TransformerConfig(**HD320)
+    if cfg.head_dim != 320:
+        raise AssertionError(f"HD320's head dim is {cfg.head_dim}")
+    launches, stats = {}, {}
+    for dropout in (False, True):
+        key = "training_dropout" if dropout else "training"
+        stats[key] = _wide_window(dev, HD320, dropout)
+        dloss, worst, launches[key] = phase_training_paths_agree(
+            dev, fused=False, dropout=dropout, model=HD320)
+        stats[key].update(train_loss_diff=dloss,
+                          train_worst_grad_rel_l2=worst)
+        if not (launches[key]["softmax_fwd"] and launches[key]["softmax_bwd"]):
+            raise AssertionError(f"head dim 320 ({key}): K10/K11 never "
+                                 f"launched: {launches[key]}")
+        torch.cuda.empty_cache()
+
+    engine = ServingEngine(cfg, seed=0, device=dev, **ENGINE)
+    reqs, trace_id = synthetic_trace(vocab=cfg.vocab_size, **GPT3_TRACE)
+    counted = {"prefill_attention": attention_cuda.prefill_attention,
+               "decode_attention": decode_attention_cuda.decode_attention,
+               "softmax_fwd": softmax_cuda.softmax_fwd}
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    engine.run_trace(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["serving"] = {k: fn.launches for k, fn in counted.items()}
+    want = {"prefill_attention": 0,
+            "decode_attention": engine.decode_steps * cfg.num_layers,
+            "softmax_fwd": engine.prefill_batches * cfg.num_layers}
+    if launches["serving"] != want or not want["decode_attention"]:
+        raise AssertionError(f"head dim 320 serving launched "
+                             f"{launches['serving']}, want {want}")
+    for r in reqs:
+        if len(r.out_tokens) != r.max_new_tokens:
+            raise AssertionError(f"request {r.rid} did not complete")
+    if decode_attention_cuda.plan(320, ENGINE["page_size"], 8, 2)[0] != 512:
+        raise AssertionError("head dim 320 does not decode at the 512 bucket")
+    logits = phase_paths_agree(engine, dev)
+    stats["serving"] = {
+        "trace_id": trace_id, "requests": len(reqs),
+        "tokens": engine.tokens_generated,
+        "prefill_batches": engine.prefill_batches,
+        "decode_steps": engine.decode_steps, "serving_wall_s": wall,
+        "tokens_per_s": engine.tokens_generated / wall,
+        "largest_logit": max(float(t.abs().max()) for t in logits)}
+    del engine, logits
+    torch.cuda.empty_cache()
+    _log("head dim 320 (4 heads, 2 layers): " + json.dumps(stats))
+    return launches, stats
 
 
 def phase_recompute_agree(dev):
@@ -3040,7 +3274,7 @@ def _kernel_label(fn):
     """A mangled kernel name as "<kernel> <dtype> <instance>" for the
     attention kernels and the LM head's kernels; "" for the others."""
     dtypes = {"13__nv_bfloat16": "bf16", "6__half": "fp16", "f": "fp32"}
-    att = re.search(r"(attention_bwd_(?:dq|dkv)_(?:tc|simt)|"
+    att = re.search(r"(attention_bwd_(?:dq|dkv)_(?:tc2?|simt)|"
                     r"prefill_attention_(?:tc|simt))I"
                     r"(13__nv_bfloat16|6__half|f)Li(\d+)ELb([01])", fn)
     tc = re.search(r"xent_bwd_tcI(13__nv_bfloat16|6__half)Lb([01])ELi(\d+)E",
@@ -3087,6 +3321,27 @@ def _log_ptxas(name, log):
             fn = re.search(r"function '(\S+)'", line)
             _log(f"  {name}: wgmma serialized in "
                  f"{_kernel_label(fn.group(1)) if fn else line.strip()}")
+
+
+def _check_attention_bwd_ptxas(log):
+    """Fail if ptxas spilled in a tensor-core K5/K6 instantiation at d =
+    256 or serialized the wgmma of any K5/K6 instantiation (C7510-C7520,
+    "instructions are serialized")."""
+    kernel, spilled = "", []
+    for line in log:
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            kernel = _kernel_label(entry.group(1))
+        elif ("_tc" in kernel and "d=256" in kernel and "spill" in line
+              and not re.search(r"\b0 bytes spill stores, 0 bytes spill "
+                                r"loads", line)):
+            spilled.append(f"{kernel}: {line.strip()}")
+    serialized = [line.strip() for line in log
+                  if "instructions are serialized" in line]
+    if spilled or serialized:
+        raise AssertionError(f"attention_bwd at d = 256: spills {spilled}; "
+                             f"serialized wgmma {serialized}")
+    _log("attention_bwd: no spills at d = 256, no serialized wgmma")
 
 
 def _tensor_core_sass(lib, kernels):
@@ -3157,15 +3412,17 @@ def main():
         _finish_parent_build(parent)
     for name in _build.SOURCES:
         _log_ptxas(name, _build.build_log.get(name, "").splitlines())
-    # the bf16 instantiations (d 64 and 128, with and without dropout) of
-    # K5/K6 (eight; d = 256 runs on the CUDA cores) and K1 (d 64, 128 and
-    # 256: six), those of the tensor-core K8/K9 (32- and 16-row streamed
-    # tiles, four) and that of the tensor-core K7/K7p first stage (one) must
-    # hold wgmma (HGMMA) instructions
+    _check_attention_bwd_ptxas(
+        _build.build_log.get("attention_bwd", "").splitlines())
+    # the bf16 instantiations (d 64, 128 and 256, with and without dropout)
+    # of K5/K6 (twelve; K6 at d = 256 is attention_bwd_dkv_tc2) and K1 (d
+    # 64, 128 and 256: six), those of the tensor-core K8/K9 (32- and 16-row
+    # streamed tiles, four) and that of the tensor-core K7/K7p first stage
+    # (one) must hold wgmma (HGMMA) instructions
     sass = {}
     for source, kernels, want in (
             ("attention_bwd", ("attention_bwd_dq_tc", "attention_bwd_dkv_tc"),
-             8),
+             12),
             ("prefill_attention", ("prefill_attention_tc",), 6),
             ("xent", ("xent_bwd_tc", "xent_fwd_tc"), 5)):
         counts = _tensor_core_sass(_build.lib_path(source), kernels)
@@ -3306,6 +3563,18 @@ def main():
     torch.cuda.empty_cache()
     (launches_by["gpt3_2p7b_serving"], launches_by["gpt3_2p7b_training"],
      _) = phase_gpt3_2p7b(dev)
+
+    # GPT-J-6B's attention widths (heads of 256: K1, K5/K6 and K1d, K5d/K6d
+    # at their D = 256 bodies), then heads of 320 (past the kernels: K10/K11
+    # in training and K10, K2 in serving)
+    torch.cuda.empty_cache()
+    gptj, _ = phase_gptj_6b(dev)
+    launches_by["gptj_6b_training"] = gptj["no_dropout"]
+    launches_by["gptj_6b_training_dropout"] = gptj["dropout"]
+    torch.cuda.empty_cache()
+    hd320, _ = phase_head_dim_320(dev)
+    for key, counts in hd320.items():
+        launches_by["head_dim_320_" + key] = counts
 
     # GPT-2-small at tensor-parallel size 2 on the vocab-sharded fused
     # head, in two ranks

@@ -21,7 +21,10 @@ segmented, fully masked and cross-length inputs, and in bf16 and fp16
 (the tensor-core kernels) over several ragged and exact tiles (300 x
 300, 200 x 333, 256 x 256) causal, segmented and with dropout, two runs
 equal bit for bit, and fp32 on its own CUDA-core kernels (the names the
-profiler records); the fused LM head (K7,
+profiler records), at head dim 256 the two-warpgroup tensor-core bodies
+(their names, two runs equal bit for bit); attention past head dim 256
+on the scores route, K10 and K11 launching once each and no attention
+kernel; the fused LM head (K7,
 K8, K9) at vocabularies 384, 640, 1280 and 50304, row counts that leave
 partial row tiles, widths that leave a partial column tile or narrower
 warpgroup windows, a width the tensor-core K8/K9 do not take (their
@@ -94,7 +97,9 @@ DTYPES = {"bfloat16": (torch.bfloat16, 5e-2), "float16": (torch.float16, 5e-3),
 # round to the same value; on an H100 (tests/port/kernel_l2_errors.py)
 # these cases measured at most 1.2e-4 (bf16), 3.3e-5 (fp16) and 4.5e-7
 # (fp32) with K5/K6 on the CUDA cores, and 1.1e-4 (bf16) and 6.6e-5
-# (fp16) with K5/K6 on the tensor cores, the multi-tile cases included
+# (fp16) with K5/K6 on the tensor cores, the multi-tile cases included;
+# with the D = 256 bodies on the tensor cores too, 3.1e-4 (bf16, d = 96),
+# 7.8e-5 (fp16) and 6.3e-7 (fp32), at d = 256 1.3e-4 (bf16)
 L2_TOL = {"bfloat16": 1e-3, "float16": 3e-4, "float32": 5e-6}
 # on an H100 (tests/port/kernel_l2_errors.py) these cases measured at most
 # 3.1e-7 for the loss and lse of every dtype (with K7 on wmma, and 3.1e-7
@@ -135,8 +140,8 @@ SOFTMAX_L2_TOL = {"bfloat16": 5e-4, "float16": 1.5e-4, "float32": 5e-7}
 # kernel; K2 (bf16/fp16/fp32 pages) is held to the same band
 K2Q_L2_TOL = {"bfloat16": 1e-4, "float16": 1e-4, "float32": 1e-6}
 # the attention kernels' head dims: 64 and 128 native, 32 / 80 / 96
-# zero-padded to the next, 256 (K1 on the tensor cores, K5/K6 on the CUDA
-# cores for every dtype)
+# zero-padded to the next, 256 (K1 and, for bf16 and fp16, K5/K6 on the
+# tensor cores; fp32 K5/K6 on the CUDA cores at every head dim)
 ATTN_DIMS = [32, 64, 80, 96, 128, 256]
 # decode's: the buckets 64 / 128 / 256 / 512 and the widths between
 DECODE_DIMS = [32, 64, 80, 128, 256, 512]
@@ -683,7 +688,7 @@ def test_attention_bwd_refuses_unaligned_rows(dev):
 @pytest.mark.parametrize("d", [64, 80, 256])
 def test_attention_autograd_runs_k1_k5_k6(dev, d):
     """fused_attention with gradients: one K1, K5 and K6 launch each, and
-    at a padded head dim (80) or the CUDA-core backward's (256) the
+    at a padded head dim (80) or the two-warpgroup backward's (256) the
     gradients of the true head dim, within band of the plain backward."""
     q, k, v, do, causal, seg = _attn_case(dev, torch.bfloat16, d, "causal")
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -706,6 +711,89 @@ def test_attention_autograd_runs_k1_k5_k6(dev, d):
     for leaf, r in zip(leaves, ref):
         _close_scaled(leaf.grad, r, DTYPES["bfloat16"][1])
         _close_l2(leaf.grad, r, "bfloat16")
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("dropout", [False, True])
+def test_attention_bwd_at_256_is_bitwise_repeatable(dev, dtype, dropout):
+    """At head dim 256 too each block owns its output rows: two runs of
+    K5/K6, or of K5d/K6d, over ragged tiles give the same bits."""
+    q, k, v, do, seg, sd = _tc_case(dev, DTYPES[dtype][0], 256, 200, 333,
+                                    "dropout" if dropout else "segments")
+    kw = dict(causal=True, sm_scale=0.0625, segment_ids=seg)
+    if dropout:
+        kw.update(dropout_p=0.1, dropout_seed=sd)
+        run = attention_bwd_cuda.attention_bwd_dropout
+    else:
+        run = attention_bwd_cuda.attention_bwd
+    o = attention._dense_attention(q, k, v, True, 0.0625, seg)
+    first, again = run(q, k, v, o, do, **kw), run(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_attention_bwd_at_256_runs_the_tensor_core_bodies(dev):
+    """bf16 and fp16 at head dim 256 launch K5's tensor-core body and
+    K6's two-warpgroup one (``attention_bwd_dkv_tc2``); fp32 the CUDA-core
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = {}
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        q, k, v, do, _, _ = _tc_case(dev, dtype, 256, 128, 128, "causal")
+        o = attention._dense_attention(q, k, v, True, 0.0625, None)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            attention_bwd_cuda.attention_bwd(q, k, v, o, do, causal=True,
+                                             sm_scale=0.0625)
+            torch.cuda.synchronize()
+        names[dtype] = " ".join(e.key for e in prof.key_averages()
+                                if "attention_bwd_" in e.key)
+    for dtype in (torch.bfloat16, torch.float16):
+        assert "attention_bwd_dq_tc" in names[dtype], names[dtype]
+        assert "attention_bwd_dkv_tc2" in names[dtype], names[dtype]
+        assert "simt" not in names[dtype], names[dtype]
+    assert "attention_bwd_dq_simt" in names[torch.float32]
+    assert "attention_bwd_dkv_simt" in names[torch.float32]
+
+
+@pytest.mark.parametrize("case", ["causal", "segments"])
+def test_scores_route_runs_k10_k11_past_256(dev, case):
+    """fused_attention at head dim 320 with gradients takes the scores
+    route: K10 and K11 launch once each, no attention kernel; the output
+    and the gradients within band of autograd through the plain dense
+    attention."""
+    gen = torch.Generator(device=dev).manual_seed(320)
+    b, h, s, d = 2, 3, 200, 320
+    q, k, v, do = (_randn(gen, b, h, s, d, dtype=torch.bfloat16, dev=dev)
+                   for _ in range(4))
+    seg = None
+    if case == "segments":
+        ids = (torch.arange(s) * 3 // s + 1).to(torch.int32).expand(b, s)
+        q_ids = ids.clone()
+        q_ids[:, s - 9:] = 0                 # a padded tail: no key of its own
+        seg = (q_ids.contiguous().to(dev), ids.contiguous().to(dev))
+    counted = (attention_cuda.prefill_attention,
+               attention_bwd_cuda.attention_bwd_dq,
+               attention_bwd_cuda.attention_bwd_dkv,
+               softmax_cuda.softmax_fwd, softmax_cuda.softmax_bwd)
+    before = [fn.launches for fn in counted]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = attention.fused_attention(*leaves, causal=True, segment_ids=seg)
+    o.backward(do)
+    assert [fn.launches - n for fn, n in zip(counted, before)] \
+        == [0, 0, 0, 1, 1]
+    refs = [t.clone().requires_grad_() for t in (q, k, v)]
+    ro = attention._dense_attention(*refs, True, d ** -0.5, seg)
+    ro.backward(do)
+    torch.cuda.synchronize()
+    _close_l2(o, ro, "bfloat16")
+    for leaf, ref in zip(leaves, refs):
+        _close_scaled(leaf.grad, ref.grad, DTYPES["bfloat16"][1])
+        _close_l2(leaf.grad, ref.grad, "bfloat16")
+    if seg is not None:
+        assert (o[:, :, s - 9:] == 0).all(), "a fully masked row gives 0"
 
 
 def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):

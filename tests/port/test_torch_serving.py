@@ -318,16 +318,18 @@ def test_engine_matches_jax_token_for_token_fp32(jax_tree):
 
 
 def test_serving_config_takes_head_dim_80_and_refuses_past_256():
-    """head_dim 80 (GPT-3 2.7B's) serves; past 256, the prefill kernels'
-    limit, the config is refused before any forward (decode's own limit,
-    512, is its wrapper's)."""
+    """head_dim 80 (GPT-3 2.7B's) and 264 (past the prefill kernels' 256:
+    prefill takes the scores route) serve; past 512, decode's limit, the
+    config is refused before any forward, the message naming 512."""
     base = dict(hidden_size=160, num_layers=1, num_attention_heads=2,
                 vocab_size=64, max_position_embeddings=32, hidden_dropout=0.0,
                 attention_dropout=0.0, apply_query_key_layer_scaling=False)
     tmodel.check_serving_config(TConfig(**base))
     assert TConfig(**base).head_dim == 80
-    with pytest.raises(ValueError, match="head_dim 264"):
-        tmodel.check_serving_config(TConfig(**dict(base, kv_channels=264)))
+    tmodel.check_serving_config(TConfig(**dict(base, kv_channels=264)))
+    tmodel.check_serving_config(TConfig(**dict(base, kv_channels=512)))
+    with pytest.raises(ValueError, match="head_dim 520.*up to 512"):
+        tmodel.check_serving_config(TConfig(**dict(base, kv_channels=520)))
     assert decode_attention_cuda.MAX_HEAD_DIM == 512
 
 

@@ -408,7 +408,6 @@ def test_step_never_reads_a_device_value_on_the_host(jax_tree, monkeypatch):
     (dict(recompute_granularity="layer"), "recompute"),
     (dict(num_moe_experts=4), "MoE"),
     (dict(sequence_parallel=True), "sequence"),
-    (dict(kv_channels=264), "head_dim 264"),
 ])
 def test_gpt_model_refuses_what_the_slice_does_not_model(change, match):
     with pytest.raises(ValueError, match=match):
