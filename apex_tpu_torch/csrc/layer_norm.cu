@@ -6,47 +6,61 @@
 // statistics (the mean, then the mean of (x - mean)^2, rstd = 1/sqrt(var +
 // eps)), normalize, optional fp32 affine, y in x's dtype; the forward saves
 // only the fp32 per-row mean and rstd. The backward recomputes xhat from x
-// and the saved statistics, writes dx in x's dtype, and writes the affine
-// gradients as per-block fp32 partials [nblocks, hidden] (dw = sum dy*xhat,
-// db = sum dy over the block's rows) that the caller sums, as the JAX
-// package sums its per-block partials outside the kernel (:244-245).
+// and the saved statistics and writes dx in x's dtype; the affine
+// gradients (dw = sum dy*xhat, db = sum dy over the rows) are written as
+// per-block fp32 partials [nblocks, hidden] and then summed over blocks by
+// a second small kernel in the same call (layer_norm_partials_sum), as the
+// JAX package sums its per-block partials outside the kernel (:244-245).
 //
 // Layout: x, y, dy, dx [rows, hidden] contiguous, one dtype (bf16, fp16 or
 // fp32); w, b [hidden] fp32 or null (no affine); mean, rstd [rows] fp32.
-// Any hidden >= 1. Where hidden is a multiple of 8 every row pointer is
-// 16-byte aligned (the wrapper checks) and the rows move in 16-byte
-// vectors; other widths (a bf16 row of 100 has a 200-byte stride) take
-// scalar loads.
+// Any hidden >= 1. The caller's plan (ops/layer_norm_cuda.plan) names the
+// body, the vector width V (elements a load: the widest of 8, 4, 2, 1 for
+// the half types, of 4, 2, 1 for fp32, that divides hidden, so every row
+// start is V-aligned; the wrapper checks the base pointers), the lanes or
+// threads a row, and the grid.
 //
 // What bounds it on H100: both kernels are bandwidth-bound. At the
 // training shape (rows 8192 = b*s, hidden 768, bf16) the forward moves
 // 25.2 MB (x read, y written) for ~8 flops per element, 7.5 us at
 // 3.35 TB/s; the backward moves 37.8 MB (x and dy read, dx written), 11 us.
-// So the design reads each element once, from registers: a team of TPR
-// threads (32..256, a power of two) owns one row, each thread holding G
-// groups of 8 consecutive columns (one 16-byte load per group for the
-// half types), and both statistics come from those registers with team
-// reductions in a fixed order. The TPU kernel's row block in VMEM becomes
-// the team's registers.
+// So each element is read once into registers and both statistics come
+// from there, with reductions in a fixed order; what the design adds for
+// this card is bytes in flight: a persistent grid (one or two blocks an SM)
+// whose warps walk many rows and start the next row's loads before they
+// reduce the current one.
 //
-// Determinism: no atomics. In the backward each team accumulates its own
-// rows' dw/db in registers; the teams of a block add their sums into
-// shared memory one team after another (a fixed order) and the block
-// writes one partial row. The same inputs give the same bits every run.
+// Bodies:
+// * rows (widths of at most 128 vectors: 1024 bf16 columns, the main
+//   path's 768 among them, and every narrow width): a team of L lanes of
+//   one warp (L a power of two, 1 to 32) owns a row, each lane G <= 4
+//   vectors of V; a warp runs 32 / L rows at a time, walks the rows with
+//   the stride of the whole grid, and loads its next rows' vectors into
+//   registers before it reduces the current ones (a register double
+//   buffer; a two-stage shared-memory ring filled by cp.async.bulk
+//   measured the same on an H100, so the simpler form stays). K4's
+//   lanes sum dw/db in registers over all of their rows; the teams of a
+//   warp combine by an xor butterfly, the 8 warps of a block by a fixed
+//   pairwise tree in shared memory; one partial row a block.
+// * team (the parent's body, kept for widths of 1032 to 8192 that are a
+//   multiple of 8): a team of TPR threads (32..256) owns one row, each
+//   thread G groups of 8 columns; one row a team, no prefetch; K4's
+//   teams walk a block of rows and add their sums into shared memory one
+//   team after another.
+// * wide (past 8192, and widths past the rows body that are not a
+//   multiple of 8): a block of TW threads (128 or 512) owns a row, each
+//   thread the vectors t, t + TW, ... of it, the first few in registers
+//   (the rest read again for each pass). K3 is the parent's kernel, a
+//   block a row over groups of 8 (element loads where the row is not a
+//   multiple of 8): rewrites over vectors of V, walking the rows or
+//   not, measured slower on an H100. K4's blocks walk the rows with the stride of the
+//   grid, prefetching the next row's register vectors; its threads own
+//   their columns across all of the block's rows, so its partial row
+//   needs no combine (vectors past the registers are added to the
+//   block's partial row in place, one row after another).
 //
-// That body takes hidden % 8 == 0 up to 8192 (the main path, 768). Other
-// widths take the row-per-block body (layer_norm_{fwd,bwd}_wide): one
-// team of TW threads (a whole block, 512 for wide rows, 128 for narrow
-// unaligned ones) per row, each thread owning the groups t, t + TW, ... of
-// every row. The forward keeps its first G groups of x in registers and
-// reads the rest again for the later passes (the mean first, then the
-// mean of (x - mean)^2, then y, as the team body computes them). The
-// backward's threads own their columns across all of the block's rows, so
-// the dW/dB partials of the first G groups are summed in registers and
-// written straight to the block's partial row in global memory (no shared
-// accumulator, no atomics), and those of later groups are added to that
-// row in place by their owning thread, one row after another; dx's pass
-// reads x and dy again. Unaligned widths load element by element.
+// Determinism: no atomics. Every sum is taken in an order fixed by the
+// plan, so the same inputs and plan give the same bits every run.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -58,6 +72,10 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int MAX_HIDDEN = 8192;   // the team body's widest row
+constexpr int ROW_WARPS = 8;       // warps a block of the rows body
+constexpr int WIDE_G = 3;          // groups of 8 a wide thread keeps in registers
+
+enum Body { BODY_TEAM = 0, BODY_ROWS = 1, BODY_WIDE = 2 };
 
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
@@ -73,7 +91,7 @@ template <> __device__ __forceinline__ __half from_f<__half>(float x) {
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 
 // 8 consecutive elements of T: one 16-byte load/store for the half types,
-// two for fp32.
+// two for fp32 (the team body)
 template <typename T>
 __device__ __forceinline__ void load8(const T* p, float (&out)[8]) {
   if constexpr (sizeof(T) == 2) {
@@ -101,6 +119,70 @@ __device__ __forceinline__ void store8(T* p, const float (&v)[8]) {
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
     *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
   }
+}
+
+// V consecutive elements of T as one load of V * sizeof(T) bytes (2 to 16)
+template <int BYTES> struct RawOf;
+template <> struct RawOf<16> { using type = uint4; };
+template <> struct RawOf<8> { using type = uint2; };
+template <> struct RawOf<4> { using type = unsigned int; };
+template <> struct RawOf<2> { using type = unsigned short; };
+template <typename T, int V> using Raw = typename RawOf<V * sizeof(T)>::type;
+
+template <typename T, int V>
+__device__ __forceinline__ Raw<T, V> load_raw(const T* p) {
+  return *reinterpret_cast<const Raw<T, V>*>(p);
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void unpack(const Raw<T, V>& r, float (&out)[V]) {
+  const T* e = reinterpret_cast<const T*>(&r);
+#pragma unroll
+  for (int i = 0; i < V; ++i) out[i] = to_f(e[i]);
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_vec(T* p, const float (&v)[V]) {
+  Raw<T, V> r;
+  T* e = reinterpret_cast<T*>(&r);
+#pragma unroll
+  for (int i = 0; i < V; ++i) e[i] = from_f<T>(v[i]);
+  *reinterpret_cast<Raw<T, V>*>(p) = r;
+}
+
+// V fp32 parameters (w or b) at p, or `fill` where p is null
+template <int V>
+__device__ __forceinline__ void load_param(const float* p, int off, float fill,
+                                           float (&out)[V]) {
+  if (p == nullptr) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) out[i] = fill;
+    return;
+  }
+  p += off;
+  if constexpr (V >= 4) {
+#pragma unroll
+    for (int k = 0; k < V / 4; ++k) {
+      const float4 a = reinterpret_cast<const float4*>(p)[k];
+      out[4 * k] = a.x; out[4 * k + 1] = a.y;
+      out[4 * k + 2] = a.z; out[4 * k + 3] = a.w;
+    }
+  } else if constexpr (V == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    out[0] = a.x; out[1] = a.y;
+  } else {
+    out[0] = *p;
+  }
+}
+
+// sums of (a, b) over the L lanes of a team (lanes l ^ 1, l ^ 2, ... in
+// that order); every lane of the warp calls it
+__device__ __forceinline__ float2 lanes_sum(float a, float b, int lanes) {
+  for (int off = 1; off < lanes; off <<= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, off);
+    b += __shfl_xor_sync(0xffffffffu, b, off);
+  }
+  return make_float2(a, b);
 }
 
 // Sum of (a, b) over the TPR threads of a team, in a fixed order. Every
@@ -314,10 +396,254 @@ layer_norm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// The row-per-block body: widths past 8192 and widths that are not a
-// multiple of 8.
+// The rows body: a team of `lanes` lanes of one warp a row; the warps walk
+// the rows with the grid's stride, prefetching their next rows.
 
-constexpr int WIDE_G = 3;          // groups of 8 a thread keeps in registers
+// lane t's vectors t, t + lanes, ... of `row` (zeros past the row or past
+// the rows)
+template <typename T, int V, int G>
+__device__ __forceinline__ void load_lane(const T* src, int row, int rows,
+                                          int hidden, int nvec, int t,
+                                          int lanes, Raw<T, V> (&r)[G]) {
+  const bool ok = row < rows;
+  const T* p = src + (size_t)(ok ? row : 0) * hidden;
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    const int c = t + lanes * j;
+    r[j] = (ok && c < nvec) ? load_raw<T, V>(p + (size_t)c * V) : Raw<T, V>{};
+  }
+}
+
+// K3, the rows body: the next rows' vectors are loaded before the current
+// rows are reduced (a register double buffer)
+template <typename T, int V, int G>
+__global__ void __launch_bounds__(ROW_WARPS * 32)
+layer_norm_fwd_rows(const T* __restrict__ x, const float* __restrict__ w,
+                    const float* __restrict__ b, T* __restrict__ y,
+                    float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                    int rows, int hidden, int lanes, float eps) {
+  const int lane = threadIdx.x & 31;
+  const int team = lane / lanes, t = lane % lanes, teams = 32 / lanes;
+  const int first = (blockIdx.x * ROW_WARPS + threadIdx.x / 32) * teams;
+  const int step = gridDim.x * ROW_WARPS * teams;
+  const int nvec = hidden / V;
+  const float inv_n = 1.f / (float)hidden;
+
+  float wv[G][V], bv[G][V];
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    const int c = min(t + lanes * j, nvec - 1);
+    load_param<V>(w, c * V, 1.f, wv[j]);
+    load_param<V>(b, c * V, 0.f, bv[j]);
+  }
+
+  Raw<T, V> cur[G];
+  load_lane<T, V, G>(x, first + team, rows, hidden, nvec, t, lanes, cur);
+  for (int r0 = first; r0 < rows; r0 += step) {
+    const int row = r0 + team;
+    Raw<T, V> nxt[G];
+    load_lane<T, V, G>(x, row + step, rows, hidden, nvec, t, lanes, nxt);
+
+    float v[G][V];
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      unpack<T, V>(cur[j], v[j]);
+#pragma unroll
+      for (int i = 0; i < V; ++i) sum += v[j][i];
+    }
+    const float mean = lanes_sum(sum, 0.f, lanes).x * inv_n;
+    float sq = 0.f;
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      if (t + lanes * j < nvec) {
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          const float c = v[j][i] - mean;
+          sq += c * c;
+        }
+      }
+    }
+    const float var = lanes_sum(sq, 0.f, lanes).x * inv_n;
+    const float rstd = 1.f / sqrtf(var + eps);
+    if (row < rows) {
+      T* yr = y + (size_t)row * hidden;
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const int c = t + lanes * j;
+        if (c >= nvec) continue;
+        float o[V];
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          float r = (v[j][i] - mean) * rstd;
+          if (w != nullptr) r = r * wv[j][i];
+          if (b != nullptr) r = r + bv[j][i];
+          o[i] = r;
+        }
+        store_vec<T, V>(yr + (size_t)c * V, o);
+      }
+      if (t == 0) {
+        mean_out[row] = mean;
+        rstd_out[row] = rstd;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < G; ++j) cur[j] = nxt[j];
+  }
+}
+
+// K4, the rows body: dx a row; each lane sums dw/db of its columns over
+// all of its rows in registers, the teams of a warp combine by an xor
+// butterfly, the block's 8 warps by a pairwise tree in shared memory, and
+// the block writes one partial row
+template <typename T, int V, int G>
+__global__ void __launch_bounds__(ROW_WARPS * 32)
+layer_norm_bwd_rows(const T* __restrict__ x, const float* __restrict__ w,
+                    const float* __restrict__ mean_in,
+                    const float* __restrict__ rstd_in, const T* __restrict__ dy,
+                    T* __restrict__ dx, float* __restrict__ dw_part,
+                    float* __restrict__ db_part, int rows, int hidden,
+                    int lanes) {
+  static_assert(ROW_WARPS == 8, "the combine's tree is written for 8 warps");
+  extern __shared__ float part[];      // [ROW_WARPS][hidden]
+  const int lane = threadIdx.x & 31, wib = threadIdx.x / 32;
+  const int team = lane / lanes, t = lane % lanes, teams = 32 / lanes;
+  const int first = (blockIdx.x * ROW_WARPS + wib) * teams;
+  const int step = gridDim.x * ROW_WARPS * teams;
+  const int nvec = hidden / V;
+  const float inv_n = 1.f / (float)hidden;
+
+  float wv[G][V], dw_acc[G][V], db_acc[G][V];
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    load_param<V>(w, min(t + lanes * j, nvec - 1) * V, 1.f, wv[j]);
+#pragma unroll
+    for (int i = 0; i < V; ++i) dw_acc[j][i] = db_acc[j][i] = 0.f;
+  }
+
+  Raw<T, V> cx[G], cd[G];
+  int row = first + team;
+  float cm = row < rows ? mean_in[row] : 0.f;
+  float cr = row < rows ? rstd_in[row] : 0.f;
+  load_lane<T, V, G>(x, row, rows, hidden, nvec, t, lanes, cx);
+  load_lane<T, V, G>(dy, row, rows, hidden, nvec, t, lanes, cd);
+  for (int r0 = first; r0 < rows; r0 += step) {
+    row = r0 + team;
+    const int nrow = row + step;
+    const float nm = nrow < rows ? mean_in[nrow] : 0.f;
+    const float nr = nrow < rows ? rstd_in[nrow] : 0.f;
+    Raw<T, V> nx[G], nd[G];
+    load_lane<T, V, G>(x, nrow, rows, hidden, nvec, t, lanes, nx);
+    load_lane<T, V, G>(dy, nrow, rows, hidden, nvec, t, lanes, nd);
+
+    // zeros past the row or the rows add nothing (dy is 0 there)
+    float xh[G][V], g[G][V];
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      float xv[V], dv[V];
+      unpack<T, V>(cx[j], xv);
+      unpack<T, V>(cd[j], dv);
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float xhat = (xv[i] - cm) * cr;
+        const float wg = dv[i] * wv[j][i];
+        xh[j][i] = xhat;
+        g[j][i] = wg;
+        s1 += wg;
+        s2 += wg * xhat;
+        dw_acc[j][i] += dv[i] * xhat;
+        db_acc[j][i] += dv[i];
+      }
+    }
+    const float2 s = lanes_sum(s1, s2, lanes);
+    const float m1 = s.x * inv_n, m2 = s.y * inv_n;
+    if (row < rows) {
+      T* dxr = dx + (size_t)row * hidden;
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const int c = t + lanes * j;
+        if (c >= nvec) continue;
+        float o[V];
+#pragma unroll
+        for (int i = 0; i < V; ++i) o[i] = (g[j][i] - m1 - xh[j][i] * m2) * cr;
+        store_vec<T, V>(dxr + (size_t)c * V, o);
+      }
+    }
+    cm = nm;
+    cr = nr;
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      cx[j] = nx[j];
+      cd[j] = nd[j];
+    }
+  }
+
+  // the warp's teams: lane l adds lane l ^ lanes, then l ^ 2 lanes, ...
+  for (int off = lanes; off < 32; off <<= 1) {
+#pragma unroll
+    for (int j = 0; j < G; ++j)
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        dw_acc[j][i] += __shfl_xor_sync(0xffffffffu, dw_acc[j][i], off);
+        db_acc[j][i] += __shfl_xor_sync(0xffffffffu, db_acc[j][i], off);
+      }
+  }
+  // the block's warps: ((w0 + w1) + (w2 + w3)) + ((w4 + w5) + (w6 + w7))
+  for (int which = 0; which < 2; ++which) {
+    if (which) __syncthreads();        // dw's reads of `part` are over
+    if (team == 0) {
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const int c = t + lanes * j;
+        if (c >= nvec) continue;
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+          part[wib * hidden + c * V + i] = which ? db_acc[j][i] : dw_acc[j][i];
+      }
+    }
+    __syncthreads();
+    float* out = (which ? db_part : dw_part) + (size_t)blockIdx.x * hidden;
+    for (int col = threadIdx.x; col < hidden; col += ROW_WARPS * 32) {
+      const float* p = part + col;
+      out[col] = ((p[0] + p[hidden]) + (p[2 * hidden] + p[3 * hidden])) +
+                 ((p[4 * hidden] + p[5 * hidden]) +
+                  (p[6 * hidden] + p[7 * hidden]));
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The wide body: a block of TW threads a row; the blocks walk the rows
+// with the grid's stride, prefetching the next row's register vectors.
+
+template <typename T, int V, int G, int TW>
+__device__ __forceinline__ void load_block(const T* src, int row, int rows,
+                                           int hidden, int nvec,
+                                           Raw<T, V> (&r)[G]) {
+  load_lane<T, V, G>(src, row, rows, hidden, nvec, threadIdx.x, TW, r);
+}
+
+// sum of (a, b) over the block's TW threads in a fixed order; every thread
+// gets it
+template <int TW>
+__device__ __forceinline__ float2 block_sum(float a, float b, float2* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, off);
+    b += __shfl_xor_sync(0xffffffffu, b, off);
+  }
+  __syncthreads();                       // red's previous use is over
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x / 32] = make_float2(a, b);
+  __syncthreads();
+  float2 s = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int i = 0; i < TW / 32; ++i) {
+    s.x += red[i].x;
+    s.y += red[i].y;
+  }
+  return s;
+}
 
 // group g (columns 8g .. 8g + 7) of a row: one vector where VEC, else
 // element by element with the columns past hidden read as 0
@@ -347,27 +673,6 @@ __device__ __forceinline__ void store_group(T* row, int g, int hidden,
   }
 }
 
-// sum of (a, b) over the block's TW threads in a fixed order; every thread
-// gets it
-template <int TW>
-__device__ __forceinline__ float2 block_sum(float a, float b, float2* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    a += __shfl_xor_sync(0xffffffffu, a, off);
-    b += __shfl_xor_sync(0xffffffffu, b, off);
-  }
-  __syncthreads();                       // red's previous use is over
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x / 32] = make_float2(a, b);
-  __syncthreads();
-  float2 s = make_float2(0.f, 0.f);
-#pragma unroll
-  for (int i = 0; i < TW / 32; ++i) {
-    s.x += red[i].x;
-    s.y += red[i].y;
-  }
-  return s;
-}
-
 // y of group g from x's values v
 template <typename T, bool VEC>
 __device__ __forceinline__ void norm_group(const float (&v)[8], const float* w,
@@ -387,8 +692,11 @@ __device__ __forceinline__ void norm_group(const float (&v)[8], const float* w,
   store_group<T, VEC>(yr, g, hidden, o);
 }
 
-// K3, a row per block: the first WIDE_G groups of a thread stay in
-// registers, later ones are read again for each pass
+// K3, the wide body, the parent's (a rewrite over vectors of V, and one
+// walking the rows with a prefetch, measured slower on an H100): a block a
+// row; the first WIDE_G groups of 8 of a thread stay in registers, later
+// ones are read again for each pass; rows not a multiple of 8 load
+// element by element
 template <typename T, int TW, bool VEC>
 __global__ void __launch_bounds__(TW)
 layer_norm_fwd_wide(const T* __restrict__ x, const float* __restrict__ w,
@@ -465,157 +773,224 @@ layer_norm_fwd_wide(const T* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// xhat and the weighted gradient of group g of one row (zeros past hidden)
-template <typename T, bool VEC>
-__device__ __forceinline__ void bwd_group(const T* xr, const T* dyr,
-                                          const float* w, int g, int hidden,
-                                          float mean, float rstd,
-                                          float (&xh)[8], float (&dv)[8],
-                                          float (&wg)[8]) {
-  float xv[8], wv[8];
-  load_group<T, VEC>(xr, g, hidden, xv);
-  load_group<T, VEC>(dyr, g, hidden, dv);
-  if (w != nullptr) load_group<float, VEC>(w, g, hidden, wv);
+// vectors a thread of K4's wide body keeps in registers: x and dy of this
+// row and the next (each element a register at least) and the fp32
+// dw/db sums within about 96 registers; 24 elements for bf16/fp16
+// vectors of 2 to 8, 16 for single elements, 12 for fp32
+template <typename T, int V>
+__host__ __device__ constexpr int wide_bwd_g() {
+  return (sizeof(T) == 4 ? 12 : V == 1 ? 16 : 8 * WIDE_G) / V;
+}
+
+// xhat and the weighted gradient of one vector (x's and dy's raw values)
+template <typename T, int V>
+__device__ __forceinline__ void bwd_vec(const Raw<T, V>& xr, const Raw<T, V>& dr,
+                                        const float* w, int c, float mean,
+                                        float rstd, float (&xh)[V],
+                                        float (&dv)[V], float (&wg)[V]) {
+  float xv[V], wv[V];
+  unpack<T, V>(xr, xv);
+  unpack<T, V>(dr, dv);
+  load_param<V>(w, c * V, 1.f, wv);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < V; ++i) {
     xh[i] = (xv[i] - mean) * rstd;
-    wg[i] = (w != nullptr) ? dv[i] * wv[i] : dv[i];
+    wg[i] = dv[i] * wv[i];
   }
 }
 
-// K4, a block of TW threads walks its rows one at a time; dx per row, the
-// dW/dB partials of a thread's columns over all of the block's rows
-template <typename T, int TW, bool VEC>
+// K4, the wide body: a block walks its rows (blockIdx.x, + gridDim.x, ...);
+// dx a row; the dW/dB partials of a thread's columns over all of the
+// block's rows, in registers for its first G vectors and, for later ones,
+// added to the block's partial row in place (the block's first row writes
+// them)
+template <typename T, int V, int TW>
 __global__ void __launch_bounds__(TW)
 layer_norm_bwd_wide(const T* __restrict__ x, const float* __restrict__ w,
                     const float* __restrict__ mean_in,
                     const float* __restrict__ rstd_in, const T* __restrict__ dy,
                     T* __restrict__ dx, float* __restrict__ dw_part,
-                    float* __restrict__ db_part, int rows, int hidden,
-                    int rows_per_block) {
-  constexpr int G = WIDE_G;
+                    float* __restrict__ db_part, int rows, int hidden) {
+  constexpr int G = wide_bwd_g<T, V>();
   __shared__ float2 red[TW / 32];
   const int t = threadIdx.x;
-  const int groups = (hidden + 7) / 8;
-  const int r0 = blockIdx.x * rows_per_block;
-  const int r1 = min(rows, r0 + rows_per_block);
+  const int nvec = hidden / V;
   const float inv_n = 1.f / (float)hidden;
   float* dwp = dw_part + (size_t)blockIdx.x * hidden;
   float* dbp = db_part + (size_t)blockIdx.x * hidden;
 
-  float dw_acc[G][8], db_acc[G][8];
+  float dw_acc[G][V], db_acc[G][V];
 #pragma unroll
   for (int j = 0; j < G; ++j)
 #pragma unroll
-    for (int i = 0; i < 8; ++i) dw_acc[j][i] = db_acc[j][i] = 0.f;
+    for (int i = 0; i < V; ++i) dw_acc[j][i] = db_acc[j][i] = 0.f;
 
-  for (int row = r0; row < r1; ++row) {
-    const size_t base = (size_t)row * hidden;
-    const float mean = mean_in[row], rstd = rstd_in[row];
+  Raw<T, V> cx[G], cd[G];
+  int row = blockIdx.x;
+  load_block<T, V, G, TW>(x, row, rows, hidden, nvec, cx);
+  load_block<T, V, G, TW>(dy, row, rows, hidden, nvec, cd);
+  float cm = row < rows ? mean_in[row] : 0.f;
+  float cr = row < rows ? rstd_in[row] : 0.f;
+  for (; row < rows; row += gridDim.x) {
+    const int nrow = row + gridDim.x;
+    Raw<T, V> nx[G], nd[G];
+    load_block<T, V, G, TW>(x, nrow, rows, hidden, nvec, nx);
+    load_block<T, V, G, TW>(dy, nrow, rows, hidden, nvec, nd);
+    const float nm = nrow < rows ? mean_in[nrow] : 0.f;
+    const float nr = nrow < rows ? rstd_in[nrow] : 0.f;
+    const T* xr = x + (size_t)row * hidden;
+    const T* dyr = dy + (size_t)row * hidden;
+
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
     for (int j = 0; j < G; ++j) {
-      const int g = t + TW * j;
-      if (g >= groups) continue;
-      float xh[8], dv[8], wg[8];
-      bwd_group<T, VEC>(x + base, dy + base, w, g, hidden, mean, rstd, xh, dv, wg);
+      const int c = t + TW * j;
+      if (c >= nvec) continue;
+      float xh[V], dv[V], wg[V];
+      bwd_vec<T, V>(cx[j], cd[j], w, c, cm, cr, xh, dv, wg);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+      for (int i = 0; i < V; ++i) {
         s1 += wg[i];
         s2 += wg[i] * xh[i];
         dw_acc[j][i] += dv[i] * xh[i];
         db_acc[j][i] += dv[i];
       }
     }
-    // groups past the registers: this thread's columns of the block's
-    // partial rows, added to in place (the first row writes them)
-    for (int g = t + TW * G; g < groups; g += TW) {
-      float xh[8], dv[8], wg[8];
-      bwd_group<T, VEC>(x + base, dy + base, w, g, hidden, mean, rstd, xh, dv, wg);
+    for (int c = t + TW * G; c < nvec; c += TW) {
+      float xh[V], dv[V], wg[V];
+      bwd_vec<T, V>(load_raw<T, V>(xr + (size_t)c * V),
+                    load_raw<T, V>(dyr + (size_t)c * V), w, c, cm, cr, xh, dv,
+                    wg);
+      const bool first = row == (int)blockIdx.x;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+      for (int i = 0; i < V; ++i) {
         s1 += wg[i];
         s2 += wg[i] * xh[i];
-        const int c = 8 * g + i;
-        if (VEC || c < hidden) {
-          dwp[c] = (row == r0 ? 0.f : dwp[c]) + dv[i] * xh[i];
-          dbp[c] = (row == r0 ? 0.f : dbp[c]) + dv[i];
-        }
+        const int e = c * V + i;
+        dwp[e] = (first ? 0.f : dwp[e]) + dv[i] * xh[i];
+        dbp[e] = (first ? 0.f : dbp[e]) + dv[i];
       }
     }
     const float2 s = block_sum<TW>(s1, s2, red);
-    const float m1 = s.x * inv_n;
-    const float m2 = s.y * inv_n;
-    for (int g = t; g < groups; g += TW) {
-      float xh[8], dv[8], wg[8], o[8];
-      bwd_group<T, VEC>(x + base, dy + base, w, g, hidden, mean, rstd, xh, dv, wg);
+    const float m1 = s.x * inv_n, m2 = s.y * inv_n;
+    T* dxr = dx + (size_t)row * hidden;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) o[i] = (wg[i] - m1 - xh[i] * m2) * rstd;
-      store_group<T, VEC>(dx + base, g, hidden, o);
+    for (int j = 0; j < G; ++j) {
+      const int c = t + TW * j;
+      if (c >= nvec) continue;
+      float xh[V], dv[V], wg[V], o[V];
+      bwd_vec<T, V>(cx[j], cd[j], w, c, cm, cr, xh, dv, wg);
+#pragma unroll
+      for (int i = 0; i < V; ++i) o[i] = (wg[i] - m1 - xh[i] * m2) * cr;
+      store_vec<T, V>(dxr + (size_t)c * V, o);
+    }
+    for (int c = t + TW * G; c < nvec; c += TW) {
+      float xh[V], dv[V], wg[V], o[V];
+      bwd_vec<T, V>(load_raw<T, V>(xr + (size_t)c * V),
+                    load_raw<T, V>(dyr + (size_t)c * V), w, c, cm, cr, xh, dv,
+                    wg);
+#pragma unroll
+      for (int i = 0; i < V; ++i) o[i] = (wg[i] - m1 - xh[i] * m2) * cr;
+      store_vec<T, V>(dxr + (size_t)c * V, o);
+    }
+    cm = nm;
+    cr = nr;
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      cx[j] = nx[j];
+      cd[j] = nd[j];
     }
   }
 #pragma unroll
   for (int j = 0; j < G; ++j) {
-    const int g = t + TW * j;
-    if (g >= groups) continue;
+    const int c = t + TW * j;
+    if (c >= nvec) continue;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int c = 8 * g + i;
-      if (VEC || c < hidden) {
-        dwp[c] = dw_acc[j][i];
-        dbp[c] = db_acc[j][i];
-      }
+    for (int i = 0; i < V; ++i) {
+      dwp[c * V + i] = dw_acc[j][i];
+      dbp[c * V + i] = db_acc[j][i];
     }
   }
 }
 
-// the team body takes the row (the main path)
-bool team_row(int hidden) { return hidden % 8 == 0 && hidden <= MAX_HIDDEN; }
+// ---------------------------------------------------------------------------
+// K4's second stage: dw and db [hidden] from the [nparts, hidden] partials.
+// A block takes 32 columns of one of them; its SUM_SLICES warps each add
+// the partial rows s, s + SUM_SLICES, ... of a column in order, then a
+// pairwise tree adds the slices.
 
-// threads of the row-per-block body: 128 for unaligned rows whose groups
-// fit 128 threads' registers, else 512
-int wide_threads(int hidden) {
-  return (hidden % 8 != 0 && (hidden + 7) / 8 <= 128 * WIDE_G) ? 128 : 512;
+constexpr int SUM_SLICES = 16;
+
+__global__ void __launch_bounds__(32 * SUM_SLICES)
+layer_norm_partials_sum(const float* __restrict__ dw_part,
+                        const float* __restrict__ db_part,
+                        float* __restrict__ dw, float* __restrict__ db,
+                        int nparts, int hidden) {
+  __shared__ float s_part[SUM_SLICES][32];
+  const int lane = threadIdx.x & 31, slice = threadIdx.x / 32;
+  const int col = blockIdx.x * 32 + lane;
+  const float* src = blockIdx.y ? db_part : dw_part;
+  float s = 0.f;
+  if (col < hidden) {
+#pragma unroll 8
+    for (int p = slice; p < nparts; p += SUM_SLICES)
+      s += src[(size_t)p * hidden + col];
+  }
+  s_part[slice][lane] = s;
+  __syncthreads();
+  for (int n = SUM_SLICES / 2; n > 0; n >>= 1) {
+    if (slice < n) s_part[slice][lane] += s_part[slice + n][lane];
+    __syncthreads();
+  }
+  if (slice == 0 && col < hidden) (blockIdx.y ? db : dw)[col] = s_part[0][lane];
 }
 
-template <typename T>
-cudaError_t launch_fwd_wide(int rows, const void* x, const void* w, const void* b,
-                            void* y, void* mean, void* rstd, int hidden, float eps,
-                            cudaStream_t st) {
-#define LN_FWD_WIDE(TW, VEC)                                                  \
-  layer_norm_fwd_wide<T, TW, VEC><<<rows, TW, 0, st>>>(                       \
-      (const T*)x, (const float*)w, (const float*)b, (T*)y, (float*)mean,     \
-      (float*)rstd, hidden, eps)
-  if (hidden % 8 == 0) LN_FWD_WIDE(512, true);
-  else if (wide_threads(hidden) == 128) LN_FWD_WIDE(128, false);
-  else LN_FWD_WIDE(512, false);
-#undef LN_FWD_WIDE
+// ---------------------------------------------------------------------------
+// Launchers
+
+template <typename T, int V, int G>
+cudaError_t launch_fwd_rows(int grid, int lanes, int rows, const void* x,
+                            const void* w, const void* b, void* y, void* mean,
+                            void* rstd, int hidden, float eps, cudaStream_t st) {
+  layer_norm_fwd_rows<T, V, G><<<grid, ROW_WARPS * 32, 0, st>>>(
+      (const T*)x, (const float*)w, (const float*)b, (T*)y, (float*)mean,
+      (float*)rstd, rows, hidden, lanes, eps);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_bwd_wide(int nblocks, const void* x, const void* w,
+// K4's rows body takes ROW_WARPS x hidden floats of dynamic shared memory
+// for its combine (at most 32 KB)
+template <typename T, int V, int G>
+cudaError_t launch_bwd_rows(int grid, int lanes, int rows, const void* x,
+                            const void* w, const void* mean, const void* rstd,
+                            const void* dy, void* dx, void* dw, void* db,
+                            int hidden, cudaStream_t st) {
+  layer_norm_bwd_rows<T, V, G>
+      <<<grid, ROW_WARPS * 32, ROW_WARPS * hidden * sizeof(float), st>>>(
+          (const T*)x, (const float*)w, (const float*)mean, (const float*)rstd,
+          (const T*)dy, (T*)dx, (float*)dw, (float*)db, rows, hidden, lanes);
+  return cudaGetLastError();
+}
+
+template <typename T, int TW, bool VEC>
+cudaError_t launch_fwd_wide(int rows, const void* x, const void* w,
+                            const void* b, void* y, void* mean, void* rstd,
+                            int hidden, float eps, cudaStream_t st) {
+  layer_norm_fwd_wide<T, TW, VEC><<<rows, TW, 0, st>>>(
+      (const T*)x, (const float*)w, (const float*)b, (T*)y, (float*)mean,
+      (float*)rstd, hidden, eps);
+  return cudaGetLastError();
+}
+
+template <typename T, int V, int TW>
+cudaError_t launch_bwd_wide(int grid, int rows, const void* x, const void* w,
                             const void* mean, const void* rstd, const void* dy,
-                            void* dx, void* dw, void* db, int rows, int hidden,
-                            int rows_per_block, cudaStream_t st) {
-#define LN_BWD_WIDE(TW, VEC)                                                  \
-  layer_norm_bwd_wide<T, TW, VEC><<<nblocks, TW, 0, st>>>(                    \
-      (const T*)x, (const float*)w, (const float*)mean, (const float*)rstd,  \
-      (const T*)dy, (T*)dx, (float*)dw, (float*)db, rows, hidden,            \
-      rows_per_block)
-  if (hidden % 8 == 0) LN_BWD_WIDE(512, true);
-  else if (wide_threads(hidden) == 128) LN_BWD_WIDE(128, false);
-  else LN_BWD_WIDE(512, false);
-#undef LN_BWD_WIDE
+                            void* dx, void* dw, void* db, int hidden,
+                            cudaStream_t st) {
+  layer_norm_bwd_wide<T, V, TW><<<grid, TW, 0, st>>>(
+      (const T*)x, (const float*)w, (const float*)mean, (const float*)rstd,
+      (const T*)dy, (T*)dx, (float*)dw, (float*)db, rows, hidden);
   return cudaGetLastError();
-}
-
-// threads per row: the smallest team whose G <= 4 groups cover the row
-int pick_tpr(int hidden) {
-  const int groups = hidden / 8;
-  for (int tpr = 32; tpr <= THREADS; tpr *= 2)
-    if (groups <= 4 * tpr) return tpr;
-  return 0;
 }
 
 template <typename T, int TPR, int G>
@@ -642,91 +1017,230 @@ cudaError_t launch_bwd(int nblocks, const void* x, const void* w,
   return cudaGetLastError();
 }
 
-// Calls F<T, TPR, G>::run(args...) for the runtime (dtype, tpr, g).
-#define LN_DISPATCH_G(T, TPR, G, CALL)          \
-  switch (G) {                                   \
-    case 1: return CALL(T, TPR, 1);              \
-    case 2: return CALL(T, TPR, 2);              \
-    case 3: return CALL(T, TPR, 3);              \
-    default: return CALL(T, TPR, 4);             \
-  }
+// ---------------------------------------------------------------------------
+// Dispatch of the plan's runtime choices onto the instantiations
 
-#define LN_DISPATCH_TPR(T, TPR, G, CALL)         \
-  switch (TPR) {                                 \
-    case 32: LN_DISPATCH_G(T, 32, G, CALL)       \
-    case 64: LN_DISPATCH_G(T, 64, G, CALL)       \
-    case 128: LN_DISPATCH_G(T, 128, G, CALL)     \
-    default: LN_DISPATCH_G(T, 256, G, CALL)      \
-  }
-
-#define LN_DISPATCH(DTYPE, TPR, G, CALL)                          \
-  switch (DTYPE) {                                                \
-    case 0: LN_DISPATCH_TPR(__nv_bfloat16, TPR, G, CALL)          \
-    case 1: LN_DISPATCH_TPR(__half, TPR, G, CALL)                 \
-    default: LN_DISPATCH_TPR(float, TPR, G, CALL)                 \
-  }
-
-bool bad_shape(int rows, int hidden, int dtype) {
-  return rows < 1 || hidden < 1 || dtype < 0 || dtype > 2;
+// G of the team body (groups of 8 a thread) or 0 where TPR does not fit
+int team_g(int hidden, int tpr) {
+  if (hidden % 8 || hidden > MAX_HIDDEN || tpr < 32 || tpr > THREADS ||
+      (tpr & (tpr - 1)))
+    return 0;
+  const int g = (hidden / 8 + tpr - 1) / tpr;
+  return g <= 4 ? g : 0;
 }
 
-#define LN_DISPATCH_DTYPE(DTYPE, CALL)                     \
-  switch (DTYPE) {                                         \
-    case 0: return CALL(__nv_bfloat16);                    \
-    case 1: return CALL(__half);                           \
-    default: return CALL(float);                           \
+// G of the rows body (vectors a lane) or 0 where the lanes do not fit
+int rows_g(int hidden, int vec, int lanes) {
+  if (lanes < 1 || lanes > 32 || (lanes & (lanes - 1))) return 0;
+  const int g = (hidden / vec + lanes - 1) / lanes;
+  return g <= 4 ? g : 0;
+}
+
+bool vec_ok(int vec, int elem, int hidden) {
+  return (vec == 1 || vec == 2 || vec == 4 || vec == 8) && vec * elem <= 16 &&
+         hidden % vec == 0;
+}
+
+// whether (body, vec, lanes, grid) is a plan the kernels take for this
+// shape; G is set for the bodies that have one
+bool plan_ok(int body, int vec, int lanes, int grid, int rows, int hidden,
+             int dtype, bool backward, int* g) {
+  if (rows < 1 || hidden < 1 || dtype < 0 || dtype > 2 || grid < 1)
+    return false;
+  const int elem = dtype == 2 ? 4 : 2;
+  switch (body) {
+    case BODY_TEAM:
+      *g = team_g(hidden, lanes);
+      return vec == 8 && *g > 0;
+    case BODY_ROWS:
+      if (!vec_ok(vec, elem, hidden)) return false;
+      *g = rows_g(hidden, vec, lanes);
+      return *g > 0;
+    case BODY_WIDE:
+      *g = 0;
+      if (lanes != 128 && lanes != 512) return false;
+      if (!backward)   // the parent's K3: a block a row, groups of 8 or elements
+        return vec == (hidden % 8 == 0 ? 8 : 1) && grid == rows;
+      return vec_ok(vec, elem, hidden) && grid <= rows;
+    default:
+      return false;
   }
+}
+
+// CALL(T, V, G) for the runtime (dtype, vec, g) of the rows body
+#define LN_ROWS_B(T, V, CALL)                  \
+  switch (g) {                                 \
+    case 1: return CALL(T, V, 1);              \
+    case 2: return CALL(T, V, 2);              \
+    case 3: return CALL(T, V, 3);              \
+    default: return CALL(T, V, 4);             \
+  }
+#define LN_ROWS_HALF(T, CALL)                  \
+  switch (vec) {                               \
+    case 8: LN_ROWS_B(T, 8, CALL)              \
+    case 4: LN_ROWS_B(T, 4, CALL)              \
+    case 2: LN_ROWS_B(T, 2, CALL)              \
+    default: LN_ROWS_B(T, 1, CALL)             \
+  }
+#define LN_ROWS(CALL)                                    \
+  switch (dtype) {                                       \
+    case 0: LN_ROWS_HALF(__nv_bfloat16, CALL)            \
+    case 1: LN_ROWS_HALF(__half, CALL)                   \
+    default:                                             \
+      switch (vec) {                                     \
+        case 4: LN_ROWS_B(float, 4, CALL)                \
+        case 2: LN_ROWS_B(float, 2, CALL)                \
+        default: LN_ROWS_B(float, 1, CALL)               \
+      }                                                  \
+  }
+
+// CALL(T, V, TW) for the runtime (dtype, vec, lanes) of K4's wide body
+#define LN_WIDE_TW(T, V, CALL)                 \
+  if (lanes == 128) return CALL(T, V, 128);    \
+  return CALL(T, V, 512);
+#define LN_WIDE_HALF(T, CALL)                  \
+  switch (vec) {                               \
+    case 8: LN_WIDE_TW(T, 8, CALL)             \
+    case 4: LN_WIDE_TW(T, 4, CALL)             \
+    case 2: LN_WIDE_TW(T, 2, CALL)             \
+    default: LN_WIDE_TW(T, 1, CALL)            \
+  }
+#define LN_WIDE(CALL)                                    \
+  switch (dtype) {                                       \
+    case 0: LN_WIDE_HALF(__nv_bfloat16, CALL)            \
+    case 1: LN_WIDE_HALF(__half, CALL)                   \
+    default:                                             \
+      switch (vec) {                                     \
+        case 4: LN_WIDE_TW(float, 4, CALL)               \
+        case 2: LN_WIDE_TW(float, 2, CALL)               \
+        default: LN_WIDE_TW(float, 1, CALL)              \
+      }                                                  \
+  }
+
+// CALL(T, TPR, G) for the runtime (dtype, tpr, g) of the team body
+#define LN_TEAM_G(T, TPR, CALL)                \
+  switch (g) {                                 \
+    case 1: return CALL(T, TPR, 1);            \
+    case 2: return CALL(T, TPR, 2);            \
+    case 3: return CALL(T, TPR, 3);            \
+    default: return CALL(T, TPR, 4);           \
+  }
+#define LN_TEAM_TPR(T, CALL)                   \
+  switch (lanes) {                             \
+    case 32: LN_TEAM_G(T, 32, CALL)            \
+    case 64: LN_TEAM_G(T, 64, CALL)            \
+    case 128: LN_TEAM_G(T, 128, CALL)          \
+    default: LN_TEAM_G(T, 256, CALL)           \
+  }
+#define LN_TEAM(CALL)                                    \
+  switch (dtype) {                                       \
+    case 0: LN_TEAM_TPR(__nv_bfloat16, CALL)             \
+    case 1: LN_TEAM_TPR(__half, CALL)                    \
+    default: LN_TEAM_TPR(float, CALL)                    \
+  }
+
+cudaError_t fwd(int body, int vec, int lanes, int grid, int g, int rows,
+                const void* x, const void* w, const void* b, void* y,
+                void* mean, void* rstd, int hidden, float eps, int dtype,
+                cudaStream_t st) {
+  if (body == BODY_TEAM) {
+    if ((long long)grid * (THREADS / lanes) < rows) return cudaErrorInvalidValue;
+#define LN_FWD_TEAM(T, TPR_, G_) \
+  launch_fwd<T, TPR_, G_>(rows, x, w, b, y, mean, rstd, hidden, eps, st)
+    LN_TEAM(LN_FWD_TEAM)
+#undef LN_FWD_TEAM
+  }
+  if (body == BODY_WIDE) {
+#define LN_FWD_WIDE(T, TW_, VEC_) \
+  launch_fwd_wide<T, TW_, VEC_>(rows, x, w, b, y, mean, rstd, hidden, eps, st)
+#define LN_FWD_WIDE_VEC(T)                                   \
+  if (vec == 8) {                                            \
+    if (lanes == 128) return LN_FWD_WIDE(T, 128, true);      \
+    return LN_FWD_WIDE(T, 512, true);                        \
+  }                                                          \
+  if (lanes == 128) return LN_FWD_WIDE(T, 128, false);       \
+  return LN_FWD_WIDE(T, 512, false);
+    switch (dtype) {
+      case 0: LN_FWD_WIDE_VEC(__nv_bfloat16)
+      case 1: LN_FWD_WIDE_VEC(__half)
+      default: LN_FWD_WIDE_VEC(float)
+    }
+#undef LN_FWD_WIDE_VEC
+#undef LN_FWD_WIDE
+  }
+#define LN_FWD_ROWS(T, V_, G_)                                        \
+  launch_fwd_rows<T, V_, G_>(grid, lanes, rows, x, w, b, y, mean, rstd, \
+                             hidden, eps, st)
+  LN_ROWS(LN_FWD_ROWS)
+#undef LN_FWD_ROWS
+}
+
+cudaError_t bwd(int body, int vec, int lanes, int grid, int g, int rows,
+                const void* x, const void* w, const void* mean,
+                const void* rstd, const void* dy, void* dx, void* dw_part,
+                void* db_part, int hidden, int dtype, cudaStream_t st) {
+  if (body == BODY_TEAM) {
+    // the parent's partition: blocks of rows_per_block rows, none empty
+    const int rpb = (rows + grid - 1) / grid;
+    if ((long long)rpb * (grid - 1) >= rows) return cudaErrorInvalidValue;
+#define LN_BWD_TEAM(T, TPR_, G_)                                          \
+  launch_bwd<T, TPR_, G_>(grid, x, w, mean, rstd, dy, dx, dw_part, db_part, \
+                          rows, hidden, rpb, st)
+    LN_TEAM(LN_BWD_TEAM)
+#undef LN_BWD_TEAM
+  }
+  if (body == BODY_WIDE) {
+#define LN_BWD_WIDE(T, V_, TW_)                                            \
+  launch_bwd_wide<T, V_, TW_>(grid, rows, x, w, mean, rstd, dy, dx, dw_part, \
+                              db_part, hidden, st)
+    LN_WIDE(LN_BWD_WIDE)
+#undef LN_BWD_WIDE
+  }
+#define LN_BWD_ROWS(T, V_, G_)                                         \
+  launch_bwd_rows<T, V_, G_>(grid, lanes, rows, x, w, mean, rstd, dy, dx, \
+                             dw_part, db_part, hidden, st)
+  LN_ROWS(LN_BWD_ROWS)
+#undef LN_BWD_ROWS
+}
 
 }  // namespace
 
+// K3 under the plan (body, vec, lanes, grid) of ops/layer_norm_cuda.plan
 extern "C" int layer_norm_fwd(const void* x, const void* w, const void* b,
                               void* y, void* mean, void* rstd, int rows,
-                              int hidden, float eps, int dtype, int device,
+                              int hidden, float eps, int body, int vec,
+                              int lanes, int grid, int dtype, int device,
                               void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (bad_shape(rows, hidden, dtype)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (!team_row(hidden)) {
-#define LN_FWD_WIDE_CALL(T) \
-  (int)launch_fwd_wide<T>(rows, x, w, b, y, mean, rstd, hidden, eps, st)
-    LN_DISPATCH_DTYPE(dtype, LN_FWD_WIDE_CALL)
-#undef LN_FWD_WIDE_CALL
-  }
-  const int tpr = pick_tpr(hidden);
-  const int g = (hidden / 8 + tpr - 1) / tpr;
-#define LN_FWD_CALL(T, TPR_, G_) \
-  (int)launch_fwd<T, TPR_, G_>(rows, x, w, b, y, mean, rstd, hidden, eps, st)
-  LN_DISPATCH(dtype, tpr, g, LN_FWD_CALL)
-#undef LN_FWD_CALL
+  int g = 0;
+  if (!plan_ok(body, vec, lanes, grid, rows, hidden, dtype, false, &g))
+    return (int)cudaErrorInvalidValue;
+  return (int)fwd(body, vec, lanes, grid, g, rows, x, w, b, y, mean, rstd,
+                  hidden, eps, dtype, (cudaStream_t)stream);
 }
 
+// K4 under the plan: dx, the [grid, hidden] partials (scratch the caller
+// allocates), then dw and db [hidden] summed from them by the second stage
 extern "C" int layer_norm_bwd(const void* x, const void* w, const void* mean,
                               const void* rstd, const void* dy, void* dx,
-                              void* dw_part, void* db_part, int rows,
-                              int hidden, int rows_per_block, int nblocks,
-                              int dtype, int device, void* stream) {
+                              void* dw_part, void* db_part, void* dw, void* db,
+                              int rows, int hidden, int body, int vec,
+                              int lanes, int grid, int dtype, int device,
+                              void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (bad_shape(rows, hidden, dtype) || rows_per_block < 1 || nblocks < 1 ||
-      (long long)rows_per_block * nblocks < rows ||
-      (long long)rows_per_block * (nblocks - 1) >= rows)
+  int g = 0;
+  if (!plan_ok(body, vec, lanes, grid, rows, hidden, dtype, true, &g))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (!team_row(hidden)) {
-#define LN_BWD_WIDE_CALL(T)                                                   \
-  (int)launch_bwd_wide<T>(nblocks, x, w, mean, rstd, dy, dx, dw_part, db_part, \
-                          rows, hidden, rows_per_block, st)
-    LN_DISPATCH_DTYPE(dtype, LN_BWD_WIDE_CALL)
-#undef LN_BWD_WIDE_CALL
-  }
-  const int tpr = pick_tpr(hidden);
-  const int g = (hidden / 8 + tpr - 1) / tpr;
-#define LN_BWD_CALL(T, TPR_, G_)                                             \
-  (int)launch_bwd<T, TPR_, G_>(nblocks, x, w, mean, rstd, dy, dx, dw_part, \
-                               db_part, rows, hidden, rows_per_block, st)
-  LN_DISPATCH(dtype, tpr, g, LN_BWD_CALL)
-#undef LN_BWD_CALL
+  err = bwd(body, vec, lanes, grid, g, rows, x, w, mean, rstd, dy, dx,
+            dw_part, db_part, hidden, dtype, st);
+  if (err != cudaSuccess) return (int)err;
+  layer_norm_partials_sum<<<dim3((hidden + 31) / 32, 2), 32 * SUM_SLICES, 0,
+                            st>>>((const float*)dw_part, (const float*)db_part,
+                                  (float*)dw, (float*)db, grid, hidden);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* layer_norm_error_string(int err) {

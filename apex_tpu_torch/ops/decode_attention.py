@@ -4,9 +4,13 @@
 :func:`decode_attention` is the one call: for CUDA tensors it launches
 a hand-written kernel (``csrc/decode_attention.cu`` through
 :mod:`apex_tpu_torch.ops.decode_attention_cuda`: K2 over pages in q's
-dtype, K2q over int8 pages with their scales); for CPU tensors it runs
-:func:`decode_attention_reference`, the plain version, op for op with the
-JAX package's. The JAX family's impl/tile dispatch (``set_decode_impl``,
+dtype, K2q over int8 pages with their scales) up to the kernels' head
+dim limit (``decode_attention_cuda.MAX_HEAD_DIM``, 512), and past it
+:func:`decode_scores_attention`, the scores route (K10); for CPU tensors
+it runs :func:`decode_attention_reference`, the plain version, op for op
+with the JAX package's. Past 512 the JAX package routes the same way: its
+``decode_attention`` finds ``supported`` (``d <= 512``) false and runs its
+jnp reference. The JAX family's impl/tile dispatch (``set_decode_impl``,
 ``block_h``, the dispatch table) has no counterpart here.
 
 Layouts:
@@ -26,6 +30,8 @@ raise, as in the JAX package.
 import math
 
 import torch
+
+from apex_tpu_torch.ops.softmax import scaled_masked_softmax
 
 NEG_INF = -1e30
 
@@ -64,10 +70,45 @@ def decode_attention_reference(q, k_pages, v_pages, page_table, lengths,
     return (p[..., None] * v).sum(dim=2).to(q.dtype)
 
 
+def decode_scores_attention(q, k_pages, v_pages, page_table, lengths,
+                            sm_scale, k_scale=None, v_scale=None):
+    """The scores route of decode, the counterpart of JAX's
+    ``decode_attention_reference`` where its kernel stops (``d > 512``):
+    gather each slot's pages by the page table (int8 pages dequantized by
+    the tier's codec with their gathered scales), fp32 scores from
+    ``torch.matmul``, the softmax of ``sm_scale`` times them with the
+    positions at or past each slot's length masked by a ``[b, 1, 1, S]``
+    key-padding mask (K10 on the card, read at stride 0 over heads and
+    the query; a slot of length 0 gives 0), and the fp32 context from
+    ``torch.matmul``, cast to q's dtype."""
+    b, h, d = q.shape
+
+    def gathered(pages, scale):
+        # [h, b, max_pages, ps, d] -> [b, h, S, d]
+        g = pages[:, page_table]
+        if scale is None:
+            g = g.float()
+        else:
+            from apex_tpu_torch.serving import kv_tier
+
+            g = kv_tier.dequantize(g, scale[:, page_table])
+        return g.permute(1, 0, 2, 3, 4).reshape(b, h, -1, d)
+
+    k = gathered(k_pages, k_scale)
+    v = gathered(v_pages, v_scale)
+    scores = torch.matmul(q.float()[:, :, None, :], k.transpose(-1, -2))
+    col = torch.arange(scores.shape[-1], device=q.device)
+    mask = col[None, :] >= lengths.to(torch.int64)[:, None]
+    probs = scaled_masked_softmax(scores, mask[:, None, None, :], sm_scale)
+    return torch.matmul(probs, v)[:, :, 0].to(q.dtype)
+
+
 def decode_attention(q, k_pages, v_pages, page_table, lengths, *,
                      sm_scale=None, k_scale=None, v_scale=None):
     """Paged decode attention (layouts in the module docstring); with
-    ``k_scale``/``v_scale`` the pages are the int8 tier's codes."""
+    ``k_scale``/``v_scale`` the pages are the int8 tier's codes. On the
+    card past ``MAX_HEAD_DIM`` the scores route
+    (:func:`decode_scores_attention`)."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if (k_scale is None) != (v_scale is None):
@@ -81,6 +122,10 @@ def decode_attention(q, k_pages, v_pages, page_table, lengths, *,
     if q.is_cuda:
         from apex_tpu_torch.ops import decode_attention_cuda
 
+        if q.shape[-1] > decode_attention_cuda.MAX_HEAD_DIM:
+            return decode_scores_attention(q, k_pages, v_pages, page_table,
+                                           lengths, sm_scale, k_scale,
+                                           v_scale)
         if k_scale is not None:
             return decode_attention_cuda.decode_attention_quant(
                 q, k_pages, v_pages, k_scale, v_scale, page_table, lengths,

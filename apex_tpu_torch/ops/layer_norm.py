@@ -10,7 +10,7 @@
 * :func:`layer_norm` is the ``torch.autograd.Function`` around them. It
   saves x, the weight, mean and rstd, as ``_fwd :205`` does. For a CUDA
   tensor it runs K3 and K4 (:mod:`apex_tpu_torch.ops.layer_norm_cuda`;
-  the affine-gradient partials are summed here with ``torch.sum``, as
+  K4's second stage sums the affine-gradient partials over blocks, as
   JAX sums them outside its kernel at ``:244-245``); for a CPU tensor it
   runs the plain versions. There is no fallback from one to the other;
   the kernels take every width.
@@ -72,7 +72,6 @@ class _LayerNorm(torch.autograd.Function):
         if x2d.is_cuda:
             dx, dw, db = layer_norm_cuda.layer_norm_bwd(x2d, weight, mean,
                                                         rstd, dy)
-            dw, db = torch.sum(dw, dim=0), torch.sum(db, dim=0)
         else:
             dx, dw, db = layer_norm_bwd(x2d, weight, mean, rstd, dy)
         return (dx, dw if weight is not None else None,

@@ -28,11 +28,13 @@ the fresh K/V in the compute dtype, and decode attention reads the int8
 pages with their scales (K2q on the card).
 
 Serving constraints (:func:`check_serving_config`): no dropout, no
-query-key layer scaling, no MoE, no sequence or context parallelism, and
-a head dim of at most 512, the decode kernels' limit (the JAX decode
-kernel's, ``decode_attention_pallas.supported``). Prefill past head dim
-256 takes :func:`fused_attention`'s scores route (K10 on the card), as
-the JAX prefill falls back to its dense attention there.
+query-key layer scaling, no MoE, no sequence or context parallelism.
+Every head dim serves: prefill past head dim 256 takes
+:func:`fused_attention`'s scores route (K10 on the card), as the JAX
+prefill falls back to its dense attention there, and decode past 512 (the
+decode kernels' limit, the JAX kernel's ``decode_attention_pallas.
+supported``) takes :func:`decode_attention`'s scores route (K10 again),
+as the JAX decode falls back to its jnp reference.
 Weight quantization and the multi-token decode block are later slices.
 
 Matmul precision: an fp32 run on the card needs
@@ -47,8 +49,6 @@ import torch.nn.functional as F
 
 from apex_tpu_torch.ops.attention import fused_attention
 from apex_tpu_torch.ops.decode_attention import decode_attention
-from apex_tpu_torch.ops.decode_attention_cuda import (
-    MAX_HEAD_DIM as DECODE_MAX_HEAD_DIM)
 from apex_tpu_torch.serving import kv_tier
 
 
@@ -66,9 +66,6 @@ def check_serving_config(cfg):
     if cfg.sequence_parallel or cfg.context_parallel_axis:
         problems.append("sequence/context parallelism (single-chip "
                         "serving engine)")
-    if cfg.head_dim > DECODE_MAX_HEAD_DIM:
-        problems.append(f"head_dim {cfg.head_dim} (the decode attention "
-                        f"kernels take up to {DECODE_MAX_HEAD_DIM})")
     if problems:
         raise ValueError("serving does not support: "
                          + "; ".join(problems))

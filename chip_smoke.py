@@ -10,8 +10,10 @@ kernels the recent slices redesigned (``xent.cu``, ``softmax.cu``,
 built too, their K7, K7p, K10, K2 and K2q, and K5/K6 and K5d/K6d at
 head dims 80 and 256, are timed in turns beside this tree's
 (``parent_ms``, ``parent_ms_turns``; through this tree's wrappers, so
-the parent's C entries must be this tree's), and K3/K4 at the
-main path's width must give the parent's bits. For example, from the
+the parent's C entries must be this tree's), and so are K3 and K4 at
+every width the smoke times (through the parent's own C entries, whose
+signatures ``PARENT_SIGNATURES`` states; its K4 with the two
+``torch.sum`` launches its main path made). For example, from the
 root of this checkout::
 
     git archive <parent commit> apex_tpu_torch | tar -x -C build/parent
@@ -98,12 +100,14 @@ exits non-zero before the last line):
    with and without dropout, two runs of K5/K6 (K5d/K6d) giving the same
    bits, the backward kernels timed in turns around SDPA's backward
    (and the parent's, with ``--parent``), fp32 K5/K6 at 256 (the CUDA
-   cores) against their plain version within ``FP32_L2_TOL`` and timed,
-   and K3/K4 at widths 100, 12288 and a
-   ``(64, 200)`` normalized shape through ``fused_layer_norm`` (rows of
-   12800), rows = 8192: each against its plain version, timed with its
-   bound and library call (``by_head_dim``, ``by_width`` in the kernel's
-   row).
+   cores) against their plain version within ``FP32_L2_TOL`` and timed
+   (``by_head_dim`` in the kernel's row). K3/K4 run at 768 and then at
+   widths 100, 12288 and a ``(64, 200)`` normalized shape through
+   ``fused_layer_norm`` (rows of 12800), rows = 8192 (``by_width``):
+   each against its plain version, two runs giving the same bits, timed
+   in turns around its library call and the parent's body (with
+   ``--parent``), K4 with its second stage, the plan and ptxas's
+   registers and spills of the instantiation it launches beside it.
 4. serving end to end: ``ServingEngine`` at GPT-2-small width (12 x 768,
    12 heads, vocab 50304, 1024 positions, bf16; 8 slots, page size 128,
    72 pages, 512-token packed prefill) with random weights from seed 0
@@ -188,7 +192,11 @@ exits non-zero before the last line):
    kernel (the scores route; with dropout the scores path), then
    ``ServingEngine`` serves ``GPT3_TRACE``'s requests, K10 once a layer a
    prefill batch, K2 at its 512 bucket once a layer a decode step and K1
-   never, the kernel and plain paths' logits within 0.35.
+   never, the kernel and plain paths' logits within 0.35. Then heads past
+   the decode kernels (``HD576``: 2 layers of hidden 1152 over 2 heads of
+   576): ``ServingEngine`` serves the same requests, K10 once a layer a
+   prefill batch and a decode step (decode's scores route), K1, K2 and
+   K2q never, the kernel and plain paths' logits within 0.35.
 6. one JSON line per kernel, the ``{"kernels": [...]}`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -265,10 +273,10 @@ FP32_L2_TOL = 5e-6
 # decode's other head dims at the serving lengths (the kernels' buckets
 # 128 and 256 run them unpadded)
 DECODE_HEAD_DIMS = (80, 256)
-# layer-norm widths past the team-per-row body, at rows = 8192: 100 (not a
-# multiple of 8: element loads), 12288 (GPT-3 175B's d_model) and 12800,
-# the row of a (64, 200) normalized shape (past the registers of the
-# row-per-block body)
+# layer-norm widths beside the main path's 768, at rows = 8192: 100 (not a
+# multiple of 8: the rows body's 8-byte vectors), 12288 (GPT-3 175B's
+# d_model: the wide body) and 12800, the row of a (64, 200) normalized
+# shape (past the wide body's registers)
 LN_WIDTHS = (100, 12288, (64, 200))
 # GPT-3 2.7B's widths (Brown et al. 2020, "Language Models are Few-Shot
 # Learners", Table 2.1, "GPT-3 2.7B": n_layers 32, d_model 2560, n_heads 32,
@@ -304,6 +312,11 @@ HD320 = dict(hidden_size=1280, num_layers=2, num_attention_heads=4,
              vocab_size=50304, max_position_embeddings=1024,
              hidden_dropout=0.0, attention_dropout=0.0,
              apply_query_key_layer_scaling=False, bf16=True)
+# past the decode kernels' head dims (512): 2 layers of hidden 1152 over 2
+# heads of 576 (no public model; the shape of the repair), GPT-2's
+# vocabulary padded to 50304; prefill and decode both take the scores
+# route (K10)
+HD576 = dict(HD320, hidden_size=1152, num_attention_heads=2)
 # the timed window of these two models: one warm-up step, then three
 WIDE_WINDOW = dict(batch=2, warmup=1, timed=3)
 # K7p's row partials against its plain version: the largest |diff| over
@@ -340,18 +353,24 @@ def _log(msg):
     print(msg, flush=True)
 
 
-def _time_ms(fn, flush, reps=20, spread=None):
+def _time_ms(fn, flush, reps=20, spread=None, clean=False):
     """Mean device time of ``fn`` over ``reps`` launches, each after an
     L2 flush, timed with CUDA events. A spin of ~0.5 ms on the stream
     before each timed launch lets the host queue all of ``fn``'s work
     first, so host overhead does not land inside the events. A list
-    passed as ``spread`` receives the launches' [min, median, max]."""
+    passed as ``spread`` receives the launches' [min, median, max]. The
+    flush writes its 128 MB, so the launch finds L2 full of dirty lines to
+    write back as it streams; with ``clean`` it reads them instead, and
+    the launch finds L2 cold and clean."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
-        flush.zero_()
+        if clean:
+            flush.sum()
+        else:
+            flush.zero_()
         torch.cuda._sleep(1_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -380,6 +399,13 @@ def _time_in_turns(fn, lib_fn, flush, spread=None):
 PARENT_SOURCES = ("xent", "softmax", "decode_attention", "layer_norm",
                   "attention_bwd")
 PARENT = {}
+# the parent's C entries where they differ from this tree's: layer norm's
+# before its plan argument (K4 then wrote [nblocks, hidden] partials that
+# its caller summed), called through _parent_layer_norm_fwd/_bwd
+PARENT_SIGNATURES = {"layer_norm": {
+    "layer_norm_fwd": ("p" * 6 + "iifiip"),
+    "layer_norm_bwd": ("p" * 8 + "iiiiiip"),
+    "layer_norm_error_string": "i"}}
 
 
 def _start_parent_build(root):
@@ -401,17 +427,24 @@ def _start_parent_build(root):
 
 def _finish_parent_build(procs):
     """Wait for the parent's builds and load each library with its
-    wrapper's signatures (the C entries did not change)."""
+    wrapper's signatures, or with the parent's own where its C entries
+    differ (``PARENT_SIGNATURES``)."""
     import ctypes
 
     from apex_tpu_torch.ops import (attention_bwd_cuda,
-                                    decode_attention_cuda, layer_norm_cuda,
-                                    softmax_cuda, xent_cuda)
+                                    decode_attention_cuda, softmax_cuda,
+                                    xent_cuda)
 
     sigs = {"xent": xent_cuda._SIGNATURES, "softmax": softmax_cuda._SIGNATURES,
             "decode_attention": decode_attention_cuda._SIGNATURES,
-            "layer_norm": layer_norm_cuda._SIGNATURES,
             "attention_bwd": attention_bwd_cuda._SIGNATURES}
+    codes = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+    for name, entries in PARENT_SIGNATURES.items():
+        sigs[name] = {
+            fn_name: ([codes[c] for c in args],
+                      ctypes.c_char_p if fn_name.endswith("_string")
+                      else ctypes.c_int)
+            for fn_name, args in entries.items()}
     for name, lib, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode:
@@ -436,14 +469,15 @@ def _as_parent(fn, name):
     return run
 
 
-def _turns(fn, lib_fn, flush, source, spread=None):
+def _turns(fn, lib_fn, flush, source, spread=None, parent_fn=None):
     """``fn`` timed in turns around one library call, kernel, library,
-    kernel, and, with ``--parent``, the parent's kernel (``fn`` on the
-    parent's library) before and after them: ``{"ms": the kernel's mean,
-    "ms_turns", "library_ms", "parent_ms", "parent_ms_turns"}``."""
+    kernel, and, with ``--parent``, the parent's kernel (``parent_fn``, by
+    default ``fn`` on the parent's library) before and after them: ``{"ms":
+    the kernel's mean, "ms_turns", "library_ms", "parent_ms",
+    "parent_ms_turns"}``."""
     parent = None
     if source in PARENT:
-        parent = _as_parent(fn, source)
+        parent = parent_fn or _as_parent(fn, source)
     out = {}
     if parent:
         out["parent_ms_turns"] = [_time_ms(parent, flush)]
@@ -1489,112 +1523,235 @@ def phase_paths_agree(engine, dev):
     return kernel_logits
 
 
-def phase_layer_norm_kernels(dev, flush):
-    """K3 and K4 at the training shape: x, dy [8192, 768] bf16, fp32
-    affine (every layer norm of the GPT-2-small step at b=8, s=1024)."""
+def _parent_layer_norm_fwd(x, w, b):
+    """The parent's K3 through its own C entry (``PARENT_SIGNATURES``)."""
+    from apex_tpu_torch.ops import _build
+
+    rows, hidden = x.shape
+    y = torch.empty_like(x)
+    mean = torch.empty(rows, dtype=torch.float32, device=x.device)
+    rstd = torch.empty_like(mean)
+    lib = PARENT["layer_norm"]
+    rc = lib.layer_norm_fwd(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                            y.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                            rows, hidden, 1e-5, _build.DTYPE_CODES[x.dtype],
+                            x.device.index,
+                            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, "layer_norm", rc)
+    return y, mean, rstd
+
+
+def _parent_layer_norm_bwd(x, w, mean, rstd, dy):
+    """The parent's K4 through its own C entry, then the two ``torch.sum``
+    launches over its partial rows that its main path made."""
+    from apex_tpu_torch.ops import _build
+
+    rows, hidden = x.shape
+    per_block = -(-rows // 256)
+    nblocks = -(-rows // per_block)
+    dx = torch.empty_like(x)
+    parts = torch.empty(2, nblocks, hidden, dtype=torch.float32,
+                        device=x.device)
+    lib = PARENT["layer_norm"]
+    rc = lib.layer_norm_bwd(x.data_ptr(), w.data_ptr(), mean.data_ptr(),
+                            rstd.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                            parts[0].data_ptr(), parts[1].data_ptr(), rows,
+                            hidden, per_block, nblocks,
+                            _build.DTYPE_CODES[x.dtype], x.device.index,
+                            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, "layer_norm", rc)
+    return dx, torch.sum(parts[0], dim=0), torch.sum(parts[1], dim=0)
+
+
+def _layer_norm_ptxas(p, hidden, backward):
+    """ptxas's registers and spills of the bf16 instantiation that plan
+    ``p`` launches at width ``hidden`` (K4's second stage beside K4's)."""
+    if p.body == "rows":
+        kernel, args = "rows", (p.vec, -(-(hidden // p.vec) // p.lanes))
+    elif p.body == "wide":
+        kernel, args = "wide", (p.vec, p.lanes)
+    else:
+        kernel, args = "kernel", (p.lanes, -(-(hidden // 8) // p.lanes))
+    found = _ptxas("layer_norm", f"layer_norm_{'bwd' if backward else 'fwd'}"
+                   f"_{kernel}I13__nv_bfloat16Li{args[0]}ELi{args[1]}EE")
+    if backward:
+        found.update(_ptxas("layer_norm", "layer_norm_partials_sum"))
+    return found
+
+
+def _layer_norm_at(dev, flush, rows, shape):
+    """K3 and K4 on ``rows`` rows of ``shape`` (an int, or a tuple
+    normalized through ``fused_layer_norm`` and autograd, which must
+    launch K3 and K4 once each), bf16 with fp32 affine: against the plain
+    versions within the bands (bf16 outputs 2^-7 of their largest
+    magnitude, as each side may round one ulp the other way; the fp32
+    statistics and affine gradients 1e-4, summation order; the outputs'
+    relative L2 ``BF16_L2_TOL``); the same bits on two runs; then each
+    timed in turns around its library call (``F.layer_norm``, and its
+    backward through ``torch.autograd.grad`` on a graph built untimed)
+    and, with ``--parent``, the parent's body, K4 with the partial sum its
+    main path launches (this tree's second stage; the parent's two
+    ``torch.sum``); the plain versions, the bound and the plan."""
     import torch.nn.functional as F
 
+    from apex_tpu_torch.normalization import fused_layer_norm
     from apex_tpu_torch.ops import layer_norm, layer_norm_cuda
 
-    rows, hidden = TRAIN["batch"] * TRAIN["seq"], 768
-    gen = torch.Generator(device=dev).manual_seed(5)
+    norm = shape if isinstance(shape, tuple) else (shape,)
+    hidden = int(np.prod(norm))
+    gen = torch.Generator(device=dev).manual_seed(5 if hidden == 768
+                                                  else hidden)
     x = (torch.randn(rows, hidden, generator=gen, device=dev) * 2 + 1).to(
         torch.bfloat16)
     dy = torch.randn(rows, hidden, generator=gen, device=dev).to(
         torch.bfloat16)
     w = torch.rand(hidden, generator=gen, device=dev) + 0.5
     b = torch.randn(hidden, generator=gen, device=dev)
-    # bf16 outputs: one ulp is 2^-8 of the value, each side may round the
-    # other way (so 2^-7 of the largest magnitude); the fp32 statistics
-    # and affine-gradient sums differ only in summation order (1e-4)
     tol_out, tol_f32 = 2.0 ** -7, 1e-4
-    y, mean, rstd = layer_norm_cuda.layer_norm_fwd(x, w, b, 1e-5)
-    dx, dw_part, db_part = layer_norm_cuda.layer_norm_bwd(x, w, mean, rstd,
-                                                          dy)
+    k3 = lambda: layer_norm_cuda.layer_norm_fwd(x, w, b, 1e-5)  # noqa: E731
+    first = k3()
+    k4 = lambda: layer_norm_cuda.layer_norm_bwd(  # noqa: E731
+        x, w, first[1], first[2], dy)
+    if len(norm) > 1:
+        # the module's path: one row of prod(norm) a leading index
+        before = (layer_norm_cuda.layer_norm_fwd.launches,
+                  layer_norm_cuda.layer_norm_bwd.launches)
+        xg = x.reshape(rows, *norm).detach().requires_grad_()
+        wg, bg = (t.reshape(norm).detach().requires_grad_() for t in (w, b))
+        y = fused_layer_norm(xg, norm, wg, bg, 1e-5)
+        y.backward(dy.reshape(rows, *norm))
+        if (layer_norm_cuda.layer_norm_fwd.launches,
+                layer_norm_cuda.layer_norm_bwd.launches) != (
+                    before[0] + 1, before[1] + 1):
+            raise AssertionError("fused_layer_norm over two axes did not "
+                                 "launch K3 and K4 once each")
+        y, mean, rstd = y.reshape(rows, hidden), first[1], first[2]
+        dx, dw, db = (xg.grad.reshape(rows, hidden), wg.grad.reshape(-1),
+                      bg.grad.reshape(-1))
+        del xg, wg, bg
+    else:
+        y, mean, rstd = first
+        dx, dw, db = k4()
     ry, rmean, rrstd = layer_norm.layer_norm_fwd(x, w, b, 1e-5)
     rdx, rdw, rdb = layer_norm.layer_norm_bwd(x, w, rmean, rrstd, dy)
+    again = (*k3(), *k4())
     torch.cuda.synchronize()
-    fwd_err = max(_rel_err(y, ry) / tol_out, _rel_err(mean, rmean) / tol_f32,
-                  _rel_err(rstd, rrstd) / tol_f32)
-    bwd_err = max(_rel_err(dx, rdx) / tol_out,
-                  _rel_err(dw_part.sum(0), rdw) / tol_f32,
-                  _rel_err(db_part.sum(0), rdb) / tol_f32)
-    y_abs = _max_err(y, ry)
-    dx_abs = _max_err(dx, rdx)
-    y_l2, dx_l2 = _rel_l2(y, ry), _rel_l2(dx, rdx)
-    _log(f"layer_norm_fwd: max_abs_err {y_abs:.3e}; worst error / its "
-         f"tolerance {fwd_err:.3f}; y relative L2 {y_l2:.3e} (tol "
-         f"{BF16_L2_TOL})")
-    _log(f"layer_norm_bwd: max_abs_err {dx_abs:.3e}; worst error / its "
-         f"tolerance {bwd_err:.3f}; dx relative L2 {dx_l2:.3e} (tol "
-         f"{BF16_L2_TOL})")
-    if fwd_err > 1 or bwd_err > 1 or max(y_l2, dx_l2) > BF16_L2_TOL:
-        raise AssertionError(f"layer-norm kernels disagree with the plain "
-                             f"versions: {fwd_err}, {bwd_err} x tolerance; "
-                             f"relative L2 {y_l2}, {dx_l2}")
-    # with --parent: the team-per-row body at this width gives the
-    # parent's bits (a later slice's layer-norm work must not move them)
-    same_bits = None
-    if "layer_norm" in PARENT:
-        p_fwd = _as_parent(lambda: layer_norm_cuda.layer_norm_fwd(
-            x, w, b, 1e-5), "layer_norm")()
-        p_bwd = _as_parent(lambda: layer_norm_cuda.layer_norm_bwd(
-            x, w, mean, rstd, dy), "layer_norm")()
-        torch.cuda.synchronize()
-        same_bits = all(torch.equal(a, c) for a, c in zip(
-            (y, mean, rstd, dx, dw_part, db_part), (*p_fwd, *p_bwd)))
-        _log(f"layer norm at the main path's width, bits against the "
-             f"parent's: {'the same' if same_bits else 'DIFFERENT'}")
-        if not same_bits:
-            raise AssertionError("K3/K4 at the main path's width moved "
-                                 "their bits against the parent's")
+    errs = {"y": _rel_err(y, ry) / tol_out, "mean": _rel_err(mean, rmean)
+            / tol_f32, "rstd": _rel_err(rstd, rrstd) / tol_f32,
+            "dx": _rel_err(dx, rdx) / tol_out,
+            "dw": _rel_err(dw, rdw) / tol_f32,
+            "db": _rel_err(db, rdb) / tol_f32}
+    l2 = {"y": _rel_l2(y, ry), "dx": _rel_l2(dx, rdx)}
+    same_bits = all(torch.equal(a, c) for a, c in zip(
+        (*first, *k4()), again))
+    _log(f"layer norm at width {shape}: error over its tolerance "
+         f"{json.dumps(errs)}, relative L2 {json.dumps(l2)} (tol "
+         f"{BF16_L2_TOL}); two runs {'the same' if same_bits else 'DIFFER'}")
+    if max(errs.values()) > 1 or max(l2.values()) > BF16_L2_TOL:
+        raise AssertionError(f"layer-norm kernels at width {shape} disagree "
+                             f"with the plain versions")
+    if not same_bits:
+        raise AssertionError(f"layer-norm kernels at width {shape}: two "
+                             f"runs do not give the same bits")
+    y_abs, dx_abs = _max_err(y, ry), _max_err(dx, rdx)
+    del y, dx, ry, rdx, again
 
-    fwd_spread, bwd_spread = [], []
-    fwd_ms = _time_ms(lambda: layer_norm_cuda.layer_norm_fwd(x, w, b, 1e-5),
-                      flush, spread=fwd_spread)
-    fwd_plain = _time_ms(lambda: layer_norm.layer_norm_fwd(x, w, b, 1e-5),
-                         flush)
     wl, bl = w.to(torch.bfloat16), b.to(torch.bfloat16)
-    fwd_lib = _time_ms(lambda: F.layer_norm(x, (hidden,), wl, bl, 1e-5),
-                       flush)
-    bwd_ms = _time_ms(lambda: layer_norm_cuda.layer_norm_bwd(
-        x, w, mean, rstd, dy), flush, spread=bwd_spread)
-    bwd_plain = _time_ms(lambda: layer_norm.layer_norm_bwd(
-        x, w, rmean, rrstd, dy), flush)
     xg = x.detach().requires_grad_()
     wg, bg = wl.detach().requires_grad_(), bl.detach().requires_grad_()
     yg = F.layer_norm(xg, (hidden,), wg, bg, 1e-5)   # graph built untimed
-    bwd_lib = _time_ms(lambda: torch.autograd.grad(
-        yg, (xg, wg, bg), dy, retain_graph=True), flush)
+    parent = "layer_norm" in PARENT
+    fwd_spread, bwd_spread = [], []
+    fwd = _turns(k3, lambda: F.layer_norm(x, (hidden,), wl, bl, 1e-5), flush,
+                 "layer_norm", spread=fwd_spread,
+                 parent_fn=parent and (lambda: _parent_layer_norm_fwd(
+                     x, w, b)))
+    bwd = _turns(k4, lambda: torch.autograd.grad(
+        yg, (xg, wg, bg), dy, retain_graph=True), flush, "layer_norm",
+                 spread=bwd_spread,
+                 parent_fn=parent and (lambda: _parent_layer_norm_bwd(
+                     x, w, first[1], first[2], dy)))
+    if hidden == 768:
+        # the main path's width after a flush that leaves L2 clean: what
+        # the kernels take without the dirty lines' write-back
+        for timed, fn, lib, par in (
+                (fwd, k3, lambda: F.layer_norm(x, (hidden,), wl, bl, 1e-5),
+                 lambda: _parent_layer_norm_fwd(x, w, b)),
+                (bwd, k4, lambda: torch.autograd.grad(
+                    yg, (xg, wg, bg), dy, retain_graph=True),
+                 lambda: _parent_layer_norm_bwd(x, w, first[1], first[2],
+                                                dy))):
+            timed["clean_l2"] = {"ms": _time_ms(fn, flush, clean=True),
+                                 "library_ms": _time_ms(lib, flush,
+                                                        clean=True)}
+            if parent:
+                timed["clean_l2"]["parent_ms"] = _time_ms(par, flush,
+                                                          clean=True)
+    reps = 20 if hidden < 4096 else 5
+    fwd_plain = _time_ms(lambda: layer_norm.layer_norm_fwd(x, w, b, 1e-5),
+                         flush, reps=reps)
+    bwd_plain = _time_ms(lambda: layer_norm.layer_norm_bwd(
+        x, w, rmean, rrstd, dy), flush, reps=reps)
+    del xg, wg, bg, yg
     elems = rows * hidden
     fwd_bytes = 2 * elems * 2 + 2 * hidden * 4 + 2 * rows * 4
     bwd_bytes = 3 * elems * 2 + hidden * 4 + 2 * rows * 4 + 2 * hidden * 4
     fwd_bound = _bound(fwd_bytes, 8 * elems, FP32_FLOPS_PER_S)
     bwd_bound = _bound(bwd_bytes, 14 * elems, FP32_FLOPS_PER_S)
-    shape = f"x [{rows},{hidden}] bf16, w/b fp32"
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for name, backward, timed, spread, plain, bound, nbytes, flops, err in (
+            ("layer_norm_fwd", False, fwd, fwd_spread, fwd_plain, fwd_bound,
+             fwd_bytes, 8 * elems, y_abs),
+            ("layer_norm_bwd", True, bwd, bwd_spread, bwd_plain, bwd_bound,
+             bwd_bytes, 14 * elems, dx_abs)):
+        p = layer_norm_cuda.plan(rows, hidden, torch.bfloat16, sm, backward)
+        regs = _layer_norm_ptxas(p, hidden, backward)
+        out[name] = dict(
+            timed, shape=f"x [{rows},{hidden}] bf16, w/b fp32",
+            plan=p._asdict(), ptxas=regs, max_abs_err=err,
+            max_err_over_tol=max(errs.values()),
+            rel_l2=l2["dx" if backward else "y"], same_bits_twice=same_bits,
+            kernel_ms=timed["ms"], ms_spread=spread, plain_ms=plain,
+            bound_ms=bound[0], bound_by=bound[1], bytes=nbytes, flops=flops)
+        _log(f"{name} at width {shape} ({p}): " + json.dumps(
+            {k: out[name][k] for k in ("ms", "ms_turns", "library_ms",
+                                       "parent_ms", "parent_ms_turns",
+                                       "clean_l2", "bound_ms", "ptxas")
+             if k in out[name]}))
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_layer_norm_kernels(dev, flush):
+    """K3 and K4 at the training shape, x, dy [8192, 768] bf16 with fp32
+    affine (every layer norm of the GPT-2-small step at b=8, s=1024), then
+    at ``LN_WIDTHS`` on as many rows (``_layer_norm_at``): the two kernel
+    rows, the other widths' numbers under ``by_width``."""
+    rows = TRAIN["batch"] * TRAIN["seq"]
+    main = _layer_norm_at(dev, flush, rows, 768)
+    by_width = {name: {} for name in main}
+    for shape in LN_WIDTHS:
+        key = "x".join(map(str, shape)) if isinstance(shape, tuple) \
+            else str(shape)
+        for name, numbers in _layer_norm_at(dev, flush, rows, shape).items():
+            by_width[name][key] = numbers
     common = {"route": "cuda", "source": "apex_tpu_torch/csrc/layer_norm.cu",
-              "shape": shape,
               "library": ("F.layer_norm with bf16 weight and bias (it "
                           "takes one dtype)")}
     return [
-        dict(common, name="layer_norm_fwd", bits_as_parent=same_bits,
+        dict(common, name="layer_norm_fwd",
              replaces="apex_tpu/ops/layer_norm_pallas.py:185",
-             max_abs_err=y_abs, err_over_tol=fwd_err, tol=tol_out,
-             rel_l2=y_l2, rel_l2_tol=BF16_L2_TOL,
-             ms=fwd_ms, kernel_ms=fwd_ms, ms_spread=fwd_spread,
-             plain_ms=fwd_plain,
-             library_ms=fwd_lib, bound_ms=fwd_bound[0],
-             bound_by=fwd_bound[1], bytes=fwd_bytes, flops=8 * elems),
-        dict(common, name="layer_norm_bwd", bits_as_parent=same_bits,
+             tol=2.0 ** -7, rel_l2_tol=BF16_L2_TOL, **main["layer_norm_fwd"],
+             by_width=by_width["layer_norm_fwd"]),
+        dict(common, name="layer_norm_bwd",
              replaces="apex_tpu/ops/layer_norm_pallas.py:222",
-             max_abs_err=dx_abs, err_over_tol=bwd_err, tol=tol_out,
-             rel_l2=dx_l2, rel_l2_tol=BF16_L2_TOL,
-             ms=bwd_ms, kernel_ms=bwd_ms, ms_spread=bwd_spread,
-             plain_ms=bwd_plain,
-             library_ms=bwd_lib, bound_ms=bwd_bound[0],
-             bound_by=bwd_bound[1], bytes=bwd_bytes, flops=14 * elems,
+             tol=2.0 ** -7, rel_l2_tol=BF16_L2_TOL, **main["layer_norm_bwd"],
+             by_width=by_width["layer_norm_bwd"],
              library=("backward of F.layer_norm via torch.autograd.grad "
-                      "(graph built outside the timed region)"))]
+                      "(graph built outside the timed region)"),
+             partial_sum="K4's second stage (layer_norm_partials_sum), "
+                         "timed with it")]
 
 
 def phase_attention_bwd_kernels(dev, flush):
@@ -1919,106 +2076,6 @@ def _fp32_backward(q, k, v, do, scale, flush):
                 "shape": shape, "rel_l2": max(l2[1:]),
                 "ms": _time_ms(lambda: attention_bwd_cuda.attention_bwd_dkv(
                     q, k, v, do, m, l, dcol, **kw), flush, reps=5)}}
-
-
-def phase_layer_norm_widths(dev, flush):
-    """K3/K4 at ``LN_WIDTHS``, rows = 8192, bf16 with fp32 affine: each
-    width against the plain versions within the K3/K4 phase's bands (the
-    (64, 200) shape through ``fused_layer_norm`` and autograd, which must
-    launch K3 and K4 once each); K3's and K4's times at every width, with
-    the bound and ``F.layer_norm``'s (forward, and backward through
-    ``torch.autograd.grad``). Returns ``{kernel name: {width: numbers}}``
-    for the rows of K3 and K4."""
-    import torch.nn.functional as F
-
-    from apex_tpu_torch.normalization import fused_layer_norm
-    from apex_tpu_torch.ops import layer_norm, layer_norm_cuda
-
-    rows = TRAIN["batch"] * TRAIN["seq"]
-    tol_out, tol_f32 = 2.0 ** -7, 1e-4
-    out = {"layer_norm_fwd": {}, "layer_norm_bwd": {}}
-    for shape in LN_WIDTHS:
-        norm = shape if isinstance(shape, tuple) else (shape,)
-        hidden = int(np.prod(norm))
-        gen = torch.Generator(device=dev).manual_seed(hidden)
-        x = (torch.randn(rows, hidden, generator=gen, device=dev) * 2 + 1).to(
-            torch.bfloat16)
-        dy = torch.randn(rows, hidden, generator=gen, device=dev).to(
-            torch.bfloat16)
-        w = torch.rand(hidden, generator=gen, device=dev) + 0.5
-        b = torch.randn(hidden, generator=gen, device=dev)
-        if len(norm) > 1:
-            # the module's path: one row of prod(norm) a leading index
-            before = (layer_norm_cuda.layer_norm_fwd.launches,
-                      layer_norm_cuda.layer_norm_bwd.launches)
-            xg = x.reshape(rows, *norm).detach().requires_grad_()
-            wg, bg = (t.reshape(norm).detach().requires_grad_()
-                      for t in (w, b))
-            y = fused_layer_norm(xg, norm, wg, bg, 1e-5)
-            y.backward(dy.reshape(rows, *norm))
-            if (layer_norm_cuda.layer_norm_fwd.launches,
-                    layer_norm_cuda.layer_norm_bwd.launches) != (
-                        before[0] + 1, before[1] + 1):
-                raise AssertionError("fused_layer_norm over two axes did "
-                                     "not launch K3 and K4 once each")
-            y, dx = y.reshape(rows, hidden), xg.grad.reshape(rows, hidden)
-            dw, db = wg.grad.reshape(-1), bg.grad.reshape(-1)
-            del xg, wg, bg
-        else:
-            y, mean, rstd = layer_norm_cuda.layer_norm_fwd(x, w, b, 1e-5)
-            dx, dw_part, db_part = layer_norm_cuda.layer_norm_bwd(
-                x, w, mean, rstd, dy)
-            dw, db = dw_part.sum(0), db_part.sum(0)
-        ry, rmean, rrstd = layer_norm.layer_norm_fwd(x, w, b, 1e-5)
-        rdx, rdw, rdb = layer_norm.layer_norm_bwd(x, w, rmean, rrstd, dy)
-        torch.cuda.synchronize()
-        errs = {"y": _rel_err(y, ry) / tol_out, "dx": _rel_err(dx, rdx)
-                / tol_out, "dw": _rel_err(dw, rdw) / tol_f32,
-                "db": _rel_err(db, rdb) / tol_f32}
-        l2 = {"y": _rel_l2(y, ry), "dx": _rel_l2(dx, rdx)}
-        _log(f"layer norm at width {shape}: error over its tolerance {errs}, "
-             f"relative L2 {l2} (tol {BF16_L2_TOL})")
-        if max(errs.values()) > 1 or max(l2.values()) > BF16_L2_TOL:
-            raise AssertionError(f"layer-norm kernels at width {shape} "
-                                 f"disagree with the plain versions")
-        del y, dx, ry, rdx
-        _, mean, rstd = layer_norm_cuda.layer_norm_fwd(x, w, b, 1e-5)
-        wl, bl = w.to(torch.bfloat16), b.to(torch.bfloat16)
-        fwd_ms = _time_ms(lambda: layer_norm_cuda.layer_norm_fwd(
-            x, w, b, 1e-5), flush)
-        fwd_lib = _time_ms(lambda: F.layer_norm(x, (hidden,), wl, bl, 1e-5),
-                           flush)
-        bwd_ms = _time_ms(lambda: layer_norm_cuda.layer_norm_bwd(
-            x, w, mean, rstd, dy), flush)
-        xg = x.detach().requires_grad_()
-        wg, bg = wl.detach().requires_grad_(), bl.detach().requires_grad_()
-        yg = F.layer_norm(xg, (hidden,), wg, bg, 1e-5)
-        bwd_lib = _time_ms(lambda: torch.autograd.grad(
-            yg, (xg, wg, bg), dy, retain_graph=True), flush)
-        fwd_plain = _time_ms(lambda: layer_norm.layer_norm_fwd(
-            x, w, b, 1e-5), flush, reps=5)
-        bwd_plain = _time_ms(lambda: layer_norm.layer_norm_bwd(
-            x, w, rmean, rrstd, dy), flush, reps=5)
-        del xg, wg, bg, yg
-        elems = rows * hidden
-        fwd_bound = _bound(2 * elems * 2 + 2 * hidden * 4 + 2 * rows * 4,
-                           8 * elems, FP32_FLOPS_PER_S)
-        bwd_bound = _bound(3 * elems * 2 + 3 * hidden * 4 + 2 * rows * 4,
-                           14 * elems, FP32_FLOPS_PER_S)
-        key = "x".join(map(str, norm))
-        common = {"shape": f"x [{rows},{hidden}] bf16, w/b fp32",
-                  "max_err_over_tol": max(errs.values())}
-        out["layer_norm_fwd"][key] = dict(
-            common, rel_l2=l2["y"], ms=fwd_ms, plain_ms=fwd_plain,
-            library_ms=fwd_lib, bound_ms=fwd_bound[0],
-            bound_by=fwd_bound[1])
-        out["layer_norm_bwd"][key] = dict(
-            common, rel_l2=l2["dx"], ms=bwd_ms, plain_ms=bwd_plain,
-            library_ms=bwd_lib, bound_ms=bwd_bound[0],
-            bound_by=bwd_bound[1])
-        torch.cuda.empty_cache()
-    _log("layer norm at other widths: " + json.dumps(out))
-    return out
 
 
 def phase_dropout_mask_exact(dev):
@@ -2895,6 +2952,58 @@ def phase_head_dim_320(dev):
     return launches, stats
 
 
+def phase_head_dim_576(dev):
+    """``HD576`` (2 heads of 576, past the decode kernels' 512), bf16:
+    ``ServingEngine`` (``ENGINE``'s 8 slots and 72 pages of 128) serves
+    ``GPT3_TRACE``'s seeded greedy requests; decode takes its scores route,
+    so K10 launches once a layer a prefill batch and a decode step, and
+    K1, K2 and K2q never; the kernel and plain paths' logits within
+    ``LOGITS_BAND``. Returns the launch counts and the numbers."""
+    from apex_tpu_torch.ops import (attention_cuda, decode_attention_cuda,
+                                    softmax_cuda)
+    from apex_tpu_torch.serving import ServingEngine, synthetic_trace
+    from apex_tpu_torch.transformer.testing import TransformerConfig
+
+    cfg = TransformerConfig(**HD576)
+    if cfg.head_dim != 576:
+        raise AssertionError(f"HD576's head dim is {cfg.head_dim}")
+    engine = ServingEngine(cfg, seed=0, device=dev, **ENGINE)
+    reqs, trace_id = synthetic_trace(vocab=cfg.vocab_size, **GPT3_TRACE)
+    counted = {"prefill_attention": attention_cuda.prefill_attention,
+               "decode_attention": decode_attention_cuda.decode_attention,
+               "decode_attention_quant":
+                   decode_attention_cuda.decode_attention_quant,
+               "softmax_fwd": softmax_cuda.softmax_fwd}
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    engine.run_trace(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counted.items()}
+    want = {"prefill_attention": 0, "decode_attention": 0,
+            "decode_attention_quant": 0,
+            "softmax_fwd": (engine.prefill_batches + engine.decode_steps)
+            * cfg.num_layers}
+    if launches != want or not engine.decode_steps:
+        raise AssertionError(f"head dim 576 serving launched {launches}, "
+                             f"want {want}")
+    for r in reqs:
+        if len(r.out_tokens) != r.max_new_tokens:
+            raise AssertionError(f"request {r.rid} did not complete")
+    logits = phase_paths_agree(engine, dev)
+    stats = {"trace_id": trace_id, "requests": len(reqs),
+             "tokens": engine.tokens_generated,
+             "prefill_batches": engine.prefill_batches,
+             "decode_steps": engine.decode_steps, "serving_wall_s": wall,
+             "tokens_per_s": engine.tokens_generated / wall,
+             "largest_logit": max(float(t.abs().max()) for t in logits)}
+    del engine, logits
+    torch.cuda.empty_cache()
+    _log("head dim 576 serving (2 heads, 2 layers): " + json.dumps(stats))
+    return launches, stats
+
+
 def phase_recompute_agree(dev):
     """``"selective"`` and ``"full"`` recompute against ``"none"`` at b=2
     with dropout on the kernel path: one weight seed, one generator seed,
@@ -3454,15 +3563,12 @@ def main():
     rows += phase_long_softmax_kernels(dev, flush)
     rows.append(phase_xent_shard_kernels(dev, flush))
     torch.cuda.empty_cache()
-    # the attention kernels at head dims 80 and 256, layer norm at widths
-    # past its team-per-row body: numbers beside each kernel's row
-    wider = {**phase_attention_head_dims(dev, flush),
-             **phase_layer_norm_widths(dev, flush)}
+    # the attention kernels at head dims 80 and 256: numbers beside each
+    # kernel's row
+    wider = phase_attention_head_dims(dev, flush)
     for row in rows:
         if row["name"] in wider:
-            key = "by_width" if row["name"].startswith("layer_norm") \
-                else "by_head_dim"
-            row[key] = wider[row["name"]]
+            row["by_head_dim"] = wider[row["name"]]
     torch.cuda.empty_cache()
     # the generic softmax over 8192 keys, the path of K10L/K11L
     launches_by = {"generic_softmax_long": phase_generic_softmax_path(dev)}
@@ -3575,6 +3681,9 @@ def main():
     hd320, _ = phase_head_dim_320(dev)
     for key, counts in hd320.items():
         launches_by["head_dim_320_" + key] = counts
+    # heads of 576, past the decode kernels: serving on the scores route
+    torch.cuda.empty_cache()
+    launches_by["head_dim_576_serving"], _ = phase_head_dim_576(dev)
 
     # GPT-2-small at tensor-parallel size 2 on the vocab-sharded fused
     # head, in two ranks

@@ -7,10 +7,13 @@ lengths 0 / 1 / ps-1 / ps / ps+1 / full, unowned pages poisoned with
 NaN; the split-KV decode kernels K2/K2q at their split boundaries (sk -
 1, sk, sk + 1 keys, several splits a page), over fragmented page tables
 with out-of-range entries, element-by-element page copies, three runs
-equal bit for bit, and launches on two streams at once; layer norm at ragged row
-counts, hidden 64 / 768 / 1024 / 4096 / 8192 (the team body), 100 (not a
-multiple of 8), 12288 and 12800 (the row-per-block body, 12800 past its
-registers), with and without affine, and ``FusedLayerNorm((64, 200))``;
+equal bit for bit, and launches on two streams at once; decode past
+head dim 512 launching K10 and not K2 or K2q; layer norm at ragged row
+counts and 8193 rows (past the persistent grids), hidden 6 / 12 / 36 /
+100 / 200 and 64 / 768 / 1024 (the rows body's vector widths), 4096 /
+8192 (the team body), 12288 and 12800 (the wide body, 12800 past its
+registers), with and without affine, two K4 runs equal bit for bit on
+every body, and ``FusedLayerNorm((64, 200))``;
 the prefill forward K1 and K1d in bf16 and fp16 (the
 tensor-core body) over several ragged and exact tiles (300 x 300, 200 x
 333, 256 x 256) causal, segmented with a padded tail, with dropout and
@@ -275,6 +278,46 @@ def test_decode_kernel_matches_plain_and_reads_only_live_pages(dev, dtype,
     assert (out[0] == 0).all(), "an inactive slot gives 0"
 
 
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_past_512_launches_k10_and_not_k2(dev, quant):
+    """At head dim 576, past the decode kernels' 512, ``decode_attention``
+    takes the scores route: K10 once (fp32 scores, a ``[b, 1, 1, S]``
+    key-padding mask), K2 and K2q never; it agrees with the plain version,
+    a slot of length 0 giving 0."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    d, ps, max_pages, h = 576, 16, 4, 2
+    lengths = torch.tensor([0, 1, ps, 3 * ps + 5], dtype=torch.int32,
+                           device=dev)
+    b = lengths.numel()
+    pages = 1 + b * max_pages
+    q = _randn(gen, b, h, d, dtype=torch.bfloat16, dev=dev)
+    pt = (1 + torch.arange(b * max_pages, dtype=torch.int32,
+                           device=dev)).reshape(b, max_pages)
+    scales = {}
+    if quant:
+        kp, ks, _ = _quant_pages(gen, h, pages, ps, d, dev)
+        vp, vs, _ = _quant_pages(gen, h, pages, ps, d, dev)
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        kp, vp = (_randn(gen, h, pages, ps, d, dtype=torch.bfloat16,
+                         dev=dev) for _ in range(2))
+    counted = (decode_attention_cuda.decode_attention,
+               decode_attention_cuda.decode_attention_quant,
+               softmax_cuda.softmax_fwd)
+    before = [fn.launches for fn in counted]
+    out = decode_attention.decode_attention(q, kp, vp, pt, lengths,
+                                            sm_scale=d ** -0.5, **scales)
+    assert [fn.launches - n for fn, n in zip(counted, before)] == [0, 0, 1]
+    ref = decode_attention.decode_attention_reference(
+        q, kp, vp, pt, lengths, d ** -0.5, scales.get("k_scale"),
+        scales.get("v_scale"))
+    torch.cuda.synchronize()
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+    assert (out[0] == 0).all(), "an inactive slot gives 0"
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     # head_dim 32 launches (zero-padded to 64) and agrees; past 256 (the
     # prefill kernels) and 512 (decode) the wrappers refuse
@@ -329,10 +372,16 @@ def _close_l2(out, ref, dtype, tol=L2_TOL):
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("hidden", [64, 768, 1024, 4096, 8192, 100, 12288,
-                                    12800])
-@pytest.mark.parametrize("rows", [1, 37, 1000])
+                                    12800, 6, 12, 36, 200])
+@pytest.mark.parametrize("rows", [1, 37, 1000, 8193])
 @pytest.mark.parametrize("affine", [True, False])
 def test_layer_norm_kernels_match_plain(dev, dtype, hidden, rows, affine):
+    """Every body and vector width of ``layer_norm_cuda.plan``: the rows
+    body at 64-1024 (16-byte vectors), 200 (bf16/fp16 16-byte, fp32 in
+    lanes of 16), 100, 36 and 12 (8-byte vectors; 12 one lane a row) and
+    6 (4-byte vectors); the team body at 4096 and 8192 (and fp32 at 768
+    and 1024); the wide body at 12288 and 12800; 8193 rows walk past the
+    persistent grids."""
     torch_dtype, tol = DTYPES[dtype]
     gen = torch.Generator(device=dev).manual_seed(2)
     x = (torch.randn(rows, hidden, generator=gen, device=dev) * 3 + 1).to(
@@ -345,29 +394,30 @@ def test_layer_norm_kernels_match_plain(dev, dtype, hidden, rows, affine):
     before = (layer_norm_cuda.layer_norm_fwd.launches,
               layer_norm_cuda.layer_norm_bwd.launches)
     y, mean, rstd = layer_norm_cuda.layer_norm_fwd(x, w, b, 1e-5)
-    dx, dw_part, db_part = layer_norm_cuda.layer_norm_bwd(x, w, mean, rstd,
-                                                          dy)
+    dx, dw, db = layer_norm_cuda.layer_norm_bwd(x, w, mean, rstd, dy)
     assert (layer_norm_cuda.layer_norm_fwd.launches,
             layer_norm_cuda.layer_norm_bwd.launches) == (before[0] + 1,
                                                          before[1] + 1)
     ry, rmean, rrstd = layer_norm.layer_norm_fwd(x, w, b, 1e-5)
     rdx, rdw, rdb = layer_norm.layer_norm_bwd(x, w, rmean, rrstd, dy)
     torch.cuda.synchronize()
-    for t in (y, dx, mean, rstd, dw_part, db_part):
+    for t in (y, dx, mean, rstd, dw, db):
         assert torch.isfinite(t.float()).all()
-    assert dw_part.shape[0] == db_part.shape[0] <= 256
+    assert dw.shape == db.shape == (hidden,)
     _close_scaled(y, ry, tol)
     _close_scaled(dx, rdx, tol)
     _close_l2(y, ry, dtype)
     _close_l2(dx, rdx, dtype)
     _close_scaled(mean, rmean, 1e-4)
     _close_scaled(rstd, rrstd, 1e-4)
-    _close_scaled(dw_part.sum(0), rdw, 1e-4)
-    _close_scaled(db_part.sum(0), rdb, 1e-4)
+    _close_scaled(dw, rdw, 1e-4)
+    _close_scaled(db, rdb, 1e-4)
 
 
-@pytest.mark.parametrize("hidden", [768, 100, 12800])
+@pytest.mark.parametrize("hidden", [768, 100, 12800, 2560])
 def test_layer_norm_backward_is_deterministic(dev, hidden):
+    """Two K4 runs give the same bits on every body: rows (768, 100),
+    wide (12800) and team (2560)."""
     gen = torch.Generator(device=dev).manual_seed(3)
     x = _randn(gen, 8192, hidden, dtype=torch.bfloat16, dev=dev)
     dy = _randn(gen, 8192, hidden, dtype=torch.bfloat16, dev=dev)

@@ -23,6 +23,7 @@ from apex_tpu.normalization.fused_layer_norm import (
 from apex_tpu.ops import layer_norm_pallas as lnp
 from apex_tpu_torch.normalization import FusedLayerNorm, fused_layer_norm
 from apex_tpu_torch.ops import layer_norm as tln
+from apex_tpu_torch.ops import layer_norm_cuda as lnc
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -178,3 +179,135 @@ def test_module_defaults_to_cuda_and_refuses_a_wrong_tail(monkeypatch):
         FusedLayerNorm(64)
     with pytest.raises(ValueError, match="normalized_shape"):
         fused_layer_norm(torch.zeros(2, 8), (16,))
+
+
+# plan(): the body and vector width the CUDA kernels take at each width
+PLAN_WIDTHS = {1: ("rows", 1, 1), 2: ("rows", 2, 2), 12: ("rows", 4, 4),
+               36: ("rows", 4, 4), 100: ("rows", 4, 4), 200: ("rows", 8, 4),
+               768: ("rows", 8, "team"), 8192: ("team", 8, 8),
+               8200: ("wide", 8, 4), 12288: ("wide", 8, 4),
+               12800: ("wide", 8, 4)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("hidden", sorted(PLAN_WIDTHS))
+def test_plan_picks_the_body_and_a_vector_every_row_start_aligns_to(
+        dtype, hidden):
+    """``plan()`` at each width: the body, the widest vector (at most 16
+    bytes) dividing the row, whose alignment then holds at every row
+    start; the rows body's lanes and at most 4 vectors a lane cover the
+    row; the grids walk rows (one or two blocks an SM) where the body
+    does, the wide K3 runs a block a row, and the team body keeps the
+    parent's grids."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    body, half_vec, f32 = PLAN_WIDTHS[hidden]
+    want_body, want_vec = ((body, half_vec) if itemsize == 2 else
+                           (("team", 8) if f32 == "team" else (body, f32)))
+    for rows in (1, 37, 8192):
+        for backward in (False, True):
+            p = lnc.plan(rows, hidden, dtype, 132, backward)
+            # K3's wide body is the parent's: groups of 8 (16-byte halves
+            # for fp32)
+            vec = 8 if p.body == "wide" and not backward else want_vec
+            assert (p.body, p.vec) == (want_body, vec), p
+            align, w_align = lnc.plan_alignment(p, itemsize)
+            assert align == min(16, p.vec * itemsize) and 16 % w_align == 0
+            assert all((r * hidden * itemsize) % align == 0
+                       for r in range(rows))
+            if p.body == "rows":
+                nvec = hidden // p.vec
+                assert p.lanes in (1, 2, 4, 8, 16, 32)
+                assert nvec <= 4 * p.lanes and (p.lanes == 1
+                                                 or nvec > 2 * p.lanes)
+                blocks = -(-rows // (8 * (32 // p.lanes)))
+                walk = 132 if backward else max(132, min(264, -(-blocks // 2)))
+                assert p.grid == min(blocks, walk)
+            elif p.body == "wide":
+                assert p.lanes == (128 if hidden <= 128 * 24 else 512)
+                assert p.grid == (min(rows, 132) if backward else rows)
+            else:
+                assert p.lanes * 4 * 8 >= hidden and p.vec == 8
+                if backward:
+                    rpb = -(-rows // lnc.MAX_TEAM_BWD_BLOCKS)
+                    assert p.grid == -(-rows // rpb) <= 256
+                else:
+                    assert p.grid * (256 // p.lanes) >= rows
+
+
+def _tree(vals):
+    """``((v0 + v1) + (v2 + v3)) + ...``: the kernels' pairwise tree over
+    a power-of-two count, as ``a[i] += a[i + n]`` for n = half, ..., 1."""
+    vals = list(vals)
+    n = len(vals) // 2
+    while n:
+        vals = [vals[i] + vals[i + n] for i in range(n)]
+        n //= 2
+    return vals[0]
+
+
+def _k4_mirror(c, p, rows):
+    """K4's dw or db (``c`` the per-row contributions ``[rows, hidden]``,
+    fp32) summed in the order of plan ``p``: each body's partial rows,
+    then the second stage (16 slices, each adding its partial rows in
+    order, then a pairwise tree)."""
+    zero = torch.zeros_like(c[0])
+
+    def seq(rs):
+        acc = zero
+        for r in rs:
+            acc = acc + c[r]
+        return acc
+
+    parts = []
+    if p.body == "rows":
+        teams, warps = 32 // p.lanes, p.grid * lnc.ROW_WARPS
+        step = warps * teams
+        for blk in range(p.grid):
+            per_warp = []
+            for wib in range(lnc.ROW_WARPS):
+                first = (blk * lnc.ROW_WARPS + wib) * teams
+                team = [seq(range(first + k, rows, step))
+                        for k in range(teams)]
+                # the xor butterfly over the warp's teams: team 0's sum
+                d = 1
+                while d < teams:
+                    team = [team[k] + team[k ^ d] for k in range(teams)]
+                    d *= 2
+                per_warp.append(team[0])
+            parts.append(_tree(per_warp))
+    elif p.body == "wide":
+        parts = [seq(range(blk, rows, p.grid)) for blk in range(p.grid)]
+    else:
+        teams, rpb = 256 // p.lanes, -(-rows // p.grid)
+        for blk in range(p.grid):
+            r0, r1 = blk * rpb, min(rows, (blk + 1) * rpb)
+            acc = zero
+            for k in range(teams):
+                acc = acc + seq(range(r0 + k, r1, teams))
+            parts.append(acc)
+    slices = [seq([]) for _ in range(16)]
+    for s in range(16):
+        for blk in range(s, len(parts), 16):
+            slices[s] = slices[s] + parts[blk]
+    return _tree(slices)
+
+
+@pytest.mark.parametrize("rows,hidden,sm_count", [
+    (1000, 768, 4), (8193, 36, 2), (37, 100, 132), (300, 12, 1),
+    (200, 8200, 3), (700, 1032, 132)])
+def test_k4_partials_in_the_kernels_order_match_the_plain_backward(
+        rows, hidden, sm_count):
+    """A plain mirror of K4's affine-gradient layout (the rows body's
+    lanes, warp butterfly and block tree; the wide body's blocks; the
+    team body's teams in order; then the second stage's slices and tree)
+    sums dw and db to the plain backward's within 1e-6 of their scale,
+    fp32."""
+    x, w, _, dy = _inputs(7, rows, hidden, True)
+    tx, tw, tdy = _t(x), _t(w), _t(dy)
+    _, mean, rstd = tln.layer_norm_fwd(tx, tw, None, 1e-5)
+    _, dw, db = tln.layer_norm_bwd(tx, tw, mean, rstd, tdy)
+    p = lnc.plan(rows, hidden, torch.bfloat16, sm_count, backward=True)
+    xhat = (tx - mean[:, None]) * rstd[:, None]
+    _close(_k4_mirror(tdy * xhat, p, rows), dw, 1e-6, scale=True)
+    _close(_k4_mirror(tdy, p, rows), db, 1e-6, scale=True)

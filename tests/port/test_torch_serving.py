@@ -318,18 +318,20 @@ def test_engine_matches_jax_token_for_token_fp32(jax_tree):
 
 
 def test_serving_config_takes_head_dim_80_and_refuses_past_256():
-    """head_dim 80 (GPT-3 2.7B's) and 264 (past the prefill kernels' 256:
-    prefill takes the scores route) serve; past 512, decode's limit, the
-    config is refused before any forward, the message naming 512."""
+    """head_dim 80 (GPT-3 2.7B's), 264 (past the prefill kernels' 256:
+    prefill takes the scores route) and 520 or 576 (past decode's 512:
+    decode takes its scores route on the card) all serve; what the
+    serving forward does not model is still refused before any forward."""
     base = dict(hidden_size=160, num_layers=1, num_attention_heads=2,
                 vocab_size=64, max_position_embeddings=32, hidden_dropout=0.0,
                 attention_dropout=0.0, apply_query_key_layer_scaling=False)
     tmodel.check_serving_config(TConfig(**base))
     assert TConfig(**base).head_dim == 80
-    tmodel.check_serving_config(TConfig(**dict(base, kv_channels=264)))
-    tmodel.check_serving_config(TConfig(**dict(base, kv_channels=512)))
-    with pytest.raises(ValueError, match="head_dim 520.*up to 512"):
-        tmodel.check_serving_config(TConfig(**dict(base, kv_channels=520)))
+    for d in (264, 512, 520, 576):
+        tmodel.check_serving_config(TConfig(**dict(base, kv_channels=d)))
+    with pytest.raises(ValueError, match="dropout"):
+        tmodel.check_serving_config(TConfig(**dict(base, kv_channels=576,
+                                                   hidden_dropout=0.1)))
     assert decode_attention_cuda.MAX_HEAD_DIM == 512
 
 

@@ -259,9 +259,24 @@ def test_engine_at_head_dim_320_matches_jax_token_for_token_fp32():
         == (je.prefill_batches, je.decode_steps, je.tokens_generated)
 
 
-def test_engine_refuses_a_head_dim_past_decodes_512_at_construction():
-    kw = dict(SERVE_KW, hidden_size=64, kv_channels=520)
-    with pytest.raises(ValueError, match="head_dim 520.*512"):
-        TEngine(TConfig(**kw), device="cpu", **SERVE_ENGINE)
-    TEngine(TConfig(**dict(kw, kv_channels=512)), device="cpu",
-            **SERVE_ENGINE)
+def test_engine_at_head_dim_576_matches_jax_token_for_token_fp32():
+    """Past decode's 512 both engines serve: JAX's decode runs its jnp
+    reference, the port's on the CPU its plain version (on the card the
+    scores route, K10); prefill takes both packages' scores routes."""
+    kw = dict(SERVE_KW, hidden_size=1152, num_attention_heads=2)
+    jcfg, tcfg = JConfig(**kw), TConfig(**kw)
+    assert tcfg.head_dim == 576
+    tree = jax.tree_util.tree_map(np.asarray,
+                                  jserving.init_gpt_params(jcfg))
+    jreqs, jid = jsched.synthetic_trace(**SERVE_TRACE)
+    treqs, tid = tsched.synthetic_trace(**SERVE_TRACE)
+    assert jid == tid
+    je = JEngine(jcfg, tree, **SERVE_ENGINE)
+    te = TEngine(tcfg, tweights.from_jax_params(tree, tcfg, "cpu"),
+                 device="cpu", **SERVE_ENGINE)
+    jdone, tdone = je.run_trace(jreqs), te.run_trace(treqs)
+    assert [r.rid for r in tdone] == [r.rid for r in jdone]
+    for a, b in zip(jdone, tdone):
+        assert b.out_tokens == a.out_tokens, f"rid {a.rid} diverged"
+    assert (te.prefill_batches, te.decode_steps, te.tokens_generated) \
+        == (je.prefill_batches, je.decode_steps, je.tokens_generated)
