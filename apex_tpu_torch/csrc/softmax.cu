@@ -46,17 +46,39 @@
 // 4096).
 //
 // Longer rows (K10L and K11L, sk > 4096) do not fit one warp's registers.
-// There one block of LONG_THREADS threads owns a row and walks it in
-// 16-byte vectors, neighbouring threads on neighbouring vectors: K10L
-// reads x three times (the row max, the sum of exponentials, then y
-// written), K11L reads y and g twice (the dot, then dx written), each
-// block-wide max and sum reduced through shared memory. A row of 8192
-// bf16 keys is 16 KB, so the later passes find it in L1/L2; the bytes from
-// device memory are those of the one-pass kernels. Masks, the causal skip
-// (vectors wholly above the diagonal are not read and are written as
-// zeros), the s > 0 guard of a fully masked row and the stride-0 mask
-// axes are K10's; the fixed thread-to-element map and the fixed reduction
-// order give the same bits on every run.
+// There one block owns a row. K11L walks it in 16-byte vectors of
+// LONG_THREADS threads, neighbouring threads on neighbouring vectors,
+// reading y and g twice (the dot, then dx written), its block-wide sum
+// reduced through shared memory. K10L (redesigned for Hopper) reads x from
+// device memory once wherever the row fits on chip, in one of three bodies
+// that softmax_cuda.long_plan(sk, itemsize) names from the row's length and
+// the dtype's size (the fastest an H100 measured):
+//  - regs (bf16/fp16, up to 8192 keys): the row in registers,
+//    LONG_REG_VALUES fp32 values (4 vectors) a thread, the fewest warps
+//    that cover it (8192 keys take 256 threads): every load issued before
+//    any is used, a max and a sum reduced over the block, y written from
+//    the registers;
+//  - smem (to LONG_SMEM_MAX bytes of stage, 49152 bf16/fp16 or 24576 fp32
+//    keys; fp32 from the first long row, where it beat an fp32 register
+//    body, which is not built):
+//    the row staged in dynamic shared memory in x's own dtype, a byte of
+//    mask bits a vector, about 8 vectors a thread; the max taken as it is
+//    staged, the sum and y from shared memory;
+//  - walk: past that, each thread carries an online (max, sum) pair over
+//    its vectors (the sum rescaled where the max moves), the pairs
+//    combined over the block, then a second read writes y: two reads of
+//    x where the parent's body made three.
+// Vectors wholly past the causal diagonal are written as zeros before the
+// reductions, under their latency.
+// In bf16 and fp16 each body takes the exponential as ex2 of (v - max)
+// log2 e and scales by one reciprocal of the sum, as K10 does; fp32 keeps
+// expf and the division. The parent's K10L (one body of 256 threads
+// reading x three times, expf and a division an element) read 0.41 of
+// its byte bound at [1, 12, 1024, 8192] bf16 (PERF.md). Masks, the causal
+// skip (vectors wholly above the diagonal are neither read nor computed,
+// only written as zeros), the sum > 0 guard of a fully masked row and the
+// stride-0 mask axes are K10's; the fixed thread-to-element map and the
+// fixed reduction order give the same bits on every run.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -71,6 +93,7 @@ namespace {
 constexpr int WARPS = 4;            // rows per block
 constexpr int THREADS = WARPS * 32;
 constexpr int MAX_SK = 4096;
+constexpr int MAX_DEVICES = 64;
 
 template <typename T, int N>
 struct alignas(sizeof(T) * N) Pack {
@@ -348,58 +371,269 @@ __device__ __forceinline__ unsigned load_scaled(const T* __restrict__ xr,
   return bits;
 }
 
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(LONG_THREADS)
-softmax_fwd_long_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
-                        T* __restrict__ y, int sq, int sk, int np, long long mask_sb,
-                        long long mask_sh, long long mask_sq, float scale, int causal) {
+// ---- K10L: the redesigned long-row forward, three bodies ------------------
+constexpr int LONG_MAX_THREADS = 512;
+constexpr int LONG_REG_VALUES = 32;          // fp32 values a regs thread holds
+constexpr int LONG_SMEM_MAX = 102 * 1024;    // the smem body's largest row stage
+enum LongBody { BODY_REGS = 0, BODY_SMEM = 1, BODY_WALK = 2 };
+
+// the block's max (IS_MAX) or sum of v over nwarps warps, in a fixed order,
+// the same value in every thread
+template <bool IS_MAX>
+__device__ __forceinline__ float block_reduce_n(float v, float* red, int nwarps) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  v = IS_MAX ? warp_max(v) : warp_sum(v);
+  __syncthreads();                             // red is free again
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  v = lane < nwarps ? red[lane] : (IS_MAX ? -INFINITY : 0.f);
+  return IS_MAX ? warp_max(v) : warp_sum(v);
+}
+
+// the row a block owns: its query index, x and y rows, its mask row, and
+// `live`, the first column at or past which no vector holds an unmasked
+// element (past the row, or wholly above the causal diagonal)
+template <typename T>
+struct LongRow {
+  int i, live;
+  const T* xr;
+  T* yr;
+  const uint8_t* mr;
+  __device__ LongRow(const T* x, const uint8_t* mask, T* y, int sq, int sk, int np,
+                     long long msb, long long msh, long long msq, int causal) {
+    const long long row = blockIdx.x;
+    i = (int)(row % sq);
+    const long long bh = row / sq;
+    const long long b = bh / np;
+    const int h = (int)(bh % np);
+    xr = x + row * sk;
+    yr = y + row * sk;
+    mr = mask ? mask + b * msb + (long long)h * msh + (long long)i * msq : nullptr;
+    live = causal ? min(sk, i + 1) : sk;
+  }
+};
+
+// exp(d) as K10 takes it: ex2 of d log2 e in bf16/fp16, expf in fp32
+template <bool HALF>
+__device__ __forceinline__ float row_exp(float d) {
+  return HALF ? ex2(d * LOG2E) : expf(d);
+}
+
+// y = e / sum: one reciprocal in bf16/fp16, the division in fp32; a fully
+// masked row (sum 0) gives 0
+template <bool HALF>
+__device__ __forceinline__ float row_div(float e, float sum, float inv) {
+  return HALF ? e * inv : (sum > 0.f ? e / sum : 0.f);
+}
+
+// regs: NV vectors a thread, the row in registers; thread t's vector v
+// starts at column (v * blockDim.x + t) * EPV
+template <typename T, int NV, bool VEC>
+__global__ void __launch_bounds__(LONG_MAX_THREADS)
+softmax_fwd_long_regs(const T* __restrict__ x, const uint8_t* __restrict__ mask,
+                      T* __restrict__ y, int sq, int sk, int np, long long mask_sb,
+                      long long mask_sh, long long mask_sq, float scale, int causal) {
   constexpr int EPV = 16 / sizeof(T);
-  __shared__ float red[LONG_WARPS];
-  const long long row = blockIdx.x;
-  const int i = (int)(row % sq);
-  const long long bh = row / sq;
-  const long long b = bh / np;
-  const int h = (int)(bh % np);
-  const T* xr = x + row * sk;
-  T* yr = y + row * sk;
-  const uint8_t* mr =
-      mask ? mask + b * mask_sb + (long long)h * mask_sh + (long long)i * mask_sq
-           : nullptr;
-  // vectors at or past `live` hold no unmasked element: past the row, or
-  // (causal) wholly above the diagonal
-  const int live = causal ? min(sk, i + 1) : sk;
-  const int stride = LONG_THREADS * EPV;
-  const bool skipped = live < sk;              // a skipped vector is masked
+  constexpr bool HALF = sizeof(T) == 2;
+  __shared__ float red[LONG_MAX_THREADS / 32];
+  const LongRow<T> r(x, mask, y, sq, sk, np, mask_sb, mask_sh, mask_sq, causal);
+  const int stride = blockDim.x * EPV, nwarps = blockDim.x / 32;
+  float val[NV][EPV];
+  unsigned masked[NV];
   float mx = -INFINITY;
-  for (int c0 = threadIdx.x * EPV; c0 < live; c0 += stride) {
-    float v[EPV];
-    load_scaled<T, EPV, VEC>(xr, mr, c0, sk, i, causal, scale, v);
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const int c0 = threadIdx.x * EPV + v * stride;
+    masked[v] = (1u << EPV) - 1;
+#pragma unroll
+    for (int e = 0; e < EPV; ++e) val[v][e] = -FLT_MAX;
+    if (c0 < r.live)
+      masked[v] = load_scaled<T, EPV, VEC>(r.xr, r.mr, c0, sk, r.i, causal, scale,
+                                           val[v]);
+  }
+  // the vectors at or past `live` (the causal tail) are zeros: written now,
+  // under the reductions' latency, and skipped below
+  const float zero[EPV] = {};
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const int c0 = threadIdx.x * EPV + v * stride;
+    if (c0 >= r.live && c0 < sk) store_row<T, EPV, VEC>(r.yr, c0, sk, zero);
+  }
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const int c0 = threadIdx.x * EPV + v * stride;
+    if (c0 >= r.live) continue;
 #pragma unroll
     for (int e = 0; e < EPV; ++e)
-      if (c0 + e < sk) mx = fmaxf(mx, v[e]);   // a masked element: -FLT_MAX
+      if (c0 + e < sk) mx = fmaxf(mx, val[v][e]);  // masked: -FLT_MAX
   }
-  if (skipped) mx = fmaxf(mx, -FLT_MAX);
-  mx = block_reduce<true>(mx, red);
+  if (r.live < sk) mx = fmaxf(mx, -FLT_MAX);     // a skipped vector is masked
+  mx = block_reduce_n<true>(mx, red, nwarps);
   float sum = 0.f;
-  for (int c0 = threadIdx.x * EPV; c0 < live; c0 += stride) {
-    float v[EPV];
-    const unsigned bits = load_scaled<T, EPV, VEC>(xr, mr, c0, sk, i, causal, scale, v);
 #pragma unroll
-    for (int e = 0; e < EPV; ++e) sum += (bits >> e) & 1u ? 0.f : expf(v[e] - mx);
+  for (int v = 0; v < NV; ++v) {
+    const int c0 = threadIdx.x * EPV + v * stride;
+    if (c0 >= r.live) continue;
+#pragma unroll
+    for (int e = 0; e < EPV; ++e) {
+      val[v][e] = (masked[v] >> e) & 1u ? 0.f : row_exp<HALF>(val[v][e] - mx);
+      sum += val[v][e];
+    }
   }
-  sum = block_reduce<false>(sum, red);
-  for (int c0 = threadIdx.x * EPV; c0 < sk; c0 += stride) {
-    float v[EPV];
-    if (c0 < live) {
-      const unsigned bits = load_scaled<T, EPV, VEC>(xr, mr, c0, sk, i, causal, scale, v);
+  sum = block_reduce_n<false>(sum, red, nwarps);
+  const float inv = sum > 0.f ? 1.f / sum : 0.f;
 #pragma unroll
-      for (int e = 0; e < EPV; ++e)
-        v[e] = (bits >> e) & 1u || !(sum > 0.f) ? 0.f : expf(v[e] - mx) / sum;
+  for (int v = 0; v < NV; ++v) {
+    const int c0 = threadIdx.x * EPV + v * stride;
+    if (c0 >= r.live) continue;
+#pragma unroll
+    for (int e = 0; e < EPV; ++e) val[v][e] = row_div<HALF>(val[v][e], sum, inv);
+    store_row<T, EPV, VEC>(r.yr, c0, sk, val[v]);
+  }
+}
+
+// bit e set where element e of the vector at c0 is masked or past the row
+template <int EPV, bool VEC>
+__device__ __forceinline__ unsigned mask_bits(const uint8_t* __restrict__ mr, int c0,
+                                              int sk, int i, int causal) {
+  uint8_t mk[EPV];
+#pragma unroll
+  for (int e = 0; e < EPV; ++e) mk[e] = 0;
+  if (mr) {
+    if constexpr (VEC) {
+      const Pack<uint8_t, EPV> pk = *reinterpret_cast<const Pack<uint8_t, EPV>*>(mr + c0);
+#pragma unroll
+      for (int e = 0; e < EPV; ++e) mk[e] = pk.v[e];
     } else {
 #pragma unroll
-      for (int e = 0; e < EPV; ++e) v[e] = 0.f;
+      for (int e = 0; e < EPV; ++e) mk[e] = c0 + e < sk ? mr[c0 + e] : 0;
     }
-    store_row<T, EPV, VEC>(yr, c0, sk, v);
+  }
+  unsigned bits = 0;
+#pragma unroll
+  for (int e = 0; e < EPV; ++e) {
+    const int col = c0 + e;
+    if (col >= sk || mk[e] != 0 || (causal && col > i)) bits |= 1u << e;
+  }
+  return bits;
+}
+
+// the EPV raw elements of x at c0 (zeros past the row)
+template <typename T, int EPV, bool VEC>
+__device__ __forceinline__ Pack<T, EPV> load_raw(const T* __restrict__ p, int c0, int sk) {
+  Pack<T, EPV> pk;
+  if constexpr (VEC) {
+    pk = *reinterpret_cast<const Pack<T, EPV>*>(p + c0);
+  } else {
+#pragma unroll
+    for (int e = 0; e < EPV; ++e) pk.v[e] = c0 + e < sk ? p[c0 + e] : from_f<T>(0.f);
+  }
+  return pk;
+}
+
+// smem: the row's live vectors staged in dynamic shared memory in x's
+// dtype (one 16-byte slot a vector), their mask bits a byte each behind them
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(LONG_MAX_THREADS)
+softmax_fwd_long_smem(const T* __restrict__ x, const uint8_t* __restrict__ mask,
+                      T* __restrict__ y, int sq, int sk, int np, long long mask_sb,
+                      long long mask_sh, long long mask_sq, float scale, int causal) {
+  constexpr int EPV = 16 / sizeof(T);
+  constexpr bool HALF = sizeof(T) == 2;
+  extern __shared__ __align__(16) unsigned char stage[];
+  __shared__ float red[LONG_MAX_THREADS / 32];
+  const LongRow<T> r(x, mask, y, sq, sk, np, mask_sb, mask_sh, mask_sq, causal);
+  const int nvec = (sk + EPV - 1) / EPV, live_vec = (r.live + EPV - 1) / EPV;
+  Pack<T, EPV>* xs = reinterpret_cast<Pack<T, EPV>*>(stage);
+  uint8_t* bits_s = stage + (size_t)nvec * 16;
+  const int nwarps = blockDim.x / 32;
+  // the vectors at or past `live` (the causal tail) are zeros: written first
+  const float zero[EPV] = {};
+  for (int v = live_vec + threadIdx.x; v < nvec; v += blockDim.x)
+    store_row<T, EPV, VEC>(r.yr, v * EPV, sk, zero);
+  float mx = -INFINITY;
+#pragma unroll 4
+  for (int v = threadIdx.x; v < live_vec; v += blockDim.x) {
+    const int c0 = v * EPV;
+    const Pack<T, EPV> pk = load_raw<T, EPV, VEC>(r.xr, c0, sk);
+    const unsigned bits = mask_bits<EPV, VEC>(r.mr, c0, sk, r.i, causal);
+    xs[v] = pk;
+    bits_s[v] = (uint8_t)bits;
+#pragma unroll
+    for (int e = 0; e < EPV; ++e)
+      if (c0 + e < sk) mx = fmaxf(mx, (bits >> e) & 1u ? -FLT_MAX : to_f(pk.v[e]) * scale);
+  }
+  if (r.live < sk) mx = fmaxf(mx, -FLT_MAX);
+  mx = block_reduce_n<true>(mx, red, nwarps);  // its barriers order the stage
+  float sum = 0.f;
+  for (int v = threadIdx.x; v < live_vec; v += blockDim.x) {
+    const Pack<T, EPV> pk = xs[v];
+    const unsigned bits = bits_s[v];
+#pragma unroll
+    for (int e = 0; e < EPV; ++e)
+      sum += (bits >> e) & 1u ? 0.f : row_exp<HALF>(to_f(pk.v[e]) * scale - mx);
+  }
+  sum = block_reduce_n<false>(sum, red, nwarps);
+  const float inv = sum > 0.f ? 1.f / sum : 0.f;
+  for (int v = threadIdx.x; v < live_vec; v += blockDim.x) {
+    const Pack<T, EPV> pk = xs[v];
+    const unsigned bits = bits_s[v];
+    float out[EPV];
+#pragma unroll
+    for (int e = 0; e < EPV; ++e)
+      out[e] = (bits >> e) & 1u
+                   ? 0.f
+                   : row_div<HALF>(row_exp<HALF>(to_f(pk.v[e]) * scale - mx), sum, inv);
+    store_row<T, EPV, VEC>(r.yr, v * EPV, sk, out);
+  }
+}
+
+// walk: an online (max, sum) pair a thread over one read of its vectors,
+// the pairs combined over the block, then a second read writes y
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(LONG_MAX_THREADS)
+softmax_fwd_long_walk(const T* __restrict__ x, const uint8_t* __restrict__ mask,
+                      T* __restrict__ y, int sq, int sk, int np, long long mask_sb,
+                      long long mask_sh, long long mask_sq, float scale, int causal) {
+  constexpr int EPV = 16 / sizeof(T);
+  constexpr bool HALF = sizeof(T) == 2;
+  __shared__ float red[LONG_MAX_THREADS / 32];
+  const LongRow<T> r(x, mask, y, sq, sk, np, mask_sb, mask_sh, mask_sq, causal);
+  const int stride = blockDim.x * EPV, nwarps = blockDim.x / 32;
+  // the vectors at or past `live` (the causal tail) are zeros: written first
+  const float zero[EPV] = {};
+  for (int v = (r.live + EPV - 1) / EPV + threadIdx.x; v * EPV < sk; v += blockDim.x)
+    store_row<T, EPV, VEC>(r.yr, v * EPV, sk, zero);
+  float m = -INFINITY, s = 0.f;
+  for (int c0 = threadIdx.x * EPV; c0 < r.live; c0 += stride) {
+    float v[EPV];
+    const unsigned bits = load_scaled<T, EPV, VEC>(r.xr, r.mr, c0, sk, r.i, causal,
+                                                   scale, v);
+    float vm = m;
+#pragma unroll
+    for (int e = 0; e < EPV; ++e)
+      if (c0 + e < sk) vm = fmaxf(vm, v[e]);   // a masked element: -FLT_MAX
+    if (vm != m) {
+      s *= expf(m - vm);                       // 0 while m is -inf
+      m = vm;
+    }
+#pragma unroll
+    for (int e = 0; e < EPV; ++e) s += (bits >> e) & 1u ? 0.f : row_exp<HALF>(v[e] - m);
+  }
+  // a skipped vector is masked; a thread's sum moves onto the block's max
+  const float mx = block_reduce_n<true>(r.live < sk ? fmaxf(m, -FLT_MAX) : m, red,
+                                        nwarps);
+  const float sum =
+      block_reduce_n<false>(s > 0.f ? s * expf(m - mx) : 0.f, red, nwarps);
+  const float inv = sum > 0.f ? 1.f / sum : 0.f;
+  for (int c0 = threadIdx.x * EPV; c0 < r.live; c0 += stride) {
+    float v[EPV];
+    const unsigned bits = load_scaled<T, EPV, VEC>(r.xr, r.mr, c0, sk, r.i, causal,
+                                                   scale, v);
+#pragma unroll
+    for (int e = 0; e < EPV; ++e)
+      v[e] = (bits >> e) & 1u ? 0.f : row_div<HALF>(row_exp<HALF>(v[e] - mx), sum, inv);
+    store_row<T, EPV, VEC>(r.yr, c0, sk, v);
   }
 }
 
@@ -503,19 +737,53 @@ bool vec_ok(int sk, int itemsize, const void* a, const void* b, const void* c,
   return ok;
 }
 
+template <typename T, bool VEC>
+cudaError_t fwd_long_launch(int body, int threads, int smem, unsigned blocks,
+                            cudaStream_t st, const void* x, const void* mask, void* y,
+                            int sq, int sk, int np, long long msb, long long msh,
+                            long long msq, float scale, int causal) {
+  constexpr int NV = LONG_REG_VALUES / (16 / (int)sizeof(T));
+  const T* xt = (const T*)x;
+  const uint8_t* mt = (const uint8_t*)mask;
+  T* yt = (T*)y;
+  if (body == BODY_REGS) {
+    // bf16/fp16 only (the C entry refuses it for fp32): no fp32 instantiation
+    if constexpr (sizeof(T) == 2)
+      softmax_fwd_long_regs<T, NV, VEC><<<blocks, threads, 0, st>>>(
+          xt, mt, yt, sq, sk, np, msb, msh, msq, scale, causal);
+  } else if (body == BODY_SMEM) {
+    auto kernel = softmax_fwd_long_smem<T, VEC>;
+    // the shared memory this instantiation was granted, by device: a host
+    // call the launch would otherwise make every time
+    static int granted[MAX_DEVICES] = {};
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return err;
+    if (device >= MAX_DEVICES || granted[device] < smem) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 LONG_SMEM_MAX);
+      if (err != cudaSuccess) return err;
+      if (device < MAX_DEVICES) granted[device] = LONG_SMEM_MAX;
+    }
+    kernel<<<blocks, threads, smem, st>>>(xt, mt, yt, sq, sk, np, msb, msh, msq, scale,
+                                         causal);
+  } else {
+    softmax_fwd_long_walk<T, VEC><<<blocks, threads, 0, st>>>(
+        xt, mt, yt, sq, sk, np, msb, msh, msq, scale, causal);
+  }
+  return cudaGetLastError();
+}
+
 template <typename T>
-void fwd_long_dispatch(bool vec, unsigned blocks, cudaStream_t st, const void* x,
-                       const void* mask, void* y, int sq, int sk, int np,
-                       long long msb, long long msh, long long msq, float scale,
-                       int causal) {
-  if (vec)
-    softmax_fwd_long_kernel<T, true><<<blocks, LONG_THREADS, 0, st>>>(
-        (const T*)x, (const uint8_t*)mask, (T*)y, sq, sk, np, msb, msh, msq, scale,
-        causal);
-  else
-    softmax_fwd_long_kernel<T, false><<<blocks, LONG_THREADS, 0, st>>>(
-        (const T*)x, (const uint8_t*)mask, (T*)y, sq, sk, np, msb, msh, msq, scale,
-        causal);
+cudaError_t fwd_long_dispatch(bool vec, int body, int threads, int smem,
+                              unsigned blocks, cudaStream_t st, const void* x,
+                              const void* mask, void* y, int sq, int sk, int np,
+                              long long msb, long long msh, long long msq, float scale,
+                              int causal) {
+  return vec ? fwd_long_launch<T, true>(body, threads, smem, blocks, st, x, mask, y, sq,
+                                        sk, np, msb, msh, msq, scale, causal)
+             : fwd_long_launch<T, false>(body, threads, smem, blocks, st, x, mask, y, sq,
+                                         sk, np, msb, msh, msq, scale, causal);
 }
 
 template <typename T>
@@ -577,31 +845,45 @@ extern "C" int softmax_bwd(const void* y, const void* g, void* dx, long long row
   return (int)cudaGetLastError();
 }
 
-// K10L: one block per row, any sk >= 1
+// K10L: one block per row, any sk >= 1, in the body softmax_cuda.long_plan
+// names (body 0 regs, 1 smem, 2 walk; threads a block; the smem body's
+// dynamic shared bytes)
 extern "C" int softmax_fwd_long(const void* x, const void* mask, void* y,
                                 long long rows, int sq, int sk, int np,
                                 long long mask_sb, long long mask_sh,
-                                long long mask_sq, float scale, int causal, int dtype,
-                                int device, void* stream) {
+                                long long mask_sq, float scale, int causal, int body,
+                                int threads, int smem, int dtype, int device,
+                                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (rows < 1 || rows > 0x7fffffffLL || sq < 1 || sk < 1 || np < 1 || dtype < 0 ||
       dtype > 2)
     return (int)cudaErrorInvalidValue;
+  const int itemsize = dtype == 2 ? 4 : 2;
+  const long long epv = 16 / itemsize;
+  const long long nvec = (sk + epv - 1) / epv;
+  // the plan must cover the row: regs (bf16/fp16 only) threads x their
+  // vectors, smem a 16-byte slot and a mask byte a vector
+  if (threads < 32 || threads > LONG_MAX_THREADS || threads % 32 != 0 || body < 0 ||
+      body > 2 ||
+      (body == BODY_REGS &&
+       (itemsize != 2 || (long long)threads * (LONG_REG_VALUES / epv) < nvec)) ||
+      (body == BODY_SMEM && (smem > LONG_SMEM_MAX || (long long)smem < nvec * 17)))
+    return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)rows;
   cudaStream_t st = (cudaStream_t)stream;
-  const int itemsize = dtype == 2 ? 4 : 2;
   const bool vec = vec_ok(sk, itemsize, x, y, x, mask);
   if (dtype == 0)
-    fwd_long_dispatch<__nv_bfloat16>(vec, blocks, st, x, mask, y, sq, sk, np, mask_sb,
-                                     mask_sh, mask_sq, scale, causal);
-  else if (dtype == 1)
-    fwd_long_dispatch<__half>(vec, blocks, st, x, mask, y, sq, sk, np, mask_sb, mask_sh,
-                              mask_sq, scale, causal);
-  else
-    fwd_long_dispatch<float>(vec, blocks, st, x, mask, y, sq, sk, np, mask_sb, mask_sh,
-                             mask_sq, scale, causal);
-  return (int)cudaGetLastError();
+    return (int)fwd_long_dispatch<__nv_bfloat16>(vec, body, threads, smem, blocks, st, x,
+                                                 mask, y, sq, sk, np, mask_sb, mask_sh,
+                                                 mask_sq, scale, causal);
+  if (dtype == 1)
+    return (int)fwd_long_dispatch<__half>(vec, body, threads, smem, blocks, st, x, mask,
+                                          y, sq, sk, np, mask_sb, mask_sh, mask_sq, scale,
+                                          causal);
+  return (int)fwd_long_dispatch<float>(vec, body, threads, smem, blocks, st, x, mask, y,
+                                       sq, sk, np, mask_sb, mask_sh, mask_sq, scale,
+                                       causal);
 }
 
 // K11L: one block per row, any sk >= 1

@@ -45,7 +45,10 @@ MAX_HEAD_DIM = HEAD_DIM_BUCKETS[-1]
 # source)
 SPLIT_KV_BYTES = 64 * 1024
 # (device, stream) -> int32 zeros, one a slot-head, left zero by every
-# launch: the launches that share an array run in turn on their stream
+# launch: the launches that share an array run in turn on their stream. A
+# CUDA graph captures the array its stream has at capture, so a capture
+# must find it allocated (the serving engine's warm-up call on the capture
+# stream does that); every replay then finds it zero
 _tickets = {}
 
 

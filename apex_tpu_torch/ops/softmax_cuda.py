@@ -5,8 +5,9 @@
 (``_bwd_rule :204``, kernel ``_bwd_kernel :130``), for rows of up to
 4096 keys; K10L :func:`softmax_fwd_long` and K11L :func:`softmax_bwd_long`
 compute the same functions for rows of any length (the generic softmax's
-``sk > 4096``), one block per row. The source's header says what bounds
-them (bytes) and how the design answers that.
+``sk > 4096``), one block per row, K10L in the body :func:`long_plan`
+names. The source's header says what bounds them (bytes) and how the
+design answers that.
 
 Each wrapper checks its inputs, allocates its output, launches on
 PyTorch's current stream without synchronising, raises on a refused
@@ -16,6 +17,7 @@ versions are in :mod:`apex_tpu_torch.ops.softmax`.
 """
 
 import ctypes
+from collections import namedtuple
 
 import torch
 
@@ -31,7 +33,7 @@ _SIGNATURES = {
                      _I, _P], _I),
     "softmax_bwd": ([_P, _P, _P, _L, _I, _F, _I, _I, _P], _I),
     "softmax_fwd_long": ([_P, _P, _P, _L, _I, _I, _I, _L, _L, _L, _F, _I,
-                          _I, _I, _P], _I),
+                          _I, _I, _I, _I, _I, _P], _I),
     "softmax_bwd_long": ([_P, _P, _P, _L, _I, _F, _I, _I, _P], _I),
     "softmax_error_string": ([_I], ctypes.c_char_p),
 }
@@ -39,6 +41,44 @@ _SIGNATURES = {
 # K11L take any length, at most 2**31 - 1 rows (one block per row)
 MAX_SK = 4096
 _MAX_LONG_ROWS = 2 ** 31 - 1
+# K10L's bodies (csrc/softmax.cu): fp32 values a thread of the regs body
+# holds and its most threads, the vectors a thread of the smem body stages,
+# the most threads a block, and the smem body's largest stage (a 16-byte
+# slot and a byte of mask bits a vector: two blocks an SM)
+LONG_REG_VALUES = 32
+LONG_REG_THREADS = 256
+LONG_SMEM_VECS = 8
+LONG_MAX_THREADS = 512
+LONG_SMEM_MAX = 102 * 1024
+LONG_BODIES = ("regs", "smem", "walk")
+LongPlan = namedtuple("LongPlan", "body threads smem")
+
+
+def long_plan(sk, itemsize):
+    """K10L's body for rows of ``sk`` keys of ``itemsize`` bytes, from the
+    length and the dtype's size alone (the fastest an H100 measured,
+    ``chip_smoke.py``'s K10L phase): ``regs`` for bf16/fp16 rows of up to
+    ``LONG_REG_THREADS`` threads of ``LONG_REG_VALUES`` values (8192 keys:
+    the row in registers, the fewest warps that cover it); ``smem`` while
+    the row's stage fits ``LONG_SMEM_MAX`` (49152 bf16/fp16 or 24576 fp32
+    keys; fp32 from the first long row, where it beat an fp32 register
+    body, which the C entry refuses),
+    ``LONG_SMEM_VECS`` vectors a thread up to ``LONG_MAX_THREADS``;
+    ``walk`` past it (an online max and sum, two reads). Returns
+    ``LongPlan(body, threads, smem)``, ``smem`` the dynamic shared bytes.
+    """
+    if sk < 1 or itemsize not in (2, 4):
+        raise ValueError(f"long_plan: sk {sk}, itemsize {itemsize}")
+    nvec = -(-sk // (16 // itemsize))
+    per_thread = LONG_REG_VALUES * itemsize // 16
+    if itemsize == 2 and nvec <= per_thread * LONG_REG_THREADS:
+        return LongPlan("regs", 32 * -(-nvec // (32 * per_thread)), 0)
+    smem = -(-(nvec * 17) // 16) * 16
+    if smem <= LONG_SMEM_MAX:
+        threads = min(LONG_MAX_THREADS,
+                      32 * -(-nvec // (32 * LONG_SMEM_VECS)))
+        return LongPlan("smem", threads, smem)
+    return LongPlan("walk", LONG_MAX_THREADS, 0)
 
 
 def _check_x(name, x, long):
@@ -67,7 +107,8 @@ def softmax_fwd(x, mask, scale, causal):
 
 
 def softmax_fwd_long(x, mask, scale, causal):
-    """K10L: :func:`softmax_fwd`'s function for rows of any length."""
+    """K10L: :func:`softmax_fwd`'s function for rows of any length, in the
+    body :func:`long_plan` names."""
     y = _fwd("softmax_fwd_long", x, mask, scale, causal, True)
     softmax_fwd_long.launches += 1
     return y
@@ -92,9 +133,13 @@ def _fwd(name, x, mask, scale, causal, long):
         msb, msh, msq, _ = mask.expand(b, np_, sq, sk).stride()
         mptr = mask.data_ptr()
     y = torch.empty_like(x)
+    plan = ()
+    if long:
+        p = long_plan(sk, x.element_size())
+        plan = (LONG_BODIES.index(p.body), p.threads, p.smem)
     _build.launch(_NAME, _SIGNATURES, name, x.device, x.data_ptr(), mptr,
                   y.data_ptr(), rows, sq, sk, np_, msb, msh, msq,
-                  float(scale), int(bool(causal)),
+                  float(scale), int(bool(causal)), *plan,
                   _build.DTYPE_CODES[x.dtype])
     return y
 

@@ -18,6 +18,9 @@ only then cast.
 * :func:`decode_step` — one token per slot over the paged cache: append
   K/V at ``length-1``, attend through :func:`decode_attention` (the
   decode kernel on CUDA), greedy next token.
+* :func:`decode_block` — K decode steps in one call (JAX's ``lax.scan``
+  block, here a loop the engine captures as one CUDA graph), with
+  per-lane step budgets, a warm-token feed and the sampling lanes.
 
 The cache tensors are updated in place (the JAX functions return a new
 cache; here the same dict is returned, already updated). On the int8 KV
@@ -35,7 +38,7 @@ prefill falls back to its dense attention there, and decode past 512 (the
 decode kernels' limit, the JAX kernel's ``decode_attention_pallas.
 supported``) takes :func:`decode_attention`'s scores route (K10 again),
 as the JAX decode falls back to its jnp reference.
-Weight quantization and the multi-token decode block are later slices.
+Weight quantization is a later slice.
 
 Matmul precision: an fp32 run on the card needs
 ``torch.backends.cuda.matmul.allow_tf32 = False`` (PyTorch's default) to
@@ -47,9 +50,11 @@ import math
 import torch
 import torch.nn.functional as F
 
+from apex_tpu_torch import _env
 from apex_tpu_torch.ops.attention import fused_attention
 from apex_tpu_torch.ops.decode_attention import decode_attention
 from apex_tpu_torch.serving import kv_tier
+from apex_tpu_torch.serving import sampling as sampling_mod
 
 
 def check_serving_config(cfg):
@@ -296,3 +301,62 @@ def decode_step(params, cache, tokens, lengths, page_table, *, cfg):
     next_tokens = torch.where(
         active, torch.argmax(logits.float(), dim=-1).to(torch.int32), 0)
     return cache, next_tokens, logits
+
+
+# ---------------------------------------------- multi-token decode block
+
+def resolve_decode_k(per_call=None):
+    """The decode block's K: the per-call ``decode_k=`` is a demand (a
+    bool, a non-int or K < 1 raises); ``APEX_SERVE_DECODE_K`` is a
+    preference (garbage warns once and is ignored); default 1."""
+    if per_call is not None:
+        if isinstance(per_call, bool) or not isinstance(per_call, int) \
+                or per_call < 1:
+            raise ValueError(
+                f"decode_k= wants an int >= 1, got {per_call!r}")
+        return per_call
+    return _env.env_int("APEX_SERVE_DECODE_K") or 1
+
+
+def decode_block(params, cache, tokens, lengths, page_table, steps_budget,
+                 warm_tokens, warm_steps, lanes=None, *, k, cfg):
+    """K decode steps in one call (JAX's ``decode_block``, a ``lax.scan``
+    over :func:`decode_step`; here a loop with no host read, so the engine
+    can capture it once as a CUDA graph). Per step ``j`` (0-based):
+
+    * a lane is live while ``j < steps_budget[i]`` and its length is
+      non-zero; a dead lane's length is masked to 0 for the step, so its
+      K/V write goes to null page 0 and it emits token 0
+      (:func:`decode_step`'s inactive-slot contract), and its length does
+      not advance;
+    * warm-up steps (``j < warm_steps[i]``) feed the next known token
+      ``warm_tokens[j, i]`` as the following step's input instead of the
+      emitted one;
+    * sampling lanes (``lanes = (temps, top_ks, top_ps, keys, counters)``)
+      draw with the counter ``counters + max(0, j - warm_steps)``, so the
+      draw for generation index g is ``fold_in(key, g)`` whatever K.
+
+    tokens/lengths ``[B]`` as for :func:`decode_step`; steps_budget and
+    warm_steps ``[B]`` int; warm_tokens ``[K, B]`` int. Returns ``(cache,
+    toks [K, B] int32, logits [K, B, vocab])``; ``cache`` is updated in
+    place.
+    """
+    tok, lens = tokens, lengths
+    toks, logits_k = [], []
+    for j in range(k):
+        live = (j < steps_budget) & (lens > 0)
+        step_lens = torch.where(live, lens, torch.zeros_like(lens))
+        cache, emitted, logits = decode_step(params, cache, tok, step_lens,
+                                             page_table, cfg=cfg)
+        if lanes is not None:
+            temps, top_ks, top_ps, keys, counters = lanes
+            ctr = counters + torch.clamp_min(j - warm_steps, 0)
+            emitted = sampling_mod.sample_tokens(
+                logits, temps, top_ks, top_ps, keys, ctr, live)
+        emitted = emitted.to(torch.int32)
+        tok = torch.where(j < warm_steps, warm_tokens[j].to(torch.int32),
+                          emitted)
+        lens = torch.where(live, lens + 1, lens)
+        toks.append(emitted)
+        logits_k.append(logits)
+    return cache, torch.stack(toks), torch.stack(logits_k)

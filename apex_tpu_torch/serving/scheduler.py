@@ -58,9 +58,12 @@ class Request:
     max_new_tokens: int
     arrival: float = 0.0          # logical tick the request appears at
     priority: int = 0             # policy "priority": higher admits first
-    # per-request sampling controls (None = greedy); the engine refuses a
-    # non-greedy request while sampling is not ported
+    # per-request sampling controls (serving.sampling.SamplingParams; None
+    # = greedy); an engine built without sampling refuses a stochastic one
     sampling: Optional[Any] = None
+    # the request's threefry key lane (uint32[2]), derived and cached when
+    # its sampling lane is first staged (serving.sampling.fill_lane)
+    rng_key: Optional[Any] = None
     # tick the request entered the queue (the priority policy's aging
     # base); None falls back to ``arrival``
     queued_tick: Optional[float] = None

@@ -7,14 +7,13 @@ tp = 2 phase gives each rank a card of its own over NCCL. With
 ``--parent``, the sources of CHECKOUT (another commit's tree) whose
 kernels the recent slices redesigned (``xent.cu``, ``softmax.cu``,
 ``decode_attention.cu``, ``layer_norm.cu``, ``attention_bwd.cu``) are
-built too, their K7, K7p, K10, K2 and K2q, and K5/K6 and K5d/K6d at
-head dims 80 and 256, are timed in turns beside this tree's
-(``parent_ms``, ``parent_ms_turns``; through this tree's wrappers, so
-the parent's C entries must be this tree's), and so are K3 and K4 at
-every width the smoke times (through the parent's own C entries, whose
-signatures ``PARENT_SIGNATURES`` states; its K4 with the two
-``torch.sum`` launches its main path made). For example, from the
-root of this checkout::
+built too, and their K7, K7p, K10, K2 and K2q, K5/K6 and K5d/K6d at head
+dims 80 and 256, and K3 and K4 at every width the smoke times, are timed
+in turns beside this tree's (``parent_ms``, ``parent_ms_turns``; through
+this tree's wrappers, so those C entries must be this tree's), and so is
+K10L at every length the smoke times, through the parent's own C entry,
+whose signature ``PARENT_SIGNATURES`` states (before K10L took its
+plan). For example, from the root of this checkout::
 
     git archive <parent commit> apex_tpu_torch | tar -x -C build/parent
     python3 chip_smoke.py --parent build/parent
@@ -48,7 +47,9 @@ exits non-zero before the last line):
    (the scores path's softmax, ``[8, 12, 1024, 1024]`` bf16, K10 causal
    and with an explicit ``[8, 1, 1024, 1024]`` mask); K10L/K11L (the
    generic softmax's rows over 4096 keys, ``[1, 12, 1024, 8192]`` and the
-   ragged 5000 keys, bf16); K7p with K8 and K9 on the two vocabulary
+   ragged 5000 keys, bf16; K10L also at 32768 and 200000 keys and each
+   length in fp32, so that each of its bodies runs, two runs giving the
+   same bits, ``by_length``); K7p with K8 and K9 on the two vocabulary
    shards of the tp = 2 head (x ``[8192, 768]``, E ``[50432, 768]``
    split into 25216-row shards, bf16): each kernel against its plain
    version, and the shards' partials combined in torch, their dX summed
@@ -111,19 +112,38 @@ exits non-zero before the last line):
 4. serving end to end: ``ServingEngine`` at GPT-2-small width (12 x 768,
    12 heads, vocab 50304, 1024 positions, bf16; 8 slots, page size 128,
    72 pages, 512-token packed prefill) with random weights from seed 0
-   serves a seeded synthetic trace to completion. The launch counts of K1
-   and K2 are read around that run alone and must equal
-   ``prefill_batches x 12`` and ``decode_steps x 12``. Then one packed
+   serves a seeded synthetic trace to completion, timed, its decode
+   program captured once as a CUDA graph (the engine's default on the
+   card), then the same trace again under ``torch.profiler``. The
+   wrappers' counts, zeroed before the engine is built, must be K1 =
+   every prefill batch x 12 and K2 = 2 x 12 (the decode program's
+   warm-up and capture: a replay calls no wrapper); the kernels the
+   device ran in the traced run, counted by name (``TRACED_KERNELS``),
+   must be K1 = its ``prefill_batches x 12`` and K2 = its
+   ``decode_steps x 12``. Then one packed
    prefill batch and 4 decode steps run through the kernel path and the
    plain path on the card, and their logits must agree within 0.35 (the
    bf16 band of the JAX package's serving tests); a second short trace
    replays under ``torch.profiler`` (busy share, kernel time by kind).
    Then the same trace, checks and profile with ``kv_quant=True`` (the
-   int8 KV tier, the same 72 pages): K2q must launch ``decode_steps x
-   12`` times and K2 never, null page 0 must stay zero, and the int8
+   int8 KV tier, the same 72 pages): K2q must run ``decode_steps x 12``
+   times in the traced run and K2 never, null page 0 must stay zero, and
+   the int8
    codec's launches and device time for one decode step's and one
    prefill batch's cache writes are read by replaying them alone; the
-   two engines' numbers and cache bytes side by side.
+   two engines' numbers and cache bytes side by side. Then the decode
+   program's variants (``phase_serving_variants``): the same trace
+   served greedy and sampled (temperature 0.8, top-k 50, top-p 0.95, the
+   seed the request id), over bf16 and int8 pages, by eager K = 1,
+   graphed K = 1 and graphed K = 4 (``decode_block``), each twice in
+   turns, one prompt a prefill batch (``VARIANT_ENGINE``): the six runs
+   of each must give the same tokens bit for bit, K2 (K2q) must be
+   called through its wrapper (``_decode_calls``) x K x 12 times, and, in
+   each variant's profiled short trace, run on the device dispatches x K
+   x 12 times; each variant's tokens/s, TTFT and
+   TPOT p50/p99, decode-round ms and busy share, the sampler's device ms
+   a step, and how many requests keep equal tokens between graphed K = 1
+   and K = 4 at the packed prefill.
 5. training end to end: ``make_one_step`` over ``GPTModel`` at GPT-2-small
    width, b=8, s=1024, bf16, ``LossScaler()`` and
    ``fused_adam(learning_rate=1e-4)``, ids and labels from
@@ -176,7 +196,8 @@ exits non-zero before the last line):
    Before it, GPT-3 2.7B's widths (``GPT3_2P7B``: hidden 2560, 32 heads
    of 80, ffn 10240, vocab 50304; depth cut from 32 layers to 2 for the
    smoke's time; random weights from torch seed 0): ``ServingEngine``
-   serves 6 seeded greedy requests (K1 and K2 launches counted), the
+   serves 6 seeded greedy requests (K1 and K2 counted at their wrappers
+   and, in a traced rerun, on the device), the
    kernel and plain paths' logits agree within 0.35, and one training step
    at b = 2, s = 1024 agrees with the plain path within the training
    bands; K1, K2, K3, K4, K5 and K6 must each have launched. Then GPT-J-6B's
@@ -196,7 +217,9 @@ exits non-zero before the last line):
    the decode kernels (``HD576``: 2 layers of hidden 1152 over 2 heads of
    576): ``ServingEngine`` serves the same requests, K10 once a layer a
    prefill batch and a decode step (decode's scores route), K1, K2 and
-   K2q never, the kernel and plain paths' logits within 0.35.
+   K2q never, the kernel and plain paths' logits within 0.35. Each of
+   these serving runs is counted as phase 4's is: at the wrappers from
+   the engine's construction on, and on the device in a traced rerun.
 6. one JSON line per kernel, the ``{"kernels": [...]}`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -330,6 +353,17 @@ XENT_SHARD_DX_L2_TOL = 8e-3
 # the long-row softmax kernels' key lengths (K10L/K11L; a ragged one and
 # the longest the phase times)
 LONG_SOFTMAX_KEYS = (5000, 8192)
+# K10L's lengths with the leading dims of their bf16 scores (each ~100 M
+# elements, or 5000's 63 M; fp32 runs on half the queries), at least one
+# on each body of softmax_cuda.long_plan: in bf16 5000 and 8192 on the
+# register body, 32768 on the shared-memory body, 200000 walking; in fp32
+# 5000 and 8192 on the shared-memory body, 32768 and 200000 walking
+LONG_SOFTMAX_BODIES = {5000: (1, 12, 1024), 8192: (1, 12, 1024),
+                       32768: (1, 12, 256), 200000: (1, 1, 500)}
+# K10L's fp32 bands, the card tests' (tests/port/test_torch_kernels_cuda.py
+# SOFTMAX_TOL, SOFTMAX_L2_TOL): the largest |y diff| and relative L2
+SOFTMAX_FP32_Y_TOL = 1e-6
+SOFTMAX_FP32_L2_TOL = 5e-7
 # tensor-parallel training: the size, GPT-2's vocabulary padded to a
 # multiple of 128 x tp (pad_vocab_size(50257, 2)), so that each shard is
 # whole 128-row tiles and the sharded fused head applies; the ranks' time
@@ -399,13 +433,15 @@ def _time_in_turns(fn, lib_fn, flush, spread=None):
 PARENT_SOURCES = ("xent", "softmax", "decode_attention", "layer_norm",
                   "attention_bwd")
 PARENT = {}
-# the parent's C entries where they differ from this tree's: layer norm's
-# before its plan argument (K4 then wrote [nblocks, hidden] partials that
-# its caller summed), called through _parent_layer_norm_fwd/_bwd
-PARENT_SIGNATURES = {"layer_norm": {
-    "layer_norm_fwd": ("p" * 6 + "iifiip"),
-    "layer_norm_bwd": ("p" * 8 + "iiiiiip"),
-    "layer_norm_error_string": "i"}}
+# the parent's C entries where they differ from this tree's: softmax's
+# before K10L took its plan (body, threads, shared bytes), called through
+# _parent_softmax_fwd_long; its other entries are this tree's
+PARENT_SIGNATURES = {"softmax": {
+    "softmax_fwd": "pppliiilllfiiip",
+    "softmax_bwd": "ppplifiip",
+    "softmax_fwd_long": "pppliiilllfiiip",
+    "softmax_bwd_long": "ppplifiip",
+    "softmax_error_string": "i"}}
 
 
 def _start_parent_build(root):
@@ -432,13 +468,15 @@ def _finish_parent_build(procs):
     import ctypes
 
     from apex_tpu_torch.ops import (attention_bwd_cuda,
-                                    decode_attention_cuda, softmax_cuda,
+                                    decode_attention_cuda, layer_norm_cuda,
                                     xent_cuda)
 
-    sigs = {"xent": xent_cuda._SIGNATURES, "softmax": softmax_cuda._SIGNATURES,
+    sigs = {"xent": xent_cuda._SIGNATURES,
             "decode_attention": decode_attention_cuda._SIGNATURES,
-            "attention_bwd": attention_bwd_cuda._SIGNATURES}
-    codes = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+            "attention_bwd": attention_bwd_cuda._SIGNATURES,
+            "layer_norm": layer_norm_cuda._SIGNATURES}
+    codes = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float,
+             "l": ctypes.c_longlong}
     for name, entries in PARENT_SIGNATURES.items():
         sigs[name] = {
             fn_name: ([codes[c] for c in args],
@@ -1027,15 +1065,95 @@ def phase_softmax_kernels(dev, flush):
              flops=4 * elems)]
 
 
-def phase_long_softmax_kernels(dev, flush):
-    """K10L and K11L, the generic softmax's rows over 4096 keys: x, g [1,
-    12, 1024, 8192] bf16 (16-byte vectors) and the ragged [1, 12, 1024,
-    5000] (5000 keys take 16-byte vectors too; K10L and K11L tile any
-    length), no mask, scale 2.0, each against its plain version by
-    relative L2 (``SOFTMAX_L2_TOL``) and by the largest element error;
-    times against ``torch.softmax`` and ``torch._softmax_backward_data``
-    on the fp32-upcast scores."""
+def _long_softmax_fwd_at(dev, flush, sk, dtype, causal=False):
+    """K10L at ``sk`` keys (``LONG_SOFTMAX_BODIES``), no mask (or the
+    causal triangle, whose rows' tails are only written), scale 2.0:
+    against its plain version (relative L2 and the largest element error,
+    the bf16 or fp32 bands), two runs giving the same bits, and timed in
+    turns around ``torch.softmax`` on the fp32-upcast scores and, with
+    ``--parent``, the parent's K10L (one body, three reads)."""
     from apex_tpu_torch.ops import softmax, softmax_cuda
+
+    lead = LONG_SOFTMAX_BODIES[sk]
+    if dtype == torch.float32:
+        lead = (*lead[:2], lead[2] // 2)
+    scale = 2.0
+    gen = torch.Generator(device=dev).manual_seed(sk)
+    x = (torch.randn(*lead, sk, generator=gen, device=dev) * 3).to(dtype)
+    run = lambda: softmax_cuda.softmax_fwd_long(  # noqa: E731
+        x, None, scale, causal)
+    y, again = run(), run()
+    ry = softmax.scaled_masked_softmax_reference(x, None, scale, causal)
+    torch.cuda.synchronize()
+    y_tol, l2_tol = ((SOFTMAX_Y_TOL, SOFTMAX_L2_TOL) if dtype != torch.float32
+                     else (SOFTMAX_FP32_Y_TOL, SOFTMAX_FP32_L2_TOL))
+    out = {"shape": f"x [{','.join(map(str, lead))},{sk}] "
+                    f"{str(dtype).split('.')[-1]}, "
+                    f"{'causal' if causal else 'no mask'}, scale {scale}",
+           "plan": softmax_cuda.long_plan(sk, x.element_size())._asdict(),
+           "max_abs_err": _max_err(y, ry), "rel_l2": _rel_l2(y, ry),
+           "tol": y_tol, "rel_l2_tol": l2_tol,
+           "same_bits_twice": torch.equal(y, again)}
+    del y, again, ry
+    if out["max_abs_err"] > y_tol or out["rel_l2"] > l2_tol \
+            or not out["same_bits_twice"]:
+        raise AssertionError(f"K10L at {sk} keys ({dtype}) disagrees with "
+                             f"its plain version or repeats unequal: {out}")
+    xs = x.float() * scale
+    spread = []
+    out.update(_turns(run, lambda: torch.softmax(xs, dim=-1), flush,
+                      "softmax", spread=spread,
+                      parent_fn="softmax" in PARENT and (
+                          lambda: _parent_softmax_fwd_long(x, None, scale,
+                                                           causal))))
+    del xs
+    elems = x.numel()
+    # what the function needs: the live keys read (under the causal
+    # triangle query row i has min(sk, i + 1)) and the whole row written,
+    # the arithmetic over the live keys
+    sq = lead[-1]
+    live = elems if not causal else elems // (sq * sk) * sum(
+        min(sk, i + 1) for i in range(sq))
+    nbytes = (live + elems) * x.element_size()
+    bound = _bound(nbytes, 5 * live, FP32_FLOPS_PER_S)
+    out.update(ms_spread=spread, plain_ms=_time_ms(
+        lambda: softmax.scaled_masked_softmax_reference(x, None, scale,
+                                                        causal), flush, reps=5),
+        bound_ms=bound[0], bound_by=bound[1], bytes=nbytes, flops=5 * live,
+        live_keys=live)
+    _log(f"K10L at {sk} keys, {dtype}{', causal' if causal else ''}: "
+         + json.dumps(out))
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_long_softmax_kernels(dev, flush):
+    """K10L and K11L, the generic softmax's rows over 4096 keys. K10L at
+    every length of ``LONG_SOFTMAX_BODIES`` (each body of its plan) in
+    bf16 and fp32, and at 8192 keys causal (``_long_softmax_fwd_at``); its
+    row is [1, 12, 1024, 8192] bf16, the others under ``by_length``. K11L on x, g [1, 12,
+    1024, 8192] bf16 (16-byte vectors) and the ragged [1, 12, 1024, 5000],
+    no mask, scale 2.0, against its plain version by relative L2
+    (``SOFTMAX_L2_TOL``) and the largest element error, timed against
+    ``torch._softmax_backward_data``."""
+    from apex_tpu_torch.ops import softmax, softmax_cuda
+
+    dtypes = (("bf16", torch.bfloat16), ("fp32", torch.float32))
+    by_length = {f"{sk} {name}": _long_softmax_fwd_at(dev, flush, sk, dtype)
+                 for sk in LONG_SOFTMAX_BODIES for name, dtype in dtypes}
+    sk = LONG_SOFTMAX_KEYS[-1]
+    for name, dtype in dtypes:
+        by_length[f"{sk} {name} causal"] = _long_softmax_fwd_at(
+            dev, flush, sk, dtype, causal=True)
+    main = by_length.pop(f"{LONG_SOFTMAX_KEYS[-1]} bf16")
+    fwd_row = dict(
+        main, name="softmax_fwd_long", route="cuda",
+        source="apex_tpu_torch/csrc/softmax.cu",
+        replaces="apex_tpu/ops/softmax_pallas.py:185", kernel_ms=main["ms"],
+        library="torch.softmax over the fp32-upcast scores",
+        ragged_5000=by_length[f"{LONG_SOFTMAX_KEYS[0]} bf16"],
+        by_length=by_length)
 
     H, S = 12, TRAIN["seq"]
     scale = 2.0
@@ -1048,68 +1166,43 @@ def phase_long_softmax_kernels(dev, flush):
             torch.bfloat16)
         y = softmax_cuda.softmax_fwd_long(x, None, scale, False)
         dx = softmax_cuda.softmax_bwd_long(y, g, scale)
-        ry = softmax.scaled_masked_softmax_reference(x, None, scale, False)
         rdx = softmax.scaled_masked_softmax_backward_reference(y, g, scale)
         torch.cuda.synchronize()
-        errs = {"fwd": {"max_abs_err": _max_err(y, ry),
-                        "rel_l2": _rel_l2(y, ry)},
-                "bwd": {"max_abs_err": _max_err(dx, rdx),
-                        "rel_l2": _rel_l2(dx, rdx)}}
-        del ry, rdx
-        _log(f"long-row softmax kernels, sk={sk}: {errs} (tol relative L2 "
-             f"{SOFTMAX_L2_TOL}, max |y diff| {SOFTMAX_Y_TOL})")
-        if (errs["fwd"]["rel_l2"] > SOFTMAX_L2_TOL
-                or errs["bwd"]["rel_l2"] > SOFTMAX_L2_TOL
-                or errs["fwd"]["max_abs_err"] > SOFTMAX_Y_TOL):
-            raise AssertionError(f"K10L/K11L disagree with their plain "
-                                 f"versions at sk={sk}: {errs}")
-        spreads = [[], []]
-        fwd_ms = _time_ms(lambda: softmax_cuda.softmax_fwd_long(
-            x, None, scale, False), flush, spread=spreads[0])
+        errs = {"max_abs_err": _max_err(dx, rdx), "rel_l2": _rel_l2(dx, rdx)}
+        del rdx
+        _log(f"K11L, sk={sk}: {errs} (tol relative L2 {SOFTMAX_L2_TOL})")
+        if errs["rel_l2"] > SOFTMAX_L2_TOL:
+            raise AssertionError(f"K11L disagrees with its plain version at "
+                                 f"sk={sk}: {errs}")
+        spread = []
         bwd_ms = _time_ms(lambda: softmax_cuda.softmax_bwd_long(
-            y, g, scale), flush, spread=spreads[1])
-        fwd_plain = _time_ms(lambda: softmax.scaled_masked_softmax_reference(
-            x, None, scale, False), flush, reps=5)
+            y, g, scale), flush, spread=spread)
         bwd_plain = _time_ms(
             lambda: softmax.scaled_masked_softmax_backward_reference(
                 y, g, scale), flush, reps=5)
-        xs = x.float() * scale
-        fwd_lib = _time_ms(lambda: torch.softmax(xs, dim=-1), flush)
-        del xs
         bwd_lib = _time_ms(lambda: torch._softmax_backward_data(
             g, y, -1, torch.bfloat16), flush)
         elems = H * S * sk
-        fwd_bound = _bound(2 * 2 * elems, 5 * elems, FP32_FLOPS_PER_S)
         bwd_bound = _bound(3 * 2 * elems, 4 * elems, FP32_FLOPS_PER_S)
-        common = {"route": "cuda", "source": "apex_tpu_torch/csrc/softmax.cu",
-                  "shape": f"x, g [1,{H},{S},{sk}] bf16, no mask, scale "
-                           f"{scale}", "rel_l2_tol": SOFTMAX_L2_TOL}
-        rows.append([
-            dict(common, name="softmax_fwd_long",
-                 replaces="apex_tpu/ops/softmax_pallas.py:185",
-                 **errs["fwd"], tol=SOFTMAX_Y_TOL, ms=fwd_ms,
-                 kernel_ms=fwd_ms, ms_spread=spreads[0], plain_ms=fwd_plain,
-                 library_ms=fwd_lib,
-                 library="torch.softmax over the fp32-upcast scores",
-                 bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
-                 bytes=4 * elems, flops=5 * elems),
-            dict(common, name="softmax_bwd_long",
-                 replaces="apex_tpu/ops/softmax_pallas.py:212",
-                 **errs["bwd"], ms=bwd_ms, kernel_ms=bwd_ms,
-                 ms_spread=spreads[1], plain_ms=bwd_plain,
-                 library_ms=bwd_lib,
-                 library="torch._softmax_backward_data on the same y and g",
-                 bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
-                 bytes=6 * elems, flops=4 * elems)])
+        rows.append(dict(
+            name="softmax_bwd_long", route="cuda",
+            source="apex_tpu_torch/csrc/softmax.cu",
+            shape=f"x, g [1,{H},{S},{sk}] bf16, no mask, scale {scale}",
+            rel_l2_tol=SOFTMAX_L2_TOL,
+            replaces="apex_tpu/ops/softmax_pallas.py:212", **errs, ms=bwd_ms,
+            kernel_ms=bwd_ms, ms_spread=spread, plain_ms=bwd_plain,
+            library_ms=bwd_lib,
+            library="torch._softmax_backward_data on the same y and g",
+            bound_ms=bwd_bound[0], bound_by=bwd_bound[1], bytes=6 * elems,
+            flops=4 * elems))
         del x, g, y, dx
         torch.cuda.empty_cache()
     # the main row is the longest; the ragged length rides along in it
-    main, ragged = rows[-1], rows[0]
-    for row, other in zip(main, ragged):
-        row["ragged_5000"] = {k: other[k] for k in (
-            "max_abs_err", "rel_l2", "ms", "ms_spread", "plain_ms",
-            "library_ms", "bound_ms", "bound_by")}
-    return main
+    bwd_row, ragged = rows[-1], rows[0]
+    bwd_row["ragged_5000"] = {k: ragged[k] for k in (
+        "max_abs_err", "rel_l2", "ms", "ms_spread", "plain_ms",
+        "library_ms", "bound_ms", "bound_by")}
+    return [fwd_row, bwd_row]
 
 
 def phase_generic_softmax_path(dev):
@@ -1268,16 +1361,113 @@ def _cache_bytes(cache):
     return sum(t.numel() * t.element_size() for t in cache.values())
 
 
+def _drive_trace(engine, reqs):
+    """Serve ``reqs`` to completion, each submitted when its arrival tick
+    (counted from now) is due, round by round; returns the wall seconds
+    (ending in a synchronize) and the wall of each round that decoded
+    and prefilled nothing."""
+    pending = sorted(reqs, key=lambda r: (r.arrival, r.rid))
+    tick0 = engine.tick
+    settled = len(engine.scheduler.completed)
+    decode_round_s = []
+    t0 = time.perf_counter()
+    while len(engine.scheduler.completed) - settled < len(reqs):
+        if engine.tick - tick0 > 5000:
+            raise AssertionError("trace did not drain")
+        due = [r for r in pending if r.arrival <= engine.tick - tick0]
+        pending = pending[len(due):]
+        r0 = time.perf_counter()
+        res = engine.step(arrivals=due)
+        if not res["prefilled"] and res["decoded_slots"]:
+            decode_round_s.append(time.perf_counter() - r0)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, decode_round_s
+
+
+# the counted wrappers' kernels by their names in a device trace, so that
+# the kernels a CUDA graph replays (which call no wrapper) can be counted:
+# K1 is prefill_attention_{tc,simt} with DROPOUT = false, K2 and K2q the
+# QUANT = false / true instantiations of decode_attention_split
+TRACED_KERNELS = {
+    "prefill_attention": r"prefill_attention_(tc|simt)<[^>]*\bfalse>",
+    "decode_attention": r"decode_attention_split<[^>]*\bfalse>",
+    "decode_attention_quant": r"decode_attention_split<[^>]*\btrue>",
+    "softmax_fwd": r"softmax_fwd_kernel<",
+    "softmax_fwd_long": r"softmax_fwd_long_(regs|smem|walk)<",
+}
+
+
+def _count_traced(events):
+    """The device kernels of each ``TRACED_KERNELS`` wrapper in a
+    profiler's ``key_averages()``, counted by name."""
+    out = dict.fromkeys(TRACED_KERNELS, 0)
+    for evt in events:
+        if evt.device_type != torch.autograd.DeviceType.CUDA \
+                or evt.is_user_annotation:
+            continue
+        for name, pattern in TRACED_KERNELS.items():
+            if re.search(pattern, evt.key):
+                out[name] += evt.count
+    return out
+
+
+def _traced_serve(engine, reqs):
+    """Serve ``reqs`` (arrival ticks counted from now) under
+    torch.profiler: the kernels the device ran, by name
+    (``_count_traced``: a graph's replayed kernels included), and the
+    prefill batches and decode dispatches of that run. Raises if the
+    profiler saw no device kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    base = (engine.prefill_batches, engine.decode_steps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _drive_trace(engine, reqs)
+    traced = _count_traced(prof.key_averages())
+    if not any(traced.values()):
+        raise AssertionError("the profiler saw none of the counted kernels "
+                             "run on the device")
+    return traced, (engine.prefill_batches - base[0],
+                    engine.decode_steps - base[1])
+
+
+def _decode_calls(engine):
+    """The decode steps that went through the kernel wrappers since the
+    engine was built: a graphed engine calls its decode program eagerly
+    twice (the warm-up and the capture; a replay calls no wrapper), an
+    eager one once a dispatch; K steps a call."""
+    calls = 2 if engine._graph is not None else engine.decode_steps
+    return calls * engine.decode_k
+
+
+def _offset_rids(reqs, by):
+    for r in reqs:
+        r.rid += by     # rids stay unique in the engine's event log
+    return reqs
+
+
 def phase_end_to_end(dev, kv_quant=False):
     """Serve the synthetic trace through ServingEngine (over the int8 KV
-    tier with ``kv_quant``); returns the engine, the kernels' launch
-    counts over that run and the run's numbers."""
+    tier with ``kv_quant``), timed, then the same trace again under
+    torch.profiler; returns the engine, the wrappers' launch counts from
+    the engine's construction on (its graphed decode program calls the
+    decode wrapper at its warm-up and its capture only), and the numbers
+    of the timed run with the traced run's kernel counts, which must be
+    ``prefill_batches x 12`` (K1) and ``decode_steps x 12`` (K2 or K2q)
+    of that run."""
     from apex_tpu_torch.ops import attention_cuda, decode_attention_cuda
     from apex_tpu_torch.serving import (Request, ServingEngine,
                                         lifecycle, synthetic_trace)
     from apex_tpu_torch.transformer.testing import TransformerConfig
 
     cfg = TransformerConfig(**MODEL)
+    counted = {"prefill_attention": attention_cuda.prefill_attention,
+               "decode_attention": decode_attention_cuda.decode_attention,
+               "decode_attention_quant":
+                   decode_attention_cuda.decode_attention_quant}
+    for fn in counted.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     engine = ServingEngine(cfg, seed=0, device=dev, kv_quant=kv_quant,
                            **ENGINE)
@@ -1290,33 +1480,16 @@ def phase_end_to_end(dev, kv_quant=False):
                               max_new_tokens=3)])
 
     reqs, trace_id = synthetic_trace(vocab=cfg.vocab_size, **TRACE)
-    pending = sorted(reqs, key=lambda r: (r.arrival, r.rid))
     base = (engine.prefill_batches, engine.decode_steps,
-            engine.tokens_generated, engine.tick)
-    counted = {"prefill_attention": attention_cuda.prefill_attention,
-               "decode_attention": decode_attention_cuda.decode_attention,
-               "decode_attention_quant":
-                   decode_attention_cuda.decode_attention_quant}
-    for fn in counted.values():
-        fn.launches = 0
-    decode_round_s = []
-    settled = len(engine.scheduler.completed)
-    t0 = time.perf_counter()
-    while len(engine.scheduler.completed) - settled < len(reqs):
-        if engine.tick - base[3] > 5000:
-            raise AssertionError("trace did not drain")
-        due = [r for r in pending if r.arrival <= engine.tick - base[3]]
-        pending = pending[len(due):]
-        r0 = time.perf_counter()
-        res = engine.step(arrivals=due)
-        if not res["prefilled"] and res["decoded_slots"]:
-            decode_round_s.append(time.perf_counter() - r0)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counted.items()}
+            engine.tokens_generated)
+    wall, decode_round_s = _drive_trace(engine, reqs)
     prefills = engine.prefill_batches - base[0]
     decodes = engine.decode_steps - base[1]
     tokens = engine.tokens_generated - base[2]
+    traced, (t_prefills, t_decodes) = _traced_serve(
+        engine, _offset_rids(synthetic_trace(vocab=cfg.vocab_size,
+                                             **TRACE)[0], 3000))
+    launches = {k: fn.launches for k, fn in counted.items()}
 
     for r in reqs:
         if len(r.out_tokens) != r.max_new_tokens or not all(
@@ -1331,12 +1504,21 @@ def phase_end_to_end(dev, kv_quant=False):
     decode, idle = (("decode_attention_quant", "decode_attention")
                     if kv_quant else
                     ("decode_attention", "decode_attention_quant"))
-    want = {"prefill_attention": prefills * cfg.num_layers,
-            decode: decodes * cfg.num_layers, idle: 0}
+    L = cfg.num_layers
+    want = {"prefill_attention": engine.prefill_batches * L,
+            decode: _decode_calls(engine) * L, idle: 0}
     if launches != want:
         raise AssertionError(
             f"launch counts {launches} != {want} (prefill_batches "
-            f"{prefills}, decode_steps {decodes}, {cfg.num_layers} layers)")
+            f"{engine.prefill_batches}, decode calls "
+            f"{_decode_calls(engine)}, {L} layers)")
+    traced = {k: traced[k] for k in counted}
+    want = {"prefill_attention": t_prefills * L, decode: t_decodes * L,
+            idle: 0}
+    if traced != want:
+        raise AssertionError(
+            f"traced kernel counts {traced} != {want} (prefill_batches "
+            f"{t_prefills}, decode_steps {t_decodes}, {L} layers)")
     if kv_quant and (engine.cache["k"][:, :, 0] != 0).any():
         raise AssertionError("null page 0 of the int8 cache is not zero")
     lat = lifecycle.request_latencies(reqs)
@@ -1352,11 +1534,185 @@ def phase_end_to_end(dev, kv_quant=False):
         "ttft_p99_ms": lifecycle.percentile(ttft, 99),
         "tpot_p50_ms": lifecycle.percentile(tpot, 50),
         "device_dispatch_s": engine.device_dispatch_s,
+        "cuda_graph": engine._graph is not None,
+        "traced_run": {"prefill_batches": t_prefills,
+                       "decode_steps": t_decodes, "kernels": traced},
         "cache_bytes": _cache_bytes(engine.cache),
         "kv_tier_rates": engine.kv_tier_rates(),
     }
     _log("end to end: " + json.dumps(stats))
     return engine, launches, stats
+
+
+# the serving variants (eager K = 1, graphed K = 1, graphed K = 4), each
+# served greedy and sampled, over bf16 and int8 KV pages; the sampled
+# requests' controls (the seed is the request id)
+SERVE_VARIANTS = (("eager K=1", 1, False), ("graphed K=1", 1, True),
+                  ("graphed K=4", 4, True))
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
+# one prompt a packed prefill batch in the variants' engines: a bf16 packed
+# prefill rounds a request's attention by its offset in the batch (K1's
+# 64-row tiles), and K = 4 admits at other ticks than K = 1, so only
+# unpacked prefills let the variants' tokens be compared bit for bit
+VARIANT_ENGINE = dict(ENGINE, prefill_requests=1)
+
+
+def _variant_run(dev, cfg, params, kv_quant, sampled, k, graph,
+                 engine_kw=None, profile=False):
+    """Serve ``TRACE`` through one engine variant: its tokens by request
+    and its numbers (tokens/s, TTFT and TPOT p50/p99, decode-round ms,
+    dispatches). The decode wrapper's launches from the engine's
+    construction on must be ``_decode_calls x layers`` (a graphed engine
+    calls it at its warm-up and capture only). With ``profile``, a short
+    second trace under torch.profiler: its busy share, and the decode
+    kernels the device ran there, counted by name, which must be that
+    trace's dispatches x K x layers, replays included."""
+    from apex_tpu_torch.ops import decode_attention_cuda
+    from apex_tpu_torch.serving import (Request, ServingEngine, lifecycle,
+                                        synthetic_trace)
+    from apex_tpu_torch.serving.sampling import SamplingParams
+
+    kernel = (decode_attention_cuda.decode_attention_quant if kv_quant
+              else decode_attention_cuda.decode_attention)
+    kernel.launches = 0
+    engine = ServingEngine(cfg, params, device=dev, kv_quant=kv_quant,
+                           sampling=sampled, decode_k=k, cuda_graph=graph,
+                           **(engine_kw or VARIANT_ENGINE))
+    engine.run_trace([Request(rid=10**6, prompt=[7] * 300, max_new_tokens=9),
+                      Request(rid=10**6 + 1, prompt=[9] * 40,
+                              max_new_tokens=9)])
+    reqs, _ = synthetic_trace(vocab=cfg.vocab_size, **TRACE)
+    if sampled:
+        for r in reqs:
+            r.sampling = SamplingParams(seed=r.rid, **SAMPLED)
+    base = (engine.decode_steps, engine.tokens_generated)
+    wall, rounds = _drive_trace(engine, reqs)
+    dispatches = engine.decode_steps - base[0]
+    if kernel.launches != _decode_calls(engine) * cfg.num_layers:
+        raise AssertionError(f"{kernel.__name__} launched {kernel.launches} "
+                             f"times through its wrapper, want "
+                             f"{_decode_calls(engine)} decode calls x "
+                             f"{cfg.num_layers} layers")
+    for r in reqs:
+        if len(r.out_tokens) != r.max_new_tokens or not all(
+                isinstance(t, int) and 0 <= t < cfg.vocab_size
+                for t in r.out_tokens):
+            raise AssertionError(f"request {r.rid} did not complete with "
+                                 f"{r.max_new_tokens} in-vocab tokens")
+    lat = lifecycle.request_latencies(reqs)
+    ttft = [x["ttft_s"] * 1e3 for x in lat if x["ttft_s"] is not None]
+    tpot = [x["tpot_s"] * 1e3 for x in lat if x["tpot_s"] is not None]
+    tokens = engine.tokens_generated - base[1]
+    stats = {"tokens_per_s": tokens / wall, "tokens": tokens,
+             "dispatches": dispatches,
+             "decode_round_ms": 1e3 * sum(rounds) / max(len(rounds), 1),
+             "ttft_p50_ms": lifecycle.percentile(ttft, 50),
+             "ttft_p99_ms": lifecycle.percentile(ttft, 99),
+             "tpot_p50_ms": lifecycle.percentile(tpot, 50),
+             "tpot_p99_ms": lifecycle.percentile(tpot, 99)}
+    if profile:
+        short, _ = synthetic_trace(seed=1, n_requests=8, vocab=cfg.vocab_size,
+                                   prompt_lo=16, prompt_hi=64, new_lo=32,
+                                   new_hi=32, mean_interarrival=0.0)
+        for r in short:
+            r.rid += 2000
+            if sampled:
+                r.sampling = SamplingParams(seed=r.rid, **SAMPLED)
+        d0 = engine.decode_steps
+        share = _profile(lambda: engine.run_trace(short),
+                         ("decode_attention", "matmul", "other"), top=0)
+        want = (engine.decode_steps - d0) * k * cfg.num_layers
+        ran = share and share["traced"][kernel.__name__]
+        if ran != want:
+            raise AssertionError(f"{kernel.__name__}: the device ran {ran} "
+                                 f"in the profiled trace, want {want}")
+        stats["device_busy_share"] = share["device_busy_share"]
+    tokens_by = {r.rid: list(r.out_tokens) for r in reqs}
+    del engine
+    torch.cuda.empty_cache()
+    return tokens_by, stats
+
+
+def _sampler_device(dev, cfg):
+    """The sampler's device cost a decode step: ``sample_tokens`` on [8,
+    vocab] bf16 logits, every lane at ``SAMPLED``, once under
+    torch.profiler: its kernels and their device ms (the sum of their
+    times, so the host's launch cost is not in it)."""
+    from apex_tpu_torch.serving import sampling
+
+    B = ENGINE["num_slots"]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    logits = torch.randn(B, cfg.vocab_size, generator=gen, device=dev).to(
+        torch.bfloat16)
+    lanes = (torch.full((B,), SAMPLED["temperature"], device=dev),
+             torch.full((B,), SAMPLED["top_k"], dtype=torch.int32,
+                        device=dev),
+             torch.full((B,), SAMPLED["top_p"], device=dev),
+             torch.stack([torch.zeros(B, dtype=torch.int64, device=dev),
+                          torch.arange(B, device=dev)], 1),
+             torch.arange(B, dtype=torch.int32, device=dev))
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    run = lambda: sampling.sample_tokens(logits, *lanes, active)  # noqa: E731
+    run()
+    launches, ms = _device_launches(run)
+    return {"kernels": launches, "device_ms": ms}
+
+
+def phase_serving_variants(dev):
+    """The decode program's variants at GPT-2-small's width (``MODEL``,
+    ``VARIANT_ENGINE``, random weights from torch seed 0): ``TRACE``'s 24
+    requests served greedy and sampled (``SAMPLED``, the seed the request
+    id), over bf16 and int8 KV pages, by eager K = 1, graphed K = 1 and
+    graphed K = 4, in turns (each variant, then each again in reverse).
+    The six runs of a (pages, mode) pair must give the same tokens bit
+    for bit. Each variant's tokens/s, TTFT and TPOT p50/p99, decode-round
+    ms and dispatches (the mean of its two turns), its busy share (a
+    profiled short trace, first turn); the sampler's kernels and device
+    ms a step.
+    Then graphed K = 1 and K = 4 once more at ``ENGINE``'s packed prefill
+    (8 prompts a batch): how many requests keep equal tokens there."""
+    from apex_tpu_torch.serving import init_gpt_params
+    from apex_tpu_torch.transformer.testing import TransformerConfig
+
+    cfg = TransformerConfig(**MODEL)
+    params = init_gpt_params(cfg, 0, dev)
+    out = {"sampler_a_step": _sampler_device(dev, cfg), "variants": {}}
+    for kv_quant in (False, True):
+        for sampled in (False, True):
+            key = f"{'int8' if kv_quant else 'bf16'} " \
+                  f"{'sampled' if sampled else 'greedy'}"
+            runs = {name: [] for name, _, _ in SERVE_VARIANTS}
+            tokens = []
+            order = list(SERVE_VARIANTS) + list(reversed(SERVE_VARIANTS))
+            for turn, (name, k, graph) in enumerate(order):
+                toks, stats = _variant_run(dev, cfg, params, kv_quant,
+                                           sampled, k, graph,
+                                           profile=turn < len(SERVE_VARIANTS))
+                runs[name].append(stats)
+                tokens.append((name, toks))
+            diverged = [name for name, toks in tokens if toks != tokens[0][1]]
+            if diverged:
+                raise AssertionError(f"serving variants ({key}): tokens of "
+                                     f"{diverged} differ from eager K=1's")
+            merged = out["variants"][key] = {}
+            for name, turns in runs.items():
+                merged[name] = {m: statistics.mean(t[m] for t in turns)
+                                for m in turns[0] if m != "device_busy_share"}
+                merged[name]["turns_tokens_per_s"] = [t["tokens_per_s"]
+                                                      for t in turns]
+                merged[name]["device_busy_share"] = turns[0][
+                    "device_busy_share"]
+            _log(f"serving variants, {key} (tokens equal in all six runs): "
+                 + json.dumps(merged))
+    packed = [_variant_run(dev, cfg, params, False, False, k, True,
+                           engine_kw=ENGINE)[0] for k in (1, 4)]
+    out["packed_prefill_k1_vs_k4_equal_requests"] = sum(
+        packed[0][rid] == packed[1][rid] for rid in packed[0])
+    _log("serving variants: " + json.dumps(
+        {k: v for k, v in out.items() if k != "variants"}))
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 def _device_launches(fn):
@@ -1523,44 +1879,24 @@ def phase_paths_agree(engine, dev):
     return kernel_logits
 
 
-def _parent_layer_norm_fwd(x, w, b):
-    """The parent's K3 through its own C entry (``PARENT_SIGNATURES``)."""
+def _parent_softmax_fwd_long(x, mask, scale, causal):
+    """The parent's K10L through its own C entry (``PARENT_SIGNATURES``:
+    one body, no plan)."""
     from apex_tpu_torch.ops import _build
 
-    rows, hidden = x.shape
+    b, np_, sq, sk = x.shape
+    msb = msh = msq = 0
+    if mask is not None:
+        msb, msh, msq, _ = mask.expand(b, np_, sq, sk).stride()
     y = torch.empty_like(x)
-    mean = torch.empty(rows, dtype=torch.float32, device=x.device)
-    rstd = torch.empty_like(mean)
-    lib = PARENT["layer_norm"]
-    rc = lib.layer_norm_fwd(x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                            y.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-                            rows, hidden, 1e-5, _build.DTYPE_CODES[x.dtype],
-                            x.device.index,
-                            torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, "layer_norm", rc)
-    return y, mean, rstd
-
-
-def _parent_layer_norm_bwd(x, w, mean, rstd, dy):
-    """The parent's K4 through its own C entry, then the two ``torch.sum``
-    launches over its partial rows that its main path made."""
-    from apex_tpu_torch.ops import _build
-
-    rows, hidden = x.shape
-    per_block = -(-rows // 256)
-    nblocks = -(-rows // per_block)
-    dx = torch.empty_like(x)
-    parts = torch.empty(2, nblocks, hidden, dtype=torch.float32,
-                        device=x.device)
-    lib = PARENT["layer_norm"]
-    rc = lib.layer_norm_bwd(x.data_ptr(), w.data_ptr(), mean.data_ptr(),
-                            rstd.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-                            parts[0].data_ptr(), parts[1].data_ptr(), rows,
-                            hidden, per_block, nblocks,
-                            _build.DTYPE_CODES[x.dtype], x.device.index,
-                            torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, "layer_norm", rc)
-    return dx, torch.sum(parts[0], dim=0), torch.sum(parts[1], dim=0)
+    lib = PARENT["softmax"]
+    rc = lib.softmax_fwd_long(
+        x.data_ptr(), mask.data_ptr() if mask is not None else None,
+        y.data_ptr(), x.numel() // sk, sq, sk, np_, msb, msh, msq,
+        float(scale), int(bool(causal)), _build.DTYPE_CODES[x.dtype],
+        x.device.index, torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, "softmax", rc)
+    return y
 
 
 def _layer_norm_ptxas(p, hidden, backward):
@@ -1589,9 +1925,8 @@ def _layer_norm_at(dev, flush, rows, shape):
     relative L2 ``BF16_L2_TOL``); the same bits on two runs; then each
     timed in turns around its library call (``F.layer_norm``, and its
     backward through ``torch.autograd.grad`` on a graph built untimed)
-    and, with ``--parent``, the parent's body, K4 with the partial sum its
-    main path launches (this tree's second stage; the parent's two
-    ``torch.sum``); the plain versions, the bound and the plan."""
+    and, with ``--parent``, the parent's body (K4 with its second stage);
+    the plain versions, the bound and the plan."""
     import torch.nn.functional as F
 
     from apex_tpu_torch.normalization import fused_layer_norm
@@ -1663,30 +1998,23 @@ def _layer_norm_at(dev, flush, rows, shape):
     parent = "layer_norm" in PARENT
     fwd_spread, bwd_spread = [], []
     fwd = _turns(k3, lambda: F.layer_norm(x, (hidden,), wl, bl, 1e-5), flush,
-                 "layer_norm", spread=fwd_spread,
-                 parent_fn=parent and (lambda: _parent_layer_norm_fwd(
-                     x, w, b)))
+                 "layer_norm", spread=fwd_spread)
     bwd = _turns(k4, lambda: torch.autograd.grad(
         yg, (xg, wg, bg), dy, retain_graph=True), flush, "layer_norm",
-                 spread=bwd_spread,
-                 parent_fn=parent and (lambda: _parent_layer_norm_bwd(
-                     x, w, first[1], first[2], dy)))
+                 spread=bwd_spread)
     if hidden == 768:
         # the main path's width after a flush that leaves L2 clean: what
         # the kernels take without the dirty lines' write-back
-        for timed, fn, lib, par in (
-                (fwd, k3, lambda: F.layer_norm(x, (hidden,), wl, bl, 1e-5),
-                 lambda: _parent_layer_norm_fwd(x, w, b)),
+        for timed, fn, lib in (
+                (fwd, k3, lambda: F.layer_norm(x, (hidden,), wl, bl, 1e-5)),
                 (bwd, k4, lambda: torch.autograd.grad(
-                    yg, (xg, wg, bg), dy, retain_graph=True),
-                 lambda: _parent_layer_norm_bwd(x, w, first[1], first[2],
-                                                dy))):
+                    yg, (xg, wg, bg), dy, retain_graph=True))):
             timed["clean_l2"] = {"ms": _time_ms(fn, flush, clean=True),
                                  "library_ms": _time_ms(lib, flush,
                                                         clean=True)}
             if parent:
-                timed["clean_l2"]["parent_ms"] = _time_ms(par, flush,
-                                                          clean=True)
+                timed["clean_l2"]["parent_ms"] = _time_ms(
+                    _as_parent(fn, "layer_norm"), flush, clean=True)
     reps = 20 if hidden < 4096 else 5
     fwd_plain = _time_ms(lambda: layer_norm.layer_norm_fwd(x, w, b, 1e-5),
                          flush, reps=reps)
@@ -2760,27 +3088,31 @@ def phase_gpt3_2p7b(dev):
     if cfg.head_dim != 80:
         raise AssertionError(f"GPT-3 2.7B's head dim is 80, got "
                              f"{cfg.head_dim}")
-    engine = ServingEngine(cfg, seed=0, device=dev, **GPT3_ENGINE)
-    reqs, trace_id = synthetic_trace(vocab=cfg.vocab_size, **GPT3_TRACE)
     counted = {"prefill_attention": attention_cuda.prefill_attention,
                "decode_attention": decode_attention_cuda.decode_attention}
     for fn in counted.values():
         fn.launches = 0
-    base = (engine.prefill_batches, engine.decode_steps,
-            engine.tokens_generated)
+    engine = ServingEngine(cfg, seed=0, device=dev, **GPT3_ENGINE)
+    reqs, trace_id = synthetic_trace(vocab=cfg.vocab_size, **GPT3_TRACE)
     t0 = time.perf_counter()
     engine.run_trace(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    prefills, decodes = engine.prefill_batches, engine.decode_steps
+    tokens = engine.tokens_generated
+    traced, (tp, td) = _traced_serve(engine, _offset_rids(synthetic_trace(
+        vocab=cfg.vocab_size, **GPT3_TRACE)[0], 3000))
     serving_launches = {k: fn.launches for k, fn in counted.items()}
-    prefills = engine.prefill_batches - base[0]
-    decodes = engine.decode_steps - base[1]
-    tokens = engine.tokens_generated - base[2]
-    want = {"prefill_attention": prefills * cfg.num_layers,
-            "decode_attention": decodes * cfg.num_layers}
-    if serving_launches != want:
+    L = cfg.num_layers
+    want = {"prefill_attention": engine.prefill_batches * L,
+            "decode_attention": _decode_calls(engine) * L}
+    traced = {k: traced[k] for k in counted}
+    want_traced = {"prefill_attention": tp * L, "decode_attention": td * L}
+    if serving_launches != want or traced != want_traced:
         raise AssertionError(f"GPT-3 2.7B serving launched "
-                             f"{serving_launches}, want {want}")
+                             f"{serving_launches}, want {want}; the device "
+                             f"ran {traced} in the traced run, want "
+                             f"{want_traced}")
     for r in reqs:
         if len(r.out_tokens) != r.max_new_tokens:
             raise AssertionError(f"request {r.rid} did not complete")
@@ -2801,7 +3133,7 @@ def phase_gpt3_2p7b(dev):
              "trace_id": trace_id, "requests": len(reqs), "tokens": tokens,
              "prefill_batches": prefills, "decode_steps": decodes,
              "serving_wall_s": wall, "tokens_per_s": tokens / wall,
-             "largest_logit": worst_logit, "train_loss_diff": dloss,
+             "traced_run_kernels": traced, "largest_logit": worst_logit, "train_loss_diff": dloss,
              "train_worst_grad_rel_l2": worst_grad}
     _log("GPT-3 2.7B widths: " + json.dumps(stats))
     return serving_launches, train_launches, stats
@@ -2915,24 +3247,34 @@ def phase_head_dim_320(dev):
                                  f"launched: {launches[key]}")
         torch.cuda.empty_cache()
 
-    engine = ServingEngine(cfg, seed=0, device=dev, **ENGINE)
-    reqs, trace_id = synthetic_trace(vocab=cfg.vocab_size, **GPT3_TRACE)
     counted = {"prefill_attention": attention_cuda.prefill_attention,
                "decode_attention": decode_attention_cuda.decode_attention,
                "softmax_fwd": softmax_cuda.softmax_fwd}
     for fn in counted.values():
         fn.launches = 0
+    engine = ServingEngine(cfg, seed=0, device=dev, **ENGINE)
+    reqs, trace_id = synthetic_trace(vocab=cfg.vocab_size, **GPT3_TRACE)
     t0 = time.perf_counter()
     engine.run_trace(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    prefills, decodes = engine.prefill_batches, engine.decode_steps
+    tokens = engine.tokens_generated
+    traced, (tp, td) = _traced_serve(engine, _offset_rids(synthetic_trace(
+        vocab=cfg.vocab_size, **GPT3_TRACE)[0], 3000))
     launches["serving"] = {k: fn.launches for k, fn in counted.items()}
+    L = cfg.num_layers
     want = {"prefill_attention": 0,
-            "decode_attention": engine.decode_steps * cfg.num_layers,
-            "softmax_fwd": engine.prefill_batches * cfg.num_layers}
-    if launches["serving"] != want or not want["decode_attention"]:
+            "decode_attention": _decode_calls(engine) * L,
+            "softmax_fwd": engine.prefill_batches * L}
+    traced = {k: traced[k] for k in counted}
+    want_traced = {"prefill_attention": 0, "decode_attention": td * L,
+                   "softmax_fwd": tp * L}
+    if launches["serving"] != want or traced != want_traced or not td:
         raise AssertionError(f"head dim 320 serving launched "
-                             f"{launches['serving']}, want {want}")
+                             f"{launches['serving']}, want {want}; the "
+                             f"device ran {traced} in the traced run, want "
+                             f"{want_traced}")
     for r in reqs:
         if len(r.out_tokens) != r.max_new_tokens:
             raise AssertionError(f"request {r.rid} did not complete")
@@ -2940,11 +3282,10 @@ def phase_head_dim_320(dev):
         raise AssertionError("head dim 320 does not decode at the 512 bucket")
     logits = phase_paths_agree(engine, dev)
     stats["serving"] = {
-        "trace_id": trace_id, "requests": len(reqs),
-        "tokens": engine.tokens_generated,
-        "prefill_batches": engine.prefill_batches,
-        "decode_steps": engine.decode_steps, "serving_wall_s": wall,
-        "tokens_per_s": engine.tokens_generated / wall,
+        "trace_id": trace_id, "requests": len(reqs), "tokens": tokens,
+        "prefill_batches": prefills, "decode_steps": decodes,
+        "serving_wall_s": wall, "tokens_per_s": tokens / wall,
+        "traced_run_kernels": traced,
         "largest_logit": max(float(t.abs().max()) for t in logits)}
     del engine, logits
     torch.cuda.empty_cache()
@@ -2967,8 +3308,6 @@ def phase_head_dim_576(dev):
     cfg = TransformerConfig(**HD576)
     if cfg.head_dim != 576:
         raise AssertionError(f"HD576's head dim is {cfg.head_dim}")
-    engine = ServingEngine(cfg, seed=0, device=dev, **ENGINE)
-    reqs, trace_id = synthetic_trace(vocab=cfg.vocab_size, **GPT3_TRACE)
     counted = {"prefill_attention": attention_cuda.prefill_attention,
                "decode_attention": decode_attention_cuda.decode_attention,
                "decode_attention_quant":
@@ -2976,27 +3315,36 @@ def phase_head_dim_576(dev):
                "softmax_fwd": softmax_cuda.softmax_fwd}
     for fn in counted.values():
         fn.launches = 0
+    engine = ServingEngine(cfg, seed=0, device=dev, **ENGINE)
+    reqs, trace_id = synthetic_trace(vocab=cfg.vocab_size, **GPT3_TRACE)
     t0 = time.perf_counter()
     engine.run_trace(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    prefills, decodes = engine.prefill_batches, engine.decode_steps
+    tokens = engine.tokens_generated
+    traced, (tp, td) = _traced_serve(engine, _offset_rids(synthetic_trace(
+        vocab=cfg.vocab_size, **GPT3_TRACE)[0], 3000))
     launches = {k: fn.launches for k, fn in counted.items()}
+    L = cfg.num_layers
     want = {"prefill_attention": 0, "decode_attention": 0,
             "decode_attention_quant": 0,
-            "softmax_fwd": (engine.prefill_batches + engine.decode_steps)
-            * cfg.num_layers}
-    if launches != want or not engine.decode_steps:
+            "softmax_fwd": (engine.prefill_batches + _decode_calls(engine))
+            * L}
+    traced = {k: traced[k] for k in counted}
+    want_traced = dict(want, softmax_fwd=(tp + td) * L)
+    if launches != want or traced != want_traced or not td:
         raise AssertionError(f"head dim 576 serving launched {launches}, "
-                             f"want {want}")
+                             f"want {want}; the device ran {traced} in the "
+                             f"traced run, want {want_traced}")
     for r in reqs:
         if len(r.out_tokens) != r.max_new_tokens:
             raise AssertionError(f"request {r.rid} did not complete")
     logits = phase_paths_agree(engine, dev)
-    stats = {"trace_id": trace_id, "requests": len(reqs),
-             "tokens": engine.tokens_generated,
-             "prefill_batches": engine.prefill_batches,
-             "decode_steps": engine.decode_steps, "serving_wall_s": wall,
-             "tokens_per_s": engine.tokens_generated / wall,
+    stats = {"trace_id": trace_id, "requests": len(reqs), "tokens": tokens,
+             "prefill_batches": prefills, "decode_steps": decodes,
+             "serving_wall_s": wall, "tokens_per_s": tokens / wall,
+             "traced_run_kernels": traced,
              "largest_logit": max(float(t.abs().max()) for t in logits)}
     del engine, logits
     torch.cuda.empty_cache()
@@ -3316,7 +3664,7 @@ def _kind(name):
         return "attention_fwd"
     if "attention_bwd_" in name:
         return "attention_bwd"
-    if "decode_attention_kernel" in name:
+    if "decode_attention_split" in name:
         return "decode_attention"
     if "layer_norm_" in name:
         return "layer_norm"
@@ -3328,9 +3676,10 @@ def _kind(name):
     return "other"
 
 
-def _profile(fn, kinds):
+def _profile(fn, kinds, top=8):
     """Run ``fn`` under torch.profiler; the window's busy share and its
-    device time by kind (None when the profiler saw no device time)."""
+    device time by kind (None when the profiler saw no device time); the
+    ``top`` kernels by device time are logged."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3357,8 +3706,9 @@ def _profile(fn, kinds):
     share = {"window_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
              "device_busy_share": busy / wall_us}
     share.update({f"{k}_ms": v / 1e3 for k, v in by_kind.items()})
+    share["traced"] = _count_traced(prof.key_averages())
     _log("profiled window: " + json.dumps(share))
-    for us, count, name in sorted(by_name, reverse=True)[:8]:
+    for us, count, name in sorted(by_name, reverse=True)[:top]:
         _log(f"  {us / 1e3:8.3f} ms  {count:6d} x  {name}")
     return share
 
@@ -3488,6 +3838,7 @@ def _tensor_core_sass(lib, kernels):
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false — this "
                  "smoke needs a CUDA card")
@@ -3576,10 +3927,12 @@ def main():
 
     # serving over bf16 pages, then over the int8 KV tier with the same 72
     # pages, each engine on its own
-    serving, logits = {}, {}
+    serving, logits, traced_by = {}, {}, {}
     for quant in (False, True):
         engine, counts, serving[quant] = phase_end_to_end(dev, kv_quant=quant)
         launches_by["serving_int8" if quant else "serving"] = counts
+        traced_by["serving_int8" if quant else "serving"] = \
+            serving[quant]["traced_run"]["kernels"]
         logits[quant] = phase_paths_agree(engine, dev)
         serving[quant]["profile"] = phase_device_share(engine)
         if quant:
@@ -3595,6 +3948,24 @@ def main():
     _log("serving, bf16 vs int8 KV cache: " + json.dumps(side))
     if not serving[True]["cache_bytes"] < serving[False]["cache_bytes"]:
         raise AssertionError("the int8 cache is not smaller")
+    # the decode program's variants: eager and graphed K = 1, graphed K = 4,
+    # greedy and sampled, over bf16 and int8 pages, in turns
+    torch.cuda.empty_cache()
+    variants = phase_serving_variants(dev)
+    graphed = {key: {m: runs["graphed K=1"][m] / runs["eager K=1"][m]
+                     for m in ("tokens_per_s", "decode_round_ms")}
+               for key, runs in variants["variants"].items()}
+    _log("graphed K=1 over eager K=1 (tokens/s, decode-round ms): "
+         + json.dumps(graphed))
+    # PyTorch keeps a cuBLAS workspace for every stream a matmul ran on, and
+    # each graphed engine captured on a stream of its own: release them, so
+    # that the training windows' peak memory is their own
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is None:
+        _log("this PyTorch cannot release its cuBLAS workspaces: the "
+             "training windows' peak memory includes the serving engines'")
+    else:
+        clear()
     del flush, logits
     torch.cuda.empty_cache()
 
@@ -3713,6 +4084,13 @@ def main():
             else "training_fused")
         row["launches"] = by_path.get(main, by_path.get("serving", 0))
         row["launches_by_path"] = by_path
+        # the kernels the device ran in the traced rerun of a serving
+        # trace, counted by name (a graphed decode program's replays call
+        # no wrapper)
+        traced = {path: counts[name] for path, counts in traced_by.items()
+                  if counts.get(name)}
+        if traced:
+            row["device_launches_by_path"] = traced
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} never ran on the main path")
         row["card"] = smi
@@ -3726,6 +4104,8 @@ def main():
             row["tensor_core_sass"] = sass[
                 f"xent_bwd_tc {'dX' if name.endswith('dx') else 'dE'} b=32"]
         _log(json.dumps(row))
+    _log(f"smoke wall: {time.perf_counter() - t_start:.1f} s, build "
+         f"{build_s:.1f} s")
     _log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

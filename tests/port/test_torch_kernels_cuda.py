@@ -48,7 +48,13 @@ that take the vector loads (128, 1024, 4096) and the element loads (200,
 3000), and ``FusedScaleMaskSoftmax`` on the card
 launching K10 for a key-padding mask and raising for a mask it cannot
 take; the long-row K10L and K11L at 4097 (element loads), 5000 and 8192
-keys, and the generic softmax launching them; the vocabulary-shard head
+keys and at the edges of each of K10L's bodies (``long_plan``: the
+register body for bf16/fp16 to 8192 keys, the shared-memory body to 24576
+fp32 and 49152 bf16/fp16 keys, the walking body past them), two K10L runs
+equal bit for bit on each body, and the generic softmax launching them;
+the serving engine's decode program replayed as a CUDA graph giving the
+eager program's tokens bit for bit, K = 1 and 4, greedy and sampled, over
+bf16 and int8 KV pages; the vocabulary-shard head
 K7p on every shard of a table split over 2 or 4 ranks, its partials
 against their plain version and, combined in a fixed order, against K7
 on the whole table, with K8 and K9 on each shard (``v_total`` the whole
@@ -83,13 +89,18 @@ roundings flip than in the attention backward.
 
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from apex_tpu_torch.ops import attention, attention_bwd_cuda, attention_cuda
 from apex_tpu_torch.ops import decode_attention, decode_attention_cuda
 from apex_tpu_torch.ops import layer_norm, layer_norm_cuda
 from apex_tpu_torch.ops import softmax, softmax_cuda
 from apex_tpu_torch.ops import xent, xent_cuda
-from apex_tpu_torch.serving import kv_tier
+from apex_tpu_torch.serving import (Request, ServingEngine, kv_tier,
+                                    synthetic_trace)
+from apex_tpu_torch.serving import sampling
+from apex_tpu_torch.serving.weights import init_gpt_params
+from apex_tpu_torch.transformer.testing import TransformerConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -179,10 +190,17 @@ XENT_SHARD_SHAPES = [(200, 768, 128, 2), (1032, 2560, 256, 4),
 # the summed dX, with K8/K9 on wmma and again on wgmma
 XENT_PARTIAL_TOL = 1e-5
 XENT_SHARD_DX_L2_TOL = {"bfloat16": 8e-3, "float16": 5e-3, "float32": 1e-5}
-# (b, np, sq, sk) of K10L/K11L: 4097 takes element loads, 5000 and 8192
-# 16-byte vectors. They are held to K10/K11's bands; on an H100 these
-# cases measured at most 6.8e-6 (K10L) and 1.1e-6 (K11L) relative L2
-SOFTMAX_LONG_SHAPES = [(1, 2, 8, 4097), (2, 1, 12, 5000), (1, 2, 8, 8192)]
+# (b, np, sq, sk) of K10L/K11L: 4097, 8193, 24577 and 49153 take element
+# loads, the others 16-byte vectors; K10L's bodies (softmax_cuda.long_plan):
+# regs for bf16/fp16 to 8192 keys, smem to 49152 bf16/fp16 and 24576 fp32
+# keys (fp32 from 4097), walk past them. They are held to K10/K11's bands;
+# on an H100 (tests/port/kernel_l2_errors.py) these cases measured at most
+# 2.0e-4 (bf16), 2.3e-5 (fp16) and 1.2e-7 (fp32) relative L2 for K10L, and
+# 6.7e-6 for K11L
+SOFTMAX_LONG_SHAPES = [(1, 2, 8, 4097), (2, 1, 12, 5000), (1, 2, 8, 8192),
+                       (1, 1, 6, 8193), (1, 1, 6, 16384), (1, 1, 4, 24576),
+                       (1, 1, 4, 24577), (1, 1, 3, 49152), (1, 1, 3, 49153),
+                       (1, 1, 2, 100000)]
 
 
 @pytest.fixture
@@ -1611,3 +1629,103 @@ def test_long_softmax_autograd_runs_k10l_k11l(dev):
     again = softmax_cuda.softmax_bwd_long(y.detach(), g, 2.0)
     assert torch.equal(softmax_cuda.softmax_bwd_long(y.detach(), g, 2.0),
                        again)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", SOFTMAX_LONG_SHAPES,
+                         ids=["x".join(map(str, s))
+                              for s in SOFTMAX_LONG_SHAPES])
+def test_long_softmax_fwd_is_deterministic_on_every_body(dev, dtype, shape):
+    """Two K10L runs give the same bits, causal and masked, on each body."""
+    torch_dtype, _ = DTYPES[dtype]
+    for case in ("causal", "mask_bnp"):
+        x, _, mask, causal = _softmax_case(dev, torch_dtype, shape, case)
+        a = softmax_cuda.softmax_fwd_long(x, mask, 0.37, causal)
+        assert torch.equal(softmax_cuda.softmax_fwd_long(x, mask, 0.37,
+                                                         causal), a)
+
+
+def test_long_softmax_refuses_a_plan_its_c_entry_does_not_take(dev,
+                                                              monkeypatch):
+    """K10L's C entry refuses the register body for fp32 (it has no
+    fp32 instantiation) and a register plan too small for the row; the
+    wrapper raises and counts no launch."""
+    x = torch.randn(1, 1, 4, 5000, device=dev)
+    for dtype, plan in ((torch.float32, ("regs", 256, 0)),
+                        (torch.bfloat16, ("regs", 32, 0))):
+        monkeypatch.setattr(softmax_cuda, "long_plan",
+                            lambda *_, p=plan: softmax_cuda.LongPlan(*p))
+        before = softmax_cuda.softmax_fwd_long.launches
+        with pytest.raises(RuntimeError):
+            softmax_cuda.softmax_fwd_long(x.to(dtype), None, 1.0, False)
+        assert softmax_cuda.softmax_fwd_long.launches == before
+
+
+def _graph_tokens(dev, cfg, params, kv_quant, sampled, k, graph):
+    """The tokens of a seeded trace through an engine with prefill_requests
+    = 1: each prompt alone at offset 0 of its packed batch, so its bf16
+    prefill does not depend on the schedule (K = 4 admits at other ticks
+    than K = 1, and K1 rounds a packed request's attention by its offset
+    in the batch)."""
+    eng = ServingEngine(cfg, params, device=dev, kv_quant=kv_quant,
+                        sampling=sampled, decode_k=k, cuda_graph=graph,
+                        num_slots=4, page_size=16, num_pages=40, max_seq=64,
+                        prefill_len=64, prefill_requests=1)
+    assert (eng._graph is not None) == graph
+    reqs, _ = synthetic_trace(seed=2, n_requests=10, vocab=cfg.vocab_size,
+                              prompt_lo=3, prompt_hi=30, new_lo=2,
+                              new_hi=20)
+    for r in reqs:
+        if sampled and r.rid % 2:
+            r.sampling = sampling.SamplingParams(
+                temperature=0.8, top_k=50, top_p=0.95, seed=r.rid)
+    done = eng.run_trace(reqs)
+    return {r.rid: list(r.out_tokens) for r in done}
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("sampled", [False, True],
+                         ids=["greedy", "sampled"])
+def test_graphed_decode_gives_the_eager_tokens(dev, kv_quant, sampled):
+    """The decode program captured once and replayed every round gives
+    the eager program's tokens bit for bit, at K = 1 and K = 4."""
+    cfg = TransformerConfig(
+        hidden_size=64, num_layers=2, num_attention_heads=4, vocab_size=128,
+        max_position_embeddings=64, hidden_dropout=0.0,
+        attention_dropout=0.0, apply_query_key_layer_scaling=False,
+        bf16=True)
+    params = init_gpt_params(cfg, 0, dev)
+    eager = _graph_tokens(dev, cfg, params, kv_quant, sampled, 1, False)
+    assert _graph_tokens(dev, cfg, params, kv_quant, sampled, 1,
+                         True) == eager
+    assert _graph_tokens(dev, cfg, params, kv_quant, sampled, 4,
+                         True) == eager
+
+
+def test_engine_captures_its_decode_program_on_the_card(dev):
+    cfg = TransformerConfig(
+        hidden_size=64, num_layers=1, num_attention_heads=4, vocab_size=64,
+        max_position_embeddings=32, hidden_dropout=0.0,
+        attention_dropout=0.0, apply_query_key_layer_scaling=False,
+        bf16=True)
+    kw = dict(num_slots=2, page_size=16, num_pages=8, max_seq=32,
+              prefill_len=32, device=dev)
+    # the decode wrapper is called at the warm-up and at the capture, and
+    # by no replay: the replayed kernels are seen only in a device trace
+    before = decode_attention_cuda.decode_attention.launches
+    eng = ServingEngine(cfg, **kw)
+    assert eng._graph is not None
+    assert decode_attention_cuda.decode_attention.launches == before + 2
+    reqs = [Request(rid=i, prompt=[1 + i, 2, 3], max_new_tokens=5)
+            for i in range(3)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.run_trace(reqs)
+        torch.cuda.synchronize()
+    assert decode_attention_cuda.decode_attention.launches == before + 2
+    ran = sum(e.count for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and "decode_attention_split" in e.key)
+    assert eng.decode_steps and ran == eng.decode_steps
+    assert ServingEngine(cfg, cuda_graph=False, **kw)._graph is None

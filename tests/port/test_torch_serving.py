@@ -35,6 +35,7 @@ from apex_tpu_torch.serving import ServingEngine as TEngine
 from apex_tpu_torch.serving import kv_cache as tkv
 from apex_tpu_torch.serving import lifecycle as tlife
 from apex_tpu_torch.serving import model as tmodel
+from apex_tpu_torch.serving import sampling as tsampling
 from apex_tpu_torch.serving import scheduler as tsched
 from apex_tpu_torch.serving import weights as tweights
 from apex_tpu_torch.transformer.testing import TransformerConfig as TConfig
@@ -111,88 +112,6 @@ def _pack():
     pos = np.zeros(S, np.int32)
     seg = np.zeros(S, np.int32)
     rows = np.full(S, 3, np.int32)
-    cur = 0
-    for r, n in enumerate(lens):
-        ids[cur:cur + n] = rs.randint(0, KW["vocab_size"], n)
-        pos[cur:cur + n] = np.arange(n)
-        seg[cur:cur + n] = r + 1
-        rows[cur:cur + n] = r
-        cur += n
-    pt = np.zeros((4, 4), np.int32)
-    pt[0, :2] = (3, 7)
-    pt[1, :2] = (5, 2)
-    last = np.array([lens[0] - 1, lens[0] + lens[1] - 1, 0], np.int32)
-    return lens, ids, pos, seg, rows, pt, last
-
-
-@pytest.mark.parametrize("bf16,atol", [(False, 2e-4), (True, 0.35)],
-                         ids=["f32", "bf16"])
-def test_prefill_and_decode_logits_match_jax(jax_tree, bf16, atol):
-    jcfg, tcfg = _cfgs(bf16)
-    tparams = tweights.from_jax_params(jax_tree, tcfg, "cpu")
-    lens, ids, pos, seg, rows, pt, last = _pack()
-    n_pages = 10
-    jcache = jkv.init_cache(2, 4, n_pages, PS, 16,
-                            jmodel.compute_dtype(jcfg))
-    tcache = tkv.init_cache(2, 4, n_pages, PS, 16,
-                            tmodel.compute_dtype(tcfg))
-    jcache, jlog = jmodel.prefill(
-        jax_tree, jcache, *(jnp.asarray(x) for x in
-                            (ids, pos, seg, rows, pt, last)), cfg=jcfg)
-    tcache, tlog = tmodel.prefill(
-        tparams, tcache, *(torch.from_numpy(x) for x in
-                           (ids, pos, seg, rows, pt, last)), cfg=tcfg)
-    np.testing.assert_allclose(tlog.float().numpy(),
-                               np.asarray(jlog.astype(jnp.float32)),
-                               atol=atol)
-    # decode: slots 0 and 1 continue, slot 2 is inactive (length 0)
-    toks = np.argmax(np.asarray(jlog.astype(jnp.float32)), -1).astype(
-        np.int32)
-    lengths = np.array([lens[0] + 1, lens[1] + 1, 0], np.int32)
-    dpt = pt[:3]
-    for step in range(3):
-        jcache, jnext, jl = jmodel.decode_step(
-            jax_tree, jcache, jnp.asarray(toks), jnp.asarray(lengths),
-            jnp.asarray(dpt), cfg=jcfg)
-        tcache, tnext, tl = tmodel.decode_step(
-            tparams, tcache, torch.from_numpy(toks),
-            torch.from_numpy(lengths), torch.from_numpy(dpt), cfg=tcfg)
-        np.testing.assert_allclose(
-            tl.float().numpy(), np.asarray(jl.astype(jnp.float32)),
-            atol=atol, err_msg=f"decode step {step}")
-        if not bf16:
-            assert tnext.tolist() == np.asarray(jnext).tolist()
-        assert tnext[2] == 0, "an inactive slot emits token 0"
-        toks = np.array(jnext)
-        lengths = lengths + (lengths > 0)
-    # the paged cache holds the same K/V at the same (page, offset)
-    for name in ("k", "v"):
-        np.testing.assert_allclose(
-            tcache[name].float().numpy()[:, :, 1:],
-            np.asarray(jcache[name].astype(jnp.float32))[:, :, 1:],
-            atol=atol if bf16 else 1e-5)
-
-
-def test_scatter_places_each_token_at_its_page_and_offset(jax_tree,
-                                                          monkeypatch):
-    """Token t of request r lands at cache[i, :, pt[r, t // ps], t % ps]
-    with its heads on the head axis; padding touches only null page 0."""
-    from apex_tpu_torch.ops import attention as tattn
-
-    tcfg = TConfig(**KW)
-    tparams = tweights.from_jax_params(jax_tree, tcfg, "cpu")
-    lens, ids, pos, seg, rows, pt, last = _pack()
-    cache = tkv.init_cache(2, 4, 10, PS, 16, torch.float32)
-    seen = []   # per layer: the [S, H, d] keys the layer produced
-
-    def spy(q, k, v, **kw):
-        seen.append(k[0].transpose(0, 1).clone())
-        return tattn.fused_attention(q, k, v, **kw)
-
-    monkeypatch.setattr(tmodel, "fused_attention", spy)
-    tmodel.prefill(tparams, cache, *(torch.from_numpy(x) for x in
-                                     (ids, pos, seg, rows, pt, last)),
-                   cfg=tcfg)
     cur = 0
     for r, n in enumerate(lens):
         ids[cur:cur + n] = rs.randint(0, KW["vocab_size"], n)
@@ -343,12 +262,10 @@ def test_engine_front_door_matches_jax():
     with pytest.raises(ValueError, match="per-slot table"):
         te.submit(tsched.Request(rid=1, prompt=[1] * 30, max_new_tokens=40))
 
-    class Stochastic:
-        greedy = False
-
     with pytest.raises(ValueError, match="sampling"):
-        te.submit(tsched.Request(rid=2, prompt=[1, 2], max_new_tokens=2,
-                                 sampling=Stochastic()))
+        te.submit(tsched.Request(
+            rid=2, prompt=[1, 2], max_new_tokens=2,
+            sampling=tsampling.SamplingParams(temperature=0.7, seed=2)))
     assert not te.scheduler.queue
 
 

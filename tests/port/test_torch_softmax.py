@@ -9,7 +9,10 @@ Cases: causal, an explicit ``[b, 1, sq, sk]`` mask (broadcast over heads),
 a ``[b, np, sq, sk]`` mask, a fully masked row, with a non-unit scale; a
 key-padding ``[b, 1, 1, sk]`` mask through ``FusedScaleMaskSoftmax``; the
 generic variant at 5000 and 8192 keys (K10L/K11L's rows on the card)
-against JAX's, which takes its jnp function there.
+against JAX's, which takes its jnp function there. K10L's
+``softmax_cuda.long_plan`` at the edges of its bodies, and a plain mirror
+of its walking body's arithmetic (an online max and sum a thread, the
+pairs combined over the block) against the plain softmax in fp32.
 Bands: fp32 within 1e-6 of the largest magnitude, at least 1 (the same
 fp32 operations; the row sums run in another order); bf16 within one
 bf16 ulp of the output (both round the same fp32 value, which can sit
@@ -26,6 +29,7 @@ from apex_tpu.ops import softmax_pallas as jsp
 from apex_tpu.transformer.enums import AttnMaskType as JMask
 from apex_tpu.transformer.functional import fused_softmax as jfs
 from apex_tpu_torch.ops import softmax as tsm
+from apex_tpu_torch.ops import softmax_cuda
 from apex_tpu_torch.transformer import enums as tenums
 from apex_tpu_torch.transformer.functional import fused_softmax as tfs
 
@@ -376,3 +380,88 @@ def test_apply_surfaces_match_jax():
                           0.5).numpy(),
                np.asarray(jcls.apply(jnp.asarray(x), jnp.asarray(mask),
                                      0.5)), "float32")
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_long_plan_bodies_and_edges(itemsize):
+    """bf16/fp16 rows to 8192 keys on the register body (the fewest warps
+    at 32 fp32 values a thread: 8192 keys take 256 threads), then the smem
+    body while a 16-byte slot and a mask byte a vector fit 102 KB (fp32
+    from the first long row), about 8 vectors a thread, then the walking
+    body; every plan covers its row."""
+    plan = softmax_cuda.long_plan
+    epv = 16 // itemsize
+    smem_last = {2: 49152, 4: 24576}[itemsize]
+    if itemsize == 2:
+        assert plan(8192, 2) == ("regs", 256, 0)
+        assert plan(5000, 2) == ("regs", 160, 0)
+        assert plan(8193, 2).body == "smem"
+    else:
+        assert plan(4097, 4).body == "smem"
+        assert plan(8192, 4) == ("smem", 256, 34816)
+    assert plan(smem_last, itemsize) == ("smem", 512, 104448)
+    assert plan(smem_last + 1, itemsize) == ("walk", 512, 0)
+    last = None
+    for sk in sorted([*range(1, 60000, 97), smem_last, smem_last + 1, 10**6]):
+        p = plan(sk, itemsize)
+        nvec = -(-sk // epv)
+        assert p.threads % 32 == 0 and 32 <= p.threads <= 512
+        if p.body == "regs":
+            assert itemsize == 2 and p.threads <= 256 and p.smem == 0
+            assert p.threads * (32 // epv) >= nvec > (p.threads - 32) * (
+                32 // epv)
+        elif p.body == "smem":
+            assert nvec * 17 <= p.smem <= softmax_cuda.LONG_SMEM_MAX
+            assert p.smem % 16 == 0
+            assert p.threads == min(512, 32 * -(-nvec // 256))
+        order = softmax_cuda.LONG_BODIES.index(p.body)
+        assert last is None or order >= last, "bodies follow the length"
+        last = order
+    with pytest.raises(ValueError):
+        plan(0, 2)
+    with pytest.raises(ValueError):
+        plan(100, 8)
+
+
+def _walk_mirror(x, live, threads=512, epv=4):
+    """K10L's walking body on one fp32 row in plain torch: thread t reads
+    vectors t, t + threads, ...; a running (m, s) a thread over the live
+    vectors (s rescaled where m moves; a masked element is -FLT_MAX in the
+    max and 0 in the sum), then the block's max and the sums moved onto
+    it; y from a second read."""
+    sk = x.numel()
+    fmin = torch.finfo(torch.float32).min
+    m = torch.full((threads,), float("-inf"))
+    s = torch.zeros(threads)
+    col = torch.arange(sk)
+    val = torch.where(col < live, x, torch.tensor(fmin))
+    for c in range(0, live, threads * epv):
+        for t in range(threads):
+            c0 = c + t * epv
+            if c0 >= live:
+                break
+            v = val[c0:c0 + epv]
+            vm = torch.maximum(m[t], v.max())
+            if vm != m[t]:
+                s[t] = s[t] * torch.exp(m[t] - vm)
+                m[t] = vm
+            keep = col[c0:c0 + epv] < live
+            s[t] = s[t] + torch.where(keep, torch.exp(v - m[t]), 0.0).sum()
+    if live < sk:
+        m = torch.maximum(m, torch.tensor(fmin))
+    mx = m.max()
+    sum_ = torch.where(s > 0, s * torch.exp(m - mx), 0.0).sum()
+    y = torch.where(col < live, torch.exp(val - mx), 0.0)
+    return y / sum_ if sum_ > 0 else torch.zeros_like(y)
+
+
+@pytest.mark.parametrize("live", [1, 3, 2048, 5000])
+def test_walking_body_arithmetic_matches_the_plain_softmax(live):
+    """The online pairs a thread and their combination give the plain
+    softmax within 1e-6 in fp32, the row's masked tail (causal) 0."""
+    gen = torch.Generator().manual_seed(live)
+    x = torch.randn(5000, generator=gen) * 4
+    got = _walk_mirror(x, live, threads=64)
+    want = torch.zeros_like(x)
+    want[:live] = torch.softmax(x[:live], dim=0)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
