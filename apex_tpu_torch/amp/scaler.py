@@ -9,7 +9,10 @@ Init 2**16, x2 every ``scale_window`` unskipped steps (clamped to
 ``min_loss_scale``). The overflow flag is a device bool from an
 ``isfinite`` reduction over the gradients, and every transition is a
 ``torch.where`` select, so a training step never waits on the host to
-decide whether to skip: nothing here calls ``.item()``.
+decide whether to skip: nothing here calls ``.item()``. On CUDA
+:meth:`LossScaler.unscale` is one K12 launch a group of gradients
+(``ops/multi_tensor_cuda.scale``), which writes the fp32 unscaled
+gradients and the flag in one pass.
 """
 
 import dataclasses
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 
 from apex_tpu_torch import default_device
+from apex_tpu_torch.ops import multi_tensor
 
 
 @dataclasses.dataclass
@@ -66,13 +70,13 @@ class LossScaler:
     def unscale(self, grads, state):
         """``(unscaled, found_inf)``: the gradients (a dict of tensors)
         times ``1 / loss_scale`` in fp32, and one device bool that is
-        True when any gradient holds an inf or a NaN."""
+        True when any gradient holds an inf or a NaN (K12 on CUDA)."""
         names = list(grads)
         inv = 1.0 / state.loss_scale
-        finite = torch.stack([torch.isfinite(grads[n]).all()
-                              for n in names]).all()
-        unscaled = torch._foreach_mul([grads[n].float() for n in names], inv)
-        return dict(zip(names, unscaled)), ~finite
+        unscaled, found_inf = multi_tensor.scale(
+            [grads[n] for n in names], [torch.float32] * len(names), inv,
+            check_input=True, flag_dtype=torch.bool)
+        return dict(zip(names, unscaled)), found_inf
 
     def update(self, state, found_inf):
         """The scale-update state machine: on overflow scale =

@@ -1,0 +1,813 @@
+// Multi-tensor kernels over lists of tensors: K12 scale / axpby with a
+// found-inf flag, K13 per-tensor and global L2 norms (or largest
+// magnitudes), K14 Adam/AdamW in place, K15 LAMB in two stages.
+//
+// These replace no Pallas site: the JAX package computes them in jnp, as
+// whole-pytree elementwise passes that XLA fuses into the step program.
+// They are the port's counterparts of apex's amp_C (multi_tensor_scale,
+// multi_tensor_axpby, multi_tensor_l2norm, multi_tensor_adam,
+// multi_tensor_lamb): K12 of apex_tpu/multi_tensor_apply/
+// multi_tensor_apply.py:70 multi_tensor_scale, :85 multi_tensor_axpby and
+// apex_tpu/amp/scaler.py:68 LossScaler.unscale; K13 of :99
+// multi_tensor_l2norm and :111 multi_tensor_l2norm_per_tensor; K14 of
+// apex_tpu/optimizers/fused_adam.py:41 _adam_flat with bench.py:240-245's
+// skip selects; K15 of apex_tpu/optimizers/fused_lamb.py:111
+// update_two_pass (and :145 update_one_pass, the same function in another
+// structure). They were written by hand because eager PyTorch spends one
+// launch per op per leaf there: ~1,350 launches a GPT-2-small step (148
+// leaves) and ~170 bytes a parameter.
+//
+// What bounds them on H100: bytes. K12 reads a gradient and writes its
+// fp32 unscaled copy (8 bytes a parameter for fp32), K13 reads it once
+// (4), K14 reads g, p, m, v and writes p, m, v (28), K15 the same (28,
+// plus one more read of p, m, v in its second stage). The arithmetic is a
+// few operations an element.
+//
+// Design. A launch covers a group of tensors: their pointers and sizes
+// travel in the kernel's parameters (a Table, kept under the 4 KB
+// parameter limit, as apex's TensorListMetadata), so gradients that are
+// new tensors every step need no device table and no host sync; the
+// wrapper (ops/multi_tensor_cuda.py) splits longer lists into groups of
+// capacity(depth) tensors. Each tensor is cut into chunks of CHUNK
+// elements, one block a chunk; a block finds its tensor by a binary search
+// over the table's chunk prefix. Inside a chunk each thread walks
+// 4-element vectors (16 bytes of fp32, 8 of bf16/fp16) where every
+// operand's pointer allows it (the chunk offset is a multiple of CHUNK, so
+// it does), else elements; the ragged tail of a tensor takes elements.
+// Math is fp32 with every rounding explicit (__fmul_rn, __fadd_rn,
+// __fdiv_rn, __fsqrt_rn; the source also builds with --fmad=false), in the
+// order of the plain versions, so that K12 and K14 equal them bit for bit.
+// Step-dependent scalars (1 / loss scale, the bias corrections, the
+// learning rate, the found-inf flag, the step count) are read from 0-d
+// device tensors the wrapper passes: the plain versions compute them with
+// the same torch ops, and the step never waits on the host. K14 and K15
+// read the found-inf flag first and write nothing when it is set. The
+// found-inf flag of K12 is written with plain stores of 1 (no atomics).
+// Reductions (K13, K15's per-tensor norms) are two fixed-order stages: a
+// block's chunk sum (a fixed per-thread order, an xor butterfly a warp, a
+// fixed tree over the warps), then a second launch sums a tensor's chunks
+// in order, and the last group's launch sums the tensors in order. No
+// atomics anywhere, so two runs give the same bits.
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <float.h>
+#include <stdint.h>
+#include <string.h>
+
+namespace {
+
+constexpr int CHUNK = 65536;   // elements a block
+constexpr int THREADS = 512;
+constexpr int REDUCE_THREADS = 1024;
+// bytes of a table in the kernel parameters; the rest of the 4096 holds
+// the scalar arguments
+constexpr int TABLE_BYTES = 3840;
+
+constexpr int capacity(int depth) { return (TABLE_BYTES - 16) / (8 * depth + 8); }
+
+// a group of tensors: D operand pointers each, sizes, the chunk prefix
+template <int D>
+struct Table {
+  static constexpr int CAP = capacity(D);
+  void* ptr[D][CAP];
+  int numel[CAP];
+  int chunk_start[CAP + 1];
+  int ntensors;
+  int chunk_base;    // the group's first chunk over the whole list
+  int tensor_base;   // the group's first tensor over the whole list
+};
+
+struct ScaleArgs {
+  const float* scale_ptr;  // the scale from a 0-d device tensor, or null
+  float scale;             // else this value
+  float a, b;              // axpby
+  void* flag;              // found-inf flag: a bool or an int32
+  int flag_bytes;
+  int check_input;         // 1: flag non-finite inputs (the loss scaler)
+};
+
+struct AdamArgs {
+  float beta1, beta1c, beta2, beta2c, eps, wd;  // beta1c = fp32(1 - beta1)
+  float beta3;             // LAMB: fp32(1 - beta1), or 1 without averaging
+  float max_grad_norm;     // LAMB: <= 0 for no clipping
+  float neg_lr;            // -lr when neg_lr_ptr is null
+  int adam_w_mode, bias_correction, decay, trust;  // trust: LAMB's ratio on
+  const float* bc1;
+  const float* bc2;
+  const float* neg_lr_ptr;
+  const float* global_sq;  // LAMB: the gradients' global sum of squares
+  const unsigned char* skip;  // found-inf: write nothing when set
+  int* count;
+  const int* count_new;
+  float* pw;               // LAMB: chunk partials of sum(p * p)
+  float* pu;               // and of sum(update * update)
+};
+
+static_assert(sizeof(Table<4>) + sizeof(AdamArgs) <= 4096, "params");
+static_assert(sizeof(Table<3>) + sizeof(ScaleArgs) <= 4096, "params");
+static_assert(sizeof(Table<1>) + 64 <= 4096, "params");
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ __half from_f<__half>(float x) { return __float2half_rn(x); }
+
+// four elements: one 16-byte load of fp32, one 8-byte load of bf16/fp16
+__device__ __forceinline__ void load4(const float* p, float* f) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  f[0] = q.x;
+  f[1] = q.y;
+  f[2] = q.z;
+  f[3] = q.w;
+}
+template <typename H>
+__device__ __forceinline__ void load4h(const H* p, float* f) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  H h[4];
+  memcpy(h, &q, sizeof(q));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) f[i] = to_f(h[i]);
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* f) { load4h(p, f); }
+__device__ __forceinline__ void load4(const __half* p, float* f) { load4h(p, f); }
+
+__device__ __forceinline__ void store4(float* p, const float* f) {
+  *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+}
+template <typename H>
+__device__ __forceinline__ void store4h(H* p, const float* f) {
+  H h[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = from_f<H>(f[i]);
+  uint2 q;
+  memcpy(&q, h, sizeof(q));
+  *reinterpret_cast<uint2*>(p) = q;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* f) { store4h(p, f); }
+__device__ __forceinline__ void store4(__half* p, const float* f) { store4h(p, f); }
+
+template <typename T>
+__device__ __forceinline__ bool aligned4(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & (4 * sizeof(T) - 1)) == 0;
+}
+
+// the tensor of chunk b: the last whose chunk range starts at or before b
+template <int D>
+__device__ __forceinline__ int find_tensor(const Table<D>& tb, int b) {
+  int lo = 0, hi = tb.ntensors - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (tb.chunk_start[mid] <= b)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  return lo;
+}
+
+// a block's chunk: its tensor, first element and length
+struct Span {
+  int t;
+  long long start;
+  int len;
+};
+template <int D>
+__device__ __forceinline__ Span chunk_span(const Table<D>& tb, int b) {
+  Span s;
+  s.t = find_tensor(tb, b);
+  s.start = (long long)(b - tb.chunk_start[s.t]) * CHUNK;
+  const long long left = tb.numel[s.t] - s.start;
+  s.len = left < CHUNK ? (int)left : CHUNK;
+  return s;
+}
+
+// NaN-propagating max of magnitudes (jnp.max keeps a NaN)
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (b > a || b != b) ? b : a;
+}
+
+template <bool MAX>
+__device__ __forceinline__ float combine(float a, float b) {
+  return MAX ? max_nan(a, b) : __fadd_rn(a, b);
+}
+
+// the block's sum (or max): an xor butterfly a warp (every lane gets the
+// same bits), a fixed tree over the warps; valid in every thread
+template <bool MAX>
+__device__ float block_reduce(float x) {
+  __shared__ float warp_vals[32];
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) x = combine<MAX>(x, __shfl_xor_sync(0xffffffffu, x, m));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  if (lane == 0) warp_vals[warp] = x;
+  __syncthreads();
+  x = lane < warps ? warp_vals[lane] : 0.0f;
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) x = combine<MAX>(x, __shfl_xor_sync(0xffffffffu, x, m));
+  __syncthreads();
+  return x;
+}
+
+template <bool MAX>
+__device__ __forceinline__ float warp_reduce(float x) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) x = combine<MAX>(x, __shfl_xor_sync(0xffffffffu, x, m));
+  return x;
+}
+
+__device__ __forceinline__ bool finite(float x) { return fabsf(x) <= FLT_MAX; }
+
+__device__ __forceinline__ void set_flag(const ScaleArgs& a) {
+  if (a.flag_bytes == 1)
+    *reinterpret_cast<unsigned char*>(a.flag) = 1;
+  else
+    *reinterpret_cast<int*>(a.flag) = 1;
+}
+
+// K12: out = in * scale in fp32, cast to out's dtype; the flag set when an
+// input (check_input) or an fp32 product is not finite
+template <typename TI, typename TO>
+__global__ void __launch_bounds__(THREADS) scale_kernel(const Table<2> tb, const ScaleArgs a) {
+  const Span s = chunk_span(tb, blockIdx.x);
+  const TI* in = reinterpret_cast<const TI*>(tb.ptr[0][s.t]) + s.start;
+  TO* out = reinterpret_cast<TO*>(tb.ptr[1][s.t]) + s.start;
+  const float scale = a.scale_ptr ? *a.scale_ptr : a.scale;
+  bool bad = false;
+  int done = 0;
+  if (aligned4<TI>(in) && aligned4<TO>(out)) {
+    const int n4 = s.len >> 2;
+    for (int i = threadIdx.x; i < n4; i += THREADS) {
+      float x[4], y[4];
+      load4(in + 4 * i, x);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        y[k] = __fmul_rn(x[k], scale);
+        bad |= !finite(a.check_input ? x[k] : y[k]);
+      }
+      store4(out + 4 * i, y);
+    }
+    done = n4 << 2;
+  }
+  for (int e = done + threadIdx.x; e < s.len; e += THREADS) {
+    const float x = to_f(in[e]);
+    const float y = __fmul_rn(x, scale);
+    bad |= !finite(a.check_input ? x : y);
+    out[e] = from_f<TO>(y);
+  }
+  if (__syncthreads_or(bad) && threadIdx.x == 0) set_flag(a);
+}
+
+// K12, axpby: out = a x + b y in fp32 (two products, one sum), cast to
+// out's dtype; the flag set when a sum is not finite
+template <typename TI, typename TO>
+__global__ void __launch_bounds__(THREADS) axpby_kernel(const Table<3> tb, const ScaleArgs a) {
+  const Span s = chunk_span(tb, blockIdx.x);
+  const TI* x = reinterpret_cast<const TI*>(tb.ptr[0][s.t]) + s.start;
+  const TI* y = reinterpret_cast<const TI*>(tb.ptr[1][s.t]) + s.start;
+  TO* out = reinterpret_cast<TO*>(tb.ptr[2][s.t]) + s.start;
+  bool bad = false;
+  int done = 0;
+  if (aligned4<TI>(x) && aligned4<TI>(y) && aligned4<TO>(out)) {
+    const int n4 = s.len >> 2;
+    for (int i = threadIdx.x; i < n4; i += THREADS) {
+      float xv[4], yv[4], o[4];
+      load4(x + 4 * i, xv);
+      load4(y + 4 * i, yv);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        o[k] = __fadd_rn(__fmul_rn(a.a, xv[k]), __fmul_rn(a.b, yv[k]));
+        bad |= !finite(o[k]);
+      }
+      store4(out + 4 * i, o);
+    }
+    done = n4 << 2;
+  }
+  for (int e = done + threadIdx.x; e < s.len; e += THREADS) {
+    const float o = __fadd_rn(__fmul_rn(a.a, to_f(x[e])), __fmul_rn(a.b, to_f(y[e])));
+    bad |= !finite(o);
+    out[e] = from_f<TO>(o);
+  }
+  if (__syncthreads_or(bad) && threadIdx.x == 0) set_flag(a);
+}
+
+// K13, first stage: a chunk's sum of squares (or largest magnitude)
+template <typename T, bool MAX>
+__global__ void __launch_bounds__(THREADS) norm_partials_kernel(const Table<1> tb,
+                                                                float* partials) {
+  const Span s = chunk_span(tb, blockIdx.x);
+  const T* x = reinterpret_cast<const T*>(tb.ptr[0][s.t]) + s.start;
+  float acc = 0.0f;
+  int done = 0;
+  if (aligned4<T>(x)) {
+    const int n4 = s.len >> 2;
+    for (int i = threadIdx.x; i < n4; i += THREADS) {
+      float v[4];
+      load4(x + 4 * i, v);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        acc = MAX ? max_nan(acc, fabsf(v[k])) : __fadd_rn(acc, __fmul_rn(v[k], v[k]));
+    }
+    done = n4 << 2;
+  }
+  for (int e = done + threadIdx.x; e < s.len; e += THREADS) {
+    const float v = to_f(x[e]);
+    acc = MAX ? max_nan(acc, fabsf(v)) : __fadd_rn(acc, __fmul_rn(v, v));
+  }
+  acc = block_reduce<MAX>(acc);
+  if (threadIdx.x == 0) partials[tb.chunk_base + blockIdx.x] = acc;
+}
+
+// K13, second stage (one block): each tensor's chunks summed in order, a
+// warp a tensor; then, in the last group's launch (final_n > 0), the
+// tensors summed in order
+template <bool MAX>
+__global__ void __launch_bounds__(REDUCE_THREADS)
+    norm_reduce_kernel(const Table<1> tb, const float* partials, float* per_val,
+                       float* per_norm, int final_n, float* total_val, float* total_norm) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  for (int t = warp; t < tb.ntensors; t += warps) {
+    float acc = 0.0f;
+    for (int c = tb.chunk_start[t] + lane; c < tb.chunk_start[t + 1]; c += 32)
+      acc = combine<MAX>(acc, partials[tb.chunk_base + c]);
+    acc = warp_reduce<MAX>(acc);
+    if (lane == 0) {
+      per_val[tb.tensor_base + t] = acc;
+      per_norm[tb.tensor_base + t] = MAX ? acc : __fsqrt_rn(acc);
+    }
+  }
+  if (final_n <= 0) return;
+  __syncthreads();
+  if (warp != 0) return;
+  float acc = 0.0f;
+  for (int t = lane; t < final_n; t += 32) acc = combine<MAX>(acc, per_val[t]);
+  acc = warp_reduce<MAX>(acc);
+  if (lane == 0) {
+    *total_val = acc;
+    *total_norm = MAX ? acc : __fsqrt_rn(acc);
+  }
+}
+
+// Adam's moments and update direction for one element, in the plain
+// version's order (optimizers/fused_adam.py _adam_flat); g is the
+// gradient (LAMB: already clipped), p the parameter
+__device__ __forceinline__ float adam_moments(const AdamArgs& a, float g, float p, float beta_g,
+                                              float& m, float& v) {
+  if (!a.adam_w_mode && a.decay) g = __fadd_rn(g, __fmul_rn(p, a.wd));
+  m = __fadd_rn(__fmul_rn(m, a.beta1), __fmul_rn(g, beta_g));
+  v = __fadd_rn(__fmul_rn(v, a.beta2), __fmul_rn(__fmul_rn(g, a.beta2c), g));
+  return g;
+}
+
+__device__ __forceinline__ float adam_direction(const AdamArgs& a, float m, float v, float p,
+                                                float bc1, float bc2) {
+  float upd;
+  if (a.bias_correction)
+    upd = __fdiv_rn(__fdiv_rn(m, bc1), __fadd_rn(__fsqrt_rn(__fdiv_rn(v, bc2)), a.eps));
+  else
+    upd = __fdiv_rn(m, __fadd_rn(__fsqrt_rn(v), a.eps));
+  if (a.adam_w_mode && a.decay) upd = __fadd_rn(upd, __fmul_rn(p, a.wd));
+  return upd;
+}
+
+// the new parameter: the update cast to the gradient's dtype, then to the
+// parameter's, added in the parameter's dtype
+template <typename TG, typename TP>
+__device__ __forceinline__ float apply_update(float p, float u) {
+  const float ug = to_f(from_f<TG>(u));
+  const float up = to_f(from_f<TP>(ug));
+  return __fadd_rn(p, up);
+}
+
+__device__ __forceinline__ void write_count(const AdamArgs& a) {
+  if (a.count && blockIdx.x == 0 && threadIdx.x == 0) *a.count = *a.count_new;
+}
+
+// K14: Adam/AdamW in place on p, m, v (fp32 moments) and the step count
+template <typename TG, typename TP>
+__global__ void __launch_bounds__(THREADS) adam_kernel(const Table<4> tb, const AdamArgs a) {
+  if (a.skip && *a.skip) return;
+  write_count(a);
+  if ((int)blockIdx.x >= tb.chunk_start[tb.ntensors]) return;
+  const Span s = chunk_span(tb, blockIdx.x);
+  const TG* g = reinterpret_cast<const TG*>(tb.ptr[0][s.t]) + s.start;
+  TP* p = reinterpret_cast<TP*>(tb.ptr[1][s.t]) + s.start;
+  float* m = reinterpret_cast<float*>(tb.ptr[2][s.t]) + s.start;
+  float* v = reinterpret_cast<float*>(tb.ptr[3][s.t]) + s.start;
+  const float bc1 = a.bias_correction ? *a.bc1 : 1.0f;
+  const float bc2 = a.bias_correction ? *a.bc2 : 1.0f;
+  const float neg_lr = a.neg_lr_ptr ? *a.neg_lr_ptr : a.neg_lr;
+  int done = 0;
+  if (aligned4<TG>(g) && aligned4<TP>(p) && aligned4<float>(m) && aligned4<float>(v)) {
+    const int n4 = s.len >> 2;
+    for (int i = threadIdx.x; i < n4; i += THREADS) {
+      float gv[4], pv[4], mv[4], vv[4];
+      load4(g + 4 * i, gv);
+      load4(p + 4 * i, pv);
+      load4(m + 4 * i, mv);
+      load4(v + 4 * i, vv);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        adam_moments(a, gv[k], pv[k], a.beta1c, mv[k], vv[k]);
+        const float upd = adam_direction(a, mv[k], vv[k], pv[k], bc1, bc2);
+        pv[k] = apply_update<TG, TP>(pv[k], __fmul_rn(upd, neg_lr));
+      }
+      store4(p + 4 * i, pv);
+      store4(m + 4 * i, mv);
+      store4(v + 4 * i, vv);
+    }
+    done = n4 << 2;
+  }
+  for (int e = done + threadIdx.x; e < s.len; e += THREADS) {
+    float mv = m[e], vv = v[e];
+    const float pv = to_f(p[e]);
+    adam_moments(a, to_f(g[e]), pv, a.beta1c, mv, vv);
+    const float upd = adam_direction(a, mv, vv, pv, bc1, bc2);
+    p[e] = from_f<TP>(apply_update<TG, TP>(pv, __fmul_rn(upd, neg_lr)));
+    m[e] = mv;
+    v[e] = vv;
+  }
+}
+
+// LAMB's clip factor: max(||g|| / max_grad_norm, 1), or 1 without clipping
+__device__ __forceinline__ float lamb_clip(const AdamArgs& a) {
+  if (a.max_grad_norm <= 0.0f) return 1.0f;
+  const float c = __fdiv_rn(__fsqrt_rn(*a.global_sq), a.max_grad_norm);
+  return c < 1.0f ? 1.0f : c;  // a NaN stays, as torch.clamp and jnp.maximum keep it
+}
+
+// K15, first stage: the clipped gradient's moments (written in place) and
+// the chunk partials of sum(p * p) and sum(update * update)
+template <typename TG, typename TP>
+__global__ void __launch_bounds__(THREADS) lamb_stage1_kernel(const Table<4> tb,
+                                                              const AdamArgs a) {
+  if (a.skip && *a.skip) return;
+  write_count(a);
+  if ((int)blockIdx.x >= tb.chunk_start[tb.ntensors]) return;
+  const Span s = chunk_span(tb, blockIdx.x);
+  const TG* g = reinterpret_cast<const TG*>(tb.ptr[0][s.t]) + s.start;
+  const TP* p = reinterpret_cast<const TP*>(tb.ptr[1][s.t]) + s.start;
+  float* m = reinterpret_cast<float*>(tb.ptr[2][s.t]) + s.start;
+  float* v = reinterpret_cast<float*>(tb.ptr[3][s.t]) + s.start;
+  const float bc1 = a.bias_correction ? *a.bc1 : 1.0f;
+  const float bc2 = a.bias_correction ? *a.bc2 : 1.0f;
+  const float clip = lamb_clip(a);
+  const bool clipping = a.max_grad_norm > 0.0f;
+  float w_sq = 0.0f, u_sq = 0.0f;
+  int done = 0;
+  if (aligned4<TG>(g) && aligned4<TP>(p) && aligned4<float>(m) && aligned4<float>(v)) {
+    const int n4 = s.len >> 2;
+    for (int i = threadIdx.x; i < n4; i += THREADS) {
+      float gv[4], pv[4], mv[4], vv[4];
+      load4(g + 4 * i, gv);
+      load4(p + 4 * i, pv);
+      load4(m + 4 * i, mv);
+      load4(v + 4 * i, vv);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float gc = clipping ? __fdiv_rn(gv[k], clip) : gv[k];
+        adam_moments(a, gc, pv[k], a.beta3, mv[k], vv[k]);
+        const float upd = adam_direction(a, mv[k], vv[k], pv[k], bc1, bc2);
+        w_sq = __fadd_rn(w_sq, __fmul_rn(pv[k], pv[k]));
+        u_sq = __fadd_rn(u_sq, __fmul_rn(upd, upd));
+      }
+      store4(m + 4 * i, mv);
+      store4(v + 4 * i, vv);
+    }
+    done = n4 << 2;
+  }
+  for (int e = done + threadIdx.x; e < s.len; e += THREADS) {
+    float mv = m[e], vv = v[e];
+    const float pv = to_f(p[e]);
+    const float gv = to_f(g[e]);
+    const float gc = clipping ? __fdiv_rn(gv, clip) : gv;
+    adam_moments(a, gc, pv, a.beta3, mv, vv);
+    const float upd = adam_direction(a, mv, vv, pv, bc1, bc2);
+    w_sq = __fadd_rn(w_sq, __fmul_rn(pv, pv));
+    u_sq = __fadd_rn(u_sq, __fmul_rn(upd, upd));
+    m[e] = mv;
+    v[e] = vv;
+  }
+  w_sq = block_reduce<false>(w_sq);
+  u_sq = block_reduce<false>(u_sq);
+  if (threadIdx.x == 0) {
+    a.pw[tb.chunk_base + blockIdx.x] = w_sq;
+    a.pu[tb.chunk_base + blockIdx.x] = u_sq;
+  }
+}
+
+// a tensor's chunk partials summed in order (every block of the tensor
+// sums the same values in the same order, so all get the same bits)
+__device__ float tensor_sum(const Table<4>& tb, const float* partials, int t) {
+  float acc = 0.0f;
+  for (int c = tb.chunk_start[t] + (int)threadIdx.x; c < tb.chunk_start[t + 1]; c += THREADS)
+    acc = __fadd_rn(acc, partials[tb.chunk_base + c]);
+  return block_reduce<false>(acc);
+}
+
+// K15, second stage: the tensor's trust ratio, then p += (-lr ratio) u,
+// the update direction recomputed from the new moments
+template <typename TG, typename TP>
+__global__ void __launch_bounds__(THREADS) lamb_stage2_kernel(const Table<4> tb,
+                                                              const AdamArgs a) {
+  if (a.skip && *a.skip) return;
+  if ((int)blockIdx.x >= tb.chunk_start[tb.ntensors]) return;
+  const Span s = chunk_span(tb, blockIdx.x);
+  TP* p = reinterpret_cast<TP*>(tb.ptr[1][s.t]) + s.start;
+  const float* m = reinterpret_cast<const float*>(tb.ptr[2][s.t]) + s.start;
+  const float* v = reinterpret_cast<const float*>(tb.ptr[3][s.t]) + s.start;
+  const float bc1 = a.bias_correction ? *a.bc1 : 1.0f;
+  const float bc2 = a.bias_correction ? *a.bc2 : 1.0f;
+  const float neg_lr = a.neg_lr_ptr ? *a.neg_lr_ptr : a.neg_lr;
+  const float w = __fsqrt_rn(tensor_sum(tb, a.pw, s.t));
+  const float u = __fsqrt_rn(tensor_sum(tb, a.pu, s.t));
+  float ratio = (w > 0.0f && u > 0.0f) ? __fdiv_rn(w, __fadd_rn(u, 1e-38f)) : 1.0f;
+  if (!a.trust) ratio = 1.0f;
+  const float step = __fmul_rn(neg_lr, ratio);
+  int done = 0;
+  if (aligned4<TP>(p) && aligned4<float>(m) && aligned4<float>(v)) {
+    const int n4 = s.len >> 2;
+    for (int i = threadIdx.x; i < n4; i += THREADS) {
+      float pv[4], mv[4], vv[4];
+      load4(p + 4 * i, pv);
+      load4(m + 4 * i, mv);
+      load4(v + 4 * i, vv);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float upd = adam_direction(a, mv[k], vv[k], pv[k], bc1, bc2);
+        pv[k] = apply_update<TG, TP>(pv[k], __fmul_rn(step, upd));
+      }
+      store4(p + 4 * i, pv);
+    }
+    done = n4 << 2;
+  }
+  for (int e = done + threadIdx.x; e < s.len; e += THREADS) {
+    const float pv = to_f(p[e]);
+    const float upd = adam_direction(a, m[e], v[e], pv, bc1, bc2);
+    p[e] = from_f<TP>(apply_update<TG, TP>(pv, __fmul_rn(step, upd)));
+  }
+}
+
+// ---------------------------------------------------------------- host side
+
+// a table from the host arrays: ptrs [D][n] device addresses, numels [n];
+// the group's chunks in *chunks
+template <int D>
+cudaError_t fill(Table<D>& tb, const long long* ptrs, const long long* numels, int n,
+                 long long chunk_base, long long tensor_base, int* chunks) {
+  if (n < 1 || n > Table<D>::CAP || chunk_base < 0 || chunk_base > 0x7fffffffLL ||
+      tensor_base < 0 || tensor_base > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  memset(&tb, 0, sizeof(tb));
+  long long c = 0;
+  for (int i = 0; i < n; ++i) {
+    if (numels[i] < 0 || numels[i] > 0x7fffffffLL) return cudaErrorInvalidValue;
+    for (int d = 0; d < D; ++d) tb.ptr[d][i] = reinterpret_cast<void*>(ptrs[d * n + i]);
+    tb.numel[i] = (int)numels[i];
+    tb.chunk_start[i] = (int)c;
+    c += (numels[i] + CHUNK - 1) / CHUNK;
+  }
+  if (c + chunk_base > 0x7fffffffLL) return cudaErrorInvalidValue;
+  tb.chunk_start[n] = (int)c;
+  tb.ntensors = n;
+  tb.chunk_base = (int)chunk_base;
+  tb.tensor_base = (int)tensor_base;
+  *chunks = (int)c;
+  return cudaSuccess;
+}
+
+bool dtype_ok(int d) { return d >= 0 && d <= 2; }
+
+}  // namespace
+
+// runs the statement with T the element type of a dtype code (0 bf16, 1
+// fp16, 2 fp32); a call may nest in another's statement (arguments expand
+// first)
+#define MT_DISPATCH(code, T, ...)       \
+  switch (code) {                       \
+    case 0: {                           \
+      using T = __nv_bfloat16;          \
+      __VA_ARGS__;                      \
+    } break;                            \
+    case 1: {                           \
+      using T = __half;                 \
+      __VA_ARGS__;                      \
+    } break;                            \
+    default: {                          \
+      using T = float;                  \
+      __VA_ARGS__;                      \
+    } break;                            \
+  }
+
+extern "C" int multi_tensor_capacity(int depth) {
+  return depth >= 1 && depth <= 4 ? capacity(depth) : 0;
+}
+
+extern "C" int multi_tensor_chunk() { return CHUNK; }
+
+// K12: outs = ins * scale (hyper: scale, a, b unused), dtypes of the
+// group's inputs and outputs; flag_bytes 1 (bool) or 4 (int32)
+extern "C" int multi_tensor_scale(const long long* ptrs, const long long* numels, int n,
+                                  int in_dtype, int out_dtype, const float* scale_ptr,
+                                  float scale, void* flag, int flag_bytes, int check_input,
+                                  int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!dtype_ok(in_dtype) || !dtype_ok(out_dtype) || !flag ||
+      (flag_bytes != 1 && flag_bytes != 4))
+    return (int)cudaErrorInvalidValue;
+  Table<2> tb;
+  int chunks = 0;
+  err = fill(tb, ptrs, numels, n, 0, 0, &chunks);
+  if (err != cudaSuccess) return (int)err;
+  if (chunks == 0) return (int)cudaErrorInvalidValue;
+  ScaleArgs a{scale_ptr, scale, 0.0f, 0.0f, flag, flag_bytes, check_input};
+  cudaStream_t st = (cudaStream_t)stream;
+  MT_DISPATCH(in_dtype, TI,
+                MT_DISPATCH(out_dtype, TO,
+                              scale_kernel<TI, TO><<<chunks, THREADS, 0, st>>>(tb, a)))
+  return (int)cudaGetLastError();
+}
+
+// K12, axpby: outs = a xs + b ys (xs and ys of one dtype); flag on outputs
+extern "C" int multi_tensor_axpby(const long long* ptrs, const long long* numels, int n,
+                                  int in_dtype, int out_dtype, float a_, float b_, void* flag,
+                                  int flag_bytes, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!dtype_ok(in_dtype) || !dtype_ok(out_dtype) || !flag ||
+      (flag_bytes != 1 && flag_bytes != 4))
+    return (int)cudaErrorInvalidValue;
+  Table<3> tb;
+  int chunks = 0;
+  err = fill(tb, ptrs, numels, n, 0, 0, &chunks);
+  if (err != cudaSuccess) return (int)err;
+  if (chunks == 0) return (int)cudaErrorInvalidValue;
+  ScaleArgs a{nullptr, 0.0f, a_, b_, flag, flag_bytes, 0};
+  cudaStream_t st = (cudaStream_t)stream;
+  MT_DISPATCH(in_dtype, TI,
+                MT_DISPATCH(out_dtype, TO,
+                              axpby_kernel<TI, TO><<<chunks, THREADS, 0, st>>>(tb, a)))
+  return (int)cudaGetLastError();
+}
+
+// K13, first stage: one partial a chunk into partials[chunk_base + ...]
+extern "C" int multi_tensor_norm_partials(const long long* ptrs, const long long* numels,
+                                          int n, int dtype, int max_mode, float* partials,
+                                          long long chunk_base, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!dtype_ok(dtype) || !partials) return (int)cudaErrorInvalidValue;
+  Table<1> tb;
+  int chunks = 0;
+  err = fill(tb, ptrs, numels, n, chunk_base, 0, &chunks);
+  if (err != cudaSuccess) return (int)err;
+  if (chunks == 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (max_mode) {
+    MT_DISPATCH(dtype, T, norm_partials_kernel<T, true><<<chunks, THREADS, 0, st>>>(tb, partials))
+  } else {
+    MT_DISPATCH(dtype, T, norm_partials_kernel<T, false><<<chunks, THREADS, 0, st>>>(tb, partials))
+  }
+  return (int)cudaGetLastError();
+}
+
+// K13, second stage over one group (sizes only); final_n > 0 in the last
+// group's launch: the total over per_val[0, final_n)
+extern "C" int multi_tensor_norm_reduce(const long long* numels, int n, int max_mode,
+                                        const float* partials, long long chunk_base,
+                                        long long tensor_base, float* per_val,
+                                        float* per_norm, int final_n, float* total_val,
+                                        float* total_norm, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!partials || !per_val || !per_norm || (final_n > 0 && (!total_val || !total_norm)))
+    return (int)cudaErrorInvalidValue;
+  Table<1> tb;
+  int chunks = 0;
+  // the pointers are unused here: the sizes alone give the chunk ranges
+  long long zeros[Table<1>::CAP] = {};
+  err = fill(tb, zeros, numels, n, chunk_base, tensor_base, &chunks);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (max_mode)
+    norm_reduce_kernel<true><<<1, REDUCE_THREADS, 0, st>>>(tb, partials, per_val, per_norm,
+                                                          final_n, total_val, total_norm);
+  else
+    norm_reduce_kernel<false><<<1, REDUCE_THREADS, 0, st>>>(tb, partials, per_val, per_norm,
+                                                           final_n, total_val, total_norm);
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+// hyper: beta1, beta1c, beta2, beta2c, eps, wd, beta3, max_grad_norm,
+// neg_lr; flags: adam_w_mode, bias_correction, decay, trust; devptrs:
+// bc1, bc2, neg_lr, global_sq, skip, count, count_new, pw, pu (0 = null)
+AdamArgs adam_args(const float* hyper, const int* flags, const long long* devptrs) {
+  AdamArgs a;
+  a.beta1 = hyper[0];
+  a.beta1c = hyper[1];
+  a.beta2 = hyper[2];
+  a.beta2c = hyper[3];
+  a.eps = hyper[4];
+  a.wd = hyper[5];
+  a.beta3 = hyper[6];
+  a.max_grad_norm = hyper[7];
+  a.neg_lr = hyper[8];
+  a.adam_w_mode = flags[0];
+  a.bias_correction = flags[1];
+  a.decay = flags[2];
+  a.trust = flags[3];
+  a.bc1 = reinterpret_cast<const float*>(devptrs[0]);
+  a.bc2 = reinterpret_cast<const float*>(devptrs[1]);
+  a.neg_lr_ptr = reinterpret_cast<const float*>(devptrs[2]);
+  a.global_sq = reinterpret_cast<const float*>(devptrs[3]);
+  a.skip = reinterpret_cast<const unsigned char*>(devptrs[4]);
+  a.count = reinterpret_cast<int*>(devptrs[5]);
+  a.count_new = reinterpret_cast<const int*>(devptrs[6]);
+  a.pw = reinterpret_cast<float*>(devptrs[7]);
+  a.pu = reinterpret_cast<float*>(devptrs[8]);
+  return a;
+}
+
+// the gradient's dtype is the parameter's or fp32 (the wrapper casts others)
+bool pair_ok(int g_dtype, int p_dtype) {
+  return dtype_ok(g_dtype) && dtype_ok(p_dtype) && (g_dtype == p_dtype || g_dtype == 2);
+}
+
+}  // namespace
+
+// K14 over one group: ptrs [4][n] = g, p, m, v
+extern "C" int multi_tensor_adam(const long long* ptrs, const long long* numels, int n,
+                                 int g_dtype, int p_dtype, const float* hyper,
+                                 const int* flags, const long long* devptrs, int device,
+                                 void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!pair_ok(g_dtype, p_dtype)) return (int)cudaErrorInvalidValue;
+  Table<4> tb;
+  int chunks = 0;
+  err = fill(tb, ptrs, numels, n, 0, 0, &chunks);
+  if (err != cudaSuccess) return (int)err;
+  const AdamArgs a = adam_args(hyper, flags, devptrs);
+  if ((a.bias_correction && (!a.bc1 || !a.bc2)) || (a.count && !a.count_new))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int blocks = chunks > 0 ? chunks : 1;
+  if (g_dtype == p_dtype) {
+    MT_DISPATCH(p_dtype, TP, adam_kernel<TP, TP><<<blocks, THREADS, 0, st>>>(tb, a))
+  } else {
+    MT_DISPATCH(p_dtype, TP, adam_kernel<float, TP><<<blocks, THREADS, 0, st>>>(tb, a))
+  }
+  return (int)cudaGetLastError();
+}
+
+// K15 over one group, stage 1 or 2: ptrs [4][n] = g, p, m, v; the chunk
+// partials at chunk_base
+extern "C" int multi_tensor_lamb(const long long* ptrs, const long long* numels, int n,
+                                 int g_dtype, int p_dtype, int stage, long long chunk_base,
+                                 const float* hyper, const int* flags,
+                                 const long long* devptrs, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!pair_ok(g_dtype, p_dtype) || (stage != 1 && stage != 2))
+    return (int)cudaErrorInvalidValue;
+  Table<4> tb;
+  int chunks = 0;
+  err = fill(tb, ptrs, numels, n, chunk_base, 0, &chunks);
+  if (err != cudaSuccess) return (int)err;
+  const AdamArgs a = adam_args(hyper, flags, devptrs);
+  if ((a.bias_correction && (!a.bc1 || !a.bc2)) || (a.count && !a.count_new) || !a.pw ||
+      !a.pu || (a.max_grad_norm > 0.0f && !a.global_sq))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int blocks = chunks > 0 ? chunks : 1;
+  if (stage == 1 && g_dtype == p_dtype) {
+    MT_DISPATCH(p_dtype, TP, lamb_stage1_kernel<TP, TP><<<blocks, THREADS, 0, st>>>(tb, a))
+  } else if (stage == 1) {
+    MT_DISPATCH(p_dtype, TP, lamb_stage1_kernel<float, TP><<<blocks, THREADS, 0, st>>>(tb, a))
+  } else if (g_dtype == p_dtype) {
+    MT_DISPATCH(p_dtype, TP, lamb_stage2_kernel<TP, TP><<<blocks, THREADS, 0, st>>>(tb, a))
+  } else {
+    MT_DISPATCH(p_dtype, TP, lamb_stage2_kernel<float, TP><<<blocks, THREADS, 0, st>>>(tb, a))
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* multi_tensor_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}

@@ -3,8 +3,9 @@
 Each ``apex_tpu_torch/csrc/<name>.cu`` compiles on its own with ``nvcc``
 for Hopper (``sm_90a``) into a shared library with a plain C interface,
 ``build/apex_tpu_torch/<name>.<hash>.so`` under the repository root. The
-hash covers the source and the flags, so an edited source rebuilds and an
-unchanged one loads what is there. :func:`build` starts one ``nvcc`` per
+hash covers the source and its flags (``NVCC_FLAGS`` and the source's own
+``SOURCE_FLAGS``), so an edited source or flag rebuilds and an unchanged
+one loads what is there. :func:`build` starts one ``nvcc`` per
 stale source, all at once, and waits for all of them. No source includes
 PyTorch's headers: that keeps a build at seconds, not minutes.
 
@@ -25,11 +26,14 @@ from pathlib import Path
 import torch
 
 SOURCES = ("prefill_attention", "decode_attention", "layer_norm",
-           "attention_bwd", "xent", "softmax")
+           "attention_bwd", "xent", "softmax", "multi_tensor")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "apex_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# a source's own flags after NVCC_FLAGS: the multi-tensor kernels must
+# round as their plain versions do, so no multiply-add is contracted
+SOURCE_FLAGS = {"multi_tensor": ("--fmad=false",)}
 
 # dtype codes shared by every entry point
 DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
@@ -48,11 +52,16 @@ def _nvcc():
     return path
 
 
+def flags(name):
+    """The nvcc flags of one source."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def lib_path(name):
     """The content-addressed library path of one source."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + " ".join(flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}.{digest}.so"
 
 
@@ -70,7 +79,7 @@ def build(names=SOURCES):
     for name in stale:
         out = lib_path(name)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))

@@ -1,0 +1,117 @@
+"""Fused SGD with momentum (counterpart of
+``apex_tpu/optimizers/fused_sgd.py``).
+
+JAX's update: weight decay folded into the gradient, the momentum buffer
+set to the gradient on the first step (``buf = g``, PyTorch's rule) and
+``mu buf + (1 - dampening) g`` after, Nesterov's ``g + mu buf``, and ``-lr
+d`` cast to the gradient's dtype. The state, :class:`FusedSGDState`, is
+the count and an fp32 buffer per parameter. Plain PyTorch: JAX computes
+it in jnp with no Pallas kernel, and its CUDA kernel is still to come
+(ROADMAP), so ``fused_sgd`` has no fused ``step`` and ``train_step``
+applies its updates with the skip selects.
+"""
+
+import dataclasses
+
+import torch
+
+from apex_tpu_torch import default_device
+from apex_tpu_torch.optimizers._base import (FusedOptimizerBase,
+                                             GradientTransformation,
+                                             count_from_numpy,
+                                             tensors_from_numpy)
+
+
+@dataclasses.dataclass
+class FusedSGDState:
+    count: torch.Tensor   # 0-d int32 step count
+    momentum_buf: dict    # name -> fp32 momentum buffer
+
+    @classmethod
+    def from_numpy(cls, count, momentum_buf, device=None):
+        """A state from host arrays (``momentum_buf`` a nested dict keyed
+        like the JAX parameter tree); ``device=None`` means ``cuda``."""
+        device = default_device(device)
+        return cls(count_from_numpy(count, device),
+                   tensors_from_numpy(momentum_buf, device))
+
+
+def fused_sgd(learning_rate=1e-3, momentum=0.0, dampening=0.0,
+              weight_decay=0.0, nesterov=False):
+    """Fused SGD as ``(init, update)`` over dicts of tensors keyed by
+    name; ``learning_rate`` a float or a schedule of the new step count."""
+    if nesterov and (momentum <= 0 or dampening != 0):
+        raise ValueError("Nesterov momentum requires a momentum and zero dampening")
+
+    def init(params):
+        device = next(iter(params.values())).device
+        return FusedSGDState(
+            torch.zeros((), dtype=torch.int32, device=device),
+            {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             for n, p in params.items()})
+
+    def update(grads, state, params):
+        count = state.count + 1
+        lr = learning_rate(count) if callable(learning_rate) \
+            else learning_rate
+        neg_lr = lr.neg() if torch.is_tensor(lr) else -lr
+        updates, bufs = {}, {}
+        for n, gl in grads.items():
+            g = gl.float()
+            if weight_decay != 0:
+                g = g + weight_decay * params[n].float()
+            buf = state.momentum_buf[n]
+            if momentum != 0:
+                buf = torch.where(count == 1, g,
+                                  momentum * buf + (1.0 - dampening) * g)
+                d = g + momentum * buf if nesterov else buf
+            else:
+                d = g
+            updates[n] = (neg_lr * d).to(gl.dtype)
+            bufs[n] = buf
+        return updates, FusedSGDState(count, bufs)
+
+    return GradientTransformation(init, update)
+
+
+class FusedSGD(FusedOptimizerBase):
+    """The class surface (apex's ``FusedSGD``). ``wd_after_momentum`` and
+    ``materialize_master_grads`` are amp's eager-mode knobs, accepted and
+    unused, as in the JAX package."""
+
+    def __init__(self, params, lr=1e-3, momentum=0.0, dampening=0.0,
+                 weight_decay=0.0, nesterov=False, wd_after_momentum=False,
+                 materialize_master_grads=True, set_grad_none=False):
+        super().__init__(params, dict(lr=lr, momentum=momentum,
+                                      dampening=dampening,
+                                      weight_decay=weight_decay,
+                                      nesterov=nesterov))
+
+    def _group_tx(self, group):
+        return fused_sgd(learning_rate=group["lr"], momentum=group["momentum"],
+                         dampening=group["dampening"],
+                         weight_decay=group["weight_decay"],
+                         nesterov=group["nesterov"])
+
+    def get_momentums(self, params=None):
+        """``(momentums, first_run)`` as apex's: every group's momentum
+        buffers, zero and kept from the first call for a group not yet
+        stepped (``first_run`` True then). ``params`` is accepted for
+        signature parity."""
+        del params
+        grow = len(self.param_groups) - len(self.group_states)
+        self.group_states += [None] * grow
+        self._txs += [None] * grow
+        bufs, first_run = [], False
+        for i, group in enumerate(self.param_groups):
+            if self.group_states[i] is None:
+                self.group_states[i] = self._transform(i, group).init(
+                    {str(j): p for j, p in enumerate(group["params"])})
+                first_run = True
+            bufs.extend(self.group_states[i].momentum_buf.values())
+        return bufs, first_run
+
+
+def get_momentums(state):
+    """The momentum buffers of a ``fused_sgd`` state, in its order."""
+    return list(state.momentum_buf.values())

@@ -1,9 +1,19 @@
 """The amp-O2 training step (counterpart of ``bench.py:209
 make_one_step``): compute-dtype forward and backward of a
 :class:`~apex_tpu_torch.transformer.testing.GPTModel`, dynamic loss
-scaling, fused Adam, and the skip-step selects of ``bench.py:240-245``.
+scaling, a fused optimizer, and the skip-step selects of
+``bench.py:240-245``.
 
     step = make_one_step(model, LossScaler(), fused_adam(1e-4))
+
+The optimizer is a transform of :mod:`apex_tpu_torch.optimizers`. Where
+it has an in-place fused form (``opt.step``: Adam and LAMB), the step
+calls it with the overflow flag, and on the card the update and the skip
+are one multi-tensor kernel (K14; K13 + K15 for LAMB) after the
+unscale's K12; the others take ``opt.update`` and the per-leaf selects
+(``optimizers/_base.apply_plain``), which are also the fused form's plain
+version. The learning rate may be a schedule of the device step count,
+computed on the device.
     opt_state, scaler_state, loss = step(opt_state, scaler_state,
                                          ids, pos, labels)
 
@@ -26,14 +36,15 @@ and the skip is ``torch.where``, so nothing calls ``.item()`` or
 ``bool()`` on a device tensor and a caller can queue steps back to back.
 
 The JAX step is a pure function of (params, state); this one updates in
-place to save memory: the model's parameters and the Adam state's
-``count``, ``m`` and ``v`` tensors are overwritten (with their old values
-where the step is skipped), and the returned ``opt_state`` is the same
-object. Gradients are dropped (``grad = None``) at the start of a step.
+place to save memory: the model's parameters and the optimizer state's
+tensors are overwritten (left as they were where the step is skipped),
+and the returned ``opt_state`` is the same object. Gradients are dropped
+(``grad = None``) at the start of a step.
 """
 
 import torch
 
+from apex_tpu_torch.optimizers._base import apply_plain
 from apex_tpu_torch.transformer.amp import GradScaler
 
 
@@ -64,16 +75,11 @@ def make_one_step(model, scaler, opt, dropout_generator=None):
             grads = {n: p.grad for n, p in params.items()}
             grads, found_inf = scaler.unscale(grads, scaler_state)
             new_scaler_state = scaler.update(scaler_state, found_inf)
-            updates, new_opt_state = opt.update(grads, opt_state, params)
-            for n, p in params.items():
-                p.copy_(torch.where(found_inf, p,
-                                    p + updates[n].to(p.dtype)))
-            opt_state.count.copy_(torch.where(found_inf, opt_state.count,
-                                              new_opt_state.count))
-            for old, new in ((opt_state.m, new_opt_state.m),
-                             (opt_state.v, new_opt_state.v)):
-                for n, t in old.items():
-                    t.copy_(torch.where(found_inf, t, new[n]))
+            fused = getattr(opt, "step", None)
+            if fused is not None:
+                fused(grads, opt_state, params, found_inf)
+            else:
+                apply_plain(opt.update, grads, opt_state, params, found_inf)
         for p in params.values():
             p.grad = None
         return (opt_state, new_scaler_state,

@@ -26,7 +26,7 @@ exits non-zero before the last line):
 1. device: ``nvidia-smi`` name and power limit, the SM clock's maximum
    (the INT32 rate assumes it), torch and CUDA versions; TF32 is
    switched off for fp32 matmuls and convolutions.
-2. build: the six CUDA sources compile from ``apex_tpu_torch/csrc`` (one
+2. build: the seven CUDA sources compile from ``apex_tpu_torch/csrc`` (one
    ``nvcc`` each, all in parallel) into ``build/apex_tpu_torch/``; ptxas's
    registers and spills are printed, and, where the toolkit has
    ``cuobjdump``, the tensor-core instructions (``HGMMA``: wgmma;
@@ -109,6 +109,17 @@ exits non-zero before the last line):
    in turns around its library call and the parent's body (with
    ``--parent``), K4 with its second stage, the plan and ptxas's
    registers and spills of the instantiation it launches beside it.
+   Last the multi-tensor kernels (``phase_multi_tensor_kernels``) on
+   GPT-2-small's 148 fp32 leaves (124.4 M elements; gradients scaled by
+   2^16) and on a ragged list (1, 3, 767, 768, 4099 elements and a view 4
+   bytes off a 16-byte boundary): K12 (the loss scaler's unscale and
+   found-inf flag, also with an inf planted) and K14 (Adam, two steps and
+   a step with the flag set) bit for bit against their plain versions,
+   K13 (norms) and K15 (a LAMB step) within ``MT_NORM_TOL`` /
+   ``MT_LAMB_TOL``, two runs the same bits; each timed in turns with its
+   library call (K12 ``torch._amp_foreach_non_finite_check_and_unscale_``,
+   K13 ``torch._foreach_norm``, K14 ``torch.optim.Adam(fused=True)``'s
+   step; K15 none), bounds by bytes.
 4. serving end to end: ``ServingEngine`` at GPT-2-small width (12 x 768,
    12 heads, vocab 50304, 1024 positions, bf16; 8 slots, page size 128,
    72 pages, 512-token packed prefill) with random weights from seed 0
@@ -157,7 +168,18 @@ exits non-zero before the last line):
    after the window than at step 1, and the launches per step must be
    K1 = K5 = K6 = 12, K3 = K4 = 25 and K7 = K8 = K9 = 1 with the fused
    head (0 with the materialized one, whose cross entropy must then run
-   once per step and never with the fused head). For each head a forced
+   once per step and never with the fused head), and the optimizer's K12
+   once and K14 once a group of ``capacity(4)`` leaves (two at 148). Then
+   the fused head trained by pretrain.py's LAMB (``LAMB``: decay 0.01,
+   clip 1.0, the warm-up + cosine schedule computed on the device count):
+   K12 once, K13 twice and K15 twice a group a step, the same checks.
+   After the paths-agree steps, the optimizer against its plain version in
+   the window (``phase_optimizer_paths_agree``: Adam bit for bit after each
+   of 7 steps on the same real gradients; LAMB's 7-step losses within
+   ``TRAIN_LOSS_BAND``) and the optimizer region alone
+   (``phase_optimizer_region``: unscale, scaler update, optimizer, selects
+   on one step's real gradients, kernel and plain path in turns: host ms,
+   device ms, launches). For each head a forced
    overflow (loss scale 3e38, one gradient made non-finite) must leave
    every parameter and the Adam state bitwise unchanged, halve the scale
    and reset ``unskipped``, and a profiled window gives the device's
@@ -284,6 +306,21 @@ SOFTMAX_Y_TOL = 2.0 ** -8
 # H100 measured at most 1.8e-5 there, in fp16)
 K2Q_L2_TOL = 1e-4
 TRAIN = dict(batch=8, seq=1024, warmup=2, timed=5, lr=1e-4)
+# the LAMB window: examples/transformer/pretrain.py's make_optimizer for
+# "lamb" (fused_lamb with its defaults, decay 0.01 and clip 1.0, and the
+# lr group's eps 1e-8) and make_lr_schedule's warmup + cosine decay (2
+# warm-up steps, decay over 100 to a tenth), computed on the device count
+LAMB = dict(lr=5e-3, min_lr=5e-4, warmup_iters=2, decay_iters=100,
+            weight_decay=0.01, max_grad_norm=1.0, eps=1e-8)
+# K13 and K15 against their plain versions at GPT-2-small's 148 leaves:
+# the largest error over a tensor's largest magnitude (the card tests'
+# bands, tests/port/test_torch_kernels_cuda.py MT_NORM_TOL, MT_LAMB_TOL;
+# an H100 measured 9.9e-8 and 1.2e-7 here)
+MT_NORM_TOL = 2e-6
+MT_LAMB_TOL = 5e-6
+# the spin before a timed K12 launch (~2 ms): its wrapper allocates an
+# output a leaf (148 at GPT-2-small), ~0.3 ms of host
+MT_SPIN = 4_000_000
 # the head dims the attention kernels run at besides the main path's 64,
 # each at a training shape of a model that has it, (batch, heads, seq),
 # bf16, causal: 80 (GPT-3 2.7B: 32 heads; zero-padded to the kernels' 128)
@@ -387,11 +424,13 @@ def _log(msg):
     print(msg, flush=True)
 
 
-def _time_ms(fn, flush, reps=20, spread=None, clean=False):
+def _time_ms(fn, flush, reps=20, spread=None, clean=False,
+             spin=1_000_000):
     """Mean device time of ``fn`` over ``reps`` launches, each after an
-    L2 flush, timed with CUDA events. A spin of ~0.5 ms on the stream
-    before each timed launch lets the host queue all of ``fn``'s work
-    first, so host overhead does not land inside the events. A list
+    L2 flush, timed with CUDA events. A spin of ``spin`` cycles (~0.5 ms)
+    on the stream before each timed launch lets the host queue all of
+    ``fn``'s work first, so host overhead does not land inside the events
+    (a wrapper with more host work than that takes a longer spin). A list
     passed as ``spread`` receives the launches' [min, median, max]. The
     flush writes its 128 MB, so the launch finds L2 full of dirty lines to
     write back as it streams; with ``clean`` it reads them instead, and
@@ -405,7 +444,7 @@ def _time_ms(fn, flush, reps=20, spread=None, clean=False):
             flush.sum()
         else:
             flush.zero_()
-        torch.cuda._sleep(1_000_000)
+        torch.cuda._sleep(spin)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -418,13 +457,13 @@ def _time_ms(fn, flush, reps=20, spread=None, clean=False):
     return sum(times) / reps
 
 
-def _time_in_turns(fn, lib_fn, flush, spread=None):
+def _time_in_turns(fn, lib_fn, flush, spread=None, spin=1_000_000):
     """``fn`` and one library call timed in turns, kernel, library,
     kernel (the library's time moves from call to call): the kernel's mean
     over its two turns, each turn's time, and the library's time."""
-    turns = [_time_ms(fn, flush, spread=spread)]
+    turns = [_time_ms(fn, flush, spread=spread, spin=spin)]
     lib_ms = _time_ms(lib_fn, flush)
-    turns.append(_time_ms(fn, flush))
+    turns.append(_time_ms(fn, flush, spin=spin))
     return statistics.mean(turns), turns, lib_ms
 
 
@@ -507,7 +546,8 @@ def _as_parent(fn, name):
     return run
 
 
-def _turns(fn, lib_fn, flush, source, spread=None, parent_fn=None):
+def _turns(fn, lib_fn, flush, source, spread=None, parent_fn=None,
+           spin=1_000_000):
     """``fn`` timed in turns around one library call, kernel, library,
     kernel, and, with ``--parent``, the parent's kernel (``parent_fn``, by
     default ``fn`` on the parent's library) before and after them: ``{"ms":
@@ -520,7 +560,7 @@ def _turns(fn, lib_fn, flush, source, spread=None, parent_fn=None):
     if parent:
         out["parent_ms_turns"] = [_time_ms(parent, flush)]
     out["ms"], out["ms_turns"], out["library_ms"] = _time_in_turns(
-        fn, lib_fn, flush, spread=spread)
+        fn, lib_fn, flush, spread=spread, spin=spin)
     if parent:
         out["parent_ms_turns"].append(_time_ms(parent, flush))
         out["parent_ms"] = statistics.mean(out["parent_ms_turns"])
@@ -2727,7 +2767,8 @@ def phase_xent_kernels(dev, flush):
 
 def _training_counts():
     from apex_tpu_torch.ops import (attention_bwd_cuda, attention_cuda,
-                                    layer_norm_cuda, softmax_cuda, xent_cuda)
+                                    layer_norm_cuda, multi_tensor_cuda,
+                                    softmax_cuda, xent_cuda)
 
     return {"prefill_attention": attention_cuda.prefill_attention,
             "attention_bwd_dq": attention_bwd_cuda.attention_bwd_dq,
@@ -2747,7 +2788,36 @@ def _training_counts():
             "softmax_bwd": softmax_cuda.softmax_bwd,
             "xent_fwd_partials": xent_cuda.xent_fwd_partials,
             "softmax_fwd_long": softmax_cuda.softmax_fwd_long,
-            "softmax_bwd_long": softmax_cuda.softmax_bwd_long}
+            "softmax_bwd_long": softmax_cuda.softmax_bwd_long,
+            "multi_tensor_scale": multi_tensor_cuda.scale,
+            "multi_tensor_l2norm": multi_tensor_cuda.l2norm,
+            "multi_tensor_adam": multi_tensor_cuda.adam,
+            "multi_tensor_lamb": multi_tensor_cuda.lamb}
+
+
+def _warmup_cosine(count):
+    """pretrain.py:53-80's schedule of the device step count (a 0-d int32
+    tensor), on the device: linear warm-up over ``warmup_iters`` steps,
+    then a cosine from ``lr`` to ``min_lr`` over ``decay_iters``."""
+    base, low = LAMB["lr"], LAMB["min_lr"]
+    warmup, decay = LAMB["warmup_iters"], LAMB["decay_iters"]
+    step = count.float()
+    warm = base * step / max(warmup, 1)
+    frac = torch.clamp((step - warmup) / max(decay - warmup, 1), 0.0, 1.0)
+    decayed = low + (base - low) * 0.5 * (1.0 + torch.cos(np.pi * frac))
+    return torch.where(step < warmup, warm, decayed)
+
+
+def _make_opt(opt):
+    """The window's optimizer: ``fused_adam`` at ``TRAIN["lr"]``, or
+    pretrain.py's ``fused_lamb`` (``LAMB``)."""
+    from apex_tpu_torch.optimizers import fused_adam, fused_lamb
+
+    if opt == "lamb":
+        return fused_lamb(learning_rate=_warmup_cosine, eps=LAMB["eps"],
+                          weight_decay=LAMB["weight_decay"],
+                          max_grad_norm=LAMB["max_grad_norm"])
+    return fused_adam(learning_rate=TRAIN["lr"])
 
 
 def _train_cfg(fused=False, dropout=False, recompute="none", scores=False,
@@ -2773,14 +2843,14 @@ def _train_cfg(fused=False, dropout=False, recompute="none", scores=False,
 
 def _train_setup(dev, batch, seed=0, fused=False, dropout=False,
                  recompute="none", scores=False, tp=1, padded=False,
-                 model=MODEL):
+                 model=MODEL, opt="adam"):
     """The model, scaler, optimizer, step, states and seeded batch of one
     training configuration; at ``tp`` > 1 (inside an initialized tp group)
     this rank's ``GPTModel(tp_size=tp)`` over the padded vocabulary
     (``TP_VOCAB``) and the ``GradScaler``; ``padded`` gives tp = 1 the
-    padded vocabulary, the tp windows' reference."""
+    padded vocabulary, the tp windows' reference; ``opt`` "adam" or
+    "lamb" (:func:`_make_opt`)."""
     from apex_tpu_torch.amp import LossScaler
-    from apex_tpu_torch.optimizers import fused_adam
     from apex_tpu_torch.train_step import make_one_step
     from apex_tpu_torch.transformer.amp import GradScaler
     from apex_tpu_torch.transformer.testing import GPTModel
@@ -2790,7 +2860,7 @@ def _train_setup(dev, batch, seed=0, fused=False, dropout=False,
                      model=model)
     model = GPTModel(cfg, device=dev, seed=seed, tp_size=tp)
     scaler = GradScaler() if tp > 1 else LossScaler()
-    opt = fused_adam(learning_rate=TRAIN["lr"])
+    opt = _make_opt(opt)
     rs = np.random.RandomState(0)                 # as bench.py:433-435
     s = TRAIN["seq"]
     ids = torch.from_numpy(rs.randint(0, cfg.vocab_size, (batch, s))).to(dev)
@@ -2805,13 +2875,17 @@ def _train_setup(dev, batch, seed=0, fused=False, dropout=False,
             scaler.init(dev), ids, pos, labels)
 
 
-def _want_launches(fused, dropout, recompute, scores=False, model=MODEL):
+def _want_launches(fused, dropout, recompute, scores=False, model=MODEL,
+                   opt=None):
     """Launches per step of each counted kernel: the forward's attention
     (or, on the scores path, softmax) and layer norms once more for what
     the backward recomputes. Heads past the attention kernels' head dims
     take the softmax too (the scores route, or with dropout the scores
-    path)."""
-    from apex_tpu_torch.ops import attention
+    path). With ``opt`` ("adam" or "lamb") the step's optimizer region:
+    one K12 launch a group of the model's leaves (12 a layer and 4) for
+    the unscale, then a K14 launch a group, or for LAMB K13's two stages
+    and K15's two stages a group."""
+    from apex_tpu_torch.ops import attention, multi_tensor_cuda
 
     layers = model["num_layers"]
     head_dim = model["hidden_size"] // model["num_attention_heads"]
@@ -2831,29 +2905,43 @@ def _want_launches(fused, dropout, recompute, scores=False, model=MODEL):
     want.update(dict.fromkeys(bwd, layers))
     head = int(fused)
     want.update(xent_fwd=head, xent_bwd_dx=head, xent_bwd_de=head)
+    if opt is not None:
+        leaves = 12 * layers + 4
+
+        def groups(depth):
+            return -(-leaves // multi_tensor_cuda.capacity(depth))
+
+        want["multi_tensor_scale"] = groups(2)
+        if opt == "lamb":
+            want.update(multi_tensor_l2norm=2 * groups(1),
+                        multi_tensor_lamb=2 * groups(4))
+        else:
+            want["multi_tensor_adam"] = groups(4)
     return want
 
 
 def phase_training(dev, card, fused, dropout=False, recompute="none",
-                   scores=False):
+                   scores=False, optimizer="adam"):
     """The training main path with the materialized (``fused=False``) or
     the fused LM head, with or without dropout (0.1, drawn from a seeded
     generator; in-kernel or, with ``scores``, on the scores path) and
-    recompute: warm-up, the timed window with the launch counts and the
-    materialized cross entropy's calls read around it alone, the loss
-    check after the window."""
+    recompute, trained by Adam or LAMB (``optimizer``): warm-up, the timed window
+    with the launch counts and the materialized cross entropy's calls read
+    around it alone, the loss check after the window."""
     from apex_tpu_torch.transformer.testing import standalone_transformer_lm
 
     b, s = TRAIN["batch"], TRAIN["seq"]
     t0 = time.perf_counter()
     (model, scaler, opt, step, opt_state, ss, ids, pos,
      labels) = _train_setup(dev, b, fused=fused, dropout=dropout,
-                            recompute=recompute, scores=scores)
+                            recompute=recompute, scores=scores,
+                            opt=optimizer)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     _log(f"GPTModel (fused_lm_head={fused}, dropout="
          f"{DROPOUT_P if dropout else 0.0}, recompute={recompute}, scores "
-         f"path={scores}) built in {time.perf_counter() - t0:.2f} s: "
+         f"path={scores}, {optimizer}) built in "
+         f"{time.perf_counter() - t0:.2f} s: "
          f"{n_params} parameters")
     losses = []
     for _ in range(TRAIN["warmup"]):
@@ -2883,7 +2971,7 @@ def phase_training(dev, card, fused, dropout=False, recompute="none",
     peak = torch.cuda.max_memory_allocated()
     vals = [x.item() for x in losses]             # read after the window
     step_ms = wall / TRAIN["timed"] * 1e3
-    stats = {"card": card, "fused_lm_head": fused,
+    stats = {"card": card, "fused_lm_head": fused, "optimizer": optimizer,
              "dropout": DROPOUT_P if dropout else 0.0,
              "recompute_granularity": recompute, "scores_path": scores,
              "batch": b, "seq": s,
@@ -2899,7 +2987,7 @@ def phase_training(dev, card, fused, dropout=False, recompute="none",
     if not all(np.isfinite(vals)) or not vals[-1] < vals[0]:
         raise AssertionError(f"training loss not finite and falling: {vals}")
     head = int(fused)
-    want = _want_launches(fused, dropout, recompute, scores)
+    want = _want_launches(fused, dropout, recompute, scores, opt=optimizer)
     for k, per_step in want.items():
         if launches[k] != per_step * TRAIN["timed"]:
             raise AssertionError(f"{k}: {launches[k]} launches in "
@@ -2911,6 +2999,452 @@ def phase_training(dev, card, fused, dropout=False, recompute="none",
                              f"steps (fused_lm_head={fused})")
     return ((model, scaler, step, opt_state, ss, ids, pos, labels), launches,
             stats)
+
+
+def _gpt2_leaves(dev):
+    """GPT-2-small's 148 fp32 parameter tensors (124.4 M elements), from
+    the training model's init, keyed by name."""
+    from apex_tpu_torch.transformer.testing import GPTModel
+
+    model = GPTModel(_train_cfg(fused=True), device=dev, seed=0)
+    return {n: p.detach() for n, p in model.named_parameters()}
+
+
+def _ragged_leaves(dev, seed):
+    """The ragged list: 1, 3, 767, 768 and 4099 elements and a view 4 bytes
+    past a 16-byte boundary (element loads)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {f"r{n}": torch.randn(n, generator=gen, device=dev)
+           for n in (1, 3, 767, 768, 4099)}
+    out["misaligned"] = torch.randn(1001, generator=gen, device=dev)[1:]
+    return out
+
+
+def _same_bits(a, b):
+    a, b = a.contiguous(), b.contiguous()
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.view(torch.int32), b.view(torch.int32))
+
+
+def _copy(tree):
+    return {n: t.clone() for n, t in tree.items()}
+
+
+def _opt_state_tensors(state):
+    out = {"count": state.count}
+    out.update({f"m.{n}": t for n, t in state.m.items()})
+    out.update({f"v.{n}": t for n, t in state.v.items()})
+    return out
+
+
+def _worst_rel(got, want):
+    """The largest |got - want| over each tensor's largest magnitude."""
+    worst = 0.0
+    for k, w in want.items():
+        if not w.numel() or not w.is_floating_point():
+            continue
+        if not torch.isfinite(got[k]).all():
+            raise AssertionError(f"{k}: not finite")
+        scale = w.float().abs().max().clamp(min=1e-30)
+        worst = max(worst, ((got[k].float() - w.float()).abs().max()
+                            / scale).item())
+    return worst
+
+
+def phase_multi_tensor_kernels(dev, flush):
+    """K12-K15 on GPT-2-small's 148 fp32 leaves (gradients scaled by
+    2^16, as the loss scaler leaves them) and on the ragged list, each
+    against its plain version: K12 (the unscale: fp32 outputs and the
+    found-inf flag, also with an inf planted) and K14 (one Adam step, and
+    one with the flag set) bit for bit; K13 (norms) and K15 (one LAMB
+    step, two_pass) within MT_NORM_TOL / MT_LAMB_TOL, two runs the same
+    bits. Each timed in turns with its library call (K12
+    ``torch._amp_foreach_non_finite_check_and_unscale_``, in place at
+    scale 1; K13 ``torch._foreach_norm``; K14 ``torch.optim.Adam(
+    fused=True)``'s step on copies; K15 none) and against its plain
+    version; bounds by bytes (K12 8, K13 4, K14 and K15 28 a parameter)."""
+    from apex_tpu_torch.ops import multi_tensor
+    from apex_tpu_torch.ops import multi_tensor_cuda as mt
+    from apex_tpu_torch.optimizers import fused_adam, fused_lamb
+    from apex_tpu_torch.optimizers._base import apply_plain
+
+    source = "apex_tpu_torch/csrc/multi_tensor.cu"
+    params = _gpt2_leaves(dev)
+    n = sum(p.numel() for p in params.values())
+    gen = torch.Generator(device=dev).manual_seed(5)
+    scaled = {k: torch.randn(p.shape, generator=gen, device=dev)
+              * (2.0 ** 16 * 1e-3) for k, p in params.items()}
+    ragged = _ragged_leaves(dev, 6)
+    inv = 1.0 / torch.tensor(2.0 ** 16, device=dev)
+    no = torch.tensor(False, device=dev)
+    yes = torch.tensor(True, device=dev)
+    rows = []
+
+    # K12: the loss scaler's unscale, flag on the inputs
+    def unscale(leaves, plain=False):
+        fn = multi_tensor.scale_reference if plain else mt.scale
+        return fn(leaves, [torch.float32] * len(leaves), inv, True,
+                  torch.bool)
+
+    checks = {}
+    for what, leaves in (("gpt2", list(scaled.values())),
+                         ("ragged", list(ragged.values()))):
+        for poison in (False, True):
+            if poison:
+                leaves = [t.clone() for t in leaves]
+                leaves[-2].view(-1)[3] = float("inf")
+            (got, flag), (ref, rflag) = unscale(leaves), unscale(leaves, True)
+            same = all(_same_bits(a, b) for a, b in zip(got, ref))
+            checks[f"{what}{' inf' if poison else ''}"] = same
+            if not same or flag.item() != rflag.item() \
+                    or rflag.item() != poison:
+                raise AssertionError(f"K12 on {what} (inf planted: {poison})"
+                                     f": bits {same}, flag {flag.item()} vs "
+                                     f"{rflag.item()}")
+    grads = dict(zip(scaled, unscale(list(scaled.values()))[0]))
+    gl = list(scaled.values())
+    lib_in = [g.clone() for g in gl]
+    found = torch.zeros(1, device=dev)
+    one = torch.ones(1, device=dev)
+    spread = []
+    t = _turns(lambda: unscale(gl), lambda: torch.
+               _amp_foreach_non_finite_check_and_unscale_(lib_in, found,
+                                                          one),
+               flush, source, spread=spread, spin=MT_SPIN)
+    plain_ms = _time_ms(lambda: unscale(gl, True), flush)
+    bound = _bound(8 * n, 0)
+    rows.append(dict(name="multi_tensor_scale", route="cuda", source=source,
+                     replaces="apex_tpu/amp/scaler.py:68",
+                     counterparts=["apex_tpu/amp/scaler.py:68 "
+                                   "LossScaler.unscale",
+                                   "apex_tpu/multi_tensor_apply/"
+                                   "multi_tensor_apply.py:70 "
+                                   "multi_tensor_scale", ":85 axpby"],
+                     max_abs_err=0.0, bitwise=checks, leaves=len(gl),
+                     elements=n, ms_spread=spread, plain_ms=plain_ms,
+                     bound_ms=bound[0], bound_by=bound[1], bytes=8 * n,
+                     **t))
+    _log("K12: " + json.dumps(rows[-1]))
+
+    # K13: per-tensor and global norms of the unscaled gradients
+    gu = list(grads.values())
+    norms, again = mt.l2norm(gu), mt.l2norm(gu)
+    rl = list(ragged.values())
+    err = max(_worst_rel(dict(enumerate(norms)), dict(enumerate(
+        multi_tensor.l2norm_reference(gu)))),
+        _worst_rel(dict(enumerate(mt.l2norm(rl))),
+                   dict(enumerate(multi_tensor.l2norm_reference(rl)))))
+    repeat = all(_same_bits(a, b) for a, b in zip(norms, again))
+    if err > MT_NORM_TOL or not repeat:
+        raise AssertionError(f"K13: error {err} (band {MT_NORM_TOL}), "
+                             f"repeatable {repeat}")
+    spread = []
+    t = _turns(lambda: mt.l2norm(gu), lambda: torch._foreach_norm(gu),
+               flush, source, spread=spread)
+    plain_ms = _time_ms(lambda: multi_tensor.l2norm_reference(gu), flush)
+    bound = _bound(4 * n, 0)
+    rows.append(dict(name="multi_tensor_l2norm", route="cuda", source=source,
+                     replaces="apex_tpu/multi_tensor_apply/"
+                              "multi_tensor_apply.py:111",
+                     counterparts=["apex_tpu/multi_tensor_apply/"
+                                   "multi_tensor_apply.py:99 "
+                                   "multi_tensor_l2norm", ":111 per_tensor",
+                                   "apex_tpu/optimizers/fused_lamb.py:116 "
+                                   "LAMB phase 1"],
+                     max_abs_err=err, band=MT_NORM_TOL,
+                     bitwise_repeatable=repeat, ms_spread=spread,
+                     plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                     bytes=4 * n, **t))
+    _log("K13: " + json.dumps(rows[-1]))
+
+    # K14: one Adam step against the plain update and selects, bit for bit
+    tx = fused_adam(1e-4, weight_decay=0.01)
+    adam_checks = {}
+    for what, p0, g in (("gpt2", params, grads),
+                        ("ragged", ragged, _ragged_leaves(dev, 7))):
+        pk, pp = _copy(p0), _copy(p0)
+        sk, sp = tx.init(pk), tx.init(pp)
+        for step in range(2):
+            tx.step(g, sk, pk, no)
+            apply_plain(tx.update, g, sp, pp, no)
+        tx.step(g, sk, pk, yes)
+        same = (all(_same_bits(pk[k], pp[k]) for k in pk) and all(
+            _same_bits(a, b) for a, b in zip(
+                _opt_state_tensors(sk).values(),
+                _opt_state_tensors(sp).values())))
+        adam_checks[what] = same
+        if not same:
+            raise AssertionError(f"K14 on {what}: not the plain version's "
+                                 f"bits")
+    pk = _copy(params)
+    sk = tx.init(pk)
+    names = list(pk)
+    count_new = sk.count + 1
+    bc1 = 1.0 - torch.pow(0.9, count_new.float())
+    bc2 = 1.0 - torch.pow(0.999, count_new.float())
+    lists = ([grads[k] for k in names], [pk[k] for k in names],
+             [sk.m[k] for k in names], [sk.v[k] for k in names])
+
+    def k14():
+        mt.adam(*lists, sk.count, count_new, bc1, bc2, 1e-4, beta1=0.9,
+                beta2=0.999, eps=1e-8, weight_decay=0.01, adam_w_mode=True,
+                bias_correction=True, skip=no)
+
+    lib_p = [torch.nn.Parameter(p.clone()) for p in lists[1]]
+    for p, g in zip(lib_p, lists[0]):
+        p.grad = g
+    lib_opt = torch.optim.Adam(lib_p, lr=1e-4, weight_decay=0.01,
+                               fused=True)
+    pp = _copy(params)
+    sp = tx.init(pp)
+    spread = []
+    t = _turns(k14, lib_opt.step, flush, source, spread=spread)
+    plain_ms = _time_ms(lambda: apply_plain(tx.update, grads, sp, pp, no),
+                        flush)
+    bound = _bound(28 * n, 0)
+    rows.append(dict(name="multi_tensor_adam", route="cuda", source=source,
+                     replaces="apex_tpu/optimizers/fused_adam.py:41",
+                     counterparts=["apex_tpu/optimizers/fused_adam.py:41 "
+                                   "_adam_flat", "bench.py:240-245 selects"],
+                     max_abs_err=0.0, bitwise=adam_checks,
+                     ms_spread=spread, plain_ms=plain_ms, bound_ms=bound[0],
+                     bound_by=bound[1], bytes=28 * n, **t))
+    _log("K14: " + json.dumps(rows[-1]))
+    del lib_p, lib_opt, pk, sk, pp, sp, lists
+    torch.cuda.empty_cache()
+
+    # K15: one LAMB step (two_pass) within the band, two runs the same bits
+    lamb = fused_lamb(1e-3, impl="two_pass")
+    errs, repeat = {}, True
+    for what, p0, g in (("gpt2", params, grads),
+                        ("ragged", ragged, _ragged_leaves(dev, 8))):
+        pk, pk2, pp = _copy(p0), _copy(p0), _copy(p0)
+        sk, sk2, sp = lamb.init(pk), lamb.init(pk2), lamb.init(pp)
+        lamb.step(g, sk, pk, no)
+        lamb.step(g, sk2, pk2, no)
+        apply_plain(lamb.update, g, sp, pp, no)
+        got, want = _opt_state_tensors(sk), _opt_state_tensors(sp)
+        got.update(pk)
+        want.update(pp)
+        errs[what] = _worst_rel(got, want)
+        repeat &= all(_same_bits(pk[k], pk2[k]) for k in pk)
+        kept = _copy(pk)
+        lamb.step(g, sk, pk, yes)
+        repeat &= all(_same_bits(pk[k], kept[k]) for k in pk)
+    if max(errs.values()) > MT_LAMB_TOL or not repeat:
+        raise AssertionError(f"K15: errors {errs} (band {MT_LAMB_TOL}), "
+                             f"repeatable and skipping {repeat}")
+    pk = _copy(params)
+    sk = lamb.init(pk)
+    count_new = sk.count + 1
+    bc1 = 1.0 - torch.pow(0.9, count_new.float())
+    bc2 = 1.0 - torch.pow(0.999, count_new.float())
+    gsq = mt.l2norm(gu).total_sq
+    lists = ([grads[k] for k in names], [pk[k] for k in names],
+             [sk.m[k] for k in names], [sk.v[k] for k in names])
+
+    def k15():
+        mt.lamb(*lists, sk.count, count_new, bc1, bc2, 1e-3, beta1=0.9,
+                beta2=0.999, beta3=0.1, eps=1e-6, weight_decay=0.01,
+                adam_w_mode=True, bias_correction=True, max_grad_norm=1.0,
+                trust=True, global_sq=gsq, skip=no)
+
+    spread = []
+    turns = [_time_ms(k15, flush, spread=spread), _time_ms(k15, flush)]
+    pp = _copy(params)
+    sp = lamb.init(pp)
+    plain_ms = _time_ms(lambda: apply_plain(lamb.update, grads, sp, pp, no),
+                        flush)
+    bound = _bound(28 * n, 0)
+    rows.append(dict(name="multi_tensor_lamb", route="cuda", source=source,
+                     replaces="apex_tpu/optimizers/fused_lamb.py:111",
+                     counterparts=["apex_tpu/optimizers/fused_lamb.py:111 "
+                                   "update_two_pass", ":145 update_one_pass"],
+                     max_abs_err=max(errs.values()), errors=errs,
+                     band=MT_LAMB_TOL, bitwise_repeatable=repeat,
+                     ms=statistics.mean(turns), ms_turns=turns,
+                     ms_spread=spread, library_ms=None, plain_ms=plain_ms,
+                     bound_ms=bound[0], bound_by=bound[1], bytes=28 * n))
+    _log("K15: " + json.dumps(rows[-1]))
+    return rows
+
+
+def phase_optimizer_paths_agree(dev):
+    """The optimizer's kernel path against its plain path in the training
+    window (GPT-2-small, the fused head, b=8, s=1024). Adam: each of 7
+    steps' real gradients goes through the kernel step (K12, K14, on the
+    model's parameters) and the plain step (the plain unscale, update and
+    selects, on copies): parameters, moments and count equal bit for bit
+    after every step. LAMB: two 7-step trajectories from the same weights
+    and batch, kernel and plain optimizer: losses within TRAIN_LOSS_BAND
+    (K13/K15 sum in another order than the plain structure)."""
+    from apex_tpu_torch.optimizers._base import apply_plain
+
+    (model, scaler, opt, _, state, ss, ids, pos, labels) = _train_setup(
+        dev, TRAIN["batch"], fused=True)
+    plain_scaler = _plain_scaler()
+    params = dict(model.named_parameters())
+    plain = {n: p.detach().clone() for n, p in params.items()}
+    pstate = opt.init(plain)
+    steps = TRAIN["warmup"] + TRAIN["timed"]
+    for i in range(steps):
+        for p in params.values():
+            p.grad = None
+        loss = torch.mean(model(ids, pos, None, labels)) * ss.loss_scale
+        loss.backward()
+        with torch.no_grad():
+            raw = {n: p.grad for n, p in params.items()}
+            names = list(raw)
+            grads, found = scaler.unscale(raw, ss)
+            pgrads, pfound = plain_scaler.unscale(raw, ss)
+            if found.item() != pfound.item() or not all(
+                    _same_bits(grads[n], pgrads[n]) for n in names):
+                raise AssertionError(f"step {i + 1}: K12 is not the plain "
+                                     f"unscale")
+            opt.step(grads, state, params, found)
+            apply_plain(opt.update, pgrads, pstate, plain, pfound)
+            ss = scaler.update(ss, found)
+        same = all(_same_bits(params[n].detach(), plain[n]) for n in names)
+        same &= all(_same_bits(a, b) for a, b in zip(
+            _opt_state_tensors(state).values(),
+            _opt_state_tensors(pstate).values()))
+        if not same:
+            raise AssertionError(f"Adam step {i + 1}: kernel and plain "
+                                 f"optimizer disagree")
+    _log(f"optimizer kernel vs plain, Adam: parameters, moments and count "
+         f"equal bit for bit after each of {steps} steps")
+    del model, opt, state, plain, pstate, params
+    torch.cuda.empty_cache()
+
+    losses = {}
+    for path in ("kernel", "plain"):
+        (model, _, opt, step, state, ss, ids, pos, labels) = _train_setup(
+            dev, TRAIN["batch"], fused=True, opt="lamb")
+        if path == "plain":
+            step = _plain_opt_step(model, opt)
+        vals = []
+        for _ in range(steps):
+            state, ss, loss = step(state, ss, ids, pos, labels)
+            vals.append(loss)
+        losses[path] = [x.item() for x in vals]
+        del model, opt, step, state
+        torch.cuda.empty_cache()
+    worst = max(abs(a - b) for a, b in zip(*losses.values()))
+    _log(f"optimizer kernel vs plain, LAMB: losses {json.dumps(losses)}, "
+         f"largest difference {worst:.3e} (band {TRAIN_LOSS_BAND})")
+    if worst > TRAIN_LOSS_BAND or not all(np.isfinite(losses["kernel"])):
+        raise AssertionError("LAMB: kernel and plain optimizer disagree")
+    return {"adam_bitwise_steps": steps, "lamb_losses": losses,
+            "lamb_worst_loss_diff": worst}
+
+
+def _plain_opt_step(model, opt):
+    """``make_one_step`` over the plain unscale and the optimizer without
+    its fused form (so the step takes the update and the selects)."""
+    from apex_tpu_torch.optimizers._base import GradientTransformation
+    from apex_tpu_torch.train_step import make_one_step
+
+    return make_one_step(model, _plain_scaler(),
+                         GradientTransformation(opt.init, opt.update))
+
+
+def _plain_scaler():
+    """A ``LossScaler`` whose unscale is the plain version (K12's) on the
+    card too."""
+    from apex_tpu_torch.amp import LossScaler
+    from apex_tpu_torch.ops import multi_tensor
+
+    class PlainScaler(LossScaler):
+        def unscale(self, grads, state):
+            names = list(grads)
+            outs, found = multi_tensor.scale_reference(
+                [grads[n] for n in names], [torch.float32] * len(names),
+                1.0 / state.loss_scale, True, torch.bool)
+            return dict(zip(names, outs)), found
+
+    return PlainScaler()
+
+
+def _region_costs(fn, reps=5):
+    """One optimizer region's costs: the host ms of a call (from a synced
+    start, the call's return not waited on), and the device ms and the
+    launches of a call from a torch.profiler trace of ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    host = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy, launches = 0.0, 0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            busy += evt.self_device_time_total
+            launches += evt.count
+    return {"host_ms": statistics.median(host), "host_ms_all": host,
+            "device_ms": busy / reps / 1e3, "launches": launches / reps}
+
+
+def phase_optimizer_region(dev):
+    """The training step's optimizer region alone (the unscale, the scaler
+    update, the optimizer and the skip selects) on the window's real
+    gradients (one backward of GPT-2-small with the fused head at b=8,
+    s=1024, scaled by 2^16), for Adam and for LAMB: the kernel path
+    (K12, then K14, or K13 + K15) against the plain path (the plain
+    unscale, the functional update and the per-leaf selects) in turns,
+    kernel, plain, kernel, plain: host ms a region, device ms and
+    launches (torch.profiler)."""
+    from apex_tpu_torch.optimizers._base import apply_plain
+
+    (model, scaler, _, _, _, ss, ids, pos, labels) = _train_setup(
+        dev, TRAIN["batch"], fused=True)
+    params = dict(model.named_parameters())
+    loss = torch.mean(model(ids, pos, None, labels)) * ss.loss_scale
+    loss.backward()
+    raw = {n: p.grad for n, p in params.items()}
+    for p in params.values():
+        p.grad = None
+    plain_scaler = _plain_scaler()
+    out = {}
+    for name in ("adam", "lamb"):
+        opt = _make_opt(name)
+        sets = {path: {n: p.detach().clone() for n, p in params.items()}
+                for path in ("kernel", "plain")}
+        states = {path: opt.init(ps) for path, ps in sets.items()}
+
+        def kernel():
+            grads, found = scaler.unscale(raw, ss)
+            scaler.update(ss, found)
+            opt.step(grads, states["kernel"], sets["kernel"], found)
+
+        def plain():
+            grads, found = plain_scaler.unscale(raw, ss)
+            plain_scaler.update(ss, found)
+            apply_plain(opt.update, grads, states["plain"], sets["plain"],
+                        found)
+
+        with torch.no_grad():
+            runs = {"kernel": [], "plain": []}
+            for path in ("kernel", "plain", "kernel", "plain"):
+                runs[path].append(_region_costs(kernel if path == "kernel"
+                                                else plain))
+        out[name] = {path: {k: statistics.mean(r[k] for r in rs)
+                            for k in ("host_ms", "device_ms", "launches")}
+                     | {"turns": rs} for path, rs in runs.items()}
+        _log(f"optimizer region, {name} (kernel vs plain, in turns): "
+             + json.dumps({p: {k: v for k, v in r.items() if k != "turns"}
+                           for p, r in out[name].items()}))
+        del sets, states
+        torch.cuda.empty_cache()
+    del model, params, raw
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_training_overflow(state):
@@ -3168,7 +3702,8 @@ def _wide_window(dev, model, dropout):
     del net, opt, step, opt_state, ss
     torch.cuda.empty_cache()
     want = {k: n * w["timed"] for k, n in
-            _want_launches(False, dropout, "none", model=model).items()}
+            _want_launches(False, dropout, "none", model=model,
+                           opt="adam").items()}
     if launches != want:
         raise AssertionError(f"{model['hidden_size']} wide, dropout "
                              f"{dropout}: launched {launches}, want {want}")
@@ -3494,7 +4029,7 @@ def _tp_window(dev, rank, card):
             opt_state, ss, _ = step(opt_state, ss, ids, pos, labels)
 
     kinds = ("attention_fwd", "attention_bwd", "layer_norm", "lm_head",
-             "matmul", "other")
+             "matmul", "optimizer", "other")
     profile = _profile(two_steps, kinds) if rank == 0 else two_steps()
     comm = _tp_collectives(dev, two_steps)
     return {"card": card, "build_s": build_s,
@@ -3613,7 +4148,7 @@ def phase_training_tp2(dev, card):
     if dloss > TRAIN_LOSS_BAND or worst > TRAIN_GRAD_BAND:
         raise AssertionError(f"tp={TP_SIZE} disagrees with tp=1")
 
-    want = _want_launches(True, False, "none")
+    want = _want_launches(True, False, "none", opt="adam")
     want.update(xent_fwd=0, xent_fwd_partials=1)
     b, s = TRAIN["batch"], TRAIN["seq"]
     # the cards the ranks' work is spread over: MFU is per card
@@ -3656,6 +4191,11 @@ def phase_training_tp2(dev, card):
     return ranks[0]["window"]["launches"], stats
 
 
+# the multi-tensor kernels (K12-K15) by their names in a device trace
+MT_KERNEL = re.compile(r"\b(scale|axpby|norm_partials|norm_reduce|adam|"
+                       r"lamb_stage[12])_kernel\b")
+
+
 def _kind(name):
     low = name.lower()
     if "xent_" in name:
@@ -3670,6 +4210,8 @@ def _kind(name):
         return "layer_norm"
     if "softmax_fwd_kernel" in name or "softmax_bwd_kernel" in name:
         return "softmax"
+    if MT_KERNEL.search(name):
+        return "optimizer"
     if any(w in low for w in ("gemm", "gemv", "cutlass", "xmma", "nvjet",
                               "sm90_")):
         return "matmul"
@@ -3726,7 +4268,7 @@ def phase_training_profile(state):
 
     return _profile(two_steps, ("attention_fwd", "attention_bwd",
                                 "softmax", "layer_norm", "lm_head", "matmul",
-                                "other"))
+                                "optimizer", "other"))
 
 
 def _kernel_label(fn):
@@ -3914,6 +4456,8 @@ def main():
     rows += phase_long_softmax_kernels(dev, flush)
     rows.append(phase_xent_shard_kernels(dev, flush))
     torch.cuda.empty_cache()
+    rows += phase_multi_tensor_kernels(dev, flush)
+    torch.cuda.empty_cache()
     # the attention kernels at head dims 80 and 256: numbers beside each
     # kernel's row
     wider = phase_attention_head_dims(dev, flush)
@@ -3986,6 +4530,17 @@ def main():
     if not side["peak_mem_gb"]["fused"] < side["peak_mem_gb"]["materialized"]:
         raise AssertionError(f"the fused head's step does not use less "
                              f"memory: {side['peak_mem_gb']}")
+    # the fused head trained by pretrain.py's LAMB (K12, K13, K15)
+    state, counts, lamb_window = phase_training(dev, smi, True,
+                                                optimizer="lamb")
+    launches_by["training_lamb"] = counts
+    phase_training_overflow(state)
+    lamb_window["profile"] = phase_training_profile(state)
+    del state
+    torch.cuda.empty_cache()
+    side = {k: {"adam": windows[True][k], "lamb": lamb_window[k]}
+            for k in ("step_ms", "tokens_per_s", "mfu", "peak_mem_gb")}
+    _log("training, fused head, Adam vs LAMB: " + json.dumps(side))
 
     # GPT-2's published dropout (0.1) with the materialized head, then the
     # same with full recompute: each window on its own
@@ -4031,6 +4586,10 @@ def main():
     phase_training_paths_agree(dev, fused=False, dropout=True)
     phase_training_paths_agree(dev, fused=False, dropout=True, scores=True)
     phase_fused_vs_materialized(dev)
+    phase_optimizer_paths_agree(dev)
+    torch.cuda.empty_cache()
+    phase_optimizer_region(dev)
+    torch.cuda.empty_cache()
     recompute_agree = phase_recompute_agree(dev)
     _log("dropout checks: " + json.dumps({"mask": mask_check,
                                           "recompute": recompute_agree}))
@@ -4079,7 +4638,9 @@ def main():
                 "softmax_bwd": "training_scores",
                 "softmax_fwd_long": "generic_softmax_long",
                 "softmax_bwd_long": "generic_softmax_long",
-                "xent_fwd_partials": "training_tp2"}.get(
+                "xent_fwd_partials": "training_tp2",
+                "multi_tensor_l2norm": "training_lamb",
+                "multi_tensor_lamb": "training_lamb"}.get(
             name, "training_dropout" if name.endswith("_dropout")
             else "training_fused")
         row["launches"] = by_path.get(main, by_path.get("serving", 0))

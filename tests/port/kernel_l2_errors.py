@@ -17,7 +17,12 @@ the numbers ``L2_TOL``, ``DROPOUT_L2_TOL``, ``K1_L2_TOL``, ``XENT_L2_TOL``,
 ``SOFTMAX_L2_TOL`` and ``K2Q_L2_TOL`` in ``test_torch_kernels_cuda.py``
 are set from (for K7
 the largest |loss diff| over max(1, |loss|); for K10 also the largest |y
-diff|, which ``SOFTMAX_TOL`` bounds). Needs a CUDA card:
+diff|, which ``SOFTMAX_TOL`` bounds). Last, the multi-tensor kernels' card
+cases: K13's norms (``MT_NORM_TOL``) over the ragged list repeated past
+one launch's table, per dtype, and K15's parameters and moments after
+three steps (``MT_LAMB_TOL``) against each plain LAMB structure and
+option, each as the largest error over a tensor's largest magnitude.
+Needs a CUDA card:
 
     python3 tests/port/kernel_l2_errors.py
 """
@@ -38,6 +43,7 @@ from apex_tpu_torch.ops import layer_norm_cuda, xent, xent_cuda  # noqa: E402
 from apex_tpu_torch.ops import decode_attention  # noqa: E402
 from apex_tpu_torch.ops import decode_attention_cuda  # noqa: E402
 from apex_tpu_torch.ops import softmax, softmax_cuda  # noqa: E402
+from apex_tpu_torch.ops import multi_tensor, multi_tensor_cuda  # noqa: E402
 
 
 def _l2(out, ref):
@@ -263,6 +269,22 @@ def main():
                 note("K10L", dtype, fwd)
                 note("K10L max |y diff|", dtype, ymax)
                 note("K11L", dtype, bwd)
+    for dtype, tdt in sorted(cases.MT_DTYPES.items()):
+        xs = cases._mt_list(dev, tdt, 4, cases.MT_SIZES * 30)
+        for max_mode in (False, True):
+            err = cases._norm_errors(
+                multi_tensor_cuda.l2norm(xs, max_mode),
+                multi_tensor.l2norm_reference(xs, max_mode))
+            name = "K13 max" if max_mode else "K13"
+            print(f"multi-tensor norms {dtype}: {name} {err:.3e}")
+            note(name, dtype, err)
+    for impl in ("two_pass", "one_pass"):
+        for kw in cases.LAMB_CASES:
+            _, params, plain, _, states = cases._lamb_run(
+                dev, kw, impl, torch.float32, cases.MT_SIZES)
+            err = cases._lamb_errors(params, plain, states[0], states[1])
+            print(f"lamb {impl} {kw}: K15 {err:.3e}")
+            note("K15", "float32", err)
     for (kernel, dtype), value in sorted(worst.items()):
         print(f"worst {kernel} {dtype}: {value:.3e}")
 

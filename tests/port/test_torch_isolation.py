@@ -75,6 +75,9 @@ def test_importing_the_port_loads_no_jax_and_no_apex_tpu():
                 "apex_tpu_torch.transformer.amp",
                 "apex_tpu_torch.transformer.amp.grad_scaler",
                 "apex_tpu_torch.transformer.testing.arguments",
+                "apex_tpu_torch.multi_tensor_apply.multi_tensor_apply",
+                "apex_tpu_torch.ops.multi_tensor_cuda",
+                "apex_tpu_torch.optimizers.fused_mixed_precision_lamb",
                 "tests.port.tp_workers"):
         assert mod in mods, mod
 
@@ -206,3 +209,39 @@ def test_chip_smoke_refuses_to_run_without_cuda(monkeypatch):
     with pytest.raises(SystemExit) as exc:
         mod.main()
     assert exc.value.code not in (0, None)
+
+
+def test_optimizer_entry_points_default_to_cuda(monkeypatch):
+    """The optimizers' states load on ``cuda`` unless ``device="cpu"`` is
+    asked for, and the multi-tensor ops given no tensor take ``cuda``
+    too; a transform's state and its fused step live on its parameters'
+    device."""
+    import numpy as np
+
+    from apex_tpu_torch import optimizers
+    from apex_tpu_torch.multi_tensor_apply import multi_tensor_l2norm
+    from apex_tpu_torch.optimizers.fused_mixed_precision_lamb import (
+        MixedPrecisionLambState)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    m = {"w": np.ones((2, 3), np.float32)}
+    loads = [(optimizers.FusedAdamState, (1, m, m)),
+             (optimizers.FusedLAMBState, (1, m, m)),
+             (optimizers.FusedSGDState, (1, m)),
+             (optimizers.FusedNovoGradState, (1, m, np.ones(1, np.float32))),
+             (optimizers.FusedAdagradState, (1, m)),
+             (MixedPrecisionLambState, (np.ones(6, np.float32), (1, m, m)))]
+    for cls, args in loads:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cls.from_numpy(*args)
+        assert cls.from_numpy(*args, device="cpu") is not None
+    with pytest.raises(RuntimeError, match="CUDA"):
+        multi_tensor_l2norm([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        optimizers.grad_norm_stats([])
+    params = {"w": torch.ones(2, 3)}
+    tx = optimizers.fused_lamb(1e-2)
+    state = tx.init(params)
+    assert state.count.device.type == "cpu"
+    tx.step({"w": torch.ones(2, 3)}, state, params)
+    assert state.count.item() == 1

@@ -93,6 +93,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from apex_tpu_torch.ops import attention, attention_bwd_cuda, attention_cuda
 from apex_tpu_torch.ops import decode_attention, decode_attention_cuda
+from apex_tpu_torch.ops import _build, multi_tensor, multi_tensor_cuda
 from apex_tpu_torch.ops import layer_norm, layer_norm_cuda
 from apex_tpu_torch.ops import softmax, softmax_cuda
 from apex_tpu_torch.ops import xent, xent_cuda
@@ -1729,3 +1730,333 @@ def test_engine_captures_its_decode_program_on_the_card(dev):
               and "decode_attention_split" in e.key)
     assert eng.decode_steps and ran == eng.decode_steps
     assert ServingEngine(cfg, cuda_graph=False, **kw)._graph is None
+
+
+# ------------------------------------------------------------ K12 - K15
+# ragged leaves: a scalar tail (1, 3, 767), whole vectors (768), a ragged
+# 4099, an empty and an all-zero leaf, two blocks (CHUNK + 5), a 2-D leaf
+MT_SIZES = [1, 3, 767, 768, 4099, 0, 300, multi_tensor_cuda.CHUNK + 5,
+            (33, 17)]
+MT_ZERO = 6
+MT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+             "float16": torch.float16}
+# K13's norms (fp32 sums in another order than the plain version's
+# torch.sum) and K15's parameters and moments after three steps (its
+# per-tensor norms and global clip in that order, carried into each
+# element by the trust ratio) against the plain versions, relative to each
+# tensor's largest magnitude; on an H100 (tests/port/kernel_l2_errors.py)
+# these cases measured at most 2.4e-7 (K13, bf16/fp16; fp32 1.2e-7; the
+# max mode exactly) and 5.4e-7 (K15, against one_pass; two_pass 1.2e-7)
+MT_NORM_TOL = 2e-6
+MT_LAMB_TOL = 5e-6
+
+
+def _mt_list(dev, dtype, seed, sizes=MT_SIZES, scale=1.0):
+    """Seeded leaves of ``sizes`` in ``dtype``, the MT_ZERO-th all zero,
+    and last a view 4 (fp32) or 2 bytes past its allocation's start."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = [(torch.randn(n, generator=gen, device=dev) * scale).to(dtype)
+           for n in sizes]
+    out[MT_ZERO].zero_()
+    out.append((torch.randn(1001, generator=gen, device=dev)
+                * scale).to(dtype)[1:])
+    assert out[-1].data_ptr() % 16 != 0
+    return out
+
+
+def _bits(t):
+    t = t.contiguous()
+    return t.view(torch.int32) if t.element_size() == 4 \
+        else t.view(torch.int16)
+
+
+def _same_bits(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape \
+        and torch.equal(_bits(a), _bits(b))
+
+
+def test_foreach_div_by_a_device_scalar_divides(dev):
+    """The plain Adam divides by its bias corrections, 0-d device tensors,
+    with ``torch._foreach_div``; K14 divides with ``__fdiv_rn``. They agree
+    only because PyTorch divides there too, and does not multiply by a
+    reciprocal as it does for a host scalar."""
+    x = torch.randn(1 << 20, device=dev)
+    d = torch.tensor(0.7654321, device=dev)
+    got = torch._foreach_div([x], d)[0]
+    assert torch.equal(got, x / d)
+    assert not torch.equal(got, x * (1.0 / d))
+
+
+def test_multi_tensor_constants_match_the_source(dev):
+    lib = _build.load("multi_tensor", multi_tensor_cuda._SIGNATURES)
+    assert lib.multi_tensor_chunk() == multi_tensor_cuda.CHUNK
+    for depth in (1, 2, 3, 4):
+        assert lib.multi_tensor_capacity(depth) \
+            == multi_tensor_cuda.capacity(depth)
+
+
+@pytest.mark.parametrize("src,dst", [("float32", "float32"),
+                                     ("bfloat16", "float32"),
+                                     ("float32", "bfloat16"),
+                                     ("float16", "float16")])
+@pytest.mark.parametrize("check_input", [True, False])
+@pytest.mark.parametrize("poison", [None, float("inf"), float("nan"), 3e38])
+def test_scale_kernel_matches_plain_bit_for_bit(dev, src, dst, check_input,
+                                               poison):
+    srcs = _mt_list(dev, MT_DTYPES[src], 1, scale=1e4)
+    if poison is not None and not (poison == 3e38 and src == "float16"):
+        srcs[3][5] = poison
+    inv = 1.0 / torch.tensor(2.0 ** -16, device=dev)   # a 0-d device scale
+    dts = [MT_DTYPES[dst]] * len(srcs)
+    before = multi_tensor_cuda.scale.launches
+    outs, flag = multi_tensor_cuda.scale(srcs, dts, inv, check_input,
+                                         torch.bool)
+    assert multi_tensor_cuda.scale.launches == before + 1
+    ref, rflag = multi_tensor.scale_reference(srcs, dts, inv, check_input,
+                                              torch.bool)
+    assert flag.item() == rflag.item()
+    for i, (o, r) in enumerate(zip(outs, ref)):
+        assert _same_bits(o, r), i
+    outs, flag = multi_tensor_cuda.scale(srcs, dts, 0.5)   # a number
+    ref, rflag = multi_tensor.scale_reference(srcs, dts, 0.5)
+    assert flag.dtype == torch.int32 and flag.item() == rflag.item()
+    assert all(_same_bits(o, r) for o, r in zip(outs, ref))
+
+
+@pytest.mark.parametrize("dtype", sorted(MT_DTYPES))
+def test_axpby_kernel_matches_plain_bit_for_bit(dev, dtype):
+    xs = _mt_list(dev, MT_DTYPES[dtype], 2)
+    ys = _mt_list(dev, MT_DTYPES[dtype], 3)
+    ys[1][0] = float("inf")
+    dts = [torch.float32] * len(xs)
+    outs, flag = multi_tensor_cuda.axpby(xs, ys, dts, 0.37, -1.5)
+    ref, rflag = multi_tensor.axpby_reference(xs, ys, dts, 0.37, -1.5)
+    assert flag.item() == rflag.item() == 1
+    assert all(_same_bits(o, r) for o, r in zip(outs, ref))
+
+
+def _norm_errors(norms, ref):
+    """The largest relative error of K13's per-tensor and total norms (and
+    squares) against the plain version's."""
+    err = 0.0
+    for got, want in zip(norms, ref):
+        scale = want.abs().max().clamp(min=1e-30)
+        err = max(err, ((got - want).abs().max() / scale).item())
+    return err
+
+
+@pytest.mark.parametrize("dtype", sorted(MT_DTYPES))
+@pytest.mark.parametrize("max_mode", [False, True])
+@pytest.mark.parametrize("many", [False, True])
+def test_l2norm_kernel_matches_plain_and_repeats(dev, dtype, max_mode,
+                                                 many):
+    """Within MT_NORM_TOL (max mode exactly: a max has no order), two runs
+    the same bits; ``many``: more tensors than one launch's table."""
+    sizes = MT_SIZES * (30 if many else 1)
+    xs = _mt_list(dev, MT_DTYPES[dtype], 4, sizes)
+    norms = multi_tensor_cuda.l2norm(xs, max_mode)
+    again = multi_tensor_cuda.l2norm(xs, max_mode)
+    ref = multi_tensor.l2norm_reference(xs, max_mode)
+    if max_mode:
+        assert all(torch.equal(a, b) for a, b in zip(norms, ref))
+    else:
+        assert _norm_errors(norms, ref) <= MT_NORM_TOL
+    assert all(_same_bits(a, b) for a, b in zip(norms, again))
+    assert norms.per_tensor[MT_ZERO].item() == 0.0
+
+
+def _opt_lists(dev, p_dtype, g_dtype, seed, sizes=MT_SIZES):
+    params = {f"p{i}": t for i, t in enumerate(
+        _mt_list(dev, p_dtype, seed, sizes))}
+    grads = {n: t.to(g_dtype) for n, t in zip(params, _mt_list(
+        dev, torch.float32, seed + 1, sizes, scale=1e-2))}
+    return params, grads
+
+
+ADAM_CASES = [("float32", "float32", dict(weight_decay=0.01)),
+              ("float32", "float32", dict(weight_decay=0.01,
+                                          adam_w_mode=False)),
+              ("float32", "float32", dict(bias_correction=False,
+                                          betas=(0.8, 0.99))),
+              ("float32", "float32", dict(learning_rate="schedule")),
+              ("bfloat16", "bfloat16", dict(weight_decay=0.01)),
+              ("bfloat16", "float32", dict()),
+              ("float16", "float16", dict())]
+
+
+def _schedule(c):
+    return 1e-3 * torch.clamp(c / 3.0, max=1.0)
+
+
+def _copy(tree):
+    return {n: t.clone() for n, t in tree.items()}
+
+
+def _state_tensors(state):
+    out = {"count": state.count}
+    out.update({f"m.{n}": t for n, t in state.m.items()})
+    out.update({f"v.{n}": t for n, t in state.v.items()})
+    return out
+
+
+@pytest.mark.parametrize("p_dtype,g_dtype,kw", ADAM_CASES)
+@pytest.mark.parametrize("many", [False, True])
+def test_adam_kernel_matches_plain_bit_for_bit(dev, p_dtype, g_dtype, kw,
+                                               many):
+    """Three steps of K14 (the fused form) against the plain update and
+    selects on copies: p, m, v and count equal bit for bit; a step with
+    the flag set leaves them all bitwise unchanged."""
+    from apex_tpu_torch.optimizers import fused_adam
+    from apex_tpu_torch.optimizers._base import apply_plain
+
+    kw = dict(kw)
+    if kw.get("learning_rate") == "schedule":
+        kw["learning_rate"] = _schedule
+    tx = fused_adam(**kw)
+    sizes = MT_SIZES * (12 if many else 1)
+    params, _ = _opt_lists(dev, MT_DTYPES[p_dtype], MT_DTYPES[g_dtype], 5,
+                           sizes)
+    plain = _copy(params)
+    state, pstate = tx.init(params), tx.init(plain)
+    no = torch.tensor(False, device=dev)
+    for step in range(3):
+        _, grads = _opt_lists(dev, MT_DTYPES[p_dtype], MT_DTYPES[g_dtype],
+                              10 + step, sizes)
+        before = multi_tensor_cuda.adam.launches
+        tx.step(grads, state, params, no)
+        groups = -(-len(sizes + [0]) // multi_tensor_cuda.capacity(4))
+        assert multi_tensor_cuda.adam.launches == before + groups
+        apply_plain(tx.update, grads, pstate, plain, no)
+        for n in params:
+            assert _same_bits(params[n], plain[n]), (step, n)
+        got, want = _state_tensors(state), _state_tensors(pstate)
+        assert all(_same_bits(got[k], want[k]) for k in got)
+    kept = _copy(params), _copy(_state_tensors(state))
+    tx.step(grads, state, params, torch.tensor(True, device=dev))
+    assert all(_same_bits(params[n], kept[0][n]) for n in params)
+    got = _state_tensors(state)
+    assert all(_same_bits(got[k], kept[1][k]) for k in got)
+
+
+LAMB_CASES = [dict(), dict(adam_w_mode=False), dict(weight_decay=0.0),
+              dict(weight_decay=0.0, use_nvlamb=True), dict(max_grad_norm=0.0),
+              dict(bias_correction=False, grad_averaging=False)]
+
+
+def _lamb_errors(params, plain, state, pstate):
+    """The largest error of K15's parameters and moments against the plain
+    version's, relative to each tensor's largest magnitude."""
+    got, want = _state_tensors(state), _state_tensors(pstate)
+    got.update(params)
+    want.update(plain)
+    err = 0.0
+    for k, w in want.items():
+        if k == "count" or not w.numel():
+            continue
+        scale = w.float().abs().max().clamp(min=1e-30)
+        err = max(err, ((got[k].float() - w.float()).abs().max()
+                        / scale).item())
+    return err
+
+
+def _lamb_run(dev, kw, impl, p_dtype, sizes, steps=3):
+    from apex_tpu_torch.optimizers import fused_lamb
+    from apex_tpu_torch.optimizers._base import apply_plain
+
+    tx = fused_lamb(1e-2, impl=impl, **kw)
+    params, _ = _opt_lists(dev, p_dtype, torch.float32, 7, sizes)
+    plain, again = _copy(params), _copy(params)
+    states = [tx.init(t) for t in (params, plain, again)]
+    no = torch.tensor(False, device=dev)
+    for step in range(steps):
+        _, grads = _opt_lists(dev, p_dtype, torch.float32, 20 + step, sizes)
+        tx.step(grads, states[0], params, no)
+        apply_plain(tx.update, grads, states[1], plain, no)
+        tx.step(grads, states[2], again, no)
+    return tx, params, plain, again, states
+
+
+@pytest.mark.parametrize("kw", LAMB_CASES)
+@pytest.mark.parametrize("impl", ["two_pass", "one_pass"])
+def test_lamb_kernel_matches_plain_and_repeats(dev, kw, impl):
+    """Three steps of K13 + K15 against the plain structure within
+    MT_LAMB_TOL, two runs the same bits, and a step with the flag set
+    leaving everything bitwise unchanged."""
+    tx, params, plain, again, states = _lamb_run(dev, kw, impl,
+                                                 torch.float32, MT_SIZES)
+    assert _lamb_errors(params, plain, states[0], states[1]) <= MT_LAMB_TOL
+    assert all(_same_bits(params[n], again[n]) for n in params)
+    kept = _copy(params), _copy(_state_tensors(states[0]))
+    _, grads = _opt_lists(dev, torch.float32, torch.float32, 30)
+    tx.step(grads, states[0], params, torch.tensor(True, device=dev))
+    assert all(_same_bits(params[n], kept[0][n]) for n in params)
+    got = _state_tensors(states[0])
+    assert all(_same_bits(got[k], kept[1][k]) for k in got)
+
+
+def test_lamb_kernel_over_many_tensors_and_bf16_params(dev):
+    for p_dtype, many in ((torch.float32, 12), (torch.bfloat16, 1)):
+        _, params, plain, again, states = _lamb_run(
+            dev, dict(), "two_pass", p_dtype, MT_SIZES * many)
+        assert all(_same_bits(params[n], again[n]) for n in params)
+        tol = MT_LAMB_TOL if p_dtype == torch.float32 else 2.0 ** -7
+        assert _lamb_errors(params, plain, states[0], states[1]) <= tol
+
+
+def test_mixed_precision_lamb_runs_k13_k15_on_its_masters(dev):
+    """bf16 parameters over fp32 flat masters: the fused form (K13 + K15
+    on views of the flat buffer, 4-byte aligned at ragged offsets) against
+    the plain update and selects, three steps: masters within
+    MT_LAMB_TOL, parameters within one bf16 ulp (2^-7 relative)."""
+    from apex_tpu_torch.optimizers import fused_mixed_precision_lamb
+    from apex_tpu_torch.optimizers._base import apply_plain
+
+    tx = fused_mixed_precision_lamb(1e-2)
+    params, _ = _opt_lists(dev, torch.bfloat16, torch.bfloat16, 40)
+    plain = _copy(params)
+    state, pstate = tx.init(params), tx.init(plain)
+    no = torch.tensor(False, device=dev)
+    before = multi_tensor_cuda.lamb.launches
+    for step in range(3):
+        _, grads = _opt_lists(dev, torch.bfloat16, torch.bfloat16, 50 + step)
+        tx.step(grads, state, params, no)
+        apply_plain(tx.update, grads, pstate, plain, no)
+    assert multi_tensor_cuda.lamb.launches == before + 6
+    err = ((state.master_flat - pstate.master_flat).abs().max()
+           / pstate.master_flat.abs().max()).item()
+    assert err <= MT_LAMB_TOL
+    for n in params:
+        torch.testing.assert_close(params[n].float(), plain[n].float(),
+                                   rtol=2.0 ** -7, atol=0)
+
+
+@pytest.mark.parametrize("opt", ["adam", "lamb"])
+def test_training_step_launches_the_multi_tensor_kernels(dev, opt):
+    from apex_tpu_torch.amp import LossScaler
+    from apex_tpu_torch.optimizers import fused_adam, fused_lamb
+    from apex_tpu_torch.train_step import make_one_step
+    from apex_tpu_torch.transformer.testing import GPTModel
+
+    cfg = TransformerConfig(
+        hidden_size=64, num_layers=2, num_attention_heads=4, vocab_size=128,
+        max_position_embeddings=64, hidden_dropout=0.0,
+        attention_dropout=0.0, apply_query_key_layer_scaling=False,
+        bf16=True)
+    model = GPTModel(cfg, device=dev)
+    tx = fused_adam(1e-3) if opt == "adam" else fused_lamb(1e-2)
+    step = make_one_step(model, LossScaler(), tx)
+    state, ss = tx.init(dict(model.named_parameters())), LossScaler().init(
+        dev)
+    ids = torch.randint(0, 128, (2, 64), device=dev)
+    pos = torch.arange(64, device=dev)[None].expand(2, 64)
+    wrappers = (multi_tensor_cuda.scale, multi_tensor_cuda.l2norm,
+                multi_tensor_cuda.adam, multi_tensor_cuda.lamb)
+    before = [w.launches for w in wrappers]
+    losses = []
+    for _ in range(3):
+        state, ss, loss = step(state, ss, ids, pos, ids)
+        losses.append(loss.item())
+    ran = [w.launches - b for w, b in zip(wrappers, before)]
+    assert ran == ([3, 0, 3, 0] if opt == "adam" else [3, 6, 0, 6])
+    assert all(torch.isfinite(torch.tensor(losses)))
+    assert state.count.item() == 3
