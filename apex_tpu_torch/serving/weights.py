@@ -1,4 +1,4 @@
-"""The GPT parameter tree on the PyTorch side.
+"""The GPT and BERT parameter trees on the PyTorch side.
 
 The port keeps the JAX package's GPTModel parameter tree as it is:
 nested dicts with the same keys and the same ``[out, in]`` weight layout
@@ -14,7 +14,19 @@ nested dicts with the same keys and the same ``[out, in]`` weight layout
     transformer/layer_i/mlp/dense_4h_to_h/{weight [h, f], bias}
     transformer/final_layernorm/{weight,bias}
 
-with ``h' = heads * head_dim`` and ``f = ffn_size``. Leaves are fp32
+with ``h' = heads * head_dim`` and ``f = ffn_size``. The BertModel tree
+(``model="bert"``) has the same leaves and, besides them::
+
+    embedding/tokentype_embeddings                    [2, h]
+    lm_head/dense/{weight [h, h], bias}
+    lm_head/layernorm/{weight,bias}
+    lm_head/bias                                      [vocab]
+    pooler/dense/{weight [h, h], bias}                (bert_binary_head)
+    binary_head/{weight [2, h], bias}                 (bert_binary_head)
+
+The JAX tree holds those three flax ``nn.Dense`` layers' weights as
+``kernel [in, out]``; the converter transposes them to the port's
+``weight [out, in]`` and back. Leaves are fp32
 tensors (the JAX tree's ``params_dtype``); the serving functions cast to
 the compute dtype themselves.
 
@@ -23,13 +35,14 @@ the compute dtype themselves.
   and checks every shape against the config; :func:`to_numpy_tree` is its
   exact inverse.
 * :func:`load_param_tree` copies such a tree (torch or numpy leaves)
-  into a :class:`~apex_tpu_torch.transformer.testing.GPTModel`, whose
+  into a :class:`~apex_tpu_torch.transformer.testing.GPTModel` or
+  :class:`~apex_tpu_torch.transformer.testing.BertModel`, whose
   ``state_dict`` keys are the tree paths with ``/`` → ``.``;
   :func:`param_tree` reads the model's parameters back as the tree. The
   round trip is bit-exact, so one converted tree serves the serving and
   the training slice.
-* :func:`shard_param_tree` is the converter's tensor-parallel form: one
-  rank's slices of a full tree, by the rule with which
+* :func:`shard_param_tree` is the converter's tensor-parallel form (GPT):
+  one rank's slices of a full tree, by the rule with which
   :func:`apex_tpu_torch.transformer.tensor_parallel.layers._sharded_init`
   draws a rank's parameters, so that ``load_param_tree(model,
   shard_param_tree(from_jax_params(tree, cfg), cfg, rank, tp))`` feeds
@@ -50,8 +63,17 @@ from apex_tpu_torch import default_device
 from apex_tpu_torch._tree import flatten_tree
 
 
-def param_shapes(cfg):
-    """The nested dict of leaf shapes the config implies."""
+# the flax nn.Dense layers of the BERT tree: the port's <path>/weight [out,
+# in] is JAX's <path>/kernel [in, out]
+_FLAX_DENSE = ("lm_head/dense", "pooler/dense", "binary_head")
+_MODELS = ("gpt", "bert")
+
+
+def param_shapes(cfg, model="gpt"):
+    """The nested dict of leaf shapes the config implies for ``model``,
+    "gpt" (GPTModel) or "bert" (BertModel), in the port's layout."""
+    if model not in _MODELS:
+        raise ValueError(f"model {model!r}, want one of {_MODELS}")
     h, f = cfg.hidden_size, cfg.ffn_size
     proj = cfg.num_attention_heads * cfg.head_dim
 
@@ -73,12 +95,27 @@ def param_shapes(cfg):
         for i in range(cfg.num_layers)
     }
     layers["final_layernorm"] = ln()
-    return {
+    tree = {
         "word_embeddings": (cfg.vocab_size, h),
         "embedding": {
             "position_embeddings": (cfg.max_position_embeddings, h)},
         "transformer": layers,
     }
+    if model == "bert":
+        tree["embedding"]["tokentype_embeddings"] = (2, h)
+        tree["lm_head"] = {"dense": lin(h, h), "layernorm": ln(),
+                           "bias": (cfg.vocab_size,)}
+        if cfg.bert_binary_head:
+            tree["pooler"] = {"dense": lin(h, h)}
+            tree["binary_head"] = lin(2, h)
+    return tree
+
+
+def _flax_kernel(name):
+    """Whether the port's leaf ``name`` is a flax Dense kernel,
+    transposed."""
+    parent, _, leaf = name.rpartition("/")
+    return leaf == "weight" and parent in _FLAX_DENSE
 
 
 def _build(shapes, leaf, name=""):
@@ -90,27 +127,33 @@ def _build(shapes, leaf, name=""):
             for k, v in shapes.items()}
 
 
-def from_jax_params(tree, cfg, device=None):
-    """The JAX GPTModel tree (nested mappings of array-likes) as fp32
-    torch tensors on ``device``; raises on a missing key or a shape or
-    dtype the config does not imply. ``device=None`` means ``cuda``."""
+def from_jax_params(tree, cfg, device=None, model="gpt"):
+    """The JAX GPTModel (or, with ``model="bert"``, BertModel) tree
+    (nested mappings of array-likes) as fp32 torch tensors on ``device``,
+    flax Dense kernels transposed to ``weight [out, in]``; raises on a
+    missing key or a shape or dtype the config does not imply.
+    ``device=None`` means ``cuda``."""
     device = default_device(device)
 
     def convert(shape, name):
+        transpose = _flax_kernel(name)
+        jax_name = name[:-len("weight")] + "kernel" if transpose else name
         node = tree
-        for key in name.split("/"):
+        for key in jax_name.split("/"):
             if key not in node:
-                raise KeyError(f"parameter tree lacks {name}")
+                raise KeyError(f"parameter tree lacks {jax_name}")
             node = node[key]
         arr = np.asarray(node)
-        if arr.shape != shape:
-            raise ValueError(f"{name}: shape {arr.shape} != {shape} "
+        want = shape[::-1] if transpose else shape
+        if arr.shape != want:
+            raise ValueError(f"{jax_name}: shape {arr.shape} != {want} "
                              f"implied by the config")
         if arr.dtype != np.float32:
-            raise ValueError(f"{name}: dtype {arr.dtype}, want float32")
-        return torch.from_numpy(np.array(arr)).to(device)
+            raise ValueError(f"{jax_name}: dtype {arr.dtype}, want float32")
+        return torch.from_numpy(np.array(arr.T if transpose else arr)).to(
+            device)
 
-    return _build(param_shapes(cfg), convert)
+    return _build(param_shapes(cfg, model), convert)
 
 
 # the axis along which each sharded leaf is split over the tp group:
@@ -163,10 +206,19 @@ def shard_param_tree(tree, cfg, rank, tp):
 
 def to_numpy_tree(params):
     """The inverse of :func:`from_jax_params`: the same nested dicts with
-    numpy leaves."""
-    if isinstance(params, torch.Tensor):
-        return params.detach().cpu().numpy()
-    return {k: to_numpy_tree(v) for k, v in params.items()}
+    numpy leaves, each flax Dense ``weight`` back as its ``kernel [in,
+    out]``."""
+    def convert(node, name):
+        if isinstance(node, torch.Tensor):
+            arr = node.detach().cpu().numpy()
+            return np.ascontiguousarray(arr.T) if _flax_kernel(name) else arr
+        out = {}
+        for k, v in node.items():
+            path = f"{name}/{k}" if name else k
+            out["kernel" if _flax_kernel(path) else k] = convert(v, path)
+        return out
+
+    return convert(params, "")
 
 
 def init_gpt_params(cfg, seed=0, device=None):

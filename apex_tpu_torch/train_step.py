@@ -1,6 +1,7 @@
 """The amp-O2 training step (counterpart of ``bench.py:209
 make_one_step``): compute-dtype forward and backward of a
-:class:`~apex_tpu_torch.transformer.testing.GPTModel`, dynamic loss
+:class:`~apex_tpu_torch.transformer.testing.GPTModel` or a
+:class:`~apex_tpu_torch.transformer.testing.BertModel`, dynamic loss
 scaling, a fused optimizer, and the skip-step selects of
 ``bench.py:240-245``.
 
@@ -16,6 +17,14 @@ version. The learning rate may be a schedule of the device step count,
 computed on the device.
     opt_state, scaler_state, loss = step(opt_state, scaler_state,
                                          ids, pos, labels)
+
+A BertModel's batch is ``(ids, attention_mask, labels)`` in the place of
+``(ids, pos, labels)``: the loss is the mean of its per-token MLM loss,
+as ``examples/transformer/pretrain.py:151-162`` computes it for ``--model
+bert``. A parameter outside the loss (BERT's pooler and binary head, and
+the tokentype table when no tokentype ids are given) gets a zero
+gradient, as ``jax.grad`` gives it, so that the optimizer updates it as
+the JAX step does (LAMB's weight decay moves it).
 
 With ``dropout_generator`` (a ``torch.Generator`` on the model's device)
 the step trains with the configuration's hidden and attention dropout,
@@ -48,12 +57,19 @@ from apex_tpu_torch.optimizers._base import apply_plain
 from apex_tpu_torch.transformer.amp import GradScaler
 
 
+def per_token_loss(out):
+    """The per-token loss of a model's output given labels: the output
+    itself, or the first element of a tuple (a BertModel's ``(lm_loss,
+    binary_logits)``)."""
+    return out[0] if isinstance(out, tuple) else out
+
+
 def make_one_step(model, scaler, opt, dropout_generator=None):
     """``one_step(opt_state, scaler_state, ids, pos, labels) ->
-    (opt_state, scaler_state, loss)``; ``loss`` is the unscaled mean
-    per-token loss, a 0-d fp32 device tensor. With ``dropout_generator``
-    the model runs with ``deterministic=False``; without it the step is
-    deterministic."""
+    (opt_state, scaler_state, loss)`` (``pos`` is the attention mask for
+    a BertModel); ``loss`` is the unscaled mean per-token loss, a 0-d fp32
+    device tensor. With ``dropout_generator`` the model runs with
+    ``deterministic=False``; without it the step is deterministic."""
     if getattr(model, "tp_size", 1) > 1 and not isinstance(scaler,
                                                           GradScaler):
         raise ValueError("make_one_step: at tensor-parallel size "
@@ -68,11 +84,12 @@ def make_one_step(model, scaler, opt, dropout_generator=None):
     def one_step(opt_state, scaler_state, ids, pos, labels):
         for p in params.values():
             p.grad = None
-        per_tok = model(ids, pos, None, labels, **drop)
+        per_tok = per_token_loss(model(ids, pos, None, labels, **drop))
         loss = torch.mean(per_tok) * scaler_state.loss_scale
         loss.backward()
         with torch.no_grad():
-            grads = {n: p.grad for n, p in params.items()}
+            grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
+                     for n, p in params.items()}
             grads, found_inf = scaler.unscale(grads, scaler_state)
             new_scaler_state = scaler.update(scaler_state, found_inf)
             fused = getattr(opt, "step", None)

@@ -8,7 +8,9 @@ vocabulary's edges), K7p with K8/K9 on vocabulary shards
 (each against its plain version, and the shards combined against K7-K9
 on the whole table), K2q (decode over int8 pages), K2 and K2q at their
 split boundaries, and K10/K11 and K10L/K11L (the fused softmax, forward
-and backward, up to 4096 keys and above), per dtype, at the attention
+and backward, up to 4096 keys and above), K1d/K5d/K6d on BERT's padding
+route (non-causal, segment ids) and K10/K11 under its padding masks,
+per dtype, at the attention
 head dims 32-256, the decode head dims 32-512 and the layer-norm widths
 64-12800 the card tests take. It prints one line per attention, LM-head,
 int8-decode and softmax case and the worst value per kernel and dtype:
@@ -100,6 +102,29 @@ def main():
                           f"{bwd[1]:.3e} {bwd[2]:.3e}")
                     note("K1d", dtype, fwd)
                     note("K5d/K6d", dtype, max(bwd))
+            if d == 64:
+                # BERT's padding dropout route: non-causal, segment ids
+                for s_len in cases.PAD_LENGTHS:
+                    for seed in cases.DROPOUT_SEEDS:
+                        q, k, v, do, seg, sd = cases._pad_case(dev, tdt,
+                                                               s_len, seed)
+                        s, p = d ** -0.5, 0.1
+                        kw = dict(causal=False, sm_scale=s, dropout_p=p,
+                                  dropout_seed=sd, segment_ids=seg)
+                        o = attention_cuda.prefill_attention_dropout(
+                            q, k, v, **kw)
+                        fwd = _l2(o, attention._dense_attention(
+                            q, k, v, False, s, seg, p, sd))
+                        got = attention_bwd_cuda.attention_bwd_dropout(
+                            q, k, v, o, do, **kw)
+                        ref = attention._attention_bwd_split(
+                            q, k, v, o, do, False, s, seg, p, sd)
+                        bwd = [_l2(a, b) for a, b in zip(got, ref)]
+                        print(f"attention padding dropout {dtype} s={s_len} "
+                              f"seed {seed}: K1d {fwd:.3e}, dq/dk/dv "
+                              f"{bwd[0]:.3e} {bwd[1]:.3e} {bwd[2]:.3e}")
+                        note("K1d padding", dtype, fwd)
+                        note("K5d/K6d padding", dtype, max(bwd))
             if tdt == torch.float32:
                 continue
             for sq, sk in cases.TC_SHAPES:
@@ -252,6 +277,22 @@ def main():
                 note("K10", dtype, fwd)
                 note("K10 max |y diff|", dtype, ymax)
                 note("K11", dtype, bwd)
+        for shape in cases.PAD_SOFTMAX_SHAPES:
+            for case in cases.PAD_SOFTMAX_CASES:
+                x, g, mask = cases._pad_softmax_case(dev, tdt, shape, case)
+                y = softmax_cuda.softmax_fwd(x, mask, 24.0, False)
+                dx = softmax_cuda.softmax_bwd(y, g, 24.0)
+                ry = softmax.scaled_masked_softmax_reference(x, mask, 24.0,
+                                                             False)
+                rdx = softmax.scaled_masked_softmax_backward_reference(
+                    y, g, 24.0)
+                ymax = (y.float() - ry.float()).abs().max().item()
+                fwd, bwd = _l2(y, ry), _l2(dx, rdx)
+                print(f"softmax padding {dtype} {shape} {case}: K10 "
+                      f"{fwd:.3e} (max |y diff| {ymax:.3e}), K11 {bwd:.3e}")
+                note("K10 padding", dtype, fwd)
+                note("K10 padding max |y diff|", dtype, ymax)
+                note("K11 padding", dtype, bwd)
         for shape in cases.SOFTMAX_LONG_SHAPES:
             for case in cases.SOFTMAX_CASES:
                 x, g, mask, causal = cases._softmax_case(dev, tdt, shape,

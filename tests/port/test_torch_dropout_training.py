@@ -396,17 +396,24 @@ def test_model_refuses_dropout_it_cannot_draw_or_route(jax_tree):
     with pytest.raises(ValueError, match="dropout_generator"):
         model(ids, pos, None, labels, deterministic=False)
     # fused_attention_dropout=False routes to the scores path (its parity
-    # is in test_torch_scores_path_training.py); an explicit mask is the
-    # route still refused
+    # is in test_torch_scores_path_training.py); so does an explicit mask,
+    # with the same draws: an all-False mask changes nothing there
     scores = GPTModel(TConfig(**dict(KW, fused_attention_dropout=False)),
                       device="cpu")
     loss = scores(ids, pos, None, labels, deterministic=False,
                   dropout_generator=torch.Generator().manual_seed(0))
     assert torch.isfinite(loss).all()
-    with pytest.raises(ValueError, match="mask"):
-        scores(ids, pos, torch.zeros(B, 1, S, S, dtype=torch.bool), labels,
-               deterministic=False,
-               dropout_generator=torch.Generator().manual_seed(0))
+    masked = scores(ids, pos, torch.zeros(B, 1, S, S, dtype=torch.bool),
+                    labels, deterministic=False,
+                    dropout_generator=torch.Generator().manual_seed(0))
+    assert torch.equal(masked, loss)
+    # the in-kernel route's model takes the scores path with a mask, as
+    # JAX's does; its draws differ from the in-kernel route's
+    with torch.no_grad():
+        routed = model(ids, pos, torch.zeros(B, 1, S, S, dtype=torch.bool),
+                       labels, deterministic=False,
+                       dropout_generator=torch.Generator().manual_seed(0))
+    assert torch.isfinite(routed).all()
     # deterministic: no dropout, no generator needed, none drawn
     gen = torch.Generator().manual_seed(0)
     state = gen.get_state()

@@ -75,6 +75,9 @@ def test_importing_the_port_loads_no_jax_and_no_apex_tpu():
                 "apex_tpu_torch.transformer.amp",
                 "apex_tpu_torch.transformer.amp.grad_scaler",
                 "apex_tpu_torch.transformer.testing.arguments",
+                "apex_tpu_torch.transformer.testing.standalone_transformer_lm",
+                "apex_tpu_torch.transformer.testing",
+                "apex_tpu_torch.serving.weights",
                 "apex_tpu_torch.multi_tensor_apply.multi_tensor_apply",
                 "apex_tpu_torch.ops.multi_tensor_cuda",
                 "apex_tpu_torch.optimizers.fused_mixed_precision_lamb",
@@ -195,6 +198,41 @@ def test_int8_serving_and_scores_path_default_to_cuda(monkeypatch):
                  deterministic=False,
                  dropout_generator=torch.Generator().manual_seed(0))
     assert loss.device.type == "cpu" and torch.isfinite(loss).all()
+
+
+def test_bert_and_the_language_model_default_to_cuda(monkeypatch):
+    """``BertModel``, ``bert_model_provider`` and ``get_language_model``
+    are built on ``cuda`` unless ``device="cpu"`` is asked for, and a BERT
+    step runs there."""
+    from apex_tpu_torch.amp import LossScaler
+    from apex_tpu_torch.optimizers import fused_lamb
+    from apex_tpu_torch.train_step import make_one_step
+    from apex_tpu_torch.transformer.testing import (BertModel,
+                                                    TransformerConfig,
+                                                    bert_model_provider,
+                                                    get_language_model)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TransformerConfig(hidden_size=64, num_layers=1,
+                            num_attention_heads=2, vocab_size=16,
+                            max_position_embeddings=16)
+    for build in (lambda: BertModel(cfg), lambda: bert_model_provider(cfg),
+                  lambda: get_language_model(cfg, add_pooler=True)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+    model = BertModel(cfg, device="cpu")
+    opt = fused_lamb(1e-3)
+    step = make_one_step(model, LossScaler(), opt,
+                         dropout_generator=torch.Generator().manual_seed(0))
+    ids = torch.zeros(2, 8, dtype=torch.long)
+    mask = torch.ones(2, 8, dtype=torch.long)
+    state, ss, loss = step(opt.init(dict(model.named_parameters())),
+                           LossScaler().init("cpu"), ids, mask, ids)
+    assert loss.device.type == "cpu" and torch.isfinite(loss).item()
+    lm, key = get_language_model(cfg, device="cpu")
+    assert key == "language_model"
+    out, table = lm(ids, torch.arange(8)[None].expand(2, 8), None)
+    assert out.shape == (8, 2, 64) and table is lm.word_embeddings
 
 
 def test_chip_smoke_refuses_to_run_without_cuda(monkeypatch):

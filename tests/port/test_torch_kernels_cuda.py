@@ -40,7 +40,11 @@ lengths that leave partial tiles (200), causal and segmented, with
 negative and extreme seeds, the mask recovered exactly from K1d's output
 with V the identity, and K5d/K6d repeatable bit for bit; K2q (decode over
 the int8 KV tier's pages) at K2's edge lengths with the scales of unowned
-pages poisoned with NaN, and against K2 over the dequantized pages; the
+pages poisoned with NaN, and against K2 over the dequantized pages; K1d,
+K5d and K6d non-causal with BERT's padding segment ids at 200, 333 and
+512; a bf16 ``BertModel`` launching K10/K11 deterministic and
+K1d/K5d/K6d with dropout; K10 and K11 under BERT's padding masks (the
+extended ``[b, 1, s, s]`` one and a key padding with an empty row); the
 fused softmax K10 (causal, a ``[b, 1, sq, sk]`` and a ``[b, np, sq, sk]``
 mask with a fully masked row, a key-padding ``[b, 1, 1, sk]`` mask, none;
 two runs equal bit for bit, causal and masked) and K11 at row lengths
@@ -1157,6 +1161,57 @@ def test_dropout_kernels_match_plain(dev, dtype, d, case, seed):
         q, k, v, True, scale, seg).float(), atol=tol)
 
 
+# BERT's padding dropout route: sq = sk = s with partial 64-row tiles (200,
+# 333) and whole ones (512, BERT's length)
+PAD_LENGTHS = [200, 333, 512]
+
+
+def _pad_case(dev, dtype, s, seed, d=64):
+    """BERT's padding route at length ``s``: q, k, v, dO ``[3, 2, s, d]``
+    and the segment ids (valid 0, pad 1) of a row all valid, a row of one
+    valid token and a row padded after ``s - 37``."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    q, k, v, do = (_randn(gen, 3, 2, s, d, dtype=dtype, dev=dev)
+                   for _ in range(4))
+    lengths = torch.tensor([s, 1, s - 37])
+    ids = (torch.arange(s)[None] >= lengths[:, None]).to(torch.int32)
+    ids = ids.to(dev).contiguous()
+    return q, k, v, do, (ids, ids), torch.tensor([seed], dtype=torch.int32,
+                                                 device=dev)
+
+
+@pytest.mark.parametrize("seed", DROPOUT_SEEDS)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("s", PAD_LENGTHS)
+def test_padding_dropout_kernels_match_plain(dev, dtype, s, seed):
+    """K1d, K5d and K6d non-causal with padding segment ids (the route
+    BERT trains on with dropout) against their plain versions: the
+    all-valid row walks every key block, a valid query sees the valid
+    keys and a pad query the pad keys."""
+    torch_dtype, tol = DTYPES[dtype]
+    q, k, v, do, seg, sd = _pad_case(dev, torch_dtype, s, seed)
+    scale, p = 64 ** -0.5, 0.1
+    kw = dict(causal=False, sm_scale=scale, dropout_p=p, dropout_seed=sd,
+              segment_ids=seg)
+    before = _drop_counts()
+    o = attention_cuda.prefill_attention_dropout(q, k, v, **kw)
+    dq, dk, dv = attention_bwd_cuda.attention_bwd_dropout(q, k, v, o, do,
+                                                          **kw)
+    assert _drop_counts() == tuple(c + 1 for c in before)
+    ro = attention._dense_attention(q, k, v, False, scale, seg, p, sd)
+    ref = attention._attention_bwd_split(q, k, v, o, do, False, scale, seg,
+                                         p, sd)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o.float()).all()
+    torch.testing.assert_close(o.float(), ro.float(), atol=tol, rtol=0)
+    _close_l2(o, ro, dtype, K1_L2_TOL)
+    for out, r in zip((dq, dk, dv), ref):
+        assert out.dtype == r.dtype == torch_dtype
+        assert torch.isfinite(out.float()).all()
+        _close_scaled(out, r, tol)
+        _close_l2(out, r, dtype, DROPOUT_L2_TOL)
+
+
 def test_dropout_mask_is_recovered_exactly_from_k1d(dev):
     """q = k = 0 and V the identity: every score is 0, P = 1/128 on each
     row, and O[i, j] = mscale[i, j] / 128 exactly, so K1d's output gives
@@ -1498,6 +1553,94 @@ def test_softmax_kernels_match_plain(dev, dtype, shape, case):
         above = (torch.arange(sk, device=dev)[None, :]
                  > torch.arange(sq, device=dev)[:, None])
         assert (y[..., above] == 0).all()
+
+
+# BERT's padding masks: the extended [b, 1, s, s] mask of the scores path
+# (a pad query's row fully masked) and a key-padding [b, 1, 1, s] mask with
+# a batch row of no valid key (all its rows fully masked)
+PAD_SOFTMAX_SHAPES = [(3, 2, 200, 200), (2, 4, 512, 512)]
+PAD_SOFTMAX_CASES = ["extended", "key_padding"]
+
+
+def _pad_softmax_case(dev, dtype, shape, case, seed=19):
+    """x, g and the padding mask of rows of valid lengths (sk, 1, sk - 37
+    for the extended mask; sk, 0, sk - 37 for the key padding)."""
+    from apex_tpu_torch.transformer.testing import (
+        bert_extended_attention_mask)
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, np_, sq, sk = shape
+    x = (torch.randn(b, np_, sq, sk, generator=gen, device=dev) * 3).to(
+        dtype)
+    g = _randn(gen, b, np_, sq, sk, dtype=dtype, dev=dev)
+    lengths = torch.tensor([sk, 1 if case == "extended" else 0,
+                            sk - 37][:b], device=dev)
+    valid = torch.arange(sk, device=dev)[None] < lengths[:, None]
+    if case == "extended":
+        mask = bert_extended_attention_mask(valid)
+    else:
+        mask = ~valid[:, None, None, :]
+    return x, g, mask
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", PAD_SOFTMAX_SHAPES,
+                         ids=["x".join(map(str, s))
+                              for s in PAD_SOFTMAX_SHAPES])
+@pytest.mark.parametrize("case", PAD_SOFTMAX_CASES)
+def test_softmax_kernels_match_plain_under_padding_masks(dev, dtype, shape,
+                                                          case):
+    """K10 in mask mode and K11 under BERT's padding masks against their
+    plain versions; the fully masked rows are exact zeros."""
+    torch_dtype, _ = DTYPES[dtype]
+    x, g, mask = _pad_softmax_case(dev, torch_dtype, shape, case)
+    scale = 24.0                      # BERT-large's last layer's coeff
+    y = softmax_cuda.softmax_fwd(x, mask, scale, False)
+    dx = softmax_cuda.softmax_bwd(y, g, scale)
+    ry = softmax.scaled_masked_softmax_reference(x, mask, scale, False)
+    rdx = softmax.scaled_masked_softmax_backward_reference(y, g, scale)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y.float()).all() and torch.isfinite(dx.float()).all()
+    torch.testing.assert_close(y.float(), ry.float(),
+                               atol=SOFTMAX_TOL[dtype], rtol=0)
+    _close_l2(y, ry, dtype, SOFTMAX_L2_TOL)
+    _close_scaled(dx, rdx, 10 * SOFTMAX_TOL[dtype])
+    _close_l2(dx, rdx, dtype, SOFTMAX_L2_TOL)
+    assert torch.equal(y == 0, ry == 0)
+    dead = mask.all(dim=-1).expand(y.shape[:-1])
+    assert dead.any() and (y[dead] == 0).all() and (dx[dead] == 0).all()
+
+
+def test_bert_model_takes_its_routes_on_the_card(dev):
+    """A bf16 BertModel on the card: deterministic, the scores path (K10
+    and K11 once a layer, no attention kernel); training with dropout at s
+    = 128, the segment-id route (K1d, K5d, K6d once a layer, no K10)."""
+    from apex_tpu_torch.transformer.testing import BertModel
+
+    cfg = TransformerConfig(hidden_size=128, num_layers=2,
+                            num_attention_heads=2, vocab_size=512,
+                            max_position_embeddings=128, bf16=True)
+    model = BertModel(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ids = torch.randint(0, 512, (2, 128), generator=gen, device=dev)
+    mask = torch.ones(2, 128, dtype=torch.long, device=dev)
+    mask[1, 40:] = 0
+    counted = (softmax_cuda.softmax_fwd, softmax_cuda.softmax_bwd,
+               attention_cuda.prefill_attention,
+               attention_cuda.prefill_attention_dropout,
+               attention_bwd_cuda.attention_bwd_dq_dropout,
+               attention_bwd_cuda.attention_bwd_dkv_dropout)
+    for drop, want in ((None, (2, 2, 0, 0, 0, 0)),
+                       (gen, (0, 0, 0, 2, 2, 2))):
+        before = [f.launches for f in counted]
+        kw = {} if drop is None else dict(deterministic=False,
+                                          dropout_generator=drop)
+        loss, binary = model(ids, mask, None, ids, **kw)
+        loss.mean().backward()
+        torch.cuda.synchronize()
+        assert torch.isfinite(loss).all() and binary.shape == (2, 2)
+        assert tuple(f.launches - b for f, b in zip(counted, before)) == want
+        model.zero_grad(set_to_none=True)
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))

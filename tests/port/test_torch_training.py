@@ -423,5 +423,12 @@ def test_gpt_model_refuses_tp_dropout_and_masks():
     with pytest.raises(ValueError, match="dropout"):
         model(ids, pos, None, ids, deterministic=False)
     model(ids, pos, None, ids)                 # deterministic: no dropout
-    with pytest.raises(ValueError, match="mask"):
-        model(ids, pos, torch.ones(1, 1, 4, 4, dtype=torch.bool))
+    # an explicit mask runs: the scores path, whose unfused softmax ORs it
+    # with the causal triangle (its JAX parity is in test_torch_bert.py)
+    mask = torch.zeros(1, 1, 4, 4, dtype=torch.bool)
+    with torch.no_grad():
+        assert torch.allclose(model(ids, pos, mask), model(ids, pos),
+                              atol=1e-6)
+        masked = model(ids, pos, torch.ones(1, 1, 4, 4, dtype=torch.bool))
+    assert torch.isfinite(masked).all()
+    assert not torch.allclose(masked, model(ids, pos), atol=1e-6)
