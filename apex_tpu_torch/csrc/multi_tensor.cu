@@ -1,6 +1,7 @@
 // Multi-tensor kernels over lists of tensors: K12 scale / axpby with a
 // found-inf flag, K13 per-tensor and global L2 norms (or largest
-// magnitudes), K14 Adam/AdamW in place, K15 LAMB in two stages.
+// magnitudes), K14 Adam/AdamW in place, K15 LAMB in two stages, K16 SGD
+// with momentum in place (and the master-to-model copy in the same pass).
 //
 // These replace no Pallas site: the JAX package computes them in jnp, as
 // whole-pytree elementwise passes that XLA fuses into the step program.
@@ -13,15 +14,19 @@
 // apex_tpu/optimizers/fused_adam.py:41 _adam_flat with bench.py:240-245's
 // skip selects; K15 of apex_tpu/optimizers/fused_lamb.py:111
 // update_two_pass (and :145 update_one_pass, the same function in another
-// structure). They were written by hand because eager PyTorch spends one
-// launch per op per leaf there: ~1,350 launches a GPT-2-small step (148
-// leaves) and ~170 bytes a parameter.
+// structure); K16 of apex_tpu/optimizers/fused_sgd.py:41 update (the leaf
+// function) with apex_tpu/amp/amp_optimizer.py:119-134's skip selects and
+// master-to-model copy, apex's multi_tensor_sgd in its four-list form.
+// They were written by hand because eager PyTorch spends one launch per
+// op per leaf there: ~1,350 launches a GPT-2-small step (148 leaves) and
+// ~170 bytes a parameter; ~1,300 a ResNet-50 SGD step (161 leaves).
 //
 // What bounds them on H100: bytes. K12 reads a gradient and writes its
 // fp32 unscaled copy (8 bytes a parameter for fp32), K13 reads it once
 // (4), K14 reads g, p, m, v and writes p, m, v (28), K15 the same (28,
-// plus one more read of p, m, v in its second stage). The arithmetic is a
-// few operations an element.
+// plus one more read of p, m, v in its second stage), K16 reads g, p, buf
+// and writes p, buf and the model's half copy (22 under amp O2). The
+// arithmetic is a few operations an element.
 //
 // Design. A launch covers a group of tensors: their pointers and sizes
 // travel in the kernel's parameters (a Table, kept under the 4 KB
@@ -105,7 +110,18 @@ struct AdamArgs {
   float* pu;               // and of sum(update * update)
 };
 
+struct SgdArgs {
+  float wd, momentum, one_minus_damp;  // one_minus_damp = fp32(1 - dampening)
+  float neg_lr;            // -lr when neg_lr_ptr is null
+  int decay, use_momentum, nesterov, copy;  // copy: write the model copy
+  const float* neg_lr_ptr;
+  const unsigned char* skip;  // found-inf: write nothing when set
+  int* count;
+  const int* count_new;    // the first step is count_new == 1
+};
+
 static_assert(sizeof(Table<4>) + sizeof(AdamArgs) <= 4096, "params");
+static_assert(sizeof(Table<4>) + sizeof(SgdArgs) <= 4096, "params");
 static_assert(sizeof(Table<3>) + sizeof(ScaleArgs) <= 4096, "params");
 static_assert(sizeof(Table<1>) + 64 <= 4096, "params");
 
@@ -561,6 +577,64 @@ __global__ void __launch_bounds__(THREADS) lamb_stage2_kernel(const Table<4> tb,
   }
 }
 
+// SGD's new parameter for one element, in the plain version's order
+// (optimizers/fused_sgd.py update, then apply_plain's add): weight decay
+// folded into g, buf = g on the first step and mu buf + (1 - dampening) g
+// after, Nesterov's g + mu buf, -lr d cast to the gradient's dtype and then
+// to the parameter's; buf is updated in place
+template <typename TG, typename TP>
+__device__ __forceinline__ float sgd_elem(const SgdArgs& a, float g, float p, float& b,
+                                          bool first, float neg_lr) {
+  if (a.decay) g = __fadd_rn(g, __fmul_rn(a.wd, p));
+  float d = g;
+  if (a.use_momentum) {
+    b = first ? g : __fadd_rn(__fmul_rn(a.momentum, b), __fmul_rn(a.one_minus_damp, g));
+    d = a.nesterov ? __fadd_rn(g, __fmul_rn(a.momentum, b)) : b;
+  }
+  return apply_update<TG, TP>(p, __fmul_rn(neg_lr, d));
+}
+
+// K16: SGD in place on p and its fp32 momentum buffer, the step count, and
+// (copy) the parameter written again in the model's dtype TM
+template <typename TG, typename TP, typename TM>
+__global__ void __launch_bounds__(THREADS) sgd_kernel(const Table<4> tb, const SgdArgs a) {
+  if (a.skip && *a.skip) return;
+  if (blockIdx.x == 0 && threadIdx.x == 0) *a.count = *a.count_new;
+  if ((int)blockIdx.x >= tb.chunk_start[tb.ntensors]) return;
+  const Span s = chunk_span(tb, blockIdx.x);
+  const TG* g = reinterpret_cast<const TG*>(tb.ptr[0][s.t]) + s.start;
+  TP* p = reinterpret_cast<TP*>(tb.ptr[1][s.t]) + s.start;
+  float* buf = reinterpret_cast<float*>(tb.ptr[2][s.t]) + s.start;
+  TM* mdl = a.copy ? reinterpret_cast<TM*>(tb.ptr[3][s.t]) + s.start : nullptr;
+  const float neg_lr = a.neg_lr_ptr ? *a.neg_lr_ptr : a.neg_lr;
+  const bool first = *a.count_new == 1;
+  int done = 0;
+  if (aligned4<TG>(g) && aligned4<TP>(p) && aligned4<float>(buf) &&
+      (!a.copy || aligned4<TM>(mdl))) {
+    const int n4 = s.len >> 2;
+    for (int i = threadIdx.x; i < n4; i += THREADS) {
+      float gv[4], pv[4], bv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      load4(g + 4 * i, gv);
+      load4(p + 4 * i, pv);
+      if (a.use_momentum) load4(buf + 4 * i, bv);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        pv[k] = to_f(from_f<TP>(sgd_elem<TG, TP>(a, gv[k], pv[k], bv[k], first, neg_lr)));
+      store4(p + 4 * i, pv);
+      if (a.use_momentum) store4(buf + 4 * i, bv);
+      if (a.copy) store4(mdl + 4 * i, pv);
+    }
+    done = n4 << 2;
+  }
+  for (int e = done + threadIdx.x; e < s.len; e += THREADS) {
+    float bv = a.use_momentum ? buf[e] : 0.0f;
+    const TP pn = from_f<TP>(sgd_elem<TG, TP>(a, to_f(g[e]), to_f(p[e]), bv, first, neg_lr));
+    p[e] = pn;
+    if (a.use_momentum) buf[e] = bv;
+    if (a.copy) mdl[e] = from_f<TM>(to_f(pn));
+  }
+}
+
 // ---------------------------------------------------------------- host side
 
 // a table from the host arrays: ptrs [D][n] device addresses, numels [n];
@@ -804,6 +878,51 @@ extern "C" int multi_tensor_lamb(const long long* ptrs, const long long* numels,
     MT_DISPATCH(p_dtype, TP, lamb_stage2_kernel<TP, TP><<<blocks, THREADS, 0, st>>>(tb, a))
   } else {
     MT_DISPATCH(p_dtype, TP, lamb_stage2_kernel<float, TP><<<blocks, THREADS, 0, st>>>(tb, a))
+  }
+  return (int)cudaGetLastError();
+}
+
+// K16 over one group: ptrs [4][n] = g, p, buf, model copy (the last row
+// unused unless m_dtype >= 0); hyper: wd, momentum, 1 - dampening, neg_lr;
+// flags: decay, use_momentum, nesterov; devptrs: neg_lr, skip, count,
+// count_new (0 = null; count and count_new are required)
+extern "C" int multi_tensor_sgd(const long long* ptrs, const long long* numels, int n,
+                                int g_dtype, int p_dtype, int m_dtype, const float* hyper,
+                                const int* flags, const long long* devptrs, int device,
+                                void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!pair_ok(g_dtype, p_dtype) || (m_dtype != -1 && !dtype_ok(m_dtype)))
+    return (int)cudaErrorInvalidValue;
+  Table<4> tb;
+  int chunks = 0;
+  err = fill(tb, ptrs, numels, n, 0, 0, &chunks);
+  if (err != cudaSuccess) return (int)err;
+  SgdArgs a;
+  a.wd = hyper[0];
+  a.momentum = hyper[1];
+  a.one_minus_damp = hyper[2];
+  a.neg_lr = hyper[3];
+  a.decay = flags[0];
+  a.use_momentum = flags[1];
+  a.nesterov = flags[2];
+  a.copy = m_dtype >= 0;
+  a.neg_lr_ptr = reinterpret_cast<const float*>(devptrs[0]);
+  a.skip = reinterpret_cast<const unsigned char*>(devptrs[1]);
+  a.count = reinterpret_cast<int*>(devptrs[2]);
+  a.count_new = reinterpret_cast<const int*>(devptrs[3]);
+  if (!a.count || !a.count_new) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int blocks = chunks > 0 ? chunks : 1;
+  const int m_code = a.copy ? m_dtype : 2;
+  if (g_dtype == p_dtype) {
+    MT_DISPATCH(p_dtype, TP,
+                  MT_DISPATCH(m_code, TM,
+                                sgd_kernel<TP, TP, TM><<<blocks, THREADS, 0, st>>>(tb, a)))
+  } else {
+    MT_DISPATCH(p_dtype, TP,
+                  MT_DISPATCH(m_code, TM,
+                                sgd_kernel<float, TP, TM><<<blocks, THREADS, 0, st>>>(tb, a)))
   }
   return (int)cudaGetLastError();
 }

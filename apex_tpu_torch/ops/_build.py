@@ -26,7 +26,7 @@ from pathlib import Path
 import torch
 
 SOURCES = ("prefill_attention", "decode_attention", "layer_norm",
-           "attention_bwd", "xent", "softmax", "multi_tensor")
+           "attention_bwd", "xent", "softmax", "multi_tensor", "batch_norm")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "apex_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

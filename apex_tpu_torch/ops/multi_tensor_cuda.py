@@ -1,10 +1,11 @@
 """Wrappers of the hand-written CUDA multi-tensor kernels
 (``csrc/multi_tensor.cu``): K12 :func:`scale` and :func:`axpby`, K13
-:func:`l2norm`, K14 :func:`adam`, K15 :func:`lamb`. They replace no
-Pallas site: the JAX package computes these in jnp
+:func:`l2norm`, K14 :func:`adam`, K15 :func:`lamb`, K16 :func:`sgd`. They
+replace no Pallas site: the JAX package computes these in jnp
 (``apex_tpu/multi_tensor_apply/multi_tensor_apply.py``,
 ``apex_tpu/amp/scaler.py``, ``apex_tpu/optimizers/fused_adam.py``,
-``fused_lamb.py``); they are the port's counterparts of apex's amp_C. The
+``fused_lamb.py``, ``fused_sgd.py``); they are the port's counterparts of
+apex's amp_C. The
 source's header says what bounds them (bytes) and how the design answers
 that.
 
@@ -24,7 +25,8 @@ caller resets it to 0 before the run it wants to read). The plain
 versions are in :mod:`apex_tpu_torch.ops.multi_tensor` (K12, K13) and in
 the optimizers (K14: ``optimizers/fused_adam._adam_flat`` with the skip
 selects of ``optimizers/_base.apply_plain``; K15: ``optimizers/
-fused_lamb``'s two structures).
+fused_lamb``'s two structures; K16: ``optimizers/fused_sgd``'s update with
+``apply_plain`` and the model copy's cast).
 """
 
 import ctypes
@@ -52,6 +54,7 @@ _SIGNATURES = {
     "multi_tensor_adam": ([_P, _P, _I, _I, _I, _P, _P, _P, _I, _P], _I),
     "multi_tensor_lamb": ([_P, _P, _I, _I, _I, _I, _L, _P, _P, _P, _I, _P],
                           _I),
+    "multi_tensor_sgd": ([_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P], _I),
     "multi_tensor_error_string": ([_I], ctypes.c_char_p),
 }
 # elements a block (csrc/multi_tensor.cu CHUNK) and the bytes of a launch's
@@ -353,8 +356,67 @@ def lamb(grads, params, ms, vs, count, count_new, bc1, bc2, lr, *, beta1,
             chunk_base += sum(counts[i] for i in grp)
 
 
+def sgd(grads, params, bufs, model_params, count, count_new, lr, *,
+        weight_decay, momentum, dampening, nesterov, skip=None):
+    """K16: SGD with momentum in place on every ``params[i]`` (bf16/fp16/
+    fp32) and its fp32 buffer ``bufs[i]``, in the plain version's fp32
+    order (``optimizers/fused_sgd`` ``update``, then ``apply_plain``'s
+    add): weight decay folded into g, ``buf = g`` where ``count_new`` is
+    1 and ``momentum * buf + (1 - dampening) * g`` after, Nesterov's ``g +
+    momentum * buf``, ``-lr * d`` cast to the gradient's dtype and then to
+    the parameter's; ``count = count_new``. With ``model_params`` (a list,
+    or None) each new parameter is also written into ``model_params[i]``
+    in its dtype, the master-to-model copy of amp O2 in the same pass.
+    ``lr`` is a number or a 0-d fp32 tensor read on the device; where
+    ``skip`` (a 0-d bool tensor) is set, nothing is written."""
+    name = "multi_tensor sgd"
+    lists = [grads, params, bufs] + ([model_params] if model_params
+                                     is not None else [])
+    dev = _device(name, *lists)
+    grads = list(grads)
+    for i, (g, p, b) in enumerate(zip(grads, params, bufs)):
+        shapes = [g.shape, p.shape, b.shape] + (
+            [model_params[i].shape] if model_params is not None else [])
+        if any(s != p.shape for s in shapes):
+            raise ValueError(f"{name}: shapes {[tuple(s) for s in shapes]}")
+        if b.dtype != torch.float32:
+            raise ValueError(f"{name}: the momentum buffer must be fp32, "
+                             f"got {b.dtype}")
+        if g.dtype not in (p.dtype, torch.float32):
+            grads[i] = g.float()
+    for t, what, dt in ((count, "count", torch.int32),
+                        (count_new, "count_new", torch.int32)):
+        if t is None or t.dim() != 0 or t.dtype != dt or t.device != dev:
+            raise ValueError(f"{name}: {what} must be a 0-d {dt} tensor on "
+                             f"{dev}")
+    sptr = _state_ptrs(name, dev, None, None, None, None, skip)[4]
+    neg_lr = lr.neg() if torch.is_tensor(lr) else -lr
+    lptr, lval = _scalar(name, neg_lr, dev)
+    hyper = np.array([weight_decay, momentum, 1.0 - dampening, lval],
+                     dtype=np.float32)
+    flags = np.array([weight_decay != 0, momentum != 0, bool(nesterov)],
+                     dtype=np.int32)
+    devptrs = np.array([lptr or 0, sptr, count.data_ptr(),
+                        count_new.data_ptr()], dtype=np.int64)
+    mlist = model_params if model_params is not None else params
+
+    def key(i):
+        m = _code(model_params[i].dtype) if model_params is not None else -1
+        return grads[i].dtype, params[i].dtype, m
+
+    for (dg, dp, dm), idx in _by_dtype(key, len(grads)):
+        for grp in _groups(idx, 4):
+            ptrs, numels = _table((grads, params, bufs, mlist), grp)
+            _build.launch(_NAME, _SIGNATURES, "multi_tensor_sgd", dev,
+                          ptrs.ctypes.data, numels.ctypes.data, len(grp),
+                          _code(dg), _code(dp), dm, hyper.ctypes.data,
+                          flags.ctypes.data, devptrs.ctypes.data)
+            sgd.launches += 1
+
+
 scale.launches = 0
 axpby.launches = 0
 l2norm.launches = 0
 adam.launches = 0
 lamb.launches = 0
+sgd.launches = 0

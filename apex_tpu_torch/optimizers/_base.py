@@ -4,10 +4,13 @@
 Each optimizer is a :class:`GradientTransformation` over dicts of tensors
 keyed by parameter name: ``init(params)``, ``update(grads, state, params)
 -> (updates, new_state)`` (the JAX transform's function, pure) and, for
-the optimizers that have kernels (Adam, LAMB), ``step(grads, state,
-params, found_inf=None)``, the in-place fused form that writes the
-parameters and the state, or leaves them bitwise unchanged where the 0-d
-bool ``found_inf`` is set. Its plain version is :func:`apply_plain`: the
+the optimizers that have kernels (Adam, LAMB, SGD), ``step(grads,
+state, params, found_inf=None, model_params=None)``, the in-place fused
+form that writes the parameters and the state, or leaves them bitwise
+unchanged where the 0-d bool ``found_inf`` is set, and then writes the
+parameters into ``model_params`` (half model copies of fp32 masters) in
+their dtypes: SGD's K16 in the same pass, the others by
+:func:`copy_into`. Its plain version is :func:`apply_plain`: the
 update, then ``bench.py:240-245``'s skip selects written in place.
 :class:`FusedOptimizerBase` is the class surface in PyTorch's idiom.
 """
@@ -87,6 +90,23 @@ def apply_plain(update, grads, state, params, found_inf=None):
         p.copy_(new if found_inf is None else torch.where(found_inf, p, new))
     select_into(state, new_state, found_inf)
     return state
+
+
+@torch.no_grad()
+def copy_into(params, model_params):
+    """Each of ``params`` (e.g. fp32 masters) written into its entry of
+    ``model_params`` (None: nothing to write) in that entry's dtype: K12
+    (``multi_tensor.scale`` by 1) on the card, a group of tensors a
+    launch, as apex copies masters with ``multi_tensor_scale``."""
+    if model_params is None:
+        return
+    names = [n for n in params if params[n].numel()]
+    if not names:
+        return
+    outs, _ = multi_tensor.scale([params[n] for n in names],
+                                 [model_params[n].dtype for n in names], 1.0)
+    for n, o in zip(names, outs):
+        model_params[n].copy_(o)
 
 
 class FusedOptimizerBase(torch.optim.Optimizer):

@@ -35,7 +35,8 @@ import torch
 from apex_tpu_torch import default_device
 from apex_tpu_torch.optimizers._base import (FusedOptimizerBase,
                                              GradientTransformation,
-                                             apply_plain, count_from_numpy,
+                                             apply_plain, copy_into,
+                                             count_from_numpy,
                                              tensors_from_numpy)
 from apex_tpu_torch.optimizers._fused import get_meta
 
@@ -169,10 +170,12 @@ def fused_lamb(learning_rate=1e-3, betas=(0.9, 0.999), eps=1e-6,
         return updates, FusedLAMBState(count, dict(zip(names, ms)),
                                        dict(zip(names, vs)))
 
-    def step(grads, state, params, found_inf=None):
+    def step(grads, state, params, found_inf=None, model_params=None):
         names = list(grads)
         if not names or not grads[names[0]].is_cuda:
-            return apply_plain(update, grads, state, params, found_inf)
+            apply_plain(update, grads, state, params, found_inf)
+            copy_into(params, model_params)
+            return state
         from apex_tpu_torch.ops import multi_tensor_cuda
 
         count = state.count + 1
@@ -187,6 +190,7 @@ def fused_lamb(learning_rate=1e-3, betas=(0.9, 0.999), eps=1e-6,
             weight_decay=weight_decay, adam_w_mode=adam_w_mode,
             bias_correction=bias_correction, max_grad_norm=max_grad_norm,
             trust=trust, global_sq=global_sq, skip=found_inf)
+        copy_into(params, model_params)
         return state
 
     return GradientTransformation(init, update, step)

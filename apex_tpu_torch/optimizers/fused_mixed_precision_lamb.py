@@ -19,7 +19,7 @@ import torch
 from apex_tpu_torch import default_device
 from apex_tpu_torch.optimizers._base import (FusedOptimizerBase,
                                              GradientTransformation,
-                                             apply_plain)
+                                             apply_plain, copy_into)
 from apex_tpu_torch.optimizers._fused import get_meta
 from apex_tpu_torch.optimizers.fused_lamb import FusedLAMBState, fused_lamb
 
@@ -83,10 +83,12 @@ def fused_mixed_precision_lamb(learning_rate=1e-3, betas=(0.9, 0.999),
                 MixedPrecisionLambState(new_flat, inner))
 
     @torch.no_grad()
-    def step(grads, state, params, found_inf=None):
+    def step(grads, state, params, found_inf=None, model_params=None):
         names = list(grads)
         if not names or not grads[names[0]].is_cuda:
-            return apply_plain(update, grads, state, params, found_inf)
+            apply_plain(update, grads, state, params, found_inf)
+            copy_into(params, model_params)
+            return state
         masters = _masters(state)
         lamb.step({n: grads[n].float() for n in masters}, state.inner,
                   masters, found_inf)
@@ -95,6 +97,7 @@ def fused_mixed_precision_lamb(learning_rate=1e-3, betas=(0.9, 0.999),
             new = p + u
             p.copy_(new if found_inf is None
                     else torch.where(found_inf, p, new))
+        copy_into(params, model_params)
         return state
 
     return GradientTransformation(init, update, step)

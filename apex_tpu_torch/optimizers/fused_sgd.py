@@ -4,11 +4,21 @@
 JAX's update: weight decay folded into the gradient, the momentum buffer
 set to the gradient on the first step (``buf = g``, PyTorch's rule) and
 ``mu buf + (1 - dampening) g`` after, Nesterov's ``g + mu buf``, and ``-lr
-d`` cast to the gradient's dtype. The state, :class:`FusedSGDState`, is
-the count and an fp32 buffer per parameter. Plain PyTorch: JAX computes
-it in jnp with no Pallas kernel, and its CUDA kernel is still to come
-(ROADMAP), so ``fused_sgd`` has no fused ``step`` and ``train_step``
-applies its updates with the skip selects.
+d`` cast to the gradient's dtype; the learning rate is a number or a
+schedule of the new step count, a 0-d int32 device tensor, so that it is
+computed on the device. The state, :class:`FusedSGDState`, is the count
+and an fp32 buffer per parameter.
+
+``update`` is that function in plain PyTorch (JAX computes it in jnp
+with no Pallas kernel). ``step(grads, state, params, found_inf=None,
+model_params=None)`` is the in-place fused form: on CUDA tensors one K16
+launch a group of leaves (``csrc/multi_tensor.cu``,
+``ops/multi_tensor_cuda.sgd``) writes p, the buffer and the count in the
+same fp32 order, so it equals ``apply_plain`` over ``update`` bit for
+bit, and with ``model_params`` it also writes each new parameter into
+its model copy in the copy's dtype (amp O2's master-to-model copy in the
+same pass); where ``found_inf`` is set it writes nothing. On the CPU it
+is the plain form, then the copy.
 """
 
 import dataclasses
@@ -18,6 +28,7 @@ import torch
 from apex_tpu_torch import default_device
 from apex_tpu_torch.optimizers._base import (FusedOptimizerBase,
                                              GradientTransformation,
+                                             apply_plain, copy_into,
                                              count_from_numpy,
                                              tensors_from_numpy)
 
@@ -38,8 +49,9 @@ class FusedSGDState:
 
 def fused_sgd(learning_rate=1e-3, momentum=0.0, dampening=0.0,
               weight_decay=0.0, nesterov=False):
-    """Fused SGD as ``(init, update)`` over dicts of tensors keyed by
-    name; ``learning_rate`` a float or a schedule of the new step count."""
+    """Fused SGD as ``(init, update, step)`` over dicts of tensors
+    keyed by name; ``learning_rate`` a float or a schedule of the new step
+    count."""
     if nesterov and (momentum <= 0 or dampening != 0):
         raise ValueError("Nesterov momentum requires a momentum and zero dampening")
 
@@ -71,7 +83,28 @@ def fused_sgd(learning_rate=1e-3, momentum=0.0, dampening=0.0,
             bufs[n] = buf
         return updates, FusedSGDState(count, bufs)
 
-    return GradientTransformation(init, update)
+    def step(grads, state, params, found_inf=None, model_params=None):
+        names = list(grads)
+        if not names or not grads[names[0]].is_cuda:
+            apply_plain(update, grads, state, params, found_inf)
+            copy_into(params, model_params)
+            return state
+        from apex_tpu_torch.ops import multi_tensor_cuda
+
+        count = state.count + 1
+        lr = learning_rate(count) if callable(learning_rate) \
+            else learning_rate
+        multi_tensor_cuda.sgd(
+            [grads[n] for n in names], [params[n] for n in names],
+            [state.momentum_buf[n] for n in names],
+            None if model_params is None
+            else [model_params[n] for n in names],
+            state.count, count, lr, weight_decay=weight_decay,
+            momentum=momentum, dampening=dampening, nesterov=nesterov,
+            skip=found_inf)
+        return state
+
+    return GradientTransformation(init, update, step)
 
 
 class FusedSGD(FusedOptimizerBase):

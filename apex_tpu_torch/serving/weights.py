@@ -1,4 +1,4 @@
-"""The GPT and BERT parameter trees on the PyTorch side.
+"""The GPT, BERT and ResNet parameter trees on the PyTorch side.
 
 The port keeps the JAX package's GPTModel parameter tree as it is:
 nested dicts with the same keys and the same ``[out, in]`` weight layout
@@ -47,6 +47,13 @@ the compute dtype themselves.
   draws a rank's parameters, so that ``load_param_tree(model,
   shard_param_tree(from_jax_params(tree, cfg), cfg, rank, tp))`` feeds
   rank ``rank`` of a ``GPTModel(cfg, tp_size=tp)``.
+* :func:`load_resnet_from_jax` copies a flax ResNet's ``params`` and
+  ``batch_stats`` (``apex_tpu/models/resnet.py``) into a
+  :class:`~apex_tpu_torch.models.ResNet`, whose module names are flax's:
+  convolution kernels HWIO → OIHW, the ``fc`` kernel ``[in, out]`` →
+  ``[out, in]``, batch-norm ``weight``/``bias`` as they are, the running
+  stats into the buffers, each in the parameter's dtype;
+  :func:`resnet_to_jax` is its inverse (numpy trees).
 * :func:`init_gpt_params` draws the same tree shapes from a
   ``torch.Generator`` — normal(0, ``init_method_std``), the two output
   projections scaled by ``1/sqrt(2 * num_layers)`` as GPTModel does,
@@ -278,3 +285,70 @@ def param_tree(model):
             node = node.setdefault(key, {})
         node[leaf] = p.detach()
     return tree
+
+
+def _resnet_names(model):
+    """(dotted name, flax path, kind) of each parameter of a ResNet."""
+    out = []
+    for name, p in model.named_parameters():
+        *mod, leaf = name.split(".")
+        kind = ("conv" if p.dim() == 4 else
+                "fc" if mod == ["fc"] and leaf == "weight" else "as_is")
+        flax_leaf = "kernel" if kind in ("conv", "fc") else leaf
+        out.append((name, (*mod, flax_leaf), kind))
+    return out
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+@torch.no_grad()
+def load_resnet_from_jax(model, params, batch_stats=None):
+    """Copy a flax ResNet's ``params`` (and ``batch_stats``), nested dicts
+    of arrays, into ``model`` in place; every shape is checked."""
+    for name, path, kind in _resnet_names(model):
+        a = torch.from_numpy(np.array(_at(params, path), dtype=np.float32))
+        if kind == "conv":
+            a = a.permute(3, 2, 0, 1)
+        elif kind == "fc":
+            a = a.t()
+        p = model.get_parameter(name)
+        if tuple(a.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: JAX {tuple(a.shape)} vs port "
+                             f"{tuple(p.shape)}")
+        p.copy_(a.to(p.dtype))
+    if batch_stats is not None:
+        for name, buf in model.named_buffers():
+            *mod, leaf = name.split(".")
+            a = np.array(_at(batch_stats, (*mod, leaf)), dtype=np.float32)
+            if tuple(a.shape) != tuple(buf.shape):
+                raise ValueError(f"{name}: JAX {a.shape} vs port "
+                                 f"{tuple(buf.shape)}")
+            buf.copy_(torch.from_numpy(a))
+    return model
+
+
+def resnet_to_jax(model):
+    """``(params, batch_stats)`` of a ResNet as flax's nested dicts of fp32
+    numpy arrays (the inverse of :func:`load_resnet_from_jax`)."""
+    params, stats = {}, {}
+    for name, path, kind in _resnet_names(model):
+        t = model.get_parameter(name).detach().float().cpu()
+        if kind == "conv":
+            t = t.permute(2, 3, 1, 0)
+        elif kind == "fc":
+            t = t.t()
+        node = params
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = t.contiguous().numpy()
+    for name, buf in model.named_buffers():
+        *mod, leaf = name.split(".")
+        node = stats
+        for k in mod:
+            node = node.setdefault(k, {})
+        node[leaf] = buf.detach().float().cpu().numpy()
+    return params, stats

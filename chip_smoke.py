@@ -26,7 +26,7 @@ exits non-zero before the last line):
 1. device: ``nvidia-smi`` name and power limit, the SM clock's maximum
    (the INT32 rate assumes it), torch and CUDA versions; TF32 is
    switched off for fp32 matmuls and convolutions.
-2. build: the seven CUDA sources compile from ``apex_tpu_torch/csrc`` (one
+2. build: the eight CUDA sources compile from ``apex_tpu_torch/csrc`` (one
    ``nvcc`` each, all in parallel) into ``build/apex_tpu_torch/``; ptxas's
    registers and spills are printed, and, where the toolkit has
    ``cuobjdump``, the tensor-core instructions (``HGMMA``: wgmma;
@@ -132,6 +132,18 @@ exits non-zero before the last line):
    recovered from its output (q = k = 0, V the identity in column blocks
    of the head dim) where the plain mask keeps and the segments agree,
    bit for bit, at head dims 64 (BERT-large's) and 128, fp32 and bf16.
+   Then ResNet-50's kernels: K17 (the batch-norm forward's two stages)
+   and K18 (the backward's) against their plain versions at ``BN_SHAPES``
+   (``[256, 64, 112, 112]`` with the fused ReLU, ``[256, 256, 56, 56]``,
+   ``[256, 2048, 7, 7]``, bf16, NHWC rows) and ``[32, 256, 56, 56]``
+   fp32: the sums and saved statistics within ``BN_STAT_TOL``, y and dx
+   by relative L2 within ``BN_L2_TOL``, each stats stage twice the same
+   bits; timed in turns with cuDNN's ``F.batch_norm`` (training, the
+   channels_last view) and its backward, bounded by x read once and y
+   written once (K18: x, dy once, dx once), ``by_shape``; and K16 (SGD,
+   the O2 four-list form writing the bf16 copy) on ResNet-50's 161
+   leaves in turns with ``torch.optim.SGD(fused=True).step``, bound 22
+   bytes a parameter.
 4. serving end to end: ``ServingEngine`` at GPT-2-small width (12 x 768,
    12 heads, vocab 50304, 1024 positions, bf16; 8 slots, page size 128,
    72 pages, 512-token packed prefill) with random weights from seed 0
@@ -225,8 +237,38 @@ exits non-zero before the last line):
    falling) and a profiled two-step window; then at 2 of its layers, b =
    2, each window's kernel path against its plain path within the
    training bands, and the pooler's and binary head's parameters after
-   one LAMB step on each path within ``MT_LAMB_TOL``. Last, this slice's
-   main path:
+   one LAMB step on each path within ``MT_LAMB_TOL``. Then ResNet-50
+   (BASELINE configs 1-2; ``RESNET``: 224^2 synthetic images from a seed,
+   1000 classes, b = 256, ``fused_sgd`` lr 0.1 on the ImageNet example's
+   ``make_lr_schedule``, momentum 0.9, decay 1e-4, random weights from
+   seed 0, no depth cut) trained by ``examples/imagenet.build_train_step``:
+   R-O2 (bf16 parameters over fp32 masters, JAX's batch-norm predicate:
+   only ``bn_init``'s two fp32; K12, K16 writing the bf16 copy) and R-O1
+   (fp32 parameters, bf16 convolutions, no masters; K12, K16), each
+   SyncBatchNorm on K17/K18: 2 warm-up and 5 timed steps, step ms,
+   images/s, MFU = 3 x the forward FLOPs of the convolutions and fc (8.18
+   GFLOP an image) x b / step / 989 TFLOP/s, peak memory, the losses of
+   steps 1-7, the launches a step (K17's and K18's stages 53 each, K12 and
+   K16 once a group, nothing else), one step with each of its 212 K17/K18
+   calls held against the plain version on the same activations (y and
+   dx within ``BN_L2_TOL``, the sums and statistics within
+   ``BN_STAT_TOL``), a profiled two-step window (busy share, device ms by
+   kind: conv, batch_norm, elementwise, optimizer, sgd, matmul, other)
+   whose K17/K18 stages the device ran 106 times each; then the kernel
+   path against the plain path at b = 8 (``RESNET_AGREE``: one O0 step's
+   loss and gradients, one O2 step's loss, within the larger of the
+   training bands and twice the move under ``NUDGE``) and K16 against the
+   plain SGD bit for bit over 7 steps of real gradients, step 4's loss
+   scale infinite; then R-DDP (``RESNET_DDP``): two ranks started with
+   ``spawn``, NCCL with a card each or gloo on one, O2 with SyncBatchNorm
+   over the group at b = 32 a rank, three steps, every rank's masters,
+   bf16 parameters and running stats bit-equal after each (checksums,
+   all-reduce MAX against MIN); in step 1 each rank's K17/K18 calls held
+   as above, with the all-reduced sums against the whole batch's, and
+   the averaged gradients against the mean of the ranks' own; rank 0's
+   loss against one process on the 64 images with local batch norm; step
+   ms and all-reduces a step recorded; the ResNet phases' seconds against
+   the ~120 s they were given. Last, this slice's main path:
    GPT-2-small at tensor-parallel size 2 (the vocabulary padded to 50432
    = ``pad_vocab_size(50257, 2)``, the fused head, no dropout) trained by
    ``make_one_step`` with the ``GradScaler`` in two ranks started with
@@ -455,6 +497,33 @@ BERT_TRAIN = dict(batch=16, seq=512, warmup=2, timed=5, lr=1e-4,
 BERT_AGREE = dict(layers=2, batch=2)
 
 # the serving configuration the repo benchmarks (GPT-2 small)
+# ResNet-50 (BASELINE configs 1-2: examples/imagenet/main_amp.py's recipe,
+# fused_sgd lr 0.1 on make_lr_schedule over ImageNet's 5004 steps an epoch
+# at b = 256, momentum 0.9, weight decay 1e-4), synthetic 224^2 images
+RESNET = dict(batch=256, image=224, classes=1000, warmup=2, timed=5, lr=0.1,
+              momentum=0.9, weight_decay=1e-4, len_epoch=1281167 // 256)
+# config 2 at world 2: b = 32 a rank, O2, SyncBatchNorm over the group
+RESNET_DDP = dict(world=2, batch=32, steps=3, seed=3, timeout_s=420)
+# relative L2 of R-DDP's averaged gradients against the mean of the ranks'
+# own: at world 2 one fp32 add and a halving, the same bits in any order
+DDP_GRAD_TOL = 1e-6
+# kernel vs plain path at full width: b = 8, one O0 and one O2 step; K16
+# against the plain SGD over 7 steps of real gradients, step 4's loss
+# scale inf
+RESNET_AGREE = dict(batch=8, sgd_steps=7, overflow_step=3)
+# K17 / K18 against their plain versions at ResNet-50's batch-norm shapes
+# (NCHW, as rows [N H W, C] in channels_last), bf16, and one fp32 shape;
+# the first takes the fused ReLU (bn_init's and a stage-0 bn1's width)
+BN_SHAPES = ((256, 64, 112, 112), (256, 256, 56, 56), (256, 2048, 7, 7))
+BN_MAIN_SHAPE = (256, 256, 56, 56)
+BN_FP32_SHAPE = (32, 256, 56, 56)
+# relative L2 of K17's y and K18's dx against the plain versions, and the
+# sums, saved mean and rstd over their largest magnitude (the card tests'
+# bands, tests/port/test_torch_kernels_cuda.py BN_L2_TOL, BN_STAT_TOL; an
+# H100 measured at most 8.9e-6 / 4.2e-8 for y, 0 for dx, 5.6e-7 for the
+# sums at these shapes)
+BN_L2_TOL = {torch.bfloat16: 5e-5, torch.float32: 3e-7}
+BN_STAT_TOL = 3e-6
 MODEL = dict(hidden_size=768, num_layers=12, num_attention_heads=12,
              vocab_size=50304, max_position_embeddings=1024,
              hidden_dropout=0.0, attention_dropout=0.0,
@@ -1561,6 +1630,11 @@ TRACED_KERNELS = {
     "decode_attention_quant": r"decode_attention_split<[^>]*\btrue>",
     "softmax_fwd": r"softmax_fwd_kernel<",
     "softmax_fwd_long": r"softmax_fwd_long_(regs|smem|walk)<",
+    "batch_norm_fwd_stats": r"bn_stats_kernel<[^>]*\bfalse>",
+    "batch_norm_fwd_apply": r"bn_fwd_apply_kernel<",
+    "batch_norm_bwd_stats": r"bn_stats_kernel<[^>]*\btrue>",
+    "batch_norm_bwd_apply": r"bn_bwd_apply_kernel<",
+    "multi_tensor_sgd": r"\bsgd_kernel<",
 }
 
 
@@ -2891,8 +2965,9 @@ def phase_xent_kernels(dev, flush):
 
 def _training_counts():
     from apex_tpu_torch.ops import (attention_bwd_cuda, attention_cuda,
-                                    layer_norm_cuda, multi_tensor_cuda,
-                                    softmax_cuda, xent_cuda)
+                                    batch_norm_cuda, layer_norm_cuda,
+                                    multi_tensor_cuda, softmax_cuda,
+                                    xent_cuda)
 
     return {"prefill_attention": attention_cuda.prefill_attention,
             "attention_bwd_dq": attention_bwd_cuda.attention_bwd_dq,
@@ -2916,7 +2991,12 @@ def _training_counts():
             "multi_tensor_scale": multi_tensor_cuda.scale,
             "multi_tensor_l2norm": multi_tensor_cuda.l2norm,
             "multi_tensor_adam": multi_tensor_cuda.adam,
-            "multi_tensor_lamb": multi_tensor_cuda.lamb}
+            "multi_tensor_lamb": multi_tensor_cuda.lamb,
+            "multi_tensor_sgd": multi_tensor_cuda.sgd,
+            "batch_norm_fwd_stats": batch_norm_cuda.fwd_stats,
+            "batch_norm_fwd_apply": batch_norm_cuda.fwd_apply,
+            "batch_norm_bwd_stats": batch_norm_cuda.bwd_stats,
+            "batch_norm_bwd_apply": batch_norm_cuda.bwd_apply}
 
 
 def _warmup_cosine(count):
@@ -3146,8 +3226,9 @@ def _ragged_leaves(dev, seed):
 
 def _same_bits(a, b):
     a, b = a.contiguous(), b.contiguous()
+    bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[a.element_size()]
     return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
-        a.view(torch.int32), b.view(torch.int32))
+        a.view(bits), b.view(bits))
 
 
 def _copy(tree):
@@ -3697,10 +3778,11 @@ def _plain_patches():
 
 
 @contextlib.contextmanager
-def _plain_path():
-    """The block runs the plain path (``_plain_patches``)."""
+def _plain_path(patches=None):
+    """The block runs the plain path: ``patches``, by default
+    ``_plain_patches()``."""
     with contextlib.ExitStack() as stack:
-        for patch in _plain_patches():
+        for patch in _plain_patches() if patches is None else patches:
             stack.enter_context(patch)
         yield
 
@@ -4812,13 +4894,988 @@ def phase_training_tp2(dev, card):
     return ranks[0]["window"]["launches"], stats
 
 
+def _bn_rows(dev, shape, dtype, seed):
+    """x and dy of a batch-norm shape (NCHW) as NHWC rows [N H W, C], the
+    scale and bias in the main path's dtype (bf16 under O2, fp32 with an
+    fp32 activation), fp32 running stats."""
+    n, c, h, w = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(n * h * w, c, generator=gen, device=dev) * 2.0
+         + 0.5).to(dtype)
+    dy = torch.randn(n * h * w, c, generator=gen, device=dev).to(dtype)
+    wt = (torch.rand(c, generator=gen, device=dev) + 0.5).to(dtype)
+    b = torch.randn(c, generator=gen, device=dev).to(dtype)
+    rm = torch.zeros(c, device=dev)
+    rv = torch.ones(c, device=dev)
+    return x, dy, wt, b, rm, rv
+
+
+def _stat_err(got, want):
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError("kernel output is not finite")
+    return ((got - want).abs().max()
+            / want.abs().max().clamp(min=1e-30)).item()
+
+
+def _bn_check(dev, shape, dtype, fuse_relu, seed):
+    """K17's two stages and K18's against their plain versions at one
+    shape: the sums and the saved statistics within BN_STAT_TOL, y and dx
+    by relative L2 within BN_L2_TOL, two runs of each stats stage the
+    same bits. Returns the errors and the inputs."""
+    from apex_tpu_torch.ops import batch_norm as bn
+    from apex_tpu_torch.ops import batch_norm_cuda as bnc
+
+    x, dy, wt, b, rm, rv = _bn_rows(dev, shape, dtype, seed)
+    stats = bnc.fwd_stats(x)
+    repeat = _same_bits(stats, bnc.fwd_stats(x))
+    errs = {"stats": _stat_err(stats, bn.fwd_stats_reference(x))}
+    rm2, rv2 = rm.clone(), rv.clone()
+    y, mean, rstd = bnc.fwd_apply(x, stats, wt, b, rm, rv, 1e-5, 0.1, True,
+                                  fuse_relu)
+    ry, rmean, rrstd = bn.fwd_apply_reference(x, stats, wt, b, rm2, rv2,
+                                              1e-5, 0.1, True, fuse_relu)
+    errs["mean_rstd_running"] = max(_stat_err(mean, rmean),
+                                    _stat_err(rstd, rrstd),
+                                    _stat_err(rm, rm2), _stat_err(rv, rv2))
+    errs["y_rel_l2"] = _rel_l2(y, ry)
+    del ry
+    sums = bnc.bwd_stats(x, dy, mean, rstd, wt, b, fuse_relu)
+    repeat &= _same_bits(sums, bnc.bwd_stats(x, dy, mean, rstd, wt, b,
+                                             fuse_relu))
+    errs["bwd_sums"] = _stat_err(sums, bn.bwd_stats_reference(
+        x, dy, mean, rstd, wt, b, fuse_relu))
+    dx = bnc.bwd_apply(x, dy, mean, rstd, wt, b, sums, stats, True,
+                       fuse_relu)
+    errs["dx_rel_l2"] = _rel_l2(dx, bn.bwd_apply_reference(
+        x, dy, mean, rstd, wt, b, sums, stats, True, fuse_relu))
+    bad = [k for k, v in errs.items()
+           if v > (BN_L2_TOL[dtype] if k.endswith("l2") else BN_STAT_TOL)]
+    if bad or not repeat:
+        raise AssertionError(f"K17/K18 at {shape} {dtype}: {errs} (bands "
+                             f"{BN_L2_TOL[dtype]}, {BN_STAT_TOL}), "
+                             f"repeatable {repeat}")
+    return errs, (x, dy, wt, b, rm, rv, stats, mean, rstd, sums)
+
+
+def _bn_times(dev, flush, shape, dtype, inputs):
+    """K17 and K18 at one shape, each in turns with its library call
+    (``F.batch_norm(training=True)`` on the channels_last view, cuDNN, and
+    its backward through ``torch.autograd.grad`` on a graph built outside
+    the timed region), the plain versions' times, and the bounds: K17's
+    x read once and y written once, K18's x and dy read once and dx
+    written once (the two-stage design reads x, and dy, once more)."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import batch_norm as bn
+    from apex_tpu_torch.ops import batch_norm_cuda as bnc
+
+    x, dy, wt, b, rm, rv, stats, mean, rstd, sums = inputs
+    n, c, h, w = shape
+    size = x.element_size()
+
+    def k17():
+        s = bnc.fwd_stats(x)
+        return bnc.fwd_apply(x, s, wt, b, rm, rv, 1e-5, 0.1, True, False)
+
+    def k18():
+        su = bnc.bwd_stats(x, dy, mean, rstd, wt, b, False)
+        return bnc.bwd_apply(x, dy, mean, rstd, wt, b, su, stats, True,
+                             False)
+
+    def plain17():
+        s = bn.fwd_stats_reference(x)
+        return bn.fwd_apply_reference(x, s, wt, b, rm, rv, 1e-5, 0.1, True,
+                                      False)
+
+    def plain18():
+        su = bn.bwd_stats_reference(x, dy, mean, rstd, wt, b, False)
+        return bn.bwd_apply_reference(x, dy, mean, rstd, wt, b, su, stats,
+                                      True, False)
+
+    xc = x.view(n, h, w, c).permute(0, 3, 1, 2).detach().requires_grad_()
+    wf = wt.float().requires_grad_()
+    bf = b.float().requires_grad_()
+    lrm, lrv = rm.clone(), rv.clone()
+
+    def lib17():
+        return F.batch_norm(xc, lrm, lrv, wf, bf, training=True)
+
+    yc = lib17()
+    dyc = dy.view(n, h, w, c).permute(0, 3, 1, 2)
+
+    def lib18():
+        return torch.autograd.grad(yc, (xc, wf, bf), dyc, retain_graph=True)
+
+    elems = x.numel()
+    out = {}
+    for name, fn, lib, plain, nbytes in (
+            ("fwd", k17, lib17, plain17, 2 * size * elems),
+            ("bwd", k18, lib18, plain18, 3 * size * elems)):
+        spread = []
+        t = _turns(fn, lib, flush, "batch_norm", spread=spread)
+        bound = _bound(nbytes, 0)
+        out[name] = dict(t, ms_spread=spread,
+                         plain_ms=_time_ms(plain, flush, reps=5),
+                         bound_ms=bound[0], bound_by=bound[1], bytes=nbytes,
+                         design_bytes=(3 if name == "fwd" else 5) * size
+                         * elems)
+    del yc
+    return out
+
+
+def phase_batch_norm_kernels(dev, flush):
+    """K17 and K18 against their plain versions at ResNet-50's batch-norm
+    shapes in bf16 (``BN_SHAPES``; the 64-channel one with the fused
+    ReLU) and one fp32 shape, each timed in turns with cuDNN's
+    ``F.batch_norm`` forward and backward; the rows report
+    ``BN_MAIN_SHAPE`` and carry the others ``by_shape``."""
+    source = "apex_tpu_torch/csrc/batch_norm.cu"
+    by_shape = {}
+    main = None
+    for shape, dtype in [(s, torch.bfloat16) for s in BN_SHAPES] + [
+            (BN_FP32_SHAPE, torch.float32)]:
+        errs, inputs = _bn_check(dev, shape, dtype,
+                                 fuse_relu=shape[1] == 64, seed=sum(shape))
+        times = _bn_times(dev, flush, shape, dtype, inputs)
+        key = f"{list(shape)} {str(dtype).replace('torch.', '')}"
+        by_shape[key] = {"errors": errs, **times}
+        _log(f"K17/K18 {key}: " + json.dumps(by_shape[key]))
+        if shape == BN_MAIN_SHAPE:
+            main = key
+        del inputs
+        torch.cuda.empty_cache()
+    rows = []
+    for name, which, err_key, replaces in (
+            ("batch_norm_fwd", "fwd", "y_rel_l2",
+             "apex_tpu/parallel/sync_batchnorm.py:23"),
+            ("batch_norm_bwd", "bwd", "dx_rel_l2",
+             "apex_tpu/parallel/sync_batchnorm.py:23")):
+        m = by_shape[main]
+        rows.append(dict(
+            {k: m[which][k] for k in ("ms", "ms_turns", "library_ms",
+                                      "ms_spread", "plain_ms", "bound_ms",
+                                      "bound_by", "bytes", "design_bytes")},
+            name=name, route="cuda", source=source, replaces=replaces,
+            counterparts=["apex_tpu/parallel/sync_batchnorm.py:23 "
+                          "sync_batch_norm" + (" (its autodiff)"
+                                               if which == "bwd" else "")],
+            shape=list(BN_MAIN_SHAPE), dtype="bfloat16",
+            max_abs_err=m["errors"][err_key], band=BN_L2_TOL[torch.bfloat16],
+            errors=m["errors"],
+            by_shape={k: {**v[which], "errors": v["errors"]}
+                      for k, v in by_shape.items()}))
+        _log(f"{name}: " + json.dumps(rows[-1]))
+    return rows
+
+
+def _resnet_leaves(dev, seed=0):
+    """ResNet-50's 161 parameters under O2: fp32 masters, their model
+    copies (bf16, bn_init's two fp32) and seeded fp32 gradients."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import resnet50
+
+    model = resnet50(dtype=torch.bfloat16, device=dev, seed=seed)
+    amp.initialize(model, opt_level="O2", verbosity=0)
+    copies = {n: p.detach() for n, p in model.named_parameters()}
+    masters = {n: p.float().clone() for n, p in copies.items()}
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    grads = {n: torch.randn(p.shape, generator=gen, device=dev) * 1e-2
+             for n, p in masters.items()}
+    return masters, copies, grads
+
+
+def phase_sgd_kernel(dev, flush):
+    """K16 on ResNet-50's 161 leaves (25.6 M parameters): the O2 step's
+    four-list form (fp32 gradient, master and buffer; the model copy),
+    timed in turns with ``torch.optim.SGD(fused=True).step`` on fp32
+    copies of the masters (momentum 0.9, weight decay 1e-4), against
+    ``apply_plain`` over ``fused_sgd``'s update and the copy's cast; the
+    bound is its bytes, 22 a parameter with a bf16 copy (g, p, buf read;
+    p, buf, the copy written). Its bitwise check runs on real gradients
+    in ``phase_resnet_paths_agree``."""
+    from apex_tpu_torch.ops import multi_tensor_cuda as mt
+    from apex_tpu_torch.optimizers import fused_sgd
+    from apex_tpu_torch.optimizers._base import apply_plain
+
+    masters, copies, grads = _resnet_leaves(dev)
+    names = list(masters)
+    n = sum(p.numel() for p in masters.values())
+    half = sum(p.numel() for p in copies.values()
+               if p.dtype != torch.float32)
+    nbytes = 20 * n + 2 * half + 4 * (n - half)
+    tx = fused_sgd(learning_rate=RESNET["lr"], momentum=RESNET["momentum"],
+                   weight_decay=RESNET["weight_decay"])
+    state = tx.init(masters)
+    no = torch.tensor(False, device=dev)
+    lists = ([grads[k] for k in names], [masters[k] for k in names],
+             [state.momentum_buf[k] for k in names], [copies[k] for k in names])
+    count_new = state.count + 1
+
+    def k16():
+        mt.sgd(*lists, state.count, count_new, RESNET["lr"],
+               weight_decay=RESNET["weight_decay"],
+               momentum=RESNET["momentum"], dampening=0.0, nesterov=False,
+               skip=no)
+
+    lib_p = [torch.nn.Parameter(masters[k].clone()) for k in names]
+    for p, k in zip(lib_p, names):
+        p.grad = grads[k]
+    lib = torch.optim.SGD(lib_p, lr=RESNET["lr"], momentum=RESNET["momentum"],
+                          weight_decay=RESNET["weight_decay"], fused=True)
+    pm = {k: t.clone() for k, t in masters.items()}
+    pc = {k: t.clone() for k, t in copies.items()}
+    ps = tx.init(pm)
+
+    def plain():
+        apply_plain(tx.update, grads, ps, pm, no)
+        for k in names:
+            pc[k].copy_(pm[k].to(pc[k].dtype))
+
+    spread = []
+    t = _turns(k16, lib.step, flush, "multi_tensor", spread=spread,
+               spin=MT_SPIN)
+    plain_ms = _time_ms(plain, flush, reps=5)
+    bound = _bound(nbytes, 0)
+    row = dict(name="multi_tensor_sgd", route="cuda",
+               source="apex_tpu_torch/csrc/multi_tensor.cu",
+               replaces="apex_tpu/optimizers/fused_sgd.py:41",
+               counterparts=["apex_tpu/optimizers/fused_sgd.py:41 update",
+                             "apex_tpu/amp/amp_optimizer.py:119-134 skip "
+                             "selects and master-to-model copy"],
+               max_abs_err=0.0, leaves=len(names), elements=n,
+               ms_spread=spread, plain_ms=plain_ms, bound_ms=bound[0],
+               bound_by=bound[1], bytes=nbytes, **t)
+    _log("K16: " + json.dumps(row))
+    del lib_p, lib, masters, copies, grads, pm, pc
+    torch.cuda.empty_cache()
+    return row
+
+
+def _resnet_sgd(plain=False):
+    """The recipe's ``fused_sgd`` on ``make_lr_schedule`` (the fused step
+    on K16), or with ``plain`` its update alone (``apply_plain``)."""
+    from apex_tpu_torch.examples import imagenet
+    from apex_tpu_torch.optimizers import fused_sgd
+    from apex_tpu_torch.optimizers._base import GradientTransformation
+
+    tx = fused_sgd(learning_rate=imagenet.make_lr_schedule(
+        RESNET["lr"], RESNET["len_epoch"]), momentum=RESNET["momentum"],
+        weight_decay=RESNET["weight_decay"])
+    return GradientTransformation(tx.init, tx.update) if plain else tx
+
+
+def _resnet_setup(dev, level, seed=0, group=None, plain=False):
+    """ResNet-50 under amp ``level`` (the policy's compute dtype for its
+    convolutions), ``amp.initialize`` with the recipe's SGD, its state and
+    the ImageNet example's step over ``group``."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.amp.frontend import (Properties, build_policy,
+                                             opt_levels)
+    from apex_tpu_torch.examples import imagenet
+    from apex_tpu_torch.models import resnet50
+
+    dtype = build_policy(opt_levels[level](Properties())).compute_dtype
+    model = resnet50(num_classes=RESNET["classes"], norm_process_group=group,
+                     dtype=dtype, device=dev, seed=seed)
+    model, opt = amp.initialize(model, _resnet_sgd(plain), opt_level=level,
+                                verbosity=0)
+    state = opt.init(dict(model.named_parameters()))
+    step = imagenet.build_train_step(model, opt, group, dtype)
+    return model, opt, state, step, dtype
+
+
+def _resnet_batch(dev, batch, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    images = torch.rand(batch, 3, RESNET["image"], RESNET["image"],
+                        generator=gen, device=dev)
+    labels = torch.randint(0, RESNET["classes"], (batch,), generator=gen,
+                           device=dev)
+    return images, labels
+
+
+def _resnet_want(model, level):
+    """Launches a step: K17's and K18's stages once a batch norm each, the
+    unscale's K12 once a group of (gradient dtype) leaves, K16 once a
+    group of (model-copy dtype) leaves; nothing else."""
+    from apex_tpu_torch.ops import multi_tensor_cuda as mt
+
+    params = list(model.parameters())
+    norms = sum(1 for m in model.modules()
+                if type(m).__name__ == "SyncBatchNorm")
+    by = {}
+    for p in params:
+        by[p.dtype] = by.get(p.dtype, 0) + 1
+
+    def groups(counts, depth):
+        return sum(-(-k // mt.capacity(depth)) for k in counts)
+
+    want = dict.fromkeys(_training_counts(), 0)
+    want.update(dict.fromkeys(("batch_norm_fwd_stats", "batch_norm_fwd_apply",
+                               "batch_norm_bwd_stats", "batch_norm_bwd_apply"),
+                              norms))
+    want["multi_tensor_scale"] = groups(by.values(), 2)
+    want["multi_tensor_sgd"] = groups(
+        by.values() if level == "O2" else [len(params)], 4)
+    return want, norms
+
+
+def _with_totals(launches):
+    out = dict(launches)
+    out["batch_norm_fwd"] = (launches["batch_norm_fwd_stats"]
+                             + launches["batch_norm_fwd_apply"])
+    out["batch_norm_bwd"] = (launches["batch_norm_bwd_stats"]
+                             + launches["batch_norm_bwd_apply"])
+    return out
+
+
+@contextlib.contextmanager
+def _bn_held(records, group=None, backend=None):
+    """Each K17 and K18 stage that the block launches is held against its
+    plain version on the same inputs (the running stats cloned before
+    K17's second stage updates them), one record a call in ``records``:
+    the sums and the saved statistics by ``_stat_err``, y and dx by
+    relative L2. With a ``group`` of ranks the all-reduced sums that
+    reach the second stages are also held against the whole batch's:
+    each rank's plain sums gathered and added in rank order (over the
+    host under gloo)."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.ops import batch_norm as bn
+    from apex_tpu_torch.ops import batch_norm_cuda as bnc
+
+    kernel = {name: getattr(bnc, name) for name in (
+        "fwd_stats", "fwd_apply", "bwd_stats", "bwd_apply")}
+
+    def whole(local):
+        t = local if backend == "nccl" else local.cpu()
+        parts = [torch.empty_like(t)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, t, group=group)
+        total = parts[0].clone()
+        for part in parts[1:]:
+            total += part
+        return total.to(local.device)
+
+    def note(stage, x2d, **errors):
+        records.append({"stage": stage, "rows": x2d.shape[0],
+                        "channels": x2d.shape[1], "dtype": x2d.dtype,
+                        "errors": errors})
+
+    def fwd_stats(x2d):
+        out = kernel["fwd_stats"](x2d)
+        note("fwd_stats", x2d,
+             stats=_stat_err(out, bn.fwd_stats_reference(x2d)))
+        return out
+
+    def fwd_apply(x2d, stats, weight, bias, rm, rv, eps, momentum, training,
+                  fuse_relu):
+        rm2 = None if rm is None else rm.clone()
+        rv2 = None if rv is None else rv.clone()
+        y, mean, rstd = kernel["fwd_apply"](x2d, stats, weight, bias, rm, rv,
+                                            eps, momentum, training,
+                                            fuse_relu)
+        ry, rmean, rrstd = bn.fwd_apply_reference(
+            x2d, stats, weight, bias, rm2, rv2, eps, momentum, training,
+            fuse_relu)
+        errors = {"y_rel_l2": _rel_l2(y, ry),
+                  "mean_rstd": max(_stat_err(mean, rmean),
+                                   _stat_err(rstd, rrstd))}
+        if rm is not None:
+            errors["running"] = max(_stat_err(rm, rm2), _stat_err(rv, rv2))
+        if group is not None and training:
+            errors["synced_stats"] = _stat_err(
+                stats, whole(bn.fwd_stats_reference(x2d)))
+        note("fwd_apply", x2d, **errors)
+        return y, mean, rstd
+
+    def bwd_stats(x2d, dy2d, mean, rstd, weight, bias, fuse_relu):
+        out = kernel["bwd_stats"](x2d, dy2d, mean, rstd, weight, bias,
+                                  fuse_relu)
+        note("bwd_stats", x2d, sums=_stat_err(out, bn.bwd_stats_reference(
+            x2d, dy2d, mean, rstd, weight, bias, fuse_relu)))
+        return out
+
+    def bwd_apply(x2d, dy2d, mean, rstd, weight, bias, sums, stats, training,
+                  fuse_relu):
+        dx = kernel["bwd_apply"](x2d, dy2d, mean, rstd, weight, bias, sums,
+                                 stats, training, fuse_relu)
+        errors = {"dx_rel_l2": _rel_l2(dx, bn.bwd_apply_reference(
+            x2d, dy2d, mean, rstd, weight, bias, sums, stats, training,
+            fuse_relu))}
+        if group is not None and training:
+            errors["synced_sums"] = _stat_err(sums, whole(
+                bn.bwd_stats_reference(x2d, dy2d, mean, rstd, weight, bias,
+                                       fuse_relu)))
+        note("bwd_apply", x2d, **errors)
+        return dx
+
+    # each wrapper counts its launches on the function its module name
+    # binds, which is the stand-in here: carry the count across
+    stand_ins = {"fwd_stats": fwd_stats, "fwd_apply": fwd_apply,
+                 "bwd_stats": bwd_stats, "bwd_apply": bwd_apply}
+    with contextlib.ExitStack() as stack:
+        for name, fn in stand_ins.items():
+            fn.launches = kernel[name].launches
+            stack.enter_context(mock.patch.object(bnc, name, fn))
+        try:
+            yield
+        finally:
+            for name, fn in stand_ins.items():
+                kernel[name].launches = fn.launches
+
+
+def _bn_held_summary(records, norms):
+    """The held calls of one step (``_bn_held``): the calls a stage
+    (``norms`` each is right), the widths and dtypes seen, the worst of
+    each error, and ``bad``, the calls past their band (relative L2
+    within ``BN_L2_TOL`` of the activation's dtype, the sums and
+    statistics within ``BN_STAT_TOL``) or stages not held ``norms``
+    times."""
+    calls, worst, bad = {}, {}, []
+    for r in records:
+        calls[r["stage"]] = calls.get(r["stage"], 0) + 1
+        for key, err in r["errors"].items():
+            worst[key] = max(worst.get(key, 0.0), err)
+            band = (BN_L2_TOL[r["dtype"]] if key.endswith("rel_l2")
+                    else BN_STAT_TOL)
+            if not err <= band:
+                bad.append(f"{r['stage']} [{r['rows']}, {r['channels']}] "
+                           f"{key} {err} (band {band})")
+    bad += [f"{stage} held {calls.get(stage, 0)} times, want {norms}"
+            for stage in ("fwd_stats", "fwd_apply", "bwd_stats", "bwd_apply")
+            if calls.get(stage, 0) != norms]
+    return {"calls": calls,
+            "channels": sorted({r["channels"] for r in records}),
+            "dtypes": sorted({str(r["dtype"]).replace("torch.", "")
+                              for r in records}),
+            "worst": worst,
+            "bands": {"rel_l2": {str(k).replace("torch.", ""): v
+                                 for k, v in BN_L2_TOL.items()},
+                      "stats": BN_STAT_TOL},
+            "bad": bad}
+
+
+def phase_resnet_training(dev, card, level):
+    """ResNet-50 trained by the ImageNet example's step at b = 256, 224^2,
+    1000 classes under amp ``level`` (R-O2: bf16 parameters over fp32
+    masters, JAX's batch-norm predicate, K16 writing the bf16 copy; R-O1:
+    fp32 parameters, bf16 convolutions, no masters), SyncBatchNorm on
+    K17/K18 at world 1: 2 warm-up and 5 timed steps (host clock ending
+    in ``synchronize``): step ms, images/s, MFU (3 x the forward FLOPs of
+    the convolutions and fc x b over the step at 989 TFLOP/s), peak
+    memory, the losses of steps 1-7 (finite, falling), the launches a
+    step (``_resnet_want``); one step with every K17/K18 call held
+    against its plain version (``_bn_held``: the 53 norms' widths, 64 to
+    2048, on the step's own activations); then a profiled two-step
+    window: busy share, device ms by kind, and K17's and K18's stages
+    counted by name on the device (53 each a step)."""
+    from apex_tpu_torch.models.resnet import conv_linear_flops
+
+    b = RESNET["batch"]
+    t0 = time.perf_counter()
+    model, opt, state, step, dtype = _resnet_setup(dev, level)
+    images, labels = _resnet_batch(dev, b, 0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    leaves = len(list(model.parameters()))
+    flops = conv_linear_flops(model, RESNET["image"])
+    _log(f"ResNet-50 ({level}) built in {time.perf_counter() - t0:.2f} s: "
+         f"{n_params} parameters, {leaves} leaves, "
+         f"{len(list(model.buffers()))} buffers, forward {flops / 1e9:.4f} "
+         f"GFLOP an image")
+    losses = []
+    for _ in range(RESNET["warmup"]):
+        state, metrics, _ = step(state, images, labels)
+        losses.append(metrics[0])
+    torch.cuda.synchronize()
+    counts = _training_counts()
+    for fn in counts.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(RESNET["timed"]):
+        state, metrics, overflow = step(state, images, labels)
+        losses.append(metrics[0])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counts.items()}
+    peak = torch.cuda.max_memory_allocated()
+    vals = [x.item() for x in losses]
+    step_ms = wall / RESNET["timed"] * 1e3
+    stats = {"card": card, "opt_level": level,
+             "compute_dtype": str(dtype).replace("torch.", ""),
+             "param_dtypes": sorted({str(p.dtype).replace("torch.", "")
+                                     for p in model.parameters()}),
+             "fp32_params": sorted(n for n, p in model.named_parameters()
+                                   if p.dtype == torch.float32)[:4],
+             "batch": b, "image": RESNET["image"],
+             "steps_timed": RESNET["timed"], "step_ms": step_ms,
+             "images_per_s": b / (step_ms / 1e3),
+             "forward_gflop_per_image": flops / 1e9,
+             "mfu": 3 * flops * b / (step_ms / 1e3) / BF16_FLOPS_PER_S,
+             "n_params": n_params, "leaves": leaves,
+             "peak_mem_gb": peak / 1e9, "loss_step1": vals[0],
+             "loss_last": vals[-1], "losses": vals,
+             "launches_per_step": {k: v / RESNET["timed"]
+                                   for k, v in launches.items() if v}}
+    _log(f"ResNet-50 {level}: " + json.dumps(stats))
+    if not all(np.isfinite(vals)) or not vals[-1] < vals[0]:
+        raise AssertionError(f"ResNet-50 {level}: loss not finite and "
+                             f"falling: {vals}")
+    want, norms = _resnet_want(model, level)
+    for k, per_step in want.items():
+        if launches[k] != per_step * RESNET["timed"]:
+            raise AssertionError(f"ResNet-50 {level}: {k} launched "
+                                 f"{launches[k]} times in {RESNET['timed']}"
+                                 f" steps, want {per_step} a step")
+    # one more step, each of its K17/K18 calls held against the plain
+    # version on the same activations
+    records = []
+    with _bn_held(records):
+        state, _, _ = step(state, images, labels)
+    held = _bn_held_summary(records, norms)
+    del records
+    stats["batch_norm_held"] = held
+    _log(f"ResNet-50 {level}, each K17/K18 call of one step (b={b}) against "
+         f"its plain version: " + json.dumps(held))
+    if held["bad"]:
+        raise AssertionError(f"ResNet-50 {level}: K17/K18 past their bands: "
+                             f"{held['bad'][:8]}")
+
+    if level == "O2":
+        # the step with batch norm on its plain version, in turns with
+        # the kernels' step: kernel (the window), plain, kernel
+        turns = {}
+        for path in ("plain", "kernel"):
+            with (_plain_path(_resnet_plain_patches(bn_only=True))
+                  if path == "plain" else contextlib.nullcontext()):
+                state, _, _ = step(state, images, labels)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics, _ = step(state, images, labels)
+                torch.cuda.synchronize()
+                turns[path] = (time.perf_counter() - t0) * 1e3
+        stats["plain_batch_norm_step_ms"] = turns["plain"]
+        stats["kernel_step_ms_after"] = turns["kernel"]
+        _log(f"ResNet-50 O2 step, batch norm on K17/K18 (window mean, then "
+             f"after) {step_ms:.2f}, {turns['kernel']:.2f} ms against its "
+             f"plain version {turns['plain']:.2f} ms")
+
+    def two_steps():
+        nonlocal state
+        for _ in range(2):
+            state, _, _ = step(state, images, labels)
+
+    profile = _profile(two_steps, ("conv", "batch_norm", "elementwise",
+                                   "optimizer", "sgd", "matmul", "other"))
+    stats["profile"] = profile
+    if profile is not None:
+        traced = profile["traced"]
+        for k in ("batch_norm_fwd_stats", "batch_norm_fwd_apply",
+                  "batch_norm_bwd_stats", "batch_norm_bwd_apply"):
+            if traced[k] != 2 * norms:
+                raise AssertionError(f"ResNet-50 {level}: the device ran "
+                                     f"{k} {traced[k]} times in two steps, "
+                                     f"want {2 * norms}")
+    del model, opt, state, step
+    torch.cuda.empty_cache()
+    return _with_totals(launches), stats
+
+
+def _resnet_plain_patches(bn_only=False):
+    """K17's and K18's stages and (unless ``bn_only``) K12 replaced by
+    their plain versions, for a ResNet step's plain path on the card (the
+    plain SGD comes from ``_resnet_sgd(plain=True)``)."""
+    from apex_tpu_torch.ops import (batch_norm, batch_norm_cuda,
+                                    multi_tensor, multi_tensor_cuda)
+
+    k12 = [] if bn_only else [mock.patch.object(
+        multi_tensor_cuda, "scale", multi_tensor.scale_reference)]
+    return k12 + [mock.patch.object(batch_norm_cuda, "fwd_stats",
+                              batch_norm.fwd_stats_reference),
+            mock.patch.object(batch_norm_cuda, "fwd_apply",
+                              batch_norm.fwd_apply_reference),
+            mock.patch.object(batch_norm_cuda, "bwd_stats",
+                              batch_norm.bwd_stats_reference),
+            mock.patch.object(batch_norm_cuda, "bwd_apply",
+                              batch_norm.bwd_apply_reference)]
+
+
+# the input perturbation that sets a ResNet comparison's band: each image
+# element moved by this relative amount (with normal noise) before the
+# cast; in bf16 that re-rounds part of the input, in fp32 it is an
+# fp32-level change. ResNet-50 at its flax init is chaotic: on the card
+# (b = 8, 224^2) this moves the step's gradients by 3% in fp32 and by
+# 130% in bf16, so in bf16 only the loss is compared this way, and the
+# kernels are held call by call instead (``_bn_held``)
+NUDGE = {torch.bfloat16: 2.0 ** -12, torch.float32: 1e-7}
+
+
+def _nudged(images, dtype, seed=99):
+    gen = torch.Generator(device=images.device).manual_seed(seed)
+    return images * (1 + NUDGE[dtype] * torch.randn(
+        images.shape, generator=gen, device=images.device))
+
+
+def _distances(a, b):
+    """(|loss diff|, the gradients' relative L2 over the model, the worst
+    tensor's relative L2) of two (loss, grads) results."""
+    (la, ga), (lb, gb) = a, b
+    num = sum(((ga[k].float() - gb[k].float()) ** 2).sum() for k in gb)
+    den = sum((gb[k].float() ** 2).sum() for k in gb)
+    worst = max(_rel_l2(ga[k], gb[k]) for k in gb
+                if gb[k].float().norm() > 0)
+    return abs(la - lb), (num / den).sqrt().item(), worst
+
+
+def _held(what, err, noise, floors):
+    """Each distance of ``err`` (the loss's, then any relative L2s) within
+    the larger of its floor and twice the kernel path's own move under
+    ``NUDGE`` (``noise``); a relative-L2 band of 1 or more, which a zero
+    or unrelated result would meet, is refused."""
+    bands = [max(f, 2 * n) for f, n in zip(floors, noise)]
+    _log(f"{what}: distances {err} (loss, model-wide gradient relative L2, "
+         f"worst tensor), the nudged input's {noise}, bands {bands}")
+    if any(b >= 1.0 for b in bands[1:]):
+        raise AssertionError(f"{what}: a band of {bands[1:]} relative L2 "
+                             f"holds nothing")
+    if any(e > b for e, b in zip(err, bands)):
+        raise AssertionError(f"{what}: outside the bands")
+    return {"distances": err, "nudged": noise, "bands": bands}
+
+
+def phase_resnet_paths_agree(dev):
+    """ResNet-50 at full width (b = 8, 224^2) through the kernel path and
+    the plain path (K17/K18 and K12 replaced by their plain versions), in
+    O0 (fp32) and O2, one step each. The band of each distance is the
+    larger of the training band and twice the distance the kernel path
+    itself moves when the images move by ``NUDGE`` (measured here, the
+    same run). O0 holds the loss and every gradient (the model's relative
+    L2 and the worst tensor's); O2 the loss alone, because in bf16 the
+    network at init amplifies any rounding past a band that could fail
+    (its K17/K18 calls are held one by one in ``phase_resnet_training``
+    instead). Then K16 against the plain SGD, bit for bit over 7 steps on
+    the 161 real gradients of the kernel path (masters, buffers, the bf16
+    copies, the count), step 4's loss scale infinite (its gradients
+    overflow, both skip)."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.amp import LossScalerState
+    from apex_tpu_torch.examples import imagenet
+    from apex_tpu_torch.ops import multi_tensor_cuda as mt
+    from apex_tpu_torch.optimizers._base import apply_plain
+
+    b = RESNET_AGREE["batch"]
+    images, labels = _resnet_batch(dev, b, 4)
+    floors = (TRAIN_LOSS_BAND, TRAIN_GRAD_BAND, TRAIN_GRAD_BAND)
+    out = {}
+    for level in ("O0", "O2"):
+        model, opt, state, step, dtype = _resnet_setup(dev, level, seed=1)
+        params = dict(model.named_parameters())
+
+        def loss_fn(_p, x, y):
+            return imagenet._loss_and_metrics(model(x, train=True), y)[0]
+
+        grad_fn = amp.value_and_scaled_grad(loss_fn, opt)
+        keep = {n: t.clone() for n, t in model.named_buffers()}
+
+        def run(x):
+            with torch.no_grad():
+                for n, t in model.named_buffers():
+                    t.copy_(keep[n])
+            loss, grads, inf = grad_fn(params, state, x.to(dtype), labels)
+            if inf:
+                raise AssertionError(f"ResNet-50 {level}: overflow")
+            return loss.item(), grads
+
+        counts = _training_counts()
+        for fn in counts.values():
+            fn.launches = 0
+        kernel = run(images)
+        if counts["batch_norm_fwd_stats"].launches != 53:
+            raise AssertionError("the kernel path did not run K17 53 times")
+        nudged = run(_nudged(images, dtype))
+        with _plain_path(_resnet_plain_patches()):
+            plain = run(images)
+        judged = 3 if level == "O0" else 1
+        out[level] = _held(
+            f"ResNet-50 {level}, kernel vs plain path (b={b})",
+            _distances(kernel, plain)[:judged],
+            _distances(nudged, kernel)[:judged], floors[:judged])
+        del model, opt, state, step, kernel, nudged, plain
+        torch.cuda.empty_cache()
+
+    # K16 against the plain SGD on the kernel path's real gradients
+    model, opt, state, step, dtype = _resnet_setup(dev, "O2", seed=2)
+    params = dict(model.named_parameters())
+
+    def loss_fn(_p, x, y):
+        return imagenet._loss_and_metrics(model(x, train=True), y)[0]
+
+    grad_fn = amp.value_and_scaled_grad(loss_fn, opt)
+    tx = opt.tx
+    pm = {n: t.clone() for n, t in state.master_params.items()}
+    ps = tx.init(pm)
+    pc = {n: p.detach().clone() for n, p in params.items()}
+    before = mt.sgd.launches
+    checks = []
+    for k in range(RESNET_AGREE["sgd_steps"]):
+        use = state
+        if k == RESNET_AGREE["overflow_step"]:
+            use = state.replace(scalers=(LossScalerState(
+                torch.tensor(float("inf"), device=dev),
+                state.scalers[0].unskipped, state.scalers[0].overflow),))
+        _, grads, found_inf = grad_fn(params, use, images.to(dtype), labels)
+        tx.step(grads, state.inner, state.master_params, found_inf,
+                model_params=params)
+        apply_plain(tx.update, grads, ps, pm, found_inf)
+        with torch.no_grad():
+            for n in pc:
+                pc[n].copy_(pm[n].to(pc[n].dtype))
+        same = (all(_same_bits(state.master_params[n], pm[n]) for n in pm)
+                and all(_same_bits(state.inner.momentum_buf[n],
+                                   ps.momentum_buf[n]) for n in pm)
+                and all(_same_bits(params[n].detach(), pc[n]) for n in pc)
+                and state.inner.count.item() == ps.count.item())
+        checks.append({"step": k + 1, "overflow": bool(found_inf.item()),
+                       "count": state.inner.count.item(), "bitwise": same})
+        if not same or bool(found_inf.item()) != (
+                k == RESNET_AGREE["overflow_step"]):
+            raise AssertionError(f"K16 against the plain SGD: {checks}")
+    if mt.sgd.launches == before:
+        raise AssertionError("K16 never launched")
+    _log("K16 bit for bit against the plain SGD over "
+         f"{RESNET_AGREE['sgd_steps']} steps: " + json.dumps(checks))
+    del model, opt, state, step
+    torch.cuda.empty_cache()
+    out["k16_steps"] = checks
+    return out
+
+
+def _checksums(tensors):
+    """Two int64 checksums a tensor of its bits (their sum and a sum
+    weighted by position), stacked [n, 2]."""
+    out = []
+    for t in tensors:
+        t = t.detach().contiguous().view(-1)
+        bits = t.view(torch.int16 if t.element_size() == 2 else torch.int32
+                      ).to(torch.int64)
+        idx = torch.arange(1, bits.numel() + 1, device=t.device,
+                           dtype=torch.int64)
+        out.append(torch.stack([bits.sum(), (bits * idx).sum()]))
+    return torch.stack(out)
+
+
+def _ddp_rank(rank, world, tmp, backend, card):
+    """One rank of R-DDP (started with ``spawn``): ResNet-50 under O2 with
+    SyncBatchNorm over the group, its rank's 32 of the 64 images, three
+    steps of the example's step; after each, the checksums of the fp32
+    masters, the bf16 parameters and the running stats compared over the
+    ranks (all-reduce MAX and MIN). In step 1 every K17/K18 call is held
+    (``_bn_held`` over the group) and the averaged gradients against the
+    mean of the ranks' own (gathered). The records, the step times and
+    the all-reduces a step go to ``tmp/rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.examples import imagenet
+    from apex_tpu_torch.parallel import broadcast_params
+
+    dev = _tp_device(rank, backend)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(backend, init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=world)
+    try:
+        group = dist.group.WORLD
+        model, opt, state, step, _ = _resnet_setup(
+            dev, "O2", seed=RESNET_DDP["seed"], group=group)
+        broadcast_params(model, group)
+        b = RESNET_DDP["batch"]
+        images, labels = _resnet_batch(dev, b * world, RESNET_DDP["seed"])
+        images, labels = (images[rank * b:(rank + 1) * b],
+                          labels[rank * b:(rank + 1) * b])
+        averaged = []
+        reduce = imagenet.allreduce_gradients
+        all_reduce = dist.all_reduce
+
+        def capture(grads, *args, **kwargs):
+            # the ranks' own gradients gathered (over the host under
+            # gloo) and averaged in rank order, against the reduction's
+            own = torch.cat([g.float().reshape(-1) for g in grads.values()])
+            out = reduce(grads, *args, **kwargs)
+            t = own if backend == "nccl" else own.cpu()
+            parts = [torch.empty_like(t) for _ in range(world)]
+            dist.all_gather(parts, t, group=group)
+            mean = parts[0].clone()
+            for part in parts[1:]:
+                mean += part
+            mean = (mean / world).to(own.device)
+            got = torch.cat([g.float().reshape(-1) for g in out.values()])
+            averaged.append(_rel_l2(got, mean))
+            return out
+
+        calls = []
+
+        def counted(t, *args, **kwargs):
+            calls.append(t.numel() * t.element_size())
+            return all_reduce(t, *args, **kwargs)
+
+        records = []
+        out = {"rank": rank, "backend": backend, "card": card, "steps": []}
+        for i in range(RESNET_DDP["steps"]):
+            calls.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with mock.patch.object(dist, "all_reduce", counted):
+                if i == 0:
+                    with mock.patch.object(imagenet, "allreduce_gradients",
+                                           capture), \
+                            _bn_held(records, group, backend):
+                        state, metrics, overflow = step(state, images, labels)
+                else:
+                    state, metrics, overflow = step(state, images, labels)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            n_calls, n_bytes = len(calls), sum(calls)
+            sums = _checksums(list(state.master_params.values())
+                              + [p for p in model.parameters()]
+                              + list(model.buffers()))
+            sums = sums.cpu() if backend == "gloo" else sums
+            hi, lo = sums.clone(), sums.clone()
+            all_reduce(hi, op=dist.ReduceOp.MAX)
+            all_reduce(lo, op=dist.ReduceOp.MIN)
+            out["steps"].append({
+                "step": i + 1, "ms": ms, "loss": metrics[0].item(),
+                "overflow": bool(overflow.item()),
+                "all_reduces": n_calls, "all_reduce_mb": n_bytes / 1e6,
+                "ranks_bit_equal": bool(torch.equal(hi, lo)),
+                "tensors_compared": sums.shape[0]})
+        norms = sum(1 for m in model.modules()
+                    if type(m).__name__ == "SyncBatchNorm")
+        out["batch_norm_held"] = _bn_held_summary(records, norms)
+        out["averaged_grads_rel_l2"] = averaged
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_resnet_ddp(dev, card):
+    """R-DDP, BASELINE config 2 at world 2: two ranks started with
+    ``spawn`` (NCCL with a card each where the machine has two cards,
+    else gloo with both on cuda:0, whose all-reduces of CUDA tensors go
+    through the host: a correctness phase, its step ms recorded and not
+    judged), ResNet-50 under O2 with SyncBatchNorm over the group, b = 32
+    a rank, three steps: every rank's fp32 masters, bf16 parameters and
+    running stats bit-equal after each step; in step 1, on every rank,
+    each K17/K18 call within its band of the plain version on the same
+    inputs, the all-reduced sums within ``BN_STAT_TOL`` of the whole
+    batch's, and the averaged gradients within ``DDP_GRAD_TOL`` of the
+    mean of the ranks' own; rank 0's step-1 loss (averaged over the
+    group) against one process that runs the 64 images with local batch
+    norm, within the larger of the training band and twice what that
+    loss moves under ``NUDGE``; step ms and all-reduces a step."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.examples import imagenet
+
+    world = RESNET_DDP["world"]
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    _log(f"R-DDP: {torch.cuda.device_count()} card(s), backend {backend}"
+         + (" (both ranks share cuda:0; the all-reduces go through the host)"
+            if backend == "gloo" else ""))
+    # the reference: one process, the 64 images, local batch norm
+    model, opt, state, _, dtype = _resnet_setup(
+        dev, "O2", seed=RESNET_DDP["seed"])
+    images, labels = _resnet_batch(dev, RESNET_DDP["batch"] * world,
+                                   RESNET_DDP["seed"])
+
+    def loss_fn(_p, x, y):
+        return imagenet._loss_and_metrics(model(x, train=True), y)[0]
+
+    grad_fn = amp.value_and_scaled_grad(loss_fn, opt)
+    ref = {}
+    for what, x in (("images", images), ("nudged", _nudged(images, dtype))):
+        loss, grads, _ = grad_fn(dict(model.named_parameters()), state,
+                                 x.to(dtype), labels)
+        ref[what] = loss.item()
+        del grads
+    noise = abs(ref["nudged"] - ref["images"])
+    del model, opt, state, images, labels
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(_ddp_rank, args=(world, tmp, backend, card),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + RESNET_DDP["timeout_s"]
+        try:
+            while not ctx.join(timeout=5.0):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"R-DDP ranks still running after "
+                                       f"{RESNET_DDP['timeout_s']} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+                 for r in range(world)]
+    wall_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    dloss = abs(r0["steps"][0]["loss"] - ref["images"])
+    band = max(TRAIN_LOSS_BAND, 2 * noise)
+    stats = {"card": card, "backend": backend, "world": world,
+             "batch_per_rank": RESNET_DDP["batch"], "phase_wall_s": wall_s,
+             "reference_loss": ref["images"], "loss_diff": dloss,
+             "nudged_loss_move": noise, "loss_band": band,
+             "ranks": [{"rank": r["rank"], "steps": r["steps"],
+                        "batch_norm_held": r["batch_norm_held"],
+                        "averaged_grads_rel_l2": r["averaged_grads_rel_l2"]}
+                       for r in ranks]}
+    _log("R-DDP: " + json.dumps(stats))
+    for r in ranks:
+        for s in r["steps"]:
+            if not s["ranks_bit_equal"] or s["overflow"]:
+                raise AssertionError(f"R-DDP rank {r['rank']} step "
+                                     f"{s['step']}: {s}")
+        if r["batch_norm_held"]["bad"]:
+            raise AssertionError(f"R-DDP rank {r['rank']}: K17/K18 past "
+                                 f"their bands: "
+                                 f"{r['batch_norm_held']['bad'][:8]}")
+        if not (len(r["averaged_grads_rel_l2"]) == 1
+                and r["averaged_grads_rel_l2"][0] <= DDP_GRAD_TOL):
+            raise AssertionError(f"R-DDP rank {r['rank']}: the averaged "
+                                 f"gradients against the ranks' mean: "
+                                 f"{r['averaged_grads_rel_l2']}")
+    if dloss > band:
+        raise AssertionError(f"R-DDP against one process on 64 images: "
+                             f"loss {dloss} (band {band})")
+    return stats
+
+
 # the multi-tensor kernels (K12-K15) by their names in a device trace
 MT_KERNEL = re.compile(r"\b(scale|axpby|norm_partials|norm_reduce|adam|"
                        r"lamb_stage[12])_kernel\b")
 
 
-def _kind(name):
+def _kind(name, kinds=()):
+    """A device kernel's kind. "batch_norm", "sgd", "conv" and
+    "elementwise" (the ResNet windows' kinds) are told apart only where
+    ``kinds`` lists them, so that every other window keeps the kinds (and
+    the "other") that it was first recorded with."""
     low = name.lower()
+    if "batch_norm" in kinds and re.search(
+            r"\bbn_(stats|fwd_apply|bwd_apply)_kernel", name):
+        return "batch_norm"
+    if "sgd" in kinds and re.search(r"\bsgd_kernel\b", name):
+        return "sgd"
+    if "conv" in kinds and any(w in low for w in (
+            "fprop", "dgrad", "wgrad", "implicit", "cudnn", "convolve",
+            "conv2d", "nchwtonhwc", "nhwctonchw")):
+        return "conv"
     if "xent_" in name:
         return "lm_head"
     if "prefill_attention_" in name:
@@ -4836,6 +5893,9 @@ def _kind(name):
     if any(w in low for w in ("gemm", "gemv", "cutlass", "xmma", "nvjet",
                               "sm90_")):
         return "matmul"
+    if "elementwise" in kinds and ("elementwise_kernel" in name
+                                   or "reduce_kernel" in name):
+        return "elementwise"
     return "other"
 
 
@@ -4853,7 +5913,7 @@ def _profile(fn, kinds, top=8, attempts=PROFILE_ATTEMPTS):
     by_kind = dict.fromkeys(kinds, 0.0)
     by_name = []
     for evt in _device_events(prof):
-        kind = _kind(evt.key)
+        kind = _kind(evt.key, kinds)
         by_kind[kind] = by_kind.get(kind, 0.0) + evt.self_device_time_total
         by_name.append((evt.self_device_time_total, evt.count, evt.key[:60]))
     busy = sum(by_kind.values())
@@ -5075,6 +6135,14 @@ def main():
     torch.cuda.empty_cache()
     rows += phase_multi_tensor_kernels(dev, flush)
     torch.cuda.empty_cache()
+    # ResNet-50's kernels: K17/K18 at its batch-norm shapes, K16 on its
+    # 161 leaves (the ResNet phases' seconds are logged against the ~120 s
+    # they were given)
+    t0 = time.perf_counter()
+    rows += phase_batch_norm_kernels(dev, flush)
+    rows.append(phase_sgd_kernel(dev, flush))
+    resnet_s = {"K16-K18 kernels": time.perf_counter() - t0}
+    torch.cuda.empty_cache()
     # BERT-large's kernel modes (K1d, K5d, K6d non-causal with segment ids;
     # K10 with the extended padding mask, K11): numbers beside each row
     bert_modes = phase_bert_kernel_modes(dev, flush)
@@ -5232,6 +6300,41 @@ def main():
     _log("dropout checks: " + json.dumps({"mask": mask_check,
                                           "recompute": recompute_agree}))
 
+    # ResNet-50 (BASELINE configs 1-2): R-O2 and R-O1 at b = 256, kernel vs
+    # plain path and K16 bit for bit, then R-DDP at world 2
+    torch.cuda.empty_cache()
+    resnet = {}
+    for level in ("O2", "O1"):
+        t0 = time.perf_counter()
+        launches_by[f"resnet_{level.lower()}"], resnet[level] = \
+            phase_resnet_training(dev, smi, level)
+        resnet_s[f"R-{level}"] = time.perf_counter() - t0
+    side = {k: {level: resnet[level][k] for level in resnet}
+            for k in ("step_ms", "images_per_s", "mfu", "peak_mem_gb")}
+    _log("ResNet-50, R-O2 vs R-O1: " + json.dumps(side))
+    t0 = time.perf_counter()
+    resnet_agree = phase_resnet_paths_agree(dev)
+    resnet_s["paths agree"] = time.perf_counter() - t0
+    for row in rows:
+        if row["name"] == "multi_tensor_sgd":
+            row["bitwise_steps"] = resnet_agree["k16_steps"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    resnet_ddp = phase_resnet_ddp(dev, smi)
+    resnet_s["R-DDP"] = time.perf_counter() - t0
+    _log(f"ResNet phases' seconds: {json.dumps(resnet_s)}, in all "
+         f"{sum(resnet_s.values()):.1f} s (given ~120 s)")
+    _log("ResNet-50 checks: " + json.dumps({
+        "paths_agree": {k: v for k, v in resnet_agree.items()
+                        if k != "k16_steps"},
+        "ddp_bit_equal": all(s["ranks_bit_equal"] for r in resnet_ddp["ranks"]
+                             for s in r["steps"]),
+        "batch_norm_held_worst": {
+            **{f"R-{level}": resnet[level]["batch_norm_held"]["worst"]
+               for level in resnet},
+            **{f"R-DDP rank {r['rank']}": r["batch_norm_held"]["worst"]
+               for r in resnet_ddp["ranks"]}}}))
+
     # GPT-3 2.7B's widths (head dim 80: the attention kernels zero-pad it
     # to 128), serving and a training step, kernel vs plain
     torch.cuda.empty_cache()
@@ -5278,7 +6381,10 @@ def main():
                 "softmax_bwd_long": "generic_softmax_long",
                 "xent_fwd_partials": "training_tp2",
                 "multi_tensor_l2norm": "training_lamb",
-                "multi_tensor_lamb": "training_lamb"}.get(
+                "multi_tensor_lamb": "training_lamb",
+                "multi_tensor_sgd": "resnet_o2",
+                "batch_norm_fwd": "resnet_o2",
+                "batch_norm_bwd": "resnet_o2"}.get(
             name, "training_dropout" if name.endswith("_dropout")
             else "training_fused")
         row["launches"] = by_path.get(main, by_path.get("serving", 0))

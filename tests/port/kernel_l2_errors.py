@@ -19,11 +19,15 @@ the numbers ``L2_TOL``, ``DROPOUT_L2_TOL``, ``K1_L2_TOL``, ``XENT_L2_TOL``,
 ``SOFTMAX_L2_TOL`` and ``K2Q_L2_TOL`` in ``test_torch_kernels_cuda.py``
 are set from (for K7
 the largest |loss diff| over max(1, |loss|); for K10 also the largest |y
-diff|, which ``SOFTMAX_TOL`` bounds). Last, the multi-tensor kernels' card
+diff|, which ``SOFTMAX_TOL`` bounds). Then the multi-tensor kernels' card
 cases: K13's norms (``MT_NORM_TOL``) over the ragged list repeated past
 one launch's table, per dtype, and K15's parameters and moments after
 three steps (``MT_LAMB_TOL``) against each plain LAMB structure and
 option, each as the largest error over a tensor's largest magnitude.
+Last, batch norm: K17's y and K18's dx by relative L2 (``BN_L2_TOL``)
+and their sums and saved statistics over their largest magnitude
+(``BN_STAT_TOL``) at the card tests' shapes and two of ResNet-50's, with
+and without the fused ReLU, per dtype.
 Needs a CUDA card:
 
     python3 tests/port/kernel_l2_errors.py
@@ -326,6 +330,39 @@ def main():
             err = cases._lamb_errors(params, plain, states[0], states[1])
             print(f"lamb {impl} {kw}: K15 {err:.3e}")
             note("K15", "float32", err)
+    from apex_tpu_torch.ops import batch_norm, batch_norm_cuda
+    for dtype, (tdt, _) in sorted(cases.DTYPES.items()):
+        for shape in cases.BN_SHAPES + [(256 * 56 * 56, 256),
+                                        (256 * 7 * 7, 2048)]:
+            for relu in (False, True):
+                x, dy, w, b, rm, rv = cases._bn_case(dev, tdt, *shape, seed=1)
+                stats = batch_norm_cuda.fwd_stats(x)
+                y, mean, rstd = batch_norm_cuda.fwd_apply(
+                    x, stats, w, b, rm, rv, 1e-5, 0.1, True, relu)
+                ry, rmean, rrstd = batch_norm.fwd_apply_reference(
+                    x, stats, w, b, rm.clone(), rv.clone(), 1e-5, 0.1, True,
+                    relu)
+                sums = batch_norm_cuda.bwd_stats(x, dy, mean, rstd, w, b,
+                                                 relu)
+                dx = batch_norm_cuda.bwd_apply(x, dy, mean, rstd, w, b, sums,
+                                               stats, True, relu)
+                rdx = batch_norm.bwd_apply_reference(
+                    x, dy, mean, rstd, w, b, sums, stats, True, relu)
+                stat = max(cases._stat_err(stats, batch_norm.
+                                           fwd_stats_reference(x)),
+                           cases._stat_err(mean, rmean),
+                           cases._stat_err(rstd, rrstd),
+                           cases._stat_err(sums, batch_norm.
+                                           bwd_stats_reference(
+                                               x, dy, mean, rstd, w, b,
+                                               relu)))
+                fwd, bwd = _l2(y, ry), _l2(dx, rdx)
+                print(f"batch norm {dtype} {shape} relu {relu}: K17 "
+                      f"{fwd:.3e}, K18 {bwd:.3e}, sums and statistics "
+                      f"{stat:.3e}")
+                note("K17", dtype, fwd)
+                note("K18", dtype, bwd)
+                note("K17/K18 sums", dtype, stat)
     for (kernel, dtype), value in sorted(worst.items()):
         print(f"worst {kernel} {dtype}: {value:.3e}")
 

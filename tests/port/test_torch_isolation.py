@@ -29,7 +29,8 @@ def _forbidden(name):
 
 def _port_sources():
     out = [os.path.join(REPO, "chip_smoke.py"),
-           os.path.join(REPO, "tests", "port", "tp_workers.py")]
+           os.path.join(REPO, "tests", "port", "tp_workers.py"),
+           os.path.join(REPO, "tests", "port", "ddp_workers.py")]
     for dirpath, _dirs, files in os.walk(PORT):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -81,7 +82,17 @@ def test_importing_the_port_loads_no_jax_and_no_apex_tpu():
                 "apex_tpu_torch.multi_tensor_apply.multi_tensor_apply",
                 "apex_tpu_torch.ops.multi_tensor_cuda",
                 "apex_tpu_torch.optimizers.fused_mixed_precision_lamb",
-                "tests.port.tp_workers"):
+                "apex_tpu_torch.amp.frontend", "apex_tpu_torch.amp.policy",
+                "apex_tpu_torch.amp.amp_optimizer",
+                "apex_tpu_torch.amp.handle", "apex_tpu_torch.amp._amp_state",
+                "apex_tpu_torch.parallel.sync_batchnorm",
+                "apex_tpu_torch.parallel.distributed",
+                "apex_tpu_torch.parallel.multiproc",
+                "apex_tpu_torch.models.resnet",
+                "apex_tpu_torch.examples.imagenet",
+                "apex_tpu_torch.ops.batch_norm",
+                "apex_tpu_torch.ops.batch_norm_cuda",
+                "tests.port.tp_workers", "tests.port.ddp_workers"):
         assert mod in mods, mod
 
 
@@ -283,3 +294,35 @@ def test_optimizer_entry_points_default_to_cuda(monkeypatch):
     assert state.count.device.type == "cpu"
     tx.step({"w": torch.ones(2, 3)}, state, params)
     assert state.count.item() == 1
+
+
+def test_resnet_slice_entry_points_default_to_cuda(monkeypatch):
+    """``resnet50``, ``SyncBatchNorm`` and the ImageNet example's ``main``
+    are built on ``cuda`` unless ``device="cpu"`` is asked for; on the
+    CPU ``amp.initialize`` and the amp state follow the model's device,
+    and an O2 ImageNet step runs there."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.examples import imagenet
+    from apex_tpu_torch.models import resnet18, resnet50
+    from apex_tpu_torch.optimizers import fused_sgd
+    from apex_tpu_torch.parallel import SyncBatchNorm
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (lambda: resnet50(), lambda: SyncBatchNorm(64),
+                  lambda: amp.initialize(resnet18(num_filters=8),
+                                         fused_sgd(0.1), opt_level="O2",
+                                         verbosity=0),
+                  lambda: imagenet.main(["--synthetic", "--steps", "1"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+    assert SyncBatchNorm(8, device="cpu").weight.device.type == "cpu"
+    model = resnet18(num_classes=10, num_filters=8, device="cpu",
+                     dtype=torch.bfloat16)
+    model, opt = amp.initialize(model, fused_sgd(0.1), opt_level="O2",
+                                verbosity=0)
+    state = opt.init(dict(model.named_parameters()))
+    assert state.scalers[0].loss_scale.device.type == "cpu"
+    step = imagenet.build_train_step(model, opt, None, torch.bfloat16)
+    state, metrics, overflow = step(state, torch.rand(2, 3, 32, 32),
+                                    torch.tensor([1, 2]))
+    assert torch.isfinite(metrics).all() and not overflow.item()

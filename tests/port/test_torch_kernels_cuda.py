@@ -63,7 +63,17 @@ K7p on every shard of a table split over 2 or 4 ranks, its partials
 against their plain version and, combined in a fixed order, against K7
 on the whole table, with K8 and K9 on each shard (``v_total`` the whole
 vocabulary) against their plain versions, the shards' dX summed and
-their dE stacked against K8 and K9 on the whole table.
+their dE stacked against K8 and K9 on the whole table; K16 (SGD) bit
+for bit against the plain update and selects over three steps and a
+skipped one, in every dtype pair, past one launch's table, and its
+four-list form writing the model copy in bf16, fp16 and fp32; K17 and
+K18 (batch norm) against their plain versions at rows that take 16-byte
+vectors or single channels, one tile or several, a partial tile, one
+row and ResNet-50's widest rows, with and without the fused ReLU, each
+stats stage twice the same bits, in eval, without scale and bias, with
+scale and bias in another dtype than x, from a pointer off a 16-byte
+boundary, and ``SyncBatchNorm`` on the card launching each stage once
+and raising on a channels-first activation.
 
 Marked ``cuda``: each test needs a card and skips without one. This
 file imports neither JAX nor the JAX package, so it runs on a GPU
@@ -2203,3 +2213,222 @@ def test_training_step_launches_the_multi_tensor_kernels(dev, opt):
     assert ran == ([3, 0, 3, 0] if opt == "adam" else [3, 6, 0, 6])
     assert all(torch.isfinite(torch.tensor(losses)))
     assert state.count.item() == 3
+
+
+# ---------------------------------------------------------------- K16 SGD
+
+SGD_CASES = [("float32", "float32", dict(learning_rate=0.1, momentum=0.9,
+                                         weight_decay=1e-4)),
+             ("float32", "float32", dict(learning_rate=0.1)),
+             ("float32", "float32", dict(learning_rate="schedule",
+                                         momentum=0.9, nesterov=True)),
+             ("float32", "float32", dict(learning_rate=0.05, momentum=0.9,
+                                         dampening=0.1, weight_decay=0.01)),
+             ("bfloat16", "float32", dict(learning_rate=0.1, momentum=0.9,
+                                          weight_decay=1e-4)),
+             ("float16", "float16", dict(learning_rate=0.1, momentum=0.9))]
+
+
+@pytest.mark.parametrize("p_dtype,g_dtype,kw", SGD_CASES)
+@pytest.mark.parametrize("many", [False, True])
+def test_sgd_kernel_matches_plain_bit_for_bit(dev, p_dtype, g_dtype, kw,
+                                              many):
+    """Three steps of K16 (``fused_sgd``'s fused form) against the plain
+    update and selects on copies: p, the buffers and the count equal bit
+    for bit (the first step's ``buf = g`` included); a step with the flag
+    set leaves them all bitwise unchanged."""
+    from apex_tpu_torch.optimizers import fused_sgd
+    from apex_tpu_torch.optimizers._base import apply_plain
+
+    kw = dict(kw)
+    if kw.get("learning_rate") == "schedule":
+        kw["learning_rate"] = _schedule
+    tx = fused_sgd(**kw)
+    sizes = MT_SIZES * (12 if many else 1)
+    params, _ = _opt_lists(dev, MT_DTYPES[p_dtype], MT_DTYPES[g_dtype], 5,
+                           sizes)
+    plain = _copy(params)
+    state, pstate = tx.init(params), tx.init(plain)
+    no = torch.tensor(False, device=dev)
+    for step in range(3):
+        _, grads = _opt_lists(dev, MT_DTYPES[p_dtype], MT_DTYPES[g_dtype],
+                              10 + step, sizes)
+        before = multi_tensor_cuda.sgd.launches
+        tx.step(grads, state, params, no)
+        groups = -(-len(sizes) // multi_tensor_cuda.capacity(4))
+        assert multi_tensor_cuda.sgd.launches == before + groups
+        apply_plain(tx.update, grads, pstate, plain, no)
+        for n in params:
+            assert _same_bits(params[n], plain[n]), (step, n)
+            assert _same_bits(state.momentum_buf[n], pstate.momentum_buf[n])
+        assert state.count.item() == pstate.count.item() == step + 1
+    kept = _copy(params), _copy(state.momentum_buf)
+    tx.step(grads, state, params, torch.tensor(True, device=dev))
+    assert all(_same_bits(params[n], kept[0][n]) for n in params)
+    assert all(_same_bits(state.momentum_buf[n], kept[1][n]) for n in params)
+    assert state.count.item() == 3
+
+
+@pytest.mark.parametrize("model_dtype", ["bfloat16", "float16", "float32"])
+def test_sgd_kernel_writes_the_model_copy(dev, model_dtype):
+    """K16's four-list form (amp O2): the fp32 masters stepped as the
+    three-list form steps them, and each new master written into its
+    model copy in the copy's dtype, as the cast of the plain path's."""
+    from apex_tpu_torch.optimizers import fused_sgd
+
+    tx = fused_sgd(learning_rate=0.1, momentum=0.9, weight_decay=1e-4)
+    masters, _ = _opt_lists(dev, torch.float32, torch.float32, 3)
+    model = {n: t.to(MT_DTYPES[model_dtype]) for n, t in masters.items()}
+    alone = _copy(masters)
+    s1, s2 = tx.init(masters), tx.init(alone)
+    no = torch.tensor(False, device=dev)
+    for step in range(2):
+        _, grads = _opt_lists(dev, torch.float32, torch.float32, 30 + step)
+        tx.step(grads, s1, masters, no, model_params=model)
+        tx.step(grads, s2, alone, no)
+        for n in masters:
+            assert _same_bits(masters[n], alone[n])
+            assert _same_bits(model[n], alone[n].to(model[n].dtype))
+    kept = _copy(model)
+    tx.step(grads, s1, masters, torch.tensor(True, device=dev),
+            model_params=model)
+    assert all(_same_bits(model[n], kept[n]) for n in model)
+
+
+# -------------------------------------------------------- K17 / K18 batch norm
+
+# relative L2 of K17's y and K18's dx against the plain versions (fp32
+# inside both: the plain rstd from torch.rsqrt, K17's correctly rounded;
+# K18 repeats the plain version's roundings from the same statistics). On
+# an H100 (tests/port/kernel_l2_errors.py) these cases and ResNet-50's
+# widths measured at most 7.1e-6 (bf16), 4.2e-6 (fp16), 4.8e-8 (fp32) for
+# y, 0 for dx
+BN_L2_TOL = {"bfloat16": 5e-5, "float16": 3e-5, "float32": 3e-7}
+# K17's sums and K18's, and the saved mean and rstd, against the plain
+# versions (fp32 sums over the rows in another order), relative to each
+# one's largest magnitude: measured at most 5.6e-7 there
+BN_STAT_TOL = 3e-6
+# [M, C]: vectors of 16 bytes (C % 8 == 0 for bf16/fp16, % 4 for fp32) or
+# single channels, one tile or several (2048), a partial tile (24: three
+# vectors), one row, and ResNet-50's widest rows at a small batch
+BN_SHAPES = [(257, 64), (1000, 3), (513, 24), (100, 2048), (1, 16),
+             (8 * 56 * 56, 256), (3000, 1)]
+
+
+def _bn_case(dev, dtype, m, c, seed, affine=True, w_dtype=None):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(m, c, generator=gen, device=dev) * 2.0 + 0.5).to(dtype)
+    dy = torch.randn(m, c, generator=gen, device=dev).to(dtype)
+    wd = w_dtype or torch.float32
+    w = b = None
+    if affine:
+        w = (torch.rand(c, generator=gen, device=dev) + 0.5).to(wd)
+        b = torch.randn(c, generator=gen, device=dev).to(wd)
+    rm = torch.randn(c, generator=gen, device=dev) * 0.1
+    rv = torch.rand(c, generator=gen, device=dev) + 0.5
+    return x, dy, w, b, rm, rv
+
+
+def _stat_err(got, want):
+    return ((got - want).abs().max() / want.abs().max().clamp(min=1e-30)
+            ).item()
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", BN_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("fuse_relu", [False, True])
+def test_batch_norm_kernels_match_plain(dev, dtype, shape, fuse_relu):
+    """K17's two stages and K18's against the plain versions: the sums,
+    the saved mean and rstd, the running stats and the sums of the
+    backward within ``BN_STAT_TOL``, y and dx within ``BN_L2_TOL``; two
+    runs of each stage equal bit for bit."""
+    from apex_tpu_torch.ops import batch_norm, batch_norm_cuda as bnc
+
+    tdt = DTYPES[dtype][0]
+    x, dy, w, b, rm, rv = _bn_case(dev, tdt, *shape, seed=1)
+    stats = bnc.fwd_stats(x)
+    assert _same_bits(stats, bnc.fwd_stats(x))
+    ref = batch_norm.fwd_stats_reference(x)
+    assert stats[-1].item() == shape[0]
+    assert _stat_err(stats, ref) < BN_STAT_TOL
+    rm2, rv2 = rm.clone(), rv.clone()
+    y, mean, rstd = bnc.fwd_apply(x, stats, w, b, rm, rv, 1e-5, 0.1, True,
+                                  fuse_relu)
+    ry, rmean, rrstd = batch_norm.fwd_apply_reference(
+        x, stats, w, b, rm2, rv2, 1e-5, 0.1, True, fuse_relu)
+    assert y.dtype == tdt and y.shape == x.shape
+    for got, want in ((mean, rmean), (rstd, rrstd), (rm, rm2), (rv, rv2)):
+        assert _stat_err(got, want) < BN_STAT_TOL
+    if fuse_relu:
+        assert (y >= 0).all()
+    assert _rel_l2(y, ry) < BN_L2_TOL[dtype]
+    sums = bnc.bwd_stats(x, dy, mean, rstd, w, b, fuse_relu)
+    assert _same_bits(sums, bnc.bwd_stats(x, dy, mean, rstd, w, b,
+                                          fuse_relu))
+    rsums = batch_norm.bwd_stats_reference(x, dy, mean, rstd, w, b,
+                                           fuse_relu)
+    assert _stat_err(sums, rsums) < BN_STAT_TOL
+    dx = bnc.bwd_apply(x, dy, mean, rstd, w, b, sums, stats, True, fuse_relu)
+    rdx = batch_norm.bwd_apply_reference(x, dy, mean, rstd, w, b, sums,
+                                         stats, True, fuse_relu)
+    assert dx.dtype == tdt and _rel_l2(dx, rdx) < BN_L2_TOL[dtype]
+
+
+def _rel_l2(out, ref):
+    out, ref = out.float(), ref.float()
+    assert torch.isfinite(out).all()
+    return ((out - ref).norm() / ref.norm().clamp(min=1e-30)).item()
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_batch_norm_kernels_eval_no_affine_and_mixed_dtypes(dev, dtype):
+    """K17 stage 2 in eval (the running stats, left unchanged) and K18 in
+    eval; without scale and bias; with fp32 scale and bias over a half
+    activation (amp O1, and ``bn_init`` under O2) and bf16 ones over fp32;
+    and element loads from a pointer off a 16-byte boundary."""
+    from apex_tpu_torch.ops import batch_norm, batch_norm_cuda as bnc
+
+    tdt = DTYPES[dtype][0]
+    for affine, wdt in ((True, torch.float32), (False, None),
+                        (True, torch.bfloat16)):
+        x, dy, w, b, rm, rv = _bn_case(dev, tdt, 300, 64, 2, affine, wdt)
+        keep = rm.clone(), rv.clone()
+        y, mean, rstd = bnc.fwd_apply(x, None, w, b, rm, rv, 1e-5, 0.1,
+                                      False, False)
+        assert _same_bits(rm, keep[0]) and _same_bits(rv, keep[1])
+        ry, rmean, rrstd = batch_norm.fwd_apply_reference(
+            x, None, w, b, rm, rv, 1e-5, 0.1, False, False)
+        assert _stat_err(rstd, rrstd) < BN_STAT_TOL
+        assert _rel_l2(y, ry) < BN_L2_TOL[dtype]
+        dx = bnc.bwd_apply(x, dy, mean, rstd, w, b, None, None, False, False)
+        rdx = batch_norm.bwd_apply_reference(x, dy, mean, rstd, w, b, None,
+                                             None, False, False)
+        assert _rel_l2(dx, rdx) < BN_L2_TOL[dtype]
+    base = torch.randn(64 * 33 + 1, device=dev).to(tdt)
+    x = base[1:].view(33, 64)                  # 2 or 4 bytes off
+    stats = bnc.fwd_stats(x)
+    assert _stat_err(stats, batch_norm.fwd_stats_reference(x)) < BN_STAT_TOL
+
+
+def test_batch_norm_stages_launch_once_each_and_sync_batchnorm_raises(dev):
+    """SyncBatchNorm's forward and backward on the card launch K17's and
+    K18's stages once each; the module raises on a 4-D channels-first
+    activation instead of copying it, and the wrappers raise on rows they
+    do not take."""
+    from apex_tpu_torch.ops import batch_norm_cuda as bnc
+    from apex_tpu_torch.parallel import SyncBatchNorm
+
+    bn = SyncBatchNorm(32, channel_last=False, device=dev)
+    x = torch.randn(4, 32, 7, 7, device=dev).to(
+        memory_format=torch.channels_last).requires_grad_()
+    fns = (bnc.fwd_stats, bnc.fwd_apply, bnc.bwd_stats, bnc.bwd_apply)
+    before = [f.launches for f in fns]
+    bn(x).square().sum().backward()
+    assert [f.launches - n for f, n in zip(fns, before)] == [1, 1, 1, 1]
+    assert bn.weight.grad is not None and x.grad.shape == x.shape
+    with pytest.raises(ValueError, match="channels_last"):
+        bn(torch.randn(4, 32, 7, 7, device=dev))
+    with pytest.raises(ValueError):
+        bnc.fwd_stats(torch.randn(4, 32, 7, device=dev))
+    with pytest.raises(ValueError):
+        bnc.fwd_stats(torch.randn(8, 32, device=dev).t())
