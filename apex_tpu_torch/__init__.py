@@ -28,3 +28,11 @@ def default_device(device=None):
                 "versions on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def device_scalar(value, like, dtype=torch.float32):
+    """``value`` as a 0-d ``dtype`` tensor on ``like``'s device: the
+    divisor of every true division by a number. PyTorch turns a division
+    of a CUDA tensor by a host number into a multiplication by its
+    reciprocal, which rounds differently."""
+    return torch.full((), float(value), dtype=dtype, device=like.device)

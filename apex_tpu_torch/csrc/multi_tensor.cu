@@ -1,7 +1,10 @@
 // Multi-tensor kernels over lists of tensors: K12 scale / axpby with a
 // found-inf flag, K13 per-tensor and global L2 norms (or largest
 // magnitudes), K14 Adam/AdamW in place, K15 LAMB in two stages, K16 SGD
-// with momentum in place (and the master-to-model copy in the same pass).
+// with momentum in place (and the master-to-model copy in the same pass),
+// and the ZeRO optimizers' shard updates: K21 Adam and K22 LAMB over one
+// rank's fp32 shard of the flat parameters, each writing the update the
+// ranks all-gather.
 //
 // These replace no Pallas site: the JAX package computes them in jnp, as
 // whole-pytree elementwise passes that XLA fuses into the step program.
@@ -16,7 +19,12 @@
 // update_two_pass (and :145 update_one_pass, the same function in another
 // structure); K16 of apex_tpu/optimizers/fused_sgd.py:41 update (the leaf
 // function) with apex_tpu/amp/amp_optimizer.py:119-134's skip selects and
-// master-to-model copy, apex's multi_tensor_sgd in its four-list form.
+// master-to-model copy, apex's multi_tensor_sgd in its four-list form;
+// K21 of apex_tpu/contrib/optimizers/distributed_fused_adam.py:101-126
+// (_adam_flat on the shard, master + update) and K22 of
+// distributed_fused_lamb.py:117-149 (the shard's clipped moments, the
+// direction, per-tensor sums of p^2 and u^2 over the shard, then, after
+// the caller's all-reduce of those sums, the trust ratio and the update).
 // They were written by hand because eager PyTorch spends one launch per
 // op per leaf there: ~1,350 launches a GPT-2-small step (148 leaves) and
 // ~170 bytes a parameter; ~1,300 a ResNet-50 SGD step (161 leaves).
@@ -25,8 +33,11 @@
 // fp32 unscaled copy (8 bytes a parameter for fp32), K13 reads it once
 // (4), K14 reads g, p, m, v and writes p, m, v (28), K15 the same (28,
 // plus one more read of p, m, v in its second stage), K16 reads g, p, buf
-// and writes p, buf and the model's half copy (22 under amp O2). The
-// arithmetic is a few operations an element.
+// and writes p, buf and the model's half copy (22 under amp O2), K21
+// reads g, master, m, v and writes master, m, v and the update (32), K22
+// reads g, master, m, v and writes m, v and the direction (28), then
+// reads the direction and master and writes both (16). The arithmetic is
+// a few operations an element.
 //
 // Design. A launch covers a group of tensors: their pointers and sizes
 // travel in the kernel's parameters (a Table, kept under the 4 KB
@@ -52,7 +63,12 @@
 // block's chunk sum (a fixed per-thread order, an xor butterfly a warp, a
 // fixed tree over the warps), then a second launch sums a tensor's chunks
 // in order, and the last group's launch sums the tensors in order. No
-// atomics anywhere, so two runs give the same bits.
+// atomics anywhere, so two runs give the same bits. K21 walks its flat
+// shard in 4-element vectors, grid-stride. K22 walks pieces: the shard's
+// part of each tensor (and of the padding, segment N) cut into CHUNK
+// elements at most, one block a piece, listed by the wrapper once per
+// layout; a piece's block sum is a partial, and a second launch sums a
+// segment's partials in order, so the per-tensor sums have a fixed order.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -923,6 +939,202 @@ extern "C" int multi_tensor_sgd(const long long* ptrs, const long long* numels, 
     MT_DISPATCH(p_dtype, TP,
                   MT_DISPATCH(m_code, TM,
                                 sgd_kernel<float, TP, TM><<<blocks, THREADS, 0, st>>>(tb, a)))
+  }
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+// K21: Adam on one rank's fp32 shard (g already reduced and averaged):
+// u = -lr * update in _adam_flat's order, written always (the ranks gather
+// it on a skipped step too); m, v, master (+= u) and the count written
+// unless skip is set
+__global__ void __launch_bounds__(THREADS)
+    zero_adam_kernel(const float* g, float* p, float* m, float* v, float* u, long long n,
+                     const AdamArgs a) {
+  const bool keep = a.skip && *a.skip;
+  if (!keep) write_count(a);
+  const float bc1 = a.bias_correction ? *a.bc1 : 1.0f;
+  const float bc2 = a.bias_correction ? *a.bc2 : 1.0f;
+  const float neg_lr = a.neg_lr_ptr ? *a.neg_lr_ptr : a.neg_lr;
+  const long long quads = n >> 2;
+  const long long stride = (long long)gridDim.x * THREADS;
+  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < quads; i += stride) {
+    float gv[4], pv[4], mv[4], vv[4], uv[4];
+    load4(g + 4 * i, gv);
+    load4(p + 4 * i, pv);
+    load4(m + 4 * i, mv);
+    load4(v + 4 * i, vv);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      adam_moments(a, gv[k], pv[k], a.beta1c, mv[k], vv[k]);
+      uv[k] = __fmul_rn(adam_direction(a, mv[k], vv[k], pv[k], bc1, bc2), neg_lr);
+      pv[k] = __fadd_rn(pv[k], uv[k]);
+    }
+    store4(u + 4 * i, uv);
+    if (!keep) {
+      store4(p + 4 * i, pv);
+      store4(m + 4 * i, mv);
+      store4(v + 4 * i, vv);
+    }
+  }
+  for (long long e = (quads << 2) + (long long)blockIdx.x * THREADS + threadIdx.x; e < n;
+       e += stride) {
+    float mv = m[e], vv = v[e];
+    const float pv = p[e];
+    adam_moments(a, g[e], pv, a.beta1c, mv, vv);
+    const float uv = __fmul_rn(adam_direction(a, mv, vv, pv, bc1, bc2), neg_lr);
+    u[e] = uv;
+    if (!keep) {
+      p[e] = __fadd_rn(pv, uv);
+      m[e] = mv;
+      v[e] = vv;
+    }
+  }
+}
+
+struct Pieces {
+  const long long* start;   // first element of each piece in the shard
+  const int* len;           // its length, at most CHUNK
+  const int* seg;           // its segment: a tensor, or N for the padding
+  int count;
+};
+
+// K22, stage 1: a piece's clipped moments (written unless skip), the
+// direction u, and the piece's sums of p * p and u * u into
+// partials[piece] and partials[count + piece]
+__global__ void __launch_bounds__(THREADS)
+    zero_lamb_stage1_kernel(const float* g, const float* p, float* m, float* v, float* u,
+                            const Pieces pc, float* partials, const AdamArgs a) {
+  const bool keep = a.skip && *a.skip;
+  if (!keep) write_count(a);
+  const long long s0 = pc.start[blockIdx.x];
+  const int len = pc.len[blockIdx.x];
+  const float bc1 = a.bias_correction ? *a.bc1 : 1.0f;
+  const float bc2 = a.bias_correction ? *a.bc2 : 1.0f;
+  const float clip = lamb_clip(a);
+  const bool clipping = a.max_grad_norm > 0.0f;
+  float w_sq = 0.0f, u_sq = 0.0f;
+  for (int e = threadIdx.x; e < len; e += THREADS) {
+    const long long i = s0 + e;
+    float mv = m[i], vv = v[i];
+    const float pv = p[i];
+    const float gc = clipping ? __fdiv_rn(g[i], clip) : g[i];
+    adam_moments(a, gc, pv, a.beta3, mv, vv);
+    const float uv = adam_direction(a, mv, vv, pv, bc1, bc2);
+    u[i] = uv;
+    if (!keep) {
+      m[i] = mv;
+      v[i] = vv;
+    }
+    w_sq = __fadd_rn(w_sq, __fmul_rn(pv, pv));
+    u_sq = __fadd_rn(u_sq, __fmul_rn(uv, uv));
+  }
+  w_sq = block_reduce<false>(w_sq);
+  u_sq = block_reduce<false>(u_sq);
+  if (threadIdx.x == 0) {
+    partials[blockIdx.x] = w_sq;
+    partials[pc.count + blockIdx.x] = u_sq;
+  }
+}
+
+// K22, stage 1's second launch (one block): each segment's pieces summed
+// in order, a warp a segment: sums[s] (p * p) and sums[nseg + s] (u * u)
+__global__ void __launch_bounds__(REDUCE_THREADS)
+    zero_lamb_segments_kernel(const float* partials, const int* seg_first, int nseg,
+                              int count, float* sums) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  for (int s = warp; s < nseg; s += warps) {
+    float w = 0.0f, uu = 0.0f;
+    for (int c = seg_first[s] + lane; c < seg_first[s + 1]; c += 32) {
+      w = __fadd_rn(w, partials[c]);
+      uu = __fadd_rn(uu, partials[count + c]);
+    }
+    w = warp_reduce<false>(w);
+    uu = warp_reduce<false>(uu);
+    if (lane == 0) {
+      sums[s] = w;
+      sums[nseg + s] = uu;
+    }
+  }
+}
+
+// K22, stage 2: the piece's trust ratio from the all-reduced sums (1 for
+// the padding segment, or everywhere unless trust), u = (-lr ratio) u, and
+// master += u unless skip
+__global__ void __launch_bounds__(THREADS)
+    zero_lamb_stage2_kernel(float* p, float* u, const Pieces pc, const float* sums, int nseg,
+                            const AdamArgs a) {
+  const bool keep = a.skip && *a.skip;
+  const long long s0 = pc.start[blockIdx.x];
+  const int len = pc.len[blockIdx.x];
+  const int seg = pc.seg[blockIdx.x];
+  const float neg_lr = a.neg_lr_ptr ? *a.neg_lr_ptr : a.neg_lr;
+  float ratio = 1.0f;
+  if (a.trust && seg < nseg - 1) {
+    const float w = __fsqrt_rn(sums[seg]);
+    const float un = __fsqrt_rn(sums[nseg + seg]);
+    ratio = (w > 0.0f && un > 0.0f) ? __fdiv_rn(w, __fadd_rn(un, 1e-38f)) : 1.0f;
+  }
+  const float step = __fmul_rn(neg_lr, ratio);
+  for (int e = threadIdx.x; e < len; e += THREADS) {
+    const long long i = s0 + e;
+    const float upd = __fmul_rn(step, u[i]);
+    u[i] = upd;
+    if (!keep) p[i] = __fadd_rn(p[i], upd);
+  }
+}
+
+}  // namespace
+
+// K21 over one shard of n fp32 elements: g, master p, m, v, and the
+// update u written; hyper, flags and devptrs as multi_tensor_adam's
+extern "C" int multi_tensor_zero_adam(const float* g, float* p, float* m, float* v, float* u,
+                                      long long n, const float* hyper, const int* flags,
+                                      const long long* devptrs, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!g || !p || !m || !v || !u || n < 1) return (int)cudaErrorInvalidValue;
+  const AdamArgs a = adam_args(hyper, flags, devptrs);
+  if ((a.bias_correction && (!a.bc1 || !a.bc2)) || (a.count && !a.count_new))
+    return (int)cudaErrorInvalidValue;
+  long long blocks = (n / 4 + THREADS - 1) / THREADS;
+  if (blocks < 1) blocks = 1;
+  if (blocks > 8192) blocks = 8192;
+  zero_adam_kernel<<<(int)blocks, THREADS, 0, (cudaStream_t)stream>>>(g, p, m, v, u, n, a);
+  return (int)cudaGetLastError();
+}
+
+// K22 over one shard: stage 1 (two launches: the pieces, then the
+// segments' sums into sums [2, nseg]) or stage 2 (the update); the
+// pieces' arrays and seg_first [nseg + 1] are device arrays
+extern "C" int multi_tensor_zero_lamb(int stage, const float* g, float* p, float* m, float* v,
+                                      float* u, const long long* piece_start,
+                                      const int* piece_len, const int* piece_seg, int count,
+                                      const int* seg_first, int nseg, float* partials,
+                                      float* sums, const float* hyper, const int* flags,
+                                      const long long* devptrs, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if ((stage != 1 && stage != 2) || !p || !u || !piece_start || !piece_len || !piece_seg ||
+      count < 1 || nseg < 1 || !sums)
+    return (int)cudaErrorInvalidValue;
+  const AdamArgs a = adam_args(hyper, flags, devptrs);
+  const Pieces pc{piece_start, piece_len, piece_seg, count};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (stage == 1) {
+    if (!g || !m || !v || !partials || !seg_first ||
+        (a.bias_correction && (!a.bc1 || !a.bc2)) || (a.count && !a.count_new) ||
+        (a.max_grad_norm > 0.0f && !a.global_sq))
+      return (int)cudaErrorInvalidValue;
+    zero_lamb_stage1_kernel<<<count, THREADS, 0, st>>>(g, p, m, v, u, pc, partials, a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    zero_lamb_segments_kernel<<<1, REDUCE_THREADS, 0, st>>>(partials, seg_first, nseg, count,
+                                                           sums);
+  } else {
+    zero_lamb_stage2_kernel<<<count, THREADS, 0, st>>>(p, u, pc, sums, nseg, a);
   }
   return (int)cudaGetLastError();
 }

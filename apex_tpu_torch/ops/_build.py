@@ -26,14 +26,17 @@ from pathlib import Path
 import torch
 
 SOURCES = ("prefill_attention", "decode_attention", "layer_norm",
-           "attention_bwd", "xent", "softmax", "multi_tensor", "batch_norm")
+           "attention_bwd", "xent", "softmax", "multi_tensor", "batch_norm",
+           "collectives")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "apex_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# a source's own flags after NVCC_FLAGS: the multi-tensor kernels must
-# round as their plain versions do, so no multiply-add is contracted
-SOURCE_FLAGS = {"multi_tensor": ("--fmad=false",)}
+# a source's own flags after NVCC_FLAGS: the multi-tensor kernels and the
+# codec must round as their plain versions do, so no multiply-add is
+# contracted
+SOURCE_FLAGS = {"multi_tensor": ("--fmad=false",),
+                "collectives": ("--fmad=false",)}
 
 # dtype codes shared by every entry point
 DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}

@@ -1,11 +1,14 @@
 """Wrappers of the hand-written CUDA multi-tensor kernels
 (``csrc/multi_tensor.cu``): K12 :func:`scale` and :func:`axpby`, K13
-:func:`l2norm`, K14 :func:`adam`, K15 :func:`lamb`, K16 :func:`sgd`. They
-replace no Pallas site: the JAX package computes these in jnp
+:func:`l2norm`, K14 :func:`adam`, K15 :func:`lamb`, K16 :func:`sgd`, and
+the ZeRO shard updates K21 :func:`zero_adam` and K22
+:func:`zero_lamb_stage1` / :func:`zero_lamb_stage2`. They replace no
+Pallas site: the JAX package computes these in jnp
 (``apex_tpu/multi_tensor_apply/multi_tensor_apply.py``,
 ``apex_tpu/amp/scaler.py``, ``apex_tpu/optimizers/fused_adam.py``,
-``fused_lamb.py``, ``fused_sgd.py``); they are the port's counterparts of
-apex's amp_C. The
+``fused_lamb.py``, ``fused_sgd.py``,
+``apex_tpu/contrib/optimizers/distributed_fused_{adam,lamb}.py``); they
+are the port's counterparts of apex's amp_C. The
 source's header says what bounds them (bytes) and how the design answers
 that.
 
@@ -26,7 +29,7 @@ versions are in :mod:`apex_tpu_torch.ops.multi_tensor` (K12, K13) and in
 the optimizers (K14: ``optimizers/fused_adam._adam_flat`` with the skip
 selects of ``optimizers/_base.apply_plain``; K15: ``optimizers/
 fused_lamb``'s two structures; K16: ``optimizers/fused_sgd``'s update with
-``apply_plain`` and the model copy's cast).
+``apply_plain`` and the model copy's cast; K21, K22: ``ops/zero``).
 """
 
 import ctypes
@@ -55,6 +58,10 @@ _SIGNATURES = {
     "multi_tensor_lamb": ([_P, _P, _I, _I, _I, _I, _L, _P, _P, _P, _I, _P],
                           _I),
     "multi_tensor_sgd": ([_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P], _I),
+    "multi_tensor_zero_adam": ([_P, _P, _P, _P, _P, _L, _P, _P, _P, _I, _P],
+                               _I),
+    "multi_tensor_zero_lamb": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
+                                _I, _P, _P, _P, _P, _P, _I, _P], _I),
     "multi_tensor_error_string": ([_I], ctypes.c_char_p),
 }
 # elements a block (csrc/multi_tensor.cu CHUNK) and the bytes of a launch's
@@ -414,9 +421,140 @@ def sgd(grads, params, bufs, model_params, count, count_new, lr, *,
             sgd.launches += 1
 
 
+def _shard(name, *tensors):
+    dev = tensors[0].device
+    n = tensors[0].numel()
+    for t in tensors:
+        if not t.is_cuda or t.device != dev or not t.is_contiguous() \
+                or t.dtype != torch.float32 or t.dim() != 1 \
+                or t.numel() != n:
+            raise ValueError(f"{name}: want contiguous 1-d fp32 CUDA tensors "
+                             f"of {n} elements on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if n == 0:
+        raise ValueError(f"{name}: an empty shard")
+    return dev
+
+
+def zero_adam(g, master, m, v, count, count_new, bc1, bc2, lr, *, beta1,
+              beta2, eps, weight_decay, adam_w_mode, bias_correction,
+              skip=None):
+    """K21: Adam on one rank's fp32 shard in ``_adam_flat``'s order (as
+    K14): returns the update ``u = -lr * update`` (a new tensor, written
+    on a skipped step too) and writes ``m``, ``v``, ``master += u`` and
+    ``count = count_new`` in place unless the 0-d bool ``skip`` is set.
+    Scalars as :func:`adam`."""
+    name = "multi_tensor zero_adam"
+    dev = _shard(name, g, master, m, v)
+    cptr, cnptr, b1ptr, b2ptr, sptr = _state_ptrs(name, dev, count,
+                                                  count_new, bc1, bc2, skip)
+    if bias_correction and (bc1 is None or bc2 is None):
+        raise ValueError(f"{name}: bias correction needs bc1 and bc2")
+    neg_lr = lr.neg() if torch.is_tensor(lr) else -lr
+    lptr, lval = _scalar(name, neg_lr, dev)
+    hyper = np.array([beta1, 1.0 - beta1, beta2, 1.0 - beta2, eps,
+                      weight_decay, 0.0, 0.0, lval], dtype=np.float32)
+    flags = np.array([bool(adam_w_mode), bool(bias_correction),
+                      weight_decay != 0, 0], dtype=np.int32)
+    devptrs = np.array([b1ptr, b2ptr, lptr or 0, 0, sptr, cptr, cnptr, 0, 0],
+                       dtype=np.int64)
+    u = torch.empty_like(g)
+    _build.launch(_NAME, _SIGNATURES, "multi_tensor_zero_adam", dev,
+                  g.data_ptr(), master.data_ptr(), m.data_ptr(), v.data_ptr(),
+                  u.data_ptr(), g.numel(), hyper.ctypes.data,
+                  flags.ctypes.data, devptrs.ctypes.data)
+    zero_adam.launches += 1
+    return u
+
+
+def _pieces(name, layout, dev, n):
+    arrays = layout.device_arrays(dev)
+    if layout.shard != n:
+        raise ValueError(f"{name}: a layout of {layout.shard} elements for "
+                         f"a shard of {n}")
+    return arrays
+
+
+def zero_lamb_stage1(g, master, m, v, layout, count, count_new, bc1, bc2, *,
+                     beta1, beta2, beta3, eps, weight_decay, adam_w_mode,
+                     bias_correction, max_grad_norm, global_sq=None,
+                     skip=None):
+    """K22, stage 1 (two launches): on one rank's fp32 shard, the
+    gradient clipped by ``max(sqrt(global_sq) / max_grad_norm, 1)`` (the
+    all-reduced 0-d sum of squares), ``m`` and ``v`` in place and
+    ``count = count_new`` unless ``skip`` is set, the direction ``u``
+    (returned), and each segment's sums of ``p * p`` and ``u * u`` over
+    the shard (``layout``: ``ops/zero.ShardLayout``), one block a piece
+    and then a segment's pieces in order: returns ``(u, sums [2, N +
+    1])``."""
+    name = "multi_tensor zero_lamb"
+    dev = _shard(name, g, master, m, v)
+    start, lens, segs, first = _pieces(name, layout, dev, g.numel())
+    cptr, cnptr, b1ptr, b2ptr, sptr = _state_ptrs(name, dev, count,
+                                                  count_new, bc1, bc2, skip)
+    if bias_correction and (bc1 is None or bc2 is None):
+        raise ValueError(f"{name}: bias correction needs bc1 and bc2")
+    clipping = max_grad_norm is not None and max_grad_norm > 0
+    if clipping and global_sq is None:
+        raise ValueError(f"{name}: clipping needs the global sum of squares")
+    gptr = _scalar(name, global_sq, dev)[0] if clipping else 0
+    hyper = np.array([beta1, 1.0 - beta1, beta2, 1.0 - beta2, eps,
+                      weight_decay, beta3,
+                      max_grad_norm if clipping else 0.0, 0.0],
+                     dtype=np.float32)
+    flags = np.array([bool(adam_w_mode), bool(bias_correction),
+                      weight_decay != 0, 0], dtype=np.int32)
+    devptrs = np.array([b1ptr, b2ptr, 0, gptr or 0, sptr, cptr, cnptr, 0, 0],
+                       dtype=np.int64)
+    u = torch.empty_like(g)
+    partials = torch.empty(2 * layout.count, dtype=torch.float32, device=dev)
+    sums = torch.empty((2, layout.nseg), dtype=torch.float32, device=dev)
+    _build.launch(_NAME, _SIGNATURES, "multi_tensor_zero_lamb", dev, 1,
+                  g.data_ptr(), master.data_ptr(), m.data_ptr(), v.data_ptr(),
+                  u.data_ptr(), start.data_ptr(), lens.data_ptr(),
+                  segs.data_ptr(), layout.count, first.data_ptr(),
+                  layout.nseg, partials.data_ptr(), sums.data_ptr(),
+                  hyper.ctypes.data, flags.ctypes.data, devptrs.ctypes.data)
+    zero_lamb_stage1.launches += 2
+    return u, sums
+
+
+def zero_lamb_stage2(u, master, sums, layout, lr, *, trust, skip=None):
+    """K22, stage 2: each segment's trust ratio ``|p| / (|u| + 1e-38)``
+    from the all-reduced ``sums`` ``[2, N + 1]`` (1 where either is 0, for
+    the padding segment, and everywhere unless ``trust``), then ``u =
+    (-lr * ratio) * u`` in place and ``master += u`` unless ``skip`` is
+    set. ``lr`` is a number or a 0-d fp32 tensor."""
+    name = "multi_tensor zero_lamb"
+    dev = _shard(name, u, master)
+    start, lens, segs, first = _pieces(name, layout, dev, u.numel())
+    if tuple(sums.shape) != (2, layout.nseg) or sums.device != dev \
+            or sums.dtype != torch.float32 or not sums.is_contiguous():
+        raise ValueError(f"{name}: sums must be contiguous fp32 [2, "
+                         f"{layout.nseg}] on {dev}")
+    sptr = _state_ptrs(name, dev, None, None, None, None, skip)[4]
+    neg_lr = lr.neg() if torch.is_tensor(lr) else -lr
+    lptr, lval = _scalar(name, neg_lr, dev)
+    hyper = np.array([0.0] * 8 + [lval], dtype=np.float32)
+    flags = np.array([0, 0, 0, bool(trust)], dtype=np.int32)
+    devptrs = np.array([0, 0, lptr or 0, 0, sptr, 0, 0, 0, 0],
+                       dtype=np.int64)
+    _build.launch(_NAME, _SIGNATURES, "multi_tensor_zero_lamb", dev, 2,
+                  None, master.data_ptr(), None, None, u.data_ptr(),
+                  start.data_ptr(), lens.data_ptr(), segs.data_ptr(),
+                  layout.count, first.data_ptr(), layout.nseg, None,
+                  sums.data_ptr(), hyper.ctypes.data, flags.ctypes.data,
+                  devptrs.ctypes.data)
+    zero_lamb_stage2.launches += 1
+    return u
+
+
 scale.launches = 0
 axpby.launches = 0
 l2norm.launches = 0
 adam.launches = 0
 lamb.launches = 0
 sgd.launches = 0
+zero_adam.launches = 0
+zero_lamb_stage1.launches = 0
+zero_lamb_stage2.launches = 0

@@ -15,14 +15,28 @@ tensors, so the card divides as JAX does (a host scalar would become a
 multiplication by its reciprocal). :func:`broadcast_params` takes rank
 0's parameters and buffers. The bucket and stream knobs of
 :class:`DistributedDataParallel` are accepted, warned once, and ignored,
-as in JAX; ``compress`` and ``hierarchical`` (JAX's
-``parallel/collectives.py``) are not ported yet and raise.
+as in JAX.
+
+The scale-out knobs route through :mod:`apex_tpu_torch.parallel.
+collectives`, as JAX's do: ``compress`` (a per-call scheme, raising on an
+unknown one; None consults ``set_grad_compress`` / ``APEX_GRAD_COMPRESS``)
+and ``hierarchical`` (per call, raising over a group that is not an
+``(inner, outer)`` pair; None consults ``set_hier_allreduce`` /
+``APEX_HIER_ALLREDUCE``). With both resolved off the reduction is the one
+above; otherwise ``collectives.allreduce_tree`` reduces one flat fp32
+buffer, the predivision before it, and ``ef_state`` (from
+``collectives.ef_init`` or :meth:`DistributedDataParallel.init_ef_state`)
+threads the error-feedback residual: with it the return value is
+``(grads, new_ef_state)``.
 """
 
 import warnings
 
 import torch
 import torch.distributed as dist
+
+from apex_tpu_torch import device_scalar
+from apex_tpu_torch.parallel import collectives
 
 NOOP_KNOBS = ("message_size", "delay_allreduce", "num_allreduce_streams",
               "retain_allreduce_buffers", "allreduce_trigger_params",
@@ -39,31 +53,57 @@ def world_size(group=None):
     return dist.get_world_size(group)
 
 
-def _refuse_scale_out(compress, hierarchical):
-    if compress not in (None, False) or hierarchical not in (None, False):
-        raise NotImplementedError(
-            "allreduce_gradients: compress and hierarchical reduction live "
-            "in apex_tpu/parallel/collectives.py, which the port has not "
-            "ported yet; pass None or False")
-
-
-def _scalar(value, like):
-    return torch.full((), float(value), dtype=torch.float32,
-                      device=like.device)
-
-
 def allreduce_gradients(grads, group=None, gradient_average=True,
                         allreduce_always_fp32=False,
                         gradient_predivide_factor=1.0, *, compress=None,
-                        hierarchical=None):
-    """The gradients (a dict of tensors) reduced over ``group``: the mean
-    (or, without ``gradient_average``, the sum), fp32 during the
-    reduction with ``allreduce_always_fp32``, divided by
-    ``gradient_predivide_factor`` before it and by world / factor after.
-    One flat all-reduce per dtype; returns a new dict in the input dtypes.
-    Without an initialized process group the world is 1 and the
-    gradients come back as they are."""
-    _refuse_scale_out(compress, hierarchical)
+                        hierarchical=None, ef_state=None):
+    """The gradients (a dict of tensors) reduced over ``group`` (a process
+    group, None for the default one, or an ``(inner, outer)`` pair from
+    ``collectives.hierarchical_groups``): the mean (or, without
+    ``gradient_average``, the sum), fp32 during the reduction with
+    ``allreduce_always_fp32``, divided by ``gradient_predivide_factor``
+    before it and by world / factor after. With the knobs off, one flat
+    all-reduce per dtype; returns a new dict in the input dtypes (and the
+    new error-feedback state when ``ef_state`` is given). Without an
+    initialized process group the world is 1 and the gradients come back
+    as they are."""
+    axes = collectives.axes_tuple(group)
+    scheme = collectives.resolve_compress(compress)
+    hier = collectives.resolve_hier(hierarchical, axes)
+    if scheme is not None or hier:
+        return _scale_out(grads, axes, scheme, hier, gradient_average,
+                          gradient_predivide_factor, ef_state)
+    group = collectives._flat_group(axes)
+    reduced = _allreduce_flat(grads, group, gradient_average,
+                              allreduce_always_fp32,
+                              gradient_predivide_factor)
+    return reduced if ef_state is None else (reduced, ef_state)
+
+
+def _scale_out(grads, axes, scheme, hier, gradient_average, pre, ef_state):
+    """The compressed or hierarchical route: the predivision, then
+    ``collectives.allreduce_tree`` over one flat fp32 buffer, then the
+    division by world / factor."""
+    pre = pre if pre != 1.0 else None
+    scaled = grads if pre is None else {
+        n: g / device_scalar(pre, g).to(g.dtype) for n, g in grads.items()}
+    reduced, new_ef = collectives.allreduce_tree(
+        scaled, axes, mean=False,
+        compress=scheme if scheme is not None else False,
+        hierarchical=hier, ef_state=ef_state)
+    world = collectives.axes_size(axes)
+    if gradient_average:
+        post = world / pre if pre is not None else world
+        reduced = {n: (g / device_scalar(post, g).to(g.dtype)).to(g.dtype)
+                   for n, g in reduced.items()}
+    elif pre is not None:
+        reduced = {n: (g * device_scalar(pre, g).to(g.dtype)).to(g.dtype)
+                   for n, g in reduced.items()}
+    return reduced if ef_state is None else (reduced, new_ef)
+
+
+def _allreduce_flat(grads, group, gradient_average, allreduce_always_fp32,
+                    gradient_predivide_factor):
     world = world_size(group)
     if world == 1 or not grads:
         return dict(grads)
@@ -78,13 +118,13 @@ def allreduce_gradients(grads, group=None, gradient_average=True,
     for dt, members in groups.items():
         flat = torch.cat([grads[n].reshape(-1).to(dt) for n in members])
         if pre != 1.0:
-            flat = flat / _scalar(pre, flat).to(dt)
+            flat = flat / device_scalar(pre, flat).to(dt)
         dist.all_reduce(flat, group=group)
         if gradient_average:
             post = world / pre if pre != 1.0 else world
-            flat = flat / _scalar(post, flat).to(dt)
+            flat = flat / device_scalar(post, flat).to(dt)
         elif pre != 1.0:
-            flat = flat * _scalar(pre, flat).to(dt)
+            flat = flat * device_scalar(pre, flat).to(dt)
         offset = 0
         for n in members:
             g = grads[n]
@@ -111,7 +151,7 @@ def allreduce_mean(t, group=None):
         return t
     t = t.clone()
     dist.all_reduce(t, group=group)
-    return t / _scalar(world, t).to(t.dtype)
+    return t / device_scalar(world, t).to(t.dtype)
 
 
 @torch.no_grad()
@@ -150,7 +190,14 @@ class DistributedDataParallel:
         if shared_param is not None:
             raise ValueError(
                 "shared_param is no longer supported as an option.")
-        _refuse_scale_out(compress, hierarchical)
+        # a per-call demand at construction: an unknown scheme or a
+        # hierarchical request over a single group raises here
+        self.compress = compress
+        self.hierarchical = hierarchical
+        collectives.resolve_compress(compress)
+        if hierarchical:
+            collectives.resolve_hier(hierarchical,
+                                     collectives.axes_tuple(process_group))
         self.module = module
         self.process_group = process_group
         self.allreduce_always_fp32 = allreduce_always_fp32
@@ -173,12 +220,22 @@ class DistributedDataParallel:
                     "knob; the gradients are reduced in one flat all-reduce "
                     "per dtype after the backward; option ignored.")
 
-    def average_gradients(self, grads):
+    def average_gradients(self, grads, ef_state=None):
         return allreduce_gradients(
             grads, self.process_group,
             gradient_average=self.gradient_average,
             allreduce_always_fp32=self.allreduce_always_fp32,
-            gradient_predivide_factor=self.gradient_predivide_factor)
+            gradient_predivide_factor=self.gradient_predivide_factor,
+            compress=self.compress, hierarchical=self.hierarchical,
+            ef_state=ef_state)
+
+    def init_ef_state(self, grads):
+        """The zero error-feedback residual for :meth:`average_gradients`
+        under this configuration's resolved knobs (None when compression
+        is off)."""
+        return collectives.ef_init(grads, self.process_group,
+                                   compress=self.compress,
+                                   hierarchical=self.hierarchical)
 
     def broadcast_params(self, module_or_tensors=None):
         return broadcast_params(

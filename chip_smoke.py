@@ -26,7 +26,7 @@ exits non-zero before the last line):
 1. device: ``nvidia-smi`` name and power limit, the SM clock's maximum
    (the INT32 rate assumes it), torch and CUDA versions; TF32 is
    switched off for fp32 matmuls and convolutions.
-2. build: the eight CUDA sources compile from ``apex_tpu_torch/csrc`` (one
+2. build: the nine CUDA sources compile from ``apex_tpu_torch/csrc`` (one
    ``nvcc`` each, all in parallel) into ``build/apex_tpu_torch/``; ptxas's
    registers and spills are printed, and, where the toolkit has
    ``cuobjdump``, the tensor-core instructions (``HGMMA``: wgmma;
@@ -143,7 +143,16 @@ exits non-zero before the last line):
    written once (K18: x, dy once, dx once), ``by_shape``; and K16 (SGD,
    the O2 four-list form writing the bf16 copy) on ResNet-50's 161
    leaves in turns with ``torch.optim.SGD(fused=True).step``, bound 22
-   bytes a parameter.
+   bytes a parameter. Then the scale-out kernels
+   (``phase_scale_out_kernels``): K19 (the int8 block quantizer with error
+   feedback) on BERT-large's padded flat gradient as the reduce-scatter's
+   rows ``[2, P / 2]`` and K20 (dequantize and sum of two ranks' payloads)
+   bit for bit against their plain versions, K21 (the ZeRO Adam shard
+   update) on GPT-2-small's shard at world 2 bit for bit and in turns with
+   ``torch.optim.Adam(fused=True).step`` over one fp32 tensor of the
+   shard's size, K22 (the ZeRO LAMB shard update, both stages) on
+   BERT-large's shard 0 of 2 with its real segments within ``ZERO_TOL``;
+   bounds by bytes (13, W + 4, 32 and 44 an element).
 4. serving end to end: ``ServingEngine`` at GPT-2-small width (12 x 768,
    12 heads, vocab 50304, 1024 positions, bf16; 8 slots, page size 128,
    72 pages, 512-token packed prefill) with random weights from seed 0
@@ -309,8 +318,40 @@ exits non-zero before the last line):
    K2q never, the kernel and plain paths' logits within 0.35. Each of
    these serving runs is counted as phase 4's is: at the wrappers from
    the engine's construction on, and on the device in a traced rerun.
-6. one JSON line per kernel, the ``{"kernels": [...]}`` line, and last
-   ``{"ok": true, "device": {...}}``.
+   Last, the scale-out slice: Z-BERT, BERT-large at data-parallel
+   world 2 (each rank 8 of window A's 16 sequences) trained by
+   ``make_one_step`` with a ``GradScaler`` over the group and
+   ``distributed_fused_lamb`` (ZeRO-2, window A's LAMB recipe), three
+   steps with the codec off and three from the same weights with int8
+   and error feedback, in two ranks started with ``spawn`` (NCCL with a
+   card each, else gloo with both on cuda:0: correctness only); step 1's
+   K19-K22 calls each held against the plain version on their own
+   inputs (``_zero_held``), step 2's collectives clocked on the host,
+   step 3 profiled on rank 0; the ranks' parameters bit-equal after each
+   step; step 1's loss against window A's unsharded one (the band four
+   times the move between its two halves and it); the codec-off run's
+   parameter move in step 1 against window A's unsharded FusedLAMB step
+   (K13, K15) on the same 16 sequences through ``allreduce_gradients``,
+   within ``ZERO_MOVE_BAND`` times that step's own move under a learning
+   rate nudged by ``ZERO_LR_NUDGE``; the int8 losses of steps 2 and 3
+   within ``CODEC_MOVE_SHARE`` of the codec-off run's move since step 1;
+   each int8 step's residuals read by the next step's K19 calls; the
+   launches (K22 3 a step, with int8 K19 and K20 2 a step). Z-GPT in the
+   same ranks:
+   GPT-2-small on ``distributed_fused_adam`` (K21, held in step 1)
+   against ``allreduce_gradients`` + ``fused_adam`` (K14), parameters bit
+   for bit after each of three steps. R-DDP-int8: three more R-DDP steps
+   in its ranks with ``DistributedDataParallel(compress="int8")`` and its
+   residual, every K19/K20 call held, ranks bit-equal. HIER: world 4 as
+   (2, 2) (four ranks), GPT-2-small's width at 2 layers, the fp32
+   gradients all-reduced flat, hierarchically (within ``HIER_TOL`` of
+   flat) and hierarchically with int8 (K19/K20 held), every rank the same
+   bits. LARC: ResNet-50 R-O2 at world 1, b = 64, three steps with
+   ``larc`` before ``fused_sgd``, each step's scaled gradients (K13's
+   norms) within ``ZERO_TOL`` of the plain LARC path's.
+6. one JSON line per kernel (K1-K22), each phase's seconds, the wall, the
+   ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
+   {...}}``.
 """
 
 import contextlib
@@ -2965,9 +3006,9 @@ def phase_xent_kernels(dev, flush):
 
 def _training_counts():
     from apex_tpu_torch.ops import (attention_bwd_cuda, attention_cuda,
-                                    batch_norm_cuda, layer_norm_cuda,
-                                    multi_tensor_cuda, softmax_cuda,
-                                    xent_cuda)
+                                    batch_norm_cuda, collectives_cuda,
+                                    layer_norm_cuda, multi_tensor_cuda,
+                                    softmax_cuda, xent_cuda)
 
     return {"prefill_attention": attention_cuda.prefill_attention,
             "attention_bwd_dq": attention_bwd_cuda.attention_bwd_dq,
@@ -2996,7 +3037,14 @@ def _training_counts():
             "batch_norm_fwd_stats": batch_norm_cuda.fwd_stats,
             "batch_norm_fwd_apply": batch_norm_cuda.fwd_apply,
             "batch_norm_bwd_stats": batch_norm_cuda.bwd_stats,
-            "batch_norm_bwd_apply": batch_norm_cuda.bwd_apply}
+            "batch_norm_bwd_apply": batch_norm_cuda.bwd_apply,
+            "collectives_quantize": collectives_cuda.quantize,
+            "collectives_dequantize_sum": collectives_cuda.dequantize_sum,
+            "multi_tensor_zero_adam": multi_tensor_cuda.zero_adam,
+            "multi_tensor_zero_lamb_stage1":
+                multi_tensor_cuda.zero_lamb_stage1,
+            "multi_tensor_zero_lamb_stage2":
+                multi_tensor_cuda.zero_lamb_stage2}
 
 
 def _warmup_cosine(count):
@@ -5755,9 +5803,54 @@ def _ddp_rank(rank, world, tmp, backend, card):
                     if type(m).__name__ == "SyncBatchNorm")
         out["batch_norm_held"] = _bn_held_summary(records, norms)
         out["averaged_grads_rel_l2"] = averaged
+        out["int8"] = _ddp_int8_steps(state, step, images, labels, model,
+                                      group, backend)
         torch.save(out, f"{tmp}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
+
+
+def _ddp_int8_steps(state, step, images, labels, model, group, backend):
+    """R-DDP-int8, after R-DDP's steps in the same ranks: three more steps
+    of the example's step with the gradients reduced by
+    ``DistributedDataParallel(compress="int8")`` and its error-feedback
+    residual (``init_ef_state``) threaded through, every K19/K20 call held
+    (``_zero_held``); the masters, parameters and buffers compared over
+    the ranks after each step; the launches read from zero."""
+    from apex_tpu_torch.examples import imagenet
+    from apex_tpu_torch.parallel import DistributedDataParallel
+
+    ddp = DistributedDataParallel(process_group=group, compress="int8")
+    ef = {}
+
+    def compressed(grads, *_args, **_kwargs):
+        if "state" not in ef:
+            ef["state"] = ddp.init_ef_state(grads)
+        red, ef["state"] = ddp.average_gradients(grads, ef["state"])
+        return red
+
+    counts = _zero_counts()
+    for fn in counts.values():
+        fn.launches = 0
+    records, steps = [], []
+    for i in range(RESNET_DDP["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mock.patch.object(imagenet, "allreduce_gradients",
+                               compressed), _zero_held(records):
+            state, metrics, overflow = step(state, images, labels)
+        torch.cuda.synchronize()
+        steps.append({"step": i + 1,
+                      "ms": (time.perf_counter() - t0) * 1e3,
+                      "loss": metrics[0].item(),
+                      "overflow": bool(overflow.item()),
+                      "ranks_bit_equal": _ranks_equal(
+                          list(state.master_params.values())
+                          + list(model.parameters())
+                          + list(model.buffers()), backend)})
+    return {"steps": steps, "held": _zero_held_summary(records),
+            "launches": _read_counts(counts),
+            "residual": ef["state"].numel()}
 
 
 def phase_resnet_ddp(dev, card):
@@ -5853,12 +5946,1062 @@ def phase_resnet_ddp(dev, card):
     if dloss > band:
         raise AssertionError(f"R-DDP against one process on 64 images: "
                              f"loss {dloss} (band {band})")
+    stats["int8"] = [{k: v for k, v in r["int8"].items() if k != "held"}
+                     for r in ranks]
+    stats["int8_held"] = [r["int8"]["held"]["by_kernel"] for r in ranks]
+    _log("R-DDP-int8: " + json.dumps({"int8": stats["int8"],
+                                      "held": stats["int8_held"]}))
+    for r in ranks:
+        q = r["int8"]
+        if q["held"]["bad"] or any(not s["ranks_bit_equal"] or s["overflow"]
+                                   for s in q["steps"]):
+            raise AssertionError(f"R-DDP-int8 rank {r['rank']}: {q}")
+        n = RESNET_DDP["steps"]
+        if (q["launches"]["collectives_quantize"],
+                q["launches"]["collectives_dequantize_sum"]) != (n, n):
+            raise AssertionError(f"R-DDP-int8 launches: {q['launches']}")
     return stats
+
+
+# ------------------------------------------------------ the scale-out slice
+# BERT-large (BERT_LARGE, window A's recipe) at data-parallel world 2 on
+# DistributedFusedLAMB (ZeRO-2): each rank 8 of window A's 16 sequences,
+# three steps with the codec off, then three from the same weights with
+# int8 and error feedback; NCCL with a card a rank, else gloo with both
+# ranks on cuda:0 (the collectives then go through the host: their step
+# times are for correctness only)
+ZERO_BERT = dict(world=2, batch=8, steps=3, lr=1e-4, timeout_s=600)
+# GPT-2-small (the fused head) at world 2, b = 4 a rank, on
+# DistributedFusedAdam against allreduce_gradients (mean) + FusedAdam
+ZERO_GPT = dict(batch=4, steps=3, lr=1e-4)
+# world 4 as (inner, outer) = (2, 2): GPT-2-small's width at 2 layers, b =
+# 2 a rank; the hierarchical reduction within HIER_TOL (relative L2) of the
+# flat one
+HIER = dict(world=4, inner=2, outer=2, layers=2, batch=2, timeout_s=300)
+HIER_TOL = 1e-5
+# LARC(FusedSGD) on ResNet-50 R-O2 at world 1 (b = 64 for the smoke's time):
+# trust 0.02, clip mode at the recipe's lr, the recipe's decay applied by
+# LARC and the inner SGD's set to 0, as the LARC class does
+LARC_WINDOW = dict(batch=64, steps=3, trust=0.02, seed=4)
+# K22 (and the LARC transform's K13 norms) against their plain versions:
+# sums in another order (the card tests' MT_LAMB_TOL)
+ZERO_TOL = MT_LAMB_TOL
+# the kinds of Z-BERT's profiled step
+ZERO_KINDS = ("attention_fwd", "attention_bwd", "softmax", "layer_norm",
+              "matmul", "optimizer", "codec", "memcpy", "other")
+# the codec on against off: after step k (k > 1) the int8 run's loss is
+# within this share of the codec-off run's move since step 1 (measured at
+# most 3.7e-3 of it on the H100); a route that dropped the update would be
+# at 1
+CODEC_MOVE_SHARE = 0.05
+# Z-BERT's codec-off step 1 against the unsharded FusedLAMB step on the
+# same 16 sequences: the relative L2 of the two parameter moves, within
+# ZERO_MOVE_BAND times the unsharded step's own move when its learning
+# rate changes by one part in 2^21 (the size of the trust ratio's
+# differences from norms summed in another order); such a band of
+# ZERO_BAND_CAP or more could not tell a wrong update, and fails
+ZERO_LR_NUDGE = 2.0 ** -21
+ZERO_MOVE_BAND = 10.0
+ZERO_BAND_CAP = 1e-2
+
+
+def _zero_sizes(dev):
+    """BERT-large's parameter sizes (the model of window A)."""
+    from apex_tpu_torch.transformer.testing import BertModel
+
+    model = BertModel(_bert_cfg("A"), device=dev, seed=0)
+    sizes = [p.numel() for p in model.parameters()]
+    del model
+    torch.cuda.empty_cache()
+    return sizes
+
+
+def phase_scale_out_kernels(dev, flush):
+    """K19-K22 at the scale-out slice's shapes, each against its plain
+    version on the same inputs: K19 (the gradient hop's quantize: BERT-
+    large's padded flat gradient as rows [2, P / 2] with the residual)
+    and K20 (dequantize and sum of two ranks' payloads over a shard) bit
+    for bit; K21 (the ZeRO Adam update on GPT-2-small's shard at world 2)
+    bit for bit, with ``torch.optim.Adam(fused=True).step`` over one fp32
+    tensor of the shard's size in turns as its library call; K22 (both
+    stages on BERT-large's shard 0 of 2, its real segments) within
+    ``ZERO_TOL``. Bounds by bytes: K19 13 an element (x, residual read;
+    q, residual written; a bf16 scale a block), K20 W + 4 an output plus
+    the scales, K21 32 (g, master, m, v read; master, m, v, u written),
+    K22 44 (stage 1 28, stage 2 16)."""
+    from apex_tpu_torch.ops import collectives as codec
+    from apex_tpu_torch.ops import collectives_cuda as cc
+    from apex_tpu_torch.ops import multi_tensor_cuda as mt
+    from apex_tpu_torch.ops import zero as zops
+    from apex_tpu_torch.optimizers._fused import (ShardLayout,
+                                                  zero_padded_total)
+
+    rows = []
+    sizes = _zero_sizes(dev)
+    P = zero_padded_total(sum(sizes), 2)
+    shard = P // 2
+    gen = torch.Generator(device=dev).manual_seed(18)
+    x = (torch.randn(2, shard, generator=gen, device=dev) * 1e-3)
+    res = torch.randn(2, shard, generator=gen, device=dev) * 1e-6
+    src = "apex_tpu_torch/csrc/collectives.cu"
+
+    got = cc.quantize(x, res)
+    want = codec.quantize_reference(x, res)
+    same = all(_same_bits(a, b) for a, b in zip(got, want))
+    if not same:
+        raise AssertionError("K19 at BERT-large's flat size: not its plain "
+                             "version's bits")
+    q, scales = got[0], got[1]
+    del want
+    spread = []
+    ms = _time_ms(lambda: cc.quantize(x, res), flush, spread=spread)
+    plain_ms = _time_ms(lambda: codec.quantize_reference(x, res), flush,
+                        reps=5)
+    nb = q.shape[1]
+    nbytes = 13 * P + 2 * 2 * nb
+    bound = _bound(nbytes, 0)
+    rows.append(dict(name="collectives_quantize", route="cuda", source=src,
+                     replaces="apex_tpu/parallel/collectives.py:269",
+                     counterparts=["apex_tpu/parallel/collectives.py:269 "
+                                   "quantize_blocks", ":311 _compensate",
+                                   ":372-382 the reduce-scatter rows"],
+                     shape=[2, shard], max_abs_err=0.0, bitwise=same,
+                     ms=ms, ms_spread=spread, plain_ms=plain_ms,
+                     library_ms=None, bound_ms=bound[0], bound_by=bound[1],
+                     bytes=nbytes))
+    _log("K19: " + json.dumps(rows[-1]))
+
+    got = cc.dequantize_sum(q, scales, shard)
+    same = _same_bits(got, codec.dequantize_sum_reference(q, scales, shard))
+    gathered = cc.dequantize_sum(q, scales, shard, gather=True)
+    same &= _same_bits(gathered, codec.dequantize_sum_reference(
+        q, scales, shard, gather=True))
+    if not same:
+        raise AssertionError("K20: not its plain version's bits")
+    del gathered
+    spread = []
+    ms = _time_ms(lambda: cc.dequantize_sum(q, scales, shard), flush,
+                  spread=spread)
+    plain_ms = _time_ms(lambda: codec.dequantize_sum_reference(
+        q, scales, shard), flush, reps=5)
+    nbytes = 2 * nb * 128 + 2 * 2 * nb + 4 * shard
+    bound = _bound(nbytes, 0)
+    rows.append(dict(name="collectives_dequantize_sum", route="cuda",
+                     source=src,
+                     replaces="apex_tpu/parallel/collectives.py:384",
+                     counterparts=["apex_tpu/parallel/collectives.py:354-360 "
+                                   "(gathered, summed)", ":384-387 (after "
+                                   "all_to_all)", ":400-403 and :304 "
+                                   "dequantize_blocks (gathered)"],
+                     shape=[2, nb, 128], max_abs_err=0.0, bitwise=same,
+                     ms=ms, ms_spread=spread, plain_ms=plain_ms,
+                     library_ms=None, bound_ms=bound[0], bound_by=bound[1],
+                     bytes=nbytes))
+    _log("K20: " + json.dumps(rows[-1]))
+    del x, res, q, scales, got
+    torch.cuda.empty_cache()
+
+    # K21 on GPT-2-small's shard at world 2
+    n = zero_padded_total(sum(p.numel() for p in _gpt2_leaves(dev).values()),
+                          2) // 2
+    g = torch.randn(n, generator=gen, device=dev) * 1e-3
+    master = torch.randn(n, generator=gen, device=dev) * 0.02
+    m = torch.randn(n, generator=gen, device=dev) * 1e-4
+    v = torch.rand(n, generator=gen, device=dev) * 1e-7
+    count = torch.tensor(3, dtype=torch.int32, device=dev)
+    new = count + 1
+    bc1 = 1.0 - torch.pow(0.9, new.float())
+    bc2 = 1.0 - torch.pow(0.999, new.float())
+    kw = dict(beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.0,
+              adam_w_mode=False, bias_correction=True)
+    a = [t.clone() for t in (master, m, v, count)]
+    b = [t.clone() for t in (master, m, v, count)]
+    u = mt.zero_adam(g, *a, new, bc1, bc2, 1e-4, **kw)
+    ur = zops.adam_reference(g, *b, new, bc1, bc2, 1e-4, **kw)
+    same = _same_bits(u, ur) and all(_same_bits(s, t) for s, t in zip(a, b))
+    if not same:
+        raise AssertionError("K21: not its plain version's bits")
+    lib_p = torch.nn.Parameter(master.clone())
+    lib_p.grad = g.clone()
+    lib_opt = torch.optim.Adam([lib_p], lr=1e-4, fused=True)
+    src = "apex_tpu_torch/csrc/multi_tensor.cu"
+    spread = []
+    t = _turns(lambda: mt.zero_adam(g, *a, new, bc1, bc2, 1e-4, **kw),
+               lib_opt.step, flush, src, spread=spread)
+    plain_ms = _time_ms(lambda: zops.adam_reference(
+        g, *b, new, bc1, bc2, 1e-4, **kw), flush, reps=5)
+    bound = _bound(32 * n, 0)
+    rows.append(dict(name="multi_tensor_zero_adam", route="cuda", source=src,
+                     replaces="apex_tpu/contrib/optimizers/"
+                              "distributed_fused_adam.py:101",
+                     counterparts=["apex_tpu/contrib/optimizers/"
+                                   "distributed_fused_adam.py:101-126",
+                                   "apex_tpu/optimizers/fused_adam.py:41 "
+                                   "_adam_flat"],
+                     elements=n, max_abs_err=0.0, bitwise=same,
+                     ms_spread=spread, plain_ms=plain_ms, bound_ms=bound[0],
+                     bound_by=bound[1], bytes=32 * n, **t))
+    _log("K21: " + json.dumps(rows[-1]))
+    del g, master, m, v, a, b, u, ur, lib_p, lib_opt
+    torch.cuda.empty_cache()
+
+    # K22 on BERT-large's shard 0 of 2
+    layout = ShardLayout(sizes, 2, 0)
+    n = layout.shard
+    g = torch.randn(n, generator=gen, device=dev) * 1e-4
+    master = torch.randn(n, generator=gen, device=dev) * 0.02
+    m = torch.randn(n, generator=gen, device=dev) * 1e-5
+    v = torch.rand(n, generator=gen, device=dev) * 1e-9
+    gsq = torch.sum(g * g) * 2.0
+    kw = dict(beta1=0.9, beta2=0.999, beta3=0.1, eps=1e-6,
+              weight_decay=0.01, adam_w_mode=True, bias_correction=True,
+              max_grad_norm=1.0, global_sq=gsq)
+
+    def k22(state):
+        uu, sums = mt.zero_lamb_stage1(g, state[0], state[1], state[2],
+                                       layout, state[3], new, bc1, bc2, **kw)
+        return mt.zero_lamb_stage2(uu, state[0], sums, layout, 1e-4,
+                                   trust=True), sums
+
+    def plain(state):
+        uu, sums = zops.lamb_stage1_reference(
+            g, state[0], state[1], state[2], layout, state[3], new, bc1, bc2,
+            **kw)
+        return zops.lamb_stage2_reference(uu, state[0], sums, layout, 1e-4,
+                                          trust=True), sums
+
+    a = [t.clone() for t in (master, m, v, count)]
+    b = [t.clone() for t in (master, m, v, count)]
+    (u, sums), (ur, sr) = k22(a), plain(b)
+    errs = {"update_rel_l2": _rel_l2(u, ur),
+            "sums": _rel_err(sums, sr),
+            "master_rel_l2": _rel_l2(a[0] - master, b[0] - master),
+            "moments_bitwise": _same_bits(a[1], b[1]) and _same_bits(
+                a[2], b[2])}
+    again = [t.clone() for t in (master, m, v, count)]
+    repeat = _same_bits(k22(again)[0], u)
+    if max(errs["update_rel_l2"], errs["sums"],
+           errs["master_rel_l2"]) > ZERO_TOL or not repeat:
+        raise AssertionError(f"K22: {errs} (band {ZERO_TOL}), repeatable "
+                             f"{repeat}")
+    spread = []
+    turns = [_time_ms(lambda: k22(a), flush, spread=spread),
+             _time_ms(lambda: k22(a), flush)]
+    plain_ms = _time_ms(lambda: plain(b), flush, reps=3)
+    bound = _bound(44 * n, 0)
+    rows.append(dict(name="multi_tensor_zero_lamb", route="cuda", source=src,
+                     replaces="apex_tpu/contrib/optimizers/"
+                              "distributed_fused_lamb.py:117",
+                     counterparts=["apex_tpu/contrib/optimizers/"
+                                   "distributed_fused_lamb.py:117-149"],
+                     elements=n, segments=layout.nseg, pieces=layout.count,
+                     max_abs_err=max(errs["update_rel_l2"], errs["sums"]),
+                     errors=errs, band=ZERO_TOL, bitwise_repeatable=repeat,
+                     ms=statistics.mean(turns), ms_turns=turns,
+                     ms_spread=spread, plain_ms=plain_ms, library_ms=None,
+                     bound_ms=bound[0], bound_by=bound[1], bytes=44 * n))
+    _log("K22: " + json.dumps(rows[-1]))
+    del g, master, m, v, a, b, again, u, ur
+    torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def _zero_held(records):
+    """Each K19, K20, K21 and K22 call that the block launches is held
+    against its plain version on the same inputs (the tensors a kernel
+    writes in place cloned before it): K19, K20 and K21 bit for bit, K22
+    by relative L2 within ``ZERO_TOL``; one record a call in ``records``
+    (kernel, elements, error, bitwise)."""
+    from apex_tpu_torch.ops import collectives as codec
+    from apex_tpu_torch.ops import collectives_cuda as cc
+    from apex_tpu_torch.ops import multi_tensor_cuda as mt
+    from apex_tpu_torch.ops import zero as zops
+
+    kernel = {"quantize": cc.quantize, "dequantize_sum": cc.dequantize_sum,
+              "zero_adam": mt.zero_adam,
+              "zero_lamb_stage1": mt.zero_lamb_stage1,
+              "zero_lamb_stage2": mt.zero_lamb_stage2}
+
+    def note(name, n, err, bitwise):
+        records.append({"kernel": name, "elements": int(n), "err": err,
+                        "bitwise": bool(bitwise)})
+
+    def quantize(x, residual=None, *, block=128):
+        got = kernel["quantize"](x, residual, block=block)
+        want = codec.quantize_reference(x, residual, block=block)
+        same = all((a is None and b is None) or _same_bits(a, b)
+                   for a, b in zip(got, want))
+        note("K19", x.numel(), 0.0 if same else float("inf"), same)
+        return got
+
+    def dequantize_sum(q, scales, n, *, gather=False, divisor=None):
+        got = kernel["dequantize_sum"](q, scales, n, gather=gather,
+                                       divisor=divisor)
+        same = _same_bits(got, codec.dequantize_sum_reference(
+            q, scales, n, gather=gather, divisor=divisor))
+        note("K20", got.numel(), 0.0 if same else float("inf"), same)
+        return got
+
+    def zero_adam(g, master, m, v, count, count_new, bc1, bc2, lr, **kw):
+        ref = [t.clone() for t in (master, m, v, count)]
+        u = kernel["zero_adam"](g, master, m, v, count, count_new, bc1, bc2,
+                                lr, **kw)
+        ur = zops.adam_reference(g, *ref, count_new, bc1, bc2, lr, **kw)
+        same = _same_bits(u, ur) and all(
+            _same_bits(a, b) for a, b in zip((master, m, v, count), ref))
+        note("K21", g.numel(), 0.0 if same else float("inf"), same)
+        return u
+
+    def zero_lamb_stage1(g, master, m, v, layout, count, count_new, bc1,
+                         bc2, **kw):
+        ref = [t.clone() for t in (m, v, count)]
+        u, sums = kernel["zero_lamb_stage1"](g, master, m, v, layout, count,
+                                             count_new, bc1, bc2, **kw)
+        ur, sr = zops.lamb_stage1_reference(g, master, ref[0], ref[1],
+                                            layout, ref[2], count_new, bc1,
+                                            bc2, **kw)
+        err = max(_rel_l2(u, ur), _rel_err(sums, sr), _rel_l2(m, ref[0]),
+                  _rel_l2(v, ref[1]))
+        note("K22 stage 1", g.numel(), err,
+             _same_bits(u, ur) and _same_bits(m, ref[0]))
+        return u, sums
+
+    def zero_lamb_stage2(u, master, sums, layout, lr, **kw):
+        uc, mc = u.clone(), master.clone()
+        out = kernel["zero_lamb_stage2"](u, master, sums, layout, lr, **kw)
+        zops.lamb_stage2_reference(uc, mc, sums, layout, lr, **kw)
+        err = max(_rel_l2(out, uc), _rel_l2(master - mc, uc)
+                  if kw.get("skip") is None else 0.0)
+        note("K22 stage 2", u.numel(), err, _same_bits(out, uc))
+        return out
+
+    stand_ins = {"quantize": (cc, quantize),
+                 "dequantize_sum": (cc, dequantize_sum),
+                 "zero_adam": (mt, zero_adam),
+                 "zero_lamb_stage1": (mt, zero_lamb_stage1),
+                 "zero_lamb_stage2": (mt, zero_lamb_stage2)}
+    with contextlib.ExitStack() as stack:
+        for name, (mod, fn) in stand_ins.items():
+            fn.launches = kernel[name].launches
+            stack.enter_context(mock.patch.object(mod, name, fn))
+        try:
+            yield
+        finally:
+            for name, (_, fn) in stand_ins.items():
+                kernel[name].launches = fn.launches
+
+
+def _zero_held_summary(records):
+    """The held calls: a count and the worst error a kernel, and the calls
+    past their band (K19-K21 not bit for bit, K22 past ``ZERO_TOL``)."""
+    out, bad = {}, []
+    for r in records:
+        k = out.setdefault(r["kernel"], {"calls": 0, "worst": 0.0,
+                                         "all_bitwise": True})
+        k["calls"] += 1
+        k["worst"] = max(k["worst"], r["err"])
+        k["all_bitwise"] &= r["bitwise"]
+        if (r["kernel"].startswith("K22") and r["err"] > ZERO_TOL) or (
+                not r["kernel"].startswith("K22") and not r["bitwise"]):
+            bad.append(r)
+    return {"by_kernel": out, "bad": bad}
+
+
+def _zero_counts():
+    """The scale-out kernels' wrappers by row name."""
+    counts = _training_counts()
+    return {k: counts[k] for k in ("collectives_quantize",
+                                   "collectives_dequantize_sum",
+                                   "multi_tensor_zero_adam",
+                                   "multi_tensor_zero_lamb_stage1",
+                                   "multi_tensor_zero_lamb_stage2",
+                                   "multi_tensor_l2norm",
+                                   "multi_tensor_scale",
+                                   "multi_tensor_adam")}
+
+
+def _read_counts(counts):
+    out = {k: fn.launches for k, fn in counts.items()}
+    out["multi_tensor_zero_lamb"] = (out.pop("multi_tensor_zero_lamb_stage1")
+                                     + out.pop("multi_tensor_zero_lamb_stage2"))
+    return out
+
+
+def _ranks_equal(tensors, backend):
+    """Whether every rank holds the same bits (``_checksums``, all-reduced
+    MAX against MIN; over the host under gloo)."""
+    import torch.distributed as dist
+
+    sums = _checksums(tensors)
+    sums = sums.cpu() if backend == "gloo" else sums
+    hi, lo = sums.clone(), sums.clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    return bool(torch.equal(hi, lo))
+
+
+@contextlib.contextmanager
+def _collective_clock(calls):
+    """Each torch.distributed collective the block calls, timed on the
+    host (the stream synchronized before and after): ``(name, bytes,
+    ms)`` appended to ``calls``."""
+    import torch.distributed as dist
+
+    names = ("all_reduce", "reduce_scatter_tensor", "all_gather_into_tensor",
+             "all_to_all_single")
+    real = {n: getattr(dist, n) for n in names}
+
+    def timed(name):
+        def run(out, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = real[name](out, *args, **kwargs)
+            torch.cuda.synchronize()
+            calls.append((name, out.numel() * out.element_size(),
+                          (time.perf_counter() - t0) * 1e3))
+            return res
+        return run
+
+    with contextlib.ExitStack() as stack:
+        for n in names:
+            stack.enter_context(mock.patch.object(dist, n, timed(n)))
+        yield
+
+
+def _bits_sig(t):
+    """A tensor's bits summed (int64) and its nonzero count."""
+    t = t.contiguous()
+    return [int(t.view(torch.int32).sum(dtype=torch.int64).item()),
+            int(torch.count_nonzero(t).item())]
+
+
+@contextlib.contextmanager
+def _residuals_seen(seen):
+    """Each quantize call of the collectives layer that carries a
+    residual, in order: ``(residual in, new residual)`` as ``_bits_sig``
+    pairs appended to ``seen``."""
+    from apex_tpu_torch.ops import collectives as codec
+
+    real = codec.quantize
+
+    def quantize(x, residual=None, *, block=128):
+        out = real(x, residual, block=block)
+        if residual is not None:
+            seen.append((_bits_sig(residual), _bits_sig(out[2])))
+        return out
+
+    with mock.patch.object(codec, "quantize", quantize):
+        yield
+
+
+def _residuals_carried(seen):
+    """Whether each int8 step's K19 calls read the residuals that the
+    step before wrote (the gradient hop's, then the update hop's), the
+    first step's zeros, and every written residual nonzero."""
+    hops = 2
+    if len(seen) < 2 * hops:
+        return False
+    first = all(r_in[1] == 0 for r_in, _ in seen[:hops])
+    written = all(r_out[1] > 0 for _, r_out in seen)
+    carried = all(seen[i + hops][0] == seen[i][1]
+                  for i in range(len(seen) - hops))
+    return first and written and carried
+
+
+def _moves_rel_l2(a, b):
+    """sqrt(sum ||a_i - b_i||^2 / sum ||b_i||^2) over lists of tensors."""
+    num = sum(torch.sum((x.double() - y.double()) ** 2) for x, y in zip(a, b))
+    den = sum(torch.sum(y.double() ** 2) for y in b)
+    return (torch.sqrt(num) / torch.sqrt(den).clamp(min=1e-300)).item()
+
+
+def _unsharded_moves(model, params, init, batch, group, dev):
+    """Window A's unsharded step from the initial weights on the same 16
+    sequences (each rank its 8): ``allreduce_gradients`` (mean) then
+    ``fused_lamb`` (K13, K15) with window A's recipe, driven by
+    ``make_one_step``; each parameter's move after one step, once at
+    Z-BERT's learning rate and once with it nudged by ``ZERO_LR_NUDGE``."""
+    from apex_tpu_torch.optimizers import fused_lamb
+    from apex_tpu_torch.train_step import make_one_step
+    from apex_tpu_torch.transformer.amp import GradScaler
+
+    runs = []
+    for lr in (ZERO_BERT["lr"], ZERO_BERT["lr"] * (1.0 + ZERO_LR_NUDGE)):
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(init[n])
+        tx = _DDP(fused_lamb(learning_rate=lr), group)
+        scaler = GradScaler(group=group)
+        step = make_one_step(model, scaler, tx)
+        state, ss = tx.init(params), scaler.init(dev)
+        state, ss, loss = step(state, ss, *batch)
+        runs.append({"moves": [p.detach() - init[n]
+                               for n, p in params.items()],
+                     "loss": loss.item(),
+                     "overflow": bool(ss.overflow.item())})
+        del tx, step, state
+        torch.cuda.empty_cache()
+    return runs
+
+
+def _zero_bert(dev, rank, world, backend, card):
+    """Z-BERT in one rank: BERT-large from torch seed 0, this rank's 8 of
+    window A's 16 sequences, ``make_one_step`` with a ``GradScaler`` over
+    the group and ``distributed_fused_lamb`` (window A's LAMB recipe),
+    three steps with the codec off and three from the same weights with
+    int8: step 1's calls held (``_zero_held``), step 2 timed with its
+    collectives clocked, step 3 profiled on rank 0; the ranks' parameters
+    compared after each step; the launches of the int8 run (K19, K20,
+    K22; and K22 in the codec-off run) read from zero; the int8 run's
+    residuals followed over steps 1 and 2 (``_residuals_seen``); then the
+    codec-off step 1's parameter move against the unsharded FusedLAMB
+    step's (``_unsharded_moves``)."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.contrib.optimizers import distributed_fused_lamb
+    from apex_tpu_torch.train_step import make_one_step
+    from apex_tpu_torch.transformer.amp import GradScaler
+    from apex_tpu_torch.transformer.testing import BertModel
+
+    cfg = _bert_cfg("A")
+    model = BertModel(cfg, device=dev, seed=0)
+    params = dict(model.named_parameters())
+    init = {n: p.detach().clone() for n, p in params.items()}
+    b = ZERO_BERT["batch"]
+    ids, mask, labels = (t[rank * b:(rank + 1) * b] for t in _bert_batch(
+        "A", b * world, cfg.vocab_size, dev))
+    group = dist.group.WORLD
+    counts = _zero_counts()
+    out = {}
+    for codec in (None, "int8"):
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(init[n])
+        tx = distributed_fused_lamb(learning_rate=ZERO_BERT["lr"],
+                                    num_shards=world,
+                                    grad_compress=codec or "off")
+        scaler = GradScaler(group=group)
+        step = make_one_step(model, scaler, tx)
+        state, ss = tx.init(params), scaler.init(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counts.values():
+            fn.launches = 0
+        records, steps, calls, seen = [], [], [], []
+        profile = None
+        for i in range(ZERO_BERT["steps"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == 0:
+                with _zero_held(records), _residuals_seen(seen):
+                    state, ss, loss = step(state, ss, ids, mask, labels)
+                if codec is None:
+                    zero_move = [p.detach() - init[n]
+                                 for n, p in params.items()]
+            elif i == 1:
+                with _collective_clock(calls), _residuals_seen(seen):
+                    state, ss, loss = step(state, ss, ids, mask, labels)
+            elif rank == 0:
+                def one():
+                    nonlocal state, ss, loss
+                    state, ss, loss = step(state, ss, ids, mask, labels)
+
+                # one attempt: a rerun on this rank alone would wait on
+                # collectives the other rank never joins
+                profile = _profile(one, ZERO_KINDS, attempts=1)
+            else:
+                state, ss, loss = step(state, ss, ids, mask, labels)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            steps.append({"step": i + 1, "ms": ms, "loss": loss.item(),
+                          "overflow": bool(ss.overflow.item()),
+                          "ranks_bit_equal": _ranks_equal(
+                              list(params.values()), backend)})
+        launches = _read_counts(counts)
+        out[codec or "off"] = {
+            "steps": steps, "launches": launches,
+            "held": _zero_held_summary(records),
+            "collectives": {
+                "calls": len(calls),
+                "mb": sum(c[1] for c in calls) / 1e6,
+                "host_ms": sum(c[2] for c in calls),
+                "by_op": {n: [sum(1 for c in calls if c[0] == n),
+                              sum(c[2] for c in calls if c[0] == n)]
+                          for n in sorted({c[0] for c in calls})}},
+            "profile": profile, "peak_mem_gb":
+                torch.cuda.max_memory_allocated() / 1e9,
+            "state_shard": state.m.numel(),
+            "residuals": None if state.g_residual is None else
+            [state.g_residual.numel(), state.u_residual.numel()],
+            "residuals_seen": seen,
+            "residuals_carried": None if codec is None else
+            _residuals_carried(seen)}
+        del tx, step, state
+        torch.cuda.empty_cache()
+    ref, nudged = _unsharded_moves(model, params, init, (ids, mask, labels),
+                                   group, dev)
+    noise = _moves_rel_l2(nudged["moves"], ref["moves"])
+    out["unsharded"] = {
+        "rel_l2": _moves_rel_l2(zero_move, ref["moves"]),
+        "nudge_rel_l2": noise, "band": ZERO_MOVE_BAND * noise,
+        "elements_differing": sum(int((a != b).sum()) for a, b in
+                                  zip(zero_move, ref["moves"])),
+        "elements": sum(a.numel() for a in zero_move),
+        "loss": ref["loss"], "overflow": ref["overflow"] or
+        nudged["overflow"]}
+    del model, params, init, zero_move, ref, nudged
+    torch.cuda.empty_cache()
+    return out
+
+
+class _DDP:
+    """The unsharded comparison of Z-GPT and Z-BERT: the gradients
+    averaged by ``allreduce_gradients`` over the group, then the inner
+    fused optimizer's step (``fused_adam``: K14; ``fused_lamb``: K13,
+    K15): a transform ``make_one_step`` drives as it drives the ZeRO
+    one."""
+
+    def __init__(self, inner, group):
+        self.inner, self.group = inner, group
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def step(self, grads, state, params, found_inf=None, model_params=None):
+        from apex_tpu_torch.parallel import allreduce_gradients
+
+        return self.inner.step(allreduce_gradients(grads, self.group), state,
+                               params, found_inf, model_params)
+
+
+def _zero_gpt(dev, rank, world, backend):
+    """Z-GPT in one rank: GPT-2-small (the fused head) from seed 0, this
+    rank's 4 of 8 sequences, three steps on ``distributed_fused_adam``
+    (codec off; step 1 held), then from the same weights three on
+    ``allreduce_gradients`` + ``fused_adam``: the parameters after each
+    step compared bit for bit, the launches of K21 and K14."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.contrib.optimizers import distributed_fused_adam
+    from apex_tpu_torch.optimizers import fused_adam
+    from apex_tpu_torch.train_step import make_one_step
+    from apex_tpu_torch.transformer.amp import GradScaler
+    from apex_tpu_torch.transformer.testing import GPTModel
+
+    cfg = _train_cfg(fused=True)
+    model = GPTModel(cfg, device=dev, seed=0)
+    params = dict(model.named_parameters())
+    init = {n: p.detach().clone() for n, p in params.items()}
+    b, s = ZERO_GPT["batch"], TRAIN["seq"]
+    rs = np.random.RandomState(0)
+    ids = torch.from_numpy(rs.randint(0, cfg.vocab_size, (b * world, s))
+                           ).to(dev)[rank * b:(rank + 1) * b]
+    labels = torch.from_numpy(rs.randint(0, cfg.vocab_size, (b * world, s))
+                              ).to(dev)[rank * b:(rank + 1) * b]
+    pos = torch.arange(s, device=dev)[None].expand(b, s)
+    group = dist.group.WORLD
+    counts = _zero_counts()
+    after, out = {}, {}
+    for path in ("zero", "ddp"):
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(init[n])
+        tx = (distributed_fused_adam(learning_rate=ZERO_GPT["lr"],
+                                     num_shards=world, grad_compress="off")
+              if path == "zero" else
+              _DDP(fused_adam(learning_rate=ZERO_GPT["lr"]), group))
+        scaler = GradScaler(group=group)
+        step = make_one_step(model, scaler, tx)
+        state, ss = tx.init(params), scaler.init(dev)
+        for fn in counts.values():
+            fn.launches = 0
+        records, losses, after[path] = [], [], []
+        for i in range(ZERO_GPT["steps"]):
+            with _zero_held(records) if i == 0 and path == "zero" \
+                    else contextlib.nullcontext():
+                state, ss, loss = step(state, ss, ids, pos, labels)
+            losses.append(loss.item())
+            after[path].append([p.detach().clone() for p in params.values()])
+        out[path] = {"losses": losses, "launches": _read_counts(counts),
+                     "ranks_bit_equal": _ranks_equal(
+                         list(params.values()), backend)}
+        if path == "zero":
+            out[path]["held"] = _zero_held_summary(records)
+        del tx, step, state
+        torch.cuda.empty_cache()
+    equal = []
+    for z, d in zip(after["zero"], after["ddp"]):
+        equal.append({"tensors_equal": sum(_same_bits(a, c)
+                                           for a, c in zip(z, d)),
+                      "tensors": len(z),
+                      "elements_differing": sum(
+                          int((a.float() != c.float()).sum())
+                          for a, c in zip(z, d)),
+                      "worst_rel": max(((a.float() - c.float()).abs().max()
+                                        / c.float().abs().max().clamp(
+                                            min=1e-30)).item()
+                                       for a, c in zip(z, d))})
+    out["zero_vs_ddp"] = equal
+    del model, params, init, after
+    torch.cuda.empty_cache()
+    return out
+
+
+def _zero_rank(rank, world, tmp, backend, card):
+    """One rank of Z-BERT then Z-GPT (started with ``spawn``); the results
+    go to ``tmp/rank<r>.pt``."""
+    import torch.distributed as dist
+
+    dev = _tp_device(rank, backend)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(backend, init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=world)
+    try:
+        t0 = time.perf_counter()
+        bert = _zero_bert(dev, rank, world, backend, card)
+        t1 = time.perf_counter()
+        gpt = _zero_gpt(dev, rank, world, backend)
+        torch.save({"rank": rank, "backend": backend, "bert": bert,
+                    "gpt": gpt, "bert_s": t1 - t0,
+                    "gpt_s": time.perf_counter() - t1},
+                   f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn(fn, world, timeout_s, *args):
+    """``fn(rank, world, tmp, *args)`` in ``world`` ranks started with
+    ``spawn``; every rank's ``tmp/rank<r>.pt``."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(fn, args=(world, tmp) + args, nprocs=world,
+                                 join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout_s
+        try:
+            while not ctx.join(timeout=5.0):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"{fn.__name__}: ranks still running "
+                                       f"after {timeout_s} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        return [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+                for r in range(world)]
+
+
+def _window_a_losses(dev):
+    """Window A's unsharded step-1 loss on its 16 sequences (the forward
+    on the initial weights), and the mean of the losses of its two halves
+    of 8 (each rank's batch): their difference is the band's measure."""
+    from apex_tpu_torch.train_step import per_token_loss
+    from apex_tpu_torch.transformer.testing import BertModel
+
+    cfg = _bert_cfg("A")
+    model = BertModel(cfg, device=dev, seed=0)
+    ids, mask, labels = _bert_batch("A", BERT_TRAIN["batch"], cfg.vocab_size,
+                                    dev)
+    b = BERT_TRAIN["batch"] // 2
+    with torch.no_grad():
+        full = torch.mean(per_token_loss(model(ids, mask, None, labels))
+                          ).item()
+        halves = [torch.mean(per_token_loss(model(
+            ids[r * b:(r + 1) * b], mask[r * b:(r + 1) * b], None,
+            labels[r * b:(r + 1) * b]))).item() for r in range(2)]
+    del model
+    torch.cuda.empty_cache()
+    return full, halves
+
+
+def phase_zero(dev, card):
+    """This slice's main path: Z-BERT (``_zero_bert``) and Z-GPT
+    (``_zero_gpt``) in two ranks started with ``spawn``, NCCL with a card
+    each where the machine has two, else gloo with both ranks on cuda:0.
+    Checks: every held K19-K22 call within its band; the ranks' parameters
+    bit-equal after each step; no step overflowed; Z-BERT's step-1 loss
+    (the ranks' mean) against window A's unsharded one within four times
+    the move between its two halves' mean and it (at least 1e-4 of it);
+    the codec-off run's parameter move in step 1 against the unsharded
+    FusedLAMB step's (``_unsharded_moves``) within ``ZERO_MOVE_BAND``
+    times that step's move under the learning-rate nudge, a band below
+    ``ZERO_BAND_CAP``; the int8 run's step-1 loss equal to the codec-off
+    run's and its later losses within ``CODEC_MOVE_SHARE`` of the
+    codec-off run's move since step 1; the int8 residuals carried from
+    step to step (``_residuals_carried``); the launches a step: K22 3
+    (codec off),
+    and with int8 K19 2 and K20 2 (the gradient hop and the update hop);
+    Z-GPT's parameters bit for bit those of allreduce_gradients +
+    FusedAdam after each step, K21 once a step."""
+    world = ZERO_BERT["world"]
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    _log(f"Z-BERT / Z-GPT transport: {torch.cuda.device_count()} card(s), "
+         f"backend {backend}" + (" (both ranks share cuda:0; the "
+                                 "collectives go through the host: step "
+                                 "times are for correctness only)"
+                                 if backend == "gloo" else ""))
+    full, halves = _window_a_losses(dev)
+    move = abs(sum(halves) / 2 - full)
+    band = max(4 * move, 1e-4 * abs(full))
+    t0 = time.perf_counter()
+    ranks = _spawn(_zero_rank, world, ZERO_BERT["timeout_s"], backend, card)
+    wall_s = time.perf_counter() - t0
+    bert = {codec: [r["bert"][codec] for r in ranks]
+            for codec in ("off", "int8")}
+    step1 = sum(r["steps"][0]["loss"] for r in bert["off"]) / world
+    stats = {"card": card, "backend": backend, "world": world,
+             "batch_per_rank": ZERO_BERT["batch"], "phase_wall_s": wall_s,
+             "rank_seconds": [[r["bert_s"], r["gpt_s"]] for r in ranks],
+             "window_a_loss": full, "halves": halves,
+             "step1_loss_ranks_mean": step1, "step1_diff": abs(step1 - full),
+             "step1_band": band,
+             "unsharded": [r["bert"]["unsharded"] for r in ranks],
+             "bert": {c: [{k: v for k, v in r.items()
+                           if k not in ("held", "residuals_seen")}
+                          for r in runs] for c, runs in bert.items()},
+             "residuals_seen": [r["residuals_seen"] for r in bert["int8"]],
+             "bert_held": {c: [r["held"]["by_kernel"] for r in runs]
+                           for c, runs in bert.items()},
+             "gpt": [{k: v for k, v in r["gpt"].items()} for r in ranks]}
+    _log("Z-BERT / Z-GPT: " + json.dumps(stats, default=str))
+    bad = []
+    for c, runs in bert.items():
+        for r, run in enumerate(runs):
+            bad += [f"Z-BERT {c} rank {r}: {x}" for x in run["held"]["bad"]]
+            for s in run["steps"]:
+                if not s["ranks_bit_equal"] or s["overflow"]:
+                    bad.append(f"Z-BERT {c} rank {r} step {s}")
+    for r in ranks:
+        g = r["gpt"]
+        bad += [f"Z-GPT rank {r['rank']}: {x}" for x in g["zero"]["held"]
+                ["bad"]]
+        if not (g["zero"]["ranks_bit_equal"] and g["ddp"]["ranks_bit_equal"]):
+            bad.append(f"Z-GPT rank {r['rank']}: ranks differ")
+        for i, e in enumerate(g["zero_vs_ddp"]):
+            if e["tensors_equal"] != e["tensors"]:
+                bad.append(f"Z-GPT rank {r['rank']} step {i + 1}: ZeRO Adam "
+                           f"and DDP + FusedAdam differ: {e}")
+        if g["zero"]["launches"]["multi_tensor_zero_adam"] != \
+                ZERO_GPT["steps"] or g["ddp"]["launches"][
+                    "multi_tensor_zero_adam"]:
+            bad.append(f"Z-GPT launches: {g['zero']['launches']}")
+    if abs(step1 - full) > band:
+        bad.append(f"Z-BERT step 1 against window A: {abs(step1 - full)} "
+                   f"(band {band})")
+    steps = ZERO_BERT["steps"]
+    for r in range(world):
+        u = ranks[r]["bert"]["unsharded"]
+        if u["overflow"] or not u["band"] < ZERO_BAND_CAP or \
+                not u["rel_l2"] <= u["band"]:
+            bad.append(f"Z-BERT rank {r}: step 1's parameter move against "
+                       f"the unsharded FusedLAMB step's: {u}")
+        off, on = bert["off"][r], bert["int8"][r]
+        if off["steps"][0]["loss"] != on["steps"][0]["loss"]:
+            bad.append(f"Z-BERT rank {r}: step 1 differs with the codec on")
+        first = off["steps"][0]["loss"]
+        for a, c in zip(off["steps"][1:], on["steps"][1:]):
+            if not abs(c["loss"] - a["loss"]) <= \
+                    CODEC_MOVE_SHARE * abs(a["loss"] - first):
+                bad.append(f"Z-BERT rank {r}: codec on {c['loss']} against "
+                           f"off {a['loss']} (step 1 {first})")
+        if not on["residuals_carried"]:
+            bad.append(f"Z-BERT rank {r}: the int8 residuals were not "
+                       f"carried: {on['residuals_seen']}")
+        want = {"off": dict(multi_tensor_zero_lamb=3 * steps,
+                            collectives_quantize=0,
+                            collectives_dequantize_sum=0),
+                "int8": dict(multi_tensor_zero_lamb=3 * steps,
+                             collectives_quantize=2 * steps,
+                             collectives_dequantize_sum=2 * steps)}
+        for c in ("off", "int8"):
+            got = bert[c][r]["launches"]
+            for k, v in want[c].items():
+                if got[k] != v:
+                    bad.append(f"Z-BERT {c} rank {r}: {k} launched {got[k]} "
+                               f"times, want {v}")
+    if bad:
+        raise AssertionError("Z-BERT / Z-GPT: " + "; ".join(
+            str(x) for x in bad[:12]))
+    return ({"zero_bert": bert["int8"][0]["launches"],
+             "zero_bert_off": bert["off"][0]["launches"],
+             "zero_gpt": ranks[0]["gpt"]["zero"]["launches"]}, stats)
+
+
+def _hier_rank(rank, world, tmp, backend, card):
+    """One rank of HIER: GPT-2-small's width at 2 layers, this rank's 2 of
+    8 sequences, one backward; the fp32 gradients all-reduced flat over
+    the group, hierarchically over the (2, 2) pair, and hierarchically
+    with int8 (three calls, the residual threaded; every K19/K20 call
+    held); each result's checksums compared over the ranks."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from apex_tpu_torch.parallel import DistributedDataParallel
+    from apex_tpu_torch.parallel import allreduce_gradients, collectives
+    from apex_tpu_torch.train_step import per_token_loss
+    from apex_tpu_torch.transformer.testing import GPTModel
+
+    dev = _tp_device(rank, backend)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(backend, init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=world)
+    try:
+        pair = collectives.hierarchical_groups(HIER["inner"], HIER["outer"])
+        cfg = dataclasses.replace(_train_cfg(fused=True),
+                                  num_layers=HIER["layers"])
+        model = GPTModel(cfg, device=dev, seed=0)
+        b, s = HIER["batch"], TRAIN["seq"]
+        rs = np.random.RandomState(0)
+        ids = torch.from_numpy(rs.randint(0, cfg.vocab_size, (b * world, s))
+                               ).to(dev)[rank * b:(rank + 1) * b]
+        pos = torch.arange(s, device=dev)[None].expand(b, s)
+        torch.mean(per_token_loss(model(ids, pos, None, ids))).backward()
+        grads = {n: p.grad.float() for n, p in model.named_parameters()}
+        del model
+        counts = _zero_counts()
+        for fn in counts.values():
+            fn.launches = 0
+        flat = allreduce_gradients(grads)
+        hier = allreduce_gradients(grads, pair, hierarchical=True)
+        ddp = DistributedDataParallel(process_group=pair, compress="int8",
+                                      hierarchical=True)
+        ef = ddp.init_ef_state(grads)
+        records, int8 = [], None
+        with _zero_held(records):
+            for _ in range(3):
+                int8, ef = ddp.average_gradients(grads, ef)
+        names = list(grads)
+        cat = lambda t: torch.cat([t[n].reshape(-1) for n in names])  # noqa: E731
+        f, h, q = cat(flat), cat(hier), cat(int8)
+        out = {"rank": rank, "hier_vs_flat_rel_l2": _rel_l2(h, f),
+               "int8_vs_flat_rel_l2": _rel_l2(q, f),
+               "ranks_bit_equal": {
+                   k: _ranks_equal([t], backend)
+                   for k, t in (("flat", f), ("hier", h), ("int8", q))},
+               "ef_len": ef.numel(), "elements": f.numel(),
+               "held": _zero_held_summary(records),
+               "launches": _read_counts(counts)}
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_hier(dev, card):
+    """HIER: world 4 as (inner, outer) = (2, 2) (``_hier_rank``), NCCL with
+    four cards, else gloo with every rank on cuda:0. The hierarchical
+    all-reduce within ``HIER_TOL`` relative L2 of the flat one; every
+    result the same bits on every rank; every K19/K20 call held (the int8
+    hop is the outer one: K19 and K20 once a call)."""
+    world = HIER["world"]
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    t0 = time.perf_counter()
+    ranks = _spawn(_hier_rank, world, HIER["timeout_s"], backend, card)
+    stats = {"card": card, "backend": backend, "world": world,
+             "pair": [HIER["inner"], HIER["outer"]],
+             "phase_wall_s": time.perf_counter() - t0,
+             "ranks": [{k: v for k, v in r.items() if k != "held"}
+                       for r in ranks],
+             "held": [r["held"]["by_kernel"] for r in ranks]}
+    _log("HIER: " + json.dumps(stats))
+    for r in ranks:
+        if r["hier_vs_flat_rel_l2"] > HIER_TOL or r["held"]["bad"] or \
+                not all(r["ranks_bit_equal"].values()):
+            raise AssertionError(f"HIER rank {r['rank']}: {r}")
+        if (r["launches"]["collectives_quantize"],
+                r["launches"]["collectives_dequantize_sum"]) != (3, 3):
+            raise AssertionError(f"HIER launches: {r['launches']}")
+    return ranks[0]["launches"], stats
+
+
+def _larc_sgd(errors):
+    """LARC(FusedSGD) as a transform: ``larc`` (trust 0.02, clip at the
+    recipe's lr, the recipe's decay) before ``fused_sgd`` with its decay
+    zeroed, as the LARC class steps it. Each step's scaled gradients (K13's
+    norms) are held against the plain LARC path's (the plain version of
+    K13) on the same gradients and masters: the worst relative error is
+    appended to ``errors``."""
+    from apex_tpu_torch.ops import multi_tensor
+    from apex_tpu_torch.optimizers import fused_sgd
+    from apex_tpu_torch.optimizers._base import GradientTransformation
+    from apex_tpu_torch.parallel import larc
+
+    inner = fused_sgd(learning_rate=RESNET["lr"], momentum=RESNET["momentum"],
+                      weight_decay=0.0)
+    scale = larc(LARC_WINDOW["trust"], clip=True, eps=1e-8,
+                 weight_decay=RESNET["weight_decay"],
+                 learning_rate=RESNET["lr"])
+
+    def step(grads, state, params, found_inf=None, model_params=None):
+        got = scale.update(grads, None, params)[0]
+        with mock.patch.object(multi_tensor, "l2norm",
+                               multi_tensor.l2norm_reference):
+            want = scale.update(grads, None, params)[0]
+        errors.append(max(_rel_err(got[n], want[n]) for n in grads))
+        return inner.step(got, state, params, found_inf, model_params)
+
+    return GradientTransformation(inner.init, None, step)
+
+
+def phase_larc(dev, card):
+    """LARC: ResNet-50 R-O2 at world 1 (``LARC_WINDOW``: b = 64, three
+    steps of the ImageNet example's step with ``_larc_sgd``); in each
+    step LARC's scaled gradients (K13's norms) against the plain LARC
+    path's (the plain norms) on the same gradients and masters, within
+    ``ZERO_TOL``; the losses finite; K13 and K16 launched."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.amp.frontend import (Properties, build_policy,
+                                             opt_levels)
+    from apex_tpu_torch.examples import imagenet
+    from apex_tpu_torch.models import resnet50
+
+    dtype = build_policy(opt_levels["O2"](Properties())).compute_dtype
+    model = resnet50(num_classes=RESNET["classes"], dtype=dtype, device=dev,
+                     seed=LARC_WINDOW["seed"])
+    errs = []
+    model, opt = amp.initialize(model, _larc_sgd(errs), opt_level="O2",
+                                verbosity=0)
+    state = opt.init(dict(model.named_parameters()))
+    step = imagenet.build_train_step(model, opt, None, dtype)
+    images, labels = _resnet_batch(dev, LARC_WINDOW["batch"],
+                                   LARC_WINDOW["seed"])
+    counts = _training_counts()
+    for fn in counts.values():
+        fn.launches = 0
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(LARC_WINDOW["steps"]):
+        state, metrics, overflow = step(state, images, labels)
+        losses.append(metrics[0].item())
+    launches = {k: fn.launches for k, fn in counts.items() if fn.launches}
+    stats = {"card": card, "batch": LARC_WINDOW["batch"],
+             "steps": LARC_WINDOW["steps"],
+             "seconds": time.perf_counter() - t0, "losses": losses,
+             "scaled_grad_err": errs, "band": ZERO_TOL,
+             "launches": launches}
+    _log("LARC: " + json.dumps(stats))
+    if max(errs) > ZERO_TOL or not all(np.isfinite(losses)) or \
+            not launches.get("multi_tensor_l2norm") or \
+            not launches.get("multi_tensor_sgd"):
+        raise AssertionError(f"LARC: {stats}")
+    del model, opt, state
+    torch.cuda.empty_cache()
+    return launches, stats
 
 
 # the multi-tensor kernels (K12-K15) by their names in a device trace
 MT_KERNEL = re.compile(r"\b(scale|axpby|norm_partials|norm_reduce|adam|"
-                       r"lamb_stage[12])_kernel\b")
+                       r"lamb_stage[12]|zero_adam|zero_lamb_stage[12]|"
+                       r"zero_lamb_segments)_kernel\b")
+# the int8 codec (K19, K20) by name
+CODEC_KERNEL = re.compile(r"\b(quantize|dequantize_sum|dequantize_gather)"
+                          r"_kernel\b")
 
 
 def _kind(name, kinds=()):
@@ -5890,6 +7033,10 @@ def _kind(name, kinds=()):
         return "softmax"
     if MT_KERNEL.search(name):
         return "optimizer"
+    if "codec" in kinds and CODEC_KERNEL.search(name):
+        return "codec"
+    if "memcpy" in kinds and "memcpy" in low:
+        return "memcpy"
     if any(w in low for w in ("gemm", "gemv", "cutlass", "xmma", "nvjet",
                               "sm90_")):
         return "matmul"
@@ -6084,6 +7231,16 @@ def main():
          f"False/False")
     dev = torch.device("cuda")
 
+    phase_s = {}
+    last = [time.perf_counter()]
+
+    def mark(name):
+        # the seconds since the previous mark, under the phase's name
+        now = time.perf_counter()
+        phase_s[name] = phase_s.get(name, 0.0) + now - last[0]
+        last[0] = now
+
+    mark("device")
     parent = _start_parent_build(args[1]) if args else None
     build_s = _build.build()
     _log(f"build: {build_s:.1f} s for {len(_build.SOURCES)} sources")
@@ -6119,6 +7276,7 @@ def main():
                                  f"instructions: {counts}")
         sass.update(counts)
 
+    mark("build")
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     rows = [phase_prefill_kernel(dev, flush), phase_decode_kernel(dev, flush)]
     rows += phase_layer_norm_kernels(dev, flush)
@@ -6135,6 +7293,12 @@ def main():
     torch.cuda.empty_cache()
     rows += phase_multi_tensor_kernels(dev, flush)
     torch.cuda.empty_cache()
+    mark("kernels: attention, layer norm, LM head, softmax, K12-K15")
+    # the scale-out kernels: K19/K20 at BERT-large's flat gradient, K21 on
+    # GPT-2-small's shard, K22 on BERT-large's
+    rows += phase_scale_out_kernels(dev, flush)
+    torch.cuda.empty_cache()
+    mark("kernels: K19-K22")
     # ResNet-50's kernels: K17/K18 at its batch-norm shapes, K16 on its
     # 161 leaves (the ResNet phases' seconds are logged against the ~120 s
     # they were given)
@@ -6161,6 +7325,7 @@ def main():
     # the generic softmax over 8192 keys, the path of K10L/K11L
     launches_by = {"generic_softmax_long": phase_generic_softmax_path(dev)}
     torch.cuda.empty_cache()
+    mark("kernels: ResNet, BERT modes, head dims, generic softmax")
 
     # serving over bf16 pages, then over the int8 KV tier with the same 72
     # pages, each engine on its own
@@ -6205,6 +7370,7 @@ def main():
         clear()
     del flush, logits
     torch.cuda.empty_cache()
+    mark("serving")
 
     # the materialized head, then the fused one (this slice's main path),
     # each window on its own so that its peak memory is its own
@@ -6255,6 +7421,7 @@ def main():
             for k in ("step_ms", "tokens_per_s", "mfu", "peak_mem_gb")}
     _log("training, materialized head, without and with dropout, and with "
          "full recompute: " + json.dumps(side))
+    mark("training windows: GPT-2-small")
     if not (side["peak_mem_gb"]["dropout + full recompute"]
             < side["peak_mem_gb"]["dropout"]):
         raise AssertionError(f"full recompute does not lower the peak "
@@ -6286,6 +7453,7 @@ def main():
     bert_agree = {w: phase_bert_paths_agree(dev, w) for w in bert}
     _log("BERT-large checks: " + json.dumps({"mask": bert_mask,
                                              "paths_agree": bert_agree}))
+    mark("training windows: scores path, BERT-large")
 
     phase_training_paths_agree(dev, fused=False)
     phase_training_paths_agree(dev, fused=True)
@@ -6299,6 +7467,7 @@ def main():
     recompute_agree = phase_recompute_agree(dev)
     _log("dropout checks: " + json.dumps({"mask": mask_check,
                                           "recompute": recompute_agree}))
+    mark("paths agree")
 
     # ResNet-50 (BASELINE configs 1-2): R-O2 and R-O1 at b = 256, kernel vs
     # plain path and K16 bit for bit, then R-DDP at world 2
@@ -6322,6 +7491,7 @@ def main():
     t0 = time.perf_counter()
     resnet_ddp = phase_resnet_ddp(dev, smi)
     resnet_s["R-DDP"] = time.perf_counter() - t0
+    launches_by["resnet_ddp_int8"] = resnet_ddp["int8"][0]["launches"]
     _log(f"ResNet phases' seconds: {json.dumps(resnet_s)}, in all "
          f"{sum(resnet_s.values()):.1f} s (given ~120 s)")
     _log("ResNet-50 checks: " + json.dumps({
@@ -6335,6 +7505,7 @@ def main():
             **{f"R-DDP rank {r['rank']}": r["batch_norm_held"]["worst"]
                for r in resnet_ddp["ranks"]}}}))
 
+    mark("ResNet-50, R-DDP and R-DDP-int8")
     # GPT-3 2.7B's widths (head dim 80: the attention kernels zero-pad it
     # to 128), serving and a training step, kernel vs plain
     torch.cuda.empty_cache()
@@ -6364,6 +7535,28 @@ def main():
                 **{f"tp=2 rank {w['rank']}": w[k] for w in tp2["ranks"]}}
             for k in ("step_ms", "tokens_per_s", "mfu", "peak_mem_gb")}
     _log(f"training, tp=1 vs tp=2 ({tp2['backend']}): " + json.dumps(side))
+    mark("wide windows, tp = 2")
+
+    # this slice's main path: BERT-large at data-parallel world 2 on
+    # DistributedFusedLAMB (Z-BERT), GPT-2-small on DistributedFusedAdam
+    # against DDP + FusedAdam (Z-GPT), the (2, 2) hierarchical reduction
+    # (HIER), LARC(FusedSGD) on ResNet-50 (LARC)
+    torch.cuda.empty_cache()
+    zero_launches, zero = phase_zero(dev, smi)
+    launches_by.update(zero_launches)
+    mark("Z-BERT, Z-GPT")
+    torch.cuda.empty_cache()
+    launches_by["hier"], hier = phase_hier(dev, smi)
+    mark("HIER")
+    torch.cuda.empty_cache()
+    launches_by["larc"], larc_stats = phase_larc(dev, smi)
+    mark("LARC")
+    side = {c: {k: [r[k] if k != "steps" else [s["ms"] for s in r[k]]
+                    for r in zero["bert"][c]]
+                for k in ("steps", "peak_mem_gb", "collectives")}
+            for c in zero["bert"]}
+    _log(f"Z-BERT ({zero['backend']}), codec off and int8: "
+         + json.dumps(side))
 
     for row in rows:
         name = row["name"]
@@ -6384,7 +7577,11 @@ def main():
                 "multi_tensor_lamb": "training_lamb",
                 "multi_tensor_sgd": "resnet_o2",
                 "batch_norm_fwd": "resnet_o2",
-                "batch_norm_bwd": "resnet_o2"}.get(
+                "batch_norm_bwd": "resnet_o2",
+                "collectives_quantize": "zero_bert",
+                "collectives_dequantize_sum": "zero_bert",
+                "multi_tensor_zero_lamb": "zero_bert",
+                "multi_tensor_zero_adam": "zero_gpt"}.get(
             name, "training_dropout" if name.endswith("_dropout")
             else "training_fused")
         row["launches"] = by_path.get(main, by_path.get("serving", 0))
@@ -6409,6 +7606,9 @@ def main():
             row["tensor_core_sass"] = sass[
                 f"xent_bwd_tc {'dX' if name.endswith('dx') else 'dE'} b=32"]
         _log(json.dumps(row))
+    mark("report")
+    _log("phase seconds: " + json.dumps(
+        {k: round(v, 1) for k, v in phase_s.items()}))
     _log(f"smoke wall: {time.perf_counter() - t_start:.1f} s, build "
          f"{build_s:.1f} s")
     _log(json.dumps({"kernels": rows}))

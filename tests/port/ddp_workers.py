@@ -13,6 +13,7 @@ the children import it by name and never import JAX.
 import os
 import tempfile
 import time
+from unittest import mock
 
 import torch
 import torch.distributed as dist
@@ -120,8 +121,52 @@ def _amp_o2(rank, payload):
             "model_f32": _np(out[-1][0])}
 
 
+def _scale_out(rank, payload):
+    """The compress route with the residual threaded over three calls
+    (``allreduce_gradients`` and ``DistributedDataParallel`` with
+    ``init_ef_state``), the collective calls with both knobs off, and the
+    requests that raise."""
+    grads = [{"w": torch.from_numpy(g[rank]),
+              "b": torch.from_numpy(g[rank][0]).to(torch.bfloat16)}
+             for g in payload["ef_grads"]]
+    ef = torch.zeros(sum(t.numel() for t in grads[0].values()))
+    fn_out = []
+    for g in grads:
+        red, ef = allreduce_gradients(g, compress="int8", ef_state=ef)
+        fn_out.append({k: _np(v) for k, v in red.items()})
+    ddp = DistributedDataParallel(compress="int8",
+                                  gradient_predivide_factor=2.0)
+    ef2 = ddp.init_ef_state(grads[0])
+    ddp_out = []
+    for g in grads:
+        red, ef2 = ddp.average_gradients(g, ef2)
+        ddp_out.append({k: _np(v) for k, v in red.items()})
+    calls = []
+    real = dist.all_reduce
+    with mock.patch.object(dist, "all_reduce",
+                           lambda t, *a, **k: (calls.append(
+                               (t.dtype, t.numel())), real(t, *a, **k))[1]):
+        off = allreduce_gradients(grads[0])
+        ddp_off = DistributedDataParallel().average_gradients(grads[0])
+    raises = []
+    for make in (lambda: DistributedDataParallel(compress="fp4"),
+                 lambda: allreduce_gradients(grads[0], hierarchical=True),
+                 lambda: allreduce_gradients(grads[0], compress="fp4")):
+        try:
+            make()
+            raises.append(False)
+        except ValueError:
+            raises.append(True)
+    return {"fn": fn_out, "fn_ef": _np(ef), "ddp": ddp_out,
+            "ddp_ef_len": ef2.numel(), "off_calls": calls,
+            "off": {k: _np(v) for k, v in off.items()},
+            "ddp_off": {k: _np(v) for k, v in ddp_off.items()},
+            "raises": raises}
+
+
 def ddp_case(rank, world, payload):
     return {"reduce": _reduce_modes(rank, payload),
+            "scale_out": _scale_out(rank, payload),
             "syncbn": _syncbn(rank, payload),
             "amp_o2": _amp_o2(rank, payload),
             "max": allreduce_max(torch.tensor(rank == 1)).item()}

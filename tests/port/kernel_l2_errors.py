@@ -27,7 +27,10 @@ option, each as the largest error over a tensor's largest magnitude.
 Last, batch norm: K17's y and K18's dx by relative L2 (``BN_L2_TOL``)
 and their sums and saved statistics over their largest magnitude
 (``BN_STAT_TOL``) at the card tests' shapes and two of ResNet-50's, with
-and without the fused ReLU, per dtype.
+and without the fused ReLU, per dtype. Then K22 (the ZeRO LAMB shard
+update) on the card tests' layouts (``LAMB_LAYOUTS``, with and without
+weight decay): the update's relative L2 and the segment sums' error over
+their largest magnitude against the plain version (``MT_LAMB_TOL``).
 Needs a CUDA card:
 
     python3 tests/port/kernel_l2_errors.py
@@ -363,6 +366,36 @@ def main():
                 note("K17", dtype, fwd)
                 note("K18", dtype, bwd)
                 note("K17/K18 sums", dtype, stat)
+    from apex_tpu_torch.ops import zero
+
+    for sizes, shards, index in cases.LAMB_LAYOUTS:
+        for wd in (0.01, 0.0):
+            layout, g, p, m, v = cases._lamb_case(dev, sizes, shards, index,
+                                                  5)
+            count = torch.tensor(2, dtype=torch.int32, device=dev)
+            new = count + 1
+            bc1 = 1.0 - torch.pow(0.9, new.float())
+            bc2 = 1.0 - torch.pow(0.999, new.float())
+            kw = dict(beta1=0.9, beta2=0.999, beta3=0.1, eps=1e-6,
+                      weight_decay=wd, adam_w_mode=True,
+                      bias_correction=True, max_grad_norm=1.0,
+                      global_sq=torch.sum(g * g) * 3.0)
+            a = [t.clone() for t in (p, m, v, count)]
+            b = [t.clone() for t in (p, m, v, count)]
+            u, sums = multi_tensor_cuda.zero_lamb_stage1(
+                g, a[0], a[1], a[2], layout, a[3], new, bc1, bc2, **kw)
+            ur, sr = zero.lamb_stage1_reference(
+                g, b[0], b[1], b[2], layout, b[3], new, bc1, bc2, **kw)
+            multi_tensor_cuda.zero_lamb_stage2(u, a[0], sums, layout, 1e-3,
+                                               trust=wd != 0)
+            zero.lamb_stage2_reference(ur, b[0], sr, layout, 1e-3,
+                                       trust=wd != 0)
+            upd = _l2(u, ur)
+            serr = ((sums - sr).abs().max() / sr.abs().max()).item()
+            print(f"K22 {sizes} shard {index} of {shards} wd {wd}: update "
+                  f"{upd:.3e}, sums {serr:.3e}")
+            note("K22 update", torch.float32, upd)
+            note("K22 sums", torch.float32, serr)
     for (kernel, dtype), value in sorted(worst.items()):
         print(f"worst {kernel} {dtype}: {value:.3e}")
 

@@ -8,7 +8,13 @@ gradient, the running stats and the scale and bias gradients summed over
 the ranks; the port of ``test_amp_o2_master_params_identical_across_
 ranks`` — three O2 steps on rank-different data leave the fp32 masters
 and the bf16 parameters bit-equal on the ranks — against JAX's run of
-the same; the found-inf MAX.
+the same; the found-inf MAX; the compress route (``compress="int8"``
+with the residual threaded over three calls, through
+``allreduce_gradients`` and ``DistributedDataParallel.init_ef_state``)
+against JAX's bit for bit (a sum of two), the collective calls with both
+knobs off (one flat all-reduce per dtype, as before the knobs existed),
+and the requests that raise (an unknown scheme; hierarchical over one
+group).
 
 Tolerances: the reductions 1e-6 (fp32 sums of two); batch norm 1e-5
 (fp32 sums over the rows in another order) and its gradients 1e-4; the
@@ -53,6 +59,7 @@ def ranks():
         "bn_relu": True,
         "w": rs.randn(4, 2).astype(np.float32),
         "xs": rs.randn(WORLD, 3, 4).astype(np.float32),
+        "ef_grads": (rs.randn(3, WORLD, 40, 7) * 3).astype(np.float32),
     }
     return payload, ddp_workers.run_ranks(WORLD, payload)
 
@@ -151,3 +158,52 @@ def test_amp_o2_master_params_identical_across_ranks(ranks):
 def test_found_inf_max_over_the_group(ranks):
     _, out = ranks
     assert [o["max"] for o in out] == [True, True]
+
+
+def test_compress_route_matches_jax(ranks):
+    """allreduce_gradients and DDP with compress="int8" and error
+    feedback over three calls, bit for bit against JAX's at world 2; with
+    both knobs off, one all-reduce per dtype group."""
+    from apex_tpu.parallel import DistributedDataParallel as JDDP
+    from apex_tpu.parallel import collectives as JC
+
+    payload, out = ranks
+    gs = jnp.asarray(payload["ef_grads"])
+
+    def body(g):
+        g = g[:, 0]
+        trees = [{"w": g[c], "b": g[c][0].astype(jnp.bfloat16)}
+                 for c in range(3)]
+        ef = JC.ef_init(trees[0], "data", compress="int8")
+        fn = []
+        for t in trees:
+            red, ef = jallreduce(t, "data", compress="int8", ef_state=ef)
+            fn.append(red)
+        ddp = JDDP(axis_name="data", compress="int8",
+                   gradient_predivide_factor=2.0)
+        ef2 = ddp.init_ef_state(trees[0])
+        dd = []
+        for t in trees:
+            red, ef2 = ddp.average_gradients(t, ef2)
+            dd.append(red)
+        return jax.tree_util.tree_map(lambda x: x[None], (fn, ef, dd))
+
+    fn, ef, dd = shard_map(body, mesh=_mesh(), in_specs=(P(None, "data"),),
+                           out_specs=P("data"), check_vma=False)(gs)
+    for r in range(WORLD):
+        so = out[r]["scale_out"]
+        assert so["raises"] == [True, True, True]
+        assert so["ddp_ef_len"] == 40 * 7 + 7
+        np.testing.assert_array_equal(so["fn_ef"], np.asarray(ef[r]))
+        for c in range(3):
+            for k in ("w", "b"):
+                np.testing.assert_array_equal(
+                    so["fn"][c][k], np.asarray(fn[c][k][r], np.float32))
+                np.testing.assert_array_equal(
+                    so["ddp"][c][k], np.asarray(dd[c][k][r], np.float32))
+        # knobs off: one flat all-reduce per dtype, the reductions as before
+        assert [(str(d), n) for d, n in so["off_calls"]] == [
+            ("torch.float32", 280), ("torch.bfloat16", 7)] * 2
+        g = payload["ef_grads"][0]
+        np.testing.assert_allclose(so["off"]["w"], g.mean(0), rtol=1e-6)
+        np.testing.assert_array_equal(so["off"]["w"], so["ddp_off"]["w"])

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of apex_tpu_torch, not chip_smoke.py
-and not the tensor-parallel tests' rank workers (tests/port/tp_workers.py,
+"""The port stands alone: no module of apex_tpu_torch (``contrib/`` and
+``fp16_utils/`` included), not chip_smoke.py and not the tests' rank
+workers (tests/port/tp_workers.py, ddp_workers.py and zero_workers.py,
 which spawned ranks import by name), imports JAX or the JAX package —
 neither at import time
 (checked in a fresh interpreter) nor anywhere in the source (an AST
@@ -30,7 +31,8 @@ def _forbidden(name):
 def _port_sources():
     out = [os.path.join(REPO, "chip_smoke.py"),
            os.path.join(REPO, "tests", "port", "tp_workers.py"),
-           os.path.join(REPO, "tests", "port", "ddp_workers.py")]
+           os.path.join(REPO, "tests", "port", "ddp_workers.py"),
+           os.path.join(REPO, "tests", "port", "zero_workers.py")]
     for dirpath, _dirs, files in os.walk(PORT):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -92,7 +94,21 @@ def test_importing_the_port_loads_no_jax_and_no_apex_tpu():
                 "apex_tpu_torch.examples.imagenet",
                 "apex_tpu_torch.ops.batch_norm",
                 "apex_tpu_torch.ops.batch_norm_cuda",
-                "tests.port.tp_workers", "tests.port.ddp_workers"):
+                "apex_tpu_torch.parallel.collectives",
+                "apex_tpu_torch.parallel.LARC",
+                "apex_tpu_torch.ops.collectives",
+                "apex_tpu_torch.ops.collectives_cuda",
+                "apex_tpu_torch.ops.zero",
+                "apex_tpu_torch.contrib",
+                "apex_tpu_torch.contrib.optimizers",
+                "apex_tpu_torch.contrib.optimizers.distributed_fused_adam",
+                "apex_tpu_torch.contrib.optimizers.distributed_fused_lamb",
+                "apex_tpu_torch.fp16_utils",
+                "apex_tpu_torch.fp16_utils.fp16util",
+                "apex_tpu_torch.fp16_utils.loss_scaler",
+                "apex_tpu_torch.fp16_utils.fp16_optimizer",
+                "tests.port.tp_workers", "tests.port.ddp_workers",
+                "tests.port.zero_workers"):
         assert mod in mods, mod
 
 

@@ -73,7 +73,19 @@ row and ResNet-50's widest rows, with and without the fused ReLU, each
 stats stage twice the same bits, in eval, without scale and bias, with
 scale and bias in another dtype than x, from a pointer off a 16-byte
 boundary, and ``SyncBatchNorm`` on the card launching each stage once
-and raising on a channels-first activation.
+and raising on a channels-first activation; K19 (the int8 block quantizer
+with error feedback) bit for bit against its plain version at BERT-large's
+flat gradient size and at n = 1, 127, 300, rows of 501 (the element
+loads), all-zero, inf and NaN blocks, without a residual and with one (the
+residual only read, the new one a tensor of its own); K20 (dequantize and sum)
+bit for bit at W = 2 and 4 in rank order, with the division by W and in
+the gather form; K21 (the ZeRO Adam shard update) bit for bit against its
+plain version and against K14 on the same fp32 shard, a skipped step
+writing nothing of the state; K22 (the ZeRO LAMB shard update) against
+its plain version, the moments and direction bit for bit, the segment
+sums and the update within ``MT_LAMB_TOL`` relative, on a layout with
+the padding segment and a tensor straddling the shard boundary; and the
+ZeRO transforms and the codec launching them once a step on one rank.
 
 Marked ``cuda``: each test needs a card and skips without one. This
 file imports neither JAX nor the JAX package, so it runs on a GPU
@@ -2432,3 +2444,215 @@ def test_batch_norm_stages_launch_once_each_and_sync_batchnorm_raises(dev):
         bnc.fwd_stats(torch.randn(4, 32, 7, device=dev))
     with pytest.raises(ValueError):
         bnc.fwd_stats(torch.randn(8, 32, device=dev).t())
+
+
+# ------------------------------------------------------------ K19 - K22
+# (the relative-L2 numbers of K22 on the card: tests/port/kernel_l2_errors.py)
+
+from apex_tpu_torch.ops import collectives as codec  # noqa: E402
+from apex_tpu_torch.ops import collectives_cuda  # noqa: E402
+from apex_tpu_torch.ops import zero as zero_ops  # noqa: E402
+from apex_tpu_torch.optimizers._fused import ShardLayout  # noqa: E402
+
+# BERT-large's flat gradient (the port's BertModel at BERT_LARGE's widths)
+BERT_LARGE_FLAT = 336_297_858
+
+
+def _codec_input(dev, n, rows=1, seed=0, poison=True):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(rows, n, generator=gen, device=dev) * 10
+    res = torch.randn(rows, n, generator=gen, device=dev) * 0.01
+    if poison and n > 700:
+        x[0, 128:256] = 0.0
+        x[0, 300] = float("inf")
+        x[0, 600] = float("nan")
+        x[-1, 700] = float("-inf")
+    return (x[0], res[0]) if rows == 1 else (x, res)
+
+
+@pytest.mark.parametrize("n,rows", [(1, 1), (127, 1), (300, 1), (1000, 1),
+                                    (501, 2), (250, 4), (65536, 2)])
+def test_quantize_kernel_is_its_plain_version(dev, n, rows):
+    x, res = _codec_input(dev, n, rows)
+    for r in (None, res):
+        got = collectives_cuda.quantize(x, r)
+        want = codec.quantize_reference(x, r)
+        for g, w in zip(got, want):
+            if w is None:
+                assert g is None
+            else:
+                assert _same_bits(g, w), (n, rows)
+    # the new residual is a tensor of its own; the residual is only read
+    r = res.clone()
+    _, _, out = collectives_cuda.quantize(x, r)
+    assert out.data_ptr() != r.data_ptr() and _same_bits(r, res)
+
+
+def test_quantize_kernel_at_bert_large_flat_size(dev):
+    x, res = _codec_input(dev, BERT_LARGE_FLAT, seed=3)
+    got = collectives_cuda.quantize(x, res)
+    want = codec.quantize_reference(x, res)
+    for g, w in zip(got, want):
+        assert _same_bits(g, w)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("n", [1, 255, 1000, 65539])
+def test_dequantize_sum_kernel_is_its_plain_version(dev, world, n):
+    x, res = _codec_input(dev, n, world, seed=world, poison=False)
+    q, s, _ = codec.quantize_reference(x, res)
+    for kw in ({}, {"divisor": world}, {"gather": True}):
+        got = collectives_cuda.dequantize_sum(q, s, n, **kw)
+        want = codec.dequantize_sum_reference(q, s, n, **kw)
+        assert _same_bits(got, want), kw
+
+
+def test_codec_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    with pytest.raises(ValueError):
+        collectives_cuda.quantize(torch.ones(8, device=dev), block=64)
+    with pytest.raises(ValueError):
+        collectives_cuda.quantize(torch.ones(8, device=dev).half())
+    with pytest.raises(ValueError):
+        collectives_cuda.quantize(torch.ones(4, 8, device=dev)[:, ::2])
+    q, s, _ = collectives_cuda.quantize(torch.ones(2, 8, device=dev))
+    with pytest.raises(ValueError):
+        collectives_cuda.dequantize_sum(q, s, 129)
+    with pytest.raises(ValueError):
+        collectives_cuda.dequantize_sum(q, s, 8, gather=True, divisor=2)
+
+
+def _adam_kw(wd, adam_w, bias):
+    return dict(beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=wd,
+                adam_w_mode=adam_w, bias_correction=bias)
+
+
+@pytest.mark.parametrize("wd,adam_w,bias", [(0.0, True, True),
+                                            (0.01, False, True),
+                                            (0.01, True, False)])
+def test_zero_adam_kernel_is_its_plain_version_and_k14(dev, wd, adam_w,
+                                                       bias):
+    n = 3 * multi_tensor_cuda.CHUNK + 7
+    gen = torch.Generator(device=dev).manual_seed(11)
+    g, p = (torch.randn(n, generator=gen, device=dev) for _ in range(2))
+    m = torch.randn(n, generator=gen, device=dev) * 0.1
+    v = torch.rand(n, generator=gen, device=dev) * 0.01
+    count = torch.tensor(4, dtype=torch.int32, device=dev)
+    kw = _adam_kw(wd, adam_w, bias)
+    for skip in (None, torch.tensor(False, device=dev),
+                 torch.tensor(True, device=dev)):
+        new = count + 1
+        t = new.float()
+        bc1, bc2 = (1.0 - torch.pow(0.9, t), 1.0 - torch.pow(0.999, t)) \
+            if bias else (None, None)
+        a = [x.clone() for x in (p, m, v, count)]
+        b = [x.clone() for x in (p, m, v, count)]
+        u = multi_tensor_cuda.zero_adam(g, a[0], a[1], a[2], a[3], new, bc1,
+                                        bc2, 1e-3, skip=skip, **kw)
+        ur = zero_ops.adam_reference(g, b[0], b[1], b[2], b[3], new, bc1,
+                                     bc2, 1e-3, skip=skip, **kw)
+        assert _same_bits(u, ur)
+        assert all(_same_bits(x, y) for x, y in zip(a, b))
+        if skip is not None and skip.item():
+            assert all(_same_bits(x, y) for x, y in zip(a, (p, m, v, count)))
+        elif skip is None:
+            # K14 on the same fp32 shard as one tensor
+            c = [x.clone() for x in (p, m, v, count)]
+            multi_tensor_cuda.adam([g], [c[0]], [c[1]], [c[2]], c[3], new,
+                                   bc1, bc2, 1e-3, **kw)
+            assert all(_same_bits(x, y) for x, y in zip(a, c))
+
+
+def _lamb_case(dev, sizes, shards, index, seed):
+    layout = ShardLayout(sizes, shards, index)
+    n = layout.shard
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.randn(n, generator=gen, device=dev) * 0.1
+    p = torch.randn(n, generator=gen, device=dev)
+    m = torch.randn(n, generator=gen, device=dev) * 0.01
+    v = torch.rand(n, generator=gen, device=dev) * 1e-3
+    off = sum(sizes)
+    pad_from = off - layout.start
+    if 0 <= pad_from < n:               # the padding is zero, as the state's
+        g[pad_from:] = 0.0
+        p[pad_from:] = 0.0
+    return layout, g, p, m, v
+
+
+LAMB_LAYOUTS = [([70000, 3, 130001, 5], 2, 0), ([70000, 3, 130001, 5], 2, 1),
+                ([1, 65536, 65537, 7, 300000], 4, 2), ([17], 2, 1)]
+
+
+@pytest.mark.parametrize("sizes,shards,index", LAMB_LAYOUTS)
+@pytest.mark.parametrize("wd", [0.01, 0.0])
+def test_zero_lamb_kernel_is_near_its_plain_version(dev, sizes, shards,
+                                                    index, wd):
+    layout, g, p, m, v = _lamb_case(dev, sizes, shards, index, 5)
+    count = torch.tensor(2, dtype=torch.int32, device=dev)
+    new = count + 1
+    t = new.float()
+    bc1, bc2 = 1.0 - torch.pow(0.9, t), 1.0 - torch.pow(0.999, t)
+    gsq = torch.sum(g * g) * 3.0
+    kw = dict(beta1=0.9, beta2=0.999, beta3=0.1, eps=1e-6, weight_decay=wd,
+              adam_w_mode=True, bias_correction=True, max_grad_norm=1.0,
+              global_sq=gsq)
+    for skip in (None, torch.tensor(True, device=dev)):
+        a = [x.clone() for x in (p, m, v, count)]
+        b = [x.clone() for x in (p, m, v, count)]
+        u, sums = multi_tensor_cuda.zero_lamb_stage1(
+            g, a[0], a[1], a[2], layout, a[3], new, bc1, bc2, skip=skip,
+            **kw)
+        ur, sr = zero_ops.lamb_stage1_reference(
+            g, b[0], b[1], b[2], layout, b[3], new, bc1, bc2, skip=skip,
+            **kw)
+        assert _same_bits(u, ur)
+        assert all(_same_bits(x, y) for x, y in zip(a, b))
+        assert ((sums - sr).abs().max() / sr.abs().max()).item() \
+            <= MT_LAMB_TOL
+        trust = wd != 0.0
+        multi_tensor_cuda.zero_lamb_stage2(u, a[0], sums, layout, 1e-3,
+                                           trust=trust, skip=skip)
+        zero_ops.lamb_stage2_reference(ur, b[0], sr, layout, 1e-3,
+                                       trust=trust, skip=skip)
+        assert _rel_l2(u, ur) <= MT_LAMB_TOL
+        if skip is not None:
+            assert all(_same_bits(x, y) for x, y in zip(a, (p, m, v, count)))
+        else:
+            assert _rel_l2(a[0] - p, b[0] - p) <= MT_LAMB_TOL
+    # two runs give the same bits
+    outs = []
+    for _ in range(2):
+        a = [x.clone() for x in (p, m, v, count)]
+        u, sums = multi_tensor_cuda.zero_lamb_stage1(
+            g, a[0], a[1], a[2], layout, a[3], new, bc1, bc2, **kw)
+        outs.append(sums)
+    assert _same_bits(outs[0], outs[1])
+
+
+def test_zero_transforms_and_codec_launch_their_kernels(dev):
+    """On one rank (no process group): a DistributedFusedAdam step
+    launches K21 once, a DistributedFusedLAMB step K22 three times, with
+    int8 each K19 twice and K20 twice (the gradient hop and the update
+    hop), and allreduce_tree with int8 K19 and K20 once each."""
+    from apex_tpu_torch.contrib.optimizers import (distributed_fused_adam,
+                                                   distributed_fused_lamb)
+    from apex_tpu_torch.parallel import collectives
+
+    params = {"a": torch.randn(300, 7, device=dev),
+              "b": torch.randn(5, device=dev)}
+    grads = {k: torch.randn_like(v) for k, v in params.items()}
+    fns = (collectives_cuda.quantize, collectives_cuda.dequantize_sum,
+           multi_tensor_cuda.zero_adam, multi_tensor_cuda.zero_lamb_stage1,
+           multi_tensor_cuda.zero_lamb_stage2)
+    for make, want in ((distributed_fused_adam, [2, 2, 1, 0, 0]),
+                       (distributed_fused_lamb, [2, 2, 0, 2, 1])):
+        tx = make(learning_rate=1e-3, num_shards=1, grad_compress="int8")
+        state = tx.init(params)
+        before = [f.launches for f in fns]
+        tx.step(grads, state, params)
+        assert [f.launches - b for f, b in zip(fns, before)] == want
+    before = [f.launches for f in fns]
+    ef = collectives.ef_init(grads, None, compress="int8")
+    out, ef = collectives.allreduce_tree(grads, None, compress="int8",
+                                         ef_state=ef)
+    assert [f.launches - b for f, b in zip(fns, before)] == [1, 1, 0, 0, 0]
+    assert out["a"].dtype == torch.float32 and ef.is_cuda
