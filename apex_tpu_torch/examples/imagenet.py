@@ -1,17 +1,33 @@
 """ImageNet training with amp, data parallelism and SyncBatchNorm
-(counterpart of ``examples/imagenet/main_amp.py``), on synthetic data.
+(counterpart of ``examples/imagenet/main_amp.py``), on synthetic data or
+an image folder.
 
     python -m apex_tpu_torch.examples.imagenet --synthetic --steps 20 -b 256 \\
         --opt-level O2
+    python -m apex_tpu_torch.examples.imagenet /data/imagenet -b 256 \\
+        --epochs 2 --checkpoint ckpt.pt
+    python -m apex_tpu_torch.examples.imagenet /data/imagenet -b 256 \\
+        --epochs 3 --resume ckpt.pt --checkpoint ckpt.pt
     python -m apex_tpu_torch.parallel.multiproc --nproc 2 \\
         -m apex_tpu_torch.examples.imagenet --synthetic --steps 20 -b 128
 
-The flags are the JAX example's. One process per card: with the launcher
+The flags are the JAX example's, and ``--num-filters`` (the ResNet's
+width, 64) and ``--device``. One process per card: with the launcher
 each rank joins the group (``parallel.multiproc.init_distributed``), the
-batch norms sync over it, and ``-b`` is the per-rank batch. ImageFolder
-data (``data``), ``--resume`` and the checkpoint it reads wait (ROADMAP);
-``--checkpoint`` is accepted and unused. ``--device cpu`` runs the plain
-PyTorch versions on the CPU; the default is the card.
+batch norms sync over it, and ``-b`` is the per-rank batch. ``--device
+cpu`` runs the plain PyTorch versions on the CPU; the default is the card.
+
+Real data (``data`` without ``--synthetic``): ``root/train/<class>/...``
+and ``root/val/<class>/...`` (or a flat ``root/<class>/...``) through
+``apex_tpu_torch.data`` (Pillow needed): ``train_transform`` for training,
+``eval_transform(max(isize + 32, 256), isize)`` for validation, shuffled
+with the common seed, each rank taking its shard of the equalized order;
+the class count comes from the train folder and the epoch length from
+the dataset, as in JAX. After each epoch rank 0 saves
+``{"params", "batch_stats", "amp_state", "epoch"}`` to ``--checkpoint``
+(``torch.save`` of the port's own tensors, not JAX's pickle); ``--resume
+FILE`` loads it, after checking that every rank sees the file, and
+training goes on from its epoch.
 
 The step (:func:`build_train_step`) does what the JAX step does, in
 order: the images cast to the policy's compute dtype; forward and
@@ -26,6 +42,8 @@ reads no device value on the host.
 """
 
 import argparse
+import itertools
+import os
 import random
 import time
 
@@ -51,7 +69,7 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(
         description="PyTorch/CUDA ImageNet Training (apex main_amp port)")
     p.add_argument("data", nargs="?", default=None,
-                   help="path to dataset (not ported yet: use --synthetic)")
+                   help="path to dataset (omit with --synthetic)")
     p.add_argument("--arch", "-a", default="resnet50", choices=ARCHS)
     p.add_argument("--epochs", type=int, default=1)
     p.add_argument("-b", "--batch-size", type=int, default=256,
@@ -75,7 +93,9 @@ def parse_args(argv=None):
                    help="cap steps per epoch (smoke runs)")
     p.add_argument("--image-size", type=int, default=224)
     p.add_argument("--num-classes", type=int, default=1000)
-    p.add_argument("--checkpoint", default="checkpoint.pkl")
+    p.add_argument("--checkpoint", default="checkpoint.pt")
+    p.add_argument("--num-filters", type=int, default=64,
+                   help="the ResNet's width (its first stage's channels)")
     p.add_argument("--device", default=None,
                    help="torch device (default: the card)")
     return p.parse_args(argv)
@@ -128,14 +148,21 @@ def _loss_and_metrics(logits, labels):
     return loss, top1, top5
 
 
+_COMMON_SEED = None
+
+
 def _common_seed(args, device):
-    """One seed on every rank: 0 with --deterministic, else rank 0's."""
+    """One seed on every rank (the model's init, the shuffle): 0 with
+    --deterministic, else rank 0's, drawn once a process."""
     if args.deterministic:
         return 0
-    seed = torch.tensor(random.randrange(2 ** 31), device=device)
-    if world_size() > 1:
-        dist.broadcast(seed, src=0)
-    return int(seed.item())
+    global _COMMON_SEED
+    if _COMMON_SEED is None:
+        seed = torch.tensor(random.randrange(2 ** 31), device=device)
+        if world_size() > 1:
+            dist.broadcast(seed, src=0)
+        _COMMON_SEED = int(seed.item())
+    return _COMMON_SEED
 
 
 def make_synthetic_loader(args, steps, device, rank=0):
@@ -154,6 +181,104 @@ def make_synthetic_loader(args, steps, device, rank=0):
             yield images, labels
 
     return loader
+
+
+_DATASETS = {}  # root -> ImageFolder (the folder scan runs once)
+
+
+def _image_folder(root):
+    from apex_tpu_torch import data as apex_data
+
+    if root not in _DATASETS:
+        _DATASETS[root] = apex_data.ImageFolder(root)
+    return _DATASETS[root]
+
+
+def _split_root(data, split):
+    """torchvision's ``root/<split>/<class>/...``, else a flat
+    ``root/<class>/...``."""
+    root = os.path.join(data, split)
+    return root if os.path.isdir(root) else data
+
+
+def _real_data(args):
+    return bool(args.data) and not args.synthetic
+
+
+def make_loader(args, steps, device, train=True, epoch=0, rank=0, world=1):
+    """``(batches, steps)``: the synthetic loader, or the image folder's
+    (JAX's ``make_loader``): NCHW fp32 images in [0, 1) (an NHWC batch's
+    channels_last view) and int64 labels on ``device``, this rank's shard
+    of the common-seed shuffle, ``steps`` capped at the dataset's per-rank
+    batch count."""
+    if not _real_data(args):
+        return make_synthetic_loader(args, steps, device, rank)(), steps
+    from apex_tpu_torch import data as apex_data
+
+    root = _split_root(args.data, "train" if train else "val")
+    ds = _image_folder(root)
+    if len(ds.classes) != args.num_classes:
+        raise ValueError(f"{len(ds.classes)} classes under {root} vs "
+                         f"--num-classes {args.num_classes}")
+    tf = (apex_data.train_transform(args.image_size) if train
+          else apex_data.eval_transform(max(args.image_size + 32, 256),
+                                        args.image_size))
+    n = len(ds) // (args.batch_size * world)
+    if n == 0:
+        raise ValueError(f"{len(ds)} images under {root} is fewer than the "
+                         f"global batch ({args.batch_size} x {world} "
+                         f"processes)")
+    tail = len(ds) - n * args.batch_size * world
+    if not train and tail and epoch == 0 and rank == 0:
+        print(f"NOTE: {tail} tail validation samples are not evaluated "
+              f"({len(ds)} images, global batch "
+              f"{args.batch_size * world})", flush=True)
+    steps = min(steps, n) if steps else n
+    gen = apex_data.prefetch(ds, args.batch_size, tf, shuffle=train,
+                             drop_last=True, seed=_common_seed(args, device),
+                             epoch=epoch, shard=(rank, world))
+
+    def batches():
+        for images, labels in itertools.islice(gen, steps):
+            yield (torch.from_numpy(images).to(device).permute(0, 3, 1, 2),
+                   torch.from_numpy(labels).to(device, torch.int64))
+
+    return batches(), steps
+
+
+def _resume(args, device, model, amp_state, world):
+    """``(amp_state, start_epoch)`` from ``--resume``'s record, the model's
+    parameters and running stats loaded in place; every rank must see the
+    file (checkpoints are rank 0's: a rank that resumes alone would
+    desynchronize the replicas)."""
+    have = os.path.isfile(args.resume)
+    if world > 1:
+        flag = torch.tensor([int(have)], device=device)
+        dist.broadcast(flag, src=0)
+        if bool(flag.item()) != have:
+            raise RuntimeError(
+                f"--resume {args.resume} visible on some ranks only; "
+                f"checkpoints must live on a shared filesystem")
+    if not have:
+        print(f"=> no checkpoint found at {args.resume}", flush=True)
+        return amp_state, 0
+    ckpt = torch.load(args.resume, map_location=device, weights_only=False)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(ckpt["params"][name])
+        for name, b in model.named_buffers():
+            b.copy_(ckpt["batch_stats"][name])
+    print(f"=> loaded checkpoint (epoch {ckpt['epoch']})", flush=True)
+    return ckpt["amp_state"], ckpt["epoch"]
+
+
+def save_checkpoint(path, model, amp_state, epoch):
+    """The record ``--resume`` reads: the parameters and running stats by
+    name, the amp state, and the epoch to start from."""
+    torch.save({"params": {n: p.detach() for n, p in
+                           model.named_parameters()},
+                "batch_stats": dict(model.named_buffers()),
+                "amp_state": amp_state, "epoch": epoch}, path)
 
 
 def build_train_step(model, opt, process_group=None,
@@ -208,13 +333,18 @@ def build_eval_step(model, process_group=None, compute_dtype=torch.float32):
 def validate(args, model, compute_dtype, device, steps=None,
              process_group=None):
     """The eval loop with the JAX example's metering (synthetic: 8
-    batches unless --steps)."""
+    batches unless --steps; real data: the whole validation set unless
+    --steps)."""
     eval_step = build_eval_step(model, process_group, compute_dtype)
     losses, top1, top5 = AverageMeter(), AverageMeter(), AverageMeter()
-    steps = steps or args.steps or 8
-    rank = dist.get_rank() if world_size() > 1 else 0
-    loader = make_synthetic_loader(args, steps, device, rank)
-    for i, (images, labels) in enumerate(loader()):
+    steps = steps or args.steps
+    if not _real_data(args):
+        steps = steps or 8
+    world = world_size()
+    rank = dist.get_rank() if world > 1 else 0
+    loader, steps = make_loader(args, steps, device, train=False, rank=rank,
+                                world=world)
+    for i, (images, labels) in enumerate(loader):
         m = eval_step(images, labels).tolist()
         losses.update(m[0], args.batch_size)
         top1.update(m[1], args.batch_size)
@@ -245,12 +375,18 @@ def _properties(args):
 def main(argv=None):
     init_distributed()
     args = parse_args(argv)
-    if args.data and not args.synthetic:
-        raise NotImplementedError(
-            "ImageFolder data is not ported yet (ROADMAP): pass --synthetic")
-    if args.resume:
-        raise NotImplementedError("--resume is not ported yet (ROADMAP)")
+    if _real_data(args):
+        # the class count comes from the train folder, before the model
+        troot = _split_root(args.data, "train")
+        found = len(_image_folder(troot).classes)
+        if found != args.num_classes:
+            print(f"NOTE: {found} classes under {troot} (--num-classes "
+                  f"{args.num_classes}); using the folder count", flush=True)
+            args.num_classes = found
     device = default_device(args.device)
+    if args.deterministic:     # the reference's cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
     world = world_size()
     rank = dist.get_rank() if world > 1 else 0
     group = dist.group.WORLD if world > 1 else None
@@ -260,10 +396,14 @@ def main(argv=None):
     model = ARCHS[args.arch](num_classes=args.num_classes,
                              norm_process_group=group,
                              dtype=policy.compute_dtype, device=device,
-                             seed=_common_seed(args, device))
+                             seed=_common_seed(args, device),
+                             num_filters=args.num_filters)
     broadcast_params(model, group)
 
-    full_len = IMAGENET_TRAIN_IMAGES // (args.batch_size * world)
+    # the epoch length the schedule reads: the dataset's, or ImageNet's
+    images = (len(_image_folder(_split_root(args.data, "train")))
+              if _real_data(args) else IMAGENET_TRAIN_IMAGES)
+    full_len = images // (args.batch_size * world)
     steps = min(args.steps, full_len) if args.steps else full_len
     tx = fused_sgd(learning_rate=make_lr_schedule(args.lr, steps),
                    momentum=args.momentum, weight_decay=args.weight_decay)
@@ -271,6 +411,10 @@ def main(argv=None):
                                 keep_batchnorm_fp32=keep_bn,
                                 loss_scale=loss_scale)
     amp_state = opt.init(dict(model.named_parameters()))
+    start_epoch = 0
+    if args.resume:
+        amp_state, start_epoch = _resume(args, device, model, amp_state,
+                                         world)
 
     if args.evaluate:
         return validate(args, model, policy.compute_dtype, device,
@@ -279,12 +423,13 @@ def main(argv=None):
     train_step = build_train_step(model, opt, group, policy.compute_dtype)
     batch_time, losses = AverageMeter(), AverageMeter()
     top1, top5 = AverageMeter(), AverageMeter()
-    for epoch in range(args.epochs):
+    for epoch in range(start_epoch, args.epochs):
         for meter in (batch_time, losses, top1, top5):
             meter.reset()
-        loader = make_synthetic_loader(args, steps, device, rank)
+        loader, steps = make_loader(args, steps, device, train=True,
+                                    epoch=epoch, rank=rank, world=world)
         end = time.perf_counter()
-        for i, (images, labels) in enumerate(loader()):
+        for i, (images, labels) in enumerate(loader):
             if i == args.prof:
                 from torch.profiler import ProfilerActivity, profile
 
@@ -314,6 +459,8 @@ def main(argv=None):
                       f"Loss {losses.val:.4f} ({losses.avg:.4f})  "
                       f"Prec@1 {top1.val:.2f} ({top1.avg:.2f})  "
                       f"Prec@5 {top5.val:.2f} ({top5.avg:.2f})", flush=True)
+        if rank == 0:        # rank 0 saves, as the reference does
+            save_checkpoint(args.checkpoint, model, amp_state, epoch + 1)
     ips = (args.batch_size * world / batch_time.avg) if batch_time.count \
         else 0.0
     print(f"DONE images/sec={ips:.1f} loss={losses.avg:.4f}")

@@ -27,7 +27,7 @@ import torch
 
 SOURCES = ("prefill_attention", "decode_attention", "layer_norm",
            "attention_bwd", "xent", "softmax", "multi_tensor", "batch_norm",
-           "collectives")
+           "collectives", "qmatmul")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "apex_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -23,6 +23,12 @@ and 2 of the forward) or K18 (of the backward) through
 :mod:`apex_tpu_torch.ops.batch_norm_cuda`, the CPU runs the plain version
 beside it (``*_reference``). :class:`BatchNormFunction` puts the four
 stages behind one ``torch.autograd.Function``.
+
+``flax_running=True`` keeps the running stats in flax's ``nn.BatchNorm``
+convention instead (the JAX package's DCGAN): ``running = momentum *
+running + (1 - momentum) * batch`` with the biased variance, taken from
+stage 1's ``[sum x, sum x^2, n]`` after stage 2 (which then updates
+nothing) by :func:`flax_running_update`, with stage 2's own arithmetic.
 """
 
 import torch
@@ -70,6 +76,19 @@ def fwd_apply_reference(x2d, stats, weight, bias, running_mean, running_var,
     if fuse_relu:
         y = torch.relu(y)
     return y.to(x2d.dtype), mean, rstd
+
+
+def flax_running_update(stats, running_mean, running_var, momentum):
+    """Flax's running-stat update in place from stage 1's ``stats``: mean
+    ``s / n``, the biased variance ``max(ss / n - mean^2, 0)`` (true
+    divisions by the 0-d count, as stage 2 divides), then ``momentum *
+    running + (1 - momentum) * batch``."""
+    c = running_mean.shape[0]
+    n = stats[2 * c]
+    mean = stats[:c] / n
+    var = torch.clamp(stats[c:2 * c] / n - mean * mean, min=0.0)
+    running_mean.copy_(momentum * running_mean + (1 - momentum) * mean)
+    running_var.copy_(momentum * running_var + (1 - momentum) * var)
 
 
 def _xhat_and_g(x2d, dy2d, mean, rstd, weight, bias, fuse_relu):
@@ -163,15 +182,18 @@ class BatchNormFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x2d, weight, bias, running_mean, running_var, eps,
-                momentum, training, fuse_relu, group):
+                momentum, training, fuse_relu, group, flax_running=False):
         stats = None
         if training:
             stats = fwd_stats(x2d)
             if group_size(group) > 1:
                 dist.all_reduce(stats, group=group)
-        y, mean, rstd = fwd_apply(x2d, stats, weight, bias, running_mean,
-                                  running_var, eps, momentum, training,
-                                  fuse_relu)
+        flax = training and flax_running and running_mean is not None
+        y, mean, rstd = fwd_apply(
+            x2d, stats, weight, bias, None if flax else running_mean,
+            None if flax else running_var, eps, momentum, training, fuse_relu)
+        if flax:
+            flax_running_update(stats, running_mean, running_var, momentum)
         ctx.save_for_backward(x2d, weight, bias, mean, rstd, stats)
         ctx.flags = (training, fuse_relu, group)
         return y
@@ -192,16 +214,17 @@ class BatchNormFunction(torch.autograd.Function):
             dist.all_reduce(sums, group=group)
         dx = bwd_apply(x2d, dy, mean, rstd, weight, bias, sums, stats,
                        training, fuse_relu)
-        return (dx, dweight, dbias) + (None,) * 7
+        return (dx, dweight, dbias) + (None,) * 8
 
 
 def batch_norm_rows(x2d, weight, bias, running_mean=None, running_var=None,
                     eps=1e-5, momentum=0.1, training=True, fuse_relu=False,
-                    group=None):
+                    group=None, flax_running=False):
     """Batch norm of a contiguous ``[M, C]`` tensor over its rows (and over
     ``group``'s ranks in training), differentiable in x, weight and bias;
     the running stats (fp32 ``[C]``, or None) updated in place in
-    training."""
+    training, in PyTorch's convention or, with ``flax_running``, in
+    flax's (``momentum`` is then flax's, the share the old value keeps)."""
     if not training and (running_mean is None or running_var is None):
         raise ValueError(
             "batch norm with training=False needs running_mean and "
@@ -209,4 +232,4 @@ def batch_norm_rows(x2d, weight, bias, running_mean=None, running_var=None,
             "statistics (training=True)")
     return BatchNormFunction.apply(x2d, weight, bias, running_mean,
                                    running_var, eps, momentum, training,
-                                   fuse_relu, group)
+                                   fuse_relu, group, flax_running)

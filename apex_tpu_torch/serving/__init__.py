@@ -3,6 +3,11 @@
 * ``kv_cache``  — paged K/V tensors + the host page allocator (null page 0)
 * ``kv_tier``   — the int8 KV tier's codec (quantize at write, per-(page,
                   head) bf16 scales)
+* ``quant``     — int8 per-channel weight quantization for the decode
+                  matmuls (``weight_quant=`` / ``APEX_SERVE_WEIGHT_QUANT``,
+                  default off; K23 on the card)
+* ``sampling``  — temperature / top-k / top-p on per-request threefry
+                  lanes, JAX's random bits (``APEX_SERVE_SAMPLING``)
 * ``scheduler`` — continuous batching (fifo / priority) and the seeded
                   synthetic trace
 * ``lifecycle`` — request event log, TTFT/TPOT derivation
@@ -10,13 +15,18 @@
                   (``from_jax_params``) or drawn from a torch seed, and
                   one tensor-parallel rank's slices of it
                   (``shard_param_tree``)
-* ``model``     — packed prefill and greedy decode step over the tree,
-                  through the prefill and decode attention kernels
-* ``engine``    — ``ServingEngine``: cache, parameters and scheduler in
-                  one serial greedy loop
+* ``model``     — packed prefill, the decode step and the K-step decode
+                  block over the tree, through the prefill and decode
+                  attention kernels
+* ``engine``    — ``ServingEngine``: cache, parameters and scheduler; one
+                  round admits, prefills (eager) and runs one decode
+                  program (K steps, greedy or sampled, over bf16 or int8
+                  KV pages and full or int8 weights), captured once as a
+                  CUDA graph on the card
 """
 
-from apex_tpu_torch.serving import kv_tier, lifecycle  # noqa: F401
+from apex_tpu_torch.serving import kv_tier, lifecycle, quant  # noqa: F401
+from apex_tpu_torch.serving import sampling  # noqa: F401
 from apex_tpu_torch.serving.engine import ServingEngine  # noqa: F401
 from apex_tpu_torch.serving.kv_cache import (  # noqa: F401
     PageAllocator,

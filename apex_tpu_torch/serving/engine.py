@@ -50,6 +50,15 @@ environment value is a preference):
   itself), and PyTorch keeps a cuBLAS workspace for that stream for the
   life of the process.
 
+``weight_quant=True`` (> :func:`quant.set_weight_quant` >
+``APEX_SERVE_WEIGHT_QUANT``, default off) runs the decode matmuls on int8
+weights with per-channel fp32 scales (:mod:`~apex_tpu_torch.serving.quant`,
+K23 on the card); True raises when the word table is not floating point.
+The records are quantized from the weights as given, before the cast to
+the compute dtype (JAX quantizes the tree as the caller gave it), and sit
+in the captured decode graph as static tensors; prefill stays eager and
+full precision.
+
 ``kv_quant=True`` (or ``APEX_SERVE_KV_QUANT=1`` when the argument is
 None) serves over the int8 KV tier (:mod:`~apex_tpu_torch.serving.
 kv_tier`): int8 codes with per-(page, head) bf16 scales, quantized at
@@ -75,6 +84,7 @@ import torch
 from apex_tpu_torch import default_device
 from apex_tpu_torch.serving import kv_tier, lifecycle
 from apex_tpu_torch.serving import model as smodel
+from apex_tpu_torch.serving import quant as quant_mod
 from apex_tpu_torch.serving import sampling as sampling_mod
 from apex_tpu_torch.serving.kv_cache import PageAllocator, init_cache
 from apex_tpu_torch.serving.scheduler import ContinuousBatchingScheduler
@@ -111,7 +121,8 @@ class ServingEngine:
                  num_pages=64, max_seq=None, prefill_len=64,
                  prefill_requests=None, policy=None, seed=0, device=None,
                  kv_quant=None, kv_swap=None, kv_restore=None,
-                 sampling=None, decode_k=None, cuda_graph=None):
+                 sampling=None, decode_k=None, cuda_graph=None,
+                 weight_quant=None):
         smodel.check_serving_config(cfg)
         # the int8 KV tier: a per-call demand, else the env preference,
         # else off. kv_swap and kv_restore exist only to be refused: the
@@ -150,6 +161,17 @@ class ServingEngine:
         self.prefill_requests = int(prefill_requests or num_slots)
         params = _to_device(params, self.device) if params is not None \
             else init_gpt_params(cfg, seed, self.device)
+        # weight quant: a per-call True raises when it cannot be honored;
+        # the setter and env preferences defer (quant.resolve). The records
+        # come from the tree as given, before the cast below
+        if weight_quant is True and not quant_mod.quantizable(
+                params["word_embeddings"]):
+            raise ValueError(
+                f"weight_quant=True cannot be honored: word_embeddings has "
+                f"dtype {params['word_embeddings'].dtype}")
+        self.weight_quant = quant_mod.resolve(weight_quant)
+        self.qparams = smodel.quantize_decode_params(params, cfg) \
+            if self.weight_quant else None
         # weights pre-cast once to the compute dtype (same numbers as a
         # cast per call; embeddings and norms stay fp32)
         self.params = smodel.cast_params(params, cfg)
@@ -378,11 +400,12 @@ class ServingEngine:
             _, toks, _ = smodel.decode_block(
                 self.params, self.cache, v["tokens"], v["lengths"],
                 v["page_table"], v["steps"], v["warm_tokens"],
-                v["warm_steps"], lanes, k=self.decode_k, cfg=self.cfg)
+                v["warm_steps"], lanes, k=self.decode_k, cfg=self.cfg,
+                qparams=self.qparams)
             return toks
         _, toks, logits = smodel.decode_step(
             self.params, self.cache, v["tokens"], v["lengths"],
-            v["page_table"], cfg=self.cfg)
+            v["page_table"], cfg=self.cfg, qparams=self.qparams)
         if lanes is not None:
             toks = sampling_mod.sample_tokens(logits, *lanes,
                                               v["lengths"] > 0)

@@ -38,7 +38,13 @@ prefill falls back to its dense attention there, and decode past 512 (the
 decode kernels' limit, the JAX kernel's ``decode_attention_pallas.
 supported``) takes :func:`decode_attention`'s scores route (K10 again),
 as the JAX decode falls back to its jnp reference.
-Weight quantization is a later slice.
+
+Weight quantization (:func:`quantize_decode_params`, ``qparams=`` of
+:func:`decode_step` and :func:`decode_block`): the decode matmuls (qkv,
+dense, h->4h, 4h->h of every layer, and the logits against the word
+table) run on int8 records through :func:`_wmat`, K23 on the card; the
+word table keeps its float copy for the embedding gather, and prefill
+keeps the full-precision weights, as in JAX.
 
 Matmul precision: an fp32 run on the card needs
 ``torch.backends.cuda.matmul.allow_tf32 = False`` (PyTorch's default) to
@@ -54,6 +60,7 @@ from apex_tpu_torch import _env
 from apex_tpu_torch.ops.attention import fused_attention
 from apex_tpu_torch.ops.decode_attention import decode_attention
 from apex_tpu_torch.serving import kv_tier
+from apex_tpu_torch.serving import quant as quant_mod
 from apex_tpu_torch.serving import sampling as sampling_mod
 
 
@@ -132,28 +139,60 @@ def cast_params(params, cfg):
     return out
 
 
-def _trunk_layer(x, lp, cfg, attn):
+def quantize_decode_params(params, cfg):
+    """The decode-side int8 records: each decode matmul weight becomes
+    ``{"wq", "scale"}`` (int8 and per-channel fp32, from the weights as
+    given, before any cast to the compute dtype); biases and norms stay
+    full precision, and the word table keeps its float copy for the
+    embedding gather (only the logits matmul reads ``word_logits``)."""
+    qp = {"layers": [], "word_logits": None}
+    for i in range(cfg.num_layers):
+        lp = params["transformer"][f"layer_{i}"]
+        rec = {}
+        for name, sub in (("qkv", lp["self_attention"]["query_key_value"]),
+                          ("dense", lp["self_attention"]["dense"]),
+                          ("h4", lp["mlp"]["dense_h_to_4h"]),
+                          ("4h", lp["mlp"]["dense_4h_to_h"])):
+            wq, scale = quant_mod.quantize_weight(sub["weight"])
+            rec[name] = {"wq": wq, "scale": scale}
+        qp["layers"].append(rec)
+    wq, scale = quant_mod.quantize_weight(params["word_embeddings"])
+    qp["word_logits"] = {"wq": wq, "scale": scale}
+    return qp
+
+
+def _wmat(x, full_w, qrec, dtype):
+    """One decode matmul: the int8 record when there is one (K23 on the
+    card), else the full-precision weight."""
+    if qrec is not None:
+        return quant_mod.qmatmul(x, qrec["wq"], qrec["scale"], dtype)
+    return _mm(x, full_w, dtype)
+
+
+def _trunk_layer(x, lp, cfg, attn, qr=None):
     """ONE transformer layer of the serving trunk, shared by prefill and
     decode; ``attn(q, k, v)`` owns the cache write and the attention and
-    returns the ``[rows, heads*head_dim]`` context."""
+    returns the ``[rows, heads*head_dim]`` context. ``qr`` is the layer's
+    int8 record dict (None: full precision)."""
     dtype = x.dtype
+    qr = qr or {}
     ln1 = _layer_norm(x, lp["input_layernorm"], cfg.layernorm_epsilon)
     sa = lp["self_attention"]
-    qkv = _mm(ln1, sa["query_key_value"]["weight"], dtype) \
+    qkv = _wmat(ln1, sa["query_key_value"]["weight"], qr.get("qkv"), dtype) \
         + sa["query_key_value"]["bias"].to(dtype)
     q, k, v = _split_qkv(qkv, cfg.num_attention_heads, cfg.head_dim)
     ctx = attn(q, k, v)
-    attn_out = _mm(ctx, sa["dense"]["weight"], dtype) \
+    attn_out = _wmat(ctx, sa["dense"]["weight"], qr.get("dense"), dtype) \
         + sa["dense"]["bias"].to(dtype)
     x = x + attn_out
     ln2 = _layer_norm(x, lp["post_attention_layernorm"],
                       cfg.layernorm_epsilon)
     mlp = lp["mlp"]
-    inter = _mm(ln2, mlp["dense_h_to_4h"]["weight"], dtype) \
-        + mlp["dense_h_to_4h"]["bias"].to(dtype)
+    inter = _wmat(ln2, mlp["dense_h_to_4h"]["weight"], qr.get("h4"),
+                  dtype) + mlp["dense_h_to_4h"]["bias"].to(dtype)
     inter = F.gelu(inter, approximate="tanh")
-    out = _mm(inter, mlp["dense_4h_to_h"]["weight"], dtype) \
-        + mlp["dense_4h_to_h"]["bias"].to(dtype)
+    out = _wmat(inter, mlp["dense_4h_to_h"]["weight"], qr.get("4h"),
+                dtype) + mlp["dense_4h_to_h"]["bias"].to(dtype)
     return x + out
 
 
@@ -164,9 +203,9 @@ def _embed(params, ids, positions, dtype):
     return x.to(dtype)
 
 
-def _logits(params, x, dtype):
-    return _mm(x, params.get("word_logits", params["word_embeddings"]),
-               dtype)
+def _logits(params, x, dtype, qrec=None):
+    return _wmat(x, params.get("word_logits", params["word_embeddings"]),
+                 qrec, dtype)
 
 
 # --------------------------------------------------------------- prefill
@@ -244,14 +283,17 @@ def token_rows_to_pages(page_table, token_rows):
 
 # ---------------------------------------------------------------- decode
 
-def decode_step(params, cache, tokens, lengths, page_table, *, cfg):
+def decode_step(params, cache, tokens, lengths, page_table, *, cfg,
+                qparams=None):
     """One greedy decode step for every slot (q_len = 1).
 
     tokens/lengths: ``[B]`` int tensors — the token to process and the
     context length INCLUDING it (0 = inactive slot: its writes land on
     the null page, its logits and next token are zeros). page_table:
-    ``[B, max_pages]`` int32. Returns ``(cache, next_tokens [B], logits
-    [B, vocab])``; ``cache`` is updated in place.
+    ``[B, max_pages]`` int32. ``qparams`` (from
+    :func:`quantize_decode_params`) switches the decode matmuls to the
+    int8 records. Returns ``(cache, next_tokens [B], logits [B,
+    vocab])``; ``cache`` is updated in place.
     """
     dtype = compute_dtype(cfg)
     hd, n_heads = cfg.head_dim, cfg.num_attention_heads
@@ -269,6 +311,7 @@ def decode_step(params, cache, tokens, lengths, page_table, *, cfg):
 
     x = _embed(params, tokens.long(), positions, dtype)
     lengths32 = lengths.to(torch.int32).contiguous()
+    ql = qparams["layers"] if qparams is not None else None
     quant = kv_tier.is_quantized(cache)
     for i in range(cfg.num_layers):
         def attn(q, k, v, i=i):
@@ -293,11 +336,13 @@ def decode_step(params, cache, tokens, lengths, page_table, *, cfg):
                 v_scale=cache["v_scale"][i] if quant else None)
             return ctx.reshape(B, n_heads * hd).to(dtype)
 
-        x = _trunk_layer(x, params["transformer"][f"layer_{i}"], cfg, attn)
+        x = _trunk_layer(x, params["transformer"][f"layer_{i}"], cfg, attn,
+                         ql[i] if ql is not None else None)
 
     x = _layer_norm(x, params["transformer"]["final_layernorm"],
                     cfg.layernorm_epsilon)
-    logits = _logits(params, x, dtype)
+    logits = _logits(params, x, dtype,
+                     qparams["word_logits"] if qparams is not None else None)
     next_tokens = torch.where(
         active, torch.argmax(logits.float(), dim=-1).to(torch.int32), 0)
     return cache, next_tokens, logits
@@ -319,7 +364,8 @@ def resolve_decode_k(per_call=None):
 
 
 def decode_block(params, cache, tokens, lengths, page_table, steps_budget,
-                 warm_tokens, warm_steps, lanes=None, *, k, cfg):
+                 warm_tokens, warm_steps, lanes=None, *, k, cfg,
+                 qparams=None):
     """K decode steps in one call (JAX's ``decode_block``, a ``lax.scan``
     over :func:`decode_step`; here a loop with no host read, so the engine
     can capture it once as a CUDA graph). Per step ``j`` (0-based):
@@ -337,7 +383,8 @@ def decode_block(params, cache, tokens, lengths, page_table, steps_budget,
       draw for generation index g is ``fold_in(key, g)`` whatever K.
 
     tokens/lengths ``[B]`` as for :func:`decode_step`; steps_budget and
-    warm_steps ``[B]`` int; warm_tokens ``[K, B]`` int. Returns ``(cache,
+    warm_steps ``[B]`` int; warm_tokens ``[K, B]`` int; ``qparams`` as for
+    :func:`decode_step`. Returns ``(cache,
     toks [K, B] int32, logits [K, B, vocab])``; ``cache`` is updated in
     place.
     """
@@ -347,7 +394,8 @@ def decode_block(params, cache, tokens, lengths, page_table, steps_budget,
         live = (j < steps_budget) & (lens > 0)
         step_lens = torch.where(live, lens, torch.zeros_like(lens))
         cache, emitted, logits = decode_step(params, cache, tok, step_lens,
-                                             page_table, cfg=cfg)
+                                             page_table, cfg=cfg,
+                                             qparams=qparams)
         if lanes is not None:
             temps, top_ks, top_ps, keys, counters = lanes
             ctr = counters + torch.clamp_min(j - warm_steps, 0)

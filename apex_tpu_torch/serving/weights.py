@@ -352,3 +352,56 @@ def resnet_to_jax(model):
             node = node.setdefault(k, {})
         node[leaf] = buf.detach().float().cpu().numpy()
     return params, stats
+
+
+# flax's names of a DCGAN batch norm's leaves, by the port's
+_DCGAN_BN = {"weight": "scale", "bias": "bias", "running_mean": "mean",
+             "running_var": "var"}
+
+
+@torch.no_grad()
+def load_dcgan_from_jax(model, params, batch_stats=None):
+    """Copy a flax DCGAN ``Generator``'s or ``Discriminator``'s ``params``
+    (and ``batch_stats``), nested dicts of arrays, into ``model`` in place.
+    A transposed convolution's kernel ``[kh, kw, in, out]`` is flipped in
+    both spatial axes (flax's ``ConvTranspose`` does not flip it, PyTorch's
+    does) and laid out ``[in, out, kh, kw]``; a convolution's becomes
+    ``[out, in, kh, kw]``. Every shape is checked."""
+    def copy(dst, a, name):
+        a = torch.from_numpy(np.array(a, dtype=np.float32))
+        if name.startswith("up"):
+            a = a.flip(0, 1).permute(2, 3, 0, 1)
+        elif a.dim() == 4:
+            a = a.permute(3, 2, 0, 1)
+        if tuple(a.shape) != tuple(dst.shape):
+            raise ValueError(f"{name}: JAX {tuple(a.shape)} vs port "
+                             f"{tuple(dst.shape)}")
+        dst.copy_(a.contiguous().to(dst.dtype))
+
+    for name, p in model.named_parameters():
+        mod, leaf = name.split(".")
+        copy(p, params[mod][_DCGAN_BN.get(leaf, "kernel")
+                            if mod.startswith("bn") else "kernel"], name)
+    if batch_stats is not None:
+        for name, buf in model.named_buffers():
+            mod, leaf = name.split(".")
+            copy(buf, batch_stats[mod][_DCGAN_BN[leaf]], name)
+    return model
+
+
+def dcgan_to_jax(model):
+    """``(params, batch_stats)`` of a DCGAN model as flax's nested dicts of
+    fp32 numpy arrays (the inverse of :func:`load_dcgan_from_jax`)."""
+    params, stats = {}, {}
+    for tree, items in ((params, model.named_parameters()),
+                        (stats, model.named_buffers())):
+        for name, t in items:
+            mod, leaf = name.split(".")
+            t = t.detach().float().cpu()
+            if mod.startswith("up"):
+                t = t.permute(2, 3, 0, 1).flip(0, 1)
+            elif t.dim() == 4:
+                t = t.permute(2, 3, 1, 0)
+            key = _DCGAN_BN[leaf] if mod.startswith("bn") else "kernel"
+            tree.setdefault(mod, {})[key] = t.contiguous().numpy()
+    return params, stats

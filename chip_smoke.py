@@ -26,7 +26,7 @@ exits non-zero before the last line):
 1. device: ``nvidia-smi`` name and power limit, the SM clock's maximum
    (the INT32 rate assumes it), torch and CUDA versions; TF32 is
    switched off for fp32 matmuls and convolutions.
-2. build: the nine CUDA sources compile from ``apex_tpu_torch/csrc`` (one
+2. build: the ten CUDA sources compile from ``apex_tpu_torch/csrc`` (one
    ``nvcc`` each, all in parallel) into ``build/apex_tpu_torch/``; ptxas's
    registers and spills are printed, and, where the toolkit has
    ``cuobjdump``, the tensor-core instructions (``HGMMA``: wgmma;
@@ -179,15 +179,28 @@ exits non-zero before the last line):
    program's variants (``phase_serving_variants``): the same trace
    served greedy and sampled (temperature 0.8, top-k 50, top-p 0.95, the
    seed the request id), over bf16 and int8 pages, by eager K = 1,
-   graphed K = 1 and graphed K = 4 (``decode_block``), each twice in
-   turns, one prompt a prefill batch (``VARIANT_ENGINE``): the six runs
-   of each must give the same tokens bit for bit, K2 (K2q) must be
+   graphed K = 1 and graphed K = 4 (``decode_block``), bf16 greedy twice
+   in turns and the other pairs once each (``VARIANT_TURNS``), one prompt
+   a prefill batch (``VARIANT_ENGINE``): the runs of a pair must give the
+   same tokens bit for bit, K2 (K2q) must be
    called through its wrapper (``_decode_calls``) x K x 12 times, and, in
-   each variant's profiled short trace, run on the device dispatches x K
-   x 12 times; each variant's tokens/s, TTFT and
+   each graphed variant's profiled short trace, run on the device
+   dispatches x K x 12 times; each variant's tokens/s, TTFT and
    TPOT p50/p99, decode-round ms and busy share, the sampler's device ms
    a step, and how many requests keep equal tokens between graphed K = 1
-   and K = 4 at the packed prefill.
+   and K = 4 at the packed prefill. Then int8 weights
+   (``phase_weight_quant_serving``): ``TRACE`` on the graphed bf16-KV
+   engine with ``weight_quant=False`` and ``True`` in turns (off, on, on,
+   off): tokens/s, TTFT and TPOT p50/p99, decode-round ms; K23 counted
+   on the device in a traced rerun, 49 a decode step (12 layers x 4 + the
+   logits) with int8 weights and none without, and 2 x 49 at its wrapper
+   (the warm-up and the capture); the int8 engine's decode logits, kernel
+   path against plain path, within 0.35. Before the serving phases, K23
+   at GPT-2-small's five decode shapes at 8 rows, bf16 and fp32
+   (``phase_qmatmul_kernel``): relative L2 within ``QMM_L2_TOL``, the
+   all-zero weight row's outputs 0, two runs equal bit for bit; its time
+   in turns with cuBLAS over a pre-dequantized weight, the plain version's
+   and the bound, summed over a decode step's 49 launches for the row.
 5. training end to end: ``make_one_step`` over ``GPTModel`` at GPT-2-small
    width, b=8, s=1024, bf16, ``LossScaler()`` and
    ``fused_adam(learning_rate=1e-4)``, ids and labels from
@@ -349,7 +362,22 @@ exits non-zero before the last line):
    bits. LARC: ResNet-50 R-O2 at world 1, b = 64, three steps with
    ``larc`` before ``fused_sgd``, each step's scaled gradients (K13's
    norms) within ``ZERO_TOL`` of the plain LARC path's.
-6. one JSON line per kernel (K1-K22), each phase's seconds, the wall, the
+   After the ResNet phases, DCGAN (``DCGAN``, BASELINE config 5: the
+   upstream example's defaults, nz 100, ngf = ndf = 64, 64^2, b = 64;
+   ``examples/dcgan.build_train_step``, the three-loss step) under O1 and
+   O2: 2 warm-up and 5 timed steps (step ms, images/s, peak memory, the
+   losses finite), the launches a step (K17 17 and K18 13 a stage, K14
+   2); one step with every K17/K18 call held against its plain version
+   (``_bn_held``); K12 and K14 bit for bit against their plain versions on
+   one D pass's real gradients; one step through the kernel path against
+   the plain path from the same state, within twice the kernel path's own
+   move when the images and z move by ``DCGAN_NUDGE``; a profiled
+   two-step window. Then the ImageNet example's ``--resume``
+   (``IMAGENET_RESUME``: resnet18 at width 16, synthetic, deterministic):
+   two straight epochs twice, one epoch and a resumed second, the
+   checkpoints bit for bit (or, where the straight runs differ, within 10
+   x their distance).
+6. one JSON line per kernel (K1-K23), each phase's seconds, the wall, the
    ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
    {...}}``.
 """
@@ -1676,6 +1704,7 @@ TRACED_KERNELS = {
     "batch_norm_bwd_stats": r"bn_stats_kernel<[^>]*\btrue>",
     "batch_norm_bwd_apply": r"bn_bwd_apply_kernel<",
     "multi_tensor_sgd": r"\bsgd_kernel<",
+    "qmatmul": r"\bqmatmul_kernel<",
 }
 
 
@@ -1737,8 +1766,8 @@ def phase_end_to_end(dev, kv_quant=False):
     ``prefill_batches x 12`` (K1) and ``decode_steps x 12`` (K2 or K2q)
     of that run."""
     from apex_tpu_torch.ops import attention_cuda, decode_attention_cuda
-    from apex_tpu_torch.serving import (Request, ServingEngine,
-                                        lifecycle, synthetic_trace)
+    from apex_tpu_torch.serving import (ServingEngine, lifecycle,
+                                        synthetic_trace)
     from apex_tpu_torch.transformer.testing import TransformerConfig
 
     cfg = TransformerConfig(**MODEL)
@@ -1755,9 +1784,7 @@ def phase_end_to_end(dev, kv_quant=False):
     _log(f"engine (kv_quant={kv_quant}) built in "
          f"{time.perf_counter() - t0:.2f} s")
     # warm-up (cuBLAS handles, allocator) on requests outside the trace
-    engine.run_trace([Request(rid=10**6, prompt=[7] * 300, max_new_tokens=3),
-                      Request(rid=10**6 + 1, prompt=[9] * 40,
-                              max_new_tokens=3)])
+    engine.run_trace(_warmup_requests())
 
     reqs, trace_id = synthetic_trace(vocab=cfg.vocab_size, **TRACE)
     base = (engine.prefill_batches, engine.decode_steps,
@@ -1835,6 +1862,10 @@ SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
 # 64-row tiles), and K = 4 admits at other ticks than K = 1, so only
 # unpacked prefills let the variants' tokens be compared bit for bit
 VARIANT_ENGINE = dict(ENGINE, prefill_requests=1)
+# the (pages, mode) pairs whose variants run a second time in reverse, in
+# turns with the first; the others run once, to keep the smoke's wall
+# under its limit
+VARIANT_TURNS = ("bf16 greedy",)
 
 
 def _variant_run(dev, cfg, params, kv_quant, sampled, k, graph,
@@ -1949,11 +1980,13 @@ def phase_serving_variants(dev):
     ``VARIANT_ENGINE``, random weights from torch seed 0): ``TRACE``'s 24
     requests served greedy and sampled (``SAMPLED``, the seed the request
     id), over bf16 and int8 KV pages, by eager K = 1, graphed K = 1 and
-    graphed K = 4, in turns (each variant, then each again in reverse).
-    The six runs of a (pages, mode) pair must give the same tokens bit
+    graphed K = 4, in turns (each variant, then, for the pairs
+    ``VARIANT_TURNS`` repeats, each again in reverse).
+    The runs of a (pages, mode) pair must give the same tokens bit
     for bit. Each variant's tokens/s, TTFT and TPOT p50/p99, decode-round
-    ms and dispatches (the mean of its two turns), its busy share (a
-    profiled short trace, first turn); the sampler's kernels and device
+    ms and dispatches (the mean of its turns), a graphed variant's busy
+    share (a profiled short trace, first turn; the eager ones are not
+    profiled, to keep the smoke's wall); the sampler's kernels and device
     ms a step.
     Then graphed K = 1 and K = 4 once more at ``ENGINE``'s packed prefill
     (8 prompts a batch): how many requests keep equal tokens there."""
@@ -1969,11 +2002,14 @@ def phase_serving_variants(dev):
                   f"{'sampled' if sampled else 'greedy'}"
             runs = {name: [] for name, _, _ in SERVE_VARIANTS}
             tokens = []
-            order = list(SERVE_VARIANTS) + list(reversed(SERVE_VARIANTS))
+            order = list(SERVE_VARIANTS) + (
+                list(reversed(SERVE_VARIANTS)) if key in VARIANT_TURNS
+                else [])
             for turn, (name, k, graph) in enumerate(order):
                 toks, stats = _variant_run(dev, cfg, params, kv_quant,
                                            sampled, k, graph,
-                                           profile=turn < len(SERVE_VARIANTS))
+                                           profile=graph and turn < len(
+                                               SERVE_VARIANTS))
                 runs[name].append(stats)
                 tokens.append((name, toks))
             diverged = [name for name, toks in tokens if toks != tokens[0][1]]
@@ -1986,9 +2022,10 @@ def phase_serving_variants(dev):
                                 for m in turns[0] if m != "device_busy_share"}
                 merged[name]["turns_tokens_per_s"] = [t["tokens_per_s"]
                                                       for t in turns]
-                merged[name]["device_busy_share"] = turns[0][
-                    "device_busy_share"]
-            _log(f"serving variants, {key} (tokens equal in all six runs): "
+                merged[name]["device_busy_share"] = turns[0].get(
+                    "device_busy_share")
+            _log(f"serving variants, {key} (tokens equal in all "
+                 f"{len(order)} runs): "
                  + json.dumps(merged))
     packed = [_variant_run(dev, cfg, params, False, False, k, True,
                            engine_kw=ENGINE)[0] for k in (1, 4)]
@@ -2079,8 +2116,9 @@ def phase_paths_agree(engine, dev):
     and the plain path on the card; logits within the bf16 band (over the
     int8 KV tier when the engine serves it: the codec is the same plain
     PyTorch on both paths, the decode attention K2q or its plain
-    version). Returns the kernel path's logits."""
-    from apex_tpu_torch.ops import attention, decode_attention
+    version; on the engine's int8 weight records when it has them: K23 or
+    its plain version). Returns the kernel path's logits."""
+    from apex_tpu_torch.ops import attention, decode_attention, qmatmul
     from apex_tpu_torch.serving import init_cache
     from apex_tpu_torch.serving import model as smodel
 
@@ -2133,7 +2171,7 @@ def phase_paths_agree(engine, dev):
             toks = tokens_fed[step]
             cache, _, lg = smodel.decode_step(
                 engine.params, cache, toks, lengths, args[4][:slots],
-                cfg=cfg)
+                cfg=cfg, qparams=engine.qparams)
             out.append(lg.float())
         return out
 
@@ -2142,7 +2180,9 @@ def phase_paths_agree(engine, dev):
            .to(dev) for _ in range(4)]
     kernel_logits = run(fed)
     with mock.patch.object(smodel, "fused_attention", plain_fused), \
-            mock.patch.object(smodel, "decode_attention", plain_decode):
+            mock.patch.object(smodel, "decode_attention", plain_decode), \
+            mock.patch.object(smodel.quant_mod, "qmatmul",
+                              qmatmul.qmatmul_reference):
         plain_logits = run(fed)
     worst, agree, total = 0.0, 0, 0
     for a, b in zip(kernel_logits, plain_logits):
@@ -2150,9 +2190,9 @@ def phase_paths_agree(engine, dev):
         worst = max(worst, (a[live] - b[live]).abs().max().item())
         agree += int((a[live].argmax(-1) == b[live].argmax(-1)).sum())
         total += len(lens)
-    _log(f"kernel vs plain path on the card (kv_quant={quant}): max |logit "
-         f"diff| {worst:.4f} (band {LOGITS_BAND}), argmax agreement "
-         f"{agree}/{total}")
+    _log(f"kernel vs plain path on the card (kv_quant={quant}, weight_quant="
+         f"{engine.qparams is not None}): max |logit diff| {worst:.4f} (band "
+         f"{LOGITS_BAND}), argmax agreement {agree}/{total}")
     if not worst <= LOGITS_BAND:
         raise AssertionError(f"kernel path logits off by {worst}")
     return kernel_logits
@@ -5373,13 +5413,14 @@ def _bn_held(records, group=None, backend=None):
                 kernel[name].launches = fn.launches
 
 
-def _bn_held_summary(records, norms):
+def _bn_held_summary(records, norms, bwd_norms=None):
     """The held calls of one step (``_bn_held``): the calls a stage
-    (``norms`` each is right), the widths and dtypes seen, the worst of
-    each error, and ``bad``, the calls past their band (relative L2
-    within ``BN_L2_TOL`` of the activation's dtype, the sums and
-    statistics within ``BN_STAT_TOL``) or stages not held ``norms``
-    times."""
+    (``norms`` each is right; the backward's ``bwd_norms`` where it
+    differs), the widths and dtypes seen, the worst of each error, and
+    ``bad``, the calls past their band (relative L2 within ``BN_L2_TOL``
+    of the activation's dtype, the sums and statistics within
+    ``BN_STAT_TOL``) or stages not held as many times as they should
+    be."""
     calls, worst, bad = {}, {}, []
     for r in records:
         calls[r["stage"]] = calls.get(r["stage"], 0) + 1
@@ -5390,9 +5431,10 @@ def _bn_held_summary(records, norms):
             if not err <= band:
                 bad.append(f"{r['stage']} [{r['rows']}, {r['channels']}] "
                            f"{key} {err} (band {band})")
-    bad += [f"{stage} held {calls.get(stage, 0)} times, want {norms}"
-            for stage in ("fwd_stats", "fwd_apply", "bwd_stats", "bwd_apply")
-            if calls.get(stage, 0) != norms]
+    want = {"fwd_stats": norms, "fwd_apply": norms,
+            "bwd_stats": bwd_norms or norms, "bwd_apply": bwd_norms or norms}
+    bad += [f"{stage} held {calls.get(stage, 0)} times, want {n}"
+            for stage, n in want.items() if calls.get(stage, 0) != n]
     return {"calls": calls,
             "channels": sorted({r["channels"] for r in records}),
             "dtypes": sorted({str(r["dtype"]).replace("torch.", "")
@@ -6996,6 +7038,543 @@ def phase_larc(dev, card):
 
 
 # the multi-tensor kernels (K12-K15) by their names in a device trace
+# ------------------------------------------------ K23, weight-quant serving
+
+# GPT-2-small's decode matmuls at ENGINE's 8 slots: (name, K, N, launches
+# a decode step) for qkv, dense, h->4h, 4h->h of each of the 12 layers,
+# and the logits against the padded word table
+QMM_SHAPES = (("qkv", 768, 2304, 12), ("dense", 768, 768, 12),
+              ("h4", 768, 3072, 12), ("4h", 3072, 768, 12),
+              ("logits", 768, 50304, 1))
+# relative L2 of K23 against its plain version: the card tests' bands
+# (tests/port/test_torch_kernels_cuda.py QMM_L2_TOL, set from
+# tests/port/kernel_l2_errors.py)
+QMM_L2_TOL = {torch.bfloat16: 5e-5, torch.float32: 2e-6}
+
+
+def phase_qmatmul_kernel(dev, flush):
+    """K23 at GPT-2-small's five decode shapes (x ``[8, K]`` in bf16 and
+    fp32, int8 weights quantized by ``serving/quant.quantize_weight`` from
+    seeded normal weights, one all-zero row each), held against its plain
+    version by relative L2 (``QMM_L2_TOL``; the zero row's outputs exactly
+    0), two runs the same bits; timed in turns around the library call,
+    cuBLAS ``x @ W_deq.T`` over a weight dequantized once beforehand (the
+    port never calls it), and the plain version; the bound is the bytes
+    (x, the int8 weight, the scales, y), or in fp32 the operations at the
+    CUDA cores' rate if larger. The row's numbers are a bf16 decode
+    step's: 12 x each layer matmul + the logits, 49 launches."""
+    from apex_tpu_torch.ops import qmatmul as qmm
+    from apex_tpu_torch.ops import qmatmul_cuda
+    from apex_tpu_torch.serving import quant
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    by_shape, step = {}, {}
+    worst_abs = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        for name, k, n, per_step in QMM_SHAPES:
+            x = torch.randn(8, k, generator=gen, device=dev).to(dtype)
+            w = torch.randn(n, k, generator=gen, device=dev) * 0.02
+            w[n // 3] = 0.0
+            wq, scale = quant.quantize_weight(w)
+            del w
+            y = qmatmul_cuda.qmatmul(x, wq, scale)
+            ref = qmm.qmatmul_reference(x, wq, scale, dtype)
+            err = _rel_l2(y, ref)
+            if not err <= QMM_L2_TOL[dtype]:
+                raise AssertionError(f"K23 {tag} {name}: relative L2 {err} "
+                                     f"(band {QMM_L2_TOL[dtype]})")
+            if (y[:, n // 3] != 0).any() or not torch.equal(
+                    qmatmul_cuda.qmatmul(x, wq, scale), y):
+                raise AssertionError(f"K23 {tag} {name}: the zero row is "
+                                     f"not 0 or two runs differ")
+            if dtype == torch.bfloat16:
+                worst_abs = max(worst_abs, _max_err(y, ref))
+            w_deq = (wq.float() * scale[:, None]).to(dtype)
+            t = _turns(lambda: qmatmul_cuda.qmatmul(x, wq, scale),
+                       lambda: x @ w_deq.t(), flush, "qmatmul")
+            plain_ms = _time_ms(
+                lambda: qmm.qmatmul_reference(x, wq, scale, dtype), flush,
+                reps=5)
+            isz = x.element_size()
+            nbytes = 8 * k * isz + n * k + 4 * n + 8 * n * isz
+            bound = _bound(nbytes, 2 * 8 * n * k,
+                           BF16_FLOPS_PER_S if dtype == torch.bfloat16
+                           else FP32_FLOPS_PER_S)
+            by_shape[f"{tag} {name} [8, {k}] x [{n}, {k}]"] = {
+                "rel_l2": err, "ms": t["ms"], "ms_turns": t["ms_turns"],
+                "plain_ms": plain_ms, "library_ms": t["library_ms"],
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "bytes": nbytes, "launches_a_decode_step": per_step}
+            acc = step.setdefault(tag, dict.fromkeys(
+                ("ms", "plain_ms", "library_ms", "bound_ms"), 0.0))
+            for key, v in (("ms", t["ms"]), ("plain_ms", plain_ms),
+                           ("library_ms", t["library_ms"]),
+                           ("bound_ms", bound[0])):
+                acc[key] += per_step * v
+            del x, wq, scale, w_deq, y, ref
+    torch.cuda.empty_cache()
+    main = step["bfloat16"]
+    row = dict(name="qmatmul", route="cuda",
+               source="apex_tpu_torch/csrc/qmatmul.cu",
+               replaces="apex_tpu/serving/quant.py:77 (qmatmul, an XLA "
+                        "contraction; no Pallas site)",
+               max_abs_err=worst_abs, ms=main["ms"],
+               plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+               bound_by="bytes", library_ms=main["library_ms"],
+               per="a bf16 decode step of GPT-2-small at 8 slots: 49 "
+                   "launches (12 x qkv, dense, h->4h, 4h->h; the logits)",
+               fp32_decode_step=step["float32"], by_shape=by_shape)
+    _log("K23: " + json.dumps(row))
+    return row
+
+
+def _warmup_requests():
+    """Two requests outside the trace that warm an engine up (cuBLAS
+    handles, the allocator), as phase 4's."""
+    from apex_tpu_torch.serving import Request
+
+    return [Request(rid=10**6, prompt=[7] * 300, max_new_tokens=3),
+            Request(rid=10**6 + 1, prompt=[9] * 40, max_new_tokens=3)]
+
+
+def phase_weight_quant_serving(dev):
+    """``TRACE`` served by the graphed bf16-KV engine at GPT-2-small's
+    width (``MODEL``, ``ENGINE``, weights from torch seed 0) with
+    ``weight_quant=False`` and ``True`` in turns (off, on, on, off): each
+    run's tokens/s, TTFT and TPOT p50/p99 and decode-round ms (the mean of
+    its two turns); in the first turn of each a traced rerun of the trace
+    counts K23 on the device by name, which must be 49 a decode step with
+    the int8 weights (12 layers x 4 + the logits) and 0 without, and at
+    the wrapper (the warm-up and the capture: 2 x 49); the kernel path's
+    decode logits (prefill, then 4 decode steps on the int8 records)
+    against the plain path's (every kernel, K23 included, on its plain
+    version) within ``LOGITS_BAND``."""
+    from apex_tpu_torch.ops import qmatmul_cuda
+    from apex_tpu_torch.serving import (ServingEngine, init_gpt_params,
+                                        lifecycle, synthetic_trace)
+    from apex_tpu_torch.transformer.testing import TransformerConfig
+
+    cfg = TransformerConfig(**MODEL)
+    params = init_gpt_params(cfg, 0, dev)
+    per_step = 4 * cfg.num_layers + 1
+    runs = {False: [], True: []}
+    out = {}
+    for turn, wq in enumerate((False, True, True, False)):
+        qmatmul_cuda.qmatmul.launches = 0
+        engine = ServingEngine(cfg, params, device=dev, weight_quant=wq,
+                               **ENGINE)
+        if engine.weight_quant != wq or (engine.qparams is None) == wq:
+            raise AssertionError(f"weight_quant={wq} did not resolve")
+        engine.run_trace(_warmup_requests())
+        reqs, _ = synthetic_trace(vocab=cfg.vocab_size, **TRACE)
+        base = (engine.decode_steps, engine.tokens_generated)
+        wall, rounds = _drive_trace(engine, reqs)
+        lat = lifecycle.request_latencies(reqs)
+        ttft = [x["ttft_s"] * 1e3 for x in lat if x["ttft_s"] is not None]
+        tpot = [x["tpot_s"] * 1e3 for x in lat if x["tpot_s"] is not None]
+        tokens = engine.tokens_generated - base[1]
+        stats = {"tokens_per_s": tokens / wall, "tokens": tokens,
+                 "dispatches": engine.decode_steps - base[0],
+                 "decode_round_ms": 1e3 * sum(rounds) / max(len(rounds), 1),
+                 "ttft_p50_ms": lifecycle.percentile(ttft, 50),
+                 "ttft_p99_ms": lifecycle.percentile(ttft, 99),
+                 "tpot_p50_ms": lifecycle.percentile(tpot, 50),
+                 "tpot_p99_ms": lifecycle.percentile(tpot, 99)}
+        if turn < 2:
+            traced, (_, t_decodes) = _traced_serve(
+                engine, _offset_rids(synthetic_trace(
+                    vocab=cfg.vocab_size, **TRACE)[0], 3000))
+            want = t_decodes * per_step if wq else 0
+            if traced["qmatmul"] != want:
+                raise AssertionError(
+                    f"weight_quant={wq}: the device ran K23 "
+                    f"{traced['qmatmul']} times, want {want} ({t_decodes} "
+                    f"decode steps x {per_step})")
+            wrapper = qmatmul_cuda.qmatmul.launches
+            if wrapper != (2 * per_step if wq else 0):
+                raise AssertionError(f"weight_quant={wq}: K23's wrapper "
+                                     f"counted {wrapper}")
+            stats["traced_k23"] = traced["qmatmul"]
+            stats["traced_decode_steps"] = t_decodes
+            stats["k23_wrapper_launches"] = wrapper
+            if wq:
+                out["logits"] = phase_paths_agree(engine, dev)
+                out["launches"] = {"qmatmul": wrapper}
+        runs[wq].append(stats)
+        del engine
+        torch.cuda.empty_cache()
+    merged = {}
+    for wq, turns in runs.items():
+        key = "int8 weights" if wq else "bf16 weights"
+        merged[key] = {m: statistics.mean(t[m] for t in turns)
+                       for m in ("tokens_per_s", "decode_round_ms",
+                                 "ttft_p50_ms", "ttft_p99_ms",
+                                 "tpot_p50_ms", "tpot_p99_ms")}
+        merged[key]["turns_tokens_per_s"] = [t["tokens_per_s"]
+                                             for t in turns]
+        merged[key].update({k: turns[0][k] for k in turns[0]
+                            if k.startswith(("traced", "k23"))})
+    out["window"] = merged
+    _log("serving, bf16 vs int8 weights (graphed, bf16 KV, in turns): "
+         + json.dumps(merged))
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------------ DCGAN
+
+# BASELINE config 5, the upstream example's defaults (nz 100, ngf = ndf =
+# 64, 64^2 images, --batchSize 64; opt level O1), synthetic images: 2
+# warm-up and 5 timed steps
+DCGAN = dict(batch=64, nz=100, ngf=64, ndf=64, image=64, lr=2e-4, beta1=0.5,
+             warmup=2, timed=5)
+# fp32 nudge of the images and z that sets the kernel-vs-plain band, and
+# the gradients' floor (relative L2; K17/K18 differ from their plain
+# versions by ~1e-7 in fp32, a wrong kernel by orders more)
+DCGAN_NUDGE = 1e-7
+DCGAN_NUDGES = 4
+DCGAN_GRAD_FLOOR = 1e-5
+
+
+class _DcganArgs:
+    nz, ngf, ndf = DCGAN["nz"], DCGAN["ngf"], DCGAN["ndf"]
+    lr, beta1 = DCGAN["lr"], DCGAN["beta1"]
+
+    def __init__(self, level):
+        self.opt_level = level
+
+
+def _dcgan_setup(dev, level):
+    from apex_tpu_torch.examples import dcgan
+
+    netG, netD, optG, optD = dcgan.build_models(_DcganArgs(level), dev)
+    stG = optG.init(dict(netG.named_parameters()))
+    stD = optD.init(dict(netD.named_parameters()))
+    step = dcgan.build_train_step(netG, netD, optG, optD)
+    return netG, netD, optG, optD, stG, stD, step
+
+
+def _dcgan_batches(dev, steps):
+    """The example's synthetic batches (``np.random.RandomState(0)``: the
+    images, then z, a step), on the card."""
+    rs = np.random.RandomState(0)
+    b, s = DCGAN["batch"], DCGAN["image"]
+    out = []
+    for _ in range(steps):
+        real = (rs.rand(b, s, s, 3) * 2 - 1).astype(np.float32)
+        z = rs.randn(b, 1, 1, DCGAN["nz"]).astype(np.float32)
+        out.append((torch.from_numpy(real).to(dev),
+                    torch.from_numpy(z).to(dev)))
+    return out
+
+
+def _dcgan_state(netG, netD):
+    """Copies of both models' parameters and running stats (a pass changes
+    the running stats)."""
+    return {name: {n: t.detach().clone() for n, t in
+                   itertools.chain(net.named_parameters(),
+                                   net.named_buffers())}
+            for name, net in (("G", netG), ("D", netD))}
+
+
+@torch.no_grad()
+def _dcgan_restore(netG, netD, saved):
+    for net, name in ((netG, "G"), (netD, "D")):
+        for n, t in itertools.chain(net.named_parameters(),
+                                    net.named_buffers()):
+            t.copy_(saved[name][n])
+
+
+def _dcgan_passes(netG, netD, real, z):
+    """One step's three passes without the optimizer, as
+    ``examples/dcgan.build_train_step`` runs them: ``(the three losses
+    summed, the gradients)``, D's the real and fake passes' summed, G's
+    through D with D's stats left alone; fp32."""
+    from apex_tpu_torch.examples import dcgan
+
+    pG = dict(netG.named_parameters())
+    pD = dict(netD.named_parameters())
+    l0 = dcgan.bce_logits(netD(real, train=True), 1.0)
+    g0 = torch.autograd.grad(l0, list(pD.values()))
+    with torch.no_grad():
+        fake = netG(z, train=True)
+    l1 = dcgan.bce_logits(netD(fake, train=True), 0.0)
+    g1 = torch.autograd.grad(l1, list(pD.values()))
+    l2 = dcgan.bce_logits(netD(netG(z, train=True), train=True,
+                               update_stats=False), 1.0)
+    g2 = torch.autograd.grad(l2, list(pG.values()))
+    grads = {f"D.{n}": a.float() + b.float() for n, a, b in zip(pD, g0, g1)}
+    grads.update({f"G.{n}": g.float() for n, g in zip(pG, g2)})
+    return (l0 + l1 + l2).item(), grads
+
+
+def _dcgan_k12_k14_held(netD, optD, stD, real):
+    """K12 (the unscale) and K14 (Adam) held on one D-real pass's real
+    gradients: K12 against ``ops/multi_tensor.scale_reference`` and K14
+    against ``apply_plain`` of ``fused_adam``'s update on copies of the
+    state, each bit for bit."""
+    from apex_tpu_torch.examples import dcgan
+    from apex_tpu_torch.ops import multi_tensor, multi_tensor_cuda
+    from apex_tpu_torch.optimizers._base import apply_plain
+
+    params = dict(netD.named_parameters())
+    scaled = torch.autograd.grad(
+        optD.scale_loss(dcgan.bce_logits(netD(real, train=True), 1.0), stD),
+        list(params.values()))
+    scaled = [g.contiguous() for g in scaled]
+    inv = 1.0 / stD.scalers[0].loss_scale
+    fp32 = [torch.float32] * len(scaled)
+    got, flag_k = multi_tensor_cuda.scale(scaled, fp32, inv, True,
+                                          torch.bool)
+    want, flag_p = multi_tensor.scale_reference(scaled, fp32, inv, True,
+                                                torch.bool)
+    k12 = all(_same_bits(a, b) for a, b in zip(got, want)) and bool(
+        flag_k.item()) == bool(flag_p.item())
+    grads = dict(zip(params, got))
+    tx = optD.tx
+    pk = {n: (stD.master_params or params)[n].detach().float().clone()
+          for n in params}
+    pp = {n: t.clone() for n, t in pk.items()}
+    sk, sp = tx.init(pk), tx.init(pp)
+    no = torch.tensor(False, device=real.device)
+    tx.step(grads, sk, pk, no)
+    apply_plain(tx.update, grads, sp, pp, no)
+    k14 = (all(_same_bits(pk[n], pp[n]) for n in pk)
+           and all(_same_bits(sk.m[n], sp.m[n]) and _same_bits(sk.v[n],
+                                                               sp.v[n])
+                   for n in pk))
+    return {"k12_bitwise": k12, "k14_bitwise": k14, "leaves": len(grads)}
+
+
+def phase_dcgan(dev, card, level):
+    """DCGAN (BASELINE config 5: ``DCGAN``, the upstream example's
+    defaults) trained by ``examples/dcgan.build_train_step`` under amp
+    ``level``: the three-loss step, two Adams on K14 through
+    ``amp.initialize(..., num_losses=3)``, the unscales on K12, 4 batch
+    norms a G pass and 3 a D pass on K17/K18. 2 warm-up and 5 timed steps
+    (host clock ending in ``synchronize``): step ms, images/s, peak
+    memory, the losses; the launches a step. One more step with every
+    K17/K18 call held against its plain version on its own activations
+    (``_bn_held``), and K12 and K14 held bit for bit on real gradients
+    (``_dcgan_k12_k14_held``). Then one step's three passes from the same
+    state through the kernel path and the plain path (K17/K18 on their
+    plain versions; ``_dcgan_passes``): the losses, and under O1 the
+    gradients (the model's relative L2 and the worst tensor's), each
+    within the larger of its floor (1e-6 of the losses, ``DCGAN_GRAD_FLOOR``)
+    and twice the farthest the kernel path itself moves over
+    ``DCGAN_NUDGES`` draws of the images and z moved by ``DCGAN_NUDGE``
+    relative (``_held``). Last a profiled two-step
+    window."""
+    t0 = time.perf_counter()
+    netG, netD, optG, optD, stG, stD, step = _dcgan_setup(dev, level)
+    batches = _dcgan_batches(dev, DCGAN["warmup"] + DCGAN["timed"] + 1)
+    n_params = sum(p.numel() for net in (netG, netD)
+                   for p in net.parameters())
+    _log(f"DCGAN ({level}) built in {time.perf_counter() - t0:.2f} s: "
+         f"{n_params} parameters")
+    losses = []
+    for real, z in batches[:DCGAN["warmup"]]:
+        stG, stD, lv = step(stG, stD, real, z)
+        losses.append(lv)
+    torch.cuda.synchronize()
+    counts = _training_counts()
+    for fn in counts.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for real, z in batches[DCGAN["warmup"]:-1]:
+        stG, stD, lv = step(stG, stD, real, z)
+        losses.append(lv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counts.items()}
+    vals = [x.tolist() for x in losses]
+    step_ms = wall / DCGAN["timed"] * 1e3
+    stats = {"card": card, "opt_level": level, "batch": DCGAN["batch"],
+             "image": DCGAN["image"], "n_params": n_params,
+             "param_dtypes": sorted({str(p.dtype).replace("torch.", "")
+                                     for net in (netG, netD)
+                                     for p in net.parameters()}),
+             "step_ms": step_ms,
+             "images_per_s": DCGAN["batch"] / (step_ms / 1e3),
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "losses_d_g": vals,
+             "launches_per_step": {k: v / DCGAN["timed"]
+                                   for k, v in launches.items() if v}}
+    _log(f"DCGAN {level}: " + json.dumps(stats))
+    if not np.isfinite(vals).all():
+        raise AssertionError(f"DCGAN {level}: losses not finite: {vals}")
+    # a step's norms: forward, D on the real and the fake batch, G for the
+    # fake, G and D in the G step (3 + 4 + 3 + 4 + 3); backward, D twice
+    # and the G step's D and G (3 + 3 + 3 + 4)
+    norms_fwd, norms_bwd = 17, 13
+    want = {"batch_norm_fwd_stats": norms_fwd,
+            "batch_norm_fwd_apply": norms_fwd,
+            "batch_norm_bwd_stats": norms_bwd,
+            "batch_norm_bwd_apply": norms_bwd,
+            "multi_tensor_adam": 2, "multi_tensor_scale": None}
+    for k, per in want.items():
+        got = launches[k] / DCGAN["timed"]
+        if (per is None and got < 3) or (per is not None and got != per):
+            raise AssertionError(f"DCGAN {level}: {k} launched {got} times "
+                                 f"a step, want {per or 'at least 3'}")
+    records = []
+    real, z = batches[-1]
+    with _bn_held(records):
+        stG, stD, _ = step(stG, stD, real, z)
+    held = _bn_held_summary(records, norms_fwd, norms_bwd)
+    stats["batch_norm_held"] = held
+    _log(f"DCGAN {level}, each K17/K18 call of one step against its plain "
+         f"version: " + json.dumps(held))
+    if held["bad"]:
+        raise AssertionError(f"DCGAN {level}: K17/K18 past their bands: "
+                             f"{held['bad'][:8]}")
+    mt = _dcgan_k12_k14_held(netD, optD, stD, real)
+    stats["k12_k14_held"] = mt
+    _log(f"DCGAN {level}, K12 and K14 on real gradients: " + json.dumps(mt))
+    if not (mt["k12_bitwise"] and mt["k14_bitwise"]):
+        raise AssertionError(f"DCGAN {level}: K12/K14 differ from their "
+                             f"plain versions: {mt}")
+
+    # kernel path vs plain path on one step's three passes from the same
+    # state: the losses and the gradients, taken before Adam (whose early
+    # steps move an element by ~lr whatever its gradient's size), held by
+    # _held: each within the larger of its floor and twice the kernel
+    # path's farthest own move when the images and z move by DCGAN_NUDGE
+    # (DCGAN_NUDGES draws: at flax's init one draw moves the gradients as
+    # far as the plain path does, ~1e-4 relative L2); under O2
+    # the losses alone (a bf16 parameter's gradient is rounded to bf16), as
+    # ResNet's O2 is held
+    saved = _dcgan_state(netG, netD)
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def nudge(t):
+        return t * (1 + DCGAN_NUDGE * torch.randn(t.shape, generator=gen,
+                                                  device=dev))
+
+    def passes(r, zz):
+        _dcgan_restore(netG, netD, saved)
+        return _dcgan_passes(netG, netD, r, zz)
+
+    kernel = passes(real, z)
+    moves = [_distances(passes(nudge(real), nudge(z)), kernel)
+             for _ in range(DCGAN_NUDGES)]
+    noise = tuple(max(m[i] for m in moves) for i in range(3))
+    with _plain_path(_resnet_plain_patches(bn_only=True)):
+        plain = passes(real, z)
+    judged = 3 if level == "O1" else 1
+    floors = (1e-6 * max(1.0, abs(kernel[0])), DCGAN_GRAD_FLOOR,
+              DCGAN_GRAD_FLOOR)
+    stats["paths_agree"] = _held(
+        f"DCGAN {level}, kernel vs plain path (one step's passes, b = "
+        f"{DCGAN['batch']})", _distances(kernel, plain)[:judged],
+        noise[:judged], floors[:judged])
+    _dcgan_restore(netG, netD, saved)
+
+    def two_steps():
+        nonlocal stG, stD
+        for _ in range(2):
+            stG, stD, _ = step(stG, stD, real, z)
+
+    stats["profile"] = _profile(two_steps, ("conv", "batch_norm",
+                                            "elementwise", "optimizer",
+                                            "other"))
+    del netG, netD, optG, optD, stG, stD, step, batches, saved
+    torch.cuda.empty_cache()
+    return _with_totals(launches), stats
+
+
+# ------------------------------------------------------- ImageNet --resume
+
+# resnet18 at width 16, 64^2 images, b = 8, 3 steps an epoch, 10 classes
+IMAGENET_RESUME = ["--synthetic", "--arch", "resnet18", "--num-filters",
+                   "16", "-b", "8", "--steps", "3", "--image-size", "64",
+                   "--num-classes", "10", "--deterministic",
+                   "--print-freq", "100", "--opt-level", "O2"]
+
+
+def _resume_state(path):
+    """A checkpoint's tensors by name: the parameters, the running stats,
+    the masters, the SGD state, the scalers."""
+    rec = torch.load(path, weights_only=False)
+    flat = {f"params/{k}": v for k, v in rec["params"].items()}
+    flat.update({f"stats/{k}": v for k, v in rec["batch_stats"].items()})
+    st = rec["amp_state"]
+    flat.update({f"master/{k}": v for k, v in
+                 (st.master_params or {}).items()})
+    flat.update({f"buf/{k}": v for k, v in
+                 st.inner.momentum_buf.items()})
+    flat["count"] = st.inner.count
+    for i, s in enumerate(st.scalers):
+        flat[f"scaler{i}"] = torch.stack([s.loss_scale,
+                                          s.unskipped.float()])
+    return rec["epoch"], flat
+
+
+def phase_imagenet_resume(dev):
+    """The ImageNet example's ``--resume`` on the card (``IMAGENET_RESUME``):
+    two epochs straight, twice, and one epoch then a resumed second; the
+    final checkpoints' parameters, running stats, masters, SGD state and
+    scalers compared bit for bit. ``--deterministic`` sets cuDNN's
+    deterministic algorithms; where the two straight runs still differ,
+    the resumed run is held within 10 x their distance instead, and the
+    log says so."""
+    import tempfile
+
+    from apex_tpu_torch.examples import imagenet
+
+    from apex_tpu_torch.ops import _build
+
+    with tempfile.TemporaryDirectory(dir=str(_build.BUILD_DIR.parent)) as tmp:
+        paths = {k: os.path.join(tmp, f"{k}.pt")
+                 for k in ("a", "a2", "resumed")}
+        t0 = time.perf_counter()
+        for k in ("a", "a2"):
+            imagenet.main(IMAGENET_RESUME + ["--epochs", "2",
+                                             "--checkpoint", paths[k]])
+        imagenet.main(IMAGENET_RESUME + ["--epochs", "1", "--checkpoint",
+                                         paths["resumed"]])
+        imagenet.main(IMAGENET_RESUME + ["--epochs", "2", "--resume",
+                                         paths["resumed"], "--checkpoint",
+                                         paths["resumed"]])
+        seconds = time.perf_counter() - t0
+        states = {k: _resume_state(p) for k, p in paths.items()}
+    if any(e != 2 for e, _ in states.values()):
+        raise AssertionError(f"checkpoint epochs {states}")
+    a, a2, r = (states[k][1] for k in ("a", "a2", "resumed"))
+
+    def differ(x, y):
+        return sorted(k for k in x if not _same_bits(x[k], y[k]))
+
+    def rel(x, y):
+        num = sum(((x[k].float() - y[k].float()) ** 2).sum() for k in x)
+        den = sum((y[k].float() ** 2).sum() for k in y)
+        return (num / den).sqrt().item()
+
+    out = {"tensors": len(a), "seconds": seconds,
+           "straight_runs_differ": differ(a, a2)[:5],
+           "resumed_differs": differ(r, a)[:5],
+           "cudnn_deterministic": torch.backends.cudnn.deterministic}
+    if not out["straight_runs_differ"]:
+        out["bit_equal"] = not out["resumed_differs"]
+        if not out["bit_equal"]:
+            raise AssertionError(f"--resume is not bit-equal to straight "
+                                 f"training: {out}")
+    else:
+        out["bit_equal"] = False
+        out["straight_rel_l2"] = rel(a2, a)
+        out["resumed_rel_l2"] = rel(r, a)
+        if not out["resumed_rel_l2"] <= 10 * out["straight_rel_l2"]:
+            raise AssertionError(f"--resume outside the band: {out}")
+    _log("ImageNet --resume (resnet18 at width 16, 3 steps an epoch, O2): "
+         + json.dumps(out))
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = False
+    return out
+
+
 MT_KERNEL = re.compile(r"\b(scale|axpby|norm_partials|norm_reduce|adam|"
                        r"lamb_stage[12]|zero_adam|zero_lamb_stage[12]|"
                        r"zero_lamb_segments)_kernel\b")
@@ -7238,6 +7817,8 @@ def main():
         # the seconds since the previous mark, under the phase's name
         now = time.perf_counter()
         phase_s[name] = phase_s.get(name, 0.0) + now - last[0]
+        _log(f"phase done: {name}, {now - last[0]:.1f} s (wall "
+             f"{now - t_start:.1f} s)")
         last[0] = now
 
     mark("device")
@@ -7298,7 +7879,10 @@ def main():
     # GPT-2-small's shard, K22 on BERT-large's
     rows += phase_scale_out_kernels(dev, flush)
     torch.cuda.empty_cache()
-    mark("kernels: K19-K22")
+    # the W8A16 decode matmul at GPT-2-small's five decode shapes
+    rows.append(phase_qmatmul_kernel(dev, flush))
+    torch.cuda.empty_cache()
+    mark("kernels: K19-K23")
     # ResNet-50's kernels: K17/K18 at its batch-norm shapes, K16 on its
     # 161 leaves (the ResNet phases' seconds are logged against the ~120 s
     # they were given)
@@ -7350,15 +7934,25 @@ def main():
     _log("serving, bf16 vs int8 KV cache: " + json.dumps(side))
     if not serving[True]["cache_bytes"] < serving[False]["cache_bytes"]:
         raise AssertionError("the int8 cache is not smaller")
+    mark("serving")
     # the decode program's variants: eager and graphed K = 1, graphed K = 4,
     # greedy and sampled, over bf16 and int8 pages, in turns
     torch.cuda.empty_cache()
     variants = phase_serving_variants(dev)
+    mark("serving variants")
     graphed = {key: {m: runs["graphed K=1"][m] / runs["eager K=1"][m]
                      for m in ("tokens_per_s", "decode_round_ms")}
                for key, runs in variants["variants"].items()}
     _log("graphed K=1 over eager K=1 (tokens/s, decode-round ms): "
          + json.dumps(graphed))
+    # int8 weights on the graphed bf16-KV engine, against bf16 weights, in
+    # turns: K23 49 times a decode step
+    torch.cuda.empty_cache()
+    weight_quant = phase_weight_quant_serving(dev)
+    launches_by["serving_weight_quant"] = weight_quant["launches"]
+    traced_by["serving_weight_quant"] = {
+        "qmatmul": weight_quant["window"]["int8 weights"]["traced_k23"]}
+    mark("serving, int8 weights")
     # PyTorch keeps a cuBLAS workspace for every stream a matmul ran on, and
     # each graphed engine captured on a stream of its own: release them, so
     # that the training windows' peak memory is their own
@@ -7370,7 +7964,7 @@ def main():
         clear()
     del flush, logits
     torch.cuda.empty_cache()
-    mark("serving")
+    mark("serving, int8 weights")
 
     # the materialized head, then the fused one (this slice's main path),
     # each window on its own so that its peak memory is its own
@@ -7506,6 +8100,20 @@ def main():
                for r in resnet_ddp["ranks"]}}}))
 
     mark("ResNet-50, R-DDP and R-DDP-int8")
+    # DCGAN (BASELINE config 5) at the upstream defaults under O1 and O2,
+    # then the ImageNet example's --resume
+    torch.cuda.empty_cache()
+    dcgan = {}
+    for level in ("O1", "O2"):
+        launches_by[f"dcgan_{level.lower()}"], dcgan[level] = phase_dcgan(
+            dev, smi, level)
+    side = {k: {level: dcgan[level][k] for level in dcgan}
+            for k in ("step_ms", "images_per_s", "peak_mem_gb")}
+    _log("DCGAN, O1 vs O2: " + json.dumps(side))
+    mark("DCGAN")
+    phase_imagenet_resume(dev)
+    torch.cuda.empty_cache()
+    mark("ImageNet --resume")
     # GPT-3 2.7B's widths (head dim 80: the attention kernels zero-pad it
     # to 128), serving and a training step, kernel vs plain
     torch.cuda.empty_cache()
@@ -7581,7 +8189,8 @@ def main():
                 "collectives_quantize": "zero_bert",
                 "collectives_dequantize_sum": "zero_bert",
                 "multi_tensor_zero_lamb": "zero_bert",
-                "multi_tensor_zero_adam": "zero_gpt"}.get(
+                "multi_tensor_zero_adam": "zero_gpt",
+                "qmatmul": "serving_weight_quant"}.get(
             name, "training_dropout" if name.endswith("_dropout")
             else "training_fused")
         row["launches"] = by_path.get(main, by_path.get("serving", 0))

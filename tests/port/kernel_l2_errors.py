@@ -31,6 +31,8 @@ and without the fused ReLU, per dtype. Then K22 (the ZeRO LAMB shard
 update) on the card tests' layouts (``LAMB_LAYOUTS``, with and without
 weight decay): the update's relative L2 and the segment sums' error over
 their largest magnitude against the plain version (``MT_LAMB_TOL``).
+Last, K23 (the W8A16 decode matmul) by relative L2 at GPT-2-small's
+decode shapes and the card tests' edges, per dtype (``QMM_L2_TOL``).
 Needs a CUDA card:
 
     python3 tests/port/kernel_l2_errors.py
@@ -396,6 +398,15 @@ def main():
                   f"{upd:.3e}, sums {serr:.3e}")
             note("K22 update", torch.float32, upd)
             note("K22 sums", torch.float32, serr)
+    from apex_tpu_torch.ops import qmatmul
+
+    for dtype, (tdt, _) in sorted(cases.DTYPES.items()):
+        for shape in cases.QMM_DECODE_SHAPES + cases.QMM_EDGE_SHAPES:
+            x, wq, scale = cases._qmm_case(dev, tdt, *shape)
+            err = _l2(qmatmul.qmatmul(x, wq, scale, tdt),
+                      qmatmul.qmatmul_reference(x, wq, scale, tdt))
+            print(f"K23 {dtype} {shape}: {err:.3e}")
+            note("K23", dtype, err)
     for (kernel, dtype), value in sorted(worst.items()):
         print(f"worst {kernel} {dtype}: {value:.3e}")
 

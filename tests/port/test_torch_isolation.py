@@ -107,6 +107,13 @@ def test_importing_the_port_loads_no_jax_and_no_apex_tpu():
                 "apex_tpu_torch.fp16_utils.fp16util",
                 "apex_tpu_torch.fp16_utils.loss_scaler",
                 "apex_tpu_torch.fp16_utils.fp16_optimizer",
+                "apex_tpu_torch.serving.quant",
+                "apex_tpu_torch.ops.qmatmul",
+                "apex_tpu_torch.ops.qmatmul_cuda",
+                "apex_tpu_torch.models.dcgan",
+                "apex_tpu_torch.examples.dcgan",
+                "apex_tpu_torch.data",
+                "apex_tpu_torch.data.imagefolder",
                 "tests.port.tp_workers", "tests.port.ddp_workers",
                 "tests.port.zero_workers"):
         assert mod in mods, mod
@@ -342,3 +349,37 @@ def test_resnet_slice_entry_points_default_to_cuda(monkeypatch):
     state, metrics, overflow = step(state, torch.rand(2, 3, 32, 32),
                                     torch.tensor([1, 2]))
     assert torch.isfinite(metrics).all() and not overflow.item()
+
+
+def test_quant_dcgan_data_slice_entry_points_default_to_cuda(monkeypatch):
+    """The DCGAN models and example, and a weight-quant engine, are built
+    on ``cuda`` unless ``device="cpu"`` is asked for; on the CPU K23's
+    wrapper refuses CPU tensors (its plain version runs there through
+    ``ops/qmatmul``), and a DCGAN step runs."""
+    from apex_tpu_torch.examples import dcgan
+    from apex_tpu_torch.models import Discriminator, Generator
+    from apex_tpu_torch.ops import qmatmul, qmatmul_cuda
+    from apex_tpu_torch.serving import ServingEngine
+    from apex_tpu_torch.transformer.testing import TransformerConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TransformerConfig(hidden_size=64, num_layers=1,
+                            num_attention_heads=4, vocab_size=64,
+                            max_position_embeddings=32, hidden_dropout=0.0,
+                            attention_dropout=0.0,
+                            apply_query_key_layer_scaling=False)
+    for build in (lambda: Generator(ngf=8), lambda: Discriminator(ndf=8),
+                  lambda: ServingEngine(cfg, weight_quant=True),
+                  lambda: dcgan.main(["--steps", "1", "-b", "2"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+    x = torch.ones(2, 32)
+    wq = torch.ones(4, 32, dtype=torch.int8)
+    scale = torch.ones(4)
+    with pytest.raises(ValueError, match="contiguous"):
+        qmatmul_cuda.qmatmul(x, wq, scale)
+    assert qmatmul_cuda.qmatmul.launches == 0
+    assert torch.equal(qmatmul.qmatmul(x, wq, scale, torch.float32),
+                       torch.full((2, 4), 32.0))
+    assert dcgan.main(["--steps", "1", "-b", "2", "--ngf", "4", "--ndf",
+                       "4", "--device", "cpu"]) is not None

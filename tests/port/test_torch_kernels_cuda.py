@@ -85,7 +85,14 @@ writing nothing of the state; K22 (the ZeRO LAMB shard update) against
 its plain version, the moments and direction bit for bit, the segment
 sums and the update within ``MT_LAMB_TOL`` relative, on a layout with
 the padding segment and a tensor straddling the shard boundary; and the
-ZeRO transforms and the codec launching them once a step on one rank.
+ZeRO transforms and the codec launching them once a step on one rank;
+K23 (the W8A16 decode matmul) against its plain version at GPT-2-small's
+five decode shapes at 8 rows and at edges (one row, partial and several
+8-row tiles, N past a 32-channel block, K of one 16-byte vector and past
+a 512-column chunk, all-zero weight rows), two runs equal bit for bit,
+its wrapper refusing what it does not take, and a weight-quant engine
+launching it 4 x layers + 1 times a decode call, its graphed tokens the
+eager ones.
 
 Marked ``cuda``: each test needs a card and skips without one. This
 file imports neither JAX nor the JAX package, so it runs on a GPU
@@ -2656,3 +2663,107 @@ def test_zero_transforms_and_codec_launch_their_kernels(dev):
                                          ef_state=ef)
     assert [f.launches - b for f, b in zip(fns, before)] == [1, 1, 0, 0, 0]
     assert out["a"].dtype == torch.float32 and ef.is_cuda
+
+
+# ------------------------------------------------------------ K23
+
+from apex_tpu_torch.ops import qmatmul as qmm  # noqa: E402
+from apex_tpu_torch.ops import qmatmul_cuda  # noqa: E402
+from apex_tpu_torch.serving import quant  # noqa: E402
+
+# relative L2 of K23's output against the plain version (the same fp32
+# products summed in another order, then one rounding to the dtype, where
+# a sum near a rounding boundary may round the other way); on an H100
+# (tests/port/kernel_l2_errors.py) these cases measured at most 8.9e-6
+# (bf16), 6.4e-6 (fp16) and 3.7e-7 (fp32), and the smoke's GPT-2-small
+# shapes 1.7e-5 (bf16, the logits)
+QMM_L2_TOL = {"bfloat16": 5e-5, "float16": 5e-5, "float32": 2e-6}
+# [B, K, N]: GPT-2-small's decode matmuls at 8 slots (qkv, dense, h->4h,
+# 4h->h, the logits), then edges
+QMM_DECODE_SHAPES = [(8, 768, 2304), (8, 768, 768), (8, 768, 3072),
+                     (8, 3072, 768), (8, 768, 50304)]
+QMM_EDGE_SHAPES = [(1, 768, 768), (3, 16, 100), (9, 528, 33),
+                   (17, 1040, 70), (16, 64, 32), (5, 4096, 4000)]
+
+
+def _qmm_case(dev, dtype, b, k, n, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, k, generator=gen, device=dev).to(dtype)
+    w = torch.randn(n, k, generator=gen, device=dev) * 0.05
+    w[n // 2] = 0.0                       # an all-zero row: scale 0
+    wq, scale = quant.quantize_weight(w)
+    return x, wq, scale
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", QMM_DECODE_SHAPES + QMM_EDGE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_qmatmul_kernel_matches_plain(dev, dtype, shape):
+    tdt = DTYPES[dtype][0]
+    x, wq, scale = _qmm_case(dev, tdt, *shape)
+    before = qmatmul_cuda.qmatmul.launches
+    y = qmm.qmatmul(x, wq, scale, tdt)
+    assert qmatmul_cuda.qmatmul.launches == before + 1
+    ref = qmm.qmatmul_reference(x, wq, scale, tdt)
+    assert y.dtype == tdt and y.shape == ref.shape
+    assert torch.isfinite(y).all()
+    assert (y[:, shape[2] // 2] == 0).all()
+    err = ((y.float() - ref.float()).norm() / ref.float().norm()).item()
+    assert err <= QMM_L2_TOL[dtype], err
+    assert torch.equal(qmm.qmatmul(x, wq, scale, tdt), y)
+
+
+def test_qmatmul_flattens_leading_axes_and_casts_to_the_compute_dtype(dev):
+    x, wq, scale = _qmm_case(dev, torch.float32, 6, 96, 40)
+    y = qmm.qmatmul(x.view(2, 3, 96), wq, scale, torch.bfloat16)
+    assert y.shape == (2, 3, 40) and y.dtype == torch.bfloat16
+    ref = qmm.qmatmul_reference(x, wq, scale, torch.bfloat16)
+    err = ((y.view(6, 40).float() - ref.float()).norm()
+           / ref.float().norm()).item()
+    assert err <= QMM_L2_TOL["bfloat16"]
+
+
+def test_qmatmul_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    x, wq, scale = _qmm_case(dev, torch.bfloat16, 4, 64, 32)
+    bad = [
+        (x[:, :40].contiguous(), wq[:, :40].contiguous(), scale),  # K % 16
+        (x, wq.float(), scale),                       # not int8
+        (x, wq, scale.to(torch.bfloat16)),            # scale not fp32
+        (x, wq, scale[:16]),                          # shapes disagree
+        (x.t(), wq, scale),                           # not contiguous
+        (x.cpu(), wq, scale),                         # another device
+        (x[None], wq, scale),                         # not 2-D
+    ]
+    ragged = torch.empty(32 * 64 + 1, dtype=torch.int8, device=dev)
+    bad.append((x, ragged[1:].view(32, 64), scale))   # wq off 16 bytes
+    before = qmatmul_cuda.qmatmul.launches
+    for args in bad:
+        with pytest.raises(ValueError):
+            qmatmul_cuda.qmatmul(*args)
+    assert qmatmul_cuda.qmatmul.launches == before
+
+
+def test_weight_quant_engine_launches_k23_and_graphs_its_tokens(dev):
+    cfg = TransformerConfig(
+        hidden_size=64, num_layers=2, num_attention_heads=4, vocab_size=128,
+        max_position_embeddings=64, hidden_dropout=0.0,
+        attention_dropout=0.0, apply_query_key_layer_scaling=False,
+        bf16=True)
+    params = init_gpt_params(cfg, 0, dev)
+    kw = dict(num_slots=4, page_size=16, num_pages=24, max_seq=64,
+              prefill_len=64, prefill_requests=1, device=dev)
+    tokens = {}
+    for graph in (False, True):
+        qmatmul_cuda.qmatmul.launches = 0
+        eng = ServingEngine(cfg, params, weight_quant=True, cuda_graph=graph,
+                            **kw)
+        assert eng.qparams is not None
+        reqs, _ = synthetic_trace(seed=4, n_requests=6, vocab=128,
+                                  prompt_lo=3, prompt_hi=20, new_lo=2,
+                                  new_hi=12)
+        tokens[graph] = {r.rid: list(r.out_tokens)
+                         for r in eng.run_trace(reqs)}
+        calls = 2 if graph else eng.decode_steps
+        assert qmatmul_cuda.qmatmul.launches == calls * (
+            4 * cfg.num_layers + 1)
+    assert tokens[True] == tokens[False]
