@@ -2,16 +2,21 @@
 K23 :func:`qmatmul`. It replaces no Pallas site: the JAX package
 contracts the int8 weight in XLA (``apex_tpu/serving/quant.py:77``); the
 source's header says what bounds it (bytes) and how the design answers
-that.
+that. :func:`plan` picks the launch: the tensor-core body for bf16 and
+fp16 x, with its n-tiles and its split of K over a block's warps and a
+cluster's blocks, or the CUDA-core body for fp32 x.
 
-The wrapper checks its inputs and raises on anything the kernel does not
-take, allocates the output, launches on PyTorch's current stream without
-synchronising, raises on a refused launch, and counts each launch in
-``qmatmul.launches`` (a plain int; a caller resets it to 0 before the run
-it wants to read). The plain version is ``ops/qmatmul.qmatmul_reference``.
+The wrapper checks its inputs and the plan and raises on anything the
+kernel does not take, allocates the output, launches on PyTorch's
+current stream without synchronising, raises on a refused launch, and
+counts each launch in ``qmatmul.launches`` (a plain int; a caller resets
+it to 0 before the run it wants to read). The plain version is
+``ops/qmatmul.qmatmul_reference``.
 """
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -21,11 +26,97 @@ _NAME = "qmatmul"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "qmatmul_w8a16": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    "qmatmul_w8a16": ([_P, _P, _P, _P] + [_I] * 10 + [_P], _I),
     "qmatmul_error_string": ([_I], ctypes.c_char_p),
 }
-VEC = 16          # csrc/qmatmul.cu VEC: K is a multiple of it
-MAX_ROWS = 65535 * 8
+# csrc/qmatmul.cu's constants
+STEP = 16         # K is a multiple of it (one mma's k)
+CHUNK = 64        # K columns a chunk of the tensor-core body
+TILE_N = 16       # output channels a warp (tc) / a block (simt)
+TILE_B = 8        # x rows an n-tile (tc) / a block (simt)
+MAX_NT = 4        # n-tiles a warp
+SPLITS = (1, 2, 4)
+MAX_CLUSTER = 8
+MAX_GRID_YZ = 65535
+MAX_ROWS = MAX_GRID_YZ * TILE_B
+BODIES = {"tc": 0, "simt": 1}
+# warps a plan aims to have on each SM: enough that a layer matrix of a few
+# MB is in flight at once (csrc/qmatmul.cu's header says how it was set)
+WARPS_PER_SM = 8
+
+
+def max_depth(nt):
+    """The most chunks a lane of the tensor-core body keeps in flight at
+    ``nt`` n-tiles (its instantiations: 4 at 1-2, 2 at 3-4)."""
+    return 4 if nt <= 2 else 2
+
+
+class Plan(NamedTuple):
+    """A launch of K23: ``body`` "tc" (bf16/fp16 x) or "simt" (fp32 x);
+    for tc, ``nt`` n-tiles of 8 x rows a warp, ``split`` pieces of K a
+    block (a block then takes ``4 // split`` channel tiles),
+    ``cluster`` blocks a cluster, each with ``split`` more pieces, and
+    ``depth`` chunks of weights and x a lane keeps in flight (2, or 4 at
+    1-2 n-tiles); simt is 1, 1, 1, 1 (it loads one chunk ahead)."""
+    body: str
+    nt: int = 1
+    split: int = 1
+    cluster: int = 1
+    depth: int = 1
+
+
+def plan(B, N, K, dtype, sm_count):
+    """The launch of K23 for ``x [B, K] @ wq [N, K]^T`` on a card of
+    ``sm_count`` SMs. fp32 x takes the CUDA-core body (the tensor cores
+    would round x to TF32). bf16 and fp16 take the tensor-core body:
+    ``nt`` the fewest n-tiles that hold B rows (at most 4, then groups of
+    32 rows). Where the channel tiles alone give fewer than
+    ``WARPS_PER_SM`` warps an SM, K is split over a block's warps (up to 4
+    pieces, at most one a 64-column chunk), and over a cluster's blocks
+    only as far as that leaves each warp no more chunks than it can keep in
+    flight: on an H100 a cluster's launch and combine cost more than they
+    save at GPT-2-small's K = 768 (they pay at its 3072). Where the tiles
+    fill the card (the logits), one piece a tile. ``depth`` 4 where a
+    warp's piece fits in it, else 2 (fewer registers, more blocks an SM:
+    the logits' 786 blocks then fit the card at once)."""
+    if dtype == torch.float32:
+        return Plan("simt")
+    if dtype not in (torch.bfloat16, torch.float16):
+        raise ValueError(f"qmatmul: dtype {dtype} (want bf16/fp16/fp32)")
+    nt = min(MAX_NT, -(-B // TILE_B))
+    units = -(-N // TILE_N) * -(-B // (TILE_B * nt))
+    chunks = max(1, K // CHUNK)
+    want = -(-WARPS_PER_SM * sm_count // units)
+    split = max(s for s in SPLITS if s <= min(want, chunks))
+    cluster = min(MAX_CLUSTER, -(-want // split), chunks // split,
+                  -(-chunks // (split * max_depth(nt))))
+    per_warp = -(-chunks // (split * cluster))
+    depth = 4 if max_depth(nt) == 4 and per_warp <= 4 else 2
+    return Plan("tc", nt, split, cluster, depth)
+
+
+def check_plan(p, B, K, dtype, x_ptr=0):
+    """Raise ``ValueError`` on a plan the C entry refuses (its
+    ``plan_ok``)."""
+    if p.body == "tc":
+        ok = (dtype in (torch.bfloat16, torch.float16) and x_ptr % 16 == 0
+              and 1 <= p.nt <= MAX_NT and p.split in SPLITS
+              and 1 <= p.cluster <= MAX_CLUSTER
+              and p.split * p.cluster <= max(1, K // CHUNK)
+              and p.depth in (2, max_depth(p.nt))
+              and -(-B // (TILE_B * p.nt)) <= MAX_GRID_YZ)
+    else:
+        ok = (p.body == "simt" and dtype == torch.float32
+              and (p.nt, p.split, p.cluster, p.depth) == (1, 1, 1, 1)
+              and -(-B // TILE_B) <= MAX_GRID_YZ)
+    if not ok:
+        raise ValueError(f"qmatmul: the kernel does not take {p} for x "
+                         f"[{B}, {K}] {dtype}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def qmatmul(x, wq, scale):
@@ -33,7 +124,7 @@ def qmatmul(x, wq, scale):
     ``x``'s dtype (bf16, fp16 or fp32), accumulated in fp32, the scale on
     the fp32 output columns, one rounding. ``wq`` int8 with K a multiple of
     16 and 16-byte aligned, ``scale`` fp32; all contiguous on one CUDA
-    device."""
+    device, on the launch :func:`plan` picks."""
     name = "qmatmul"
     if x.dim() != 2 or wq.dim() != 2 or scale.dim() != 1:
         raise ValueError(f"{name}: want x [B, K], wq [N, K], scale [N]; got "
@@ -52,14 +143,19 @@ def qmatmul(x, wq, scale):
     if wq.shape[1] != K or scale.shape[0] != N:
         raise ValueError(f"{name}: x {tuple(x.shape)}, wq {tuple(wq.shape)} "
                          f"and scale {tuple(scale.shape)} do not agree")
-    if K % VEC or wq.data_ptr() % 16 or not 0 < B <= MAX_ROWS or N < 1:
-        raise ValueError(f"{name}: the kernel takes K a multiple of {VEC}, "
+    if K % STEP or wq.data_ptr() % 16 or not 0 < B <= MAX_ROWS or N < 1:
+        raise ValueError(f"{name}: the kernel takes K a multiple of {STEP}, "
                          f"a 16-byte aligned wq and 1 to {MAX_ROWS} rows; got "
                          f"K {K}, B {B}, wq at {wq.data_ptr():#x}")
+    p = plan(B, N, K, x.dtype, _sm_count(dev.index))
+    if p.body == "tc" and x.data_ptr() % 16:
+        x = x.clone()     # the tc body reads x in 16-byte vectors
+    check_plan(p, B, K, x.dtype, x.data_ptr())
     y = torch.empty((B, N), dtype=x.dtype, device=dev)
     _build.launch(_NAME, _SIGNATURES, "qmatmul_w8a16", dev, x.data_ptr(),
                   wq.data_ptr(), scale.data_ptr(), y.data_ptr(), B, N, K,
-                  _build.DTYPE_CODES[x.dtype])
+                  _build.DTYPE_CODES[x.dtype], BODIES[p.body], p.nt, p.split,
+                  p.cluster, p.depth)
     qmatmul.launches += 1
     return y
 

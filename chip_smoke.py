@@ -6,14 +6,15 @@ runs every phase below on one card; on a machine with two or more, the
 tp = 2 phase gives each rank a card of its own over NCCL. With
 ``--parent``, the sources of CHECKOUT (another commit's tree) whose
 kernels the recent slices redesigned (``xent.cu``, ``softmax.cu``,
-``decode_attention.cu``, ``layer_norm.cu``, ``attention_bwd.cu``) are
-built too, and their K7, K7p, K10, K2 and K2q, K5/K6 and K5d/K6d at head
-dims 80 and 256, and K3 and K4 at every width the smoke times, are timed
-in turns beside this tree's (``parent_ms``, ``parent_ms_turns``; through
-this tree's wrappers, so those C entries must be this tree's), and so is
-K10L at every length the smoke times, through the parent's own C entry,
-whose signature ``PARENT_SIGNATURES`` states (before K10L took its
-plan). For example, from the root of this checkout::
+``decode_attention.cu``, ``layer_norm.cu``, ``attention_bwd.cu``,
+``qmatmul.cu``) are built too, and their K7, K7p, K10, K10L, K2 and K2q,
+K5/K6 and K5d/K6d at head dims 80 and 256, and K3 and K4 at every width
+the smoke times, are timed in turns beside this tree's (``parent_ms``,
+``parent_ms_turns``; through this tree's wrappers, so those C entries
+must be this tree's), and so is K23 at its five decode shapes, through
+the parent's own C entry, whose signature ``PARENT_SIGNATURES`` states
+(before K23 took its plan). For example, from the root of this
+checkout::
 
     git archive <parent commit> apex_tpu_torch | tar -x -C build/parent
     python3 chip_smoke.py --parent build/parent
@@ -34,8 +35,10 @@ exits non-zero before the last line):
    and 256, with and without dropout: twelve) and K1/K1d (d 64, 128 and
    256), of the tensor-core K8/K9 (32- and 16-row streamed tiles) and of
    the tensor-core first stage of K7/K7p (``xent_fwd_tc``), which must
-   hold ``HGMMA``; ptxas must report no spill in a tensor-core K5/K6
-   instantiation at d = 256 and no serialized wgmma in any.
+   hold ``HGMMA``, and of each bf16 and fp16 instantiation of K23's
+   tensor-core body (twelve), which must hold ``HMMA``; ptxas must report
+   no spill in a tensor-core K5/K6 instantiation at d = 256 and no
+   serialized wgmma in any.
 3. one phase per kernel at its main path's shapes: K1 and K2 at the
    serving shapes, K3/K4 (layer norm, x ``[8192, 768]`` bf16), K5/K6
    (attention backward, ``[8, 12, 1024, 64]`` bf16, causal), K1d, K5d
@@ -196,11 +199,14 @@ exits non-zero before the last line):
    logits) with int8 weights and none without, and 2 x 49 at its wrapper
    (the warm-up and the capture); the int8 engine's decode logits, kernel
    path against plain path, within 0.35. Before the serving phases, K23
-   at GPT-2-small's five decode shapes at 8 rows, bf16 and fp32
-   (``phase_qmatmul_kernel``): relative L2 within ``QMM_L2_TOL``, the
-   all-zero weight row's outputs 0, two runs equal bit for bit; its time
-   in turns with cuBLAS over a pre-dequantized weight, the plain version's
-   and the bound, summed over a decode step's 49 launches for the row.
+   at GPT-2-small's five decode shapes at 8 rows, bf16, fp16 and fp32, on
+   the launch ``ops/qmatmul_cuda.plan`` picks (``phase_qmatmul_kernel``):
+   relative L2 within ``QMM_L2_TOL``, the all-zero weight row's outputs
+   0, two runs equal bit for bit; its time in turns with cuBLAS over a
+   pre-dequantized weight (and, with ``--parent``, the parent's K23),
+   the plain version's and the bound, summed over a decode step's 49
+   launches for the row, beside one launch that moves 4 bytes timed the
+   same way; the tensor-core instantiations hold ``HMMA`` (phase 2).
 5. training end to end: ``make_one_step`` over ``GPTModel`` at GPT-2-small
    width, b=8, s=1024, bf16, ``LossScaler()`` and
    ``fused_adam(learning_rate=1e-4)``, ids and labels from
@@ -653,17 +659,14 @@ def _time_in_turns(fn, lib_fn, flush, spread=None, spin=1_000_000):
 # with --parent DIR: the parent checkout's libraries of the sources whose
 # kernels a slice redesigned, built with this build's flags
 PARENT_SOURCES = ("xent", "softmax", "decode_attention", "layer_norm",
-                  "attention_bwd")
+                  "attention_bwd", "qmatmul")
 PARENT = {}
-# the parent's C entries where they differ from this tree's: softmax's
-# before K10L took its plan (body, threads, shared bytes), called through
-# _parent_softmax_fwd_long; its other entries are this tree's
-PARENT_SIGNATURES = {"softmax": {
-    "softmax_fwd": "pppliiilllfiiip",
-    "softmax_bwd": "ppplifiip",
-    "softmax_fwd_long": "pppliiilllfiiip",
-    "softmax_bwd_long": "ppplifiip",
-    "softmax_error_string": "i"}}
+# the parent's C entries where they differ from this tree's: K23's before
+# it took its plan (body, n-tiles, split, cluster, depth), called through
+# _parent_qmatmul
+PARENT_SIGNATURES = {"qmatmul": {
+    "qmatmul_w8a16": "ppppiiiiip",
+    "qmatmul_error_string": "i"}}
 
 
 def _start_parent_build(root):
@@ -691,9 +694,10 @@ def _finish_parent_build(procs):
 
     from apex_tpu_torch.ops import (attention_bwd_cuda,
                                     decode_attention_cuda, layer_norm_cuda,
-                                    xent_cuda)
+                                    softmax_cuda, xent_cuda)
 
     sigs = {"xent": xent_cuda._SIGNATURES,
+            "softmax": softmax_cuda._SIGNATURES,
             "decode_attention": decode_attention_cuda._SIGNATURES,
             "attention_bwd": attention_bwd_cuda._SIGNATURES,
             "layer_norm": layer_norm_cuda._SIGNATURES}
@@ -1294,7 +1298,7 @@ def _long_softmax_fwd_at(dev, flush, sk, dtype, causal=False):
     against its plain version (relative L2 and the largest element error,
     the bf16 or fp32 bands), two runs giving the same bits, and timed in
     turns around ``torch.softmax`` on the fp32-upcast scores and, with
-    ``--parent``, the parent's K10L (one body, three reads)."""
+    ``--parent``, the parent's K10L."""
     from apex_tpu_torch.ops import softmax, softmax_cuda
 
     lead = LONG_SOFTMAX_BODIES[sk]
@@ -1325,10 +1329,7 @@ def _long_softmax_fwd_at(dev, flush, sk, dtype, causal=False):
     xs = x.float() * scale
     spread = []
     out.update(_turns(run, lambda: torch.softmax(xs, dim=-1), flush,
-                      "softmax", spread=spread,
-                      parent_fn="softmax" in PARENT and (
-                          lambda: _parent_softmax_fwd_long(x, None, scale,
-                                                           causal))))
+                      "softmax", spread=spread))
     del xs
     elems = x.numel()
     # what the function needs: the live keys read (under the causal
@@ -2198,23 +2199,19 @@ def phase_paths_agree(engine, dev):
     return kernel_logits
 
 
-def _parent_softmax_fwd_long(x, mask, scale, causal):
-    """The parent's K10L through its own C entry (``PARENT_SIGNATURES``:
-    one body, no plan)."""
+def _parent_qmatmul(x, wq, scale):
+    """The parent's K23 through its own C entry (``PARENT_SIGNATURES``:
+    one CUDA-core body, no plan)."""
     from apex_tpu_torch.ops import _build
 
-    b, np_, sq, sk = x.shape
-    msb = msh = msq = 0
-    if mask is not None:
-        msb, msh, msq, _ = mask.expand(b, np_, sq, sk).stride()
-    y = torch.empty_like(x)
-    lib = PARENT["softmax"]
-    rc = lib.softmax_fwd_long(
-        x.data_ptr(), mask.data_ptr() if mask is not None else None,
-        y.data_ptr(), x.numel() // sk, sq, sk, np_, msb, msh, msq,
-        float(scale), int(bool(causal)), _build.DTYPE_CODES[x.dtype],
-        x.device.index, torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, "softmax", rc)
+    (B, K), N = x.shape, wq.shape[0]
+    y = torch.empty((B, N), dtype=x.dtype, device=x.device)
+    lib = PARENT["qmatmul"]
+    rc = lib.qmatmul_w8a16(
+        x.data_ptr(), wq.data_ptr(), scale.data_ptr(), y.data_ptr(), B, N, K,
+        _build.DTYPE_CODES[x.dtype], x.device.index,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, "qmatmul", rc)
     return y
 
 
@@ -7049,28 +7046,33 @@ QMM_SHAPES = (("qkv", 768, 2304, 12), ("dense", 768, 768, 12),
 # relative L2 of K23 against its plain version: the card tests' bands
 # (tests/port/test_torch_kernels_cuda.py QMM_L2_TOL, set from
 # tests/port/kernel_l2_errors.py)
-QMM_L2_TOL = {torch.bfloat16: 5e-5, torch.float32: 2e-6}
+QMM_L2_TOL = {torch.bfloat16: 5e-5, torch.float16: 5e-5, torch.float32: 2e-6}
 
 
 def phase_qmatmul_kernel(dev, flush):
-    """K23 at GPT-2-small's five decode shapes (x ``[8, K]`` in bf16 and
-    fp32, int8 weights quantized by ``serving/quant.quantize_weight`` from
-    seeded normal weights, one all-zero row each), held against its plain
-    version by relative L2 (``QMM_L2_TOL``; the zero row's outputs exactly
-    0), two runs the same bits; timed in turns around the library call,
-    cuBLAS ``x @ W_deq.T`` over a weight dequantized once beforehand (the
-    port never calls it), and the plain version; the bound is the bytes
-    (x, the int8 weight, the scales, y), or in fp32 the operations at the
-    CUDA cores' rate if larger. The row's numbers are a bf16 decode
-    step's: 12 x each layer matmul + the logits, 49 launches."""
+    """K23 at GPT-2-small's five decode shapes (x ``[8, K]`` in bf16, fp16
+    and fp32, int8 weights quantized by ``serving/quant.quantize_weight``
+    from seeded normal weights, one all-zero row each) on the launch
+    ``ops/qmatmul_cuda.plan`` picks (the tensor-core body for bf16/fp16,
+    the CUDA-core body for fp32), held against its plain version by
+    relative L2 (``QMM_L2_TOL``; the zero row's outputs exactly 0), two
+    runs the same bits; timed in turns around the library call, cuBLAS
+    ``x @ W_deq.T`` over a weight dequantized once beforehand (the port
+    never calls it), with ``--parent`` the parent's K23 before and after,
+    and the plain version; the bound is the bytes (x, the int8 weight, the
+    scales, y), or in fp32 the operations at the CUDA cores' rate if
+    larger. The row's numbers are a bf16 decode step's: 12 x each layer
+    matmul + the logits, 49 launches; beside them, the floor of this
+    timing: one launch that moves 4 bytes (``one_small_launch_ms``)."""
     from apex_tpu_torch.ops import qmatmul as qmm
     from apex_tpu_torch.ops import qmatmul_cuda
     from apex_tpu_torch.serving import quant
 
     gen = torch.Generator(device=dev).manual_seed(23)
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
     by_shape, step = {}, {}
     worst_abs = 0.0
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
         tag = str(dtype).replace("torch.", "")
         for name, k, n, per_step in QMM_SHAPES:
             x = torch.randn(8, k, generator=gen, device=dev).to(dtype)
@@ -7092,26 +7094,33 @@ def phase_qmatmul_kernel(dev, flush):
                 worst_abs = max(worst_abs, _max_err(y, ref))
             w_deq = (wq.float() * scale[:, None]).to(dtype)
             t = _turns(lambda: qmatmul_cuda.qmatmul(x, wq, scale),
-                       lambda: x @ w_deq.t(), flush, "qmatmul")
+                       lambda: x @ w_deq.t(), flush, "qmatmul",
+                       parent_fn=lambda: _parent_qmatmul(x, wq, scale))
             plain_ms = _time_ms(
                 lambda: qmm.qmatmul_reference(x, wq, scale, dtype), flush,
                 reps=5)
             isz = x.element_size()
             nbytes = 8 * k * isz + n * k + 4 * n + 8 * n * isz
             bound = _bound(nbytes, 2 * 8 * n * k,
-                           BF16_FLOPS_PER_S if dtype == torch.bfloat16
-                           else FP32_FLOPS_PER_S)
+                           FP32_FLOPS_PER_S if dtype == torch.float32
+                           else BF16_FLOPS_PER_S)
+            p = qmatmul_cuda.plan(8, n, k, dtype, sm)
             by_shape[f"{tag} {name} [8, {k}] x [{n}, {k}]"] = {
                 "rel_l2": err, "ms": t["ms"], "ms_turns": t["ms_turns"],
+                "parent_ms": t.get("parent_ms"),
+                "parent_ms_turns": t.get("parent_ms_turns"),
                 "plain_ms": plain_ms, "library_ms": t["library_ms"],
                 "bound_ms": bound[0], "bound_by": bound[1],
-                "bytes": nbytes, "launches_a_decode_step": per_step}
+                "bytes": nbytes, "launches_a_decode_step": per_step,
+                "plan": p._asdict()}
             acc = step.setdefault(tag, dict.fromkeys(
                 ("ms", "plain_ms", "library_ms", "bound_ms"), 0.0))
             for key, v in (("ms", t["ms"]), ("plain_ms", plain_ms),
                            ("library_ms", t["library_ms"]),
-                           ("bound_ms", bound[0])):
-                acc[key] += per_step * v
+                           ("bound_ms", bound[0]),
+                           ("parent_ms", t.get("parent_ms"))):
+                if v is not None:
+                    acc[key] = acc.get(key, 0.0) + per_step * v
             del x, wq, scale, w_deq, y, ref
     torch.cuda.empty_cache()
     main = step["bfloat16"]
@@ -7124,7 +7133,12 @@ def phase_qmatmul_kernel(dev, flush):
                bound_by="bytes", library_ms=main["library_ms"],
                per="a bf16 decode step of GPT-2-small at 8 slots: 49 "
                    "launches (12 x qkv, dense, h->4h, 4h->h; the logits)",
-               fp32_decode_step=step["float32"], by_shape=by_shape)
+               fp16_decode_step=step["float16"],
+               fp32_decode_step=step["float32"], by_shape=by_shape,
+               one_small_launch_ms=_time_ms(torch.zeros(1, device=dev).zero_,
+                                            flush))
+    if "parent_ms" in main:
+        row["parent_ms"] = main["parent_ms"]
     _log("K23: " + json.dumps(row))
     return row
 
@@ -7755,8 +7769,10 @@ def _tensor_core_sass(lib, kernels):
     "HMMA": n}}`` (HGMMA is wgmma, HMMA mma.sync), the instance "d=<head
     dim> [dropout]" of an attention kernel (``<T, int D, bool
     DROPOUT>``), "dX|dE b=<streamed rows>" of ``xent_bwd_tc`` (``<T,
-    bool DE, int B>``), none for ``xent_fwd_tc`` (``<T>``); None where
-    the toolkit has no cuobjdump."""
+    bool DE, int B>``), none for ``xent_fwd_tc`` (``<T>``), "bf16|fp16
+    nt=<n-tiles> depth=<chunks in flight>" of K23's tensor-core
+    ``qmatmul_kernel`` (``<T, int NT, int D>``: NT 1-2 at D 2 and 4, 3-4
+    at D 2, bf16 and fp16); None where the toolkit has no cuobjdump."""
     from apex_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -7771,12 +7787,18 @@ def _tensor_core_sass(lib, kernels):
         att = re.search(r"nv_bfloat16Li(\d+)ELb([01])E", fn)
         tc = re.search(r"nv_bfloat16Lb([01])ELi(\d+)E", fn)
         fwd = re.search(r"xent_fwd_tcI13__nv_bfloat16E", fn)
-        if kernel is None or (att or tc or fwd) is None:
+        qmm = re.search(r"qmatmul_kernelI(13__nv_bfloat16|6__half)Li([1-4])ELi"
+                        r"([24])E", fn)
+        if kernel is None or (att or tc or fwd or qmm) is None:
             continue
-        key = (f"{kernel} d={att.group(1)}"
-               + (" dropout" if att.group(2) == "1" else "") if att else
-               f"{kernel} {'dE' if tc.group(1) == '1' else 'dX'} "
-               f"b={tc.group(2)}" if tc else kernel)
+        if qmm:
+            key = (f"{kernel} {'bf16' if 'bfloat' in qmm.group(1) else 'fp16'}"
+                   f" nt={qmm.group(2)} depth={qmm.group(3)}")
+        else:
+            key = (f"{kernel} d={att.group(1)}"
+                   + (" dropout" if att.group(2) == "1" else "") if att else
+                   f"{kernel} {'dE' if tc.group(1) == '1' else 'dX'} "
+                   f"b={tc.group(2)}" if tc else kernel)
         counts[key] = {"HGMMA": chunk.count("HGMMA"),
                        "HMMA": chunk.count("HMMA")}
     return counts
@@ -7835,26 +7857,28 @@ def main():
     # of K5/K6 (twelve; K6 at d = 256 is attention_bwd_dkv_tc2) and K1 (d
     # 64, 128 and 256: six), those of the tensor-core K8/K9 (32- and 16-row
     # streamed tiles, four) and that of the tensor-core K7/K7p first stage
-    # (one) must hold wgmma (HGMMA) instructions
+    # (one) must hold wgmma (HGMMA) instructions, and K23's tensor-core
+    # body (bf16 and fp16, six (n-tiles, depth) each: twelve) mma.sync
+    # (HMMA)
     sass = {}
-    for source, kernels, want in (
+    for source, kernels, want, op in (
             ("attention_bwd", ("attention_bwd_dq_tc", "attention_bwd_dkv_tc"),
-             12),
-            ("prefill_attention", ("prefill_attention_tc",), 6),
-            ("xent", ("xent_bwd_tc", "xent_fwd_tc"), 5)):
+             12, "HGMMA"),
+            ("prefill_attention", ("prefill_attention_tc",), 6, "HGMMA"),
+            ("xent", ("xent_bwd_tc", "xent_fwd_tc"), 5, "HGMMA"),
+            ("qmatmul", ("qmatmul_kernel",), 12, "HMMA")):
         counts = _tensor_core_sass(_build.lib_path(source), kernels)
         if counts is None:
             _log("cuobjdump is not in the toolkit: the tensor-core "
-                 "instructions of K1, K5-K9 are not counted")
+                 "instructions of K1, K5-K9, K23 are not counted")
             sass = None
             break
         for key, n in sorted(counts.items()):
-            _log(f"  {source} {key} (bf16): {n['HGMMA']} HGMMA, "
+            _log(f"  {source} {key}: {n['HGMMA']} HGMMA, "
                  f"{n['HMMA']} HMMA")
-        if len(counts) != want or any(n["HGMMA"] == 0
-                                      for n in counts.values()):
-            raise AssertionError(f"a bf16 {source} kernel has no wgmma "
-                                 f"instructions: {counts}")
+        if len(counts) != want or any(n[op] == 0 for n in counts.values()):
+            raise AssertionError(f"a tensor-core {source} kernel has no "
+                                 f"{op} instructions: {counts}")
         sass.update(counts)
 
     mark("build")

@@ -32,7 +32,8 @@ update) on the card tests' layouts (``LAMB_LAYOUTS``, with and without
 weight decay): the update's relative L2 and the segment sums' error over
 their largest magnitude against the plain version (``MT_LAMB_TOL``).
 Last, K23 (the W8A16 decode matmul) by relative L2 at GPT-2-small's
-decode shapes and the card tests' edges, per dtype (``QMM_L2_TOL``).
+decode shapes and the card tests' edges, per dtype, and on the card
+tests' forced tensor-core plans (``QMM_L2_TOL``).
 Needs a CUDA card:
 
     python3 tests/port/kernel_l2_errors.py
@@ -398,7 +399,7 @@ def main():
                   f"{upd:.3e}, sums {serr:.3e}")
             note("K22 update", torch.float32, upd)
             note("K22 sums", torch.float32, serr)
-    from apex_tpu_torch.ops import qmatmul
+    from apex_tpu_torch.ops import qmatmul, qmatmul_cuda
 
     for dtype, (tdt, _) in sorted(cases.DTYPES.items()):
         for shape in cases.QMM_DECODE_SHAPES + cases.QMM_EDGE_SHAPES:
@@ -407,6 +408,21 @@ def main():
                       qmatmul.qmatmul_reference(x, wq, scale, tdt))
             print(f"K23 {dtype} {shape}: {err:.3e}")
             note("K23", dtype, err)
+        if tdt == torch.float32:
+            continue
+        chosen = qmatmul_cuda.plan
+        for shape, plans in cases.QMM_PLAN_CASES:
+            x, wq, scale = cases._qmm_case(dev, tdt, *shape, seed=1)
+            ref = qmatmul.qmatmul_reference(x, wq, scale, tdt)
+            for nt, split, cluster, depth in plans:
+                p = qmatmul_cuda.Plan("tc", nt, split, cluster, depth)
+                qmatmul_cuda.plan = lambda *_, p=p: p
+                try:
+                    err = _l2(qmatmul_cuda.qmatmul(x, wq, scale), ref)
+                finally:
+                    qmatmul_cuda.plan = chosen
+                print(f"K23 {dtype} {shape} {p}: {err:.3e}")
+                note("K23", dtype, err)
     for (kernel, dtype), value in sorted(worst.items()):
         print(f"worst {kernel} {dtype}: {value:.3e}")
 

@@ -88,11 +88,16 @@ the padding segment and a tensor straddling the shard boundary; and the
 ZeRO transforms and the codec launching them once a step on one rank;
 K23 (the W8A16 decode matmul) against its plain version at GPT-2-small's
 five decode shapes at 8 rows and at edges (one row, partial and several
-8-row tiles, N past a 32-channel block, K of one 16-byte vector and past
-a 512-column chunk, all-zero weight rows), two runs equal bit for bit,
-its wrapper refusing what it does not take, and a weight-quant engine
-launching it 4 x layers + 1 times a decode call, its graphed tokens the
-eager ones.
+8-row tiles, N past a 16-channel tile, K of one 16-column step, past a
+64-column chunk by one and three steps and past a 512-column chunk, B of
+9, 17 and 40, all-zero weight rows), the tensor-core body on forced
+plans (unsplit, K split over a block's warps, over a cluster's blocks,
+both, spare n-tiles), two runs equal bit for bit, an x off a 16-byte
+boundary giving the aligned x's bits, its wrapper refusing what it or
+its plan does not take, the five decode shapes captured in a
+CUDA graph and replayed twice to the eager bits, and a weight-quant
+engine launching it 4 x layers + 1 times a decode call, its graphed
+tokens the eager ones.
 
 Marked ``cuda``: each test needs a card and skips without one. This
 file imports neither JAX nor the JAX package, so it runs on a GPU
@@ -2683,7 +2688,21 @@ QMM_L2_TOL = {"bfloat16": 5e-5, "float16": 5e-5, "float32": 2e-6}
 QMM_DECODE_SHAPES = [(8, 768, 2304), (8, 768, 768), (8, 768, 3072),
                      (8, 3072, 768), (8, 768, 50304)]
 QMM_EDGE_SHAPES = [(1, 768, 768), (3, 16, 100), (9, 528, 33),
-                   (17, 1040, 70), (16, 64, 32), (5, 4096, 4000)]
+                   (17, 1040, 70), (16, 64, 32), (5, 4096, 4000),
+                   # K past its last 64-column chunk by 1 and 3 steps of
+                   # 16, N past its last 16-channel tile, B of 9 and 17
+                   # (two and three n-tiles), 40 (two row groups)
+                   (8, 80, 48), (9, 784, 2310), (17, 816, 770),
+                   (40, 272, 130)]
+# forced plans (ops/qmatmul_cuda.Plan: n-tiles, split, cluster, depth) at
+# [B, K, N]: unsplit, split over a block's warps, over a cluster's blocks,
+# both, more n-tiles than B needs, each depth
+QMM_PLAN_CASES = [
+    ((8, 3072, 768), [(1, 1, 1, 4), (1, 2, 1, 2), (1, 1, 8, 4), (1, 4, 8, 2),
+                      (4, 4, 2, 2), (2, 4, 3, 4)]),
+    ((9, 816, 770), [(2, 1, 1, 2), (2, 4, 3, 4), (3, 2, 6, 2), (4, 1, 2, 2)]),
+    ((1, 768, 50304), [(1, 1, 1, 2), (1, 1, 1, 4), (1, 4, 3, 4)]),
+]
 
 
 def _qmm_case(dev, dtype, b, k, n, seed=0):
@@ -2711,6 +2730,82 @@ def test_qmatmul_kernel_matches_plain(dev, dtype, shape):
     err = ((y.float() - ref.float()).norm() / ref.float().norm()).item()
     assert err <= QMM_L2_TOL[dtype], err
     assert torch.equal(qmm.qmatmul(x, wq, scale, tdt), y)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("shape,plans", QMM_PLAN_CASES,
+                         ids=lambda v: "x".join(map(str, v))
+                         if isinstance(v[0], int) else "plans")
+def test_qmatmul_tensor_core_plans_match_plain(dev, dtype, shape, plans,
+                                               monkeypatch):
+    tdt = DTYPES[dtype][0]
+    x, wq, scale = _qmm_case(dev, tdt, *shape, seed=1)
+    ref = qmm.qmatmul_reference(x, wq, scale, tdt)
+    for nt, split, cluster, depth in plans:
+        p = qmatmul_cuda.Plan("tc", nt, split, cluster, depth)
+        monkeypatch.setattr(qmatmul_cuda, "plan", lambda *_, p=p: p)
+        y = qmatmul_cuda.qmatmul(x, wq, scale)
+        assert torch.isfinite(y).all() and (y[:, shape[2] // 2] == 0).all()
+        err = ((y.float() - ref.float()).norm() / ref.float().norm()).item()
+        assert err <= QMM_L2_TOL[dtype], (p, err)
+        assert torch.equal(qmatmul_cuda.qmatmul(x, wq, scale), y), p
+
+
+def test_qmatmul_refuses_plans_the_kernel_does_not_take(dev, monkeypatch):
+    Plan = qmatmul_cuda.Plan
+    bf = _qmm_case(dev, torch.bfloat16, 8, 128, 32)
+    f32 = _qmm_case(dev, torch.float32, 8, 128, 32)
+    bad = [(bf, Plan("simt")), (f32, Plan("tc", depth=2)),
+           (bf, Plan("tc", 5, depth=2)), (bf, Plan("tc", 0, depth=2)),
+           (bf, Plan("tc", 1, 3, depth=2)), (bf, Plan("tc", 1, 1, 9, 2)),
+           (bf, Plan("tc", 1, 2, 2, 2)), (bf, Plan("tc")),
+           (bf, Plan("tc", 1, 1, 1, 3)), (bf, Plan("tc", 3, 1, 1, 4)),
+           (f32, Plan("simt", 2)), (f32, Plan("simt", depth=2)),
+           (bf, Plan("wide"))]
+    before = qmatmul_cuda.qmatmul.launches
+    for args, p in bad:
+        monkeypatch.setattr(qmatmul_cuda, "plan", lambda *_, p=p: p)
+        with pytest.raises(ValueError):
+            qmatmul_cuda.qmatmul(*args)
+    assert qmatmul_cuda.qmatmul.launches == before
+
+
+def test_qmatmul_graph_replays_equal_the_eager_call(dev):
+    # K23 at the five decode shapes captured in one CUDA graph, replayed
+    # twice into outputs poisoned with NaN between replays
+    for tdt in (torch.bfloat16, torch.float16):
+        cases = [_qmm_case(dev, tdt, *s, seed=i)
+                 for i, s in enumerate(QMM_DECODE_SHAPES)]
+        eager = [qmatmul_cuda.qmatmul(*c) for c in cases]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for c in cases:
+                qmatmul_cuda.qmatmul(*c)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = [qmatmul_cuda.qmatmul(*c) for c in cases]
+        for _ in range(2):
+            for o in outs:
+                o.fill_(float("nan"))
+            graph.replay()
+            torch.cuda.synchronize()
+            for o, e in zip(outs, eager):
+                assert torch.equal(o, e)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_qmatmul_takes_an_x_off_a_16_byte_boundary(dev, dtype):
+    # the tensor-core body reads x in 16-byte vectors (the wrapper copies
+    # such an x), the CUDA-core body element by element: the same bits
+    x, wq, scale = _qmm_case(dev, DTYPES[dtype][0], 8, 784, 96)
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+    off = buf[1:].view_as(x)
+    off.copy_(x)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    assert torch.equal(qmatmul_cuda.qmatmul(off, wq, scale),
+                       qmatmul_cuda.qmatmul(x, wq, scale))
 
 
 def test_qmatmul_flattens_leading_axes_and_casts_to_the_compute_dtype(dev):

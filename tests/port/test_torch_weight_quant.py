@@ -15,7 +15,14 @@ against the JAX engine.
 * the fp32 engine with ``weight_quant=True`` matches the JAX engine token
   for token, greedy and sampled, at K = 1 and K = 4, and its decode block
   matches JAX's logits;
-* ``weight_quant=True`` raises on an int word table.
+* ``weight_quant=True`` raises on an int word table;
+* K23's launch plan (``ops/qmatmul_cuda.plan``, CPU only: no kernel
+  runs): fp32 on the CUDA-core body, the plans the C entry refuses
+  refused by the wrapper's check, and, through ``_grid`` and ``_pieces``
+  (this file's copies of ``csrc/qmatmul.cu``'s ``launch_tc`` grid and
+  ``piece_of``; the card tests hold the kernel itself), every piece of K
+  covered once, every output channel and x row by one warp, grids within
+  CUDA's limits up to ``MAX_ROWS`` rows and N = 50304.
 """
 
 import jax
@@ -32,6 +39,7 @@ from apex_tpu.serving import scheduler as jsched
 from apex_tpu.transformer.testing import TransformerConfig as JConfig
 from apex_tpu_torch import _env
 from apex_tpu_torch.ops import qmatmul as tqmm
+from apex_tpu_torch.ops import qmatmul_cuda
 from apex_tpu_torch.serving import ServingEngine as TEngine
 from apex_tpu_torch.serving import model as tmodel
 from apex_tpu_torch.serving import quant as tquant
@@ -209,3 +217,153 @@ def test_weight_quant_off_by_default_and_raises_on_int_words(jax_tree,
         TEngine(tcfg, bad, device="cpu", weight_quant=True, **ENGINE)
     monkeypatch.setenv("APEX_SERVE_WEIGHT_QUANT", "1")
     assert TEngine(tcfg, params, device="cpu", **ENGINE).weight_quant
+
+
+# ------------------------------------------------------------- K23's plan
+
+# [B, K, N]: GPT-2-small's decode shapes at 8 slots, the card tests'
+# edges, one row and the most rows at the widest N
+PLAN_SHAPES = [(8, 768, 2304), (8, 768, 768), (8, 768, 3072), (8, 3072, 768),
+               (8, 768, 50304), (1, 768, 768), (3, 16, 100), (9, 528, 33),
+               (17, 1040, 70), (16, 64, 32), (5, 4096, 4000), (8, 80, 48),
+               (9, 784, 2310), (17, 816, 770), (40, 272, 130),
+               (1, 12288, 50304), (qmatmul_cuda.MAX_ROWS, 768, 50304)]
+HALF = [torch.bfloat16, torch.float16]
+SM = 132
+
+
+def _tc_plans(B, K):
+    """Every tensor-core plan the C entry takes at [B, K] with the fewest
+    n-tiles, and with the most, at each depth."""
+    most = max(1, K // qmatmul_cuda.CHUNK)
+    nts = sorted({min(4, -(-B // 8)), 4})
+    return [qmatmul_cuda.Plan("tc", nt, s, c, d) for nt in nts
+            for s in qmatmul_cuda.SPLITS for c in range(1, 9) if s * c <= most
+            for d in sorted({2, qmatmul_cuda.max_depth(nt)})]
+
+
+def _grid(p, B, N):
+    """``(x, y, z)`` blocks of plan ``p``'s launch (128 threads each; the
+    C entry's): tc over channel tiles, the cluster's blocks, row groups;
+    simt over 16-channel blocks and 8-row groups."""
+    if p.body == "simt":
+        return -(-N // 16), -(-B // 8), 1
+    tiles, per = -(-N // 16), 4 // p.split
+    return -(-tiles // per), p.cluster, -(-B // (8 * p.nt))
+
+
+def _pieces(p, K):
+    """The ``[start, end)`` columns of K that each of plan ``p``'s pieces
+    sums (the kernel's ``piece_of``): piece ``rank * split + s`` of the
+    ``split * cluster``, whole 64-column chunks in equal shares, the
+    16-column steps past the last chunk to the last piece."""
+    n, n64 = p.split * p.cluster, K // 64
+    return [(i * n64 // n * 64, K if i == n - 1 else (i + 1) * n64 // n * 64)
+            for i in range(n)]
+
+
+def _covers(p, B, N):
+    """How many warps write each output channel, and each x row, under
+    plan ``p`` (the kernels' index maps)."""
+    gx, gy, gz = _grid(p, B, N)
+    chans, rows = np.zeros(N, int), np.zeros(B, int)
+    if p.body == "simt":
+        for bx in range(gx):
+            for warp in range(4):
+                n0 = bx * 16 + warp * 4
+                chans[n0:min(n0 + 4, N)] += 1
+        rows_per, groups = 8, gy
+    else:
+        per = 4 // p.split
+        for bx in range(gx):
+            for r in range(per):
+                n0 = (bx * per + r) * 16
+                chans[n0:min(n0 + 16, N)] += 1
+        rows_per, groups = 8 * p.nt, gz
+    for z in range(groups):
+        rows[z * rows_per:min((z + 1) * rows_per, B)] += 1
+    return chans, rows
+
+
+@pytest.mark.parametrize("K", [16, 48, 64, 80, 528, 768, 784, 816, 1040,
+                               3072, 4096, 12288])
+def test_qmatmul_plan_pieces_cover_k_once(K):
+    for p in _tc_plans(8, K) + [qmatmul_cuda.plan(8, 768, K, d, SM)
+                                for d in HALF]:
+        cuts = _pieces(p, K)
+        assert len(cuts) == p.split * p.cluster
+        assert cuts[0][0] == 0 and cuts[-1][1] == K, (p, cuts)
+        for (lo, hi), (nxt, _) in zip(cuts, cuts[1:]):
+            assert hi == nxt, (p, cuts)            # no gap, no overlap
+        for lo, hi in cuts:
+            assert lo < hi and lo % 64 == 0 and hi % 16 == 0, (p, cuts)
+            assert hi % 64 == 0 or hi == K, (p, cuts)
+
+
+@pytest.mark.parametrize("dtype", HALF + [torch.float32],
+                         ids=lambda d: str(d).replace("torch.", ""))
+@pytest.mark.parametrize("shape", PLAN_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_qmatmul_plan_covers_outputs_within_grid_limits(shape, dtype):
+    B, K, N = shape
+    p = qmatmul_cuda.plan(B, N, K, dtype, SM)
+    assert p.body == ("simt" if dtype == torch.float32 else "tc")
+    qmatmul_cuda.check_plan(p, B, K, dtype)
+    plans = [p] + (_tc_plans(B, K) if p.body == "tc" else [])
+    for q in plans:
+        gx, gy, gz = _grid(q, B, N)
+        assert 1 <= gx < 2 ** 31 and 1 <= gy <= 65535 and 1 <= gz <= 65535
+        if q.body == "tc":
+            assert gy == q.cluster and q.cluster <= 8
+        if B * N <= 10 ** 6:
+            chans, rows = _covers(q, B, N)
+            assert (chans == 1).all() and (rows == 1).all(), q
+        else:                                 # counted, not enumerated
+            per, rows_per = ((4 // q.split) * 16, 8 * q.nt) \
+                if q.body == "tc" else (16, 8)
+            groups = gz if q.body == "tc" else gy
+            assert (gx - 1) * per < N <= gx * per, q
+            assert (groups - 1) * rows_per < B <= groups * rows_per, q
+
+
+@pytest.mark.parametrize("shape", [(8, 768, 768), (1, 64, 16), (40, 80, 9)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_qmatmul_plan_fp32_takes_the_cuda_core_body(shape):
+    B, K, N = shape
+    assert qmatmul_cuda.plan(B, N, K, torch.float32, SM) == \
+        qmatmul_cuda.Plan("simt", 1, 1, 1, 1)
+    for d in HALF:
+        assert qmatmul_cuda.plan(B, N, K, d, SM).body == "tc"
+    with pytest.raises(ValueError):
+        qmatmul_cuda.plan(B, N, K, torch.int8, SM)
+
+
+@pytest.mark.parametrize("case", [
+    ("simt", 1, 1, 1, 1, torch.bfloat16, 16),
+    ("tc", 1, 1, 1, 2, torch.float32, 16),
+    ("tc", 5, 1, 1, 2, torch.bfloat16, 16),
+    ("tc", 0, 1, 1, 2, torch.bfloat16, 16),
+    ("tc", 1, 3, 1, 2, torch.float16, 16),
+    ("tc", 1, 1, 9, 2, torch.bfloat16, 16),
+    ("tc", 1, 2, 2, 2, torch.bfloat16, 16),
+    ("tc", 1, 1, 2, 2, torch.bfloat16, 0),
+    ("tc", 1, 1, 1, 1, torch.bfloat16, 16),
+    ("tc", 1, 1, 1, 3, torch.float16, 16),
+    ("tc", 3, 1, 1, 4, torch.bfloat16, 16),
+    ("simt", 2, 1, 1, 1, torch.float32, 16),
+    ("simt", 1, 1, 2, 1, torch.float32, 16),
+    ("simt", 1, 1, 1, 2, torch.float32, 16),
+    ("tc", 1, 1, 1, 2, torch.bfloat16, 8),
+    ("wide", 1, 1, 1, 1, torch.float32, 16),
+], ids=lambda c: "-".join(map(str, c)).replace("torch.", ""))
+def test_qmatmul_check_plan_refuses_what_the_kernel_does_not_take(case):
+    # a plan at x [8, 128] (two 64-column chunks; "0" puts K at 48, one
+    # piece) and x's start (8: off a 16-byte boundary)
+    body, nt, split, cluster, depth, dtype, where = case
+    K = 48 if where == 0 else 128
+    with pytest.raises(ValueError):
+        qmatmul_cuda.check_plan(
+            qmatmul_cuda.Plan(body, nt, split, cluster, depth), 8, K, dtype,
+            x_ptr=where)
+    qmatmul_cuda.check_plan(qmatmul_cuda.plan(8, 64, K, dtype, SM), 8, K,
+                            dtype)
