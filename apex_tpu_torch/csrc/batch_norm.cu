@@ -1,5 +1,7 @@
 // Batch norm over rows [M, C] (channels innermost in memory), synced or
-// local: K17 the forward in two stages, K18 the backward in two stages.
+// local: K17 the forward, K18 the backward, each in one launch where no
+// all-reduce sits between its stages (one rank) and in two launches with
+// the all-reduce between them (a group of ranks).
 //
 // These replace no Pallas site: the JAX package computes
 // apex_tpu/parallel/sync_batchnorm.py:23 sync_batch_norm in jnp (fp32 sums
@@ -13,47 +15,89 @@
 // here.
 //
 // The numerics are JAX's, not cuDNN's: fp32 sums of x and x^2, mean = s /
-// n, var = max(ss / n - mean^2, 0) (NaN kept), y = ((x - mean) * rstd) *
-// scale + bias (each step rounded on its own: every operation below is an
-// explicit __f*_rn, so nothing contracts), optionally ReLU, cast to x's
-// dtype; the running variance takes var * n / max(n - 1, 1). The backward
-// is the closed form of autodiff through that function with the two
-// per-channel sums all-reduced between its stages: with g the output
-// gradient (masked where a fused ReLU's output is not positive) and xhat =
-// (x - mean) * rstd, stage 1 sums g (dbias) and g * xhat (dscale), stage 2
-// writes dx = (scale * rstd) * ((g - sum_g / n) - xhat * (sum_gx / n)).
+// n, var = max(ss / n - mean^2, 0) (NaN kept), rstd = rsqrt(var + eps),
+// y = ((x - mean) * rstd) * scale + bias (each step rounded on its own:
+// every operation below is an explicit __f*_rn, so nothing contracts),
+// optionally ReLU, cast to x's dtype; the running variance takes var * n
+// / max(n - 1, 1). rstd is the card's rsqrtf, the function torch.rsqrt
+// (the plain version) and XLA's lax.rsqrt compute on it: the correctly
+// rounded __frsqrt_rn differed from it by 1 ulp in ~20% of channels, and
+// on one norm of a real ResNet-50 step that moved y by 5.6e-5 relative L2
+// against the plain version, past BN_L2_TOL (H100, the smoke's held
+// step); with rsqrtf y and rstd equal the plain version's bit for bit.
+// The backward is the closed form of autodiff through that function with
+// the two per-channel sums all-reduced between its stages: with g the
+// output gradient (masked where a fused ReLU's output is not positive)
+// and xhat = (x - mean) * rstd, stage 1 sums g (dbias) and g * xhat
+// (dscale), stage 2 writes dx = (scale * rstd) * ((g - sum_g / n) - xhat
+// * (sum_gx / n)).
 //
-// What bounds them on H100: bytes. K17 reads x twice (stage 1's sums,
-// stage 2's normalization) and writes y once: 6 bytes an element in bf16.
-// K18 reads x and dy twice and writes dx: 10. The arithmetic is a few
-// operations an element.
+// What bounds them on H100: bytes. The one-pass bound reads x once and
+// writes y once (K17: 4 bytes an element in bf16), or reads x and dy once
+// and writes dx (K18: 6). A norm larger than the chip (ResNet-50's at b =
+// 256 hold 13-411 MB against 50 MB of L2) is read twice, once for the
+// sums and once to normalize: the two-pass floor, 6 and 10 bytes. The
+// arithmetic is a few operations an element.
 //
 // Design. A block of 512 threads is TX x TY: TX lanes over channel vectors
 // (16-byte vectors, 8 bf16/fp16 or 4 fp32 channels, where the row width
 // and the pointer allow, else single channels), TY lanes over rows, so a
 // warp reads whole 16-byte vectors of neighbouring channels and rows. The
-// grid is (slabs of rows, tiles of TX vectors); the wrapper
-// (ops/batch_norm_cuda.py plan) sizes it to one full wave of the card. In
-// each stats stage a block sums its slab's rows in a fixed per-thread
-// order (rows in flight a thread), then over TY by a fixed tree in
-// shared memory, and writes a [2C] partial; the block that takes its
-// tile's last ticket (an integer per tile, reset by that block) sums the
-// slabs' partials in a fixed order, the same order whichever block it is,
-// so two runs give the same bits, and writes the stage's [2C] result (and
-// the row count, stats[2C]). The apply stages read the per-channel values
-// once a thread into registers and stream the rows; the forward's first
-// slab also writes the saved mean and rstd and updates the running stats
-// in place.
+// work is items, (tile of TX vectors, slab of rows); the grid is the
+// blocks the card holds at once (ops/batch_norm_cuda.plan sizes it from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor of the kernel it
+// launches, bn_resident below), one item a block where the card holds
+// them all, so every block streams one equal slab and no wave is ragged.
+//
+//  - Stats, shared by both forms. A block sums its item's rows in a fixed
+//    per-thread order, U rows in flight a thread (8 x 16 bytes forward, 4
+//    x 2 x 16 backward), then over TY by a fixed tree in shared memory,
+//    and writes a [2C] partial a slab. After a grid-wide barrier
+//    (cooperative launch) the final per-channel sums spread over every
+//    warp of the grid: a warp a channel, lane l adding slabs l, l + 32,
+//    ... in order, then a fixed xor butterfly, so two runs give the same
+//    bits and no block sums alone while the card idles.
+//  - One launch (bn_fwd, bn_bwd): the stats, the barrier, the channel
+//    sums (the forward's warps also finish their channels: the saved mean
+//    and rstd, the running stats), a second barrier, then the apply. The
+//    apply walks each block's items and each thread's rows in the reverse
+//    of the stats' order, so its re-read of x (and dy) starts on the rows
+//    the grid read last, which L2 still holds; a norm that fits in L2 is
+//    re-read from it whole. The backward still writes its [2C] sums:
+//    dscale and dbias are them.
+//  - Two launches (bn_*_stats, then bn_*_apply after the all-reduce): the
+//    stats kernel above without its apply (one barrier, also a
+//    cooperative launch); the apply kernels walk the same items in the
+//    same reverse order, and the forward's first slab of each tile writes
+//    the saved mean and rstd and updates the running stats.
+//
+// The apply stages read the per-channel values once a thread into
+// registers and stream the rows, storing the output with an evict-first
+// hint so it does not push the rows still to be re-read out of L2.
+//
+// Registers (ptxas -v) and resident blocks of 512 threads an SM
+// (bn_resident) of the bf16 16-byte-vector kernels on an H100: the
+// forward's stats 56 (2), apply 96 (1), one launch 96 (1); the backward's
+// stats 108 (1), apply 127 (1), one launch 125 (1); no spills. Two other
+// ways to put more bytes in flight were built and timed against this one
+// in turns on that card (PERF.md section 6) and were slower, so neither
+// is here: each thread's rows staged through a cp.async ring in shared
+// memory, three stages ahead (+4-5% over the step's 53 norms), and L2
+// prefetches (cp.async.bulk.prefetch) two batches ahead (+76%).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int THREADS = 512;
+constexpr int WARPS = THREADS / 32;
 constexpr int MAX_V = 8;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -72,10 +116,12 @@ template <>
 __device__ __forceinline__ __half from_f<__half>(float x) { return __float2half_rn(x); }
 
 // V elements at p: one 16-byte load where V * sizeof(T) == 16, else one
-template <typename T, int V>
+// load an element; LAST marks the last read of these bytes (evict first)
+template <typename T, int V, bool LAST>
 __device__ __forceinline__ void load_vec(const T* p, float* f) {
   if constexpr (V * sizeof(T) == 16) {
-    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    const uint4 q = LAST ? __ldcs(reinterpret_cast<const uint4*>(p))
+                         : *reinterpret_cast<const uint4*>(p);
     T h[V];
     memcpy(h, &q, sizeof(q));
 #pragma unroll
@@ -86,18 +132,19 @@ __device__ __forceinline__ void load_vec(const T* p, float* f) {
   }
 }
 
+// the output, stored with an evict-first hint
 template <typename T, int V>
 __device__ __forceinline__ void store_vec(T* p, const float* f) {
-  if constexpr (V * sizeof(T) == 16) {
-    T h[V];
+  T h[V];
 #pragma unroll
-    for (int k = 0; k < V; ++k) h[k] = from_f<T>(f[k]);
+  for (int k = 0; k < V; ++k) h[k] = from_f<T>(f[k]);
+  if constexpr (V * sizeof(T) == 16) {
     uint4 q;
     memcpy(&q, h, sizeof(q));
-    *reinterpret_cast<uint4*>(p) = q;
+    __stcs(reinterpret_cast<uint4*>(p), q);
   } else {
 #pragma unroll
-    for (int k = 0; k < V; ++k) p[k] = from_f<T>(f[k]);
+    for (int k = 0; k < V; ++k) p[k] = h[k];
   }
 }
 
@@ -112,43 +159,54 @@ __device__ __forceinline__ float load_param(const void* p, int code, int c, floa
 
 struct BnArgs {
   long long rows;           // M
-  long long rows_per_slab;  // rows a block of the grid's x dimension
+  long long rows_per_slab;
   int C, tx;                // channels; lanes over channel vectors
+  int tiles, slabs;         // items: tiles x slabs
   const void* x;
   const void* dy;
   void* out;                // y (forward) or dx (backward)
-  float* partials;          // [slabs][2C] stats-stage partials
+  float* partials;          // [slabs][2C] stats partials
   float* stats;             // [2C + 1]: sum x, sum x^2, n (forward)
   float* sums;              // [2C]: sum g, sum g xhat (backward)
-  int* tickets;             // a ticket per channel tile, zero between launches
   const void* w;            // scale (null: 1)
   const void* b;            // bias (null: 0)
   float* rmean;             // running stats (null: not tracked)
   float* rvar;
-  float* mean;              // saved mean and rstd: written by the forward's
-  float* rstd;              // apply stage, read by the backward
+  float* mean;              // saved mean and rstd: written by the forward,
+  float* rstd;              // read by the backward
   float eps, momentum, one_minus_momentum;
   int w_dtype, b_dtype, training, fuse_relu;
 };
 
-// this thread's place: lane over channel vectors, lane over rows, the
-// first channel of its vector, and whether it has one
+// this thread's place in an item: lane over channel vectors, lane over
+// rows, the first channel of its vector, whether it has one, and the
+// item's rows [r0, r1)
 struct Lane {
-  int tx, ty, ty_n, c;
+  int tx, ty, ty_n, c, slab;
   bool in_block, active;
+  long long r0, r1;
 };
 
 template <int V>
-__device__ __forceinline__ Lane lane_of(const BnArgs& a) {
+__device__ __forceinline__ Lane lane_of(const BnArgs& a, long long item) {
   Lane l;
+  const int tile = (int)(item % a.tiles);
+  l.slab = (int)(item / a.tiles);
   l.tx = threadIdx.x % a.tx;
   l.ty = threadIdx.x / a.tx;
   l.ty_n = THREADS / a.tx;
   l.in_block = l.ty < l.ty_n;
-  const int cv = blockIdx.y * a.tx + l.tx;
-  l.c = cv * V;
+  l.c = (tile * a.tx + l.tx) * V;
   l.active = l.in_block && l.c < a.C;
+  l.r0 = (long long)l.slab * a.rows_per_slab;
+  l.r1 = l.r0 + a.rows_per_slab < a.rows ? l.r0 + a.rows_per_slab : a.rows;
   return l;
+}
+
+// the number of rows this thread takes in its item: r0 + ty + k ty_n
+__device__ __forceinline__ long long rows_of(const Lane& l) {
+  const long long first = l.r0 + l.ty;
+  return first < l.r1 ? (l.r1 - first + l.ty_n - 1) / l.ty_n : 0;
 }
 
 __device__ __forceinline__ int pow2_ceil(int n) {
@@ -204,7 +262,30 @@ __device__ __forceinline__ float affine(float xhat, float w, bool has_w, float b
   return has_b ? __fadd_rn(y, b) : y;
 }
 
-// the per-channel values of the backward and of the eval forward
+// a channel's mean, biased variance and rstd from its sums s and ss over n
+// rows
+__device__ __forceinline__ void from_sums(float s, float ss, float n, float eps, float& mean,
+                                          float& var, float& rstd) {
+  mean = __fdiv_rn(s, n);
+  var = __fsub_rn(__fdiv_rn(ss, n), __fmul_rn(mean, mean));
+  var = var < 0.0f ? 0.0f : var;  // a NaN stays, as jnp.maximum keeps it
+  rstd = rsqrtf(__fadd_rn(var, eps));
+}
+
+// the saved mean and rstd of a channel and, in training, its running stats
+// from their old values rm and rv (n the rows the statistics cover)
+__device__ __forceinline__ void save_channel(const BnArgs& a, int c, float mean, float var,
+                                             float rstd, float n, float rm, float rv) {
+  a.mean[c] = mean;
+  a.rstd[c] = rstd;
+  if (a.training && a.rmean) {
+    const float unbiased = __fdiv_rn(__fmul_rn(var, n), fmaxf(__fsub_rn(n, 1.0f), 1.0f));
+    a.rmean[c] = __fadd_rn(__fmul_rn(a.one_minus_momentum, rm), __fmul_rn(a.momentum, mean));
+    a.rvar[c] = __fadd_rn(__fmul_rn(a.one_minus_momentum, rv), __fmul_rn(a.momentum, unbiased));
+  }
+}
+
+// the per-channel values of the apply stages and of the backward's stats
 struct Chan {
   float mean[MAX_V], rstd[MAX_V], w[MAX_V], b[MAX_V];
 };
@@ -214,17 +295,18 @@ __device__ __forceinline__ void load_saved(const BnArgs& a, const Lane& l, Chan&
 #pragma unroll
   for (int k = 0; k < V; ++k) {
     const int c = l.c + k;
-    ch.mean[k] = a.mean[c];
-    ch.rstd[k] = a.rstd[c];
+    ch.mean[k] = __ldcg(a.mean + c);
+    ch.rstd[k] = __ldcg(a.rstd + c);
     ch.w[k] = load_param(a.w, a.w_dtype, c, 1.0f);
     ch.b[k] = load_param(a.b, a.b_dtype, c, 0.0f);
   }
 }
 
-// stats stages. BWD = false (K17 stage 1): a0 = sum x, a1 = sum x^2 into
-// stats[0, 2C) and n into stats[2C]. BWD = true (K18 stage 1): a0 = sum g,
-// a1 = sum g xhat into sums[0, 2C).
-template <typename T, int V, bool BWD>
+// ------------------------------------------------------------------ stats
+
+// BWD = false (K17): a0 = sum x, a1 = sum x^2. BWD = true (K18): a0 = sum
+// g, a1 = sum g xhat.
+template <int V, bool BWD>
 __device__ __forceinline__ void accumulate(const BnArgs& a, const Chan& ch, const float* xv,
                                            const float* gv, float* a0, float* a1) {
 #pragma unroll
@@ -243,130 +325,105 @@ __device__ __forceinline__ void accumulate(const BnArgs& a, const Chan& ch, cons
   }
 }
 
+// one item's [2C] partial: its rows in order, U in flight a thread, then
+// the tree over TY
 template <typename T, int V, bool BWD>
-__global__ void __launch_bounds__(THREADS) bn_stats_kernel(const BnArgs a) {
-  const Lane l = lane_of<V>(a);
+__device__ __forceinline__ void stats_item(const BnArgs& a, long long item) {
+  const Lane l = lane_of<V>(a, item);
   const int C = a.C;
   Chan ch;
   if (BWD && l.active) load_saved<V>(a, l, ch);
   float a0[V], a1[V];
 #pragma unroll
   for (int k = 0; k < V; ++k) a0[k] = a1[k] = 0.0f;
-  const long long r0 = (long long)blockIdx.x * a.rows_per_slab;
-  const long long r1 = r0 + a.rows_per_slab < a.rows ? r0 + a.rows_per_slab : a.rows;
   if (l.active) {
     const T* x = reinterpret_cast<const T*>(a.x) + l.c;
     const T* dy = BWD ? reinterpret_cast<const T*>(a.dy) + l.c : nullptr;
-    const long long step = l.ty_n;
-    constexpr int U = BWD ? 2 : 4;  // rows in flight a thread
-    long long r = r0 + l.ty;
-    for (; r + (U - 1) * step < r1; r += U * step) {
+    const long long step = l.ty_n, n = rows_of(l);
+    constexpr int U = BWD ? 4 : 8;  // rows in flight a thread
+    long long r = l.r0 + l.ty, k = 0;
+    for (; k + U <= n; k += U, r += U * step) {
       float xv[U][V], gv[U][V];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        load_vec<T, V>(x + (r + u * step) * C, xv[u]);
-        if (BWD) load_vec<T, V>(dy + (r + u * step) * C, gv[u]);
+        load_vec<T, V, false>(x + (r + u * step) * C, xv[u]);
+        if (BWD) load_vec<T, V, false>(dy + (r + u * step) * C, gv[u]);
       }
 #pragma unroll
-      for (int u = 0; u < U; ++u) accumulate<T, V, BWD>(a, ch, xv[u], gv[u], a0, a1);
+      for (int u = 0; u < U; ++u) accumulate<V, BWD>(a, ch, xv[u], gv[u], a0, a1);
     }
-    for (; r < r1; r += step) {
+    for (; k < n; ++k, r += step) {
       float xv[V], gv[V];
-      load_vec<T, V>(x + r * C, xv);
-      if (BWD) load_vec<T, V>(dy + r * C, gv);
-      accumulate<T, V, BWD>(a, ch, xv, gv, a0, a1);
+      load_vec<T, V, false>(x + r * C, xv);
+      if (BWD) load_vec<T, V, false>(dy + r * C, gv);
+      accumulate<V, BWD>(a, ch, xv, gv, a0, a1);
     }
   }
   reduce_over_rows<V>(l, a.tx, a0, a1);
   if (l.active && l.ty == 0) {
-    float* part = a.partials + (long long)blockIdx.x * 2 * C;
+    float* part = a.partials + (long long)l.slab * 2 * C;
 #pragma unroll
     for (int k = 0; k < V; ++k) {
       part[l.c + k] = a0[k];
       part[C + l.c + k] = a1[k];
     }
   }
-  // the tile's last block sums every slab's partial in slab order
-  __shared__ int last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(a.tickets + blockIdx.y, 1) == (int)gridDim.x - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-#pragma unroll
-  for (int k = 0; k < V; ++k) a0[k] = a1[k] = 0.0f;
-  if (l.active) {
-    for (int j = l.ty; j < (int)gridDim.x; j += l.ty_n) {
-      const float* part = a.partials + (long long)j * 2 * C;
-#pragma unroll
-      for (int k = 0; k < V; ++k) {
-        a0[k] = __fadd_rn(a0[k], __ldcg(part + l.c + k));
-        a1[k] = __fadd_rn(a1[k], __ldcg(part + C + l.c + k));
-      }
-    }
-  }
-  reduce_over_rows<V>(l, a.tx, a0, a1);
-  float* out = BWD ? a.sums : a.stats;
-  if (l.active && l.ty == 0) {
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-      out[l.c + k] = a0[k];
-      out[C + l.c + k] = a1[k];
-    }
-  }
-  if (threadIdx.x == 0) {
-    if (!BWD && blockIdx.y == 0) a.stats[2 * C] = (float)a.rows;
-    a.tickets[blockIdx.y] = 0;
-  }
 }
 
-// K17 stage 2: the per-channel mean and rstd (from the stats in training,
-// the running stats in eval), the saved mean / rstd and the running-stat
-// update (the first slab), then y for every row of the slab
-template <typename T, int V>
-__global__ void __launch_bounds__(THREADS) bn_fwd_apply_kernel(const BnArgs a) {
-  const Lane l = lane_of<V>(a);
-  if (!l.active) return;
+// after the barrier: the slabs' partials of each channel summed by one
+// warp (lane l: slabs l, l + 32, ... in order; then a fixed xor
+// butterfly) into stats[0, 2C) and n into stats[2C] (forward) or into
+// sums[0, 2C) (backward); with FINISH the forward's warp also writes the
+// channel's saved mean and rstd and updates its running stats
+template <bool BWD, bool FINISH>
+__device__ __forceinline__ void reduce_slabs(const BnArgs& a) {
+  const int lane = threadIdx.x & 31;
+  const long long warps = (long long)gridDim.x * WARPS;
   const int C = a.C;
-  Chan ch;
-#pragma unroll
-  for (int k = 0; k < V; ++k) {
-    const int c = l.c + k;
-    float mean, var;
-    float n = 0.0f;
-    if (a.training) {
-      n = a.stats[2 * C];
-      mean = __fdiv_rn(a.stats[c], n);
-      var = __fsub_rn(__fdiv_rn(a.stats[C + c], n), __fmul_rn(mean, mean));
-      var = var < 0.0f ? 0.0f : var;  // a NaN stays, as jnp.maximum keeps it
-    } else {
-      mean = a.rmean[c];
-      var = a.rvar[c];
+  float* out = BWD ? a.sums : a.stats;
+  for (long long c = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5); c < C; c += warps) {
+    // the running stats' old values are read while the partials come in
+    float rm = 0.0f, rv = 0.0f;
+    if (!BWD && FINISH && lane == 0 && a.rmean) {
+      rm = a.rmean[c];
+      rv = a.rvar[c];
     }
-    ch.mean[k] = mean;
-    ch.rstd[k] = __frsqrt_rn(__fadd_rn(var, a.eps));
-    ch.w[k] = load_param(a.w, a.w_dtype, c, 1.0f);
-    ch.b[k] = load_param(a.b, a.b_dtype, c, 0.0f);
-    if (blockIdx.x == 0 && l.ty == 0) {
-      a.mean[c] = mean;
-      a.rstd[c] = ch.rstd[k];
-      if (a.training && a.rmean) {
-        const float unbiased = __fdiv_rn(__fmul_rn(var, n), fmaxf(__fsub_rn(n, 1.0f), 1.0f));
-        a.rmean[c] = __fadd_rn(__fmul_rn(a.one_minus_momentum, a.rmean[c]),
-                               __fmul_rn(a.momentum, mean));
-        a.rvar[c] = __fadd_rn(__fmul_rn(a.one_minus_momentum, a.rvar[c]),
-                              __fmul_rn(a.momentum, unbiased));
+    float s0 = 0.0f, s1 = 0.0f;
+    for (int j = lane; j < a.slabs; j += 32) {
+      const float* part = a.partials + (long long)j * 2 * C;
+      s0 = __fadd_rn(s0, __ldcg(part + c));
+      s1 = __fadd_rn(s1, __ldcg(part + C + c));
+    }
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) {
+      s0 = __fadd_rn(s0, __shfl_xor_sync(0xffffffffu, s0, m));
+      s1 = __fadd_rn(s1, __shfl_xor_sync(0xffffffffu, s1, m));
+    }
+    if (lane == 0) {
+      out[c] = s0;
+      out[C + c] = s1;
+      if (!BWD && FINISH) {
+        const float n = (float)a.rows;
+        float mean, var, rstd;
+        from_sums(s0, s1, n, a.eps, mean, var, rstd);
+        save_channel(a, (int)c, mean, var, rstd, n, rm, rv);
       }
     }
   }
+  if (!BWD && blockIdx.x == 0 && threadIdx.x == 0) a.stats[2 * C] = (float)a.rows;
+}
+
+// ------------------------------------------------------------------ apply
+
+// K17's apply of one item: y for its rows, in reverse order
+template <typename T, int V>
+__device__ __forceinline__ void fwd_apply_item(const BnArgs& a, const Lane& l, const Chan& ch) {
+  if (!l.active) return;
+  const int C = a.C;
   const bool has_w = a.w != nullptr, has_b = a.b != nullptr;
-  const long long r0 = (long long)blockIdx.x * a.rows_per_slab;
-  const long long r1 = r0 + a.rows_per_slab < a.rows ? r0 + a.rows_per_slab : a.rows;
   const T* x = reinterpret_cast<const T*>(a.x) + l.c;
   T* y = reinterpret_cast<T*>(a.out) + l.c;
-  const long long step = l.ty_n;
-  long long r = r0 + l.ty;
+  const long long step = l.ty_n, base = l.r0 + l.ty;
   auto one = [&](float* v) {  // x in, y out
 #pragma unroll
     for (int k = 0; k < V; ++k) {
@@ -375,31 +432,31 @@ __global__ void __launch_bounds__(THREADS) bn_fwd_apply_kernel(const BnArgs a) {
       v[k] = a.fuse_relu ? (t > 0.0f ? t : 0.0f) : t;
     }
   };
-  constexpr int U = 4;  // rows in flight a thread
-  for (; r + (U - 1) * step < r1; r += U * step) {
+  constexpr int U = 8;  // rows in flight a thread
+  long long k = rows_of(l);
+  for (; k >= U; k -= U) {
     float v[U][V];
 #pragma unroll
-    for (int u = 0; u < U; ++u) load_vec<T, V>(x + (r + u * step) * C, v[u]);
+    for (int u = 0; u < U; ++u) load_vec<T, V, true>(x + (base + (k - 1 - u) * step) * C, v[u]);
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       one(v[u]);
-      store_vec<T, V>(y + (r + u * step) * C, v[u]);
+      store_vec<T, V>(y + (base + (k - 1 - u) * step) * C, v[u]);
     }
   }
-  for (; r < r1; r += step) {
+  for (; k > 0; --k) {
     float v[V];
-    load_vec<T, V>(x + r * C, v);
+    load_vec<T, V, true>(x + (base + (k - 1) * step) * C, v);
     one(v);
-    store_vec<T, V>(y + r * C, v);
+    store_vec<T, V>(y + (base + (k - 1) * step) * C, v);
   }
 }
 
-// K18 stage 2: dx = (scale rstd) ((g - sum_g / n) - xhat (sum_gx / n)) in
-// training (the sums all-reduced, n the forward's count), (scale rstd) g
-// in eval
+// K18's apply of one item: dx = (scale rstd) ((g - sum_g / n) - xhat
+// (sum_gx / n)) in training (the sums all-reduced, n the forward's count),
+// (scale rstd) g in eval; its rows in reverse order
 template <typename T, int V>
-__global__ void __launch_bounds__(THREADS) bn_bwd_apply_kernel(const BnArgs a) {
-  const Lane l = lane_of<V>(a);
+__device__ __forceinline__ void bwd_apply_item(const BnArgs& a, const Lane& l) {
   if (!l.active) return;
   const int C = a.C;
   Chan ch;
@@ -411,20 +468,17 @@ __global__ void __launch_bounds__(THREADS) bn_bwd_apply_kernel(const BnArgs a) {
     const int c = l.c + k;
     k_[k] = has_w ? __fmul_rn(ch.w[k], ch.rstd[k]) : ch.rstd[k];
     if (a.training) {
-      const float n = a.stats[2 * C];
-      ga[k] = __fdiv_rn(a.sums[c], n);
-      gb[k] = __fdiv_rn(a.sums[C + c], n);
+      const float n = __ldcg(a.stats + 2 * C);
+      ga[k] = __fdiv_rn(__ldcg(a.sums + c), n);
+      gb[k] = __fdiv_rn(__ldcg(a.sums + C + c), n);
     } else {
       ga[k] = gb[k] = 0.0f;
     }
   }
-  const long long r0 = (long long)blockIdx.x * a.rows_per_slab;
-  const long long r1 = r0 + a.rows_per_slab < a.rows ? r0 + a.rows_per_slab : a.rows;
   const T* x = reinterpret_cast<const T*>(a.x) + l.c;
   const T* dy = reinterpret_cast<const T*>(a.dy) + l.c;
   T* dx = reinterpret_cast<T*>(a.out) + l.c;
-  const long long step = l.ty_n;
-  long long r = r0 + l.ty;
+  const long long step = l.ty_n, base = l.r0 + l.ty;
   auto one = [&](const float* xv, float* g) {  // g in, dx out
 #pragma unroll
     for (int k = 0; k < V; ++k) {
@@ -435,66 +489,186 @@ __global__ void __launch_bounds__(THREADS) bn_bwd_apply_kernel(const BnArgs a) {
       g[k] = __fmul_rn(k_[k], t);
     }
   };
-  constexpr int U = 2;  // rows in flight a thread
-  for (; r + (U - 1) * step < r1; r += U * step) {
+  constexpr int U = 4;  // rows in flight a thread
+  long long k = rows_of(l);
+  for (; k >= U; k -= U) {
     float xv[U][V], gv[U][V];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      load_vec<T, V>(x + (r + u * step) * C, xv[u]);
-      load_vec<T, V>(dy + (r + u * step) * C, gv[u]);
+      const long long r = base + (k - 1 - u) * step;
+      load_vec<T, V, true>(x + r * C, xv[u]);
+      load_vec<T, V, true>(dy + r * C, gv[u]);
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       one(xv[u], gv[u]);
-      store_vec<T, V>(dx + (r + u * step) * C, gv[u]);
+      store_vec<T, V>(dx + (base + (k - 1 - u) * step) * C, gv[u]);
     }
   }
-  for (; r < r1; r += step) {
+  for (; k > 0; --k) {
+    const long long r = base + (k - 1) * step;
     float xv[V], gv[V];
-    load_vec<T, V>(x + r * C, xv);
-    load_vec<T, V>(dy + r * C, gv);
+    load_vec<T, V, true>(x + r * C, xv);
+    load_vec<T, V, true>(dy + r * C, gv);
     one(xv, gv);
     store_vec<T, V>(dx + r * C, gv);
   }
 }
 
-// dims: rows, C, V, tx, slabs, rows_per_slab; ptrs: x, dy, out, partials,
-// stats, sums, tickets, w, b, running_mean, running_var, mean, rstd (0 =
+// the forward's per-channel values of one item: the saved mean and rstd
+// (SAVED: the one-launch form, whose reducing warps wrote them), or
+// computed here from the stats or the running stats, the first slab
+// writing them and updating the running stats
+template <int V, bool SAVED>
+__device__ __forceinline__ Chan fwd_channels(const BnArgs& a, const Lane& l) {
+  Chan ch;
+  if (!l.active) return ch;
+  if (SAVED) {
+    load_saved<V>(a, l, ch);
+    return ch;
+  }
+  const float n = a.training ? __ldcg(a.stats + 2 * a.C) : 0.0f;
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int c = l.c + k;
+    float var;
+    if (a.training) {
+      from_sums(__ldcg(a.stats + c), __ldcg(a.stats + a.C + c), n, a.eps, ch.mean[k], var,
+                ch.rstd[k]);
+    } else {
+      ch.mean[k] = a.rmean[c];
+      var = a.rvar[c];
+      ch.rstd[k] = rsqrtf(__fadd_rn(var, a.eps));
+    }
+    ch.w[k] = load_param(a.w, a.w_dtype, c, 1.0f);
+    ch.b[k] = load_param(a.b, a.b_dtype, c, 0.0f);
+    if (l.slab == 0 && l.ty == 0)
+      save_channel(a, c, ch.mean[k], var, ch.rstd[k], n, a.rmean ? a.rmean[c] : 0.0f,
+                   a.rvar ? a.rvar[c] : 0.0f);
+  }
+  return ch;
+}
+
+// ---------------------------------------------------------------- kernels
+
+// a block's items: blockIdx.x, + gridDim.x, ...; the apply walks them
+// backwards
+__device__ __forceinline__ long long items_of(const BnArgs& a) {
+  return (long long)a.tiles * a.slabs;
+}
+__device__ __forceinline__ long long last_item(const BnArgs& a) {
+  const long long n = items_of(a), g = gridDim.x, b = blockIdx.x;
+  return b < n ? b + (n - 1 - b) / g * g : -1;
+}
+
+// the stats of the two-launch form (cooperative): K17 stage 1 (stats [2C
+// + 1] = sum x, sum x^2, n) or K18 stage 1 (sums [2C] = sum g, sum g xhat)
+template <typename T, int V, bool BWD>
+__global__ void __launch_bounds__(THREADS) bn_stats_kernel(const BnArgs a) {
+  for (long long i = blockIdx.x; i < items_of(a); i += gridDim.x) stats_item<T, V, BWD>(a, i);
+  __threadfence();
+  cg::this_grid().sync();
+  reduce_slabs<BWD, false>(a);
+}
+
+// K17 stage 2 of the two-launch form: y, the saved mean and rstd, the
+// running stats; also the eval forward (one launch, no stats)
+template <typename T, int V>
+__global__ void __launch_bounds__(THREADS) bn_fwd_apply_kernel(const BnArgs a) {
+  for (long long i = last_item(a); i >= 0; i -= gridDim.x) {
+    const Lane l = lane_of<V>(a, i);
+    fwd_apply_item<T, V>(a, l, fwd_channels<V, false>(a, l));
+  }
+}
+
+// K18 stage 2 of the two-launch form: dx
+template <typename T, int V>
+__global__ void __launch_bounds__(THREADS) bn_bwd_apply_kernel(const BnArgs a) {
+  for (long long i = last_item(a); i >= 0; i -= gridDim.x)
+    bwd_apply_item<T, V>(a, lane_of<V>(a, i));
+}
+
+// K17 in one launch (cooperative): the stats, the channels finished by
+// the reducing warps, then y in reverse order
+template <typename T, int V>
+__global__ void __launch_bounds__(THREADS) bn_fwd_kernel(const BnArgs a) {
+  for (long long i = blockIdx.x; i < items_of(a); i += gridDim.x) stats_item<T, V, false>(a, i);
+  __threadfence();
+  cg::this_grid().sync();
+  reduce_slabs<false, true>(a);
+  __threadfence();
+  cg::this_grid().sync();
+  for (long long i = last_item(a); i >= 0; i -= gridDim.x) {
+    const Lane l = lane_of<V>(a, i);
+    fwd_apply_item<T, V>(a, l, fwd_channels<V, true>(a, l));
+  }
+}
+
+// K18 in one launch (cooperative): the sums, then dx in reverse order
+template <typename T, int V>
+__global__ void __launch_bounds__(THREADS) bn_bwd_kernel(const BnArgs a) {
+  for (long long i = blockIdx.x; i < items_of(a); i += gridDim.x) stats_item<T, V, true>(a, i);
+  __threadfence();
+  cg::this_grid().sync();
+  reduce_slabs<true, false>(a);
+  __threadfence();
+  cg::this_grid().sync();
+  for (long long i = last_item(a); i >= 0; i -= gridDim.x)
+    bwd_apply_item<T, V>(a, lane_of<V>(a, i));
+}
+
+// the kernels by kind (0 fwd stats, 1 fwd apply, 2 bwd stats, 3 bwd
+// apply, 4 fwd one launch, 5 bwd one launch) and whether each is
+// cooperative
+template <typename T, int V>
+const void* kernel_of(int kind) {
+  switch (kind) {
+    case 0: return (const void*)bn_stats_kernel<T, V, false>;
+    case 1: return (const void*)bn_fwd_apply_kernel<T, V>;
+    case 2: return (const void*)bn_stats_kernel<T, V, true>;
+    case 3: return (const void*)bn_bwd_apply_kernel<T, V>;
+    case 4: return (const void*)bn_fwd_kernel<T, V>;
+    default: return (const void*)bn_bwd_kernel<T, V>;
+  }
+}
+constexpr bool cooperative(int kind) { return kind != 1 && kind != 3; }
+
+// dims: rows, C, V, tx, slabs, rows_per_slab, grid; ptrs: x, dy, out,
+// partials, stats, sums, w, b, running_mean, running_var, mean, rstd (0 =
 // null); hyper: eps, momentum, 1 - momentum; flags: dtype, w_dtype,
 // b_dtype, training, fuse_relu
-cudaError_t args_of(BnArgs& a, int& dtype, int& V, int& slabs, int& tiles,
-                    const long long* dims, const long long* ptrs, const float* hyper,
-                    const int* flags) {
+cudaError_t args_of(BnArgs& a, int& dtype, int& V, int& grid, const long long* dims,
+                    const long long* ptrs, const float* hyper, const int* flags) {
   memset(&a, 0, sizeof(a));
   a.rows = dims[0];
   const long long C = dims[1];
   V = (int)dims[2];
   a.tx = (int)dims[3];
-  slabs = (int)dims[4];
+  const long long slabs = dims[4];
   a.rows_per_slab = dims[5];
+  const long long g = dims[6];
   dtype = flags[0];
   if (a.rows < 1 || C < 1 || C > (1 << 24) || a.tx < 1 || a.tx > 32 || slabs < 1 ||
-      slabs > 65535 * 16 || a.rows_per_slab < 1 ||
-      (long long)slabs * a.rows_per_slab < a.rows || dtype < 0 || dtype > 2 ||
-      (V != 1 && V != (dtype == 2 ? 4 : 8)) || C % V != 0)
+      slabs > (1 << 24) || a.rows_per_slab < 1 || slabs * a.rows_per_slab < a.rows ||
+      (slabs - 1) * a.rows_per_slab >= a.rows || g < 1 || g > (1 << 24) || dtype < 0 ||
+      dtype > 2 || (V != 1 && V != (dtype == 2 ? 4 : 8)) || C % V != 0)
     return cudaErrorInvalidValue;
   a.C = (int)C;
-  const int cvec = a.C / V;
-  tiles = (cvec + a.tx - 1) / a.tx;
-  if (tiles > 65535) return cudaErrorInvalidValue;
+  a.slabs = (int)slabs;
+  a.tiles = (a.C / V + a.tx - 1) / a.tx;
+  grid = (int)g;
   a.x = reinterpret_cast<const void*>(ptrs[0]);
   a.dy = reinterpret_cast<const void*>(ptrs[1]);
   a.out = reinterpret_cast<void*>(ptrs[2]);
   a.partials = reinterpret_cast<float*>(ptrs[3]);
   a.stats = reinterpret_cast<float*>(ptrs[4]);
   a.sums = reinterpret_cast<float*>(ptrs[5]);
-  a.tickets = reinterpret_cast<int*>(ptrs[6]);
-  a.w = reinterpret_cast<const void*>(ptrs[7]);
-  a.b = reinterpret_cast<const void*>(ptrs[8]);
-  a.rmean = reinterpret_cast<float*>(ptrs[9]);
-  a.rvar = reinterpret_cast<float*>(ptrs[10]);
-  a.mean = reinterpret_cast<float*>(ptrs[11]);
-  a.rstd = reinterpret_cast<float*>(ptrs[12]);
+  a.w = reinterpret_cast<const void*>(ptrs[6]);
+  a.b = reinterpret_cast<const void*>(ptrs[7]);
+  a.rmean = reinterpret_cast<float*>(ptrs[8]);
+  a.rvar = reinterpret_cast<float*>(ptrs[9]);
+  a.mean = reinterpret_cast<float*>(ptrs[10]);
+  a.rstd = reinterpret_cast<float*>(ptrs[11]);
   a.eps = hyper[0];
   a.momentum = hyper[1];
   a.one_minus_momentum = hyper[2];
@@ -546,71 +720,101 @@ cudaError_t args_of(BnArgs& a, int& dtype, int& V, int& slabs, int& tiles,
     } break;                                                          \
   }
 
-// K17 stage 1: stats [2C + 1] = sum x, sum x^2, n
+namespace {
+
+// launch kernel `kind` on the plan in dims, cooperatively where it has a
+// grid-wide barrier (the grid is then at most what the card holds at once:
+// the launch refuses it otherwise)
+cudaError_t launch(int kind, const long long* dims, const long long* ptrs, const float* hyper,
+                   const int* flags, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  BnArgs a;
+  int dtype, V, grid;
+  err = args_of(a, dtype, V, grid, dims, ptrs, hyper, flags);
+  if (err != cudaSuccess) return err;
+  const bool fwd = kind == 0 || kind == 1 || kind == 4;
+  if (kind != 0 && (!a.mean || !a.rstd)) return cudaErrorInvalidValue;
+  if ((kind == 0 || kind == 4) && (!a.partials || !a.stats)) return cudaErrorInvalidValue;
+  if ((kind == 1 || kind == 4) && !a.out) return cudaErrorInvalidValue;
+  if (kind == 1 && ((a.training && !a.stats) || (!a.training && !a.rmean)))
+    return cudaErrorInvalidValue;
+  if (kind == 4 && !a.training) return cudaErrorInvalidValue;
+  if (!fwd && !a.dy) return cudaErrorInvalidValue;
+  if ((kind == 2 || kind == 5) && (!a.partials || !a.sums)) return cudaErrorInvalidValue;
+  if ((kind == 3 || kind == 5) && (!a.out || (a.training && (!a.sums || !a.stats))))
+    return cudaErrorInvalidValue;
+  const void* fn = nullptr;
+  BN_DISPATCH(dtype, V, fn = kernel_of<T, V>(kind))
+  void* args[] = {&a};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)grid);
+  cfg.blockDim = dim3(THREADS);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cooperative(kind) ? 1 : 0;
+  err = cudaLaunchKernelExC(&cfg, fn, args);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+}  // namespace
+
+// K17 stage 1 of the two-launch form: stats [2C + 1] = sum x, sum x^2, n
 extern "C" int bn_fwd_stats(const long long* dims, const long long* ptrs, const float* hyper,
                             const int* flags, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  BnArgs a;
-  int dtype, V, slabs, tiles;
-  err = args_of(a, dtype, V, slabs, tiles, dims, ptrs, hyper, flags);
-  if (err != cudaSuccess) return (int)err;
-  if (!a.partials || !a.stats || !a.tickets) return (int)cudaErrorInvalidValue;
-  const dim3 grid(slabs, tiles);
-  cudaStream_t st = (cudaStream_t)stream;
-  BN_DISPATCH(dtype, V, bn_stats_kernel<T, V, false><<<grid, THREADS, 0, st>>>(a))
-  return (int)cudaGetLastError();
+  return (int)launch(0, dims, ptrs, hyper, flags, device, stream);
 }
 
 // K17 stage 2: y, the saved mean and rstd, the running stats in place
+// (training, from the all-reduced stats), or y from the running stats
+// (eval: the whole forward)
 extern "C" int bn_fwd_apply(const long long* dims, const long long* ptrs, const float* hyper,
                             const int* flags, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  BnArgs a;
-  int dtype, V, slabs, tiles;
-  err = args_of(a, dtype, V, slabs, tiles, dims, ptrs, hyper, flags);
-  if (err != cudaSuccess) return (int)err;
-  if (!a.out || !a.mean || !a.rstd || (a.training && !a.stats) || (!a.training && !a.rmean))
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(slabs, tiles);
-  cudaStream_t st = (cudaStream_t)stream;
-  BN_DISPATCH(dtype, V, bn_fwd_apply_kernel<T, V><<<grid, THREADS, 0, st>>>(a))
-  return (int)cudaGetLastError();
+  return (int)launch(1, dims, ptrs, hyper, flags, device, stream);
 }
 
-// K18 stage 1: sums [2C] = sum g, sum g xhat
+// K18 stage 1 of the two-launch form: sums [2C] = sum g, sum g xhat
 extern "C" int bn_bwd_stats(const long long* dims, const long long* ptrs, const float* hyper,
                             const int* flags, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  BnArgs a;
-  int dtype, V, slabs, tiles;
-  err = args_of(a, dtype, V, slabs, tiles, dims, ptrs, hyper, flags);
-  if (err != cudaSuccess) return (int)err;
-  if (!a.dy || !a.partials || !a.sums || !a.tickets || !a.mean || !a.rstd)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(slabs, tiles);
-  cudaStream_t st = (cudaStream_t)stream;
-  BN_DISPATCH(dtype, V, bn_stats_kernel<T, V, true><<<grid, THREADS, 0, st>>>(a))
-  return (int)cudaGetLastError();
+  return (int)launch(2, dims, ptrs, hyper, flags, device, stream);
 }
 
-// K18 stage 2: dx
+// K18 stage 2 of the two-launch form: dx
 extern "C" int bn_bwd_apply(const long long* dims, const long long* ptrs, const float* hyper,
                             const int* flags, int device, void* stream) {
+  return (int)launch(3, dims, ptrs, hyper, flags, device, stream);
+}
+
+// K17 in one launch (training on one rank): stats, the saved mean and
+// rstd, the running stats, y
+extern "C" int bn_fwd(const long long* dims, const long long* ptrs, const float* hyper,
+                      const int* flags, int device, void* stream) {
+  return (int)launch(4, dims, ptrs, hyper, flags, device, stream);
+}
+
+// K18 in one launch (one rank): sums and dx
+extern "C" int bn_bwd(const long long* dims, const long long* ptrs, const float* hyper,
+                      const int* flags, int device, void* stream) {
+  return (int)launch(5, dims, ptrs, hyper, flags, device, stream);
+}
+
+// the blocks of kernel `kind` (bn_* above: 0 fwd stats, 1 fwd apply, 2 bwd
+// stats, 3 bwd apply, 4 fwd, 5 bwd) for dtype code `dtype` and vector
+// width `vec` that one SM holds at once, into *blocks
+extern "C" int bn_resident(int kind, int dtype, int vec, int* blocks, int device,
+                           void* stream) {
+  (void)stream;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  BnArgs a;
-  int dtype, V, slabs, tiles;
-  err = args_of(a, dtype, V, slabs, tiles, dims, ptrs, hyper, flags);
-  if (err != cudaSuccess) return (int)err;
-  if (!a.dy || !a.out || !a.mean || !a.rstd || (a.training && (!a.sums || !a.stats)))
+  if (!blocks || kind < 0 || kind > 5 || dtype < 0 || dtype > 2 ||
+      (vec != 1 && vec != (dtype == 2 ? 4 : 8)))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(slabs, tiles);
-  cudaStream_t st = (cudaStream_t)stream;
-  BN_DISPATCH(dtype, V, bn_bwd_apply_kernel<T, V><<<grid, THREADS, 0, st>>>(a))
-  return (int)cudaGetLastError();
+  const void* fn = nullptr;
+  BN_DISPATCH(dtype, vec, fn = kernel_of<T, V>(kind))
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, THREADS, 0);
 }
 
 extern "C" const char* batch_norm_error_string(int err) {

@@ -44,6 +44,13 @@
 //    past it (ld.global.cs). A tail of 16-column steps past the last full
 //    chunk (K a multiple of 16, not of 64) takes columns 16 u + 4 t. A sum
 //    over k does not depend on which k sits in which slot.
+//  - Any K. Where K is not a multiple of 16 (or x or wq is not 16-byte
+//    aligned) a weight row is not 16-byte aligned, so the body takes its
+//    element-load form (body 2; ops/qmatmul_cuda.plan's "tc_narrow"): the
+//    same chunks, k order, mma and combine, each lane's 16 weight bytes and
+//    16 x values loaded one at a time, and the chunk that holds K's last K
+//    % 64 columns read in the full chunks' order with every column at K or
+//    past it zero in both operands, so it adds nothing. x is never padded.
 //  - Parallelism. A warp takes one 16-channel tile and one piece of K; a
 //    block of 4 warps takes 4 / S tiles and S pieces of each, a cluster of
 //    C blocks (along grid.y) C x S pieces. The grid's z walks groups of 8
@@ -80,6 +87,10 @@
 // 16) of a chunk, its weight bytes one 16-byte load a row a chunk ahead;
 // 4 x 8 fp32 accumulators a lane, summed over the warp by an xor butterfly.
 //
+// It takes any K the same way: a 16-byte load where a lane's 16 columns
+// lie before K and the row is aligned there, else byte loads with zeros at
+// K and past it (x likewise).
+//
 // Every weight byte is read once (B <= 32 for tc, 8 for simt), no
 // dequantized weight is written, and the two bodies agree with the plain
 // version within a measured relative L2 (tests/port/kernel_l2_errors.py:
@@ -104,6 +115,7 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace cg = cooperative_groups;
 
@@ -182,16 +194,20 @@ __device__ __forceinline__ uint32_t ld_w4(const int8_t* p) {
 }
 
 // A warp's piece of K: full chunks [c_lo, c_lo + nfull) and, for the last
-// piece, `tail` 16-column steps past the last full chunk
+// piece, `tail` 16-column steps past the last full chunk (WIDE: K a
+// multiple of 16; else the steps that cover K's last K % 64 columns, the
+// rest zero)
 struct Piece {
   int c_lo, nfull, tail;
 };
 
+template <bool WIDE>
 __device__ __forceinline__ Piece piece_of(int p, int P, int K) {
   const int n64 = K / CHUNK;
   const int c_lo = (int)((long long)p * n64 / P);
   const int c_hi = (int)((long long)(p + 1) * n64 / P);
-  return {c_lo, c_hi - c_lo, p == P - 1 ? (K % CHUNK) / STEP : 0};
+  const int rest = K % CHUNK;
+  return {c_lo, c_hi - c_lo, p == P - 1 ? (WIDE ? rest / STEP : (rest + STEP - 1) / STEP) : 0};
 }
 
 // one chunk of a lane's operands: its words of weight rows g (a) and g + 8
@@ -232,11 +248,48 @@ __device__ __forceinline__ void load_x(const T* const (&xrow)[NT], int col, bool
   }
 }
 
-// chunk j of the piece: the weight words and the x fragments
-template <typename T, int NT>
+// the 16 weight bytes at p + col (those at K or past it zero), one byte
+// load each: a row of a K that is not a multiple of 16 is not 16-byte
+// aligned
+__device__ __forceinline__ uint4 load_w_bytes(const int8_t* p, int col, int K) {
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    if (col + i < K) w[i / 4] |= (uint32_t)(uint8_t)p[col + i] << (8 * (i % 4));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// the 16 x values at p + col (those at K or past it zero), one load each
+template <typename T>
+__device__ __forceinline__ void load_x_elems(const T* p, int col, int K, uint4 (&xf)[2]) {
+  T v[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) v[i] = col + i < K ? p[col + i] : from_f<T>(0.0f);
+  memcpy(xf, v, sizeof(v));
+}
+
+// chunk j of the piece: the weight words and the x fragments. WIDE: 16-byte
+// weight loads and x as load_x reads it; else (any K) every chunk, the
+// last one too, in the full chunks' column order, by element loads, the
+// columns at K or past it zero
+template <typename T, int NT, bool WIDE>
 __device__ __forceinline__ void load_chunk(const int8_t* wa, const int8_t* wb,
                                            const T* const (&xrow)[NT], const Piece& pc,
                                            int K, int t, int j, Chunk<NT>& c) {
+  if constexpr (!WIDE) {
+    const int col = (pc.c_lo + j) * CHUNK + 16 * t;
+    c.a = load_w_bytes(wa, col, K);
+    c.b = load_w_bytes(wb, col, K);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      if (xrow[n] == nullptr) {
+        c.x[n][0] = c.x[n][1] = make_uint4(0u, 0u, 0u, 0u);
+      } else {
+        load_x_elems<T>(xrow[n], col, K, c.x[n]);
+      }
+    }
+    return;
+  }
   const int col = chunk_col(pc, K, t, j);
   if (j < pc.nfull) {
     const int4 va = __ldcs(reinterpret_cast<const int4*>(wa + col));
@@ -284,8 +337,9 @@ __device__ __forceinline__ void use_chunk(const Chunk<NT>& c, int steps,
     for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
 }
 
-// D: chunks a lane keeps in flight, weights and x (the plan's depth)
-template <typename T, int NT, int D>
+// D: chunks a lane keeps in flight, weights and x (the plan's depth);
+// WIDE: 16-byte loads (K a multiple of 16, rows 16-byte aligned)
+template <typename T, int NT, int D, bool WIDE>
 __device__ __forceinline__ void tc_body(const T* __restrict__ x, const int8_t* __restrict__ wq,
                                         const float* __restrict__ scale, T* __restrict__ y,
                                         int B, int N, int K, int S, int C) {
@@ -298,7 +352,7 @@ __device__ __forceinline__ void tc_body(const T* __restrict__ x, const int8_t* _
   const bool live = n0 < N;
   const int b0 = blockIdx.z * TILE_B * NT;
   const int P = S * C;
-  const Piece pc = piece_of(rank * S + s, P, K);
+  const Piece pc = piece_of<WIDE>(rank * S + s, P, K);
   const int total = live ? pc.nfull + (pc.tail > 0) : 0;
   // a channel past N reads the last row again; its sums are not written
   const int8_t* wa = wq + (long long)min(n0 + g, N - 1) * K;
@@ -330,15 +384,15 @@ __device__ __forceinline__ void tc_body(const T* __restrict__ x, const int8_t* _
   Chunk<NT> ring[D];
 #pragma unroll
   for (int d = 0; d < D; ++d)
-    if (d < total) load_chunk<T, NT>(wa, wb, xrow, pc, K, t, d, ring[d]);
+    if (d < total) load_chunk<T, NT, WIDE>(wa, wb, xrow, pc, K, t, d, ring[d]);
   for (int j0 = 0; j0 < total; j0 += D) {
 #pragma unroll
     for (int d = 0; d < D; ++d) {
       const int j = j0 + d;
       if (j < total) {
         const Chunk<NT> c = ring[d];
-        if (j + D < total) load_chunk<T, NT>(wa, wb, xrow, pc, K, t, j + D, ring[d]);
-        use_chunk<T, NT>(c, j < pc.nfull ? 4 : pc.tail, acc);
+        if (j + D < total) load_chunk<T, NT, WIDE>(wa, wb, xrow, pc, K, t, j + D, ring[d]);
+        use_chunk<T, NT>(c, j < pc.nfull || !WIDE ? 4 : pc.tail, acc);
       }
     }
   }
@@ -386,10 +440,11 @@ __device__ __forceinline__ void tc_body(const T* __restrict__ x, const int8_t* _
 
 // ---------------------------------------------------------------- simt
 
-// 16 consecutive floats from src: 16-byte loads where src is 16-byte
-// aligned, else element loads
-__device__ __forceinline__ void load16(const float* src, float (&v)[VEC]) {
-  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+// the first n (at most 16) of 16 consecutive floats from src, the rest
+// zero: 16-byte loads where all 16 are wanted and src is 16-byte aligned,
+// else element loads
+__device__ __forceinline__ void load16(const float* src, int n, float (&v)[VEC]) {
+  if (n >= VEC && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const float4 f = __ldg(reinterpret_cast<const float4*>(src) + q);
@@ -397,7 +452,7 @@ __device__ __forceinline__ void load16(const float* src, float (&v)[VEC]) {
     }
   } else {
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) v[j] = src[j];
+    for (int j = 0; j < VEC; ++j) v[j] = j < n ? src[j] : 0.0f;
   }
 }
 
@@ -408,18 +463,28 @@ __device__ __forceinline__ float byte_f(unsigned biased, int k) {
   return __int_as_float(__byte_perm(biased, 0x4B000000u, 0x7440u | k)) - 8388736.0f;
 }
 
-// this lane's 16 bytes of each of the warp's four rows in the chunk at c0
+// this lane's 16 bytes of each of the warp's four rows in the chunk at c0:
+// one 16-byte load where the row is 16-byte aligned there and all 16 lie
+// before K, else byte loads, the bytes at K or past it zero
 __device__ __forceinline__ void load_w(const int8_t* wq, int n0, int N, int K, int c0,
                                        int lane, unsigned (&w)[RPW][4]) {
 #pragma unroll
   for (int r = 0; r < RPW; ++r) {
     // a channel past N reads the last row again; its sums are not written
-    const int8_t* src = wq + (long long)min(n0 + r, N - 1) * K + c0 + lane * VEC;
-    const int4 v = __ldcs(reinterpret_cast<const int4*>(src));
-    w[r][0] = (unsigned)v.x ^ 0x80808080u;
-    w[r][1] = (unsigned)v.y ^ 0x80808080u;
-    w[r][2] = (unsigned)v.z ^ 0x80808080u;
-    w[r][3] = (unsigned)v.w ^ 0x80808080u;
+    const long long row = (long long)min(n0 + r, N - 1) * K;
+    const int col = c0 + lane * VEC;
+    const int8_t* src = wq + row + col;
+    uint4 v;
+    if (col + VEC <= K && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+      const int4 q = __ldcs(reinterpret_cast<const int4*>(src));
+      v = make_uint4(q.x, q.y, q.z, q.w);
+    } else {
+      v = load_w_bytes(wq + row, col, K);
+    }
+    w[r][0] = v.x ^ 0x80808080u;
+    w[r][1] = v.y ^ 0x80808080u;
+    w[r][2] = v.z ^ 0x80808080u;
+    w[r][3] = v.w ^ 0x80808080u;
   }
 }
 
@@ -450,7 +515,7 @@ __device__ __forceinline__ void simt_body(const float* __restrict__ x,
     if (mine) {
       for (int b = warp; b < nb; b += WARPS) {
         float v[VEC];
-        load16(x + (long long)(b0 + b) * K + c0 + lane * VEC, v);
+        load16(x + (long long)(b0 + b) * K + c0 + lane * VEC, K - c0 - lane * VEC, v);
 #pragma unroll
         for (int j = 0; j < VEC; ++j) xs[(b * VEC + j) * PITCH + lane] = v[j];
       }
@@ -491,9 +556,9 @@ __device__ __forceinline__ void simt_body(const float* __restrict__ x,
 
 // ------------------------------------------------------------- kernels
 
-// NT = 0: the simt body (T = float); 1-4: the tc body with NT n-tiles and
-// D chunks in flight
-template <typename T, int NT, int D>
+// NT = 0: the simt body (T = float); 1-4: the tc body with NT n-tiles, D
+// chunks in flight and 16-byte loads (WIDE) or element loads
+template <typename T, int NT, int D, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 qmatmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ wq,
                const float* __restrict__ scale, T* __restrict__ y, int B, int N, int K,
@@ -501,11 +566,11 @@ qmatmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ wq,
   if constexpr (NT == 0) {
     simt_body(x, wq, scale, y, B, N, K);
   } else {
-    tc_body<T, NT, D>(x, wq, scale, y, B, N, K, S, C);
+    tc_body<T, NT, D, WIDE>(x, wq, scale, y, B, N, K, S, C);
   }
 }
 
-template <typename T, int NT, int D>
+template <typename T, int NT, int D, bool WIDE>
 cudaError_t launch_tc(const void* x, const int8_t* wq, const float* scale, void* y, int B,
                       int N, int K, int S, int C, cudaStream_t stream) {
   const long long tiles = (N + TILE_N - 1) / TILE_N, per = WARPS / S;
@@ -523,44 +588,56 @@ cudaError_t launch_tc(const void* x, const int8_t* wq, const float* scale, void*
   cfg.attrs = attr;
   cfg.numAttrs = C > 1 ? 1 : 0;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, qmatmul_kernel<T, NT, D>, static_cast<const T*>(x), wq, scale,
+      &cfg, qmatmul_kernel<T, NT, D, WIDE>, static_cast<const T*>(x), wq, scale,
       static_cast<T*>(y), B, N, K, S, C);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool WIDE>
 cudaError_t launch_tc_plan(const void* x, const int8_t* wq, const float* scale, void* y,
                            int B, int N, int K, int nt, int S, int C, int depth,
                            cudaStream_t st) {
   switch (nt * 10 + depth) {
-    case 14: return launch_tc<T, 1, 4>(x, wq, scale, y, B, N, K, S, C, st);
-    case 12: return launch_tc<T, 1, 2>(x, wq, scale, y, B, N, K, S, C, st);
-    case 24: return launch_tc<T, 2, 4>(x, wq, scale, y, B, N, K, S, C, st);
-    case 22: return launch_tc<T, 2, 2>(x, wq, scale, y, B, N, K, S, C, st);
-    case 32: return launch_tc<T, 3, 2>(x, wq, scale, y, B, N, K, S, C, st);
-    default: return launch_tc<T, 4, 2>(x, wq, scale, y, B, N, K, S, C, st);
+    case 14: return launch_tc<T, 1, 4, WIDE>(x, wq, scale, y, B, N, K, S, C, st);
+    case 12: return launch_tc<T, 1, 2, WIDE>(x, wq, scale, y, B, N, K, S, C, st);
+    case 24: return launch_tc<T, 2, 4, WIDE>(x, wq, scale, y, B, N, K, S, C, st);
+    case 22: return launch_tc<T, 2, 2, WIDE>(x, wq, scale, y, B, N, K, S, C, st);
+    case 32: return launch_tc<T, 3, 2, WIDE>(x, wq, scale, y, B, N, K, S, C, st);
+    default: return launch_tc<T, 4, 2, WIDE>(x, wq, scale, y, B, N, K, S, C, st);
   }
+}
+
+template <typename T>
+cudaError_t launch_tc_body(bool wide, const void* x, const int8_t* wq, const float* scale,
+                           void* y, int B, int N, int K, int nt, int S, int C, int depth,
+                           cudaStream_t st) {
+  return wide ? launch_tc_plan<T, true>(x, wq, scale, y, B, N, K, nt, S, C, depth, st)
+              : launch_tc_plan<T, false>(x, wq, scale, y, B, N, K, nt, S, C, depth, st);
 }
 
 cudaError_t launch_simt(const void* x, const int8_t* wq, const float* scale, void* y, int B,
                         int N, int K, cudaStream_t stream) {
   const dim3 grid((N + COLS - 1) / COLS, (B + ROWS - 1) / ROWS);
-  qmatmul_kernel<float, 0, 0><<<grid, THREADS, 0, stream>>>(
+  qmatmul_kernel<float, 0, 0, false><<<grid, THREADS, 0, stream>>>(
       static_cast<const float*>(x), wq, scale, static_cast<float*>(y), B, N, K, 1, 1);
   return cudaGetLastError();
 }
 
-// the plan (ops/qmatmul_cuda.plan) this entry takes: body 0 (tc) for bf16
-// and fp16 x, 16-byte aligned, with 1-4 n-tiles, S in {1, 2, 4} pieces a
-// block, C in 1..8 blocks a cluster, S C pieces of at least one 64-column
-// chunk (one piece where K < 64), depth 2, or 4 at 1-2 n-tiles, at most
-// 65535 row groups; body 1 (simt) for fp32 x, nt = S = C = depth = 1, at
+// the plan (ops/qmatmul_cuda.plan) this entry takes: body 0 (tc, 16-byte
+// loads) for bf16 and fp16 x, K a multiple of 16, x and wq 16-byte
+// aligned, or body 2 (tc, element loads) for bf16 and fp16 x at any K and
+// alignment, each with 1-4 n-tiles, S in {1, 2, 4} pieces a block, C in
+// 1..8 blocks a cluster, S C pieces of at least one 64-column chunk (one
+// piece where K < 64), depth 2, or 4 at 1-2 n-tiles, at most 65535 row
+// groups; body 1 (simt) for fp32 x at any K, nt = S = C = depth = 1, at
 // most 65535 groups of 8 rows
-bool plan_ok(const void* x, int B, int K, int dtype, int body, int nt, int S, int C,
-             int depth) {
-  if (body == 0) {
+bool plan_ok(const void* x, const int8_t* wq, int B, int K, int dtype, int body, int nt, int S,
+             int C, int depth) {
+  if (body == 0 || body == 2) {
     const int pieces = K / CHUNK > 1 ? K / CHUNK : 1;
-    return (dtype == 0 || dtype == 1) && !(reinterpret_cast<uintptr_t>(x) & 15) &&
+    const bool wide_ok = K % STEP == 0 && !(reinterpret_cast<uintptr_t>(x) & 15) &&
+                         !(reinterpret_cast<uintptr_t>(wq) & 15);
+    return (dtype == 0 || dtype == 1) && (body == 2 || wide_ok) &&
            nt >= 1 && nt <= MAX_NT && (S == 1 || S == 2 || S == 4) && C >= 1 &&
            C <= MAX_CLUSTER && S * C <= pieces && (depth == 2 || (depth == 4 && nt <= 2)) &&
            (B + TILE_B * nt - 1) / (TILE_B * nt) <= 65535;
@@ -571,26 +648,25 @@ bool plan_ok(const void* x, int B, int K, int dtype, int body, int nt, int S, in
 
 }  // namespace
 
-// K23: x [B, K] (dtype 0 bf16, 1 fp16, 2 fp32), wq [N, K] int8 with K a
-// multiple of 16 and 16-byte aligned rows, scale [N] fp32, y [B, N] in x's
-// dtype; all contiguous. (body, nt, split, cluster, depth): the plan,
-// refused with cudaErrorInvalidValue where plan_ok does not hold
+// K23: x [B, K] (dtype 0 bf16, 1 fp16, 2 fp32), wq [N, K] int8 at any K,
+// scale [N] fp32, y [B, N] in x's dtype; all contiguous. (body, nt, split,
+// cluster, depth): the plan, refused with cudaErrorInvalidValue where
+// plan_ok does not hold
 extern "C" int qmatmul_w8a16(const void* x, const int8_t* wq, const float* scale, void* y,
                              int B, int N, int K, int dtype, int body, int nt, int split,
                              int cluster, int depth, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (!x || !wq || !scale || !y || B < 1 || N < 1 || K < STEP || K % STEP ||
-      (reinterpret_cast<uintptr_t>(wq) & 15) ||
-      !plan_ok(x, B, K, dtype, body, nt, split, cluster, depth))
+  if (!x || !wq || !scale || !y || B < 1 || N < 1 || K < 1 ||
+      !plan_ok(x, wq, B, K, dtype, body, nt, split, cluster, depth))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (body == 1) return (int)launch_simt(x, wq, scale, y, B, N, K, st);
   if (dtype == 0)
-    return (int)launch_tc_plan<__nv_bfloat16>(x, wq, scale, y, B, N, K, nt, split, cluster,
-                                              depth, st);
-  return (int)launch_tc_plan<__half>(x, wq, scale, y, B, N, K, nt, split, cluster, depth,
-                                     st);
+    return (int)launch_tc_body<__nv_bfloat16>(body == 0, x, wq, scale, y, B, N, K, nt, split,
+                                              cluster, depth, st);
+  return (int)launch_tc_body<__half>(body == 0, x, wq, scale, y, B, N, K, nt, split, cluster,
+                                     depth, st);
 }
 
 extern "C" const char* qmatmul_error_string(int err) {

@@ -21,8 +21,12 @@ has more than one rank:
 Each stage dispatches on the tensor's device: CUDA launches K17 (stage 1
 and 2 of the forward) or K18 (of the backward) through
 :mod:`apex_tpu_torch.ops.batch_norm_cuda`, the CPU runs the plain version
-beside it (``*_reference``). :class:`BatchNormFunction` puts the four
-stages behind one ``torch.autograd.Function``.
+beside it (``*_reference``). Where no all-reduce sits between the stages
+(the group has one rank) both stages run as one (:func:`fwd`,
+:func:`bwd`: one launch each on CUDA); a group of ranks takes the two
+stages with the all-reduce between them. :class:`BatchNormFunction` puts
+the stages behind one ``torch.autograd.Function`` and chooses the form by
+the group's size alone.
 
 ``flax_running=True`` keeps the running stats in flax's ``nn.BatchNorm``
 convention instead (the JAX package's DCGAN): ``running = momentum *
@@ -122,6 +126,28 @@ def bwd_apply_reference(x2d, dy2d, mean, rstd, weight, bias, sums, stats,
     return (k * g).to(x2d.dtype)
 
 
+def fwd_reference(x2d, weight, bias, running_mean, running_var, eps,
+                  momentum, fuse_relu):
+    """The plain one-launch K17 (training): stage 1, then stage 2 on its
+    stats; ``(y, mean, rstd, stats)``."""
+    stats = fwd_stats_reference(x2d)
+    y, mean, rstd = fwd_apply_reference(x2d, stats, weight, bias,
+                                        running_mean, running_var, eps,
+                                        momentum, True, fuse_relu)
+    return y, mean, rstd, stats
+
+
+def bwd_reference(x2d, dy2d, mean, rstd, weight, bias, stats, training,
+                  fuse_relu):
+    """The plain one-launch K18: stage 1, then stage 2 on its sums;
+    ``(dx, sums)``."""
+    sums = bwd_stats_reference(x2d, dy2d, mean, rstd, weight, bias,
+                               fuse_relu)
+    dx = bwd_apply_reference(x2d, dy2d, mean, rstd, weight, bias, sums,
+                             stats, training, fuse_relu)
+    return dx, sums
+
+
 def fwd_stats(x2d):
     """Stage 1 of the forward (K17 on CUDA)."""
     if x2d.is_cuda:
@@ -168,6 +194,31 @@ def bwd_apply(x2d, dy2d, mean, rstd, weight, bias, sums, stats, training,
                                stats, training, fuse_relu)
 
 
+def fwd(x2d, weight, bias, running_mean, running_var, eps, momentum,
+        fuse_relu):
+    """The training forward on one rank, both stages at once (K17 in one
+    launch on CUDA): ``(y, mean, rstd, stats)``."""
+    if x2d.is_cuda:
+        from apex_tpu_torch.ops import batch_norm_cuda
+
+        return batch_norm_cuda.fwd(x2d, weight, bias, running_mean,
+                                   running_var, eps, momentum, fuse_relu)
+    return fwd_reference(x2d, weight, bias, running_mean, running_var, eps,
+                         momentum, fuse_relu)
+
+
+def bwd(x2d, dy2d, mean, rstd, weight, bias, stats, training, fuse_relu):
+    """The backward on one rank, both stages at once (K18 in one launch on
+    CUDA): ``(dx, sums)``."""
+    if x2d.is_cuda:
+        from apex_tpu_torch.ops import batch_norm_cuda
+
+        return batch_norm_cuda.bwd(x2d, dy2d, mean, rstd, weight, bias,
+                                   stats, training, fuse_relu)
+    return bwd_reference(x2d, dy2d, mean, rstd, weight, bias, stats,
+                         training, fuse_relu)
+
+
 def group_size(group):
     """The ranks of ``group`` (None: no group, 1)."""
     if group is None or not dist.is_available() or not dist.is_initialized():
@@ -184,14 +235,18 @@ class BatchNormFunction(torch.autograd.Function):
     def forward(ctx, x2d, weight, bias, running_mean, running_var, eps,
                 momentum, training, fuse_relu, group, flax_running=False):
         stats = None
-        if training:
-            stats = fwd_stats(x2d)
-            if group_size(group) > 1:
-                dist.all_reduce(stats, group=group)
         flax = training and flax_running and running_mean is not None
-        y, mean, rstd = fwd_apply(
-            x2d, stats, weight, bias, None if flax else running_mean,
-            None if flax else running_var, eps, momentum, training, fuse_relu)
+        rm, rv = (None, None) if flax else (running_mean, running_var)
+        synced = group_size(group) > 1
+        if training and not synced:
+            y, mean, rstd, stats = fwd(x2d, weight, bias, rm, rv, eps,
+                                       momentum, fuse_relu)
+        else:
+            if training:
+                stats = fwd_stats(x2d)
+                dist.all_reduce(stats, group=group)
+            y, mean, rstd = fwd_apply(x2d, stats, weight, bias, rm, rv, eps,
+                                      momentum, training, fuse_relu)
         if flax:
             flax_running_update(stats, running_mean, running_var, momentum)
         ctx.save_for_backward(x2d, weight, bias, mean, rstd, stats)
@@ -204,16 +259,21 @@ class BatchNormFunction(torch.autograd.Function):
         training, fuse_relu, group = ctx.flags
         c = x2d.shape[1]
         dy = dy.contiguous()
-        sums = bwd_stats(x2d, dy, mean, rstd, weight, bias, fuse_relu)
+        synced = training and group_size(group) > 1
+        if synced:
+            sums = bwd_stats(x2d, dy, mean, rstd, weight, bias, fuse_relu)
+        else:
+            dx, sums = bwd(x2d, dy, mean, rstd, weight, bias, stats,
+                           training, fuse_relu)
         dweight = dbias = None
         if weight is not None and ctx.needs_input_grad[1]:
             dweight = sums[c:].to(weight.dtype, copy=True)
         if bias is not None and ctx.needs_input_grad[2]:
             dbias = sums[:c].to(bias.dtype, copy=True)
-        if training and group_size(group) > 1:
+        if synced:
             dist.all_reduce(sums, group=group)
-        dx = bwd_apply(x2d, dy, mean, rstd, weight, bias, sums, stats,
-                       training, fuse_relu)
+            dx = bwd_apply(x2d, dy, mean, rstd, weight, bias, sums, stats,
+                           training, fuse_relu)
         return (dx, dweight, dbias) + (None,) * 8
 
 

@@ -25,11 +25,12 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    "collectives_quantize": ([_P, _P, _P, _P, _P, _L, _L, _I, _P], _I),
-    "collectives_dequantize": ([_P, _P, _P, _L, _L, _L, _I, _F, _I, _P], _I),
+    "collectives_quantize": ([_P, _P, _P, _P, _P, _L, _L, _L, _I, _P], _I),
+    "collectives_dequantize": ([_P, _P, _P, _L, _L, _L, _L, _I, _F, _I, _P],
+                               _I),
     "collectives_error_string": ([_I], ctypes.c_char_p),
 }
-BLOCK = 128   # csrc/collectives.cu BLOCK: the kernels' only block size
+BLOCK = 128   # the codec's default block (ops/collectives.DEFAULT_BLOCK)
 
 
 def _check(name, t, dtype, dev, shape=None):
@@ -44,21 +45,24 @@ def _check(name, t, dtype, dev, shape=None):
 
 def quantize(x, residual=None, *, block=BLOCK):
     """K19 over fp32 ``x`` ``[R, n]`` or ``[n]`` (the residual, when
-    given, of the same shape): returns ``(q [..., nb, 128] int8, scales
+    given, of the same shape): returns ``(q [..., nb, block] int8, scales
     [..., nb] bf16, new_residual)``, the new residual a new tensor.
-    Without ``residual`` no residual is written (None)."""
+    Without ``residual`` no residual is written (None). ``block`` is any
+    positive number of elements a scale, as JAX's ``quantize_blocks``
+    takes."""
     name = "collectives quantize"
-    if block != BLOCK:
-        raise ValueError(f"{name}: block {block} (the kernel takes {BLOCK})")
+    if int(block) != block or block < 1:
+        raise ValueError(f"{name}: block {block!r} (want a positive int)")
+    block = int(block)
     if x.dim() not in (1, 2) or x.numel() == 0:
         raise ValueError(f"{name}: want a non-empty [n] or [R, n] tensor, "
                          f"got {tuple(x.shape)}")
     dev = x.device
     _check(name, x, torch.float32, dev)
     rows, n = (1, x.shape[0]) if x.dim() == 1 else tuple(x.shape)
-    nb = -(-n // BLOCK)
+    nb = -(-n // block)
     lead = tuple(x.shape[:-1])
-    q = torch.empty(lead + (nb, BLOCK), dtype=torch.int8, device=dev)
+    q = torch.empty(lead + (nb, block), dtype=torch.int8, device=dev)
     scales = torch.empty(lead + (nb,), dtype=torch.bfloat16, device=dev)
     rout = None
     if residual is not None:
@@ -68,33 +72,34 @@ def quantize(x, residual=None, *, block=BLOCK):
                   x.data_ptr(),
                   residual.data_ptr() if residual is not None else None,
                   rout.data_ptr() if rout is not None else None,
-                  q.data_ptr(), scales.data_ptr(), rows, n)
+                  q.data_ptr(), scales.data_ptr(), rows, n, block)
     quantize.launches += 1
     return q, scales, rout
 
 
 def dequantize_sum(q, scales, n, *, gather=False, divisor=None):
-    """K20 over ``q`` ``[W, nb, 128]`` int8 and ``scales`` ``[W, nb]``
-    bf16: the fp32 sum over W in rank order of each rank's first ``n``
-    dequantized values, ``[n]``, divided by ``divisor`` (a number; a true
-    division) when given; with ``gather`` their concatenation ``[W n]``."""
+    """K20 over ``q`` ``[W, nb, block]`` int8 (any block) and ``scales``
+    ``[W, nb]`` bf16: the fp32 sum over W in rank order of each rank's
+    first ``n`` dequantized values, ``[n]``, divided by ``divisor`` (a
+    number; a true division) when given; with ``gather`` their
+    concatenation ``[W n]``."""
     name = "collectives dequantize_sum"
-    if q.dim() != 3 or q.shape[2] != BLOCK:
-        raise ValueError(f"{name}: want q [W, nb, {BLOCK}], got "
+    if q.dim() != 3 or q.shape[2] < 1:
+        raise ValueError(f"{name}: want q [W, nb, block], got "
                          f"{tuple(q.shape)}")
     dev = q.device
-    world, nb = q.shape[0], q.shape[1]
+    world, nb, block = q.shape
     _check(name, q, torch.int8, dev)
     _check(name, scales, torch.bfloat16, dev, (world, nb))
-    if not 0 < n <= nb * BLOCK:
-        raise ValueError(f"{name}: n {n} outside (0, {nb * BLOCK}]")
+    if not 0 < n <= nb * block:
+        raise ValueError(f"{name}: n {n} outside (0, {nb * block}]")
     if divisor is not None and (gather or float(divisor) == 0.0):
         raise ValueError(f"{name}: a divisor needs the sum and is not 0")
     out = torch.empty((world * n,) if gather else (n,), dtype=torch.float32,
                       device=dev)
     _build.launch(_NAME, _SIGNATURES, "collectives_dequantize", dev,
                   q.data_ptr(), scales.data_ptr(), out.data_ptr(), world, nb,
-                  n, int(bool(gather)),
+                  n, block, int(bool(gather)),
                   0.0 if divisor is None else float(divisor))
     dequantize_sum.launches += 1
     return out

@@ -135,15 +135,19 @@ exits non-zero before the last line):
    recovered from its output (q = k = 0, V the identity in column blocks
    of the head dim) where the plain mask keeps and the segments agree,
    bit for bit, at head dims 64 (BERT-large's) and 128, fp32 and bf16.
-   Then ResNet-50's kernels: K17 (the batch-norm forward's two stages)
-   and K18 (the backward's) against their plain versions at ``BN_SHAPES``
-   (``[256, 64, 112, 112]`` with the fused ReLU, ``[256, 256, 56, 56]``,
-   ``[256, 2048, 7, 7]``, bf16, NHWC rows) and ``[32, 256, 56, 56]``
-   fp32: the sums and saved statistics within ``BN_STAT_TOL``, y and dx
-   by relative L2 within ``BN_L2_TOL``, each stats stage twice the same
-   bits; timed in turns with cuDNN's ``F.batch_norm`` (training, the
-   channels_last view) and its backward, bounded by x read once and y
-   written once (K18: x, dy once, dx once), ``by_shape``; and K16 (SGD,
+   Then ResNet-50's kernels: K17 (the batch-norm forward) and K18 (the
+   backward) in their one-launch forms against their plain versions at
+   ResNet-50's twelve shapes at b = 256 (``BN_STEP_SHAPES``, bf16, NHWC
+   rows, the 64-channel ones with the fused ReLU) and ``[32, 256, 56,
+   56]`` fp32, their two-launch forms at ``BN_MAIN_SHAPE`` and the fp32
+   shape: the sums and saved statistics within ``BN_STAT_TOL``, y and dx
+   by relative L2 within ``BN_L2_TOL``, each launch twice the same bits;
+   timed in turns with cuDNN's ``F.batch_norm`` (training, the
+   channels_last view) and its backward and, with ``--parent``, the
+   parent's two launches, after the standard and a clean flush, with
+   each shape's one-pass bound and two-pass floor and the step's sum
+   (``by_shape``, ``step_ms``); their registers and resident blocks; a
+   CUDA graph capturing the one-launch forms; and K16 (SGD,
    the O2 four-list form writing the bf16 copy) on ResNet-50's 161
    leaves in turns with ``torch.optim.SGD(fused=True).step``, bound 22
    bytes a parameter. Then the scale-out kernels
@@ -182,8 +186,8 @@ exits non-zero before the last line):
    program's variants (``phase_serving_variants``): the same trace
    served greedy and sampled (temperature 0.8, top-k 50, top-p 0.95, the
    seed the request id), over bf16 and int8 pages, by eager K = 1,
-   graphed K = 1 and graphed K = 4 (``decode_block``), bf16 greedy twice
-   in turns and the other pairs once each (``VARIANT_TURNS``), one prompt
+   graphed K = 1 and graphed K = 4 (``decode_block``), each pair once
+   (``VARIANT_TURNS`` names any to repeat in turns), one prompt
    a prefill batch (``VARIANT_ENGINE``): the runs of a pair must give the
    same tokens bit for bit, K2 (K2q) must be
    called through its wrapper (``_decode_calls``) x K x 12 times, and, in
@@ -206,7 +210,10 @@ exits non-zero before the last line):
    pre-dequantized weight (and, with ``--parent``, the parent's K23),
    the plain version's and the bound, summed over a decode step's 49
    launches for the row, beside one launch that moves 4 bytes timed the
-   same way; the tensor-core instantiations hold ``HMMA`` (phase 2).
+   same way; the tensor-core instantiations hold ``HMMA`` (phase 2); then
+   K23 at K 8, 24, 100 and 770 and an int8-weight engine at hidden 100
+   against its plain path (``phase_qmatmul_any_k``), and K19/K20 at
+   blocks 32, 64 and 256 bit for bit (``_codec_blocks``).
 5. training end to end: ``make_one_step`` over ``GPTModel`` at GPT-2-small
    width, b=8, s=1024, bf16, ``LossScaler()`` and
    ``fused_adam(learning_rate=1e-4)``, ids and labels from
@@ -586,10 +593,18 @@ DDP_GRAD_TOL = 1e-6
 # against the plain SGD over 7 steps of real gradients, step 4's loss
 # scale inf
 RESNET_AGREE = dict(batch=8, sgd_steps=7, overflow_step=3)
-# K17 / K18 against their plain versions at ResNet-50's batch-norm shapes
-# (NCHW, as rows [N H W, C] in channels_last), bf16, and one fp32 shape;
-# the first takes the fused ReLU (bn_init's and a stage-0 bn1's width)
-BN_SHAPES = ((256, 64, 112, 112), (256, 256, 56, 56), (256, 2048, 7, 7))
+# K17 / K18 against their plain versions at ResNet-50's twelve batch-norm
+# shapes at b = 256, 224^2 (NCHW, as rows [N H W, C] in channels_last;
+# models/resnet.py: the stride on conv2, 3/4/6/3 blocks), bf16, each with
+# the norms a step holds at it (53 in all), and one fp32 shape; the
+# 64-channel ones take the fused ReLU (bn_init's and the bn1/bn2 of a
+# stage-0 block)
+BN_STEP_SHAPES = (((256, 64, 112, 112), 1), ((256, 256, 56, 56), 4),
+                  ((256, 128, 56, 56), 1), ((256, 512, 28, 28), 5),
+                  ((256, 64, 56, 56), 6), ((256, 256, 28, 28), 1),
+                  ((256, 1024, 14, 14), 7), ((256, 128, 28, 28), 7),
+                  ((256, 512, 14, 14), 1), ((256, 2048, 7, 7), 4),
+                  ((256, 256, 14, 14), 11), ((256, 512, 7, 7), 5))
 BN_MAIN_SHAPE = (256, 256, 56, 56)
 BN_FP32_SHAPE = (32, 256, 56, 56)
 # relative L2 of K17's y and K18's dx against the plain versions, and the
@@ -659,14 +674,16 @@ def _time_in_turns(fn, lib_fn, flush, spread=None, spin=1_000_000):
 # with --parent DIR: the parent checkout's libraries of the sources whose
 # kernels a slice redesigned, built with this build's flags
 PARENT_SOURCES = ("xent", "softmax", "decode_attention", "layer_norm",
-                  "attention_bwd", "qmatmul")
+                  "attention_bwd", "qmatmul", "batch_norm")
 PARENT = {}
-# the parent's C entries where they differ from this tree's: K23's before
-# it took its plan (body, n-tiles, split, cluster, depth), called through
-# _parent_qmatmul
-PARENT_SIGNATURES = {"qmatmul": {
-    "qmatmul_w8a16": "ppppiiiiip",
-    "qmatmul_error_string": "i"}}
+# the parent's C entries where they differ from this tree's: K17's and
+# K18's two-stage entries before the one-launch forms (their dims and
+# pointers laid out for the slab grid and its tickets), called through
+# _parent_bn_fwd and _parent_bn_bwd
+PARENT_SIGNATURES = {"batch_norm": {
+    "bn_fwd_stats": "ppppip", "bn_fwd_apply": "ppppip",
+    "bn_bwd_stats": "ppppip", "bn_bwd_apply": "ppppip",
+    "batch_norm_error_string": "i"}}
 
 
 def _start_parent_build(root):
@@ -694,9 +711,10 @@ def _finish_parent_build(procs):
 
     from apex_tpu_torch.ops import (attention_bwd_cuda,
                                     decode_attention_cuda, layer_norm_cuda,
-                                    softmax_cuda, xent_cuda)
+                                    qmatmul_cuda, softmax_cuda, xent_cuda)
 
     sigs = {"xent": xent_cuda._SIGNATURES,
+            "qmatmul": qmatmul_cuda._SIGNATURES,
             "softmax": softmax_cuda._SIGNATURES,
             "decode_attention": decode_attention_cuda._SIGNATURES,
             "attention_bwd": attention_bwd_cuda._SIGNATURES,
@@ -1700,6 +1718,8 @@ TRACED_KERNELS = {
     "decode_attention_quant": r"decode_attention_split<[^>]*\btrue>",
     "softmax_fwd": r"softmax_fwd_kernel<",
     "softmax_fwd_long": r"softmax_fwd_long_(regs|smem|walk)<",
+    "batch_norm_fwd_one": r"bn_fwd_kernel<",
+    "batch_norm_bwd_one": r"bn_bwd_kernel<",
     "batch_norm_fwd_stats": r"bn_stats_kernel<[^>]*\bfalse>",
     "batch_norm_fwd_apply": r"bn_fwd_apply_kernel<",
     "batch_norm_bwd_stats": r"bn_stats_kernel<[^>]*\btrue>",
@@ -1864,9 +1884,10 @@ SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
 # unpacked prefills let the variants' tokens be compared bit for bit
 VARIANT_ENGINE = dict(ENGINE, prefill_requests=1)
 # the (pages, mode) pairs whose variants run a second time in reverse, in
-# turns with the first; the others run once, to keep the smoke's wall
-# under its limit
-VARIANT_TURNS = ("bf16 greedy",)
+# turns with the first; the others run once. None repeats: bf16 greedy's
+# second turn (~30 s) was cut to keep the smoke's wall under 812 s once
+# the batch-norm phase timed twelve shapes
+VARIANT_TURNS = ()
 
 
 def _variant_run(dev, cfg, params, kv_quant, sampled, k, graph,
@@ -2197,22 +2218,6 @@ def phase_paths_agree(engine, dev):
     if not worst <= LOGITS_BAND:
         raise AssertionError(f"kernel path logits off by {worst}")
     return kernel_logits
-
-
-def _parent_qmatmul(x, wq, scale):
-    """The parent's K23 through its own C entry (``PARENT_SIGNATURES``:
-    one CUDA-core body, no plan)."""
-    from apex_tpu_torch.ops import _build
-
-    (B, K), N = x.shape, wq.shape[0]
-    y = torch.empty((B, N), dtype=x.dtype, device=x.device)
-    lib = PARENT["qmatmul"]
-    rc = lib.qmatmul_w8a16(
-        x.data_ptr(), wq.data_ptr(), scale.data_ptr(), y.data_ptr(), B, N, K,
-        _build.DTYPE_CODES[x.dtype], x.device.index,
-        torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, "qmatmul", rc)
-    return y
 
 
 def _layer_norm_ptxas(p, hidden, backward):
@@ -3071,6 +3076,8 @@ def _training_counts():
             "multi_tensor_adam": multi_tensor_cuda.adam,
             "multi_tensor_lamb": multi_tensor_cuda.lamb,
             "multi_tensor_sgd": multi_tensor_cuda.sgd,
+            "batch_norm_fwd_one": batch_norm_cuda.fwd,
+            "batch_norm_bwd_one": batch_norm_cuda.bwd,
             "batch_norm_fwd_stats": batch_norm_cuda.fwd_stats,
             "batch_norm_fwd_apply": batch_norm_cuda.fwd_apply,
             "batch_norm_bwd_stats": batch_norm_cuda.bwd_stats,
@@ -5003,152 +5010,429 @@ def _stat_err(got, want):
             / want.abs().max().clamp(min=1e-30)).item()
 
 
-def _bn_check(dev, shape, dtype, fuse_relu, seed):
-    """K17's two stages and K18's against their plain versions at one
-    shape: the sums and the saved statistics within BN_STAT_TOL, y and dx
-    by relative L2 within BN_L2_TOL, two runs of each stats stage the
-    same bits. Returns the errors and the inputs."""
+def _bn_check(dev, shape, dtype, fuse_relu, seed, one_launch=True):
+    """K17 and K18 against their plain versions at one shape, in their
+    one-launch forms (one rank) or their two-launch forms (a group's,
+    the all-reduce between the stages): the stats and sums and the saved
+    statistics and running stats within BN_STAT_TOL, y and dx by relative
+    L2 within BN_L2_TOL, two runs of each launch the same bits. Returns
+    the errors and the inputs."""
     from apex_tpu_torch.ops import batch_norm as bn
     from apex_tpu_torch.ops import batch_norm_cuda as bnc
 
     x, dy, wt, b, rm, rv = _bn_rows(dev, shape, dtype, seed)
-    stats = bnc.fwd_stats(x)
-    repeat = _same_bits(stats, bnc.fwd_stats(x))
-    errs = {"stats": _stat_err(stats, bn.fwd_stats_reference(x))}
-    rm2, rv2 = rm.clone(), rv.clone()
-    y, mean, rstd = bnc.fwd_apply(x, stats, wt, b, rm, rv, 1e-5, 0.1, True,
-                                  fuse_relu)
+    rm1, rv1, rm2, rv2 = rm.clone(), rv.clone(), rm.clone(), rv.clone()
+    if one_launch:
+        y, mean, rstd, stats = bnc.fwd(x, wt, b, rm, rv, 1e-5, 0.1,
+                                       fuse_relu)
+        again = bnc.fwd(x, wt, b, rm1, rv1, 1e-5, 0.1, fuse_relu)
+        repeat = all(_same_bits(g, o) for g, o in zip(
+            (y, mean, rstd, stats, rm, rv), again + (rm1, rv1)))
+        del again
+    else:
+        stats = bnc.fwd_stats(x)
+        repeat = _same_bits(stats, bnc.fwd_stats(x))
+        y, mean, rstd = bnc.fwd_apply(x, stats, wt, b, rm, rv, 1e-5, 0.1,
+                                      True, fuse_relu)
+    # y, the saved statistics and the running stats from the kernel's own
+    # stats, which are held against the plain stats on their own
     ry, rmean, rrstd = bn.fwd_apply_reference(x, stats, wt, b, rm2, rv2,
                                               1e-5, 0.1, True, fuse_relu)
-    errs["mean_rstd_running"] = max(_stat_err(mean, rmean),
-                                    _stat_err(rstd, rrstd),
-                                    _stat_err(rm, rm2), _stat_err(rv, rv2))
-    errs["y_rel_l2"] = _rel_l2(y, ry)
-    del ry
-    sums = bnc.bwd_stats(x, dy, mean, rstd, wt, b, fuse_relu)
-    repeat &= _same_bits(sums, bnc.bwd_stats(x, dy, mean, rstd, wt, b,
-                                             fuse_relu))
+    errs = {"stats": _stat_err(stats, bn.fwd_stats_reference(x)),
+            "mean_rstd_running": max(_stat_err(mean, rmean),
+                                     _stat_err(rstd, rrstd),
+                                     _stat_err(rm, rm2), _stat_err(rv, rv2)),
+            "y_rel_l2": _rel_l2(y, ry)}
+    del ry, y
+    if one_launch:
+        dx, sums = bnc.bwd(x, dy, mean, rstd, wt, b, stats, True, fuse_relu)
+        dx2, sums2 = bnc.bwd(x, dy, mean, rstd, wt, b, stats, True,
+                             fuse_relu)
+        repeat &= _same_bits(dx, dx2) and _same_bits(sums, sums2)
+        del dx2
+    else:
+        sums = bnc.bwd_stats(x, dy, mean, rstd, wt, b, fuse_relu)
+        repeat &= _same_bits(sums, bnc.bwd_stats(x, dy, mean, rstd, wt, b,
+                                                 fuse_relu))
+        dx = bnc.bwd_apply(x, dy, mean, rstd, wt, b, sums, stats, True,
+                           fuse_relu)
     errs["bwd_sums"] = _stat_err(sums, bn.bwd_stats_reference(
         x, dy, mean, rstd, wt, b, fuse_relu))
-    dx = bnc.bwd_apply(x, dy, mean, rstd, wt, b, sums, stats, True,
-                       fuse_relu)
-    errs["dx_rel_l2"] = _rel_l2(dx, bn.bwd_apply_reference(
-        x, dy, mean, rstd, wt, b, sums, stats, True, fuse_relu))
+    rdx = bn.bwd_apply_reference(x, dy, mean, rstd, wt, b, sums, stats, True,
+                                 fuse_relu)
+    errs["dx_rel_l2"] = _rel_l2(dx, rdx)
+    del rdx, dx
     bad = [k for k, v in errs.items()
            if v > (BN_L2_TOL[dtype] if k.endswith("l2") else BN_STAT_TOL)]
     if bad or not repeat:
-        raise AssertionError(f"K17/K18 at {shape} {dtype}: {errs} (bands "
-                             f"{BN_L2_TOL[dtype]}, {BN_STAT_TOL}), "
-                             f"repeatable {repeat}")
+        raise AssertionError(
+            f"K17/K18 ({'one' if one_launch else 'two'}-launch form) at "
+            f"{shape} {dtype}: {errs} (bands {BN_L2_TOL[dtype]}, "
+            f"{BN_STAT_TOL}), repeatable {repeat}")
     return errs, (x, dy, wt, b, rm, rv, stats, mean, rstd, sums)
 
 
+# the parent checkout's K17 and K18 (two launches each, its slab grid sized
+# for 4 blocks an SM, its tickets), through its own C entries
+# (PARENT_SIGNATURES["batch_norm"]) with its wrapper's plan and pointers
+_PARENT_BN_TICKETS = {}
+
+
+def _parent_bn_call(entry, x2d, ptrs, hyper=(0.0, 0.0, 1.0), codes=(0, 0),
+                    training=1, fuse_relu=0):
+    from apex_tpu_torch.ops import _build
+
+    dev = x2d.device
+    rows, c = x2d.shape
+    vec = 16 // x2d.element_size()
+    if c % vec or x2d.data_ptr() % 16 or ptrs.get("dy", 0) % 16:
+        vec = 1
+    cvec = c // vec
+    tx = min(cvec, 32)
+    tiles = -(-cvec // tx)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    slabs = max(1, min(-(-rows // (512 // tx)), max(1, sms * 4 // tiles)))
+    per = -(-rows // slabs)
+    slabs = -(-rows // per)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    key = (dev.index, stream)
+    if key not in _PARENT_BN_TICKETS:
+        _PARENT_BN_TICKETS[key] = torch.zeros(65535, dtype=torch.int32,
+                                              device=dev)
+    partials = None
+    if ptrs.get("partials"):
+        partials = torch.empty(slabs * 2 * c, dtype=torch.float32,
+                               device=dev)
+    addr = dict(ptrs, partials=0 if partials is None else
+                partials.data_ptr(),
+                tickets=_PARENT_BN_TICKETS[key].data_ptr())
+    dims = np.array([rows, c, vec, tx, slabs, per], dtype=np.int64)
+    ptr_arr = np.array([addr.get(k, 0) for k in (
+        "x", "dy", "out", "partials", "stats", "sums", "tickets", "w", "b",
+        "rmean", "rvar", "mean", "rstd")], dtype=np.int64)
+    hyp = np.array(hyper, dtype=np.float32)
+    flags = np.array([_build.DTYPE_CODES[x2d.dtype], codes[0], codes[1],
+                      training, fuse_relu], dtype=np.int32)
+    lib = PARENT["batch_norm"]
+    rc = getattr(lib, entry)(dims.ctypes.data, ptr_arr.ctypes.data,
+                             hyp.ctypes.data, flags.ctypes.data, dev.index,
+                             stream)
+    _build.check(lib, "batch_norm", rc)
+
+
+def _codes(*ts):
+    from apex_tpu_torch.ops import _build
+
+    return tuple(0 if t is None else _build.DTYPE_CODES[t.dtype] for t in ts)
+
+
+def _parent_bn_fwd(x, wt, b, rm, rv, fuse_relu=False):
+    """The parent's K17 (its two launches): ``(y, mean, rstd, stats)``."""
+    c = x.shape[1]
+    stats = torch.empty(2 * c + 1, dtype=torch.float32, device=x.device)
+    _parent_bn_call("bn_fwd_stats", x, {"x": x.data_ptr(), "partials": True,
+                                        "stats": stats.data_ptr()})
+    y = torch.empty_like(x)
+    mean, rstd = (torch.empty(c, dtype=torch.float32, device=x.device)
+                  for _ in range(2))
+    _parent_bn_call("bn_fwd_apply", x, {
+        "x": x.data_ptr(), "out": y.data_ptr(), "stats": stats.data_ptr(),
+        "w": wt.data_ptr(), "b": b.data_ptr(),
+        "rmean": rm.data_ptr(), "rvar": rv.data_ptr(),
+        "mean": mean.data_ptr(), "rstd": rstd.data_ptr()},
+        (1e-5, 0.1, 0.9), _codes(wt, b), 1, int(fuse_relu))
+    return y, mean, rstd, stats
+
+
+def _parent_bn_bwd(x, dy, mean, rstd, wt, b, stats, fuse_relu=False):
+    """The parent's K18 (its two launches): ``(dx, sums)``."""
+    c = x.shape[1]
+    sums = torch.empty(2 * c, dtype=torch.float32, device=x.device)
+    common = {"x": x.data_ptr(), "dy": dy.data_ptr(), "w": wt.data_ptr(),
+              "b": b.data_ptr(), "mean": mean.data_ptr(),
+              "rstd": rstd.data_ptr()}
+    _parent_bn_call("bn_bwd_stats", x, dict(common, partials=True,
+                                            sums=sums.data_ptr()),
+                    codes=_codes(wt, b), fuse_relu=int(fuse_relu))
+    dx = torch.empty_like(x)
+    _parent_bn_call("bn_bwd_apply", x, dict(
+        common, out=dx.data_ptr(), sums=sums.data_ptr(),
+        stats=stats.data_ptr()), codes=_codes(wt, b),
+        fuse_relu=int(fuse_relu))
+    return dx, sums
+
+
+def _bn_bounds(shape, size):
+    """K17's and K18's least times at one shape (ms): the one-pass bound
+    (K17 x read once and y written once, K18 x and dy read once and dx
+    written once) and the two-pass floor (x, and dy, read once more, as a
+    norm larger than L2 must be)."""
+    n, c, h, w = shape
+    elems = n * c * h * w
+    return {"fwd": {"bytes": 2 * size * elems,
+                    "bound_ms": _bound(2 * size * elems, 0)[0],
+                    "floor_ms": _bound(3 * size * elems, 0)[0]},
+            "bwd": {"bytes": 3 * size * elems,
+                    "bound_ms": _bound(3 * size * elems, 0)[0],
+                    "floor_ms": _bound(5 * size * elems, 0)[0]}}
+
+
 def _bn_times(dev, flush, shape, dtype, inputs):
-    """K17 and K18 at one shape, each in turns with its library call
-    (``F.batch_norm(training=True)`` on the channels_last view, cuDNN, and
-    its backward through ``torch.autograd.grad`` on a graph built outside
-    the timed region), the plain versions' times, and the bounds: K17's
-    x read once and y written once, K18's x and dy read once and dx
-    written once (the two-stage design reads x, and dy, once more)."""
+    """K17 and K18 at one shape in their one-launch forms, timed in turns
+    around their library call (``F.batch_norm(training=True)`` on the
+    channels_last view, cuDNN, and its backward through
+    ``torch.autograd.grad`` on a graph built outside the timed region)
+    and, with ``--parent``, around the parent's two launches; each with
+    its one-pass bound and two-pass floor (``_bn_bounds``). Each is also
+    timed after a clean flush (``clean_l2_ms``, the parent's
+    ``parent_clean_l2_ms``): the standard flush leaves L2 full of dirty
+    lines, whose write-back a launch pays as it streams."""
     import torch.nn.functional as F
 
-    from apex_tpu_torch.ops import batch_norm as bn
     from apex_tpu_torch.ops import batch_norm_cuda as bnc
 
     x, dy, wt, b, rm, rv, stats, mean, rstd, sums = inputs
     n, c, h, w = shape
-    size = x.element_size()
 
     def k17():
-        s = bnc.fwd_stats(x)
-        return bnc.fwd_apply(x, s, wt, b, rm, rv, 1e-5, 0.1, True, False)
+        return bnc.fwd(x, wt, b, rm, rv, 1e-5, 0.1, False)
 
     def k18():
-        su = bnc.bwd_stats(x, dy, mean, rstd, wt, b, False)
-        return bnc.bwd_apply(x, dy, mean, rstd, wt, b, su, stats, True,
-                             False)
+        return bnc.bwd(x, dy, mean, rstd, wt, b, stats, True, False)
 
-    def plain17():
-        s = bn.fwd_stats_reference(x)
-        return bn.fwd_apply_reference(x, s, wt, b, rm, rv, 1e-5, 0.1, True,
-                                      False)
-
-    def plain18():
-        su = bn.bwd_stats_reference(x, dy, mean, rstd, wt, b, False)
-        return bn.bwd_apply_reference(x, dy, mean, rstd, wt, b, su, stats,
-                                      True, False)
-
+    parents = {"fwd": lambda: _parent_bn_fwd(x, wt, b, rm, rv),
+               "bwd": lambda: _parent_bn_bwd(x, dy, mean, rstd, wt, b,
+                                             stats)}
     xc = x.view(n, h, w, c).permute(0, 3, 1, 2).detach().requires_grad_()
     wf = wt.float().requires_grad_()
     bf = b.float().requires_grad_()
     lrm, lrv = rm.clone(), rv.clone()
-
-    def lib17():
-        return F.batch_norm(xc, lrm, lrv, wf, bf, training=True)
-
-    yc = lib17()
+    libs = {"fwd": lambda: F.batch_norm(xc, lrm, lrv, wf, bf, training=True)}
+    yc = libs["fwd"]()
     dyc = dy.view(n, h, w, c).permute(0, 3, 1, 2)
-
-    def lib18():
-        return torch.autograd.grad(yc, (xc, wf, bf), dyc, retain_graph=True)
-
-    elems = x.numel()
+    libs["bwd"] = lambda: torch.autograd.grad(yc, (xc, wf, bf), dyc,
+                                              retain_graph=True)
     out = {}
-    for name, fn, lib, plain, nbytes in (
-            ("fwd", k17, lib17, plain17, 2 * size * elems),
-            ("bwd", k18, lib18, plain18, 3 * size * elems)):
-        spread = []
-        t = _turns(fn, lib, flush, "batch_norm", spread=spread)
-        bound = _bound(nbytes, 0)
-        out[name] = dict(t, ms_spread=spread,
-                         plain_ms=_time_ms(plain, flush, reps=5),
-                         bound_ms=bound[0], bound_by=bound[1], bytes=nbytes,
-                         design_bytes=(3 if name == "fwd" else 5) * size
-                         * elems)
+    bounds = _bn_bounds(shape, x.element_size())
+    for name, fn in (("fwd", k17), ("bwd", k18)):
+        t = _turns(fn, libs[name], flush, "batch_norm",
+                   parent_fn=parents[name])
+        t["clean_l2_ms"] = _time_ms(fn, flush, clean=True)
+        if "batch_norm" in PARENT:
+            t["parent_clean_l2_ms"] = _time_ms(parents[name], flush,
+                                               clean=True)
+        t.update(bounds[name])
+        t["floor_share"] = t["floor_ms"] / t["ms"]
+        if "parent_ms" in t:
+            t["parent_floor_share"] = t["floor_ms"] / t["parent_ms"]
+        out[name] = t
     del yc
     return out
 
 
+def _bn_parent_agrees(inputs, fuse_relu):
+    """The parent's y and dx against this tree's plain versions (that the
+    parent's times are of the same work): relative L2."""
+    from apex_tpu_torch.ops import batch_norm as bn
+
+    x, dy, wt, b, rm, rv, stats, mean, rstd, sums = inputs
+    y, pmean, prstd, pstats = _parent_bn_fwd(x, wt, b, rm.clone(),
+                                             rv.clone(), fuse_relu)
+    ry, _, _ = bn.fwd_apply_reference(x, pstats, wt, b, None, None, 1e-5,
+                                      0.1, True, fuse_relu)
+    dx, psums = _parent_bn_bwd(x, dy, pmean, prstd, wt, b, pstats,
+                               fuse_relu)
+    rdx = bn.bwd_apply_reference(x, dy, pmean, prstd, wt, b, psums, pstats,
+                                 True, fuse_relu)
+    return max(_rel_l2(y, ry), _rel_l2(dx, rdx))
+
+
+def _bn_kernel_resources(dev):
+    """ptxas's registers and spills of each bf16 16-byte-vector kernel of
+    csrc/batch_norm.cu and the blocks of 512 threads an SM holds of it
+    (``batch_norm_cuda.resident``)."""
+    from apex_tpu_torch.ops import batch_norm_cuda as bnc
+
+    names = {"bn_fwd_stats": ("bn_stats_kernel", "Lb0E"),
+             "bn_fwd_apply": ("bn_fwd_apply_kernel",),
+             "bn_bwd_stats": ("bn_stats_kernel", "Lb1E"),
+             "bn_bwd_apply": ("bn_bwd_apply_kernel",),
+             "bn_fwd": ("bn_fwd_kernel",), "bn_bwd": ("bn_bwd_kernel",)}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for entry, needles in names.items():
+        found = _ptxas("batch_norm", *needles, "13__nv_bfloat16Li8E")
+        regs = next(iter(found.values()), {})
+        out[entry] = dict(regs, blocks_per_sm=bnc.resident(
+            entry, torch.bfloat16, 8, dev) // sms)
+    return out
+
+
+def _bn_graph_capture(dev):
+    """K17 and K18 in their one-launch (cooperative) forms captured into a
+    CUDA graph on a side stream and replayed: whether the capture takes
+    them, and the replay's outputs against the eager calls' bits."""
+    from apex_tpu_torch.ops import batch_norm_cuda as bnc
+
+    x, dy, wt, b, rm, rv = _bn_rows(dev, (8, 256, 28, 28), torch.bfloat16,
+                                    5)
+    rm0, rv0 = rm.clone(), rv.clone()
+    eager_y, mean, rstd, stats = bnc.fwd(x, wt, b, rm, rv, 1e-5, 0.1, True)
+    eager_dx, eager_sums = bnc.bwd(x, dy, mean, rstd, wt, b, stats, True,
+                                   True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    try:
+        with torch.cuda.stream(side):
+            bnc.fwd(x, wt, b, rm0.clone(), rv0.clone(), 1e-5, 0.1, True)
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            grm, grv = rm0.clone(), rv0.clone()
+            with torch.cuda.graph(graph, stream=side):
+                gy, gmean, grstd, gstats = bnc.fwd(x, wt, b, grm, grv, 1e-5,
+                                                   0.1, True)
+                gdx, gsums = bnc.bwd(x, dy, gmean, grstd, wt, b, gstats,
+                                     True, True)
+        grm.copy_(rm0)
+        grv.copy_(rv0)
+        graph.replay()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        return {"captured": False, "error": str(e)[:300]}
+    same = all(_same_bits(g, e) for g, e in (
+        (gy, eager_y), (gdx, eager_dx), (gsums, eager_sums), (grm, rm),
+        (grv, rv)))
+    if not same:
+        raise AssertionError("K17/K18 replayed from a CUDA graph differ from "
+                             "their eager calls")
+    return {"captured": True, "replay_equals_eager": same}
+
+
 def phase_batch_norm_kernels(dev, flush):
-    """K17 and K18 against their plain versions at ResNet-50's batch-norm
-    shapes in bf16 (``BN_SHAPES``; the 64-channel one with the fused
-    ReLU) and one fp32 shape, each timed in turns with cuDNN's
-    ``F.batch_norm`` forward and backward; the rows report
+    """K17 and K18 in their one-launch forms (one rank: ResNet-50's and
+    DCGAN's path) against their plain versions at ResNet-50's twelve
+    batch-norm shapes at b = 256 in bf16 (``BN_STEP_SHAPES``; the
+    64-channel ones with the fused ReLU) and one fp32 shape, their
+    two-launch forms (a group's) at ``BN_MAIN_SHAPE`` and the fp32 shape,
+    each timed in turns with cuDNN's ``F.batch_norm`` forward and backward
+    and, with ``--parent``, the parent's two launches; each shape's
+    one-pass bound and two-pass floor, and the step's batch norm (the
+    norms a shape holds x (K17 + K18), summed) beside the parent's and
+    against the floor's sum; the kernels' registers and resident blocks;
+    whether a CUDA graph captures the one-launch forms. The rows report
     ``BN_MAIN_SHAPE`` and carry the others ``by_shape``."""
+    from apex_tpu_torch.ops import batch_norm_cuda as bnc
+
     source = "apex_tpu_torch/csrc/batch_norm.cu"
-    by_shape = {}
-    main = None
-    for shape, dtype in [(s, torch.bfloat16) for s in BN_SHAPES] + [
-            (BN_FP32_SHAPE, torch.float32)]:
-        errs, inputs = _bn_check(dev, shape, dtype,
-                                 fuse_relu=shape[1] == 64, seed=sum(shape))
+    resources = _bn_kernel_resources(dev)
+    _log("K17/K18 registers, spills, blocks an SM (bf16, 16-byte vectors): "
+         + json.dumps(resources))
+    by_shape, step = {}, {"this": 0.0, "parent": 0.0, "floor": 0.0,
+                          "bound": 0.0, "this_clean_l2": 0.0,
+                          "parent_clean_l2": 0.0}
+    main_inputs = None
+    cases = [(s, torch.bfloat16, k) for s, k in BN_STEP_SHAPES] + [
+        (BN_FP32_SHAPE, torch.float32, 0)]
+    for shape, dtype, norms in cases:
+        relu = shape[1] == 64
+        errs, inputs = _bn_check(dev, shape, dtype, fuse_relu=relu,
+                                 seed=sum(shape))
         times = _bn_times(dev, flush, shape, dtype, inputs)
         key = f"{list(shape)} {str(dtype).replace('torch.', '')}"
-        by_shape[key] = {"errors": errs, **times}
-        _log(f"K17/K18 {key}: " + json.dumps(by_shape[key]))
+        entry = {"norms_a_step": norms, "errors": errs, **times}
+        if "batch_norm" in PARENT:
+            entry["parent_rel_l2"] = _bn_parent_agrees(inputs, relu)
+        if shape in (BN_MAIN_SHAPE, BN_FP32_SHAPE):
+            two_errs, two = _bn_check(dev, shape, dtype, fuse_relu=relu,
+                                      seed=sum(shape), one_launch=False)
+            x, dy, wt, b, rm, rv, stats, mean, rstd, sums = two
+
+            def two17():
+                st = bnc.fwd_stats(x)
+                return bnc.fwd_apply(x, st, wt, b, rm, rv, 1e-5, 0.1, True,
+                                     False)
+
+            def two18():
+                su = bnc.bwd_stats(x, dy, mean, rstd, wt, b, False)
+                return bnc.bwd_apply(x, dy, mean, rstd, wt, b, su, stats,
+                                     True, False)
+
+            entry["two_launch"] = {"errors": two_errs,
+                                   "fwd_ms": _time_ms(two17, flush),
+                                   "bwd_ms": _time_ms(two18, flush)}
+            del two
         if shape == BN_MAIN_SHAPE:
-            main = key
-        del inputs
+            main_inputs = (shape, dtype, inputs)
+        else:
+            del inputs
+        if norms:
+            for side, k in (("this", "ms"), ("parent", "parent_ms"),
+                            ("floor", "floor_ms"), ("bound", "bound_ms"),
+                            ("this_clean_l2", "clean_l2_ms"),
+                            ("parent_clean_l2", "parent_clean_l2_ms")):
+                if k in times["fwd"]:
+                    step[side] += norms * (times["fwd"][k] + times["bwd"][k])
+        by_shape[key] = entry
+        _log(f"K17/K18 {key}: " + json.dumps(entry))
         torch.cuda.empty_cache()
+    if "batch_norm" not in PARENT:
+        step.pop("parent")
+        step.pop("parent_clean_l2")
+    # the target: 0.8 of the floor's sum, 17.0 ms
+    step["target_ms"] = step["floor"] / 0.8
+    step["target_met"] = step["this"] <= 17.0
+    step["floor_share"] = step["floor"] / step["this"]
+    below = [k for k, v in by_shape.items() if v["norms_a_step"] and min(
+        v["fwd"]["floor_share"], v["bwd"]["floor_share"]) < 0.5]
+    slower = [k for k, v in by_shape.items() if "parent_ms" in v["fwd"]
+              and (v["fwd"]["ms"] > v["fwd"]["parent_ms"]
+                   or v["bwd"]["ms"] > v["bwd"]["parent_ms"])]
+    step["shapes_below_half_the_floor"] = below
+    step["shapes_slower_than_the_parent"] = slower
+    _log("K17/K18 a ResNet-50 step (b = 256, 53 norms), ms: "
+         + json.dumps(step))
+    capture = _bn_graph_capture(dev)
+    _log("K17/K18 one-launch forms in a CUDA graph: " + json.dumps(capture))
+    # plain versions' times at the main shape
+    from apex_tpu_torch.ops import batch_norm as bn
+
+    shape, dtype, inputs = main_inputs
+    x, dy, wt, b, rm, rv, stats, mean, rstd, sums = inputs
+    plain = {"fwd": _time_ms(lambda: bn.fwd_reference(
+        x, wt, b, rm, rv, 1e-5, 0.1, False), flush, reps=5),
+             "bwd": _time_ms(lambda: bn.bwd_reference(
+                 x, dy, mean, rstd, wt, b, stats, True, False), flush,
+                 reps=5)}
+    del inputs, main_inputs, x, dy
+    torch.cuda.empty_cache()
+    main = f"{list(BN_MAIN_SHAPE)} bfloat16"
     rows = []
-    for name, which, err_key, replaces in (
-            ("batch_norm_fwd", "fwd", "y_rel_l2",
-             "apex_tpu/parallel/sync_batchnorm.py:23"),
-            ("batch_norm_bwd", "bwd", "dx_rel_l2",
-             "apex_tpu/parallel/sync_batchnorm.py:23")):
+    for name, which, err_key, entry in (
+            ("batch_norm_fwd", "fwd", "y_rel_l2", "bn_fwd"),
+            ("batch_norm_bwd", "bwd", "dx_rel_l2", "bn_bwd")):
         m = by_shape[main]
         rows.append(dict(
             {k: m[which][k] for k in ("ms", "ms_turns", "library_ms",
-                                      "ms_spread", "plain_ms", "bound_ms",
-                                      "bound_by", "bytes", "design_bytes")},
-            name=name, route="cuda", source=source, replaces=replaces,
+                                      "ms_spread", "bound_ms", "floor_ms",
+                                      "floor_share", "bytes")
+             if k in m[which]},
+            name=name, route="cuda", source=source,
+            replaces="apex_tpu/parallel/sync_batchnorm.py:23",
             counterparts=["apex_tpu/parallel/sync_batchnorm.py:23 "
                           "sync_batch_norm" + (" (its autodiff)"
                                                if which == "bwd" else "")],
-            shape=list(BN_MAIN_SHAPE), dtype="bfloat16",
+            shape=list(BN_MAIN_SHAPE), dtype="bfloat16", form="one launch",
+            plain_ms=plain[which], bound_by="bytes",
             max_abs_err=m["errors"][err_key], band=BN_L2_TOL[torch.bfloat16],
-            errors=m["errors"],
-            by_shape={k: {**v[which], "errors": v["errors"]}
+            errors=m["errors"], parent_ms=m[which].get("parent_ms"),
+            resources={k: v for k, v in resources.items()
+                       if k.startswith(entry)},
+            step_ms=step, graph_capture=capture,
+            by_shape={k: {**v[which], "norms_a_step": v["norms_a_step"],
+                          "errors": v["errors"],
+                          **({"two_launch_ms": v["two_launch"][
+                              f"{which}_ms"]} if "two_launch" in v else {})}
                       for k, v in by_shape.items()}))
         _log(f"{name}: " + json.dumps(rows[-1]))
     return rows
@@ -5280,9 +5564,10 @@ def _resnet_batch(dev, batch, seed):
 
 
 def _resnet_want(model, level):
-    """Launches a step: K17's and K18's stages once a batch norm each, the
-    unscale's K12 once a group of (gradient dtype) leaves, K16 once a
-    group of (model-copy dtype) leaves; nothing else."""
+    """Launches a step: K17 and K18 once a batch norm each in their
+    one-launch forms (one rank), the unscale's K12 once a group of
+    (gradient dtype) leaves, K16 once a group of (model-copy dtype)
+    leaves; nothing else."""
     from apex_tpu_torch.ops import multi_tensor_cuda as mt
 
     params = list(model.parameters())
@@ -5296,8 +5581,7 @@ def _resnet_want(model, level):
         return sum(-(-k // mt.capacity(depth)) for k in counts)
 
     want = dict.fromkeys(_training_counts(), 0)
-    want.update(dict.fromkeys(("batch_norm_fwd_stats", "batch_norm_fwd_apply",
-                               "batch_norm_bwd_stats", "batch_norm_bwd_apply"),
+    want.update(dict.fromkeys(("batch_norm_fwd_one", "batch_norm_bwd_one"),
                               norms))
     want["multi_tensor_scale"] = groups(by.values(), 2)
     want["multi_tensor_sgd"] = groups(
@@ -5306,19 +5590,23 @@ def _resnet_want(model, level):
 
 
 def _with_totals(launches):
+    """The launches with K17's and K18's totals over both forms (one
+    launch a norm on one rank, a stats and an apply launch a norm in a
+    group)."""
     out = dict(launches)
-    out["batch_norm_fwd"] = (launches["batch_norm_fwd_stats"]
-                             + launches["batch_norm_fwd_apply"])
-    out["batch_norm_bwd"] = (launches["batch_norm_bwd_stats"]
-                             + launches["batch_norm_bwd_apply"])
+    for d in ("fwd", "bwd"):
+        out[f"batch_norm_{d}"] = sum(launches.get(f"batch_norm_{d}_{k}", 0)
+                                     for k in ("one", "stats", "apply"))
     return out
 
 
 @contextlib.contextmanager
 def _bn_held(records, group=None, backend=None):
-    """Each K17 and K18 stage that the block launches is held against its
-    plain version on the same inputs (the running stats cloned before
-    K17's second stage updates them), one record a call in ``records``:
+    """Each K17 and K18 launch that the block makes, in either form, is
+    held against its plain version on the same inputs (the running stats
+    cloned before K17 updates them; y and the saved statistics from the
+    kernel's own stats, dx from its own sums, which are held against the
+    plain ones on their own), one record a call in ``records``:
     the sums and the saved statistics by ``_stat_err``, y and dx by
     relative L2. With a ``group`` of ranks the all-reduced sums that
     reach the second stages are also held against the whole batch's:
@@ -5330,7 +5618,7 @@ def _bn_held(records, group=None, backend=None):
     from apex_tpu_torch.ops import batch_norm_cuda as bnc
 
     kernel = {name: getattr(bnc, name) for name in (
-        "fwd_stats", "fwd_apply", "bwd_stats", "bwd_apply")}
+        "fwd", "bwd", "fwd_stats", "fwd_apply", "bwd_stats", "bwd_apply")}
 
     def whole(local):
         t = local if backend == "nccl" else local.cpu()
@@ -5346,6 +5634,35 @@ def _bn_held(records, group=None, backend=None):
         records.append({"stage": stage, "rows": x2d.shape[0],
                         "channels": x2d.shape[1], "dtype": x2d.dtype,
                         "errors": errors})
+
+    def fwd(x2d, weight, bias, rm, rv, eps, momentum, fuse_relu):
+        rm2 = None if rm is None else rm.clone()
+        rv2 = None if rv is None else rv.clone()
+        y, mean, rstd, stats = kernel["fwd"](x2d, weight, bias, rm, rv, eps,
+                                             momentum, fuse_relu)
+        ry, rmean, rrstd = bn.fwd_apply_reference(
+            x2d, stats, weight, bias, rm2, rv2, eps, momentum, True,
+            fuse_relu)
+        errors = {"stats": _stat_err(stats, bn.fwd_stats_reference(x2d)),
+                  "y_rel_l2": _rel_l2(y, ry),
+                  "mean_rstd": max(_stat_err(mean, rmean),
+                                   _stat_err(rstd, rrstd))}
+        if rm is not None:
+            errors["running"] = max(_stat_err(rm, rm2), _stat_err(rv, rv2))
+        note("fwd", x2d, **errors)
+        return y, mean, rstd, stats
+
+    def bwd(x2d, dy2d, mean, rstd, weight, bias, stats, training,
+            fuse_relu):
+        dx, sums = kernel["bwd"](x2d, dy2d, mean, rstd, weight, bias, stats,
+                                 training, fuse_relu)
+        rsums = bn.bwd_stats_reference(x2d, dy2d, mean, rstd, weight, bias,
+                                       fuse_relu)
+        rdx = bn.bwd_apply_reference(x2d, dy2d, mean, rstd, weight, bias,
+                                     sums, stats, training, fuse_relu)
+        note("bwd", x2d, sums=_stat_err(sums, rsums),
+             dx_rel_l2=_rel_l2(dx, rdx))
+        return dx, sums
 
     def fwd_stats(x2d):
         out = kernel["fwd_stats"](x2d)
@@ -5397,8 +5714,9 @@ def _bn_held(records, group=None, backend=None):
 
     # each wrapper counts its launches on the function its module name
     # binds, which is the stand-in here: carry the count across
-    stand_ins = {"fwd_stats": fwd_stats, "fwd_apply": fwd_apply,
-                 "bwd_stats": bwd_stats, "bwd_apply": bwd_apply}
+    stand_ins = {"fwd": fwd, "bwd": bwd, "fwd_stats": fwd_stats,
+                 "fwd_apply": fwd_apply, "bwd_stats": bwd_stats,
+                 "bwd_apply": bwd_apply}
     with contextlib.ExitStack() as stack:
         for name, fn in stand_ins.items():
             fn.launches = kernel[name].launches
@@ -5411,13 +5729,14 @@ def _bn_held(records, group=None, backend=None):
 
 
 def _bn_held_summary(records, norms, bwd_norms=None):
-    """The held calls of one step (``_bn_held``): the calls a stage
-    (``norms`` each is right; the backward's ``bwd_norms`` where it
-    differs), the widths and dtypes seen, the worst of each error, and
-    ``bad``, the calls past their band (relative L2 within ``BN_L2_TOL``
-    of the activation's dtype, the sums and statistics within
-    ``BN_STAT_TOL``) or stages not held as many times as they should
-    be."""
+    """The held calls of one step (``_bn_held``): the calls a form makes
+    (a norm's forward is one ``fwd`` call on one rank, a ``fwd_stats`` and
+    a ``fwd_apply`` call in a group; ``norms`` forwards and, where it
+    differs, ``bwd_norms`` backwards, each in one form), the widths and
+    dtypes seen, the worst of each error, and ``bad``, the calls past
+    their band (relative L2 within ``BN_L2_TOL`` of the activation's dtype,
+    the sums and statistics within ``BN_STAT_TOL``) or norms not held as
+    many times as they should be."""
     calls, worst, bad = {}, {}, []
     for r in records:
         calls[r["stage"]] = calls.get(r["stage"], 0) + 1
@@ -5428,10 +5747,13 @@ def _bn_held_summary(records, norms, bwd_norms=None):
             if not err <= band:
                 bad.append(f"{r['stage']} [{r['rows']}, {r['channels']}] "
                            f"{key} {err} (band {band})")
-    want = {"fwd_stats": norms, "fwd_apply": norms,
-            "bwd_stats": bwd_norms or norms, "bwd_apply": bwd_norms or norms}
-    bad += [f"{stage} held {calls.get(stage, 0)} times, want {n}"
-            for stage, n in want.items() if calls.get(stage, 0) != n]
+    for d, n in (("fwd", norms), ("bwd", bwd_norms or norms)):
+        one = calls.get(d, 0)
+        stats, apply = calls.get(f"{d}_stats", 0), calls.get(f"{d}_apply", 0)
+        if not ((one, stats, apply) == (n, 0, 0)
+                or (one, stats, apply) == (0, n, n)):
+            bad.append(f"{d}: held {one} times in one launch and {stats} + "
+                       f"{apply} in two, want {n} in one form")
     return {"calls": calls,
             "channels": sorted({r["channels"] for r in records}),
             "dtypes": sorted({str(r["dtype"]).replace("torch.", "")
@@ -5559,8 +5881,7 @@ def phase_resnet_training(dev, card, level):
     stats["profile"] = profile
     if profile is not None:
         traced = profile["traced"]
-        for k in ("batch_norm_fwd_stats", "batch_norm_fwd_apply",
-                  "batch_norm_bwd_stats", "batch_norm_bwd_apply"):
+        for k in ("batch_norm_fwd_one", "batch_norm_bwd_one"):
             if traced[k] != 2 * norms:
                 raise AssertionError(f"ResNet-50 {level}: the device ran "
                                      f"{k} {traced[k]} times in two steps, "
@@ -5571,7 +5892,7 @@ def phase_resnet_training(dev, card, level):
 
 
 def _resnet_plain_patches(bn_only=False):
-    """K17's and K18's stages and (unless ``bn_only``) K12 replaced by
+    """K17 and K18 (both forms) and (unless ``bn_only``) K12 replaced by
     their plain versions, for a ResNet step's plain path on the card (the
     plain SGD comes from ``_resnet_sgd(plain=True)``)."""
     from apex_tpu_torch.ops import (batch_norm, batch_norm_cuda,
@@ -5579,7 +5900,11 @@ def _resnet_plain_patches(bn_only=False):
 
     k12 = [] if bn_only else [mock.patch.object(
         multi_tensor_cuda, "scale", multi_tensor.scale_reference)]
-    return k12 + [mock.patch.object(batch_norm_cuda, "fwd_stats",
+    return k12 + [mock.patch.object(batch_norm_cuda, "fwd",
+                              batch_norm.fwd_reference),
+            mock.patch.object(batch_norm_cuda, "bwd",
+                              batch_norm.bwd_reference),
+            mock.patch.object(batch_norm_cuda, "fwd_stats",
                               batch_norm.fwd_stats_reference),
             mock.patch.object(batch_norm_cuda, "fwd_apply",
                               batch_norm.fwd_apply_reference),
@@ -5679,7 +6004,7 @@ def phase_resnet_paths_agree(dev):
         for fn in counts.values():
             fn.launches = 0
         kernel = run(images)
-        if counts["batch_norm_fwd_stats"].launches != 53:
+        if counts["batch_norm_fwd_one"].launches != 53:
             raise AssertionError("the kernel path did not run K17 53 times")
         nudged = run(_nudged(images, dtype))
         with _plain_path(_resnet_plain_patches()):
@@ -6055,6 +6380,52 @@ def _zero_sizes(dev):
     return sizes
 
 
+# the codec's blocks besides its default 128 that the kernels are held at
+# (JAX's quantize_blocks takes any block)
+CODEC_BLOCKS = (32, 64, 256)
+
+
+def _codec_blocks(x, res, flush):
+    """K19 and K20 at ``CODEC_BLOCKS`` on the same rows (the reduce-
+    scatter's ``[2, P / 2]`` of BERT-large), bit for bit against their
+    plain versions (the sum, and the gather), each timed."""
+    from apex_tpu_torch.ops import collectives as codec
+    from apex_tpu_torch.ops import collectives_cuda as cc
+
+    shard = x.shape[1]
+    out = {}
+    for block in CODEC_BLOCKS:
+        got = cc.quantize(x, res, block=block)
+        same = all(_same_bits(a, b) for a, b in zip(
+            got, codec.quantize_reference(x, res, block=block)))
+        q, scales = got[0], got[1]
+        del got
+        summed = cc.dequantize_sum(q, scales, shard)
+        same_k20 = _same_bits(summed, codec.dequantize_sum_reference(
+            q, scales, shard))
+        del summed
+        gathered = cc.dequantize_sum(q, scales, shard, gather=True)
+        same_k20 &= _same_bits(gathered, codec.dequantize_sum_reference(
+            q, scales, shard, gather=True))
+        del gathered
+        if not (same and same_k20):
+            raise AssertionError(f"K19/K20 at block {block}: not their "
+                                 f"plain versions' bits ({same}, "
+                                 f"{same_k20})")
+        nb = q.shape[1]
+        out[block] = {
+            "quantize": {"bitwise": same, "ms": _time_ms(
+                lambda: cc.quantize(x, res, block=block), flush),
+                "bound_ms": _bound(13 * x.numel() + 2 * 2 * nb, 0)[0]},
+            "dequantize_sum": {"bitwise": same_k20, "ms": _time_ms(
+                lambda: cc.dequantize_sum(q, scales, shard), flush),
+                "bound_ms": _bound(2 * nb * block + 2 * 2 * nb
+                                   + 4 * shard, 0)[0]}}
+        _log(f"K19/K20 at block {block}: " + json.dumps(out[block]))
+        del q, scales
+    return out
+
+
 def phase_scale_out_kernels(dev, flush):
     """K19-K22 at the scale-out slice's shapes, each against its plain
     version on the same inputs: K19 (the gradient hop's quantize: BERT-
@@ -6137,7 +6508,12 @@ def phase_scale_out_kernels(dev, flush):
                      library_ms=None, bound_ms=bound[0], bound_by=bound[1],
                      bytes=nbytes))
     _log("K20: " + json.dumps(rows[-1]))
-    del x, res, q, scales, got
+    del q, scales, got
+    by_block = _codec_blocks(x, res, flush)
+    rows[-2]["by_block"] = {b: v["quantize"] for b, v in by_block.items()}
+    rows[-1]["by_block"] = {b: v["dequantize_sum"]
+                            for b, v in by_block.items()}
+    del x, res
     torch.cuda.empty_cache()
 
     # K21 on GPT-2-small's shard at world 2
@@ -7094,8 +7470,7 @@ def phase_qmatmul_kernel(dev, flush):
                 worst_abs = max(worst_abs, _max_err(y, ref))
             w_deq = (wq.float() * scale[:, None]).to(dtype)
             t = _turns(lambda: qmatmul_cuda.qmatmul(x, wq, scale),
-                       lambda: x @ w_deq.t(), flush, "qmatmul",
-                       parent_fn=lambda: _parent_qmatmul(x, wq, scale))
+                       lambda: x @ w_deq.t(), flush, "qmatmul")
             plain_ms = _time_ms(
                 lambda: qmm.qmatmul_reference(x, wq, scale, dtype), flush,
                 reps=5)
@@ -7141,6 +7516,96 @@ def phase_qmatmul_kernel(dev, flush):
         row["parent_ms"] = main["parent_ms"]
     _log("K23: " + json.dumps(row))
     return row
+
+
+# K23 at K that are not a multiple of 16: [B, K, N] (one 8-column step,
+# one and a half steps, one chunk and a 36-column tail, twelve chunks and
+# 2 columns), and the int8-weight engine at hidden 100
+QMM_ANY_K = ((8, 8, 768), (8, 24, 768), (8, 100, 768), (8, 770, 768))
+
+
+def phase_qmatmul_any_k(dev, flush):
+    """K23 at ``QMM_ANY_K`` in bf16, fp16 and fp32 on the launch the plan
+    picks (the tensor-core body's element-load form for bf16/fp16, the
+    CUDA-core body for fp32) and on forced element-load plans, within
+    ``QMM_L2_TOL`` of its plain version and two runs the same bits, each
+    timed; then ``ServingEngine(weight_quant=True)`` at hidden 100 (fp32,
+    2 layers, greedy, eager), whose decode matrices all have K 100 or 400,
+    launching K23 and serving the tokens of the same engine with K23 on
+    its plain version."""
+    from apex_tpu_torch.ops import qmatmul as qmm
+    from apex_tpu_torch.ops import qmatmul_cuda
+    from apex_tpu_torch.serving import (ServingEngine, init_gpt_params,
+                                        quant, synthetic_trace)
+    from apex_tpu_torch.transformer.testing import TransformerConfig
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    out = {}
+    for b, k, n in QMM_ANY_K:
+        w = torch.randn(n, k, generator=gen, device=dev) * 0.05
+        w[n // 2] = 0.0
+        wq, scale = quant.quantize_weight(w)
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+            x = torch.randn(b, k, generator=gen, device=dev).to(dtype)
+            ref = qmm.qmatmul_reference(x, wq, scale, dtype)
+            p = qmatmul_cuda.plan(b, n, k, dtype, 132)
+            plans = [None] + ([qmatmul_cuda.Plan("tc_narrow", 2, 1, 1, 2)]
+                              + ([qmatmul_cuda.Plan("tc_narrow", 1, 4, 3, 4)]
+                                 if k >= 12 * 64 else [])
+                              if dtype != torch.float32 else [])
+            errs = []
+            for forced in plans:
+                with (mock.patch.object(qmatmul_cuda, "plan",
+                                        lambda *_, f=forced: f)
+                      if forced else contextlib.nullcontext()):
+                    y = qmatmul_cuda.qmatmul(x, wq, scale)
+                    again = qmatmul_cuda.qmatmul(x, wq, scale)
+                err = _rel_l2(y, ref)
+                if not (err <= QMM_L2_TOL[dtype] and torch.equal(y, again)
+                        and (y[:, n // 2] == 0).all()):
+                    raise AssertionError(f"K23 at K {k} {dtype} "
+                                         f"({forced or p}): rel L2 {err}")
+                errs.append(err)
+            key = f"[{b}, {k}] x [{n}, {k}] {str(dtype)[6:]}"
+            out[key] = {"body": p.body, "rel_l2": max(errs),
+                        "plans_held": len(plans), "ms": _time_ms(
+                            lambda: qmatmul_cuda.qmatmul(x, wq, scale),
+                            flush)}
+            _log(f"K23 any K, {key}: " + json.dumps(out[key]))
+    cfg = TransformerConfig(
+        hidden_size=100, num_layers=2, num_attention_heads=4,
+        vocab_size=128, max_position_embeddings=64, hidden_dropout=0.0,
+        attention_dropout=0.0, apply_query_key_layer_scaling=False)
+    params = init_gpt_params(cfg, 0, dev)
+    kw = dict(num_slots=4, page_size=16, num_pages=24, max_seq=64,
+              prefill_len=64, prefill_requests=1, device=dev,
+              cuda_graph=False, weight_quant=True)
+    tokens, launches = {}, {}
+    for plain in (False, True):
+        qmatmul_cuda.qmatmul.launches = 0
+        with (mock.patch.object(qmatmul_cuda, "qmatmul", lambda x, w, s:
+                                qmm.qmatmul_reference(x, w, s, x.dtype))
+              if plain else contextlib.nullcontext()):
+            eng = ServingEngine(cfg, params, **kw)
+            reqs, _ = synthetic_trace(seed=4, n_requests=6, vocab=128,
+                                      prompt_lo=3, prompt_hi=20, new_lo=2,
+                                      new_hi=12)
+            tokens[plain] = {r.rid: list(r.out_tokens)
+                             for r in eng.run_trace(reqs)}
+        launches[plain] = qmatmul_cuda.qmatmul.launches
+        if not plain and launches[plain] != eng.decode_steps * (
+                4 * cfg.num_layers + 1):
+            raise AssertionError(f"the hidden-100 engine launched K23 "
+                                 f"{launches[plain]} times")
+    if tokens[True] != tokens[False]:
+        raise AssertionError("the hidden-100 int8-weight engine's tokens "
+                             "differ from its plain path's")
+    out["engine_hidden_100"] = {
+        "tokens": sum(len(t) for t in tokens[False].values()),
+        "same_tokens_as_plain": True, "k23_launches": launches[False]}
+    _log("K23, int8-weight engine at hidden 100: "
+         + json.dumps(out["engine_hidden_100"]))
+    return out
 
 
 def _warmup_requests():
@@ -7424,16 +7889,17 @@ def phase_dcgan(dev, card, level):
     # fake, G and D in the G step (3 + 4 + 3 + 4 + 3); backward, D twice
     # and the G step's D and G (3 + 3 + 3 + 4)
     norms_fwd, norms_bwd = 17, 13
-    want = {"batch_norm_fwd_stats": norms_fwd,
-            "batch_norm_fwd_apply": norms_fwd,
-            "batch_norm_bwd_stats": norms_bwd,
-            "batch_norm_bwd_apply": norms_bwd,
+    want = {"batch_norm_fwd_one": norms_fwd,
+            "batch_norm_bwd_one": norms_bwd,
+            "batch_norm_fwd_stats": 0, "batch_norm_fwd_apply": 0,
+            "batch_norm_bwd_stats": 0, "batch_norm_bwd_apply": 0,
             "multi_tensor_adam": 2, "multi_tensor_scale": None}
     for k, per in want.items():
         got = launches[k] / DCGAN["timed"]
         if (per is None and got < 3) or (per is not None and got != per):
             raise AssertionError(f"DCGAN {level}: {k} launched {got} times "
-                                 f"a step, want {per or 'at least 3'}")
+                                 f"a step, want "
+                                 f"{'at least 3' if per is None else per}")
     records = []
     real, z = batches[-1]
     with _bn_held(records):
@@ -7604,7 +8070,7 @@ def _kind(name, kinds=()):
     the "other") that it was first recorded with."""
     low = name.lower()
     if "batch_norm" in kinds and re.search(
-            r"\bbn_(stats|fwd_apply|bwd_apply)_kernel", name):
+            r"\bbn_(stats|fwd_apply|bwd_apply|fwd|bwd)_kernel", name):
         return "batch_norm"
     if "sgd" in kinds and re.search(r"\bsgd_kernel\b", name):
         return "sgd"
@@ -7770,9 +8236,10 @@ def _tensor_core_sass(lib, kernels):
     dim> [dropout]" of an attention kernel (``<T, int D, bool
     DROPOUT>``), "dX|dE b=<streamed rows>" of ``xent_bwd_tc`` (``<T,
     bool DE, int B>``), none for ``xent_fwd_tc`` (``<T>``), "bf16|fp16
-    nt=<n-tiles> depth=<chunks in flight>" of K23's tensor-core
-    ``qmatmul_kernel`` (``<T, int NT, int D>``: NT 1-2 at D 2 and 4, 3-4
-    at D 2, bf16 and fp16); None where the toolkit has no cuobjdump."""
+    nt=<n-tiles> depth=<chunks in flight>[ element loads]" of K23's
+    tensor-core ``qmatmul_kernel`` (``<T, int NT, int D, bool WIDE>``: NT
+    1-2 at D 2 and 4, 3-4 at D 2, bf16 and fp16, 16-byte or element
+    loads); None where the toolkit has no cuobjdump."""
     from apex_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -7788,12 +8255,13 @@ def _tensor_core_sass(lib, kernels):
         tc = re.search(r"nv_bfloat16Lb([01])ELi(\d+)E", fn)
         fwd = re.search(r"xent_fwd_tcI13__nv_bfloat16E", fn)
         qmm = re.search(r"qmatmul_kernelI(13__nv_bfloat16|6__half)Li([1-4])ELi"
-                        r"([24])E", fn)
+                        r"([24])ELb([01])E", fn)
         if kernel is None or (att or tc or fwd or qmm) is None:
             continue
         if qmm:
             key = (f"{kernel} {'bf16' if 'bfloat' in qmm.group(1) else 'fp16'}"
-                   f" nt={qmm.group(2)} depth={qmm.group(3)}")
+                   f" nt={qmm.group(2)} depth={qmm.group(3)}"
+                   + ("" if qmm.group(4) == "1" else " element loads"))
         else:
             key = (f"{kernel} d={att.group(1)}"
                    + (" dropout" if att.group(2) == "1" else "") if att else
@@ -7858,15 +8326,15 @@ def main():
     # 64, 128 and 256: six), those of the tensor-core K8/K9 (32- and 16-row
     # streamed tiles, four) and that of the tensor-core K7/K7p first stage
     # (one) must hold wgmma (HGMMA) instructions, and K23's tensor-core
-    # body (bf16 and fp16, six (n-tiles, depth) each: twelve) mma.sync
-    # (HMMA)
+    # body (bf16 and fp16, six (n-tiles, depth) each, 16-byte and element
+    # loads: twenty-four) mma.sync (HMMA)
     sass = {}
     for source, kernels, want, op in (
             ("attention_bwd", ("attention_bwd_dq_tc", "attention_bwd_dkv_tc"),
              12, "HGMMA"),
             ("prefill_attention", ("prefill_attention_tc",), 6, "HGMMA"),
             ("xent", ("xent_bwd_tc", "xent_fwd_tc"), 5, "HGMMA"),
-            ("qmatmul", ("qmatmul_kernel",), 12, "HMMA")):
+            ("qmatmul", ("qmatmul_kernel",), 24, "HMMA")):
         counts = _tensor_core_sass(_build.lib_path(source), kernels)
         if counts is None:
             _log("cuobjdump is not in the toolkit: the tensor-core "
@@ -7905,6 +8373,7 @@ def main():
     torch.cuda.empty_cache()
     # the W8A16 decode matmul at GPT-2-small's five decode shapes
     rows.append(phase_qmatmul_kernel(dev, flush))
+    rows[-1]["any_k"] = phase_qmatmul_any_k(dev, flush)
     torch.cuda.empty_cache()
     mark("kernels: K19-K23")
     # ResNet-50's kernels: K17/K18 at its batch-norm shapes, K16 on its

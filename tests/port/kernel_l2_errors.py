@@ -27,13 +27,16 @@ option, each as the largest error over a tensor's largest magnitude.
 Last, batch norm: K17's y and K18's dx by relative L2 (``BN_L2_TOL``)
 and their sums and saved statistics over their largest magnitude
 (``BN_STAT_TOL``) at the card tests' shapes and two of ResNet-50's, with
-and without the fused ReLU, per dtype. Then K22 (the ZeRO LAMB shard
+and without the fused ReLU, per dtype, in the one-launch forms and the
+two-launch forms. Then K22 (the ZeRO LAMB shard
 update) on the card tests' layouts (``LAMB_LAYOUTS``, with and without
 weight decay): the update's relative L2 and the segment sums' error over
 their largest magnitude against the plain version (``MT_LAMB_TOL``).
 Last, K23 (the W8A16 decode matmul) by relative L2 at GPT-2-small's
-decode shapes and the card tests' edges, per dtype, and on the card
-tests' forced tensor-core plans (``QMM_L2_TOL``).
+decode shapes and the card tests' edges, per dtype, on the card
+tests' forced tensor-core plans, and at the K that are not a multiple of
+16 on the plan's launch and the forced element-load plans
+(``QMM_L2_TOL``).
 Needs a CUDA card:
 
     python3 tests/port/kernel_l2_errors.py
@@ -338,10 +341,33 @@ def main():
             note("K15", "float32", err)
     from apex_tpu_torch.ops import batch_norm, batch_norm_cuda
     for dtype, (tdt, _) in sorted(cases.DTYPES.items()):
-        for shape in cases.BN_SHAPES + [(256 * 56 * 56, 256),
-                                        (256 * 7 * 7, 2048)]:
+        for shape in cases.BN_SHAPES + cases.BN_EDGE_SHAPES + [
+                (256 * 56 * 56, 256), (256 * 7 * 7, 2048)]:
             for relu in (False, True):
                 x, dy, w, b, rm, rv = cases._bn_case(dev, tdt, *shape, seed=1)
+                y, mean, rstd, stats = batch_norm_cuda.fwd(
+                    x, w, b, rm.clone(), rv.clone(), 1e-5, 0.1, relu)
+                ry, rmean, rrstd = batch_norm.fwd_apply_reference(
+                    x, stats, w, b, rm.clone(), rv.clone(), 1e-5, 0.1, True,
+                    relu)
+                dx, sums = batch_norm_cuda.bwd(x, dy, mean, rstd, w, b,
+                                               stats, True, relu)
+                rsums = batch_norm.bwd_stats_reference(x, dy, mean, rstd, w,
+                                                       b, relu)
+                rdx = batch_norm.bwd_apply_reference(
+                    x, dy, mean, rstd, w, b, sums, stats, True, relu)
+                stat = max(cases._stat_err(stats, batch_norm.
+                                           fwd_stats_reference(x)),
+                           cases._stat_err(mean, rmean),
+                           cases._stat_err(rstd, rrstd),
+                           cases._stat_err(sums, rsums))
+                fwd, bwd = _l2(y, ry), _l2(dx, rdx)
+                print(f"batch norm, one launch, {dtype} {shape} relu {relu}: "
+                      f"K17 {fwd:.3e}, K18 {bwd:.3e}, sums and statistics "
+                      f"{stat:.3e}")
+                note("K17", dtype, fwd)
+                note("K18", dtype, bwd)
+                note("K17/K18 sums", dtype, stat)
                 stats = batch_norm_cuda.fwd_stats(x)
                 y, mean, rstd = batch_norm_cuda.fwd_apply(
                     x, stats, w, b, rm, rv, 1e-5, 0.1, True, relu)
@@ -422,6 +448,27 @@ def main():
                 finally:
                     qmatmul_cuda.plan = chosen
                 print(f"K23 {dtype} {shape} {p}: {err:.3e}")
+                note("K23", dtype, err)
+    for dtype, (tdt, _) in sorted(cases.DTYPES.items()):
+        for shape in cases.QMM_ANY_K_SHAPES:
+            x, wq, scale = cases._qmm_case(dev, tdt, *shape, seed=shape[1])
+            ref = qmatmul.qmatmul_reference(x, wq, scale, tdt)
+            err = _l2(qmatmul_cuda.qmatmul(x, wq, scale), ref)
+            print(f"K23 any K {dtype} {shape}: {err:.3e}")
+            note("K23", dtype, err)
+            if tdt == torch.float32:
+                continue
+            chunks = max(1, shape[1] // qmatmul_cuda.CHUNK)
+            for nt, split, cluster, depth in cases.QMM_ANY_K_PLANS:
+                if split * cluster > chunks:
+                    continue
+                p = qmatmul_cuda.Plan("tc_narrow", nt, split, cluster, depth)
+                qmatmul_cuda.plan = lambda *_, p=p: p
+                try:
+                    err = _l2(qmatmul_cuda.qmatmul(x, wq, scale), ref)
+                finally:
+                    qmatmul_cuda.plan = chosen
+                print(f"K23 any K {dtype} {shape} {p}: {err:.3e}")
                 note("K23", dtype, err)
     for (kernel, dtype), value in sorted(worst.items()):
         print(f"worst {kernel} {dtype}: {value:.3e}")

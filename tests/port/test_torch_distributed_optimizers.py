@@ -150,21 +150,27 @@ def bert_tree():
 def ranks(bert_tree):
     X, y = _regression()
     params, grads = _params_grads()
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("APEX_DISPATCH", "off")
-        p1, states = _jax_state1(params, grads)
     ids, mask, labels = _bert_batch()
     out = {}
-    for world in (2, 4):
-        payload = {"X": X, "y": y, "zero_configs": CONFIGS[world],
-                   "params": params, "grads": grads, "jax_params1": p1,
-                   "jax_state1": states, "bert_kw": BERT_KW,
-                   "bert_tree": bert_tree, "bert_ids": ids,
-                   "bert_mask": mask, "bert_labels": labels,
-                   "bert_eps": BERT_EPS}
-        case = zero_workers.zero_case if world == 2 else \
-            zero_workers.zero_trajectories_case
-        out[world] = zero_workers.run_ranks(case, world, payload)
+    # this fixture is set up before the autouse ``_clean``: the ranks get
+    # the same knobs here (the environment they inherit) whatever ran
+    # before in this process
+    with pytest.MonkeyPatch.context() as mp:
+        for k in ("APEX_GRAD_COMPRESS", "APEX_HIER_ALLREDUCE"):
+            mp.delenv(k, raising=False)
+        mp.setenv("APEX_DISPATCH", "off")
+        JC._reset_for_tests()
+        p1, states = _jax_state1(params, grads)
+        for world in (2, 4):
+            payload = {"X": X, "y": y, "zero_configs": CONFIGS[world],
+                       "params": params, "grads": grads, "jax_params1": p1,
+                       "jax_state1": states, "bert_kw": BERT_KW,
+                       "bert_tree": bert_tree, "bert_ids": ids,
+                       "bert_mask": mask, "bert_labels": labels,
+                       "bert_eps": BERT_EPS}
+            case = zero_workers.zero_case if world == 2 else \
+                zero_workers.zero_trajectories_case
+            out[world] = zero_workers.run_ranks(case, world, payload)
     return out
 
 

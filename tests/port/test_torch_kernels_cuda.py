@@ -67,19 +67,22 @@ their dE stacked against K8 and K9 on the whole table; K16 (SGD) bit
 for bit against the plain update and selects over three steps and a
 skipped one, in every dtype pair, past one launch's table, and its
 four-list form writing the model copy in bf16, fp16 and fp32; K17 and
-K18 (batch norm) against their plain versions at rows that take 16-byte
-vectors or single channels, one tile or several, a partial tile, one
-row and ResNet-50's widest rows, with and without the fused ReLU, each
-stats stage twice the same bits, in eval, without scale and bias, with
-scale and bias in another dtype than x, from a pointer off a 16-byte
-boundary, and ``SyncBatchNorm`` on the card launching each stage once
-and raising on a channels-first activation; K19 (the int8 block quantizer
+K18 (batch norm) against their plain versions, in their one-launch forms
+(one rank) and their two-launch forms (a group's), at rows that take
+16-byte vectors or single channels, one tile or several, a partial tile,
+one row, ResNet-50's widest rows, a prime row count, C = 100 and more
+channel tiles than the card holds blocks, with and without the fused
+ReLU, each launch twice the same bits, in eval, without scale and bias,
+with scale and bias in another dtype than x, from a pointer off a
+16-byte boundary, every kernel's plan within what the card holds, and
+``SyncBatchNorm`` on the card launching K17 and K18 once each in one
+launch and raising on a channels-first activation; K19 (the int8 block quantizer
 with error feedback) bit for bit against its plain version at BERT-large's
 flat gradient size and at n = 1, 127, 300, rows of 501 (the element
 loads), all-zero, inf and NaN blocks, without a residual and with one (the
 residual only read, the new one a tensor of its own); K20 (dequantize and sum)
 bit for bit at W = 2 and 4 in rank order, with the division by W and in
-the gather form; K21 (the ZeRO Adam shard update) bit for bit against its
+the gather form; both at blocks 32, 64, 256, 1, 3, 100 and 1000; K21 (the ZeRO Adam shard update) bit for bit against its
 plain version and against K14 on the same fp32 shard, a skipped step
 writing nothing of the state; K22 (the ZeRO LAMB shard update) against
 its plain version, the moments and direction bit for bit, the segment
@@ -97,7 +100,10 @@ boundary giving the aligned x's bits, its wrapper refusing what it or
 its plan does not take, the five decode shapes captured in a
 CUDA graph and replayed twice to the eager bits, and a weight-quant
 engine launching it 4 x layers + 1 times a decode call, its graphed
-tokens the eager ones.
+tokens the eager ones; K23 at K 8, 24, 100 and 770 (not multiples of 16)
+on the plan's launch and forced element-load plans, with a wq off a
+16-byte boundary, the two tensor-core forms the same bits at a K both
+take, and an engine at hidden 100 serving its plain path's tokens.
 
 Marked ``cuda``: each test needs a card and skips without one. This
 file imports neither JAX nor the JAX package, so it runs on a GPU
@@ -124,6 +130,9 @@ softmax coefficients to the half type from fp32 logits summed in another
 order, and at V = 50304 a row has tens of thousands of them, so more
 roundings flip than in the attention backward.
 """
+
+import contextlib
+from unittest import mock
 
 import pytest
 import torch
@@ -1943,8 +1952,8 @@ def _mt_list(dev, dtype, seed, sizes=MT_SIZES, scale=1.0):
 
 def _bits(t):
     t = t.contiguous()
-    return t.view(torch.int32) if t.element_size() == 4 \
-        else t.view(torch.int16)
+    return t.view({4: torch.int32, 2: torch.int16,
+                   1: torch.uint8}[t.element_size()])
 
 
 def _same_bits(a, b):
@@ -2322,11 +2331,11 @@ def test_sgd_kernel_writes_the_model_copy(dev, model_dtype):
 # -------------------------------------------------------- K17 / K18 batch norm
 
 # relative L2 of K17's y and K18's dx against the plain versions (fp32
-# inside both: the plain rstd from torch.rsqrt, K17's correctly rounded;
-# K18 repeats the plain version's roundings from the same statistics). On
-# an H100 (tests/port/kernel_l2_errors.py) these cases and ResNet-50's
+# inside both; K17 and K18 repeat the plain version's roundings from the
+# same statistics, rstd by the same rsqrtf as torch.rsqrt).
+# On an H100 (tests/port/kernel_l2_errors.py) these cases and ResNet-50's
 # widths measured at most 7.1e-6 (bf16), 4.2e-6 (fp16), 4.8e-8 (fp32) for
-# y, 0 for dx
+# y, 0 for dx, with K17's rstd then correctly rounded
 BN_L2_TOL = {"bfloat16": 5e-5, "float16": 3e-5, "float32": 3e-7}
 # K17's sums and K18's, and the saved mean and rstd, against the plain
 # versions (fp32 sums over the rows in another order), relative to each
@@ -2337,6 +2346,10 @@ BN_STAT_TOL = 3e-6
 # vectors), one row, and ResNet-50's widest rows at a small batch
 BN_SHAPES = [(257, 64), (1000, 3), (513, 24), (100, 2048), (1, 16),
              (8 * 56 * 56, 256), (3000, 1)]
+# rows (a prime) that no slab count divides, C = 100 (single channels in
+# bf16/fp16, 4-channel vectors in fp32), and more channel tiles than the
+# card holds blocks of 512 threads (each block then walks several items)
+BN_EDGE_SHAPES = [(10007, 256), (777, 100), (3, 76800)]
 
 
 def _bn_case(dev, dtype, m, c, seed, affine=True, w_dtype=None):
@@ -2359,10 +2372,12 @@ def _stat_err(got, want):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("shape", BN_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("shape", BN_SHAPES + BN_EDGE_SHAPES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
 @pytest.mark.parametrize("fuse_relu", [False, True])
 def test_batch_norm_kernels_match_plain(dev, dtype, shape, fuse_relu):
-    """K17's two stages and K18's against the plain versions: the sums,
+    """K17's two stages and K18's (the two-launch form, a group of ranks'
+    with the all-reduce between them) against the plain versions: the sums,
     the saved mean and rstd, the running stats and the sums of the
     backward within ``BN_STAT_TOL``, y and dx within ``BN_L2_TOL``; two
     runs of each stage equal bit for bit."""
@@ -2405,6 +2420,74 @@ def _rel_l2(out, ref):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", BN_SHAPES + BN_EDGE_SHAPES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("fuse_relu", [False, True])
+def test_batch_norm_one_launch_matches_plain(dev, dtype, shape, fuse_relu):
+    """K17 and K18 in one launch each (one rank) against the plain
+    versions: the stats, the saved mean and rstd, the running stats and
+    the backward's sums within ``BN_STAT_TOL``, y and dx within
+    ``BN_L2_TOL``, and in eval (the backward from the running stats); two
+    runs equal bit for bit."""
+    from apex_tpu_torch.ops import batch_norm, batch_norm_cuda as bnc
+
+    tdt = DTYPES[dtype][0]
+    x, dy, w, b, rm, rv = _bn_case(dev, tdt, *shape, seed=3)
+    rm1, rv1, rm2, rv2 = rm.clone(), rv.clone(), rm.clone(), rv.clone()
+    before = (bnc.fwd.launches, bnc.bwd.launches)
+    y, mean, rstd, stats = bnc.fwd(x, w, b, rm, rv, 1e-5, 0.1, fuse_relu)
+    again = bnc.fwd(x, w, b, rm1, rv1, 1e-5, 0.1, fuse_relu)
+    for got, other in zip((y, mean, rstd, stats, rm, rv),
+                          again + (rm1, rv1)):
+        assert _same_bits(got, other)
+    # y and the statistics after the sums from the kernel's own stats,
+    # which are held against the plain stats on their own
+    ry, rmean, rrstd = batch_norm.fwd_apply_reference(
+        x, stats, w, b, rm2, rv2, 1e-5, 0.1, True, fuse_relu)
+    assert stats[-1].item() == shape[0] and y.dtype == tdt
+    for got, want in ((stats, batch_norm.fwd_stats_reference(x)),
+                      (mean, rmean), (rstd, rrstd), (rm, rm2), (rv, rv2)):
+        assert _stat_err(got, want) < BN_STAT_TOL
+    assert _rel_l2(y, ry) < BN_L2_TOL[dtype]
+    for training in (True, False):
+        dx, sums = bnc.bwd(x, dy, mean, rstd, w, b, stats, training,
+                           fuse_relu)
+        dx2, sums2 = bnc.bwd(x, dy, mean, rstd, w, b, stats, training,
+                             fuse_relu)
+        assert _same_bits(dx, dx2) and _same_bits(sums, sums2)
+        rsums = batch_norm.bwd_stats_reference(x, dy, mean, rstd, w, b,
+                                               fuse_relu)
+        rdx = batch_norm.bwd_apply_reference(x, dy, mean, rstd, w, b, sums,
+                                             stats, training, fuse_relu)
+        assert _stat_err(sums, rsums) < BN_STAT_TOL
+        assert dx.dtype == tdt and _rel_l2(dx, rdx) < BN_L2_TOL[dtype]
+    assert (bnc.fwd.launches, bnc.bwd.launches) == (before[0] + 2,
+                                                    before[1] + 4)
+
+
+def test_batch_norm_plans_fit_the_card(dev):
+    """Every kernel's grid fits what the card holds at once (the
+    cooperative launches refuse more) and its items cover the rows and
+    channels once."""
+    from apex_tpu_torch.ops import batch_norm_cuda as bnc
+
+    for name in bnc.KINDS:
+        for dtype in DTYPES.values():
+            for vec in (1, bnc.vec_of(4096, dtype[0])):
+                res = bnc.resident(name, dtype[0], vec, dev)
+                assert res >= torch.cuda.get_device_properties(
+                    dev).multi_processor_count
+                for rows, c in BN_SHAPES + BN_EDGE_SHAPES:
+                    if c % vec:
+                        continue
+                    p = bnc.plan(rows, c, vec, res)
+                    assert 1 <= p.grid <= res
+                    assert p.tiles * p.tx * vec >= c
+                    assert (p.slabs - 1) * p.rows_per_slab < rows \
+                        <= p.slabs * p.rows_per_slab
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_batch_norm_kernels_eval_no_affine_and_mixed_dtypes(dev, dtype):
     """K17 stage 2 in eval (the running stats, left unchanged) and K18 in
     eval; without scale and bias; with fp32 scale and bias over a half
@@ -2435,20 +2518,22 @@ def test_batch_norm_kernels_eval_no_affine_and_mixed_dtypes(dev, dtype):
 
 
 def test_batch_norm_stages_launch_once_each_and_sync_batchnorm_raises(dev):
-    """SyncBatchNorm's forward and backward on the card launch K17's and
-    K18's stages once each; the module raises on a 4-D channels-first
-    activation instead of copying it, and the wrappers raise on rows they
-    do not take."""
+    """SyncBatchNorm's forward and backward on the card (one rank) launch
+    K17 and K18 once each, in their one-launch forms, and no two-launch
+    stage; the module raises on a 4-D channels-first activation instead of
+    copying it, and the wrappers raise on rows they do not take."""
     from apex_tpu_torch.ops import batch_norm_cuda as bnc
     from apex_tpu_torch.parallel import SyncBatchNorm
 
     bn = SyncBatchNorm(32, channel_last=False, device=dev)
     x = torch.randn(4, 32, 7, 7, device=dev).to(
         memory_format=torch.channels_last).requires_grad_()
-    fns = (bnc.fwd_stats, bnc.fwd_apply, bnc.bwd_stats, bnc.bwd_apply)
+    fns = (bnc.fwd, bnc.bwd, bnc.fwd_stats, bnc.fwd_apply, bnc.bwd_stats,
+           bnc.bwd_apply)
     before = [f.launches for f in fns]
     bn(x).square().sum().backward()
-    assert [f.launches - n for f, n in zip(fns, before)] == [1, 1, 1, 1]
+    assert [f.launches - n for f, n in zip(fns, before)] == [1, 1, 0, 0, 0,
+                                                             0]
     assert bn.weight.grad is not None and x.grad.shape == x.shape
     with pytest.raises(ValueError, match="channels_last"):
         bn(torch.randn(4, 32, 7, 7, device=dev))
@@ -2520,8 +2605,9 @@ def test_dequantize_sum_kernel_is_its_plain_version(dev, world, n):
 
 
 def test_codec_wrappers_refuse_what_the_kernels_do_not_take(dev):
-    with pytest.raises(ValueError):
-        collectives_cuda.quantize(torch.ones(8, device=dev), block=64)
+    for block in (0, -128, 2.5):
+        with pytest.raises(ValueError):
+            collectives_cuda.quantize(torch.ones(8, device=dev), block=block)
     with pytest.raises(ValueError):
         collectives_cuda.quantize(torch.ones(8, device=dev).half())
     with pytest.raises(ValueError):
@@ -2531,6 +2617,41 @@ def test_codec_wrappers_refuse_what_the_kernels_do_not_take(dev):
         collectives_cuda.dequantize_sum(q, s, 129)
     with pytest.raises(ValueError):
         collectives_cuda.dequantize_sum(q, s, 8, gather=True, divisor=2)
+
+
+# blocks other than the default 128: those the smoke runs (32, 64, 256),
+# ones that are not a multiple of 4 (four consecutive elements then
+# straddle blocks), 1, and one past 128 that is not a multiple of it
+CODEC_BLOCKS = [32, 64, 256, 1, 3, 100, 1000]
+
+
+@pytest.mark.parametrize("block", CODEC_BLOCKS)
+@pytest.mark.parametrize("n,rows", [(1, 1), (300, 1), (1000, 1), (501, 2),
+                                    (65539, 2)])
+def test_quantize_kernel_takes_any_block(dev, block, n, rows):
+    x, res = _codec_input(dev, n, rows, seed=block)
+    for r in (None, res):
+        got = collectives_cuda.quantize(x, r, block=block)
+        want = codec.quantize_reference(x, r, block=block)
+        assert got[0].shape[-1] == block
+        for g, w in zip(got, want):
+            if w is None:
+                assert g is None
+            else:
+                assert _same_bits(g, w), (block, n, rows)
+
+
+@pytest.mark.parametrize("block", CODEC_BLOCKS)
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("n", [1, 255, 1001, 65539])
+def test_dequantize_sum_kernel_takes_any_block(dev, block, world, n):
+    x, res = _codec_input(dev, n, world, seed=world + block, poison=False)
+    x[0, n // 2] = float("inf")            # one block's scale is inf
+    q, s, _ = codec.quantize_reference(x, res, block=block)
+    for kw in ({}, {"divisor": world}, {"gather": True}):
+        got = collectives_cuda.dequantize_sum(q, s, n, **kw)
+        want = codec.dequantize_sum_reference(q, s, n, **kw)
+        assert _same_bits(got, want), (block, kw)
 
 
 def _adam_kw(wd, adam_w, bias):
@@ -2821,7 +2942,6 @@ def test_qmatmul_flattens_leading_axes_and_casts_to_the_compute_dtype(dev):
 def test_qmatmul_wrapper_refuses_what_the_kernel_does_not_take(dev):
     x, wq, scale = _qmm_case(dev, torch.bfloat16, 4, 64, 32)
     bad = [
-        (x[:, :40].contiguous(), wq[:, :40].contiguous(), scale),  # K % 16
         (x, wq.float(), scale),                       # not int8
         (x, wq, scale.to(torch.bfloat16)),            # scale not fp32
         (x, wq, scale[:16]),                          # shapes disagree
@@ -2829,13 +2949,106 @@ def test_qmatmul_wrapper_refuses_what_the_kernel_does_not_take(dev):
         (x.cpu(), wq, scale),                         # another device
         (x[None], wq, scale),                         # not 2-D
     ]
-    ragged = torch.empty(32 * 64 + 1, dtype=torch.int8, device=dev)
-    bad.append((x, ragged[1:].view(32, 64), scale))   # wq off 16 bytes
     before = qmatmul_cuda.qmatmul.launches
     for args in bad:
         with pytest.raises(ValueError):
             qmatmul_cuda.qmatmul(*args)
     assert qmatmul_cuda.qmatmul.launches == before
+
+
+# [B, K, N] at a K that is not a multiple of 16 (or of 64): one step of 8,
+# one and a half steps, 100 (one chunk and a 36-column tail), 770 (twelve
+# chunks and 2 columns); forced tensor-core plans (n-tiles, split,
+# cluster, depth) on each, the element-load body
+QMM_ANY_K_SHAPES = [(8, 8, 64), (8, 24, 100), (9, 100, 130), (17, 770, 770),
+                    (1, 770, 48), (8, 100, 50304)]
+QMM_ANY_K_PLANS = [(1, 1, 1, 4), (2, 1, 1, 2), (1, 4, 3, 4), (4, 2, 6, 2)]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", QMM_ANY_K_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_qmatmul_takes_any_k(dev, dtype, shape, monkeypatch):
+    """K23 at K not a multiple of 16: the plan's own launch, forced
+    tensor-core plans of the element-load body (those the K takes), and a
+    wq off a 16-byte boundary, each within ``QMM_L2_TOL`` and the same bits
+    twice."""
+    tdt = DTYPES[dtype][0]
+    b, k, n = shape
+    x, wq, scale = _qmm_case(dev, tdt, *shape, seed=k)
+    ref = qmm.qmatmul_reference(x, wq, scale, tdt)
+
+    def held(y, what):
+        assert y.dtype == tdt and y.shape == ref.shape, what
+        assert torch.isfinite(y).all() and (y[:, n // 2] == 0).all(), what
+        err = ((y.float() - ref.float()).norm() / ref.float().norm()).item()
+        assert err <= QMM_L2_TOL[dtype], (what, err)
+
+    p = qmatmul_cuda.plan(b, n, k, tdt, 132)
+    assert p.body == ("simt" if tdt == torch.float32 else "tc_narrow")
+    y = qmatmul_cuda.qmatmul(x, wq, scale)
+    held(y, p)
+    assert torch.equal(qmatmul_cuda.qmatmul(x, wq, scale), y)
+    ragged = torch.empty(wq.numel() + 1, dtype=torch.int8, device=dev)
+    off = ragged[1:].view_as(wq)
+    off.copy_(wq)
+    held(qmatmul_cuda.qmatmul(x, off, scale), "wq off 16 bytes")
+    if tdt == torch.float32:
+        return
+    chunks = max(1, k // qmatmul_cuda.CHUNK)
+    for nt, split, cluster, depth in QMM_ANY_K_PLANS:
+        if split * cluster > chunks:
+            continue
+        q = qmatmul_cuda.Plan("tc_narrow", nt, split, cluster, depth)
+        monkeypatch.setattr(qmatmul_cuda, "plan", lambda *_, q=q: q)
+        y = qmatmul_cuda.qmatmul(x, wq, scale)
+        held(y, q)
+        assert torch.equal(qmatmul_cuda.qmatmul(x, wq, scale), y), q
+
+
+def test_qmatmul_aligned_k_on_both_bodies_agree(dev, monkeypatch):
+    """At a K the 16-byte-load body takes, its element-load form sums in
+    the same order: the same bits."""
+    x, wq, scale = _qmm_case(dev, torch.bfloat16, 9, 816, 770)
+    for nt, split, cluster, depth in QMM_ANY_K_PLANS:
+        got = []
+        for body in ("tc", "tc_narrow"):
+            q = qmatmul_cuda.Plan(body, nt, split, cluster, depth)
+            monkeypatch.setattr(qmatmul_cuda, "plan", lambda *_, q=q: q)
+            got.append(qmatmul_cuda.qmatmul(x, wq, scale))
+        assert torch.equal(*got), (nt, split, cluster, depth)
+
+
+def test_weight_quant_engine_at_hidden_100_serves_the_plain_tokens(dev):
+    """An int8-weight engine at hidden 100 (every decode matrix at K 100
+    or 400) launches K23 and serves the tokens of the same engine on K23's
+    plain version, greedy, fp32."""
+    from apex_tpu_torch.ops import qmatmul as qmm_ops
+
+    cfg = TransformerConfig(
+        hidden_size=100, num_layers=2, num_attention_heads=4,
+        vocab_size=128, max_position_embeddings=64, hidden_dropout=0.0,
+        attention_dropout=0.0, apply_query_key_layer_scaling=False)
+    params = init_gpt_params(cfg, 0, dev)
+    kw = dict(num_slots=4, page_size=16, num_pages=24, max_seq=64,
+              prefill_len=64, prefill_requests=1, device=dev,
+              cuda_graph=False)
+    tokens = {}
+    for plain in (False, True):
+        qmatmul_cuda.qmatmul.launches = 0
+        with (mock.patch.object(qmatmul_cuda, "qmatmul", lambda x, w, s:
+                                qmm_ops.qmatmul_reference(x, w, s, x.dtype))
+              if plain else contextlib.nullcontext()):
+            eng = ServingEngine(cfg, params, weight_quant=True, **kw)
+            reqs, _ = synthetic_trace(seed=4, n_requests=6, vocab=128,
+                                      prompt_lo=3, prompt_hi=20, new_lo=2,
+                                      new_hi=12)
+            tokens[plain] = {r.rid: list(r.out_tokens)
+                             for r in eng.run_trace(reqs)}
+        if not plain:
+            assert qmatmul_cuda.qmatmul.launches == eng.decode_steps * (
+                4 * cfg.num_layers + 1)
+    assert tokens[True] == tokens[False]
 
 
 def test_weight_quant_engine_launches_k23_and_graphs_its_tokens(dev):

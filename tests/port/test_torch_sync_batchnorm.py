@@ -209,3 +209,82 @@ def test_stage_algebra_of_the_plain_versions():
     dx = batch_norm.bwd_apply_reference(x, dy, mean, rstd, w, b, sums, s,
                                         True, True)
     _close(dx.numpy(), xg.grad.numpy(), 1e-4)
+
+
+# ResNet-50's batch-norm rows at b = 256 ([N H W, C]) and edges
+PLAN_SHAPES = [(256 * 112 * 112, 64), (256 * 56 * 56, 256),
+               (256 * 56 * 56, 128), (256 * 28 * 28, 512),
+               (256 * 56 * 56, 64), (256 * 28 * 28, 256),
+               (256 * 14 * 14, 1024), (256 * 28 * 28, 128),
+               (256 * 14 * 14, 512), (256 * 7 * 7, 2048),
+               (256 * 14 * 14, 256), (256 * 7 * 7, 512),
+               (1, 16), (1000, 3), (10007, 256), (777, 100), (3, 76800)]
+
+
+@pytest.mark.parametrize("resident", [132, 264, 528])
+@pytest.mark.parametrize("shape", PLAN_SHAPES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_kernel_plan_fills_the_card_once(shape, resident):
+    """``batch_norm_cuda.plan`` (CPU only: no kernel runs): the grid never
+    exceeds the blocks the card holds (a cooperative launch refuses
+    more); the tiles cover the channels and the slabs the rows, each
+    once, none empty; where the tiles do not outnumber the blocks each
+    block takes one item and the items fill the card but for the rounding
+    of the rows to slabs."""
+    from apex_tpu_torch.ops import batch_norm_cuda as bnc
+
+    rows, c = shape
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        for aligned in (True, False):
+            vec = bnc.vec_of(c, dtype, aligned)
+            want = 16 // torch.empty((), dtype=dtype).element_size()
+            assert vec == (want if aligned and c % want == 0 else 1)
+            p = bnc.plan(rows, c, vec, resident)
+            ty = bnc.THREADS // p.tx
+            assert 1 <= p.tx <= 32 and p.tx * ty <= bnc.THREADS
+            assert (p.tiles - 1) * p.tx * vec < c <= p.tiles * p.tx * vec
+            assert (p.slabs - 1) * p.rows_per_slab < rows \
+                <= p.slabs * p.rows_per_slab
+            items = p.tiles * p.slabs
+            assert p.grid == min(items, resident)
+            if p.tiles <= resident:
+                # as many slabs as the blocks a tile has, or rows of one
+                # pass of TY, short only of the rounding of the slab
+                want = min(resident // p.tiles, -(-rows // ty))
+                assert items <= resident
+                assert p.slabs * p.rows_per_slab > want * (
+                    p.rows_per_slab - 1)
+
+
+def test_one_rank_takes_the_one_launch_forms():
+    """Without a group the autograd function runs each direction's two
+    stages at once (``batch_norm.fwd`` and ``bwd``: one launch each on
+    CUDA), which give the stages' results; a group of ranks would take
+    the stages with the all-reduce between them."""
+    from unittest import mock
+
+    rs = np.random.RandomState(5)
+    x = torch.from_numpy(rs.randn(50, 8).astype(np.float32))
+    dy = torch.from_numpy(rs.randn(50, 8).astype(np.float32))
+    w = torch.from_numpy(rs.rand(8).astype(np.float32) + 0.5)
+    b = torch.from_numpy(rs.randn(8).astype(np.float32))
+    rm, rv = torch.zeros(8), torch.ones(8)
+    rm2, rv2 = rm.clone(), rv.clone()
+    xg, wg, bg = (t.clone().requires_grad_() for t in (x, w, b))
+    with mock.patch.object(batch_norm, "fwd", wraps=batch_norm.fwd) as f, \
+            mock.patch.object(batch_norm, "bwd", wraps=batch_norm.bwd) as g, \
+            mock.patch.object(batch_norm, "fwd_stats") as s1, \
+            mock.patch.object(batch_norm, "bwd_stats") as s2:
+        y = batch_norm.batch_norm_rows(xg, wg, bg, rm, rv, fuse_relu=True)
+        y.backward(dy)
+    assert (f.call_count, g.call_count, s1.call_count, s2.call_count) == \
+        (1, 1, 0, 0)
+    stats = batch_norm.fwd_stats_reference(x)
+    ry, mean, rstd = batch_norm.fwd_apply_reference(x, stats, w, b, rm2, rv2,
+                                                    1e-5, 0.1, True, True)
+    sums = batch_norm.bwd_stats_reference(x, dy, mean, rstd, w, b, True)
+    rdx = batch_norm.bwd_apply_reference(x, dy, mean, rstd, w, b, sums,
+                                         stats, True, True)
+    for got, want in ((y, ry), (rm, rm2), (rv, rv2), (xg.grad, rdx),
+                      (wg.grad, sums[8:]), (bg.grad, sums[:8])):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)

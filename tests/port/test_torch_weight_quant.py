@@ -204,6 +204,22 @@ def test_weight_quant_engine_matches_jax_token_for_token(jax_tree, k,
         == (je.prefill_batches, je.decode_steps, je.tokens_generated)
 
 
+@pytest.mark.parametrize("k", [1, 4])
+def test_weight_quant_engine_at_hidden_100_matches_jax(k):
+    """K23 takes any K: at hidden 100 every decode matrix has K = 100 or
+    400, none a multiple of 64 and the first not of 16."""
+    kw = dict(KW, hidden_size=100)
+    jcfg, tcfg = JConfig(**kw), TConfig(**kw)
+    tree = jax.tree_util.tree_map(np.asarray, jmodel.init_gpt_params(jcfg))
+    jreqs, _ = _trace(jsched, JSampling, False)
+    treqs, _ = _trace(tsched, tsampling.SamplingParams, False)
+    je = JEngine(jcfg, tree, weight_quant=True, decode_k=k, **ENGINE)
+    te = TEngine(tcfg, tweights.from_jax_params(tree, tcfg, "cpu"),
+                 device="cpu", weight_quant=True, decode_k=k, **ENGINE)
+    assert te.qparams["layers"][0]["qkv"]["wq"].shape[1] == 100
+    assert _served(te, treqs) == _served(je, jreqs)
+
+
 def test_weight_quant_off_by_default_and_raises_on_int_words(jax_tree,
                                                              monkeypatch):
     monkeypatch.delenv("APEX_SERVE_WEIGHT_QUANT", raising=False)
@@ -367,3 +383,39 @@ def test_qmatmul_check_plan_refuses_what_the_kernel_does_not_take(case):
             x_ptr=where)
     qmatmul_cuda.check_plan(qmatmul_cuda.plan(8, 64, K, dtype, SM), 8, K,
                             dtype)
+
+
+@pytest.mark.parametrize("K", [1, 8, 24, 47, 100, 400, 770, 3073])
+def test_qmatmul_plan_takes_any_k(K):
+    """A K that is not a multiple of 16 (or a wq off a 16-byte boundary)
+    takes the tensor-core body's element-load form, which the C entry
+    takes at any alignment; the pieces still cover K once, the last one
+    ending at K; fp32 keeps the CUDA-core body."""
+    for d in HALF:
+        for aligned in (True, False):
+            p = qmatmul_cuda.plan(8, 768, K, d, SM, aligned)
+            wide = aligned and K % 16 == 0
+            assert p.body == ("tc" if wide else "tc_narrow"), (p, aligned)
+            qmatmul_cuda.check_plan(p, 8, K, d, x_ptr=0 if wide else 2,
+                                    wq_ptr=0 if wide else 8)
+            cuts = _pieces(p, K)
+            assert len(cuts) == p.split * p.cluster
+            assert cuts[0][0] == 0 and cuts[-1][1] == K, (p, cuts)
+            for (lo, hi), (nxt, _) in zip(cuts, cuts[1:]):
+                assert hi == nxt and lo < hi and lo % 64 == 0, (p, cuts)
+    assert qmatmul_cuda.plan(8, 768, K, torch.float32, SM).body == "simt"
+    qmatmul_cuda.check_plan(qmatmul_cuda.Plan("simt"), 8, K, torch.float32,
+                            x_ptr=4, wq_ptr=3)
+
+
+@pytest.mark.parametrize("K,x_ptr,wq_ptr", [(100, 0, 0), (24, 0, 0),
+                                            (128, 8, 0), (128, 0, 8)])
+def test_qmatmul_check_plan_keeps_the_wide_body_aligned(K, x_ptr, wq_ptr):
+    """The 16-byte-load body is refused where K is not a multiple of 16 or
+    x or wq is off a 16-byte boundary; its element-load form is not."""
+    for d in HALF:
+        with pytest.raises(ValueError):
+            qmatmul_cuda.check_plan(qmatmul_cuda.Plan("tc", 1, 1, 1, 2), 8,
+                                    K, d, x_ptr=x_ptr, wq_ptr=wq_ptr)
+        qmatmul_cuda.check_plan(qmatmul_cuda.Plan("tc_narrow", 1, 1, 1, 2),
+                                8, K, d, x_ptr=x_ptr, wq_ptr=wq_ptr)

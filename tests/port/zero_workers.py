@@ -63,7 +63,13 @@ def _entry(rank, world, tmp, case_name, payload):
                         if world == 4 else None)
         out = globals()[case_name](rank, world, payload)
         torch.save(out, os.path.join(tmp, f"{rank}.pt"))
+        # no rank tears its groups down while a peer may still be in the
+        # last collective on them
+        dist.barrier()
     finally:
+        # the subgroups go with the default group, here, and not whenever
+        # the interpreter drops the last reference to them
+        AXIS.clear()
         dist.destroy_process_group()
 
 
