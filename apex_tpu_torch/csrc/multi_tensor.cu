@@ -32,24 +32,40 @@
 // What bounds them on H100: bytes. K12 reads a gradient and writes its
 // fp32 unscaled copy (8 bytes a parameter for fp32), K13 reads it once
 // (4), K14 reads g, p, m, v and writes p, m, v (28), K15 the same (28,
-// plus one more read of p, m, v in its second stage), K16 reads g, p, buf
-// and writes p, buf and the model's half copy (22 under amp O2), K21
+// plus one more read of p, m, v in its second stage: 40), K16 reads g, p,
+// buf and writes p, buf and the model's half copy (22 under amp O2), K21
 // reads g, master, m, v and writes master, m, v and the update (32), K22
 // reads g, master, m, v and writes m, v and the direction (28), then
-// reads the direction and master and writes both (16). The arithmetic is
-// a few operations an element.
+// reads the direction and master and writes both (16). K14's and K15's
+// IEEE divisions and roots take about half the time their bytes do.
 //
-// Design. A launch covers a group of tensors: their pointers and sizes
-// travel in the kernel's parameters (a Table, kept under the 4 KB
-// parameter limit, as apex's TensorListMetadata), so gradients that are
-// new tensors every step need no device table and no host sync; the
-// wrapper (ops/multi_tensor_cuda.py) splits longer lists into groups of
-// capacity(depth) tensors. Each tensor is cut into chunks of CHUNK
-// elements, one block a chunk; a block finds its tensor by a binary search
-// over the table's chunk prefix. Inside a chunk each thread walks
-// 4-element vectors (16 bytes of fp32, 8 of bf16/fp16) where every
-// operand's pointer allows it (the chunk offset is a multiple of CHUNK, so
-// it does), else elements; the ragged tail of a tensor takes elements.
+// Design. K12, K13 and K16: a launch covers a group of tensors whose
+// pointers and sizes travel in the kernel's parameters (a Table, kept
+// under the 4 KB parameter limit, as apex's TensorListMetadata), so
+// gradients that are new tensors every step need no device table and no
+// host sync; the wrapper (ops/multi_tensor_cuda.py) splits longer lists
+// into groups of capacity(depth) tensors. Each tensor is cut into chunks
+// of CHUNK elements, one block a chunk; a block finds its tensor by a
+// binary search over the table's chunk prefix. Inside a chunk each thread
+// walks 4-element vectors (16 bytes of fp32, 8 of bf16/fp16) where every
+// operand's pointer allows it (the chunk offset is a multiple of CHUNK,
+// so it does), else elements; the ragged tail of a tensor takes elements.
+// K14 and K15 take a whole list in one launch (a ListTable of up to
+// LIST_CAP tensors in parameters of up to 32,764 bytes) on a grid of every
+// block the card holds (two of 512 threads an SM, 64 registers: 32 warps
+// to overlap one warp's math with another's loads). K14 walks tiles of
+// TILE elements grid-stride, each thread's next vector loaded before its
+// current one's math. K15's stage 1 runs a block a chunk (a chunk's 512
+// threads each summing its vectors in order, then the block reduction),
+// a fixed order, so its bits depend on neither the grid nor the walk. It
+// is one cooperative launch: every chunk through stage 1, grid-stride; a
+// grid barrier; each tensor's step (a warp a tensor sums its chunks in a
+// fixed order); a barrier; then every tile through stage 2, from the
+// list's last back (the lines stage 1 touched last are the likeliest to
+// be in L2). Waves of tensors small enough to re-read from the 50 MB L2
+// were measured and dropped: a chunk is one block's, so a wave that fits
+// L2 fills ~20 of the 264 blocks, and every split of the list measured
+// slower on an H100 than one pass (PERF.md).
 // Math is fp32 with every rounding explicit (__fmul_rn, __fadd_rn,
 // __fdiv_rn, __fsqrt_rn; the source also builds with --fmad=false), in the
 // order of the plain versions, so that K12 and K14 equal them bit for bit.
@@ -59,23 +75,27 @@
 // the same torch ops, and the step never waits on the host. K14 and K15
 // read the found-inf flag first and write nothing when it is set. The
 // found-inf flag of K12 is written with plain stores of 1 (no atomics).
-// Reductions (K13, K15's per-tensor norms) are two fixed-order stages: a
-// block's chunk sum (a fixed per-thread order, an xor butterfly a warp, a
-// fixed tree over the warps), then a second launch sums a tensor's chunks
-// in order, and the last group's launch sums the tensors in order. No
-// atomics anywhere, so two runs give the same bits. K21 walks its flat
-// shard in 4-element vectors, grid-stride. K22 walks pieces: the shard's
-// part of each tensor (and of the padding, segment N) cut into CHUNK
-// elements at most, one block a piece, listed by the wrapper once per
-// layout; a piece's block sum is a partial, and a second launch sums a
-// segment's partials in order, so the per-tensor sums have a fixed order.
+// Reductions (K13, K15's per-tensor norms) have a fixed order: a block's
+// chunk sum (a fixed per-thread order, an xor butterfly a warp, a fixed
+// tree over the warps), then a tensor's chunks summed in order (K13: a
+// second launch, whose last group's launch also sums the tensors in
+// order). No atomic touches a value, so two runs give the same bits. K21
+// walks its flat shard in 4-element vectors, grid-stride. K22 walks
+// pieces: the shard's part of each tensor (and of the padding, segment N)
+// cut into CHUNK elements at most, one block a piece, listed by the
+// wrapper once per layout; a piece's block sum is a partial, and a second
+// launch sums a segment's partials in order, so the per-tensor sums have
+// a fixed order.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
 #include <string.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -87,6 +107,20 @@ constexpr int REDUCE_THREADS = 1024;
 constexpr int TABLE_BYTES = 3840;
 
 constexpr int capacity(int depth) { return (TABLE_BYTES - 16) / (8 * depth + 8); }
+
+// K14 and K15 take a whole list a launch: its table rides in parameters of
+// up to 32,764 bytes (CUDA 12.1 and later on Volta and later, with a driver
+// of R530 or later), else in the 4 KB of older toolkits. K14's items and
+// K15's stage-2 items are tiles of TILE elements; K15's stage 1 keeps
+// chunks of CHUNK elements, one block of THREADS each
+#if CUDART_VERSION >= 12010
+constexpr int LIST_PARAM_BYTES = 32764;
+#else
+constexpr int LIST_PARAM_BYTES = 4096;
+#endif
+constexpr int LIST_CAP = (LIST_PARAM_BYTES - 320) / 44;
+constexpr int TILE = 32768;
+constexpr int VWARPS = THREADS / 32;
 
 // a group of tensors: D operand pointers each, sizes, the chunk prefix
 template <int D>
@@ -122,8 +156,6 @@ struct AdamArgs {
   const unsigned char* skip;  // found-inf: write nothing when set
   int* count;
   const int* count_new;
-  float* pw;               // LAMB: chunk partials of sum(p * p)
-  float* pu;               // and of sum(update * update)
 };
 
 struct SgdArgs {
@@ -428,52 +460,6 @@ __device__ __forceinline__ void write_count(const AdamArgs& a) {
   if (a.count && blockIdx.x == 0 && threadIdx.x == 0) *a.count = *a.count_new;
 }
 
-// K14: Adam/AdamW in place on p, m, v (fp32 moments) and the step count
-template <typename TG, typename TP>
-__global__ void __launch_bounds__(THREADS) adam_kernel(const Table<4> tb, const AdamArgs a) {
-  if (a.skip && *a.skip) return;
-  write_count(a);
-  if ((int)blockIdx.x >= tb.chunk_start[tb.ntensors]) return;
-  const Span s = chunk_span(tb, blockIdx.x);
-  const TG* g = reinterpret_cast<const TG*>(tb.ptr[0][s.t]) + s.start;
-  TP* p = reinterpret_cast<TP*>(tb.ptr[1][s.t]) + s.start;
-  float* m = reinterpret_cast<float*>(tb.ptr[2][s.t]) + s.start;
-  float* v = reinterpret_cast<float*>(tb.ptr[3][s.t]) + s.start;
-  const float bc1 = a.bias_correction ? *a.bc1 : 1.0f;
-  const float bc2 = a.bias_correction ? *a.bc2 : 1.0f;
-  const float neg_lr = a.neg_lr_ptr ? *a.neg_lr_ptr : a.neg_lr;
-  int done = 0;
-  if (aligned4<TG>(g) && aligned4<TP>(p) && aligned4<float>(m) && aligned4<float>(v)) {
-    const int n4 = s.len >> 2;
-    for (int i = threadIdx.x; i < n4; i += THREADS) {
-      float gv[4], pv[4], mv[4], vv[4];
-      load4(g + 4 * i, gv);
-      load4(p + 4 * i, pv);
-      load4(m + 4 * i, mv);
-      load4(v + 4 * i, vv);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        adam_moments(a, gv[k], pv[k], a.beta1c, mv[k], vv[k]);
-        const float upd = adam_direction(a, mv[k], vv[k], pv[k], bc1, bc2);
-        pv[k] = apply_update<TG, TP>(pv[k], __fmul_rn(upd, neg_lr));
-      }
-      store4(p + 4 * i, pv);
-      store4(m + 4 * i, mv);
-      store4(v + 4 * i, vv);
-    }
-    done = n4 << 2;
-  }
-  for (int e = done + threadIdx.x; e < s.len; e += THREADS) {
-    float mv = m[e], vv = v[e];
-    const float pv = to_f(p[e]);
-    adam_moments(a, to_f(g[e]), pv, a.beta1c, mv, vv);
-    const float upd = adam_direction(a, mv, vv, pv, bc1, bc2);
-    p[e] = from_f<TP>(apply_update<TG, TP>(pv, __fmul_rn(upd, neg_lr)));
-    m[e] = mv;
-    v[e] = vv;
-  }
-}
-
 // LAMB's clip factor: max(||g|| / max_grad_norm, 1), or 1 without clipping
 __device__ __forceinline__ float lamb_clip(const AdamArgs& a) {
   if (a.max_grad_norm <= 0.0f) return 1.0f;
@@ -481,47 +467,199 @@ __device__ __forceinline__ float lamb_clip(const AdamArgs& a) {
   return c < 1.0f ? 1.0f : c;  // a NaN stays, as torch.clamp and jnp.maximum keep it
 }
 
-// K15, first stage: the clipped gradient's moments (written in place) and
-// the chunk partials of sum(p * p) and sum(update * update)
+// ------------------------------------------- K14 and K15: a whole list a launch
+
+// the list's table: 4 operand pointers a tensor (g, p, m, v), sizes, the
+// prefix of chunks (K15's stage-1 items) and the prefix of tiles (K14's
+// items and K15's stage-2 items)
+struct ListTable {
+  void* ptr[4][LIST_CAP];
+  int numel[LIST_CAP];
+  int chunk_start[LIST_CAP + 1];
+  int tile_start[LIST_CAP + 1];
+  int ntensors;
+};
+
+// K15's scratch: each chunk's sums of p * p and u * u and each tensor's
+// step, -lr * ratio
+struct ListScratch {
+  float* pw;
+  float* pu;
+  float* steps;
+};
+
+static_assert(sizeof(ListTable) + sizeof(AdamArgs) + sizeof(ListScratch) <= LIST_PARAM_BYTES,
+              "list params");
+
+// blocks of THREADS an SM that the list kernels' registers leave room for
+// (64 registers a thread): 32 warps an SM to overlap the math of some with
+// the loads of others
+constexpr int LIST_MIN_BLOCKS = 2;
+
+// the last index in [lo, hi) whose prefix value is at or below x
+__device__ __forceinline__ int last_at_or_below(const int* prefix, int lo, int hi, int x) {
+  --hi;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (prefix[mid] <= x)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  return lo;
+}
+
+// loads through L2 only (ld.global.cg): K15's stage 2 reads values other
+// blocks wrote in the same launch, which this SM's L1 may hold stale
+__device__ __forceinline__ void load4cg(const float* p, float* f) {
+  const float4 q = __ldcg(reinterpret_cast<const float4*>(p));
+  f[0] = q.x;
+  f[1] = q.y;
+  f[2] = q.z;
+  f[3] = q.w;
+}
+template <typename H>
+__device__ __forceinline__ void load4cg(const H* p, float* f) {
+  const uint2 q = __ldcg(reinterpret_cast<const uint2*>(p));
+  H h[4];
+  memcpy(h, &q, sizeof(q));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) f[i] = to_f(h[i]);
+}
+__device__ __forceinline__ float load1cg(const float* p) { return __ldcg(p); }
+template <typename H>
+__device__ __forceinline__ float load1cg(const H* p) {
+  const unsigned short q = __ldcg(reinterpret_cast<const unsigned short*>(p));
+  H h;
+  memcpy(&h, &q, sizeof(q));
+  return to_f(h);
+}
+
+// the vector walk of the list kernels: this thread's 4-element vectors
+// i = threadIdx.x, + THREADS, ... below n4 (load(i, r) fills NOP operands'
+// 4 floats, body(i, r) does the math and the stores). With PREFETCH the
+// next vector's loads are issued before the current one's math, so they
+// are in flight while it computes (Adam's IEEE divisions and roots take
+// about half the time its bytes do); K15's kernel, whose stages share its
+// 64 registers, spills with the second set and walks without
+template <int NOP, bool PREFETCH, typename Load, typename Body>
+__device__ __forceinline__ void walk_vectors(int n4, Load load, Body body) {
+  float cur[NOP][4], nxt[NOP][4];
+  int i = threadIdx.x;
+  if (PREFETCH && i < n4) load(i, cur);
+  for (; i < n4; i += THREADS) {
+    if (!PREFETCH)
+      load(i, cur);
+    else if (i + THREADS < n4)
+      load(i + THREADS, nxt);
+    body(i, cur);
+    if (PREFETCH) {
+#pragma unroll
+      for (int o = 0; o < NOP; ++o)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) cur[o][k] = nxt[o][k];
+    }
+  }
+}
+
+// K14: Adam/AdamW in place on p, m, v (fp32 moments) and the step count,
+// over the whole list: a grid-stride walk of TILE-element tiles
 template <typename TG, typename TP>
-__global__ void __launch_bounds__(THREADS) lamb_stage1_kernel(const Table<4> tb,
-                                                              const AdamArgs a) {
+__global__ void __launch_bounds__(THREADS, LIST_MIN_BLOCKS)
+    adam_list_kernel(const ListTable tb, const AdamArgs a) {
   if (a.skip && *a.skip) return;
   write_count(a);
-  if ((int)blockIdx.x >= tb.chunk_start[tb.ntensors]) return;
-  const Span s = chunk_span(tb, blockIdx.x);
-  const TG* g = reinterpret_cast<const TG*>(tb.ptr[0][s.t]) + s.start;
-  const TP* p = reinterpret_cast<const TP*>(tb.ptr[1][s.t]) + s.start;
-  float* m = reinterpret_cast<float*>(tb.ptr[2][s.t]) + s.start;
-  float* v = reinterpret_cast<float*>(tb.ptr[3][s.t]) + s.start;
   const float bc1 = a.bias_correction ? *a.bc1 : 1.0f;
   const float bc2 = a.bias_correction ? *a.bc2 : 1.0f;
-  const float clip = lamb_clip(a);
+  const float neg_lr = a.neg_lr_ptr ? *a.neg_lr_ptr : a.neg_lr;
+  const int total = tb.tile_start[tb.ntensors];
+  int t = 0;
+  for (int item = blockIdx.x; item < total; item += gridDim.x) {
+    while (tb.tile_start[t + 1] <= item) ++t;   // a block's tiles only move on
+    const long long start = (long long)(item - tb.tile_start[t]) * TILE;
+    const int len = (int)min((long long)TILE, tb.numel[t] - start);
+    const TG* __restrict__ g = reinterpret_cast<const TG*>(tb.ptr[0][t]) + start;
+    TP* __restrict__ p = reinterpret_cast<TP*>(tb.ptr[1][t]) + start;
+    float* __restrict__ m = reinterpret_cast<float*>(tb.ptr[2][t]) + start;
+    float* __restrict__ v = reinterpret_cast<float*>(tb.ptr[3][t]) + start;
+    int done = 0;
+    if (aligned4<TG>(g) && aligned4<TP>(p) && aligned4<float>(m) && aligned4<float>(v)) {
+      const int n4 = len >> 2;
+      walk_vectors<4, true>(
+          n4,
+          [&](int i, float (&r)[4][4]) {
+            load4(g + 4 * i, r[0]);
+            load4(p + 4 * i, r[1]);
+            load4(m + 4 * i, r[2]);
+            load4(v + 4 * i, r[3]);
+          },
+          [&](int i, float (&r)[4][4]) {
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              adam_moments(a, r[0][k], r[1][k], a.beta1c, r[2][k], r[3][k]);
+              const float upd = adam_direction(a, r[2][k], r[3][k], r[1][k], bc1, bc2);
+              r[1][k] = apply_update<TG, TP>(r[1][k], __fmul_rn(upd, neg_lr));
+            }
+            store4(p + 4 * i, r[1]);
+            store4(m + 4 * i, r[2]);
+            store4(v + 4 * i, r[3]);
+          });
+      done = n4 << 2;
+    }
+    for (int e = done + threadIdx.x; e < len; e += THREADS) {
+      float mv = m[e], vv = v[e];
+      const float pv = to_f(p[e]);
+      adam_moments(a, to_f(g[e]), pv, a.beta1c, mv, vv);
+      const float upd = adam_direction(a, mv, vv, pv, bc1, bc2);
+      p[e] = from_f<TP>(apply_update<TG, TP>(pv, __fmul_rn(upd, neg_lr)));
+      m[e] = mv;
+      v[e] = vv;
+    }
+  }
+}
+
+// K15 stage 1 of chunk c (of tensor t), a block of THREADS: the
+// clipped gradient's moments written in place, and the chunk's sums of p *
+// p and u * u (each thread's vectors i, i + 512, ... in order, then the
+// ragged tail's elements; block_reduce) into pw[c], pu[c]
+template <typename TG, typename TP>
+__device__ __forceinline__ void lamb_stage1_chunk(const ListTable& tb, const AdamArgs& a,
+                                                  const ListScratch& sc, int t, int c,
+                                                  float bc1, float bc2, float clip) {
+  const long long start = (long long)(c - tb.chunk_start[t]) * CHUNK;
+  const int len = (int)min((long long)CHUNK, tb.numel[t] - start);
+  const TG* __restrict__ g = reinterpret_cast<const TG*>(tb.ptr[0][t]) + start;
+  const TP* __restrict__ p = reinterpret_cast<const TP*>(tb.ptr[1][t]) + start;
+  float* __restrict__ m = reinterpret_cast<float*>(tb.ptr[2][t]) + start;
+  float* __restrict__ v = reinterpret_cast<float*>(tb.ptr[3][t]) + start;
   const bool clipping = a.max_grad_norm > 0.0f;
   float w_sq = 0.0f, u_sq = 0.0f;
   int done = 0;
   if (aligned4<TG>(g) && aligned4<TP>(p) && aligned4<float>(m) && aligned4<float>(v)) {
-    const int n4 = s.len >> 2;
-    for (int i = threadIdx.x; i < n4; i += THREADS) {
-      float gv[4], pv[4], mv[4], vv[4];
-      load4(g + 4 * i, gv);
-      load4(p + 4 * i, pv);
-      load4(m + 4 * i, mv);
-      load4(v + 4 * i, vv);
+    const int n4 = len >> 2;
+    walk_vectors<4, false>(
+        n4,
+        [&](int i, float (&r)[4][4]) {
+          load4(g + 4 * i, r[0]);
+          load4(p + 4 * i, r[1]);
+          load4(m + 4 * i, r[2]);
+          load4(v + 4 * i, r[3]);
+        },
+        [&](int i, float (&r)[4][4]) {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float gc = clipping ? __fdiv_rn(gv[k], clip) : gv[k];
-        adam_moments(a, gc, pv[k], a.beta3, mv[k], vv[k]);
-        const float upd = adam_direction(a, mv[k], vv[k], pv[k], bc1, bc2);
-        w_sq = __fadd_rn(w_sq, __fmul_rn(pv[k], pv[k]));
-        u_sq = __fadd_rn(u_sq, __fmul_rn(upd, upd));
-      }
-      store4(m + 4 * i, mv);
-      store4(v + 4 * i, vv);
-    }
+          for (int e = 0; e < 4; ++e) {
+            const float gc = clipping ? __fdiv_rn(r[0][e], clip) : r[0][e];
+            adam_moments(a, gc, r[1][e], a.beta3, r[2][e], r[3][e]);
+            const float upd = adam_direction(a, r[2][e], r[3][e], r[1][e], bc1, bc2);
+            w_sq = __fadd_rn(w_sq, __fmul_rn(r[1][e], r[1][e]));
+            u_sq = __fadd_rn(u_sq, __fmul_rn(upd, upd));
+          }
+          store4(m + 4 * i, r[2]);
+          store4(v + 4 * i, r[3]);
+        });
     done = n4 << 2;
   }
-  for (int e = done + threadIdx.x; e < s.len; e += THREADS) {
+  for (int e = done + threadIdx.x; e < len; e += THREADS) {
     float mv = m[e], vv = v[e];
     const float pv = to_f(p[e]);
     const float gv = to_f(g[e]);
@@ -536,61 +674,115 @@ __global__ void __launch_bounds__(THREADS) lamb_stage1_kernel(const Table<4> tb,
   w_sq = block_reduce<false>(w_sq);
   u_sq = block_reduce<false>(u_sq);
   if (threadIdx.x == 0) {
-    a.pw[tb.chunk_base + blockIdx.x] = w_sq;
-    a.pu[tb.chunk_base + blockIdx.x] = u_sq;
+    sc.pw[c] = w_sq;
+    sc.pu[c] = u_sq;
   }
 }
 
-// a tensor's chunk partials summed in order (every block of the tensor
-// sums the same values in the same order, so all get the same bits)
-__device__ float tensor_sum(const Table<4>& tb, const float* partials, int t) {
-  float acc = 0.0f;
-  for (int c = tb.chunk_start[t] + (int)threadIdx.x; c < tb.chunk_start[t + 1]; c += THREADS)
-    acc = __fadd_rn(acc, partials[tb.chunk_base + c]);
-  return block_reduce<false>(acc);
+// K15: tensor t's step -lr * ratio, by one warp, from its chunks' sums in
+// the order a block of 512 threads sums them: virtual thread vt = 32 j +
+// lane adds chunks vt, vt + 512, ... in order; the xor butterfly of each
+// virtual warp j; then block_reduce's second stage over the 16 warp values
+__device__ void lamb_tensor_step(const ListTable& tb, const AdamArgs& a, const ListScratch& sc,
+                                 int t, float neg_lr) {
+  const int lane = threadIdx.x & 31;
+  const int c0 = tb.chunk_start[t], nch = tb.chunk_start[t + 1] - c0;
+  float wl = 0.0f, ul = 0.0f;   // lane j: virtual warp j's sums
+  for (int j = 0; j < VWARPS; ++j) {
+    float w = 0.0f, u = 0.0f;
+    for (int c = 32 * j + lane; c < nch; c += THREADS) {
+      w = __fadd_rn(w, __ldcg(sc.pw + c0 + c));
+      u = __fadd_rn(u, __ldcg(sc.pu + c0 + c));
+    }
+    w = warp_reduce<false>(w);
+    u = warp_reduce<false>(u);
+    if (lane == j) {
+      wl = w;
+      ul = u;
+    }
+  }
+  const float w = __fsqrt_rn(warp_reduce<false>(wl));
+  const float u = __fsqrt_rn(warp_reduce<false>(ul));
+  if (lane == 0) {
+    float ratio = (w > 0.0f && u > 0.0f) ? __fdiv_rn(w, __fadd_rn(u, 1e-38f)) : 1.0f;
+    if (!a.trust) ratio = 1.0f;
+    sc.steps[t] = __fmul_rn(neg_lr, ratio);
+  }
 }
 
-// K15, second stage: the tensor's trust ratio, then p += (-lr ratio) u,
-// the update direction recomputed from the new moments
+// K15 stage 2 of tile k of tensor t: p += step u, the direction recomputed
+// from the new moments
 template <typename TG, typename TP>
-__global__ void __launch_bounds__(THREADS) lamb_stage2_kernel(const Table<4> tb,
-                                                              const AdamArgs a) {
+__device__ __forceinline__ void lamb_stage2_tile(const ListTable& tb, const AdamArgs& a,
+                                                 const ListScratch& sc, int t, int k, float bc1,
+                                                 float bc2) {
+  const float step = __ldcg(sc.steps + t);
+  const long long start = (long long)k * TILE;
+  const int len = (int)min((long long)TILE, tb.numel[t] - start);
+  TP* __restrict__ p = reinterpret_cast<TP*>(tb.ptr[1][t]) + start;
+  const float* __restrict__ m = reinterpret_cast<const float*>(tb.ptr[2][t]) + start;
+  const float* __restrict__ v = reinterpret_cast<const float*>(tb.ptr[3][t]) + start;
+  int done = 0;
+  if (aligned4<TP>(p) && aligned4<float>(m) && aligned4<float>(v)) {
+    const int n4 = len >> 2;
+    walk_vectors<3, false>(
+        n4,
+        [&](int i, float (&r)[3][4]) {
+          load4cg(p + 4 * i, r[0]);
+          load4cg(m + 4 * i, r[1]);
+          load4cg(v + 4 * i, r[2]);
+        },
+        [&](int i, float (&r)[3][4]) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float upd = adam_direction(a, r[1][e], r[2][e], r[0][e], bc1, bc2);
+            r[0][e] = apply_update<TG, TP>(r[0][e], __fmul_rn(step, upd));
+          }
+          store4(p + 4 * i, r[0]);
+        });
+    done = n4 << 2;
+  }
+  for (int e = done + threadIdx.x; e < len; e += THREADS) {
+    const float pv = load1cg(p + e);
+    const float upd = adam_direction(a, load1cg(m + e), load1cg(v + e), pv, bc1, bc2);
+    p[e] = from_f<TP>(apply_update<TG, TP>(pv, __fmul_rn(step, upd)));
+  }
+}
+
+// K15: LAMB in place over the whole list in one cooperative launch (every
+// block resident): every chunk through stage 1, grid-stride; a grid
+// barrier; each tensor's step, a warp a tensor; a grid barrier; every tile
+// through stage 2, grid-stride from the list's last tile back.
+template <typename TG, typename TP>
+__global__ void __launch_bounds__(THREADS, LIST_MIN_BLOCKS)
+    lamb_list_kernel(const ListTable tb, const AdamArgs a, const ListScratch sc) {
   if (a.skip && *a.skip) return;
-  if ((int)blockIdx.x >= tb.chunk_start[tb.ntensors]) return;
-  const Span s = chunk_span(tb, blockIdx.x);
-  TP* p = reinterpret_cast<TP*>(tb.ptr[1][s.t]) + s.start;
-  const float* m = reinterpret_cast<const float*>(tb.ptr[2][s.t]) + s.start;
-  const float* v = reinterpret_cast<const float*>(tb.ptr[3][s.t]) + s.start;
+  write_count(a);
   const float bc1 = a.bias_correction ? *a.bc1 : 1.0f;
   const float bc2 = a.bias_correction ? *a.bc2 : 1.0f;
   const float neg_lr = a.neg_lr_ptr ? *a.neg_lr_ptr : a.neg_lr;
-  const float w = __fsqrt_rn(tensor_sum(tb, a.pw, s.t));
-  const float u = __fsqrt_rn(tensor_sum(tb, a.pu, s.t));
-  float ratio = (w > 0.0f && u > 0.0f) ? __fdiv_rn(w, __fadd_rn(u, 1e-38f)) : 1.0f;
-  if (!a.trust) ratio = 1.0f;
-  const float step = __fmul_rn(neg_lr, ratio);
-  int done = 0;
-  if (aligned4<TP>(p) && aligned4<float>(m) && aligned4<float>(v)) {
-    const int n4 = s.len >> 2;
-    for (int i = threadIdx.x; i < n4; i += THREADS) {
-      float pv[4], mv[4], vv[4];
-      load4(p + 4 * i, pv);
-      load4(m + 4 * i, mv);
-      load4(v + 4 * i, vv);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float upd = adam_direction(a, mv[k], vv[k], pv[k], bc1, bc2);
-        pv[k] = apply_update<TG, TP>(pv[k], __fmul_rn(step, upd));
-      }
-      store4(p + 4 * i, pv);
-    }
-    done = n4 << 2;
+  const float clip = lamb_clip(a);
+  const int n = tb.ntensors;
+  for (int c = blockIdx.x; c < tb.chunk_start[n]; c += gridDim.x) {
+    const int t = last_at_or_below(tb.chunk_start, 0, n, c);
+    lamb_stage1_chunk<TG, TP>(tb, a, sc, t, c, bc1, bc2, clip);
   }
-  for (int e = done + threadIdx.x; e < s.len; e += THREADS) {
-    const float pv = to_f(p[e]);
-    const float upd = adam_direction(a, m[e], v[e], pv, bc1, bc2);
-    p[e] = from_f<TP>(apply_update<TG, TP>(pv, __fmul_rn(step, upd)));
+  cg::this_grid().sync();
+  const int gw = (int)((blockIdx.x * THREADS + threadIdx.x) >> 5);
+  for (int t = gw; t < n; t += (int)gridDim.x * VWARPS) lamb_tensor_step(tb, a, sc, t, neg_lr);
+  cg::this_grid().sync();
+  const int last = tb.tile_start[n] - 1;
+  for (int i = blockIdx.x; i <= last; i += gridDim.x) {
+    const int t = last_at_or_below(tb.tile_start, 0, n, last - i);
+    lamb_stage2_tile<TG, TP>(tb, a, sc, t, last - i - tb.tile_start[t], bc1, bc2);
   }
+}
+
+// the list kernel of form 0 (K14) or 1 (K15) for these dtypes
+template <typename TG, typename TP>
+const void* list_kernel_of(int form) {
+  return form == 0 ? (const void*)adam_list_kernel<TG, TP>
+                   : (const void*)lamb_list_kernel<TG, TP>;
 }
 
 // SGD's new parameter for one element, in the plain version's order
@@ -806,7 +998,7 @@ namespace {
 
 // hyper: beta1, beta1c, beta2, beta2c, eps, wd, beta3, max_grad_norm,
 // neg_lr; flags: adam_w_mode, bias_correction, decay, trust; devptrs:
-// bc1, bc2, neg_lr, global_sq, skip, count, count_new, pw, pu (0 = null)
+// bc1, bc2, neg_lr, global_sq, skip, count, count_new (0 = null)
 AdamArgs adam_args(const float* hyper, const int* flags, const long long* devptrs) {
   AdamArgs a;
   a.beta1 = hyper[0];
@@ -829,8 +1021,6 @@ AdamArgs adam_args(const float* hyper, const int* flags, const long long* devptr
   a.skip = reinterpret_cast<const unsigned char*>(devptrs[4]);
   a.count = reinterpret_cast<int*>(devptrs[5]);
   a.count_new = reinterpret_cast<const int*>(devptrs[6]);
-  a.pw = reinterpret_cast<float*>(devptrs[7]);
-  a.pu = reinterpret_cast<float*>(devptrs[8]);
   return a;
 }
 
@@ -841,61 +1031,112 @@ bool pair_ok(int g_dtype, int p_dtype) {
 
 }  // namespace
 
-// K14 over one group: ptrs [4][n] = g, p, m, v
+namespace {
+
+// a list's table from the host arrays: ptrs [4][n] device addresses,
+// numels [n]
+cudaError_t fill_list(ListTable& tb, const long long* ptrs, const long long* numels, int n) {
+  if (n < 1 || n > LIST_CAP) return cudaErrorInvalidValue;
+  memset(&tb, 0, sizeof(tb));
+  long long chunks = 0, tiles = 0;
+  for (int i = 0; i < n; ++i) {
+    if (numels[i] < 0 || numels[i] > 0x7fffffffLL) return cudaErrorInvalidValue;
+    for (int d = 0; d < 4; ++d) tb.ptr[d][i] = reinterpret_cast<void*>(ptrs[d * n + i]);
+    tb.numel[i] = (int)numels[i];
+    tb.chunk_start[i] = (int)chunks;
+    tb.tile_start[i] = (int)tiles;
+    chunks += (numels[i] + CHUNK - 1) / CHUNK;
+    tiles += (numels[i] + TILE - 1) / TILE;
+  }
+  if (chunks + tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  tb.chunk_start[n] = (int)chunks;
+  tb.tile_start[n] = (int)tiles;
+  tb.ntensors = n;
+  return cudaSuccess;
+}
+
+// the list kernel of form 0 (K14) or 1 (K15), or null for dtypes it is
+// not built for
+const void* list_kernel(int form, int g_dtype, int p_dtype) {
+  if (!pair_ok(g_dtype, p_dtype) || (form != 0 && form != 1)) return nullptr;
+  const void* fn = nullptr;
+  if (g_dtype == p_dtype) {
+    MT_DISPATCH(p_dtype, TP, fn = list_kernel_of<TP, TP>(form))
+  } else {
+    MT_DISPATCH(p_dtype, TP, fn = list_kernel_of<float, TP>(form))
+  }
+  return fn;
+}
+
+}  // namespace
+
+extern "C" int multi_tensor_list_capacity() { return LIST_CAP; }
+
+extern "C" int multi_tensor_tile() { return TILE; }
+
+// the blocks of the K14 (form 0) or K15 (form 1) instantiation for these
+// dtypes that one SM holds at once, into *blocks
+extern "C" int multi_tensor_list_resident(int form, int g_dtype, int p_dtype, int* blocks,
+                                          int device, void* stream) {
+  (void)stream;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const void* fn = list_kernel(form, g_dtype, p_dtype);
+  if (!fn || !blocks) return (int)cudaErrorInvalidValue;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, THREADS, 0);
+}
+
+// K14 over a list of n tensors in one launch of `grid` blocks: ptrs [4][n]
+// = g, p, m, v
 extern "C" int multi_tensor_adam(const long long* ptrs, const long long* numels, int n,
-                                 int g_dtype, int p_dtype, const float* hyper,
+                                 int g_dtype, int p_dtype, int grid, const float* hyper,
                                  const int* flags, const long long* devptrs, int device,
                                  void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (!pair_ok(g_dtype, p_dtype)) return (int)cudaErrorInvalidValue;
-  Table<4> tb;
-  int chunks = 0;
-  err = fill(tb, ptrs, numels, n, 0, 0, &chunks);
+  const void* fn = list_kernel(0, g_dtype, p_dtype);
+  if (!fn || grid < 1) return (int)cudaErrorInvalidValue;
+  ListTable tb;
+  err = fill_list(tb, ptrs, numels, n);
   if (err != cudaSuccess) return (int)err;
-  const AdamArgs a = adam_args(hyper, flags, devptrs);
+  AdamArgs a = adam_args(hyper, flags, devptrs);
   if ((a.bias_correction && (!a.bc1 || !a.bc2)) || (a.count && !a.count_new))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int blocks = chunks > 0 ? chunks : 1;
-  if (g_dtype == p_dtype) {
-    MT_DISPATCH(p_dtype, TP, adam_kernel<TP, TP><<<blocks, THREADS, 0, st>>>(tb, a))
-  } else {
-    MT_DISPATCH(p_dtype, TP, adam_kernel<float, TP><<<blocks, THREADS, 0, st>>>(tb, a))
-  }
-  return (int)cudaGetLastError();
+  void* args[] = {&tb, &a};
+  err = cudaLaunchKernel(fn, dim3((unsigned)grid), dim3(THREADS), args, 0, (cudaStream_t)stream);
+  const cudaError_t last = cudaGetLastError();  // clears a refused launch's error too
+  return (int)(err != cudaSuccess ? err : last);
 }
 
-// K15 over one group, stage 1 or 2: ptrs [4][n] = g, p, m, v; the chunk
-// partials at chunk_base
+// K15 over a list of n tensors in one cooperative launch of `grid` blocks
+// (at most what the card holds at once, or the launch is refused): ptrs
+// [4][n] = g, p, m, v; devptrs as multi_tensor_adam's, then the fp32
+// scratch: the chunks' sums of p * p and of u * u [chunks each] and the
+// steps [n]
 extern "C" int multi_tensor_lamb(const long long* ptrs, const long long* numels, int n,
-                                 int g_dtype, int p_dtype, int stage, long long chunk_base,
-                                 const float* hyper, const int* flags,
-                                 const long long* devptrs, int device, void* stream) {
+                                 int g_dtype, int p_dtype, int grid, const float* hyper,
+                                 const int* flags, const long long* devptrs, int device,
+                                 void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (!pair_ok(g_dtype, p_dtype) || (stage != 1 && stage != 2))
-    return (int)cudaErrorInvalidValue;
-  Table<4> tb;
-  int chunks = 0;
-  err = fill(tb, ptrs, numels, n, chunk_base, 0, &chunks);
+  const void* fn = list_kernel(1, g_dtype, p_dtype);
+  if (!fn || grid < 1) return (int)cudaErrorInvalidValue;
+  ListTable tb;
+  err = fill_list(tb, ptrs, numels, n);
   if (err != cudaSuccess) return (int)err;
-  const AdamArgs a = adam_args(hyper, flags, devptrs);
-  if ((a.bias_correction && (!a.bc1 || !a.bc2)) || (a.count && !a.count_new) || !a.pw ||
-      !a.pu || (a.max_grad_norm > 0.0f && !a.global_sq))
+  AdamArgs a = adam_args(hyper, flags, devptrs);
+  ListScratch sc;
+  sc.pw = reinterpret_cast<float*>(devptrs[7]);
+  sc.pu = reinterpret_cast<float*>(devptrs[8]);
+  sc.steps = reinterpret_cast<float*>(devptrs[9]);
+  if ((a.bias_correction && (!a.bc1 || !a.bc2)) || (a.count && !a.count_new) || !sc.pw ||
+      !sc.pu || !sc.steps || (a.max_grad_norm > 0.0f && !a.global_sq))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int blocks = chunks > 0 ? chunks : 1;
-  if (stage == 1 && g_dtype == p_dtype) {
-    MT_DISPATCH(p_dtype, TP, lamb_stage1_kernel<TP, TP><<<blocks, THREADS, 0, st>>>(tb, a))
-  } else if (stage == 1) {
-    MT_DISPATCH(p_dtype, TP, lamb_stage1_kernel<float, TP><<<blocks, THREADS, 0, st>>>(tb, a))
-  } else if (g_dtype == p_dtype) {
-    MT_DISPATCH(p_dtype, TP, lamb_stage2_kernel<TP, TP><<<blocks, THREADS, 0, st>>>(tb, a))
-  } else {
-    MT_DISPATCH(p_dtype, TP, lamb_stage2_kernel<float, TP><<<blocks, THREADS, 0, st>>>(tb, a))
-  }
-  return (int)cudaGetLastError();
+  void* args[] = {&tb, &a, &sc};
+  err = cudaLaunchCooperativeKernel(fn, dim3((unsigned)grid), dim3(THREADS), args, 0,
+                                    (cudaStream_t)stream);
+  const cudaError_t last = cudaGetLastError();  // clears a refused launch's error too
+  return (int)(err != cudaSuccess ? err : last);
 }
 
 // K16 over one group: ptrs [4][n] = g, p, buf, model copy (the last row

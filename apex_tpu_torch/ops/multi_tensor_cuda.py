@@ -13,13 +13,16 @@ source's header says what bounds them (bytes) and how the design answers
 that.
 
 Tensor lists. A launch takes a group of at most :func:`capacity` (depth)
-tensors (depth: the operands each tensor brings, e.g. g, p, m, v for
-Adam): their device addresses and sizes travel in the kernel's
+tensors (depth: the operands each tensor brings, e.g. g, p, buf for
+SGD): their device addresses and sizes travel in the kernel's
 parameters, under the 4 KB limit, and a longer list takes one launch a
-group. Nothing is staged in device memory and nothing waits on the host,
-so gradients that are new tensors every step cost no more than fixed
-ones; a CUDA graph that captures a call keeps the addresses it captured.
-A list of mixed dtypes takes one group per dtype combination.
+group. K14 and K15 take up to :func:`list_capacity` tensors a launch in
+parameters of up to 32,764 bytes, so GPT-2-small's and BERT-large's
+lists take one launch, on the grid :func:`plan` gives. Nothing
+is staged in device memory and nothing waits on the host, so gradients
+that are new tensors every step cost no more than fixed ones; a CUDA
+graph that captures a call keeps the addresses it captured. A list of
+mixed dtypes takes one group per dtype combination.
 
 Each wrapper checks its inputs, allocates its outputs, launches on
 PyTorch's current stream without synchronising, raises on a refused
@@ -33,6 +36,7 @@ fused_lamb``'s two structures; K16: ``optimizers/fused_sgd``'s update with
 """
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -54,9 +58,11 @@ _SIGNATURES = {
     "multi_tensor_norm_partials": ([_P, _P, _I, _I, _I, _P, _L, _I, _P], _I),
     "multi_tensor_norm_reduce": ([_P, _I, _I, _P, _L, _L, _P, _P, _I, _P, _P,
                                   _I, _P], _I),
-    "multi_tensor_adam": ([_P, _P, _I, _I, _I, _P, _P, _P, _I, _P], _I),
-    "multi_tensor_lamb": ([_P, _P, _I, _I, _I, _I, _L, _P, _P, _P, _I, _P],
-                          _I),
+    "multi_tensor_list_capacity": ([], _I),
+    "multi_tensor_tile": ([], _I),
+    "multi_tensor_list_resident": ([_I, _I, _I, _P, _I, _P], _I),
+    "multi_tensor_adam": ([_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P], _I),
+    "multi_tensor_lamb": ([_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P], _I),
     "multi_tensor_sgd": ([_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P], _I),
     "multi_tensor_zero_adam": ([_P, _P, _P, _P, _P, _L, _P, _P, _P, _I, _P],
                                _I),
@@ -64,10 +70,12 @@ _SIGNATURES = {
                                 _I, _P, _P, _P, _P, _P, _I, _P], _I),
     "multi_tensor_error_string": ([_I], ctypes.c_char_p),
 }
-# elements a block (csrc/multi_tensor.cu CHUNK) and the bytes of a launch's
-# tensor table (TABLE_BYTES); the card tests hold these to the C source's
+# elements a block (csrc/multi_tensor.cu CHUNK), the bytes of a launch's
+# tensor table (TABLE_BYTES) and K14's and K15's tiles (TILE); the card
+# tests hold these to the C source's
 CHUNK = 65536
 TABLE_BYTES = 3840
+TILE = 32768
 _MAX_NUMEL = 2 ** 31 - 1
 
 
@@ -79,6 +87,29 @@ def capacity(depth):
 def chunks(numel):
     """The blocks (chunks of ``CHUNK`` elements) a tensor takes."""
     return -(-numel // CHUNK)
+
+
+def tiles(numel):
+    """K14's items (and K15's stage-2 items) a tensor takes."""
+    return -(-numel // TILE)
+
+
+class Plan(NamedTuple):
+    """A launch of K14 or K15 over one list: ``grid`` the blocks."""
+    grid: int
+
+
+def plan(kind, numels, sm_count, resident):
+    """The launch of ``kind`` ("adam": K14, "lamb": K15) over tensors of
+    ``numels`` elements on a card of ``sm_count`` SMs that holds
+    ``resident`` blocks of the kernel an SM: a grid of every block the
+    card holds, K14's at most one a tile (K15's launch is cooperative:
+    every block resident). Pure: it reads sizes only, so a list gets the
+    same plan every step, and the kernels' bits do not depend on it."""
+    grid = max(1, sm_count * resident)
+    if kind == "adam":
+        grid = max(1, min(grid, sum(tiles(x) for x in numels)))
+    return Plan(grid)
 
 
 def _device(name, *lists):
@@ -107,6 +138,70 @@ def _device(name, *lists):
 def _groups(idx, depth):
     cap = capacity(depth)
     return [idx[i:i + cap] for i in range(0, len(idx), cap)]
+
+
+def _list_groups(idx, cap):
+    """K14's and K15's launches: a list of one dtype pair in groups of at
+    most ``cap`` tensors (:func:`list_capacity`; one group at GPT-2-small's
+    148 and BERT-large's 302)."""
+    return [idx[i:i + cap] for i in range(0, len(idx), cap)]
+
+
+_list_cap = []
+
+
+def list_capacity():
+    """The tensors a K14 or K15 launch takes, as the built kernel has it
+    (``multi_tensor_list_capacity``: 737 where the toolkit is CUDA 12.1
+    or later, whose kernel parameters hold 32,764 bytes; 85 in the 4 KB
+    of older ones)."""
+    if not _list_cap:
+        _list_cap.append(
+            _build.load(_NAME, _SIGNATURES).multi_tensor_list_capacity())
+    return _list_cap[0]
+
+
+# (device index, kind, g dtype code, p dtype code) -> blocks an SM
+_resident = {}
+_sm_count = {}
+_FORMS = {"adam": 0, "lamb": 1}
+# (plan, kind, device index, dtypes, sizes) -> (Plan, chunks): a list's
+# launch by its layout, asked of :func:`plan` once (the function is in the
+# key, so a plan that tests patch in is asked too)
+_layouts = {}
+
+
+def resident(kind, g_dtype, p_dtype, dev):
+    """The blocks of ``kind``'s kernel for these dtypes that one SM holds
+    at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` through the
+    C entry), and the card's SMs."""
+    key = (dev.index, kind, _code(g_dtype), _code(p_dtype))
+    if key not in _resident:
+        out = ctypes.c_int(0)
+        _build.launch(_NAME, _SIGNATURES, "multi_tensor_list_resident", dev,
+                      _FORMS[kind], key[2], key[3], ctypes.addressof(out))
+        if out.value < 1:
+            raise RuntimeError(f"multi_tensor {kind}: no block of its kernel "
+                               f"fits an SM")
+        _resident[key] = out.value
+    if dev.index not in _sm_count:
+        _sm_count[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _resident[key], _sm_count[dev.index]
+
+
+def _layout(kind, numels, dg, dp, dev):
+    """:func:`plan` for one group of sizes ``numels`` (an int64 array) on
+    ``dev``, and the group's chunks; kept by the group's layout."""
+    key = (plan, kind, dev.index, dg, dp, numels.tobytes())
+    if key not in _layouts:
+        if len(_layouts) >= 64:
+            _layouts.clear()
+        res, sms = resident(kind, dg, dp, dev)
+        sizes = numels.tolist()
+        _layouts[key] = (plan(kind, sizes, sms, res),
+                         sum(chunks(x) for x in sizes))
+    return _layouts[key]
 
 
 def _by_dtype(key, n):
@@ -278,7 +373,8 @@ def _state_ptrs(name, dev, count, count_new, bc1, bc2, skip):
 def adam(grads, params, ms, vs, count, count_new, bc1, bc2, lr, *, beta1,
          beta2, eps, weight_decay, adam_w_mode, bias_correction, skip=None):
     """K14: Adam (AdamW with ``adam_w_mode``) in place on every ``params[i]``
-    (bf16/fp16/fp32) and its fp32 moments ``ms[i]``, ``vs[i]``, in the
+    (bf16/fp16/fp32) and its fp32 moments ``ms[i]``, ``vs[i]``, one launch
+    a list (of one dtype pair, at most :func:`list_capacity` tensors), in the
     plain version's fp32 order (``optimizers/fused_adam._adam_flat``), the
     update cast to the gradient's dtype and then to the parameter's; and
     ``count = count_new``. ``bc1``, ``bc2`` (None without bias correction)
@@ -297,34 +393,39 @@ def adam(grads, params, ms, vs, count, count_new, bc1, bc2, lr, *, beta1,
                       weight_decay, 0.0, 0.0, lval], dtype=np.float32)
     flags = np.array([bool(adam_w_mode), bool(bias_correction),
                       weight_decay != 0, 0], dtype=np.int32)
-    devptrs = np.array([b1ptr, b2ptr, lptr or 0, 0, sptr, cptr, cnptr, 0, 0],
+    devptrs = np.array([b1ptr, b2ptr, lptr or 0, 0, sptr, cptr, cnptr],
                        dtype=np.int64)
+    lists = (grads, params, ms, vs)
     for (dg, dp), idx in _by_dtype(
             lambda i: (grads[i].dtype, params[i].dtype), len(grads)):
-        for grp in _groups(idx, 4):
-            ptrs, numels = _table((grads, params, ms, vs), grp)
+        for grp in _list_groups(idx, list_capacity()):
+            ptrs, numels = _table(lists, grp)
+            pl, _ = _layout("adam", numels, dg, dp, dev)
             _build.launch(_NAME, _SIGNATURES, "multi_tensor_adam", dev,
                           ptrs.ctypes.data, numels.ctypes.data, len(grp),
-                          _code(dg), _code(dp), hyper.ctypes.data,
-                          flags.ctypes.data, devptrs.ctypes.data)
+                          _code(dg), _code(dp), pl.grid,
+                          hyper.ctypes.data, flags.ctypes.data,
+                          devptrs.ctypes.data)
             adam.launches += 1
 
 
 def lamb(grads, params, ms, vs, count, count_new, bc1, bc2, lr, *, beta1,
          beta2, beta3, eps, weight_decay, adam_w_mode, bias_correction,
          max_grad_norm, trust, global_sq=None, skip=None):
-    """K15: LAMB in place, in two launches a group. Stage 1 clips each
+    """K15: LAMB in place, one launch a list (of one dtype pair, at most
+    :func:`list_capacity` tensors) in two stages a tensor. Stage 1 clips each
     gradient by ``max(sqrt(global_sq) / max_grad_norm, 1)`` (no clip when
     ``max_grad_norm`` is None or <= 0; ``global_sq`` the gradients' 0-d
     sum of squares from :func:`l2norm`), updates the fp32 moments in place
-    (``beta3`` the gradient's coefficient in the first moment) and writes
-    each chunk's partial sums of p^2 and of the update direction's square;
-    stage 2 sums a tensor's partials in order for its trust ratio
-    ``|p| / (|u| + 1e-38)`` (1 where either is 0, or everywhere unless
-    ``trust``), recomputes the direction from the new moments and writes
-    ``p += (-lr * ratio) * u``, the update cast to the gradient's dtype and
-    then to the parameter's; ``count = count_new``. Scalars as
-    :func:`adam`; nothing is written where ``skip`` is set."""
+    (``beta3`` the gradient's coefficient in the first moment) and sums
+    p^2 and the update direction's square by chunk; the tensor's sums, in
+    a fixed order, give its trust ratio ``|p| / (|u| + 1e-38)`` (1 where
+    either is 0, or everywhere unless ``trust``); stage 2 recomputes the
+    direction from the new moments and writes ``p += (-lr * ratio) * u``,
+    the update cast to the gradient's dtype and then to the parameter's;
+    ``count = count_new``. The bits do not depend on :func:`plan`'s
+    grid. Scalars as :func:`adam`; nothing is written where ``skip`` is
+    set."""
     name = "multi_tensor lamb"
     dev, grads = _optimizer_lists(name, grads, params, ms, vs)
     cptr, cnptr, b1ptr, b2ptr, sptr = _state_ptrs(name, dev, count,
@@ -337,30 +438,32 @@ def lamb(grads, params, ms, vs, count, count_new, bc1, bc2, lr, *, beta1,
     gptr = _scalar(name, global_sq, dev)[0] if clipping else 0
     neg_lr = lr.neg() if torch.is_tensor(lr) else -lr
     lptr, lval = _scalar(name, neg_lr, dev)
-    counts = [chunks(g.numel()) for g in grads]
-    pw = torch.empty(max(sum(counts), 1), dtype=torch.float32, device=dev)
-    pu = torch.empty_like(pw)
     hyper = np.array([beta1, 1.0 - beta1, beta2, 1.0 - beta2, eps,
                       weight_decay, beta3,
                       max_grad_norm if clipping else 0.0, lval],
                      dtype=np.float32)
     flags = np.array([bool(adam_w_mode), bool(bias_correction),
                       weight_decay != 0, bool(trust)], dtype=np.int32)
-    devptrs = np.array([b1ptr, b2ptr, lptr or 0, gptr or 0, sptr, cptr,
-                        cnptr, pw.data_ptr(), pu.data_ptr()], dtype=np.int64)
-    chunk_base = 0
+    lists = (grads, params, ms, vs)
     for (dg, dp), idx in _by_dtype(
             lambda i: (grads[i].dtype, params[i].dtype), len(grads)):
-        for grp in _groups(idx, 4):
-            ptrs, numels = _table((grads, params, ms, vs), grp)
-            for stage in (1, 2):
-                _build.launch(_NAME, _SIGNATURES, "multi_tensor_lamb", dev,
-                              ptrs.ctypes.data, numels.ctypes.data, len(grp),
-                              _code(dg), _code(dp), stage, chunk_base,
-                              hyper.ctypes.data, flags.ctypes.data,
-                              devptrs.ctypes.data)
-                lamb.launches += 1
-            chunk_base += sum(counts[i] for i in grp)
+        for grp in _list_groups(idx, list_capacity()):
+            ptrs, numels = _table(lists, grp)
+            pl, nch = _layout("lamb", numels, dg, dp, dev)
+            # the chunks' sums of p^2 and u^2, then the tensors' steps
+            scratch = torch.empty(2 * nch + len(grp), dtype=torch.float32,
+                                  device=dev)
+            devptrs = np.array([b1ptr, b2ptr, lptr or 0, gptr or 0, sptr,
+                                cptr, cnptr, scratch.data_ptr(),
+                                scratch[nch:].data_ptr(),
+                                scratch[2 * nch:].data_ptr()],
+                               dtype=np.int64)
+            _build.launch(_NAME, _SIGNATURES, "multi_tensor_lamb", dev,
+                          ptrs.ctypes.data, numels.ctypes.data, len(grp),
+                          _code(dg), _code(dp), pl.grid,
+                          hyper.ctypes.data, flags.ctypes.data,
+                          devptrs.ctypes.data)
+            lamb.launches += 1
 
 
 def sgd(grads, params, bufs, model_params, count, count_new, lr, *,

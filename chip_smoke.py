@@ -7,14 +7,15 @@ tp = 2 phase gives each rank a card of its own over NCCL. With
 ``--parent``, the sources of CHECKOUT (another commit's tree) whose
 kernels the recent slices redesigned (``xent.cu``, ``softmax.cu``,
 ``decode_attention.cu``, ``layer_norm.cu``, ``attention_bwd.cu``,
-``qmatmul.cu``) are built too, and their K7, K7p, K10, K10L, K2 and K2q,
-K5/K6 and K5d/K6d at head dims 80 and 256, and K3 and K4 at every width
-the smoke times, are timed in turns beside this tree's (``parent_ms``,
-``parent_ms_turns``; through this tree's wrappers, so those C entries
-must be this tree's), and so is K23 at its five decode shapes, through
-the parent's own C entry, whose signature ``PARENT_SIGNATURES`` states
-(before K23 took its plan). For example, from the root of this
-checkout::
+``qmatmul.cu``, ``multi_tensor.cu``) are built too, and their K7, K7p,
+K10, K10L, K2 and K2q, K5/K6 and K5d/K6d at head dims 80 and 256, K3 and
+K4 at every width the smoke times and K23 at its five decode shapes are
+timed in turns beside this tree's (``parent_ms``, ``parent_ms_turns``;
+through this tree's wrappers, so those C entries must be this tree's),
+and so are K14 and K15, through the parent's own wrappers
+(``PARENT_WRAPPERS``, loaded from CHECKOUT and run on its library: a
+launch a group of 95 tensors, before they took a whole list). For
+example, from the root of this checkout::
 
     git archive <parent commit> apex_tpu_torch | tar -x -C build/parent
     python3 chip_smoke.py --parent build/parent
@@ -122,7 +123,17 @@ exits non-zero before the last line):
    ``MT_LAMB_TOL``, two runs the same bits; each timed in turns with its
    library call (K12 ``torch._amp_foreach_non_finite_check_and_unscale_``,
    K13 ``torch._foreach_norm``, K14 ``torch.optim.Adam(fused=True)``'s
-   step; K15 none), bounds by bytes. Then BERT-large's kernel modes
+   step; K15 none), bounds by bytes. K14 and K15 take the whole list in
+   one launch: each reports its plan (grid, blocks an SM),
+   ptxas's registers and spills and its launches a call; K15 also runs at
+   BERT-large's 302 leaves (within ``MT_LAMB_TOL``, two runs the same
+   bits), reports its 40-byte two-pass floor, and both run captured in a
+   CUDA graph, each replay the eager step's bits. With ``--parent`` K14
+   and K15 are timed in turns with the parent's (its group launches,
+   ``PARENT_WRAPPERS``) and held to the parent's bits, and the host
+   time of a call of each wrapper is taken in turns with the parent's
+   wrapper. Then BERT-large's
+   kernel modes
    (``phase_bert_kernel_modes``, ``bert_large`` in the kernel rows): K1d,
    K5d and K6d non-causal with padding segment ids at ``[16, 16, 512,
    64]`` bf16 (seeded valid lengths over [128, 512], one row all valid,
@@ -228,17 +239,19 @@ exits non-zero before the last line):
    K1 = K5 = K6 = 12, K3 = K4 = 25 and K7 = K8 = K9 = 1 with the fused
    head (0 with the materialized one, whose cross entropy must then run
    once per step and never with the fused head), and the optimizer's K12
-   once and K14 once a group of ``capacity(4)`` leaves (two at 148). Then
+   once and K14 once a list (one at 148 leaves). Then
    the fused head trained by pretrain.py's LAMB (``LAMB``: decay 0.01,
    clip 1.0, the warm-up + cosine schedule computed on the device count):
-   K12 once, K13 twice and K15 twice a group a step, the same checks.
+   K12 once, K13 twice a group and K15 once a step, the same checks.
    After the paths-agree steps, the optimizer against its plain version in
    the window (``phase_optimizer_paths_agree``: Adam bit for bit after each
    of 7 steps on the same real gradients; LAMB's 7-step losses within
    ``TRAIN_LOSS_BAND``) and the optimizer region alone
    (``phase_optimizer_region``: unscale, scaler update, optimizer, selects
    on one step's real gradients, kernel and plain path in turns: host ms,
-   device ms, launches). For each head a forced
+   device ms, launches; with ``--parent`` the parent's K14/K15 wrappers
+   take turns too, and the window's step ms is taken in turns with
+   theirs). For each head a forced
    overflow (loss scale 3e38, one gradient made non-finite) must leave
    every parameter and the Adam state bitwise unchanged, halve the scale
    and reset ``unskipped``, and a profiled window gives the device's
@@ -473,6 +486,11 @@ MT_LAMB_TOL = 5e-6
 # the spin before a timed K12 launch (~2 ms): its wrapper allocates an
 # output a leaf (148 at GPT-2-small), ~0.3 ms of host
 MT_SPIN = 4_000_000
+# and before a timed K14 or K15 launch (~20 ms): their wrappers check and
+# table the whole list before their one launch, which at BERT-large's 302
+# leaves took longer than MT_SPIN on an H100's host and leaked into K15's
+# time there
+MT_LIST_SPIN = 40_000_000
 # the head dims the attention kernels run at besides the main path's 64,
 # each at a training shape of a model that has it, (batch, heads, seq),
 # bf16, causal: 80 (GPT-3 2.7B: 32 heads; zero-padded to the kernels' 128)
@@ -674,22 +692,29 @@ def _time_in_turns(fn, lib_fn, flush, spread=None, spin=1_000_000):
 # with --parent DIR: the parent checkout's libraries of the sources whose
 # kernels a slice redesigned, built with this build's flags
 PARENT_SOURCES = ("xent", "softmax", "decode_attention", "layer_norm",
-                  "attention_bwd", "qmatmul", "batch_norm")
+                  "attention_bwd", "qmatmul", "multi_tensor")
 PARENT = {}
-# the parent's C entries where they differ from this tree's: K17's and
-# K18's two-stage entries before the one-launch forms (their dims and
-# pointers laid out for the slab grid and its tickets), called through
-# _parent_bn_fwd and _parent_bn_bwd
-PARENT_SIGNATURES = {"batch_norm": {
-    "bn_fwd_stats": "ppppip", "bn_fwd_apply": "ppppip",
-    "bn_bwd_stats": "ppppip", "bn_bwd_apply": "ppppip",
-    "batch_norm_error_string": "i"}}
+# the sources whose C entries differ from the parent's, and the parent's
+# own wrapper module of each (loaded from its checkout; its K14 and K15
+# take a group of capacity(4) tensors a launch, K15 two launches a group):
+# its calls run on the parent's library, and its signatures load it
+PARENT_WRAPPERS = {"multi_tensor": "apex_tpu_torch/ops/multi_tensor_cuda.py"}
+PARENT_MODULES = {}
 
 
 def _start_parent_build(root):
     """Start one ``nvcc`` per redesigned source of the parent checkout at
-    ``root`` into ``build/apex_tpu_torch/parent/``."""
+    ``root`` into ``build/apex_tpu_torch/parent/``, and load the parent's
+    wrapper modules of ``PARENT_WRAPPERS``."""
+    import importlib.util
+
     from apex_tpu_torch.ops import _build
+
+    for name, rel in PARENT_WRAPPERS.items():
+        spec = importlib.util.spec_from_file_location(
+            f"parent_{name}", os.path.join(root, rel))
+        PARENT_MODULES[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(PARENT_MODULES[name])
 
     out = _build.BUILD_DIR / "parent"
     out.mkdir(parents=True, exist_ok=True)
@@ -698,7 +723,7 @@ def _start_parent_build(root):
         src = os.path.join(root, "apex_tpu_torch", "csrc", f"{name}.cu")
         lib = out / f"{name}.so"
         procs.append((name, lib, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), src],
+            [_build._nvcc(), *_build.flags(name), "-o", str(lib), src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     return procs
 
@@ -706,7 +731,7 @@ def _start_parent_build(root):
 def _finish_parent_build(procs):
     """Wait for the parent's builds and load each library with its
     wrapper's signatures, or with the parent's own where its C entries
-    differ (``PARENT_SIGNATURES``)."""
+    differ (``PARENT_WRAPPERS``)."""
     import ctypes
 
     from apex_tpu_torch.ops import (attention_bwd_cuda,
@@ -719,14 +744,8 @@ def _finish_parent_build(procs):
             "decode_attention": decode_attention_cuda._SIGNATURES,
             "attention_bwd": attention_bwd_cuda._SIGNATURES,
             "layer_norm": layer_norm_cuda._SIGNATURES}
-    codes = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float,
-             "l": ctypes.c_longlong}
-    for name, entries in PARENT_SIGNATURES.items():
-        sigs[name] = {
-            fn_name: ([codes[c] for c in args],
-                      ctypes.c_char_p if fn_name.endswith("_string")
-                      else ctypes.c_int)
-            for fn_name, args in entries.items()}
+    for name, module in PARENT_MODULES.items():
+        sigs[name] = module._SIGNATURES
     for name, lib, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode:
@@ -755,19 +774,21 @@ def _turns(fn, lib_fn, flush, source, spread=None, parent_fn=None,
            spin=1_000_000):
     """``fn`` timed in turns around one library call, kernel, library,
     kernel, and, with ``--parent``, the parent's kernel (``parent_fn``, by
-    default ``fn`` on the parent's library) before and after them: ``{"ms":
+    default ``fn`` on the parent's library where its C entries are this
+    tree's, not in ``PARENT_WRAPPERS``) before and after them: ``{"ms":
     the kernel's mean, "ms_turns", "library_ms", "parent_ms",
     "parent_ms_turns"}``."""
     parent = None
     if source in PARENT:
-        parent = parent_fn or _as_parent(fn, source)
+        parent = parent_fn or (None if source in PARENT_WRAPPERS
+                               else _as_parent(fn, source))
     out = {}
     if parent:
-        out["parent_ms_turns"] = [_time_ms(parent, flush)]
+        out["parent_ms_turns"] = [_time_ms(parent, flush, spin=spin)]
     out["ms"], out["ms_turns"], out["library_ms"] = _time_in_turns(
         fn, lib_fn, flush, spread=spread, spin=spin)
     if parent:
-        out["parent_ms_turns"].append(_time_ms(parent, flush))
+        out["parent_ms_turns"].append(_time_ms(parent, flush, spin=spin))
         out["parent_ms"] = statistics.mean(out["parent_ms_turns"])
     return out
 
@@ -3179,8 +3200,8 @@ def _want_launches(fused, dropout, recompute, scores=False, model=MODEL,
     take the softmax too (the scores route, or with dropout the scores
     path). With ``opt`` ("adam" or "lamb") the step's optimizer region:
     one K12 launch a group of the model's leaves (12 a layer and 4) for
-    the unscale, then a K14 launch a group, or for LAMB K13's two stages
-    and K15's two stages a group."""
+    the unscale, then one K14 launch a list, or for LAMB K13's two stages
+    a group and one K15 launch."""
     from apex_tpu_torch.ops import attention, multi_tensor_cuda
 
     layers = model["num_layers"]
@@ -3207,12 +3228,14 @@ def _want_launches(fused, dropout, recompute, scores=False, model=MODEL,
         def groups(depth):
             return -(-leaves // multi_tensor_cuda.capacity(depth))
 
+        # K14 and K15: one launch a list of list_capacity() tensors
+        lists = -(-leaves // multi_tensor_cuda.list_capacity())
         want["multi_tensor_scale"] = groups(2)
         if opt == "lamb":
             want.update(multi_tensor_l2norm=2 * groups(1),
-                        multi_tensor_lamb=2 * groups(4))
+                        multi_tensor_lamb=lists)
         else:
-            want["multi_tensor_adam"] = groups(4)
+            want["multi_tensor_adam"] = lists
     return want
 
 
@@ -3348,6 +3371,46 @@ def _worst_rel(got, want):
     return worst
 
 
+def _parent_wrapper(name):
+    """The parent's wrapper ``name`` of ``multi_tensor_cuda`` (K14
+    ``adam``, K15 ``lamb``), its whole host path run on the parent's
+    library."""
+    from apex_tpu_torch.ops import _build
+
+    fn = getattr(PARENT_MODULES["multi_tensor"], name)
+
+    def run(*args, **kw):
+        with mock.patch.dict(_build._libs,
+                             {"multi_tensor": PARENT["multi_tensor"]}):
+            return fn(*args, **kw)
+    return run
+
+
+def _host_turns(this, parent=None, calls=10):
+    """The host ms of one call of ``this`` (a wrapper's whole host path,
+    its launch not waited on), each call from a synced start, the median
+    of ``calls``; with ``parent``, in turns: this, parent, this, parent."""
+    out = {"host_ms_turns": [], "parent_host_ms_turns": []}
+    for fn, key in ((this, "host_ms_turns"), (parent, "parent_host_ms_turns"),
+                    (this, "host_ms_turns"), (parent, "parent_host_ms_turns")):
+        if fn is None:
+            continue
+        host = []
+        for _ in range(calls):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            host.append((time.perf_counter() - t0) * 1e3)
+        out[key].append(statistics.median(host))
+    torch.cuda.synchronize()
+    out["host_ms"] = statistics.mean(out["host_ms_turns"])
+    if parent is None:
+        out.pop("parent_host_ms_turns")
+    else:
+        out["parent_host_ms"] = statistics.mean(out["parent_host_ms_turns"])
+    return out
+
+
 def phase_multi_tensor_kernels(dev, flush):
     """K12-K15 on GPT-2-small's 148 fp32 leaves (gradients scaled by
     2^16, as the loss scaler leaves them) and on the ragged list, each
@@ -3359,7 +3422,10 @@ def phase_multi_tensor_kernels(dev, flush):
     ``torch._amp_foreach_non_finite_check_and_unscale_``, in place at
     scale 1; K13 ``torch._foreach_norm``; K14 ``torch.optim.Adam(
     fused=True)``'s step on copies; K15 none) and against its plain
-    version; bounds by bytes (K12 8, K13 4, K14 and K15 28 a parameter)."""
+    version; bounds by bytes (K12 8, K13 4, K14 and K15 28 a parameter;
+    K15's two-pass floor 40). K14 and K15 with ``--parent`` in turns with
+    the parent's kernels and held to their bits; K15 also at BERT-large's
+    leaves; both in a CUDA graph (``_mt_graph_capture``)."""
     from apex_tpu_torch.ops import multi_tensor
     from apex_tpu_torch.ops import multi_tensor_cuda as mt
     from apex_tpu_torch.optimizers import fused_adam, fused_lamb
@@ -3473,20 +3539,29 @@ def phase_multi_tensor_kernels(dev, flush):
         if not same:
             raise AssertionError(f"K14 on {what}: not the plain version's "
                                  f"bits")
-    pk = _copy(params)
-    sk = tx.init(pk)
-    names = list(pk)
+    adam_kw = dict(beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01,
+                   adam_w_mode=True, bias_correction=True, skip=no)
+    lists, sk = _mt_lists(params, grads, tx)
     count_new = sk.count + 1
-    bc1 = 1.0 - torch.pow(0.9, count_new.float())
-    bc2 = 1.0 - torch.pow(0.999, count_new.float())
-    lists = ([grads[k] for k in names], [pk[k] for k in names],
-             [sk.m[k] for k in names], [sk.v[k] for k in names])
+    bc = _bias_corrections(count_new)
 
     def k14():
-        mt.adam(*lists, sk.count, count_new, bc1, bc2, 1e-4, beta1=0.9,
-                beta2=0.999, eps=1e-8, weight_decay=0.01, adam_w_mode=True,
-                bias_correction=True, skip=no)
+        mt.adam(*lists, sk.count, count_new, *bc, 1e-4, **adam_kw)
 
+    has_parent = "multi_tensor" in PARENT
+    parent_adam = _parent_wrapper("adam") if has_parent else None
+
+    def parent14():
+        parent_adam(*lists, sk.count, count_new, *bc, 1e-4, **adam_kw)
+
+    extra = _list_kernel_facts("adam", lists, k14)
+    extra["host"] = _host_turns(k14, parent14 if has_parent else None)
+    if has_parent:
+        extra["parent_bitwise"] = _same_as_parent(
+            lambda ls: mt.adam(*ls, sk.count.clone(), count_new, *bc, 1e-4,
+                               **adam_kw),
+            lambda ls: parent_adam(*ls, sk.count.clone(), count_new, *bc,
+                                   1e-4, **adam_kw), lists)
     lib_p = [torch.nn.Parameter(p.clone()) for p in lists[1]]
     for p, g in zip(lib_p, lists[0]):
         p.grad = g
@@ -3495,7 +3570,8 @@ def phase_multi_tensor_kernels(dev, flush):
     pp = _copy(params)
     sp = tx.init(pp)
     spread = []
-    t = _turns(k14, lib_opt.step, flush, source, spread=spread)
+    t = _turns(k14, lib_opt.step, flush, "multi_tensor", spread=spread,
+               parent_fn=parent14, spin=MT_LIST_SPIN)
     plain_ms = _time_ms(lambda: apply_plain(tx.update, grads, sp, pp, no),
                         flush)
     bound = _bound(28 * n, 0)
@@ -3505,9 +3581,10 @@ def phase_multi_tensor_kernels(dev, flush):
                                    "_adam_flat", "bench.py:240-245 selects"],
                      max_abs_err=0.0, bitwise=adam_checks,
                      ms_spread=spread, plain_ms=plain_ms, bound_ms=bound[0],
-                     bound_by=bound[1], bytes=28 * n, **t))
+                     bound_by=bound[1], bytes=28 * n,
+                     bound_share=bound[0] / t["ms"], **extra, **t))
     _log("K14: " + json.dumps(rows[-1]))
-    del lib_p, lib_opt, pk, sk, pp, sp, lists
+    del lib_p, lib_opt, sk, pp, sp, lists
     torch.cuda.empty_cache()
 
     # K15: one LAMB step (two_pass) within the band, two runs the same bits
@@ -3531,39 +3608,208 @@ def phase_multi_tensor_kernels(dev, flush):
     if max(errs.values()) > MT_LAMB_TOL or not repeat:
         raise AssertionError(f"K15: errors {errs} (band {MT_LAMB_TOL}), "
                              f"repeatable and skipping {repeat}")
-    pk = _copy(params)
-    sk = lamb.init(pk)
-    count_new = sk.count + 1
-    bc1 = 1.0 - torch.pow(0.9, count_new.float())
-    bc2 = 1.0 - torch.pow(0.999, count_new.float())
-    gsq = mt.l2norm(gu).total_sq
-    lists = ([grads[k] for k in names], [pk[k] for k in names],
-             [sk.m[k] for k in names], [sk.v[k] for k in names])
-
-    def k15():
-        mt.lamb(*lists, sk.count, count_new, bc1, bc2, 1e-3, beta1=0.9,
-                beta2=0.999, beta3=0.1, eps=1e-6, weight_decay=0.01,
-                adam_w_mode=True, bias_correction=True, max_grad_norm=1.0,
-                trust=True, global_sq=gsq, skip=no)
-
-    spread = []
-    turns = [_time_ms(k15, flush, spread=spread), _time_ms(k15, flush)]
-    pp = _copy(params)
-    sp = lamb.init(pp)
-    plain_ms = _time_ms(lambda: apply_plain(lamb.update, grads, sp, pp, no),
-                        flush)
-    bound = _bound(28 * n, 0)
-    rows.append(dict(name="multi_tensor_lamb", route="cuda", source=source,
-                     replaces="apex_tpu/optimizers/fused_lamb.py:111",
-                     counterparts=["apex_tpu/optimizers/fused_lamb.py:111 "
-                                   "update_two_pass", ":145 update_one_pass"],
-                     max_abs_err=max(errs.values()), errors=errs,
-                     band=MT_LAMB_TOL, bitwise_repeatable=repeat,
-                     ms=statistics.mean(turns), ms_turns=turns,
-                     ms_spread=spread, library_ms=None, plain_ms=plain_ms,
-                     bound_ms=bound[0], bound_by=bound[1], bytes=28 * n))
+    row = dict(name="multi_tensor_lamb", route="cuda", source=source,
+               replaces="apex_tpu/optimizers/fused_lamb.py:111",
+               counterparts=["apex_tpu/optimizers/fused_lamb.py:111 "
+                             "update_two_pass", ":145 update_one_pass"],
+               max_abs_err=max(errs.values()), errors=errs, band=MT_LAMB_TOL,
+               bitwise_repeatable=repeat, library_ms=None)
+    row.update(_k15_times(dev, flush, params, grads, gu, plain=True))
+    row["bert_large"] = _k15_bert_large(dev, flush)
+    row["cuda_graph"] = _mt_graph_capture(dev)
+    rows.append(row)
     _log("K15: " + json.dumps(rows[-1]))
     return rows
+
+
+def _mt_lists(params, grads, tx):
+    """K14's or K15's four lists (g, p, m, v) over copies of ``params``
+    and a fresh state of ``tx``; and the state."""
+    names = list(params)
+    pk = _copy(params)
+    sk = tx.init(pk)
+    return ([grads[k] for k in names], [pk[k] for k in names],
+            [sk.m[k] for k in names], [sk.v[k] for k in names]), sk
+
+
+def _bias_corrections(count_new):
+    t = count_new.float()
+    return 1.0 - torch.pow(0.9, t), 1.0 - torch.pow(0.999, t)
+
+
+def _list_kernel_facts(kind, lists, call):
+    """K14's or K15's launch at these lists: its plan (the grid, the
+    blocks an SM holds), ptxas's registers and spills of the fp32
+    instantiation it runs, and the launches one call makes."""
+    from apex_tpu_torch.ops import multi_tensor_cuda as mt
+
+    g, p = lists[0][0], lists[1][0]
+    res, sms = mt.resident(kind, g.dtype, p.dtype, p.device)
+    pl = mt.plan(kind, [x.numel() for x in lists[0]], sms, res)
+    wrapper = getattr(mt, kind)
+    before = wrapper.launches
+    call()
+    launches = wrapper.launches - before
+    ptxas = _ptxas("multi_tensor", f"{kind}_list_kernelIffE")
+    return {"plan": {"grid": pl.grid, "blocks_an_sm": res},
+            "ptxas": next(iter(ptxas.values()), None),
+            "launches_a_call": launches}
+
+
+def _same_as_parent(this, parent, lists):
+    """Whether one call of this tree's kernel and one of the parent's, each
+    on its own copy of ``lists`` (gradients shared), leave the same bits."""
+    a = [lists[0]] + [[t.clone() for t in ls] for ls in lists[1:]]
+    b = [lists[0]] + [[t.clone() for t in ls] for ls in lists[1:]]
+    this(a)
+    parent(b)
+    return all(_same_bits(x, y) for la, lb in zip(a[1:], b[1:])
+               for x, y in zip(la, lb))
+
+
+def _k15_times(dev, flush, params, grads, gsq_of, plain=False):
+    """K15 (one step, ``pretrain.py``'s hyperparameters but lr 1e-3) on
+    these leaves: timed, and with ``--parent`` in turns with the parent's
+    four launches (parent, kernel, kernel, parent) and held to its bits;
+    the plain version's time (``plain``); bytes, the 28-byte bound, the
+    40-byte two-pass floor, the plan, ptxas, the launches, and the host
+    ms of a call (in turns with the parent's wrapper, ``_host_turns``)."""
+    from apex_tpu_torch.ops import multi_tensor_cuda as mt
+    from apex_tpu_torch.optimizers import fused_lamb
+    from apex_tpu_torch.optimizers._base import apply_plain
+
+    lamb = fused_lamb(1e-3, impl="two_pass")
+    n = sum(p.numel() for p in params.values())
+    no = torch.tensor(False, device=dev)
+    lists, sk = _mt_lists(params, grads, lamb)
+    count_new = sk.count + 1
+    bc = _bias_corrections(count_new)
+    gsq = mt.l2norm(gsq_of).total_sq
+    kw = dict(beta1=0.9, beta2=0.999, beta3=0.1, eps=1e-6, weight_decay=0.01,
+              adam_w_mode=True, bias_correction=True, max_grad_norm=1.0,
+              trust=True, global_sq=gsq, skip=no)
+
+    def k15():
+        mt.lamb(*lists, sk.count, count_new, *bc, 1e-3, **kw)
+
+    has_parent = "multi_tensor" in PARENT
+    parent_lamb = _parent_wrapper("lamb") if has_parent else None
+
+    def parent15():
+        parent_lamb(*lists, sk.count, count_new, *bc, 1e-3, **kw)
+
+    out = _list_kernel_facts("lamb", lists, k15)
+    out["host"] = _host_turns(k15, parent15 if has_parent else None)
+    spread = []
+    if has_parent:
+        out["parent_bitwise"] = _same_as_parent(
+            lambda ls: mt.lamb(*ls, sk.count.clone(), count_new, *bc, 1e-3,
+                               **kw),
+            lambda ls: parent_lamb(*ls, sk.count.clone(), count_new, *bc,
+                                   1e-3, **kw), lists)
+        out["parent_ms_turns"] = [_time_ms(parent15, flush,
+                                           spin=MT_LIST_SPIN)]
+    turns = [_time_ms(k15, flush, spread=spread, spin=MT_LIST_SPIN),
+             _time_ms(k15, flush, spin=MT_LIST_SPIN)]
+    if has_parent:
+        out["parent_ms_turns"].append(_time_ms(parent15, flush,
+                                               spin=MT_LIST_SPIN))
+        out["parent_ms"] = statistics.mean(out["parent_ms_turns"])
+    if plain:
+        pp = _copy(params)
+        sp = lamb.init(pp)
+        out["plain_ms"] = _time_ms(
+            lambda: apply_plain(lamb.update, grads, sp, pp, no), flush)
+    bound = _bound(28 * n, 0)
+    ms = statistics.mean(turns)
+    out.update(ms=ms, ms_turns=turns, ms_spread=spread, bytes=28 * n,
+               elements=n, leaves=len(params), bound_ms=bound[0],
+               bound_by=bound[1], bound_share=bound[0] / ms,
+               two_pass_floor_ms=_bound(40 * n, 0)[0])
+    return out
+
+
+def _k15_bert_large(dev, flush):
+    """K15 at BERT-large's 302 leaves (336.3 M elements, fp32, as
+    ``phase_bert_training`` window A builds the model): one step within
+    MT_LAMB_TOL of the plain version, two runs the same bits, and
+    ``_k15_times``."""
+    from apex_tpu_torch.optimizers import fused_lamb
+    from apex_tpu_torch.optimizers._base import apply_plain
+    from apex_tpu_torch.transformer.testing import BertModel
+
+    model = BertModel(_bert_cfg("A"), device=dev, seed=0)
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    del model
+    gen = torch.Generator(device=dev).manual_seed(9)
+    grads = {k: torch.randn(p.shape, generator=gen, device=dev) * 1e-3
+             for k, p in params.items()}
+    lamb = fused_lamb(1e-3, impl="two_pass")
+    no = torch.tensor(False, device=dev)
+    pk, pk2 = _copy(params), _copy(params)
+    sk, sk2 = lamb.init(pk), lamb.init(pk2)
+    lamb.step(grads, sk, pk, no)
+    lamb.step(grads, sk2, pk2, no)
+    repeat = all(_same_bits(pk[k], pk2[k]) for k in pk)
+    del pk2, sk2
+    pp = _copy(params)
+    sp = lamb.init(pp)
+    apply_plain(lamb.update, grads, sp, pp, no)
+    got, want = _opt_state_tensors(sk), _opt_state_tensors(sp)
+    got.update(pk)
+    want.update(pp)
+    err = _worst_rel(got, want)
+    del pk, sk, pp, sp, got, want
+    torch.cuda.empty_cache()
+    if err > MT_LAMB_TOL or not repeat:
+        raise AssertionError(f"K15 at BERT-large's leaves: error {err} (band "
+                             f"{MT_LAMB_TOL}), repeatable {repeat}")
+    out = {"max_abs_err": err, "bitwise_repeatable": repeat}
+    out.update(_k15_times(dev, flush, params, grads, list(grads.values())))
+    del params, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mt_graph_capture(dev):
+    """Whether a CUDA graph captures K14's and K15's one launch (K15's
+    cooperative) on the ragged list and each of two replays gives the
+    bits of eager steps on a copy laid out alike."""
+    from apex_tpu_torch.optimizers import fused_adam, fused_lamb
+
+    out = {}
+    no = torch.tensor(False, device=dev)
+    for name, tx in (("adam", fused_adam(1e-3, weight_decay=0.01)),
+                     ("lamb", fused_lamb(1e-2, weight_decay=0.01))):
+        # both from the same draw, so the misaligned view is misaligned in
+        # both (K15's per-thread sums follow the vector or element walk)
+        params, eager = _ragged_leaves(dev, 11), _ragged_leaves(dev, 11)
+        grads = {k: v * 1e-2 for k, v in _ragged_leaves(dev, 12).items()}
+        es, gs = tx.init(eager), tx.init(params)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            warm = _copy(params)
+            tx.step(grads, tx.init(warm), warm, no)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            tx.step(grads, gs, params, no)
+        same = True
+        for _ in range(2):
+            graph.replay()
+            tx.step(grads, es, eager, no)
+            torch.cuda.synchronize()
+            got, want = _opt_state_tensors(gs), _opt_state_tensors(es)
+            got.update(params)
+            want.update(eager)
+            same &= all(_same_bits(got[k], want[k]) for k in want)
+        out[name] = same
+        if not same:
+            raise AssertionError(f"K14/K15 in a CUDA graph: {name}'s replay "
+                                 f"differs from the eager step")
+        del graph
+    return out
 
 
 def phase_optimizer_paths_agree(dev):
@@ -3682,6 +3928,57 @@ def _region_costs(fn, reps=5):
             "device_ms": busy / reps / 1e3, "launches": launches / reps}
 
 
+# timed steps a turn of _step_turns
+STEP_TURN_STEPS = 10
+
+
+@contextlib.contextmanager
+def _parent_optimizer():
+    """The parent's K14 and K15 wrappers in this tree's place, on the
+    parent's library (K12 and K13, whose C entries are this tree's, run
+    on it too)."""
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.ops import multi_tensor_cuda as mt
+
+    pmt = PARENT_MODULES["multi_tensor"]
+    with mock.patch.object(mt, "adam", pmt.adam), \
+            mock.patch.object(mt, "lamb", pmt.lamb), \
+            mock.patch.dict(_build._libs,
+                            {"multi_tensor": PARENT["multi_tensor"]}):
+        yield
+
+
+def _step_turns(dev, name):
+    """GPT-2-small's training window (the fused head, b=8, s=1024) under
+    ``name``'s optimizer: the step ms (2 warm-up steps, then
+    ``STEP_TURN_STEPS`` on the host clock ending in a sync) in turns with
+    this tree's K14/K15 wrappers and the parent's, ten pairs, each side
+    first in every other pair (turns of ~50 ms steps differ by a few
+    percent); the training state carried from turn to turn. The step ms
+    of each side is the median of its turns."""
+    (_, _, _, step, state, ss, ids, pos, labels) = _train_setup(
+        dev, TRAIN["batch"], fused=True, opt=name)
+    out = {"step_ms_turns": [], "parent_step_ms_turns": []}
+    for key in ("step_ms_turns", "parent_step_ms_turns",
+                "parent_step_ms_turns", "step_ms_turns") * 5:
+        with (_parent_optimizer() if key.startswith("parent")
+              else contextlib.nullcontext()):
+            for _ in range(2):
+                state, ss, _ = step(state, ss, ids, pos, labels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(STEP_TURN_STEPS):
+                state, ss, _ = step(state, ss, ids, pos, labels)
+            torch.cuda.synchronize()
+            out[key].append((time.perf_counter() - t0) / STEP_TURN_STEPS
+                            * 1e3)
+    out["step_ms"] = statistics.median(out["step_ms_turns"])
+    out["parent_step_ms"] = statistics.median(out["parent_step_ms_turns"])
+    out["pairs_faster"] = sum(a < b for a, b in zip(
+        out["step_ms_turns"], out["parent_step_ms_turns"]))
+    return out
+
+
 def phase_optimizer_region(dev):
     """The training step's optimizer region alone (the unscale, the scaler
     update, the optimizer and the skip selects) on the window's real
@@ -3690,7 +3987,10 @@ def phase_optimizer_region(dev):
     (K12, then K14, or K13 + K15) against the plain path (the plain
     unscale, the functional update and the per-leaf selects) in turns,
     kernel, plain, kernel, plain: host ms a region, device ms and
-    launches (torch.profiler)."""
+    launches (torch.profiler). With ``--parent`` the kernel path on the
+    parent's K14/K15 wrappers (``_parent_optimizer``) takes a turn after
+    each plain one, and the window's step ms is taken in turns with the
+    parent's (``_step_turns``)."""
     from apex_tpu_torch.optimizers._base import apply_plain
 
     (model, scaler, _, _, _, ss, ids, pos, labels) = _train_setup(
@@ -3703,16 +4003,20 @@ def phase_optimizer_region(dev):
         p.grad = None
     plain_scaler = _plain_scaler()
     out = {}
+    order = ("kernel", "plain") * 2
+    if "multi_tensor" in PARENT:
+        order = ("kernel", "plain", "parent") * 2
     for name in ("adam", "lamb"):
         opt = _make_opt(name)
         sets = {path: {n: p.detach().clone() for n, p in params.items()}
-                for path in ("kernel", "plain")}
+                for path in set(order)}
         states = {path: opt.init(ps) for path, ps in sets.items()}
+        path_of = ["kernel"]
 
         def kernel():
             grads, found = scaler.unscale(raw, ss)
             scaler.update(ss, found)
-            opt.step(grads, states["kernel"], sets["kernel"], found)
+            opt.step(grads, states[path_of[0]], sets[path_of[0]], found)
 
         def plain():
             grads, found = plain_scaler.unscale(raw, ss)
@@ -3721,10 +4025,13 @@ def phase_optimizer_region(dev):
                         found)
 
         with torch.no_grad():
-            runs = {"kernel": [], "plain": []}
-            for path in ("kernel", "plain", "kernel", "plain"):
-                runs[path].append(_region_costs(kernel if path == "kernel"
-                                                else plain))
+            runs = {path: [] for path in order}
+            for path in order:
+                path_of[0] = path
+                with (_parent_optimizer() if path == "parent"
+                      else contextlib.nullcontext()):
+                    runs[path].append(_region_costs(plain if path == "plain"
+                                                    else kernel))
         out[name] = {path: {k: statistics.mean(r[k] for r in rs)
                             for k in ("host_ms", "device_ms", "launches")}
                      | {"turns": rs} for path, rs in runs.items()}
@@ -3735,6 +4042,13 @@ def phase_optimizer_region(dev):
         torch.cuda.empty_cache()
     del model, params, raw
     torch.cuda.empty_cache()
+    if "multi_tensor" in PARENT:
+        for name in ("adam", "lamb"):
+            out[name]["window"] = _step_turns(dev, name)
+            _log(f"GPT-2-small window, {name}, step ms against the parent's "
+                 f"K14/K15 wrappers in turns: "
+                 + json.dumps(out[name]["window"]))
+            torch.cuda.empty_cache()
     return out
 
 
@@ -4249,8 +4563,8 @@ def _bert_setup(dev, window, batch, layers=None, seed=0):
 def _bert_want_launches(window, layers, leaves):
     """Launches per step: window A the scores path (K10, K11 a layer), B
     the segment-id route (K1d, K5d, K6d a layer); K3/K4 twice a layer,
-    the final layer norm's and the LM head's; K12 once, K13 and K15 twice
-    a group of the leaves; nothing else."""
+    the final layer norm's and the LM head's; K12 once and K13 twice a
+    group of the leaves, K15 once a list; nothing else."""
     from apex_tpu_torch.ops import multi_tensor_cuda
 
     def groups(depth):
@@ -4264,7 +4578,8 @@ def _bert_want_launches(window, layers, leaves):
     want.update(layer_norm_fwd=2 * layers + 2, layer_norm_bwd=2 * layers + 2,
                 multi_tensor_scale=groups(2),
                 multi_tensor_l2norm=2 * groups(1),
-                multi_tensor_lamb=2 * groups(4))
+                multi_tensor_lamb=-(-leaves
+                                     // multi_tensor_cuda.list_capacity()))
     return want
 
 
@@ -5072,94 +5387,10 @@ def _bn_check(dev, shape, dtype, fuse_relu, seed, one_launch=True):
     return errs, (x, dy, wt, b, rm, rv, stats, mean, rstd, sums)
 
 
-# the parent checkout's K17 and K18 (two launches each, its slab grid sized
-# for 4 blocks an SM, its tickets), through its own C entries
-# (PARENT_SIGNATURES["batch_norm"]) with its wrapper's plan and pointers
-_PARENT_BN_TICKETS = {}
-
-
-def _parent_bn_call(entry, x2d, ptrs, hyper=(0.0, 0.0, 1.0), codes=(0, 0),
-                    training=1, fuse_relu=0):
-    from apex_tpu_torch.ops import _build
-
-    dev = x2d.device
-    rows, c = x2d.shape
-    vec = 16 // x2d.element_size()
-    if c % vec or x2d.data_ptr() % 16 or ptrs.get("dy", 0) % 16:
-        vec = 1
-    cvec = c // vec
-    tx = min(cvec, 32)
-    tiles = -(-cvec // tx)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    slabs = max(1, min(-(-rows // (512 // tx)), max(1, sms * 4 // tiles)))
-    per = -(-rows // slabs)
-    slabs = -(-rows // per)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    key = (dev.index, stream)
-    if key not in _PARENT_BN_TICKETS:
-        _PARENT_BN_TICKETS[key] = torch.zeros(65535, dtype=torch.int32,
-                                              device=dev)
-    partials = None
-    if ptrs.get("partials"):
-        partials = torch.empty(slabs * 2 * c, dtype=torch.float32,
-                               device=dev)
-    addr = dict(ptrs, partials=0 if partials is None else
-                partials.data_ptr(),
-                tickets=_PARENT_BN_TICKETS[key].data_ptr())
-    dims = np.array([rows, c, vec, tx, slabs, per], dtype=np.int64)
-    ptr_arr = np.array([addr.get(k, 0) for k in (
-        "x", "dy", "out", "partials", "stats", "sums", "tickets", "w", "b",
-        "rmean", "rvar", "mean", "rstd")], dtype=np.int64)
-    hyp = np.array(hyper, dtype=np.float32)
-    flags = np.array([_build.DTYPE_CODES[x2d.dtype], codes[0], codes[1],
-                      training, fuse_relu], dtype=np.int32)
-    lib = PARENT["batch_norm"]
-    rc = getattr(lib, entry)(dims.ctypes.data, ptr_arr.ctypes.data,
-                             hyp.ctypes.data, flags.ctypes.data, dev.index,
-                             stream)
-    _build.check(lib, "batch_norm", rc)
-
-
 def _codes(*ts):
     from apex_tpu_torch.ops import _build
 
     return tuple(0 if t is None else _build.DTYPE_CODES[t.dtype] for t in ts)
-
-
-def _parent_bn_fwd(x, wt, b, rm, rv, fuse_relu=False):
-    """The parent's K17 (its two launches): ``(y, mean, rstd, stats)``."""
-    c = x.shape[1]
-    stats = torch.empty(2 * c + 1, dtype=torch.float32, device=x.device)
-    _parent_bn_call("bn_fwd_stats", x, {"x": x.data_ptr(), "partials": True,
-                                        "stats": stats.data_ptr()})
-    y = torch.empty_like(x)
-    mean, rstd = (torch.empty(c, dtype=torch.float32, device=x.device)
-                  for _ in range(2))
-    _parent_bn_call("bn_fwd_apply", x, {
-        "x": x.data_ptr(), "out": y.data_ptr(), "stats": stats.data_ptr(),
-        "w": wt.data_ptr(), "b": b.data_ptr(),
-        "rmean": rm.data_ptr(), "rvar": rv.data_ptr(),
-        "mean": mean.data_ptr(), "rstd": rstd.data_ptr()},
-        (1e-5, 0.1, 0.9), _codes(wt, b), 1, int(fuse_relu))
-    return y, mean, rstd, stats
-
-
-def _parent_bn_bwd(x, dy, mean, rstd, wt, b, stats, fuse_relu=False):
-    """The parent's K18 (its two launches): ``(dx, sums)``."""
-    c = x.shape[1]
-    sums = torch.empty(2 * c, dtype=torch.float32, device=x.device)
-    common = {"x": x.data_ptr(), "dy": dy.data_ptr(), "w": wt.data_ptr(),
-              "b": b.data_ptr(), "mean": mean.data_ptr(),
-              "rstd": rstd.data_ptr()}
-    _parent_bn_call("bn_bwd_stats", x, dict(common, partials=True,
-                                            sums=sums.data_ptr()),
-                    codes=_codes(wt, b), fuse_relu=int(fuse_relu))
-    dx = torch.empty_like(x)
-    _parent_bn_call("bn_bwd_apply", x, dict(
-        common, out=dx.data_ptr(), sums=sums.data_ptr(),
-        stats=stats.data_ptr()), codes=_codes(wt, b),
-        fuse_relu=int(fuse_relu))
-    return dx, sums
 
 
 def _bn_bounds(shape, size):
@@ -5181,12 +5412,11 @@ def _bn_times(dev, flush, shape, dtype, inputs):
     """K17 and K18 at one shape in their one-launch forms, timed in turns
     around their library call (``F.batch_norm(training=True)`` on the
     channels_last view, cuDNN, and its backward through
-    ``torch.autograd.grad`` on a graph built outside the timed region)
-    and, with ``--parent``, around the parent's two launches; each with
-    its one-pass bound and two-pass floor (``_bn_bounds``). Each is also
-    timed after a clean flush (``clean_l2_ms``, the parent's
-    ``parent_clean_l2_ms``): the standard flush leaves L2 full of dirty
-    lines, whose write-back a launch pays as it streams."""
+    ``torch.autograd.grad`` on a graph built outside the timed region);
+    each with its one-pass bound and two-pass floor (``_bn_bounds``).
+    Each is also timed after a clean flush (``clean_l2_ms``): the standard
+    flush leaves L2 full of dirty lines, whose write-back a launch pays as
+    it streams."""
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops import batch_norm_cuda as bnc
@@ -5200,9 +5430,6 @@ def _bn_times(dev, flush, shape, dtype, inputs):
     def k18():
         return bnc.bwd(x, dy, mean, rstd, wt, b, stats, True, False)
 
-    parents = {"fwd": lambda: _parent_bn_fwd(x, wt, b, rm, rv),
-               "bwd": lambda: _parent_bn_bwd(x, dy, mean, rstd, wt, b,
-                                             stats)}
     xc = x.view(n, h, w, c).permute(0, 3, 1, 2).detach().requires_grad_()
     wf = wt.float().requires_grad_()
     bf = b.float().requires_grad_()
@@ -5215,36 +5442,13 @@ def _bn_times(dev, flush, shape, dtype, inputs):
     out = {}
     bounds = _bn_bounds(shape, x.element_size())
     for name, fn in (("fwd", k17), ("bwd", k18)):
-        t = _turns(fn, libs[name], flush, "batch_norm",
-                   parent_fn=parents[name])
+        t = _turns(fn, libs[name], flush, "batch_norm")
         t["clean_l2_ms"] = _time_ms(fn, flush, clean=True)
-        if "batch_norm" in PARENT:
-            t["parent_clean_l2_ms"] = _time_ms(parents[name], flush,
-                                               clean=True)
         t.update(bounds[name])
         t["floor_share"] = t["floor_ms"] / t["ms"]
-        if "parent_ms" in t:
-            t["parent_floor_share"] = t["floor_ms"] / t["parent_ms"]
         out[name] = t
     del yc
     return out
-
-
-def _bn_parent_agrees(inputs, fuse_relu):
-    """The parent's y and dx against this tree's plain versions (that the
-    parent's times are of the same work): relative L2."""
-    from apex_tpu_torch.ops import batch_norm as bn
-
-    x, dy, wt, b, rm, rv, stats, mean, rstd, sums = inputs
-    y, pmean, prstd, pstats = _parent_bn_fwd(x, wt, b, rm.clone(),
-                                             rv.clone(), fuse_relu)
-    ry, _, _ = bn.fwd_apply_reference(x, pstats, wt, b, None, None, 1e-5,
-                                      0.1, True, fuse_relu)
-    dx, psums = _parent_bn_bwd(x, dy, pmean, prstd, wt, b, pstats,
-                               fuse_relu)
-    rdx = bn.bwd_apply_reference(x, dy, pmean, prstd, wt, b, psums, pstats,
-                                 True, fuse_relu)
-    return max(_rel_l2(y, ry), _rel_l2(dx, rdx))
 
 
 def _bn_kernel_resources(dev):
@@ -5315,11 +5519,10 @@ def phase_batch_norm_kernels(dev, flush):
     batch-norm shapes at b = 256 in bf16 (``BN_STEP_SHAPES``; the
     64-channel ones with the fused ReLU) and one fp32 shape, their
     two-launch forms (a group's) at ``BN_MAIN_SHAPE`` and the fp32 shape,
-    each timed in turns with cuDNN's ``F.batch_norm`` forward and backward
-    and, with ``--parent``, the parent's two launches; each shape's
-    one-pass bound and two-pass floor, and the step's batch norm (the
-    norms a shape holds x (K17 + K18), summed) beside the parent's and
-    against the floor's sum; the kernels' registers and resident blocks;
+    each timed in turns with cuDNN's ``F.batch_norm`` forward and backward;
+    each shape's one-pass bound and two-pass floor, and the step's batch
+    norm (the norms a shape holds x (K17 + K18), summed) against the
+    floor's sum; the kernels' registers and resident blocks;
     whether a CUDA graph captures the one-launch forms. The rows report
     ``BN_MAIN_SHAPE`` and carry the others ``by_shape``."""
     from apex_tpu_torch.ops import batch_norm_cuda as bnc
@@ -5328,9 +5531,8 @@ def phase_batch_norm_kernels(dev, flush):
     resources = _bn_kernel_resources(dev)
     _log("K17/K18 registers, spills, blocks an SM (bf16, 16-byte vectors): "
          + json.dumps(resources))
-    by_shape, step = {}, {"this": 0.0, "parent": 0.0, "floor": 0.0,
-                          "bound": 0.0, "this_clean_l2": 0.0,
-                          "parent_clean_l2": 0.0}
+    by_shape, step = {}, {"this": 0.0, "floor": 0.0, "bound": 0.0,
+                          "this_clean_l2": 0.0}
     main_inputs = None
     cases = [(s, torch.bfloat16, k) for s, k in BN_STEP_SHAPES] + [
         (BN_FP32_SHAPE, torch.float32, 0)]
@@ -5341,8 +5543,6 @@ def phase_batch_norm_kernels(dev, flush):
         times = _bn_times(dev, flush, shape, dtype, inputs)
         key = f"{list(shape)} {str(dtype).replace('torch.', '')}"
         entry = {"norms_a_step": norms, "errors": errs, **times}
-        if "batch_norm" in PARENT:
-            entry["parent_rel_l2"] = _bn_parent_agrees(inputs, relu)
         if shape in (BN_MAIN_SHAPE, BN_FP32_SHAPE):
             two_errs, two = _bn_check(dev, shape, dtype, fuse_relu=relu,
                                       seed=sum(shape), one_launch=False)
@@ -5367,29 +5567,20 @@ def phase_batch_norm_kernels(dev, flush):
         else:
             del inputs
         if norms:
-            for side, k in (("this", "ms"), ("parent", "parent_ms"),
-                            ("floor", "floor_ms"), ("bound", "bound_ms"),
-                            ("this_clean_l2", "clean_l2_ms"),
-                            ("parent_clean_l2", "parent_clean_l2_ms")):
-                if k in times["fwd"]:
-                    step[side] += norms * (times["fwd"][k] + times["bwd"][k])
+            for side, k in (("this", "ms"), ("floor", "floor_ms"),
+                            ("bound", "bound_ms"),
+                            ("this_clean_l2", "clean_l2_ms")):
+                step[side] += norms * (times["fwd"][k] + times["bwd"][k])
         by_shape[key] = entry
         _log(f"K17/K18 {key}: " + json.dumps(entry))
         torch.cuda.empty_cache()
-    if "batch_norm" not in PARENT:
-        step.pop("parent")
-        step.pop("parent_clean_l2")
     # the target: 0.8 of the floor's sum, 17.0 ms
     step["target_ms"] = step["floor"] / 0.8
     step["target_met"] = step["this"] <= 17.0
     step["floor_share"] = step["floor"] / step["this"]
     below = [k for k, v in by_shape.items() if v["norms_a_step"] and min(
         v["fwd"]["floor_share"], v["bwd"]["floor_share"]) < 0.5]
-    slower = [k for k, v in by_shape.items() if "parent_ms" in v["fwd"]
-              and (v["fwd"]["ms"] > v["fwd"]["parent_ms"]
-                   or v["bwd"]["ms"] > v["bwd"]["parent_ms"])]
     step["shapes_below_half_the_floor"] = below
-    step["shapes_slower_than_the_parent"] = slower
     _log("K17/K18 a ResNet-50 step (b = 256, 53 norms), ms: "
          + json.dumps(step))
     capture = _bn_graph_capture(dev)
@@ -8055,8 +8246,8 @@ def phase_imagenet_resume(dev):
     return out
 
 
-MT_KERNEL = re.compile(r"\b(scale|axpby|norm_partials|norm_reduce|adam|"
-                       r"lamb_stage[12]|zero_adam|zero_lamb_stage[12]|"
+MT_KERNEL = re.compile(r"\b(scale|axpby|norm_partials|norm_reduce|"
+                       r"adam_list|lamb_list|zero_adam|zero_lamb_stage[12]|"
                        r"zero_lamb_segments)_kernel\b")
 # the int8 codec (K19, K20) by name
 CODEC_KERNEL = re.compile(r"\b(quantize|dequantize_sum|dequantize_gather)"

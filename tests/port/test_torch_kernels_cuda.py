@@ -1979,6 +1979,11 @@ def test_multi_tensor_constants_match_the_source(dev):
     for depth in (1, 2, 3, 4):
         assert lib.multi_tensor_capacity(depth) \
             == multi_tensor_cuda.capacity(depth)
+    # K14 and K15: a whole list a launch (parameters past 4 KB, which need
+    # CUDA 12.1 and a driver of R530 or later: 737 tensors, else 85)
+    assert lib.multi_tensor_list_capacity() \
+        == multi_tensor_cuda.list_capacity() == 737
+    assert lib.multi_tensor_tile() == multi_tensor_cuda.TILE
 
 
 @pytest.mark.parametrize("src,dst", [("float32", "float32"),
@@ -2110,8 +2115,9 @@ def test_adam_kernel_matches_plain_bit_for_bit(dev, p_dtype, g_dtype, kw,
                               10 + step, sizes)
         before = multi_tensor_cuda.adam.launches
         tx.step(grads, state, params, no)
-        groups = -(-len(sizes + [0]) // multi_tensor_cuda.capacity(4))
-        assert multi_tensor_cuda.adam.launches == before + groups
+        # one launch a list (one group of list_capacity() tensors at most)
+        groups = -(-len(sizes + [0]) // multi_tensor_cuda.list_capacity())
+        assert multi_tensor_cuda.adam.launches == before + groups == before + 1
         apply_plain(tx.update, grads, pstate, plain, no)
         for n in params:
             assert _same_bits(params[n], plain[n]), (step, n)
@@ -2189,6 +2195,101 @@ def test_lamb_kernel_over_many_tensors_and_bf16_params(dev):
         assert _lamb_errors(params, plain, states[0], states[1]) <= tol
 
 
+# K15 under forced plans: the default grid, one block, three, and 131
+# (fewer blocks than items: each block walks several chunks and tiles);
+# the sizes add a tensor of several chunks and a 1.1 M one
+LAMB_PLAN_SIZES = MT_SIZES * 3 + [3 * multi_tensor_cuda.CHUNK + 7,
+                                  (1100, 1000)]
+FORCED_GRIDS = (1, 3, 131)
+
+
+def test_lamb_kernel_bits_do_not_depend_on_the_plan(dev):
+    """K15's p, m and v after two steps are the same bits under every
+    forced grid and the default plan (the per-tensor sums keep one fixed
+    order; the grid moves only which block does which work)."""
+    from apex_tpu_torch.optimizers import fused_lamb
+
+    tx = fused_lamb(1e-2, weight_decay=0.01)
+    base, _ = _opt_lists(dev, torch.float32, torch.float32, 60,
+                         LAMB_PLAN_SIZES)
+    grads = [_opt_lists(dev, torch.float32, torch.float32, 61 + s,
+                        LAMB_PLAN_SIZES)[1] for s in range(2)]
+    default = multi_tensor_cuda.plan
+    seen = []
+
+    def run(force=None):
+        params = _copy(base)
+        state = tx.init(params)
+
+        def forced(*a, **k):
+            pl = default(*a, **k)
+            seen.append(pl)
+            return force(pl) if force else pl
+        with mock.patch.object(multi_tensor_cuda, "plan", forced):
+            for g in grads:
+                tx.step(g, state, params, torch.tensor(False, device=dev))
+        out = _state_tensors(state)
+        out.update(params)
+        return out
+
+    want = run()
+    assert seen and seen[-1].grid not in FORCED_GRIDS
+    for grid in FORCED_GRIDS:
+        got = run(lambda p: p._replace(grid=grid))
+        assert all(_same_bits(got[k], want[k]) for k in want), grid
+
+
+def test_lamb_kernel_raises_past_the_resident_grid(dev):
+    """K15's cooperative launch on more blocks than the card holds at once
+    is refused, and the wrapper raises (no plain fallback)."""
+    from apex_tpu_torch.optimizers import fused_lamb
+
+    tx = fused_lamb(1e-2)
+    params, grads = _opt_lists(dev, torch.float32, torch.float32, 80)
+    kept = _copy(params)
+    state = tx.init(params)
+    default = multi_tensor_cuda.plan
+    big = mock.patch.object(multi_tensor_cuda, "plan", lambda *a, **k: default(
+        *a, **k)._replace(grid=4096 * 132))
+    with big, pytest.raises(RuntimeError, match="CUDA error"):
+        tx.step(grads, state, params, torch.tensor(False, device=dev))
+    torch.cuda.synchronize()
+    assert all(_same_bits(params[n], kept[n]) for n in params)
+
+
+@pytest.mark.parametrize("opt", ["adam", "lamb"])
+def test_multi_tensor_list_kernels_replay_in_a_cuda_graph(dev, opt):
+    """A CUDA graph captures K14's or K15's one launch (K15's cooperative)
+    and each replay gives the eager step's bits."""
+    from apex_tpu_torch.optimizers import fused_adam, fused_lamb
+
+    tx = fused_adam(1e-3, weight_decay=0.01) if opt == "adam" \
+        else fused_lamb(1e-2, weight_decay=0.01)
+    params, grads = _opt_lists(dev, torch.float32, torch.float32, 70,
+                               LAMB_PLAN_SIZES)
+    eager = _copy(params)
+    es = tx.init(eager)
+    gs = tx.init(params)
+    no = torch.tensor(False, device=dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):     # warm-up: the library, its residency
+        warm = _copy(params)
+        tx.step(grads, tx.init(warm), warm, no)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        tx.step(grads, gs, params, no)
+    for _ in range(2):
+        graph.replay()
+        tx.step(grads, es, eager, no)
+        torch.cuda.synchronize()
+        got, want = _state_tensors(gs), _state_tensors(es)
+        got.update(params)
+        want.update(eager)
+        assert all(_same_bits(got[k], want[k]) for k in want)
+
+
 def test_mixed_precision_lamb_runs_k13_k15_on_its_masters(dev):
     """bf16 parameters over fp32 flat masters: the fused form (K13 + K15
     on views of the flat buffer, 4-byte aligned at ragged offsets) against
@@ -2207,7 +2308,7 @@ def test_mixed_precision_lamb_runs_k13_k15_on_its_masters(dev):
         _, grads = _opt_lists(dev, torch.bfloat16, torch.bfloat16, 50 + step)
         tx.step(grads, state, params, no)
         apply_plain(tx.update, grads, pstate, plain, no)
-    assert multi_tensor_cuda.lamb.launches == before + 6
+    assert multi_tensor_cuda.lamb.launches == before + 3
     err = ((state.master_flat - pstate.master_flat).abs().max()
            / pstate.master_flat.abs().max()).item()
     assert err <= MT_LAMB_TOL
@@ -2243,7 +2344,7 @@ def test_training_step_launches_the_multi_tensor_kernels(dev, opt):
         state, ss, loss = step(state, ss, ids, pos, ids)
         losses.append(loss.item())
     ran = [w.launches - b for w, b in zip(wrappers, before)]
-    assert ran == ([3, 0, 3, 0] if opt == "adam" else [3, 6, 0, 6])
+    assert ran == ([3, 0, 3, 0] if opt == "adam" else [3, 6, 0, 3])
     assert all(torch.isfinite(torch.tensor(losses)))
     assert state.count.item() == 3
 
