@@ -2,15 +2,26 @@
 
 * ``kv_cache``  — paged K/V tensors + the host page allocator (null page 0)
 * ``kv_tier``   — the int8 KV tier's codec (quantize at write, per-(page,
-                  head) bf16 scales)
+                  head) bf16 scales) and the host swap tier
+                  (``SwappedPages``, ``APEX_SERVE_KV_SWAP``)
 * ``quant``     — int8 per-channel weight quantization for the decode
                   matmuls (``weight_quant=`` / ``APEX_SERVE_WEIGHT_QUANT``,
                   default off; K23 on the card)
 * ``sampling``  — temperature / top-k / top-p on per-request threefry
                   lanes, JAX's random bits (``APEX_SERVE_SAMPLING``)
-* ``scheduler`` — continuous batching (fifo / priority) and the seeded
+* ``scheduler`` — continuous batching (fifo / priority), the prefix-cache
+                  admission, KV-pressure preemption, and the seeded
                   synthetic trace
-* ``lifecycle`` — request event log, TTFT/TPOT derivation
+* ``speculative`` — n-gram self-drafting: drafts verified in the packed
+                  prefill call (``APEX_SPEC_DECODE``)
+* ``prefix_cache`` — content-hashed refcounted copy-on-write page sharing
+                  (``APEX_SERVE_PREFIX_CACHE``)
+* ``resilience`` — admission control (``Rejected``), deadline shedding and
+                  preemption knobs and counters (``APEX_SERVE_ADMIT`` /
+                  ``APEX_SERVE_SHED`` / ``APEX_SERVE_PREEMPT``)
+* ``lifecycle`` — request event log (with the rejected / shed /
+                  preempted chains), per-round gauges, TTFT/TPOT
+                  derivation
 * ``weights``   — the GPTModel parameter tree: carried over from JAX
                   (``from_jax_params``) or drawn from a torch seed, and
                   one tensor-parallel rank's slices of it
@@ -19,15 +30,21 @@
                   block over the tree, through the prefill and decode
                   attention kernels
 * ``engine``    — ``ServingEngine``: cache, parameters and scheduler; one
-                  round admits, prefills (eager) and runs one decode
-                  program (K steps, greedy or sampled, over bf16 or int8
-                  KV pages and full or int8 weights), captured once as a
-                  CUDA graph on the card
+                  round admits (prefix hits, swap-ins), prefills or
+                  replays (eager), verifies drafts (eager), grows the
+                  tables under preemption, and runs one decode program
+                  (K steps, greedy or sampled, over bf16 or int8 KV pages
+                  and full or int8 weights), captured once as a CUDA
+                  graph on the card
 """
 
 from apex_tpu_torch.serving import kv_tier, lifecycle, quant  # noqa: F401
-from apex_tpu_torch.serving import sampling  # noqa: F401
+from apex_tpu_torch.serving import prefix_cache, resilience  # noqa: F401
+from apex_tpu_torch.serving import sampling, speculative  # noqa: F401
 from apex_tpu_torch.serving.engine import ServingEngine  # noqa: F401
+from apex_tpu_torch.serving.prefix_cache import PrefixCache  # noqa: F401
+from apex_tpu_torch.serving.resilience import Rejected  # noqa: F401
+from apex_tpu_torch.serving.sampling import SamplingParams  # noqa: F401
 from apex_tpu_torch.serving.kv_cache import (  # noqa: F401
     PageAllocator,
     init_cache,

@@ -21,14 +21,14 @@ environment value is a preference):
   prefill logits under the same lane. A stochastic request submitted to
   a sampling-off engine raises at :meth:`submit`.
 * ``decode_k=`` (> ``APEX_SERVE_DECODE_K``, default 1): K decode steps in
-  one program (:func:`model.decode_block`). Each lane's budget is
-  ``min(K, its remaining tokens)``; admission and eviction happen at block
-  boundaries; a lane that finishes mid-block rides the rest of the block
-  masked (its writes go to null page 0, its tokens are discarded). The
-  warm-token feed stays zero: the prefix cache and preemption that supply
-  it are later slices. On the card K > 1 buys nothing over the graph
-  below, which already spreads the per-dispatch cost that the block
-  exists to spread (graphed K = 4 measured 0.89-1.08x graphed K = 1's
+  one program (:func:`model.decode_block`). A lane's warm-up steps (a
+  prefix hit's covered suffix, a resumed stream's overflow past
+  ``prefill_len``) consume known tokens and emit nothing; its budget is
+  ``min(K, warm + remaining tokens)``. Admission and eviction happen at
+  block boundaries; a lane that finishes mid-block rides the rest of the
+  block masked (its writes go to null page 0, its tokens are discarded).
+  On the card K > 1 buys nothing over the graph below, which already
+  spreads the per-dispatch cost that the block exists to spread (graphed K = 4 measured 0.89-1.08x graphed K = 1's
   tokens/s on an H100, PERF.md); it is kept for parity with the JAX
   engine, and the default stays 1.
 * ``cuda_graph=`` (None: graphed on the card, eager on the CPU; True on
@@ -62,13 +62,54 @@ full precision.
 ``kv_quant=True`` (or ``APEX_SERVE_KV_QUANT=1`` when the argument is
 None) serves over the int8 KV tier (:mod:`~apex_tpu_torch.serving.
 kv_tier`): int8 codes with per-(page, head) bf16 scales, quantized at
-write, read by K2q. The JAX engine's other layers — speculative decode,
-the prefix cache, the overlapped round, admission control, shedding,
-preemption, round recovery, the host swap tier and tensor parallelism —
-are later slices (ROADMAP.md); ``kv_swap=True`` and
-``kv_restore="swap"`` raise, as the JAX engine raises on them without
-preemption. This engine runs the JAX engine's configuration with those
-layers off, token for token.
+write, read by K2q.
+
+The generation and page-pressure layers, each default off, each a
+demand when passed and a preference when read from the environment:
+
+* ``spec_decode=K`` (> ``APEX_SPEC_DECODE``): n-gram drafts of up to K
+  tokens (:mod:`~apex_tpu_torch.serving.speculative`) verified in the
+  packed prefill call (K1 on the card): the slot's full sequence plus its
+  draft is one segment, context positions write the all-null spare row,
+  the pending and draft positions write the slot's pages, and the logits
+  gather reads ``K + 1`` rows a request (``_gather_w``). Greedy slots
+  only; a sequence past ``prefill_len`` is not verified. K + 1 over
+  ``prefill_len`` raises (the preference falls back to off); with
+  ``decode_k`` > 1 two demands raise, a demand drops the other side's
+  preference, and two preferences fall back to K = 1 blocks.
+* ``prefix_cache=`` (> :func:`prefix_cache.set_prefix_cache` >
+  ``APEX_SERVE_PREFIX_CACHE``): content-hashed refcounted page sharing
+  (:mod:`~apex_tpu_torch.serving.prefix_cache`). A hit enters the slot
+  by reference, its tail page is copied (:meth:`_copy_page`, in place on
+  every leaf of the cache) at admission, and the covered suffix runs
+  through the decode program as warm-up steps (the warm-token feed of
+  ``model.decode_block`` at K > 1, the host feed at K = 1).
+* ``admit=N`` (> ``APEX_SERVE_ADMIT``): :meth:`submit` returns a
+  :class:`~apex_tpu_torch.serving.resilience.Rejected` when N requests
+  are queued. ``shed=`` (> ``APEX_SERVE_SHED``) drops queued requests
+  that waited past ``shed_ttft_ms`` (> ``APEX_SERVE_SLO_TTFT_MS`` >
+  1000).
+* ``preempt=`` (> ``APEX_SERVE_PREEMPT``): admission reserves the known
+  stream's pages only and decode grows the tables; a refused grant
+  preempts the running request of lowest priority, and re-admission
+  replays its stream through the packed prefill (:meth:`_replay_prefill`).
+  True raises when ``num_pages - 1 < max_pages`` (a lone request could
+  not reach ``max_seq``); the preference falls back.
+* ``kv_swap=`` (> ``APEX_SERVE_KV_SWAP``), with preemption on: a victim's
+  pages are banked in host memory (pinned on the card, from a pool of
+  staging buffers the engine reuses) at preemption and copied back in
+  place at re-admission (:meth:`_swap_out_slot`,
+  :meth:`_swap_in_slot`), per ``kv_restore=`` ("swap" or "recompute", >
+  ``APEX_SERVE_KV_RESTORE`` > "swap"). True without preemption raises,
+  and so does ``kv_restore="swap"`` without the tier. A failed copy or a
+  handle whose bytes no longer match their seal raises.
+
+Not ported yet (ROADMAP.md, queue A item 7): round recovery and the
+dispatch watchdog, the overlapped round, tensor parallelism, the router
+and ``lifecycle.slo_block``. ``recover=``, ``overlap=`` and ``tp=`` raise
+when they ask for their layer, naming the slice; the chaos sites are not
+ported. With every layer off the engine runs the JAX engine's
+configuration token for token.
 
 ``device_dispatch_s`` accumulates the wall time of device round trips
 (prefill + decode, each ending in the fetch of its tokens), so run wall
@@ -76,6 +117,7 @@ minus it is the host slice of the loop. ``events`` is the lifecycle log
 (:class:`~apex_tpu_torch.serving.lifecycle.EventLog`), always kept.
 """
 
+import math
 import time
 
 import numpy as np
@@ -84,16 +126,19 @@ import torch
 from apex_tpu_torch import default_device
 from apex_tpu_torch.serving import kv_tier, lifecycle
 from apex_tpu_torch.serving import model as smodel
+from apex_tpu_torch.serving import prefix_cache as prefix_mod
 from apex_tpu_torch.serving import quant as quant_mod
+from apex_tpu_torch.serving import resilience as serve_res
 from apex_tpu_torch.serving import sampling as sampling_mod
-from apex_tpu_torch.serving.kv_cache import PageAllocator, init_cache
+from apex_tpu_torch.serving import speculative as spec_mod
+from apex_tpu_torch.serving.kv_cache import (PageAllocator, init_cache,
+                                             pages_needed)
 from apex_tpu_torch.serving.scheduler import ContinuousBatchingScheduler
 from apex_tpu_torch.serving.weights import init_gpt_params
 
 
 # the sampling lanes of the decode program, in lane_arrays' order
 LANES = ("temps", "top_ks", "top_ps", "keys", "counters")
-
 
 def _to_device(tree, device):
     if isinstance(tree, torch.Tensor):
@@ -122,33 +167,22 @@ class ServingEngine:
                  prefill_requests=None, policy=None, seed=0, device=None,
                  kv_quant=None, kv_swap=None, kv_restore=None,
                  sampling=None, decode_k=None, cuda_graph=None,
-                 weight_quant=None):
+                 weight_quant=None, spec_decode=None, prefix_cache=None,
+                 admit=None, shed=None, shed_ttft_ms=None, preempt=None,
+                 recover=None, overlap=None, tp=None):
         smodel.check_serving_config(cfg)
-        # the int8 KV tier: a per-call demand, else the env preference,
-        # else off. kv_swap and kv_restore exist only to be refused: the
-        # host swap tier banks pages at KV-pressure preemption, which this
-        # engine does not have (the JAX engine raises on kv_swap=True
-        # without preemption); with no preemption nothing is restored, so
-        # "recompute" is accepted and changes nothing
-        self.kv_quant = kv_tier.resolve_kv_quant(kv_quant)
-        if kv_swap:
-            raise ValueError(
-                "kv_swap=True cannot be honored: the host swap tier banks "
-                "pages at KV-pressure preemption, which this engine does "
-                "not have")
-        if kv_restore is not None:
-            if kv_restore not in kv_tier.RESTORE_CHOICES:
-                raise ValueError(f"unknown kv_restore {kv_restore!r} "
-                                 f"(vocabulary: {kv_tier.RESTORE_CHOICES})")
-            if kv_restore == "swap":
+        # the JAX engine's layers that come in later slices (ROADMAP.md,
+        # queue A item 7): a value that asks for one raises
+        for name, value, off, layer in (
+                ("recover", recover, (None, False),
+                 "round recovery and the dispatch watchdog"),
+                ("overlap", overlap, (None, False), "the overlapped round"),
+                ("tp", tp, (None, 1), "tensor-parallel serving (tp.py)")):
+            if value not in off:
                 raise ValueError(
-                    "kv_restore='swap' demanded but the host swap tier is "
-                    "off — no honorable way to restore from pages that "
-                    "were never banked")
-        self.device = default_device(device)
-        self.sampling = sampling_mod.resolve(sampling)
-        self.decode_k = smodel.resolve_decode_k(decode_k)
-        self.cuda_graph = resolve_cuda_graph(cuda_graph, self.device)
+                    f"{name}={value!r} cannot be honored: {layer} is a "
+                    f"later slice of the port (ROADMAP.md, queue A "
+                    f"item 7)")
         self.cfg = cfg
         self.num_slots = int(num_slots)
         self.page_size = int(page_size)
@@ -159,6 +193,90 @@ class ServingEngine:
         self.max_pages = -(-self.max_seq // self.page_size)
         self.prefill_len = int(prefill_len)
         self.prefill_requests = int(prefill_requests or num_slots)
+        self.device = default_device(device)
+        self.sampling = sampling_mod.resolve(sampling)
+        self.cuda_graph = resolve_cuda_graph(cuda_graph, self.device)
+
+        # speculative decode: an un-honorable per-call draft length
+        # raises, the preference falls back per shape
+        k = spec_mod.resolve_k(spec_decode)
+        if spec_decode is not None and k + 1 > self.prefill_len:
+            raise ValueError(
+                f"spec_decode={k} cannot be honored: the verify window "
+                f"(K+1 = {k + 1} tokens) exceeds "
+                f"prefill_len={self.prefill_len}")
+        if k and k + 1 > self.prefill_len:
+            k = 0  # the preference falls back per shape
+        # decode blocks and speculation both batch tokens a dispatch, and
+        # the verify rollback assumes one pending token a round: two
+        # demands raise, a demand drops the other side's preference, two
+        # preferences fall back to K = 1
+        dk = smodel.resolve_decode_k(decode_k)
+        if dk > 1 and k:
+            if decode_k is not None and spec_decode is not None:
+                raise ValueError(
+                    f"decode_k={dk} cannot be honored with "
+                    f"spec_decode={k}: the verify rollback assumes one "
+                    f"pending token per decode round (two demands, no "
+                    f"honorable order)")
+            if decode_k is not None:
+                k = 0
+            else:
+                dk = 1
+        self.spec_k, self.decode_k = k, dk
+        self.spec_stats = spec_mod.SpecStats() if k else None
+        # the logits gather's width a packed request: the verify chain
+        # needs K + 1 rows; a plain prefill reads row r * W
+        self._gather_w = self.spec_k + 1
+
+        # KV-pressure preemption, with its progress guarantee: a lone
+        # request must be able to grow to max_seq pages
+        self.preempt = serve_res.resolve_preempt(preempt)
+        if self.preempt and self.num_pages - 1 < self.max_pages:
+            if preempt is True:
+                raise ValueError(
+                    f"preempt=True cannot be honored: the page pool "
+                    f"({self.num_pages - 1} allocatable) cannot cover "
+                    f"one request's max_seq table ({self.max_pages} "
+                    f"pages) — a lone preemption survivor could wedge")
+            self.preempt = False
+        # the int8 KV tier and the host swap tier; the swap tier banks at
+        # preemption, so kv_swap=True without it raises
+        self.kv_quant = kv_tier.resolve_kv_quant(kv_quant)
+        self.kv_swap = kv_tier.resolve_kv_swap(kv_swap)
+        if self.kv_swap and not self.preempt:
+            if kv_swap is True:
+                raise ValueError(
+                    "kv_swap=True cannot be honored without "
+                    "KV-pressure preemption (preempt=True / "
+                    "APEX_SERVE_PREEMPT=1): the host tier banks pages "
+                    "AT preemption — with it off nothing is ever "
+                    "swapped")
+            self.kv_swap = False
+        if kv_restore is not None:
+            kv_tier.resolve_kv_restore(kv_restore,
+                                       swap_enabled=self.kv_swap)
+        self.kv_restore = kv_restore
+        self.kv_stats = kv_tier.KVTierStats() if self.kv_swap else None
+        self.admit_limit = serve_res.resolve_admit(admit)
+        self.shed = serve_res.resolve_shed(shed)
+        if shed_ttft_ms is not None:
+            if not isinstance(shed_ttft_ms, (int, float)) \
+                    or isinstance(shed_ttft_ms, bool) or shed_ttft_ms <= 0:
+                raise ValueError(
+                    f"shed_ttft_ms= wants a positive number, got "
+                    f"{shed_ttft_ms!r}")
+            self.shed_ttft_ms = float(shed_ttft_ms)
+        else:
+            self.shed_ttft_ms = lifecycle.env_ms(
+                "APEX_SERVE_SLO_TTFT_MS", lifecycle.DEFAULT_SLO_TTFT_MS)
+        self.resilience = serve_res.ResilienceStats()
+        self.rejected = []         # [(request, Rejected)] at submit
+        self.prefix_enabled = prefix_mod.resolve(prefix_cache)
+        self.prefix = prefix_mod.PrefixCache(
+            PageAllocator(self.num_pages), self.page_size) \
+            if self.prefix_enabled else None
+
         params = _to_device(params, self.device) if params is not None \
             else init_gpt_params(cfg, seed, self.device)
         # weight quant: a per-call True raises when it cannot be honored;
@@ -177,16 +295,28 @@ class ServingEngine:
         self.params = smodel.cast_params(params, cfg)
         self._cache_dtype = smodel.compute_dtype(cfg)
         self.cache = self._fresh_cache()
-        self.allocator = PageAllocator(self.num_pages)
+        # the swap tier's host buffers, one set of max_pages made up front
+        # (the first large pinning in a process took ~300 ms on an H100)
+        self._host_pool = {name: [] for name in self.cache}
+        if self.kv_swap:
+            for name, leaf in self.cache.items():
+                self._host_pool[name].append(
+                    self._staging(name, leaf, self.max_pages))
+        self.allocator = self.prefix.allocator if self.prefix is not None \
+            else PageAllocator(self.num_pages)
         self.scheduler = ContinuousBatchingScheduler(
             self.num_slots, self.max_pages, self.page_size, self.allocator,
-            policy=policy)
+            policy=policy, prefix=self.prefix, preempt=self.preempt,
+            swap_out=self._swap_out_slot if self.kv_swap else None)
         self.events = lifecycle.EventLog()
         self.tick = 0
         self.decode_steps = 0
+        self.verify_calls = 0
         self.prefill_batches = 0
         self.tokens_generated = 0
         self.device_dispatch_s = 0.0
+        # wall seconds of the swap tier's copies (bank and restore)
+        self.swap_copy_s = 0.0
         self._init_decode_inputs()
         self._graph = self._graph_out = None
         if self.cuda_graph:
@@ -203,12 +333,40 @@ class ServingEngine:
             self.num_pages, self.page_size, self.cfg.head_dim,
             self._cache_dtype, kv_quant=self.kv_quant, device=self.device)
 
+    def generation_stats(self):
+        """Speculative acceptance rate and mean draft length, prefix-cache
+        hit rate; each None when its layer is off (or before its first
+        sample)."""
+        st, pf = self.spec_stats, self.prefix
+        return {
+            "spec_acceptance_rate":
+                st.acceptance_rate() if st is not None else None,
+            "draft_len": st.mean_draft_len() if st is not None else None,
+            "prefix_hit_rate":
+                (pf.hit_tokens / pf.lookup_tokens)
+                if pf is not None and pf.lookup_tokens else None,
+        }
+
+    def resilience_rates(self):
+        """Shed and preempt rates, None for a layer that is off;
+        ``degraded_rounds`` is None (round recovery is a later slice)."""
+        return self.resilience.rates(shed_on=self.shed,
+                                     preempt_on=self.preempt)
+
     def kv_tier_rates(self):
         """The KV-tier account: ``kv_quant`` (True with the int8 tier on,
-        None off); ``swap_rate`` and ``swapped_pages_high_water`` are None,
-        as the host swap tier is off."""
-        return {"kv_quant": True if self.kv_quant else None,
-                "swap_rate": None, "swapped_pages_high_water": None}
+        None off), ``swap_rate`` (banked swap-outs over preemptions) and
+        ``swapped_pages_high_water``, both None with the swap tier off."""
+        quant = True if self.kv_quant else None
+        st = self.kv_stats
+        if st is None:
+            return {"kv_quant": quant, "swap_rate": None,
+                    "swapped_pages_high_water": None}
+        preempted = self.resilience.preempted
+        return {"kv_quant": quant,
+                "swap_rate": (st.swap_outs / preempted) if preempted
+                else 0.0,
+                "swapped_pages_high_water": st.swapped_pages_high_water}
 
     # -------------------------------------------------------- front door
 
@@ -234,18 +392,170 @@ class ServingEngine:
                     f"APEX_SERVE_SAMPLING=1)")
 
     def submit(self, request):
-        """Enqueue one request; impossible requests raise here, before
-        anything is enqueued or allocated."""
+        """Enqueue one request and return None; impossible requests raise
+        here, before anything is enqueued or allocated (before the
+        admission gate, so a full queue never masks a malformed request).
+        Under admission control a full queue returns a
+        :class:`~apex_tpu_torch.serving.resilience.Rejected` instead, with
+        nothing enqueued."""
+        self.resilience.submit_attempts += 1
         self.validate_request(request)
+        if self.admit_limit \
+                and self.scheduler.queue_depth() >= self.admit_limit:
+            rej = serve_res.Rejected(
+                "queue_full",
+                max(1, -(-self.scheduler.queue_depth() // self.num_slots)))
+            self.resilience.rejected += 1
+            self.rejected.append((request, rej))
+            wall = time.perf_counter()
+            self.events.record("submitted", request.rid, tick=self.tick,
+                               wall=wall)
+            self.events.record("rejected", request.rid, tick=self.tick,
+                               wall=wall)
+            return rej
         request.enqueue_wall = time.perf_counter()
         self.scheduler.submit(request, tick=self.tick)
         self.events.record("submitted", request.rid, tick=self.tick,
                            wall=request.enqueue_wall)
+        return None
+
+    # -------------------------------------------------- page-level hops
+
+    def _copy_page(self, src, dst):
+        """Copy one page ``src -> dst`` across every leaf of the cache
+        (the prefix cache's tail snapshot and copy-on-write), in place,
+        so the captured decode graph's tensors never move."""
+        for leaf in self.cache.values():
+            leaf[:, :, dst] = leaf[:, :, src]
+
+    def _assert_writable(self, slot, first_pos, last_pos):
+        """No write of any slot may land on a cache-shared page (after
+        admission's copy-on-write): a failure is a prefix-cache invariant
+        bug."""
+        if self.prefix is None:
+            return
+        ps = self.page_size
+        for j in range(first_pos // ps, last_pos // ps + 1):
+            if j < len(slot.pages):
+                assert not self.prefix.is_shared(slot.pages[j]), (
+                    f"rid {slot.request.rid}: write at positions "
+                    f"[{first_pos}, {last_pos}] would hit shared page "
+                    f"{slot.pages[j]} (COW failed)")
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _staging(self, name, leaf, n):
+        """A host buffer for ``n`` pages of one cache leaf, pinned on the
+        card: the smallest one in the pool (``_host_pool``) that holds
+        them, else a new one of the next power of two of pages. Pinning
+        costs ~0.5 ms a MB, against ~0.03 ms a MB for the copy itself (an
+        H100, PERF.md), so buffers return to the pool when their handle
+        is restored or dropped, and one of ``max_pages`` is made with the
+        engine."""
+        per_page = leaf[:, :, 0].numel()
+        pool = self._host_pool[name]
+        fits = [i for i, b in enumerate(pool) if b.numel() >= n * per_page]
+        if fits:
+            return pool.pop(min(fits, key=lambda i: pool[i].numel()))
+        pages = min(1 << (n - 1).bit_length(), self.max_pages)
+        return torch.empty(pages * per_page, dtype=leaf.dtype,
+                           pin_memory=self.device.type == "cuda")
+
+    def _release(self, handle):
+        """Drop a banked handle: it leaves the tier's account and its
+        buffers (the bases of its leaves) return to the pool."""
+        self.kv_stats.released(handle)
+        for name, host in handle.leaves.items():
+            self._host_pool[name].append(host._base)
+
+    def _swap_out_slot(self, slot):
+        """Bank a preemption victim's live pages, every leaf of the cache,
+        in host memory (pinned on the card): the scheduler's ``swap_out``
+        callback, called before the pages are freed. Returns a sealed
+        :class:`~apex_tpu_torch.serving.kv_tier.SwappedPages`, or None
+        when the stream has no generated token (re-admission is then a
+        plain prefill). The pages covering positions ``0..pos-1`` are
+        banked, shared prefix pages' content included (restore writes
+        private pages)."""
+        req = slot.request
+        t = slot.pos
+        if not req.out_tokens or t < 1:
+            return None
+        n = pages_needed(t, self.page_size)
+        idx = torch.tensor(slot.pages[:n], dtype=torch.long,
+                           device=self.device)
+        t0 = time.perf_counter()
+        leaves = {}
+        for name, leaf in self.cache.items():
+            buf = self._staging(name, leaf, n)
+            shape = leaf.shape[:2] + (n,) + leaf.shape[3:]
+            host = buf[:math.prod(shape)].view(shape)
+            host.copy_(leaf.index_select(2, idx))
+            leaves[name] = host
+        self.swap_copy_s += time.perf_counter() - t0
+        handle = kv_tier.SwappedPages(leaves=leaves, page_count=n,
+                                      tokens=t, quant=self.kv_quant).seal()
+        self.kv_stats.banked(handle)
+        return handle
+
+    def _swap_in_slot(self, si, handle):
+        """Copy one banked stream's pages back into the slot's freshly
+        granted pages, in place on every leaf, and resume the slot where
+        the banked content ends. The seal is checked first: a handle whose
+        bytes changed raises before anything reaches the device."""
+        slot = self.scheduler.slots[si]
+        req = slot.request
+        if not handle.intact():
+            raise RuntimeError(
+                f"rid {req.rid}: swapped pages failed their checksum — "
+                f"banked bytes changed on the host")
+        n = handle.page_count
+        dst = torch.tensor(slot.pages[:n], dtype=torch.long,
+                           device=self.device)
+        t0 = time.perf_counter()
+        for name, leaf in self.cache.items():
+            leaf.index_copy_(2, dst, handle.leaves[name].to(
+                self.device, non_blocking=True))
+        self._sync()
+        self.swap_copy_s += time.perf_counter() - t0
+        self.kv_stats.swap_ins += 1
+        self._release(handle)
+        req.swapped = None
+        # pos positions are valid again; the next known token feeds the
+        # first decode step (a stream banked mid-warm-up resumes inside
+        # its warm-up, which the decode bookkeeping carries on)
+        slot.pos = handle.tokens
+        slot.next_token = int(req.resume_tokens[handle.tokens])
+
+    def _restore_resumed(self, resumed):
+        """Route each re-admitted preempted stream: ``"swap"`` restores
+        its banked pages and resumes decode; ``"recompute"`` (or a stream
+        with nothing banked) replays through the packed prefill. Returns
+        the slots that need the replay."""
+        sch = self.scheduler
+        replay = []
+        for si in resumed:
+            req = sch.slots[si].request
+            handle = req.swapped
+            if handle is not None:
+                if kv_tier.resolve_kv_restore(
+                        self.kv_restore, swap_enabled=True) == "swap":
+                    self._swap_in_slot(si, handle)
+                    self.kv_stats.restores_swap += 1
+                    continue
+                self._release(handle)
+                req.swapped = None
+            self.kv_stats.restores_recompute += 1
+            replay.append(si)
+        return replay
 
     # ----------------------------------------------------------- prefill
 
     def _pack_greedy(self, items, sizes):
-        """Greedy bucket split: a batch closes when the next packed
+        """Greedy bucket split shared by admission prefill, the replay and
+        the speculative verify: a batch closes when the next packed
         sequence would overflow the ``[prefill_len]`` bucket or the
         per-batch request cap."""
         S, R = self.prefill_len, self.prefill_requests
@@ -261,38 +571,43 @@ class ServingEngine:
         return batches
 
     def _packed_call(self, rows):
-        """ONE packed prefill call for ``rows = [(slot_idx, prompt)]``:
-        segment ids 1..R, padding on segment 0 routed to the all-null
-        spare page-table row ``num_slots``, one logits row gathered at
-        each prompt's last token. Returns ``(logits [R, vocab], t0)``."""
-        S, R = self.prefill_len, self.prefill_requests
+        """ONE packed prefill call for ``rows = [(slot_idx, fed_tokens,
+        write_from, gather_pos)]``: segment ids 1..R, padding and the
+        positions below ``write_from`` routed to the all-null spare
+        page-table row ``num_slots``, the logits gathered at each row's
+        ``gather_pos`` (within its sequence) at stride ``_gather_w``.
+        Returns ``(logits [R * W, vocab], t0)``."""
+        S, R, W = self.prefill_len, self.prefill_requests, self._gather_w
         ids = np.zeros((S,), np.int64)
         positions = np.zeros((S,), np.int64)
         seg = np.zeros((S,), np.int32)
         token_rows = np.full((S,), self.num_slots, np.int64)
-        gather_idx = np.zeros((R,), np.int64)
+        gather_idx = np.zeros((R * W,), np.int64)
         pt = np.zeros((self.num_slots + 1, self.max_pages), np.int32)
         pt[:self.num_slots] = self.scheduler.page_table_rows()
         cursor = 0
-        for r, (si, fed) in enumerate(rows):
+        for r, (si, fed, write_from, gathers) in enumerate(rows):
             n = len(fed)
             ids[cursor:cursor + n] = fed
             positions[cursor:cursor + n] = np.arange(n)
             seg[cursor:cursor + n] = r + 1
-            token_rows[cursor:cursor + n] = si
-            gather_idx[r] = cursor + n - 1
+            token_rows[cursor + write_from:cursor + n] = si
+            for j, gp in enumerate(gathers):
+                gather_idx[r * W + j] = cursor + gp
             cursor += n
         keep = None
         if self.kv_quant:
-            # keep_scale row (kv_tier.prefill_scatter_quant): 0 for every
-            # page a prefilling row writes (each is freshly granted: with
-            # no prefix cache and no verify replay a row writes from
-            # position 0, so stale codes there must not pin the scale), 1
-            # for every other page, whose content must survive
+            # keep_scale row (kv_tier.prefill_scatter_quant): 0 for the
+            # pages this call writes afresh (stale codes there must not
+            # pin the scale), 1 for pages whose content survives; a row
+            # writing from write_from > 0 (a verify) keeps the page that
+            # holds position write_from - 1
             keep = np.ones((self.num_pages,), np.float32)
-            for si, fed in rows:
+            for si, fed, write_from, _ in rows:
                 pages = self.scheduler.slots[si].pages
-                for j in range((len(fed) - 1) // self.page_size + 1):
+                first = (0 if write_from == 0
+                         else (write_from - 1) // self.page_size + 1)
+                for j in range(first, (len(fed) - 1) // self.page_size + 1):
                     if j < len(pages):
                         keep[pages[j]] = 0.0
             keep = self._tensor(keep)
@@ -320,32 +635,74 @@ class ServingEngine:
             torch.ones(len(requests), dtype=torch.bool, device=self.device))
         return toks.cpu().numpy()
 
+    def _replay_prefill(self, resumed):
+        """Re-admission replay of preempted streams through the packed
+        prefill: each slot's known stream minus its pending last token is
+        one segment writing its fresh pages, the computation that decode
+        first wrote. No token is sampled (the stream is known). A stream
+        longer than ``prefill_len`` replays its overflow as decode warm-up
+        steps."""
+        sch = self.scheduler
+        items = []
+        for si in resumed:
+            fed = sch.slots[si].request.resume_tokens[:-1][:self.prefill_len]
+            items.append((si, fed))
+        for batch in self._pack_greedy(items, [len(f) for _, f in items]):
+            rows = []
+            for si, fed in batch:
+                self._assert_writable(sch.slots[si], 0, len(fed) - 1)
+                rows.append((si, fed, 0, [len(fed) - 1]))
+            logits, t0 = self._packed_call(rows)
+            self.prefill_batches += 1
+            logits[:1, :1].cpu()  # the fetch that closes the dispatch
+            self.device_dispatch_s += time.perf_counter() - t0
+            for si, fed in batch:
+                slot = sch.slots[si]
+                slot.pos = len(fed)
+                slot.next_token = int(slot.known[len(fed)])
+
     def _run_prefill(self, slot_indices):
         """Pack the newly admitted slots' prompts into ``[prefill_len]``
-        batches, fill the cache, and take each request's first token from
-        its last prompt token's logits."""
+        batches, fill the cache, take each request's first token from its
+        last prompt token's logits, and register fresh prompts with the
+        prefix cache (its tail snapshots copied here). Resumed slots
+        restore from the swap tier or replay first."""
         sch = self.scheduler
-        prompts = [sch.slots[si].request.prompt for si in slot_indices]
-        for batch in self._pack_greedy(list(zip(slot_indices, prompts)),
-                                       [len(p) for p in prompts]):
-            logits, t0 = self._packed_call(batch)
+        resumed = [si for si in slot_indices
+                   if sch.slots[si].request.resume_tokens]
+        slot_indices = [si for si in slot_indices if si not in resumed]
+        if resumed:
+            replay = (self._restore_resumed(resumed) if self.kv_swap
+                      else resumed)
+            if replay:
+                self._replay_prefill(replay)
+        W = self._gather_w
+        for batch in self._pack_greedy(
+                slot_indices,
+                [len(sch.slots[si].request.prompt) for si in slot_indices]):
+            rows = [(si, sch.slots[si].request.prompt, 0,
+                     [len(sch.slots[si].request.prompt) - 1])
+                    for si in batch]
+            logits, t0 = self._packed_call(rows)
             self.prefill_batches += 1
+            # rows r * W hold each request's last-prompt-token logits
             next_toks = self._sample_first_tokens(
-                logits[:len(batch)], [sch.slots[si].request
-                                      for si, _ in batch])
+                logits[:len(batch) * W:W],
+                [sch.slots[si].request for si in batch])
             wall = time.perf_counter()
             self.device_dispatch_s += wall - t0
-            for r, (si, prompt) in enumerate(batch):
+            for r, si in enumerate(batch):
                 slot = sch.slots[si]
                 req = slot.request
-                slot.pos = len(prompt)
+                slot.pos = len(req.prompt)
                 tok = int(next_toks[r])
                 req.out_tokens.append(tok)
                 slot.next_token = tok
                 self.tokens_generated += 1
                 # prefill samples the request's FIRST token: this fetch's
                 # wall is the TTFT stamp
-                req.first_token_wall = wall
+                if req.first_token_wall is None:
+                    req.first_token_wall = wall
                 self.events.record("prefill_done", req.rid, tick=self.tick,
                                    wall=wall)
                 self.events.record("first_token", req.rid, tick=self.tick,
@@ -354,7 +711,91 @@ class ServingEngine:
                     req.finish_wall = wall
                     self.events.record("finished", req.rid, tick=self.tick,
                                        wall=wall)
-        return list(slot_indices)
+                if self.prefix is not None:
+                    adopted, copies = self.prefix.register(
+                        req.prompt, slot.pages, ("req", req.rid))
+                    if adopted:
+                        self.prefix.acquire(adopted)
+                        slot.shared_pages.extend(adopted)
+                    for src, dst in copies:
+                        self._copy_page(src, dst)
+        return resumed + slot_indices
+
+    # ------------------------------------------------------- speculative
+
+    def _propose_drafts(self, active):
+        """``[(slot_idx, draft)]`` for every greedy slot past its known
+        stream whose n-gram draft exists and fits the remaining token
+        budget, ``prefill_len`` and ``max_seq``. Sampled slots never
+        draft."""
+        sch = self.scheduler
+        out = []
+        for i in active:
+            slot = sch.slots[i]
+            req = slot.request
+            if req.done() or slot.pos < len(slot.known):
+                continue
+            sp = req.sampling
+            if sp is not None and not sp.greedy:
+                continue
+            remaining = req.max_new_tokens - len(req.out_tokens)
+            k = min(self.spec_k, remaining - 1,
+                    self.prefill_len - slot.pos - 1,
+                    self.max_seq - slot.pos - 1)
+            if k < 1:
+                continue
+            draft = spec_mod.propose(req.prompt + req.out_tokens, k)
+            if draft:
+                out.append((i, draft))
+        return out
+
+    def _run_verify(self, drafts):
+        """Verify drafted slots in packed prefill calls: each slot's full
+        sequence plus its draft is one segment; context positions write
+        the null spare row (the decode-written K/V stay as they are), the
+        pending and draft positions write the slot's pages, and the gather
+        reads the K + 1 verify logits. A slot gains 1..K + 1 tokens
+        (``speculative.accept``). Returns the verified slots."""
+        sch = self.scheduler
+        W = self._gather_w
+        verified = []
+        for batch in self._pack_greedy(
+                drafts, [sch.slots[i].pos + 1 + len(d) for i, d in drafts]):
+            rows = []
+            for i, draft in batch:
+                slot = sch.slots[i]
+                req = slot.request
+                fed = req.prompt + req.out_tokens + draft
+                pos = slot.pos
+                assert len(fed) == pos + 1 + len(draft), (
+                    len(fed), pos, len(draft))
+                self._assert_writable(slot, pos, len(fed) - 1)
+                rows.append((i, fed, pos,
+                             list(range(pos, pos + len(draft) + 1))))
+            logits, t0 = self._packed_call(rows)
+            self.verify_calls += 1
+            greedy = torch.argmax(logits.float(), dim=-1).cpu().numpy()
+            wall = time.perf_counter()
+            self.device_dispatch_s += wall - t0
+            for r, (i, draft) in enumerate(batch):
+                slot = sch.slots[i]
+                req = slot.request
+                chain = [int(t) for t in
+                         greedy[r * W:r * W + len(draft) + 1]]
+                added = spec_mod.accept(draft, chain)
+                assert len(added) <= req.max_new_tokens \
+                    - len(req.out_tokens), (req.rid, added)
+                self.spec_stats.record(len(draft), len(added) - 1)
+                req.out_tokens.extend(added)
+                slot.pos = len(req.prompt) + len(req.out_tokens) - 1
+                slot.next_token = req.out_tokens[-1]
+                self.tokens_generated += len(added)
+                if req.done():
+                    req.finish_wall = wall
+                    self.events.record("finished", req.rid, tick=self.tick,
+                                       wall=wall)
+                verified.append(i)
+        return verified
 
     # ------------------------------------------------------------ decode
 
@@ -434,39 +875,58 @@ class ServingEngine:
         self._graph_cache = self._cache_ptrs()
 
     def _lane_budget(self, slot):
-        """This block's step budget for one live lane: its remaining new
-        tokens, capped at ``decode_k`` (the port has no warm-up steps, so
-        JAX's ``warm + rem`` is ``rem``). A lane never decodes past its
-        last token inside a block, so block writes stay within the
-        request's ``prompt + max_new_tokens`` pages."""
+        """``(warm-up steps left, this block's step budget)`` for one live
+        lane: warm-up steps consume known tokens (a prefix hit's covered
+        suffix, a resumed stream's overflow past ``prefill_len``; their
+        outputs are discarded), then the lane emits toward its remaining
+        new tokens. The budget caps at ``decode_k`` and at the lane's
+        finish, so block writes stay within the request's
+        ``prompt + max_new_tokens`` pages."""
         req = slot.request
-        return min(self.decode_k, req.max_new_tokens - len(req.out_tokens))
+        warm = max(0, len(slot.known) - 1 - slot.pos)
+        rem = req.max_new_tokens - len(req.out_tokens)
+        return warm, min(self.decode_k, warm + rem)
+
+    def _block_hi(self, slot):
+        """Highest cache position this block writes for a live lane (at
+        K = 1 exactly ``slot.pos``)."""
+        return slot.pos + self._lane_budget(slot)[1] - 1
 
     def _stage_block(self, decode_lanes):
-        """Per-lane staging of one K-block (JAX's ``_stage_block``):
-        ``steps`` maps lane -> the steps its bookkeeping consumes; the
-        device budget is 0 for a lane that finished at this round's
-        prefill (ballast: inactive for the whole block). The warm-token
-        feed stays zero."""
+        """Per-lane staging of one K-block (JAX's ``_stage_block``) into
+        the host twin: ``steps`` (the device budget; 0 for a lane that
+        finished at this round's prefill, ballast for the whole block),
+        ``warm_steps`` and the warm-token feed ``warm_tokens [K, B]``.
+        Returns ``steps``, lane -> the steps its bookkeeping consumes."""
+        sch = self.scheduler
         h = self._host_views
         h["steps"][:] = 0
         h["warm_steps"][:] = 0
         h["warm_tokens"][:] = 0
         steps = {}
         for i in decode_lanes:
-            slot = self.scheduler.slots[i]
+            slot = sch.slots[i]
             if slot.request.done():
-                steps[i] = 1
+                steps[i] = 1  # ballast: one count step, no device step
                 continue
-            steps[i] = h["steps"][i] = self._lane_budget(slot)
+            warm, budget = self._lane_budget(slot)
+            steps[i] = h["steps"][i] = budget
+            w = min(warm, budget)
+            h["warm_steps"][i] = w
+            for j in range(w):
+                h["warm_tokens"][j, i] = int(slot.known[slot.pos + j + 1])
+            self._assert_writable(slot, slot.pos, slot.pos + budget - 1)
         return steps
 
-    def _stage_inputs(self, decode_lanes):
-        """Fill the host twin with this round's tokens, lengths, page
-        table, block budgets and sampling lanes; returns ``steps``."""
+    def _stage_inputs(self, decode_lanes, zero_length_lanes=()):
+        """Fill the host twin with this round's tokens, lengths (0 for the
+        lanes this round's verify served), page table, block budgets and
+        sampling lanes; returns ``steps``."""
         sch = self.scheduler
         h = self._host_views
         tokens, lengths = sch.decode_inputs()
+        for i in zero_length_lanes:
+            lengths[i] = 0
         h["tokens"][:] = tokens
         h["lengths"][:] = lengths
         h["page_table"][:] = sch.page_table_rows()
@@ -474,19 +934,22 @@ class ServingEngine:
             steps = self._stage_block(decode_lanes)
         else:
             steps = {i: 1 for i in decode_lanes}
+            for i in decode_lanes:
+                slot = sch.slots[i]
+                self._assert_writable(slot, slot.pos, slot.pos)
         if self.sampling:
             for name, arr in zip(LANES, sampling_mod.lane_arrays(
                     sch.slots, self.num_slots)):
                 h[name][:] = arr
         return steps
 
-    def _dispatch_decode(self, decode_lanes):
+    def _dispatch_decode(self, decode_lanes, zero_length_lanes=()):
         """Stage and run ONE decode program for the current slots (a
         graph replay, or the eager call); returns ``(next_toks, t0,
         steps)`` with the fetch left to the caller. A graph's output is
         overwritten by the next replay: the caller's fetch copies it out
         first."""
-        steps = self._stage_inputs(decode_lanes)
+        steps = self._stage_inputs(decode_lanes, zero_length_lanes)
         t0 = time.perf_counter()
         self._inputs.copy_(self._host_inputs, non_blocking=True)
         if self._graph is None:
@@ -499,12 +962,13 @@ class ServingEngine:
         return self._graph_out, t0, steps
 
     def _advance_counts(self, decode_lanes, steps):
-        """Count bookkeeping of one decode block, walking its (step,
-        lane) grid: every consumed step advances the lane's position; a
-        lane still short of its token budget gets a placeholder token that
+        """Count bookkeeping of one decode block, walking its (step, lane)
+        grid: every consumed step advances the lane's position; a warm-up
+        step (the consumed token was a known token with more to come)
+        feeds the next known token and emits nothing; otherwise a lane
+        short of its budget gets a placeholder token that
         :meth:`_fill_plan` fills (a lane that finished at this round's
-        prefill rides as discarded ballast). Returns ``(plan,
-        decoded)``."""
+        prefill rides as ballast). Returns ``(plan, decoded)``."""
         sch = self.scheduler
         plan = []
         decoded = 0
@@ -514,14 +978,27 @@ class ServingEngine:
                     continue
                 slot = sch.slots[i]
                 req = slot.request
+                k_len = len(slot.known)
+                consumed_pos = slot.pos
                 slot.pos += 1
+                if consumed_pos < k_len - 1:
+                    # warm-up: fed on the host at K = 1, by the staged
+                    # warm_tokens row inside the block at K > 1
+                    slot.next_token = int(slot.known[consumed_pos + 1])
+                    decoded += 1
+                    continue
                 if not req.done():
                     req.out_tokens.append(None)   # the value lands at fill
                     self.tokens_generated += 1
-                    plan.append({"lane": i, "step": j, "slot": slot,
-                                 "req": req,
-                                 "out_idx": len(req.out_tokens) - 1,
-                                 "done": req.done()})
+                    plan.append({
+                        "lane": i, "step": j, "slot": slot, "req": req,
+                        "out_idx": len(req.out_tokens) - 1,
+                        # the slot's first output token (a prefix hit's
+                        # warm-up just ended): the prefill-done and
+                        # first-token seam; a resumed stream had its own
+                        "first": (consumed_pos == k_len - 1
+                                  and req.first_token_wall is None),
+                        "done": req.done()})
                 decoded += 1
         self.decode_steps += 1
         return plan, decoded
@@ -529,26 +1006,104 @@ class ServingEngine:
     def _fill_plan(self, plan, next_toks, wall, tick):
         """The value half of the round bookkeeping: fill the placeholder
         tokens (``next_toks`` ``[B]``, or ``[K, B]`` from a block, indexed
-        by (step, lane)) and stamp the finish walls and events. A lane
-        with several tokens in a block fills in step order, so its
+        by (step, lane)) and stamp the walls and events. A lane with
+        several tokens in a block fills in step order, so its
         ``next_token`` is the last step's."""
         toks = np.asarray(next_toks)
         if toks.ndim == 1:
             toks = toks[None]
         for e in plan:
             tok = int(toks[e["step"], e["lane"]])
-            e["req"].out_tokens[e["out_idx"]] = tok
+            req = e["req"]
+            req.out_tokens[e["out_idx"]] = tok
             e["slot"].next_token = tok
+            if e["first"]:
+                if req.first_token_wall is None:
+                    req.first_token_wall = wall
+                self.events.record("prefill_done", req.rid, tick=tick,
+                                   wall=wall)
+                self.events.record("first_token", req.rid, tick=tick,
+                                   wall=wall)
             if e["done"]:
-                e["req"].finish_wall = wall
-                self.events.record("finished", e["req"].rid, tick=tick,
+                if req.finish_wall is None:
+                    req.finish_wall = wall
+                self.events.record("finished", req.rid, tick=tick,
                                    wall=wall)
 
     # ------------------------------------------------------------- rounds
 
+    def _sample_gauges(self, tick):
+        """One gauge sample a round, after its device work."""
+        sch = self.scheduler
+        wall = time.perf_counter()
+        st, pf, rs = self.spec_stats, self.prefix, self.resilience
+        self.events.sample_gauges(
+            tick=tick, wall=wall,
+            slots_active=len(sch.active_indices()),
+            num_slots=self.num_slots,
+            queue_depth=sch.queue_depth(),
+            kv_pages_live=(self.allocator.num_pages - 1
+                           - self.allocator.free_count),
+            kv_pages_total=self.allocator.num_pages,
+            hol_wait_s=sch.head_of_line_wait(wall, tick=tick),
+            spec_drafted=st.drafted if st is not None else 0,
+            spec_accepted=st.accepted if st is not None else 0,
+            prefix_hit_tokens=pf.hit_tokens if pf is not None else 0,
+            rejected=rs.rejected, shed=rs.shed, preempted=rs.preempted,
+            resubmitted=rs.resubmitted, degraded_rounds=rs.degraded_rounds)
+
+    def _shed_queue(self, tick, wall):
+        """Drop queued requests that waited past ``shed_ttft_ms``: their
+        TTFT is at least their wait, so their SLO is lost. A request with a
+        first token already (a requeued preemption victim) is never
+        shed."""
+        sch = self.scheduler
+        dropped = []
+        for req in list(sch.queue):
+            if req.first_token_wall is not None \
+                    or req.enqueue_wall is None:
+                continue
+            if (wall - req.enqueue_wall) * 1e3 > self.shed_ttft_ms:
+                sch.queue.remove(req)
+                req.shed_tick = tick
+                sch.shed.append(req)
+                self.resilience.shed += 1
+                dropped.append(req)
+                self.events.record("shed", req.rid, tick=tick, wall=wall)
+        return dropped
+
+    def _drain_preempted(self, tick):
+        """Events and counters of the requests the scheduler preempted
+        since the last drain."""
+        preempted = self.scheduler.take_preempted()
+        for req in preempted:
+            self.resilience.preempted += 1
+            self.resilience.resubmitted += 1
+            wall = time.perf_counter()
+            self.events.record("preempted", req.rid, tick=tick, wall=wall)
+            self.events.record("resubmitted", req.rid, tick=tick,
+                               wall=wall)
+        return preempted
+
+    def _ensure_pages(self, lanes_pos, tick):
+        """Grow every lane's table to cover its highest write position
+        this round, preempting on a refused grant. Returns the lanes still
+        seated (a lane preempted to make room drops out of the round)."""
+        sch = self.scheduler
+        alive = []
+        for i, hi in lanes_pos:
+            if sch.slots[i] is None:
+                continue  # preempted by an earlier lane's growth
+            if sch.grow(i, hi // self.page_size + 1, tick):
+                alive.append(i)
+        self._drain_preempted(tick)
+        return [i for i in alive if sch.slots[i] is not None]
+
     def step(self, arrivals=None):
-        """One scheduler round: enqueue due arrivals, evict, admit +
-        prefill, decode every occupied slot. Returns a dict of what
+        """One scheduler round (JAX's serial round): enqueue due arrivals,
+        evict, shed, admit (prefix hits' copies, then prefill or restore
+        the rest), verify the drafted slots, grow the tables under
+        preemption, decode every other seated slot. Returns a dict of what
         happened."""
         now = self.tick
         for req in arrivals or ():
@@ -556,38 +1111,82 @@ class ServingEngine:
         sch = self.scheduler
         wall = time.perf_counter()
         evicted = sch.evict_done(now, wall)
+        shed = self._shed_queue(now, wall) if self.shed else []
         admitted = sch.admit(now, wall)
         for r in evicted:
             self.events.record("evicted", r.rid, tick=now, wall=wall)
         for i in admitted:
             self.events.record("admitted", sch.slots[i].request.rid,
                                tick=now, wall=wall)
-        prefilled = self._run_prefill(admitted) if admitted else []
-        decode_lanes = sch.active_indices()
+        self.resilience.admissions += len(admitted)
+        # prefix hits skip the prefill: their copies run here, before any
+        # write, and their covered suffix runs through decode below
+        to_prefill = []
+        for i in admitted:
+            slot = sch.slots[i]
+            if slot.prefix_hit:
+                for src, dst in slot.cow_copies:
+                    self._copy_page(src, dst)
+                slot.cow_copies = []
+            else:
+                to_prefill.append(i)
+        prefilled = self._run_prefill(to_prefill) if to_prefill else []
+        active = sch.active_indices()
+        verified = []
+        if self.spec_k and active:
+            drafts = self._propose_drafts(active)
+            if self.preempt and drafts:
+                # the verify writes pos..pos+|draft|: grow first (a lane
+                # preempted meanwhile drops its draft)
+                alive = set(self._ensure_pages(
+                    [(i, sch.slots[i].pos + len(d)) for i, d in drafts],
+                    now))
+                drafts = [(i, d) for i, d in drafts if i in alive]
+            if drafts:
+                verified = self._run_verify(drafts)
+            active = sch.active_indices()
+        decode_lanes = [i for i in active if i not in verified]
+        if self.preempt and decode_lanes:
+            # grow for each live lane's writes; a lane that finished at
+            # this round's prefill writes the null page and needs none
+            grown = set(self._ensure_pages(
+                [(i, self._block_hi(sch.slots[i])) for i in decode_lanes
+                 if not sch.slots[i].request.done()], now))
+            decode_lanes = [i for i in decode_lanes
+                            if sch.slots[i] is not None
+                            and (sch.slots[i].request.done()
+                                 or i in grown)]
         decoded = 0
         if decode_lanes:
-            next_toks, t0, steps = self._dispatch_decode(decode_lanes)
+            next_toks, t0, steps = self._dispatch_decode(
+                decode_lanes, zero_length_lanes=verified)
             plan, decoded = self._advance_counts(decode_lanes, steps)
             next_toks = next_toks.cpu().numpy()
             wall2 = time.perf_counter()
             self.device_dispatch_s += wall2 - t0
             self._fill_plan(plan, next_toks, wall2, now)
+        self._sample_gauges(now)
         # a slot whose LAST token was just produced frees at the next
         # round's evict
         self.tick += 1
         return {"tick": now, "evicted": [r.rid for r in evicted],
                 "admitted": admitted, "prefilled": prefilled,
-                "decoded_slots": decoded}
+                "verified": verified, "decoded_slots": decoded,
+                "shed": [r.rid for r in shed]}
 
     def run_trace(self, requests, max_ticks=10000):
         """Replay a trace to completion: each request is submitted when
-        its arrival tick is due; returns the completed requests (latency
-        stamps filled)."""
+        its arrival tick is due. A request settles by completing, being
+        shed, or being rejected at submit. Returns the completed requests
+        (latency stamps filled)."""
         pending = sorted(requests, key=lambda r: (r.arrival, r.rid))
         trace_ids = {id(r) for r in requests}
+        sch = self.scheduler
 
         def settled():
-            return sum(id(r) in trace_ids for r in self.scheduler.completed)
+            return (sum(id(r) in trace_ids for r in sch.completed)
+                    + sum(id(r) in trace_ids for r, _ in self.rejected)
+                    + sum(id(r) in trace_ids for r in sch.shed))
 
         while settled() < len(requests):
             if self.tick >= max_ticks:
@@ -597,4 +1196,4 @@ class ServingEngine:
             due = [r for r in pending if r.arrival <= self.tick]
             pending = [r for r in pending if r.arrival > self.tick]
             self.step(arrivals=due)
-        return list(self.scheduler.completed)
+        return list(sch.completed)

@@ -95,6 +95,24 @@ class PageAllocator:
         for p in self._owned.pop(owner, ()):
             self._free.append(p)
 
+    def transfer(self, owner_from, owner_to, pages):
+        """Move specific ``pages`` between owners: the prefix cache's
+        adoption of a registering request's prompt pages, which never
+        pass through the free list, so their K/V are never up for
+        reallocation mid-transfer. Accounting only; the live set is
+        unchanged. Raises when ``owner_from`` does not own every page
+        (state unchanged)."""
+        have = self._owned.get(owner_from, [])
+        missing = [p for p in pages if p not in have]
+        if missing:
+            raise ValueError(
+                f"pages {missing} are not owned by {owner_from!r}")
+        for p in pages:
+            have.remove(p)
+            self._owned.setdefault(owner_to, []).append(p)
+        if not have:
+            self._owned.pop(owner_from, None)
+
     def check_invariants(self):
         """Raise AssertionError on aliasing or accounting drift: no page
         owned twice, no page both free and owned, page 0 never handed

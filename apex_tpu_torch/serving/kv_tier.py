@@ -26,11 +26,26 @@ matter. A division by a constant divides by a tensor on the operand's
 device: on the card PyTorch turns ``x / python_float`` into ``x *
 (1 / python_float)``, which can round differently from JAX's division.
 
-The host swap tier of the JAX module (``SwappedPages``, ``KVTierStats``,
-``resolve_kv_swap``/``resolve_kv_restore``) needs KV-pressure preemption,
-which the port's engine does not have yet; the engine refuses
-``kv_swap=True`` and ``kv_restore="swap"``.
+The host swap tier (``kv_swap=`` / ``APEX_SERVE_KV_SWAP``, default off;
+it needs KV-pressure preemption, ``preempt=True``): at preemption the
+victim's live pages, every leaf of the cache (the int8 tier's codes and
+scales too), are copied device to host into a :class:`SwappedPages`
+handle (pinned memory on the card) sealed by a sha1 over its bytes, and
+re-admission checks the seal and copies the pages back into the slot's
+freshly granted pages in place, so the stream resumes decode without a
+replay prefill. Whether a resumed stream restores by swap-in or by
+recompute is :func:`resolve_kv_restore`'s: a demand, else
+``APEX_SERVE_KV_RESTORE``, else ``"swap"`` while the tier is on. (JAX
+consults a measured dispatch table between the preference and the
+default; its entries were taken on a JAX backend and all choose
+``"swap"``, and the port has no table of its own.) JAX's handle holds the
+page axis padded to ``max_pages`` (a program compiled once); the port's
+holds the live pages only.
 """
+
+import dataclasses
+import hashlib
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -56,6 +71,41 @@ def resolve_kv_quant(per_call=None):
     if v is not None:
         return v == "1"
     return False
+
+
+def resolve_kv_swap(per_call=None):
+    """The effective host-swap-tier decision: per-call demand >
+    ``APEX_SERVE_KV_SWAP`` preference ("1"/"0") > off. The pairing with
+    preemption is the engine's (it sees which side was a demand)."""
+    if per_call is not None:
+        return bool(per_call)
+    v = _env.env_choice("APEX_SERVE_KV_SWAP", ("1", "0"))
+    if v is not None:
+        return v == "1"
+    return False
+
+
+def resolve_kv_restore(per_call=None, *, swap_enabled):
+    """The restore path of one resumed stream: per-call demand (an
+    unknown word raises, and so does ``"swap"`` with the tier off) >
+    ``APEX_SERVE_KV_RESTORE`` preference > ``"swap"`` with the tier on,
+    ``"recompute"`` (the replay prefill) with it off."""
+    if per_call is not None:
+        if per_call not in RESTORE_CHOICES:
+            raise ValueError(
+                f"unknown kv_restore {per_call!r} "
+                f"(vocabulary: {RESTORE_CHOICES})")
+        if per_call == "swap" and not swap_enabled:
+            raise ValueError(
+                "kv_restore='swap' demanded but the host swap tier is "
+                "off (enable kv_swap=/APEX_SERVE_KV_SWAP=1) — no "
+                "honorable way to restore from pages that were never "
+                "banked")
+        return per_call
+    if not swap_enabled:
+        return "recompute"
+    return _env.env_choice("APEX_SERVE_KV_RESTORE", RESTORE_CHOICES) \
+        or "swap"
 
 
 def is_quantized(cache):
@@ -184,3 +234,81 @@ def decode_scatter_quant(cache, layer, part, val, write_page, write_off):
     q[layer][:, write_page] = pq
     sc[layer][:, write_page] = new_scale.to(SCALE_DTYPE)
     return cache
+
+
+# ---------------------------------------------------------------------------
+# the host swap tier
+
+
+def _host_bytes(t):
+    """A host tensor's bytes, whatever its dtype (numpy has no bf16)."""
+    return t.contiguous().view(-1).view(torch.uint8).numpy().tobytes()
+
+
+@dataclasses.dataclass
+class SwappedPages:
+    """Host copy of one preempted stream's live pages: ``leaves`` maps
+    each cache leaf name to a host tensor ``[L, h, page_count, ...]``
+    (the page axis at axis 2, as in the cache). The sha1 seals the bytes
+    (the digest is JAX's: name, dtype name, shape and bytes of each leaf
+    in name order, after the page count, token count and tier); a handle
+    whose bytes no longer match is refused at swap-in."""
+
+    leaves: Dict[str, Any]
+    page_count: int           # live pages banked
+    tokens: int               # known-stream length the pages cover
+    quant: bool
+    checksum: Optional[str] = None
+
+    def nbytes(self):
+        return int(sum(t.numel() * t.element_size()
+                       for t in self.leaves.values()))
+
+    def _digest(self):
+        h = hashlib.sha1()
+        h.update(repr((self.page_count, self.tokens,
+                       self.quant)).encode())
+        for name in sorted(self.leaves):
+            t = self.leaves[name]
+            h.update(name.encode())
+            h.update(str(t.dtype).removeprefix("torch.").encode())
+            h.update(repr(tuple(t.shape)).encode())
+            h.update(_host_bytes(t))
+        return h.hexdigest()
+
+    def seal(self):
+        self.checksum = self._digest()
+        return self
+
+    def intact(self):
+        """Whether the banked bytes still match the seal."""
+        return self.checksum is not None \
+            and self.checksum == self._digest()
+
+
+@dataclasses.dataclass
+class KVTierStats:
+    """Counters of the swap tier (``kv_tier_rates``'s ``swap_rate`` and
+    ``swapped_pages_high_water``)."""
+
+    swap_outs: int = 0
+    swap_ins: int = 0
+    restores_swap: int = 0
+    restores_recompute: int = 0
+    swapped_pages_live: int = 0
+    swapped_pages_high_water: int = 0
+    swapped_bytes_live: int = 0
+    swapped_bytes_high_water: int = 0
+
+    def banked(self, handle):
+        self.swap_outs += 1
+        self.swapped_pages_live += handle.page_count
+        self.swapped_bytes_live += handle.nbytes()
+        self.swapped_pages_high_water = max(
+            self.swapped_pages_high_water, self.swapped_pages_live)
+        self.swapped_bytes_high_water = max(
+            self.swapped_bytes_high_water, self.swapped_bytes_live)
+
+    def released(self, handle):
+        self.swapped_pages_live -= handle.page_count
+        self.swapped_bytes_live -= handle.nbytes()

@@ -1,40 +1,72 @@
-"""Request-lifecycle event log and latency derivation (counterpart of
-``apex_tpu/serving/lifecycle.py``).
+"""Request-lifecycle event log, scheduler gauges and latency derivation
+(counterpart of ``apex_tpu/serving/lifecycle.py``).
 
 * :class:`EventLog` — per-request ``submitted / admitted / prefill_done /
   first_token / finished / evicted`` events with wall-clock stamps,
-  appended by the engine between device calls. ``validate_order`` checks
-  each request's chain against the transition machine below.
+  appended by the engine between device calls, plus the resilience
+  chain: ``rejected`` (admission control refused at submit) and ``shed``
+  (the deadline shedder dropped a queued request) end a chain;
+  ``preempted`` (KV pressure) suspends a running request and is followed
+  by ``resubmitted``, after which admission may repeat. The once-only
+  events still fire at most once across every cycle. ``validate_order``
+  checks each request's chain against the transition machine below.
+  :meth:`EventLog.sample_gauges` keeps one gauge sample a round (slot
+  occupancy, queue depth, live pages, head-of-line wait, and the
+  generation and resilience counters); :meth:`EventLog.summary`
+  aggregates them.
 * :func:`request_latencies` / :func:`percentile` — TTFT (first-token wall
   minus submit wall) and TPOT ((finish − first token) / (tokens − 1), for
   requests with at least 2 tokens), nearest-rank percentiles.
 
-The resilience, swap and fleet events of the JAX package (``rejected``,
-``shed``, ``preempted``, ``failover``, ...) come with the slices that
-port those layers; so do the per-round gauges and the SLO ledger block.
+The recovery and fleet events of the JAX package (``swap_failed``,
+``degraded_round``, ``routed``, ``failover``, ``replayed``) and the SLO
+ledger block come with the slices that port those layers.
 """
 
-EVENTS = ("submitted", "admitted", "prefill_done", "first_token",
-          "finished", "evicted")
-# events that may appear at most once in a request's chain ("admitted"
-# recurs once resubmission is ported)
-_ONCE = frozenset(EVENTS) - {"admitted"}
+from apex_tpu_torch import _env
+
+EVENTS = ("submitted", "rejected", "shed", "admitted", "prefill_done",
+          "first_token", "preempted", "resubmitted", "finished",
+          "evicted")
+# the chain of an undisturbed request
+CORE_EVENTS = ("submitted", "admitted", "prefill_done", "first_token",
+               "finished", "evicted")
+# events that may appear at most once in a request's chain
+_ONCE = frozenset(("submitted", "rejected", "shed", "prefill_done",
+                   "first_token", "finished", "evicted"))
 _NEXT = {
     None: ("submitted",),
-    "submitted": ("admitted",),
-    "admitted": ("prefill_done", "finished"),
-    "prefill_done": ("first_token",),
-    "first_token": ("finished",),
+    "submitted": ("rejected", "shed", "admitted"),
+    "rejected": (),
+    "shed": (),
+    "admitted": ("prefill_done", "finished", "preempted"),
+    "prefill_done": ("first_token", "preempted"),
+    "first_token": ("finished", "preempted"),
+    "preempted": ("resubmitted",),
+    "resubmitted": ("shed", "admitted"),
     "finished": ("evicted",),
     "evicted": (),
 }
 
+# starting-point SLO thresholds (APEX_SERVE_SLO_TTFT_MS /
+# APEX_SERVE_SLO_TPOT_MS override them); the deadline shedder reads the
+# TTFT one
+DEFAULT_SLO_TTFT_MS = 1000.0
+DEFAULT_SLO_TPOT_MS = 100.0
+
+
+def env_ms(name, default):
+    """Positive-float preference in ms: the parsed value, else
+    ``default`` (garbage warns once and is ignored)."""
+    return _env.env_float(name, default)
+
 
 class EventLog:
-    """Append-only per-request lifecycle events."""
+    """Append-only per-request lifecycle events and per-round gauges."""
 
     def __init__(self):
         self.events = []          # [{event, rid, tick, wall, seq}]
+        self.gauges = []          # [{tick, wall, serve_*}]
         self._by_rid = {}         # rid -> [event dict]
 
     def record(self, event, rid, tick=None, wall=None):
@@ -102,6 +134,65 @@ class EventLog:
                 if t is not None:
                     last_tick = t
         return problems
+
+    # ------------------------------------------------------------ gauges
+
+    def sample_gauges(self, tick, wall, *, slots_active, num_slots,
+                      queue_depth, kv_pages_live, kv_pages_total,
+                      hol_wait_s, spec_drafted=0, spec_accepted=0,
+                      prefix_hit_tokens=0, rejected=0, shed=0,
+                      preempted=0, resubmitted=0, degraded_rounds=0):
+        """One gauge sample a scheduler round (the engine takes it at the
+        end of each step). The generation and resilience counters are
+        cumulative as of this round, 0 where the layer is off."""
+        self.gauges.append({
+            "tick": tick, "wall": wall,
+            "serve_slots_active": int(slots_active),
+            "serve_num_slots": int(num_slots),
+            "serve_queue_depth": int(queue_depth),
+            "serve_kv_pages_live": int(kv_pages_live),
+            "serve_kv_pages_total": int(kv_pages_total),
+            "serve_hol_wait_ms": round(float(hol_wait_s) * 1e3, 4),
+            "serve_spec_drafted": int(spec_drafted),
+            "serve_spec_accepted": int(spec_accepted),
+            "serve_prefix_hit_tokens": int(prefix_hit_tokens),
+            "serve_rejected": int(rejected),
+            "serve_shed": int(shed),
+            "serve_preempted": int(preempted),
+            "serve_resubmitted": int(resubmitted),
+            "serve_degraded_rounds": int(degraded_rounds),
+        })
+
+    def gauge_rows(self, run=None):
+        """Metric rows, one a sample (``step`` = tick)."""
+        rows = []
+        for g in self.gauges:
+            row = {"step": g["tick"]}
+            if run is not None:
+                row["run"] = run
+            row.update({k: v for k, v in g.items()
+                        if k not in ("tick", "wall")})
+            rows.append(row)
+        return rows
+
+    def summary(self):
+        """The gauges' aggregate: queue-depth, live-page, occupancy and
+        head-of-line high-water marks (None without samples)."""
+        if not self.gauges:
+            return {"max_queue_depth": None, "kv_page_high_water": None,
+                    "max_slots_active": None, "max_hol_wait_ms": None,
+                    "samples": 0}
+        return {
+            "max_queue_depth": max(g["serve_queue_depth"]
+                                   for g in self.gauges),
+            "kv_page_high_water": max(g["serve_kv_pages_live"]
+                                      for g in self.gauges),
+            "max_slots_active": max(g["serve_slots_active"]
+                                    for g in self.gauges),
+            "max_hol_wait_ms": max(g["serve_hol_wait_ms"]
+                                   for g in self.gauges),
+            "samples": len(self.gauges),
+        }
 
 
 def request_latencies(requests):

@@ -213,7 +213,27 @@ exits non-zero before the last line):
    on the device in a traced rerun, 49 a decode step (12 layers x 4 + the
    logits) with int8 weights and none without, and 2 x 49 at its wrapper
    (the warm-up and the capture); the int8 engine's decode logits, kernel
-   path against plain path, within 0.35. Before the serving phases, K23
+   path against plain path, within 0.35. Then the generation and
+   page-pressure layers, on ``LAYER_ENGINE`` (``ENGINE``, one prompt a
+   prefill call) at GPT-2-small's width: ``phase_spec_decode``
+   (``spec_decode=4`` against off, bf16 and fp32),
+   ``phase_prefix_cache`` (a 192-token system prompt, registered first,
+   on every prompt; ``prefix_cache=True`` against off over bf16 and int8
+   pages; every full chain page's bytes unchanged since it registered)
+   and ``phase_preemption`` (``preempt=True`` over ``PREEMPT_PAGES``
+   with ``kv_swap=True`` and with ``kv_restore="recompute"`` against a
+   pool that never preempts; swap-restored streams bit-equal; then a
+   burst of 40 against ``admit=16`` and ``shed=True``: 24 rejected, 8
+   shed, none of them seated). A layer-on run is held against its
+   layer-off twin under rule 2 (``rule2_check``: equal up to a first
+   divergence that must be a near-tie of the layer-off logits within 2
+   epsilon, epsilon the largest prefill-vs-decode logit gap over the
+   replayed positions). K1's wrapper must count (prefill calls + verify
+   calls) x 12 in every run, and traced reruns count K1 and K2 (K2q) by
+   name: the verify calls', the replays', the warm-up steps'. Acceptance
+   rate, draft length, verify calls, hit rate, copies, preemptions, the
+   swap's MB and ms each way, the restore route of each stream,
+   tokens/s, TTFT and TPOT on and off. Before the serving phases, K23
    at GPT-2-small's five decode shapes at 8 rows, bf16, fp16 and fp32, on
    the launch ``ops/qmatmul_cuda.plan`` picks (``phase_qmatmul_kernel``):
    relative L2 within ``QMM_L2_TOL``, the all-zero weight row's outputs
@@ -410,6 +430,7 @@ exits non-zero before the last line):
 
 import contextlib
 import copy
+import hashlib
 import itertools
 import json
 import os
@@ -7893,6 +7914,671 @@ def phase_weight_quant_serving(dev):
     return out
 
 
+# ------------------------------------------ serving's generation and page-
+# pressure layers: speculative decode, the prefix cache, admission,
+# shedding and KV-pressure preemption with the host swap tier
+
+# the layers' engines: ENGINE's sizes with one prompt a packed prefill
+# batch (VARIANT_ENGINE), so that a layer-on and a layer-off run prefill
+# each prompt alike whatever ticks they admit it at
+LAYER_ENGINE = VARIANT_ENGINE
+SPEC_K = 4
+# the prefix phase's system prompt: one full page and a copy-on-write tail
+# (192 tokens at pages of 128; profile_serving.py's, seed 123)
+SYSTEM_PROMPT_LEN = ENGINE["page_size"] * 3 // 2
+SYSTEM_PROMPT_SEED = 123
+# a pool that decode must outgrow: 11 allocatable pages of 128 for 8
+# slots, above the 8 one request can reach at max_seq (the progress
+# guarantee of preempt=True)
+PREEMPT_PAGES = 12
+# the burst against admission control and the shedder: 40 requests at
+# once into a queue bound at 16; the 8 left queued after the first round
+# wait past the TTFT threshold
+BURST = dict(n=40, admit=16, shed_ttft_ms=200.0, max_new=16)
+# rule 2 (near-ties only): epsilon is the largest |prefill logit - decode
+# logit| at the positions both runs fed alike, over the diverging streams
+# and the first RULE2_SAMPLE others, each replayed to RULE2_DEPTH tokens
+RULE2_SAMPLE = 2
+RULE2_DEPTH = 32
+# the traced reruns that count K1 and K2 by name: a short trace (a device
+# trace of the whole one holds ~10^5-10^6 records, minutes of the
+# profiler's own processing)
+LAYER_TRACED = dict(seed=1, n_requests=6, prompt_lo=16, prompt_hi=64,
+                    new_lo=24, new_hi=24, mean_interarrival=0.0)
+
+
+def _layer_run(engine, reqs):
+    """Serve ``reqs`` through a built engine with the kernel wrappers'
+    counts set to 0 just before and read just after: the tokens by
+    request, the numbers of the run, and the wrappers' launches, which
+    must be (prefill batches + verify calls) x layers for K1 and, for a
+    graphed decode program (whose replays call no wrapper), 0 for K2 and
+    K2q."""
+    from apex_tpu_torch.ops import attention_cuda, decode_attention_cuda
+    from apex_tpu_torch.serving import lifecycle
+
+    counted = {"prefill_attention": attention_cuda.prefill_attention,
+               "decode_attention": decode_attention_cuda.decode_attention,
+               "decode_attention_quant":
+                   decode_attention_cuda.decode_attention_quant}
+    for fn in counted.values():
+        fn.launches = 0
+    base = (engine.prefill_batches, engine.verify_calls,
+            engine.decode_steps, engine.tokens_generated)
+    wall, rounds = _drive_trace(engine, reqs)
+    launches = {k: fn.launches for k, fn in counted.items()}
+    prefills = engine.prefill_batches - base[0]
+    verifies = engine.verify_calls - base[1]
+    L = engine.cfg.num_layers
+    want = {"prefill_attention": (prefills + verifies) * L,
+            "decode_attention": 0, "decode_attention_quant": 0}
+    if launches != want:
+        raise AssertionError(f"wrapper launches {launches} != {want} "
+                             f"({prefills} prefill batches, {verifies} "
+                             f"verify calls, a graphed decode program)")
+    for r in reqs:
+        if len(r.out_tokens) != r.max_new_tokens or not all(
+                isinstance(t, int) and 0 <= t < engine.cfg.vocab_size
+                for t in r.out_tokens):
+            raise AssertionError(f"request {r.rid} did not complete with "
+                                 f"{r.max_new_tokens} in-vocab tokens")
+    problems = engine.events.validate_order()
+    if problems:
+        raise AssertionError(f"lifecycle order: {problems[:5]}")
+    lat = lifecycle.request_latencies(reqs)
+    ttft = [x["ttft_s"] * 1e3 for x in lat if x["ttft_s"] is not None]
+    tpot = [x["tpot_s"] * 1e3 for x in lat if x["tpot_s"] is not None]
+    tokens = engine.tokens_generated - base[3]
+    stats = {"tokens_per_s": tokens / wall, "tokens": tokens,
+             "wall_s": wall, "prefill_batches": prefills,
+             "verify_calls": verifies,
+             "decode_steps": engine.decode_steps - base[2],
+             "decode_round_ms": 1e3 * sum(rounds) / max(len(rounds), 1),
+             "ttft_p50_ms": lifecycle.percentile(ttft, 50),
+             "ttft_p99_ms": lifecycle.percentile(ttft, 99),
+             "tpot_p50_ms": lifecycle.percentile(tpot, 50),
+             "tpot_p99_ms": lifecycle.percentile(tpot, 99),
+             "wrapper_launches": launches}
+    return {r.rid: list(r.out_tokens) for r in reqs}, stats
+
+
+def _layer_traced(engine, reqs, quant=False):
+    """A rerun of ``reqs`` (unserved requests; rids moved on) under
+    torch.profiler: K1 counted by name must be (prefill batches + verify
+    calls) x layers of that run, and K2 (K2q over int8 pages) decode steps
+    x layers, the graph's replays included. Late in the smoke the profiler
+    now and then drops some of a graph replay's kernel records, which
+    ``_profiled`` cannot see (the replay's launch has its other kernels):
+    a window that counts fewer than it ran is logged and run again, anew,
+    up to ``PROFILE_ATTEMPTS`` times in all; a count above it, or short in
+    every attempt, fails."""
+    make = _fresh_copies(_offset_rids(reqs, 5000))
+    L = engine.cfg.num_layers
+    decode, idle = (("decode_attention_quant", "decode_attention") if quant
+                    else ("decode_attention", "decode_attention_quant"))
+
+    def serve():
+        base = (engine.prefill_batches, engine.verify_calls,
+                engine.decode_steps)
+        _drive_trace(engine, make())
+        return (engine.prefill_batches - base[0],
+                engine.verify_calls - base[1], engine.decode_steps - base[2])
+
+    for attempt in range(PROFILE_ATTEMPTS):
+        prof, (prefills, verifies, decodes), _ = _profiled(serve)
+        traced = _count_traced(prof)
+        got = {k: traced[k] for k in ("prefill_attention", decode, idle)}
+        want = {"prefill_attention": (prefills + verifies) * L,
+                decode: decodes * engine.decode_k * L, idle: 0}
+        short = all(got[k] <= want[k] for k in want)
+        if got == want or not short:
+            break
+        _log(f"traced window, attempt {attempt + 1} of {PROFILE_ATTEMPTS}: "
+             f"counted {got} of {want}")
+    if got != want:
+        raise AssertionError(f"traced kernel counts {got} != {want} "
+                             f"({prefills} prefill batches, {verifies} verify "
+                             f"calls, {decodes} decode steps)")
+    return {"prefill_batches": prefills, "verify_calls": verifies,
+            "decode_steps": decodes, "kernels": got, "attempts": attempt + 1}
+
+
+def _replay_logits(cfg, cparams, dev, items, kv_quant, sizes=ENGINE):
+    """For each ``(stream, prompt_len, upto)`` of ``items`` (at most
+    ``num_slots``), the logits at positions ``prompt_len - 1 ..
+    prompt_len - 1 + upto`` computed two ways, fp32 ``[upto + 1, vocab]``
+    each: (a) one packed prefill over ``stream[:prompt_len + upto]`` at
+    offset 0 (the computation of a verify call and of a recompute
+    replay: K1 and the prefill's matmuls), (b) the plain engine's: the
+    prompt's prefill at offset 0, then decode steps feeding the stream a
+    token at a time, a stream a lane (K2, or K2q over int8 pages, and
+    matmuls at M = slots; a lane's arithmetic does not depend on the
+    others'), at the engine ``sizes`` (num_slots, page_size, max_seq,
+    prefill_len). Each stream has pages of its own; (a) writes a scratch
+    cache, (b) a fresh one."""
+    from apex_tpu_torch.serving import model as smodel
+    from apex_tpu_torch.serving.kv_cache import init_cache
+
+    B, ps = sizes["num_slots"], sizes["page_size"]
+    if len(items) > B:
+        raise ValueError(f"{len(items)} streams for {B} lanes")
+    max_pages = -(-sizes["max_seq"] // ps)
+    L, H, D = cfg.num_layers, cfg.num_attention_heads, cfg.head_dim
+    ns = [p + upto for _, p, upto in items]
+    pt = torch.zeros(B + 1, max_pages, dtype=torch.int32, device=dev)
+    owned, first = [], 1
+    for lane, n in enumerate(ns):
+        pages = -(-n // ps)
+        owned.append(list(range(first, first + pages)))
+        pt[lane, :pages] = torch.tensor(owned[-1], device=dev)
+        first += pages
+
+    def fresh():
+        return init_cache(L, H, first, ps, D, smodel.compute_dtype(cfg),
+                          kv_quant=kv_quant, device=dev)
+
+    def prefill(cache, lane, m, gathers):
+        S = max(sizes["prefill_len"], m)
+        stream = items[lane][0]
+        ids = torch.zeros(S, dtype=torch.long, device=dev)
+        ids[:m] = torch.tensor(stream[:m], device=dev)
+        positions = torch.zeros(S, dtype=torch.long, device=dev)
+        positions[:m] = torch.arange(m, device=dev)
+        seg = torch.zeros(S, dtype=torch.int32, device=dev)
+        seg[:m] = 1
+        rows = torch.full((S,), B, dtype=torch.long, device=dev)
+        rows[:m] = lane
+        keep = None
+        if kv_quant:
+            # the lane's pages are written afresh, the others' survive
+            keep = torch.ones(first, device=dev)
+            keep[owned[lane]] = 0.0
+        _, logits = smodel.prefill(
+            cparams, cache, ids, positions, seg, rows, pt,
+            torch.tensor(gathers, dtype=torch.long, device=dev), keep,
+            cfg=cfg)
+        return logits.float()
+
+    scratch, cache = fresh(), fresh()
+    a = [prefill(scratch, lane, n, list(range(p - 1, n)))
+         for lane, ((_, p, _), n) in enumerate(zip(items, ns))]
+    b = [[prefill(cache, lane, p, [p - 1])[0]]
+         for lane, (_, p, _) in enumerate(items)]
+    tokens = torch.zeros(B, dtype=torch.int32, device=dev)
+    lengths = torch.zeros(B, dtype=torch.int32, device=dev)
+    for step in range(max((upto for _, _, upto in items), default=0)):
+        live = []
+        for lane, (stream, p, upto) in enumerate(items):
+            on = step < upto
+            tokens[lane] = stream[p + step] if on else 0
+            lengths[lane] = p + step + 1 if on else 0
+            if on:
+                live.append(lane)
+        _, _, logits = smodel.decode_step(cparams, cache, tokens, lengths,
+                                          pt[:B], cfg=cfg)
+        for lane in live:
+            b[lane].append(logits[lane].float())
+    return [(a[lane], torch.stack(b[lane])) for lane in range(len(items))]
+
+
+def rule2_check(cfg, cparams, dev, prompts, off, on, kv_quant=False,
+                sample=RULE2_SAMPLE, depth=RULE2_DEPTH, sizes=ENGINE):
+    """Hold a layer-on run's tokens (``on``, by rid) to its layer-off
+    twin's (``off``) under rule 2: equal up to each request's first
+    divergent token, and there a near-tie. Each diverging stream, and the
+    first ``sample`` others to ``depth`` tokens, is replayed
+    (``_replay_logits``, ``num_slots`` streams at a time) along the
+    layer-off run's tokens; epsilon is the
+    largest |(a) - (b)| over those positions (where both runs fed the same
+    tokens), and at a divergence the layer-off logits (b) must prefer the
+    layer-off token to the layer-on one by no more than 2 epsilon.
+    Returns epsilon, the divergences with their gaps (and whether the
+    replay reproduced the layer-off tokens), and the streams replayed;
+    raises on a gap above 2 epsilon."""
+    diverged = {}
+    for rid in sorted(off):
+        j = next((i for i, (x, y) in enumerate(zip(off[rid], on[rid]))
+                  if x != y), None)
+        if j is not None:
+            diverged[rid] = j
+    replays = {rid: diverged[rid] for rid in diverged}
+    for rid in sorted(off):
+        if len(replays) >= len(diverged) + sample:
+            break
+        replays.setdefault(rid, min(depth, len(off[rid]) - 1))
+    eps, found, logits = 0.0, {}, {}
+    rids = list(replays)
+    for c in range(0, len(rids), sizes["num_slots"]):
+        chunk = rids[c:c + sizes["num_slots"]]
+        logits.update(zip(chunk, _replay_logits(
+            cfg, cparams, dev,
+            [(list(prompts[rid]) + off[rid], len(prompts[rid]),
+              replays[rid]) for rid in chunk], kv_quant, sizes)))
+    for rid, upto in replays.items():
+        a, b = logits[rid]
+        eps = max(eps, (a - b).abs().max().item())
+        matches = b.argmax(-1).tolist() == off[rid][:upto + 1]
+        if rid in diverged:
+            j = upto
+            top2 = torch.topk(b[j], 2).values
+            found[rid] = {"index": j, "off": off[rid][j], "on": on[rid][j],
+                          "gap": (b[j, off[rid][j]]
+                                  - b[j, on[rid][j]]).item(),
+                          "top2_gap": (top2[0] - top2[1]).item(),
+                          "replay_reproduces_off": matches}
+    bad = {rid: d for rid, d in found.items() if d["gap"] > 2 * eps}
+    out = {"epsilon": eps, "divergences": len(found),
+           "diverged": found, "replayed": sorted(replays),
+           "equal_requests": len(off) - len(found)}
+    if bad:
+        raise AssertionError(f"divergences past the near-tie band 2 x "
+                             f"{eps:.4g}: {bad}")
+    return out
+
+
+def _layer_engine(cfg, params, dev, **kw):
+    from apex_tpu_torch.serving import ServingEngine
+
+    engine = ServingEngine(cfg, params, device=dev,
+                           **dict(LAYER_ENGINE, **kw))
+    if engine._graph is None:
+        raise AssertionError("the engine did not capture its decode program")
+    engine.run_trace(_warmup_requests())
+    return engine
+
+
+def _merge_turns(runs):
+    keys = ("tokens_per_s", "ttft_p50_ms", "ttft_p99_ms", "tpot_p50_ms",
+            "tpot_p99_ms", "decode_round_ms")
+    merged = {m: statistics.mean(t[m] for t in runs) for m in keys}
+    merged["turns_tokens_per_s"] = [t["tokens_per_s"] for t in runs]
+    merged.update({k: runs[0][k] for k in runs[0] if k not in keys})
+    return merged
+
+
+def phase_spec_decode(dev):
+    """``TRACE`` served greedy at GPT-2-small's width by the graphed engine
+    with ``spec_decode=4`` and with it off, in bf16 and in fp32. The sides
+    hold under rule 2 (``rule2_check``). Each run's
+    wrapper counts (K1 = (prefill calls + verify calls) x layers), and,
+    for bf16 with speculation, a traced rerun of ``LAYER_TRACED`` counting
+    K1 and K2 by name; the acceptance rate, mean draft length, verify
+    calls, decode rounds saved, tokens/s, TTFT and TPOT of each side."""
+    from apex_tpu_torch.serving import init_gpt_params, synthetic_trace
+    from apex_tpu_torch.serving import model as smodel
+    from apex_tpu_torch.transformer.testing import TransformerConfig
+
+    out = {}
+    for dtype in ("bf16", "fp32"):
+        t0 = time.perf_counter()
+        cfg = TransformerConfig(**dict(MODEL, bf16=dtype == "bf16"))
+        params = init_gpt_params(cfg, 0, dev)
+        runs, tokens = {0: [], SPEC_K: []}, {0: [], SPEC_K: []}
+        for turn, k in enumerate((0, SPEC_K)):
+            engine = _layer_engine(cfg, params, dev, spec_decode=k or None)
+            if engine.spec_k != k:
+                raise AssertionError(f"spec_decode={k} did not resolve")
+            reqs, _ = synthetic_trace(vocab=cfg.vocab_size, **TRACE)
+            toks, stats = _layer_run(engine, reqs)
+            if k:
+                stats.update(engine.generation_stats())
+                if not stats["verify_calls"]:
+                    raise AssertionError("no verify call was made")
+                if dtype == "bf16" and turn == 1:
+                    stats["traced"] = _layer_traced(
+                        engine, synthetic_trace(vocab=cfg.vocab_size,
+                                                **LAYER_TRACED)[0])
+            runs[k].append(stats)
+            tokens[k].append(toks)
+            del engine
+            torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        prompts = {r.rid: r.prompt for r in
+                   synthetic_trace(vocab=cfg.vocab_size, **TRACE)[0]}
+        held = rule2_check(cfg, smodel.cast_params(params, cfg), dev,
+                           prompts, tokens[0][0], tokens[SPEC_K][0])
+        side = {"off": _merge_turns(runs[0]),
+                f"spec_decode={SPEC_K}": _merge_turns(runs[SPEC_K]),
+                "rule2": held,
+                "decode_rounds_saved": (runs[0][0]["decode_steps"]
+                                        - runs[SPEC_K][0]["decode_steps"]),
+                "seconds": {"runs": t1 - t0,
+                            "rule2": time.perf_counter() - t1}}
+        out[dtype] = side
+        _log(f"speculative decode, {dtype}: " + json.dumps(side))
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def _page_digest(cache, page):
+    h = hashlib.sha1()
+    for name in sorted(cache):
+        h.update(cache[name][:, :, page].contiguous().view(torch.uint8)
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def phase_prefix_cache(dev):
+    """``TRACE`` with a 192-token system prompt prepended to every prompt
+    (one full page and a copy-on-write tail), served by the graphed bf16
+    engine with ``prefix_cache=True`` and off, over bf16 pages and over the
+    int8 KV tier. Each engine is warmed up with the system prompt as a
+    request of its own (a deployment registers its system prompt), so a
+    hit takes the full page by reference and the tail by a copy at
+    admission. The hit rate, prefill calls, copies, TTFT and TPOT of each
+    side; every full chain page the cache holds at the end still has the
+    bytes it had at registration (a digest taken as it registered, every
+    leaf of the cache, the int8 tier's scales too); the decode graph's
+    cache pointers unchanged after every copy; a traced rerun of
+    ``LAYER_TRACED`` (with the system prompt) counting K1 and K2 (K2q) by
+    name; the tokens of on and off under rule 2."""
+    from apex_tpu_torch.serving import (Request, init_gpt_params,
+                                        synthetic_trace)
+    from apex_tpu_torch.serving import model as smodel
+    from apex_tpu_torch.transformer.testing import TransformerConfig
+
+    cfg = TransformerConfig(**MODEL)
+    params = init_gpt_params(cfg, 0, dev)
+    system = [int(t) for t in np.random.RandomState(SYSTEM_PROMPT_SEED)
+              .randint(0, cfg.vocab_size, SYSTEM_PROMPT_LEN)]
+    trace = dict(TRACE, system_prompt=system,
+                 prompt_hi=min(TRACE["prompt_hi"],
+                               ENGINE["prefill_len"] - SYSTEM_PROMPT_LEN))
+    out = {}
+    for kv_quant in (False, True):
+        t0 = time.perf_counter()
+        side, tokens = {}, {}
+        for on in (False, True):
+            engine = _layer_engine(cfg, params, dev, prefix_cache=on,
+                                   kv_quant=kv_quant)
+            frozen, copies = {}, []
+            if on:
+                register, copy_page = (engine.prefix.register,
+                                       engine._copy_page)
+
+                def registering(prompt, pages, owner, register=register,
+                                engine=engine, frozen=frozen):
+                    adopted, copied = register(prompt, pages, owner)
+                    for p in adopted:
+                        frozen[p] = _page_digest(engine.cache, p)
+                    return adopted, copied
+
+                def copying(src, dst, copy_page=copy_page, engine=engine,
+                            copies=copies):
+                    copy_page(src, dst)
+                    copies.append((src, dst))
+                    if engine._cache_ptrs() != engine._graph_cache:
+                        raise AssertionError("the cache moved at a copy")
+
+                engine.prefix.register = registering
+                engine._copy_page = copying
+                # the chain pages the warm-up registered
+                for node in engine.prefix.nodes.values():
+                    frozen[node["page"]] = _page_digest(engine.cache,
+                                                        node["page"])
+            engine.run_trace([Request(rid=10**6 + 2, prompt=list(system),
+                                      max_new_tokens=2)])
+            reqs, _ = synthetic_trace(vocab=cfg.vocab_size, **trace)
+            tokens[on], stats = _layer_run(engine, reqs)
+            if on:
+                stats.update(engine.generation_stats())
+                stats["copies"] = len(copies)
+                chain = [n["page"] for n in engine.prefix.nodes.values()]
+                changed = [p for p in chain
+                           if _page_digest(engine.cache, p) != frozen[p]]
+                if changed or not chain:
+                    raise AssertionError(f"frozen chain pages changed: "
+                                         f"{changed} of {len(chain)}")
+                stats["frozen_pages_checked"] = len(chain)
+                stats["registered_pages"] = len(frozen)
+                engine.prefix.check_invariants()
+                if not stats["prefix_hit_rate"] or not copies:
+                    raise AssertionError(
+                        f"the prefix cache never hit with its tail: hit "
+                        f"rate {stats['prefix_hit_rate']}, {len(copies)} "
+                        f"copies")
+                stats["traced"] = _layer_traced(
+                    engine, synthetic_trace(
+                        vocab=cfg.vocab_size, system_prompt=system,
+                        **LAYER_TRACED)[0], quant=kv_quant)
+            if engine._cache_ptrs() != engine._graph_cache:
+                raise AssertionError("the cache moved under the graph")
+            engine.allocator.check_invariants()
+            side["on" if on else "off"] = stats
+            del engine
+            torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        prompts = {r.rid: r.prompt for r in
+                   synthetic_trace(vocab=cfg.vocab_size, **trace)[0]}
+        side["rule2"] = rule2_check(cfg, smodel.cast_params(params, cfg), dev,
+                                    prompts, tokens[False], tokens[True],
+                                    kv_quant=kv_quant)
+        side["seconds"] = {"runs": t1 - t0,
+                           "rule2": time.perf_counter() - t1}
+        key = "int8 KV" if kv_quant else "bf16 KV"
+        out[key] = side
+        _log(f"prefix cache, {key}: " + json.dumps(side))
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _recorded(engine, route):
+    """Record the swap tier's work on ``engine``: the bytes and streams it
+    banks and restores and the streams it replays (the restore route of
+    each stream), and that the decode graph's cache pointers are unchanged
+    after every swap-in."""
+    bank, swap_in, replay = (engine._swap_out_slot, engine._swap_in_slot,
+                             engine._replay_prefill)
+    route.update(banked_bytes=0, banked=0, out_ms=[], in_ms=[])
+
+    def swap_out(slot):
+        s0 = engine.swap_copy_s
+        handle = bank(slot)
+        if handle is not None:
+            route["banked"] += 1
+            route["banked_bytes"] += handle.nbytes()
+            route["out_ms"].append((engine.swap_copy_s - s0) * 1e3)
+        return handle
+
+    def swapped_in(si, handle):
+        s0 = engine.swap_copy_s
+        swap_in(si, handle)
+        route["in_ms"].append((engine.swap_copy_s - s0) * 1e3)
+        if engine._cache_ptrs() != engine._graph_cache:
+            raise AssertionError("the cache moved at a swap-in")
+        route.setdefault("swap", []).append(
+            engine.scheduler.slots[si].request.rid)
+
+    def replayed(resumed):
+        route.setdefault("recompute", []).extend(
+            engine.scheduler.slots[si].request.rid for si in resumed)
+        replay(resumed)
+
+    engine.scheduler.swap_out = swap_out if engine.kv_swap else None
+    engine._swap_in_slot, engine._replay_prefill = swapped_in, replayed
+
+
+def _burst(cfg, params, dev):
+    """40 requests submitted at once to an engine with ``admit=16`` and
+    ``shed=True``: the 24 past the bound are rejected at submit; the
+    first round admits 8 and, a pause later, the 8 still queued have
+    waited past ``shed_ttft_ms`` and are shed. No rejected or shed request
+    takes a slot (its events are submitted then rejected or shed, it has
+    no token and no admission tick)."""
+    from apex_tpu_torch.serving import Rejected, Request
+
+    engine = _layer_engine(cfg, params, dev, admit=BURST["admit"], shed=True,
+                           shed_ttft_ms=BURST["shed_ttft_ms"])
+    rs = np.random.RandomState(9)
+    reqs = [Request(rid=20000 + i, prompt=[int(t) for t in rs.randint(
+        0, cfg.vocab_size, 64)], max_new_tokens=BURST["max_new"])
+        for i in range(BURST["n"])]
+    results = [engine.submit(r) for r in reqs]
+    rejected = [r for r, x in zip(reqs, results) if isinstance(x, Rejected)]
+    engine.step()
+    time.sleep(BURST["shed_ttft_ms"] / 1e3 + 0.05)
+    queued = [r for r, x in zip(reqs, results) if x is None]
+    sch = engine.scheduler
+    while any(r not in sch.completed and r not in sch.shed for r in queued):
+        if engine.tick > 1000:
+            raise AssertionError("the burst did not drain")
+        engine.step()
+    shed = sch.shed
+    for r in rejected + shed:
+        chain = [e["event"] for e in engine.events.request_events(r.rid)]
+        last = "rejected" if r in rejected else "shed"
+        if chain != ["submitted", last] or r.out_tokens \
+                or r.admitted_tick is not None:
+            raise AssertionError(f"request {r.rid} ({last}) took a slot: "
+                                 f"{chain}")
+    want = (BURST["n"] - BURST["admit"], BURST["admit"]
+            - LAYER_ENGINE["num_slots"])
+    if (len(rejected), len(shed)) != want \
+            or engine.resilience.rejected != want[0]:
+        raise AssertionError(f"rejected, shed = {len(rejected)}, "
+                             f"{len(shed)}, want {want}")
+    out = {"submitted": BURST["n"], "rejected": len(rejected),
+           "shed": len(shed), "completed": len(engine.scheduler.completed)
+           - len(_warmup_requests()),
+           "rates": engine.resilience_rates()}
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def _swap_costs(cfg, dev, pages=4):
+    """What one swap-out of ``pages`` pages at GPT-2-small's width costs,
+    by part (ms, host clock ending in a synchronize): the pinned host
+    allocation of a leaf (three in a row, the first cold), the
+    ``index_select`` gather on the card, the device-to-host copy into
+    pinned memory already held, and the host-to-device copy back."""
+    from apex_tpu_torch.serving.kv_cache import init_cache
+
+    cache = init_cache(cfg.num_layers, cfg.num_attention_heads, 16,
+                       ENGINE["page_size"], cfg.head_dim, torch.bfloat16,
+                       device=dev)
+    leaf = cache["k"]
+    idx = torch.arange(1, pages + 1, device=dev)
+    shape = leaf.shape[:2] + (pages,) + leaf.shape[3:]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    allocs = [timed(lambda: torch.empty(shape, dtype=leaf.dtype,
+                                        pin_memory=True))
+              for _ in range(3)]
+    host = allocs[-1][1]
+    gather_ms, gathered = timed(lambda: leaf.index_select(2, idx))
+    d2h_ms, _ = timed(lambda: host.copy_(gathered))
+    h2d_ms, _ = timed(lambda: host.to(dev, non_blocking=True))
+    return {"leaf_mb": host.numel() * host.element_size() / 2**20,
+            "pinned_alloc_ms": [a for a, _ in allocs],
+            "gather_ms": gather_ms, "d2h_ms": d2h_ms, "h2d_ms": h2d_ms}
+
+
+def phase_preemption(dev):
+    """``TRACE`` at GPT-2-small's width (bf16) over a pool decode must
+    outgrow (``PREEMPT_PAGES``) with ``preempt=True``, once with
+    ``kv_swap=True`` (banked pages restored by swap-in) and once with
+    ``kv_restore="recompute"``, against ``LAYER_ENGINE``'s pool that never
+    preempts: at least one preemption; swap-restored streams give the
+    never-preempted run's tokens bit for bit; replayed ones hold under rule
+    2; the preemptions, the bytes banked and the swap copies' ms each way,
+    the restore route of each stream, K1 in every replay (the wrapper
+    counts, and by name in a traced rerun of the recompute engine); a
+    swap-out's cost by part (``_swap_costs``); then the burst against
+    admission control and the shedder."""
+    from apex_tpu_torch.serving import init_gpt_params, synthetic_trace
+    from apex_tpu_torch.serving import model as smodel
+    from apex_tpu_torch.transformer.testing import TransformerConfig
+
+    cfg = TransformerConfig(**MODEL)
+    params = init_gpt_params(cfg, 0, dev)
+    out, tokens = {}, {}
+    for name, kw in (("never preempts", {}),
+                     ("swap", dict(preempt=True, kv_swap=True,
+                                   num_pages=PREEMPT_PAGES)),
+                     ("recompute", dict(preempt=True,
+                                        kv_restore="recompute",
+                                        num_pages=PREEMPT_PAGES))):
+        engine = _layer_engine(cfg, params, dev, **kw)
+        route = {}
+        if engine.preempt:
+            _recorded(engine, route)
+        base = engine.resilience.preempted
+        reqs, _ = synthetic_trace(vocab=cfg.vocab_size, **TRACE)
+        tokens[name], stats = _layer_run(engine, reqs)
+        stats["preempted"] = engine.resilience.preempted - base
+        if engine.preempt:
+            if not stats["preempted"]:
+                raise AssertionError(f"{name}: nothing was preempted")
+            stats.update(resilience_rates=engine.resilience_rates(),
+                         kv_tier_rates=engine.kv_tier_rates(),
+                         route={k: list(v) for k, v in route.items()
+                                if k in ("swap", "recompute")})
+            st = engine.kv_stats
+            if st is not None:
+                stats.update(
+                    swap_outs=st.swap_outs, swap_ins=st.swap_ins,
+                    restores_swap=st.restores_swap,
+                    restores_recompute=st.restores_recompute,
+                    banked_mb=route["banked_bytes"] / 2**20,
+                    swap_copy_ms=engine.swap_copy_s * 1e3,
+                    swap_ms_per_copy=(engine.swap_copy_s * 1e3
+                                      / max(st.swap_outs + st.swap_ins, 1)),
+                    swapped_mb_high_water=(st.swapped_bytes_high_water
+                                           / 2**20),
+                    swap_out_ms=list(route["out_ms"]),
+                    swap_in_ms=list(route["in_ms"]))
+            engine.allocator.check_invariants()
+            if not engine.kv_swap:
+                # the replays' K1 counted by name (the whole trace: a
+                # short one preempts nothing)
+                stats["traced"] = _layer_traced(
+                    engine, synthetic_trace(vocab=cfg.vocab_size,
+                                            **TRACE)[0])
+        out[name] = stats
+        del engine
+        torch.cuda.empty_cache()
+    swapped = set(out["swap"]["route"].get("swap", ()))
+    if not swapped:
+        raise AssertionError("no stream was restored by swap-in")
+    unequal = [rid for rid in swapped
+               if tokens["swap"][rid] != tokens["never preempts"][rid]]
+    if unequal:
+        raise AssertionError(f"swap-restored streams {unequal} differ from "
+                             f"the never-preempted run's tokens")
+    out["swap"]["bit_equal_restored"] = len(swapped)
+    out["swap"]["equal_requests"] = sum(
+        tokens["swap"][r] == tokens["never preempts"][r]
+        for r in tokens["swap"])
+    if not out["recompute"]["route"].get("recompute"):
+        raise AssertionError("no stream was replayed by recompute")
+    prompts = {r.rid: r.prompt for r in
+               synthetic_trace(vocab=cfg.vocab_size, **TRACE)[0]}
+    cparams = smodel.cast_params(params, cfg)
+    out["recompute"]["rule2"] = rule2_check(
+        cfg, cparams, dev, prompts, tokens["never preempts"],
+        tokens["recompute"])
+    # a swap-run stream that was never restored by swap-in, but replayed
+    # or re-prefilled, is held under rule 2 too
+    out["swap"]["rule2"] = rule2_check(cfg, cparams, dev, prompts,
+                                       tokens["never preempts"],
+                                       tokens["swap"])
+    out["swap_costs"] = _swap_costs(cfg, dev)
+    out["burst"] = _burst(cfg, params, dev)
+    _log("preemption: " + json.dumps(out))
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------------------ DCGAN
 
 # BASELINE config 5, the upstream example's defaults (nz 100, ngf = ndf =
@@ -8637,6 +9323,31 @@ def main():
     traced_by["serving_weight_quant"] = {
         "qmatmul": weight_quant["window"]["int8 weights"]["traced_k23"]}
     mark("serving, int8 weights")
+    # the generation and page-pressure layers on K1 and K2/K2q: speculative
+    # decode (verify calls), the prefix cache (warm-up steps, copy-on-write)
+    # and preemption (swap-in, recompute replays), then admission and
+    # shedding against a burst
+    torch.cuda.empty_cache()
+    layers = {"spec_decode": phase_spec_decode(dev)}
+    mark("serving, speculative decode")
+    layers["prefix_cache"] = phase_prefix_cache(dev)
+    mark("serving, prefix cache")
+    layers["preemption"] = phase_preemption(dev)
+    mark("serving, preemption")
+    for path, stats in (
+            ("serving_spec_decode",
+             layers["spec_decode"]["bf16"][f"spec_decode={SPEC_K}"]),
+            ("serving_spec_decode_fp32",
+             layers["spec_decode"]["fp32"][f"spec_decode={SPEC_K}"]),
+            ("serving_prefix_cache", layers["prefix_cache"]["bf16 KV"]["on"]),
+            ("serving_prefix_cache_int8",
+             layers["prefix_cache"]["int8 KV"]["on"]),
+            ("serving_preemption_swap", layers["preemption"]["swap"]),
+            ("serving_preemption_recompute",
+             layers["preemption"]["recompute"])):
+        launches_by[path] = stats["wrapper_launches"]
+        if "traced" in stats:
+            traced_by[path] = stats["traced"]["kernels"]
     # PyTorch keeps a cuBLAS workspace for every stream a matmul ran on, and
     # each graphed engine captured on a stream of its own: release them, so
     # that the training windows' peak memory is their own

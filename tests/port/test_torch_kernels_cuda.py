@@ -1918,6 +1918,124 @@ def test_engine_captures_its_decode_program_on_the_card(dev):
     assert ServingEngine(cfg, cuda_graph=False, **kw)._graph is None
 
 
+# ------------------------- serving's generation and page-pressure layers
+# a small engine with one prompt a prefill call (a layer-on and a layer-off
+# run then prefill each prompt alike whatever ticks they admit it at)
+LAYER_SIZES = dict(num_slots=4, page_size=16, num_pages=40, max_seq=64,
+                   prefill_len=64, prefill_requests=1)
+
+
+def _layer_cfg(bf16):
+    return TransformerConfig(
+        hidden_size=64, num_layers=2, num_attention_heads=4, vocab_size=128,
+        max_position_embeddings=64, hidden_dropout=0.0,
+        attention_dropout=0.0, apply_query_key_layer_scaling=False,
+        bf16=bf16)
+
+
+def _layer_serve(dev, cfg, params, spec, **kw):
+    """The tokens, prompts and engine of a seeded trace through a graphed
+    engine at ``LAYER_SIZES`` updated by ``kw``; K1's wrapper must count
+    (prefill calls + verify calls) x layers over the run."""
+    eng = ServingEngine(cfg, params, device=dev, **dict(LAYER_SIZES, **kw))
+    assert eng._graph is not None
+    reqs, _ = synthetic_trace(**spec)
+    before = attention_cuda.prefill_attention.launches
+    done = eng.run_trace(reqs)
+    assert attention_cuda.prefill_attention.launches - before == (
+        eng.prefill_batches + eng.verify_calls) * cfg.num_layers
+    assert eng._cache_ptrs() == eng._graph_cache
+    return ({r.rid: list(r.out_tokens) for r in done},
+            {r.rid: r.prompt for r in reqs}, eng)
+
+
+def _rule2(*args, **kw):
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+    import chip_smoke
+
+    return chip_smoke.rule2_check(*args, **kw)
+
+
+SPEC_TRACE = dict(seed=2, n_requests=10, vocab=128, prompt_lo=3,
+                  prompt_hi=30, new_lo=8, new_hi=30)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_spec_decode_on_the_card_holds_under_rule_2(dev, bf16):
+    """spec_decode=2 against off: verify calls launch K1, and the tokens
+    are equal up to each request's first divergence, which must be a
+    near-tie of the layer-off logits (chip_smoke.rule2_check)."""
+    from apex_tpu_torch.serving import model as smodel
+
+    cfg = _layer_cfg(bf16)
+    params = init_gpt_params(cfg, 0, dev)
+    off, prompts, _ = _layer_serve(dev, cfg, params, SPEC_TRACE)
+    on, _, eng = _layer_serve(dev, cfg, params, SPEC_TRACE, spec_decode=2)
+    assert eng.verify_calls > 0 and eng.spec_stats.accepted > 0
+    held = _rule2(cfg, smodel.cast_params(params, cfg), dev, prompts, off,
+                  on, sizes=LAYER_SIZES)
+    assert held["equal_requests"] + held["divergences"] == len(off)
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16", "int8"])
+def test_prefix_cache_on_the_card_keeps_its_pages(dev, kv_quant):
+    """A shared 24-token system prompt (a full page and a copy-on-write
+    tail): hits, the graph's cache pointers unchanged after the copies,
+    the chain pages' bytes unchanged since they registered, and the
+    tokens under rule 2 against the cache off."""
+    from apex_tpu_torch.serving import model as smodel
+
+    cfg = _layer_cfg(True)
+    params = init_gpt_params(cfg, 0, dev)
+    spec = dict(SPEC_TRACE, prompt_hi=20, new_hi=16,
+                system_prompt=list(range(3, 27)))
+    off, prompts, _ = _layer_serve(dev, cfg, params, spec,
+                                   kv_quant=kv_quant)
+    on, _, eng = _layer_serve(dev, cfg, params, spec, kv_quant=kv_quant,
+                              prefix_cache=True)
+    assert eng.generation_stats()["prefix_hit_rate"] > 0
+    eng.prefix.check_invariants()
+    _rule2(cfg, smodel.cast_params(params, cfg), dev, prompts, off, on,
+           kv_quant=kv_quant, sizes=LAYER_SIZES)
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16", "int8"])
+def test_swap_restore_on_the_card_gives_the_unpreempted_tokens(
+        dev, monkeypatch, kv_quant):
+    """KV-pressure preemption with the host swap tier over 6 pages of 16:
+    the banked pages (pinned host memory, every leaf) come back byte for
+    byte into the captured cache, so every stream's tokens are the
+    unpreempted run's bit for bit; recompute replays launch K1."""
+    cfg = _layer_cfg(True)
+    params = init_gpt_params(cfg, 0, dev)
+    spec = dict(SPEC_TRACE, prompt_hi=20, new_lo=20, new_hi=40)
+    banked = []
+    bank = ServingEngine._swap_out_slot
+
+    def swap_out(self, slot):
+        handle = bank(self, slot)
+        if handle is not None:
+            banked.append(handle)
+        return handle
+
+    monkeypatch.setattr(ServingEngine, "_swap_out_slot", swap_out)
+    want, _, _ = _layer_serve(dev, cfg, params, spec, kv_quant=kv_quant)
+    got, _, eng = _layer_serve(dev, cfg, params, spec, kv_quant=kv_quant,
+                               preempt=True, kv_swap=True, num_pages=6)
+    assert eng.resilience.preempted > 0 and eng.kv_stats.swap_ins > 0
+    assert banked and all(t.is_pinned() for h in banked
+                          for t in h.leaves.values())
+    assert all(sorted(h.leaves) == sorted(eng.cache) for h in banked)
+    assert eng.kv_stats.swapped_pages_live == 0
+    assert got == want
+    _, _, eng = _layer_serve(dev, cfg, params, spec, kv_quant=kv_quant,
+                             preempt=True, num_pages=6)
+    assert eng.resilience.preempted > 0
+
+
 # ------------------------------------------------------------ K12 - K15
 # ragged leaves: a scalar tail (1, 3, 767), whole vectors (768), a ragged
 # 4099, an empty and an all-zero leaf, two blocks (CHUNK + 5), a 2-D leaf

@@ -369,7 +369,7 @@ def test_lifecycle_copy_matches_the_original():
     assert tlife.percentile([], 50) is None
     # one clean chain and three broken ones, judged alike
     tl, jl = tlife.EventLog(), jlife.EventLog()
-    chains = {0: tlife.EVENTS,
+    chains = {0: tlife.CORE_EVENTS,
               1: ("submitted", "first_token", "admitted"),
               2: ("submitted", "admitted", "finished"),
               3: ("submitted", "admitted", "admitted")}
