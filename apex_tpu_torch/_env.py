@@ -1,6 +1,6 @@
 """Environment-knob parsers the port needs (a private copy of
 ``apex_tpu/dispatch/tiles.py`` ``env_int`` / ``env_nonneg_int`` /
-``env_float`` / ``env_choice``).
+``env_float`` / ``env_choice`` / ``env_flag``).
 
 An environment knob is a preference, never a demand: an unset or empty
 variable gives None, and a set-but-unparseable value warns once per
@@ -70,3 +70,8 @@ def env_choice(name, allowed):
         return v
     _warn_once(name, v, f"is not one of {sorted(allowed)}")
     return None
+
+
+def env_flag(name):
+    """Boolean gate: True iff the variable is exactly ``"1"``."""
+    return os.environ.get(name) == "1"

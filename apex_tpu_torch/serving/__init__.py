@@ -16,12 +16,15 @@
                   prefill call (``APEX_SPEC_DECODE``)
 * ``prefix_cache`` — content-hashed refcounted copy-on-write page sharing
                   (``APEX_SERVE_PREFIX_CACHE``)
-* ``resilience`` — admission control (``Rejected``), deadline shedding and
-                  preemption knobs and counters (``APEX_SERVE_ADMIT`` /
-                  ``APEX_SERVE_SHED`` / ``APEX_SERVE_PREEMPT``)
+* ``resilience`` — admission control (``Rejected``), deadline shedding,
+                  preemption, and the dispatch watchdog
+                  (``guarded_dispatch``, ``DispatchFailure``) behind round
+                  recovery (``APEX_SERVE_ADMIT`` / ``APEX_SERVE_SHED`` /
+                  ``APEX_SERVE_PREEMPT`` / ``APEX_SERVE_RECOVER``)
 * ``lifecycle`` — request event log (with the rejected / shed /
-                  preempted chains), per-round gauges, TTFT/TPOT
-                  derivation
+                  preempted / degraded-round / swap-failed and the fleet's
+                  routed / failover / replayed chains), per-round gauges,
+                  TTFT/TPOT derivation, the SLO account (``slo_block``)
 * ``weights``   — the GPTModel parameter tree: carried over from JAX
                   (``from_jax_params``) or drawn from a torch seed, and
                   one tensor-parallel rank's slices of it
@@ -35,15 +38,30 @@
                   tables under preemption, and runs one decode program
                   (K steps, greedy or sampled, over bf16 or int8 KV pages
                   and full or int8 weights), captured once as a CUDA
-                  graph on the card
+                  graph on the card; with ``recover`` every dispatch
+                  runs under the watchdog and a failed round is
+                  recovered; with ``overlap`` the decode fetch is
+                  deferred one round
+* ``router``    — N engines under one routing policy
+                  (``APEX_ROUTE_POLICY``: ``round_robin`` |
+                  ``least_loaded`` | ``prefix_affinity``), replica health
+                  with a circuit breaker and probes, failover that replays
+                  through survivors, fleet and replica admission, and the
+                  fleet's account (``router_block``)
 """
 
 from apex_tpu_torch.serving import kv_tier, lifecycle, quant  # noqa: F401
 from apex_tpu_torch.serving import prefix_cache, resilience  # noqa: F401
 from apex_tpu_torch.serving import sampling, speculative  # noqa: F401
-from apex_tpu_torch.serving.engine import ServingEngine  # noqa: F401
+from apex_tpu_torch.serving.engine import (  # noqa: F401
+    ServingEngine,
+    detokenize,
+)
 from apex_tpu_torch.serving.prefix_cache import PrefixCache  # noqa: F401
-from apex_tpu_torch.serving.resilience import Rejected  # noqa: F401
+from apex_tpu_torch.serving.resilience import (  # noqa: F401
+    DispatchFailure,
+    Rejected,
+)
 from apex_tpu_torch.serving.sampling import SamplingParams  # noqa: F401
 from apex_tpu_torch.serving.kv_cache import (  # noqa: F401
     PageAllocator,
@@ -64,4 +82,9 @@ from apex_tpu_torch.serving.weights import (  # noqa: F401
     param_tree,
     shard_param_tree,
     to_numpy_tree,
+)
+from apex_tpu_torch.serving.router import (  # noqa: F401
+    AutoscalePolicy,
+    Router,
+    router_block,
 )

@@ -101,15 +101,70 @@ demand when passed and a preference when read from the environment:
   place at re-admission (:meth:`_swap_out_slot`,
   :meth:`_swap_in_slot`), per ``kv_restore=`` ("swap" or "recompute", >
   ``APEX_SERVE_KV_RESTORE`` > "swap"). True without preemption raises,
-  and so does ``kv_restore="swap"`` without the tier. A failed copy or a
-  handle whose bytes no longer match their seal raises.
+  and so does ``kv_restore="swap"`` without the tier. A copy that fails,
+  or a handle whose bytes no longer match their seal (checked before
+  anything reaches the device), falls back to the recompute replay with
+  a ``swap_failed`` event; the tokens are the same either way.
+* ``recover=`` (> ``APEX_SERVE_RECOVER``): every dispatch (a prefill, a
+  verify, a decode program, each with the fetch of its result) runs on
+  the engine's watchdog thread (:class:`~apex_tpu_torch.serving.
+  resilience.Watchdog`, JAX's ``guarded_dispatch`` on a reused thread;
+  ``dispatch_timeout_s=`` > ``resilience.SERVE_DISPATCH_TIMEOUT_S``). A
+  round that times out (``wedged``) or raises (``degraded_relay``) is
+  recovered (:meth:`_recover_round`): every unfinished request is
+  requeued with a ``degraded_round`` event and replays its stream later,
+  the prefix cache is flushed and the cache zeroed, and ``step`` returns
+  a ``degraded`` entry. ``round_attempts=`` failed rounds in a row raise;
+  ``round_retry_wait_s=`` paces them. Without the knob a failed dispatch
+  propagates and the engine dies with it.
+* ``overlap=`` (> ``APEX_SERVE_OVERLAP``): the overlapped round
+  (:meth:`_step_overlap`) defers the decode fetch one round. Round t's
+  decode program is launched and ``step`` returns; round t + 1 evicts,
+  sheds and admits (and makes the prefix hits' copies) while the device
+  runs, then waits for round t's tokens, copied out to pinned memory
+  behind an event, and only then prefills, stages and launches. The
+  scheduler's transitions are functions of token counts, not values, so
+  the admissions, evictions and tokens are the serial round's;
+  :meth:`flush` resolves the round in flight (``run_trace`` calls it).
+  Speculation breaks the contract: ``overlap=True`` with a per-call
+  ``spec_decode`` raises, and drops its preference. Preemption and
+  recovery need the serial round (a requeued stream must never replay a
+  placeholder token): two demands raise, a demand drops the other side's
+  preference, two preferences keep the serial round.
 
-Not ported yet (ROADMAP.md, queue A item 7): round recovery and the
-dispatch watchdog, the overlapped round, tensor parallelism, the router
-and ``lifecycle.slo_block``. ``recover=``, ``overlap=`` and ``tp=`` raise
-when they ask for their layer, naming the slice; the chaos sites are not
-ported. With every layer off the engine runs the JAX engine's
-configuration token for token.
+``tp=`` above 1 raises: tensor-parallel serving is a later slice of the
+port (ROADMAP.md, queue A item 7). With every layer off the engine runs
+the JAX engine's configuration token for token.
+
+The chaos sites (:mod:`apex_tpu_torch.resilience.faults`, ``APEX_FAULT_PLAN``,
+for tests only): ``serve_prefill`` and ``serve_decode`` fire inside the
+dispatch closures (a verify shares ``serve_prefill``), ``serve_burst`` at
+the start of a serial round, ``serve_swap`` in the swap tier's copies,
+``serve_alloc`` in the scheduler's page grants.
+
+The port mutates its cache in place, and the captured decode graph holds
+its addresses, so a dispatch abandoned by the watchdog must never launch
+once the engine has recovered, and a round abandoned by the fleet
+router's watchdog must never write once its replica was drained. The
+engine keeps a round epoch (``epoch``) and one lock over its host state
+and its launches. A round (``step``), ``submit``, ``flush`` and
+:meth:`drain_for_failover` hold the lock; a round lets it go only while
+it waits on the device (a dispatch and its fetch, a swap copy, a chaos
+site, the retry pause: :meth:`_unlocked`) and, taking it back, stops
+without another write if the epoch moved meanwhile (``stale_steps``).
+Nothing that waits on the device runs under the lock: the inputs of a
+prefill and of a decode are staged in pinned host buffers and sent with
+one non-blocking copy, so a launch only enqueues. A dispatch closure
+checks the epoch and enqueues its launches under the lock; recovery and
+the drain bump the epoch under it and zero the cache in place on the
+engine's stream, after anything a late round had already enqueued, so the
+decode graph's pointers hold. An abandoned closure that wakes later finds
+the epoch moved and launches nothing (``stale_dispatches`` counts them;
+``abandoned_workers`` keeps their threads). A lock still held past the
+dispatch budget (a launch wedged on the device) raises, naming the
+``wedged`` verdict, instead of waiting for ever. Every launch of a round
+runs on the engine's device and stream (``_on_stream``), whichever thread
+steps the engine.
 
 ``device_dispatch_s`` accumulates the wall time of device round trips
 (prefill + decode, each ending in the fetch of its tokens), so run wall
@@ -117,13 +172,18 @@ minus it is the host slice of the loop. ``events`` is the lifecycle log
 (:class:`~apex_tpu_torch.serving.lifecycle.EventLog`), always kept.
 """
 
+import contextlib
 import math
+import threading
 import time
 
 import numpy as np
 import torch
 
 from apex_tpu_torch import default_device
+from apex_tpu_torch import overlap as overlap_mod
+from apex_tpu_torch import resilience as res_mod
+from apex_tpu_torch.resilience import faults as faults_mod
 from apex_tpu_torch.serving import kv_tier, lifecycle
 from apex_tpu_torch.serving import model as smodel
 from apex_tpu_torch.serving import prefix_cache as prefix_mod
@@ -133,12 +193,26 @@ from apex_tpu_torch.serving import sampling as sampling_mod
 from apex_tpu_torch.serving import speculative as spec_mod
 from apex_tpu_torch.serving.kv_cache import (PageAllocator, init_cache,
                                              pages_needed)
-from apex_tpu_torch.serving.scheduler import ContinuousBatchingScheduler
+from apex_tpu_torch.serving.scheduler import (ContinuousBatchingScheduler,
+                                              Request)
 from apex_tpu_torch.serving.weights import init_gpt_params
 
 
 # the sampling lanes of the decode program, in lane_arrays' order
 LANES = ("temps", "top_ks", "top_ps", "keys", "counters")
+
+
+class _StaleRound(BaseException):
+    """A round that, waking from a wait on the device, found its engine in
+    a new epoch (the failover drain took it over): it stops and writes
+    nothing more. A BaseException, so no ``except Exception`` on the way
+    up to ``step`` takes it for a failed copy or dispatch."""
+
+
+def detokenize(tokens):
+    """Toy detokenizer for smokes: token id -> letter."""
+    return "".join(chr(97 + int(t) % 26) for t in tokens)
+
 
 def _to_device(tree, device):
     if isinstance(tree, torch.Tensor):
@@ -169,20 +243,17 @@ class ServingEngine:
                  sampling=None, decode_k=None, cuda_graph=None,
                  weight_quant=None, spec_decode=None, prefix_cache=None,
                  admit=None, shed=None, shed_ttft_ms=None, preempt=None,
-                 recover=None, overlap=None, tp=None):
+                 recover=None, overlap=None, tp=None,
+                 dispatch_timeout_s=None, round_attempts=None,
+                 round_retry_wait_s=None):
         smodel.check_serving_config(cfg)
-        # the JAX engine's layers that come in later slices (ROADMAP.md,
-        # queue A item 7): a value that asks for one raises
-        for name, value, off, layer in (
-                ("recover", recover, (None, False),
-                 "round recovery and the dispatch watchdog"),
-                ("overlap", overlap, (None, False), "the overlapped round"),
-                ("tp", tp, (None, 1), "tensor-parallel serving (tp.py)")):
-            if value not in off:
-                raise ValueError(
-                    f"{name}={value!r} cannot be honored: {layer} is a "
-                    f"later slice of the port (ROADMAP.md, queue A "
-                    f"item 7)")
+        # the JAX engine's layer that comes in a later slice (ROADMAP.md,
+        # queue A item 7): a value that asks for it raises
+        if tp not in (None, 1):
+            raise ValueError(
+                f"tp={tp!r} cannot be honored: tensor-parallel serving "
+                f"(tp.py) is a later slice of the port (ROADMAP.md, queue "
+                f"A item 7)")
         self.cfg = cfg
         self.num_slots = int(num_slots)
         self.page_size = int(page_size)
@@ -207,6 +278,11 @@ class ServingEngine:
                 f"prefill_len={self.prefill_len}")
         if k and k + 1 > self.prefill_len:
             k = 0  # the preference falls back per shape
+        # the overlapped round cannot run under speculation (acceptance
+        # depends on token values): an overlap demand drops a speculation
+        # preference; against a speculation demand it raises below
+        if overlap is True and k and spec_decode is None:
+            k = 0
         # decode blocks and speculation both batch tokens a dispatch, and
         # the verify rollback assumes one pending token a round: two
         # demands raise, a demand drops the other side's preference, two
@@ -229,9 +305,25 @@ class ServingEngine:
         # needs K + 1 rows; a plain prefill reads row r * W
         self._gather_w = self.spec_k + 1
 
-        # KV-pressure preemption, with its progress guarantee: a lone
-        # request must be able to grow to max_seq pages
+        # preemption and round recovery need the serial round (a requeued
+        # stream must never replay the overlapped round's placeholder
+        # tokens): two demands raise, a demand drops the other side's
+        # preference, two preferences keep the serial round
+        if overlap is True and (preempt is True or recover is True):
+            raise ValueError(
+                "overlap=True cannot be honored with preempt=True/"
+                "recover=True: the deferred-fetch round holds "
+                "placeholder tokens a preempted/requeued stream would "
+                "replay as values (two demands, no honorable order)")
         self.preempt = serve_res.resolve_preempt(preempt)
+        self.recover = serve_res.resolve_recover(recover)
+        if overlap is True:
+            if preempt is None:
+                self.preempt = False
+            if recover is None:
+                self.recover = False
+        # KV-pressure preemption's progress guarantee: a lone request must
+        # be able to grow to max_seq pages
         if self.preempt and self.num_pages - 1 < self.max_pages:
             if preempt is True:
                 raise ValueError(
@@ -258,6 +350,10 @@ class ServingEngine:
                                        swap_enabled=self.kv_swap)
         self.kv_restore = kv_restore
         self.kv_stats = kv_tier.KVTierStats() if self.kv_swap else None
+        # rids whose swap-out failed since the last preemption drain (the
+        # drain records their swap_failed between preempted and
+        # resubmitted)
+        self._swap_failed_rids = set()
         self.admit_limit = serve_res.resolve_admit(admit)
         self.shed = serve_res.resolve_shed(shed)
         if shed_ttft_ms is not None:
@@ -270,8 +366,40 @@ class ServingEngine:
         else:
             self.shed_ttft_ms = lifecycle.env_ms(
                 "APEX_SERVE_SLO_TTFT_MS", lifecycle.DEFAULT_SLO_TTFT_MS)
+        # the watchdog's budget, the failed rounds the engine survives and
+        # the pause between them (explicit, so the bench attempt
+        # variables never reach the serving loop)
+        self.dispatch_timeout_s = float(
+            dispatch_timeout_s if dispatch_timeout_s is not None
+            else res_mod.SERVE_DISPATCH_TIMEOUT_S)
+        self.round_attempts = int(
+            round_attempts if round_attempts is not None
+            else res_mod.SERVE_ROUND_ATTEMPTS)
+        self._round_retry = res_mod.RetryPolicy(
+            attempts=self.round_attempts,
+            retry_wait_s=round_retry_wait_s
+            if round_retry_wait_s is not None
+            else res_mod.SERVE_ROUND_RETRY_WAIT_S)
+        self._round_failures = 0   # in a row; a clean round resets it
         self.resilience = serve_res.ResilienceStats()
         self.rejected = []         # [(request, Rejected)] at submit
+        self.overlap = overlap_mod.resolve_serve_overlap(
+            overlap, spec_k=self.spec_k)
+        if self.overlap and (self.preempt or self.recover):
+            self.overlap = False   # the overlap preference falls back
+        self._pending = None       # the decode round in flight (overlap)
+        self._toks_host = None     # its pinned copy-out buffer (card)
+        # the round epoch and the engine lock (module docstring): host
+        # state is written, and a dispatch launches, only under the lock
+        # and in the epoch the round started in
+        self.epoch = 0
+        self._lock = threading.Lock()
+        self._tls = threading.local()   # .held, .epoch: this thread's hold
+        self.dispatches = 0        # dispatch closures that launched
+        self.stale_dispatches = 0  # abandoned ones that woke and did not
+        self.stale_steps = 0       # rounds that found a new epoch
+        self.abandoned_workers = []
+        self._watchdog = serve_res.Watchdog("serve-dispatch")
         self.prefix_enabled = prefix_mod.resolve(prefix_cache)
         self.prefix = prefix_mod.PrefixCache(
             PageAllocator(self.num_pages), self.page_size) \
@@ -294,6 +422,9 @@ class ServingEngine:
         # cast per call; embeddings and norms stay fp32)
         self.params = smodel.cast_params(params, cfg)
         self._cache_dtype = smodel.compute_dtype(cfg)
+        # the stream every launch of this engine goes on (None on the CPU)
+        self._stream = torch.cuda.current_stream(self.device) \
+            if self.device.type == "cuda" else None
         self.cache = self._fresh_cache()
         # the swap tier's host buffers, one set of max_pages made up front
         # (the first large pinning in a process took ~300 ms on an H100)
@@ -348,10 +479,12 @@ class ServingEngine:
         }
 
     def resilience_rates(self):
-        """Shed and preempt rates, None for a layer that is off;
-        ``degraded_rounds`` is None (round recovery is a later slice)."""
+        """Shed and preempt rates and the degraded-round count (the shape
+        ``lifecycle.slo_block(resilience=)`` takes), None for a layer that
+        is off."""
         return self.resilience.rates(shed_on=self.shed,
-                                     preempt_on=self.preempt)
+                                     preempt_on=self.preempt,
+                                     recover_on=self.recover)
 
     def kv_tier_rates(self):
         """The KV-tier account: ``kv_quant`` (True with the int8 tier on,
@@ -391,32 +524,45 @@ class ServingEngine:
                     f"built without sampling (sampling=True / "
                     f"APEX_SERVE_SAMPLING=1)")
 
-    def submit(self, request):
+    def submit(self, request, *, quiet=False, replay=False):
         """Enqueue one request and return None; impossible requests raise
         here, before anything is enqueued or allocated (before the
         admission gate, so a full queue never masks a malformed request).
         Under admission control a full queue returns a
         :class:`~apex_tpu_torch.serving.resilience.Rejected` instead, with
-        nothing enqueued."""
+        nothing enqueued.
+
+        The fleet router's hooks: ``quiet=True`` records no submitted or
+        rejected event (the router owns the front of the chain on the
+        fleet log); ``replay=True`` (a failover replay, load the fleet
+        already accepted) also bypasses the admission bound and keeps the
+        request's ``enqueue_wall``."""
+        with self._hold():
+            return self._submit(request, quiet, replay)
+
+    def _submit(self, request, quiet, replay):
         self.resilience.submit_attempts += 1
         self.validate_request(request)
-        if self.admit_limit \
+        if not replay and self.admit_limit \
                 and self.scheduler.queue_depth() >= self.admit_limit:
             rej = serve_res.Rejected(
                 "queue_full",
                 max(1, -(-self.scheduler.queue_depth() // self.num_slots)))
             self.resilience.rejected += 1
             self.rejected.append((request, rej))
-            wall = time.perf_counter()
-            self.events.record("submitted", request.rid, tick=self.tick,
-                               wall=wall)
-            self.events.record("rejected", request.rid, tick=self.tick,
-                               wall=wall)
+            if not quiet:
+                wall = time.perf_counter()
+                self.events.record("submitted", request.rid,
+                                   tick=self.tick, wall=wall)
+                self.events.record("rejected", request.rid,
+                                   tick=self.tick, wall=wall)
             return rej
-        request.enqueue_wall = time.perf_counter()
+        if not (replay and request.enqueue_wall is not None):
+            request.enqueue_wall = time.perf_counter()
         self.scheduler.submit(request, tick=self.tick)
-        self.events.record("submitted", request.rid, tick=self.tick,
-                           wall=request.enqueue_wall)
+        if not quiet:
+            self.events.record("submitted", request.rid, tick=self.tick,
+                               wall=request.enqueue_wall)
         return None
 
     # -------------------------------------------------- page-level hops
@@ -443,8 +589,127 @@ class ServingEngine:
                     f"{slot.pages[j]} (COW failed)")
 
     def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        if self._stream is not None:
+            self._stream.synchronize()
+
+    @contextlib.contextmanager
+    def _on_stream(self):
+        """The engine's device and stream as the current ones, in whatever
+        thread runs the engine (both are per thread in PyTorch)."""
+        if self._stream is None:
+            yield
+            return
+        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+            yield
+
+    # ------------------------------------------------- the engine lock
+
+    def _take(self):
+        """Take the engine lock within the dispatch budget, else raise: a
+        holder past it is a launch wedged on the device."""
+        if not self._lock.acquire(timeout=self.dispatch_timeout_s):
+            self.resilience.last_verdict = res_mod.WEDGED
+            raise RuntimeError(
+                f"the engine lock was not released within the "
+                f"{self.dispatch_timeout_s}s dispatch budget (resilience."
+                f"SERVE_DISPATCH_TIMEOUT_S envelope): a launch is wedged — "
+                f"the device/relay is {res_mod.WEDGED}")
+        self._tls.held = True
+
+    @contextlib.contextmanager
+    def _hold(self):
+        """Hold the engine lock for one entry (a round, a submit, a flush,
+        the failover drain), in the epoch it finds; an entry nested in
+        another of the same thread holds it already."""
+        tls = self._tls
+        if getattr(tls, "held", False):
+            yield
+            return
+        self._take()
+        tls.epoch = self.epoch
+        try:
+            yield
+        finally:
+            if tls.held:
+                tls.held = False
+                self._lock.release()
+
+    @contextlib.contextmanager
+    def _unlocked(self):
+        """Let the engine lock go across a wait on the device (a dispatch
+        and its fetch, a swap copy, a chaos site, the retry pause) and take
+        it back after. A round whose engine moved to a new epoch meanwhile
+        (the failover drain took it over) stops there, writing nothing
+        more (:class:`_StaleRound`)."""
+        tls = self._tls
+        if not getattr(tls, "held", False):
+            yield
+            return
+        tls.held = False
+        self._lock.release()
+        try:
+            yield
+        finally:
+            self._take()
+            if tls.epoch != self.epoch:
+                raise _StaleRound()
+
+    # ------------------------------------------------- guarded dispatch
+
+    def _dispatch(self, phase, launch, fetch=None):
+        """One device dispatch, with the engine lock let go: ``launch()``
+        enqueues the work and returns its output, ``fetch(out)`` waits for
+        it. The ``serve_*`` chaos site fires first, so an injected hang
+        blocks where a wedged dispatch would. The launches happen under
+        the engine lock and only in the epoch the round started in: a
+        closure the watchdog abandoned that wakes after recovery launches
+        nothing. With ``recover`` on the closure runs under the engine's
+        :class:`~apex_tpu_torch.serving.resilience.Watchdog` (a worker
+        thread reused across dispatches); a timeout or an exception
+        surfaces as a ``DispatchFailure``, which the round catches (its
+        timed-out worker is kept in ``abandoned_workers``). Off, a failure
+        propagates. A verify shares the ``serve_prefill`` site and keeps
+        its own phase."""
+        site = "serve_prefill" if phase == "verify" else f"serve_{phase}"
+        ctx = dict(tick=self.tick, step=self.decode_steps,
+                   call=self.prefill_batches)
+        epoch = self.epoch
+
+        def call():
+            faults_mod.fire(site, **ctx)
+            with self._lock:
+                if epoch != self.epoch:
+                    self.stale_dispatches += 1
+                    return None
+                with self._on_stream():
+                    out = launch()
+                self.dispatches += 1
+            if fetch is not None:
+                with self._on_stream():
+                    out = fetch(out)
+            return out
+
+        with self._unlocked():
+            if not self.recover:
+                return call()
+            try:
+                return self._watchdog.run(call, self.dispatch_timeout_s,
+                                          phase)
+            except serve_res.DispatchFailure as failure:
+                if failure.worker is not None:
+                    self.abandoned_workers.append(failure.worker)
+                raise
+
+    def _zero_cache(self):
+        """Start a new epoch and zero the cache in place on the engine's
+        stream (recovery, the failover drain; the caller holds the engine
+        lock): after anything an abandoned round had enqueued, and with
+        the decode graph's pointers kept."""
+        self.epoch += 1
+        self._tls.epoch = self.epoch
+        with self._on_stream():
+            for leaf in self.cache.values():
+                leaf.zero_()
 
     def _staging(self, name, leaf, n):
         """A host buffer for ``n`` pages of one cache leaf, pinned on the
@@ -476,25 +741,41 @@ class ServingEngine:
         callback, called before the pages are freed. Returns a sealed
         :class:`~apex_tpu_torch.serving.kv_tier.SwappedPages`, or None
         when the stream has no generated token (re-admission is then a
-        plain prefill). The pages covering positions ``0..pos-1`` are
-        banked, shared prefix pages' content included (restore writes
-        private pages)."""
+        plain prefill) or the copy failed (the ``serve_swap`` chaos site:
+        the stream falls back to the recompute replay, and the drain
+        records ``swap_failed``). The pages covering positions
+        ``0..pos-1`` are banked, shared prefix pages' content included
+        (restore writes private pages)."""
         req = slot.request
         t = slot.pos
         if not req.out_tokens or t < 1:
             return None
         n = pages_needed(t, self.page_size)
-        idx = torch.tensor(slot.pages[:n], dtype=torch.long,
-                           device=self.device)
-        t0 = time.perf_counter()
         leaves = {}
-        for name, leaf in self.cache.items():
-            buf = self._staging(name, leaf, n)
-            shape = leaf.shape[:2] + (n,) + leaf.shape[3:]
-            host = buf[:math.prod(shape)].view(shape)
-            host.copy_(leaf.index_select(2, idx))
-            leaves[name] = host
-        self.swap_copy_s += time.perf_counter() - t0
+        bufs = {name: self._staging(name, leaf, n)
+                for name, leaf in self.cache.items()}
+        try:
+            with self._unlocked():
+                faults_mod.fire("serve_swap", phase="swap_out",
+                                tick=self.tick, rid=req.rid)
+                idx = torch.tensor(slot.pages[:n], dtype=torch.long,
+                                   device=self.device)
+                t0 = time.perf_counter()
+                for name, leaf in self.cache.items():
+                    shape = leaf.shape[:2] + (n,) + leaf.shape[3:]
+                    leaves[name] = host = bufs[name][
+                        :math.prod(shape)].view(shape)
+                    host.copy_(leaf.index_select(2, idx))
+                dt = time.perf_counter() - t0
+        except BaseException as e:
+            for name, buf in bufs.items():
+                self._host_pool[name].append(buf)
+            if not isinstance(e, Exception):
+                raise
+            self.kv_stats.swap_out_failures += 1
+            self._swap_failed_rids.add(req.rid)
+            return None
+        self.swap_copy_s += dt
         handle = kv_tier.SwappedPages(leaves=leaves, page_count=n,
                                       tokens=t, quant=self.kv_quant).seal()
         self.kv_stats.banked(handle)
@@ -503,23 +784,46 @@ class ServingEngine:
     def _swap_in_slot(self, si, handle):
         """Copy one banked stream's pages back into the slot's freshly
         granted pages, in place on every leaf, and resume the slot where
-        the banked content ends. The seal is checked first: a handle whose
-        bytes changed raises before anything reaches the device."""
+        the banked content ends; True on success. False when the
+        ``serve_swap`` chaos site fired or the handle's bytes no longer
+        match their seal (checked before anything reaches the device):
+        the handle is released, ``swap_failed`` recorded, and the caller
+        replays the stream by recompute."""
         slot = self.scheduler.slots[si]
         req = slot.request
-        if not handle.intact():
-            raise RuntimeError(
-                f"rid {req.rid}: swapped pages failed their checksum — "
-                f"banked bytes changed on the host")
-        n = handle.page_count
-        dst = torch.tensor(slot.pages[:n], dtype=torch.long,
-                           device=self.device)
-        t0 = time.perf_counter()
-        for name, leaf in self.cache.items():
-            leaf.index_copy_(2, dst, handle.leaves[name].to(
-                self.device, non_blocking=True))
-        self._sync()
-        self.swap_copy_s += time.perf_counter() - t0
+        try:
+            with self._unlocked():
+                faults_mod.fire("serve_swap", phase="swap_in",
+                                tick=self.tick, rid=req.rid)
+            if faults_mod.corrupt("serve_swap", phase="swap_in",
+                                  tick=self.tick, rid=req.rid):
+                # scripted host rot: one banked byte flipped in place,
+                # which the seal below must catch
+                raw = handle.leaves[sorted(handle.leaves)[0]].view(
+                    -1).view(torch.uint8)
+                raw[0] = raw[0] ^ 0xFF
+            if not handle.intact():
+                raise RuntimeError(
+                    f"rid {req.rid}: swapped pages failed their checksum "
+                    f"— banked bytes changed on the host")
+            n = handle.page_count
+            dst = torch.from_numpy(np.asarray(slot.pages[:n], np.int64))
+            t0 = time.perf_counter()
+            if self.device.type == "cuda":
+                dst = dst.pin_memory().to(self.device, non_blocking=True)
+            for name, leaf in self.cache.items():
+                leaf.index_copy_(2, dst, handle.leaves[name].to(
+                    self.device, non_blocking=True))
+            with self._unlocked():
+                self._sync()
+            self.swap_copy_s += time.perf_counter() - t0
+        except Exception:
+            self.kv_stats.swap_in_failures += 1
+            self._release(handle)
+            req.swapped = None
+            self.events.record("swap_failed", req.rid, tick=self.tick,
+                               wall=time.perf_counter())
+            return False
         self.kv_stats.swap_ins += 1
         self._release(handle)
         req.swapped = None
@@ -528,12 +832,13 @@ class ServingEngine:
         # its warm-up, which the decode bookkeeping carries on)
         slot.pos = handle.tokens
         slot.next_token = int(req.resume_tokens[handle.tokens])
+        return True
 
     def _restore_resumed(self, resumed):
         """Route each re-admitted preempted stream: ``"swap"`` restores
-        its banked pages and resumes decode; ``"recompute"`` (or a stream
-        with nothing banked) replays through the packed prefill. Returns
-        the slots that need the replay."""
+        its banked pages and resumes decode; ``"recompute"``, a stream
+        with nothing banked, or a failed swap-in replays through the
+        packed prefill. Returns the slots that need the replay."""
         sch = self.scheduler
         replay = []
         for si in resumed:
@@ -541,12 +846,14 @@ class ServingEngine:
             handle = req.swapped
             if handle is not None:
                 if kv_tier.resolve_kv_restore(
-                        self.kv_restore, swap_enabled=True) == "swap":
-                    self._swap_in_slot(si, handle)
+                        self.kv_restore, swap_enabled=True) == "swap" \
+                        and self._swap_in_slot(si, handle):
                     self.kv_stats.restores_swap += 1
                     continue
-                self._release(handle)
-                req.swapped = None
+                if req.swapped is not None:
+                    # recompute resolved (a failed swap-in released it)
+                    self._release(handle)
+                    req.swapped = None
             self.kv_stats.restores_recompute += 1
             replay.append(si)
         return replay
@@ -570,20 +877,24 @@ class ServingEngine:
             batches.append(cur)
         return batches
 
-    def _packed_call(self, rows):
+    def _packed_call(self, rows, phase="prefill"):
         """ONE packed prefill call for ``rows = [(slot_idx, fed_tokens,
         write_from, gather_pos)]``: segment ids 1..R, padding and the
         positions below ``write_from`` routed to the all-null spare
         page-table row ``num_slots``, the logits gathered at each row's
-        ``gather_pos`` (within its sequence) at stride ``_gather_w``.
+        ``gather_pos`` (within its sequence) at stride ``_gather_w``, one
+        guarded dispatch (``phase`` "prefill" or "verify").
         Returns ``(logits [R * W, vocab], t0)``."""
-        S, R, W = self.prefill_len, self.prefill_requests, self._gather_w
-        ids = np.zeros((S,), np.int64)
-        positions = np.zeros((S,), np.int64)
-        seg = np.zeros((S,), np.int32)
-        token_rows = np.full((S,), self.num_slots, np.int64)
-        gather_idx = np.zeros((R * W,), np.int64)
-        pt = np.zeros((self.num_slots + 1, self.max_pages), np.int32)
+        W = self._gather_w
+        # staged in the pinned host twin: the launch only enqueues its copy
+        # (the previous prefill's fetch has waited for the one before)
+        h = self._prefill_host_views
+        ids, positions, seg = h["ids"], h["positions"], h["seg"]
+        token_rows, gather_idx, pt = (h["token_rows"], h["gather"],
+                                      h["page_table"])
+        for a in (ids, positions, seg, gather_idx, pt):
+            a[:] = 0
+        token_rows[:] = self.num_slots
         pt[:self.num_slots] = self.scheduler.page_table_rows()
         cursor = 0
         for r, (si, fed, write_from, gathers) in enumerate(rows):
@@ -595,14 +906,14 @@ class ServingEngine:
             for j, gp in enumerate(gathers):
                 gather_idx[r * W + j] = cursor + gp
             cursor += n
-        keep = None
         if self.kv_quant:
             # keep_scale row (kv_tier.prefill_scatter_quant): 0 for the
             # pages this call writes afresh (stale codes there must not
             # pin the scale), 1 for pages whose content survives; a row
             # writing from write_from > 0 (a verify) keeps the page that
             # holds position write_from - 1
-            keep = np.ones((self.num_pages,), np.float32)
+            keep = h["keep"]
+            keep[:] = 1.0
             for si, fed, write_from, _ in rows:
                 pages = self.scheduler.slots[si].pages
                 first = (0 if write_from == 0
@@ -610,13 +921,23 @@ class ServingEngine:
                 for j in range(first, (len(fed) - 1) // self.page_size + 1):
                     if j < len(pages):
                         keep[pages[j]] = 0.0
-            keep = self._tensor(keep)
         t0 = time.perf_counter()
-        self.cache, logits = smodel.prefill(
-            self.params, self.cache, self._tensor(ids),
-            self._tensor(positions), self._tensor(seg),
-            self._tensor(token_rows), self._tensor(pt),
-            self._tensor(gather_idx), keep, cfg=self.cfg)
+
+        def launch():
+            self._prefill_inputs.copy_(self._prefill_host, non_blocking=True)
+            v = self._prefill_views
+            return smodel.prefill(
+                self.params, self.cache, v["ids"], v["positions"], v["seg"],
+                v["token_rows"], v["page_table"], v["gather"],
+                v["keep"] if self.kv_quant else None, cfg=self.cfg)
+
+        def fetch(out):
+            # the wait for the logits, where a wedged prefill blocks
+            self._sync()
+            return out
+
+        # adopted only after a clean return
+        self.cache, logits = self._dispatch(phase, launch, fetch)
         return logits, t0
 
     def _sample_first_tokens(self, logits_rows, requests):
@@ -625,15 +946,25 @@ class ServingEngine:
         the decode program's lane semantics (counter 0, the request's own
         key), run eagerly between dispatches."""
         if not self.sampling:
-            return torch.argmax(logits_rows.float(), dim=-1).cpu().numpy()
+            return self._fetch_tokens(torch.argmax(logits_rows.float(),
+                                                   dim=-1))
         temps, top_ks, top_ps, keys, counters = sampling_mod.batch_lanes(
             requests)
-        toks = sampling_mod.sample_tokens(
-            logits_rows, self._tensor(temps), self._tensor(top_ks),
-            self._tensor(top_ps), self._tensor(keys.astype(np.int64)),
-            self._tensor(counters),
-            torch.ones(len(requests), dtype=torch.bool, device=self.device))
-        return toks.cpu().numpy()
+        with self._unlocked():
+            # the lanes' copies wait for the stream: no lock across them
+            toks = sampling_mod.sample_tokens(
+                logits_rows, self._tensor(temps), self._tensor(top_ks),
+                self._tensor(top_ps), self._tensor(keys.astype(np.int64)),
+                self._tensor(counters),
+                torch.ones(len(requests), dtype=torch.bool,
+                           device=self.device))
+        return self._fetch_tokens(toks)
+
+    def _fetch_tokens(self, toks):
+        """Wait for a tensor of tokens and bring it to the host, with the
+        engine lock let go (:meth:`_unlocked`)."""
+        with self._unlocked():
+            return toks.cpu().numpy()
 
     def _replay_prefill(self, resumed):
         """Re-admission replay of preempted streams through the packed
@@ -652,9 +983,8 @@ class ServingEngine:
             for si, fed in batch:
                 self._assert_writable(sch.slots[si], 0, len(fed) - 1)
                 rows.append((si, fed, 0, [len(fed) - 1]))
-            logits, t0 = self._packed_call(rows)
+            _, t0 = self._packed_call(rows)
             self.prefill_batches += 1
-            logits[:1, :1].cpu()  # the fetch that closes the dispatch
             self.device_dispatch_s += time.perf_counter() - t0
             for si, fed in batch:
                 slot = sch.slots[si]
@@ -772,9 +1102,9 @@ class ServingEngine:
                 self._assert_writable(slot, pos, len(fed) - 1)
                 rows.append((i, fed, pos,
                              list(range(pos, pos + len(draft) + 1))))
-            logits, t0 = self._packed_call(rows)
+            logits, t0 = self._packed_call(rows, phase="verify")
             self.verify_calls += 1
-            greedy = torch.argmax(logits.float(), dim=-1).cpu().numpy()
+            greedy = self._fetch_tokens(torch.argmax(logits.float(), dim=-1))
             wall = time.perf_counter()
             self.device_dispatch_s += wall - t0
             for r, (i, draft) in enumerate(batch):
@@ -799,36 +1129,51 @@ class ServingEngine:
 
     # ------------------------------------------------------------ decode
 
-    def _init_decode_inputs(self):
-        """The decode program's inputs: one int32 buffer on the device
-        (``_inputs``; fp32 lanes stored as their bits) with a named view
-        per input, and its host twin (pinned on the card), filled each
-        round and sent in one copy."""
-        B, P, K = self.num_slots, self.max_pages, self.decode_k
-        fields = (("tokens", (B,)), ("lengths", (B,)),
-                  ("page_table", (B, P)), ("steps", (B,)),
-                  ("warm_steps", (B,)), ("warm_tokens", (K, B)),
-                  ("temps", (B,)), ("top_ks", (B,)), ("top_ps", (B,)),
-                  ("keys", (B, 2)), ("counters", (B,)))
-        total = sum(int(np.prod(shape)) for _, shape in fields)
-        host = torch.zeros(total, dtype=torch.int32,
+    def _staged(self, fields):
+        """Inputs staged on the host and sent in one copy: one int32 buffer
+        on the device with a named view per ``(name, shape)`` field (the
+        fp32 fields stored as their bits, each field at a 64-byte offset)
+        and its host twin, pinned on the card, so the copy enqueues
+        without waiting. Returns ``(host, device, host views, device
+        views)``."""
+        offsets, o = [], 0
+        for _, shape in fields:
+            offsets.append(o)
+            o += -(-int(np.prod(shape)) // 16) * 16
+        host = torch.zeros(o, dtype=torch.int32,
                            pin_memory=self.device.type == "cuda")
-        self._host_inputs = host
-        self._inputs = torch.zeros(total, dtype=torch.int32,
-                                   device=self.device)
+        dev = torch.zeros(o, dtype=torch.int32, device=self.device)
         flat = host.numpy()
-        self._host_views, self._views = {}, {}
-        o = 0
-        for name, shape in fields:
+        host_views, views = {}, {}
+        for (name, shape), o in zip(fields, offsets):
             n = int(np.prod(shape))
-            hv, dv = flat[o:o + n], self._inputs[o:o + n]
-            if name in ("temps", "top_ps"):
+            hv, dv = flat[o:o + n], dev[o:o + n]
+            if name in ("temps", "top_ps", "keep"):
                 hv, dv = hv.view(np.float32), dv.view(torch.float32)
             elif name == "keys":
                 hv = hv.view(np.uint32)
-            self._host_views[name] = hv.reshape(shape)
-            self._views[name] = dv.view(shape)
-            o += n
+            host_views[name] = hv.reshape(shape)
+            views[name] = dv.view(shape)
+        return host, dev, host_views, views
+
+    def _init_decode_inputs(self):
+        """The staged inputs (:meth:`_staged`) of the decode program
+        (``_inputs``, filled each round in ``_host_views``) and of the
+        packed prefill (``_prefill_inputs``)."""
+        B, P, K = self.num_slots, self.max_pages, self.decode_k
+        (self._host_inputs, self._inputs, self._host_views,
+         self._views) = self._staged((
+             ("tokens", (B,)), ("lengths", (B,)), ("page_table", (B, P)),
+             ("steps", (B,)), ("warm_steps", (B,)), ("warm_tokens", (K, B)),
+             ("temps", (B,)), ("top_ks", (B,)), ("top_ps", (B,)),
+             ("keys", (B, 2)), ("counters", (B,))))
+        S = self.prefill_len
+        (self._prefill_host, self._prefill_inputs, self._prefill_host_views,
+         self._prefill_views) = self._staged((
+             ("ids", (S,)), ("positions", (S,)), ("seg", (S,)),
+             ("token_rows", (S,)), ("page_table", (B + 1, P)),
+             ("gather", (self.prefill_requests * self._gather_w,)),
+             ("keep", (self.num_pages,))))
 
     def _decode_program(self):
         """ONE decode program over the staged inputs: ``decode_step`` (K =
@@ -943,23 +1288,51 @@ class ServingEngine:
                 h[name][:] = arr
         return steps
 
-    def _dispatch_decode(self, decode_lanes, zero_length_lanes=()):
+    def _dispatch_decode(self, decode_lanes, zero_length_lanes=(),
+                         defer=False):
         """Stage and run ONE decode program for the current slots (a
-        graph replay, or the eager call); returns ``(next_toks, t0,
-        steps)`` with the fetch left to the caller. A graph's output is
-        overwritten by the next replay: the caller's fetch copies it out
-        first."""
+        graph replay, or the eager call) as one guarded dispatch; returns
+        ``(next_toks, t0, steps)``. A graph's output is overwritten by the
+        next replay, so it is fetched before the next dispatch: inside
+        the dispatch (host numpy; inside the watchdog with ``recover``),
+        or with ``defer`` (the overlapped round) copied out behind an
+        event (:meth:`_copy_out`)."""
         steps = self._stage_inputs(decode_lanes, zero_length_lanes)
         t0 = time.perf_counter()
-        self._inputs.copy_(self._host_inputs, non_blocking=True)
-        if self._graph is None:
-            return self._decode_program(), t0, steps
-        if self._cache_ptrs() != self._graph_cache:
-            raise RuntimeError("the KV cache moved since the decode graph "
-                               "was captured: its writes must stay in "
-                               "place")
-        self._graph.replay()
-        return self._graph_out, t0, steps
+
+        def launch():
+            self._inputs.copy_(self._host_inputs, non_blocking=True)
+            if self._graph is None:
+                out = self._decode_program()
+            else:
+                if self._cache_ptrs() != self._graph_cache:
+                    raise RuntimeError(
+                        "the KV cache moved since the decode graph was "
+                        "captured: its writes must stay in place")
+                self._graph.replay()
+                out = self._graph_out
+            return self._copy_out(out) if defer else out
+
+        next_toks = self._dispatch(
+            "decode", launch,
+            None if defer else self._fetch_tokens)
+        return next_toks, t0, steps
+
+    def _copy_out(self, toks):
+        """The overlapped round's deferred fetch: on the card the tokens
+        are copied into a pinned host buffer without waiting, behind an
+        event the resolve waits on (``_resolve_pending``, before the next
+        dispatch can overwrite either); on the CPU the tensor itself.
+        Returns ``(tokens, event or None)``."""
+        if self._stream is None:
+            return toks, None
+        if self._toks_host is None or self._toks_host.shape != toks.shape:
+            self._toks_host = torch.empty(toks.shape, dtype=toks.dtype,
+                                          pin_memory=True)
+        self._toks_host.copy_(toks, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(self._stream)
+        return self._toks_host, event
 
     def _advance_counts(self, decode_lanes, steps):
         """Count bookkeeping of one decode block, walking its (step, lane)
@@ -1081,8 +1454,14 @@ class ServingEngine:
             self.resilience.resubmitted += 1
             wall = time.perf_counter()
             self.events.record("preempted", req.rid, tick=tick, wall=wall)
+            if req.rid in self._swap_failed_rids:
+                # the swap-out failed: the stream resubmits all the same
+                # and replays by recompute
+                self.events.record("swap_failed", req.rid, tick=tick,
+                                   wall=wall)
             self.events.record("resubmitted", req.rid, tick=tick,
                                wall=wall)
+            self._swap_failed_rids.discard(req.rid)
         return preempted
 
     def _ensure_pages(self, lanes_pos, tick):
@@ -1099,15 +1478,60 @@ class ServingEngine:
         self._drain_preempted(tick)
         return [i for i in alive if sch.slots[i] is not None]
 
-    def step(self, arrivals=None):
-        """One scheduler round (JAX's serial round): enqueue due arrivals,
-        evict, shed, admit (prefix hits' copies, then prefill or restore
-        the rest), verify the drafted slots, grow the tables under
-        preemption, decode every other seated slot. Returns a dict of what
-        happened."""
+    def step(self, arrivals=None, *, epoch=None):
+        """One scheduler round under the engine lock: the serial round
+        (:meth:`_step_serial`), or the overlapped one with ``overlap`` on.
+        Returns a dict of what happened. ``epoch`` is the fleet router's:
+        a round it started before a failover drain (its watchdog abandoned
+        it) finds the engine's epoch moved, does nothing and returns None;
+        so does a round the drain took the engine from while it waited on
+        the device."""
+        with self._hold():
+            if epoch is not None and epoch != self.epoch:
+                self.stale_steps += 1
+                return None
+            try:
+                with self._on_stream():
+                    if self.overlap:
+                        return self._step_overlap(arrivals)
+                    return self._step_serial(arrivals)
+            except _StaleRound:
+                self.stale_steps += 1
+                return None
+
+    def _fire_burst(self, tick):
+        """The ``serve_burst`` chaos site: build the scripted storm of
+        requests and submit it through the real front door."""
+        spec = faults_mod.burst("serve_burst", tick=tick)
+        if not spec:
+            return
+        base = int(spec.get("rid_base", 9_000_000))
+        plen = int(spec.get("prompt_len", 4))
+        for j in range(int(spec.get("count", 8))):
+            self.submit(Request(
+                rid=base + j, prompt=[1 + (j % 7)] * plen,
+                max_new_tokens=int(spec.get("max_new", 4)),
+                arrival=float(tick)))
+
+    def _step_serial(self, arrivals=None):
+        """The serial round: the burst site, due arrivals, then
+        :meth:`_round_serial`; a ``DispatchFailure`` (only a guarded
+        dispatch raises one) is recovered (:meth:`_recover_round`)."""
         now = self.tick
+        self._fire_burst(now)
         for req in arrivals or ():
             self.submit(req)
+        try:
+            result = self._round_serial(now)
+        except serve_res.DispatchFailure as failure:
+            return self._recover_round(now, failure)
+        self._round_failures = 0
+        return result
+
+    def _round_serial(self, now):
+        """Evict, shed, admit (prefix hits' copies, then prefill or
+        restore the rest), verify the drafted slots, grow the tables under
+        preemption, decode every other seated slot."""
         sch = self.scheduler
         wall = time.perf_counter()
         evicted = sch.evict_done(now, wall)
@@ -1160,10 +1584,11 @@ class ServingEngine:
         if decode_lanes:
             next_toks, t0, steps = self._dispatch_decode(
                 decode_lanes, zero_length_lanes=verified)
-            plan, decoded = self._advance_counts(decode_lanes, steps)
-            next_toks = next_toks.cpu().numpy()
             wall2 = time.perf_counter()
             self.device_dispatch_s += wall2 - t0
+            # the count bookkeeping after the fetch: a round abandoned in
+            # its fetch leaves no placeholder token for a drain to replay
+            plan, decoded = self._advance_counts(decode_lanes, steps)
             self._fill_plan(plan, next_toks, wall2, now)
         self._sample_gauges(now)
         # a slot whose LAST token was just produced frees at the next
@@ -1174,11 +1599,188 @@ class ServingEngine:
                 "verified": verified, "decoded_slots": decoded,
                 "shed": [r.rid for r in shed]}
 
+    # ------------------------------------------------------ round recovery
+
+    def _recover_round(self, now, failure):
+        """Round recovery (JAX's ``_recover_round``): a dispatch the
+        watchdog timed out or caught raising does not kill the engine.
+        Every unfinished seated request is requeued (pages freed, its
+        known stream kept for the replay; nothing banked, the cache is
+        what is no longer trusted) with ``degraded_round`` and
+        ``resubmitted`` events; a request that already finished stays
+        seated for the next evict. The finished slots' prefix references
+        are released and the prefix cache flushed (its chains point into
+        the cache), and the cache is zeroed in place in a new epoch
+        (:meth:`_zero_cache`), so an abandoned dispatch launches nothing
+        after this. ``round_attempts`` failed rounds in a row raise; the
+        retry policy's wait paces the next one."""
+        sch = self.scheduler
+        self._round_failures += 1
+        self.resilience.degraded_rounds += 1
+        self.resilience.last_verdict = failure.verdict
+        requeued = [sch.requeue_slot(i, now, swap=False)
+                    for i in sch.active_indices()
+                    if not sch.slots[i].request.done()]
+        if self.prefix is not None:
+            for i in sch.active_indices():
+                slot = sch.slots[i]
+                if slot.shared_pages:
+                    self.prefix.release(slot.shared_pages)
+                    slot.shared_pages = []
+            self.prefix.flush()
+        self._zero_cache()
+        wall = time.perf_counter()
+        for req in requeued:
+            self.events.record("degraded_round", req.rid, tick=now,
+                               wall=wall)
+            self.events.record("resubmitted", req.rid, tick=now, wall=wall)
+        self.resilience.resubmitted += len(requeued)
+        if self._round_failures >= self.round_attempts:
+            raise RuntimeError(
+                f"serving round failed {self._round_failures} "
+                f"consecutive times (last: {failure}) — the "
+                f"SERVE_ROUND_ATTEMPTS budget is exhausted; the "
+                f"device/relay is {failure.verdict}") from failure
+        wait = self._round_retry.pop_wait()
+        if wait:
+            with self._unlocked():
+                time.sleep(wait)
+        self._sample_gauges(now)
+        self.tick += 1
+        return {"tick": now, "evicted": [], "admitted": [],
+                "prefilled": [], "verified": [], "decoded_slots": 0,
+                "shed": [],
+                "degraded": {"phase": failure.phase,
+                             "verdict": failure.verdict,
+                             "detail": failure.detail,
+                             "requeued": [r.rid for r in requeued]}}
+
+    def drain_for_failover(self, tick):
+        """Evacuate this replica for the fleet router's failover: finished
+        slots settle through the normal evict, every queued and in-flight
+        request leaves in replayable form (in-flight ones requeued as in
+        recovery, the oldest streams first), the prefix cache is flushed,
+        the cache zeroed in a new epoch and the failure count reset.
+        Returns the drained requests for ``submit(..., replay=True)`` on a
+        survivor; the router records their failover events.
+
+        It holds the engine lock, so it runs between a round's writes: a
+        round the router's watchdog abandoned while it waited on the
+        device stops when it wakes (the new epoch), and holds no
+        placeholder token then (the serial round counts its decode after
+        the fetch; the router refuses an overlapped engine)."""
+        with self._hold():
+            sch = self.scheduler
+            wall = time.perf_counter()
+            for r in sch.evict_done(tick, wall):
+                self.events.record("evicted", r.rid, tick=tick, wall=wall)
+            queued = list(sch.queue)
+            sch.queue.clear()
+            # nothing banked: the requests replay on another replica
+            inflight = [sch.requeue_slot(i, tick, swap=False)
+                        for i in sch.active_indices()]
+            sch.queue.clear()   # the router decides where they go
+            if self.prefix is not None:
+                self.prefix.flush()
+            self._zero_cache()
+            self._round_failures = 0
+            drained = inflight + queued
+            for req in drained:
+                if req.swapped is not None:
+                    self._release(req.swapped)
+                    req.swapped = None
+            return drained
+
+    # ------------------------------------------------ the overlapped round
+
+    def _resolve_pending(self):
+        """The overlapped round's sync point: wait for the round in
+        flight's tokens and fill them in (stamped with the tick of the
+        round that launched it)."""
+        p = self._pending
+        if p is None:
+            return
+        self._pending = None
+        toks, event = p["next_toks"]
+        if event is not None:
+            with self._unlocked():
+                event.synchronize()
+        next_toks = toks.numpy().copy()
+        wall = time.perf_counter()
+        # the planning between the launch and this wait ran while the
+        # device worked: it counts as dispatch wall
+        self.device_dispatch_s += wall - p["t0"]
+        self._fill_plan(p["plan"], next_toks, wall, p["tick"])
+
+    def flush(self):
+        """Resolve the decode round in flight (overlapped round): its
+        placeholder tokens and their events land. A no-op otherwise;
+        ``run_trace`` calls it, a caller driving ``step`` calls it before
+        reading ``out_tokens``."""
+        with self._hold(), self._on_stream():
+            try:
+                self._resolve_pending()
+            except _StaleRound:
+                pass
+
+    def _step_overlap(self, arrivals=None):
+        """The overlapped round (JAX's ``_step_overlap``): evict, shed and
+        admit (count state only; a prefix hit's copies are enqueued on the
+        engine's stream, behind the decode in flight) while the device
+        runs round t, then wait for round t's tokens, record the
+        evictions after their finished events, prefill, and launch round
+        t + 1's decode, returning with it in flight."""
+        sch = self.scheduler
+        now = self.tick
+        for req in arrivals or ():
+            self.submit(req)
+        wall = time.perf_counter()
+        # finish_wall belongs to the fetch that produced the last token
+        evicted = sch.evict_done(now, None)
+        shed = self._shed_queue(now, wall) if self.shed else []
+        admitted = sch.admit(now, wall)
+        for i in admitted:
+            self.events.record("admitted", sch.slots[i].request.rid,
+                               tick=now, wall=wall)
+        to_prefill = []
+        for i in admitted:
+            slot = sch.slots[i]
+            if slot.prefix_hit:
+                for src, dst in slot.cow_copies:
+                    self._copy_page(src, dst)
+                slot.cow_copies = []
+            else:
+                to_prefill.append(i)
+        self._resolve_pending()
+        for r in evicted:
+            if r.finish_wall is None:
+                r.finish_wall = wall
+        if evicted:
+            wall_e = time.perf_counter()
+            for r in evicted:
+                self.events.record("evicted", r.rid, tick=now, wall=wall_e)
+        prefilled = self._run_prefill(to_prefill) if to_prefill else []
+        decode_lanes = sch.active_indices()
+        decoded = 0
+        if decode_lanes:
+            next_toks, t0, steps = self._dispatch_decode(decode_lanes,
+                                                         defer=True)
+            plan, decoded = self._advance_counts(decode_lanes, steps)
+            self._pending = {"next_toks": next_toks, "plan": plan,
+                             "t0": t0, "tick": now}
+        self._sample_gauges(now)
+        self.tick += 1
+        return {"tick": now, "evicted": [r.rid for r in evicted],
+                "admitted": admitted, "prefilled": prefilled,
+                "verified": [], "decoded_slots": decoded,
+                "shed": [r.rid for r in shed]}
+
     def run_trace(self, requests, max_ticks=10000):
         """Replay a trace to completion: each request is submitted when
         its arrival tick is due. A request settles by completing, being
-        shed, or being rejected at submit. Returns the completed requests
-        (latency stamps filled)."""
+        shed, or being rejected at submit. Flushes the overlapped round in
+        flight before returning. Returns the completed requests (latency
+        stamps filled)."""
         pending = sorted(requests, key=lambda r: (r.arrival, r.rid))
         trace_ids = {id(r) for r in requests}
         sch = self.scheduler
@@ -1196,4 +1798,5 @@ class ServingEngine:
             due = [r for r in pending if r.arrival <= self.tick]
             pending = [r for r in pending if r.arrival > self.tick]
             self.step(arrivals=due)
+        self.flush()
         return list(sch.completed)

@@ -33,7 +33,9 @@ scales too), are copied device to host into a :class:`SwappedPages`
 handle (pinned memory on the card) sealed by a sha1 over its bytes, and
 re-admission checks the seal and copies the pages back into the slot's
 freshly granted pages in place, so the stream resumes decode without a
-replay prefill. Whether a resumed stream restores by swap-in or by
+replay prefill. A copy that fails (the ``serve_swap`` chaos site) or a
+handle whose seal broke falls back to the replay, with a ``swap_failed``
+event. Whether a resumed stream restores by swap-in or by
 recompute is :func:`resolve_kv_restore`'s: a demand, else
 ``APEX_SERVE_KV_RESTORE``, else ``"swap"`` while the tier is on. (JAX
 consults a measured dispatch table between the preference and the
@@ -292,7 +294,9 @@ class KVTierStats:
     ``swapped_pages_high_water``)."""
 
     swap_outs: int = 0
+    swap_out_failures: int = 0
     swap_ins: int = 0
+    swap_in_failures: int = 0
     restores_swap: int = 0
     restores_recompute: int = 0
     swapped_pages_live: int = 0

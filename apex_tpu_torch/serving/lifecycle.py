@@ -7,9 +7,14 @@
   chain: ``rejected`` (admission control refused at submit) and ``shed``
   (the deadline shedder dropped a queued request) end a chain;
   ``preempted`` (KV pressure) suspends a running request and is followed
-  by ``resubmitted``, after which admission may repeat. The once-only
-  events still fire at most once across every cycle. ``validate_order``
-  checks each request's chain against the transition machine below.
+  by ``resubmitted``, after which admission may repeat; so is
+  ``degraded_round`` (round recovery requeued it); ``swap_failed`` marks a
+  swap tier copy that failed (the stream replays by recompute); the fleet
+  router adds ``routed``, and ``failover`` (pulled off a dead replica)
+  followed by ``replayed`` (resubmitted through a survivor). The
+  once-only events still fire at most once across every cycle.
+  ``validate_order`` checks each request's chain against the transition
+  machine below.
   :meth:`EventLog.sample_gauges` keeps one gauge sample a round (slot
   occupancy, queue depth, live pages, head-of-line wait, and the
   generation and resilience counters); :meth:`EventLog.summary`
@@ -17,33 +22,47 @@
 * :func:`request_latencies` / :func:`percentile` — TTFT (first-token wall
   minus submit wall) and TPOT ((finish − first token) / (tokens − 1), for
   requests with at least 2 tokens), nearest-rank percentiles.
-
-The recovery and fleet events of the JAX package (``swap_failed``,
-``degraded_round``, ``routed``, ``failover``, ``replayed``) and the SLO
-ledger block come with the slices that port those layers.
+* :func:`slo_block` — the SLO account of a run: TTFT and TPOT p50/p99,
+  goodput (tokens of requests that met both thresholds, per wall
+  second), attainment, the gauges' high-water marks and the resilience
+  rates.
 """
 
 from apex_tpu_torch import _env
 
-EVENTS = ("submitted", "rejected", "shed", "admitted", "prefill_done",
-          "first_token", "preempted", "resubmitted", "finished",
-          "evicted")
+EVENTS = ("submitted", "rejected", "shed", "routed", "admitted",
+          "prefill_done", "first_token", "preempted", "swap_failed",
+          "degraded_round", "resubmitted", "failover", "replayed",
+          "finished", "evicted")
 # the chain of an undisturbed request
 CORE_EVENTS = ("submitted", "admitted", "prefill_done", "first_token",
                "finished", "evicted")
 # events that may appear at most once in a request's chain
-_ONCE = frozenset(("submitted", "rejected", "shed", "prefill_done",
-                   "first_token", "finished", "evicted"))
+_ONCE = frozenset(("submitted", "rejected", "shed", "routed",
+                   "prefill_done", "first_token", "finished", "evicted"))
+# a suspension (KV pressure, a failed round) is followed by resubmitted
+_SUSPEND = ("preempted", "degraded_round")
 _NEXT = {
     None: ("submitted",),
-    "submitted": ("rejected", "shed", "admitted"),
+    "submitted": ("rejected", "shed", "admitted", "routed"),
     "rejected": (),
     "shed": (),
-    "admitted": ("prefill_done", "finished", "preempted"),
-    "prefill_done": ("first_token", "preempted"),
-    "first_token": ("finished", "preempted"),
-    "preempted": ("resubmitted",),
-    "resubmitted": ("shed", "admitted"),
+    "routed": ("admitted", "shed", "failover"),
+    "admitted": ("prefill_done", "finished", "swap_failed")
+    + _SUSPEND + ("failover",),
+    "prefill_done": ("first_token",) + _SUSPEND + ("failover",),
+    "first_token": ("finished",) + _SUSPEND + ("failover",),
+    # a swap tier copy failed: at preemption (preempted -> swap_failed ->
+    # resubmitted) or at re-admission (admitted -> swap_failed, then the
+    # stream replays by recompute and goes on)
+    "preempted": ("resubmitted", "swap_failed"),
+    "swap_failed": ("resubmitted", "finished") + _SUSPEND + ("failover",),
+    "degraded_round": ("resubmitted",),
+    "resubmitted": ("shed", "admitted", "failover"),
+    # the fleet router pulled the request off a dead replica; it replays
+    # through a survivor
+    "failover": ("replayed",),
+    "replayed": ("admitted", "shed", "failover"),
     "finished": ("evicted",),
     "evicted": (),
 }
@@ -222,3 +241,50 @@ def percentile(values, q):
         return None
     vals = sorted(values)
     return vals[min(len(vals) - 1, int(len(vals) * q / 100.0))]
+
+
+def slo_block(requests, wall_s, *, ttft_ms, tpot_ms, arrival_process,
+              offered_load, log=None, resilience=None,
+              decode_block_k=1):
+    """The SLO account of completed ``requests`` over ``wall_s`` (JAX's
+    ``slo_block``): latency percentiles, goodput and attainment against
+    ``ttft_ms``/``tpot_ms`` (a request too short for a TPOT is judged on
+    TTFT alone), the gauges' summary from ``log`` (None fields without
+    it), the engine's ``resilience_rates()`` and its decode block K."""
+    lats = request_latencies(requests)
+    ttfts = [x["ttft_s"] * 1e3 for x in lats if x["ttft_s"] is not None]
+    tpots = [x["tpot_s"] * 1e3 for x in lats if x["tpot_s"] is not None]
+
+    def _attains(x):
+        if x["ttft_s"] is None or x["ttft_s"] * 1e3 > ttft_ms:
+            return False
+        return x["tpot_s"] is None or x["tpot_s"] * 1e3 <= tpot_ms
+
+    attained = [x for x in lats if _attains(x)]
+    good_tokens = sum(x["n_out"] for x in attained)
+    summary = log.summary() if log is not None else {}
+
+    def _r(v, nd=2):
+        return None if v is None else round(v, nd)
+
+    return {
+        "ttft_p50_ms": _r(percentile(ttfts, 50)),
+        "ttft_p99_ms": _r(percentile(ttfts, 99)),
+        "per_token_p50_ms": _r(percentile(tpots, 50)),
+        "per_token_p99_ms": _r(percentile(tpots, 99)),
+        "goodput_tok_s": _r(good_tokens / wall_s if wall_s > 0 else None),
+        "slo_attainment": _r(len(attained) / len(lats) if lats else None,
+                             4),
+        "slo_ttft_ms": float(ttft_ms),
+        "slo_tpot_ms": float(tpot_ms),
+        "arrival_process": arrival_process,
+        "offered_load": _r(offered_load, 4),
+        "requests": len(lats),
+        "max_queue_depth": summary.get("max_queue_depth"),
+        "kv_page_high_water": summary.get("kv_page_high_water"),
+        "max_hol_wait_ms": summary.get("max_hol_wait_ms"),
+        "shed_rate": _r((resilience or {}).get("shed_rate"), 4),
+        "preempt_rate": _r((resilience or {}).get("preempt_rate"), 4),
+        "degraded_rounds": (resilience or {}).get("degraded_rounds"),
+        "decode_block_k": int(decode_block_k),
+    }

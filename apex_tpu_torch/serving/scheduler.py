@@ -31,10 +31,12 @@ extends a table mid-stream, and a refused grant preempts the running
 request of lowest priority (:meth:`~ContinuousBatchingScheduler.
 requeue_slot`: pages freed, prefix references released, the known stream
 kept in ``resume_tokens`` for re-admission, the engine's ``swap_out``
-callback offered the pages first).
+callback offered the pages first). Round recovery and the fleet router's
+failover drain requeue slots the same way, without the swap.
 
-Not ported yet: the chaos sites (``serve_alloc``), which come with round
-recovery.
+The ``serve_alloc`` chaos site (:mod:`apex_tpu_torch.resilience.faults`,
+tests only) can refuse a page grant at a chosen (tick, phase) without
+shrinking the pool, so the preemption path runs under scripted pressure.
 """
 
 import dataclasses
@@ -45,6 +47,7 @@ from collections import deque
 from typing import Any, List, Optional, Tuple
 
 from apex_tpu_torch import _env
+from apex_tpu_torch.resilience import faults as _faults
 from apex_tpu_torch.serving.kv_cache import pages_needed
 
 ARRIVALS = ("poisson", "diurnal")
@@ -203,11 +206,15 @@ class ContinuousBatchingScheduler:
                 best, best_key = r, key
         return best
 
-    def _alloc_with_reclaim(self, owner, n, protect=()):
+    def _alloc_with_reclaim(self, owner, n, protect=(), tick=None,
+                            phase="admit"):
         """An allocator grant that, when the free list is short, asks
         the prefix cache to reclaim unreferenced pages first (never the
         ``protect`` cover the admission in flight just matched) and
-        retries once."""
+        retries once. The ``serve_alloc`` chaos site can refuse it at a
+        (tick, phase)."""
+        if _faults.denied("serve_alloc", tick=tick, phase=phase):
+            return None
         pages = self.allocator.alloc(owner, n)
         if pages is None and self.prefix is not None:
             shortfall = n - self.allocator.free_count
@@ -240,7 +247,7 @@ class ContinuousBatchingScheduler:
                 if self.preempt else self._request_pages(req)
             pages = self._alloc_with_reclaim(("req", req.rid),
                                              reserve - len(shared),
-                                             protect=matched)
+                                             protect=matched, tick=tick)
             if pages is None:
                 break
             self.queue.remove(req)
@@ -290,8 +297,10 @@ class ContinuousBatchingScheduler:
         return best
 
     def requeue_slot(self, i, tick, swap=True):
-        """Force running slot *i* back into the queue: offer it to the
-        ``swap_out`` callback (with ``swap``) before its pages are freed,
+        """Force running slot *i* back into the queue (preemption, round
+        recovery, the failover drain): offer it to the ``swap_out``
+        callback (with ``swap``; the engine passes False where the device
+        cache is what it no longer trusts) before its pages are freed,
         free its private pages, release its shared prefix pages, keep its
         known stream in ``resume_tokens`` (None before its first token:
         re-admission is then a plain prefill) and requeue it (its
@@ -319,7 +328,8 @@ class ContinuousBatchingScheduler:
         slot can always grow to ``max_seq``."""
         slot = self.slots[i]
         while len(slot.pages) < min_pages:
-            got = self._alloc_with_reclaim(("req", slot.request.rid), 1)
+            got = self._alloc_with_reclaim(
+                ("req", slot.request.rid), 1, tick=tick, phase="grow")
             if got is not None:
                 slot.pages.extend(got)
                 continue

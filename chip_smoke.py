@@ -233,7 +233,24 @@ exits non-zero before the last line):
    name: the verify calls', the replays', the warm-up steps'. Acceptance
    rate, draft length, verify calls, hit rate, copies, preemptions, the
    swap's MB and ms each way, the restore route of each stream,
-   tokens/s, TTFT and TPOT on and off. Before the serving phases, K23
+   tokens/s, TTFT and TPOT on and off. Then the recovery and fleet
+   layers at GPT-2-small's width: ``phase_round_recovery``
+   (``recover=True``, fp32 and bf16: a decode hang past the watchdog, a
+   decode raise, a prefill raise mid-admission, every swap-out raising
+   under preemption, a decode failing every round until the attempt
+   budget raises; tokens against the fault-free run, fp32 bit for bit and
+   bf16 under rule 2; a ``degraded_round`` for each requeued request; the
+   graph's pointers kept and its replays counted by name after a
+   recovery; the abandoned closure, joined, launched nothing),
+   ``phase_overlap_serving`` (the serial round against the overlapped
+   one in turns, three each, and an int8-KV turn of each: tokens and
+   schedule bit-equal; tokens/s, TTFT, TPOT, round ms, host slice, busy
+   share) and ``phase_router`` (three replicas sharing one parameter
+   tree: ``round_robin`` against ``prefix_affinity`` over a 192-token
+   system prompt, the fleet hit rates; a replica killed mid-trace, fp32
+   and bf16, zero loss against a single engine; a wedged replica round
+   timed out and failed over, refused when it wakes; ``router_block`` and
+   ``slo_block`` logged). Before the serving phases, K23
    at GPT-2-small's five decode shapes at 8 rows, bf16, fp16 and fp32, on
    the launch ``ops/qmatmul_cuda.plan`` picks (``phase_qmatmul_kernel``):
    relative L2 within ``QMM_L2_TOL``, the all-zero weight row's outputs
@@ -1645,11 +1662,13 @@ def _cache_bytes(cache):
     return sum(t.numel() * t.element_size() for t in cache.values())
 
 
-def _drive_trace(engine, reqs):
+def _drive_trace(engine, reqs, on_tick=None, results=None):
     """Serve ``reqs`` to completion, each submitted when its arrival tick
     (counted from now) is due, round by round; returns the wall seconds
-    (ending in a synchronize) and the wall of each round that decoded
-    and prefilled nothing."""
+    (ending in the overlapped round's flush and a synchronize) and the
+    wall of each round that decoded and prefilled nothing. ``on_tick(t)``
+    runs before the round at tick ``t`` (counted from now); ``results``
+    receives each round's ``(step result, wall seconds)``."""
     pending = sorted(reqs, key=lambda r: (r.arrival, r.rid))
     tick0 = engine.tick
     settled = len(engine.scheduler.completed)
@@ -1658,12 +1677,17 @@ def _drive_trace(engine, reqs):
     while len(engine.scheduler.completed) - settled < len(reqs):
         if engine.tick - tick0 > 5000:
             raise AssertionError("trace did not drain")
+        if on_tick is not None:
+            on_tick(engine.tick - tick0)
         due = [r for r in pending if r.arrival <= engine.tick - tick0]
         pending = pending[len(due):]
         r0 = time.perf_counter()
         res = engine.step(arrivals=due)
+        if results is not None:
+            results.append((res, time.perf_counter() - r0))
         if not res["prefilled"] and res["decoded_slots"]:
             decode_round_s.append(time.perf_counter() - r0)
+    engine.flush()
     torch.cuda.synchronize()
     return time.perf_counter() - t0, decode_round_s
 
@@ -7947,13 +7971,13 @@ LAYER_TRACED = dict(seed=1, n_requests=6, prompt_lo=16, prompt_hi=64,
                     new_lo=24, new_hi=24, mean_interarrival=0.0)
 
 
-def _layer_run(engine, reqs):
+def _layer_run(engine, reqs, on_tick=None, results=None):
     """Serve ``reqs`` through a built engine with the kernel wrappers'
     counts set to 0 just before and read just after: the tokens by
     request, the numbers of the run, and the wrappers' launches, which
     must be (prefill batches + verify calls) x layers for K1 and, for a
     graphed decode program (whose replays call no wrapper), 0 for K2 and
-    K2q."""
+    K2q. ``on_tick`` and ``results`` go to ``_drive_trace``."""
     from apex_tpu_torch.ops import attention_cuda, decode_attention_cuda
     from apex_tpu_torch.serving import lifecycle
 
@@ -7964,8 +7988,9 @@ def _layer_run(engine, reqs):
     for fn in counted.values():
         fn.launches = 0
     base = (engine.prefill_batches, engine.verify_calls,
-            engine.decode_steps, engine.tokens_generated)
-    wall, rounds = _drive_trace(engine, reqs)
+            engine.decode_steps, engine.tokens_generated,
+            engine.device_dispatch_s)
+    wall, rounds = _drive_trace(engine, reqs, on_tick, results)
     launches = {k: fn.launches for k, fn in counted.items()}
     prefills = engine.prefill_batches - base[0]
     verifies = engine.verify_calls - base[1]
@@ -7990,7 +8015,9 @@ def _layer_run(engine, reqs):
     tpot = [x["tpot_s"] * 1e3 for x in lat if x["tpot_s"] is not None]
     tokens = engine.tokens_generated - base[3]
     stats = {"tokens_per_s": tokens / wall, "tokens": tokens,
-             "wall_s": wall, "prefill_batches": prefills,
+             "wall_s": wall,
+             "host_slice_s": wall - (engine.device_dispatch_s - base[4]),
+             "prefill_batches": prefills,
              "verify_calls": verifies,
              "decode_steps": engine.decode_steps - base[2],
              "decode_round_ms": 1e3 * sum(rounds) / max(len(rounds), 1),
@@ -8368,7 +8395,7 @@ def _recorded(engine, route):
     """Record the swap tier's work on ``engine``: the bytes and streams it
     banks and restores and the streams it replays (the restore route of
     each stream), and that the decode graph's cache pointers are unchanged
-    after every swap-in."""
+    after every swap-in. The wrappers return what the engine's own do."""
     bank, swap_in, replay = (engine._swap_out_slot, engine._swap_in_slot,
                              engine._replay_prefill)
     route.update(banked_bytes=0, banked=0, out_ms=[], in_ms=[])
@@ -8383,13 +8410,16 @@ def _recorded(engine, route):
         return handle
 
     def swapped_in(si, handle):
+        # the engine falls back to recompute where a swap-in returns False
         s0 = engine.swap_copy_s
-        swap_in(si, handle)
+        restored = swap_in(si, handle)
         route["in_ms"].append((engine.swap_copy_s - s0) * 1e3)
         if engine._cache_ptrs() != engine._graph_cache:
             raise AssertionError("the cache moved at a swap-in")
-        route.setdefault("swap", []).append(
-            engine.scheduler.slots[si].request.rid)
+        if restored:
+            route.setdefault("swap", []).append(
+                engine.scheduler.slots[si].request.rid)
+        return restored
 
     def replayed(resumed):
         route.setdefault("recompute", []).extend(
@@ -8575,6 +8605,649 @@ def phase_preemption(dev):
     out["burst"] = _burst(cfg, params, dev)
     _log("preemption: " + json.dumps(out))
     del params
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------ serving's recovery and fleet layers:
+# round recovery under the dispatch watchdog, the overlapped round, the
+# fleet router
+
+# the watchdog's budget once an engine is warm, and an injected hang: a
+# clean GPT-2-small dispatch takes milliseconds on an H100, far below the
+# budget, and the hang is far above it
+RECOVER_TIMEOUT_S = 1.0
+RECOVER_HANG_S = 3.0
+# the first round (counted from a run's start) a fault may fire at: past
+# the trace's first admissions
+RECOVER_TICK = 6
+# the overlap phase's turns, serial (False) and overlapped (True)
+OVERLAP_TURNS = (False, True, True, False, False, True)
+ROUTER_REPLICAS = 3
+# the fleet round a replica is killed or wedged at
+ROUTER_FAULT_TICK = 8
+
+
+def _set_plan(plan):
+    """Set ``APEX_FAULT_PLAN`` to ``plan`` (None: unset it), the fault
+    module's spend counters anew."""
+    from apex_tpu_torch.resilience import faults
+
+    faults._cache["fired"] = {}
+    if plan is None:
+        os.environ.pop("APEX_FAULT_PLAN", None)
+    else:
+        os.environ["APEX_FAULT_PLAN"] = json.dumps(plan)
+
+
+def _fault_run(engine, reqs, plan_at=None, at=0):
+    """``_layer_run`` with the plan ``plan_at(tick)`` (``tick`` the
+    engine's own) set before the round ``at`` rounds into the run, the
+    watchdog's budget lowered to ``RECOVER_TIMEOUT_S`` there, and unset
+    after. Returns the tokens, the run's stats, each round's (result,
+    wall) and the ms spent inside each round recovery."""
+    results, spans = [], []
+    recover = engine._recover_round
+
+    def timed(now, failure):
+        t0 = time.perf_counter()
+        try:
+            return recover(now, failure)
+        finally:
+            spans.append((time.perf_counter() - t0) * 1e3)
+
+    def on_tick(t):
+        if plan_at is not None and t == at:
+            engine.dispatch_timeout_s = RECOVER_TIMEOUT_S
+            _set_plan(plan_at(engine.tick))
+
+    engine._recover_round = timed
+    try:
+        tokens, stats = _layer_run(engine, reqs, on_tick, results)
+    finally:
+        _set_plan(None)
+        del engine._recover_round
+    return tokens, stats, results, spans
+
+
+def _first_tick(results, at, prefill):
+    """The first round, counted from the run's start and at or past
+    ``at``, that prefilled (``prefill``) or decoded without prefilling."""
+    for t, (res, _) in enumerate(results):
+        if t >= at and (bool(res["prefilled"]) if prefill
+                        else res["decoded_slots"] and not res["prefilled"]):
+            return t
+    raise AssertionError(f"no {'prefill' if prefill else 'decode'} round "
+                         f"at or past round {at}")
+
+
+def _tokens_held(cfg, params, dev, prompts, want, got, exact):
+    """``got``'s tokens against ``want``'s: equal (fp32, ``exact``), or
+    under rule 2 (bf16); the rule 2 account, or the count of equal
+    streams."""
+    if exact:
+        unequal = [rid for rid in want if got[rid] != want[rid]]
+        if unequal:
+            raise AssertionError(f"streams {unequal} differ from the "
+                                 f"fault-free run's tokens")
+        return {"bit_equal_requests": len(want)}
+    from apex_tpu_torch.serving import model as smodel
+
+    return rule2_check(cfg, smodel.cast_params(params, cfg), dev, prompts,
+                       want, got)
+
+
+def _latency_delta(ref, stats):
+    return {m: {"fault_free": ref[m], "recovered": stats[m]}
+            for m in ("ttft_p50_ms", "ttft_p99_ms", "tpot_p50_ms",
+                      "tpot_p99_ms", "tokens_per_s")}
+
+
+def phase_round_recovery(dev):
+    """``TRACE`` at GPT-2-small's width on the graphed ``recover=True``
+    engine (``LAYER_ENGINE``), fp32 and bf16, against its fault-free run:
+    a decode round that hangs past the watchdog (``wedged``), a decode
+    round that raises (``degraded_relay``, bf16), a prefill that raises
+    mid-admission; then (bf16) every swap-out raising under preemption
+    (``PREEMPT_PAGES``: the streams fall back to recompute with
+    ``swap_failed``) and a decode that fails every round from some round on
+    (``round_attempts=2``: the engine must raise). Held: every stream's
+    tokens against the fault-free run's (fp32 bit for bit, bf16 under
+    rule 2); one ``degraded_round`` for each requeued request and the
+    lifecycle order valid; the decode graph's cache pointers unchanged and
+    its replays after the recovery counted by name in a traced rerun (bf16
+    hang); the abandoned closure, joined, launched nothing (the engine's
+    ``stale_dispatches``, its ``dispatches`` and K1's wrapper unchanged
+    across the join). Recorded: the degraded round's wall and the
+    recovery's own ms, TTFT/TPOT against the fault-free run, and the SLO
+    account of the bf16 hang run (``lifecycle.slo_block``). (What the
+    watchdog costs a fault-free run is ``tests/port/watchdog_cost.py``'s
+    to measure.)"""
+    from apex_tpu_torch.ops import attention_cuda
+    from apex_tpu_torch.serving import (init_gpt_params, lifecycle,
+                                        offered_load, synthetic_trace)
+    from apex_tpu_torch.transformer.testing import TransformerConfig
+
+    out = {}
+    for dtype in ("fp32", "bf16"):
+        t0 = time.perf_counter()
+        cfg = TransformerConfig(**dict(MODEL, bf16=dtype == "bf16"))
+        params = init_gpt_params(cfg, 0, dev)
+        exact = dtype == "fp32"
+        offset = itertools.count()
+
+        def trace():
+            # the same requests, rids moved on a run at a time
+            return _offset_rids(synthetic_trace(vocab=cfg.vocab_size,
+                                                **TRACE)[0],
+                                10**5 * next(offset))
+
+        engine = _layer_engine(cfg, params, dev, recover=True,
+                               round_retry_wait_s=0, dispatch_timeout_s=60)
+        ptrs = engine._graph_cache
+        ref_reqs = trace()
+        prompts = {r.rid: r.prompt for r in ref_reqs}
+        ref_toks, ref_stats, ref_rounds, _ = _fault_run(engine, ref_reqs)
+        decode_at = _first_tick(ref_rounds, RECOVER_TICK, prefill=False)
+        prefill_at = _first_tick(ref_rounds, RECOVER_TICK, prefill=True)
+        cases = [("decode hang", "decode", "wedged", decode_at,
+                  lambda tick: [{"site": "serve_decode", "kind": "hang",
+                                 "seconds": RECOVER_HANG_S,
+                                 "match_ctx": {"tick": tick}}]),
+                 ("prefill raise", "prefill", "degraded_relay", prefill_at,
+                  lambda tick: [{"site": "serve_prefill", "kind": "raise",
+                                 "message": "injected prefill failure",
+                                 "match_ctx": {"tick": tick}}])]
+        if not exact:
+            cases.insert(1, ("decode raise", "decode", "degraded_relay",
+                             decode_at,
+                             lambda tick: [{"site": "serve_decode",
+                                            "kind": "raise",
+                                            "message": "injected decode "
+                                                       "failure",
+                                            "match_ctx": {"tick": tick}}]))
+        side = {"fault_free": ref_stats}
+        for name, phase, verdict, at, plan_at in cases:
+            base = (engine.resilience.degraded_rounds,
+                    len(engine.events.events), engine.stale_dispatches,
+                    len(engine.abandoned_workers))
+            reqs = trace()
+            toks, stats, rounds, spans = _fault_run(engine, reqs, plan_at,
+                                                    at)
+            # the same streams as the fault-free run's, by request
+            shift = reqs[0].rid - ref_reqs[0].rid
+            toks = {rid - shift: t for rid, t in toks.items()}
+            degraded = [(res["degraded"], wall) for res, wall in rounds
+                        if res.get("degraded")]
+            if [(d["phase"], d["verdict"]) for d, _ in degraded] \
+                    != [(phase, verdict)]:
+                raise AssertionError(f"{dtype} {name}: degraded rounds "
+                                     f"{[d for d, _ in degraded]}")
+            requeued = degraded[0][0]["requeued"]
+            events = engine.events.events[base[1]:]
+            marked = [e["rid"] for e in events
+                      if e["event"] == "degraded_round"]
+            if sorted(marked) != sorted(requeued) or not requeued:
+                raise AssertionError(f"{dtype} {name}: degraded_round for "
+                                     f"{marked}, requeued {requeued}")
+            problems = engine.events.validate_order()
+            if problems:
+                raise AssertionError(f"lifecycle order: {problems[:5]}")
+            if engine._cache_ptrs() != ptrs:
+                raise AssertionError("the cache moved at a recovery")
+            after = next(i for i, (res, _) in enumerate(rounds)
+                         if res.get("degraded"))
+            replays = sum(1 for res, _ in rounds[after + 1:]
+                          if res["decoded_slots"])
+            if not replays:
+                raise AssertionError("no decode round after the recovery")
+            # the abandoned closure wakes: it must launch nothing
+            workers = engine.abandoned_workers[base[3]:]
+            launched = (engine.dispatches,
+                        attention_cuda.prefill_attention.launches)
+            for w in workers:
+                w.join(timeout=RECOVER_HANG_S + 30)
+                if w.is_alive():
+                    raise AssertionError("an abandoned dispatch never woke")
+            stale = engine.stale_dispatches - base[2]
+            if stale != len(workers) or len(workers) != (
+                    verdict == "wedged") or launched != (
+                    engine.dispatches,
+                    attention_cuda.prefill_attention.launches):
+                raise AssertionError(
+                    f"{dtype} {name}: {len(workers)} abandoned, {stale} "
+                    f"refused, dispatches and K1 launches {launched} "
+                    f"before the join, {engine.dispatches} and "
+                    f"{attention_cuda.prefill_attention.launches} after")
+            stats.update(
+                held=_tokens_held(cfg, params, dev, prompts, ref_toks,
+                                  toks, exact),
+                requeued=len(requeued), degraded_round_ms=1e3
+                * degraded[0][1], recovery_ms=spans[0],
+                decode_rounds_after_recovery=replays,
+                abandoned_woke_and_refused=stale,
+                latency=_latency_delta(ref_stats, stats))
+            if name == "decode hang" and not exact:
+                stats["traced"] = _layer_traced(
+                    engine, synthetic_trace(vocab=cfg.vocab_size,
+                                            **LAYER_TRACED)[0])
+                out["launches"] = stats["wrapper_launches"]
+                out["traced"] = stats["traced"]["kernels"]
+                served = [r for r in reqs if r.done()]
+                out["slo_block"] = lifecycle.slo_block(
+                    served, stats["wall_s"],
+                    ttft_ms=lifecycle.DEFAULT_SLO_TTFT_MS,
+                    tpot_ms=lifecycle.DEFAULT_SLO_TPOT_MS,
+                    arrival_process="poisson",
+                    offered_load=offered_load(served), log=engine.events,
+                    resilience=engine.resilience_rates())
+            side[name] = stats
+        del engine
+        torch.cuda.empty_cache()
+        if not exact:
+            # every swap-out fails under KV pressure: recompute replays
+            engine = _layer_engine(cfg, params, dev, recover=True,
+                                   round_retry_wait_s=0, preempt=True,
+                                   kv_swap=True, num_pages=PREEMPT_PAGES)
+            reqs = trace()
+            toks, stats, _, _ = _fault_run(
+                engine, reqs, lambda tick: [
+                    {"site": "serve_swap", "kind": "raise",
+                     "match_ctx": {"phase": "swap_out"}}])
+            shift = reqs[0].rid - ref_reqs[0].rid
+            toks = {rid - shift: t for rid, t in toks.items()}
+            failed = [e["rid"] for e in engine.events.events
+                      if e["event"] == "swap_failed"]
+            st = engine.kv_stats
+            if not failed or st.swap_out_failures != len(failed) \
+                    or st.swap_outs or not engine.resilience.preempted:
+                raise AssertionError(
+                    f"swap-out raise: {len(failed)} swap_failed events, "
+                    f"{st.swap_out_failures} failures, {st.swap_outs} "
+                    f"banked, {engine.resilience.preempted} preempted")
+            stats.update(held=_tokens_held(cfg, params, dev, prompts,
+                                           ref_toks, toks, exact),
+                         preempted=engine.resilience.preempted,
+                         swap_failed=len(failed),
+                         restores_recompute=st.restores_recompute)
+            side["swap-out raise"] = stats
+            del engine
+            torch.cuda.empty_cache()
+            # a decode that fails every round: the budget must raise
+            engine = _layer_engine(cfg, params, dev, recover=True,
+                                   round_retry_wait_s=0, round_attempts=2)
+            try:
+                _fault_run(engine, trace(), lambda tick: [
+                    {"site": "serve_decode", "kind": "raise",
+                     "message": "the device is gone"}], RECOVER_TICK)
+            except RuntimeError as exc:
+                if "budget is exhausted" not in str(exc):
+                    raise
+                side["attempt budget"] = {
+                    "raised": str(exc)[:120],
+                    "degraded_rounds": engine.resilience.degraded_rounds}
+            else:
+                raise AssertionError("a decode failing every round did not "
+                                     "exhaust the attempt budget")
+            if engine.resilience.degraded_rounds != 2:
+                raise AssertionError(f"the budget raised after "
+                                     f"{engine.resilience.degraded_rounds} "
+                                     f"degraded rounds, want 2")
+            del engine
+            torch.cuda.empty_cache()
+        side["seconds"] = time.perf_counter() - t0
+        out[dtype] = side
+        _log(f"round recovery, {dtype}: " + json.dumps(side))
+        del params
+        torch.cuda.empty_cache()
+    _log("slo_block (bf16, decode hang recovered): "
+         + json.dumps(out["slo_block"]))
+    return out
+
+
+def _overlap_turn(cfg, params, dev, overlap, kv_quant=False, share=False):
+    """``TRACE`` through a fresh graphed engine (``LAYER_ENGINE``) with the
+    overlapped round or the serial one: tokens, the step results' (tick,
+    admitted, evicted), each request's (admitted, finished) tick, the run's
+    stats, and with ``share`` the busy share of a profiled short trace."""
+    from apex_tpu_torch.serving import synthetic_trace
+
+    engine = _layer_engine(cfg, params, dev, overlap=overlap,
+                           kv_quant=kv_quant)
+    if engine.overlap != overlap:
+        raise AssertionError(f"overlap={overlap} did not resolve")
+    reqs, _ = synthetic_trace(vocab=cfg.vocab_size, **TRACE)
+    results = []
+    toks, stats = _layer_run(engine, reqs, results=results)
+    if engine._pending is not None or engine._cache_ptrs() \
+            != engine._graph_cache:
+        raise AssertionError("a round still in flight, or the cache moved")
+    schedule = [(res["tick"], res["admitted"], res["evicted"])
+                for res, _ in results]
+    ticks = {r.rid: (r.admitted_tick, r.finished_tick) for r in reqs}
+    if share:
+        profile = phase_device_share(engine)
+        stats["device_busy_share"] = None if profile is None \
+            else profile["device_busy_share"]
+    del engine
+    torch.cuda.empty_cache()
+    return toks, schedule, ticks, stats
+
+
+def phase_overlap_serving(dev):
+    """The serial round against the overlapped one at GPT-2-small's width
+    (bf16, graphed K = 1, greedy, ``LAYER_ENGINE``), in turns
+    (``OVERLAP_TURNS``, three each), each turn a fresh engine serving
+    ``TRACE``: the tokens equal bit for bit, the same admissions and
+    evictions at each tick, the same (admitted, finished) ticks; tokens/s,
+    TTFT and TPOT p50/p99, decode-round ms and the host slice (run wall
+    minus ``device_dispatch_s``) of each (the mean of its turns), and the
+    device's busy share of a profiled short trace in each one's first
+    turn. Then one int8-KV turn of each, equal too."""
+    from apex_tpu_torch.serving import init_gpt_params
+    from apex_tpu_torch.transformer.testing import TransformerConfig
+
+    cfg = TransformerConfig(**MODEL)
+    params = init_gpt_params(cfg, 0, dev)
+    runs, seen = {False: [], True: []}, {}
+    for turn, overlap in enumerate(OVERLAP_TURNS):
+        toks, schedule, ticks, stats = _overlap_turn(
+            cfg, params, dev, overlap, share=not runs[overlap])
+        first = seen.setdefault("run", (toks, schedule, ticks))
+        if (toks, schedule, ticks) != first:
+            raise AssertionError(
+                f"turn {turn} (overlap={overlap}): tokens "
+                f"{toks == first[0]}, schedule {schedule == first[1]}, "
+                f"ticks {ticks == first[2]} against the first turn's")
+        runs[overlap].append(stats)
+    keys = ("tokens_per_s", "ttft_p50_ms", "ttft_p99_ms", "tpot_p50_ms",
+            "tpot_p99_ms", "decode_round_ms", "host_slice_s", "wall_s")
+    out = {}
+    for overlap, turns in runs.items():
+        merged = {m: statistics.mean(t[m] for t in turns) for m in keys}
+        merged["turns_tokens_per_s"] = [t["tokens_per_s"] for t in turns]
+        merged["device_busy_share"] = turns[0]["device_busy_share"]
+        merged["wrapper_launches"] = turns[0]["wrapper_launches"]
+        out["overlapped" if overlap else "serial"] = merged
+    out["bit_equal_turns"] = len(OVERLAP_TURNS)
+    int8 = [_overlap_turn(cfg, params, dev, overlap, kv_quant=True)
+            for overlap in (False, True)]
+    if int8[0][:3] != int8[1][:3]:
+        raise AssertionError("int8 KV: the overlapped round's tokens or "
+                             "schedule differ from the serial round's")
+    out["int8 KV"] = {"serial": int8[0][3]["tokens_per_s"],
+                      "overlapped": int8[1][3]["tokens_per_s"],
+                      "bit_equal": True}
+    out["launches"] = runs[True][0]["wrapper_launches"]
+    _log("serving, serial vs overlapped round (graphed, bf16 KV, in "
+         "turns): " + json.dumps(out))
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fleet(cfg, cparams, dev, **router_kw):
+    """A router over ``ROUTER_REPLICAS`` graphed engines (``LAYER_ENGINE``,
+    the prefix cache as ``router_kw`` says) on one card sharing the cast
+    parameter tree, each warmed up; the engines' and the router's ticks
+    then start from the same round, so the fleet log's ticks never go
+    back (the router moves a replica's tick up the same way when it
+    unparks or probes one)."""
+    from apex_tpu_torch.serving import Router
+
+    prefix = router_kw.pop("prefix_cache", None)
+    engines = [_layer_engine(cfg, cparams, dev, prefix_cache=prefix)
+               for _ in range(ROUTER_REPLICAS)]
+    rt = Router(engines, **router_kw)
+    rt.tick = max(e.tick for e in engines)
+    for e in engines:
+        e.tick = rt.tick
+    return engines, rt
+
+
+def _fleet_run(rt, reqs, on_tick=None):
+    """Route ``reqs`` through the fleet, each when its arrival tick
+    (counted from now) is due, until every one is done; the wall seconds
+    (ending in a synchronize). ``on_tick(t)`` runs before round ``t``."""
+    pending = sorted(reqs, key=lambda r: (r.arrival, r.rid))
+    tick0 = rt.tick
+    t0 = time.perf_counter()
+    while not all(r.done() for r in reqs):
+        if rt.tick - tick0 > 5000:
+            raise AssertionError("the fleet did not drain")
+        if on_tick is not None:
+            on_tick(rt.tick - tick0)
+        due = [r for r in pending if r.arrival <= rt.tick - tick0]
+        pending = pending[len(due):]
+        for r in due:
+            if rt.submit(r) is not None:
+                raise AssertionError(f"request {r.rid} was refused")
+        rt.step()
+    rt.step()    # the finished requests' evictions
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _fleet_done(rt, reqs):
+    """The trace's requests the fleet completed (the replicas' warm-up
+    requests left out); every one of them, or it raises (zero loss), with
+    the fleet's lifecycle order valid."""
+    rids = {r.rid for r in reqs}
+    done = [r for r in rt.completed() if r.rid in rids]
+    if sorted(r.rid for r in done) != sorted(rids):
+        raise AssertionError(f"the fleet completed {len(done)} of "
+                             f"{len(rids)} requests")
+    problems = rt.events.validate_order()
+    if problems:
+        raise AssertionError(f"fleet lifecycle order: {problems[:5]}")
+    return done
+
+
+def _fleet_traced(rt, engines, reqs):
+    """``reqs`` through the fleet under torch.profiler: K1 counted by name
+    must be the replicas' (prefill batches + verify calls) x layers, and
+    K2 their decode steps x layers, the graphs' replays included (they
+    call no wrapper); a short window is run again anew, as in
+    ``_layer_traced``. Returns the counts by name."""
+    L = engines[0].cfg.num_layers
+    make = _fresh_copies(reqs)
+
+    def counts():
+        return (sum(e.prefill_batches + e.verify_calls for e in engines),
+                sum(e.decode_steps * e.decode_k for e in engines))
+
+    def serve():
+        base = counts()
+        _fleet_run(rt, make())
+        return tuple(a - b for a, b in zip(counts(), base))
+
+    for attempt in range(PROFILE_ATTEMPTS):
+        prof, (prefills, decodes), _ = _profiled(serve)
+        traced = _count_traced(prof)
+        got = {k: traced[k] for k in ("prefill_attention", "decode_attention",
+                                      "decode_attention_quant")}
+        want = {"prefill_attention": prefills * L,
+                "decode_attention": decodes * L, "decode_attention_quant": 0}
+        if got == want or not all(got[k] <= want[k] for k in want):
+            break
+        _log(f"traced fleet window, attempt {attempt + 1} of "
+             f"{PROFILE_ATTEMPTS}: counted {got} of {want}")
+    if got != want:
+        raise AssertionError(f"traced fleet kernel counts {got} != {want}")
+    _log("fleet router, kernels counted by name: " + json.dumps(got))
+    return got
+
+
+def phase_router(dev):
+    """``ROUTER_REPLICAS`` engines on one card sharing one parameter tree
+    (GPT-2-small, ``LAYER_ENGINE``) under the fleet router: ``round_robin``
+    against ``prefix_affinity`` over ``TRACE`` with a 192-token system
+    prompt (the prefix cache on; the fleet's hit rate of each); a replica
+    killed mid-trace (``router_kill``), fp32 and bf16: zero loss (every
+    request completes, the dead replica's requests replayed on survivors)
+    and every stream against a single engine's run (fp32 bit for bit, bf16
+    under rule 2); a replica round wedged past the router's watchdog
+    (``router_wedge``, bf16): timed out, classified ``wedged``, failed
+    over, and its round, woken on the drained engine, steps nothing.
+    K1's wrapper over the fleet counts its prefill calls x layers and
+    K2's none (the decode is graphed); a traced fleet window counts K1
+    and K2 by name (``_fleet_traced``). The fleet's account
+    (``router_block``) and SLO block are logged."""
+    from apex_tpu_torch.ops import attention_cuda, decode_attention_cuda
+    from apex_tpu_torch.serving import (init_gpt_params, lifecycle,
+                                        offered_load, router_block,
+                                        synthetic_trace)
+    from apex_tpu_torch.serving import model as smodel
+    from apex_tpu_torch.transformer.testing import TransformerConfig
+
+    counted = {"prefill_attention": attention_cuda.prefill_attention,
+               "decode_attention": decode_attention_cuda.decode_attention,
+               "decode_attention_quant":
+                   decode_attention_cuda.decode_attention_quant}
+    out = {}
+    cfg = TransformerConfig(**MODEL)
+    params = init_gpt_params(cfg, 0, dev)
+    cparams = smodel.cast_params(params, cfg)
+    system = [int(t) for t in np.random.RandomState(SYSTEM_PROMPT_SEED)
+              .randint(0, cfg.vocab_size, SYSTEM_PROMPT_LEN)]
+    shared = dict(TRACE, system_prompt=system,
+                  prompt_hi=min(TRACE["prompt_hi"],
+                                ENGINE["prefill_len"] - SYSTEM_PROMPT_LEN))
+    hit_rates, blocks = {}, {}
+    for policy in ("round_robin", "prefix_affinity"):
+        engines, rt = _fleet(cfg, cparams, dev, prefix_cache=True,
+                             policy=policy)
+        if engines[0].params["word_embeddings"].data_ptr() != \
+                engines[1].params["word_embeddings"].data_ptr():
+            raise AssertionError("the replicas do not share the weights")
+        reqs, _ = synthetic_trace(vocab=cfg.vocab_size, **shared)
+        base = [(e.prefill_batches, e.prefix.hit_tokens,
+                 e.prefix.lookup_tokens) for e in engines]
+        attention_cuda.prefill_attention.launches = 0
+        wall = _fleet_run(rt, reqs)
+        prefills = sum(e.prefill_batches - b[0]
+                       for e, b in zip(engines, base))
+        launches = attention_cuda.prefill_attention.launches
+        hits = sum(e.prefix.hit_tokens - b[1]
+                   for e, b in zip(engines, base))
+        looked = sum(e.prefix.lookup_tokens - b[2]
+                     for e, b in zip(engines, base))
+        hit_rates[policy] = hits / looked if looked else None
+        done = _fleet_done(rt, reqs)
+        if launches != prefills * cfg.num_layers:
+            raise AssertionError(f"{policy}: K1's wrapper counted "
+                                 f"{launches}, want {prefills} x layers")
+        blocks[policy] = (rt, done, wall, reqs)
+        out[policy] = {"wall_s": wall, "fleet_prefix_hit_rate":
+                       hit_rates[policy], "routed": [r.routed for r in
+                                                     rt.replicas],
+                       "prefill_calls": prefills, "k1_launches": launches}
+        del engines, rt
+        torch.cuda.empty_cache()
+    for policy, (rt, done, wall, reqs) in blocks.items():
+        block = router_block(rt, done, wall, trace_id=f"TRACE+system-"
+                             f"{SYSTEM_PROMPT_LEN}", arrival_process="poisson",
+                             prefix_hit_rate_by_policy=hit_rates)
+        _log(f"router_block ({policy}): " + json.dumps(block))
+        out[policy]["router_block"] = block
+    rt, done, wall, reqs = blocks["prefix_affinity"]
+    out["slo_block"] = lifecycle.slo_block(
+        done, wall, ttft_ms=lifecycle.DEFAULT_SLO_TTFT_MS,
+        tpot_ms=lifecycle.DEFAULT_SLO_TPOT_MS, arrival_process="poisson",
+        offered_load=offered_load(reqs))
+    _log("slo_block (fleet, prefix_affinity): "
+         + json.dumps(out["slo_block"]))
+    del blocks, rt, done
+    torch.cuda.empty_cache()
+    engines, rt = _fleet(cfg, cparams, dev)
+    out["traced"] = _fleet_traced(rt, engines, synthetic_trace(
+        vocab=cfg.vocab_size, **LAYER_TRACED)[0])
+    del engines, rt
+    torch.cuda.empty_cache()
+
+    for dtype in ("fp32", "bf16"):
+        kcfg = TransformerConfig(**dict(MODEL, bf16=dtype == "bf16"))
+        kparams = params if dtype == "bf16" else init_gpt_params(kcfg, 0,
+                                                                 dev)
+        kcast = smodel.cast_params(kparams, kcfg)
+        single = _layer_engine(kcfg, kcast, dev)
+        reqs, _ = synthetic_trace(vocab=kcfg.vocab_size, **TRACE)
+        single.run_trace(reqs)
+        want = {r.rid: list(r.out_tokens) for r in reqs}
+        prompts = {r.rid: r.prompt for r in reqs}
+        del single
+        torch.cuda.empty_cache()
+        cases = [("kill", "router_kill", {"kind": "raise",
+                                          "message": "injected replica "
+                                                     "death"})]
+        if dtype == "bf16":
+            cases.append(("wedge", "router_wedge",
+                          {"kind": "hang", "seconds": RECOVER_HANG_S}))
+        for name, site, fault in cases:
+            engines, rt = _fleet(kcfg, kcast, dev, breaker_failures=1,
+                                 probe_wait_rounds=10 ** 6)
+            victim = engines[1]
+
+            def on_tick(t, rt=rt, site=site, fault=fault, name=name):
+                if t == ROUTER_FAULT_TICK:
+                    if name == "wedge":
+                        rt.step_timeout_s = RECOVER_TIMEOUT_S
+                    _set_plan([dict(fault, site=site, match_ctx={
+                        "tick": rt.tick, "replica": "r1"})])
+
+            reqs, _ = synthetic_trace(vocab=kcfg.vocab_size, **TRACE)
+            base = sum(e.prefill_batches for e in engines)
+            for fn in counted.values():
+                fn.launches = 0
+            try:
+                wall = _fleet_run(rt, reqs, on_tick)
+            finally:
+                _set_plan(None)
+            counts = {k: fn.launches for k, fn in counted.items()}
+            launches = counts["prefill_attention"]
+            prefills = sum(e.prefill_batches for e in engines) - base
+            got = {r.rid: list(r.out_tokens) for r in reqs}
+            r1 = rt.replicas[1]
+            _fleet_done(rt, reqs)
+            if r1.state != "dead" or rt.stats["deaths"] != 1 \
+                    or not rt.stats["replayed"]:
+                raise AssertionError(f"{dtype} {name}: replica r1 "
+                                     f"{r1.history}, stats {rt.stats}")
+            if counts != {"prefill_attention": prefills * kcfg.num_layers,
+                          "decode_attention": 0,
+                          "decode_attention_quant": 0}:
+                raise AssertionError(
+                    f"the wrappers counted {counts}, want K1 {prefills} x "
+                    f"layers and no K2 wrapper call (graphed decode)")
+            stats = {"wall_s": wall, "stats": dict(rt.stats),
+                     "verdict": r1.last_verdict, "history": r1.history,
+                     "k1_launches": launches,
+                     "held": _tokens_held(kcfg, kparams, dev, prompts,
+                                          want, got, dtype == "fp32")}
+            if name == "wedge":
+                launched = victim.dispatches
+                for w in rt.abandoned_workers:
+                    w.join(timeout=RECOVER_HANG_S + 30)
+                if r1.last_verdict != "wedged" or victim.stale_steps != 1 \
+                        or victim.dispatches != launched \
+                        or victim.scheduler.active_indices() \
+                        or victim.scheduler.queue:
+                    raise AssertionError(
+                        f"the wedged round: verdict {r1.last_verdict}, "
+                        f"{victim.stale_steps} stale steps, dispatches "
+                        f"{launched} -> {victim.dispatches}")
+                stats["woken_round_refused"] = victim.stale_steps
+            out[f"{name} ({dtype})"] = stats
+            if name == "kill" and dtype == "bf16":
+                out["launches"] = counts
+            del engines, rt, victim
+            torch.cuda.empty_cache()
+        del kcast
+        if dtype == "fp32":
+            del kparams
+    _log("fleet router: " + json.dumps(
+        {k: v for k, v in out.items() if k != "slo_block"}))
+    del params, cparams
     torch.cuda.empty_cache()
     return out
 
@@ -9334,6 +10007,21 @@ def main():
     mark("serving, prefix cache")
     layers["preemption"] = phase_preemption(dev)
     mark("serving, preemption")
+    # round recovery under the dispatch watchdog, the overlapped round and
+    # the fleet router, on K1 and K2 (graphed)
+    torch.cuda.empty_cache()
+    layers["round_recovery"] = phase_round_recovery(dev)
+    mark("serving, round recovery")
+    layers["overlap"] = phase_overlap_serving(dev)
+    mark("serving, overlapped round")
+    layers["router"] = phase_router(dev)
+    mark("serving, fleet router")
+    launches_by["serving_round_recovery"] = \
+        layers["round_recovery"]["launches"]
+    traced_by["serving_round_recovery"] = layers["round_recovery"]["traced"]
+    launches_by["serving_overlap"] = layers["overlap"]["launches"]
+    launches_by["serving_router"] = layers["router"]["launches"]
+    traced_by["serving_router"] = layers["router"]["traced"]
     for path, stats in (
             ("serving_spec_decode",
              layers["spec_decode"]["bf16"][f"spec_decode={SPEC_K}"]),

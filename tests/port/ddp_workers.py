@@ -52,6 +52,9 @@ def _entry(rank, world, tmp, payload):
     try:
         torch.save(ddp_case(rank, world, payload),
                    os.path.join(tmp, f"{rank}.pt"))
+        # no rank tears the group down while a peer may still be in the
+        # last collective on it
+        dist.barrier()
     finally:
         dist.destroy_process_group()
 

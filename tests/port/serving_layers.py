@@ -105,6 +105,7 @@ def serve(engine, reqs, clock, tick_s=TICK_S, burst=None):
         due = [r for r in pending if r.arrival <= engine.tick]
         pending = [r for r in pending if r.arrival > engine.tick]
         engine.step(arrivals=due)
+    engine.flush()   # the overlapped round's tokens in flight land
     return record(engine, list(reqs) + list(burst or ()))
 
 

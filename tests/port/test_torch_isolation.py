@@ -114,6 +114,12 @@ def test_importing_the_port_loads_no_jax_and_no_apex_tpu():
                 "apex_tpu_torch.examples.dcgan",
                 "apex_tpu_torch.data",
                 "apex_tpu_torch.data.imagefolder",
+                "apex_tpu_torch.resilience",
+                "apex_tpu_torch.resilience.faults",
+                "apex_tpu_torch.overlap",
+                "apex_tpu_torch.serving.router",
+                "apex_tpu_torch.serving.resilience",
+                "apex_tpu_torch.serving.lifecycle",
                 "tests.port.tp_workers", "tests.port.ddp_workers",
                 "tests.port.zero_workers"):
         assert mod in mods, mod

@@ -2036,6 +2036,215 @@ def test_swap_restore_on_the_card_gives_the_unpreempted_tokens(
     assert eng.resilience.preempted > 0
 
 
+# --------------------- round recovery, the overlapped round, the router
+
+def _with_plan(monkeypatch, plan):
+    import json
+
+    from apex_tpu_torch.resilience import faults
+
+    faults._cache["fired"] = {}
+    monkeypatch.setenv("APEX_FAULT_PLAN", json.dumps(plan))
+
+
+@pytest.mark.parametrize("kind", ["raise", "hang"])
+def test_recovered_engine_on_the_card_gives_the_fault_free_tokens(
+        dev, monkeypatch, kind):
+    """fp32, graphed: a decode round that raises or hangs past the
+    watchdog is recovered (the cache zeroed in place, the graph's
+    pointers kept), the requeued streams replay through K1, and every
+    stream's tokens are the fault-free run's bit for bit; the abandoned
+    closure, woken, launches nothing."""
+    cfg = _layer_cfg(False)
+    params = init_gpt_params(cfg, 0, dev)
+    want, _, _ = _layer_serve(dev, cfg, params, SPEC_TRACE)
+    eng = ServingEngine(cfg, params, device=dev, recover=True,
+                        round_retry_wait_s=0, dispatch_timeout_s=60,
+                        **LAYER_SIZES)
+    reqs, _ = synthetic_trace(**SPEC_TRACE)
+    pending = sorted(reqs, key=lambda r: (r.arrival, r.rid))
+    while len(eng.scheduler.completed) < len(reqs):
+        if eng.tick == 3:
+            ptrs = eng._cache_ptrs()
+            fault = {"site": "serve_decode", "kind": kind,
+                     "match_ctx": {"tick": 3}}
+            if kind == "hang":
+                fault["seconds"] = 6.0
+                eng.dispatch_timeout_s = 1.0
+            _with_plan(monkeypatch, [fault])
+        due = [r for r in pending if r.arrival <= eng.tick]
+        pending = pending[len(due):]
+        eng.step(arrivals=due)
+    monkeypatch.delenv("APEX_FAULT_PLAN")
+    assert eng.resilience.degraded_rounds == 1
+    assert eng.resilience.last_verdict == ("wedged" if kind == "hang"
+                                           else "degraded_relay")
+    assert eng._cache_ptrs() == ptrs == eng._graph_cache
+    assert {r.rid: list(r.out_tokens) for r in reqs} == want
+    assert eng.events.validate_order() == []
+    launched = eng.dispatches
+    for w in eng.abandoned_workers:
+        w.join(timeout=30)
+    assert eng.stale_dispatches == (1 if kind == "hang" else 0)
+    assert eng.dispatches == launched
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16", "int8"])
+def test_overlapped_round_on_the_card_gives_the_serial_tokens(dev, kv_quant):
+    """bf16, graphed K = 1: the overlapped round's tokens, admissions and
+    finish ticks are the serial round's bit for bit (only the host
+    schedule moves)."""
+    cfg = _layer_cfg(True)
+    params = init_gpt_params(cfg, 0, dev)
+    runs = []
+    for overlap in (False, True):
+        eng = ServingEngine(cfg, params, device=dev, overlap=overlap,
+                            kv_quant=kv_quant, **LAYER_SIZES)
+        assert eng.overlap == overlap and eng._graph is not None
+        reqs, _ = synthetic_trace(**SPEC_TRACE)
+        eng.run_trace(reqs)
+        assert eng._pending is None
+        runs.append({r.rid: (list(r.out_tokens), r.admitted_tick,
+                             r.finished_tick) for r in reqs})
+    assert runs[0] == runs[1]
+
+
+def test_drained_replica_late_round_launches_nothing(dev, monkeypatch):
+    """A replica round wedged past the router's watchdog: the replica is
+    drained and its requests replay on the survivor; the wedged round,
+    woken, finds the engine's epoch moved and steps nothing (no
+    dispatch, no admission)."""
+    from apex_tpu_torch.serving import Router
+
+    cfg = _layer_cfg(False)
+    params = init_gpt_params(cfg, 0, dev)
+    want, _, _ = _layer_serve(dev, cfg, params, SPEC_TRACE)
+    engines = [ServingEngine(cfg, params, device=dev, **LAYER_SIZES)
+               for _ in range(2)]
+    rt = Router(engines, breaker_failures=1, probe_wait_rounds=10 ** 6)
+    reqs, _ = synthetic_trace(**SPEC_TRACE)
+    for r in reqs:
+        assert rt.submit(r) is None
+    for _ in range(3):
+        rt.step()
+    _with_plan(monkeypatch, [{"site": "router_wedge", "kind": "hang",
+                              "seconds": 6.0,
+                              "match_ctx": {"tick": rt.tick,
+                                            "replica": "r1"}}])
+    rt.step_timeout_s = 1.0
+    while not all(r.done() for r in reqs):
+        rt.step()
+    monkeypatch.delenv("APEX_FAULT_PLAN")
+    late = engines[1]
+    launched = late.dispatches
+    for w in rt.abandoned_workers:
+        w.join(timeout=30)
+    assert rt.replicas[1].state == "dead" and late.stale_steps == 1
+    assert late.dispatches == launched and late.epoch == 1
+    assert not late.scheduler.active_indices() and not late.scheduler.queue
+    assert {r.rid: list(r.out_tokens) for r in reqs} == want
+
+
+def test_launch_hung_on_the_card_recovers_to_the_fault_free_tokens(
+        dev, monkeypatch):
+    """fp32, graphed: the second prefill hangs inside its launch, holding
+    the engine lock, until the watchdog times it out; the launch then
+    ends, recovery takes the lock and zeroes the cache in place behind it,
+    and every stream's tokens are the fault-free run's bit for bit."""
+    import itertools
+    import threading
+
+    from apex_tpu_torch.serving import model as smodel
+    from apex_tpu_torch.serving import resilience as serve_res
+
+    cfg = _layer_cfg(False)
+    params = init_gpt_params(cfg, 0, dev)
+    want, _, _ = _layer_serve(dev, cfg, params, SPEC_TRACE)
+    eng = ServingEngine(cfg, params, device=dev, recover=True,
+                        round_retry_wait_s=0, dispatch_timeout_s=60,
+                        **LAYER_SIZES)
+    ptrs = eng._cache_ptrs()
+    gate = threading.Event()
+    real, calls = smodel.prefill, itertools.count()
+
+    def prefill(*args, **kwargs):
+        if next(calls) == 1:
+            gate.wait(60)
+        return real(*args, **kwargs)
+
+    run = eng._watchdog.run
+
+    def watched(fn, timeout_s, phase):
+        try:
+            return run(fn, timeout_s, phase)
+        except serve_res.DispatchFailure:
+            gate.set()
+            raise
+
+    monkeypatch.setattr(smodel, "prefill", prefill)
+    monkeypatch.setattr(eng._watchdog, "run", watched)
+    eng.dispatch_timeout_s = 5.0
+    reqs, _ = synthetic_trace(**SPEC_TRACE)
+    try:
+        eng.run_trace(reqs)
+    finally:
+        gate.set()
+    for w in eng.abandoned_workers:
+        w.join(timeout=30)
+    assert len(eng.abandoned_workers) == 1
+    assert (eng.resilience.degraded_rounds, eng.resilience.last_verdict,
+            eng.epoch) == (1, "wedged", 1)
+    assert eng._cache_ptrs() == ptrs == eng._graph_cache
+    assert {r.rid: list(r.out_tokens) for r in reqs} == want
+
+
+def test_replica_wedged_in_its_decode_fetch_on_the_card_writes_nothing(
+        dev, monkeypatch):
+    """fp32, graphed: a replica's round blocks in the fetch of its decode
+    tokens past the router's watchdog; the replica is drained and its
+    streams replay on the survivor. Woken, the round takes the graph's
+    tokens and drops them (the epoch moved): every stream is a single
+    engine's, bit for bit."""
+    import threading
+
+    from apex_tpu_torch.serving import Router
+
+    cfg = _layer_cfg(False)
+    params = init_gpt_params(cfg, 0, dev)
+    want, _, _ = _layer_serve(dev, cfg, params, SPEC_TRACE)
+    engines = [ServingEngine(cfg, params, device=dev, **LAYER_SIZES)
+               for _ in range(2)]
+    rt = Router(engines, breaker_failures=1, probe_wait_rounds=10 ** 6)
+    late = engines[1]
+    gate, entered = threading.Event(), threading.Event()
+    fetch = late._fetch_tokens
+
+    def wedged(toks):
+        if late.tick == 3 and not entered.is_set():
+            entered.set()
+            gate.wait(60)
+        return fetch(toks)
+
+    monkeypatch.setattr(late, "_fetch_tokens", wedged)
+    reqs, _ = synthetic_trace(**SPEC_TRACE)
+    for r in reqs:
+        assert rt.submit(r) is None
+    try:
+        while not all(r.done() for r in reqs):
+            if rt.tick == 3:
+                rt.step_timeout_s = 1.0
+            if rt.replicas[1].state == "dead" and not gate.is_set():
+                gate.set()
+                rt.abandoned_workers[0].join(timeout=30)
+            rt.step()
+    finally:
+        gate.set()
+    assert entered.is_set() and rt.replicas[1].state == "dead"
+    assert (late.stale_steps, late.epoch, late.tick) == (1, 1, 3)
+    assert not late.scheduler.active_indices() and not late.scheduler.queue
+    assert {r.rid: list(r.out_tokens) for r in reqs} == want
+
+
 # ------------------------------------------------------------ K12 - K15
 # ragged leaves: a scalar tail (1, 3, 767), whole vectors (768), a ragged
 # 4099, an empty and an all-zero leaf, two blocks (CHUNK + 5), a 2-D leaf

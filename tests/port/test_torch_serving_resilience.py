@@ -14,8 +14,9 @@ deadline shedding, KV-pressure preemption and the host swap tier,
 * ``_select_victim`` and ``grow`` make JAX's decisions on
   hypothesis-drawn schedulers; ``SwappedPages`` seals JAX's digest over
   the same bytes (bf16, int8 and fp32 leaves) and refuses changed bytes.
-* The knobs resolve as JAX's, and the layers the port has not taken yet
-  (``recover``, ``overlap``, ``tp``) raise and name their slice.
+* The knobs resolve as JAX's: ``recover`` and ``overlap`` resolve and
+  pair with preemption, speculation and each other as JAX's do, and
+  ``tp``, a later slice of the port, raises and names it.
 """
 
 import jax.numpy as jnp
@@ -340,8 +341,8 @@ def test_lifecycle_suspension_chains_match_jax():
 
 def test_resilience_and_swap_knob_asymmetry(monkeypatch):
     for name in ("APEX_SERVE_ADMIT", "APEX_SERVE_SHED", "APEX_SERVE_PREEMPT",
-                 "APEX_SERVE_KV_SWAP", "APEX_SERVE_KV_RESTORE",
-                 "APEX_SERVE_SLO_TTFT_MS"):
+                 "APEX_SERVE_RECOVER", "APEX_SERVE_KV_SWAP",
+                 "APEX_SERVE_KV_RESTORE", "APEX_SERVE_SLO_TTFT_MS"):
         monkeypatch.delenv(name, raising=False)
     for bad in (-1, 1.5, "4", True):
         with pytest.raises(ValueError, match="admit="):
@@ -356,13 +357,19 @@ def test_resilience_and_swap_knob_asymmetry(monkeypatch):
     monkeypatch.setenv("APEX_SERVE_ADMIT", "lots")
     with pytest.warns(UserWarning, match="lots"):
         assert tres.resolve_admit() == 0
-    for fn, env in ((tres.resolve_shed, "APEX_SERVE_SHED"),
-                    (tres.resolve_preempt, "APEX_SERVE_PREEMPT")):
+    for fn, jfn, env in (
+            (tres.resolve_shed, jres.resolve_shed, "APEX_SERVE_SHED"),
+            (tres.resolve_preempt, jres.resolve_preempt,
+             "APEX_SERVE_PREEMPT"),
+            (tres.resolve_recover, jres.resolve_recover,
+             "APEX_SERVE_RECOVER")):
         with pytest.raises(ValueError, match="True/False/None"):
             fn(1)
-        assert fn() is False
+        with pytest.raises(ValueError):
+            jfn(1)
+        assert fn() is False is jfn()
         monkeypatch.setenv(env, "1")
-        assert fn() is True and fn(False) is False
+        assert fn() is True is jfn() and fn(False) is False
         monkeypatch.setenv(env, "maybe")
         with pytest.warns(UserWarning, match="maybe"):
             assert fn() is False
@@ -389,14 +396,19 @@ def test_resilience_and_swap_knob_asymmetry(monkeypatch):
     assert ttier.resolve_kv_restore("swap", swap_enabled=True) == "swap"
 
 
-def test_engine_resilience_pairings_match_jax(monkeypatch):
+def test_engine_resilience_pairings_match_jax(monkeypatch, jax_tree):
     """preempt=True over a pool that cannot grow one request to max_seq
     raises, the preference falls back; kv_swap=True without preemption
     raises, the preference falls back; kv_restore="swap" without the
-    tier raises; shed_ttft_ms wants a positive number; recover, overlap
-    and tp ask for later slices and raise naming them."""
+    tier raises; shed_ttft_ms wants a positive number; tp asks for a
+    later slice and raises naming it; overlap pairs with preempt,
+    recover and spec_decode as JAX's engine does: two demands raise, a
+    demand drops the other side's preference, two preferences keep the
+    serial round (each resolution compared with JAX's engine built the
+    same way)."""
     for name in ("APEX_SERVE_PREEMPT", "APEX_SERVE_KV_SWAP",
-                 "APEX_SERVE_SLO_TTFT_MS"):
+                 "APEX_SERVE_SLO_TTFT_MS", "APEX_SERVE_RECOVER",
+                 "APEX_SERVE_OVERLAP", "APEX_SPEC_DECODE"):
         monkeypatch.delenv(name, raising=False)
     cfg = TConfig(**sl.KW)
 
@@ -414,11 +426,46 @@ def test_engine_resilience_pairings_match_jax(monkeypatch):
     for bad in (0, -5, True, "9"):
         with pytest.raises(ValueError, match="shed_ttft_ms="):
             build(shed_ttft_ms=bad)
-    for arg, value, words in (("recover", True, "round recovery"),
-                              ("overlap", True, "overlapped round"),
-                              ("tp", 2, "tensor-parallel")):
-        with pytest.raises(ValueError, match=words):
-            build(**{arg: value})
+    with pytest.raises(ValueError, match="tensor-parallel"):
+        build(tp=2)
+    jcfg = sl.JConfig(**sl.KW)
+
+    def resolved(e):
+        return (e.overlap, e.preempt, e.recover, e.spec_k, e.decode_k)
+
+    for extra in (dict(overlap=True, preempt=True),
+                  dict(overlap=True, recover=True),
+                  dict(overlap=True, spec_decode=2),
+                  dict(overlap="yes"), dict(recover=1)):
+        with pytest.raises(ValueError):
+            sl.JEngine(jcfg, jax_tree, **dict(sl.ENGINE, **extra))
+        with pytest.raises(ValueError):
+            build(**extra)
+    for env, cases in (
+            ({}, ({}, dict(overlap=True), dict(recover=True),
+                  dict(overlap=True, spec_decode=None, decode_k=4))),
+            ({"APEX_SERVE_PREEMPT": "1", "APEX_SERVE_RECOVER": "1"},
+             ({}, dict(overlap=True), dict(preempt=False))),
+            ({"APEX_SERVE_OVERLAP": "1"},
+             ({}, dict(preempt=True), dict(recover=True),
+              dict(spec_decode=2))),
+            ({"APEX_SERVE_OVERLAP": "1", "APEX_SPEC_DECODE": "2"},
+             ({}, dict(overlap=True), dict(overlap=False))),
+            ({"APEX_SERVE_OVERLAP": "1", "APEX_SERVE_PREEMPT": "1"},
+             ({},))):
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        for extra in cases:
+            want = resolved(sl.JEngine(jcfg, jax_tree,
+                                       **dict(sl.ENGINE, **extra)))
+            assert resolved(build(**extra)) == want, (env, extra)
+        for k in env:
+            monkeypatch.delenv(k)
+    e = build(recover=True, dispatch_timeout_s=7, round_attempts=5,
+              round_retry_wait_s=0)
+    assert (e.recover, e.dispatch_timeout_s, e.round_attempts,
+            e._round_retry.retry_wait) == (True, 7.0, 5, 0)
+    assert e.resilience_rates()["degraded_rounds"] == 0
     e = build(recover=False, overlap=False, tp=1, preempt=True,
               kv_swap=True)
     assert e.preempt and e.kv_swap and e.kv_stats is not None

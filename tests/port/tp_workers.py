@@ -63,8 +63,15 @@ def _entry(rank, world, tmp, case_name, payload):
         parallel_state.initialize_model_parallel(world, backend="gloo")
         out = globals()[case_name](rank, world, payload)
         torch.save(out, os.path.join(tmp, f"{rank}.pt"))
-        parallel_state.destroy_model_parallel()
+        # no rank tears its groups down while a peer is still working: a
+        # case whose ranks never meet after the groups are built (the
+        # refusal case) otherwise closes one rank's connections under the
+        # other
+        dist.barrier()
     finally:
+        # the tp subgroups go before the default group, here, and not
+        # whenever the interpreter drops the last reference to them
+        parallel_state.destroy_model_parallel()
         dist.destroy_process_group()
 
 
